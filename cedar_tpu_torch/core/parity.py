@@ -1,0 +1,61 @@
+"""Parity (even/odd) grid decomposition, 2D.
+
+PyTorch counterpart of :mod:`cedar_tpu.core.parity`.  The JAX package
+builds these from reshapes because a double-strided slice is a lane gather
+on the TPU; here strided views and strided writes are plain indexing.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# channel order: (z parity, w parity)
+_PARITIES = [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+def _split_axis(a: torch.Tensor, axis: int):
+    """(…, n, …) -> (even, odd) subgrids along ``axis``."""
+    even = [slice(None)] * a.ndim
+    odd = [slice(None)] * a.ndim
+    even[axis] = slice(0, None, 2)
+    odd[axis] = slice(1, None, 2)
+    return a[tuple(even)], a[tuple(odd)]
+
+
+def deinterleave2(a: torch.Tensor):
+    """Split (nx, ny) into parity subgrids.
+
+    Returns dict ``(pz, pw) -> subgrid`` with shapes
+    ``(ceil/floor(nx/2), ceil/floor(ny/2))`` according to parity.
+    """
+    out = {}
+    for pz, r in zip((0, 1), _split_axis(a, 0)):
+        out[(pz, 0)], out[(pz, 1)] = _split_axis(r, 1)
+    return out
+
+
+def interleave2(parts: dict, nx: int, ny: int) -> torch.Tensor:
+    """Merge parity subgrids back into an (nx, ny) tensor (missing -> 0)."""
+    ref = next(v for v in parts.values() if v is not None)
+    out = ref.new_zeros((nx, ny))
+    for pz, pw in _PARITIES:
+        v = parts.get((pz, pw))
+        if v is not None:
+            out[pz::2, pw::2] = v
+    return out
+
+
+def subgrid_sample(sub: torch.Tensor, dz: int, dw: int, out_shape):
+    """``out[z, w] = sub[z + dz, w + dw]``, zero outside, padded/cropped to
+    ``out_shape`` (coarse grid)."""
+    out = sub.new_zeros(tuple(out_shape))
+    dst, src = [], []
+    for d, n_out, n_sub in zip((dz, dw), out_shape, sub.shape):
+        lo = max(-d, 0)
+        hi = min(n_out, n_sub - d)
+        if hi <= lo:
+            return out
+        dst.append(slice(lo, hi))
+        src.append(slice(lo + d, hi + d))
+    out[tuple(dst)] = sub[tuple(src)]
+    return out

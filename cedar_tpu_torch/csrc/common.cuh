@@ -1,0 +1,42 @@
+// Shared helpers of the port's 2D kernels.
+//
+// Arithmetic goes through the round-to-nearest intrinsics so that nvcc
+// does not contract a*b + c into one FMA: each product and each sum rounds
+// once, in the term order of the PyTorch reference functions
+// (ops/stencil2.offdiag_apply, ops/interp2.restrict / interp_add), so a
+// kernel and its plain version agree to the last bit or within a few ulps.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace cedar {
+
+template <typename T> struct Arith;
+
+template <> struct Arith<float> {
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+};
+
+template <> struct Arith<double> {
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
+};
+
+// dtype codes of the C entry points (ops/cuda_build.DTYPE_CODES)
+constexpr int kFloat32 = 0;
+constexpr int kFloat64 = 1;
+
+// 2D launch shape: x runs along the contiguous (w) axis, y along rows (z).
+constexpr int kBlockX = 32;
+constexpr int kBlockY = 8;
+
+inline dim3 grid_for(int nrows, int ncols) {
+  return dim3((ncols + kBlockX - 1) / kBlockX, (nrows + kBlockY - 1) / kBlockY);
+}
+
+}  // namespace cedar

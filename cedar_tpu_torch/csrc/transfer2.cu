@@ -1,0 +1,174 @@
+// K2 (restrict) and K3 (interp-add): the 2D BoxMG grid transfers.
+//
+// K2 replaces the Pallas kernel cedar_tpu/ops/pallas_transfer2.py
+// `_restrict_kernel` (called by `_restrict_call` / `restrict`): the coarse
+// right-hand side cb = Pᵀ res, gathered through the 8 CI weight planes.
+// K3 replaces `_interp_kernel` (called by `_interp_call` / `interp_add`):
+// q += P qc, plus res / diag at fine-only points.  The math and the term
+// order are ops/interp2.py `restrict` and `interp_add` of this package
+// (reference: BMG2_SymStd_restrict.f90:76-92,
+// BMG2_SymStd_interp_add.f90:101-137).
+//
+// What bounds them on the H100: bytes.  K2 reads the fine residual once
+// (9 reads per coarse point, each fine value shared by up to 4 coarse
+// points through L1/L2) and 8 CI planes at coarse size; K3 reads q, res,
+// the diagonal and the CI planes and writes q: a handful of flops per
+// byte.  Design: one thread per output point, consecutive threads on
+// consecutive w, so the dominant fine-grid streams are coalesced (K2's
+// stride-2 fine reads touch every sector of a row pair once).  The
+// Pallas versions work on a lane-parity-split residual and emit four
+// parity parts that XLA merges afterwards, because Mosaic cannot reshape
+// lanes in a kernel; here the kernels read the dense residual and K3 adds
+// into q in place, so neither split nor merge pass exists.
+//
+// They read the unpadded CI of shape (8, nxc+1, nyc+1): the high row nxc
+// and column nyc hold the weights of fine points beyond the last coarse
+// point (core/types.py InterpDir2).  Fine indices outside [0, nx) x [0, ny)
+// and coarse indices nxc / nyc read as zero.
+
+#include "common.cuh"
+
+namespace cedar {
+namespace {
+
+// InterpDir2 plane indices (core/types.py)
+constexpr int LL = 0, LR = 1, LA = 2, LB = 3, LSW = 4, LNW = 5, LNE = 6, LSE = 7;
+
+template <typename T>
+struct CI {
+  const T* __restrict__ p;
+  long long plane;  // (nxc+1)*(nyc+1)
+  int stride;       // nyc+1
+  __device__ __forceinline__ T operator()(int d, int k, int m) const {
+    return p[d * plane + (long long)k * stride + m];
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ T fine_at(const T* __restrict__ r, int z, int w,
+                                     int nx, int ny) {
+  return (z >= 0 && z < nx && w >= 0 && w < ny) ? r[(long long)z * ny + w]
+                                                : T(0);
+}
+
+// cb[zc, wc] = res[2zc, 2wc] + Σ weight · res[2zc+du, 2wc+dv], in
+// interp2.PW_TABLE order.
+template <typename T>
+__global__ void restrict_kernel(const T* __restrict__ ci_p,
+                                const T* __restrict__ res,
+                                T* __restrict__ cb, int nx, int ny, int nxc,
+                                int nyc) {
+  using A = Arith<T>;
+  const int wc = blockIdx.x * blockDim.x + threadIdx.x;
+  const int zc = blockIdx.y * blockDim.y + threadIdx.y;
+  if (zc >= nxc || wc >= nyc) return;
+  const CI<T> ci{ci_p, (long long)(nxc + 1) * (nyc + 1), nyc + 1};
+  const int z = 2 * zc, w = 2 * wc;
+  T acc = fine_at(res, z, w, nx, ny);
+  acc = A::add(acc, A::mul(ci(LR, zc, wc), fine_at(res, z - 1, w, nx, ny)));
+  acc = A::add(acc, A::mul(ci(LL, zc + 1, wc), fine_at(res, z + 1, w, nx, ny)));
+  acc = A::add(acc, A::mul(ci(LA, zc, wc), fine_at(res, z, w - 1, nx, ny)));
+  acc = A::add(acc, A::mul(ci(LB, zc, wc + 1), fine_at(res, z, w + 1, nx, ny)));
+  acc = A::add(acc, A::mul(ci(LNE, zc, wc), fine_at(res, z - 1, w - 1, nx, ny)));
+  acc = A::add(acc, A::mul(ci(LNW, zc + 1, wc), fine_at(res, z + 1, w - 1, nx, ny)));
+  acc = A::add(acc, A::mul(ci(LSE, zc, wc + 1), fine_at(res, z - 1, w + 1, nx, ny)));
+  acc = A::add(acc, A::mul(ci(LSW, zc + 1, wc + 1), fine_at(res, z + 1, w + 1, nx, ny)));
+  cb[(long long)zc * nyc + wc] = acc;
+}
+
+// q[z, w] += P qc (+ res / diag off the coincident points), in place.
+template <typename T>
+__global__ void interp_add_kernel(const T* __restrict__ ci_p,
+                                  const T* __restrict__ so,
+                                  const T* __restrict__ qc,
+                                  const T* __restrict__ res,
+                                  T* __restrict__ q, int nx, int ny, int nxc,
+                                  int nyc) {
+  using A = Arith<T>;
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  const int z = blockIdx.y * blockDim.y + threadIdx.y;
+  if (z >= nx || w >= ny) return;
+  const CI<T> ci{ci_p, (long long)(nxc + 1) * (nyc + 1), nyc + 1};
+  // coarse value, zero at index nxc / nyc (k, m >= 0 on every path below)
+  auto QC = [&](int k, int m) -> T {
+    return (k < nxc && m < nyc) ? qc[(long long)k * nyc + m] : T(0);
+  };
+  const long long i = (long long)z * ny + w;
+  const int pz = z & 1, pw = w & 1;
+  T v;
+  if (!pz && !pw) {
+    v = qc[(long long)(z >> 1) * nyc + (w >> 1)];
+  } else {
+    const T rd = A::div(res[i], so[i]);  // res / so[O] (plane 0)
+    if (pz && !pw) {  // x-line point (2k-1, 2m)
+      const int k = (z + 1) >> 1, m = w >> 1;
+      v = A::add(A::add(A::mul(ci(LR, k, m), QC(k, m)),
+                        A::mul(ci(LL, k, m), QC(k - 1, m))),
+                 rd);
+    } else if (!pz && pw) {  // y-line point (2k, 2m-1)
+      const int k = z >> 1, m = (w + 1) >> 1;
+      v = A::add(A::add(A::mul(ci(LA, k, m), QC(k, m)),
+                        A::mul(ci(LB, k, m), QC(k, m - 1))),
+                 rd);
+    } else {  // cell centre (2k-1, 2m-1)
+      const int k = (z + 1) >> 1, m = (w + 1) >> 1;
+      T s = A::mul(ci(LSW, k, m), QC(k - 1, m - 1));
+      s = A::add(s, A::mul(ci(LNW, k, m), QC(k - 1, m)));
+      s = A::add(s, A::mul(ci(LNE, k, m), QC(k, m)));
+      s = A::add(s, A::mul(ci(LSE, k, m), QC(k, m - 1)));
+      v = A::add(s, rd);
+    }
+  }
+  q[i] = A::add(q[i], v);
+}
+
+template <typename T>
+int launch_restrict(const void* ci, const void* res, void* cb, int nx, int ny,
+                    int nxc, int nyc, cudaStream_t st) {
+  restrict_kernel<T><<<grid_for(nxc, nyc), dim3(kBlockX, kBlockY), 0, st>>>(
+      (const T*)ci, (const T*)res, (T*)cb, nx, ny, nxc, nyc);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_interp_add(const void* ci, const void* so, const void* qc,
+                      const void* res, void* q, int nx, int ny, int nxc,
+                      int nyc, cudaStream_t st) {
+  interp_add_kernel<T><<<grid_for(nx, ny), dim3(kBlockX, kBlockY), 0, st>>>(
+      (const T*)ci, (const T*)so, (const T*)qc, (const T*)res, (T*)q, nx, ny,
+      nxc, nyc);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+}  // namespace cedar
+
+extern "C" {
+
+// cb (nxc, nyc) = Pᵀ res (nx, ny).  Returns cudaGetLastError().
+int cedar_restrict2(int dtype, const void* ci, const void* res, void* cb,
+                    int nx, int ny, int nxc, int nyc, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == cedar::kFloat32)
+    return cedar::launch_restrict<float>(ci, res, cb, nx, ny, nxc, nyc, st);
+  if (dtype == cedar::kFloat64)
+    return cedar::launch_restrict<double>(ci, res, cb, nx, ny, nxc, nyc, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// q (nx, ny) += P qc (nxc, nyc) + res / so[O], in place.
+// Returns cudaGetLastError().
+int cedar_interp_add2(int dtype, const void* ci, const void* so,
+                      const void* qc, const void* res, void* q, int nx,
+                      int ny, int nxc, int nyc, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == cedar::kFloat32)
+    return cedar::launch_interp_add<float>(ci, so, qc, res, q, nx, ny, nxc,
+                                           nyc, st);
+  if (dtype == cedar::kFloat64)
+    return cedar::launch_interp_add<double>(ci, so, qc, res, q, nx, ny, nxc,
+                                            nyc, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

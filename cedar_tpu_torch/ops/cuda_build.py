@@ -1,0 +1,142 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface (no PyTorch headers) and loads through
+``ctypes``.  The build runs at first use, into ``cedar_tpu_torch/_build/``,
+under a name keyed by a hash of the sources and flags, so a changed source
+rebuilds and an unchanged one loads at once.  A build failure raises.
+
+Nothing here runs at import: the CPU tests import every module of the port.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+#: dtype codes of the C entry points (csrc/common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+#: C entry points of each source, name -> argtypes (all return int)
+SIGNATURES = {
+    "sweep2": {
+        "cedar_sweep2_phase": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "cedar_residual2": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+    },
+    "transfer2": {
+        "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+        "cedar_interp_add2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
+_libs: dict[str, ctypes.CDLL] = {}
+#: name -> (seconds spent in nvcc, nvcc's stderr: the ptxas register report)
+build_log: dict[str, tuple[float, str]] = {}
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return found
+
+
+def library_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode() + b"\0" + src.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build(name: str, path: Path) -> None:
+    BUILD_DIR.mkdir(exist_ok=True)
+    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed building {name} (exit {proc.returncode}):\n"
+            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, path)
+    build_log[name] = (time.perf_counter() - t0, proc.stderr)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    path = library_path(name)
+    if not path.exists():
+        _build(name, path)
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _libs[name] = lib
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """The current stream of ``t``'s device, as the C entry points take it.
+
+    The libraries launch on the CUDA runtime's current device, so the
+    tensor must live there."""
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(
+            f"tensor on {t.device} but the current device is "
+            f"cuda:{torch.cuda.current_device()}"
+        )
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_operands(*tensors: torch.Tensor) -> int:
+    """Common wrapper checks; returns the dtype code.
+
+    Every operand must be a contiguous CUDA tensor of one float dtype
+    (float32 or float64) on one device."""
+    t0 = tensors[0]
+    if t0.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernels take float32 or float64, not {t0.dtype}")
+    for t in tensors:
+        if not t.is_cuda:
+            raise ValueError(f"kernel operand on {t.device}, not on CUDA")
+        if t.device != t0.device:
+            raise ValueError(f"operands on {t0.device} and {t.device}")
+        if t.dtype != t0.dtype:
+            raise TypeError(f"mixed dtypes {t0.dtype} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+    return DTYPE_CODES[t0.dtype]

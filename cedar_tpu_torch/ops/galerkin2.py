@@ -1,0 +1,59 @@
+"""Galerkin (variational) coarse-operator product A_c = Pᵀ A P, 2D.
+
+PyTorch counterpart of the non-periodic path of
+:mod:`cedar_tpu.ops.galerkin2` (mod-3 comb-basis probing).  The probes run
+through this package's :func:`~cedar_tpu_torch.ops.interp2.interp_add`,
+:func:`~cedar_tpu_torch.ops.interp2.restrict` and
+:func:`~cedar_tpu_torch.ops.stencil2.matvec`, so on the card the setup goes
+through the transfer kernels too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cedar_tpu_torch.core.shift import shift2
+from cedar_tpu_torch.core.types import StencilKind
+from cedar_tpu_torch.ops.interp2 import interp_add, restrict
+from cedar_tpu_torch.ops.stencil2 import matvec
+
+
+def coarsen_op(ci: torch.Tensor, so: torch.Tensor,
+               kind: StencilKind) -> torch.Tensor:
+    """Galerkin coarse stencil (always nine_pt) from fine stencil + CI."""
+    return coarsen_op_comb(ci, so, kind)
+
+
+def coarsen_op_comb(ci: torch.Tensor, so: torch.Tensor,
+                    kind: StencilKind) -> torch.Tensor:
+    """A_c = Pᵀ A P by comb-basis probing: the 9 coarse-stencil offsets are
+    distinct mod 3, so applying Pᵀ A P to the 9 mod-3 indicator combs
+    recovers every row entry exactly."""
+    nc = (ci.shape[1] - 1, ci.shape[2] - 1)
+    nf = (so.shape[1], so.shape[2])
+    dev = so.device
+
+    iz = (torch.arange(nc[0], device=dev) % 3)[:, None]
+    iw = (torch.arange(nc[1], device=dev) % 3)[None, :]
+    cls = iz * 3 + iw
+    zf = so.new_zeros(nf)  # the probes' residual: res/diag vanishes
+
+    results = []
+    for c in range(9):
+        qc = (cls == c).to(so.dtype)
+        # interp_add writes its q in place: a fresh zero q per probe
+        xf = interp_add(ci, so, qc, zf, so.new_zeros(nf))
+        results.append(restrict(ci, matvec(so, xf, kind)))
+    results = torch.stack(results)  # (9, *nc)
+
+    def entry(di, dj):
+        j = ((iz + di) % 3 * 3 + (iw + dj) % 3).expand(nc)
+        return torch.gather(results, 0, j[None])[0]
+
+    o = entry(0, 0)
+    w_ = -entry(-1, 0)
+    s_ = -entry(0, -1)
+    sw = -entry(-1, -1)
+    # stored NW(a,b) couples (a,b-1) <-> (a-1,b): row-form (-1,+1) at (a,b-1)
+    nw = -shift2(entry(-1, 1), 0, -1)
+    return torch.stack([o, w_, s_, sw, nw])

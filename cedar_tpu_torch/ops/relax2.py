@@ -1,0 +1,89 @@
+"""2D multicolor Gauss-Seidel point relaxation.
+
+PyTorch counterpart of :mod:`cedar_tpu.ops.relax2` and of the sweep entry
+of :mod:`cedar_tpu.ops.pallas2` (``fuse_residual`` and ``origin``).  Each
+colour phase updates all points of one colour at once:
+``q <- (b + offdiag·q) * recip`` there.  Colour semantics match the
+reference (BMG2_SymStd_relax_GS.f90):
+
+* 5-point: red-black by parity of ``z + w``; DOWN sweeps parity 0 then 1,
+  UP (symmetric post-smoothing) the reverse.
+* 9-point: four colours ``(w % 2, z % 2)`` in the order
+  ``(0,0), (0,1), (1,0), (1,1)`` DOWN, reversed UP.
+
+Colours anchor to GLOBAL indices ``(z + origin[0], w + origin[1])``.
+
+:func:`point_relax` dispatches by device: a CUDA tensor goes to the sweep
+kernel (:mod:`cedar_tpu_torch.ops.cuda2`), a CPU tensor to its plain
+version, which runs :func:`sweep_torch`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cedar_tpu_torch.core.types import Dir2, StencilKind
+from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
+
+
+def setup_recip(so: torch.Tensor) -> torch.Tensor:
+    """1/diag (reference: BMG2_SymStd_SETUP_recip.f90)."""
+    return 1.0 / so[Dir2.O]
+
+
+def color_order(kind: StencilKind, updown: str):
+    """Colour phases in sweep order: 5-point parities, 9-point ``(cw, cz)``
+    pairs (``cw`` is the parity of the second axis, ``w``)."""
+    if kind == StencilKind.five_pt:
+        return [0, 1] if updown == "down" else [1, 0]
+    order = [(0, 0), (0, 1), (1, 0), (1, 1)]
+    return order if updown == "down" else order[::-1]
+
+
+def color_masks(shape, kind: StencilKind, updown: str, origin=(0, 0),
+                device=None):
+    """Boolean masks for each colour phase, in reference sweep order."""
+    zp = (torch.arange(shape[0], device=device)[:, None] + origin[0]) % 2
+    wp = (torch.arange(shape[1], device=device)[None, :] + origin[1]) % 2
+    masks = []
+    for c in color_order(kind, updown):
+        if kind == StencilKind.five_pt:
+            m = (zp + wp) % 2 == c
+        else:
+            cw, cz = c
+            m = (wp == cw) & (zp == cz)
+        masks.append(m.expand(tuple(shape)))
+    return masks
+
+
+def sweep_torch(so, q, b, recip, kind: StencilKind, updown: str,
+                fuse_residual: bool = False, origin=(0, 0)):
+    """One multicolour GS sweep in torch ops; returns new tensors
+    (``q`` is not modified).  With ``fuse_residual`` returns ``(q, res)``."""
+    if recip is None:
+        recip = setup_recip(so)
+    for mask in color_masks(q.shape, kind, updown, origin, q.device):
+        upd = (b + offdiag_apply(so, q, kind)) * recip
+        q = torch.where(mask, upd, q)
+    if fuse_residual:
+        return q, residual(so, q, b, kind)
+    return q
+
+
+def point_relax(so, q, b, recip, kind: StencilKind, updown: str,
+                fuse_residual: bool = False, origin=(0, 0)):
+    """One multicolour GS sweep (all colours), DOWN or UP ordering.
+
+    Updates ``q`` IN PLACE and returns it; with ``fuse_residual`` returns
+    ``(q, b - A q)`` of the swept iterate.  Callers that still need the
+    incoming ``q`` clone it first.  ``recip`` (``1/diag``) feeds the CPU
+    path; the CUDA kernel forms ``1/diag`` itself, with the same rounding.
+    """
+    from cedar_tpu_torch.ops import cuda2
+
+    if q.is_cuda:
+        return cuda2.sweep(so, q, b, kind, updown, fuse_residual, origin)
+    if q.device.type != "cpu":
+        raise NotImplementedError(f"no sweep for tensors on {q.device}")
+    return cuda2.sweep_plain(so, q, b, kind, updown, fuse_residual, origin,
+                             recip=recip)

@@ -1,0 +1,39 @@
+"""Per-level data container (reference: include/cedar/level.h:14-45).
+
+PyTorch counterpart of :mod:`cedar_tpu.solver.level`, with the fields the
+2D point-relaxation / direct-coarse-solve path uses.  ``levels[l+1].ci``
+interpolates level ``l+1`` -> ``l``; ``ainv`` is set on the coarsest level.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class Level(NamedTuple):
+    so: torch.Tensor                          # (ndir, nx, ny) stencil
+    recip: Optional[torch.Tensor] = None      # 1/diag (point relax)
+    ci: Optional[torch.Tensor] = None         # interp weights to the finer level
+    ainv: Optional[torch.Tensor] = None       # coarsest: dense inverse
+
+
+def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
+    """A hierarchy of numpy arrays (e.g. ``np.asarray`` of each field of the
+    JAX package's ``Level``s) as this package's :class:`Level` tuple.
+
+    Each entry is a mapping or a ``NamedTuple`` with any of the fields
+    ``so``, ``recip``, ``ci``, ``ainv``; other fields are ignored.  The
+    arrays are copied.
+    """
+    out = []
+    for lev in levels_np:
+        fields = lev if isinstance(lev, Mapping) else lev._asdict()
+        out.append(Level(**{
+            k: torch.tensor(np.asarray(fields[k]), dtype=dtype, device=device)
+            for k in Level._fields if fields.get(k) is not None
+        }))
+    return tuple(out)

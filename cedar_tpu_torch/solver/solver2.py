@@ -1,0 +1,193 @@
+"""2D multilevel BoxMG solver.
+
+PyTorch counterpart of :mod:`cedar_tpu.solver.solver2` (reference:
+include/cedar/2d/solver.h:21-122, include/cedar/multilevel.h:26-318) for
+point relaxation, V-cycles and the direct (LU) coarse solve, non-periodic.
+Tensors stay on the device of the operator given: on the card the sweeps
+and grid transfers run the hand-written CUDA kernels, on the CPU their
+plain torch versions.
+
+* **setup** — per level: operator-induced interpolation, Galerkin coarse
+  operator, 1/diag; coarsest: dense inverse (multilevel.h:243-265).
+* **solve** — residual-norm-controlled cycle iteration (multilevel.h:278-298)
+  as a Python loop that reads the convergence norm back once per cycle;
+  ``history`` holds the reference's per-iteration "relative l2 norm" lines.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cedar_tpu_torch import schema
+from cedar_tpu_torch.config import Config
+from cedar_tpu_torch.core.types import StencilKind
+from cedar_tpu_torch.ops import cg
+from cedar_tpu_torch.ops.galerkin2 import coarsen_op
+from cedar_tpu_torch.ops.interp2 import setup_interp
+from cedar_tpu_torch.ops.relax2 import setup_recip
+from cedar_tpu_torch.ops.stencil2 import residual
+from cedar_tpu_torch.settings import CGType, CycleType, MLSettings, RelaxType
+from cedar_tpu_torch.solver import cycle2
+from cedar_tpu_torch.solver.level import Level
+from cedar_tpu_torch.utils import log
+from cedar_tpu_torch.utils.timing import TimeLog
+
+
+def compute_num_levels(nx: int, ny: int, min_coarse: int) -> int:
+    """Halve until below min_coarse (reference: 2d/solver.h:57-73)."""
+    ng = 0
+    while True:
+        ng += 1
+        nxc = (nx - 1) // (1 << ng) + 1
+        nyc = (ny - 1) // (1 << ng) + 1
+        if min(nxc, nyc) < min_coarse:
+            return ng
+
+
+def level_shapes(nx: int, ny: int, nlevels: int) -> list[tuple[int, int]]:
+    """Per-level interior shapes, nxc = (nx-1)/2 + 1 (2d/solver.h:75-116)."""
+    shapes = [(nx, ny)]
+    for _ in range(nlevels - 1):
+        nx = (nx - 1) // 2 + 1
+        ny = (ny - 1) // 2 + 1
+        shapes.append((nx, ny))
+    return shapes
+
+
+def setup_hierarchy(so_fine: torch.Tensor, fine_kind: StencilKind,
+                    nlevels: int, indefinite: bool = False) -> tuple:
+    """Build the level hierarchy, point relaxation and LU coarse solve
+    (reference: multilevel.h:243-265)."""
+    levels = []
+    so, kind, ci = so_fine.contiguous(), fine_kind, None
+    for _ in range(nlevels - 1):
+        ci_next = setup_interp(so, kind)
+        levels.append(Level(so=so, recip=setup_recip(so), ci=ci))
+        so = coarsen_op(ci_next, so, kind).contiguous()
+        kind, ci = StencilKind.nine_pt, ci_next
+    levels.append(Level(so=so, ci=ci,
+                        ainv=cg.setup_cg_lu(so, kind, indefinite)))
+    return tuple(levels)
+
+
+def _l2(r: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(r * r))
+
+
+def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
+    """The first configured feature outside this package, or None."""
+    if so.ndim != 3 or kind.ndim != 2:
+        return "3D solves (ROADMAP queue 1, item 13)"
+    if settings.cycle == CycleType.f:
+        return "cycle.type f (ROADMAP queue 1, item 9: F-cycle)"
+    if settings.relaxation != RelaxType.point:
+        return (f"relaxation {settings.relaxation.value} (ROADMAP queue 1, "
+                "items 11 and 14: line and plane relaxation)")
+    if any(conf.get("grid.periodic", [False, False])):
+        return "grid.periodic (ROADMAP queue 1, item 12: 2D periodic)"
+    if settings.coarse_solver != CGType.lu:
+        return (f"cg-solver {settings.coarse_solver.value} (ROADMAP queue "
+                "1, item 16: redistributed coarse solves)")
+    if conf.get("kernels.fine-split", False):
+        return ("kernels.fine-split true (ROADMAP queue 2: split-layout "
+                "kernels)")
+    if conf.get("kernels.backend", "auto") == "xla":
+        return ("kernels.backend xla (the device decides: kernels on CUDA, "
+                "torch ops on the CPU)")
+    if any(int(p) > 1 for p in conf.get("grid.np", [])):
+        return "grid.np: meshes (ROADMAP queue 1, item 16: distribution)"
+    return None
+
+
+class Solver2:
+    """2D BoxMG solver over interior-only tensors.
+
+    Parameters
+    ----------
+    so : (ndir, nx, ny) stencil operator (FivePt: [O,W,S]; NinePt adds SW,NW)
+         on the device the solve runs on
+    kind : StencilKind of the fine operator
+    conf : Config | dict | None — Cedar-compatible configuration
+
+    Raises ``NotImplementedError`` for configurations outside the 2D point
+    relaxation V-cycle with a direct coarse solve.
+    """
+
+    def __init__(self, so: torch.Tensor,
+                 kind: StencilKind = StencilKind.five_pt,
+                 conf: Config | dict | None = None):
+        if not isinstance(conf, Config):
+            conf = Config(conf)
+        schema.validate(conf)
+        self.conf = conf
+        self.settings = MLSettings.from_config(conf)
+        missing = _unsupported(conf, self.settings, so, kind)
+        if missing is not None:
+            raise NotImplementedError(f"cedar_tpu_torch: {missing}")
+        log.set_enabled(conf.get("log", ["status", "error"]))
+        self.kind = kind
+        self.indefinite = not conf.get("solver.definite", True)
+
+        nx, ny = so.shape[1], so.shape[2]
+        nlevels = compute_num_levels(nx, ny, self.settings.min_coarse)
+        if self.settings.num_levels > 0:
+            if self.settings.num_levels > nlevels:
+                raise ValueError("too many levels specified")
+            nlevels = self.settings.num_levels
+        self.nlevels = nlevels
+        self.shapes = level_shapes(nx, ny, nlevels)
+        self.kinds = [kind] + [StencilKind.nine_pt] * (nlevels - 1)
+        log.debug(f"Using a {nlevels} level hierarchy")
+
+        self.timelog = TimeLog()
+        self.timelog.begin("setup")
+        self.levels = setup_hierarchy(so, kind, nlevels, self.indefinite)
+        self.timelog.end("setup", force=self.levels)
+
+    def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """One cycle (reference: multilevel::vcycle); ``x`` is not modified."""
+        return cycle2.run_cycle(self.levels, self.kinds, x.clone(), b,
+                                self.settings)
+
+    def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None):
+        """Iterate cycles until the relative residual drops below ``tol`` or
+        ``max-iter`` cycles ran; ``x0`` (default zeros) is not modified."""
+        settings = self.settings
+        fine = self.levels[0]
+        x = torch.zeros_like(b) if x0 is None else x0.clone()
+        fuse = settings.nrelax_post >= 1 and self.nlevels >= 2
+        self.timelog.begin("solve")
+        r0 = residual(fine.so, x, b, self.kinds[0])
+        # floor protects the b = 0 (already-converged) edge case
+        res0 = max(float(_l2(r0)), torch.finfo(b.dtype).tiny)
+        hist = []
+        while len(hist) < settings.maxiter:
+            if fuse:
+                x, r = cycle2.ncycle(self.levels, self.kinds, 0, x, b,
+                                     settings, fuse_final_residual=True)
+            else:
+                x = cycle2.run_cycle(self.levels, self.kinds, x, b, settings)
+                r = residual(fine.so, x, b, self.kinds[0])
+            rel = float(_l2(r)) / res0   # the one readback of the cycle
+            hist.append(rel)
+            if not rel >= settings.tol:   # stops on NaN, like the JAX loop
+                break
+        self.timelog.end("solve", force=x)
+        log.info(f"Initial residual l2 norm: {res0:g}")
+        for i, rel in enumerate(hist):
+            log.status(f"Iteration {i} relative l2 norm: {rel:g}")
+        self.history = hist
+        self.res0 = res0
+        return x
+
+    def save_timings(self, fname: str = "timings.json"):
+        """Write the hierarchical timer report (reference: timings.json)."""
+        self.timelog.save(fname)
+        if log.enabled("timer"):
+            import json as _json
+
+            log.timer(_json.dumps(self.timelog.todict(), indent=2))
+
+    @property
+    def coarse_shape(self):
+        return self.shapes[-1]

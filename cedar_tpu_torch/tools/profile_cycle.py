@@ -1,0 +1,96 @@
+"""Where the time of one 2D V(1,1) cycle goes on the card.
+
+Builds the 2D Poisson solver at 4096² in float32, runs a few warm-up
+cycles, then traces ten cycles with ``torch.profiler`` and prints:
+
+* wall ms per cycle (CUDA events) and the device's busy and idle share
+  (summed kernel time over wall time);
+* device time per kernel name, per cycle;
+* host time per profiler scope ("relaxation", "restrict", …), per cycle.
+
+Run from the repository root on a machine with a CUDA device:
+
+    python3 -m cedar_tpu_torch.tools.profile_cycle
+"""
+
+from __future__ import annotations
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from cedar_tpu_torch import Config, FivePt, Solver2, gallery
+from cedar_tpu_torch.solver import cycle2
+
+
+N = 4096
+CYCLES = 10
+SCOPES = ("relaxation", "relaxation-residual-fused", "restrict",
+          "interp-add", "coarse-solve", "residual")
+
+
+def _device_us(evt) -> float:
+    # the attribute's name changed across PyTorch releases
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_cycle: no CUDA device")
+    dev = torch.device("cuda", 0)
+    n = N
+    conf = Config({"log": [], "solver": {
+        "cycle": {"nrelax-pre": 1, "nrelax-post": 1}}})
+    s = Solver2(gallery.poisson(n, n, torch.float32, dev), FivePt, conf)
+    b = gallery.poisson_rhs(n, n, torch.float32, dev)
+    x = torch.zeros_like(b)
+
+    def cycle(x):
+        return cycle2.ncycle(s.levels, s.kinds, 0, x, b, s.settings,
+                             fuse_final_residual=True)[0]
+
+    for _ in range(3):
+        x = cycle(x)
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        e0.record()
+        for _ in range(CYCLES):
+            x = cycle(x)
+        e1.record()
+        torch.cuda.synchronize()
+    wall_ms = e0.elapsed_time(e1) / CYCLES
+
+    dev_ms = {}
+    host_ms = {}
+    for evt in prof.key_averages():
+        if evt.key in SCOPES:
+            # a scope's device-side copy repeats its kernels' time: take
+            # the host-side range only
+            if evt.device_type == torch.autograd.DeviceType.CPU:
+                host_ms[evt.key] = evt.cpu_time_total / 1e3 / CYCLES
+            continue
+        d = _device_us(evt)
+        if d > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            dev_ms[evt.key] = d / 1e3 / CYCLES
+    busy = sum(dev_ms.values())
+    print(f"device: {torch.cuda.get_device_name(0)}; {n}^2 float32 V(1,1), "
+          f"{s.nlevels} levels")
+    print(f"wall ms/cycle (CUDA events, under the profiler): {wall_ms:.4f}")
+    print(f"device busy ms/cycle: {busy:.4f} "
+          f"(busy share {busy / wall_ms:.3f}, idle share "
+          f"{1 - busy / wall_ms:.3f})")
+    print("device ms/cycle by kernel:")
+    for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:15]:
+        print(f"  {v:9.4f}  {k[:100]}")
+    print("host ms/cycle by scope (inclusive):")
+    for k, v in sorted(host_ms.items(), key=lambda kv: -kv[1]):
+        print(f"  {v:9.4f}  {k}")
+
+
+if __name__ == "__main__":
+    main()
