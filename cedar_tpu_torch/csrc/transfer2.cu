@@ -1,4 +1,5 @@
-// K2 (restrict) and K3 (interp-add): the 2D BoxMG grid transfers.
+// K2 (restrict), K3 (interp-add) and K5 (interp): the 2D BoxMG grid
+// transfers.
 //
 // K2 replaces the Pallas kernel cedar_tpu/ops/pallas_transfer2.py
 // `_restrict_kernel` (called by `_restrict_call` / `restrict`): the coarse
@@ -20,6 +21,13 @@
 // parity parts that XLA merges afterwards, because Mosaic cannot reshape
 // lanes in a kernel; here the kernels read the dense residual and K3 adds
 // into q in place, so neither split nor merge pass exists.
+//
+// K5 replaces `_interp_kernel_split_nores` (called by
+// `interp_split_nores`): x = P qc into a new fine tensor, the F-cycle's
+// level entry, where the residual and the addend are exactly zero.  It
+// reads only qc and the CI planes and writes x (about 0.22 GB at 4096²
+// f32, against K3's q, res and diagonal streams besides); it shares K3's
+// weights and parity classes (`interp_value`).
 //
 // They read the unpadded CI of shape (8, nxc+1, nyc+1): the high row nxc
 // and column nyc hold the weights of fine points beyond the last coarse
@@ -76,6 +84,38 @@ __global__ void restrict_kernel(const T* __restrict__ ci_p,
   cb[(long long)zc * nyc + wc] = acc;
 }
 
+// (P qc)[z, w]: the coarse value at coincident points, else the weighted
+// sum of the coarse neighbours of the point's parity class.  Shared by K3
+// and K5 so that the two cannot drift apart.
+template <typename T>
+__device__ __forceinline__ T interp_value(const CI<T>& ci,
+                                          const T* __restrict__ qc, int z,
+                                          int w, int nxc, int nyc) {
+  using A = Arith<T>;
+  // coarse value, zero at index nxc / nyc (k, m >= 0 on every path below)
+  auto QC = [&](int k, int m) -> T {
+    return (k < nxc && m < nyc) ? qc[(long long)k * nyc + m] : T(0);
+  };
+  const int pz = z & 1, pw = w & 1;
+  if (!pz && !pw) return qc[(long long)(z >> 1) * nyc + (w >> 1)];
+  if (pz && !pw) {  // x-line point (2k-1, 2m)
+    const int k = (z + 1) >> 1, m = w >> 1;
+    return A::add(A::mul(ci(LR, k, m), QC(k, m)),
+                  A::mul(ci(LL, k, m), QC(k - 1, m)));
+  }
+  if (!pz && pw) {  // y-line point (2k, 2m-1)
+    const int k = z >> 1, m = (w + 1) >> 1;
+    return A::add(A::mul(ci(LA, k, m), QC(k, m)),
+                  A::mul(ci(LB, k, m), QC(k, m - 1)));
+  }
+  // cell centre (2k-1, 2m-1)
+  const int k = (z + 1) >> 1, m = (w + 1) >> 1;
+  T s = A::mul(ci(LSW, k, m), QC(k - 1, m - 1));
+  s = A::add(s, A::mul(ci(LNW, k, m), QC(k - 1, m)));
+  s = A::add(s, A::mul(ci(LNE, k, m), QC(k, m)));
+  return A::add(s, A::mul(ci(LSE, k, m), QC(k, m - 1)));
+}
+
 // q[z, w] += P qc (+ res / diag off the coincident points), in place.
 template <typename T>
 __global__ void interp_add_kernel(const T* __restrict__ ci_p,
@@ -89,37 +129,23 @@ __global__ void interp_add_kernel(const T* __restrict__ ci_p,
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
   if (z >= nx || w >= ny) return;
   const CI<T> ci{ci_p, (long long)(nxc + 1) * (nyc + 1), nyc + 1};
-  // coarse value, zero at index nxc / nyc (k, m >= 0 on every path below)
-  auto QC = [&](int k, int m) -> T {
-    return (k < nxc && m < nyc) ? qc[(long long)k * nyc + m] : T(0);
-  };
   const long long i = (long long)z * ny + w;
-  const int pz = z & 1, pw = w & 1;
-  T v;
-  if (!pz && !pw) {
-    v = qc[(long long)(z >> 1) * nyc + (w >> 1)];
-  } else {
-    const T rd = A::div(res[i], so[i]);  // res / so[O] (plane 0)
-    if (pz && !pw) {  // x-line point (2k-1, 2m)
-      const int k = (z + 1) >> 1, m = w >> 1;
-      v = A::add(A::add(A::mul(ci(LR, k, m), QC(k, m)),
-                        A::mul(ci(LL, k, m), QC(k - 1, m))),
-                 rd);
-    } else if (!pz && pw) {  // y-line point (2k, 2m-1)
-      const int k = z >> 1, m = (w + 1) >> 1;
-      v = A::add(A::add(A::mul(ci(LA, k, m), QC(k, m)),
-                        A::mul(ci(LB, k, m), QC(k, m - 1))),
-                 rd);
-    } else {  // cell centre (2k-1, 2m-1)
-      const int k = (z + 1) >> 1, m = (w + 1) >> 1;
-      T s = A::mul(ci(LSW, k, m), QC(k - 1, m - 1));
-      s = A::add(s, A::mul(ci(LNW, k, m), QC(k - 1, m)));
-      s = A::add(s, A::mul(ci(LNE, k, m), QC(k, m)));
-      s = A::add(s, A::mul(ci(LSE, k, m), QC(k, m - 1)));
-      v = A::add(s, rd);
-    }
-  }
+  T v = interp_value(ci, qc, z, w, nxc, nyc);
+  if ((z | w) & 1) v = A::add(v, A::div(res[i], so[i]));  // res / so[O]
   q[i] = A::add(q[i], v);
+}
+
+// K5: x[z, w] = (P qc)[z, w], a new fine tensor (the F-cycle's level
+// entry: no residual, no addend).
+template <typename T>
+__global__ void interp_kernel(const T* __restrict__ ci_p,
+                              const T* __restrict__ qc, T* __restrict__ x,
+                              int nx, int ny, int nxc, int nyc) {
+  const int w = blockIdx.x * blockDim.x + threadIdx.x;
+  const int z = blockIdx.y * blockDim.y + threadIdx.y;
+  if (z >= nx || w >= ny) return;
+  const CI<T> ci{ci_p, (long long)(nxc + 1) * (nyc + 1), nyc + 1};
+  x[(long long)z * ny + w] = interp_value(ci, qc, z, w, nxc, nyc);
 }
 
 template <typename T>
@@ -137,6 +163,14 @@ int launch_interp_add(const void* ci, const void* so, const void* qc,
   interp_add_kernel<T><<<grid_for(nx, ny), dim3(kBlockX, kBlockY), 0, st>>>(
       (const T*)ci, (const T*)so, (const T*)qc, (const T*)res, (T*)q, nx, ny,
       nxc, nyc);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_interp(const void* ci, const void* qc, void* x, int nx, int ny,
+                  int nxc, int nyc, cudaStream_t st) {
+  interp_kernel<T><<<grid_for(nx, ny), dim3(kBlockX, kBlockY), 0, st>>>(
+      (const T*)ci, (const T*)qc, (T*)x, nx, ny, nxc, nyc);
   return (int)cudaGetLastError();
 }
 
@@ -168,6 +202,18 @@ int cedar_interp_add2(int dtype, const void* ci, const void* so,
   if (dtype == cedar::kFloat64)
     return cedar::launch_interp_add<double>(ci, so, qc, res, q, nx, ny, nxc,
                                             nyc, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x (nx, ny) = P qc (nxc, nyc), written in full.
+// Returns cudaGetLastError().
+int cedar_interp2(int dtype, const void* ci, const void* qc, void* x, int nx,
+                  int ny, int nxc, int nyc, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == cedar::kFloat32)
+    return cedar::launch_interp<float>(ci, qc, x, nx, ny, nxc, nyc, st);
+  if (dtype == cedar::kFloat64)
+    return cedar::launch_interp<double>(ci, qc, x, nx, ny, nxc, nyc, st);
   return (int)cudaErrorInvalidValue;
 }
 

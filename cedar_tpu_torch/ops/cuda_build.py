@@ -44,6 +44,11 @@ SIGNATURES = {
     "transfer2": {
         "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
         "cedar_interp_add2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "cedar_interp2": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "lines2": {
+        "cedar_line2_x": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
 }
 
@@ -71,19 +76,35 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _build(name: str, path: Path) -> None:
+def _start(name: str, path: Path):
+    """Start nvcc on ``csrc/<name>.cu``; returns what :func:`_finish` takes."""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
     cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    return name, path, tmp, cmd, time.perf_counter(), proc
+
+
+def _finish(name, path, tmp, cmd, t0, proc) -> None:
+    out, err = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed building {name} (exit {proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            f"{' '.join(cmd)}\n{out}{err}"
         )
     os.replace(tmp, path)
-    build_log[name] = (time.perf_counter() - t0, proc.stderr)
+    build_log[name] = (time.perf_counter() - t0, err)
+
+
+def _open(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    _libs[name] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -93,14 +114,27 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     path = library_path(name)
     if not path.exists():
-        _build(name, path)
-    lib = ctypes.CDLL(str(path))
-    for fn, argtypes in SIGNATURES[name].items():
-        f = getattr(lib, fn)
-        f.argtypes = argtypes
-        f.restype = ctypes.c_int
-    _libs[name] = lib
-    return lib
+        _finish(*_start(name, path))
+    return _open(name, path)
+
+
+def load_all(names=None) -> None:
+    """Load the libraries of ``names`` (default: every source), building
+    the missing ones with one nvcc each, all started together.  Every nvcc
+    is waited for before a failure is raised."""
+    names = list(SIGNATURES if names is None else names)
+    started = [_start(n, library_path(n)) for n in names
+               if n not in _libs and not library_path(n).exists()]
+    failures = []
+    for job in started:
+        try:
+            _finish(*job)
+        except RuntimeError as e:
+            failures.append(str(e))
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    for n in names:
+        load(n)
 
 
 def check(rc: int, what: str) -> None:

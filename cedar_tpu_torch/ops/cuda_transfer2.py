@@ -1,10 +1,11 @@
-"""K2 (restrict) and K3 (interp-add): the 2D transfer kernels (CUDA) and
-their plain versions.
+"""K2 (restrict), K3 (interp-add) and K5 (interp): the 2D transfer kernels
+(CUDA) and their plain versions.
 
 Counterpart of :mod:`cedar_tpu.ops.pallas_transfer2` (its dense
-``restrict`` / ``interp_add``).  :func:`restrict` and :func:`interp_add`
-launch ``csrc/transfer2.cu`` on the tensors' current stream;
-:func:`restrict_plain` and :func:`interp_add_plain` compute the same
+``restrict`` / ``interp_add`` and the F-cycle's ``interp_split_nores``).
+:func:`restrict`, :func:`interp_add` and :func:`interp` launch
+``csrc/transfer2.cu`` on the tensors' current stream; :func:`restrict_plain`,
+:func:`interp_add_plain` and :func:`interp_plain` compute the same
 functions in torch ops (:mod:`cedar_tpu_torch.ops.interp2`).
 :mod:`cedar_tpu_torch.ops.interp2` picks one by device.
 
@@ -21,8 +22,10 @@ from cedar_tpu_torch.ops import cuda_build, interp2
 
 restrict_launches = 0
 interp_launches = 0
+interp2_launches = 0
 restrict_plain_calls = 0
 interp_plain_calls = 0
+interp2_plain_calls = 0
 
 
 def _coarse_shape(ci: torch.Tensor, fine_shape) -> tuple[int, int]:
@@ -80,6 +83,25 @@ def interp_add(ci, so, qc, res, q) -> torch.Tensor:
     return q
 
 
+def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape) -> torch.Tensor:
+    """``x = P qc`` on the card; returns a new ``fine_shape`` tensor."""
+    global interp2_launches
+    nxc, nyc = _coarse_shape(ci, fine_shape)
+    if tuple(qc.shape) != (nxc, nyc):
+        raise ValueError(f"qc {tuple(qc.shape)}, expected {(nxc, nyc)}")
+    dt = cuda_build.check_operands(ci, qc)
+    lib = cuda_build.load("transfer2")
+    nx, ny = fine_shape
+    x = qc.new_empty((nx, ny))
+    cuda_build.check(
+        lib.cedar_interp2(dt, ci.data_ptr(), qc.data_ptr(), x.data_ptr(), nx,
+                          ny, nxc, nyc, cuda_build.stream_of(qc)),
+        "interp2",
+    )
+    interp2_launches += 1
+    return x
+
+
 def restrict_plain(ci: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     """:func:`restrict` in torch ops, on any device."""
     global restrict_plain_calls
@@ -94,3 +116,13 @@ def interp_add_plain(ci, so, qc, res, q) -> torch.Tensor:
     interp_plain_calls += 1
     _coarse_shape(ci, q.shape)
     return q.copy_(interp2.interp_add_torch(ci, so, qc, res, q))
+
+
+def interp_plain(ci: torch.Tensor, qc: torch.Tensor, fine_shape):
+    """:func:`interp` in torch ops, on any device."""
+    global interp2_plain_calls
+    interp2_plain_calls += 1
+    nc = _coarse_shape(ci, fine_shape)
+    if tuple(qc.shape) != nc:
+        raise ValueError(f"qc {tuple(qc.shape)}, expected {nc}")
+    return interp2.interp_torch(ci, qc, fine_shape)

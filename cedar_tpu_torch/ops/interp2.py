@@ -7,11 +7,13 @@ PyTorch counterpart of :mod:`cedar_tpu.ops.interp2`, non-periodic:
 * :func:`restrict` — BMG2_SymStd_restrict.f90:76-92 (R = Pᵀ).
 * :func:`interp_add` — BMG2_SymStd_interp_add.f90:101-137
   (``Q += P·Qc`` at coincident points, ``Q += P·Qc + res/diag`` elsewhere).
+* :func:`interp` — ``X = P·Qc``, the F-cycle's level entry (fcycle.h:66-72).
 
-:func:`restrict` and :func:`interp_add` dispatch by device: CUDA tensors go
-to the transfer kernels (:mod:`cedar_tpu_torch.ops.cuda_transfer2`), CPU
-tensors to their plain versions, which run :func:`restrict_torch` and
-:func:`interp_add_torch`.
+:func:`restrict`, :func:`interp_add` and :func:`interp` dispatch by device:
+CUDA tensors go to the transfer kernels
+(:mod:`cedar_tpu_torch.ops.cuda_transfer2`), CPU tensors to their plain
+versions, which run :func:`restrict_torch`, :func:`interp_add_torch` and
+:func:`interp_torch`.
 
 Weight storage: CI planes of shape ``(nxc+1, nyc+1)`` — see
 :class:`cedar_tpu_torch.core.types.InterpDir2`.
@@ -183,38 +185,49 @@ def restrict_torch(ci: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return qc
 
 
+def _interp_parts(ci, qc, nx: int, ny: int, r2p=None) -> dict:
+    """The parity parts of ``P qc`` on the fine grid (plus ``r2p``, the
+    parity parts of res/diag, at the fine-only points when given)."""
+    nxc, nyc = qc.shape
+    kx = nx // 2
+    my = ny // 2
+    qcp = torch.nn.functional.pad(qc, (0, 1, 0, 1))  # index nxc/nyc reads 0
+
+    def plus_res(part, key):
+        return part if r2p is None else part + r2p[key]
+
+    parts = {(0, 0): qc}
+    # x-line points (2k-1, 2m), k in 1..kx, m in 0..nyc-1
+    parts[(1, 0)] = plus_res(
+        ci[L.LR, 1:1 + kx, 0:nyc] * qcp[1:1 + kx, 0:nyc]
+        + ci[L.LL, 1:1 + kx, 0:nyc] * qcp[0:kx, 0:nyc], (1, 0))
+    # y-line points (2k, 2m-1), k in 0..nxc-1, m in 1..my
+    parts[(0, 1)] = plus_res(
+        ci[L.LA, 0:nxc, 1:1 + my] * qcp[0:nxc, 1:1 + my]
+        + ci[L.LB, 0:nxc, 1:1 + my] * qcp[0:nxc, 0:my], (0, 1))
+    # cell centers (2k-1, 2m-1), k in 1..kx, m in 1..my
+    parts[(1, 1)] = plus_res(
+        ci[L.LSW, 1:1 + kx, 1:1 + my] * qcp[0:kx, 0:my]
+        + ci[L.LNW, 1:1 + kx, 1:1 + my] * qcp[0:kx, 1:1 + my]
+        + ci[L.LNE, 1:1 + kx, 1:1 + my] * qcp[1:1 + kx, 1:1 + my]
+        + ci[L.LSE, 1:1 + kx, 1:1 + my] * qcp[1:1 + kx, 0:my], (1, 1))
+    return parts
+
+
 def interp_add_torch(ci, so, qc, res, q) -> torch.Tensor:
     """``q + P qc (+ res/diag at fine-only points)`` in torch ops; returns a
     new tensor."""
     nx, ny = q.shape
-    nxc, nyc = qc.shape
-    kx = nx // 2
-    my = ny // 2
     r2p = deinterleave2(res / so[Dir2.O])
-    qcp = torch.nn.functional.pad(qc, (0, 1, 0, 1))  # index nxc/nyc reads 0
+    return q + interleave2(_interp_parts(ci, qc, nx, ny, r2p), nx, ny)
 
-    parts = {(0, 0): qc}
-    # x-line points (2k-1, 2m), k in 1..kx, m in 0..nyc-1
-    parts[(1, 0)] = (
-        ci[L.LR, 1:1 + kx, 0:nyc] * qcp[1:1 + kx, 0:nyc]
-        + ci[L.LL, 1:1 + kx, 0:nyc] * qcp[0:kx, 0:nyc]
-        + r2p[(1, 0)]
-    )
-    # y-line points (2k, 2m-1), k in 0..nxc-1, m in 1..my
-    parts[(0, 1)] = (
-        ci[L.LA, 0:nxc, 1:1 + my] * qcp[0:nxc, 1:1 + my]
-        + ci[L.LB, 0:nxc, 1:1 + my] * qcp[0:nxc, 0:my]
-        + r2p[(0, 1)]
-    )
-    # cell centers (2k-1, 2m-1), k in 1..kx, m in 1..my
-    parts[(1, 1)] = (
-        ci[L.LSW, 1:1 + kx, 1:1 + my] * qcp[0:kx, 0:my]
-        + ci[L.LNW, 1:1 + kx, 1:1 + my] * qcp[0:kx, 1:1 + my]
-        + ci[L.LNE, 1:1 + kx, 1:1 + my] * qcp[1:1 + kx, 1:1 + my]
-        + ci[L.LSE, 1:1 + kx, 1:1 + my] * qcp[1:1 + kx, 0:my]
-        + r2p[(1, 1)]
-    )
-    return q + interleave2(parts, nx, ny)
+
+def interp_torch(ci, qc, fine_shape) -> torch.Tensor:
+    """``P qc`` on the fine grid in torch ops (the F-cycle's level entry:
+    :func:`interp_add_torch` with zero residual and zero addend, exactly);
+    returns a new tensor."""
+    nx, ny = fine_shape
+    return interleave2(_interp_parts(ci, qc, nx, ny), nx, ny)
 
 
 def restrict(ci: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
@@ -242,3 +255,15 @@ def interp_add(ci, so, qc, res, q) -> torch.Tensor:
     if q.device.type != "cpu":
         raise NotImplementedError(f"no interp_add for tensors on {q.device}")
     return cuda_transfer2.interp_add_plain(ci, so, qc, res, q)
+
+
+def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape) -> torch.Tensor:
+    """``x = P qc``, a new fine-grid tensor of ``fine_shape``: the F-cycle's
+    level entry (reference: fcycle.h:66-72)."""
+    from cedar_tpu_torch.ops import cuda_transfer2
+
+    if qc.is_cuda:
+        return cuda_transfer2.interp(ci, qc, fine_shape)
+    if qc.device.type != "cpu":
+        raise NotImplementedError(f"no interp for tensors on {qc.device}")
+    return cuda_transfer2.interp_plain(ci, qc, fine_shape)

@@ -1,0 +1,148 @@
+"""2D zebra line relaxation with batched tridiagonal (Thomas/LDLᵀ) solves.
+
+PyTorch counterpart of the non-periodic serial part of
+:mod:`cedar_tpu.ops.lines2` (reference: BMG2_SymStd_relax_lines_{x,y}.f90,
+BMG2_SymStd_SETUP_lines_{x,y}.f90):
+
+* zebra order — DOWN relaxes the lines of odd index first (Fortran
+  JBEG_START=3), then the even ones; UP reverses;
+* per line: rhs = b + every coupling to the OTHER lines at current values,
+  then an exact tridiagonal solve along the line with diagonal ``O`` and
+  off-diagonal ``-W`` (x-lines) or ``-S`` (y-lines);
+* the LDLᵀ factors (:func:`setup_lines`) are the reference's SOR workspace.
+
+x-lines run along axis 0 (one line per column ``j``); y-lines run along
+axis 1 and reuse the x-line functions on transposed operands (under
+transpose W↔S swap, SW↦SWᵀ, NW↦NWᵀ).  All lines of one colour are
+independent, so the plain version batches them: the recurrences are Python
+loops ALONG the line over all lines of the colour at once.
+
+:func:`line_relax_x` and :func:`line_relax_y` dispatch by device, as
+:func:`cedar_tpu_torch.ops.relax2.point_relax` does: a CUDA tensor goes to
+the line kernel (:mod:`cedar_tpu_torch.ops.cuda_lines2`, factored on the
+fly), a CPU tensor to its plain version.  Both update ``q`` IN PLACE.
+
+Not ported (ROADMAP queue 1, items 11, 12 and 16): the PCR and SPIKE
+formulations of the same solve (TPU latency work, selected by
+``solver.ml-relax.enabled``), the cyclic Sherman–Morrison solve of
+periodic lines and the distributed SPIKE solve.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cedar_tpu_torch.core.shift import shift2
+from cedar_tpu_torch.core.types import Dir2, StencilKind
+
+
+def transpose_so(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
+    """The stencil of the transposed grid (``_transpose_so``)."""
+    planes = [so[Dir2.O].T, so[Dir2.S].T, so[Dir2.W].T]
+    if kind != StencilKind.five_pt:
+        planes += [so[Dir2.SW].T, so[Dir2.NW].T]
+    return torch.stack(planes)
+
+
+def _factor(diag: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """LDLᵀ of the lines along axis 0: ``(2, n, m)`` with plane 0 = 1/d and
+    plane 1 = l (``l[0] = 0``), by DPTTRF's recurrence
+    ``l_i = e_i / d_{i-1}``, ``d_i = a_i - l_i·e_i``."""
+    d = torch.empty_like(diag)
+    ls = torch.zeros_like(diag)
+    d[0] = diag[0]
+    for i in range(1, diag.shape[0]):
+        ls[i] = e[i] / d[i - 1]
+        d[i] = diag[i] - ls[i] * e[i]
+    return torch.stack([1.0 / d, ls])
+
+
+def setup_lines(so: torch.Tensor, kind: StencilKind, axis: str) -> torch.Tensor:
+    """LDLᵀ factors of each grid line along ``axis`` ('x' or 'y'), in the
+    layout of ``so``: ``(2, nx, ny)``, plane 0 = 1/d(i), plane 1 = l(i)
+    with e = -W (x-lines) or -S (y-lines)."""
+    if axis == "y":
+        fac = _factor(so[Dir2.O].T, -so[Dir2.S].T)
+        return fac.transpose(1, 2).contiguous()
+    return _factor(so[Dir2.O], -so[Dir2.W])
+
+
+def tridiag_solve(sor: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve ``LDLᵀ x = rhs`` along axis 0, batched over axis 1."""
+    dinv, ls = sor[0], sor[1]
+    n = rhs.shape[0]
+    z = torch.empty_like(rhs)
+    z[0] = rhs[0]
+    for i in range(1, n):
+        z[i] = rhs[i] - ls[i] * z[i - 1]
+    w = z * dinv
+    x = torch.empty_like(rhs)
+    x[n - 1] = w[n - 1]
+    for i in range(n - 2, -1, -1):
+        x[i] = w[i] - ls[i + 1] * x[i + 1]
+    return x
+
+
+def line_rhs_x(so, q, b, kind: StencilKind) -> torch.Tensor:
+    """rhs = b + couplings to the neighbouring lines (everything but the
+    W/E terms along the line), in ``_line_rhs_x``'s term order."""
+    S = so[Dir2.S]
+    rhs = b + S * shift2(q, 0, -1) + shift2(S, 0, 1) * shift2(q, 0, 1)
+    if kind != StencilKind.five_pt:
+        SW, NW = so[Dir2.SW], so[Dir2.NW]
+        rhs = (
+            rhs
+            + SW * shift2(q, -1, -1)
+            + shift2(NW, 1, 0) * shift2(q, 1, -1)
+            + shift2(NW, 0, 1) * shift2(q, -1, 1)
+            + shift2(SW, 1, 1) * shift2(q, 1, 1)
+        )
+    return rhs
+
+
+def colour_order(updown: str):
+    """Line parities in sweep order (DOWN: odd lines first)."""
+    return (1, 0) if updown == "down" else (0, 1)
+
+
+def sweep_x_torch(so, q, b, sor, kind: StencilKind, updown: str):
+    """One zebra x-line sweep in torch ops, IN PLACE on ``q`` (which may be
+    a transposed view); ``sor`` None factors from ``so``."""
+    if sor is None:
+        sor = _factor(so[Dir2.O], -so[Dir2.W])
+    for parity in colour_order(updown):
+        rhs = line_rhs_x(so, q, b, kind)[:, parity::2]
+        q[:, parity::2] = tridiag_solve(sor[:, :, parity::2], rhs)
+    return q
+
+
+def sweep_y_torch(so, q, b, sor, kind: StencilKind, updown: str):
+    """One zebra y-line sweep: :func:`sweep_x_torch` on the transposed
+    system, IN PLACE on ``q`` through its transposed view."""
+    sor_t = None if sor is None else sor.transpose(1, 2)
+    sweep_x_torch(transpose_so(so, kind), q.T, b.T, sor_t, kind, updown)
+    return q
+
+
+def line_relax_x(so, q, b, sor, kind: StencilKind, updown: str):
+    """One zebra x-line sweep (both colours), IN PLACE on ``q``; returns
+    ``q``.  ``sor`` (:func:`setup_lines` factors, or None) feeds the CPU
+    path; the CUDA kernel factors on the fly, with the same rounding."""
+    from cedar_tpu_torch.ops import cuda_lines2
+
+    if q.is_cuda:
+        return cuda_lines2.line_x(so, q, b, kind, updown)
+    if q.device.type != "cpu":
+        raise NotImplementedError(f"no line sweep for tensors on {q.device}")
+    return cuda_lines2.line_x_plain(so, q, b, kind, updown, sor=sor)
+
+
+def line_relax_y(so, q, b, sor, kind: StencilKind, updown: str):
+    """One zebra y-line sweep (both colours), IN PLACE on ``q``."""
+    from cedar_tpu_torch.ops import cuda_lines2
+
+    if q.is_cuda:
+        return cuda_lines2.line_y(so, q, b, kind, updown)
+    if q.device.type != "cpu":
+        raise NotImplementedError(f"no line sweep for tensors on {q.device}")
+    return cuda_lines2.line_y_plain(so, q, b, kind, updown, sor=sor)

@@ -1,7 +1,10 @@
-"""Where the time of one 2D V(1,1) cycle goes on the card.
+"""Where the time of one 2D cycle goes on the card.
 
-Builds the 2D Poisson solver at 4096² in float32, runs a few warm-up
-cycles, then traces ten cycles with ``torch.profiler`` and prints:
+Builds one of three float32 configurations — ``vcycle`` (default: Poisson
+4096², V(1,1)), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1))
+or ``fcycle`` (Poisson 4096², F-cycle) — runs a few warm-up cycles as the
+solve runs them, then traces ten cycles with ``torch.profiler`` and
+prints:
 
 * wall ms per cycle (CUDA events) and the device's busy and idle share
   (summed kernel time over wall time);
@@ -10,22 +13,29 @@ cycles, then traces ten cycles with ``torch.profiler`` and prints:
 
 Run from the repository root on a machine with a CUDA device:
 
-    python3 -m cedar_tpu_torch.tools.profile_cycle
+    python3 -m cedar_tpu_torch.tools.profile_cycle [vcycle|linexy|fcycle]
 """
 
 from __future__ import annotations
 
+import sys
+
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from cedar_tpu_torch import Config, FivePt, Solver2, gallery
+from cedar_tpu_torch import Config, FivePt, NinePt, Solver2, gallery
 from cedar_tpu_torch.solver import cycle2
 
 
-N = 4096
 CYCLES = 10
 SCOPES = ("relaxation", "relaxation-residual-fused", "restrict",
-          "interp-add", "coarse-solve", "residual")
+          "interp-add", "interp", "coarse-solve", "residual")
+# name -> (n, gallery operator, kind, solver settings)
+CONFIGS = {
+    "vcycle": (4096, gallery.poisson, FivePt, {}),
+    "linexy": (2048, gallery.fe, NinePt, {"relaxation": "line-xy"}),
+    "fcycle": (4096, gallery.poisson, FivePt, {"cycle": {"type": "f"}}),
+}
 
 
 def _device_us(evt) -> float:
@@ -36,20 +46,21 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def main() -> None:
+def main(name: str = "vcycle") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_cycle: no CUDA device")
     dev = torch.device("cuda", 0)
-    n = N
+    n, make, kind, solver = CONFIGS[name]
     conf = Config({"log": [], "solver": {
-        "cycle": {"nrelax-pre": 1, "nrelax-post": 1}}})
-    s = Solver2(gallery.poisson(n, n, torch.float32, dev), FivePt, conf)
+        **solver, "cycle": {"nrelax-pre": 1, "nrelax-post": 1,
+                            **solver.get("cycle", {})}}})
+    s = Solver2(make(n, n, torch.float32, dev), kind, conf)
     b = gallery.poisson_rhs(n, n, torch.float32, dev)
     x = torch.zeros_like(b)
 
     def cycle(x):
-        return cycle2.ncycle(s.levels, s.kinds, 0, x, b, s.settings,
-                             fuse_final_residual=True)[0]
+        # as Solver2.solve runs it, without the norm's readback
+        return cycle2.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
 
     for _ in range(3):
         x = cycle(x)
@@ -78,8 +89,8 @@ def main() -> None:
         if d > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             dev_ms[evt.key] = d / 1e3 / CYCLES
     busy = sum(dev_ms.values())
-    print(f"device: {torch.cuda.get_device_name(0)}; {n}^2 float32 V(1,1), "
-          f"{s.nlevels} levels")
+    print(f"device: {torch.cuda.get_device_name(0)}; {name}: {n}^2 "
+          f"float32, {s.nlevels} levels")
     print(f"wall ms/cycle (CUDA events, under the profiler): {wall_ms:.4f}")
     print(f"device busy ms/cycle: {busy:.4f} "
           f"(busy share {busy / wall_ms:.3f}, idle share "
@@ -93,4 +104,4 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    main(*sys.argv[1:])

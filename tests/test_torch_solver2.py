@@ -151,9 +151,9 @@ def test_single_level_and_post_free_cycles():
 
 
 @pytest.mark.parametrize("conf", [
-    {"solver": {"cycle": {"type": "f"}}},
-    {"solver": {"relaxation": "line-x"}},
-    {"solver": {"relaxation": "line-xy"}},
+    {"solver": {"relaxation": "line-x", "ml-relax": {"enabled": True}}},
+    {"solver": {"relaxation": "line-y"}, "grid": {"periodic": [True, True]}},
+    {"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
     {"solver": {"relaxation": "plane-xy"}},
     {"grid": {"periodic": [True, False]}},
     {"solver": {"cg-solver": "cedar"}},
