@@ -1,4 +1,4 @@
-"""Parity (even/odd) grid decomposition, 2D.
+"""Parity (even/odd) grid decomposition, 2D and 3D.
 
 PyTorch counterpart of :mod:`cedar_tpu.core.parity`.  The JAX package
 builds these from reshapes because a double-strided slice is a lane gather
@@ -45,12 +45,32 @@ def interleave2(parts: dict, nx: int, ny: int) -> torch.Tensor:
     return out
 
 
-def subgrid_sample(sub: torch.Tensor, dz: int, dw: int, out_shape):
-    """``out[z, w] = sub[z + dz, w + dw]``, zero outside, padded/cropped to
-    ``out_shape`` (coarse grid)."""
+def deinterleave3(a: torch.Tensor):
+    """Split (nx, ny, nz) into its eight parity subgrids: dict
+    ``(p0, p1, p2) -> subgrid``."""
+    out = {}
+    for p0, r0 in zip((0, 1), _split_axis(a, 0)):
+        for p1, r1 in zip((0, 1), _split_axis(r0, 1)):
+            out[(p0, p1, 0)], out[(p0, p1, 1)] = _split_axis(r1, 2)
+    return out
+
+
+def interleave3(parts: dict, n0: int, n1: int, n2: int) -> torch.Tensor:
+    """Merge 3D parity subgrids back into (n0, n1, n2) (missing -> 0)."""
+    ref = next(v for v in parts.values() if v is not None)
+    out = ref.new_zeros((n0, n1, n2))
+    for (p0, p1, p2), v in parts.items():
+        if v is not None:
+            out[p0::2, p1::2, p2::2] = v
+    return out
+
+
+def subgrid_sample_nd(sub: torch.Tensor, deltas, out_shape):
+    """``out[c] = sub[c + d]`` over any number of axes, zero outside,
+    padded/cropped to ``out_shape`` (coarse grid)."""
     out = sub.new_zeros(tuple(out_shape))
     dst, src = [], []
-    for d, n_out, n_sub in zip((dz, dw), out_shape, sub.shape):
+    for d, n_out, n_sub in zip(deltas, out_shape, sub.shape):
         lo = max(-d, 0)
         hi = min(n_out, n_sub - d)
         if hi <= lo:
@@ -59,3 +79,9 @@ def subgrid_sample(sub: torch.Tensor, dz: int, dw: int, out_shape):
         src.append(slice(lo + d, hi + d))
     out[tuple(dst)] = sub[tuple(src)]
     return out
+
+
+def subgrid_sample(sub: torch.Tensor, dz: int, dw: int, out_shape):
+    """``out[z, w] = sub[z + dz, w + dw]``, zero outside, padded/cropped to
+    ``out_shape`` (coarse grid)."""
+    return subgrid_sample_nd(sub, (dz, dw), out_shape)

@@ -54,6 +54,11 @@ def shift2(a, dz, dw, periodic=(False, False)):
     return shift(a, (dz, dw), periodic)
 
 
+def shift3(a, d0, d1, d2, periodic=(False, False, False)):
+    """3D shift acting on the last three axes."""
+    return shift(a, (d0, d1, d2), periodic)
+
+
 def coarse_sample(a: torch.Tensor, offsets, nc, periodic=None) -> torch.Tensor:
     """Sample a fine-grid tensor at ``fine = 2*coarse + offset``.
 

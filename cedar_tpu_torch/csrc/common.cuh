@@ -1,10 +1,11 @@
-// Shared helpers of the port's 2D kernels.
+// Shared helpers of the port's kernels.
 //
 // Arithmetic goes through the round-to-nearest intrinsics so that nvcc
 // does not contract a*b + c into one FMA: each product and each sum rounds
 // once, in the term order of the PyTorch reference functions
-// (ops/stencil2.offdiag_apply, ops/interp2.restrict / interp_add), so a
-// kernel and its plain version agree to the last bit or within a few ulps.
+// (ops/stencil2.offdiag_apply, ops/interp2.restrict / interp_add and their
+// 3D counterparts), so a kernel and its plain version agree to the last
+// bit or within a few ulps.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -37,6 +38,12 @@ constexpr int kBlockY = 8;
 
 inline dim3 grid_for(int nrows, int ncols) {
   return dim3((ncols + kBlockX - 1) / kBlockX, (nrows + kBlockY - 1) / kBlockY);
+}
+
+// 3D launch shape over (n0, n1, n2), row-major with n2 contiguous: x runs
+// along n2, y along n1, and grid z is the index along n0 (so n0 <= 65535).
+inline dim3 grid3_for(int n0, int n1, int n2) {
+  return dim3((n2 + kBlockX - 1) / kBlockX, (n1 + kBlockY - 1) / kBlockY, n0);
 }
 
 }  // namespace cedar

@@ -1,9 +1,12 @@
-"""2D problem galleries (reference: src/2d/gallery.cc).
+"""2D and 3D problem galleries (reference: src/2d/gallery.cc,
+src/3d/gallery.cc).
 
-PyTorch counterpart of the 2D half of :mod:`cedar_tpu.gallery`.  Arrays are
-built in numpy exactly as the JAX package builds them, then cast, so both
-packages get identical values.  Every function takes ``dtype`` (default
-float64) and ``device``.
+PyTorch counterpart of :mod:`cedar_tpu.gallery`.  Arrays are built in numpy
+exactly as the JAX package builds them, then cast, so both packages get
+identical values.  Every function takes ``dtype`` (default float64) and
+``device`` (default the card, ``cuda``: the port's entry points run on the
+card unless the caller asks for the CPU; without a card the default
+raises, as torch does).
 """
 
 from __future__ import annotations
@@ -11,11 +14,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from cedar_tpu_torch.core.types import Dir2
+from cedar_tpu_torch.core.types import Dir2, Dir3
+
+
+def default_device(device=None) -> torch.device:
+    """The device a gallery array lands on: ``device``, or the card."""
+    return torch.device("cuda" if device is None else device)
 
 
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
-    return torch.as_tensor(a, dtype=dtype or torch.float64, device=device)
+    return torch.as_tensor(a, dtype=dtype or torch.float64,
+                           device=default_device(device))
 
 
 def poisson(nx: int, ny: int, dtype=None, device=None) -> torch.Tensor:
@@ -70,3 +79,76 @@ def poisson_solution(nx: int, ny: int, dtype=None,
     _, _, xx, yy = _grid(nx, ny)
     return _tensor(np.sin(2 * np.pi * xx) * np.sin(2 * np.pi * yy), dtype,
                    device)
+
+
+# ---------------------------------------------------------------------------
+# 3D
+# ---------------------------------------------------------------------------
+
+def poisson3(nx: int, ny: int, nz: int, dtype=None,
+             device=None) -> torch.Tensor:
+    """7-point Poisson, h²-scaled (reference: 3d/gallery.cc)."""
+    return diag_diffusion3(nx, ny, nz, 1.0, 1.0, 1.0, dtype, device)
+
+
+def diag_diffusion3(nx: int, ny: int, nz: int, dx: float, dy: float,
+                    dz: float, dtype=None, device=None) -> torch.Tensor:
+    """Anisotropic diffusion -(dx u_xx + dy u_yy + dz u_zz)
+    (reference: 3d/gallery.cc diag_diffusion)."""
+    hx = 1.0 / (nx + 1)
+    hy = 1.0 / (ny + 1)
+    hz = 1.0 / (nz + 1)
+    xh = hy * hz / hx
+    yh = hx * hz / hy
+    zh = hx * hy / hz
+    so = np.zeros((4, nx, ny, nz))
+    so[Dir3.PW, 1:, :, :] = dx * xh
+    so[Dir3.PS, :, 1:, :] = dy * yh
+    so[Dir3.B, :, :, 1:] = dz * zh
+    so[Dir3.P] = 2 * (dx * xh + dy * yh + dz * zh)
+    return _tensor(so, dtype, device)
+
+
+def _grid3(nx: int, ny: int, nz: int):
+    hs = [1.0 / (n + 1) for n in (nx, ny, nz)]
+    grids = [(np.arange(n) + 1) * h for n, h in zip((nx, ny, nz), hs)]
+    return hs, np.meshgrid(*grids, indexing="ij")
+
+
+def poisson3_rhs(nx: int, ny: int, nz: int, dtype=None,
+                 device=None) -> torch.Tensor:
+    """RHS 12π²·sin(2πx)sin(2πy)sin(2πz)·hx·hy·hz (examples/basic-3d-*)."""
+    hs, (xx, yy, zz) = _grid3(nx, ny, nz)
+    b = (12 * np.pi**2 * np.sin(2 * np.pi * xx) * np.sin(2 * np.pi * yy)
+         * np.sin(2 * np.pi * zz))
+    return _tensor(b * hs[0] * hs[1] * hs[2], dtype, device)
+
+
+def poisson3_solution(nx: int, ny: int, nz: int, dtype=None,
+                      device=None) -> torch.Tensor:
+    """Exact solution sin(2πx)sin(2πy)sin(2πz) at interior points."""
+    _, (xx, yy, zz) = _grid3(nx, ny, nz)
+    return _tensor(np.sin(2 * np.pi * xx) * np.sin(2 * np.pi * yy)
+                   * np.sin(2 * np.pi * zz), dtype, device)
+
+
+def fe3(nx: int, ny: int, nz: int, dtype=None, device=None) -> torch.Tensor:
+    """27-point finite-element operator (reference: 3d/gallery.cc fe)."""
+    so = np.zeros((14, nx, ny, nz))
+    # same-plane couplings
+    so[Dir3.PW, 1:, :, :] = 1.0
+    so[Dir3.PS, :, 1:, :] = 1.0
+    so[Dir3.PSW, 1:, 1:, :] = 1.0
+    so[Dir3.PNW, 1:, 1:, :] = 1.0
+    # below-plane couplings
+    so[Dir3.B, :, :, 1:] = 1.0
+    so[Dir3.BW, 1:, :, 1:] = 1.0
+    so[Dir3.BE, 1:, :, 1:] = 1.0
+    so[Dir3.BS, :, 1:, 1:] = 1.0
+    so[Dir3.BN, :, 1:, 1:] = 1.0
+    so[Dir3.BSW, 1:, 1:, 1:] = 1.0
+    so[Dir3.BNW, 1:, 1:, 1:] = 1.0
+    so[Dir3.BNE, 1:, 1:, 1:] = 1.0
+    so[Dir3.BSE, 1:, 1:, 1:] = 1.0
+    so[Dir3.P] = 26.0
+    return _tensor(so, dtype, device)

@@ -1,4 +1,4 @@
-"""Coarsest-grid direct solve, 2D.
+"""Coarsest-grid direct solve, 2D and 3D.
 
 PyTorch counterpart of :mod:`cedar_tpu.ops.cg`.  The reference factors a
 banded copy of the coarsest operator with LAPACK (BMG2_SymStd_SETUP_cg_LU.f90,
@@ -20,26 +20,29 @@ import numpy as np
 import torch
 
 from cedar_tpu_torch.core.types import StencilKind
-from cedar_tpu_torch.ops.stencil2 import full_offsets
+from cedar_tpu_torch.ops import stencil2, stencil3
 
 
 def assemble_dense(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
-    """Dense row-form matrix of the operator, x-fastest ordering (the
-    reference's KK loop, SETUP_cg_LU.f90:116-144)."""
-    af = full_offsets(so, kind)
+    """Dense row-form matrix of the operator over 2 or 3 axes, x-fastest
+    ordering (x, then y, then z: the reference's KK loop,
+    SETUP_cg_LU.f90:116-144)."""
+    stencil = stencil2 if kind.ndim == 2 else stencil3
+    af = stencil.full_offsets(so, kind)
     nshape = tuple(so.shape[1:])
+    dims = len(nshape)
     n = int(np.prod(nshape))
-    strides = [1, nshape[0]]
+    strides = [int(np.prod(nshape[:d])) for d in range(dims)]
     idx = np.indices(nshape)
     flat = torch.as_tensor(
-        (idx[0] * strides[0] + idx[1] * strides[1]).reshape(-1),
+        sum(idx[d] * strides[d] for d in range(dims)).reshape(-1),
         device=so.device,
     )
     mat = so.new_zeros((n, n))
     for off, field in af.items():
         nb_flat = np.zeros(nshape, np.int64)
         valid = np.ones(nshape, bool)
-        for d in range(2):
+        for d in range(dims):
             nb_d = idx[d] + off[d]
             valid &= (nb_d >= 0) & (nb_d < nshape[d])
             nb_flat += np.clip(nb_d, 0, nshape[d] - 1) * strides[d]
@@ -66,7 +69,9 @@ def setup_cg_lu(so: torch.Tensor, kind: StencilKind,
 
 
 def solve_cg(ainv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """x = A⁻¹ b on the coarsest grid (x-fastest flattening)."""
+    """x = A⁻¹ b on the coarsest grid, any dimension (x-fastest
+    flattening: the axes reversed)."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    x = (ainv @ b.T.reshape(-1)).reshape(b.shape[1], b.shape[0]).T
-    return x.contiguous()
+    axes = tuple(reversed(range(b.ndim)))
+    x = (ainv @ b.permute(axes).reshape(-1))
+    return x.reshape(tuple(reversed(b.shape))).permute(axes).contiguous()

@@ -50,6 +50,17 @@ SIGNATURES = {
         "cedar_line2_x": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "sweep3": {
+        "cedar_sweep3_phase": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _I, _P],
+        "cedar_residual3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "transfer3": {
+        "cedar_restrict3": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "cedar_interp_add3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _P],
+        "cedar_interp3": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

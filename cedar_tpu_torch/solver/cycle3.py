@@ -1,0 +1,151 @@
+"""3D V-, W- and F-cycles over a level hierarchy, point relaxation.
+
+PyTorch counterpart of the dense path of :mod:`cedar_tpu.solver.cycle3`
+(reference: include/cedar/cycle/vcycle.h:44-115,
+include/cedar/cycle/fcycle.h:49-84).  The recursion runs eagerly in Python;
+every sweep, restriction and interpolation dispatches by device inside the
+ops (CUDA kernels on the card, torch ops on the CPU).  The TPU's
+octant-split resident cycle (``ncycle_split``) is a layout of the same
+function and is not ported.
+
+The last pre-sweep of each level emits the residual that feeds the
+restriction, and with ``fuse_final_residual`` the last post-sweep of the
+top level emits the convergence residual, as the Pallas path does.
+
+Sweeps and interpolation update the iterate in place: ``ncycle`` and
+``run_cycle`` overwrite the ``x`` they are given.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cedar_tpu_torch.ops import cg
+from cedar_tpu_torch.ops.interp3 import interp, interp_add, restrict
+from cedar_tpu_torch.ops.relax3 import point_relax
+from cedar_tpu_torch.ops.stencil3 import residual
+from cedar_tpu_torch.settings import CycleType, MLSettings, RelaxType
+from cedar_tpu_torch.utils.timing import scope
+
+
+def _smooth(lev, kind, x, b, settings: MLSettings, updown: str):
+    """One smoothing application (reference: multilevel.h:134-223)."""
+    if settings.relaxation == RelaxType.point:
+        return point_relax(lev.so, x, b, lev.recip, kind, updown)
+    raise ValueError(f"invalid 3D relaxation: {settings.relaxation}")
+
+
+def _nsmooth(lev, kind, x, b, settings: MLSettings, updown: str,
+             nrelax: int):
+    """``nrelax`` identical sweeps."""
+    for _ in range(nrelax):
+        x = _smooth(lev, kind, x, b, settings, updown)
+    return x
+
+
+def fuse_final_ok(levels, settings: MLSettings) -> bool:
+    """Whether the top level's last post-sweep can fuse the convergence
+    residual: V-cycle, point relaxation with a post-sweep, two levels or
+    more (the JAX package's condition where its sweep kernel runs; the
+    port's sweep always takes ``fuse_residual``)."""
+    return (
+        settings.cycle == CycleType.v
+        and settings.relaxation == RelaxType.point
+        and settings.nrelax_post >= 1
+        and len(levels) >= 2
+    )
+
+
+def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
+           settings: MLSettings, n: int = 1,
+           fuse_final_residual: bool = False):
+    """Recursive n-cycle (n=1: V, n=2: W).  Reference: vcycle.h:57-115.
+
+    With ``fuse_final_residual`` (callers check :func:`fuse_final_ok`)
+    returns ``(x, b - A x)``, the residual coming out of the last
+    post-sweep."""
+    lev, kind = levels[lvl], kinds[lvl]
+    pre = settings.nrelax_pre
+    if pre >= 1 and settings.relaxation == RelaxType.point:
+        # fused final pre-sweep + residual
+        with scope("relaxation"):
+            x = _nsmooth(lev, kind, x, b, settings, "down", pre - 1)
+        with scope("relaxation-residual-fused"):
+            x, res = point_relax(lev.so, x, b, lev.recip, kind, "down",
+                                 fuse_residual=True)
+    else:
+        with scope("relaxation"):
+            x = _nsmooth(lev, kind, x, b, settings, "down", pre)
+        with scope("residual"):
+            res = residual(lev.so, x, b, kind)
+
+    coarse = levels[lvl + 1]
+    with scope("restrict"):
+        cb = restrict(coarse.ci, res)
+    if lvl + 1 == len(levels) - 1:
+        with scope("coarse-solve"):
+            cx = cg.solve_cg(coarse.ainv, cb)
+    else:
+        cx = torch.zeros_like(cb)
+        for _ in range(n):
+            cx = ncycle(levels, kinds, lvl + 1, cx, cb, settings, n)
+
+    with scope("interp-add"):
+        x = interp_add(coarse.ci, lev.so, cx, res, x)
+
+    # nonsymmetric relaxation keeps the forward sweep order for
+    # post-smoothing (reference: IRELAX_SYM, BMG3_SymStd_relax_GS.f90)
+    post = "up" if settings.relax_symmetric else "down"
+    nplain = settings.nrelax_post - (1 if fuse_final_residual else 0)
+    with scope("relaxation"):
+        x = _nsmooth(lev, kind, x, b, settings, post, nplain)
+    if fuse_final_residual:
+        with scope("relaxation-residual-fused"):
+            return point_relax(lev.so, x, b, lev.recip, kind, post,
+                               fuse_residual=True)
+    return x
+
+
+def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
+              settings: MLSettings) -> torch.Tensor:
+    """Full multigrid cycle (reference: fcycle.h:49-84); returns a new x.
+
+    Restricts ``b`` down to the coarsest level, solves there, then on each
+    level interpolates the coarse solution up (``x = P cx``, no residual
+    and no addend) and runs one V-cycle from it.  Like the JAX package, it
+    starts from ``b`` alone: an incoming iterate plays no part."""
+    lev = levels[lvl]
+    if lvl == len(levels) - 1:
+        with scope("coarse-solve"):
+            return cg.solve_cg(lev.ainv, b)
+    coarse = levels[lvl + 1]
+    with scope("restrict"):
+        cb = restrict(coarse.ci, b)
+    cx = fmg_cycle(levels, kinds, lvl + 1, cb, settings)
+    with scope("interp"):
+        x = interp(coarse.ci, cx, b.shape)
+    return ncycle(levels, kinds, lvl, x, b, settings)
+
+
+def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
+              settings: MLSettings):
+    """One cycle of the configured type (reference: multilevel.h:289-296);
+    a V-cycle overwrites ``x``, an F-cycle ignores it."""
+    if len(levels) == 1:
+        return cg.solve_cg(levels[0].ainv, b)
+    if settings.cycle == CycleType.f:
+        return fmg_cycle(levels, kinds, 0, b, settings)
+    return ncycle(levels, kinds, 0, x, b, settings)
+
+
+def cycle_residual(levels, kinds, x: torch.Tensor, b: torch.Tensor,
+                   settings: MLSettings):
+    """One iteration of the solve loop: the cycle, then ``b - A x`` on the
+    finest level, fused into the last post-sweep where
+    :func:`fuse_final_ok` allows (the JAX solve loop's rule, cedar_tpu/
+    solver/solver3.py:349-375).  Returns ``(x, residual)``."""
+    if fuse_final_ok(levels, settings):
+        return ncycle(levels, kinds, 0, x, b, settings,
+                      fuse_final_residual=True)
+    x = run_cycle(levels, kinds, x, b, settings)
+    return x, residual(levels[0].so, x, b, kinds[0])

@@ -1,9 +1,9 @@
 """Per-level data container (reference: include/cedar/level.h:14-45).
 
 PyTorch counterpart of :mod:`cedar_tpu.solver.level`, with the fields the
-2D point- and line-relaxation / direct-coarse-solve path uses.
-``levels[l+1].ci`` interpolates level ``l+1`` -> ``l``; ``ainv`` is set on
-the coarsest level.
+2D point- and line-relaxation and the 3D point-relaxation paths with a
+direct coarse solve use.  ``levels[l+1].ci`` interpolates level ``l+1`` ->
+``l``; ``ainv`` is set on the coarsest level.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ import torch
 
 
 class Level(NamedTuple):
-    so: torch.Tensor                          # (ndir, nx, ny) stencil
+    so: torch.Tensor                          # (ndir, nx, ny[, nz]) stencil
     recip: Optional[torch.Tensor] = None      # 1/diag (point relax)
     ci: Optional[torch.Tensor] = None         # interp weights to the finer level
     sor_x: Optional[torch.Tensor] = None      # x-line LDLᵀ factors (CPU path)
@@ -31,7 +31,10 @@ def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
 
     Each entry is a mapping or a ``NamedTuple`` with any of the fields
     ``so``, ``recip``, ``ci``, ``sor_x``, ``sor_y``, ``ainv``; other fields
-    are ignored.  The arrays are copied.  A ``sor_x`` / ``sor_y`` that is
+    are ignored, among them the TPU layouts of a JAX ``Solver3`` hierarchy
+    (``cip``, the padded restriction weights; ``so2``, the octant-split
+    stencil; ``pw4``, the split transfer weights), which the port's dense
+    kernels do not use.  The arrays are copied.  A ``sor_x`` / ``sor_y`` that is
     not an array (the JAX package's SPIKE factors, ``lines2.SpikeLines``,
     which it builds for lines of 16 points or more) is not converted: the
     field stays None and the line sweep factors the lines from ``so`` with

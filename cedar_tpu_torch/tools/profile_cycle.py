@@ -1,10 +1,12 @@
-"""Where the time of one 2D cycle goes on the card.
+"""Where the time of one 2D or 3D cycle goes on the card.
 
-Builds one of three float32 configurations — ``vcycle`` (default: Poisson
-4096², V(1,1)), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1))
-or ``fcycle`` (Poisson 4096², F-cycle) — runs a few warm-up cycles as the
-solve runs them, then traces ten cycles with ``torch.profiler`` and
-prints:
+Builds one of six float32 configurations — ``vcycle`` (default: Poisson
+4096², V(1,1)), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1)),
+``fcycle`` (Poisson 4096², F-cycle), ``vcycle3`` (7-point Poisson 256³,
+V(1,1): ``3d_poisson_7pt_256``), ``fe27`` (27-point ``gallery.fe3`` 128³,
+V(1,1): ``3d_fe_27pt_128``) or ``fcycle3`` (7-point Poisson 256³,
+F-cycle) — runs a few warm-up cycles as the solve runs them, then traces
+ten cycles with ``torch.profiler`` and prints:
 
 * wall ms per cycle (CUDA events) and the device's busy and idle share
   (summed kernel time over wall time);
@@ -13,7 +15,8 @@ prints:
 
 Run from the repository root on a machine with a CUDA device:
 
-    python3 -m cedar_tpu_torch.tools.profile_cycle [vcycle|linexy|fcycle]
+    python3 -m cedar_tpu_torch.tools.profile_cycle \
+        [vcycle|linexy|fcycle|vcycle3|fe27|fcycle3]
 """
 
 from __future__ import annotations
@@ -23,18 +26,24 @@ import sys
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from cedar_tpu_torch import Config, FivePt, NinePt, Solver2, gallery
-from cedar_tpu_torch.solver import cycle2
+from cedar_tpu_torch import (
+    Config, FivePt, NinePt, SevenPt, Solver2, Solver3, TwentySevenPt,
+    gallery,
+)
+from cedar_tpu_torch.solver import cycle2, cycle3
 
 
 CYCLES = 10
 SCOPES = ("relaxation", "relaxation-residual-fused", "restrict",
           "interp-add", "interp", "coarse-solve", "residual")
-# name -> (n, gallery operator, kind, solver settings)
+# name -> (dimension, n, gallery operator, kind, solver settings)
 CONFIGS = {
-    "vcycle": (4096, gallery.poisson, FivePt, {}),
-    "linexy": (2048, gallery.fe, NinePt, {"relaxation": "line-xy"}),
-    "fcycle": (4096, gallery.poisson, FivePt, {"cycle": {"type": "f"}}),
+    "vcycle": (2, 4096, gallery.poisson, FivePt, {}),
+    "linexy": (2, 2048, gallery.fe, NinePt, {"relaxation": "line-xy"}),
+    "fcycle": (2, 4096, gallery.poisson, FivePt, {"cycle": {"type": "f"}}),
+    "vcycle3": (3, 256, gallery.poisson3, SevenPt, {}),
+    "fe27": (3, 128, gallery.fe3, TwentySevenPt, {}),
+    "fcycle3": (3, 256, gallery.poisson3, SevenPt, {"cycle": {"type": "f"}}),
 }
 
 
@@ -50,17 +59,20 @@ def main(name: str = "vcycle") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_cycle: no CUDA device")
     dev = torch.device("cuda", 0)
-    n, make, kind, solver = CONFIGS[name]
+    dim, n, make, kind, solver = CONFIGS[name]
     conf = Config({"log": [], "solver": {
         **solver, "cycle": {"nrelax-pre": 1, "nrelax-post": 1,
                             **solver.get("cycle", {})}}})
-    s = Solver2(make(n, n, torch.float32, dev), kind, conf)
-    b = gallery.poisson_rhs(n, n, torch.float32, dev)
+    shape = (n,) * dim
+    solver_cls, rhs, cyc = ((Solver2, gallery.poisson_rhs, cycle2) if dim == 2
+                            else (Solver3, gallery.poisson3_rhs, cycle3))
+    s = solver_cls(make(*shape, torch.float32, dev), kind, conf)
+    b = rhs(*shape, torch.float32, dev)
     x = torch.zeros_like(b)
 
     def cycle(x):
-        # as Solver2.solve runs it, without the norm's readback
-        return cycle2.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
+        # as the solver's solve runs it, without the norm's readback
+        return cyc.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
 
     for _ in range(3):
         x = cycle(x)
@@ -89,7 +101,7 @@ def main(name: str = "vcycle") -> None:
         if d > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             dev_ms[evt.key] = d / 1e3 / CYCLES
     busy = sum(dev_ms.values())
-    print(f"device: {torch.cuda.get_device_name(0)}; {name}: {n}^2 "
+    print(f"device: {torch.cuda.get_device_name(0)}; {name}: {n}^{dim} "
           f"float32, {s.nlevels} levels")
     print(f"wall ms/cycle (CUDA events, under the profiler): {wall_ms:.4f}")
     print(f"device busy ms/cycle: {busy:.4f} "

@@ -1,7 +1,8 @@
 #!/usr/bin/env python
 """GPU smoke test of cedar_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version, and drives the 2D V-cycle, line-xy and
-F-cycle solves on the card.
+F-cycle solves and the 3D 7- and 27-point V-cycle and F-cycle solves on
+the card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -15,17 +16,28 @@ Phases (each raises on failure; nothing is caught):
 3. kernel against plain version for the sweep (K1), restrict (K2),
    interp-add (K3), zebra line sweep (K4: x and y) and interp (K5) at
    (4096, 4096), (2049, 2049) and (2048, 2048) in float32 and (400, 400)
-   and (1025, 771) in float64;
+   and (1025, 771) in float64; then the 3D sweep (K6), restrict (K7),
+   interp-add (K8) and interp (K9) at (256, 256, 256) 7-point and
+   (128, 128, 128) 27-point float32 and (33, 21, 17) and (65, 65, 65)
+   float64, both kinds;
 4. Cedar's 400² float64 residual history through the kernels;
 4b. float64 gates of the line-xy and F-cycle paths: the 400² solves on the
    card against the same solves on the CPU (plain versions);
+4c. Cedar's 3D integration test (200³ float64 7-point Poisson) through
+   the kernels, then the float64 3D gates: 33³ 7-point and 17³ 27-point
+   V-cycle solves and a 33³ F-cycle, card against CPU;
 5. the main path: 2D Poisson 4096² float32, V(1,1), setup and a solve of
    four cycles, with every kernel's launch count; the convergence rate on
    A x = 0 from a random start; then the per-cycle time;
-5b. the slice at full width: ``2d_fe_9pt_linexy_2048`` and
+5b. the 2D slices at full width: ``2d_fe_9pt_linexy_2048`` and
    ``2d_poisson_fcycle_4096`` (``bench.py``'s configurations), each with
    setup, a solve, launch counts, per-cycle time and peak memory;
-6. per-kernel times at the main paths' shapes, kernel against plain.
+5c. the 3D slice at full width: ``3d_poisson_7pt_256``,
+   ``3d_fe_27pt_128`` (``bench.py``'s configurations) and the 256³
+   F-cycle, each with the same numbers;
+6. per-kernel times at the main paths' shapes, kernel against plain, and
+   each kernel's bound: the least time for its bytes and operations at the
+   H100's data-sheet rates.
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
@@ -44,13 +56,17 @@ import time
 import numpy as np
 import torch
 
-from cedar_tpu_torch import Config, FivePt, NinePt, Solver2, gallery
-from cedar_tpu_torch.core.types import StencilKind
+from cedar_tpu_torch import (
+    Config, FivePt, NinePt, SevenPt, Solver2, Solver3, TwentySevenPt,
+    gallery,
+)
+from cedar_tpu_torch.core.types import Dir3, StencilKind
 from cedar_tpu_torch.ops import (
-    cuda2, cuda_build, cuda_lines2, cuda_transfer2, interp2,
+    cuda2, cuda3, cuda_build, cuda_lines2, cuda_transfer2, cuda_transfer3,
+    interp2, interp3, stencil3,
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
-from cedar_tpu_torch.solver import cycle2
+from cedar_tpu_torch.solver import cycle2, cycle3
 
 CEDAR_HISTORY = [
     0.388629, 0.0443548, 0.00494131, 0.000513399, 5.44908e-05,
@@ -62,12 +78,25 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 SHAPES = [((4096, 4096), torch.float32), ((2049, 2049), torch.float32),
           ((2048, 2048), torch.float32),
           ((400, 400), torch.float64), ((1025, 771), torch.float64)]
+SHAPES3 = [((256, 256, 256), torch.float32, (False,)),
+           ((128, 128, 128), torch.float32, (True,)),
+           ((33, 21, 17), torch.float64, (False, True)),
+           ((65, 65, 65), torch.float64, (False, True))]
+# every row of the TPU kernel table (PERF.md) a kernel covers
 REPLACES = {
     "sweep2": "cedar_tpu/ops/pallas2.py:137",
     "restrict2": "cedar_tpu/ops/pallas_transfer2.py:126",
     "interp_add2": "cedar_tpu/ops/pallas_transfer2.py:256",
     "line2": "cedar_tpu/ops/pallas_lines2.py:142",
     "interp2": "cedar_tpu/ops/pallas_transfer2.py:817",
+    "sweep3": "cedar_tpu/ops/pallas3.py:190, cedar_tpu/ops/pallas3.py:473",
+    "restrict3": ("cedar_tpu/ops/pallas_transfer3.py:192, "
+                  "cedar_tpu/ops/pallas3_split.py:723, "
+                  "cedar_tpu/ops/pallas3_split.py:823"),
+    "interp_add3": ("cedar_tpu/ops/pallas3_split.py:1063, "
+                    "cedar_tpu/ops/pallas3_split.py:1247"),
+    "interp3": ("cedar_tpu/ops/pallas3_split.py:1101, "
+                "cedar_tpu/ops/pallas3_split.py:1198"),
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -75,12 +104,25 @@ SOURCES = {
     "interp_add2": "cedar_tpu_torch/csrc/transfer2.cu",
     "line2": "cedar_tpu_torch/csrc/lines2.cu",
     "interp2": "cedar_tpu_torch/csrc/transfer2.cu",
+    "sweep3": "cedar_tpu_torch/csrc/sweep3.cu",
+    "restrict3": "cedar_tpu_torch/csrc/transfer3.cu",
+    "interp_add3": "cedar_tpu_torch/csrc/transfer3.cu",
+    "interp3": "cedar_tpu_torch/csrc/transfer3.cu",
 }
 KERNELS = tuple(REPLACES)
 # full widths: the V-cycle main path and the F-cycle at N_MAIN², line-xy
-# at N_LINES² (bench.py's configurations)
+# at N_LINES², the 3D 7-point V- and F-cycle at N_3D³ and the 27-point
+# V-cycle at N_27³ (bench.py's configurations)
 N_MAIN = 4096
 N_LINES = 2048
+N_3D = 256
+N_27 = 128
+# Cedar's 3D integration test size (test/3d/test_poisson.cc:74-105)
+N_CEDAR3 = 200
+# the H100 SXM data sheet at its 700 W limit: HBM bytes/s, and FLOP/s
+# outside the tensor cores by dtype (the bound of phase 6)
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 DEV = torch.device("cuda", 0)
 
@@ -92,11 +134,19 @@ def counts() -> dict:
         "interp_add2": cuda_transfer2.interp_launches,
         "line2": cuda_lines2.launches,
         "interp2": cuda_transfer2.interp2_launches,
+        "sweep3": cuda3.launches,
+        "restrict3": cuda_transfer3.restrict_launches,
+        "interp_add3": cuda_transfer3.interp_add_launches,
+        "interp3": cuda_transfer3.interp_launches,
         "sweep2_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
         "interp_add2_plain": cuda_transfer2.interp_plain_calls,
         "line2_plain": cuda_lines2.plain_calls,
         "interp2_plain": cuda_transfer2.interp2_plain_calls,
+        "sweep3_plain": cuda3.plain_calls,
+        "restrict3_plain": cuda_transfer3.restrict_plain_calls,
+        "interp_add3_plain": cuda_transfer3.interp_add_plain_calls,
+        "interp3_plain": cuda_transfer3.interp_plain_calls,
     }
 
 
@@ -107,6 +157,13 @@ def reset_counts() -> None:
     cuda_transfer2.interp_plain_calls = 0
     cuda_transfer2.interp2_launches = cuda_transfer2.interp2_plain_calls = 0
     cuda_lines2.launches = cuda_lines2.plain_calls = 0
+    cuda3.launches = cuda3.plain_calls = 0
+    cuda_transfer3.restrict_launches = 0
+    cuda_transfer3.interp_add_launches = 0
+    cuda_transfer3.interp_launches = 0
+    cuda_transfer3.restrict_plain_calls = 0
+    cuda_transfer3.interp_add_plain_calls = 0
+    cuda_transfer3.interp_plain_calls = 0
 
 
 def require_launched(c: dict, names, what: str) -> None:
@@ -243,6 +300,88 @@ def phase_kernels() -> dict:
     return errs
 
 
+def random_problem3(shape, ts: bool, dtype, seed: int):
+    """A diagonally dominant random 3D stencil (the layout of
+    tests/test_kernels_3d.random_so) with random q and b, made on the card
+    from ``seed``."""
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    nx, ny, nz = shape
+
+    def u(lo, hi, *s):
+        return lo + (hi - lo) * torch.rand(s, generator=g, device=DEV,
+                                           dtype=dtype)
+
+    kind = TwentySevenPt if ts else SevenPt
+    so = torch.zeros((kind.ndirs, nx, ny, nz), dtype=dtype, device=DEV)
+    so[Dir3.PW, 1:] = u(0.5, 1.5, nx - 1, ny, nz)
+    so[Dir3.PS, :, 1:] = u(0.5, 1.5, nx, ny - 1, nz)
+    so[Dir3.B, :, :, 1:] = u(0.5, 1.5, nx, ny, nz - 1)
+    if ts:
+        so[Dir3.PSW, 1:, 1:] = u(0.1, 0.4, nx - 1, ny - 1, nz)
+        so[Dir3.PNW, 1:, 1:] = u(0.1, 0.4, nx - 1, ny - 1, nz)
+        so[Dir3.BW, 1:, :, 1:] = u(0.1, 0.4, nx - 1, ny, nz - 1)
+        so[Dir3.BE, 1:, :, 1:] = u(0.1, 0.4, nx - 1, ny, nz - 1)
+        so[Dir3.BS, :, 1:, 1:] = u(0.1, 0.4, nx, ny - 1, nz - 1)
+        so[Dir3.BN, :, 1:, 1:] = u(0.1, 0.4, nx, ny - 1, nz - 1)
+        for d in (Dir3.BSW, Dir3.BNW, Dir3.BNE, Dir3.BSE):
+            so[d, 1:, 1:, 1:] = u(0.05, 0.2, nx - 1, ny - 1, nz - 1)
+    so[Dir3.P] = stencil3.offdiag_apply(
+        so, torch.ones(shape, dtype=dtype, device=DEV), kind) + u(
+            0.05, 0.2, nx, ny, nz)
+    q = torch.randn(shape, generator=g, device=DEV, dtype=dtype)
+    b = torch.randn(shape, generator=g, device=DEV, dtype=dtype)
+    return so, q, b, kind
+
+
+def phase_kernels3(errs: dict) -> dict:
+    """K6-K9 against their plain versions at the 3D shapes."""
+    print("[3] 3D kernels against plain versions", flush=True)
+    for k in ("sweep3", "restrict3", "interp_add3", "interp3"):
+        errs.setdefault(k, 0.0)
+    for i, (shape, dtype, kinds) in enumerate(SHAPES3):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        small = dtype == torch.float64
+        for ts in kinds:
+            so, q, b, kind = random_problem3(shape, ts, dtype, 300 + i)
+            pts = "27pt" if ts else "7pt"
+            origins = [(0, 0, 0), (1, 2, 3)] if small else [(0, 0, 0)]
+            for updown in ("down", "up"):
+                for fuse in (False, True):
+                    for origin in origins:
+                        got = cuda3.sweep(so, q.clone(), b, kind, updown,
+                                          fuse, origin)
+                        want = cuda3.sweep_plain(so, q.clone(), b, kind,
+                                                 updown, fuse, origin)
+                        what = (f"K6 sweep3 {pts} {updown} fuse={int(fuse)}"
+                                f" origin={origin} {tag}")
+                        if fuse:
+                            e = max(compare(what + " q", got[0], want[0]),
+                                    compare(what + " res", got[1], want[1]))
+                        else:
+                            e = compare(what, got, want)
+                        errs["sweep3"] = max(errs["sweep3"], e)
+                        del got, want
+            ci = interp3.setup_interp(so, kind)
+            nc = tuple(n - 1 for n in ci.shape[1:])
+            g = torch.Generator(device=DEV).manual_seed(400 + i)
+            qc = torch.randn(nc, generator=g, device=DEV, dtype=dtype)
+            e = compare(f"K7 restrict3 {pts} {tag}",
+                        cuda_transfer3.restrict(ci, b),
+                        cuda_transfer3.restrict_plain(ci, b))
+            errs["restrict3"] = max(errs["restrict3"], e)
+            e = compare(f"K8 interp_add3 {pts} {tag}",
+                        cuda_transfer3.interp_add(ci, so, qc, b, q.clone()),
+                        cuda_transfer3.interp_add_plain(ci, so, qc, b,
+                                                        q.clone()))
+            errs["interp_add3"] = max(errs["interp_add3"], e)
+            e = compare(f"K9 interp3 {pts} {tag}",
+                        cuda_transfer3.interp(ci, qc, shape),
+                        cuda_transfer3.interp_plain(ci, qc, shape))
+            errs["interp3"] = max(errs["interp3"], e)
+            del so, q, b, ci, qc
+    return errs
+
+
 def phase_cedar_gate() -> None:
     print("[4] Cedar 400^2 float64 history through the kernels", flush=True)
     reset_counts()
@@ -281,8 +420,8 @@ def phase_f64_gates() -> None:
     conf = Config({"log": [], "solver": {
         "relaxation": "line-xy", "cycle": {"nrelax-pre": 1, "nrelax-post": 1},
         "tol": 1e-10, "max-iter": 10}})
-    so = gallery.fe(n, n, torch.float64)
-    b = gallery.poisson_rhs(n, n, torch.float64)
+    so = gallery.fe(n, n, torch.float64, cpu)
+    b = gallery.poisson_rhs(n, n, torch.float64, cpu)
     s, x, c = gate_solve(DEV, so, NinePt, conf, b)
     sc, xc, _ = gate_solve(cpu, so, NinePt, conf, b)
     print(f"  fe {n}^2 line-xy V(1,1): card {' '.join(f'{h:.6g}' for h in s.history)}",
@@ -301,8 +440,8 @@ def phase_f64_gates() -> None:
     conf = Config({"log": [], "solver": {
         "cycle": {"type": "f", "nrelax-pre": 1, "nrelax-post": 1},
         "tol": 1e-10, "max-iter": 3}})
-    so = gallery.poisson(n, n, torch.float64)
-    b = gallery.poisson_rhs(n, n, torch.float64)
+    so = gallery.poisson(n, n, torch.float64, cpu)
+    b = gallery.poisson_rhs(n, n, torch.float64, cpu)
     s, x, c = gate_solve(DEV, so, FivePt, conf, b)
     sc, _, _ = gate_solve(cpu, so, FivePt, conf, b)
     err = float((x - gallery.poisson_solution(n, n, torch.float64,
@@ -319,13 +458,76 @@ def phase_f64_gates() -> None:
                      "F-cycle gate")
 
 
-def time_cycles(s, b, x, ncycles=25):
+def phase_cedar3() -> None:
+    """Cedar's 3D integration test through the kernels."""
+    n = N_CEDAR3
+    print(f"[4c] Cedar 3D test: Poisson {n}^3 float64 7-pt through the "
+          "kernels", flush=True)
+    reset_counts()
+    conf = Config({"log": [], "solver": {"tol": 1e-9, "max-iter": 30}})
+    so = gallery.poisson3(n, n, n, torch.float64, DEV)
+    b = gallery.poisson3_rhs(n, n, n, torch.float64, DEV)
+    s = Solver3(so, SevenPt, conf)
+    x = s.solve(b)
+    c = counts()
+    rnorm = float(stencil3.residual(so, x, b, SevenPt).norm())
+    err = float((x - gallery.poisson3_solution(n, n, n, torch.float64,
+                                               DEV)).abs().max())
+    print(f"  history: {' '.join(f'{h:.6g}' for h in s.history)}",
+          flush=True)
+    print(f"  |b - A x|_2 = {rnorm:.4e}, |x - x*|_inf = {err:.6g}; "
+          f"counts: {c}", flush=True)
+    # test/3d/test_poisson.cc:74-105
+    if not (rnorm < 1e-8 and err < 1e-4):
+        raise AssertionError("Cedar 3D test failed")
+    require_launched(c, ("sweep3", "restrict3", "interp_add3"),
+                     "Cedar 3D test")
+
+
+def phase_3d_gates() -> None:
+    """The float64 3D V-cycle and F-cycle solves on the card against the
+    same solves on the CPU (plain versions)."""
+    print("[4c] float64 3D gates, card against CPU", flush=True)
+    cpu = torch.device("cpu")
+    gates = [
+        ("poisson3 33^3 V", 33, gallery.poisson3, SevenPt,
+         {"tol": 1e-10, "max-iter": 10},
+         ("sweep3", "restrict3", "interp_add3")),
+        ("fe3 17^3 V", 17, gallery.fe3, TwentySevenPt,
+         {"tol": 1e-10, "max-iter": 10},
+         ("sweep3", "restrict3", "interp_add3")),
+        ("poisson3 33^3 F", 33, gallery.poisson3, SevenPt,
+         {"cycle": {"type": "f"}, "tol": 1e-10, "max-iter": 3},
+         ("sweep3", "restrict3", "interp_add3", "interp3")),
+    ]
+    for what, n, make, kind, solver, need in gates:
+        conf = Config({"log": [], "solver": solver})
+        so = make(n, n, n, torch.float64, cpu)
+        b = gallery.poisson3_rhs(n, n, n, torch.float64, cpu)
+        reset_counts()
+        s = Solver3(so.to(DEV), kind, conf)
+        s.solve(b.to(DEV))
+        c = counts()
+        sc = Solver3(so, kind, conf)
+        sc.solve(b)
+        print(f"  {what}: card {' '.join(f'{h:.9g}' for h in s.history)}",
+              flush=True)
+        print(f"  {what}: CPU  {' '.join(f'{h:.9g}' for h in sc.history)};"
+              f" counts {c}", flush=True)
+        # the absolute floor in relative-residual units as in phase 4b
+        np.testing.assert_allclose(s.history, sc.history, rtol=1e-9,
+                                   atol=1e-14)
+        require_launched(c, need, what)
+
+
+def time_cycles(s, b, x, ncycles=25, cycle=cycle2):
     """CUDA-event time of each of ``ncycles`` cycles as the solve runs them
     (the cycle and the convergence residual, fused where the solve fuses
     it; no readback), after three warm-up cycles; prints the median, min,
-    max and host clock."""
+    max and host clock.  ``cycle`` is the cycle module of the solver's
+    dimension."""
     def one(x):
-        return cycle2.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
+        return cycle.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
 
     for _ in range(3):
         x = one(x)
@@ -493,6 +695,90 @@ def phase_fcycle_4096() -> dict:
     return launches
 
 
+def run_path3(name: str, n: int, make, kind, solver: dict, need) -> dict:
+    """One of ``bench.py``'s 3D configurations on the port, float32:
+    setup, a solve of four cycles with launch counts, the convergence rate
+    on A x = 0 from a random x0 (V-cycles) or the solution error
+    (F-cycle), the per-cycle time, DOF/s and peak memory."""
+    fcycle = solver.get("cycle", {}).get("type") == "f"
+    print(f"[5c] {name}: {make.__name__} {n}^3 float32, "
+          f"{'F-cycle with V(1,1) inside' if fcycle else 'V(1,1)'}",
+          flush=True)
+    conf = Config({"log": [], "solver": {
+        **solver, "cycle": {"nrelax-pre": 1, "nrelax-post": 1,
+                            **solver.get("cycle", {})},
+        "max-iter": 4, "tol": 1e-6}})
+    so = make(n, n, n, torch.float32, DEV)
+    b = gallery.poisson3_rhs(n, n, n, torch.float32, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = Solver3(so, kind, conf)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    launches = counts()
+    del so
+    print(f"  {name}: levels {s.nlevels}: {s.shapes[0]} .. {s.shapes[-1]}; "
+          f"setup {setup_s:.3f} s", flush=True)
+    print(f"  {name}: history {' '.join(f'{h:.9g}' for h in s.history)}",
+          flush=True)
+    print(f"  {name}: counts {launches}", flush=True)
+    if not torch.isfinite(x).all() or tuple(x.shape) != (n, n, n):
+        raise AssertionError(f"{name}: bad solution")
+    require_launched(launches, need, name)
+    if fcycle:
+        # the F-cycle recomputes the same x each iteration (as cedar_tpu's),
+        # so A x = 0 from a random x0 gives x = 0: the solution error
+        # against the analytic solution is its check
+        err = float((x - gallery.poisson3_solution(
+            n, n, n, torch.float32, DEV)).abs().max())
+        print(f"  {name}: solution error {err:g}", flush=True)
+        if len(set(s.history)) != 1 or not s.history[0] < 1:
+            raise AssertionError(f"{name}: history not constant and < 1")
+        if not err < 1e-2:
+            raise AssertionError(f"{name}: solution error {err:g}")
+    else:
+        if not s.history[-1] < s.history[0] / 5:
+            raise AssertionError(f"{name}: the solve did not converge")
+        # the rate on A x = 0 from a random x0, free of the f32 floor;
+        # every cycle must cut the residual >= 4x (7-point V(1,1) cuts
+        # ~7x, 27-point ~20x at 64^3 on the CPU)
+        g = torch.Generator(device=DEV).manual_seed(13)
+        x0 = torch.randn((n, n, n), generator=g, device=DEV,
+                         dtype=torch.float32)
+        s.solve(torch.zeros_like(b), x0)
+        h = [1.0] + s.history
+        print(f"  {name}: A x = 0 from random x0: "
+              f"{' '.join(f'{v:.6g}' for v in h[1:])}", flush=True)
+        del x0
+        if len(h) < 5 or any(h[i + 1] > h[i] / 4 for i in range(4)):
+            raise AssertionError(f"{name}: a cycle cut the residual < 4x")
+    ms = time_cycles(s, b, x, cycle=cycle3)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {name}: DOF/s {n ** 3 / (ms * 1e-3):.4e}; peak memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    return launches
+
+
+def phase_paths3() -> dict:
+    """The 3D slice at full width (bench.py:162-171, :186-195)."""
+    v7 = run_path3("3d_poisson_7pt_256", N_3D, gallery.poisson3, SevenPt,
+                   {}, ("sweep3", "restrict3", "interp_add3"))
+    torch.cuda.empty_cache()
+    run_path3("3d_fe_27pt_128", N_27, gallery.fe3, TwentySevenPt, {},
+              ("sweep3", "restrict3", "interp_add3"))
+    torch.cuda.empty_cache()
+    f7 = run_path3("3d_poisson_fcycle_256", N_3D, gallery.poisson3, SevenPt,
+                   {"cycle": {"type": "f"}},
+                   ("sweep3", "restrict3", "interp_add3", "interp3"))
+    torch.cuda.empty_cache()
+    return {k: v7[k] for k in ("sweep3", "restrict3", "interp_add3")} | {
+        "interp3": f7["interp3"]}
+
+
 def time_ms(fn, reps=20, warm=3) -> float:
     for _ in range(warm):
         fn()
@@ -544,39 +830,135 @@ def phase_times() -> dict:
         "line2 y": (lambda: cuda_lines2.line_y_plain(sl, ql, bl, kl, "down"),
                     lambda: cuda_lines2.line_y(sl, ql, bl, kl, "down")),
     }
+    out = time_turns({**cases, **lines}, slow=lines)
+    # one entry per kernel: the line kernel's is the mean of its x and y
+    # zebra sweeps
+    out["line2"] = tuple((a + c) / 2 for a, c in zip(out["line2 x"],
+                                                     out["line2 y"]))
+    # the bytes each function must move (inputs read once, outputs written
+    # once; interp-add reads only the diagonal plane of so) and its
+    # floating-point operations, at the timed shapes, float32
+    nc, m, e = ci.shape[1] - 1, N_LINES, 4
+    work = {
+        "sweep2": ((3 + 3) * n * n * e, 10 * n * n),
+        "restrict2": ((8 * (nc + 1) ** 2 + n * n + nc * nc) * e,
+                      16 * nc * nc),
+        "interp_add2": ((8 * (nc + 1) ** 2 + nc * nc + 4 * n * n) * e,
+                        23 * n * n // 4),
+        "interp2": ((8 * (nc + 1) ** 2 + nc * nc + n * n) * e,
+                    13 * n * n // 4),
+        # 9-point zebra sweep: 6 off-line couplings a point for the rhs,
+        # then the LDLᵀ recurrence (about 8 operations a point)
+        "line2": ((5 + 3) * m * m * e, 20 * m * m),
+    }
+    return {k: v + work[k] for k, v in out.items() if k in work}
+
+
+def time_turns(cases: dict, slow=()) -> dict:
+    """Each case timed in turns (plain, kernel, kernel, plain); returns
+    name -> (kernel ms, plain ms), the means of the two runs of each."""
     out = {}
-    for name, (plain, kernel) in {**cases, **lines}.items():
+    for name, (plain, kernel) in cases.items():
         # the plain line sweep is a Python loop along the line: few reps
-        pr, pw = (2, 1) if name in lines else (20, 3)
+        pr, pw = (2, 1) if name in slow else (20, 3)
         p1, k1, k2, p2 = (time_ms(plain, pr, pw), time_ms(kernel),
                           time_ms(kernel), time_ms(plain, pr, pw))
         out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
         print(f"  {name}: plain {p1:.4f} kernel {k1:.4f} kernel {k2:.4f} "
               f"plain {p2:.4f}", flush=True)
-    # one entry per kernel: the line kernel's is the mean of its x and y
-    # zebra sweeps
-    out["line2"] = tuple((a + c) / 2 for a, c in zip(out["line2 x"],
-                                                     out["line2 y"]))
     return out
+
+
+def phase_times3() -> dict:
+    """K6-K9 against plain at the 3D paths' shapes (256³ 7-point float32;
+    the 27-point sweep at 128³), in turns (plain, kernel, kernel, plain)."""
+    print("[6] per-kernel ms at 256^3 7-pt float32, 27-pt sweeps at 128^3 "
+          "(plain, kernel, kernel, plain)", flush=True)
+    n, n27 = N_3D, N_27
+    so, q, b, kind = random_problem3((n,) * 3, False, torch.float32, 17)
+    so27, q27, b27, kind27 = random_problem3((n27,) * 3, True,
+                                             torch.float32, 18)
+    ci = interp3.setup_interp(so, kind)
+    nc = ci.shape[1] - 1
+    g = torch.Generator(device=DEV).manual_seed(19)
+    qc = torch.randn((nc,) * 3, generator=g, device=DEV, dtype=torch.float32)
+    cases = {
+        "sweep3": (lambda: cuda3.sweep_plain(so, q, b, kind, "down"),
+                   lambda: cuda3.sweep(so, q, b, kind, "down")),
+        "sweep3 +res": (
+            lambda: cuda3.sweep_plain(so, q, b, kind, "down", True),
+            lambda: cuda3.sweep(so, q, b, kind, "down", True)),
+        "sweep3 27pt 128^3": (
+            lambda: cuda3.sweep_plain(so27, q27, b27, kind27, "down"),
+            lambda: cuda3.sweep(so27, q27, b27, kind27, "down")),
+        "sweep3 27pt 128^3 +res": (
+            lambda: cuda3.sweep_plain(so27, q27, b27, kind27, "down", True),
+            lambda: cuda3.sweep(so27, q27, b27, kind27, "down", True)),
+        "restrict3": (lambda: cuda_transfer3.restrict_plain(ci, b),
+                      lambda: cuda_transfer3.restrict(ci, b)),
+        "interp_add3": (
+            lambda: cuda_transfer3.interp_add_plain(ci, so, qc, b, q),
+            lambda: cuda_transfer3.interp_add(ci, so, qc, b, q)),
+        "interp3": (
+            lambda: cuda_transfer3.interp_plain(ci, qc, (n,) * 3),
+            lambda: cuda_transfer3.interp(ci, qc, (n,) * 3)),
+    }
+    out = time_turns(cases)
+    # bytes and operations as in phase_times: per fine point, interp-add
+    # does 67/8 operations on average over the 8 parity classes (1 at
+    # coincident points, 6 / 10 / 18 at edge / face / cell points), interp
+    # 52/8; a 7-point sweep 14, a 27-point one 54
+    N, Nc, W, e = n ** 3, nc ** 3, 26 * (nc + 1) ** 3, 4
+    N27 = n27 ** 3
+    work = {
+        "sweep3": ((4 + 3) * N * e, 14 * N),
+        "sweep3 27pt 128^3": ((14 + 3) * N27 * e, 54 * N27),
+        "restrict3": ((W + N + Nc) * e, 52 * Nc),
+        "interp_add3": ((W + Nc + 4 * N) * e, 67 * N // 8),
+        "interp3": ((W + Nc + N) * e, 52 * N // 8),
+    }
+    for k, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, torch.float32)
+        print(f"  {k}: bound {bms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
+              f"{flops / 1e9:.4f} GFLOP); kernel {out[k][0]:.4f} ms",
+              flush=True)
+    return {k: v + work[k] for k, v in out.items() if k in work}
+
+
+def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
+    """The least time on the card, ms: the larger of the bytes over the HBM
+    rate and the operations over the peak rate of ``dtype``."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> None:
     phase_device()
     phase_build()
     errs = phase_kernels()
+    errs = phase_kernels3(errs)
     phase_cedar_gate()
     phase_f64_gates()
+    phase_cedar3()
+    phase_3d_gates()
     launches = phase_main_path()
     launches["line2"] = phase_linexy_2048()["line2"]
     launches["interp2"] = phase_fcycle_4096()["interp2"]
-    times = phase_times()
-    table = [
-        {"name": name, "route": "cuda", "source": SOURCES[name],
-         "replaces": REPLACES[name], "launches": launches[name],
-         "max_abs_err": errs[name], "ms": times[name][0],
-         "plain_ms": times[name][1]}
-        for name in KERNELS
-    ]
+    launches.update(phase_paths3())
+    times = phase_times() | phase_times3()
+    table = []
+    for name in KERNELS:
+        ms, plain_ms, nbytes, flops = times[name]
+        bound_ms, bound_by = bound(nbytes, flops, torch.float32)
+        # no single PyTorch call computes a variable-coefficient stencil
+        # sweep or BoxMG transfer from these inputs: library_ms is null
+        table.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+        })
     print(json.dumps({"kernels": table}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,13 +104,14 @@ def test_gallery_identical(dtype):
     jdt = getattr(jnp, dtype)
     for nx, ny in [(16, 16), (13, 7)]:
         pairs = [
-            (gallery.poisson(nx, ny, tdt), jgallery.poisson(nx, ny, jdt)),
-            (gallery.diag_diffusion(nx, ny, 1.0, 1e-3, tdt),
+            (gallery.poisson(nx, ny, tdt, device="cpu"),
+             jgallery.poisson(nx, ny, jdt)),
+            (gallery.diag_diffusion(nx, ny, 1.0, 1e-3, tdt, device="cpu"),
              jgallery.diag_diffusion(nx, ny, 1.0, 1e-3, jdt)),
-            (gallery.fe(nx, ny, tdt), jgallery.fe(nx, ny, jdt)),
-            (gallery.poisson_rhs(nx, ny, tdt),
+            (gallery.fe(nx, ny, tdt, device="cpu"), jgallery.fe(nx, ny, jdt)),
+            (gallery.poisson_rhs(nx, ny, tdt, device="cpu"),
              jgallery.poisson_rhs(nx, ny, jdt)),
-            (gallery.poisson_solution(nx, ny, tdt),
+            (gallery.poisson_solution(nx, ny, tdt, device="cpu"),
              jgallery.poisson_solution(nx, ny, jdt)),
         ]
         for got, want in pairs:
@@ -119,9 +120,13 @@ def test_gallery_identical(dtype):
 
 
 def test_gallery_default_dtype_and_device():
-    so = gallery.poisson(8, 8)
+    """float64 by default; the device defaults to the card (checked
+    without allocating there), and the CPU is taken when asked for."""
+    so = gallery.poisson(8, 8, device="cpu")
     assert so.dtype == torch.float64 and so.device.type == "cpu"
     assert gallery.fe(4, 4, device="cpu").shape == (5, 4, 4)
+    assert gallery.default_device() == torch.device("cuda")
+    assert gallery.default_device("cpu") == torch.device("cpu")
 
 
 def _random_so(rng, nx, ny, nine):

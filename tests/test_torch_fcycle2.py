@@ -134,7 +134,7 @@ def test_fcycle_solve_matches_jax(fpair):
     np.testing.assert_allclose(x.numpy(), jx, rtol=1e-9,
                                atol=1e-12 * float(np.abs(jx).max()))
     n = fpair["n"]
-    err = float((x - gallery.poisson_solution(n, n)).abs().max())
+    err = float((x - gallery.poisson_solution(n, n, device="cpu")).abs().max())
     assert err < 1e-3   # discretisation accuracy after one F-cycle
 
 
@@ -182,9 +182,9 @@ def test_solve_fuses_residual_only_under_the_gate(solver, fuse, monkeypatch):
         return ncycle(*args, fuse_final_residual=fuse_final_residual, **kw)
 
     monkeypatch.setattr(cycle2, "ncycle", spy)
-    s = Solver2(gallery.poisson(33, 33), FivePt,
+    s = Solver2(gallery.poisson(33, 33, device="cpu"), FivePt,
                 {"log": [], "solver": dict(solver, **{"max-iter": 2})})
-    b = gallery.poisson_rhs(33, 33)
+    b = gallery.poisson_rhs(33, 33, device="cpu")
     x = s.solve(b)
     assert fused and any(fused) is fuse
     r = torch.sqrt(torch.sum(

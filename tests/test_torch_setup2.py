@@ -107,8 +107,8 @@ def test_setup_hierarchy_matches_jax(case):
 def test_gallery_fe_hierarchy_is_symmetric():
     """Galerkin coarse operators of a symmetric operator stay symmetric:
     the coarsest dense matrix equals its transpose."""
-    levels = solver2.setup_hierarchy(gallery.fe(33, 33), StencilKind.nine_pt,
-                                     4)
+    levels = solver2.setup_hierarchy(gallery.fe(33, 33, device="cpu"),
+                                     StencilKind.nine_pt, 4)
     mat = cg.assemble_dense(levels[-1].so, StencilKind.nine_pt)
     np.testing.assert_allclose(mat.numpy(), mat.T.numpy(), rtol=1e-12,
                                atol=1e-14)

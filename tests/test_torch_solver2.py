@@ -36,13 +36,14 @@ CEDAR_CONF = {
 
 
 def test_cedar_history_400():
-    so = gallery.poisson(400, 400)
-    b = gallery.poisson_rhs(400, 400)
+    so = gallery.poisson(400, 400, device="cpu")
+    b = gallery.poisson_rhs(400, 400, device="cpu")
     s = Solver2(so, FivePt, Config(CEDAR_CONF))
     x = s.solve(b)
     assert len(s.history) == 10
     np.testing.assert_allclose(s.history, CEDAR_HISTORY, rtol=2e-5)
-    err = float((x - gallery.poisson_solution(400, 400)).abs().max())
+    err = float((x - gallery.poisson_solution(400, 400, device="cpu"))
+                .abs().max())
     # reference README.md:62 "Solution norm: 2.04592e-05"
     np.testing.assert_allclose(err, 2.04592e-05, rtol=1e-4)
 
@@ -110,8 +111,8 @@ def test_vcycle_on_jax_hierarchy(pair):
 
 
 def test_solve_keeps_x0_and_logs_cedar_lines(capsys):
-    so = gallery.poisson(33, 33)
-    b = gallery.poisson_rhs(33, 33)
+    so = gallery.poisson(33, 33, device="cpu")
+    b = gallery.poisson_rhs(33, 33, device="cpu")
     x0 = torch.full_like(b, 0.5)
     s = Solver2(so, FivePt, {"log": ["status", "info"],
                              "solver": {"max-iter": 3, "tol": 1e-30}})
@@ -125,8 +126,8 @@ def test_solve_keeps_x0_and_logs_cedar_lines(capsys):
 
 
 def test_save_timings(tmp_path):
-    s = Solver2(gallery.poisson(17, 17), FivePt, {"log": []})
-    s.solve(gallery.poisson_rhs(17, 17))
+    s = Solver2(gallery.poisson(17, 17, device="cpu"), FivePt, {"log": []})
+    s.solve(gallery.poisson_rhs(17, 17, device="cpu"))
     s.save_timings(str(tmp_path / "timings.json"))
     import json
 
@@ -135,16 +136,16 @@ def test_save_timings(tmp_path):
 
 
 def test_single_level_and_post_free_cycles():
-    b = gallery.poisson_rhs(5, 5)
-    s = Solver2(gallery.poisson(5, 5), FivePt,
+    b = gallery.poisson_rhs(5, 5, device="cpu")
+    s = Solver2(gallery.poisson(5, 5, device="cpu"), FivePt,
                 {"log": [], "solver": {"num-levels": 1, "max-iter": 2}})
     x = s.solve(b)
     assert s.history[0] < 1e-12
     assert float(residual(s.levels[0].so, x, b, FivePt).abs().max()) < 1e-12
-    s = Solver2(gallery.poisson(31, 31), FivePt, {
+    s = Solver2(gallery.poisson(31, 31, device="cpu"), FivePt, {
         "log": [], "solver": {"cycle": {"nrelax-pre": 2, "nrelax-post": 0},
                               "max-iter": 4, "tol": 1e-30}})
-    s.solve(gallery.poisson_rhs(31, 31))
+    s.solve(gallery.poisson_rhs(31, 31, device="cpu"))
     # without post-smoothing the first cycle raises the residual (1.457,
     # as cedar_tpu gives); later cycles converge
     assert s.history[-1] < 1e-3 * s.history[0]
@@ -164,7 +165,7 @@ def test_single_level_and_post_free_cycles():
 ])
 def test_unported_options_raise(conf):
     with pytest.raises(NotImplementedError, match="cedar_tpu_torch"):
-        Solver2(gallery.poisson(16, 16), FivePt, conf)
+        Solver2(gallery.poisson(16, 16, device="cpu"), FivePt, conf)
 
 
 def test_3d_raises():
@@ -176,9 +177,9 @@ def test_3d_raises():
 
 def test_dense_pallas_config_accepted():
     """The configuration this package ports: dense kernels, no split."""
-    s = Solver2(gallery.poisson(16, 16), FivePt, {
+    s = Solver2(gallery.poisson(16, 16, device="cpu"), FivePt, {
         "log": [], "kernels": {"backend": "pallas", "fine-split": False}})
-    s.solve(gallery.poisson_rhs(16, 16))
+    s.solve(gallery.poisson_rhs(16, 16, device="cpu"))
     assert s.history[-1] < 1e-8
 
 

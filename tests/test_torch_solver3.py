@@ -1,0 +1,202 @@
+"""The port's whole 3D solve against cedar_tpu's Solver3 (7-point and
+27-point V-cycles, the F-cycle), a V- and a W-cycle on a hierarchy carried
+across from JAX, the configurations outside the port, and the import
+boundary of chip_smoke.py."""
+
+import copy
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cedar_tpu import Solver3 as JSolver3
+from cedar_tpu import gallery as jgallery
+from cedar_tpu.core.types import StencilKind as JKind
+from cedar_tpu.solver import cycle3 as jcycle3
+
+from cedar_tpu_torch import (
+    Config, SevenPt, Solver2, Solver3, TwentySevenPt, gallery,
+)
+from cedar_tpu_torch.ops.stencil3 import residual
+from cedar_tpu_torch.solver import cycle3
+from cedar_tpu_torch.solver.level import levels_from_numpy
+
+torch.set_num_threads(2)
+
+CONF = {"log": [], "solver": {"tol": 1e-9, "max-iter": 30}}
+# the problems of tests/test_poisson_3d.py
+CASES = {
+    "poisson3-32": (lambda: jgallery.poisson3(32, 32, 32), SevenPt,
+                    JKind.seven_pt, CONF),
+    "poisson3-21x13x17": (lambda: jgallery.poisson3(21, 13, 17), SevenPt,
+                          JKind.seven_pt, CONF),
+    "fe3-16": (lambda: jgallery.fe3(16, 16, 16), TwentySevenPt,
+               JKind.twenty_seven_pt, CONF),
+    "fcycle-32": (lambda: jgallery.poisson3(32, 32, 32), SevenPt,
+                  JKind.seven_pt,
+                  {"log": [], "solver": {"cycle": {"type": "f"},
+                                         "tol": 1e-8, "max-iter": 8}}),
+}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def pair(request):
+    """The same problem solved by both packages."""
+    make, kind, jkind, conf = CASES[request.param]
+    so = np.asarray(make())
+    b = np.asarray(jgallery.poisson3_rhs(*so.shape[1:]))
+    js = JSolver3(jnp.asarray(so), jkind, conf)
+    jx = np.asarray(js.solve(jnp.asarray(b)))
+    s = Solver3(torch.tensor(so), kind, conf)
+    return dict(name=request.param, so=so, b=b, kind=kind, js=js, jx=jx,
+                s=s)
+
+
+def test_solve_matches_jax(pair):
+    s, js = pair["s"], pair["js"]
+    b = torch.tensor(pair["b"])
+    x = s.solve(b)
+    assert s.nlevels == js.nlevels
+    assert len(s.history) == len(js.history)
+    # rtol 1e-9 while the residual is well above its rounding floor; near
+    # 1e-10 relative, b - A x keeps a few digits in either package, hence
+    # the absolute floor of 1e-14 in relative-residual units
+    np.testing.assert_allclose(s.history, js.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(s.res0, js.res0, rtol=1e-12)
+    jx = pair["jx"]
+    np.testing.assert_allclose(x.numpy(), jx, rtol=1e-9,
+                               atol=1e-12 * float(np.abs(jx).max()))
+    if pair["name"].startswith("fcycle"):
+        # cedar_tpu's F-cycle ignores the iterate: a constant history
+        assert len(set(s.history)) == 1
+        err = float((x - gallery.poisson3_solution(32, 32, 32, device="cpu"))
+                    .abs().max())
+        assert err < 6e-3
+    else:
+        assert s.history[-1] < 1e-9
+        assert len(s.history) <= 12
+
+
+@pytest.fixture(scope="module")
+def carried():
+    """A JAX Solver3 hierarchy (21x13x17 Poisson) as numpy, the port's
+    levels made from it, and a port solver of the same problem."""
+    so = np.asarray(jgallery.poisson3(21, 13, 17))
+    b = np.asarray(jgallery.poisson3_rhs(21, 13, 17))
+    js = JSolver3(jnp.asarray(so), JKind.seven_pt, CONF)
+    levels_np = [
+        {k: np.asarray(v) for k, v in lev._asdict().items()
+         if v is not None and not isinstance(v, tuple)}
+        for lev in js.levels
+    ]
+    levels = levels_from_numpy(levels_np, dtype=torch.float64)
+    return dict(js=js, b=b, levels=levels,
+                s=Solver3(torch.tensor(so), SevenPt, CONF))
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_cycles_on_jax_hierarchy(carried, n):
+    """The JAX hierarchy carried across: one port V-cycle (n=1) or
+    W-cycle (n=2) equals the JAX package's on the same levels."""
+    js, levels, b = carried["js"], carried["levels"], carried["b"]
+    assert len(levels) == len(js.levels)
+    rng = np.random.default_rng(3)
+    x0 = rng.standard_normal(b.shape)
+    jb = jnp.asarray(b)
+    if n == 1:
+        want = np.asarray(js.vcycle(jnp.asarray(x0), jb))
+        s = copy.copy(carried["s"])
+        s.levels = levels
+        tx0 = torch.tensor(x0)
+        got = s.vcycle(tx0, torch.tensor(b))
+        np.testing.assert_array_equal(tx0.numpy(), x0)
+    else:
+        want = np.asarray(jcycle3.ncycle(js.levels, js.kinds, 0,
+                                         jnp.asarray(x0), jb, js.settings,
+                                         (False, False, False), 2))
+        s = carried["s"]
+        got = cycle3.ncycle(levels, s.kinds, 0, torch.tensor(x0),
+                            torch.tensor(b), s.settings, 2)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                               atol=1e-13 * float(np.abs(want).max()))
+
+
+def test_solve_keeps_x0_and_logs_cedar_lines(capsys, tmp_path):
+    so = gallery.poisson3(9, 9, 9, device="cpu")
+    b = gallery.poisson3_rhs(9, 9, 9, device="cpu")
+    x0 = torch.full_like(b, 0.5)
+    s = Solver3(so, SevenPt, {"log": ["status", "info"],
+                              "solver": {"max-iter": 3, "tol": 1e-30}})
+    s.solve(b, x0)
+    assert torch.equal(x0, torch.full_like(b, 0.5))
+    out = capsys.readouterr().out.splitlines()
+    assert out[0] == f"Initial residual l2 norm: {s.res0:g}"
+    assert out[1:] == [f"Iteration {i} relative l2 norm: {h:g}"
+                       for i, h in enumerate(s.history)]
+    assert len(s.history) == 3
+    s.save_timings(str(tmp_path / "timings.json"))
+    d = json.loads((tmp_path / "timings.json").read_text())
+    assert set(d["level-0"]) == {"setup", "solve"}
+    assert s.coarse_shape == s.shapes[-1] == (3, 3, 3)
+
+
+def test_single_level_solve():
+    b = gallery.poisson3_rhs(4, 3, 5, device="cpu")
+    s = Solver3(gallery.poisson3(4, 3, 5, device="cpu"), SevenPt,
+                {"log": [], "solver": {"num-levels": 1, "max-iter": 2}})
+    x = s.solve(b)
+    assert s.history[0] < 1e-12
+    assert float(residual(s.levels[0].so, x, b, SevenPt).abs().max()) < 1e-12
+    with pytest.raises(ValueError, match="too many levels"):
+        Solver3(gallery.poisson3(4, 4, 4, device="cpu"), SevenPt,
+                {"solver": {"num-levels": 5}})
+
+
+@pytest.mark.parametrize("conf", [
+    {"solver": {"relaxation": "plane-xy"}},
+    {"solver": {"relaxation": "plane-xyz"}},
+    {"solver": {"relaxation": "line-x"}},
+    {"grid": {"periodic": [True, False, False]}},
+    {"solver": {"cg-solver": "cedar"}},
+    {"solver": {"cg-solver": "redist"}},
+    {"kernels": {"fine-split": True}},
+    {"kernels": {"backend": "xla"}},
+    {"grid": {"np": [2, 1, 1]}},
+])
+def test_unported_options_raise(conf):
+    with pytest.raises(NotImplementedError, match="cedar_tpu_torch"):
+        Solver3(gallery.poisson3(8, 8, 8, device="cpu"), SevenPt, conf)
+
+
+def test_dimension_mismatch_raises():
+    with pytest.raises(NotImplementedError, match="Solver2"):
+        Solver3(gallery.poisson(8, 8, device="cpu"), SevenPt, {})
+    with pytest.raises(NotImplementedError, match="Solver3"):
+        Solver2(gallery.poisson3(8, 8, 8, device="cpu"), SevenPt, {})
+
+
+def test_dense_pallas_config_accepted():
+    """The configuration this package ports: dense kernels, no split."""
+    s = Solver3(gallery.poisson3(9, 9, 9, device="cpu"), SevenPt, Config({
+        "log": [], "kernels": {"backend": "pallas", "fine-split": False}}))
+    s.solve(gallery.poisson3_rhs(9, 9, 9, device="cpu"))
+    assert s.history[-1] < 1e-8
+
+
+def test_chip_smoke_imports_without_jax():
+    """chip_smoke.py imports neither JAX nor cedar_tpu (the machine with
+    the card has no JAX)."""
+    code = (
+        "import sys, chip_smoke\n"
+        "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert not any(m == 'cedar_tpu' or m.startswith('cedar_tpu.')\n"
+        "               for m in sys.modules), 'cedar_tpu imported'\n"
+        "assert 'cedar_tpu_torch.ops.cuda_transfer3' in sys.modules\n"
+    )
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                   cwd=Path(__file__).resolve().parents[1])
