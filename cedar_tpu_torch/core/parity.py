@@ -23,25 +23,26 @@ def _split_axis(a: torch.Tensor, axis: int):
 
 
 def deinterleave2(a: torch.Tensor):
-    """Split (nx, ny) into parity subgrids.
+    """Split (..., nx, ny) into parity subgrids over the last two axes
+    (leading axes are batch axes).
 
     Returns dict ``(pz, pw) -> subgrid`` with shapes
     ``(ceil/floor(nx/2), ceil/floor(ny/2))`` according to parity.
     """
     out = {}
-    for pz, r in zip((0, 1), _split_axis(a, 0)):
-        out[(pz, 0)], out[(pz, 1)] = _split_axis(r, 1)
+    for pz, r in zip((0, 1), _split_axis(a, -2)):
+        out[(pz, 0)], out[(pz, 1)] = _split_axis(r, -1)
     return out
 
 
 def interleave2(parts: dict, nx: int, ny: int) -> torch.Tensor:
-    """Merge parity subgrids back into an (nx, ny) tensor (missing -> 0)."""
+    """Merge parity subgrids back into a (..., nx, ny) tensor (missing -> 0)."""
     ref = next(v for v in parts.values() if v is not None)
-    out = ref.new_zeros((nx, ny))
+    out = ref.new_zeros(ref.shape[:-2] + (nx, ny))
     for pz, pw in _PARITIES:
         v = parts.get((pz, pw))
         if v is not None:
-            out[pz::2, pw::2] = v
+            out[..., pz::2, pw::2] = v
     return out
 
 
@@ -66,11 +67,13 @@ def interleave3(parts: dict, n0: int, n1: int, n2: int) -> torch.Tensor:
 
 
 def subgrid_sample_nd(sub: torch.Tensor, deltas, out_shape):
-    """``out[c] = sub[c + d]`` over any number of axes, zero outside,
-    padded/cropped to ``out_shape`` (coarse grid)."""
-    out = sub.new_zeros(tuple(out_shape))
-    dst, src = [], []
-    for d, n_out, n_sub in zip(deltas, out_shape, sub.shape):
+    """``out[c] = sub[c + d]`` over the last ``len(deltas)`` axes (leading
+    axes are batch axes), zero outside, padded/cropped to ``out_shape``
+    (coarse grid)."""
+    lead = sub.ndim - len(deltas)
+    out = sub.new_zeros(tuple(sub.shape[:lead]) + tuple(out_shape))
+    dst, src = [Ellipsis], [Ellipsis]
+    for d, n_out, n_sub in zip(deltas, out_shape, sub.shape[lead:]):
         lo = max(-d, 0)
         hi = min(n_out, n_sub - d)
         if hi <= lo:

@@ -50,59 +50,14 @@
 // (S(i, j+1) at j = ny-1, W(i+1, j) at i = nx-1, and the corners) read as
 // exactly 0, as the zero-filled shifts of the plain version give.
 
-#include "common.cuh"
+#include "stencil2.cuh"
 
 namespace cedar {
 namespace {
 
-// Dir2 plane indices (core/types.py); plane O = 0 is indexed directly
-constexpr int W = 1, S = 2, SW = 3, NW = 4;
 constexpr int kLineBlock = 32;  // threads (lines) per block of the solve
-constexpr int kChunk = 16;      // steps whose loads are issued together
 
-// The rhs of point i on an x-line (line = column j): b + couplings to the
-// columns j-1 and j+1, in lines2.line_rhs_x order.
-template <typename T, bool NINE>
-__device__ __forceinline__ T rhs_x(const T* __restrict__ so,
-                                   const T* __restrict__ q,
-                                   const T* __restrict__ b, long long P,
-                                   long long i, int ny, bool zl, bool zh,
-                                   bool jl, bool jh) {
-  using A = Arith<T>;
-  const T zero = T(0);
-  T r = b[i];
-  r = A::add(r, jl ? A::mul(so[S * P + i], q[i - 1]) : zero);
-  r = A::add(r, jh ? A::mul(so[S * P + i + 1], q[i + 1]) : zero);
-  if (NINE) {
-    r = A::add(r, (zl && jl) ? A::mul(so[SW * P + i], q[i - ny - 1]) : zero);
-    r = A::add(r, (zh && jl) ? A::mul(so[NW * P + i + ny], q[i + ny - 1]) : zero);
-    r = A::add(r, (zl && jh) ? A::mul(so[NW * P + i + 1], q[i - ny + 1]) : zero);
-    r = A::add(r, (zh && jh) ? A::mul(so[SW * P + i + ny + 1], q[i + ny + 1]) : zero);
-  }
-  return r;
-}
-
-// The rhs of point idx on a y-line (line = row i): the x rhs of the
-// transposed stencil, b + couplings to the rows i-1 and i+1.
-template <typename T, bool NINE>
-__device__ __forceinline__ T rhs_y(const T* __restrict__ so,
-                                   const T* __restrict__ q,
-                                   const T* __restrict__ b, long long P,
-                                   long long idx, int ny, bool il, bool ih,
-                                   bool wl, bool wh) {
-  using A = Arith<T>;
-  const T zero = T(0);
-  T r = b[idx];
-  r = A::add(r, il ? A::mul(so[W * P + idx], q[idx - ny]) : zero);
-  r = A::add(r, ih ? A::mul(so[W * P + idx + ny], q[idx + ny]) : zero);
-  if (NINE) {
-    r = A::add(r, (il && wl) ? A::mul(so[SW * P + idx], q[idx - ny - 1]) : zero);
-    r = A::add(r, (il && wh) ? A::mul(so[NW * P + idx + 1], q[idx - ny + 1]) : zero);
-    r = A::add(r, (ih && wl) ? A::mul(so[NW * P + idx + ny], q[idx + ny - 1]) : zero);
-    r = A::add(r, (ih && wh) ? A::mul(so[SW * P + idx + ny + 1], q[idx + ny + 1]) : zero);
-  }
-  return r;
-}
+// rhs_x, rhs_y and solve_line are in stencil2.cuh, shared with K10.
 
 // rbuf[z * ((ny+1)/2) + t]: the rhs of step z of x-line t (column 2t+parity)
 template <typename T, bool NINE>
@@ -130,68 +85,6 @@ __global__ void rhs_y_kernel(const T* __restrict__ so, const T* __restrict__ q,
   rbuf[(long long)t * ny + w] = rhs_y<T, NINE>(
       so, q, b, (long long)nx * ny, (long long)i * ny + w, ny, i > 0,
       i + 1 < nx, w > 0, w + 1 < ny);
-}
-
-// The LDLᵀ solve of one line of n points: diagonal a[s*as], off-diagonal
-// -c[s*as] (coupling s-1 and s), rhs r[s*rs] (overwritten by w), the
-// multipliers to l[s*rs], the solution to q[s*qs].
-template <typename T>
-__device__ __forceinline__ void solve_line(const T* __restrict__ a,
-                                           const T* __restrict__ c,
-                                           T* __restrict__ r,
-                                           T* __restrict__ l,
-                                           T* __restrict__ q, int n,
-                                           long long as, long long rs,
-                                           long long qs) {
-  using A = Arith<T>;
-  T d = a[0];
-  T z = r[0];
-  r[0] = A::mul(z, A::div(T(1), d));
-  for (int s0 = 1; s0 < n; s0 += kChunk) {
-    T av[kChunk], cv[kChunk], rv[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int s = s0 + k;
-      if (s < n) {
-        av[k] = a[s * as];
-        cv[k] = c[s * as];
-        rv[k] = r[s * rs];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int s = s0 + k;
-      if (s < n) {
-        const T e = -cv[k];
-        const T li = A::div(e, d);
-        d = A::sub(av[k], A::mul(li, e));
-        z = A::sub(rv[k], A::mul(li, z));
-        l[s * rs] = li;
-        r[s * rs] = A::mul(z, A::div(T(1), d));
-      }
-    }
-  }
-  T x = r[(n - 1) * rs];
-  q[(n - 1) * qs] = x;
-  for (int s1 = n - 2; s1 >= 0; s1 -= kChunk) {
-    T wv[kChunk], lv[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int s = s1 - k;
-      if (s >= 0) {
-        wv[k] = r[s * rs];
-        lv[k] = l[(s + 1) * rs];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int s = s1 - k;
-      if (s >= 0) {
-        x = A::sub(wv[k], A::mul(lv[k], x));
-        q[s * qs] = x;
-      }
-    }
-  }
 }
 
 // x-lines: thread t solves column j = 2t + parity along z = 0..nx-1.

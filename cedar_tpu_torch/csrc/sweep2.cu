@@ -29,38 +29,13 @@
 // neighbour lies outside the grid is exactly zero, which is what the
 // zero-filled shifts of the reference give.
 
-#include "common.cuh"
+#include "stencil2.cuh"
 
 namespace cedar {
 namespace {
 
-// Dir2 plane indices (core/types.py); plane O = 0 is indexed directly
-constexpr int W = 1, S = 2, SW = 3, NW = 4;
-
-// Σ coupling · q(neighbour) at (z, w), in stencil2.offsets_for order.
-template <typename T, bool NINE>
-__device__ __forceinline__ T offdiag(const T* __restrict__ so, const T* q,
-                                     int z, int w, int nx, int ny) {
-  using A = Arith<T>;
-  const long long P = (long long)nx * ny;
-  const long long i = (long long)z * ny + w;
-  const bool zl = z > 0, zh = z + 1 < nx, wl = w > 0, wh = w + 1 < ny;
-  const T zero = T(0);
-  // (-1,0) W(z,w)      (1,0) W(z+1,w)
-  T acc = zl ? A::mul(so[W * P + i], q[i - ny]) : zero;
-  acc = A::add(acc, zh ? A::mul(so[W * P + i + ny], q[i + ny]) : zero);
-  // (0,-1) S(z,w)      (0,1) S(z,w+1)
-  acc = A::add(acc, wl ? A::mul(so[S * P + i], q[i - 1]) : zero);
-  acc = A::add(acc, wh ? A::mul(so[S * P + i + 1], q[i + 1]) : zero);
-  if (NINE) {
-    // (-1,-1) SW(z,w)  (1,-1) NW(z+1,w)  (-1,1) NW(z,w+1)  (1,1) SW(z+1,w+1)
-    acc = A::add(acc, (zl && wl) ? A::mul(so[SW * P + i], q[i - ny - 1]) : zero);
-    acc = A::add(acc, (zh && wl) ? A::mul(so[NW * P + i + ny], q[i + ny - 1]) : zero);
-    acc = A::add(acc, (zl && wh) ? A::mul(so[NW * P + i + 1], q[i - ny + 1]) : zero);
-    acc = A::add(acc, (zh && wh) ? A::mul(so[SW * P + i + ny + 1], q[i + ny + 1]) : zero);
-  }
-  return acc;
-}
+// offdiag (Σ coupling · q(neighbour), stencil2.offsets_for order) is in
+// stencil2.cuh, shared with K10's residual.
 
 // One colour phase: q = (b + Σ coupling·q_nb) * (1/O) at this colour's
 // points.  Colours anchor at global indices (z + oz, w + ow):
@@ -81,7 +56,8 @@ __global__ void sweep_phase(const T* __restrict__ so, T* q,
   if (!member) return;
   const long long i = (long long)z * ny + w;
   const T rec = A::div(T(1), so[i]);  // plane O is plane 0
-  q[i] = A::mul(A::add(b[i], offdiag<T, NINE>(so, q, z, w, nx, ny)), rec);
+  const long long P = (long long)nx * ny;
+  q[i] = A::mul(A::add(b[i], offdiag<T, NINE>(so, q, P, z, w, nx, ny)), rec);
 }
 
 // res = (b + Σ coupling·q_nb) - O·q
@@ -94,7 +70,8 @@ __global__ void residual(const T* __restrict__ so, const T* __restrict__ q,
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
   if (z >= nx || w >= ny) return;
   const long long i = (long long)z * ny + w;
-  res[i] = A::sub(A::add(b[i], offdiag<T, NINE>(so, q, z, w, nx, ny)),
+  const long long P = (long long)nx * ny;
+  res[i] = A::sub(A::add(b[i], offdiag<T, NINE>(so, q, P, z, w, nx, ny)),
                   A::mul(so[i], q[i]));
 }
 

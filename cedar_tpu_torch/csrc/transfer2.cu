@@ -33,6 +33,12 @@
 // and column nyc hold the weights of fine points beyond the last coarse
 // point (core/types.py InterpDir2).  Fine indices outside [0, nx) x [0, ny)
 // and coarse indices nxc / nyc read as zero.
+//
+// K2 and K3 also take a batch of nb independent planes (plane relaxation's
+// embedded 2D cycles, ops/planes3.py): grid arrays (nb, nx, ny), the
+// stencil (ndir, nb, nx, ny) and CI (8, nb, nxc+1, nyc+1), the batch axis
+// after the direction axis.  Grid z is the plane; nb = 1 is the unbatched
+// launch.
 
 #include "common.cuh"
 
@@ -45,7 +51,7 @@ constexpr int LL = 0, LR = 1, LA = 2, LB = 3, LSW = 4, LNW = 5, LNE = 6, LSE = 7
 template <typename T>
 struct CI {
   const T* __restrict__ p;
-  long long plane;  // (nxc+1)*(nyc+1)
+  long long plane;  // nb*(nxc+1)*(nyc+1): one weight plane of every batch
   int stride;       // nyc+1
   __device__ __forceinline__ T operator()(int d, int k, int m) const {
     return p[d * plane + (long long)k * stride + m];
@@ -59,18 +65,29 @@ __device__ __forceinline__ T fine_at(const T* __restrict__ r, int z, int w,
                                                 : T(0);
 }
 
+// The weights of batch plane p: CI (8, nb, nxc+1, nyc+1).
+template <typename T>
+__device__ __forceinline__ CI<T> ci_of(const T* __restrict__ ci_p, int p,
+                                       int nb, int nxc, int nyc) {
+  const long long cplane = (long long)(nxc + 1) * (nyc + 1);
+  return CI<T>{ci_p + p * cplane, nb * cplane, nyc + 1};
+}
+
 // cb[zc, wc] = res[2zc, 2wc] + Σ weight · res[2zc+du, 2wc+dv], in
 // interp2.PW_TABLE order.
 template <typename T>
 __global__ void restrict_kernel(const T* __restrict__ ci_p,
                                 const T* __restrict__ res,
                                 T* __restrict__ cb, int nx, int ny, int nxc,
-                                int nyc) {
+                                int nyc, int nb) {
   using A = Arith<T>;
   const int wc = blockIdx.x * blockDim.x + threadIdx.x;
   const int zc = blockIdx.y * blockDim.y + threadIdx.y;
+  const int p = blockIdx.z;
   if (zc >= nxc || wc >= nyc) return;
-  const CI<T> ci{ci_p, (long long)(nxc + 1) * (nyc + 1), nyc + 1};
+  const CI<T> ci = ci_of(ci_p, p, nb, nxc, nyc);
+  res += p * ((long long)nx * ny);
+  cb += p * ((long long)nxc * nyc);
   const int z = 2 * zc, w = 2 * wc;
   T acc = fine_at(res, z, w, nx, ny);
   acc = A::add(acc, A::mul(ci(LR, zc, wc), fine_at(res, z - 1, w, nx, ny)));
@@ -117,19 +134,23 @@ __device__ __forceinline__ T interp_value(const CI<T>& ci,
 }
 
 // q[z, w] += P qc (+ res / diag off the coincident points), in place.
+// Plane O of so (nb, nx, ny) comes first, so plane p's diagonal sits at the
+// same offset as its q.
 template <typename T>
 __global__ void interp_add_kernel(const T* __restrict__ ci_p,
                                   const T* __restrict__ so,
                                   const T* __restrict__ qc,
                                   const T* __restrict__ res,
                                   T* __restrict__ q, int nx, int ny, int nxc,
-                                  int nyc) {
+                                  int nyc, int nb) {
   using A = Arith<T>;
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
+  const int p = blockIdx.z;
   if (z >= nx || w >= ny) return;
-  const CI<T> ci{ci_p, (long long)(nxc + 1) * (nyc + 1), nyc + 1};
-  const long long i = (long long)z * ny + w;
+  const CI<T> ci = ci_of(ci_p, p, nb, nxc, nyc);
+  qc += p * ((long long)nxc * nyc);
+  const long long i = p * ((long long)nx * ny) + (long long)z * ny + w;
   T v = interp_value(ci, qc, z, w, nxc, nyc);
   if ((z | w) & 1) v = A::add(v, A::div(res[i], so[i]));  // res / so[O]
   q[i] = A::add(q[i], v);
@@ -148,21 +169,29 @@ __global__ void interp_kernel(const T* __restrict__ ci_p,
   x[(long long)z * ny + w] = interp_value(ci, qc, z, w, nxc, nyc);
 }
 
+// grid_for over the plane, grid z over the batch
+inline dim3 grid_batch(int nrows, int ncols, int nb) {
+  dim3 g = grid_for(nrows, ncols);
+  g.z = nb;
+  return g;
+}
+
 template <typename T>
 int launch_restrict(const void* ci, const void* res, void* cb, int nx, int ny,
-                    int nxc, int nyc, cudaStream_t st) {
-  restrict_kernel<T><<<grid_for(nxc, nyc), dim3(kBlockX, kBlockY), 0, st>>>(
-      (const T*)ci, (const T*)res, (T*)cb, nx, ny, nxc, nyc);
+                    int nxc, int nyc, int nb, cudaStream_t st) {
+  restrict_kernel<T><<<grid_batch(nxc, nyc, nb), dim3(kBlockX, kBlockY), 0,
+                       st>>>((const T*)ci, (const T*)res, (T*)cb, nx, ny, nxc,
+                             nyc, nb);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_interp_add(const void* ci, const void* so, const void* qc,
                       const void* res, void* q, int nx, int ny, int nxc,
-                      int nyc, cudaStream_t st) {
-  interp_add_kernel<T><<<grid_for(nx, ny), dim3(kBlockX, kBlockY), 0, st>>>(
-      (const T*)ci, (const T*)so, (const T*)qc, (const T*)res, (T*)q, nx, ny,
-      nxc, nyc);
+                      int nyc, int nb, cudaStream_t st) {
+  interp_add_kernel<T><<<grid_batch(nx, ny, nb), dim3(kBlockX, kBlockY), 0,
+                         st>>>((const T*)ci, (const T*)so, (const T*)qc,
+                               (const T*)res, (T*)q, nx, ny, nxc, nyc, nb);
   return (int)cudaGetLastError();
 }
 
@@ -179,29 +208,32 @@ int launch_interp(const void* ci, const void* qc, void* x, int nx, int ny,
 
 extern "C" {
 
-// cb (nxc, nyc) = Pᵀ res (nx, ny).  Returns cudaGetLastError().
+// cb (nb, nxc, nyc) = Pᵀ res (nb, nx, ny), plane by plane.
+// Returns cudaGetLastError().
 int cedar_restrict2(int dtype, const void* ci, const void* res, void* cb,
-                    int nx, int ny, int nxc, int nyc, void* stream) {
+                    int nx, int ny, int nxc, int nyc, int nb, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == cedar::kFloat32)
-    return cedar::launch_restrict<float>(ci, res, cb, nx, ny, nxc, nyc, st);
+    return cedar::launch_restrict<float>(ci, res, cb, nx, ny, nxc, nyc, nb,
+                                         st);
   if (dtype == cedar::kFloat64)
-    return cedar::launch_restrict<double>(ci, res, cb, nx, ny, nxc, nyc, st);
+    return cedar::launch_restrict<double>(ci, res, cb, nx, ny, nxc, nyc, nb,
+                                          st);
   return (int)cudaErrorInvalidValue;
 }
 
-// q (nx, ny) += P qc (nxc, nyc) + res / so[O], in place.
-// Returns cudaGetLastError().
+// q (nb, nx, ny) += P qc (nb, nxc, nyc) + res / so[O], in place, plane by
+// plane.  Returns cudaGetLastError().
 int cedar_interp_add2(int dtype, const void* ci, const void* so,
                       const void* qc, const void* res, void* q, int nx,
-                      int ny, int nxc, int nyc, void* stream) {
+                      int ny, int nxc, int nyc, int nb, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == cedar::kFloat32)
     return cedar::launch_interp_add<float>(ci, so, qc, res, q, nx, ny, nxc,
-                                           nyc, st);
+                                           nyc, nb, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch_interp_add<double>(ci, so, qc, res, q, nx, ny, nxc,
-                                            nyc, st);
+                                            nyc, nb, st);
   return (int)cudaErrorInvalidValue;
 }
 

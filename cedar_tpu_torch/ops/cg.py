@@ -12,6 +12,11 @@ A float32 product on the card runs in full float32 only while
 ``torch.backends.cuda.matmul.allow_tf32`` is False; it is PyTorch's default,
 and :func:`solve_cg` sets it explicitly so that a caller's global switch
 cannot turn the coarse solve into TF32.
+
+A batch of independent operators (plane relaxation's embedded 2D
+hierarchies: ``so`` ``(ndir, B, n1, n2)``) gives a batch of inverses
+``(B, n, n)``, factored by the batched library calls, and :func:`solve_cg`
+applies them to ``b`` ``(B, n1, n2)`` as one batched product.
 """
 
 from __future__ import annotations
@@ -26,11 +31,12 @@ from cedar_tpu_torch.ops import stencil2, stencil3
 def assemble_dense(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
     """Dense row-form matrix of the operator over 2 or 3 axes, x-fastest
     ordering (x, then y, then z: the reference's KK loop,
-    SETUP_cg_LU.f90:116-144)."""
+    SETUP_cg_LU.f90:116-144); ``(*batch, n, n)`` for a batched ``so``."""
     stencil = stencil2 if kind.ndim == 2 else stencil3
     af = stencil.full_offsets(so, kind)
-    nshape = tuple(so.shape[1:])
-    dims = len(nshape)
+    dims = kind.ndim
+    nshape = tuple(so.shape[-dims:])
+    batch = tuple(so.shape[1:-dims])
     n = int(np.prod(nshape))
     strides = [int(np.prod(nshape[:d])) for d in range(dims)]
     idx = np.indices(nshape)
@@ -38,7 +44,9 @@ def assemble_dense(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
         sum(idx[d] * strides[d] for d in range(dims)).reshape(-1),
         device=so.device,
     )
-    mat = so.new_zeros((n, n))
+    mat = so.new_zeros(batch + (n, n))
+    flat_mat = mat.view(-1, n, n)
+    bidx = torch.arange(flat_mat.shape[0], device=so.device)[:, None]
     for off, field in af.items():
         nb_flat = np.zeros(nshape, np.int64)
         valid = np.ones(nshape, bool)
@@ -49,9 +57,10 @@ def assemble_dense(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
         col = torch.as_tensor(nb_flat.reshape(-1), device=so.device)
         vals = torch.where(
             torch.as_tensor(valid.reshape(-1), device=so.device),
-            field.reshape(-1), field.new_zeros(()),
+            field.reshape(-1, n), field.new_zeros(()),
         )
-        mat.index_put_((flat, col), vals, accumulate=True)
+        flat_mat.index_put_((bidx, flat[None], col[None]), vals,
+                            accumulate=True)
     return mat
 
 
@@ -61,17 +70,22 @@ def setup_cg_lu(so: torch.Tensor, kind: StencilKind,
     mat = assemble_dense(so, kind)
     if indefinite:
         # reference: ABD(last,last) += SO(coarse last interior, KO)
-        mat[-1, -1] += so[0].reshape(-1)[-1]
+        mat[..., -1, -1] += so[0].reshape(mat.shape[:-2] + (-1,))[..., -1]
     chol = torch.linalg.cholesky(mat)
-    eye = torch.eye(mat.shape[0], dtype=mat.dtype, device=mat.device)
+    eye = torch.eye(mat.shape[-1], dtype=mat.dtype, device=mat.device)
     y = torch.linalg.solve_triangular(chol, eye, upper=False)
-    return torch.linalg.solve_triangular(chol.T, y, upper=True)
+    return torch.linalg.solve_triangular(chol.mT, y, upper=True)
 
 
 def solve_cg(ainv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """x = A⁻¹ b on the coarsest grid, any dimension (x-fastest
-    flattening: the axes reversed)."""
+    flattening: the axes reversed); a batch ``ainv`` ``(B, n, n)`` solves
+    ``b`` ``(B, n1, n2)`` plane by plane."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    if ainv.ndim == 3:
+        bt = b.transpose(-1, -2).reshape(b.shape[0], -1, 1)
+        x = torch.bmm(ainv, bt).reshape(b.shape[0], b.shape[2], b.shape[1])
+        return x.transpose(-1, -2).contiguous()
     axes = tuple(reversed(range(b.ndim)))
     x = (ainv @ b.permute(axes).reshape(-1))
     return x.reshape(tuple(reversed(b.shape))).permute(axes).contiguous()

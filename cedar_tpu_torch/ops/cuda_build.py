@@ -42,13 +42,18 @@ SIGNATURES = {
         "cedar_residual2": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
     },
     "transfer2": {
-        "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
-        "cedar_interp_add2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "cedar_interp_add2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _P],
         "cedar_interp2": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "lines2": {
         "cedar_line2_x": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    "planes2": {
+        "cedar_line_xy_smooth2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _P],
     },
     "sweep3": {
         "cedar_sweep3_phase": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

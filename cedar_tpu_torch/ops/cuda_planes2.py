@@ -1,0 +1,98 @@
+"""K10: the batched whole line-xy smooth (CUDA) and its plain version.
+
+Counterpart of :mod:`cedar_tpu.ops.pallas_planes2`.  :func:`smooth`
+launches ``csrc/planes2.cu`` once for ``nsweeps`` complete line-xy smooths
+of every plane of a batch (x-line zebra then y-line zebra DOWN, the reverse
+UP), optionally followed by the residual; :func:`smooth_plain` computes the
+same function in torch ops: the zebra sweeps of
+:mod:`cedar_tpu_torch.ops.lines2` composed, then
+:func:`cedar_tpu_torch.ops.stencil2.residual`.
+:mod:`cedar_tpu_torch.ops.planes2` picks one by device.
+
+Operands: ``q`` and ``b`` ``(B, nx, ny)``, ``so`` ``(ndir, B, nx, ny)``.
+Both versions update ``q`` in place.  The kernel factors each line on the
+fly; the plain version takes the :func:`~cedar_tpu_torch.ops.lines2.
+setup_lines` factors of the batch or, given None, factors the same way.
+``launches`` counts kernel launches made by :func:`smooth`, ``plain_calls``
+calls of :func:`smooth_plain`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cedar_tpu_torch.core.types import StencilKind
+from cedar_tpu_torch.ops import cuda_build, lines2
+from cedar_tpu_torch.ops.stencil2 import residual
+
+launches = 0
+plain_calls = 0
+
+
+def _check(so, q, b, kind: StencilKind, updown: str) -> None:
+    if kind not in (StencilKind.five_pt, StencilKind.nine_pt):
+        raise ValueError(f"line-xy smooth takes 2D five_pt or nine_pt, "
+                         f"not {kind}")
+    if updown not in ("down", "up"):
+        raise ValueError(f"updown must be 'down' or 'up', not {updown!r}")
+    if q.ndim != 3 or b.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)} and b {tuple(b.shape)}: "
+                         "expected a batch (B, nx, ny)")
+    if tuple(so.shape) != (kind.ndirs, *q.shape):
+        raise ValueError(
+            f"so {tuple(so.shape)} does not fit {kind} on {tuple(q.shape)}"
+        )
+    # in place is race-free only because a line's rhs reads q on the lines
+    # of the other colour; q must not alias what the kernel reads
+    storage = q.untyped_storage().data_ptr()
+    if storage in (b.untyped_storage().data_ptr(),
+                   so.untyped_storage().data_ptr()):
+        raise ValueError("q must not share storage with so or b")
+
+
+def smooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
+           kind: StencilKind, updown: str, nsweeps: int = 1,
+           emit_res: bool = False):
+    """``nsweeps`` line-xy smooths of every plane on the card, ``q``
+    updated in place: one launch.  Returns ``q``, or ``(q, b - A q)`` with
+    ``emit_res``."""
+    global launches
+    _check(so, q, b, kind, updown)
+    dt = cuda_build.check_operands(so, q, b)
+    res = torch.empty_like(q) if emit_res else None
+    nb, nx, ny = q.shape
+    if nsweeps > 0 or emit_res:
+        lib = cuda_build.load("planes2")
+        # per plane: the active lines' rhs (then w) and multipliers l
+        per_plane = 2 * max(nx * ((ny + 1) // 2), ny * ((nx + 1) // 2))
+        scratch = q.new_empty((nb, per_plane))
+        cuda_build.check(
+            lib.cedar_line_xy_smooth2(
+                dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
+                None if res is None else res.data_ptr(), scratch.data_ptr(),
+                nb, nx, ny, int(kind == StencilKind.nine_pt),
+                int(updown == "up"), nsweeps, cuda_build.stream_of(q)),
+            "line_xy_smooth2",
+        )
+        launches += 1
+    return (q, res) if emit_res else q
+
+
+def smooth_plain(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
+                 kind: StencilKind, updown: str, nsweeps: int = 1,
+                 emit_res: bool = False, sor_x=None, sor_y=None):
+    """:func:`smooth` in torch ops, on any device; ``q`` in place.
+    ``sor_x`` / ``sor_y``: the batch's line factors, or None."""
+    global plain_calls
+    plain_calls += 1
+    _check(so, q, b, kind, updown)
+    for _ in range(nsweeps):
+        if updown == "down":
+            lines2.sweep_x_torch(so, q, b, sor_x, kind, updown)
+            lines2.sweep_y_torch(so, q, b, sor_y, kind, updown)
+        else:
+            lines2.sweep_y_torch(so, q, b, sor_y, kind, updown)
+            lines2.sweep_x_torch(so, q, b, sor_x, kind, updown)
+    if emit_res:
+        return q, residual(so, q, b, kind)
+    return q

@@ -20,7 +20,9 @@ from cedar_tpu_torch.ops.stencil2 import matvec
 
 def coarsen_op(ci: torch.Tensor, so: torch.Tensor,
                kind: StencilKind) -> torch.Tensor:
-    """Galerkin coarse stencil (always nine_pt) from fine stencil + CI."""
+    """Galerkin coarse stencil (always nine_pt) from fine stencil + CI;
+    a batch of planes (``so`` ``(ndir, B, nx, ny)``, ``ci`` ``(8, B, …)``)
+    gives ``(5, B, nxc, nyc)``."""
     return coarsen_op_comb(ci, so, kind)
 
 
@@ -29,25 +31,26 @@ def coarsen_op_comb(ci: torch.Tensor, so: torch.Tensor,
     """A_c = Pᵀ A P by comb-basis probing: the 9 coarse-stencil offsets are
     distinct mod 3, so applying Pᵀ A P to the 9 mod-3 indicator combs
     recovers every row entry exactly."""
-    nc = (ci.shape[1] - 1, ci.shape[2] - 1)
-    nf = (so.shape[1], so.shape[2])
+    nc = (ci.shape[-2] - 1, ci.shape[-1] - 1)
+    nf = (so.shape[-2], so.shape[-1])
+    batch = tuple(so.shape[1:-2])
     dev = so.device
 
     iz = (torch.arange(nc[0], device=dev) % 3)[:, None]
     iw = (torch.arange(nc[1], device=dev) % 3)[None, :]
     cls = iz * 3 + iw
-    zf = so.new_zeros(nf)  # the probes' residual: res/diag vanishes
+    zf = so.new_zeros(batch + nf)  # the probes' residual: res/diag vanishes
 
     results = []
     for c in range(9):
-        qc = (cls == c).to(so.dtype)
+        qc = (cls == c).to(so.dtype).expand(batch + nc).contiguous()
         # interp_add writes its q in place: a fresh zero q per probe
-        xf = interp_add(ci, so, qc, zf, so.new_zeros(nf))
+        xf = interp_add(ci, so, qc, zf, so.new_zeros(batch + nf))
         results.append(restrict(ci, matvec(so, xf, kind)))
-    results = torch.stack(results)  # (9, *nc)
+    results = torch.stack(results)  # (9, *batch, *nc)
 
     def entry(di, dj):
-        j = ((iz + di) % 3 * 3 + (iw + dj) % 3).expand(nc)
+        j = ((iz + di) % 3 * 3 + (iw + dj) % 3).expand(batch + nc)
         return torch.gather(results, 0, j[None])[0]
 
     o = entry(0, 0)

@@ -17,6 +17,12 @@ versions, which run :func:`restrict_torch`, :func:`interp_add_torch` and
 
 Weight storage: CI planes of shape ``(nxc+1, nyc+1)`` — see
 :class:`cedar_tpu_torch.core.types.InterpDir2`.
+
+Every function also takes a batch of independent planes (plane
+relaxation's embedded 2D hierarchies): grid arrays ``(B, nx, ny)``, the
+stencil ``(ndir, B, nx, ny)`` and CI ``(8, B, nxc+1, nyc+1)``, the batch
+axis after the direction axis.  An unbatched call computes exactly what it
+did before.
 """
 
 from __future__ import annotations
@@ -59,7 +65,7 @@ def setup_interp(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
     zeps = float(torch.finfo(so.dtype).eps)
     sh = shift2
 
-    nx, ny = so.shape[1], so.shape[2]
+    nx, ny = so.shape[-2], so.shape[-1]
     nxc = (nx - 1) // 2 + 1
     nyc = (ny - 1) // 2 + 1
 
@@ -124,17 +130,17 @@ def setup_interp(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
         lne_d = (N * lr_n + E * la_e) * s_c
 
     # --- gather the valid parities into CI ---------------------------------
-    ci = so.new_zeros((8, nxc + 1, nyc + 1))
+    ci = so.new_zeros((8,) + tuple(so.shape[1:-2]) + (nxc + 1, nyc + 1))
     kx = nx // 2   # number of x-line points per coarse row
     my = ny // 2   # number of y-line points per coarse column
-    ci[L.LL, 1:1 + kx, 0:nyc] = ll_d[1::2, 0::2]
-    ci[L.LR, 1:1 + kx, 0:nyc] = lr_d[1::2, 0::2]
-    ci[L.LA, 0:nxc, 1:1 + my] = la_d[0::2, 1::2]
-    ci[L.LB, 0:nxc, 1:1 + my] = lb_d[0::2, 1::2]
-    ci[L.LSW, 1:1 + kx, 1:1 + my] = lsw_d[1::2, 1::2]
-    ci[L.LSE, 1:1 + kx, 1:1 + my] = lse_d[1::2, 1::2]
-    ci[L.LNW, 1:1 + kx, 1:1 + my] = lnw_d[1::2, 1::2]
-    ci[L.LNE, 1:1 + kx, 1:1 + my] = lne_d[1::2, 1::2]
+    ci[L.LL, ..., 1:1 + kx, 0:nyc] = ll_d[..., 1::2, 0::2]
+    ci[L.LR, ..., 1:1 + kx, 0:nyc] = lr_d[..., 1::2, 0::2]
+    ci[L.LA, ..., 0:nxc, 1:1 + my] = la_d[..., 0::2, 1::2]
+    ci[L.LB, ..., 0:nxc, 1:1 + my] = lb_d[..., 0::2, 1::2]
+    ci[L.LSW, ..., 1:1 + kx, 1:1 + my] = lsw_d[..., 1::2, 1::2]
+    ci[L.LSE, ..., 1:1 + kx, 1:1 + my] = lse_d[..., 1::2, 1::2]
+    ci[L.LNW, ..., 1:1 + kx, 1:1 + my] = lnw_d[..., 1::2, 1::2]
+    ci[L.LNE, ..., 1:1 + kx, 1:1 + my] = lne_d[..., 1::2, 1::2]
     return ci
 
 
@@ -158,11 +164,11 @@ def pw_weights(ci: torch.Tensor):
     """Per-coarse-point interpolation footprint: dict ``(du, dv) -> (nxc,
     nyc)`` weight from coarse ``(zc, wc)`` to fine ``(2zc+du, 2wc+dv)``
     (coincident weight identically 1)."""
-    nxc = ci.shape[1] - 1
-    nyc = ci.shape[2] - 1
-    out = {(0, 0): ci.new_ones((nxc, nyc))}
+    nxc = ci.shape[-2] - 1
+    nyc = ci.shape[-1] - 1
+    out = {(0, 0): ci.new_ones(tuple(ci.shape[1:-2]) + (nxc, nyc))}
     for off, (plane, ks, ms) in PW_TABLE.items():
-        out[off] = ci[plane, ks:ks + nxc, ms:ms + nyc]
+        out[off] = ci[plane, ..., ks:ks + nxc, ms:ms + nyc]
     return out
 
 
@@ -175,7 +181,7 @@ def parity_sample(parts: dict, du: int, dv: int, nc):
 
 def restrict_torch(ci: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """``qc = Pᵀ q`` in torch ops, terms in :data:`PW_TABLE` order."""
-    nc = (ci.shape[1] - 1, ci.shape[2] - 1)
+    nc = (ci.shape[-2] - 1, ci.shape[-1] - 1)
     pw = pw_weights(ci)
     parts = deinterleave2(q)
     qc = parity_sample(parts, 0, 0, nc)
@@ -188,7 +194,7 @@ def restrict_torch(ci: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def _interp_parts(ci, qc, nx: int, ny: int, r2p=None) -> dict:
     """The parity parts of ``P qc`` on the fine grid (plus ``r2p``, the
     parity parts of res/diag, at the fine-only points when given)."""
-    nxc, nyc = qc.shape
+    nxc, nyc = qc.shape[-2:]
     kx = nx // 2
     my = ny // 2
     qcp = torch.nn.functional.pad(qc, (0, 1, 0, 1))  # index nxc/nyc reads 0
@@ -199,25 +205,26 @@ def _interp_parts(ci, qc, nx: int, ny: int, r2p=None) -> dict:
     parts = {(0, 0): qc}
     # x-line points (2k-1, 2m), k in 1..kx, m in 0..nyc-1
     parts[(1, 0)] = plus_res(
-        ci[L.LR, 1:1 + kx, 0:nyc] * qcp[1:1 + kx, 0:nyc]
-        + ci[L.LL, 1:1 + kx, 0:nyc] * qcp[0:kx, 0:nyc], (1, 0))
+        ci[L.LR, ..., 1:1 + kx, 0:nyc] * qcp[..., 1:1 + kx, 0:nyc]
+        + ci[L.LL, ..., 1:1 + kx, 0:nyc] * qcp[..., 0:kx, 0:nyc], (1, 0))
     # y-line points (2k, 2m-1), k in 0..nxc-1, m in 1..my
     parts[(0, 1)] = plus_res(
-        ci[L.LA, 0:nxc, 1:1 + my] * qcp[0:nxc, 1:1 + my]
-        + ci[L.LB, 0:nxc, 1:1 + my] * qcp[0:nxc, 0:my], (0, 1))
+        ci[L.LA, ..., 0:nxc, 1:1 + my] * qcp[..., 0:nxc, 1:1 + my]
+        + ci[L.LB, ..., 0:nxc, 1:1 + my] * qcp[..., 0:nxc, 0:my], (0, 1))
     # cell centers (2k-1, 2m-1), k in 1..kx, m in 1..my
     parts[(1, 1)] = plus_res(
-        ci[L.LSW, 1:1 + kx, 1:1 + my] * qcp[0:kx, 0:my]
-        + ci[L.LNW, 1:1 + kx, 1:1 + my] * qcp[0:kx, 1:1 + my]
-        + ci[L.LNE, 1:1 + kx, 1:1 + my] * qcp[1:1 + kx, 1:1 + my]
-        + ci[L.LSE, 1:1 + kx, 1:1 + my] * qcp[1:1 + kx, 0:my], (1, 1))
+        ci[L.LSW, ..., 1:1 + kx, 1:1 + my] * qcp[..., 0:kx, 0:my]
+        + ci[L.LNW, ..., 1:1 + kx, 1:1 + my] * qcp[..., 0:kx, 1:1 + my]
+        + ci[L.LNE, ..., 1:1 + kx, 1:1 + my] * qcp[..., 1:1 + kx, 1:1 + my]
+        + ci[L.LSE, ..., 1:1 + kx, 1:1 + my] * qcp[..., 1:1 + kx, 0:my],
+        (1, 1))
     return parts
 
 
 def interp_add_torch(ci, so, qc, res, q) -> torch.Tensor:
     """``q + P qc (+ res/diag at fine-only points)`` in torch ops; returns a
     new tensor."""
-    nx, ny = q.shape
+    nx, ny = q.shape[-2:]
     r2p = deinterleave2(res / so[Dir2.O])
     return q + interleave2(_interp_parts(ci, qc, nx, ny, r2p), nx, ny)
 

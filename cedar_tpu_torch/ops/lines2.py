@@ -15,7 +15,10 @@ x-lines run along axis 0 (one line per column ``j``); y-lines run along
 axis 1 and reuse the x-line functions on transposed operands (under
 transpose W↔S swap, SW↦SWᵀ, NW↦NWᵀ).  All lines of one colour are
 independent, so the plain version batches them: the recurrences are Python
-loops ALONG the line over all lines of the colour at once.
+loops ALONG the line over all lines of the colour at once.  Every function
+reads the grid from the last two axes, so a batch of planes (``so``
+``(ndir, B, nx, ny)``, ``q`` ``(B, nx, ny)``, factors ``(2, B, nx, ny)``)
+goes through the same code.
 
 :func:`line_relax_x` and :func:`line_relax_y` dispatch by device, as
 :func:`cedar_tpu_torch.ops.relax2.point_relax` does: a CUDA tensor goes to
@@ -38,48 +41,48 @@ from cedar_tpu_torch.core.types import Dir2, StencilKind
 
 def transpose_so(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
     """The stencil of the transposed grid (``_transpose_so``)."""
-    planes = [so[Dir2.O].T, so[Dir2.S].T, so[Dir2.W].T]
+    planes = [so[Dir2.O].mT, so[Dir2.S].mT, so[Dir2.W].mT]
     if kind != StencilKind.five_pt:
-        planes += [so[Dir2.SW].T, so[Dir2.NW].T]
+        planes += [so[Dir2.SW].mT, so[Dir2.NW].mT]
     return torch.stack(planes)
 
 
 def _factor(diag: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """LDLᵀ of the lines along axis 0: ``(2, n, m)`` with plane 0 = 1/d and
-    plane 1 = l (``l[0] = 0``), by DPTTRF's recurrence
+    """LDLᵀ of the lines along axis -2: ``(2, ..., n, m)`` with plane 0 =
+    1/d and plane 1 = l (``l[0] = 0``), by DPTTRF's recurrence
     ``l_i = e_i / d_{i-1}``, ``d_i = a_i - l_i·e_i``."""
     d = torch.empty_like(diag)
     ls = torch.zeros_like(diag)
-    d[0] = diag[0]
-    for i in range(1, diag.shape[0]):
-        ls[i] = e[i] / d[i - 1]
-        d[i] = diag[i] - ls[i] * e[i]
+    d[..., 0, :] = diag[..., 0, :]
+    for i in range(1, diag.shape[-2]):
+        ls[..., i, :] = e[..., i, :] / d[..., i - 1, :]
+        d[..., i, :] = diag[..., i, :] - ls[..., i, :] * e[..., i, :]
     return torch.stack([1.0 / d, ls])
 
 
 def setup_lines(so: torch.Tensor, kind: StencilKind, axis: str) -> torch.Tensor:
     """LDLᵀ factors of each grid line along ``axis`` ('x' or 'y'), in the
-    layout of ``so``: ``(2, nx, ny)``, plane 0 = 1/d(i), plane 1 = l(i)
+    layout of ``so``: ``(2, [B,] nx, ny)``, plane 0 = 1/d(i), plane 1 = l(i)
     with e = -W (x-lines) or -S (y-lines)."""
     if axis == "y":
-        fac = _factor(so[Dir2.O].T, -so[Dir2.S].T)
-        return fac.transpose(1, 2).contiguous()
+        fac = _factor(so[Dir2.O].mT, -so[Dir2.S].mT)
+        return fac.mT.contiguous()
     return _factor(so[Dir2.O], -so[Dir2.W])
 
 
 def tridiag_solve(sor: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve ``LDLᵀ x = rhs`` along axis 0, batched over axis 1."""
+    """Solve ``LDLᵀ x = rhs`` along axis -2, batched over the others."""
     dinv, ls = sor[0], sor[1]
-    n = rhs.shape[0]
+    n = rhs.shape[-2]
     z = torch.empty_like(rhs)
-    z[0] = rhs[0]
+    z[..., 0, :] = rhs[..., 0, :]
     for i in range(1, n):
-        z[i] = rhs[i] - ls[i] * z[i - 1]
+        z[..., i, :] = rhs[..., i, :] - ls[..., i, :] * z[..., i - 1, :]
     w = z * dinv
     x = torch.empty_like(rhs)
-    x[n - 1] = w[n - 1]
+    x[..., n - 1, :] = w[..., n - 1, :]
     for i in range(n - 2, -1, -1):
-        x[i] = w[i] - ls[i + 1] * x[i + 1]
+        x[..., i, :] = w[..., i, :] - ls[..., i + 1, :] * x[..., i + 1, :]
     return x
 
 
@@ -111,16 +114,16 @@ def sweep_x_torch(so, q, b, sor, kind: StencilKind, updown: str):
     if sor is None:
         sor = _factor(so[Dir2.O], -so[Dir2.W])
     for parity in colour_order(updown):
-        rhs = line_rhs_x(so, q, b, kind)[:, parity::2]
-        q[:, parity::2] = tridiag_solve(sor[:, :, parity::2], rhs)
+        rhs = line_rhs_x(so, q, b, kind)[..., parity::2]
+        q[..., parity::2] = tridiag_solve(sor[..., parity::2], rhs)
     return q
 
 
 def sweep_y_torch(so, q, b, sor, kind: StencilKind, updown: str):
     """One zebra y-line sweep: :func:`sweep_x_torch` on the transposed
     system, IN PLACE on ``q`` through its transposed view."""
-    sor_t = None if sor is None else sor.transpose(1, 2)
-    sweep_x_torch(transpose_so(so, kind), q.T, b.T, sor_t, kind, updown)
+    sor_t = None if sor is None else sor.mT
+    sweep_x_torch(transpose_so(so, kind), q.mT, b.mT, sor_t, kind, updown)
     return q
 
 

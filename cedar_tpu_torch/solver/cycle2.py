@@ -11,6 +11,14 @@ that feeds the restriction, and with ``fuse_final_residual`` the last
 post-sweep of the top level emits the convergence residual, as the Pallas
 path does; line relaxation computes each residual separately.
 
+A hierarchy whose levels hold a batch of planes (3D plane relaxation's
+embedded cycles: ``so`` ``(ndir, B, nx, ny)``, ``x`` ``(B, nx, ny)``) runs
+the same cycle over the batch.  Its line-xy smoothing goes through
+:mod:`cedar_tpu_torch.ops.planes2` (kernel K10 on the card): all
+pre-smooths and the residual that feeds the restriction in one call, as
+the JAX package does under ``_line_fused_ok``, and all post-smooths in
+another.
+
 Sweeps and interpolation update the iterate in place: ``ncycle`` and
 ``run_cycle`` overwrite the ``x`` they are given.
 """
@@ -19,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from cedar_tpu_torch.ops import cg
+from cedar_tpu_torch.ops import cg, planes2
 from cedar_tpu_torch.ops.interp2 import interp, interp_add, restrict
 from cedar_tpu_torch.ops.lines2 import line_relax_x, line_relax_y
 from cedar_tpu_torch.ops.relax2 import point_relax
@@ -52,6 +60,18 @@ def _smooth(lev, kind, x, b, settings: MLSettings, updown: str):
     raise ValueError(f"invalid 2D relaxation: {rt}")
 
 
+def _batched_smooth(lev, kind, x, b, settings: MLSettings, updown: str,
+                    nsweeps: int, emit_res: bool = False):
+    """``nsweeps`` line-xy smooths of a batch of planes (plane relaxation
+    embeds only line-xy cycles)."""
+    if settings.relaxation != RelaxType.line_xy:
+        raise ValueError(f"batched 2D levels relax by line-xy, not "
+                         f"{settings.relaxation.value}")
+    smooth = (planes2.line_xy_nsmooth_res if emit_res
+              else planes2.line_xy_smooth)
+    return smooth(lev.so, x, b, kind, updown, nsweeps, lev.sor_x, lev.sor_y)
+
+
 def fuse_final_ok(levels, settings: MLSettings) -> bool:
     """Whether the top level's last post-sweep can fuse the convergence
     residual: V-cycle, point relaxation with a post-sweep, two levels or
@@ -75,7 +95,12 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
     post-sweep."""
     lev, kind = levels[lvl], kinds[lvl]
     pre = settings.nrelax_pre
-    if pre >= 1 and settings.relaxation == RelaxType.point:
+    if x.ndim == 3:
+        # a batch of planes: all pre-smooths + the residual in one call
+        with scope("relaxation-residual-fused"):
+            x, res = _batched_smooth(lev, kind, x, b, settings, "down", pre,
+                                     emit_res=True)
+    elif pre >= 1 and settings.relaxation == RelaxType.point:
         # fused final pre-sweep + residual
         with scope("relaxation"):
             for _ in range(pre - 1):
@@ -109,8 +134,11 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
     post = "up" if settings.relax_symmetric else "down"
     nplain = settings.nrelax_post - (1 if fuse_final_residual else 0)
     with scope("relaxation"):
-        for _ in range(nplain):
-            x = _smooth(lev, kind, x, b, settings, post)
+        if x.ndim == 3:
+            x = _batched_smooth(lev, kind, x, b, settings, post, nplain)
+        else:
+            for _ in range(nplain):
+                x = _smooth(lev, kind, x, b, settings, post)
     if fuse_final_residual:
         with scope("relaxation-residual-fused"):
             return point_relax(lev.so, x, b, lev.recip, kind, post,

@@ -1,9 +1,14 @@
 """Per-level data container (reference: include/cedar/level.h:14-45).
 
 PyTorch counterpart of :mod:`cedar_tpu.solver.level`, with the fields the
-2D point- and line-relaxation and the 3D point-relaxation paths with a
-direct coarse solve use.  ``levels[l+1].ci`` interpolates level ``l+1`` ->
-``l``; ``ainv`` is set on the coarsest level.
+2D point- and line-relaxation and the 3D point- and plane-relaxation paths
+with a direct coarse solve use.  ``levels[l+1].ci`` interpolates level
+``l+1`` -> ``l``; ``ainv`` is set on the coarsest level.
+
+A level of a batched 2D hierarchy (the embedded plane solvers of plane
+relaxation) holds a batch of planes, the batch axis after the leading
+axis: ``so`` ``(ndir, B, nx, ny)``, ``ci`` ``(8, B, …)``, ``sor_*`` ``(2,
+B, nx, ny)``, ``ainv`` ``(B, n, n)``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ class Level(NamedTuple):
     sor_x: Optional[torch.Tensor] = None      # x-line LDLᵀ factors (CPU path)
     sor_y: Optional[torch.Tensor] = None      # y-line LDLᵀ factors (CPU path)
     ainv: Optional[torch.Tensor] = None       # coarsest: dense inverse
+    # 3D plane relaxation: orient -> (colour 0, colour 1) batched 2D
+    # hierarchies of the planes of that zebra colour (None when empty)
+    planes: Optional[dict] = None
 
 
 def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
@@ -30,22 +38,63 @@ def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
     package's :class:`Level` tuple.
 
     Each entry is a mapping or a ``NamedTuple`` with any of the fields
-    ``so``, ``recip``, ``ci``, ``sor_x``, ``sor_y``, ``ainv``; other fields
-    are ignored, among them the TPU layouts of a JAX ``Solver3`` hierarchy
-    (``cip``, the padded restriction weights; ``so2``, the octant-split
-    stencil; ``pw4``, the split transfer weights), which the port's dense
-    kernels do not use.  The arrays are copied.  A ``sor_x`` / ``sor_y`` that is
-    not an array (the JAX package's SPIKE factors, ``lines2.SpikeLines``,
-    which it builds for lines of 16 points or more) is not converted: the
-    field stays None and the line sweep factors the lines from ``so`` with
+    ``so``, ``recip``, ``ci``, ``sor_x``, ``sor_y``, ``ainv``, ``planes``;
+    other fields are ignored, among them the TPU layouts of a JAX
+    ``Solver3`` hierarchy (``cip``, the padded restriction weights; ``so2``,
+    the octant-split stencil; ``pw4``, the split transfer weights), which
+    the port's dense kernels do not use.  The arrays are copied.  A
+    ``sor_x`` / ``sor_y`` that is not an array (the JAX package's SPIKE
+    factors, ``lines2.SpikeLines``, which it builds for lines of 16 points
+    or more) is not converted: the field stays None and the line sweep
+    factors the lines from ``so`` with
     :func:`cedar_tpu_torch.ops.lines2.setup_lines`'s recurrence.
+
+    ``planes`` (orient -> the JAX package's batched 2D hierarchy over all
+    planes, batch axis first: ``(B, ndir, nx, ny)``, ``(B, 8, …)``, ``(B, n,
+    n)``) becomes orient -> one hierarchy per zebra colour in this
+    package's layout, the planes ``c::2`` of the batch, contiguous.
     """
     out = []
     for lev in levels_np:
-        fields = lev if isinstance(lev, Mapping) else lev._asdict()
-        out.append(Level(**{
-            k: torch.tensor(np.asarray(fields[k]), dtype=dtype, device=device)
-            for k in Level._fields
-            if fields.get(k) is not None and not isinstance(fields[k], tuple)
-        }))
+        fields = _fields(lev)
+        conv = {k: torch.tensor(np.asarray(fields[k]), dtype=dtype,
+                                device=device)
+                for k in Level._fields
+                if k != "planes" and _is_array(fields.get(k))}
+        if fields.get("planes") is not None:
+            conv["planes"] = {
+                orient: tuple(_colour(hier, c, device, dtype) for c in (0, 1))
+                for orient, hier in fields["planes"].items()
+            }
+        out.append(Level(**conv))
     return tuple(out)
+
+
+def _fields(lev) -> Mapping:
+    return lev if isinstance(lev, Mapping) else lev._asdict()
+
+
+def _is_array(v) -> bool:
+    return v is not None and not isinstance(v, (tuple, Mapping))
+
+
+def _colour(hier, c: int, device, dtype):
+    """The planes ``c::2`` of a batch-first JAX plane hierarchy, moved to
+    this package's layout (batch axis after the leading axis of the
+    stencil, CI and line factors; first for ``ainv`` and ``recip``), or
+    None when that colour has no plane."""
+    levels = []
+    for lev in hier:
+        fields = _fields(lev)
+        conv = {}
+        for k in Level._fields:
+            if k == "planes" or not _is_array(fields.get(k)):
+                continue
+            a = np.asarray(fields[k])
+            if a.shape[0] <= c:
+                return None
+            a = np.swapaxes(a, 0, 1)[:, c::2] if a.ndim == 4 else a[c::2]
+            conv[k] = torch.tensor(np.ascontiguousarray(a), dtype=dtype,
+                                   device=device)
+        levels.append(Level(**conv))
+    return tuple(levels)

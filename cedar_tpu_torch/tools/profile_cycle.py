@@ -1,22 +1,26 @@
 """Where the time of one 2D or 3D cycle goes on the card.
 
-Builds one of six float32 configurations — ``vcycle`` (default: Poisson
+Builds one of seven float32 configurations — ``vcycle`` (default: Poisson
 4096², V(1,1)), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1)),
 ``fcycle`` (Poisson 4096², F-cycle), ``vcycle3`` (7-point Poisson 256³,
 V(1,1): ``3d_poisson_7pt_256``), ``fe27`` (27-point ``gallery.fe3`` 128³,
-V(1,1): ``3d_fe_27pt_128``) or ``fcycle3`` (7-point Poisson 256³,
-F-cycle) — runs a few warm-up cycles as the solve runs them, then traces
-ten cycles with ``torch.profiler`` and prints:
+V(1,1): ``3d_fe_27pt_128``), ``fcycle3`` (7-point Poisson 256³, F-cycle)
+or ``planexy`` (7-point ``diag_diffusion3(1, 1, 1e-3)`` 128³, plane-xy
+V(1,1) with the default plane-config: ``3d_aniso_planexy_128``) — runs a
+few warm-up cycles as the solve runs them, then traces ten cycles with
+``torch.profiler`` and prints:
 
 * wall ms per cycle (CUDA events) and the device's busy and idle share
   (summed kernel time over wall time);
 * device time per kernel name, per cycle;
-* host time per profiler scope ("relaxation", "restrict", …), per cycle.
+* host time per profiler scope ("relaxation", "restrict", …), per cycle
+  (with plane relaxation the embedded 2D cycles' scopes run inside the
+  outer "relaxation" and count in both).
 
 Run from the repository root on a machine with a CUDA device:
 
     python3 -m cedar_tpu_torch.tools.profile_cycle \
-        [vcycle|linexy|fcycle|vcycle3|fe27|fcycle3]
+        [vcycle|linexy|fcycle|vcycle3|fe27|fcycle3|planexy]
 """
 
 from __future__ import annotations
@@ -44,6 +48,10 @@ CONFIGS = {
     "vcycle3": (3, 256, gallery.poisson3, SevenPt, {}),
     "fe27": (3, 128, gallery.fe3, TwentySevenPt, {}),
     "fcycle3": (3, 256, gallery.poisson3, SevenPt, {"cycle": {"type": "f"}}),
+    "planexy": (3, 128, lambda nx, ny, nz, dtype, dev:
+                gallery.diag_diffusion3(nx, ny, nz, 1.0, 1.0, 1e-3, dtype,
+                                        dev),
+                SevenPt, {"relaxation": "plane-xy"}),
 }
 
 

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """GPU smoke test of cedar_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version, and drives the 2D V-cycle, line-xy and
-F-cycle solves and the 3D 7- and 27-point V-cycle and F-cycle solves on
-the card.
+F-cycle solves, the 3D 7- and 27-point V-cycle and F-cycle solves and the
+3D plane-relaxation solve on the card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -19,13 +19,21 @@ Phases (each raises on failure; nothing is caught):
    and (1025, 771) in float64; then the 3D sweep (K6), restrict (K7),
    interp-add (K8) and interp (K9) at (256, 256, 256) 7-point and
    (128, 128, 128) 27-point float32 and (33, 21, 17) and (65, 65, 65)
-   float64, both kinds;
+   float64, both kinds; then the batched line-xy smooth (K10) at
+   (64, 128, 128) float32 and (7, 33, 21) and (5, 4, 3) float64, 5- and
+   9-point, DOWN and UP, 1 and 2 sweeps, with and without the residual,
+   and the batched restrict and interp-add (K2, K3) at (64, 128, 128)
+   float32 and (5, 33, 17) float64, a batch of one against the unbatched
+   launch;
 4. Cedar's 400² float64 residual history through the kernels;
 4b. float64 gates of the line-xy and F-cycle paths: the 400² solves on the
    card against the same solves on the CPU (plain versions);
 4c. Cedar's 3D integration test (200³ float64 7-point Poisson) through
    the kernels, then the float64 3D gates: 33³ 7-point and 17³ 27-point
    V-cycle solves and a 33³ F-cycle, card against CPU;
+4d. float64 plane-relaxation gates, card against CPU: 16³
+   ``diag_diffusion3(1, 1, 1e-3)`` plane-xy (to 1e-9 within 5 cycles),
+   8³ Poisson plane-xyz, a 12x10x9 ``fe3`` 27-point plane-yz solve;
 5. the main path: 2D Poisson 4096² float32, V(1,1), setup and a solve of
    four cycles, with every kernel's launch count; the convergence rate on
    A x = 0 from a random start; then the per-cycle time;
@@ -35,9 +43,12 @@ Phases (each raises on failure; nothing is caught):
 5c. the 3D slice at full width: ``3d_poisson_7pt_256``,
    ``3d_fe_27pt_128`` (``bench.py``'s configurations) and the 256³
    F-cycle, each with the same numbers;
+5d. the plane-relaxation slice at full width: ``3d_aniso_planexy_128``
+   (``bench.py``'s configuration), with the same numbers and the launches
+   of one cycle;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
-   H100's data-sheet rates.
+   H100's data-sheet rates; K10 and the batched K2/K3 at (64, 128, 128).
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
@@ -62,8 +73,8 @@ from cedar_tpu_torch import (
 )
 from cedar_tpu_torch.core.types import Dir3, StencilKind
 from cedar_tpu_torch.ops import (
-    cuda2, cuda3, cuda_build, cuda_lines2, cuda_transfer2, cuda_transfer3,
-    interp2, interp3, stencil3,
+    cuda2, cuda3, cuda_build, cuda_lines2, cuda_planes2, cuda_transfer2,
+    cuda_transfer3, interp2, interp3, stencil3,
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
 from cedar_tpu_torch.solver import cycle2, cycle3
@@ -82,6 +93,10 @@ SHAPES3 = [((256, 256, 256), torch.float32, (False,)),
            ((128, 128, 128), torch.float32, (True,)),
            ((33, 21, 17), torch.float64, (False, True)),
            ((65, 65, 65), torch.float64, (False, True))]
+# batched planes (B, nx, ny): the K10 shapes, and the batched K2/K3 shapes
+SHAPES_B = [((64, 128, 128), torch.float32), ((7, 33, 21), torch.float64),
+            ((5, 4, 3), torch.float64)]
+SHAPES_BT = [((64, 128, 128), torch.float32), ((5, 33, 17), torch.float64)]
 # every row of the TPU kernel table (PERF.md) a kernel covers
 REPLACES = {
     "sweep2": "cedar_tpu/ops/pallas2.py:137",
@@ -97,6 +112,7 @@ REPLACES = {
                     "cedar_tpu/ops/pallas3_split.py:1247"),
     "interp3": ("cedar_tpu/ops/pallas3_split.py:1101, "
                 "cedar_tpu/ops/pallas3_split.py:1198"),
+    "line_xy2": "cedar_tpu/ops/pallas_planes2.py:158",
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -108,15 +124,17 @@ SOURCES = {
     "restrict3": "cedar_tpu_torch/csrc/transfer3.cu",
     "interp_add3": "cedar_tpu_torch/csrc/transfer3.cu",
     "interp3": "cedar_tpu_torch/csrc/transfer3.cu",
+    "line_xy2": "cedar_tpu_torch/csrc/planes2.cu",
 }
 KERNELS = tuple(REPLACES)
 # full widths: the V-cycle main path and the F-cycle at N_MAIN², line-xy
 # at N_LINES², the 3D 7-point V- and F-cycle at N_3D³ and the 27-point
-# V-cycle at N_27³ (bench.py's configurations)
+# V-cycle at N_27³, plane-xy at N_PLANES³ (bench.py's configurations)
 N_MAIN = 4096
 N_LINES = 2048
 N_3D = 256
 N_27 = 128
+N_PLANES = 128
 # Cedar's 3D integration test size (test/3d/test_poisson.cc:74-105)
 N_CEDAR3 = 200
 # the H100 SXM data sheet at its 700 W limit: HBM bytes/s, and FLOP/s
@@ -138,6 +156,7 @@ def counts() -> dict:
         "restrict3": cuda_transfer3.restrict_launches,
         "interp_add3": cuda_transfer3.interp_add_launches,
         "interp3": cuda_transfer3.interp_launches,
+        "line_xy2": cuda_planes2.launches,
         "sweep2_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
         "interp_add2_plain": cuda_transfer2.interp_plain_calls,
@@ -147,6 +166,7 @@ def counts() -> dict:
         "restrict3_plain": cuda_transfer3.restrict_plain_calls,
         "interp_add3_plain": cuda_transfer3.interp_add_plain_calls,
         "interp3_plain": cuda_transfer3.interp_plain_calls,
+        "line_xy2_plain": cuda_planes2.plain_calls,
     }
 
 
@@ -164,6 +184,7 @@ def reset_counts() -> None:
     cuda_transfer3.restrict_plain_calls = 0
     cuda_transfer3.interp_add_plain_calls = 0
     cuda_transfer3.interp_plain_calls = 0
+    cuda_planes2.launches = cuda_planes2.plain_calls = 0
 
 
 def require_launched(c: dict, names, what: str) -> None:
@@ -179,21 +200,22 @@ def require_launched(c: dict, names, what: str) -> None:
 def random_problem(shape, nine: bool, dtype, seed: int):
     """A diagonally dominant random stencil (the layout of
     tests/test_kernels_2d.random_so) with random q and b, made on the card
-    from ``seed``."""
+    from ``seed``; ``shape`` ``(nx, ny)``, or ``(B, nx, ny)`` for a batch of
+    independent planes (stencil ``(ndir, B, nx, ny)``)."""
     g = torch.Generator(device=DEV).manual_seed(seed)
-    nx, ny = shape
+    *batch, nx, ny = shape
 
     def u(lo, hi, *s):
-        return lo + (hi - lo) * torch.rand(s, generator=g, device=DEV,
-                                           dtype=dtype)
+        return lo + (hi - lo) * torch.rand((*batch, *s), generator=g,
+                                           device=DEV, dtype=dtype)
 
     kind = StencilKind.nine_pt if nine else StencilKind.five_pt
-    so = torch.zeros((kind.ndirs, nx, ny), dtype=dtype, device=DEV)
-    so[1, 1:, :] = u(0.5, 1.5, nx - 1, ny)
-    so[2, :, 1:] = u(0.5, 1.5, nx, ny - 1)
+    so = torch.zeros((kind.ndirs, *shape), dtype=dtype, device=DEV)
+    so[1, ..., 1:, :] = u(0.5, 1.5, nx - 1, ny)
+    so[2, ..., :, 1:] = u(0.5, 1.5, nx, ny - 1)
     if nine:
-        so[3, 1:, 1:] = u(0.1, 0.5, nx - 1, ny - 1)
-        so[4, 1:, 1:] = u(0.1, 0.5, nx - 1, ny - 1)
+        so[3, ..., 1:, 1:] = u(0.1, 0.5, nx - 1, ny - 1)
+        so[4, ..., 1:, 1:] = u(0.1, 0.5, nx - 1, ny - 1)
     so[0] = offdiag_apply(so, torch.ones(shape, dtype=dtype, device=DEV),
                           kind) + u(0.05, 0.2, nx, ny)
     q = torch.randn(shape, generator=g, device=DEV, dtype=dtype)
@@ -382,6 +404,71 @@ def phase_kernels3(errs: dict) -> dict:
     return errs
 
 
+def phase_kernels_planes(errs: dict) -> dict:
+    """K10 and the batched K2/K3 against their plain versions on batches
+    of planes; a batch of one against today's unbatched K2/K3 launch."""
+    print("[3] batched plane kernels against plain versions", flush=True)
+    errs.setdefault("line_xy2", 0.0)
+    for i, (shape, dtype) in enumerate(SHAPES_B):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 500 + i)
+            pts = "9pt" if nine else "5pt"
+            for updown in ("down", "up"):
+                for nsweeps in (1, 2):
+                    for res in (False, True):
+                        got = cuda_planes2.smooth(so, q.clone(), b, kind,
+                                                  updown, nsweeps, res)
+                        want = cuda_planes2.smooth_plain(
+                            so, q.clone(), b, kind, updown, nsweeps, res)
+                        what = (f"K10 line_xy2 {pts} {updown} x{nsweeps} "
+                                f"res={int(res)} {tag}")
+                        if res:
+                            e = max(compare(what + " q", got[0], want[0]),
+                                    compare(what + " res", got[1], want[1]))
+                        else:
+                            e = compare(what, got, want)
+                        errs["line_xy2"] = max(errs["line_xy2"], e)
+            del so, q, b
+    for i, (shape, dtype) in enumerate(SHAPES_BT):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 600 + i)
+            pts = "9pt" if nine else "5pt"
+            ci = interp2.setup_interp(so, kind)
+            g = torch.Generator(device=DEV).manual_seed(700 + i)
+            qc = torch.randn((shape[0], ci.shape[2] - 1, ci.shape[3] - 1),
+                             generator=g, device=DEV, dtype=dtype)
+            e = compare(f"K2 restrict2 batched {pts} {tag}",
+                        cuda_transfer2.restrict(ci, b),
+                        cuda_transfer2.restrict_plain(ci, b))
+            errs["restrict2"] = max(errs["restrict2"], e)
+            e = compare(f"K3 interp_add2 batched {pts} {tag}",
+                        cuda_transfer2.interp_add(ci, so, qc, b, q.clone()),
+                        cuda_transfer2.interp_add_plain(ci, so, qc, b,
+                                                        q.clone()))
+            errs["interp_add2"] = max(errs["interp_add2"], e)
+            # B = 1 is today's unbatched launch: bit-equal
+            ci1, so1 = ci[:, :1].contiguous(), so[:, :1].contiguous()
+            b1, q1, qc1 = b[:1].contiguous(), q[:1], qc[:1].contiguous()
+            got = cuda_transfer2.restrict(ci1, b1)[0]
+            want = cuda_transfer2.restrict(ci1[:, 0].contiguous(), b1[0])
+            if not torch.equal(got, want):
+                raise AssertionError(f"K2 batch of one {pts} {tag} differs "
+                                     "from the unbatched launch")
+            got = cuda_transfer2.interp_add(ci1, so1, qc1, b1, q1.clone())[0]
+            want = cuda_transfer2.interp_add(
+                ci1[:, 0].contiguous(), so1[:, 0].contiguous(), qc1[0],
+                b1[0], q1[0].clone())
+            if not torch.equal(got, want):
+                raise AssertionError(f"K3 batch of one {pts} {tag} differs "
+                                     "from the unbatched launch")
+            print(f"  K2, K3 batch of one {pts} {tag}: bit-equal to the "
+                  "unbatched launch", flush=True)
+            del so, q, b, ci, qc
+    return errs
+
+
 def phase_cedar_gate() -> None:
     print("[4] Cedar 400^2 float64 history through the kernels", flush=True)
     reset_counts()
@@ -518,6 +605,57 @@ def phase_3d_gates() -> None:
         np.testing.assert_allclose(s.history, sc.history, rtol=1e-9,
                                    atol=1e-14)
         require_launched(c, need, what)
+
+
+def aniso3(nx, ny, nz, dtype=None, device=None):
+    """``3d_aniso_planexy_128``'s operator: ``diag_diffusion3(1, 1, 1e-3)``
+    (bench.py:173-184), strong coupling in the xy planes."""
+    return gallery.diag_diffusion3(nx, ny, nz, 1.0, 1.0, 1e-3, dtype, device)
+
+
+# a plane-relaxation solve launches K10 and the batched K2/K3 in its
+# embedded cycles and K7/K8 on the outer 3D levels
+PLANE_KERNELS = ("line_xy2", "restrict2", "interp_add2", "restrict3",
+                 "interp_add3")
+
+
+def phase_plane_gates() -> None:
+    """The float64 plane-relaxation solves on the card against the same
+    solves on the CPU (plain versions)."""
+    print("[4d] float64 plane-relaxation gates, card against CPU",
+          flush=True)
+    cpu = torch.device("cpu")
+    gates = [
+        ("diag_diffusion3 16^3 plane-xy", (16, 16, 16), aniso3, SevenPt,
+         "plane-xy"),
+        ("poisson3 8^3 plane-xyz", (8, 8, 8), gallery.poisson3, SevenPt,
+         "plane-xyz"),
+        ("fe3 12x10x9 plane-yz", (12, 10, 9), gallery.fe3, TwentySevenPt,
+         "plane-yz"),
+    ]
+    for what, shape, make, kind, relax in gates:
+        conf = Config({"log": [], "solver": {
+            "relaxation": relax, "tol": 1e-9, "max-iter": 20}})
+        so = make(*shape, torch.float64, cpu)
+        b = gallery.poisson3_rhs(*shape, torch.float64, cpu)
+        reset_counts()
+        s = Solver3(so.to(DEV), kind, conf)
+        s.solve(b.to(DEV))
+        c = counts()
+        sc = Solver3(so, kind, conf)
+        sc.solve(b)
+        print(f"  {what}: card {' '.join(f'{h:.9g}' for h in s.history)}",
+              flush=True)
+        print(f"  {what}: CPU  {' '.join(f'{h:.9g}' for h in sc.history)};"
+              f" counts {c}", flush=True)
+        np.testing.assert_allclose(s.history, sc.history, rtol=1e-9,
+                                   atol=1e-14)
+        if not s.history[-1] < 1e-9:
+            raise AssertionError(f"{what}: did not converge to 1e-9")
+        # near-direct on plane-aligned anisotropy (tests/test_planes_3d.py)
+        if make is aniso3 and len(s.history) > 5:
+            raise AssertionError(f"{what}: {len(s.history)} cycles > 5")
+        require_launched(c, PLANE_KERNELS, what)
 
 
 def time_cycles(s, b, x, ncycles=25, cycle=cycle2):
@@ -779,6 +917,71 @@ def phase_paths3() -> dict:
         "interp3": f7["interp3"]}
 
 
+def phase_planes_128() -> dict:
+    """``3d_aniso_planexy_128`` (bench.py:173-184) on the port: 7-point
+    plane-xy V(1,1) with the default plane-config (one embedded V(2,1)
+    line-xy cycle a colour)."""
+    name, n = "3d_aniso_planexy_128", N_PLANES
+    print(f"[5d] {name}: diag_diffusion3(1, 1, 1e-3) {n}^3 float32, "
+          "plane-xy V(1,1)", flush=True)
+    conf = Config({"log": [], "solver": {
+        "relaxation": "plane-xy", "cycle": {"nrelax-pre": 1,
+                                            "nrelax-post": 1},
+        "max-iter": 4, "tol": 1e-6}})
+    so = aniso3(n, n, n, torch.float32, DEV)
+    b = gallery.poisson3_rhs(n, n, n, torch.float32, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = Solver3(so, SevenPt, conf)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    launches = counts()
+    del so
+    print(f"  {name}: levels {s.nlevels}: {s.shapes[0]} .. {s.shapes[-1]}; "
+          f"setup {setup_s:.3f} s", flush=True)
+    print(f"  {name}: history {' '.join(f'{h:.9g}' for h in s.history)}",
+          flush=True)
+    print(f"  {name}: counts {launches}", flush=True)
+    if not torch.isfinite(x).all() or tuple(x.shape) != (n, n, n):
+        raise AssertionError(f"{name}: bad solution")
+    # one cycle is near-direct here (>= 60x in float64 at 16^3); later
+    # cycles may sit on the float32 floor of |b - A x| / |b|
+    if not s.history[0] < 0.2 or not s.history[-1] <= s.history[0]:
+        raise AssertionError(f"{name}: the solve did not converge")
+    require_launched(launches, PLANE_KERNELS, name)
+    reset_counts()
+    cycle3.cycle_residual(s.levels, s.kinds, x.clone(), b, s.settings)
+    torch.cuda.synchronize()
+    one = {k: v for k, v in counts().items() if v}
+    print(f"  {name}: launches a cycle {one}", flush=True)
+
+    # the rate on A x = 0 from a random x0: every cycle cuts >= 4x until
+    # the residual reaches the float32 floor (1e-5 relative)
+    g = torch.Generator(device=DEV).manual_seed(14)
+    x0 = torch.randn((n, n, n), generator=g, device=DEV, dtype=torch.float32)
+    zero = torch.zeros_like(b)
+    r0 = float(stencil3.residual(s.levels[0].so, x0, zero, SevenPt).norm())
+    h = [1.0]
+    for _ in range(4):
+        x0 = cycle3.run_cycle(s.levels, s.kinds, x0, zero, s.settings)
+        h.append(float(stencil3.residual(s.levels[0].so, x0, zero,
+                                         SevenPt).norm()) / r0)
+    print(f"  {name}: A x = 0 from random x0: "
+          f"{' '.join(f'{v:.6g}' for v in h[1:])}", flush=True)
+    del x0
+    if any(h[i] > 1e-5 and not h[i + 1] <= h[i] / 4 for i in range(4)):
+        raise AssertionError(f"{name}: a cycle cut the residual < 4x")
+    ms = time_cycles(s, b, x, cycle=cycle3)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  {name}: DOF/s {n ** 3 / (ms * 1e-3):.4e}; peak memory "
+          f"{peak / 2**20:.1f} MiB", flush=True)
+    return launches
+
+
 def time_ms(fn, reps=20, warm=3) -> float:
     for _ in range(warm):
         fn()
@@ -925,6 +1128,60 @@ def phase_times3() -> dict:
     return {k: v + work[k] for k, v in out.items() if k in work}
 
 
+def phase_times_planes() -> dict:
+    """K10 (2 sweeps + the residual: the embedded pre-smooth) and the
+    batched K2/K3 against plain on a (64, 128, 128) float32 batch, in turns
+    (plain, kernel, kernel, plain)."""
+    shape = (64, N_PLANES, N_PLANES)
+    print(f"[6] per-kernel ms on a {shape} float32 batch of planes "
+          "(plain, kernel, kernel, plain)", flush=True)
+    nb, n = shape[0], shape[1]
+    cases, work = {}, {}
+    for nine in (False, True):
+        so, q, b, kind = random_problem(shape, nine, torch.float32,
+                                        20 + nine)
+        pts = "9pt" if nine else "5pt"
+        cases[f"line_xy2 {pts} x2 +res"] = (
+            lambda so=so, q=q, b=b, kind=kind: cuda_planes2.smooth_plain(
+                so, q, b, kind, "down", 2, True),
+            lambda so=so, q=q, b=b, kind=kind: cuda_planes2.smooth(
+                so, q, b, kind, "down", 2, True))
+        # bytes: the stencil planes, b and q read, q and res written;
+        # operations a point: per smooth two line passes of the rhs (4 or
+        # 12) and the LDLᵀ step (9), then the residual (10 or 18)
+        N = nb * n * n
+        ndir, rhs_ops, res_ops = (5, 12, 18) if nine else (3, 4, 10)
+        work[f"line_xy2 {pts} x2 +res"] = ((ndir + 4) * N * 4,
+                                           (2 * 2 * (rhs_ops + 9)
+                                            + res_ops) * N)
+        if not nine:
+            ci = interp2.setup_interp(so, kind)
+            g = torch.Generator(device=DEV).manual_seed(22)
+            nc = ci.shape[2] - 1
+            qc = torch.randn((nb, nc, nc), generator=g, device=DEV,
+                             dtype=torch.float32)
+            args = (ci, so, qc, b, q)
+            cases["restrict2 batched"] = (
+                lambda: cuda_transfer2.restrict_plain(args[0], args[3]),
+                lambda: cuda_transfer2.restrict(args[0], args[3]))
+            cases["interp_add2 batched"] = (
+                lambda: cuda_transfer2.interp_add_plain(*args),
+                lambda: cuda_transfer2.interp_add(*args))
+            W, Nc = 8 * nb * (nc + 1) ** 2, nb * nc * nc
+            work["restrict2 batched"] = ((W + N + Nc) * 4, 16 * Nc)
+            work["interp_add2 batched"] = ((W + Nc + 4 * N) * 4,
+                                           23 * N // 4)
+    out = time_turns(cases, slow=[k for k in cases if "line_xy2" in k])
+    for k, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, torch.float32)
+        print(f"  {k}: bound {bms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
+              f"{flops / 1e9:.4f} GFLOP); kernel {out[k][0]:.4f} ms",
+              flush=True)
+    # the table's K10 entry: the 5-point smooth of the main path's planes
+    key = "line_xy2 5pt x2 +res"
+    return {"line_xy2": out[key] + work[key]}
+
+
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
     """The least time on the card, ms: the larger of the bytes over the HBM
     rate and the operations over the peak rate of ``dtype``."""
@@ -938,15 +1195,18 @@ def main() -> None:
     phase_build()
     errs = phase_kernels()
     errs = phase_kernels3(errs)
+    errs = phase_kernels_planes(errs)
     phase_cedar_gate()
     phase_f64_gates()
     phase_cedar3()
     phase_3d_gates()
+    phase_plane_gates()
     launches = phase_main_path()
     launches["line2"] = phase_linexy_2048()["line2"]
     launches["interp2"] = phase_fcycle_4096()["interp2"]
     launches.update(phase_paths3())
-    times = phase_times() | phase_times3()
+    launches["line_xy2"] = phase_planes_128()["line_xy2"]
+    times = phase_times() | phase_times3() | phase_times_planes()
     table = []
     for name in KERNELS:
         ms, plain_ms, nbytes, flops = times[name]

@@ -158,8 +158,11 @@ def test_single_level_solve():
 
 
 @pytest.mark.parametrize("conf", [
-    {"solver": {"relaxation": "plane-xy"}},
-    {"solver": {"relaxation": "plane-xyz"}},
+    {"solver": {"relaxation": "plane-xy"},
+     "plane-config": {"solver": {"relaxation": "point"}}},
+    {"solver": {"relaxation": "plane-xyz"},
+     "plane-config": {"solver": {"relaxation": "line-xy",
+                                 "cycle": {"type": "f"}}}},
     {"solver": {"relaxation": "line-x"}},
     {"grid": {"periodic": [True, False, False]}},
     {"solver": {"cg-solver": "cedar"}},
