@@ -1,7 +1,8 @@
-// 2D stencil device code shared by K1 (sweep2.cu), K4 (lines2.cu) and K10
-// (planes2.cu), so that the kernels round alike: the off-diagonal sum of
-// the residual, the off-line right-hand sides of the line solves and the
-// LDLᵀ line solve.  The term orders are those of ops/stencil2.py
+// 2D stencil device code shared by K1 (sweep2.cu), K4 (lines2.cu), K10
+// (planes2.cu) and K11-K13 (fused2.cu), so that the kernels round alike:
+// the off-diagonal sum of the residual, the off-line right-hand sides of
+// the line solves and the LDLᵀ line solve.  The term orders are those of
+// ops/stencil2.py
 // (`offdiag_apply`) and ops/lines2.py (`line_rhs_x`, `_factor`,
 // `tridiag_solve`) of this package.
 //
@@ -23,29 +24,41 @@ namespace cedar {
 constexpr int W = 1, S = 2, SW = 3, NW = 4;
 constexpr int kChunk = 16;  // line-solve steps whose loads issue together
 
-// Σ coupling · q(neighbour) at (z, w), in stencil2.offsets_for order.
+// Σ coupling · q(neighbour) at (z, w), in stencil2.offsets_for order, with
+// q read through qp = &q(z, w) and the row stride qs of what qp points
+// into: the grid itself (qs = ny), or a shared-memory tile of it in the
+// fused kernels of fused2.cu.
 template <typename T, bool NINE>
-__device__ __forceinline__ T offdiag(const T* __restrict__ so, const T* q,
-                                     long long P, int z, int w, int nx,
-                                     int ny) {
+__device__ __forceinline__ T offdiag_at(const T* __restrict__ so, long long P,
+                                        int z, int w, int nx, int ny,
+                                        const T* qp, long long qs) {
   using A = Arith<T>;
   const long long i = (long long)z * ny + w;
   const bool zl = z > 0, zh = z + 1 < nx, wl = w > 0, wh = w + 1 < ny;
   const T zero = T(0);
   // (-1,0) W(z,w)      (1,0) W(z+1,w)
-  T acc = zl ? A::mul(so[W * P + i], q[i - ny]) : zero;
-  acc = A::add(acc, zh ? A::mul(so[W * P + i + ny], q[i + ny]) : zero);
+  T acc = zl ? A::mul(so[W * P + i], qp[-qs]) : zero;
+  acc = A::add(acc, zh ? A::mul(so[W * P + i + ny], qp[qs]) : zero);
   // (0,-1) S(z,w)      (0,1) S(z,w+1)
-  acc = A::add(acc, wl ? A::mul(so[S * P + i], q[i - 1]) : zero);
-  acc = A::add(acc, wh ? A::mul(so[S * P + i + 1], q[i + 1]) : zero);
+  acc = A::add(acc, wl ? A::mul(so[S * P + i], qp[-1]) : zero);
+  acc = A::add(acc, wh ? A::mul(so[S * P + i + 1], qp[1]) : zero);
   if (NINE) {
     // (-1,-1) SW(z,w)  (1,-1) NW(z+1,w)  (-1,1) NW(z,w+1)  (1,1) SW(z+1,w+1)
-    acc = A::add(acc, (zl && wl) ? A::mul(so[SW * P + i], q[i - ny - 1]) : zero);
-    acc = A::add(acc, (zh && wl) ? A::mul(so[NW * P + i + ny], q[i + ny - 1]) : zero);
-    acc = A::add(acc, (zl && wh) ? A::mul(so[NW * P + i + 1], q[i - ny + 1]) : zero);
-    acc = A::add(acc, (zh && wh) ? A::mul(so[SW * P + i + ny + 1], q[i + ny + 1]) : zero);
+    acc = A::add(acc, (zl && wl) ? A::mul(so[SW * P + i], qp[-qs - 1]) : zero);
+    acc = A::add(acc, (zh && wl) ? A::mul(so[NW * P + i + ny], qp[qs - 1]) : zero);
+    acc = A::add(acc, (zl && wh) ? A::mul(so[NW * P + i + 1], qp[1 - qs]) : zero);
+    acc = A::add(acc, (zh && wh) ? A::mul(so[SW * P + i + ny + 1], qp[qs + 1]) : zero);
   }
   return acc;
+}
+
+// Σ coupling · q(neighbour) at (z, w) of the grid q.
+template <typename T, bool NINE>
+__device__ __forceinline__ T offdiag(const T* __restrict__ so, const T* q,
+                                     long long P, int z, int w, int nx,
+                                     int ny) {
+  return offdiag_at<T, NINE>(so, P, z, w, nx, ny,
+                             q + (long long)z * ny + w, ny);
 }
 
 // The rhs of point i on an x-line (line = column j): b + couplings to the

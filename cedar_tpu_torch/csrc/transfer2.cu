@@ -29,10 +29,9 @@
 // f32, against K3's q, res and diagonal streams besides); it shares K3's
 // weights and parity classes (`interp_value`).
 //
-// They read the unpadded CI of shape (8, nxc+1, nyc+1): the high row nxc
-// and column nyc hold the weights of fine points beyond the last coarse
-// point (core/types.py InterpDir2).  Fine indices outside [0, nx) x [0, ny)
-// and coarse indices nxc / nyc read as zero.
+// The CI access, the restriction of one coarse point and the interpolated
+// value of one fine point live in transfer2.cuh, shared with the fused
+// kernels K12 and K13 (fused2.cu).
 //
 // K2 and K3 also take a batch of nb independent planes (plane relaxation's
 // embedded 2D cycles, ops/planes3.py): grid arrays (nb, nx, ny), the
@@ -40,37 +39,16 @@
 // after the direction axis.  Grid z is the plane; nb = 1 is the unbatched
 // launch.
 
-#include "common.cuh"
+#include "transfer2.cuh"
 
 namespace cedar {
 namespace {
-
-// InterpDir2 plane indices (core/types.py)
-constexpr int LL = 0, LR = 1, LA = 2, LB = 3, LSW = 4, LNW = 5, LNE = 6, LSE = 7;
-
-template <typename T>
-struct CI {
-  const T* __restrict__ p;
-  long long plane;  // nb*(nxc+1)*(nyc+1): one weight plane of every batch
-  int stride;       // nyc+1
-  __device__ __forceinline__ T operator()(int d, int k, int m) const {
-    return p[d * plane + (long long)k * stride + m];
-  }
-};
 
 template <typename T>
 __device__ __forceinline__ T fine_at(const T* __restrict__ r, int z, int w,
                                      int nx, int ny) {
   return (z >= 0 && z < nx && w >= 0 && w < ny) ? r[(long long)z * ny + w]
                                                 : T(0);
-}
-
-// The weights of batch plane p: CI (8, nb, nxc+1, nyc+1).
-template <typename T>
-__device__ __forceinline__ CI<T> ci_of(const T* __restrict__ ci_p, int p,
-                                       int nb, int nxc, int nyc) {
-  const long long cplane = (long long)(nxc + 1) * (nyc + 1);
-  return CI<T>{ci_p + p * cplane, nb * cplane, nyc + 1};
 }
 
 // cb[zc, wc] = res[2zc, 2wc] + Σ weight · res[2zc+du, 2wc+dv], in
@@ -80,7 +58,6 @@ __global__ void restrict_kernel(const T* __restrict__ ci_p,
                                 const T* __restrict__ res,
                                 T* __restrict__ cb, int nx, int ny, int nxc,
                                 int nyc, int nb) {
-  using A = Arith<T>;
   const int wc = blockIdx.x * blockDim.x + threadIdx.x;
   const int zc = blockIdx.y * blockDim.y + threadIdx.y;
   const int p = blockIdx.z;
@@ -88,49 +65,8 @@ __global__ void restrict_kernel(const T* __restrict__ ci_p,
   const CI<T> ci = ci_of(ci_p, p, nb, nxc, nyc);
   res += p * ((long long)nx * ny);
   cb += p * ((long long)nxc * nyc);
-  const int z = 2 * zc, w = 2 * wc;
-  T acc = fine_at(res, z, w, nx, ny);
-  acc = A::add(acc, A::mul(ci(LR, zc, wc), fine_at(res, z - 1, w, nx, ny)));
-  acc = A::add(acc, A::mul(ci(LL, zc + 1, wc), fine_at(res, z + 1, w, nx, ny)));
-  acc = A::add(acc, A::mul(ci(LA, zc, wc), fine_at(res, z, w - 1, nx, ny)));
-  acc = A::add(acc, A::mul(ci(LB, zc, wc + 1), fine_at(res, z, w + 1, nx, ny)));
-  acc = A::add(acc, A::mul(ci(LNE, zc, wc), fine_at(res, z - 1, w - 1, nx, ny)));
-  acc = A::add(acc, A::mul(ci(LNW, zc + 1, wc), fine_at(res, z + 1, w - 1, nx, ny)));
-  acc = A::add(acc, A::mul(ci(LSE, zc, wc + 1), fine_at(res, z - 1, w + 1, nx, ny)));
-  acc = A::add(acc, A::mul(ci(LSW, zc + 1, wc + 1), fine_at(res, z + 1, w + 1, nx, ny)));
-  cb[(long long)zc * nyc + wc] = acc;
-}
-
-// (P qc)[z, w]: the coarse value at coincident points, else the weighted
-// sum of the coarse neighbours of the point's parity class.  Shared by K3
-// and K5 so that the two cannot drift apart.
-template <typename T>
-__device__ __forceinline__ T interp_value(const CI<T>& ci,
-                                          const T* __restrict__ qc, int z,
-                                          int w, int nxc, int nyc) {
-  using A = Arith<T>;
-  // coarse value, zero at index nxc / nyc (k, m >= 0 on every path below)
-  auto QC = [&](int k, int m) -> T {
-    return (k < nxc && m < nyc) ? qc[(long long)k * nyc + m] : T(0);
-  };
-  const int pz = z & 1, pw = w & 1;
-  if (!pz && !pw) return qc[(long long)(z >> 1) * nyc + (w >> 1)];
-  if (pz && !pw) {  // x-line point (2k-1, 2m)
-    const int k = (z + 1) >> 1, m = w >> 1;
-    return A::add(A::mul(ci(LR, k, m), QC(k, m)),
-                  A::mul(ci(LL, k, m), QC(k - 1, m)));
-  }
-  if (!pz && pw) {  // y-line point (2k, 2m-1)
-    const int k = z >> 1, m = (w + 1) >> 1;
-    return A::add(A::mul(ci(LA, k, m), QC(k, m)),
-                  A::mul(ci(LB, k, m), QC(k, m - 1)));
-  }
-  // cell centre (2k-1, 2m-1)
-  const int k = (z + 1) >> 1, m = (w + 1) >> 1;
-  T s = A::mul(ci(LSW, k, m), QC(k - 1, m - 1));
-  s = A::add(s, A::mul(ci(LNW, k, m), QC(k - 1, m)));
-  s = A::add(s, A::mul(ci(LNE, k, m), QC(k, m)));
-  return A::add(s, A::mul(ci(LSE, k, m), QC(k, m - 1)));
+  auto fine = [&](int z, int w) { return fine_at(res, z, w, nx, ny); };
+  cb[(long long)zc * nyc + wc] = restrict_value(ci, fine, zc, wc);
 }
 
 // q[z, w] += P qc (+ res / diag off the coincident points), in place.

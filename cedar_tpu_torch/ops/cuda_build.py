@@ -51,6 +51,15 @@ SIGNATURES = {
         "cedar_line2_x": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
         "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
+    "fused2": {
+        "cedar_fused2_partials": [_I, _I, _I, _I],
+        "cedar_sweep2_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _P],
+        "cedar_sweep_restrict2": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _P],
+        "cedar_interp_sweep2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _P],
+    },
     "planes2": {
         "cedar_line_xy_smooth2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                   _I, _I, _P],

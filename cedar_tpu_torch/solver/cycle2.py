@@ -19,8 +19,22 @@ pre-smooths and the residual that feeds the restriction in one call, as
 the JAX package does under ``_line_fused_ok``, and all post-smooths in
 another.
 
-Sweeps and interpolation update the iterate in place: ``ncycle`` and
-``run_cycle`` overwrite the ``x`` they are given.
+Sweeps and interpolation update the iterate in place: ``ncycle`` and the
+dense ``run_cycle`` overwrite the ``x`` they are given.
+
+The fused fine-level V-cycle (:func:`ncycle_split`, the counterpart of the
+JAX package's split-resident cycle, under ``kernels.fine-split`` on the
+top ``kernels.split-levels`` levels) runs each level's last pre-sweep,
+residual and restriction as one op and its interp-add and first
+post-sweep as another (:mod:`cedar_tpu_torch.ops.fused2`: kernels K12 and
+K13 on the card, K11 for the other sweeps); the last post-sweep of the
+top level emits the convergence norm as partial sums.  It keeps the dense
+layout.  Its ops work OUT of place: each returns a new iterate and
+``ncycle_split`` hands the buffers on.  The ``q`` that the fused
+pre-sweep returns is the ``q_pre`` from which the fused interp-add
+recomputes the restricted residual, the cycle's invariant
+(cedar_tpu/ops/pallas_transfer2.py:555-569), so the ``x`` it is given is
+never written.
 """
 
 from __future__ import annotations
@@ -28,6 +42,10 @@ from __future__ import annotations
 import torch
 
 from cedar_tpu_torch.ops import cg, planes2
+from cedar_tpu_torch.ops.fused2 import (
+    interp_add_split, interp_sweep_split, point_relax_split,
+    sweep_restrict_split,
+)
 from cedar_tpu_torch.ops.interp2 import interp, interp_add, restrict
 from cedar_tpu_torch.ops.lines2 import line_relax_x, line_relax_y
 from cedar_tpu_torch.ops.relax2 import point_relax
@@ -146,6 +164,95 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
     return x
 
 
+def fine_split_ok(levels, settings: MLSettings) -> bool:
+    """Whether the solve runs the fused fine-level cycle
+    (:func:`ncycle_split`): ``kernels.fine-split``, a V-cycle, point
+    relaxation with at least one pre- and one post-sweep, two levels or
+    more (cedar_tpu/solver/cycle2.py:170, whose split workspaces are gated
+    on the same settings)."""
+    return (
+        settings.fine_split
+        and settings.cycle == CycleType.v
+        and settings.relaxation == RelaxType.point
+        and settings.nrelax_pre >= 1
+        and settings.nrelax_post >= 1
+        and len(levels) >= 2
+    )
+
+
+def _split_ok_at(levels, lvl: int, settings: MLSettings) -> bool:
+    """Whether level ``lvl`` runs fused: one of the top
+    ``kernels.split-levels`` (at least 1) under ``kernels.fine-split`` with
+    point relaxation, and not the coarsest (cedar_tpu/solver/cycle2.py:188
+    and the gate of its split stencil, solver2.py:180-189)."""
+    return (
+        settings.fine_split
+        and settings.relaxation == RelaxType.point
+        and lvl < max(settings.split_levels, 1)
+        and lvl < len(levels) - 1
+    )
+
+
+def ncycle_split(levels, kinds, x: torch.Tensor, b: torch.Tensor,
+                 settings: MLSettings, fuse_final_residual: bool = False,
+                 lvl: int = 0):
+    """One V-cycle from level ``lvl`` with the fused fine-level ops
+    (cedar_tpu/solver/cycle2.py:200-287, in the dense layout).
+
+    The fused last pre-sweep forms the coarse rhs from its residual; the
+    residual is stored only when no post-sweep follows to recompute it.
+    The next level runs fused too where :func:`_split_ok_at` allows, else
+    the dense :func:`ncycle`.  The fused interp-add recomputes the residual
+    of the pre-smoothed iterate and runs the first post-sweep.  Returns
+    ``(x, None)``, or with ``fuse_final_residual`` ``(x, partials)``:
+    partial sums of the squared residual of the last post-sweep, whose sum
+    is ``‖b - A x‖²``.  ``x`` is not modified."""
+    lev, kind = levels[lvl], kinds[lvl]
+    with scope("relaxation"):
+        for _ in range(settings.nrelax_pre - 1):
+            x = point_relax_split(lev.so, x, b, kind, "down")
+    coarse = levels[lvl + 1]
+    with scope("relaxation-residual-restrict-fused"):
+        x, res, cb = sweep_restrict_split(
+            lev.so, x, b, coarse.ci, kind, "down",
+            emit_res=settings.nrelax_post < 1)
+
+    if lvl + 1 == len(levels) - 1:
+        with scope("coarse-solve"):
+            cx = cg.solve_cg(coarse.ainv, cb)
+    elif _split_ok_at(levels, lvl + 1, settings):
+        cx, _ = ncycle_split(levels, kinds, torch.zeros_like(cb), cb,
+                             settings, lvl=lvl + 1)
+    else:
+        cx = ncycle(levels, kinds, lvl + 1, torch.zeros_like(cb), cb,
+                    settings)
+
+    post = "up" if settings.relax_symmetric else "down"
+    if settings.nrelax_post >= 1:
+        fuse_here = fuse_final_residual and settings.nrelax_post == 1
+        with scope("interp-add-relax-fused"):
+            out = interp_sweep_split(coarse.ci, cx, lev.so, b, x, kind, post,
+                                     fuse_norm=fuse_here)
+        if fuse_here:
+            return out
+        x = out
+        n_plain = (settings.nrelax_post - 1
+                   - (1 if fuse_final_residual else 0))
+        with scope("relaxation"):
+            for _ in range(n_plain):
+                x = point_relax_split(lev.so, x, b, kind, post)
+        if fuse_final_residual:
+            with scope("relaxation-residual-fused"):
+                return point_relax_split(lev.so, x, b, kind, post,
+                                         fuse_norm=True)
+        return x, None
+
+    # no post-sweep (fine_split_ok excludes it; mirrored from the JAX cycle)
+    with scope("interp-add"):
+        x = interp_add_split(coarse.ci, lev.so, cx, res, x)
+    return x, None
+
+
 def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
               settings: MLSettings) -> torch.Tensor:
     """Full multigrid cycle (reference: fcycle.h:49-84); returns a new x.
@@ -164,28 +271,46 @@ def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
     cx = fmg_cycle(levels, kinds, lvl + 1, cb, settings)
     with scope("interp"):
         x = interp(coarse.ci, cx, b.shape)
+    split_here = (_split_ok_at(levels, lvl, settings)
+                  and settings.nrelax_pre >= 1 and settings.nrelax_post >= 1)
+    if split_here:
+        return ncycle_split(levels, kinds, x, b, settings, lvl=lvl)[0]
     return ncycle(levels, kinds, lvl, x, b, settings)
 
 
 def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
               settings: MLSettings):
     """One cycle of the configured type (reference: multilevel.h:289-296);
-    a V-cycle overwrites ``x``, an F-cycle ignores it."""
+    returns the new iterate.  The dense V-cycle overwrites ``x``, the fused
+    one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
     if len(levels) == 1:
         return cg.solve_cg(levels[0].ainv, b)
     if settings.cycle == CycleType.f:
         return fmg_cycle(levels, kinds, 0, b, settings)
+    if fine_split_ok(levels, settings):
+        return ncycle_split(levels, kinds, x, b, settings)[0]
     return ncycle(levels, kinds, 0, x, b, settings)
 
 
 def cycle_residual(levels, kinds, x: torch.Tensor, b: torch.Tensor,
                    settings: MLSettings):
-    """One iteration of the solve loop: the cycle, then ``b - A x`` on the
-    finest level, fused into the last post-sweep where
-    :func:`fuse_final_ok` allows (the JAX solve loop's rule, cedar_tpu/
-    solver/solver2.py:370-394).  Returns ``(x, residual)``."""
+    """One iteration of the solve loop: the cycle, then ``‖b - A x‖₂`` on
+    the finest level.  Returns ``(x, norm)``, the norm a 0-d tensor (no
+    readback).
+
+    The fused cycle (:func:`fine_split_ok`) takes the norm from the partial
+    sums of its last post-sweep, as the JAX solve loop does
+    (cedar_tpu/solver/solver2.py:334-365); otherwise the residual comes out
+    of the last post-sweep where :func:`fuse_final_ok` allows
+    (cedar_tpu/solver/solver2.py:370-394), or after the cycle."""
+    if fine_split_ok(levels, settings):
+        x, partials = ncycle_split(levels, kinds, x, b, settings,
+                                   fuse_final_residual=True)
+        return x, torch.sqrt(torch.sum(partials))
     if fuse_final_ok(levels, settings):
-        return ncycle(levels, kinds, 0, x, b, settings,
+        x, r = ncycle(levels, kinds, 0, x, b, settings,
                       fuse_final_residual=True)
-    x = run_cycle(levels, kinds, x, b, settings)
-    return x, residual(levels[0].so, x, b, kinds[0])
+    else:
+        x = run_cycle(levels, kinds, x, b, settings)
+        r = residual(levels[0].so, x, b, kinds[0])
+    return x, torch.sqrt(torch.sum(r * r))

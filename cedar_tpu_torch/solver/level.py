@@ -39,10 +39,14 @@ def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
 
     Each entry is a mapping or a ``NamedTuple`` with any of the fields
     ``so``, ``recip``, ``ci``, ``sor_x``, ``sor_y``, ``ainv``, ``planes``;
-    other fields are ignored, among them the TPU layouts of a JAX
-    ``Solver3`` hierarchy (``cip``, the padded restriction weights; ``so2``,
-    the octant-split stencil; ``pw4``, the split transfer weights), which
-    the port's dense kernels do not use.  The arrays are copied.  A
+    other fields are ignored, among them the TPU layouts that the port's
+    dense kernels do not use: those of a JAX ``Solver2`` hierarchy with
+    ``kernels.fine-split`` (``cip``, the padded CI; ``rec2``, the
+    lane-split 1/diag; ``so2``, the lane-split stencil), whose fused cycle
+    the port runs from ``so`` and ``ci``, and those of a JAX ``Solver3``
+    hierarchy (``cip``, the padded restriction weights; ``so2``, the
+    octant-split stencil; ``pw4``, the split transfer weights).  The arrays
+    are copied.  A
     ``sor_x`` / ``sor_y`` that is not an array (the JAX package's SPIKE
     factors, ``lines2.SpikeLines``, which it builds for lines of 16 points
     or more) is not converted: the field stays None and the line sweep

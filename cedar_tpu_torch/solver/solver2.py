@@ -14,6 +14,11 @@ plain torch versions.
 * **solve** — residual-norm-controlled cycle iteration (multilevel.h:278-298)
   as a Python loop that reads the convergence norm back once per cycle;
   ``history`` holds the reference's per-iteration "relative l2 norm" lines.
+
+``kernels.fine-split`` (default: true on the card, false on the CPU, as
+cedar_tpu turns it on wherever its Pallas kernels run) selects the fused
+fine-level V-cycle (:func:`cycle2.ncycle_split`) on the top
+``kernels.split-levels`` levels (default 4).
 """
 
 from __future__ import annotations
@@ -124,9 +129,6 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
     if settings.coarse_solver != CGType.lu:
         return (f"cg-solver {settings.coarse_solver.value} (ROADMAP queue "
                 "1, item 16: redistributed coarse solves)")
-    if conf.get("kernels.fine-split", False):
-        return ("kernels.fine-split true (ROADMAP queue 2: split-layout "
-                "kernels)")
     if conf.get("kernels.backend", "auto") == "xla":
         return ("kernels.backend xla (the device decides: kernels on CUDA, "
                 "torch ops on the CPU)")
@@ -160,6 +162,13 @@ class Solver2:
         missing = _unsupported(conf, self.settings, so, kind)
         if missing is not None:
             raise NotImplementedError(f"cedar_tpu_torch: {missing}")
+        # the fused fine-level cycle: on by default wherever the kernels
+        # run, as cedar_tpu turns it on with its Pallas kernels
+        # (cedar_tpu/solver/solver2.py:277-282); the gates on the cycle
+        # and relaxation are cycle2.fine_split_ok's
+        self.settings.fine_split = bool(conf.get("kernels.fine-split",
+                                                 so.is_cuda))
+        self.settings.split_levels = int(conf.get("kernels.split-levels", 4))
         log.set_enabled(conf.get("log", ["status", "error"]))
         self.kind = kind
         self.indefinite = not conf.get("solver.definite", True)
@@ -198,9 +207,9 @@ class Solver2:
         res0 = max(float(_l2(r0)), torch.finfo(b.dtype).tiny)
         hist = []
         while len(hist) < settings.maxiter:
-            x, r = cycle2.cycle_residual(self.levels, self.kinds, x, b,
-                                         settings)
-            rel = float(_l2(r)) / res0   # the one readback of the cycle
+            x, rnorm = cycle2.cycle_residual(self.levels, self.kinds, x, b,
+                                             settings)
+            rel = float(rnorm) / res0   # the one readback of the cycle
             hist.append(rel)
             if not rel >= settings.tol:   # stops on NaN, like the JAX loop
                 break

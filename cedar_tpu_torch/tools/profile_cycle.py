@@ -1,7 +1,9 @@
 """Where the time of one 2D or 3D cycle goes on the card.
 
-Builds one of seven float32 configurations — ``vcycle`` (default: Poisson
-4096², V(1,1)), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1)),
+Builds one of eight float32 configurations — ``vcycle`` (default: Poisson
+4096², V(1,1), the fused fine-level cycle that the solver runs on the card
+by default), ``vcycle-dense`` (the same with ``kernels.fine-split`` false:
+the dense cycle), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1)),
 ``fcycle`` (Poisson 4096², F-cycle), ``vcycle3`` (7-point Poisson 256³,
 V(1,1): ``3d_poisson_7pt_256``), ``fe27`` (27-point ``gallery.fe3`` 128³,
 V(1,1): ``3d_fe_27pt_128``), ``fcycle3`` (7-point Poisson 256³, F-cycle)
@@ -20,7 +22,7 @@ few warm-up cycles as the solve runs them, then traces ten cycles with
 Run from the repository root on a machine with a CUDA device:
 
     python3 -m cedar_tpu_torch.tools.profile_cycle \
-        [vcycle|linexy|fcycle|vcycle3|fe27|fcycle3|planexy]
+        [vcycle|vcycle-dense|linexy|fcycle|vcycle3|fe27|fcycle3|planexy]
 """
 
 from __future__ import annotations
@@ -38,11 +40,15 @@ from cedar_tpu_torch.solver import cycle2, cycle3
 
 
 CYCLES = 10
-SCOPES = ("relaxation", "relaxation-residual-fused", "restrict",
-          "interp-add", "interp", "coarse-solve", "residual")
-# name -> (dimension, n, gallery operator, kind, solver settings)
+SCOPES = ("relaxation", "relaxation-residual-fused",
+          "relaxation-residual-restrict-fused", "interp-add-relax-fused",
+          "restrict", "interp-add", "interp", "coarse-solve", "residual")
+# name -> (dimension, n, gallery operator, kind, solver settings[, kernels
+# settings])
 CONFIGS = {
     "vcycle": (2, 4096, gallery.poisson, FivePt, {}),
+    "vcycle-dense": (2, 4096, gallery.poisson, FivePt, {},
+                     {"fine-split": False}),
     "linexy": (2, 2048, gallery.fe, NinePt, {"relaxation": "line-xy"}),
     "fcycle": (2, 4096, gallery.poisson, FivePt, {"cycle": {"type": "f"}}),
     "vcycle3": (3, 256, gallery.poisson3, SevenPt, {}),
@@ -67,10 +73,11 @@ def main(name: str = "vcycle") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_cycle: no CUDA device")
     dev = torch.device("cuda", 0)
-    dim, n, make, kind, solver = CONFIGS[name]
-    conf = Config({"log": [], "solver": {
-        **solver, "cycle": {"nrelax-pre": 1, "nrelax-post": 1,
-                            **solver.get("cycle", {})}}})
+    dim, n, make, kind, solver, *kernels = CONFIGS[name]
+    conf = Config({"log": [], "kernels": kernels[0] if kernels else {},
+                   "solver": {**solver, "cycle": {
+                       "nrelax-pre": 1, "nrelax-post": 1,
+                       **solver.get("cycle", {})}}})
     shape = (n,) * dim
     solver_cls, rhs, cyc = ((Solver2, gallery.poisson_rhs, cycle2) if dim == 2
                             else (Solver3, gallery.poisson3_rhs, cycle3))

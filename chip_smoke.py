@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """GPU smoke test of cedar_tpu_torch: builds the CUDA kernels, holds each
-against its plain PyTorch version, and drives the 2D V-cycle, line-xy and
-F-cycle solves, the 3D 7- and 27-point V-cycle and F-cycle solves and the
-3D plane-relaxation solve on the card.
+against its plain PyTorch version, and drives the 2D V-cycle (fused and
+dense), line-xy and F-cycle solves, the 3D 7- and 27-point V-cycle and
+F-cycle solves and the 3D plane-relaxation solve on the card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -24,8 +24,14 @@ Phases (each raises on failure; nothing is caught):
    9-point, DOWN and UP, 1 and 2 sweeps, with and without the residual,
    and the batched restrict and interp-add (K2, K3) at (64, 128, 128)
    float32 and (5, 33, 17) float64, a batch of one against the unbatched
-   launch;
-4. Cedar's 400² float64 residual history through the kernels;
+   launch; then the fused fine-level kernels, sweep (K11),
+   sweep-residual-restrict (K12) and interp-add-sweep (K13), at the 2D
+   shapes and (5, 4) float64, 5- and 9-point, DOWN and UP, every output
+   mode, K11 with and without an origin: q, the residual and cb bit-equal,
+   the norm's partial sums to rtol NORM_RTOL;
+4. Cedar's 400² float64 residual history through the kernels (the fused
+   cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
+   card against dense on the CPU;
 4b. float64 gates of the line-xy and F-cycle paths: the 400² solves on the
    card against the same solves on the CPU (plain versions);
 4c. Cedar's 3D integration test (200³ float64 7-point Poisson) through
@@ -34,9 +40,12 @@ Phases (each raises on failure; nothing is caught):
 4d. float64 plane-relaxation gates, card against CPU: 16³
    ``diag_diffusion3(1, 1, 1e-3)`` plane-xy (to 1e-9 within 5 cycles),
    8³ Poisson plane-xyz, a 12x10x9 ``fe3`` 27-point plane-yz solve;
-5. the main path: 2D Poisson 4096² float32, V(1,1), setup and a solve of
-   four cycles, with every kernel's launch count; the convergence rate on
-   A x = 0 from a random start; then the per-cycle time;
+5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
+   solver's default on the card), setup and a solve of four cycles, with
+   every kernel's launch count and the launches of one cycle; the
+   convergence rate on A x = 0 from a random start; then the per-cycle
+   time; then the same solve with the dense cycle (``kernels.fine-split``
+   false) and the fused V(2,2), with launches and per-cycle time;
 5b. the 2D slices at full width: ``2d_fe_9pt_linexy_2048`` and
    ``2d_poisson_fcycle_4096`` (``bench.py``'s configurations), each with
    setup, a solve, launch counts, per-cycle time and peak memory;
@@ -48,7 +57,9 @@ Phases (each raises on failure; nothing is caught):
    of one cycle;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
-   H100's data-sheet rates; K10 and the batched K2/K3 at (64, 128, 128).
+   H100's data-sheet rates; K10 and the batched K2/K3 at (64, 128, 128);
+   K12 and K13 against the dense sequences they replace (K1 with the
+   residual, then K2; K3, then K1).
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
@@ -73,8 +84,8 @@ from cedar_tpu_torch import (
 )
 from cedar_tpu_torch.core.types import Dir3, StencilKind
 from cedar_tpu_torch.ops import (
-    cuda2, cuda3, cuda_build, cuda_lines2, cuda_planes2, cuda_transfer2,
-    cuda_transfer3, interp2, interp3, stencil3,
+    cuda2, cuda3, cuda_build, cuda_fused2, cuda_lines2, cuda_planes2,
+    cuda_transfer2, cuda_transfer3, interp2, interp3, stencil3,
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
 from cedar_tpu_torch.solver import cycle2, cycle3
@@ -86,6 +97,9 @@ CEDAR_HISTORY = [
 CEDAR_ERROR = 2.04592e-05
 # kernel against plain version: max |kernel - plain| <= TOL * max |plain|
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# the fused kernels' norm partials against the plain version's sum: both
+# sum res² in another order
+NORM_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 SHAPES = [((4096, 4096), torch.float32), ((2049, 2049), torch.float32),
           ((2048, 2048), torch.float32),
           ((400, 400), torch.float64), ((1025, 771), torch.float64)]
@@ -101,7 +115,9 @@ SHAPES_BT = [((64, 128, 128), torch.float32), ((5, 33, 17), torch.float64)]
 REPLACES = {
     "sweep2": "cedar_tpu/ops/pallas2.py:137",
     "restrict2": "cedar_tpu/ops/pallas_transfer2.py:126",
-    "interp_add2": "cedar_tpu/ops/pallas_transfer2.py:256",
+    # row 7 (the split interp-add) is K3's function in the dense layout
+    "interp_add2": ("cedar_tpu/ops/pallas_transfer2.py:256, "
+                    "cedar_tpu/ops/pallas_transfer2.py:266"),
     "line2": "cedar_tpu/ops/pallas_lines2.py:142",
     "interp2": "cedar_tpu/ops/pallas_transfer2.py:817",
     "sweep3": "cedar_tpu/ops/pallas3.py:190, cedar_tpu/ops/pallas3.py:473",
@@ -113,6 +129,9 @@ REPLACES = {
     "interp3": ("cedar_tpu/ops/pallas3_split.py:1101, "
                 "cedar_tpu/ops/pallas3_split.py:1198"),
     "line_xy2": "cedar_tpu/ops/pallas_planes2.py:158",
+    "sweep2_fused": "cedar_tpu/ops/pallas2_split.py:200",
+    "sweep_restrict2": "cedar_tpu/ops/pallas_transfer2.py:341",
+    "interp_sweep2": "cedar_tpu/ops/pallas_transfer2.py:545",
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -125,6 +144,9 @@ SOURCES = {
     "interp_add3": "cedar_tpu_torch/csrc/transfer3.cu",
     "interp3": "cedar_tpu_torch/csrc/transfer3.cu",
     "line_xy2": "cedar_tpu_torch/csrc/planes2.cu",
+    "sweep2_fused": "cedar_tpu_torch/csrc/fused2.cu",
+    "sweep_restrict2": "cedar_tpu_torch/csrc/fused2.cu",
+    "interp_sweep2": "cedar_tpu_torch/csrc/fused2.cu",
 }
 KERNELS = tuple(REPLACES)
 # full widths: the V-cycle main path and the F-cycle at N_MAIN², line-xy
@@ -135,6 +157,9 @@ N_LINES = 2048
 N_3D = 256
 N_27 = 128
 N_PLANES = 128
+# kernels.split-levels: the top levels that run the fused cycle (the
+# solver's default)
+SPLIT_LEVELS = 4
 # Cedar's 3D integration test size (test/3d/test_poisson.cc:74-105)
 N_CEDAR3 = 200
 # the H100 SXM data sheet at its 700 W limit: HBM bytes/s, and FLOP/s
@@ -157,6 +182,9 @@ def counts() -> dict:
         "interp_add3": cuda_transfer3.interp_add_launches,
         "interp3": cuda_transfer3.interp_launches,
         "line_xy2": cuda_planes2.launches,
+        "sweep2_fused": cuda_fused2.sweep_launches,
+        "sweep_restrict2": cuda_fused2.sweep_restrict_launches,
+        "interp_sweep2": cuda_fused2.interp_sweep_launches,
         "sweep2_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
         "interp_add2_plain": cuda_transfer2.interp_plain_calls,
@@ -167,6 +195,9 @@ def counts() -> dict:
         "interp_add3_plain": cuda_transfer3.interp_add_plain_calls,
         "interp3_plain": cuda_transfer3.interp_plain_calls,
         "line_xy2_plain": cuda_planes2.plain_calls,
+        "sweep2_fused_plain": cuda_fused2.sweep_plain_calls,
+        "sweep_restrict2_plain": cuda_fused2.sweep_restrict_plain_calls,
+        "interp_sweep2_plain": cuda_fused2.interp_sweep_plain_calls,
     }
 
 
@@ -185,6 +216,11 @@ def reset_counts() -> None:
     cuda_transfer3.interp_add_plain_calls = 0
     cuda_transfer3.interp_plain_calls = 0
     cuda_planes2.launches = cuda_planes2.plain_calls = 0
+    cuda_fused2.sweep_launches = cuda_fused2.sweep_plain_calls = 0
+    cuda_fused2.sweep_restrict_launches = 0
+    cuda_fused2.sweep_restrict_plain_calls = 0
+    cuda_fused2.interp_sweep_launches = 0
+    cuda_fused2.interp_sweep_plain_calls = 0
 
 
 def require_launched(c: dict, names, what: str) -> None:
@@ -223,14 +259,16 @@ def random_problem(shape, nine: bool, dtype, seed: int):
     return so, q, b, kind
 
 
-def compare(what: str, got: torch.Tensor, want: torch.Tensor) -> float:
+def compare(what: str, got: torch.Tensor, want: torch.Tensor,
+            exact: bool = False) -> float:
+    """max |got - want|, at most TOL · max |want|, or 0 when ``exact``."""
     torch.cuda.synchronize()
     if got.shape != want.shape or not torch.isfinite(got).all():
         raise AssertionError(f"{what}: shape {tuple(got.shape)} or "
                              "non-finite values")
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    tol = TOL[want.dtype] * scale
+    tol = 0.0 if exact else TOL[want.dtype] * scale
     print(f"  {what}: max_abs_err={err:.3e} (tol {tol:.3e})", flush=True)
     if not err <= tol:
         raise AssertionError(f"{what}: kernel disagrees with plain version")
@@ -469,6 +507,82 @@ def phase_kernels_planes(errs: dict) -> dict:
     return errs
 
 
+FUSED = ("sweep2_fused", "sweep_restrict2", "interp_sweep2")
+
+
+def compare_fused(what: str, got, want, mode: str) -> float:
+    """A fused kernel's outputs against its plain version's: q and the
+    residual bit-equal, the norm's partial sums to rtol NORM_RTOL."""
+    if mode == "none":
+        return compare(what, got, want, exact=True)
+    err = compare(what + " q", got[0], want[0], exact=True)
+    if mode == "res":
+        return max(err, compare(what + " res", got[1], want[1], exact=True))
+    norm, ref = float(got[1].sum()), float(want[1].sum())
+    rel = abs(norm - ref) / ref
+    print(f"  {what} norm: {norm:.9e} over {got[1].numel()} partials, "
+          f"plain {ref:.9e}, rel err {rel:.3e}", flush=True)
+    if not rel <= NORM_RTOL[want[0].dtype]:
+        raise AssertionError(f"{what}: norm disagrees with plain version")
+    return err
+
+
+def phase_kernels_fused(errs: dict) -> dict:
+    """K11-K13 against their plain versions at the 2D shapes and (5, 4)
+    float64: every output mode, DOWN and UP, K11 with and without an
+    origin, K12 with and without the residual."""
+    print("[3] fused kernels against plain versions", flush=True)
+    errs.update(dict.fromkeys(FUSED, 0.0))
+    shapes = SHAPES + [((5, 4), torch.float64)]
+    for i, (shape, dtype) in enumerate(shapes):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 800 + i)
+            pts = "9pt" if nine else "5pt"
+            ci = interp2.setup_interp(so, kind)
+            g = torch.Generator(device=DEV).manual_seed(900 + i)
+            qc = torch.randn((ci.shape[1] - 1, ci.shape[2] - 1),
+                             generator=g, device=DEV, dtype=dtype)
+            for updown in ("down", "up"):
+                for mode in ("none", "res", "norm"):
+                    fr, fn = mode == "res", mode == "norm"
+                    for origin in ((0, 0), (1, 2)):
+                        e = compare_fused(
+                            f"K11 sweep2_fused {pts} {updown} {mode} "
+                            f"origin={origin} {tag}",
+                            cuda_fused2.sweep(so, q, b, kind, updown, fr,
+                                              origin, fn),
+                            cuda_fused2.sweep_plain(so, q, b, kind, updown,
+                                                    fr, origin, fn), mode)
+                        errs["sweep2_fused"] = max(errs["sweep2_fused"], e)
+                    e = compare_fused(
+                        f"K13 interp_sweep2 {pts} {updown} {mode} {tag}",
+                        cuda_fused2.interp_sweep(ci, qc, so, b, q, kind,
+                                                 updown, fr, fn),
+                        cuda_fused2.interp_sweep_plain(ci, qc, so, b, q,
+                                                       kind, updown, fr, fn),
+                        mode)
+                    errs["interp_sweep2"] = max(errs["interp_sweep2"], e)
+                for emit in (False, True):
+                    what = (f"K12 sweep_restrict2 {pts} {updown} "
+                            f"res={int(emit)} {tag}")
+                    got = cuda_fused2.sweep_restrict(so, q, b, ci, kind,
+                                                     updown, emit)
+                    want = cuda_fused2.sweep_restrict_plain(
+                        so, q, b, ci, kind, updown, emit)
+                    e = max(compare(what + " q", got[0], want[0], exact=True),
+                            compare(what + " cb", got[2], want[2],
+                                    exact=True))
+                    if emit:
+                        e = max(e, compare(what + " res", got[1], want[1],
+                                           exact=True))
+                    elif got[1] is not None:
+                        raise AssertionError(f"{what}: residual returned")
+                    errs["sweep_restrict2"] = max(errs["sweep_restrict2"], e)
+            del so, q, b, ci, qc
+    return errs
+
+
 def phase_cedar_gate() -> None:
     print("[4] Cedar 400^2 float64 history through the kernels", flush=True)
     reset_counts()
@@ -486,7 +600,37 @@ def phase_cedar_gate() -> None:
     print(f"  solution error: {err:g}; counts: {c}", flush=True)
     np.testing.assert_allclose(s.history, CEDAR_HISTORY, rtol=2e-5)
     np.testing.assert_allclose(err, CEDAR_ERROR, rtol=1e-4)
-    require_launched(c, ("sweep2", "restrict2", "interp_add2"), "Cedar gate")
+    # the card's default: the fused cycle on levels 0-3, dense on 4 and 5
+    if not cycle2.fine_split_ok(s.levels, s.settings):
+        raise AssertionError("Cedar gate: the fused cycle is not the default")
+    require_launched(c, ("sweep2", "restrict2", "interp_add2",
+                         "sweep_restrict2", "interp_sweep2"), "Cedar gate")
+
+
+def phase_fused_gate() -> None:
+    """A float64 V(2,2) solve through the fused cycle on the card (K11-K13
+    on levels 0-3) against the dense cycle on the CPU."""
+    print("[4] float64 fused V(2,2) gate, card against CPU", flush=True)
+    n, cpu = 400, torch.device("cpu")
+    solver = {"cycle": {"nrelax-pre": 2, "nrelax-post": 2}, "tol": 1e-10,
+              "max-iter": 10}
+    so = gallery.poisson(n, n, torch.float64, cpu)
+    b = gallery.poisson_rhs(n, n, torch.float64, cpu)
+    s, _, c = gate_solve(DEV, so, FivePt, Config({"log": [],
+                                                   "solver": solver}), b)
+    sc, _, _ = gate_solve(cpu, so, FivePt, Config({
+        "log": [], "solver": solver, "kernels": {"fine-split": False}}), b)
+    print(f"  Poisson {n}^2 V(2,2): card (fused) "
+          f"{' '.join(f'{h:.9g}' for h in s.history)}", flush=True)
+    print(f"  CPU (dense) {' '.join(f'{h:.9g}' for h in sc.history)}; "
+          f"counts {c}", flush=True)
+    # the absolute floor in relative-residual units as in phase 4b
+    np.testing.assert_allclose(s.history, sc.history, rtol=1e-9, atol=1e-14)
+    if not s.history[-1] < 1e-9:
+        raise AssertionError("fused V(2,2) gate did not converge")
+    require_launched(c, ("sweep2_fused", "sweep_restrict2", "interp_sweep2",
+                         "sweep2", "restrict2", "interp_add2"),
+                     "fused V(2,2) gate")
 
 
 def gate_solve(dev, so, kind, conf, b):
@@ -541,8 +685,8 @@ def phase_f64_gates() -> None:
     np.testing.assert_allclose(s.history, sc.history, rtol=1e-9, atol=1e-14)
     if not err < 1e-3:
         raise AssertionError("F-cycle error above discretisation accuracy")
-    require_launched(c, ("sweep2", "restrict2", "interp_add2", "interp2"),
-                     "F-cycle gate")
+    require_launched(c, ("sweep2", "restrict2", "interp_add2", "interp2",
+                         "sweep_restrict2", "interp_sweep2"), "F-cycle gate")
 
 
 def phase_cedar3() -> None:
@@ -716,8 +860,15 @@ def phase_main_path() -> dict:
     # cycles must still cut the residual >= 5x overall
     if not s.history[-1] < s.history[0] / 5:
         raise AssertionError("main path: the solve did not converge")
-    require_launched(launches, ("sweep2", "restrict2", "interp_add2"),
+    require_launched(launches, ("sweep2", "restrict2", "interp_add2",
+                                "sweep_restrict2", "interp_sweep2"),
                      "main path")
+    # one solve-loop cycle: K12 and K13 on the fused levels 0-3, K1-K3 on
+    # the dense levels below, no K11 at V(1,1)
+    dense = s.nlevels - 1 - SPLIT_LEVELS
+    one_cycle_launches(s, b, "main path", {
+        "sweep_restrict2": SPLIT_LEVELS, "interp_sweep2": SPLIT_LEVELS,
+        "sweep2_fused": 0, "restrict2": dense, "interp_add2": dense})
 
     # the convergence rate, free of that floor: A x = 0 from a random x0
     # (the error itself is what shrinks); each of 4 cycles must cut >= 5x
@@ -735,6 +886,71 @@ def phase_main_path() -> dict:
     print(f"  DOF/s: {n * n / (ms * 1e-3):.4e}; peak memory "
           f"{peak / 2**20:.1f} MiB", flush=True)
     return launches
+
+
+def one_cycle_launches(s, b, what: str, want: dict) -> dict:
+    """The launches of one solve-loop cycle from x = 0, checked against
+    ``want`` (kernel -> count)."""
+    reset_counts()
+    cycle2.cycle_residual(s.levels, s.kinds, torch.zeros_like(b), b,
+                          s.settings)
+    torch.cuda.synchronize()
+    one = {k: v for k, v in counts().items() if v}
+    print(f"  {what}: launches a cycle {one}", flush=True)
+    for k, v in want.items():
+        if one.get(k, 0) != v:
+            raise AssertionError(f"{what}: {k} launched {one.get(k, 0)} "
+                                 f"times a cycle, not {v}")
+    return one
+
+
+def phase_main_variants() -> dict:
+    """The main path's problem with the dense cycle (``kernels.fine-split``
+    false: the path before the fused kernels) and with the fused V(2,2),
+    which runs K11: setup, a solve of four cycles, the launches of one
+    cycle, the per-cycle time.  Returns the V(2,2) solve's launches."""
+    n = N_MAIN
+    so = gallery.poisson(n, n, torch.float32, DEV)
+    b = gallery.poisson_rhs(n, n, torch.float32, DEV)
+    out = {}
+    for name, cycle, kernels, want in (
+            ("dense V(1,1)", {"nrelax-pre": 1, "nrelax-post": 1},
+             {"fine-split": False},
+             {"sweep_restrict2": 0, "interp_sweep2": 0, "sweep2_fused": 0}),
+            ("fused V(2,2)", {"nrelax-pre": 2, "nrelax-post": 2}, {},
+             {"sweep_restrict2": SPLIT_LEVELS, "interp_sweep2": SPLIT_LEVELS,
+              "sweep2_fused": 2 * SPLIT_LEVELS})):
+        print(f"[5] main path variant: Poisson {n}^2 float32 {name}",
+              flush=True)
+        conf = Config({"log": [], "kernels": kernels, "solver": {
+            "cycle": cycle, "tol": 1e-7, "max-iter": 4}})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = Solver2(so, FivePt, conf)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        x = s.solve(b)
+        torch.cuda.synchronize()
+        launches = counts()
+        print(f"  {name}: setup {setup_s:.3f} s; history "
+              f"{' '.join(f'{h:.6g}' for h in s.history)}", flush=True)
+        print(f"  {name}: counts {launches}", flush=True)
+        if not torch.isfinite(x).all() or tuple(x.shape) != (n, n):
+            raise AssertionError(f"{name}: bad solution")
+        if not s.history[-1] < s.history[0] / 5:
+            raise AssertionError(f"{name}: the solve did not converge")
+        require_launched(launches, ("sweep2", "restrict2", "interp_add2"),
+                         name)
+        one_cycle_launches(s, b, name, want)
+        ms = time_cycles(s, b, x)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {name}: DOF/s {n * n / (ms * 1e-3):.4e}; peak memory "
+              f"{peak / 2**20:.1f} MiB", flush=True)
+        out[name] = launches
+        del s, x
+    return out["fused V(2,2)"]
 
 
 def phase_linexy_2048() -> dict:
@@ -1024,6 +1240,30 @@ def phase_times() -> dict:
         "interp2": (
             lambda: cuda_transfer2.interp_plain(ci, qc, (n, n)),
             lambda: cuda_transfer2.interp(ci, qc, (n, n))),
+        # the fused kernels as the cycle runs them: K11 for extra sweeps
+        # (+ the norm for the last), K12 without the residual, K13 on the
+        # levels below the top (+ the norm on the top one)
+        "sweep2_fused": (
+            lambda: cuda_fused2.sweep_plain(so, q, b, kind, "down"),
+            lambda: cuda_fused2.sweep(so, q, b, kind, "down")),
+        "sweep2_fused +norm": (
+            lambda: cuda_fused2.sweep_plain(so, q, b, kind, "up",
+                                            fuse_norm=True),
+            lambda: cuda_fused2.sweep(so, q, b, kind, "up", fuse_norm=True)),
+        "sweep_restrict2": (
+            lambda: cuda_fused2.sweep_restrict_plain(so, q, b, ci, kind,
+                                                     "down", False),
+            lambda: cuda_fused2.sweep_restrict(so, q, b, ci, kind, "down",
+                                               False)),
+        "interp_sweep2": (
+            lambda: cuda_fused2.interp_sweep_plain(ci, qc, so, b, q, kind,
+                                                   "up"),
+            lambda: cuda_fused2.interp_sweep(ci, qc, so, b, q, kind, "up")),
+        "interp_sweep2 +norm": (
+            lambda: cuda_fused2.interp_sweep_plain(ci, qc, so, b, q, kind,
+                                                   "up", fuse_norm=True),
+            lambda: cuda_fused2.interp_sweep(ci, qc, so, b, q, kind, "up",
+                                             fuse_norm=True)),
     }
     sl, ql, bl, kl = random_problem((N_LINES, N_LINES), True, torch.float32,
                                     10)
@@ -1038,6 +1278,21 @@ def phase_times() -> dict:
     # zebra sweeps
     out["line2"] = tuple((a + c) / 2 for a, c in zip(out["line2 x"],
                                                      out["line2 y"]))
+    # K12 and K13 against the dense launches they replace (the dense ones
+    # update q in place, so it drifts: the timing does not depend on it)
+    print("[6] fused kernels against the dense sequences they replace "
+          "(dense, fused, fused, dense)", flush=True)
+    time_turns({
+        "K1 +res, K2 -> K12": (
+            lambda: cuda_transfer2.restrict(
+                ci, cuda2.sweep(so, q, b, kind, "down", True)[1]),
+            lambda: cuda_fused2.sweep_restrict(so, q, b, ci, kind, "down",
+                                               False)),
+        "K3, K1 -> K13": (
+            lambda: cuda2.sweep(so, cuda_transfer2.interp_add(
+                ci, so, qc, b, q), b, kind, "up"),
+            lambda: cuda_fused2.interp_sweep(ci, qc, so, b, q, kind, "up")),
+    }, labels=("dense", "fused"))
     # the bytes each function must move (inputs read once, outputs written
     # once; interp-add reads only the diagonal plane of so) and its
     # floating-point operations, at the timed shapes, float32
@@ -1053,13 +1308,22 @@ def phase_times() -> dict:
         # 9-point zebra sweep: 6 off-line couplings a point for the rhs,
         # then the LDLᵀ recurrence (about 8 operations a point)
         "line2": ((5 + 3) * m * m * e, 20 * m * m),
+        # the fused kernels: so (3 planes), b, q read and q written, as K1;
+        # K12 adds the CI planes and writes cb, K13 reads them and qc; a
+        # residual is 10 operations a point, as a 5-point sweep
+        "sweep2_fused": ((3 + 3) * n * n * e, 10 * n * n),
+        "sweep_restrict2": ((8 * (nc + 1) ** 2 + 6 * n * n + nc * nc) * e,
+                            20 * n * n + 16 * nc * nc),
+        "interp_sweep2": ((8 * (nc + 1) ** 2 + nc * nc + 6 * n * n) * e,
+                          20 * n * n + 23 * n * n // 4),
     }
     return {k: v + work[k] for k, v in out.items() if k in work}
 
 
-def time_turns(cases: dict, slow=()) -> dict:
+def time_turns(cases: dict, slow=(), labels=("plain", "kernel")) -> dict:
     """Each case timed in turns (plain, kernel, kernel, plain); returns
-    name -> (kernel ms, plain ms), the means of the two runs of each."""
+    name -> (kernel ms, plain ms), the means of the two runs of each.
+    ``labels`` name the two in the printout."""
     out = {}
     for name, (plain, kernel) in cases.items():
         # the plain line sweep is a Python loop along the line: few reps
@@ -1067,8 +1331,9 @@ def time_turns(cases: dict, slow=()) -> dict:
         p1, k1, k2, p2 = (time_ms(plain, pr, pw), time_ms(kernel),
                           time_ms(kernel), time_ms(plain, pr, pw))
         out[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(f"  {name}: plain {p1:.4f} kernel {k1:.4f} kernel {k2:.4f} "
-              f"plain {p2:.4f}", flush=True)
+        lp, lk = labels
+        print(f"  {name}: {lp} {p1:.4f} {lk} {k1:.4f} {lk} {k2:.4f} "
+              f"{lp} {p2:.4f}", flush=True)
     return out
 
 
@@ -1196,12 +1461,15 @@ def main() -> None:
     errs = phase_kernels()
     errs = phase_kernels3(errs)
     errs = phase_kernels_planes(errs)
+    errs = phase_kernels_fused(errs)
     phase_cedar_gate()
+    phase_fused_gate()
     phase_f64_gates()
     phase_cedar3()
     phase_3d_gates()
     phase_plane_gates()
     launches = phase_main_path()
+    launches["sweep2_fused"] = phase_main_variants()["sweep2_fused"]
     launches["line2"] = phase_linexy_2048()["line2"]
     launches["interp2"] = phase_fcycle_4096()["interp2"]
     launches.update(phase_paths3())

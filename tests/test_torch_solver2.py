@@ -159,7 +159,7 @@ def test_single_level_and_post_free_cycles():
     {"grid": {"periodic": [True, False]}},
     {"solver": {"cg-solver": "cedar"}},
     {"solver": {"cg-solver": "redist"}},
-    {"kernels": {"fine-split": True}},
+    {"kernels": {"fine-split": True}, "grid": {"periodic": [False, True]}},
     {"kernels": {"backend": "xla"}},
     {"grid": {"np": [2, 2]}},
 ])
