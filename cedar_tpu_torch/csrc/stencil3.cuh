@@ -1,0 +1,103 @@
+// 3D stencil device code shared by K6 (sweep3.cu) and K14-K16 (fused3.cu),
+// so that the kernels round alike: the off-diagonal sum of the sweep and
+// the residual, in the term order of ops/stencil3.py (`offsets_for`,
+// `offdiag_apply`) of this package.
+//
+// The stencil `so` is (ndir, nx, ny, nz), row-major with z contiguous;
+// plane P = 0 is the diagonal.  Up-shifted couplings read the neighbour's
+// stored plane (e.g. (1,1,1) reads BSW[x+1, y+1, z+1]); the plane shift is
+// the positive part of the offset, so a term whose neighbour lies off the
+// grid is exactly zero, which is what the zero-filled shifts of the plain
+// versions give.
+#pragma once
+
+#include "common.cuh"
+
+namespace cedar {
+
+// Dir3 plane indices (core/types.py); plane P = 0 is indexed directly
+constexpr int PW = 1, PS = 2, B = 3, PSW = 4, PNW = 5, BW = 6, BNW = 7,
+              BN = 8, BNE = 9, BE = 10, BSE = 11, BS = 12, BSW = 13;
+
+// Σ coupling · q(neighbour) at one point, in stencil3.offsets_for order.
+// The stencil is read through s0 and sp, the point's position in its own
+// x plane and in the x+1 plane, with the stride N between stencil planes
+// and the row (y) stride ss; q through qm, q0 and qp, the point's position
+// in the planes x-1, x and x+1, with the row stride qs; z is contiguous.
+// Either may be the grid itself (K6) or planes of a shared-memory window
+// (K14-K16).  xl .. zh say whether the low / high neighbour along each
+// axis lies on the grid.
+template <typename T, bool TS>
+__device__ __forceinline__ T offdiag_at(const T* s0, const T* sp,
+                                        long long N, long long ss, bool xl,
+                                        bool xh, bool yl, bool yh, bool zl,
+                                        bool zh, const T* qm, const T* q0,
+                                        const T* qp, long long qs) {
+  using A = Arith<T>;
+  // coupling of the (dx, dy, dz) neighbour, stored at plane `p` shifted by
+  // the positive part of the offset, times that neighbour's q
+  auto term = [&](int dx, int dy, int dz, int p) -> T {
+    const bool ok = (dx < 0 ? xl : dx > 0 ? xh : true) &&
+                    (dy < 0 ? yl : dy > 0 ? yh : true) &&
+                    (dz < 0 ? zl : dz > 0 ? zh : true);
+    if (!ok) return T(0);
+    const T* s = dx > 0 ? sp : s0;
+    const T* qx = dx < 0 ? qm : dx > 0 ? qp : q0;
+    return A::mul(s[p * N + (dy > 0 ? ss : 0) + (dz > 0 ? 1 : 0)],
+                  qx[dy * qs + dz]);
+  };
+  T acc;
+  if (!TS) {
+    acc = term(-1, 0, 0, PW);
+    acc = A::add(acc, term(1, 0, 0, PW));
+    acc = A::add(acc, term(0, -1, 0, PS));
+    acc = A::add(acc, term(0, 1, 0, PS));
+    acc = A::add(acc, term(0, 0, -1, B));
+    return A::add(acc, term(0, 0, 1, B));
+  }
+  // in-plane
+  acc = term(-1, 0, 0, PW);
+  acc = A::add(acc, term(1, 0, 0, PW));
+  acc = A::add(acc, term(0, -1, 0, PS));
+  acc = A::add(acc, term(0, 1, 0, PS));
+  acc = A::add(acc, term(-1, -1, 0, PSW));
+  acc = A::add(acc, term(1, -1, 0, PNW));
+  acc = A::add(acc, term(-1, 1, 0, PNW));
+  acc = A::add(acc, term(1, 1, 0, PSW));
+  // plane below
+  acc = A::add(acc, term(0, 0, -1, B));
+  acc = A::add(acc, term(-1, 0, -1, BW));
+  acc = A::add(acc, term(1, 0, -1, BE));
+  acc = A::add(acc, term(0, -1, -1, BS));
+  acc = A::add(acc, term(0, 1, -1, BN));
+  acc = A::add(acc, term(-1, -1, -1, BSW));
+  acc = A::add(acc, term(1, -1, -1, BSE));
+  acc = A::add(acc, term(-1, 1, -1, BNW));
+  acc = A::add(acc, term(1, 1, -1, BNE));
+  // plane above
+  acc = A::add(acc, term(0, 0, 1, B));
+  acc = A::add(acc, term(1, 0, 1, BW));
+  acc = A::add(acc, term(-1, 0, 1, BE));
+  acc = A::add(acc, term(0, 1, 1, BS));
+  acc = A::add(acc, term(0, -1, 1, BN));
+  acc = A::add(acc, term(1, 1, 1, BSW));
+  acc = A::add(acc, term(-1, 1, 1, BSE));
+  acc = A::add(acc, term(1, -1, 1, BNW));
+  return A::add(acc, term(-1, -1, 1, BNE));
+}
+
+// Σ coupling · q(neighbour) at (x, y, z) of the grid q (nx, ny, nz).
+template <typename T, bool TS>
+__device__ __forceinline__ T offdiag(const T* __restrict__ so, const T* q,
+                                     int x, int y, int z, int nx, int ny,
+                                     int nz) {
+  const long long N = (long long)nx * ny * nz;
+  const long long sx = (long long)ny * nz, sy = nz;
+  const long long i = (long long)x * sx + (long long)y * sy + z;
+  const T* q0 = q + i;
+  return offdiag_at<T, TS>(so + i, so + i + sx, N, sy, x > 0, x + 1 < nx,
+                           y > 0, y + 1 < ny, z > 0, z + 1 < nz, q0 - sx,
+                           q0, q0 + sx, sy);
+}
+
+}  // namespace cedar

@@ -26,81 +26,13 @@
 // of its own colour: red-black on x+y+z for 7-point, the (x%2, y%2, z%2)
 // 8-colouring for 27-point.  The wrapper (ops/cuda3.py) checks the kind.
 //
-// Up-shifted couplings read the neighbour's stored plane (e.g. (1,1,1)
-// reads BSW[x+1, y+1, z+1]); the plane shift is the positive part of the
-// offset, so a term whose neighbour lies off the grid is exactly zero,
-// which is what the zero-filled shifts of the reference give.
+// The off-diagonal sum is stencil3.cuh's `offdiag`, shared with the fused
+// kernels K14-K16 (fused3.cu).
 
-#include "common.cuh"
+#include "stencil3.cuh"
 
 namespace cedar {
 namespace {
-
-// Dir3 plane indices (core/types.py); plane P = 0 is indexed directly
-constexpr int PW = 1, PS = 2, B = 3, PSW = 4, PNW = 5, BW = 6, BNW = 7,
-              BN = 8, BNE = 9, BE = 10, BSE = 11, BS = 12, BSW = 13;
-
-// Σ coupling · q(neighbour) at (x, y, z), in stencil3.offsets_for order.
-template <typename T, bool TS>
-__device__ __forceinline__ T offdiag(const T* __restrict__ so, const T* q,
-                                     int x, int y, int z, int nx, int ny,
-                                     int nz) {
-  using A = Arith<T>;
-  const long long N = (long long)nx * ny * nz;
-  const long long sx = (long long)ny * nz, sy = nz;
-  const long long i = (long long)x * sx + (long long)y * sy + z;
-  const bool xl = x > 0, xh = x + 1 < nx, yl = y > 0, yh = y + 1 < ny,
-             zl = z > 0, zh = z + 1 < nz;
-  // coupling of the (dx, dy, dz) neighbour, stored at plane `p` shifted by
-  // the positive part of the offset, times that neighbour's q
-  auto term = [&](int dx, int dy, int dz, int p) -> T {
-    const bool ok = (dx < 0 ? xl : dx > 0 ? xh : true) &&
-                    (dy < 0 ? yl : dy > 0 ? yh : true) &&
-                    (dz < 0 ? zl : dz > 0 ? zh : true);
-    if (!ok) return T(0);
-    const long long ps = i + (dx > 0 ? sx : 0) + (dy > 0 ? sy : 0) +
-                         (dz > 0 ? 1 : 0);
-    return A::mul(so[p * N + ps], q[i + dx * sx + dy * sy + dz]);
-  };
-  T acc;
-  if (!TS) {
-    acc = term(-1, 0, 0, PW);
-    acc = A::add(acc, term(1, 0, 0, PW));
-    acc = A::add(acc, term(0, -1, 0, PS));
-    acc = A::add(acc, term(0, 1, 0, PS));
-    acc = A::add(acc, term(0, 0, -1, B));
-    return A::add(acc, term(0, 0, 1, B));
-  }
-  // in-plane
-  acc = term(-1, 0, 0, PW);
-  acc = A::add(acc, term(1, 0, 0, PW));
-  acc = A::add(acc, term(0, -1, 0, PS));
-  acc = A::add(acc, term(0, 1, 0, PS));
-  acc = A::add(acc, term(-1, -1, 0, PSW));
-  acc = A::add(acc, term(1, -1, 0, PNW));
-  acc = A::add(acc, term(-1, 1, 0, PNW));
-  acc = A::add(acc, term(1, 1, 0, PSW));
-  // plane below
-  acc = A::add(acc, term(0, 0, -1, B));
-  acc = A::add(acc, term(-1, 0, -1, BW));
-  acc = A::add(acc, term(1, 0, -1, BE));
-  acc = A::add(acc, term(0, -1, -1, BS));
-  acc = A::add(acc, term(0, 1, -1, BN));
-  acc = A::add(acc, term(-1, -1, -1, BSW));
-  acc = A::add(acc, term(1, -1, -1, BSE));
-  acc = A::add(acc, term(-1, 1, -1, BNW));
-  acc = A::add(acc, term(1, 1, -1, BNE));
-  // plane above
-  acc = A::add(acc, term(0, 0, 1, B));
-  acc = A::add(acc, term(1, 0, 1, BW));
-  acc = A::add(acc, term(-1, 0, 1, BE));
-  acc = A::add(acc, term(0, 1, 1, BS));
-  acc = A::add(acc, term(0, -1, 1, BN));
-  acc = A::add(acc, term(1, 1, 1, BSW));
-  acc = A::add(acc, term(-1, 1, 1, BSE));
-  acc = A::add(acc, term(1, -1, 1, BNW));
-  return A::add(acc, term(-1, -1, 1, BNE));
-}
 
 // One colour phase: q = (b + Σ coupling·q_nb) * (1/P) at this colour's
 // points.  Colours anchor at global indices (x + ox, y + oy, z + oz):

@@ -25,55 +25,20 @@
 // dense fine arrays directly, and K8 adds into q in place, so no split,
 // restack, padding or merge pass exists.
 //
-// The guard entries of CI at index nxc / nyc / nzc hold the weights of
-// fine points beyond the last coarse point; at even fine extents the
-// weight toward the missing upper coarse point is zero by construction,
-// and the coarse value there reads as zero.  Fine indices off the grid
-// read as zero.
+// The CI access, the restriction sum and `interp_value` live in
+// transfer3.cuh, shared with the fused kernels K15/K16 (fused3.cu).
 
-#include "common.cuh"
-
-// The 26 CI planes in InterpDir3 order (core/types.py) with the fine ->
-// coarse displacement δ each interpolates across (ops/interp3.DELTA):
-// X(plane, δx, δy, δz).
-#define CEDAR_DELTA3(X)                                                      \
-  X(0, -1, 0, 0) X(1, 1, 0, 0) X(2, 0, 1, 0) X(3, 0, -1, 0) X(4, 0, 0, 1)    \
-  X(5, 0, 0, -1) X(6, 1, 1, 0) X(7, 1, -1, 0) X(8, -1, -1, 0)                \
-  X(9, -1, 1, 0) X(10, -1, 0, -1) X(11, -1, 0, 1) X(12, 1, 0, 1)             \
-  X(13, 1, 0, -1) X(14, 0, 1, -1) X(15, 0, 1, 1) X(16, 0, -1, 1)             \
-  X(17, 0, -1, -1) X(18, -1, -1, -1) X(19, -1, 1, -1) X(20, 1, 1, -1)        \
-  X(21, 1, -1, -1) X(22, -1, -1, 1) X(23, -1, 1, 1) X(24, 1, 1, 1)           \
-  X(25, 1, -1, 1)
+#include "transfer3.cuh"
 
 namespace cedar {
 namespace {
 
-template <typename T>
-struct CI3 {
-  const T* __restrict__ p;
-  long long plane;  // (nxc+1)*(nyc+1)*(nzc+1)
-  int s1, s2;       // (nyc+1), (nzc+1)
-  __device__ __forceinline__ T operator()(int d, int i, int j, int k) const {
-    return p[d * plane + ((long long)i * s1 + j) * s2 + k];
-  }
-};
-
-template <typename T>
-__device__ __forceinline__ CI3<T> make_ci(const T* p, int nxc, int nyc,
-                                          int nzc) {
-  return CI3<T>{p, (long long)(nxc + 1) * (nyc + 1) * (nzc + 1), nyc + 1,
-                nzc + 1};
-}
-
-// cb[c] = res[2c] + Σ weight · res[2c + off] over off = -δ in plane order
-// (interp3.restrict_torch: [(0,0,0)] + PW3_TABLE); the weight toward
-// 2c + off lies at CI index c + max(off, 0).
+// cb = Pᵀ res, one coarse point a thread (transfer3.cuh `restrict_value`).
 template <typename T>
 __global__ void restrict_kernel(const T* __restrict__ ci_p,
                                 const T* __restrict__ res,
                                 T* __restrict__ cb, int nx, int ny, int nz,
                                 int nxc, int nyc, int nzc) {
-  using A = Arith<T>;
   const int zc = blockIdx.x * blockDim.x + threadIdx.x;
   const int yc = blockIdx.y * blockDim.y + threadIdx.y;
   const int xc = blockIdx.z;
@@ -86,47 +51,8 @@ __global__ void restrict_kernel(const T* __restrict__ ci_p,
                ? res[((long long)fx * ny + fy) * nz + fz]
                : T(0);
   };
-  T acc = fine(0, 0, 0);
-#define CEDAR_R(P, DX, DY, DZ)                                               \
-  acc = A::add(acc, A::mul(ci(P, xc + (-(DX) > 0), yc + (-(DY) > 0),         \
-                              zc + (-(DZ) > 0)),                             \
-                           fine(-(DX), -(DY), -(DZ))));
-  CEDAR_DELTA3(CEDAR_R)
-#undef CEDAR_R
-  cb[((long long)xc * nyc + yc) * nzc + zc] = acc;
-}
-
-// init + Σ weight · qc over the planes of the point's parity class, in
-// plane order (interp3._interp_parts); at coincident points the coarse
-// value alone.  Shared by K8 (init = res / diag) and K9 (init = 0) so that
-// the two cannot drift apart.
-//
-// Along each axis a fine index f has parity p = f & 1; its weight index is
-// (f >> 1) + p and its coarse neighbour for δ is (f >> 1) + (δ > 0).
-template <typename T>
-__device__ __forceinline__ T interp_value(const CI3<T>& ci,
-                                          const T* __restrict__ qc, int x,
-                                          int y, int z, int nxc, int nyc,
-                                          int nzc, T init) {
-  using A = Arith<T>;
-  const int hx = x >> 1, hy = y >> 1, hz = z >> 1;
-  const int px = x & 1, py = y & 1, pz = z & 1;
-  if (!(px | py | pz)) return qc[((long long)hx * nyc + hy) * nzc + hz];
-  const int cat = px | (py << 1) | (pz << 2);
-  // coarse value, zero at index nxc / nyc / nzc
-  auto QC = [&](int i, int j, int k) -> T {
-    return (i < nxc && j < nyc && k < nzc)
-               ? qc[((long long)i * nyc + j) * nzc + k]
-               : T(0);
-  };
-  T v = init;
-#define CEDAR_I(P, DX, DY, DZ)                                               \
-  if (cat == ((DX != 0) | ((DY != 0) << 1) | ((DZ != 0) << 2)))              \
-    v = A::add(v, A::mul(ci(P, hx + px, hy + py, hz + pz),                   \
-                         QC(hx + (DX > 0), hy + (DY > 0), hz + (DZ > 0))));
-  CEDAR_DELTA3(CEDAR_I)
-#undef CEDAR_I
-  return v;
+  cb[((long long)xc * nyc + yc) * nzc + zc] =
+      restrict_value(ci, fine, xc, yc, zc);
 }
 
 // q += P qc (+ res / diag off the coincident points), in place.

@@ -75,6 +75,16 @@ SIGNATURES = {
                               _I, _P],
         "cedar_interp3": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
+    "fused3": {
+        "cedar_fused3_colors": [_I],
+        "cedar_fused3_partials": [_I, _I, _I, _I, _I],
+        "cedar_sweep3_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _I, _I, _P],
+        "cedar_sweep_restrict3": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _P],
+        "cedar_interp_sweep3": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                _I, _I, _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

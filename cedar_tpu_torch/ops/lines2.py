@@ -25,10 +25,10 @@ goes through the same code.
 the line kernel (:mod:`cedar_tpu_torch.ops.cuda_lines2`, factored on the
 fly), a CPU tensor to its plain version.  Both update ``q`` IN PLACE.
 
-Not ported (ROADMAP queue 1, items 11, 12 and 16): the PCR and SPIKE
-formulations of the same solve (TPU latency work, selected by
-``solver.ml-relax.enabled``), the cyclic Sherman–Morrison solve of
-periodic lines and the distributed SPIKE solve.
+Not ported: the PCR and SPIKE formulations of the same solve (TPU
+latency work, selected by ``solver.ml-relax.enabled``; ROADMAP queue 1,
+item 7), the cyclic Sherman–Morrison solve of periodic lines (item 4)
+and the distributed SPIKE solve (item 9).
 """
 
 from __future__ import annotations

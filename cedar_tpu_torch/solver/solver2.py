@@ -122,19 +122,31 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
         return (f"relaxation {settings.relaxation.value} in 2D (plane "
                 "relaxation is 3D: use Solver3)")
     if settings.ml_relax_enabled:
-        return ("solver.ml-relax.enabled (ROADMAP queue 1, item 11: the "
+        return ("solver.ml-relax.enabled (ROADMAP queue 1, item 7: the "
                 "PCR and SPIKE line solves)")
     if any(conf.get("grid.periodic", [False, False])):
-        return "grid.periodic (ROADMAP queue 1, item 12: 2D periodic)"
-    if settings.coarse_solver != CGType.lu:
-        return (f"cg-solver {settings.coarse_solver.value} (ROADMAP queue "
-                "1, item 16: redistributed coarse solves)")
+        return "grid.periodic (ROADMAP queue 1, item 4: periodic grids)"
+    missing = unsupported_coarse_solver(settings.coarse_solver)
+    if missing is not None:
+        return missing
     if conf.get("kernels.backend", "auto") == "xla":
         return ("kernels.backend xla (the device decides: kernels on CUDA, "
                 "torch ops on the CPU)")
     if any(int(p) > 1 for p in conf.get("grid.np", [])):
-        return "grid.np: meshes (ROADMAP queue 1, item 16: distribution)"
+        return "grid.np: meshes (ROADMAP queue 1, item 9: distribution)"
     return None
+
+
+def unsupported_coarse_solver(cg_type: CGType, where: str = "") -> str | None:
+    """Why a coarse solver other than LU is refused, or None; ``where``
+    prefixes the key ("plane-config ")."""
+    if cg_type == CGType.lu:
+        return None
+    if cg_type == CGType.redist:
+        return (f"{where}cg-solver redist (ROADMAP queue 1, item 9: "
+                "redistributed coarse solves)")
+    return (f"{where}cg-solver {cg_type.value} (ROADMAP queue 1, item 5: "
+            "the serial inner multigrid coarse solve)")
 
 
 class Solver2:

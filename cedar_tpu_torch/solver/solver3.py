@@ -15,6 +15,11 @@ run the hand-written CUDA kernels, on the CPU their plain torch versions.
 * **solve** — residual-norm-controlled cycle iteration (multilevel.h:278-298)
   as a Python loop that reads the convergence norm back once per cycle;
   ``history`` holds the reference's per-iteration "relative l2 norm" lines.
+
+``kernels.fine-split`` (default: true on the card, false on the CPU, as
+cedar_tpu turns it on wherever its Pallas kernels run) selects the fused
+fine-level V-cycle (:func:`cycle3.ncycle_split`, kernels K14-K16 on the
+card) on the top ``kernels.split-levels`` levels (default 4).
 """
 
 from __future__ import annotations
@@ -29,10 +34,10 @@ from cedar_tpu_torch.ops.galerkin3 import coarsen_op
 from cedar_tpu_torch.ops.interp3 import setup_interp
 from cedar_tpu_torch.ops.relax3 import setup_recip
 from cedar_tpu_torch.ops.stencil3 import residual
-from cedar_tpu_torch.settings import CGType, CycleType, MLSettings, RelaxType
+from cedar_tpu_torch.settings import CycleType, MLSettings, RelaxType
 from cedar_tpu_torch.solver import cycle3
 from cedar_tpu_torch.solver.level import Level
-from cedar_tpu_torch.solver.solver2 import _l2
+from cedar_tpu_torch.solver.solver2 import _l2, unsupported_coarse_solver
 from cedar_tpu_torch.utils import log
 from cedar_tpu_torch.utils.timing import TimeLog
 
@@ -86,19 +91,20 @@ def _unsupported_planes(conf: Config, settings: MLSettings) -> str | None:
     pconf = conf.getconf("plane-config")
     if ps.relaxation != RelaxType.line_xy:
         return (f"plane-config relaxation {ps.relaxation.value} (ROADMAP "
-                "queue 1, item 18: point, line-x and line-y plane smoothers "
+                "queue 1, item 6: point, line-x and line-y plane smoothers "
                 "need batched K1 and K4 kernels)")
     if ps.cycle == CycleType.f:
-        return ("plane-config F-cycle (ROADMAP queue 1, item 18: it needs a "
+        return ("plane-config F-cycle (ROADMAP queue 1, item 6: it needs a "
                 "batched K5 kernel)")
-    if ps.coarse_solver != CGType.lu:
-        return (f"plane-config cg-solver {ps.coarse_solver.value} (ROADMAP "
-                "queue 1, item 16: redistributed coarse solves)")
+    missing = unsupported_coarse_solver(ps.coarse_solver, "plane-config ")
+    if missing is not None:
+        return missing
     if ps.ml_relax_enabled:
         return ("plane-config solver.ml-relax.enabled (ROADMAP queue 1, "
-                "item 11: the PCR and SPIKE line solves)")
+                "item 7: the PCR and SPIKE line solves)")
     if pconf is not None and any(pconf.get("grid.periodic", [])):
-        return "plane-config grid.periodic (ROADMAP queue 1, item 12)"
+        return ("plane-config grid.periodic (ROADMAP queue 1, item 4: "
+                "periodic grids)")
     return None
 
 
@@ -114,18 +120,15 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
         return (f"relaxation {settings.relaxation.value} in 3D (cedar_tpu "
                 "relaxes 3D grids by points or planes)")
     if any(conf.get("grid.periodic", [False, False, False])):
-        return "grid.periodic (ROADMAP queue 1, item 12: periodic grids)"
-    if settings.coarse_solver != CGType.lu:
-        return (f"cg-solver {settings.coarse_solver.value} (ROADMAP queue "
-                "1, item 16: redistributed coarse solves)")
-    if conf.get("kernels.fine-split", False):
-        return ("kernels.fine-split true (the TPU's octant-split layout, "
-                "ROADMAP queue 1, item 17)")
+        return "grid.periodic (ROADMAP queue 1, item 4: periodic grids)"
+    missing = unsupported_coarse_solver(settings.coarse_solver)
+    if missing is not None:
+        return missing
     if conf.get("kernels.backend", "auto") == "xla":
         return ("kernels.backend xla (the device decides: kernels on CUDA, "
                 "torch ops on the CPU)")
     if any(int(p) > 1 for p in conf.get("grid.np", [])):
-        return "grid.np: meshes (ROADMAP queue 1, item 16: distribution)"
+        return "grid.np: meshes (ROADMAP queue 1, item 9: distribution)"
     return None
 
 
@@ -142,6 +145,9 @@ class Solver3:
     Raises ``NotImplementedError`` for configurations outside the 3D point
     or plane relaxation V- or F-cycle with a direct coarse solve (plane
     relaxation: embedded line-xy V-cycles with a direct coarse solve).
+    With point relaxation and ``kernels.fine-split`` (the card's default)
+    the V-cycle, and the F-cycle's inner V-cycles, run the fused top
+    levels.
     """
 
     def __init__(self, so: torch.Tensor,
@@ -155,6 +161,13 @@ class Solver3:
         missing = _unsupported(conf, self.settings, so, kind)
         if missing is not None:
             raise NotImplementedError(f"cedar_tpu_torch: {missing}")
+        # the fused fine-level cycle: on by default wherever the kernels
+        # run, as cedar_tpu turns it on with its Pallas kernels
+        # (cedar_tpu/solver/solver3.py:234-236); the gates on the cycle
+        # and relaxation are cycle3.fine_split_ok's
+        self.settings.fine_split = bool(conf.get("kernels.fine-split",
+                                                 so.is_cuda))
+        self.settings.split_levels = int(conf.get("kernels.split-levels", 4))
         log.set_enabled(conf.get("log", ["status", "error"]))
         self.kind = kind
         self.indefinite = not conf.get("solver.definite", True)
@@ -196,9 +209,9 @@ class Solver3:
         res0 = max(float(_l2(r0)), torch.finfo(b.dtype).tiny)
         hist = []
         while len(hist) < settings.maxiter:
-            x, r = cycle3.cycle_residual(self.levels, self.kinds, x, b,
-                                         settings)
-            rel = float(_l2(r)) / res0   # the one readback of the cycle
+            x, rnorm = cycle3.cycle_residual(self.levels, self.kinds, x, b,
+                                             settings)
+            rel = float(rnorm) / res0   # the one readback of the cycle
             hist.append(rel)
             if not rel >= settings.tol:   # stops on NaN, like the JAX loop
                 break

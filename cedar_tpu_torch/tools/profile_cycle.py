@@ -1,15 +1,17 @@
 """Where the time of one 2D or 3D cycle goes on the card.
 
-Builds one of eight float32 configurations — ``vcycle`` (default: Poisson
+Builds one of ten float32 configurations — ``vcycle`` (default: Poisson
 4096², V(1,1), the fused fine-level cycle that the solver runs on the card
 by default), ``vcycle-dense`` (the same with ``kernels.fine-split`` false:
 the dense cycle), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1)),
 ``fcycle`` (Poisson 4096², F-cycle), ``vcycle3`` (7-point Poisson 256³,
-V(1,1): ``3d_poisson_7pt_256``), ``fe27`` (27-point ``gallery.fe3`` 128³,
-V(1,1): ``3d_fe_27pt_128``), ``fcycle3`` (7-point Poisson 256³, F-cycle)
-or ``planexy`` (7-point ``diag_diffusion3(1, 1, 1e-3)`` 128³, plane-xy
-V(1,1) with the default plane-config: ``3d_aniso_planexy_128``) — runs a
-few warm-up cycles as the solve runs them, then traces ten cycles with
+V(1,1), fused on the top four levels by default: ``3d_poisson_7pt_256``),
+``vcycle3-dense`` (the same, dense), ``fe27`` (27-point ``gallery.fe3``
+128³, V(1,1), fused: ``3d_fe_27pt_128``), ``fe27-dense`` (the same,
+dense), ``fcycle3`` (7-point Poisson 256³, F-cycle) or ``planexy``
+(7-point ``diag_diffusion3(1, 1, 1e-3)`` 128³, plane-xy V(1,1) with the
+default plane-config: ``3d_aniso_planexy_128``) — runs a few warm-up
+cycles as the solve runs them, then traces ten cycles with
 ``torch.profiler`` and prints:
 
 * wall ms per cycle (CUDA events) and the device's busy and idle share
@@ -22,7 +24,8 @@ few warm-up cycles as the solve runs them, then traces ten cycles with
 Run from the repository root on a machine with a CUDA device:
 
     python3 -m cedar_tpu_torch.tools.profile_cycle \
-        [vcycle|vcycle-dense|linexy|fcycle|vcycle3|fe27|fcycle3|planexy]
+        [vcycle|vcycle-dense|linexy|fcycle|vcycle3|vcycle3-dense|fe27|
+         fe27-dense|fcycle3|planexy]
 """
 
 from __future__ import annotations
@@ -52,7 +55,11 @@ CONFIGS = {
     "linexy": (2, 2048, gallery.fe, NinePt, {"relaxation": "line-xy"}),
     "fcycle": (2, 4096, gallery.poisson, FivePt, {"cycle": {"type": "f"}}),
     "vcycle3": (3, 256, gallery.poisson3, SevenPt, {}),
+    "vcycle3-dense": (3, 256, gallery.poisson3, SevenPt, {},
+                      {"fine-split": False}),
     "fe27": (3, 128, gallery.fe3, TwentySevenPt, {}),
+    "fe27-dense": (3, 128, gallery.fe3, TwentySevenPt, {},
+                   {"fine-split": False}),
     "fcycle3": (3, 256, gallery.poisson3, SevenPt, {"cycle": {"type": "f"}}),
     "planexy": (3, 128, lambda nx, ny, nz, dtype, dev:
                 gallery.diag_diffusion3(nx, ny, nz, 1.0, 1.0, 1e-3, dtype,

@@ -1,8 +1,9 @@
 #!/usr/bin/env python
 """GPU smoke test of cedar_tpu_torch: builds the CUDA kernels, holds each
 against its plain PyTorch version, and drives the 2D V-cycle (fused and
-dense), line-xy and F-cycle solves, the 3D 7- and 27-point V-cycle and
-F-cycle solves and the 3D plane-relaxation solve on the card.
+dense), line-xy and F-cycle solves, the 3D 7- and 27-point V-cycle (fused
+and dense) and F-cycle solves and the 3D plane-relaxation solve on the
+card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -28,15 +29,21 @@ Phases (each raises on failure; nothing is caught):
    sweep-residual-restrict (K12) and interp-add-sweep (K13), at the 2D
    shapes and (5, 4) float64, 5- and 9-point, DOWN and UP, every output
    mode, K11 with and without an origin: q, the residual and cb bit-equal,
-   the norm's partial sums to rtol NORM_RTOL;
+   the norm's partial sums to rtol NORM_RTOL; then the fused 3D kernels,
+   sweep (K14), sweep-residual-restrict (K15) and interp-add-sweep (K16),
+   at the 3D shapes and (5, 4, 3) float64, both kinds, DOWN and UP, every
+   output mode, K14 with and without an origin, K15 with and without the
+   residual, held to their plain versions the same way;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
 4b. float64 gates of the line-xy and F-cycle paths: the 400² solves on the
    card against the same solves on the CPU (plain versions);
 4c. Cedar's 3D integration test (200³ float64 7-point Poisson) through
-   the kernels, then the float64 3D gates: 33³ 7-point and 17³ 27-point
-   V-cycle solves and a 33³ F-cycle, card against CPU;
+   the kernels (the fused cycle, the card's default: K14-K16 on levels
+   0-3), then the float64 3D gates, fused on the card against dense on the
+   CPU: a 33³ 7-point V(2,2) and a 17³ 27-point V(1,1) solve and a 33³
+   F-cycle;
 4d. float64 plane-relaxation gates, card against CPU: 16³
    ``diag_diffusion3(1, 1, 1e-3)`` plane-xy (to 1e-9 within 5 cycles),
    8³ Poisson plane-xyz, a 12x10x9 ``fe3`` 27-point plane-yz solve;
@@ -49,9 +56,11 @@ Phases (each raises on failure; nothing is caught):
 5b. the 2D slices at full width: ``2d_fe_9pt_linexy_2048`` and
    ``2d_poisson_fcycle_4096`` (``bench.py``'s configurations), each with
    setup, a solve, launch counts, per-cycle time and peak memory;
-5c. the 3D slice at full width: ``3d_poisson_7pt_256``,
-   ``3d_fe_27pt_128`` (``bench.py``'s configurations) and the 256³
-   F-cycle, each with the same numbers;
+5c. the 3D slice at full width: ``3d_poisson_7pt_256`` and
+   ``3d_fe_27pt_128`` (``bench.py``'s configurations), each fused (the
+   card's default) and dense (``kernels.fine-split`` false), the fused
+   256³ V(2,2) and the fused 256³ F-cycle, each with the same numbers and
+   the launches of one cycle;
 5d. the plane-relaxation slice at full width: ``3d_aniso_planexy_128``
    (``bench.py``'s configuration), with the same numbers and the launches
    of one cycle;
@@ -59,7 +68,9 @@ Phases (each raises on failure; nothing is caught):
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K10 and the batched K2/K3 at (64, 128, 128);
    K12 and K13 against the dense sequences they replace (K1 with the
-   residual, then K2; K3, then K1).
+   residual, then K2; K3, then K1); K14-K16 at 256³ 7-point and 128³
+   27-point, and K15 and K16 against the dense sequences they replace (K6
+   with the residual, then K7; K8, then K6).
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
@@ -84,8 +95,8 @@ from cedar_tpu_torch import (
 )
 from cedar_tpu_torch.core.types import Dir3, StencilKind
 from cedar_tpu_torch.ops import (
-    cuda2, cuda3, cuda_build, cuda_fused2, cuda_lines2, cuda_planes2,
-    cuda_transfer2, cuda_transfer3, interp2, interp3, stencil3,
+    cuda2, cuda3, cuda_build, cuda_fused2, cuda_fused3, cuda_lines2,
+    cuda_planes2, cuda_transfer2, cuda_transfer3, interp2, interp3, stencil3,
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
 from cedar_tpu_torch.solver import cycle2, cycle3
@@ -132,6 +143,16 @@ REPLACES = {
     "sweep2_fused": "cedar_tpu/ops/pallas2_split.py:200",
     "sweep_restrict2": "cedar_tpu/ops/pallas_transfer2.py:341",
     "interp_sweep2": "cedar_tpu/ops/pallas_transfer2.py:545",
+    # rows 14 and 20 (the split sweep and its wavefront schedule), 15 (+ the
+    # wavefront sweep_restrict_stream3 route), 17 and 21
+    "sweep3_fused": ("cedar_tpu/ops/pallas3_split.py:442, "
+                     "cedar_tpu/ops/pallas3_stream.py:161, "
+                     "cedar_tpu/ops/pallas3_stream.py:227"),
+    "sweep_restrict3": ("cedar_tpu/ops/pallas3_split.py:465, "
+                        "cedar_tpu/ops/pallas3_stream.py:893"),
+    "interp_sweep3": ("cedar_tpu/ops/pallas3_split.py:492, "
+                      "cedar_tpu/ops/pallas3_stream.py:175, "
+                      "cedar_tpu/ops/pallas3_stream.py:192"),
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -147,6 +168,9 @@ SOURCES = {
     "sweep2_fused": "cedar_tpu_torch/csrc/fused2.cu",
     "sweep_restrict2": "cedar_tpu_torch/csrc/fused2.cu",
     "interp_sweep2": "cedar_tpu_torch/csrc/fused2.cu",
+    "sweep3_fused": "cedar_tpu_torch/csrc/fused3.cu",
+    "sweep_restrict3": "cedar_tpu_torch/csrc/fused3.cu",
+    "interp_sweep3": "cedar_tpu_torch/csrc/fused3.cu",
 }
 KERNELS = tuple(REPLACES)
 # full widths: the V-cycle main path and the F-cycle at N_MAIN², line-xy
@@ -185,6 +209,9 @@ def counts() -> dict:
         "sweep2_fused": cuda_fused2.sweep_launches,
         "sweep_restrict2": cuda_fused2.sweep_restrict_launches,
         "interp_sweep2": cuda_fused2.interp_sweep_launches,
+        "sweep3_fused": cuda_fused3.sweep_launches,
+        "sweep_restrict3": cuda_fused3.sweep_restrict_launches,
+        "interp_sweep3": cuda_fused3.interp_sweep_launches,
         "sweep2_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
         "interp_add2_plain": cuda_transfer2.interp_plain_calls,
@@ -198,6 +225,9 @@ def counts() -> dict:
         "sweep2_fused_plain": cuda_fused2.sweep_plain_calls,
         "sweep_restrict2_plain": cuda_fused2.sweep_restrict_plain_calls,
         "interp_sweep2_plain": cuda_fused2.interp_sweep_plain_calls,
+        "sweep3_fused_plain": cuda_fused3.sweep_plain_calls,
+        "sweep_restrict3_plain": cuda_fused3.sweep_restrict_plain_calls,
+        "interp_sweep3_plain": cuda_fused3.interp_sweep_plain_calls,
     }
 
 
@@ -221,6 +251,9 @@ def reset_counts() -> None:
     cuda_fused2.sweep_restrict_plain_calls = 0
     cuda_fused2.interp_sweep_launches = 0
     cuda_fused2.interp_sweep_plain_calls = 0
+    for k in ("sweep", "sweep_restrict", "interp_sweep"):
+        setattr(cuda_fused3, f"{k}_launches", 0)
+        setattr(cuda_fused3, f"{k}_plain_calls", 0)
 
 
 def require_launched(c: dict, names, what: str) -> None:
@@ -583,6 +616,66 @@ def phase_kernels_fused(errs: dict) -> dict:
     return errs
 
 
+FUSED3 = ("sweep3_fused", "sweep_restrict3", "interp_sweep3")
+
+
+def phase_kernels_fused3(errs: dict) -> dict:
+    """K14-K16 against their plain versions at the 3D shapes and (5, 4, 3)
+    float64, both kinds: every output mode, DOWN and UP, K14 with and
+    without an origin, K15 with and without the residual."""
+    print("[3] fused 3D kernels against plain versions", flush=True)
+    errs.update(dict.fromkeys(FUSED3, 0.0))
+    shapes = SHAPES3 + [((5, 4, 3), torch.float64, (False, True))]
+    for i, (shape, dtype, kinds) in enumerate(shapes):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for ts in kinds:
+            so, q, b, kind = random_problem3(shape, ts, dtype, 1000 + i)
+            pts = "27pt" if ts else "7pt"
+            ci = interp3.setup_interp(so, kind)
+            g = torch.Generator(device=DEV).manual_seed(1100 + i)
+            qc = torch.randn(tuple(n - 1 for n in ci.shape[1:]),
+                             generator=g, device=DEV, dtype=dtype)
+            for updown in ("down", "up"):
+                for mode in ("none", "res", "norm"):
+                    fr, fn = mode == "res", mode == "norm"
+                    for origin in ((0, 0, 0), (1, 2, 3)):
+                        e = compare_fused(
+                            f"K14 sweep3_fused {pts} {updown} {mode} "
+                            f"origin={origin} {tag}",
+                            cuda_fused3.sweep(so, q, b, kind, updown, fr,
+                                              origin, fn),
+                            cuda_fused3.sweep_plain(so, q, b, kind, updown,
+                                                    fr, origin, fn), mode)
+                        errs["sweep3_fused"] = max(errs["sweep3_fused"], e)
+                    e = compare_fused(
+                        f"K16 interp_sweep3 {pts} {updown} {mode} {tag}",
+                        cuda_fused3.interp_sweep(ci, qc, so, b, q, kind,
+                                                 updown, fr, fn),
+                        cuda_fused3.interp_sweep_plain(ci, qc, so, b, q,
+                                                       kind, updown, fr, fn),
+                        mode)
+                    errs["interp_sweep3"] = max(errs["interp_sweep3"], e)
+                for emit in (False, True):
+                    what = (f"K15 sweep_restrict3 {pts} {updown} "
+                            f"res={int(emit)} {tag}")
+                    got = cuda_fused3.sweep_restrict(so, q, b, ci, kind,
+                                                     updown, emit)
+                    want = cuda_fused3.sweep_restrict_plain(
+                        so, q, b, ci, kind, updown, emit)
+                    e = max(compare(what + " q", got[0], want[0], exact=True),
+                            compare(what + " cb", got[2], want[2],
+                                    exact=True))
+                    if emit:
+                        e = max(e, compare(what + " res", got[1], want[1],
+                                           exact=True))
+                    elif got[1] is not None:
+                        raise AssertionError(f"{what}: residual returned")
+                    errs["sweep_restrict3"] = max(errs["sweep_restrict3"], e)
+                    del got, want
+            del so, q, b, ci, qc
+    return errs
+
+
 def phase_cedar_gate() -> None:
     print("[4] Cedar 400^2 float64 history through the kernels", flush=True)
     reset_counts()
@@ -690,7 +783,9 @@ def phase_f64_gates() -> None:
 
 
 def phase_cedar3() -> None:
-    """Cedar's 3D integration test through the kernels."""
+    """Cedar's 3D integration test through the kernels: V(2,1), the
+    package defaults, fused on levels 0-3 (the card's default; K14 for the
+    extra pre-sweep), dense on levels 4 and 5."""
     n = N_CEDAR3
     print(f"[4c] Cedar 3D test: Poisson {n}^3 float64 7-pt through the "
           "kernels", flush=True)
@@ -711,25 +806,31 @@ def phase_cedar3() -> None:
     # test/3d/test_poisson.cc:74-105
     if not (rnorm < 1e-8 and err < 1e-4):
         raise AssertionError("Cedar 3D test failed")
-    require_launched(c, ("sweep3", "restrict3", "interp_add3"),
+    if not cycle3.fine_split_ok(s.levels, s.settings):
+        raise AssertionError("Cedar 3D test: the fused cycle is not the "
+                             "default")
+    require_launched(c, ("sweep3", "restrict3", "interp_add3") + FUSED3,
                      "Cedar 3D test")
 
 
 def phase_3d_gates() -> None:
     """The float64 3D V-cycle and F-cycle solves on the card against the
-    same solves on the CPU (plain versions)."""
-    print("[4c] float64 3D gates, card against CPU", flush=True)
+    same solves on the CPU (plain versions).  With the defaults the card
+    runs the fused cycle (every level but the coarsest at these sizes) and
+    the CPU the dense one."""
+    print("[4c] float64 3D gates, card (fused) against CPU (dense)",
+          flush=True)
     cpu = torch.device("cpu")
     gates = [
-        ("poisson3 33^3 V", 33, gallery.poisson3, SevenPt,
-         {"tol": 1e-10, "max-iter": 10},
-         ("sweep3", "restrict3", "interp_add3")),
-        ("fe3 17^3 V", 17, gallery.fe3, TwentySevenPt,
-         {"tol": 1e-10, "max-iter": 10},
-         ("sweep3", "restrict3", "interp_add3")),
+        ("poisson3 33^3 V(2,2)", 33, gallery.poisson3, SevenPt,
+         {"tol": 1e-10, "max-iter": 10,
+          "cycle": {"nrelax-pre": 2, "nrelax-post": 2}}, FUSED3),
+        ("fe3 17^3 V(1,1)", 17, gallery.fe3, TwentySevenPt,
+         {"tol": 1e-10, "max-iter": 10,
+          "cycle": {"nrelax-pre": 1, "nrelax-post": 1}}, FUSED3),
         ("poisson3 33^3 F", 33, gallery.poisson3, SevenPt,
          {"cycle": {"type": "f"}, "tol": 1e-10, "max-iter": 3},
-         ("sweep3", "restrict3", "interp_add3", "interp3")),
+         ("restrict3", "interp3") + FUSED3),
     ]
     for what, n, make, kind, solver, need in gates:
         conf = Config({"log": [], "solver": solver})
@@ -745,6 +846,9 @@ def phase_3d_gates() -> None:
               flush=True)
         print(f"  {what}: CPU  {' '.join(f'{h:.9g}' for h in sc.history)};"
               f" counts {c}", flush=True)
+        if not (s.settings.fine_split and not sc.settings.fine_split):
+            raise AssertionError(f"{what}: not fused on the card and dense "
+                                 "on the CPU")
         # the absolute floor in relative-residual units as in phase 4b
         np.testing.assert_allclose(s.history, sc.history, rtol=1e-9,
                                    atol=1e-14)
@@ -888,12 +992,13 @@ def phase_main_path() -> dict:
     return launches
 
 
-def one_cycle_launches(s, b, what: str, want: dict) -> dict:
+def one_cycle_launches(s, b, what: str, want: dict, cycle=cycle2) -> dict:
     """The launches of one solve-loop cycle from x = 0, checked against
-    ``want`` (kernel -> count)."""
+    ``want`` (kernel -> count); ``cycle`` is the cycle module of the
+    solver's dimension."""
     reset_counts()
-    cycle2.cycle_residual(s.levels, s.kinds, torch.zeros_like(b), b,
-                          s.settings)
+    cycle.cycle_residual(s.levels, s.kinds, torch.zeros_like(b), b,
+                         s.settings)
     torch.cuda.synchronize()
     one = {k: v for k, v in counts().items() if v}
     print(f"  {what}: launches a cycle {one}", flush=True)
@@ -1049,19 +1154,23 @@ def phase_fcycle_4096() -> dict:
     return launches
 
 
-def run_path3(name: str, n: int, make, kind, solver: dict, need) -> dict:
+def run_path3(name: str, n: int, make, kind, solver: dict, need,
+              kernels=None, want=None) -> dict:
     """One of ``bench.py``'s 3D configurations on the port, float32:
-    setup, a solve of four cycles with launch counts, the convergence rate
+    setup, a solve of four cycles with launch counts, the launches of one
+    cycle checked against ``want`` (kernel -> count), the convergence rate
     on A x = 0 from a random x0 (V-cycles) or the solution error
-    (F-cycle), the per-cycle time, DOF/s and peak memory."""
-    fcycle = solver.get("cycle", {}).get("type") == "f"
-    print(f"[5c] {name}: {make.__name__} {n}^3 float32, "
-          f"{'F-cycle with V(1,1) inside' if fcycle else 'V(1,1)'}",
-          flush=True)
-    conf = Config({"log": [], "solver": {
-        **solver, "cycle": {"nrelax-pre": 1, "nrelax-post": 1,
-                            **solver.get("cycle", {})},
-        "max-iter": 4, "tol": 1e-6}})
+    (F-cycle), the per-cycle time, DOF/s and peak memory.  ``kernels`` is
+    the configuration's ``kernels`` section (default: none, the card's
+    fused cycle)."""
+    cyc = {"nrelax-pre": 1, "nrelax-post": 1, **solver.get("cycle", {})}
+    fcycle = cyc.get("type") == "f"
+    kind_of = ("F-cycle with V(1,1) inside" if fcycle else
+               f"V({cyc['nrelax-pre']},{cyc['nrelax-post']})")
+    print(f"[5c] {name}: {make.__name__} {n}^3 float32, {kind_of}, "
+          f"kernels {kernels or {}}", flush=True)
+    conf = Config({"log": [], "kernels": kernels or {}, "solver": {
+        **solver, "cycle": cyc, "max-iter": 4, "tol": 1e-6}})
     so = make(n, n, n, torch.float32, DEV)
     b = gallery.poisson3_rhs(n, n, n, torch.float32, DEV)
     torch.cuda.synchronize()
@@ -1083,6 +1192,8 @@ def run_path3(name: str, n: int, make, kind, solver: dict, need) -> dict:
     if not torch.isfinite(x).all() or tuple(x.shape) != (n, n, n):
         raise AssertionError(f"{name}: bad solution")
     require_launched(launches, need, name)
+    if want is not None:
+        one_cycle_launches(s, b, name, want, cycle3)
     if fcycle:
         # the F-cycle recomputes the same x each iteration (as cedar_tpu's),
         # so A x = 0 from a random x0 gives x = 0: the solution error
@@ -1117,20 +1228,74 @@ def run_path3(name: str, n: int, make, kind, solver: dict, need) -> dict:
     return launches
 
 
+def counts3() -> dict:
+    """Kernel launches of one solve-loop cycle of the 3D paths.  A fused
+    level runs K15 and K16 once each; a 27-point sweep is P launches of 8/P
+    colours each (P = 8 / cedar_fused3_colors, one colour a launch), so a
+    27-point fused level also runs K14 P - 1 times beside K15 and beside
+    K16, and P times for each further sweep.  A dense level runs K6 once a
+    colour phase and once for the residual that feeds K7, then K8; the
+    dense top level's last post-sweep launches one more K6 for the
+    convergence residual."""
+    p = 8 // cuda_build.load("fused3").cedar_fused3_colors(1)
+    return {
+        # 256^3 7-point, 7 levels: fused 0-3 (level 0 7-point, 1-3
+        # 27-point), dense 4-5
+        "3d_poisson_7pt_256": {
+            "sweep_restrict3": 4, "interp_sweep3": 4,
+            "sweep3_fused": 3 * 2 * (p - 1),
+            "sweep3": 34, "restrict3": 2, "interp_add3": 2},
+        # the same, V(2,2): per fused level one more pre- and post-sweep
+        # (level 0 2 K14, levels 1-3 2P); dense levels 2 x 8 + 1 + 2 x 8
+        "3d_poisson_7pt_256 V(2,2)": {
+            "sweep_restrict3": 4, "interp_sweep3": 4,
+            "sweep3_fused": 2 + 3 * (2 * (p - 1) + 2 * p),
+            "sweep3": 66, "restrict3": 2, "interp_add3": 2},
+        "3d_poisson_7pt_256 dense": {
+            "sweep_restrict3": 0, "interp_sweep3": 0, "sweep3_fused": 0,
+            "sweep3": 91, "restrict3": 6, "interp_add3": 6},
+        # 128^3 27-point, 6 levels: fused 0-3, dense 4
+        "3d_fe_27pt_128": {
+            "sweep_restrict3": 4, "interp_sweep3": 4,
+            "sweep3_fused": 4 * 2 * (p - 1),
+            "sweep3": 17, "restrict3": 1, "interp_add3": 1},
+        "3d_fe_27pt_128 dense": {
+            "sweep_restrict3": 0, "interp_sweep3": 0, "sweep3_fused": 0,
+            "sweep3": 86, "restrict3": 5, "interp_add3": 5},
+    }
+
+
+DENSE3 = ("sweep3", "restrict3", "interp_add3")
+
+
 def phase_paths3() -> dict:
-    """The 3D slice at full width (bench.py:162-171, :186-195)."""
+    """The 3D slice at full width (bench.py:162-171, :186-195): each
+    V-cycle configuration fused (the card's default) and dense, the fused
+    256³ V(2,2) (K14 at full width) and the fused F-cycle."""
+    dense = {"fine-split": False}
+    want = counts3()
     v7 = run_path3("3d_poisson_7pt_256", N_3D, gallery.poisson3, SevenPt,
-                   {}, ("sweep3", "restrict3", "interp_add3"))
+                   {}, DENSE3 + FUSED3, want=want["3d_poisson_7pt_256"])
+    torch.cuda.empty_cache()
+    run_path3("3d_poisson_7pt_256 dense", N_3D, gallery.poisson3, SevenPt,
+              {}, DENSE3, dense, want["3d_poisson_7pt_256 dense"])
+    torch.cuda.empty_cache()
+    v22 = run_path3("3d_poisson_7pt_256 V(2,2)", N_3D, gallery.poisson3,
+                    SevenPt, {"cycle": {"nrelax-pre": 2, "nrelax-post": 2}},
+                    DENSE3 + FUSED3, want=want["3d_poisson_7pt_256 V(2,2)"])
     torch.cuda.empty_cache()
     run_path3("3d_fe_27pt_128", N_27, gallery.fe3, TwentySevenPt, {},
-              ("sweep3", "restrict3", "interp_add3"))
+              DENSE3 + FUSED3, want=want["3d_fe_27pt_128"])
+    torch.cuda.empty_cache()
+    run_path3("3d_fe_27pt_128 dense", N_27, gallery.fe3, TwentySevenPt, {},
+              DENSE3, dense, want["3d_fe_27pt_128 dense"])
     torch.cuda.empty_cache()
     f7 = run_path3("3d_poisson_fcycle_256", N_3D, gallery.poisson3, SevenPt,
                    {"cycle": {"type": "f"}},
-                   ("sweep3", "restrict3", "interp_add3", "interp3"))
+                   ("restrict3", "interp3") + DENSE3 + FUSED3)
     torch.cuda.empty_cache()
-    return {k: v7[k] for k in ("sweep3", "restrict3", "interp_add3")} | {
-        "interp3": f7["interp3"]}
+    return {k: v7[k] for k in DENSE3 + FUSED3} | {
+        "sweep3_fused": v22["sweep3_fused"], "interp3": f7["interp3"]}
 
 
 def phase_planes_128() -> dict:
@@ -1338,8 +1503,10 @@ def time_turns(cases: dict, slow=(), labels=("plain", "kernel")) -> dict:
 
 
 def phase_times3() -> dict:
-    """K6-K9 against plain at the 3D paths' shapes (256³ 7-point float32;
-    the 27-point sweep at 128³), in turns (plain, kernel, kernel, plain)."""
+    """K6-K9 and K14-K16 against plain at the 3D paths' shapes (256³
+    7-point float32; the 27-point sweeps at 128³), in turns (plain,
+    kernel, kernel, plain); K15 and K16 against the dense sequences they
+    replace."""
     print("[6] per-kernel ms at 256^3 7-pt float32, 27-pt sweeps at 128^3 "
           "(plain, kernel, kernel, plain)", flush=True)
     n, n27 = N_3D, N_27
@@ -1350,6 +1517,10 @@ def phase_times3() -> dict:
     nc = ci.shape[1] - 1
     g = torch.Generator(device=DEV).manual_seed(19)
     qc = torch.randn((nc,) * 3, generator=g, device=DEV, dtype=torch.float32)
+    ci27 = interp3.setup_interp(so27, kind27)
+    nc27 = ci27.shape[1] - 1
+    qc27 = torch.randn((nc27,) * 3, generator=g, device=DEV,
+                       dtype=torch.float32)
     cases = {
         "sweep3": (lambda: cuda3.sweep_plain(so, q, b, kind, "down"),
                    lambda: cuda3.sweep(so, q, b, kind, "down")),
@@ -1370,20 +1541,97 @@ def phase_times3() -> dict:
         "interp3": (
             lambda: cuda_transfer3.interp_plain(ci, qc, (n,) * 3),
             lambda: cuda_transfer3.interp(ci, qc, (n,) * 3)),
+        # the fused kernels as the cycle runs them: K14 for extra sweeps
+        # (+ the norm for the last), K15 without the residual, K16 (+ the
+        # norm on the top level); 27-point: a launch a colour
+        "sweep3_fused": (
+            lambda: cuda_fused3.sweep_plain(so, q, b, kind, "down"),
+            lambda: cuda_fused3.sweep(so, q, b, kind, "down")),
+        "sweep3_fused +norm": (
+            lambda: cuda_fused3.sweep_plain(so, q, b, kind, "up",
+                                            fuse_norm=True),
+            lambda: cuda_fused3.sweep(so, q, b, kind, "up", fuse_norm=True)),
+        "sweep3_fused 27pt 128^3": (
+            lambda: cuda_fused3.sweep_plain(so27, q27, b27, kind27, "down"),
+            lambda: cuda_fused3.sweep(so27, q27, b27, kind27, "down")),
+        "sweep_restrict3": (
+            lambda: cuda_fused3.sweep_restrict_plain(so, q, b, ci, kind,
+                                                     "down", False),
+            lambda: cuda_fused3.sweep_restrict(so, q, b, ci, kind, "down",
+                                               False)),
+        "sweep_restrict3 27pt 128^3": (
+            lambda: cuda_fused3.sweep_restrict_plain(so27, q27, b27, ci27,
+                                                     kind27, "down", False),
+            lambda: cuda_fused3.sweep_restrict(so27, q27, b27, ci27, kind27,
+                                               "down", False)),
+        "interp_sweep3": (
+            lambda: cuda_fused3.interp_sweep_plain(ci, qc, so, b, q, kind,
+                                                   "up"),
+            lambda: cuda_fused3.interp_sweep(ci, qc, so, b, q, kind, "up")),
+        "interp_sweep3 +norm": (
+            lambda: cuda_fused3.interp_sweep_plain(ci, qc, so, b, q, kind,
+                                                   "up", fuse_norm=True),
+            lambda: cuda_fused3.interp_sweep(ci, qc, so, b, q, kind, "up",
+                                             fuse_norm=True)),
+        "interp_sweep3 27pt 128^3": (
+            lambda: cuda_fused3.interp_sweep_plain(ci27, qc27, so27, b27,
+                                                   q27, kind27, "up"),
+            lambda: cuda_fused3.interp_sweep(ci27, qc27, so27, b27, q27,
+                                             kind27, "up")),
     }
     out = time_turns(cases)
+    # K15 and K16 against the dense launches they replace (the dense ones
+    # update q in place, so it drifts: the timing does not depend on it)
+    print("[6] fused 3D kernels against the dense sequences they replace "
+          "(dense, fused, fused, dense)", flush=True)
+    qd, qd27 = q.clone(), q27.clone()
+    time_turns({
+        "K6 +res, K7 -> K15": (
+            lambda: cuda_transfer3.restrict(
+                ci, cuda3.sweep(so, qd, b, kind, "down", True)[1]),
+            lambda: cuda_fused3.sweep_restrict(so, q, b, ci, kind, "down",
+                                               False)),
+        "K8, K6 -> K16": (
+            lambda: cuda3.sweep(so, cuda_transfer3.interp_add(
+                ci, so, qc, b, qd), b, kind, "up"),
+            lambda: cuda_fused3.interp_sweep(ci, qc, so, b, q, kind, "up")),
+        "K6 +res, K7 -> K15 27pt 128^3": (
+            lambda: cuda_transfer3.restrict(
+                ci27, cuda3.sweep(so27, qd27, b27, kind27, "down", True)[1]),
+            lambda: cuda_fused3.sweep_restrict(so27, q27, b27, ci27, kind27,
+                                               "down", False)),
+        "K8, K6 -> K16 27pt 128^3": (
+            lambda: cuda3.sweep(so27, cuda_transfer3.interp_add(
+                ci27, so27, qc27, b27, qd27), b27, kind27, "up"),
+            lambda: cuda_fused3.interp_sweep(ci27, qc27, so27, b27, q27,
+                                             kind27, "up")),
+    }, labels=("dense", "fused"))
     # bytes and operations as in phase_times: per fine point, interp-add
     # does 67/8 operations on average over the 8 parity classes (1 at
     # coincident points, 6 / 10 / 18 at edge / face / cell points), interp
     # 52/8; a 7-point sweep 14, a 27-point one 54
     N, Nc, W, e = n ** 3, nc ** 3, 26 * (nc + 1) ** 3, 4
-    N27 = n27 ** 3
+    N27, Nc27, W27 = n27 ** 3, nc27 ** 3, 26 * (nc27 + 1) ** 3
     work = {
         "sweep3": ((4 + 3) * N * e, 14 * N),
         "sweep3 27pt 128^3": ((14 + 3) * N27 * e, 54 * N27),
         "restrict3": ((W + N + Nc) * e, 52 * Nc),
         "interp_add3": ((W + Nc + 4 * N) * e, 67 * N // 8),
         "interp3": ((W + Nc + N) * e, 52 * N // 8),
+        # the fused kernels: so, b, q read and q written, as K6; K15 adds
+        # the CI planes and writes cb, K16 reads them and qc; a residual
+        # costs what a sweep does, the norm one more read-free pass
+        "sweep3_fused": ((4 + 3) * N * e, 14 * N),
+        "sweep3_fused +norm": ((4 + 3) * N * e, 28 * N),
+        "sweep3_fused 27pt 128^3": ((14 + 3) * N27 * e, 54 * N27),
+        "sweep_restrict3": ((W + 7 * N + Nc) * e, 28 * N + 52 * Nc),
+        "sweep_restrict3 27pt 128^3": ((W27 + 17 * N27 + Nc27) * e,
+                                       108 * N27 + 52 * Nc27),
+        "interp_sweep3": ((W + Nc + 7 * N) * e, 28 * N + 67 * N // 8),
+        "interp_sweep3 +norm": ((W + Nc + 7 * N) * e,
+                                42 * N + 67 * N // 8),
+        "interp_sweep3 27pt 128^3": ((W27 + Nc27 + 17 * N27) * e,
+                                     108 * N27 + 67 * N27 // 8),
     }
     for k, (nbytes, flops) in work.items():
         bms, by = bound(nbytes, flops, torch.float32)
@@ -1462,6 +1710,7 @@ def main() -> None:
     errs = phase_kernels3(errs)
     errs = phase_kernels_planes(errs)
     errs = phase_kernels_fused(errs)
+    errs = phase_kernels_fused3(errs)
     phase_cedar_gate()
     phase_fused_gate()
     phase_f64_gates()

@@ -3,6 +3,7 @@ against cedar_tpu's Solver2, one V-cycle on a hierarchy carried across
 from JAX, the configurations outside the port, and the import boundary."""
 
 import copy
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -151,21 +152,33 @@ def test_single_level_and_post_free_cycles():
     assert s.history[-1] < 1e-3 * s.history[0]
 
 
-@pytest.mark.parametrize("conf", [
-    {"solver": {"relaxation": "line-x", "ml-relax": {"enabled": True}}},
-    {"solver": {"relaxation": "line-y"}, "grid": {"periodic": [True, True]}},
-    {"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
-    {"solver": {"relaxation": "plane-xy"}},
-    {"grid": {"periodic": [True, False]}},
-    {"solver": {"cg-solver": "cedar"}},
-    {"solver": {"cg-solver": "redist"}},
-    {"kernels": {"fine-split": True}, "grid": {"periodic": [False, True]}},
-    {"kernels": {"backend": "xla"}},
-    {"grid": {"np": [2, 2]}},
-])
-def test_unported_options_raise(conf):
-    with pytest.raises(NotImplementedError, match="cedar_tpu_torch"):
+# each refused configuration with what its message names: the ROADMAP
+# item (queue 1) that ports it, or the reason it is not ported
+UNPORTED = [
+    ({"solver": {"relaxation": "line-x", "ml-relax": {"enabled": True}}},
+     r"item 7\b"),
+    ({"solver": {"relaxation": "line-y"}, "grid": {"periodic": [True, True]}},
+     r"item 4\b"),
+    ({"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
+     r"item 9\b"),
+    ({"solver": {"relaxation": "plane-xy"}}, "use Solver3"),
+    ({"grid": {"periodic": [True, False]}}, r"item 4\b"),
+    ({"solver": {"cg-solver": "cedar"}}, r"item 5\b.*inner multigrid"),
+    ({"solver": {"cg-solver": "redist"}}, r"item 9\b"),
+    ({"kernels": {"fine-split": True}, "grid": {"periodic": [False, True]}},
+     r"item 4\b"),
+    ({"kernels": {"backend": "xla"}}, "the device decides"),
+    ({"grid": {"np": [2, 2]}}, r"item 9\b.*distribution"),
+]
+
+
+@pytest.mark.parametrize("conf,names", [
+    pytest.param(conf, names, id=f"conf{i}")
+    for i, (conf, names) in enumerate(UNPORTED)])
+def test_unported_options_raise(conf, names):
+    with pytest.raises(NotImplementedError, match="cedar_tpu_torch") as e:
         Solver2(gallery.poisson(16, 16, device="cpu"), FivePt, conf)
+    assert re.search(names, str(e.value)), str(e.value)
 
 
 def test_3d_raises():

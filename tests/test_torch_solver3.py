@@ -5,6 +5,7 @@ boundary of chip_smoke.py."""
 
 import copy
 import json
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -157,23 +158,34 @@ def test_single_level_solve():
                 {"solver": {"num-levels": 5}})
 
 
-@pytest.mark.parametrize("conf", [
-    {"solver": {"relaxation": "plane-xy"},
-     "plane-config": {"solver": {"relaxation": "point"}}},
-    {"solver": {"relaxation": "plane-xyz"},
-     "plane-config": {"solver": {"relaxation": "line-xy",
-                                 "cycle": {"type": "f"}}}},
-    {"solver": {"relaxation": "line-x"}},
-    {"grid": {"periodic": [True, False, False]}},
-    {"solver": {"cg-solver": "cedar"}},
-    {"solver": {"cg-solver": "redist"}},
-    {"kernels": {"fine-split": True}},
-    {"kernels": {"backend": "xla"}},
-    {"grid": {"np": [2, 1, 1]}},
-])
-def test_unported_options_raise(conf):
-    with pytest.raises(NotImplementedError, match="cedar_tpu_torch"):
+# each refused configuration with what its message names: the ROADMAP
+# item (queue 1) that ports it, or the reason it is not ported
+UNPORTED = [
+    ({"solver": {"relaxation": "plane-xy"},
+      "plane-config": {"solver": {"relaxation": "point"}}}, r"item 6\b"),
+    ({"solver": {"relaxation": "plane-xyz"},
+      "plane-config": {"solver": {"relaxation": "line-xy",
+                                  "cycle": {"type": "f"}}}}, r"item 6\b"),
+    ({"solver": {"relaxation": "line-x"}}, "points or planes"),
+    ({"grid": {"periodic": [True, False, False]}}, r"item 4\b"),
+    ({"solver": {"cg-solver": "cedar"}}, r"item 5\b.*inner multigrid"),
+    ({"solver": {"cg-solver": "redist"}}, r"item 9\b"),
+    ({"solver": {"relaxation": "plane-yz"},
+      "plane-config": {"solver": {"relaxation": "line-xy",
+                                  "cg-solver": "cedar"}}},
+     r"plane-config cg-solver cedar.*item 5\b"),
+    ({"kernels": {"backend": "xla"}}, "the device decides"),
+    ({"grid": {"np": [2, 1, 1]}}, r"item 9\b.*distribution"),
+]
+
+
+@pytest.mark.parametrize("conf,names", [
+    pytest.param(conf, names, id=f"conf{i}")
+    for i, (conf, names) in enumerate(UNPORTED)])
+def test_unported_options_raise(conf, names):
+    with pytest.raises(NotImplementedError, match="cedar_tpu_torch") as e:
         Solver3(gallery.poisson3(8, 8, 8, device="cpu"), SevenPt, conf)
+    assert re.search(names, str(e.value)), str(e.value)
 
 
 def test_dimension_mismatch_raises():
