@@ -1,161 +1,176 @@
 // K4: one zebra colour of 2D line relaxation, x-lines or y-lines.
 //
 // Replaces the Pallas kernel cedar_tpu/ops/pallas_lines2.py `_sweep_kernel`
-// (called by `_color_call` <- `line_relax_x` / `line_relax_y`): for every
-// line of the active colour, form the off-line right-hand side, solve the
-// tridiagonal system along the line, write the line.  The math and the
-// term order are ops/lines2.py of this package (`line_rhs_x`, `_factor`,
-// `tridiag_solve`; reference BMG2_SymStd_relax_lines_{x,y}.f90):
-//   rhs  = b + S(i,j) q(i,j-1) + S(i,j+1) q(i,j+1) [+ the 4 corner terms]
-//   LDLᵀ: l_i = e_i / d_{i-1},  d_i = a_i - l_i e_i      (e_i = -W(i,j))
-//         z_i = r_i - l_i z_{i-1},  w_i = z_i (1/d_i)
-//         x_{n-1} = w_{n-1},  x_i = w_i - l_{i+1} x_{i+1}
+// (called by `_color_call` <- `line_relax_x` / `line_relax_y`; its solve is
+// `_solve_all_lines`): for every line of the active colour, form the
+// off-line right-hand side, solve the tridiagonal system along the line,
+// write the line.  The math and the term order are ops/lines2.py of this
+// package (`line_rhs_x`, `line_coeffs_x`, `pcr_solve`; `_factor` and
+// `tridiag_solve` for short lines; reference
+// BMG2_SymStd_relax_lines_{x,y}.f90):
+//   rhs = b + S(i,j) q(i,j-1) + S(i,j+1) q(i,j+1) [+ the 4 corner terms]
+//   lines of pcr_stride h > 0 (n >= 64 points): log2 h PCR steps, then
+//   Thomas on the h interleaved systems (stencil2.cuh `solve_lines`);
+//   shorter lines: the LDLᵀ recurrence, one thread a line.
 // The y entry swaps the roles of the axes and reads the operands where
 // they lie: its rhs is the x rhs of the transposed stencil (lines2.
 // transpose_so: W<->S, SW->SWᵀ, NW->NWᵀ) in the same term order, so it
-// rounds as the plain version's transposed sweep does, without the
-// per-sweep transposes of pallas_lines2.line_relax_y.
+// rounds as the plain version's transposed sweep does.
 //
-// What bounds it on the H100: latency.  A line is a chain of 2n dependent
-// steps (an IEEE division and a multiply-subtract forward, a
-// multiply-subtract back) and only the lines of one colour are
-// independent: 1024 lines of 2048 steps at 2048², 32 warps for 132 SMs.
-// Design, two launches per colour:
-//  1. `rhs_*`: the rhs of every point of the active lines, one thread a
-//     point (fully parallel, coalesced), into a scratch buffer;
-//  2. `solve_*`: one thread per active line runs the recurrence, factoring
-//     on the fly (no setup workspace, as the Pallas kernel reads none).
-//     It reads the diagonal, the off-diagonal and the rhs kChunk steps at
-//     a time into registers before running those steps, so a chunk pays
-//     one memory latency instead of one per step (the compiler does not
-//     overlap the loads of later steps by itself, probably because of the
-//     division's slow-path branch).
-//     The forward pass stores l_i and w_i (over the rhs) in the scratch;
-//     the backward pass writes q.
-// Measured on an H100 (PERF.md, Findings): a single pass with one thread
-// per line and no chunking took 5.9 ms for a 2048² 9-point f32 x-line
-// sweep, one memory latency per step; this design takes ~1.1 ms.  The
-// TPU kernel's PCR-to-stride-16 plus interleaved Thomas (more parallel
-// lanes, another rounding) is the obvious later redesign.
-//
-// Scratch layout, per colour: x-lines step-major, s * ((ny+1)/2) + t
-// (adjacent threads, adjacent lines: coalesced); y-lines line-major,
-// t * ny + s (the row's own operands are contiguous along the line too, so
-// a thread's chunk loads share 32-byte sectors).
+// What bounds it on the H100: the dependent chains of the solve and the
+// column access of x-lines.  A line's Thomas recurrence is a chain of 2n
+// dependent steps (each with an IEEE division), and only the lines of one
+// colour are independent: 1024 lines of 2048 points at 2048², 32 warps for
+// 132 SMs.  PCR to stride h cuts the chain to log2 h block-wide steps plus
+// 2n/h dependent steps, with h threads a line.
+// Design, one launch a colour (the first design took two: an rhs
+// pass into a device-memory scratch, then one thread a line running the
+// recurrence from it in 16-step load chunks, 1.07 / 1.19 ms for a 2048²
+// 9-point f32 x / y sweep on the H100):
+//  * a block takes `lines` adjacent active lines (3 of 2048 f32 points:
+//    two buffers of npad rows of 4 values a line, 64 KB) and stages them
+//    into shared memory (stencil2.cuh `stage_lines`): the rhs from b, q and
+//    the off-line couplings, the diagonal and the two couplings along the
+//    line; y-lines are rows, read whole;
+//  * x-lines are columns: a block alone would read runs of 2·lines+1
+//    columns a row.  So x-lines run in clusters of kCluster blocks that
+//    stage and store together (`line_x_cluster`): each block
+//    takes a kCluster-th of the rows of all the cluster's lines, runs of
+//    2·kCluster·lines columns, and writes each row into the shared memory
+//    of the block that owns its line (distributed shared memory);
+//  * the block solves its lines in shared memory (`solve_lines`): each PCR
+//    step reads a row and its neighbours at ±h' from one buffer and writes
+//    the new row to the other, then a barrier; then lines·h threads run
+//    Thomas over the interleaved systems;
+//  * the solutions go back to q from shared memory (`store_lines`).
+// A line too long for the shared memory the wrapper gives it
+// (ops/cuda_lines2.LINE_SMEM) keeps its buffers in a device-memory scratch
+// instead, one line a block, in the same code.
+// Measured on an H100 (PERF.md, Findings): 0.29 / 0.21 ms for a 2048²
+// 9-point f32 x / y sweep, 7.3× / 5.4× its bytes bound; without the
+// clusters x took 0.37.
 //
 // In place is race-free: the rhs of line j reads q only on lines j +- 1,
-// which belong to the other colour, and a thread writes only its own line
+// which belong to the other colour, and a block writes only its own lines
 // (the Python wrapper, ops/cuda_lines2.py, refuses aliased operands and
 // other stencil kinds).  Couplings whose neighbour lies outside the grid
 // (S(i, j+1) at j = ny-1, W(i+1, j) at i = nx-1, and the corners) read as
 // exactly 0, as the zero-filled shifts of the plain version give.
+
+#include <cooperative_groups.h>
 
 #include "stencil2.cuh"
 
 namespace cedar {
 namespace {
 
-constexpr int kLineBlock = 32;  // threads (lines) per block of the solve
+// Blocks of a cluster that stage and store x-lines together.
+constexpr int kCluster = 4;
 
-// rhs_x, rhs_y and solve_line are in stencil2.cuh, shared with K10.
-
-// rbuf[z * ((ny+1)/2) + t]: the rhs of step z of x-line t (column 2t+parity)
+// y-lines: block b solves the active lines b*lines .. b*lines + lines - 1
+// of the colour `parity` (the rows 2t + parity).
 template <typename T, bool NINE>
-__global__ void rhs_x_kernel(const T* __restrict__ so, const T* __restrict__ q,
-                             const T* __restrict__ b, T* __restrict__ rbuf,
-                             int nx, int ny, int parity) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  const int j = 2 * t + parity;
-  if (j >= ny || z >= nx) return;
-  rbuf[(long long)z * ((ny + 1) / 2) + t] = rhs_x<T, NINE>(
-      so, q, b, (long long)nx * ny, (long long)z * ny + j, ny, z > 0,
-      z + 1 < nx, j > 0, j + 1 < ny);
+__global__ void __launch_bounds__(1024)
+    line_y_kernel(const T* __restrict__ so, T* q, const T* __restrict__ b,
+                  Row<T>* scratch, int nx, int ny, int parity, int h,
+                  int lines) {
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  const int t0 = blockIdx.x * lines;
+  Row<T>* base = scratch ? scratch + 2LL * blockIdx.x * lines * line_pad(ny, h)
+                         : reinterpret_cast<Row<T>*>(smem_raw);
+  const Lines<T> L(base, lines, min(lines, (nx - parity + 1) / 2 - t0), ny,
+                   h);
+  stage_lines<T, NINE, true>(L, so, q, b, (long long)nx * ny, nx, ny, parity,
+                             t0);
+  __syncthreads();
+  const Row<T>* x = solve_lines(L);
+  __syncthreads();
+  store_lines<T, true>(L, x, q, ny, parity, t0);
 }
 
-// rbuf[t * ny + w]: the rhs of step w of y-line t (row 2t+parity)
+// x-lines (the columns 2t + parity), a cluster of kCluster blocks: block r
+// of the cluster holds the lines c0 + r*lines .. c0 + r*lines + lines - 1
+// and solves them, as line_y_kernel's block does its rows, but the cluster
+// stages and stores its lines together, each block a kCluster-th of the
+// rows of every line of the cluster, into and from the owning block's
+// buffers (its shared memory, or its share of the scratch).  A row of the
+// cluster's lines is then a run of 2·kCluster·lines columns, not
+// 2·lines.
 template <typename T, bool NINE>
-__global__ void rhs_y_kernel(const T* __restrict__ so, const T* __restrict__ q,
-                             const T* __restrict__ b, T* __restrict__ rbuf,
-                             int nx, int ny, int parity) {
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t = blockIdx.y * blockDim.y + threadIdx.y;
-  const int i = 2 * t + parity;
-  if (i >= nx || w >= ny) return;
-  rbuf[(long long)t * ny + w] = rhs_y<T, NINE>(
-      so, q, b, (long long)nx * ny, (long long)i * ny + w, ny, i > 0,
-      i + 1 < nx, w > 0, w + 1 < ny);
-}
-
-// x-lines: thread t solves column j = 2t + parity along z = 0..nx-1.
-template <typename T>
-__global__ void solve_x_kernel(const T* __restrict__ so, T* __restrict__ q,
-                               T* __restrict__ lw, int nx, int ny,
-                               int parity) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int j = 2 * t + parity;
-  if (j >= ny) return;
-  const long long P = (long long)nx * ny;
-  const int stride = (ny + 1) / 2;
-  T* rbuf = lw;
-  T* lbuf = lw + (long long)nx * stride;
-  solve_line<T>(so + j, so + W * P + j, rbuf + t, lbuf + t, q + j, nx, ny,
-                stride, ny);
-}
-
-// y-lines: thread t solves row i = 2t + parity along w = 0..ny-1.
-template <typename T>
-__global__ void solve_y_kernel(const T* __restrict__ so, T* __restrict__ q,
-                               T* __restrict__ lw, int nx, int ny,
-                               int parity) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i = 2 * t + parity;
-  if (i >= nx) return;
-  const long long P = (long long)nx * ny;
-  const long long row = (long long)i * ny;
-  T* rbuf = lw;
-  T* lbuf = lw + (long long)ny * ((nx + 1) / 2);
-  solve_line<T>(so + row, so + S * P + row, rbuf + (long long)t * ny,
-                lbuf + (long long)t * ny, q + row, ny, 1, 1, 1);
-}
-
-template <typename T, bool Y>
-int launch(const void* so_, void* q_, const void* b_, void* lw_, int nx,
-           int ny, int nine, int parity, cudaStream_t st) {
-  const int nactive = ((Y ? nx : ny) - parity + 1) / 2;
-  if (nactive <= 0) return 0;
-  const T* so = (const T*)so_;
-  const T* b = (const T*)b_;
-  T* q = (T*)q_;
-  T* lw = (T*)lw_;
-  const dim3 block(kBlockX, kBlockY);
-  const dim3 lines((nactive + kLineBlock - 1) / kLineBlock);
-  if (Y) {
-    const dim3 grid = grid_for(nactive, ny);
-    if (nine)
-      rhs_y_kernel<T, true><<<grid, block, 0, st>>>(so, q, b, lw, nx, ny, parity);
-    else
-      rhs_y_kernel<T, false><<<grid, block, 0, st>>>(so, q, b, lw, nx, ny, parity);
-    solve_y_kernel<T><<<lines, kLineBlock, 0, st>>>(so, q, lw, nx, ny, parity);
-  } else {
-    const dim3 grid = grid_for(nx, nactive);
-    if (nine)
-      rhs_x_kernel<T, true><<<grid, block, 0, st>>>(so, q, b, lw, nx, ny, parity);
-    else
-      rhs_x_kernel<T, false><<<grid, block, 0, st>>>(so, q, b, lw, nx, ny, parity);
-    solve_x_kernel<T><<<lines, kLineBlock, 0, st>>>(so, q, lw, nx, ny, parity);
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(1024)
+    line_x_cluster(const T* __restrict__ so, T* q, const T* __restrict__ b,
+                   Row<T>* scratch, int nx, int ny, int parity, int h,
+                   int lines) {
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(32) unsigned char smem_raw[];
+  const cg::cluster_group cl = cg::this_cluster();
+  const int rank = (int)cl.block_rank();
+  const int npad = line_pad(nx, h);
+  const int c0 = blockIdx.x / kCluster * kCluster * lines;
+  const int ncl = min(kCluster * lines, (ny - parity + 1) / 2 - c0);
+  const long long per_block = 2LL * lines * npad;  // rows of two buffers
+  Row<T>* own = scratch ? scratch + blockIdx.x * per_block
+                        : reinterpret_cast<Row<T>*>(smem_raw);
+  auto base_of = [&](int r) -> Row<T>* {
+    return scratch ? own + (r - rank) * per_block : cl.map_shared_rank(own, r);
+  };
+  const Lines<T> L(own, lines, max(0, min(lines, ncl - rank * lines)), nx, h);
+  const int share = (npad + kCluster - 1) / kCluster;
+  const int i0 = rank * share, rows = max(0, min(share, npad - i0));
+  for (int k = threadIdx.x; k < ncl * rows; k += blockDim.x) {
+    const int l = k % ncl, i = i0 + k / ncl;
+    base_of(l / lines)[(l % lines) * npad + i] = line_row<T, NINE, false>(
+        so, q, b, (long long)nx * ny, nx, ny, 2 * (c0 + l) + parity, i);
   }
+  cl.sync();
+  const long long x = solve_lines(L) - own;  // the same buffer in every block
+  cl.sync();
+  for (int k = threadIdx.x; k < ncl * rows; k += blockDim.x) {
+    const int l = k % ncl, i = i0 + k / ncl;
+    if (i < nx)
+      q[(long long)i * ny + 2 * (c0 + l) + parity] =
+          base_of(l / lines)[x + (l % lines) * npad + i].r;
+  }
+  cl.sync();  // no block leaves while another reads its shared memory
+}
+
+template <typename T, bool NINE, bool Y>
+int launch_kind(const T* so, T* q, const T* b, Row<T>* scratch, int nx,
+                int ny, int parity, int h, int lines, cudaStream_t st) {
+  const int n = Y ? ny : nx;
+  const int nactive = ((Y ? nx : ny) - parity + 1) / 2;
+  if (nactive <= 0 || n <= 0) return 0;
+  if (lines <= 0 || h < 0) return (int)cudaErrorInvalidValue;
+  const int npad = line_pad(n, h);
+  const size_t smem = scratch ? 0 : lines_bytes<T>(lines, npad);
+  auto fn = Y ? line_y_kernel<T, NINE> : line_x_cluster<T, NINE>;
+  if (smem > 47 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int blocks = (nactive + lines - 1) / lines;
+  if (!Y) blocks = (blocks + kCluster - 1) / kCluster * kCluster;
+  fn<<<blocks, line_threads((long long)lines * npad), smem, st>>>(
+      so, q, b, scratch, nx, ny, parity, h, lines);
   return (int)cudaGetLastError();
 }
 
 template <bool Y>
-int dispatch(int dtype, const void* so, void* q, const void* b, void* lw,
-             int nx, int ny, int nine, int parity, void* stream) {
+int dispatch(int dtype, const void* so, void* q, const void* b,
+             void* scratch, int nx, int ny, int nine, int parity, int h,
+             int lines, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == kFloat32)
-    return launch<float, Y>(so, q, b, lw, nx, ny, nine, parity, st);
-  if (dtype == kFloat64)
-    return launch<double, Y>(so, q, b, lw, nx, ny, nine, parity, st);
+#define CEDAR_LINE2(T)                                                       \
+  return nine ? launch_kind<T, true, Y>((const T*)so, (T*)q, (const T*)b,    \
+                                        (Row<T>*)scratch, nx, ny, parity, h, \
+                                        lines, st)                           \
+              : launch_kind<T, false, Y>((const T*)so, (T*)q, (const T*)b,   \
+                                         (Row<T>*)scratch, nx, ny, parity,   \
+                                         h, lines, st)
+  if (dtype == kFloat32) CEDAR_LINE2(float);
+  if (dtype == kFloat64) CEDAR_LINE2(double);
+#undef CEDAR_LINE2
   return (int)cudaErrorInvalidValue;
 }
 
@@ -165,25 +180,29 @@ int dispatch(int dtype, const void* so, void* q, const void* b, void* lw,
 extern "C" {
 
 // One zebra colour of x-line relaxation (lines along the first axis, one
-// per column of the given parity), in place on q (nx, ny): two kernel
-// launches.  lw is scratch of 2 * nx * ((ny + 1) / 2) elements.
+// per column of the given parity), in place on q (nx, ny): one kernel
+// launch.  h: the PCR interleave stride of a line of nx points
+// (ops/lines2.pcr_stride; 0 for the LDLᵀ recurrence); lines: active lines
+// a block; scratch: null to hold the lines in shared memory, or
+// 8 * lines * npad elements a block (npad: stencil2.cuh `line_pad`), the
+// blocks of the active lines rounded up to a multiple of kCluster.
 // Returns cudaGetLastError().
 int cedar_line2_x(int dtype, const void* so, void* q, const void* b,
-                  void* lw, int nx, int ny, int nine, int parity,
-                  void* stream) {
-  return cedar::dispatch<false>(dtype, so, q, b, lw, nx, ny, nine, parity,
-                                stream);
+                  void* scratch, int nx, int ny, int nine, int parity, int h,
+                  int lines, void* stream) {
+  return cedar::dispatch<false>(dtype, so, q, b, scratch, nx, ny, nine,
+                                parity, h, lines, stream);
 }
 
 // One zebra colour of y-line relaxation (lines along the second axis, one
-// per row of the given parity), in place on q (nx, ny): two kernel
-// launches.  lw is scratch of 2 * ny * ((nx + 1) / 2) elements.
+// per row of the given parity), in place on q (nx, ny): one kernel launch;
+// the arguments as cedar_line2_x's, h that of a line of ny points.
 // Returns cudaGetLastError().
 int cedar_line2_y(int dtype, const void* so, void* q, const void* b,
-                  void* lw, int nx, int ny, int nine, int parity,
-                  void* stream) {
-  return cedar::dispatch<true>(dtype, so, q, b, lw, nx, ny, nine, parity,
-                               stream);
+                  void* scratch, int nx, int ny, int nine, int parity, int h,
+                  int lines, void* stream) {
+  return cedar::dispatch<true>(dtype, so, q, b, scratch, nx, ny, nine,
+                               parity, h, lines, stream);
 }
 
 }  // extern "C"

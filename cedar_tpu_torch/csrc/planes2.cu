@@ -19,114 +19,94 @@
 // TPU kernel pads nx to 16 and ny to 128); lines of 1, 2 or 3 points
 // included.
 //
-// What bounds it on the H100: latency.  A colour pass is a chain of 2n
-// dependent steps per line (an IEEE division and a multiply-subtract
-// forward, a multiply-subtract back), and a smooth is four such passes one
-// after the other; only the lines of one colour of one plane are
-// independent.  Its bytes are small: a (64, 128, 128) f32 5-point batch
-// reads 3 stencil planes, b and q and writes q, about 25 MB, which fits the
-// 50 MB L2.  Design, one launch for the whole call:
-//  * one block per plane, looping over the sweeps and their four colour
-//    passes with a block barrier between phases;
-//  * in each pass the block's threads first write the rhs of every point
-//    of the active lines into the plane's scratch (K4's rhs pass: x-lines
-//    step-major, y-lines line-major), then one thread a line runs K4's
-//    chunked LDLᵀ recurrence, factored on the fly (no setup workspace);
+// What bounds it on the H100: the dependent chains of the line solves.
+// Only the lines of one colour of one plane are independent, and a smooth
+// is four colour passes one after the other.  Its bytes are small: a (64,
+// 128, 128) f32 5-point batch reads 3 stencil planes, b and q and writes
+// q, about 25 MB, which fits the 50 MB L2.
+// Design, one launch for the whole call, a block a plane (the first
+// design ran 128 threads a plane, an rhs pass into a device-memory
+// scratch and one thread a line running the LDLᵀ recurrence: 2·128
+// dependent steps a pass, 0.57 ms for 2 smooths + the residual of a (64,
+// 128, 128) 5-point f32 batch on the H100):
+//  * each of the block's colour passes stages its active lines into shared
+//    memory (stencil2.cuh `stage_lines`, K4's staging), solves them there
+//    (`solve_lines`: PCR to stride h, then Thomas on the interleaved
+//    systems, for lines of 64 points or more; the LDLᵀ recurrence below)
+//    and writes them back to q (`store_lines`), with block barriers
+//    between.  A line takes two buffers of npad rows of 4 values (4 KB for
+//    a 128-point f32 line), so a pass runs in groups of as many lines as
+//    the shared memory the wrapper gives holds (ops/cuda_planes2.py: 48 of
+//    the 64 lines of a 128² f32 plane).  A 128-point line's pass is
+//    log2 h PCR steps and 2·128/h dependent Thomas steps (h = 8);
+//  * the block has up to 1024 threads (4 rows a thread);
 //  * with a residual, a last phase writes b - A q, one thread a point.
-// q, b, the stencil and the scratch stay in device memory (L2-resident at
-// the sizes above); keeping q in shared memory is later work.
+// q, b and the stencil stay in device memory (L2-resident at the sizes
+// above).  What remains: 64 planes are 64 blocks for 132 SMs, and a pass
+// of a 128² f32 plane is two groups one after the other; a cluster of
+// blocks a plane is later work.  Measured: PERF.md, Findings.
 //
 // In place is race-free: a pass's rhs reads q only on lines of the other
 // colour, its solves write only their own lines, and the barriers order
 // the phases (the Python wrapper refuses aliased operands and other
 // stencil kinds).
 
-#include <algorithm>
-
 #include "stencil2.cuh"
 
 namespace cedar {
 namespace {
 
-constexpr int kThreads = 128;  // threads per block (= per plane)
-
-// One zebra colour of x-lines (columns j = 2t + parity) of one plane.
-// Scratch: rbuf[z * ((ny+1)/2) + t] holds the rhs (then w), lbuf the l.
-template <typename T, bool NINE>
-__device__ void pass_x(const T* __restrict__ so, T* q,
-                       const T* __restrict__ b, T* lw, long long P, int nx,
-                       int ny, int parity) {
-  const int nactive = (ny - parity + 1) / 2;
-  const int stride = (ny + 1) / 2;
-  T* rbuf = lw;
-  T* lbuf = lw + (long long)nx * stride;
-  const long long work = (long long)nx * nactive;
-  for (long long k = threadIdx.x; k < work; k += blockDim.x) {
-    const int z = (int)(k / nactive), t = (int)(k % nactive);
-    const int j = 2 * t + parity;
-    rbuf[(long long)z * stride + t] = rhs_x<T, NINE>(
-        so, q, b, P, (long long)z * ny + j, ny, z > 0, z + 1 < nx, j > 0,
-        j + 1 < ny);
+// One zebra colour of x-lines (Y false: columns 2t + parity) or y-lines
+// (rows 2t + parity) of one plane, `lines` lines a group, in place on q.
+template <typename T, bool NINE, bool Y>
+__device__ void pass(const T* __restrict__ so, T* q, const T* __restrict__ b,
+                     Row<T>* base, long long P, int nx, int ny, int parity,
+                     int h, int lines) {
+  const int nactive = ((Y ? nx : ny) - parity + 1) / 2;
+  for (int t0 = 0; t0 < nactive; t0 += lines) {
+    const Lines<T> L(base, lines, min(lines, nactive - t0), Y ? ny : nx, h);
+    stage_lines<T, NINE, Y>(L, so, q, b, P, nx, ny, parity, t0);
+    __syncthreads();
+    const Row<T>* x = solve_lines(L);
+    __syncthreads();
+    store_lines<T, Y>(L, x, q, ny, parity, t0);
+    __syncthreads();
   }
-  __syncthreads();
-  for (int t = threadIdx.x; t < nactive; t += blockDim.x) {
-    const int j = 2 * t + parity;
-    solve_line<T>(so + j, so + W * P + j, rbuf + t, lbuf + t, q + j, nx, ny,
-                  stride, ny);
-  }
-  __syncthreads();
 }
 
-// One zebra colour of y-lines (rows i = 2t + parity) of one plane.
-// Scratch: rbuf[t * ny + w] holds the rhs (then w), lbuf the l.
-template <typename T, bool NINE>
-__device__ void pass_y(const T* __restrict__ so, T* q,
-                       const T* __restrict__ b, T* lw, long long P, int nx,
-                       int ny, int parity) {
-  const int nactive = (nx - parity + 1) / 2;
-  T* rbuf = lw;
-  T* lbuf = lw + (long long)ny * ((nx + 1) / 2);
-  const long long work = (long long)nactive * ny;
-  for (long long k = threadIdx.x; k < work; k += blockDim.x) {
-    const int t = (int)(k / ny), w = (int)(k % ny);
-    const int i = 2 * t + parity;
-    rbuf[k] = rhs_y<T, NINE>(so, q, b, P, (long long)i * ny + w, ny, i > 0,
-                             i + 1 < nx, w > 0, w + 1 < ny);
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < nactive; t += blockDim.x) {
-    const long long row = (long long)(2 * t + parity) * ny;
-    solve_line<T>(so + row, so + S * P + row, rbuf + (long long)t * ny,
-                  lbuf + (long long)t * ny, q + row, ny, 1, 1, 1);
-  }
-  __syncthreads();
-}
+struct Plan {
+  int hx, hy, lx, ly;     // PCR strides and lines a group, x and y passes
+  long long per_plane;    // scratch elements a plane (0: shared memory)
+};
 
 // Block p smooths plane p in place; res (or nullptr) takes b - A q.
 template <typename T, bool NINE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(1024)
     smooth_kernel(const T* __restrict__ so, T* q, const T* __restrict__ b,
                   T* __restrict__ res, T* scratch, int nb, int nx, int ny,
-                  int up, int nsweeps, long long per_plane) {
+                  int up, int nsweeps, Plan pl) {
   using A = Arith<T>;
+  extern __shared__ __align__(32) unsigned char smem_raw[];
   const int p = blockIdx.x;
   const long long N = (long long)nx * ny;
   const long long P = nb * N;
   so += p * N;
   q += p * N;
   b += p * N;
-  T* lw = scratch + p * per_plane;
+  Row<T>* base = pl.per_plane
+                     ? reinterpret_cast<Row<T>*>(scratch + p * pl.per_plane)
+                     : reinterpret_cast<Row<T>*>(smem_raw);
   for (int s = 0; s < nsweeps; ++s) {
     if (!up) {
-      pass_x<T, NINE>(so, q, b, lw, P, nx, ny, 1);
-      pass_x<T, NINE>(so, q, b, lw, P, nx, ny, 0);
-      pass_y<T, NINE>(so, q, b, lw, P, nx, ny, 1);
-      pass_y<T, NINE>(so, q, b, lw, P, nx, ny, 0);
+      pass<T, NINE, false>(so, q, b, base, P, nx, ny, 1, pl.hx, pl.lx);
+      pass<T, NINE, false>(so, q, b, base, P, nx, ny, 0, pl.hx, pl.lx);
+      pass<T, NINE, true>(so, q, b, base, P, nx, ny, 1, pl.hy, pl.ly);
+      pass<T, NINE, true>(so, q, b, base, P, nx, ny, 0, pl.hy, pl.ly);
     } else {
-      pass_y<T, NINE>(so, q, b, lw, P, nx, ny, 0);
-      pass_y<T, NINE>(so, q, b, lw, P, nx, ny, 1);
-      pass_x<T, NINE>(so, q, b, lw, P, nx, ny, 0);
-      pass_x<T, NINE>(so, q, b, lw, P, nx, ny, 1);
+      pass<T, NINE, true>(so, q, b, base, P, nx, ny, 0, pl.hy, pl.ly);
+      pass<T, NINE, true>(so, q, b, base, P, nx, ny, 1, pl.hy, pl.ly);
+      pass<T, NINE, false>(so, q, b, base, P, nx, ny, 0, pl.hx, pl.lx);
+      pass<T, NINE, false>(so, q, b, base, P, nx, ny, 1, pl.hx, pl.lx);
     }
   }
   if (res == nullptr) return;
@@ -142,18 +122,23 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 int launch(const void* so, void* q, const void* b, void* res, void* scratch,
            int nb, int nx, int ny, int nine, int up, int nsweeps,
-           cudaStream_t st) {
+           const Plan& pl, cudaStream_t st) {
   if (nb <= 0 || nx <= 0 || ny <= 0) return 0;
-  const long long per_plane = 2 * std::max((long long)nx * ((ny + 1) / 2),
-                                            (long long)ny * ((nx + 1) / 2));
-  if (nine)
-    smooth_kernel<T, true><<<nb, kThreads, 0, st>>>(
-        (const T*)so, (T*)q, (const T*)b, (T*)res, (T*)scratch, nb, nx, ny,
-        up, nsweeps, per_plane);
-  else
-    smooth_kernel<T, false><<<nb, kThreads, 0, st>>>(
-        (const T*)so, (T*)q, (const T*)b, (T*)res, (T*)scratch, nb, nx, ny,
-        up, nsweeps, per_plane);
+  if (pl.lx <= 0 || pl.ly <= 0 || pl.hx < 0 || pl.hy < 0 ||
+      (pl.per_plane > 0) != (scratch != nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long rows = std::max((long long)pl.lx * line_pad(nx, pl.hx),
+                                  (long long)pl.ly * line_pad(ny, pl.hy));
+  const size_t smem = pl.per_plane ? 0 : lines_bytes<T>(rows, 1);
+  auto fn = nine ? smooth_kernel<T, true> : smooth_kernel<T, false>;
+  if (smem > 47 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fn<<<nb, line_threads(rows), smem, st>>>(
+      (const T*)so, (T*)q, (const T*)b, (T*)res, (T*)scratch, nb, nx, ny,
+      up, nsweeps, pl);
   return (int)cudaGetLastError();
 }
 
@@ -164,18 +149,24 @@ extern "C" {
 
 // nsweeps line-xy smooths (up = 0: DOWN order, 1: UP) of the nb planes of
 // q (nb, nx, ny), in place, then res = b - A q when res is not null: one
-// kernel launch.  scratch holds 2 * max(nx * ((ny+1)/2), ny * ((nx+1)/2))
-// elements per plane.  Returns cudaGetLastError().
+// kernel launch.  hx, hy: the PCR interleave strides of the x-lines (nx
+// points) and y-lines (ny points), ops/lines2.pcr_stride (0: the LDLᵀ
+// recurrence); lx, ly: lines a group of an x or y pass; scratch: null to
+// hold a group in shared memory, or per_plane elements a plane (8 * the
+// larger of lx * npad_x and ly * npad_y, npad: stencil2.cuh `line_pad`).
+// Returns cudaGetLastError().
 int cedar_line_xy_smooth2(int dtype, const void* so, void* q, const void* b,
                           void* res, void* scratch, int nb, int nx, int ny,
-                          int nine, int up, int nsweeps, void* stream) {
+                          int nine, int up, int nsweeps, int hx, int hy,
+                          int lx, int ly, long long per_plane, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const cedar::Plan pl{hx, hy, lx, ly, per_plane};
   if (dtype == cedar::kFloat32)
     return cedar::launch<float>(so, q, b, res, scratch, nb, nx, ny, nine, up,
-                                nsweeps, st);
+                                nsweeps, pl, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch<double>(so, q, b, res, scratch, nb, nx, ny, nine, up,
-                                 nsweeps, st);
+                                 nsweeps, pl, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,9 @@
 // 2D stencil device code shared by K1 (sweep2.cu), K4 (lines2.cu), K10
 // (planes2.cu) and K11-K13 (fused2.cu), so that the kernels round alike:
 // the off-diagonal sum of the residual, the off-line right-hand sides of
-// the line solves and the LDLᵀ line solve.  The term orders are those of
-// ops/stencil2.py
-// (`offdiag_apply`) and ops/lines2.py (`line_rhs_x`, `_factor`,
-// `tridiag_solve`) of this package.
+// the line solves and the line solve itself.  The term orders are those of
+// ops/stencil2.py (`offdiag_apply`) and ops/lines2.py (`line_rhs_x`,
+// `_factor`, `tridiag_solve`, `pcr_solve`) of this package.
 //
 // Each function reads one plane (nx, ny), row-major: `so` points at its
 // plane O and stencil plane d sits at so + d * P, where P is the stride
@@ -16,13 +15,14 @@
 // the zero-filled shifts of the plain versions give.
 #pragma once
 
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace cedar {
 
 // Dir2 plane indices (core/types.py); plane O = 0 is indexed directly
 constexpr int W = 1, S = 2, SW = 3, NW = 4;
-constexpr int kChunk = 16;  // line-solve steps whose loads issue together
 
 // Σ coupling · q(neighbour) at (z, w), in stencil2.offsets_for order, with
 // q read through qp = &q(z, w) and the row stride qs of what qp points
@@ -103,67 +103,268 @@ __device__ __forceinline__ T rhs_y(const T* __restrict__ so, const T* q,
   return r;
 }
 
-// The LDLᵀ solve of one line of n points: diagonal a[s*as], off-diagonal
-// -c[s*as] (coupling s-1 and s), rhs r[s*rs] (overwritten by w), the
-// multipliers to l[s*rs], the solution to q[s*qs].  The loads of kChunk
-// steps are issued together before those steps run, so a chunk pays one
-// memory latency instead of one per step.
+// ---- the line solve of K4 and K10 (ops/lines2.py `sweep_x_torch`) ------
+//
+// A block stages some lines of one zebra colour (`stage_lines`), solves
+// them (`solve_lines`) and writes them back (`store_lines`), with a block
+// barrier between the phases.  A line of n points is held as npad rows,
+// each the coupling to the row before (lo), the diagonal (dg), the coupling
+// to the row after (up) and the rhs (r), which the solution replaces.
+// Lines of pcr_stride h > 0 (ops/lines2.pcr_stride) take log2 h PCR steps,
+// then Thomas on the h interleaved systems; shorter lines (h = 0) take the
+// LDLᵀ recurrence, one thread a line.
+
+// One row of a line's system, read and written as one vector.
 template <typename T>
-__device__ __forceinline__ void solve_line(const T* __restrict__ a,
-                                           const T* __restrict__ c,
-                                           T* __restrict__ r,
-                                           T* __restrict__ l, T* q, int n,
-                                           long long as, long long rs,
-                                           long long qs) {
+struct alignas(4 * sizeof(T)) Row {
+  T lo, dg, up, r;
+};
+
+// The rows a line of n points is held in: a multiple of h for PCR (the pad
+// rows are identity rows), n made odd for the LDLᵀ recurrence, so that the
+// threads that run one line each read different shared-memory banks.
+__host__ __device__ inline int line_pad(int n, int h) {
+  return h ? (n + h - 1) / h * h : (n | 1);
+}
+
+// nl lines of one colour in two buffers of cap * npad rows, a and b (row i
+// of line l at l * npad + i), in shared memory or, for a line too long for
+// it, in device memory.  The PCR steps go from one buffer to the other.
+template <typename T>
+struct Lines {
+  Row<T>* a;
+  Row<T>* b;
+  int nl, n, npad, h;
+  __device__ Lines(Row<T>* base, int cap, int nl_, int n_, int h_)
+      : a(base), nl(nl_), n(n_), npad(line_pad(n_, h_)), h(h_) {
+    b = base + (long long)cap * npad;
+  }
+};
+
+// Row i of the line `line` (x-lines, Y false: the column `line` along z;
+// y-lines: the row `line` along w) of n points: lo = -W(i) (x) or -S(i)
+// (y), 0 at i = 0; up = the same coupling at i + 1, 0 at the last point;
+// dg = O; r = the rhs (rhs_x / rhs_y), as lines2.line_coeffs_x and
+// line_rhs_x give them.  Pad rows (i >= n) are identity rows.
+template <typename T, bool NINE, bool Y>
+__device__ __forceinline__ Row<T> line_row(const T* __restrict__ so,
+                                           const T* q,
+                                           const T* __restrict__ b,
+                                           long long P, int nx, int ny,
+                                           int line, int i) {
+  Row<T> v{T(0), T(1), T(0), T(0)};
+  if (Y && i < ny) {
+    const long long idx = (long long)line * ny + i;
+    v.lo = i > 0 ? -so[S * P + idx] : T(0);
+    v.up = i + 1 < ny ? -so[S * P + idx + 1] : T(0);
+    v.dg = so[idx];
+    v.r = rhs_y<T, NINE>(so, q, b, P, idx, ny, line > 0, line + 1 < nx,
+                         i > 0, i + 1 < ny);
+  } else if (!Y && i < nx) {
+    const long long idx = (long long)i * ny + line;
+    v.lo = i > 0 ? -so[W * P + idx] : T(0);
+    v.up = i + 1 < nx ? -so[W * P + idx + ny] : T(0);
+    v.dg = so[idx];
+    v.r = rhs_x<T, NINE>(so, q, b, P, idx, ny, i > 0, i + 1 < nx,
+                         line > 0, line + 1 < ny);
+  }
+  return v;
+}
+
+// Stage the active lines t0 .. t0 + L.nl - 1 of the zebra colour `parity`
+// into L.a: x-lines (Y false) are the columns 2t + parity, y-lines the
+// rows 2t + parity (line_row).  Adjacent threads take adjacent lines of a
+// row (x-lines: the row's run of columns) or adjacent points of a row (y).
+// A thread forms kStage rows before it stores them, so that their loads
+// are in flight together.
+constexpr int kStage = 2;
+
+template <typename T, bool NINE, bool Y>
+__device__ void stage_lines(const Lines<T>& L, const T* __restrict__ so,
+                            const T* q, const T* __restrict__ b, long long P,
+                            int nx, int ny, int parity, int t0) {
+  const int total = L.nl * L.npad, nt = blockDim.x;
+  for (int k0 = threadIdx.x; k0 < total; k0 += kStage * nt) {
+    Row<T> v[kStage];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int k = k0 + u * nt;
+      const int l = Y ? k / L.npad : k % L.nl;
+      const int i = Y ? k % L.npad : k / L.nl;
+      if (k < total)
+        v[u] = line_row<T, NINE, Y>(so, q, b, P, nx, ny,
+                                    2 * (t0 + l) + parity, i);
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int k = k0 + u * nt;
+      if (k < total)
+        L.a[Y ? k : (k % L.nl) * L.npad + k / L.nl] = v[u];
+    }
+  }
+}
+
+// Write the solution (the r of `rows`, one of L's buffers) back into q,
+// mapped as stage_lines maps the lines.
+template <typename T, bool Y>
+__device__ void store_lines(const Lines<T>& L, const Row<T>* rows, T* q,
+                            int ny, int parity, int t0) {
+  const int total = L.nl * L.n;
+  for (int k = threadIdx.x; k < total; k += blockDim.x) {
+    const int l = Y ? k / L.n : k % L.nl;
+    const int i = Y ? k % L.n : k / L.nl;
+    const int line = 2 * (t0 + l) + parity;
+    q[Y ? (long long)line * ny + i : (long long)i * ny + line] =
+        rows[l * L.npad + i].r;
+  }
+}
+
+// The LDLᵀ solve of one line (lines2._factor, then tridiag_solve), factored
+// on the fly, in place on its rows: diagonal dg, off-diagonal lo (lo[s]
+// couples s-1 and s), rhs r (replaced by the solution), the multipliers
+// into up.
+//   l_s = e_s / d_{s-1},  d_s = a_s - l_s e_s,  z_s = r_s - l_s z_{s-1},
+//   w_s = z_s (1/d_s);  x_{n-1} = w_{n-1},  x_s = w_s - l_{s+1} x_{s+1}
+template <typename T>
+__device__ void ldlt_solve(Row<T>* v, int n) {
   using A = Arith<T>;
-  T d = a[0];
-  T z = r[0];
-  r[0] = A::mul(z, A::div(T(1), d));
-  for (int s0 = 1; s0 < n; s0 += kChunk) {
-    T av[kChunk], cv[kChunk], rv[kChunk];
+  T d = v[0].dg;
+  T z = v[0].r;
+  v[0].r = A::mul(z, A::div(T(1), d));
+  for (int s = 1; s < n; ++s) {
+    const T e = v[s].lo;
+    const T li = A::div(e, d);
+    d = A::sub(v[s].dg, A::mul(li, e));
+    z = A::sub(v[s].r, A::mul(li, z));
+    v[s].up = li;
+    v[s].r = A::mul(z, A::div(T(1), d));
+  }
+  T x = v[n - 1].r;
+  for (int s = n - 2; s >= 0; --s) {
+    x = A::sub(v[s].r, A::mul(v[s + 1].up, x));
+    v[s].r = x;
+  }
+}
+
+// One PCR step of stride hh from the rows `src` to `dst` (rows rows, npad
+// a line), in the term order of lines2.pcr_solve:
+//   al = lo / dg[i-hh],  be = up / dg[i+hh],
+//   dg = dg - al up[i-hh] - be lo[i+hh],  r = r - al r[i-hh] - be r[i+hh],
+//   lo = -al lo[i-hh],  up = -be up[i+hh]
+// with rows off the line read as identity rows.  The caller meets a block
+// barrier before the next step reads dst.
+template <typename T>
+__device__ void pcr_step(const Row<T>* src, Row<T>* dst, int rows, int npad,
+                         int hh) {
+  using A = Arith<T>;
+  const Row<T> id{T(0), T(1), T(0), T(0)};
+  const int di = blockDim.x % npad;  // a thread's next row is nt rows on
+  int i = threadIdx.x % npad;        // the row within its line
+#pragma unroll 4
+  for (int f = threadIdx.x; f < rows; f += blockDim.x) {
+    const Row<T> c = src[f];
+    const Row<T> m = i >= hh ? src[f - hh] : id;
+    const Row<T> p = i + hh < npad ? src[f + hh] : id;
+    const T al = A::div(c.lo, m.dg);
+    const T be = A::div(c.up, p.dg);
+    Row<T> o;
+    o.lo = A::mul(-al, m.lo);
+    o.dg = A::sub(A::sub(c.dg, A::mul(al, m.up)), A::mul(be, p.lo));
+    o.up = A::mul(-be, p.up);
+    o.r = A::sub(A::sub(c.r, A::mul(al, m.r)), A::mul(be, p.r));
+    dst[f] = o;
+    i += di;
+    if (i >= npad) i -= npad;
+  }
+}
+
+// Thomas on the h interleaved systems of each line (rows k, k+h, ...), one
+// thread a system, in place on `rows` after the PCR steps; in the term
+// order of lines2.pcr_solve:
+//   l_t = lo_t / d_{t-1},  d_t = dg_t - l_t up_{t-1},
+//   z_t = r_t - l_t z_{t-1};
+//   x_{T-1} = z / d,  x_t = (z_t - up_t x_{t+1}) / d_t
+// Adjacent threads run adjacent systems: their rows are adjacent.  A thread
+// loads kChain rows before it runs their steps, so that the chain waits on
+// its arithmetic only.
+constexpr int kChain = 4;
+
+template <typename T>
+__device__ void thomas_interleaved(const Lines<T>& L, Row<T>* rows) {
+  using A = Arith<T>;
+  const int h = L.h, nt = L.npad / h;
+  for (int m = threadIdx.x; m < L.nl * h; m += blockDim.x) {
+    Row<T>* v = rows + (long long)(m / h) * L.npad + m % h;
+    T d = v[0].dg, z = v[0].r, up = v[0].up;
+    for (int t0 = 1; t0 < nt; t0 += kChain) {
+      Row<T> c[kChain];
 #pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int s = s0 + k;
-      if (s < n) {
-        av[k] = a[s * as];
-        cv[k] = c[s * as];
-        rv[k] = r[s * rs];
+      for (int u = 0; u < kChain; ++u)
+        if (t0 + u < nt) c[u] = v[(t0 + u) * h];
+#pragma unroll
+      for (int u = 0; u < kChain; ++u) {
+        if (t0 + u < nt) {
+          const T lt = A::div(c[u].lo, d);
+          d = A::sub(c[u].dg, A::mul(lt, up));
+          z = A::sub(c[u].r, A::mul(lt, z));
+          up = c[u].up;
+          v[(t0 + u) * h] = Row<T>{c[u].lo, d, up, z};
+        }
       }
     }
+    T x = A::div(z, d);
+    v[(nt - 1) * h].r = x;
+    for (int t0 = nt - 2; t0 >= 0; t0 -= kChain) {
+      Row<T> c[kChain];
 #pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int s = s0 + k;
-      if (s < n) {
-        const T e = -cv[k];
-        const T li = A::div(e, d);
-        d = A::sub(av[k], A::mul(li, e));
-        z = A::sub(rv[k], A::mul(li, z));
-        l[s * rs] = li;
-        r[s * rs] = A::mul(z, A::div(T(1), d));
+      for (int u = 0; u < kChain; ++u)
+        if (t0 - u >= 0) c[u] = v[(t0 - u) * h];
+#pragma unroll
+      for (int u = 0; u < kChain; ++u) {
+        if (t0 - u >= 0) {
+          x = A::div(A::sub(c[u].r, A::mul(c[u].up, x)), c[u].dg);
+          v[(t0 - u) * h].r = x;
+        }
       }
     }
   }
-  T x = r[(n - 1) * rs];
-  q[(n - 1) * qs] = x;
-  for (int s1 = n - 2; s1 >= 0; s1 -= kChunk) {
-    T wv[kChunk], lv[kChunk];
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int s = s1 - k;
-      if (s >= 0) {
-        wv[k] = r[s * rs];
-        lv[k] = l[(s + 1) * rs];
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kChunk; ++k) {
-      const int s = s1 - k;
-      if (s >= 0) {
-        x = A::sub(wv[k], A::mul(lv[k], x));
-        q[s * qs] = x;
-      }
-    }
+}
+
+// Solve the lines staged in L.a; returns the buffer whose r holds the
+// solution.  Every thread of the block calls it; the caller meets a
+// barrier before it reads the solution.
+template <typename T>
+__device__ const Row<T>* solve_lines(const Lines<T>& L) {
+  if (L.h == 0) {
+    for (int l = threadIdx.x; l < L.nl; l += blockDim.x)
+      ldlt_solve(L.a + (long long)l * L.npad, L.n);
+    return L.a;
   }
+  Row<T>* src = L.a;
+  Row<T>* dst = L.b;
+  for (int hh = 1; hh < L.h; hh *= 2) {
+    pcr_step(src, dst, L.nl * L.npad, L.npad, hh);
+    __syncthreads();
+    Row<T>* t = src;
+    src = dst;
+    dst = t;
+  }
+  thomas_interleaved(L, src);
+  return src;
+}
+
+// Bytes of the two buffers of `lines` lines of npad rows.
+template <typename T>
+inline size_t lines_bytes(long long lines, int npad) {
+  return 2 * sizeof(Row<T>) * lines * npad;
+}
+
+// Threads of a line kernel's block for `rows` rows a buffer: four rows a
+// thread, a multiple of 32 in [128, 1024].
+inline int line_threads(long long rows) {
+  const long long t = (rows + 3) / 4;
+  return (int)std::min<long long>(
+      1024, std::max<long long>(128, (t + 31) / 32 * 32));
 }
 
 }  // namespace cedar

@@ -35,6 +35,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C entry points of each source, name -> argtypes (all return int)
 SIGNATURES = {
     "sweep2": {
@@ -48,8 +49,8 @@ SIGNATURES = {
         "cedar_interp2": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "lines2": {
-        "cedar_line2_x": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-        "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        "cedar_line2_x": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "fused2": {
         "cedar_fused2_partials": [_I, _I, _I, _I],
@@ -62,7 +63,7 @@ SIGNATURES = {
     },
     "planes2": {
         "cedar_line_xy_smooth2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _I, _L, _P],
     },
     "sweep3": {
         "cedar_sweep3_phase": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

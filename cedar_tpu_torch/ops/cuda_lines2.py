@@ -1,19 +1,25 @@
 """K4: the 2D zebra line-relaxation kernel (CUDA) and its plain versions.
 
 Counterpart of :mod:`cedar_tpu.ops.pallas_lines2`.  :func:`line_x` and
-:func:`line_y` launch ``csrc/lines2.cu`` for each zebra colour (an rhs
-pass, then the line solves) on the tensors' current stream;
-:func:`line_x_plain` and :func:`line_y_plain` compute the same functions in
-torch ops (:mod:`cedar_tpu_torch.ops.lines2`).
+:func:`line_y` launch ``csrc/lines2.cu`` once for each zebra colour on the
+tensors' current stream; :func:`line_x_plain` and :func:`line_y_plain`
+compute the same functions in torch ops (:mod:`cedar_tpu_torch.ops.lines2`).
 :func:`cedar_tpu_torch.ops.lines2.line_relax_x` / ``line_relax_y`` pick one
 by device.
 
-Both update ``q`` in place.  The kernel factors each line on the fly, with
-a scratch buffer, and reads no setup workspace; the plain versions take the
-:func:`~cedar_tpu_torch.ops.lines2.setup_lines` factors or, given None,
-factor the same way.  ``launches`` counts kernel launches made by
-:func:`line_x` / :func:`line_y`, ``plain_calls`` calls of the plain
-versions.
+Both update ``q`` in place and solve a line as
+:func:`~cedar_tpu_torch.ops.lines2.sweep_x_torch` does: PCR to the stride
+:func:`~cedar_tpu_torch.ops.lines2.pcr_stride` h, then Thomas on the h
+interleaved systems, for lines of 64 points or more; the LDLᵀ recurrence,
+factored on the fly, for shorter ones.  A block of the kernel holds the
+adjacent active lines :func:`group` gives in shared memory (``LINE_SMEM``
+bytes at most), or, for a line too long for it, one line in a
+device-memory scratch; x-lines run in clusters of ``K4_CLUSTER`` blocks
+that stage and store their lines together.  The plain versions take the
+:func:`~cedar_tpu_torch.ops.lines2.setup_lines` factors for the short lines
+or, given None, factor the same way.  ``launches`` counts kernel launches
+made by :func:`line_x` / :func:`line_y` (one a colour), ``plain_calls``
+calls of the plain versions.
 """
 
 from __future__ import annotations
@@ -25,6 +31,34 @@ from cedar_tpu_torch.ops import cuda_build, lines2
 
 launches = 0
 plain_calls = 0
+
+#: shared memory the line kernels (K4, K10) give a block's lines, bytes:
+#: two buffers of npad rows of 4 values a line (csrc/stencil2.cuh `Lines`)
+LINE_SMEM = 192 * 1024
+#: rows K4 aims to stage a block: 3 lines of 2048 points (x-lines read
+#: runs of 2 lines + 1 columns a row; PERF.md, Findings)
+K4_ROWS = 6144
+#: blocks of a cluster of K4's x-line kernel (csrc/lines2.cu `kCluster`)
+K4_CLUSTER = 4
+
+
+def line_pad(n: int, h: int) -> int:
+    """The rows a line of ``n`` points is held in (csrc/stencil2.cuh
+    ``line_pad``): a multiple of h for PCR, ``n`` made odd for the LDLᵀ
+    recurrence (h = 0)."""
+    return -(-n // h) * h if h else n | 1
+
+
+def group(n: int, nactive: int, itemsize: int, rows: int) -> tuple:
+    """``(h, lines, scratch)`` for solving lines of ``n`` points: the PCR
+    stride, the lines a block holds at once (at most ``nactive`` and
+    ``rows`` rows, one at least) and whether they must sit in a device-memory
+    scratch (a line's 8 · npad values beyond ``LINE_SMEM``)."""
+    h = lines2.pcr_stride(n)
+    npad = line_pad(n, h)
+    fit = LINE_SMEM // (8 * npad * itemsize)
+    lines = max(1, min(nactive, fit, rows // npad))
+    return h, lines, fit == 0
 
 
 def _check(so, q, b, kind: StencilKind) -> None:
@@ -54,15 +88,21 @@ def _launch(entry: str, so, q, b, kind: StencilKind, updown: str,
     stream = cuda_build.stream_of(q)
     nx, ny = q.shape
     nine = int(kind == StencilKind.nine_pt)
-    # the active lines' rhs (then the forward solution w) and multipliers l
-    scratch = q.new_empty((2, length, (nlines + 1) // 2))
+    h, lines, far = group(length, (nlines + 1) // 2, q.element_size(),
+                          K4_ROWS)
+    # a line too long for shared memory: its arrays, a block each (x-lines
+    # run in clusters of K4_CLUSTER blocks)
+    blocks = -(-((nlines + 1) // 2) // K4_CLUSTER) * K4_CLUSTER
+    scratch = (q.new_empty((blocks, 8 * line_pad(length, h)))
+               if far else None)
     for parity in lines2.colour_order(updown):
         cuda_build.check(
             fn(dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
-               scratch.data_ptr(), nx, ny, nine, parity, stream),
+               None if scratch is None else scratch.data_ptr(), nx, ny, nine,
+               parity, h, lines, stream),
             entry,
         )
-        launches += 2   # the rhs pass and the line solves
+        launches += 1
     return q
 
 

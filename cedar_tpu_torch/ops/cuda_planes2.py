@@ -10,11 +10,17 @@ same function in torch ops: the zebra sweeps of
 :mod:`cedar_tpu_torch.ops.planes2` picks one by device.
 
 Operands: ``q`` and ``b`` ``(B, nx, ny)``, ``so`` ``(ndir, B, nx, ny)``.
-Both versions update ``q`` in place.  The kernel factors each line on the
-fly; the plain version takes the :func:`~cedar_tpu_torch.ops.lines2.
-setup_lines` factors of the batch or, given None, factors the same way.
-``launches`` counts kernel launches made by :func:`smooth`, ``plain_calls``
-calls of :func:`smooth_plain`.
+Both versions update ``q`` in place and solve each line as K4 does (PCR
+to the stride :func:`~cedar_tpu_torch.ops.lines2.pcr_stride`, then
+interleaved Thomas, for lines of 64 points or more; the LDLᵀ recurrence
+below).  A block of the kernel smooths one plane; each colour pass stages
+its lines in shared memory, in groups of as many lines as
+:data:`~cedar_tpu_torch.ops.cuda_lines2.LINE_SMEM` holds (a device-memory
+scratch for a line too long for it).  The plain version takes the
+:func:`~cedar_tpu_torch.ops.lines2.setup_lines` factors of the batch for
+the short lines or, given None, factors the same way.  ``launches`` counts
+kernel launches made by :func:`smooth` (one a call), ``plain_calls`` calls
+of :func:`smooth_plain`.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from cedar_tpu_torch.core.types import StencilKind
-from cedar_tpu_torch.ops import cuda_build, lines2
+from cedar_tpu_torch.ops import cuda_build, cuda_lines2, lines2
 from cedar_tpu_torch.ops.stencil2 import residual
 
 launches = 0
@@ -63,15 +69,24 @@ def smooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
     nb, nx, ny = q.shape
     if nsweeps > 0 or emit_res:
         lib = cuda_build.load("planes2")
-        # per plane: the active lines' rhs (then w) and multipliers l
-        per_plane = 2 * max(nx * ((ny + 1) // 2), ny * ((nx + 1) // 2))
-        scratch = q.new_empty((nb, per_plane))
+        # a pass holds as many of its lines as the shared memory takes, or
+        # one line in a device-memory scratch if one does not fit
+        size = q.element_size()
+        hx, lx, far_x = cuda_lines2.group(nx, (ny + 1) // 2, size, nx * ny)
+        hy, ly, far_y = cuda_lines2.group(ny, (nx + 1) // 2, size, nx * ny)
+        per_plane = 0
+        if far_x or far_y:
+            per_plane = 8 * max(lx * cuda_lines2.line_pad(nx, hx),
+                                ly * cuda_lines2.line_pad(ny, hy))
+        scratch = q.new_empty((nb, per_plane)) if per_plane else None
         cuda_build.check(
             lib.cedar_line_xy_smooth2(
                 dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
-                None if res is None else res.data_ptr(), scratch.data_ptr(),
+                None if res is None else res.data_ptr(),
+                None if scratch is None else scratch.data_ptr(),
                 nb, nx, ny, int(kind == StencilKind.nine_pt),
-                int(updown == "up"), nsweeps, cuda_build.stream_of(q)),
+                int(updown == "up"), nsweeps, hx, hy, lx, ly, per_plane,
+                cuda_build.stream_of(q)),
             "line_xy_smooth2",
         )
         launches += 1

@@ -1,4 +1,4 @@
-"""2D zebra line relaxation with batched tridiagonal (Thomas/LDLᵀ) solves.
+"""2D zebra line relaxation with batched tridiagonal line solves.
 
 PyTorch counterpart of the non-periodic serial part of
 :mod:`cedar_tpu.ops.lines2` (reference: BMG2_SymStd_relax_lines_{x,y}.f90,
@@ -8,8 +8,16 @@ BMG2_SymStd_SETUP_lines_{x,y}.f90):
   JBEG_START=3), then the even ones; UP reverses;
 * per line: rhs = b + every coupling to the OTHER lines at current values,
   then an exact tridiagonal solve along the line with diagonal ``O`` and
-  off-diagonal ``-W`` (x-lines) or ``-S`` (y-lines);
-* the LDLᵀ factors (:func:`setup_lines`) are the reference's SOR workspace.
+  off-diagonal ``-W`` (x-lines) or ``-S`` (y-lines).
+
+The solve depends on the line's length n, by one rule that the kernels
+(K4, K10) follow too (:func:`pcr_stride`): lines of ``PCR_MIN_LEN`` points
+or more take parallel cyclic reduction (PCR) down to an interleave stride
+h, then Thomas on the h interleaved systems (:func:`pcr_solve`, the term
+order of ``cedar_tpu.ops.pallas_lines2._solve_all_lines``); shorter lines
+(the coarse levels) take the LDLᵀ recurrence, whose factors
+(:func:`setup_lines`) are the reference's SOR workspace
+(:func:`tridiag_solve`).
 
 x-lines run along axis 0 (one line per column ``j``); y-lines run along
 axis 1 and reuse the x-line functions on transposed operands (under
@@ -25,15 +33,16 @@ goes through the same code.
 the line kernel (:mod:`cedar_tpu_torch.ops.cuda_lines2`, factored on the
 fly), a CPU tensor to its plain version.  Both update ``q`` IN PLACE.
 
-Not ported: the PCR and SPIKE formulations of the same solve (TPU
-latency work, selected by ``solver.ml-relax.enabled``; ROADMAP queue 1,
-item 7), the cyclic Sherman–Morrison solve of periodic lines (item 4)
-and the distributed SPIKE solve (item 9).
+Not ported: the full-length PCR (``cedar_tpu.ops.lines2._pcr_solve``) and
+the SPIKE solve that ``solver.ml-relax.enabled`` selects (ROADMAP queue 1,
+item 7), the cyclic Sherman–Morrison solve of periodic lines (item 4) and
+the distributed SPIKE solve (item 9).
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from cedar_tpu_torch.core.shift import shift2
 from cedar_tpu_torch.core.types import Dir2, StencilKind
@@ -86,6 +95,88 @@ def tridiag_solve(sor: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return x
 
 
+#: lines of this many points or more take :func:`pcr_solve`
+#: (``cedar_tpu.ops.lines2._PCR_MIN_LEN``); shorter ones the LDLᵀ recurrence
+PCR_MIN_LEN = 64
+
+
+def pcr_stride(n: int) -> int:
+    """The interleave stride h at which :func:`pcr_solve` stops PCR on a
+    line of ``n`` points, or 0 where the line takes the LDLᵀ recurrence
+    (n < ``PCR_MIN_LEN``).  The kernels K4 and K10 take h from here too.
+
+    h trades log2 h PCR steps over every row against Thomas chains of
+    2n/h dependent steps: on the H100 8 was fastest for 128-point lines
+    (K10) and 32 for 2048-point lines (K4) among 8, 16, 32 and 64
+    (``tools/tune_lines.py``; PERF.md, Findings)."""
+    if n < PCR_MIN_LEN:
+        return 0
+    return 8 if n < 512 else 32
+
+
+def _shift_rows(a: torch.Tensor, s: int, fill: float) -> torch.Tensor:
+    """``out[..., i, :] = a[..., i + s, :]``, ``fill`` off the line."""
+    out = torch.full_like(a, fill)
+    if s > 0:
+        out[..., :-s, :] = a[..., s:, :]
+    else:
+        out[..., -s:, :] = a[..., :s, :]
+    return out
+
+
+def pcr_solve(lo: torch.Tensor, dg: torch.Tensor, up: torch.Tensor,
+              r: torch.Tensor, h: int) -> torch.Tensor:
+    """Solve the tridiagonal systems along axis -2, batched over the
+    others: ``lo[i]`` couples row i to i-1 (``lo[0] = 0``), ``up[i]`` to
+    i+1 (``up[n-1] = 0``), diagonal ``dg``, rhs ``r``.
+
+    PCR until rows h apart are decoupled (log2 h steps), then Thomas on
+    the h interleaved systems of ⌈n/h⌉ rows, in the term order of
+    ``cedar_tpu.ops.pallas_lines2._solve_all_lines``; the line is padded to
+    a multiple of h with identity rows (diagonal 1, couplings and rhs 0).
+    """
+    n = r.shape[-2]
+    npad = -(-n // h) * h
+    if npad != n:
+        pad = (0, 0, 0, npad - n)
+        lo, up, r = (F.pad(a, pad) for a in (lo, up, r))
+        dg = F.pad(dg, pad, value=1.0)
+    hh = 1
+    while hh < h:
+        al = lo / _shift_rows(dg, -hh, 1.0)
+        be = up / _shift_rows(dg, hh, 1.0)
+        dg = (dg - al * _shift_rows(up, -hh, 0.0)
+              - be * _shift_rows(lo, hh, 0.0))
+        r = r - al * _shift_rows(r, -hh, 0.0) - be * _shift_rows(r, hh, 0.0)
+        lo = -al * _shift_rows(lo, -hh, 0.0)
+        up = -be * _shift_rows(up, hh, 0.0)
+        hh *= 2
+    # interleaved Thomas: step t of every system is the row slab
+    # [t*h, (t+1)*h)
+    nt = npad // h
+    slabs = (*r.shape[:-2], nt, h, r.shape[-1])
+    lo, dg, up, r = (a.reshape(slabs) for a in (lo, dg, up, r))
+    d, z = [dg[..., 0, :, :]], [r[..., 0, :, :]]
+    for t in range(1, nt):
+        lt = lo[..., t, :, :] / d[-1]
+        d.append(dg[..., t, :, :] - lt * up[..., t - 1, :, :])
+        z.append(r[..., t, :, :] - lt * z[-1])
+    x = [z[-1] / d[-1]]
+    for t in range(nt - 2, -1, -1):
+        x.append((z[t] - up[..., t, :, :] * x[-1]) / d[t])
+    sol = torch.stack(x[::-1], dim=-3).reshape(*slabs[:-3], npad, slabs[-1])
+    return sol[..., :n, :]
+
+
+def line_coeffs_x(so: torch.Tensor):
+    """``(lo, dg, up)`` of the x-lines for :func:`pcr_solve`: ``lo[i] =
+    -W(i)`` (0 at i = 0), ``up[i] = -W(i+1)`` (0 at the last row)."""
+    e = -so[Dir2.W]
+    lo = e.clone()
+    lo[..., 0, :] = 0.0
+    return lo, so[Dir2.O], _shift_rows(e, 1, 0.0)
+
+
 def line_rhs_x(so, q, b, kind: StencilKind) -> torch.Tensor:
     """rhs = b + couplings to the neighbouring lines (everything but the
     W/E terms along the line), in ``_line_rhs_x``'s term order."""
@@ -110,12 +201,21 @@ def colour_order(updown: str):
 
 def sweep_x_torch(so, q, b, sor, kind: StencilKind, updown: str):
     """One zebra x-line sweep in torch ops, IN PLACE on ``q`` (which may be
-    a transposed view); ``sor`` None factors from ``so``."""
-    if sor is None:
+    a transposed view).  Lines of :func:`pcr_stride` h > 0 take
+    :func:`pcr_solve` (``sor`` unused), the others the LDLᵀ recurrence with
+    the factors ``sor``, or factored from ``so`` where ``sor`` is None."""
+    h = pcr_stride(q.shape[-2])
+    if h:
+        lo, dg, up = line_coeffs_x(so)
+    elif sor is None:
         sor = _factor(so[Dir2.O], -so[Dir2.W])
     for parity in colour_order(updown):
         rhs = line_rhs_x(so, q, b, kind)[..., parity::2]
-        q[..., parity::2] = tridiag_solve(sor[..., parity::2], rhs)
+        if h:
+            sl = (..., slice(parity, None, 2))
+            q[sl] = pcr_solve(lo[sl], dg[sl], up[sl], rhs, h)
+        else:
+            q[..., parity::2] = tridiag_solve(sor[..., parity::2], rhs)
     return q
 
 

@@ -17,12 +17,16 @@ Phases (each raises on failure; nothing is caught):
 3. kernel against plain version for the sweep (K1), restrict (K2),
    interp-add (K3), zebra line sweep (K4: x and y) and interp (K5) at
    (4096, 4096), (2049, 2049) and (2048, 2048) in float32 and (400, 400)
-   and (1025, 771) in float64; then the 3D sweep (K6), restrict (K7),
+   and (1025, 771) in float64, and the line sweep (K4, bit-equal) also on
+   lines of 63, 64 and 65 points, of lengths that are not a multiple of
+   the PCR stride, and on lines too long for shared memory (LINE_SHAPES);
+   then the 3D sweep (K6), restrict (K7),
    interp-add (K8) and interp (K9) at (256, 256, 256) 7-point and
    (128, 128, 128) 27-point float32 and (33, 21, 17) and (65, 65, 65)
-   float64, both kinds; then the batched line-xy smooth (K10) at
-   (64, 128, 128) float32 and (7, 33, 21) and (5, 4, 3) float64, 5- and
-   9-point, DOWN and UP, 1 and 2 sweeps, with and without the residual,
+   float64, both kinds; then the batched line-xy smooth (K10, bit-equal)
+   at SHAPES_B (from (64, 128, 128) float32 to lines of 63-65 points and
+   lines too long for shared memory), 5- and 9-point, DOWN and UP, 1 and
+   2 sweeps, with and without the residual,
    and the batched restrict and interp-add (K2, K3) at (64, 128, 128)
    float32 and (5, 33, 17) float64, a batch of one against the unbatched
    launch; then the fused fine-level kernels, sweep (K11),
@@ -55,7 +59,8 @@ Phases (each raises on failure; nothing is caught):
    false) and the fused V(2,2), with launches and per-cycle time;
 5b. the 2D slices at full width: ``2d_fe_9pt_linexy_2048`` and
    ``2d_poisson_fcycle_4096`` (``bench.py``'s configurations), each with
-   setup, a solve, launch counts, per-cycle time and peak memory;
+   setup, a solve, launch counts, per-cycle time and peak memory, and the
+   line-xy cycle's K4 launches (one a zebra colour) asserted;
 5c. the 3D slice at full width: ``3d_poisson_7pt_256`` and
    ``3d_fe_27pt_128`` (``bench.py``'s configurations), each fused (the
    card's default) and dense (``kernels.fine-split`` false), the fused
@@ -63,7 +68,7 @@ Phases (each raises on failure; nothing is caught):
    the launches of one cycle;
 5d. the plane-relaxation slice at full width: ``3d_aniso_planexy_128``
    (``bench.py``'s configuration), with the same numbers and the launches
-   of one cycle;
+   of one cycle, K10's asserted;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K10 and the batched K2/K3 at (64, 128, 128);
@@ -96,7 +101,8 @@ from cedar_tpu_torch import (
 from cedar_tpu_torch.core.types import Dir3, StencilKind
 from cedar_tpu_torch.ops import (
     cuda2, cuda3, cuda_build, cuda_fused2, cuda_fused3, cuda_lines2,
-    cuda_planes2, cuda_transfer2, cuda_transfer3, interp2, interp3, stencil3,
+    cuda_planes2, cuda_transfer2, cuda_transfer3, interp2, interp3, lines2,
+    stencil3,
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
 from cedar_tpu_torch.solver import cycle2, cycle3
@@ -118,9 +124,18 @@ SHAPES3 = [((256, 256, 256), torch.float32, (False,)),
            ((128, 128, 128), torch.float32, (True,)),
            ((33, 21, 17), torch.float64, (False, True)),
            ((65, 65, 65), torch.float64, (False, True))]
-# batched planes (B, nx, ny): the K10 shapes, and the batched K2/K3 shapes
+# K4's further shapes: lines of 63 (LDLᵀ), 64 and 65 points (PCR), lengths
+# that are not a multiple of the PCR stride (1000, 777), and lines too long
+# for shared memory (9000 f32, 5000 f64: a device-memory scratch)
+LINE_SHAPES = [((63, 65), torch.float32), ((64, 63), torch.float64),
+               ((65, 64), torch.float64), ((1000, 777), torch.float32),
+               ((9000, 5), torch.float32), ((6, 5000), torch.float64)]
+# batched planes (B, nx, ny): the K10 shapes (with lines of 63-65 points,
+# of a length that is not a multiple of the PCR stride and too long for
+# shared memory), and the batched K2/K3 shapes
 SHAPES_B = [((64, 128, 128), torch.float32), ((7, 33, 21), torch.float64),
-            ((5, 4, 3), torch.float64)]
+            ((5, 4, 3), torch.float64), ((3, 63, 65), torch.float32),
+            ((2, 64, 1000), torch.float64), ((1, 5, 7000), torch.float64)]
 SHAPES_BT = [((64, 128, 128), torch.float32), ((5, 33, 17), torch.float64)]
 # every row of the TPU kernel table (PERF.md) a kernel covers
 REPLACES = {
@@ -381,16 +396,31 @@ def phase_kernels() -> dict:
                         cuda_transfer2.interp(ci, qc, shape),
                         cuda_transfer2.interp_plain(ci, qc, shape))
             errs["interp2"] = max(errs["interp2"], e)
-            for axis in ("x", "y"):
-                kernel = cuda_lines2.line_x if axis == "x" else cuda_lines2.line_y
-                plain = (cuda_lines2.line_x_plain if axis == "x"
-                         else cuda_lines2.line_y_plain)
-                for updown in ("down", "up"):
-                    e = compare(f"K4 line2 {axis} {pts} {updown} {tag}",
-                                kernel(so, q.clone(), b, kind, updown),
-                                plain(so, q.clone(), b, kind, updown))
-                    errs["line2"] = max(errs["line2"], e)
+            errs["line2"] = max(errs["line2"],
+                                compare_lines(so, q, b, kind, pts, tag))
+    for i, (shape, dtype) in enumerate(LINE_SHAPES):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 300 + i)
+            pts = "9pt" if nine else "5pt"
+            errs["line2"] = max(errs["line2"],
+                                compare_lines(so, q, b, kind, pts, tag))
     return errs
+
+
+def compare_lines(so, q, b, kind, pts: str, tag: str) -> float:
+    """K4, x- and y-lines, DOWN and UP, bit-equal to its plain version."""
+    e = 0.0
+    for axis in ("x", "y"):
+        kernel = cuda_lines2.line_x if axis == "x" else cuda_lines2.line_y
+        plain = (cuda_lines2.line_x_plain if axis == "x"
+                 else cuda_lines2.line_y_plain)
+        for updown in ("down", "up"):
+            e = max(e, compare(f"K4 line2 {axis} {pts} {updown} {tag}",
+                               kernel(so, q.clone(), b, kind, updown),
+                               plain(so, q.clone(), b, kind, updown),
+                               exact=True))
+    return e
 
 
 def random_problem3(shape, ts: bool, dtype, seed: int):
@@ -495,10 +525,12 @@ def phase_kernels_planes(errs: dict) -> dict:
                         what = (f"K10 line_xy2 {pts} {updown} x{nsweeps} "
                                 f"res={int(res)} {tag}")
                         if res:
-                            e = max(compare(what + " q", got[0], want[0]),
-                                    compare(what + " res", got[1], want[1]))
+                            e = max(compare(what + " q", got[0], want[0],
+                                            exact=True),
+                                    compare(what + " res", got[1], want[1],
+                                            exact=True))
                         else:
-                            e = compare(what, got, want)
+                            e = compare(what, got, want, exact=True)
                         errs["line_xy2"] = max(errs["line_xy2"], e)
             del so, q, b
     for i, (shape, dtype) in enumerate(SHAPES_BT):
@@ -1087,6 +1119,9 @@ def phase_linexy_2048() -> dict:
     if not s.history[-1] < s.history[0] / 5:
         raise AssertionError(f"{name}: the solve did not converge")
     require_launched(launches, ("line2", "restrict2", "interp_add2"), name)
+    # one launch a zebra colour: x- and y-lines, two colours each, pre- and
+    # post-relaxation, on every level but the coarsest
+    one_cycle_launches(s, b, name, {"line2": 8 * (s.nlevels - 1)})
 
     # the convergence rate on A x = 0 from a random x0, cycle by cycle as
     # the solve loop runs them (a tolerance would stop it at the f32 floor)
@@ -1334,11 +1369,13 @@ def phase_planes_128() -> dict:
     if not s.history[0] < 0.2 or not s.history[-1] <= s.history[0]:
         raise AssertionError(f"{name}: the solve did not converge")
     require_launched(launches, PLANE_KERNELS, name)
-    reset_counts()
-    cycle3.cycle_residual(s.levels, s.kinds, x.clone(), b, s.settings)
-    torch.cuda.synchronize()
-    one = {k: v for k, v in counts().items() if v}
-    print(f"  {name}: launches a cycle {one}", flush=True)
+    # K10 once a call: on every outer level but the coarsest, a pre- and a
+    # post-relaxation, each one embedded V-cycle a plane colour, whose
+    # levels but the coarsest smooth in two calls (pre-smooths with the
+    # residual, post-smooths)
+    one_cycle_launches(s, b, name, {"line_xy2": sum(
+        2 * 2 * (len(h) - 1) for lev in s.levels[:-1]
+        for h in lev.planes["xy"] if h is not None)}, cycle=cycle3)
 
     # the rate on A x = 0 from a random x0: every cycle cuts >= 4x until
     # the residual reaches the float32 floor (1e-5 relative)
@@ -1470,9 +1507,10 @@ def phase_times() -> dict:
                         23 * n * n // 4),
         "interp2": ((8 * (nc + 1) ** 2 + nc * nc + n * n) * e,
                     13 * n * n // 4),
-        # 9-point zebra sweep: 6 off-line couplings a point for the rhs,
-        # then the LDLᵀ recurrence (about 8 operations a point)
-        "line2": ((5 + 3) * m * m * e, 20 * m * m),
+        # 9-point zebra sweep: 12 operations a point for the rhs, then 12 a
+        # PCR step (log2 h of them) and 8 for the interleaved Thomas
+        "line2": ((5 + 3) * m * m * e,
+                  (12 + 12 * pcr_steps(m) + 8) * m * m),
         # the fused kernels: so (3 planes), b, q read and q written, as K1;
         # K12 adds the CI planes and writes cb, K13 reads them and qc; a
         # residual is 10 operations a point, as a 5-point sweep
@@ -1661,12 +1699,13 @@ def phase_times_planes() -> dict:
                 so, q, b, kind, "down", 2, True))
         # bytes: the stencil planes, b and q read, q and res written;
         # operations a point: per smooth two line passes of the rhs (4 or
-        # 12) and the LDLᵀ step (9), then the residual (10 or 18)
+        # 12), 12 a PCR step and 8 for the interleaved Thomas, then the
+        # residual (10 or 18)
         N = nb * n * n
         ndir, rhs_ops, res_ops = (5, 12, 18) if nine else (3, 4, 10)
-        work[f"line_xy2 {pts} x2 +res"] = ((ndir + 4) * N * 4,
-                                           (2 * 2 * (rhs_ops + 9)
-                                            + res_ops) * N)
+        work[f"line_xy2 {pts} x2 +res"] = (
+            (ndir + 4) * N * 4,
+            (2 * 2 * (rhs_ops + 12 * pcr_steps(n) + 8) + res_ops) * N)
         if not nine:
             ci = interp2.setup_interp(so, kind)
             g = torch.Generator(device=DEV).manual_seed(22)
@@ -1693,6 +1732,11 @@ def phase_times_planes() -> dict:
     # the table's K10 entry: the 5-point smooth of the main path's planes
     key = "line_xy2 5pt x2 +res"
     return {"line_xy2": out[key] + work[key]}
+
+
+def pcr_steps(n: int) -> int:
+    """PCR steps of the line solve of a line of ``n`` points (log2 h)."""
+    return max(lines2.pcr_stride(n), 1).bit_length() - 1
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:

@@ -1,6 +1,8 @@
 """The port's zebra line relaxation (plain versions of kernel K4) against
-cedar_tpu: ops.lines2 with its LDLᵀ factors in float64, the Pallas line
-kernel in interpret mode in float32 (the tolerances of
+cedar_tpu: the PCR-then-Thomas line solve against the Pallas kernels'
+solves (pure jnp) in float64, with the residual of the tridiagonal system
+as an independent witness; ops.lines2 with its LDLᵀ factors in float64,
+the Pallas line kernel in interpret mode in float32 (the tolerances of
 tests/test_pallas_lines2.py), an independent witness (the full-stencil
 residual vanishes on the lines relaxed last), and whole line-relaxation
 solves against cedar_tpu's Solver2.
@@ -21,6 +23,7 @@ from cedar_tpu import gallery as jgallery
 from cedar_tpu.core.types import StencilKind as JKind
 from cedar_tpu.ops import lines2 as jlines2
 from cedar_tpu.ops import pallas_lines2 as pla
+from cedar_tpu.ops import pallas_planes2 as pp
 
 from cedar_tpu_torch import NinePt, FivePt, Solver2
 from cedar_tpu_torch.core.types import StencilKind
@@ -51,6 +54,62 @@ def _kinds(nine):
 
 def _relax(axis):
     return lines2.line_relax_x if axis == "x" else lines2.line_relax_y
+
+
+def _tridiag(n, m, seed):
+    """m random diagonally dominant tridiagonal systems of n rows along
+    axis 0, in random_so's ranges: lo[i] couples row i to i-1 (lo[0] = 0),
+    up[i] to i+1 (up[n-1] = 0)."""
+    rng = np.random.default_rng(seed)
+    e = -rng.uniform(0.5, 1.5, (n, m))
+    lo, up = e.copy(), np.zeros_like(e)
+    lo[0] = 0.0
+    up[:-1] = e[1:]
+    dg = -(lo + up) + rng.uniform(0.05, 0.2, (n, m))
+    return lo, dg, up, rng.standard_normal((n, m))
+
+
+def _pad_rows(h, lo, dg, up, r):
+    """Pad axis 0 to a multiple of h with identity rows."""
+    pad = -len(r) % h
+    return [np.concatenate([a, np.full((pad,) + a.shape[1:], v)])
+            for a, v in ((lo, 0.0), (dg, 1.0), (up, 0.0), (r, 0.0))]
+
+
+def _shy_jnp(a, s, fill=0.0):
+    """pallas_planes2._shy (a lane roll, Mosaic-only) as a plain shift."""
+    return jnp.swapaxes(pp._shx(jnp.swapaxes(a, -1, -2), s, fill), -1, -2)
+
+
+@pytest.mark.parametrize("n", [64, 65, 130, 256])
+@pytest.mark.parametrize("ref", ["_solve_all_lines", "_solve_x", "_solve_y"])
+def test_pcr_solve_matches_jax_f64(n, ref, monkeypatch):
+    """lines2.pcr_solve at the port's stride against the Pallas kernels'
+    PCR-then-Thomas solves (pallas_lines2._solve_all_lines along axis 0,
+    pallas_planes2._solve_x / _solve_y along the last two axes, with
+    _solve_y's lane roll replaced by the same shift in jnp); witness: the
+    residual of the systems."""
+    h = lines2.pcr_stride(n)
+    assert h > 0
+    lo, dg, up, r = _tridiag(n, 5, n)
+    got = lines2.pcr_solve(*(torch.tensor(a) for a in (lo, dg, up, r)),
+                           h).numpy()
+    if ref == "_solve_all_lines":
+        want = np.asarray(pla._solve_all_lines(
+            *(jnp.asarray(a) for a in (lo, dg, up, r)), h))
+    elif ref == "_solve_x":
+        want = np.asarray(pp._solve_x(
+            *(jnp.asarray(a) for a in _pad_rows(h, lo, dg, up, r)), h))[:n]
+    else:
+        monkeypatch.setattr(pp, "_shy", _shy_jnp)
+        want = np.asarray(pp._solve_y(
+            *(jnp.asarray(a.T) for a in _pad_rows(h, lo, dg, up, r)),
+            h)).T[:n]
+    np.testing.assert_allclose(got, want, rtol=1e-13)
+    tx = dg * got
+    tx[1:] += lo[1:] * got[:-1]
+    tx[:-1] += up[:-1] * got[1:]
+    assert np.linalg.norm(tx - r) / np.linalg.norm(r) < 1e-13
 
 
 @pytest.mark.parametrize("shape", [(12, 9), (10, 13), (40, 130)])
