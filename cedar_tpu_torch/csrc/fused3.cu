@@ -20,28 +20,27 @@
 // the dense (nx, ny, nz) grid and compute what those compute.  The math is
 // ops/fused3.py's plain versions, which compose relax3.sweep3_torch,
 // stencil3.residual, interp3.restrict_torch and interp3.interp_add_torch;
-// the arithmetic comes from stencil3.cuh (`offdiag_at`) and transfer3.cuh
-// (`restrict_value`, `interp_value`), so each output equals the separate
-// kernels K6, K7 and K8 in sequence bit for bit.
+// the arithmetic comes from stencil3.cuh (`offdiag_terms`) and
+// transfer3.cuh (`restrict_value`, `interp_with`), so each output equals
+// the separate kernels K6, K7 and K8 in sequence bit for bit.
 //
-// What bounds them on the H100: bytes.  A 7-point sweep reads 4 stencil
-// planes, b and q and writes q (about 0.5 flop per byte); the dense
-// sequence moves q through device memory once per colour phase and once
-// more for the residual, and K6 idles the threads of the other colours.
+// What bounds them on the H100: bytes, at ~0.5 flop a byte; what they
+// lose to is latency (PERF.md §6: the time of each part, measured by
+// skipping it).
 //
-// Design: 2.5D blocking, the Hopper form of the TPU's wavefront
-// (pallas3_stream.py:1-29).  A block owns a y-z tile of TY x TZ points
-// and a chunk of cx planes along x, and marches along x through its chunk
-// one plane a step.  A pass is a list of stages (K16's interpolation, the
-// colour phases, the residual epilogue, K15's restriction); at step p the
-// block holds planes up to p in rolling windows of planes in shared memory
-// and applies stage s to plane p - s, s = 1, 2, ...  Stage s at plane x
-// reads planes x - 1 .. x + 1 of the window.  That is exact: plane x + 1
-// holds the state after stage s - 1 (it got stage s - 1 earlier in the
-// same step), plane x - 1 the state after stage s, which differs from the
-// state after s - 1 only at points of the colour of stage s, and a point
-// couples to no point of its own colour.  So one in-place copy of each
-// plane serves every stage.
+// The window design (`fused3`): 2.5D blocking, the Hopper form of the TPU's
+// wavefront (pallas3_stream.py:1-29).  A block owns a y-z tile of TY x TZ
+// points and a chunk of cx planes along x, and marches along x through
+// its chunk one plane a step.  A pass is a list of stages (K16's
+// interpolation, the colour phases, the residual epilogue, K15's
+// restriction); at step p the block holds planes up to p in rolling
+// windows of planes in shared memory and applies stage s to plane p - s,
+// s = 1, 2, ...  Stage s at plane x reads planes x - 1 .. x + 1 of the
+// window.  That is exact: plane x + 1 holds the state after stage s - 1
+// (it got stage s - 1 earlier in the same step), plane x - 1 the state
+// after stage s, which differs from the state after s - 1 only at points
+// of the colour of stage s, and a point couples to no point of its own
+// colour.  So one in-place copy of each plane serves every stage.
 //
 // Each stage also stales one ring of the y-z region and one plane at each
 // end of the chunk, so the region carries a halo of H = (number of
@@ -51,20 +50,17 @@
 // grid's own boundary counts as infinitely deep, its couplings are zero).
 // The region is kRW = 64 columns (z) wide, TZ = 64 - 2H, and TY + 2H rows.
 //
-// Latency, not bandwidth, is what this loses to: a step's stages are a
-// short chain of dependent work on one plane, and a load from device
-// memory waits ~1 µs.  So plane p + 1 is prefetched into registers while
-// the stages of step p run, and stored into the windows at the end of the
-// step; for a 7-point f32 pass the stencil planes and b are windowed too
-// (the 27-point stencil's 14 planes, and f64, would not fit), so that its
-// stages read shared memory only, apart from K16's CI and coarse values
-// and K15's CI.  In a 7-point pass a thread keeps its points through
-// every stage of a step (see the step loop), so the stages need no
-// barrier between them.  A phase maps its threads onto its own colour's
-// points only, so no thread idles on another colour.  K16 gives each
-// warp the points of one parity class at a time and issues the class's
-// CI and coarse loads before it recomputes the residual
-// (transfer3.cuh `interp_with`).
+// Plane p + 1 is prefetched into registers while the stages of step p
+// run, and stored into the windows at the end of the step; for a 7-point
+// f32 pass the stencil planes and b are windowed too (the 27-point
+// stencil's 14 planes, and f64, would not fit), so that its stages read
+// shared memory only, apart from K16's CI and coarse values and K15's CI.
+// In a 7-point pass a thread keeps its points through every stage of a
+// step (see the step loop), so the stages need no barrier between them.
+// A phase maps its threads onto its own colour's points only, so no
+// thread idles on another colour.  K16 gives each warp the points of one
+// parity class at a time and issues the class's CI and coarse loads
+// before it recomputes the residual (transfer3.cuh `interp_with`).
 //
 // A 27-point sweep runs as eight passes of one colour (cedar_fused3_colors;
 // K14 for each pass but the last of a pre-sweep, which is K15, and the
@@ -78,6 +74,31 @@
 // so that the card gets about kTargetBlocks blocks, and at least 2H
 // planes, to bound the recomputed halo planes.
 //
+// The ring design (`ring3`): the 7-point K15 and K16 read every plane a
+// stage needs from rings of slots in shared memory, filled by cp.async
+// (async.cuh: 4- or 8-byte elements, zero-filled off the grid) one step
+// before the step that first reads them, one commit group a step: q (K16:
+// q_pre), b and, in f32, the stencil planes 0-3, and K15's CI at its own
+// coarse points (two coarse planes: each serves two fine steps); no register
+// holds a prefetched plane.  K16's CI weights and coarse values, and the f64
+// stencil, are read from device memory, asked into L2 one step ahead
+// (through the ring they cost more than they saved).  One barrier a step,
+// after the wait for the step's own copies, publishes them and frees the
+// slots that the step's copies overwrite; K15 restricts plane p - SE - 2 at
+// step p, so that its residual window (four planes) needs no barrier of its
+// own and the restriction overlaps the other warps' stages.  A block has a
+// warp for each region row, which keeps its points through every stage; rows
+// are colour-compact (a row's even columns, then its odd ones), so that a
+// colour phase's reads are conflict-free and, with the column parity a
+// constant, each read is a constant offset from the point's pointers.  The
+// tile rows, the x chunk and the grid come from the wrapper's plan
+// (ops/cuda_fused3.py `plan`, checked at launch against `Ring`): the largest
+// built tile rows that fit a block (12 or 10 in f32, 4 or 2 in f64), one
+// block an SM, and the chunk that runs the grid in the fewest steps a block
+// slot.  The 27-point K15 and K16 stay on `fused3`: on the card every ring
+// variant measured for them (two to four blocks an SM, a copy warp, the
+// coarse side through L2) was slower (PERF.md §6; tools/tune_fused3.py).
+//
 // Out of place: a block reads q_in over its region while other blocks
 // write their tiles, so each kernel reads q_in and writes a separate
 // q_out (the wrappers in ops/cuda_fused3.py allocate it).  K15's tiles and
@@ -85,9 +106,12 @@
 // exactly one owner block; its residual window covers the tile plus the
 // low ring (the restriction reads fine indices 2c - 1 .. 2c + 1).  The
 // norm epilogue writes one partial a block (the sum of res² over the
-// block's own points, in no fixed order against the plain version's sum)
-// into a buffer of cedar_fused3_partials entries; the caller sums it.
+// block's own points, in no fixed order against the plain version's sum):
+// cedar_fused3_partials entries for K14, the plan's blocks for K16; the
+// caller sums them.  K15 and K16 launch on the wrapper's plan, which the
+// launch checks against the kernel's own.
 
+#include "async.cuh"
 #include "stencil3.cuh"
 #include "transfer3.cuh"
 
@@ -489,9 +513,24 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
   }
 }
 
+
+// The plan of a K15 or K16 launch (ops/cuda_fused3.py `plan`): tile rows,
+// x chunk, grid and shared-memory bytes.
+struct KPlan {
+  int ty, cx, gz, gy, gc;
+  long long smem;
+};
+
+// A `fused3` launch on its own plan; the 27-point K15 and K16 pass the
+// wrapper's (want), which must be that plan.
 template <typename T, bool TS, bool INTERP, int EPI>
-int launch(const Args& a, cudaStream_t st) {
+int launch(const Args& a, const KPlan* want, cudaStream_t st) {
   const Plan pl = plan(TS, INTERP, EPI, a.nx, a.ny, a.nz, sizeof(T));
+  if (want && (want->ty != kTileRows || want->cx != pl.cx ||
+               want->gz != (int)pl.grid.x || want->gy != (int)pl.grid.y ||
+               want->gc != (int)pl.grid.z ||
+               want->smem != (long long)pl.smem))
+    return (int)cudaErrorInvalidValue;
   const Dims d{a.nx, a.ny, a.nz, a.nxc, a.nyc, a.nzc, pl.cx, a.colors,
                a.ox, a.oy, a.oz, a.emit_res};
   auto fn = fused3<T, TS, INTERP, EPI>;
@@ -507,37 +546,509 @@ int launch(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// K14 (INTERP false) or K16 (INTERP true) with epilogue `mode`; a 27-point
-// K16 pass is the first of two and takes none.
-template <typename T, bool INTERP>
-int launch_mode(const Args& a, int ts, int mode, cudaStream_t st) {
-  if (ts) {
-    if constexpr (INTERP) {
-      return mode == kNone ? launch<T, true, true, kNone>(a, st)
-                           : (int)cudaErrorInvalidValue;
-    } else {
-      switch (mode) {
-        case kNone: return launch<T, true, false, kNone>(a, st);
-        case kRes: return launch<T, true, false, kRes>(a, st);
-        case kNorm: return launch<T, true, false, kNorm>(a, st);
-      }
-      return (int)cudaErrorInvalidValue;
-    }
-  }
+// K14 with epilogue `mode`.
+template <typename T>
+int launch_sweep(const Args& a, int ts, int mode, cudaStream_t st) {
+#define CEDAR_K14(EPI)                                                       \
+  return ts ? launch<T, true, false, EPI>(a, nullptr, st)                    \
+            : launch<T, false, false, EPI>(a, nullptr, st)
   switch (mode) {
-    case kNone: return launch<T, false, INTERP, kNone>(a, st);
-    case kRes: return launch<T, false, INTERP, kRes>(a, st);
-    case kNorm: return launch<T, false, INTERP, kNorm>(a, st);
+    case kNone: CEDAR_K14(kNone);
+    case kRes: CEDAR_K14(kRes);
+    case kNorm: CEDAR_K14(kNorm);
   }
+#undef CEDAR_K14
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool INTERP>
-int launch_dtype(int dtype, const Args& a, int ts, int mode,
-                 cudaStream_t st) {
-  if (dtype == kFloat32) return launch_mode<float, INTERP>(a, ts, mode, st);
-  if (dtype == kFloat64) return launch_mode<double, INTERP>(a, ts, mode, st);
-  return (int)cudaErrorInvalidValue;
+// ---------------------------------------------------------------------------
+// 7-point K15 and K16: the ring design (see the header note).
+
+constexpr int kAhead = 1;  // steps between a copy's issue and its first read
+// the tile rows built, float32 and float64, of which the plan takes one
+constexpr int kRingRows[2][2] = {{12, 10}, {4, 2}};
+constexpr size_t rnd4(size_t w) { return (w + 3) & ~size_t(3); }
+
+// The compile-time layout of a 7-point K15 (INTERP false, EPI kRestrict)
+// or K16 (INTERP true, EPI kNone / kRes / kNorm) variant with tiles of TY
+// rows; ops/cuda_fused3.py `ring_words` mirrors WORDS and the launch
+// checks that the two agree.
+template <typename T, bool INTERP, int EPI, int TY>
+struct Ring {
+  // the stencil's planes 0-3 go through the ring too (float32)
+  static constexpr bool ST = sizeof(T) == 4;
+  static constexpr int SP = last_phase(false, INTERP);
+  static constexpr int SE = epi_stage(false, INTERP, EPI);
+  static constexpr int H = halo(false, INTERP, EPI);
+  static constexpr int RY = TY + 2 * H, TZ = kRW - 2 * H, PL = RY * kRW;
+  // slots with kAhead planes in flight: q (K15: loaded, stage s reading
+  // back to plane p - SE - 1; K16: the interpolated q, written), K16's
+  // q_pre, b (+ stencil)
+  static constexpr int WQ = INTERP ? SE + 1 : SE + 2 + kAhead;
+  static constexpr int WP = INTERP ? 3 + kAhead : 0;
+  static constexpr int WS = SE + 1 + kAhead;
+  static constexpr int NSB = ST ? 5 : 1;  // arrays a b slot
+  // K15: the CI of the block's coarse points and the next ones (two coarse
+  // planes), the residual window (tile and low ring, four planes)
+  static constexpr int CY = TY / 2 + 1, CZ = TZ / 2 + 1, CIP = 26 * CY * CZ;
+  static constexpr int RWR = TZ + 1, RPL = (TY + 1) * RWR;
+  static constexpr size_t OP = rnd4((size_t)WQ * PL);
+  static constexpr size_t OS = OP + rnd4((size_t)WP * PL);
+  static constexpr size_t OC = OS + rnd4((size_t)WS * NSB * PL);
+  static constexpr size_t OR = OC + (INTERP ? 0 : rnd4(2 * (size_t)CIP));
+  static constexpr size_t WORDS = OR + (INTERP ? 0 : 4 * (size_t)RPL);
+  static constexpr size_t BYTES = WORDS * sizeof(T);
+  static constexpr int NW = RY;  // a warp a region row
+};
+
+// Build settings of tools/tune_fused3.py only: the parts of ring3 that a
+// timing probe skips (bit 0: the coarse side's copies or L2 prefetch, 1:
+// the b and stencil copies, 2: the colour phases, 3: the barriers); 0 in
+// every other build.
+#ifndef CEDAR_FUSED3_PROBE
+#define CEDAR_FUSED3_PROBE 0
+#endif
+constexpr int kProbe = CEDAR_FUSED3_PROBE;
+
+struct RingDims {
+  int nx, ny, nz, nxc, nyc, nzc, cx, colors, emit_res;
+};
+
+// colour-compact position of region column c: a row holds its even
+// columns, then its odd ones, so that the points of one colour phase,
+// and their z neighbours, are consecutive words
+__device__ __forceinline__ int cpos(int c) { return ((c & 1) << 5) | (c >> 1); }
+
+// 7-point K15 (INTERP false, EPI kRestrict; q_in is q) or K16 (INTERP
+// true, EPI kNone / kRes / kNorm; q_in is q_pre) on a y-z tile and an x
+// chunk: warp w takes region row w, lane l columns 2l and 2l + 1, in every
+// stage (a colour phase: the one of its colour).
+template <typename T, bool INTERP, int EPI, int TY>
+__global__ void __launch_bounds__(32 * Ring<T, INTERP, EPI, TY>::NW, 1)
+ring3(const T* __restrict__ so, const T* __restrict__ q_in,
+      const T* __restrict__ b, const T* __restrict__ ci_p,
+      const T* __restrict__ qc_p, T* __restrict__ q_out, T* __restrict__ res,
+      T* __restrict__ cb, T* __restrict__ partials, const RingDims a) {
+  using A = Arith<T>;
+  using R = Ring<T, INTERP, EPI, TY>;
+  constexpr bool ST = R::ST;
+  constexpr int SP = R::SP, SE = R::SE, H = R::H;
+  constexpr int RY = R::RY, TZ = R::TZ, PL = R::PL, NW = R::NW;
+  constexpr int NT = 32 * NW;
+  constexpr int NSB = R::NSB, BI = ST ? 4 : 0;  // b's array in a slot
+  constexpr int CY = R::CY, CZ = R::CZ, RWR = R::RWR;
+
+  const int nx = a.nx, ny = a.ny, nz = a.nz;
+  const long long sy = nz, sx = (long long)ny * nz, N = sx * nx;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sm = reinterpret_cast<T*>(smem);
+  // the ring slot of plane x (x >= -8)
+  auto qs = [&](int x) { return sm + ((x + 8 * R::WQ) % R::WQ) * PL; };
+  constexpr int WP = R::WP > 0 ? R::WP : 1;
+  auto ps = [&](int x) { return sm + R::OP + ((x + 8 * WP) % WP) * PL; };
+  auto ss = [&](int x) {
+    return sm + R::OS + ((x + 8 * R::WS) % R::WS) * NSB * PL;
+  };
+  auto cis = [&](int c) { return sm + R::OC + (c & 1) * R::CIP; };
+  auto rs = [&](int x) { return sm + R::OR + ((x + 8 * 4) % 4) * R::RPL; };
+
+  const int zt = blockIdx.x * TZ, yt = blockIdx.y * TY, xt = blockIdx.z * a.cx;
+  const int z0 = zt - H, y0 = yt - H;  // the region's origin
+  const int xe = min(xt + a.cx, nx);   // own planes [xt, xe)
+  const int lane = threadIdx.x, r = threadIdx.y;  // r: the warp's row
+  const int tid = r * 32 + lane;
+  const int y = y0 + r;
+  auto valid = [&](int x, int s) {
+    return x >= max(xt - H + s, 0) && x < min(xt + a.cx + H - s, nx);
+  };
+
+  // --- the copies ---------------------------------------------------------
+  // plane x of a grid array into a slot, zero off the grid: thread (r,
+  // lane) copies columns lane and lane + 32 of row r
+  int goff[2], soff[2];
+  bool gin[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = lane + 32 * j, z = z0 + c;
+    gin[j] = y >= 0 && y < ny && z >= 0 && z < nz;
+    goff[j] = gin[j] ? y * nz + z : 0;
+    soff[j] = r * kRW + cpos(c);
+  }
+  auto copy_plane = [&](T* dst, const T* src, int x) {
+    const T* sp = src + x * sx;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) copy_async(dst + soff[j], sp + goff[j], gin[j]);
+  };
+  // lines of 128 bytes into L2: the f64 stencil's planes at plane x, and
+  // K16's coarse side
+  constexpr int LINE = 128 / sizeof(T);
+  auto prefetch_so = [&](int x) {
+    constexpr int NLN = kRW / LINE;
+    for (int e = tid; e < 4 * RY * NLN; e += NT) {
+      const int d = e / (RY * NLN), rr = (e / NLN) % RY, k = e % NLN;
+      const int yy = y0 + rr, z = max(z0 + k * LINE, 0);
+      if (yy >= 0 && yy < ny && z < nz && z0 + (k + 1) * LINE > 0)
+        prefetch_l2(so + d * N + x * sx + yy * sy + z);
+    }
+  };
+  const long long cplane = (long long)(a.nxc + 1) * (a.nyc + 1) * (a.nzc + 1);
+  const CI3<T> cig = make_ci(ci_p, a.nxc, a.nyc, a.nzc);
+  // K16: the coarse rows and columns that the stage-1 points read
+  constexpr int CRY = RY / 2 + 1, CRW = kRW / 2 + 1;
+  constexpr int CNL = (CRW + LINE - 1) / LINE + 1;  // lines a coarse row
+  const int cy0 = (y0 + 1) >> 1, cz0 = (z0 + 1) >> 1;
+  auto prefetch_ci = [&](int c) {
+    for (int e = tid; e < 26 * CRY * CNL; e += NT) {
+      const int d = e / (CRY * CNL), j = cy0 + (e / CNL) % CRY;
+      const int k = max(cz0 + (e % CNL) * LINE, 0);
+      if (c <= a.nxc && j >= 0 && j <= a.nyc && k <= a.nzc && k < cz0 + CRW)
+        prefetch_l2(ci_p + d * cplane +
+                    ((long long)c * (a.nyc + 1) + j) * (a.nzc + 1) + k);
+    }
+  };
+  auto prefetch_qc = [&](int c) {
+    for (int e = tid; e < CRY * CNL; e += NT) {
+      const int yc = cy0 + e / CNL, zc = max(cz0 + (e % CNL) * LINE, 0);
+      if (c < a.nxc && yc >= 0 && yc < a.nyc && zc < a.nzc && zc < cz0 + CRW)
+        prefetch_l2(qc_p + ((long long)c * a.nyc + yc) * a.nzc + zc);
+    }
+  };
+  // K15: CI plane c at the block's coarse points and the next ones into
+  // slot c % 2 ([26][CY][CZ]), zero off the array: a thread takes one
+  // (row, column) through the directions
+  const int yc0 = yt / 2, zc0 = zt / 2;
+  auto copy_ci = [&](int c) {
+    T* dst = cis(c);
+    for (int e = tid; e < CY * CZ; e += NT) {
+      const int j = yc0 + e / CZ, k = zc0 + e % CZ;
+      const bool in = c <= a.nxc && j <= a.nyc && k <= a.nzc;
+      const T* src =
+          ci_p + (in ? ((long long)c * (a.nyc + 1) + j) * (a.nzc + 1) + k : 0);
+#pragma unroll 2
+      for (int d = 0; d < 26; ++d)
+        copy_async(dst + d * CY * CZ + e, src + (in ? d * cplane : 0), in);
+    }
+  };
+
+  const int p0 = max(xt - H, 0), load_end = min(xt + a.cx + H, nx);
+  const int x1 = max(xt - H + 1, 0);  // K16's first stage-1 plane
+  // every copy that step t reads first, as one commit group
+  auto issue = [&](int t) {
+    if (t < load_end) {
+      copy_plane(INTERP ? ps(t) : qs(t), q_in, t);
+      if (!(kProbe & 2)) {
+        T* d = ss(t);
+        copy_plane(d + BI * PL, b, t);
+        if constexpr (ST) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s) copy_plane(d + s * PL, so + s * N, t);
+        } else {
+          prefetch_so(t);
+        }
+      }
+    }
+    if constexpr (INTERP) {
+      // stage 1 at plane x = t - 1 reads CI plane (x + 1) >> 1 and qc
+      // planes x >> 1 and, at odd x, x / 2 + 1
+      const int x = t - 1;
+      if (!(kProbe & 1) && valid(x, 1) && (x == x1 || (x & 1))) {
+        prefetch_ci((x + 1) >> 1);
+        if (x == x1) prefetch_qc(x >> 1);
+        if (x & 1) prefetch_qc((x >> 1) + 1);
+      }
+    } else {
+      // the restriction at plane x = t - SE - 2 reads CI planes x / 2 and
+      // x / 2 + 1: the one slot that the restriction two steps before
+      // read is free by now
+      const int x = t - SE - 2;
+      if (!(kProbe & 1) && x >= xt && x < xe && (x & 1) == 0) {
+        if (x == xt) copy_ci(x >> 1);
+        copy_ci((x >> 1) + 1);
+      }
+    }
+    commit_async();
+  };
+
+  // --- the stages ---------------------------------------------------------
+  // A point (x, y, z), region column c, as the stages read it: the stencil
+  // through s0 and s1 (planes x and x + 1 at the point), b, q through qm,
+  // q0, qp (planes x - 1 .. x + 1 at the point), and which of its
+  // neighbours lie on the grid.  A stage evaluates its points whether or
+  // not they lie on the grid and stores only those that do, so that a
+  // thread's points run as independent chains: y and z are clamped to the
+  // grid here (the values of a clamped point are never stored).
+  struct Pt {
+    const T *s0, *s1, *bp, *qm, *q0, *qp;
+    bool xl, xh, yl, yh, zl, zh;
+  };
+  const int ycl = min(max(y, 0), ny - 1);  // y clamped to the grid
+  auto point = [&](int x, int z, int c, const T* qm, const T* q0,
+                   const T* qp) {
+    const int o = r * kRW + cpos(c);
+    z = min(max(z, 0), nz - 1);
+    Pt t;
+    if constexpr (ST) {
+      t.s0 = ss(x) + o;
+      t.s1 = ss(x + 1) + o;
+    } else {
+      t.s0 = so + (x * sx + ycl * sy + z);
+      t.s1 = t.s0 + sx;
+    }
+    t.bp = ss(x) + BI * PL + o;
+    t.qm = qm + o;
+    t.q0 = q0 + o;
+    t.qp = qp + o;
+    t.xl = x > 0, t.xh = x + 1 < nx, t.yl = ycl > 0, t.yh = ycl + 1 < ny;
+    t.zl = z > 0, t.zh = z + 1 < nz;
+    return t;
+  };
+  // Σ coupling · q over the neighbours (offdiag_terms' order).  In a
+  // colour-compact row the z + 1 and z - 1 neighbours of a column of
+  // parity pc lie ZP and ZM words away: with pc a literal every read is a
+  // constant offset from the point's pointers.
+  auto offd = [&](int pc, const Pt& t) -> T {
+    const int ZP = pc ? -31 : 32, ZM = pc ? -32 : 31;
+    return offdiag_terms<T, false>([&](int dx, int dy, int dz, int P) -> T {
+      const bool ok = (dx < 0 ? t.xl : dx > 0 ? t.xh : true) &&
+                      (dy < 0 ? t.yl : dy > 0 ? t.yh : true) &&
+                      (dz < 0 ? t.zl : dz > 0 ? t.zh : true);
+      if (!ok) return T(0);
+      const T* qx = dx < 0 ? t.qm : dx > 0 ? t.qp : t.q0;
+      const T* sp = dx > 0 ? t.s1 : t.s0;
+      T sv;
+      if constexpr (ST)
+        sv = sp[P * PL + (dy > 0 ? kRW : 0) + (dz > 0 ? ZP : 0)];
+      else
+        sv = sp[P * N + (dy > 0 ? sy : 0) + (dz > 0 ? 1 : 0)];
+      return A::mul(sv, qx[dy * kRW + (dz > 0 ? ZP : dz < 0 ? ZM : 0)]);
+    });
+  };
+  // b - A q at the point
+  auto residual = [&](int pc, const Pt& t) -> T {
+    return A::sub(A::add(*t.bp, offd(pc, t)), A::mul(t.s0[0], *t.q0));
+  };
+
+  T acc = T(0);
+  const bool yin = y >= 0 && y < ny;
+  const bool own_row = r >= H && r < H + TY && y < ny;
+#pragma unroll
+  for (int t = 0; t < kAhead; ++t) issue(p0 + t);
+  // A stage hands each point to the next stage in the same thread: stage
+  // s + 1 at plane x - 1 reads plane x only at its own point, which stage
+  // s updated earlier in the same step; so the stages need one barrier a
+  // step, which also publishes the copies of plane p and frees the slots
+  // that step p + kAhead's copies overwrite.  (K15 restricts plane
+  // p - SE - 2 at step p: one step more.)
+  for (int p = p0; p < xe + H + !INTERP; ++p) {
+    wait_async<kAhead - 1>();
+    if (!(kProbe & 8)) __syncthreads();
+    issue(p + kAhead);
+
+    if constexpr (INTERP) {
+      // stage 1: K8's expression, q_pre + (res/diag (off the coincident
+      // points) + P qc), with res = b - A q_pre from the q_pre ring.  A
+      // lane's two columns in turn, so that the points of a warp share a
+      // parity class (one branch of interp_with); the class's loads go
+      // first and the residual overlaps them
+      const int x = p - 1;
+      if (valid(x, 1) && r >= 1 && r < RY - 1 && yin) {
+        T* dst = qs(x);
+        const T *pm = ps(x - 1), *pw = ps(x), *pp = ps(x + 1);
+        const int c = 2 * lane, z = z0 + c;
+        const QC3<T> qcg{qc_p, a.nxc, a.nyc, a.nzc};
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const Pt t = point(x, z + j, c + j, pm, pw, pp);
+          if (c + j >= 1 && c + j < kRW - 1 && z + j >= 0 && z + j < nz)
+            dst[t.q0 - pw] = A::add(
+                *t.q0, interp_with<T>(cig, qcg, x, y, z + j, [&] {
+                  return A::div(residual(j, t), t.s0[0]);
+                }));
+        }
+      }
+    }
+
+    // the colour phases: q = (b + Σ coupling·q_nb) * (1/P) at the
+    // colour's points, (x + y + z) % 2 == color
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int s = INTERP + 1 + k, x = p - s;
+      const int color = (a.colors >> (4 * k)) & 15;
+      if (!(kProbe & 4) && valid(x, s) && r >= s && r < RY - s) {
+        T* qx = qs(x);
+        const int pc = (color - x - y - z0) & 1;
+        const int c = 2 * lane + pc, z = z0 + c;
+        const Pt t = point(x, z, c, qs(x - 1), qx, qs(x + 1));
+        const T v = A::mul(A::add(*t.bp, offd(pc, t)), A::div(T(1), t.s0[0]));
+        if (yin && c >= s && c < kRW - s && z >= 0 && z < nz)
+          qx[t.q0 - qx] = v;
+      }
+    }
+
+    {
+      // plane p - SP is final: its own tile to q_out
+      const int x = p - SP;
+      if (x >= xt && x < xe && own_row) {
+        const T* src = qs(x);
+        T* dst = q_out + x * sx + y * sy;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 2 * lane + j, z = z0 + c;
+          if (c >= H && c < H + TZ && z < nz) dst[z] = src[r * kRW + cpos(c)];
+        }
+      }
+    }
+
+    if constexpr (EPI == kRes || EPI == kNorm) {
+      // the residual of the block's own points of plane p - SE
+      const int x = p - SE;
+      if (x >= xt && x < xe && own_row) {
+        const T *qm = qs(x - 1), *q0 = qs(x), *qp = qs(x + 1);
+        const int c = 2 * lane, z = z0 + c;
+        const T rv0 = residual(0, point(x, z, c, qm, q0, qp));
+        const T rv1 = residual(1, point(x, z + 1, c + 1, qm, q0, qp));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const T rv = j ? rv1 : rv0;
+          if (c + j < H || c + j >= H + TZ || z + j >= nz) continue;
+          if (EPI == kRes)
+            res[x * sx + y * sy + z + j] = rv;
+          else
+            acc = A::add(acc, A::mul(rv, rv));
+        }
+      }
+    }
+
+    if constexpr (EPI == kRestrict) {
+      // the residual of plane p - SE over the tile and its low ring (zero
+      // off the grid) into the residual window, and to res on request
+      const int x = p - SE;
+      if (x >= max(xt - 1, 0) && x < xe && r >= H - 1 && r < H + TY) {
+        const T *qm = qs(x - 1), *q0 = qs(x), *qp = qs(x + 1);
+        T* dst = rs(x) + (r - H + 1) * RWR - H + 1;
+        const bool own = a.emit_res && x >= xt && r >= H;
+        const int c = 2 * lane, z = z0 + c;
+        const T rv0 = residual(0, point(x, z, c, qm, q0, qp));
+        const T rv1 = residual(1, point(x, z + 1, c + 1, qm, q0, qp));
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          if (c + j < H - 1 || c + j >= H + TZ) continue;
+          const bool in = yin && z + j >= 0 && z + j < nz;
+          const T rv = in ? (j ? rv1 : rv0) : T(0);
+          if (in && own && c + j >= H) res[x * sx + y * sy + z + j] = rv;
+          dst[c + j] = rv;
+        }
+      }
+      // cb at the coarse points of plane p - SE - 2 that the block owns
+      // (an even plane of the chunk): its residual planes were written in
+      // the steps before, so the step's barrier covers them and the
+      // restriction overlaps the other warps' stages
+      const int xr = p - SE - 2;
+      if (xr >= xt && xr < xe && (xr & 1) == 0) {
+        const int xc = xr >> 1;
+        auto ci_at = [&](int d, int i, int j, int k) -> T {
+          return cis(i)[(d * CY + j - yc0) * CZ + k - zc0];
+        };
+        for (int e = tid; e < (TY / 2) * (TZ / 2); e += NT) {
+          const int yc = yc0 + e / (TZ / 2), zc = zc0 + e % (TZ / 2);
+          if (yc >= a.nyc || zc >= a.nzc) continue;
+          auto fine = [&](int ox, int oy, int oz) -> T {
+            const int fx = xr + ox, fy = 2 * yc + oy, fz = 2 * zc + oz;
+            return (fx >= 0 && fx < nx && fy >= 0 && fy < ny && fz >= 0 &&
+                    fz < nz)
+                       ? rs(fx)[(fy - yt + 1) * RWR + (fz - zt + 1)]
+                       : T(0);
+          };
+          cb[((long long)xc * a.nyc + yc) * a.nzc + zc] =
+              restrict_value(ci_at, fine, xc, yc, zc);
+        }
+      }
+    }
+  }
+  wait_async<0>();
+
+  if constexpr (EPI == kNorm) {
+    const T tot = block_sum<NW>(acc);
+    if (tid == 0)
+      partials[((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
+               blockIdx.x] = tot;
+  }
+}
+
+template <typename T, bool INTERP, int EPI, int TY>
+int launch_ring(const Args& a, const KPlan& p, cudaStream_t st) {
+  using R = Ring<T, INTERP, EPI, TY>;
+  // the plan must be this variant's and cover the grid once, with tiles
+  // and chunks at even indices
+  if (p.smem != (long long)R::BYTES || p.cx < 2 || (p.cx & 1) ||
+      p.gz != (a.nz + R::TZ - 1) / R::TZ || p.gy != (a.ny + TY - 1) / TY ||
+      p.gc != (a.nx + p.cx - 1) / p.cx)
+    return (int)cudaErrorInvalidValue;
+  const RingDims d{a.nx,  a.ny, a.nz,     a.nxc,     a.nyc,
+                   a.nzc, p.cx, a.colors, a.emit_res};
+  auto fn = ring3<T, INTERP, EPI, TY>;
+  // above 48 KB with block_sum's static array included
+  if (R::BYTES + 1024 > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)R::BYTES);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fn<<<dim3(p.gz, p.gy, p.gc), dim3(32, R::NW), R::BYTES, st>>>(
+      (const T*)a.so, (const T*)a.q_in, (const T*)a.b, (const T*)a.ci,
+      (const T*)a.qc, (T*)a.q_out, (T*)a.res, (T*)a.cb, (T*)a.partials, d);
+  return (int)cudaGetLastError();
+}
+
+// a 7-point ring variant on the plan's tile rows, launched (go true), or
+// the shared-memory bytes of that variant (-1: not built)
+template <typename T, bool INTERP, int EPI>
+int ring_rows(bool go, const Args& a, const KPlan& p, cudaStream_t st) {
+  constexpr int T0 = kRingRows[sizeof(T) == 8][0];
+  constexpr int T1 = kRingRows[sizeof(T) == 8][1];
+  if (p.ty == T0)
+    return go ? launch_ring<T, INTERP, EPI, T0>(a, p, st)
+              : (int)Ring<T, INTERP, EPI, T0>::BYTES;
+  if (p.ty == T1)
+    return go ? launch_ring<T, INTERP, EPI, T1>(a, p, st)
+              : (int)Ring<T, INTERP, EPI, T1>::BYTES;
+  return go ? (int)cudaErrorInvalidValue : -1;
+}
+
+// K15 (interp false, mode kRestrict) or K16 (interp true, mode kNone /
+// kRes / kNorm, 27-point kNone only) launched on plan p (go true); or the
+// shared-memory bytes of the kernel with p's tile rows (-1: none such).
+// 7-point: the ring design; 27-point: the window design.
+template <typename T>
+int planned(bool go, const Args& a, int ts, int interp, int mode,
+            const KPlan& p, cudaStream_t st) {
+  const int bad = go ? (int)cudaErrorInvalidValue : -1;
+  if (interp ? mode != kNone && (ts || (mode != kRes && mode != kNorm))
+             : mode != kRestrict)
+    return bad;
+  if (ts) {
+    if (!go)
+      return p.ty == kTileRows
+                 ? (int)(smem_words(true, interp, mode, sizeof(T)) * sizeof(T))
+                 : -1;
+    return interp ? launch<T, true, true, kNone>(a, &p, st)
+                  : launch<T, true, false, kRestrict>(a, &p, st);
+  }
+  if (!interp) return ring_rows<T, false, kRestrict>(go, a, p, st);
+  switch (mode) {
+    case kNone: return ring_rows<T, true, kNone>(go, a, p, st);
+    case kRes: return ring_rows<T, true, kRes>(go, a, p, st);
+    case kNorm: return ring_rows<T, true, kNorm>(go, a, p, st);
+  }
+  return bad;
+}
+
+int planned_dtype(int dtype, bool go, const Args& a, int ts, int interp,
+                  int mode, const KPlan& p, cudaStream_t st) {
+  if (dtype == kFloat32) return planned<float>(go, a, ts, interp, mode, p, st);
+  if (dtype == kFloat64)
+    return planned<double>(go, a, ts, interp, mode, p, st);
+  return go ? (int)cudaErrorInvalidValue : -1;
 }
 
 }  // namespace
@@ -549,14 +1060,24 @@ extern "C" {
 // 8 colours of a sweep in 8 / cedar_fused3_colors(1) passes.
 int cedar_fused3_colors(int ts) { return cedar::phases_of(ts); }
 
-// The number of norm partials (of blocks) of a K14 (interp = 0) or K16
-// (interp = 1) pass with the norm epilogue on an (nx, ny, nz) grid.
-int cedar_fused3_partials(int interp, int ts, int nx, int ny, int nz) {
-  const cedar::Plan pl = cedar::plan(ts, interp, cedar::kNorm, nx, ny, nz, 4);
+// The number of norm partials (of blocks) of a K14 pass with the norm
+// epilogue on an (nx, ny, nz) grid (K16's: its plan's blocks).
+int cedar_fused3_partials(int ts, int nx, int ny, int nz) {
+  const cedar::Plan pl =
+      cedar::plan(ts, false, cedar::kNorm, nx, ny, nz, 4);
   return (int)(pl.grid.x * pl.grid.y * pl.grid.z);
 }
 
-// K14: q_out = one pass (2 colours 7-point, 4 of the 8 27-point) of q_in;
+// The shared-memory bytes of the K15 (interp 0, mode 3) or K16 (interp 1,
+// mode 0-2) kernel with tiles of ty rows, or -1 if none is built: what
+// ops/cuda_fused3.py `plan` computes.
+int cedar_fused3_smem(int dtype, int ts, int interp, int mode, int ty) {
+  const cedar::Args a{};
+  const cedar::KPlan p{ty, 0, 0, 0, 0, 0};
+  return cedar::planned_dtype(dtype, false, a, ts, interp, mode, p, nullptr);
+}
+
+// K14: q_out = one pass (2 colours 7-point, 1 of the 8 27-point) of q_in;
 // colors packs the colour codes in order, 4 bits each; mode 0 nothing
 // more, 1 res = b - A q_out, 2 partials[block] = Σ res² over the block.
 // Returns a CUDA error code (0 on success).
@@ -566,40 +1087,44 @@ int cedar_sweep3_fused(int dtype, const void* so, const void* q_in,
                        int oy, int oz, int mode, void* stream) {
   const cedar::Args a{so, q_in, b, nullptr, nullptr, q_out, res, nullptr,
                       partials, nx, ny, nz, 0, 0, 0, colors, ox, oy, oz, 0};
-  return cedar::launch_dtype<false>(dtype, a, ts, mode, (cudaStream_t)stream);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == cedar::kFloat32)
+    return cedar::launch_sweep<float>(a, ts, mode, st);
+  if (dtype == cedar::kFloat64)
+    return cedar::launch_sweep<double>(a, ts, mode, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K15: q_out = one pass of q_in, res = b - A q_out (written when
-// emit_res), cb (nxc, nyc, nzc) = Pᵀ res.  Returns a CUDA error code.
+// emit_res), cb (nxc, nyc, nzc) = Pᵀ res, on the plan (ty, cx, gz, gy,
+// gc, smem) of ops/cuda_fused3.py.  Returns a CUDA error code.
 int cedar_sweep_restrict3(int dtype, const void* so, const void* q_in,
                           const void* b, const void* ci, void* q_out,
                           void* res, void* cb, int nx, int ny, int nz,
                           int nxc, int nyc, int nzc, int ts, int colors,
-                          int emit_res, void* stream) {
+                          int emit_res, int ty, int cx, int gz, int gy,
+                          int gc, long long smem, void* stream) {
   const cedar::Args a{so, q_in, b, ci, nullptr, q_out, res, cb, nullptr,
                       nx, ny, nz, nxc, nyc, nzc, colors, 0, 0, 0, emit_res};
-  cudaStream_t st = (cudaStream_t)stream;
-  using cedar::kRestrict;
-  if (dtype == cedar::kFloat32)
-    return ts ? cedar::launch<float, true, false, kRestrict>(a, st)
-              : cedar::launch<float, false, false, kRestrict>(a, st);
-  if (dtype == cedar::kFloat64)
-    return ts ? cedar::launch<double, true, false, kRestrict>(a, st)
-              : cedar::launch<double, false, false, kRestrict>(a, st);
-  return (int)cudaErrorInvalidValue;
+  const cedar::KPlan p{ty, cx, gz, gy, gc, smem};
+  return cedar::planned_dtype(dtype, true, a, ts, 0, cedar::kRestrict, p,
+                              (cudaStream_t)stream);
 }
 
 // K16: q_out = one pass of q_pre + (b - A q_pre) / diag + P qc; mode as
-// K14 (0 only for 27-point, whose second pass is a K14).  Returns a CUDA
-// error code.
+// K14 (0 only for 27-point, whose second pass is a K14); plan as K15.
+// Returns a CUDA error code.
 int cedar_interp_sweep3(int dtype, const void* ci, const void* qc,
                         const void* so, const void* b, const void* q_pre,
                         void* q_out, void* res, void* partials, int nx,
                         int ny, int nz, int nxc, int nyc, int nzc, int ts,
-                        int colors, int mode, void* stream) {
+                        int colors, int mode, int ty, int cx, int gz, int gy,
+                        int gc, long long smem, void* stream) {
   const cedar::Args a{so, q_pre, b, ci, qc, q_out, res, nullptr, partials,
                       nx, ny, nz, nxc, nyc, nzc, colors, 0, 0, 0, 0};
-  return cedar::launch_dtype<true>(dtype, a, ts, mode, (cudaStream_t)stream);
+  const cedar::KPlan p{ty, cx, gz, gy, gc, smem};
+  return cedar::planned_dtype(dtype, true, a, ts, 1, mode, p,
+                              (cudaStream_t)stream);
 }
 
 }  // extern "C"

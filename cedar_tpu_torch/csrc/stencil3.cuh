@@ -1,7 +1,9 @@
 // 3D stencil device code shared by K6 (sweep3.cu) and K14-K16 (fused3.cu),
 // so that the kernels round alike: the off-diagonal sum of the sweep and
 // the residual, in the term order of ops/stencil3.py (`offsets_for`,
-// `offdiag_apply`) of this package.
+// `offdiag_apply`) of this package.  `offdiag_terms` holds the order;
+// `offdiag_at` reads plain strided memory (K6, K14), K15/K16 read their
+// colour-compact shared-memory rings through their own term.
 //
 // The stencil `so` is (ndir, nx, ny, nz), row-major with z contiguous;
 // plane P = 0 is the diagonal.  Up-shifted couplings read the neighbour's
@@ -19,33 +21,14 @@ namespace cedar {
 constexpr int PW = 1, PS = 2, B = 3, PSW = 4, PNW = 5, BW = 6, BNW = 7,
               BN = 8, BNE = 9, BE = 10, BSE = 11, BS = 12, BSW = 13;
 
-// Σ coupling · q(neighbour) at one point, in stencil3.offsets_for order.
-// The stencil is read through s0 and sp, the point's position in its own
-// x plane and in the x+1 plane, with the stride N between stencil planes
-// and the row (y) stride ss; q through qm, q0 and qp, the point's position
-// in the planes x-1, x and x+1, with the row stride qs; z is contiguous.
-// Either may be the grid itself (K6) or planes of a shared-memory window
-// (K14-K16).  xl .. zh say whether the low / high neighbour along each
-// axis lies on the grid.
-template <typename T, bool TS>
-__device__ __forceinline__ T offdiag_at(const T* s0, const T* sp,
-                                        long long N, long long ss, bool xl,
-                                        bool xh, bool yl, bool yh, bool zl,
-                                        bool zh, const T* qm, const T* q0,
-                                        const T* qp, long long qs) {
+// Σ term(dx, dy, dz, P) over the neighbours of one point, in
+// stencil3.offsets_for order: term returns the coupling of the (dx, dy, dz)
+// neighbour, stored at plane P shifted by the positive part of the offset,
+// times that neighbour's q (zero off the grid).  The term order lives here
+// only, so that every reader of the stencil and q rounds alike.
+template <typename T, bool TS, typename Term>
+__device__ __forceinline__ T offdiag_terms(const Term& term) {
   using A = Arith<T>;
-  // coupling of the (dx, dy, dz) neighbour, stored at plane `p` shifted by
-  // the positive part of the offset, times that neighbour's q
-  auto term = [&](int dx, int dy, int dz, int p) -> T {
-    const bool ok = (dx < 0 ? xl : dx > 0 ? xh : true) &&
-                    (dy < 0 ? yl : dy > 0 ? yh : true) &&
-                    (dz < 0 ? zl : dz > 0 ? zh : true);
-    if (!ok) return T(0);
-    const T* s = dx > 0 ? sp : s0;
-    const T* qx = dx < 0 ? qm : dx > 0 ? qp : q0;
-    return A::mul(s[p * N + (dy > 0 ? ss : 0) + (dz > 0 ? 1 : 0)],
-                  qx[dy * qs + dz]);
-  };
   T acc;
   if (!TS) {
     acc = term(-1, 0, 0, PW);
@@ -84,6 +67,33 @@ __device__ __forceinline__ T offdiag_at(const T* s0, const T* sp,
   acc = A::add(acc, term(-1, 1, 1, BSE));
   acc = A::add(acc, term(1, -1, 1, BNW));
   return A::add(acc, term(-1, -1, 1, BNE));
+}
+
+// Σ coupling · q(neighbour) at one point (offdiag_terms).  The stencil is
+// read through s0 and sp, the point's position in its own x plane and in
+// the x+1 plane, with the stride N between stencil planes and the row (y)
+// stride ss; q through qm, q0 and qp, the point's position in the planes
+// x-1, x and x+1, with the row stride qs; z is contiguous.  Either may be
+// the grid itself (K6) or planes of a shared-memory window (K14).  xl ..
+// zh say whether the low / high neighbour along each axis lies on the
+// grid.
+template <typename T, bool TS>
+__device__ __forceinline__ T offdiag_at(const T* s0, const T* sp,
+                                        long long N, long long ss, bool xl,
+                                        bool xh, bool yl, bool yh, bool zl,
+                                        bool zh, const T* qm, const T* q0,
+                                        const T* qp, long long qs) {
+  using A = Arith<T>;
+  return offdiag_terms<T, TS>([&](int dx, int dy, int dz, int p) -> T {
+    const bool ok = (dx < 0 ? xl : dx > 0 ? xh : true) &&
+                    (dy < 0 ? yl : dy > 0 ? yh : true) &&
+                    (dz < 0 ? zl : dz > 0 ? zh : true);
+    if (!ok) return T(0);
+    const T* s = dx > 0 ? sp : s0;
+    const T* qx = dx < 0 ? qm : dx > 0 ? qp : q0;
+    return A::mul(s[p * N + (dy > 0 ? ss : 0) + (dz > 0 ? 1 : 0)],
+                  qx[dy * qs + dz]);
+  });
 }
 
 // Σ coupling · q(neighbour) at (x, y, z) of the grid q (nx, ny, nz).

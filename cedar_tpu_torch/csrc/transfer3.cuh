@@ -1,7 +1,10 @@
 // 3D BoxMG transfer device code shared by K7-K9 (transfer3.cu) and the
 // fused kernels K15/K16 (fused3.cu), so that a fused kernel rounds as the
 // separate transfers do: the CI weight access, the restriction of one
-// coarse point and the interpolated value of one fine point.  The term
+// coarse point and the interpolated value of one fine point.  The weights
+// and coarse values come through accessors (CI3, QC3 on the grid; K15/K16
+// pass their own over shared-memory rings), so the term order is written
+// once.  The term
 // orders are those of ops/interp3.py (`restrict_torch`, the PW3_TABLE
 // order, and `_interp_parts`) of this package (reference:
 // BMG3_SymStd_restrict.f90, BMG3_SymStd_interp_add.f90).
@@ -46,15 +49,31 @@ __device__ __forceinline__ CI3<T> make_ci(const T* p, int nxc, int nyc,
                 nzc + 1};
 }
 
+// The coarse values qc (nxc, nyc, nzc) on the grid, zero at index nxc /
+// nyc / nzc.  K16 reads CI and qc through accessors of the same shape over
+// its shared-memory rings.
+template <typename T>
+struct QC3 {
+  const T* __restrict__ p;
+  int nxc, nyc, nzc;
+  __device__ __forceinline__ T operator()(int i, int j, int k) const {
+    return (i < nxc && j < nyc && k < nzc)
+               ? p[((long long)i * nyc + j) * nzc + k]
+               : T(0);
+  }
+};
+
 // cb[c] = res[2c] + Σ weight · res[2c + off] over off = -δ in plane order
 // (interp3.restrict_torch: [(0,0,0)] + PW3_TABLE); the weight toward
 // 2c + off lies at CI index c + max(off, 0).  fine(ox, oy, oz) is the
-// residual at 2c + (ox, oy, oz), zero off the grid (a functor, so that it
-// can read device memory or a shared-memory window).
-template <typename T, typename Fine>
-__device__ __forceinline__ T restrict_value(const CI3<T>& ci,
-                                            const Fine& fine, int xc, int yc,
-                                            int zc) {
+// residual at 2c + (ox, oy, oz), zero off the grid, and ci(P, i, j, k)
+// the weight (functors, so that they can read device memory or a
+// shared-memory window).
+template <typename CI, typename Fine>
+__device__ __forceinline__ auto restrict_value(const CI& ci, const Fine& fine,
+                                               int xc, int yc, int zc)
+    -> decltype(fine(0, 0, 0)) {
+  using T = decltype(fine(0, 0, 0));
   using A = Arith<T>;
   T acc = fine(0, 0, 0);
 #define CEDAR_R(P, DX, DY, DZ)                                               \
@@ -70,25 +89,19 @@ __device__ __forceinline__ T restrict_value(const CI3<T>& ci,
 // (the planes of a class are contiguous in InterpDir3 order), in plane
 // order (interp3._interp_parts).  The loads come first, straight-line, so
 // that they are in flight while init() computes (K16's recomputed
-// residual).
-template <int P0, int P1, typename T, typename Init>
-__device__ __forceinline__ T interp_class(const CI3<T>& ci,
-                                          const T* __restrict__ qc, int hx,
+// residual).  ci(P, i, j, k) and qc(i, j, k) read the weights and the
+// coarse values (CI3 and QC3 on the grid).
+template <int P0, int P1, typename T, typename CI, typename QC,
+          typename Init>
+__device__ __forceinline__ T interp_class(const CI& ci, const QC& qc, int hx,
                                           int hy, int hz, int px, int py,
-                                          int pz, int nxc, int nyc, int nzc,
-                                          const Init& init) {
+                                          int pz, const Init& init) {
   using A = Arith<T>;
-  // coarse value, zero at index nxc / nyc / nzc
-  auto QC = [&](int i, int j, int k) -> T {
-    return (i < nxc && j < nyc && k < nzc)
-               ? qc[((long long)i * nyc + j) * nzc + k]
-               : T(0);
-  };
   T w[P1 - P0], c[P1 - P0];
 #define CEDAR_L(P, DX, DY, DZ)                                               \
   if constexpr (P >= P0 && P < P1) {                                         \
     w[P - P0] = ci(P, hx + px, hy + py, hz + pz);                            \
-    c[P - P0] = QC(hx + (DX > 0), hy + (DY > 0), hz + (DZ > 0));             \
+    c[P - P0] = qc(hx + (DX > 0), hy + (DY > 0), hz + (DZ > 0));             \
   }
   CEDAR_DELTA3(CEDAR_L)
 #undef CEDAR_L
@@ -105,18 +118,15 @@ __device__ __forceinline__ T interp_class(const CI3<T>& ci,
 //
 // Along each axis a fine index f has parity p = f & 1; its weight index is
 // (f >> 1) + p and its coarse neighbour for δ is (f >> 1) + (δ > 0).
-template <typename T, typename Init>
-__device__ __forceinline__ T interp_with(const CI3<T>& ci,
-                                         const T* __restrict__ qc, int x,
-                                         int y, int z, int nxc, int nyc,
-                                         int nzc, const Init& init) {
+template <typename T, typename CI, typename QC, typename Init>
+__device__ __forceinline__ T interp_with(const CI& ci, const QC& qc, int x,
+                                         int y, int z, const Init& init) {
   const int hx = x >> 1, hy = y >> 1, hz = z >> 1;
   const int px = x & 1, py = y & 1, pz = z & 1;
 #define CEDAR_C(P0, P1)                                                      \
-  return interp_class<P0, P1>(ci, qc, hx, hy, hz, px, py, pz, nxc, nyc, nzc, \
-                              init)
+  return interp_class<P0, P1, T>(ci, qc, hx, hy, hz, px, py, pz, init)
   switch (px | (py << 1) | (pz << 2)) {
-    case 0: return qc[((long long)hx * nyc + hy) * nzc + hz];
+    case 0: return qc(hx, hy, hz);
     case 1: CEDAR_C(0, 2);
     case 2: CEDAR_C(2, 4);
     case 4: CEDAR_C(4, 6);
@@ -126,6 +136,15 @@ __device__ __forceinline__ T interp_with(const CI3<T>& ci,
     default: CEDAR_C(18, 26);
   }
 #undef CEDAR_C
+}
+
+// interp_with on the grid's CI and qc (K8, K9)
+template <typename T, typename Init>
+__device__ __forceinline__ T interp_with(const CI3<T>& ci,
+                                         const T* __restrict__ qc, int x,
+                                         int y, int z, int nxc, int nyc,
+                                         int nzc, const Init& init) {
+  return interp_with<T>(ci, QC3<T>{qc, nxc, nyc, nzc}, x, y, z, init);
 }
 
 template <typename T>

@@ -78,13 +78,17 @@ SIGNATURES = {
     },
     "fused3": {
         "cedar_fused3_colors": [_I],
-        "cedar_fused3_partials": [_I, _I, _I, _I, _I],
+        "cedar_fused3_partials": [_I, _I, _I, _I],
+        "cedar_fused3_smem": [_I, _I, _I, _I, _I],
         "cedar_sweep3_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P],
+        # K15 and K16 end with their plan: ty, cx, gz, gy, gc, smem
         "cedar_sweep_restrict3": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I, _P],
+                                  _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _L, _P],
         "cedar_interp_sweep3": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _L, _P],
     },
 }
 
@@ -104,22 +108,29 @@ def nvcc() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     h = hashlib.sha256()
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode() + b"\0" + src.read_bytes())
-    h.update(" ".join(FLAGS).encode())
+    h.update(" ".join([*FLAGS, *defines]).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def _start(name: str, path: Path):
-    """Start nvcc on ``csrc/<name>.cu``; returns what :func:`_finish` takes."""
+def _start(name: str, path: Path, defines: tuple[str, ...] = ()):
+    """Start nvcc on ``csrc/<name>.cu`` (with ``-D`` ``defines``); returns
+    what :func:`_finish` takes."""
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    cmd = [nvcc(), *FLAGS, *(f"-D{d}" for d in defines), "-o", str(tmp),
+           str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
-    return name, path, tmp, cmd, time.perf_counter(), proc
+    return _key(name, defines), path, tmp, cmd, time.perf_counter(), proc
+
+
+def _key(name: str, defines: tuple[str, ...]) -> str:
+    """A build's name in :data:`_libs` and :data:`build_log`."""
+    return f"{name}:{' '.join(defines)}" if defines else name
 
 
 def _finish(name, path, tmp, cmd, t0, proc) -> None:
@@ -133,13 +144,13 @@ def _finish(name, path, tmp, cmd, t0, proc) -> None:
     build_log[name] = (time.perf_counter() - t0, err)
 
 
-def _open(name: str, path: Path) -> ctypes.CDLL:
+def _open(name: str, path: Path, key: str | None = None) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
     for fn, argtypes in SIGNATURES[name].items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = ctypes.c_int
-    _libs[name] = lib
+    _libs[key or name] = lib
     return lib
 
 
@@ -152,6 +163,30 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         _finish(*_start(name, path))
     return _open(name, path)
+
+
+def load_variant(name: str, defines: tuple[str, ...]) -> ctypes.CDLL:
+    """``csrc/<name>.cu`` built with the ``-D`` settings ``defines`` (for
+    the tools that time a kernel's build settings), beside the default
+    build; :func:`load` keeps returning the default one."""
+    key = _key(name, defines)
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    path = library_path(name, defines)
+    if not path.exists():
+        _finish(*_start(name, path, defines))
+    return _open(name, path, key)
+
+
+def build_variants(name: str, variants) -> None:
+    """Build ``csrc/<name>.cu`` with each tuple of ``-D`` settings in
+    ``variants`` that is not built yet, one nvcc each, all started
+    together (for :func:`load_variant`)."""
+    started = [_start(name, library_path(name, d), d) for d in variants
+               if not library_path(name, d).exists()]
+    for job in started:
+        _finish(*job)
 
 
 def load_all(names=None) -> None:

@@ -1,0 +1,378 @@
+"""Time the fused 3D kernels K15 and K16 on the card, whole and by part.
+
+K15 (sweep + residual + restriction, ``ops/cuda_fused3.sweep_restrict``,
+as the cycle calls it: no residual out) and K16 (interp-add + sweep,
+``interp_sweep``: 7-point without and with the norm, 27-point one colour)
+run at 256³ 7-point and 128³ 27-point float32, the shapes of
+``3d_poisson_7pt_256`` and ``3d_fe_27pt_128``.  Each is first held bit for
+bit against its plain version (the norm partials' sum to 1e-5), then
+timed with CUDA events.  The 7-point ones (the ring design) are timed for
+each tile-row option that csrc/fused3.cu builds (``--rows``;
+``cuda_fused3.RING_ROWS``) and each probe: builds of csrc/fused3.cu with
+``-DCEDAR_FUSED3_PROBE=bits`` that skip the coarse side's copies (K15) or
+L2 prefetch (K16) (1), the b and stencil copies (2), the colour phases (4)
+or the barriers (8), whose outputs are wrong and whose times split a call
+among its parts.
+It prints the card's name and power limit first.
+
+Run from the repository root on a machine with a CUDA device:
+
+    python3 cedar_tpu_torch/tools/tune_fused3.py [--rows 12 10] \
+        [--probe 1 2 4 8]
+
+With ``--tree DIR`` it times the kernels of another checkout of the
+repository (for example the parent commit, unpacked with ``git archive``,
+or ``.``), so that two designs compare in one call; with ``--probe`` it
+also times copies of that checkout whose csrc/fused3.cu is edited to skip
+the same parts of the window design (:data:`PROBES`: K14 and the
+27-point K15 and K16, and in an older source whose `fused3` ran every
+K15/K16, the 7-point ones too):
+
+    python3 cedar_tpu_torch/tools/tune_fused3.py --tree DIR [--probe 1 2 4 8]
+
+``--cycles`` times instead the fused V(1,1) cycles that run these kernels,
+``3d_poisson_7pt_256`` and ``3d_fe_27pt_128`` (:data:`CELLS`), as the
+solve runs them (the median of 25 CUDA-event-timed cycles); with ``--tree``
+those of the other checkout, so that a call can run parent, change,
+change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+#: Edits of the window design's template in csrc/fused3.cu (`fused3`: K14
+#: and the 27-point K15/K16; in older sources every K15/K16 too) that
+#: skip a part, by probe bit: the coarse side (K16's interpolation, K15's
+#: restriction), the prefetch of the windowed stencil and b, the colour
+#: phases, the barriers.  Each text must occur as often as given.
+PROBES = {
+    1: [("interp_with(ci, qc, x, y, z, a.nxc, a.nyc, a.nzc, [&] {",
+         "probe_init([&] {", 1),
+        ("if (x >= xt && x < xe && (x & 1) == 0) {\n        const int xc",
+         "if (false) {\n        const int xc", 1)],
+    2: [("constexpr int NS = ST ? kStaged : 0;", "constexpr int NS = 0;", 1)],
+    4: [("if (valid(x, s) && (!TS || ((x + a.ox - color) & 1) == 0)) {",
+         "if (false) {", 1)],
+    8: [("if (TS) __syncthreads();", "", 2),
+        ("    __syncthreads();\n    if (EPI == kRestrict) {",
+         "    if (EPI == kRestrict) {", 1),
+        ("if (more) commit(p + 1);\n    __syncthreads();",
+         "if (more) commit(p + 1);", 1)],
+}
+_HELPER = ("namespace {\n\n"
+           "template <class F>\n"
+           "__device__ auto probe_init(const F& f) { return f(); }\n")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rows", type=int, nargs="+", default=[0],
+                    help="7-point tile rows (0: the plan's own)")
+    ap.add_argument("--probe", type=int, nargs="+", default=[0],
+                    help="probe bits: 1 coarse side, 2 b and stencil "
+                         "copies, 4 colour phases, 8 barriers skipped")
+    ap.add_argument("--tree", help="time this checkout's kernels instead")
+    ap.add_argument("--build-only", action="store_true",
+                    help="build the kernels and stop")
+    ap.add_argument("--unchecked", action="store_true",
+                    help="skip the bit checks (a --tree probe copy)")
+    ap.add_argument("--cycles", action="store_true",
+                    help="time the cells' fused cycles instead")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args(argv)
+    args.probe = sorted({0, *args.probe})
+    if args.tree and len(args.probe) > 1:
+        return run_trees(args)
+    sys.path.insert(0, args.tree or str(Path(__file__).resolve().parents[2]))
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("tune_fused3: no CUDA device")
+    from cedar_tpu_torch.ops import cuda_build, cuda_fused3
+
+    cuda_build.load_all(["fused3"])
+    if args.build_only:
+        return
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip())
+    print(f"kernels of {cuda_fused3.__file__}", flush=True)
+    if args.cycles:
+        return cycles()
+    tunable = hasattr(cuda_fused3, "_sweep_restrict")
+    cases = make_cases(tunable)
+    if not tunable:
+        run(cases, [0], {0: None}, args.reps, f"{args.tree} default build",
+            not args.unchecked)
+        return
+    probes = {b: (f"CEDAR_FUSED3_PROBE={b}",) for b in args.probe if b}
+    cuda_build.build_variants("fused3", probes.values())
+    for key, (secs, log) in cuda_build.build_log.items():
+        print(f"ptxas {key} ({secs:.0f} s): " + "; ".join(
+            r for r in ring_report(log) if r.startswith("f ")))
+    libs = {b: cuda_build.load_variant("fused3", probes[b]) if b
+            else cuda_build.load("fused3") for b in args.probe}
+    run(cases, args.rows, libs, args.reps, "this checkout",
+        not args.unchecked)
+
+
+def run_trees(args) -> None:
+    """--tree with --probe: the checkout and its probe copies, built in
+    parallel, then timed one after another."""
+    trees = {b: probe_tree(args.tree, b) if b else args.tree
+             for b in args.probe}
+    me = os.path.abspath(__file__)
+    jobs = [subprocess.Popen([sys.executable, me, "--tree", t,
+                              "--build-only"]) for t in trees.values()]
+    if any([j.wait() for j in jobs]):
+        sys.exit("tune_fused3: a build failed")
+    for b, t in trees.items():
+        print(f"[probe={b}]", flush=True)
+        subprocess.run([sys.executable, me, "--tree", t, "--reps",
+                        str(args.reps)] + (["--unchecked"] if b else []),
+                       check=True)
+
+
+def probe_tree(tree: str, bits: int) -> str:
+    """A copy of ``tree``'s package under ``tree``/_archive/probe<bits>
+    whose csrc/fused3.cu skips the parts of ``bits`` (:data:`PROBES`)."""
+    dst = os.path.join(tree, "_archive", f"probe{bits}")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(tree, "cedar_tpu_torch"),
+                    os.path.join(dst, "cedar_tpu_torch"),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    path = os.path.join(dst, "cedar_tpu_torch", "csrc", "fused3.cu")
+    with open(path) as f:
+        src = f.read()
+    assert src.count("namespace {\n\n") == 1
+    src = src.replace("namespace {\n\n", _HELPER)
+    for bit, edits in PROBES.items():
+        for old, new, n in edits if bits & bit else ():
+            if src.count(old) != n:
+                raise ValueError(f"probe {bit}: {old!r} occurs "
+                                 f"{src.count(old)} times, not {n}")
+            src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src)
+    return dst
+
+
+#: the cells whose fused cycles run K15 and K16: (n, gallery operator,
+#: stencil kind)
+CELLS = {"3d_poisson_7pt_256": (256, "poisson3", "SevenPt"),
+         "3d_fe_27pt_128": (128, "fe3", "TwentySevenPt")}
+
+
+def cycles(ncycles: int = 25) -> None:
+    """The median, min and max CUDA-event time of ``ncycles`` fused
+    V(1,1) cycles of each cell, after three warm-up cycles, each cycle as
+    the solve runs it (with the convergence residual, no readback)."""
+    import statistics
+
+    import torch
+
+    import cedar_tpu_torch as ct
+    from cedar_tpu_torch.solver import cycle3
+
+    dev = torch.device("cuda", 0)
+    for name, (n, make, kind) in CELLS.items():
+        conf = ct.Config({"log": [], "solver": {"cycle": {
+            "nrelax-pre": 1, "nrelax-post": 1}}})
+        s = ct.Solver3(getattr(ct.gallery, make)(n, n, n, torch.float32,
+                                                 dev),
+                       getattr(ct, kind), conf)
+        b = ct.gallery.poisson3_rhs(n, n, n, torch.float32, dev)
+        x = torch.zeros_like(b)
+        for _ in range(3):
+            x = cycle3.cycle_residual(s.levels, s.kinds, x, b,
+                                      s.settings)[0]
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(ncycles)]
+        torch.cuda.synchronize()
+        for e0, e1 in ev:
+            e0.record()
+            x = cycle3.cycle_residual(s.levels, s.kinds, x, b,
+                                      s.settings)[0]
+            e1.record()
+        torch.cuda.synchronize()
+        ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
+        print(f"{name} fused V(1,1) cycle ms: median "
+              f"{statistics.median(ms):.4f}, min {ms[0]:.4f}, "
+              f"max {ms[-1]:.4f}", flush=True)
+
+
+def ring_report(log: str):
+    """'f 7pt K16 m0 ty12: 96 regs, 0 spill' for each ring3 variant (7-point
+    K15 and K16) in nvcc's ptxas report ``log``."""
+    import re
+
+    name = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '.*ring3I([fd])Lb(\d)"
+                      r"ELi(\d)ELi(\d+)E", line)
+        if m:
+            t, interp, epi, ty = m.groups()
+            name = f"{t} 7pt {'K16' if interp == '1' else 'K15'} m{epi} ty{ty}"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if name and m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            yield f"{name}: {m.group(1)} regs, {spill} spill"
+            name = None
+
+
+def make_cases(tunable: bool) -> dict:
+    """name -> (kernel(lib, ty), plain()) at 256³ 7-point and 128³
+    27-point float32; an older checkout's kernel takes its own library and
+    plan (``tunable`` false)."""
+    import torch
+
+    from cedar_tpu_torch.ops import cuda_fused3 as cf
+    from cedar_tpu_torch.ops import interp3
+
+    def k15(lib, ty, *a):
+        return (cf._sweep_restrict(lib, ty, *a) if tunable
+                else cf.sweep_restrict(*a))
+
+    def k16(lib, ty, *a):
+        return (cf._interp_sweep(lib, ty, *a) if tunable
+                else cf.interp_sweep(*a))
+
+    cases = {}
+    for n, ts in ((256, False), (128, True)):
+        so, q, b, kind = problem((n,) * 3, ts, 30 + ts)
+        ci = interp3.setup_interp(so, kind)
+        g = torch.Generator(device="cuda").manual_seed(40 + ts)
+        qc = torch.randn(tuple(m - 1 for m in ci.shape[1:]), generator=g,
+                         device="cuda", dtype=torch.float32)
+        pts = "27pt" if ts else "7pt"
+        a15 = (so, q, b, ci, kind, "down", False)
+        cases[f"K15 {pts} {n}^3"] = (
+            lambda lib, ty, a=a15: k15(lib, ty, *a),
+            lambda a=a15: cf.sweep_restrict_plain(*a))
+        for norm in ((False,) if ts else (False, True)):
+            a16 = (ci, qc, so, b, q, kind, "up", False, norm)
+            cases[f"K16 {pts} {n}^3" + (" +norm" if norm else "")] = (
+                lambda lib, ty, a=a16: k16(lib, ty, *a),
+                lambda a=a16: cf.interp_sweep_plain(*a))
+    return cases
+
+
+def run(cases: dict, rows_opts, libs: dict, reps: int, what: str,
+        checked: bool = True) -> None:
+    """Each case bit-checked with the probe-0 library (unless not
+    ``checked``), then timed; the 7-point ones over the tile rows and the
+    probes' libraries."""
+    from cedar_tpu_torch.ops import cuda_fused3
+
+    print(f"[{what}]", flush=True)
+    for name, (kernel, plain) in cases.items():
+        if checked:
+            check(name, kernel(libs[0], None), plain())
+        ring = name.split()[1] == "7pt"
+        for rows in rows_opts if ring else [0]:
+            if rows and rows not in cuda_fused3.RING_ROWS[4]:
+                continue
+            if rows and not fits(name, rows):
+                print(f"{name} rows={rows}: does not fit a block")
+                continue
+            for probe, lib in libs.items() if ring else [(0, libs[0])]:
+                ms = time_ms(lambda: kernel(lib, rows or None), reps)
+                print(f"{name} rows={rows or 'plan'} probe={probe}: "
+                      f"{ms:.4f} ms", flush=True)
+
+
+def fits(name: str, rows: int) -> bool:
+    """Whether 7-point case ``name`` with ``rows`` tile rows fits a
+    block's shared memory (float32)."""
+    from cedar_tpu_torch.ops import cuda_fused3 as cf
+
+    interp = name.startswith("K16")
+    mode = ((cf._NORM if "+norm" in name else cf._NONE) if interp
+            else cf._RESTRICT)
+    return cf.ring_words(4, interp, mode, rows) * 4 <= cf.BLOCK_SMEM
+
+
+def problem(shape, ts: bool, seed: int):
+    """A diagonally dominant random float32 3D stencil (chip_smoke.py's
+    ``random_problem3``) with random q and b on the card."""
+    import torch
+
+    from cedar_tpu_torch.core.types import Dir3, StencilKind
+    from cedar_tpu_torch.ops import stencil3
+
+    dev, dt = "cuda", torch.float32
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nx, ny, nz = shape
+
+    def u(lo, hi, *s):
+        return lo + (hi - lo) * torch.rand(s, generator=g, device=dev,
+                                           dtype=dt)
+
+    kind = StencilKind.twenty_seven_pt if ts else StencilKind.seven_pt
+    so = torch.zeros((kind.ndirs, nx, ny, nz), dtype=dt, device=dev)
+    so[Dir3.PW, 1:] = u(0.5, 1.5, nx - 1, ny, nz)
+    so[Dir3.PS, :, 1:] = u(0.5, 1.5, nx, ny - 1, nz)
+    so[Dir3.B, :, :, 1:] = u(0.5, 1.5, nx, ny, nz - 1)
+    if ts:
+        for d in (Dir3.PSW, Dir3.PNW):
+            so[d, 1:, 1:] = u(0.1, 0.4, nx - 1, ny - 1, nz)
+        for d in (Dir3.BW, Dir3.BE):
+            so[d, 1:, :, 1:] = u(0.1, 0.4, nx - 1, ny, nz - 1)
+        for d in (Dir3.BS, Dir3.BN):
+            so[d, :, 1:, 1:] = u(0.1, 0.4, nx, ny - 1, nz - 1)
+        for d in (Dir3.BSW, Dir3.BNW, Dir3.BNE, Dir3.BSE):
+            so[d, 1:, 1:, 1:] = u(0.05, 0.2, nx - 1, ny - 1, nz - 1)
+    so[Dir3.P] = stencil3.offdiag_apply(
+        so, torch.ones(shape, dtype=dt, device=dev), kind) + u(
+            0.05, 0.2, nx, ny, nz)
+    q = torch.randn(shape, generator=g, device=dev, dtype=dt)
+    b = torch.randn(shape, generator=g, device=dev, dtype=dt)
+    return so, q, b, kind
+
+
+def check(what: str, got, want) -> None:
+    """Outputs bit-equal, a norm's partials summing to within 1e-5."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g is None and w is None:
+            continue
+        if "+norm" in what and k == 1:
+            n, r = float(g.sum()), float(w.sum())
+            if not abs(n - r) <= 1e-5 * r:
+                raise AssertionError(f"{what}: norm {n} against {r}")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{what}: output {k} differs from the "
+                                 "plain version")
+    print(f"{what}: equal to the plain version", flush=True)
+
+
+def time_ms(fn, reps: int = 20, warm: int = 3) -> float:
+    import torch
+
+    for _ in range(warm):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+if __name__ == "__main__":
+    main()

@@ -37,7 +37,10 @@ Phases (each raises on failure; nothing is caught):
    sweep (K14), sweep-residual-restrict (K15) and interp-add-sweep (K16),
    at the 3D shapes and (5, 4, 3) float64, both kinds, DOWN and UP, every
    output mode, K14 with and without an origin, K15 with and without the
-   residual, held to their plain versions the same way;
+   residual, held to their plain versions the same way, and K15 and K16
+   also at float32 shapes at the edges of their tiling (EDGE3), after a
+   check that the wrapper's launch plan sizes their shared memory as the
+   kernels lay it out;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -75,7 +78,8 @@ Phases (each raises on failure; nothing is caught):
    K12 and K13 against the dense sequences they replace (K1 with the
    residual, then K2; K3, then K1); K14-K16 at 256³ 7-point and 128³
    27-point, and K15 and K16 against the dense sequences they replace (K6
-   with the residual, then K7; K8, then K6).
+   with the residual, then K7; K8, then K6, and with the residual and its
+   norm for K16 with the norm).
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
@@ -85,6 +89,7 @@ kernel table as JSON; the last line is
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
@@ -124,6 +129,12 @@ SHAPES3 = [((256, 256, 256), torch.float32, (False,)),
            ((128, 128, 128), torch.float32, (True,)),
            ((33, 21, 17), torch.float64, (False, True)),
            ((65, 65, 65), torch.float64, (False, True))]
+# K15 and K16's further shapes (float32), at the edges of their tiling:
+# nx not a multiple of the x chunk, nz not a multiple of 4, ny smaller than
+# one tile, more tiles than resident blocks (7-point, 27-point)
+EDGE3 = [((97, 45, 131), (False,)), ((67, 33, 45), (True,)),
+         ((40, 30, 37), (False, True)), ((50, 5, 70), (False, True)),
+         ((33, 200, 300), (False,)), ((7, 700, 250), (True,))]
 # K4's further shapes: lines of 63 (LDLᵀ), 64 and 65 points (PCR), lengths
 # that are not a multiple of the PCR stride (1000, 777), and lines too long
 # for shared memory (9000 f32, 5000 f64: a device-memory scratch)
@@ -651,14 +662,41 @@ def phase_kernels_fused(errs: dict) -> dict:
 FUSED3 = ("sweep3_fused", "sweep_restrict3", "interp_sweep3")
 
 
+def check_fused3_plans() -> None:
+    """The wrapper's plan (ops/cuda_fused3.py) sizes K15/K16's shared
+    memory as the kernels lay it out, for every variant that is built."""
+    lib = cuda_build.load("fused3")
+    for itemsize, ts in itertools.product((4, 8), (False, True)):
+        dt = 0 if itemsize == 4 else 1
+        modes = [(False, 3), (True, 0)] + ([] if ts else [(True, 1),
+                                                          (True, 2)])
+        for interp, mode in modes:
+            rows = (cuda_fused3.RING_ROWS[itemsize]
+                    if cuda_fused3.is_ring(ts) else (cuda_fused3.WINDOW_ROWS,))
+            for ty in rows:
+                want = cuda_fused3.plan(itemsize, ts, interp, mode,
+                                        (64, 64, 64), ty=ty).smem
+                got = lib.cedar_fused3_smem(dt, int(ts), int(interp), mode,
+                                            ty)
+                if got != want:
+                    raise AssertionError(
+                        f"K15/K16 smem {itemsize} ts={ts} interp={interp} "
+                        f"mode={mode} ty={ty}: kernel {got}, plan {want}")
+    print("  K15/K16 plans size shared memory as the kernels do", flush=True)
+
+
 def phase_kernels_fused3(errs: dict) -> dict:
     """K14-K16 against their plain versions at the 3D shapes and (5, 4, 3)
     float64, both kinds: every output mode, DOWN and UP, K14 with and
-    without an origin, K15 with and without the residual."""
+    without an origin, K15 with and without the residual; K15 and K16 also
+    at the tiling's edge shapes (EDGE3)."""
     print("[3] fused 3D kernels against plain versions", flush=True)
     errs.update(dict.fromkeys(FUSED3, 0.0))
+    check_fused3_plans()
     shapes = SHAPES3 + [((5, 4, 3), torch.float64, (False, True))]
+    shapes += [(shape, torch.float32, kinds) for shape, kinds in EDGE3]
     for i, (shape, dtype, kinds) in enumerate(shapes):
+        edge = i >= len(SHAPES3) + 1
         tag = f"{shape} {str(dtype).replace('torch.', '')}"
         for ts in kinds:
             so, q, b, kind = random_problem3(shape, ts, dtype, 1000 + i)
@@ -670,7 +708,7 @@ def phase_kernels_fused3(errs: dict) -> dict:
             for updown in ("down", "up"):
                 for mode in ("none", "res", "norm"):
                     fr, fn = mode == "res", mode == "norm"
-                    for origin in ((0, 0, 0), (1, 2, 3)):
+                    for origin in () if edge else ((0, 0, 0), (1, 2, 3)):
                         e = compare_fused(
                             f"K14 sweep3_fused {pts} {updown} {mode} "
                             f"origin={origin} {tag}",
@@ -1633,6 +1671,14 @@ def phase_times3() -> dict:
             lambda: cuda3.sweep(so, cuda_transfer3.interp_add(
                 ci, so, qc, b, qd), b, kind, "up"),
             lambda: cuda_fused3.interp_sweep(ci, qc, so, b, q, kind, "up")),
+        # with the convergence norm: the dense top level's residual sweep
+        # and the norm's reduction
+        "K8, K6 +res, norm -> K16 +norm": (
+            lambda: torch.linalg.vector_norm(cuda3.sweep(
+                so, cuda_transfer3.interp_add(ci, so, qc, b, qd), b, kind,
+                "up", True)[1]),
+            lambda: cuda_fused3.interp_sweep(ci, qc, so, b, q, kind, "up",
+                                             fuse_norm=True)),
         "K6 +res, K7 -> K15 27pt 128^3": (
             lambda: cuda_transfer3.restrict(
                 ci27, cuda3.sweep(so27, qd27, b27, kind27, "down", True)[1]),

@@ -1,0 +1,184 @@
+"""The launch plan of the fused 3D kernels K15 (sweep + residual +
+restriction) and K16 (interp-add + sweep): ``cuda_fused3.plan``, which the
+wrappers compute and pass to the kernels (csrc/fused3.cu checks it against
+its own layout at launch).  Pure Python, no card: for both stencil kinds,
+both dtypes and every output mode, at the paths' shapes and at shapes that
+hit the tiling's edges, the shared memory fits as many blocks an SM as
+are planned, the blocks' own points cover the grid exactly
+once, K15's coarse points have one owner each, and the norm partials are
+one a block.
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+
+from cedar_tpu_torch.ops import cuda_fused3 as cf
+
+# (interp, mode): K15, then K16 with each output mode
+VARIANTS = [(False, cf._RESTRICT), (True, cf._NONE), (True, cf._RES),
+            (True, cf._NORM)]
+# the paths' shapes (256³ 7-point, 128³ 27-point, the f64 gates) and edge
+# shapes: nz not a multiple of 4, nx not a multiple of the chunk, ny
+# smaller than one tile, more work items than resident blocks
+SHAPES = [(256, 256, 256), (128, 128, 128), (33, 21, 17), (65, 65, 65),
+          (5, 4, 3), (97, 45, 131), (67, 33, 45), (70, 13, 67), (9, 3, 30),
+          (200, 200, 200)]
+N_SM = 132
+# one block's most shared memory (227 KB) and an SM's (228 KB)
+BLOCK_MAX, SM_MAX = 232448, 233472
+
+
+def _cases():
+    for itemsize, ts, (interp, mode) in itertools.product(
+            (4, 8), (False, True), VARIANTS):
+        if ts and interp and mode != cf._NONE:
+            continue  # a 27-point K16 pass takes no epilogue
+        yield itemsize, ts, interp, mode
+
+
+CASES = list(_cases())
+
+
+def _ids(c):
+    itemsize, ts, interp, mode = c
+    return (f"{'f32' if itemsize == 4 else 'f64'}-{'27' if ts else '7'}pt-"
+            f"{'K16' if interp else 'K15'}-m{mode}")
+
+
+def _coarse(n):
+    return (n + 1) // 2
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_shared_memory_fits(case):
+    """The plan's block fits an SM as many times as it plans: 7-point (the
+    ring design) one block of a warp a region row, its tile the largest
+    built option that fits; 27-point (the window design) 16-row tiles, 8
+    warps and as many blocks as fit, at most 4."""
+    itemsize, ts, interp, mode = case
+    p = cf.plan(itemsize, ts, interp, mode, (64, 64, 64), N_SM)
+    assert p.ring == (not ts) == cf.is_ring(ts)
+    assert p.smem + 1024 <= BLOCK_MAX
+    assert p.per_sm * (p.smem + 1024) <= SM_MAX
+    assert p.warps * 32 * p.per_sm <= 2048
+    if p.ring:
+        sizes = {t: cf.ring_words(itemsize, interp, mode, t) * itemsize
+                 for t in cf.RING_ROWS[itemsize]}
+        assert p.smem == sizes[p.ty]
+        assert p.ty == max(t for t, s in sizes.items() if s <= cf.BLOCK_SMEM)
+        assert p.per_sm == 1 and p.warps == p.ty + 2 * p.h
+    else:
+        assert p.ty == 16
+        assert p.smem == cf.window_words(interp, mode) * itemsize
+        assert p.warps == 8
+        assert p.per_sm == min(4, SM_MAX // (p.smem + 1024))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_owned_points_cover_the_grid_once(case, shape):
+    """The blocks' own boxes (tile ty x tz, chunk cx, clipped to the grid)
+    tile the grid: disjoint, and their volumes add up to it; tiles and
+    chunks start at even indices; the grid's blocks are the partials."""
+    itemsize, ts, interp, mode = case
+    nx, ny, nz = shape
+    p = cf.plan(itemsize, ts, interp, mode, shape, N_SM)
+    assert p.tz == cf.RW - 2 * p.h and p.h >= 1
+    assert p.ty % 2 == 0 and p.tz % 2 == 0 and p.cx % 2 == 0
+    assert (p.gz - 1) * p.tz < nz <= p.gz * p.tz
+    assert (p.gy - 1) * p.ty < ny <= p.gy * p.ty
+    assert (p.gc - 1) * p.cx < nx <= p.gc * p.cx
+    own = [min(p.cx, nx - c * p.cx) * min(p.ty, ny - y * p.ty)
+           * min(p.tz, nz - z * p.tz)
+           for c in range(p.gc) for y in range(p.gy) for z in range(p.gz)]
+    assert min(own) > 0 and sum(own) == nx * ny * nz
+    assert p.blocks == len(own)
+
+
+@pytest.mark.parametrize("shape", [(9, 7, 5), (5, 4, 3), (33, 21, 17),
+                                   (20, 3, 130), (67, 33, 45)])
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_every_point_has_one_owner(case, shape):
+    """Point by point at small shapes: each fine point lies in exactly one
+    block's own box, and for K15 each coarse point (2i, 2j, 2k) too, so
+    that it has exactly one owner of its restriction."""
+    itemsize, ts, interp, mode = case
+    nx, ny, nz = shape
+    p = cf.plan(itemsize, ts, interp, mode, shape, n_sm=4)
+    fine = np.zeros(shape, dtype=int)
+    coarse = np.zeros((_coarse(nx), _coarse(ny), _coarse(nz)), dtype=int)
+    for c, y, z in itertools.product(range(p.gc), range(p.gy),
+                                     range(p.gz)):
+        xt, yt, zt = c * p.cx, y * p.ty, z * p.tz
+        fine[xt:xt + p.cx, yt:yt + p.ty, zt:zt + p.tz] += 1
+        # K15: the block's coarse points, as the kernel walks them
+        for xc in range(xt // 2, (min(xt + p.cx, nx) + 1) // 2):
+            coarse[xc, yt // 2:yt // 2 + p.ty // 2,
+                   zt // 2:zt // 2 + p.tz // 2] += 1
+    assert (fine == 1).all()
+    if not interp:
+        assert (coarse == 1).all()
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_grid_runs_in_few_waves(case):
+    """At the paths' sizes the ring plan's grid is no more waves of
+    resident blocks than one chunk a tile would take, and a card with more
+    SMs never gets more waves; the window plan gives the card about
+    TARGET_BLOCKS blocks."""
+    itemsize, ts, interp, mode = case
+    shape = (128,) * 3 if ts else (256,) * 3
+    p = cf.plan(itemsize, ts, interp, mode, shape, N_SM)
+    if not p.ring:
+        assert cf.TARGET_BLOCKS <= p.blocks < 1.1 * cf.TARGET_BLOCKS
+        assert p.cx >= 2 * p.h
+        return
+    slots = N_SM * p.per_sm
+    waves = -(-p.blocks // slots)
+    one_chunk = -(-(p.gz * p.gy) // slots)
+    assert waves * (p.cx + 2 * p.h) <= one_chunk * (shape[0] + 2 * p.h)
+    q = cf.plan(itemsize, ts, interp, mode, shape, 2 * N_SM)
+    assert -(-q.blocks // (2 * slots)) <= waves
+
+
+def test_plan_takes_a_tile_override():
+    """tools/tune_fused3.py times each built tile-row option of 7-point
+    K15 and K16: the plan takes each built option (each fits a block) and
+    refuses one that is not built; 27-point K15 and K16 take 16 rows
+    only."""
+    for itemsize, (interp, mode) in itertools.product((4, 8), VARIANTS):
+        for ty in cf.RING_ROWS[itemsize]:
+            size = cf.ring_words(itemsize, interp, mode, ty) * itemsize
+            assert size <= cf.BLOCK_SMEM
+            assert cf.plan(itemsize, False, interp, mode, (64,) * 3,
+                           ty=ty).ty == ty
+        with pytest.raises(ValueError):
+            cf.plan(itemsize, False, interp, mode, (64,) * 3, ty=14)
+    for interp, mode in ((False, cf._RESTRICT), (True, cf._NONE)):
+        assert cf.plan(4, True, interp, mode, (64,) * 3, ty=16).ty == 16
+        with pytest.raises(ValueError):
+            cf.plan(4, True, interp, mode, (64,) * 3, ty=12)
+
+
+def test_layouts_by_hand():
+    """The shared-memory words against layouts worked out by hand (copies
+    one step ahead): 7-point K16 f32 with the norm, 8 tile rows; 7-point
+    K15 f32, 8 rows (q, b and stencil slots, two CI planes, four residual
+    planes); 27-point K15 (windows of q and the residual) and its 128³
+    grid."""
+    h, ry = 4, 16
+    pl = ry * 64
+    q, pre, sb = 5 * pl, 4 * pl, 6 * 5 * pl
+    assert cf.ring_words(4, True, cf._NORM, 8) == q + pre + sb
+    assert cf.plan(4, False, True, cf._NORM, (256,) * 3).ty == 12
+    assert h == cf._stages(False, True, cf._NORM)[2]
+    tz = 56
+    ci = 2 * 26 * 5 * 29
+    words = 6 * pl + 5 * 5 * pl + ci + (-ci) % 4 + 4 * 9 * (tz + 1)
+    assert cf.ring_words(4, False, cf._RESTRICT, 8) == words
+    pl, tz = 22 * 64, 58
+    assert cf.window_words(False, cf._RESTRICT) == 4 * pl + 3 * 17 * 59
+    p = cf.plan(4, True, False, cf._RESTRICT, (128,) * 3)
+    assert (p.cx, p.gz, p.gy, p.gc, p.per_sm) == (6, 3, 8, 22, 4)
