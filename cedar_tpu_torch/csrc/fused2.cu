@@ -25,28 +25,49 @@
 // phase and the residual once more; a fused kernel reads q once and writes
 // it once, and reads the stencil planes, b, CI and qc once each.
 //
-// Design: a block owns an output tile of kTZ x TW points and loads q over
-// the tile plus a halo of H rings, a region kRW = 64 columns wide (TW = 64
-// - 2H), into shared memory.  All colour phases run there, with
-// __syncthreads() between them, as the Pallas kernels run them on a VMEM
-// row slab with an 8-row halo.  The stencil planes, b, CI and qc are
-// read-only and come from device memory through the read-only path; only
-// q lives in shared memory (with K12's residual tile, and K13's incoming q
-// beside the interpolated one).  A phase updates a point from its
-// neighbours, so each phase leaves one more ring of the halo stale, and so
-// does a residual read from the tile.  The halos, with P = 2 phases
-// (5-point) or 4 (9-point):
+// K11 and K12, the tile design: a block owns an output tile of kTZ x TW
+// points and loads q over the tile plus a halo of H rings, a region kRW =
+// 64 columns wide (TW = 64 - 2H), into shared memory.  All colour phases
+// run there, with __syncthreads() between them, as the Pallas kernels run
+// them on a VMEM row slab with an 8-row halo.  The stencil planes, b and
+// CI are read-only and come from device memory through the read-only
+// path; only q lives in shared memory (with K12's residual tile).  A phase
+// updates a point from its neighbours, so each phase leaves one more ring
+// of the halo stale, and so does a residual read from the tile.  The
+// halos, with P = 2 phases (5-point) or 4 (9-point):
 //   K11: H = P, + 1 with the residual or the norm;
 //   K12: H = P + 1 (the residual) + 1 (restriction reads fine rows
-//        2k-1 .. 2k+1; the high side would not need it);
-//   K13: H = 1 (the recomputed pre-sweep residual) + P, + 1 with the
-//        residual or the norm.
+//        2k-1 .. 2k+1; the high side would not need it).
 // Colours anchor to global indices (relax2.color_order; K11 also takes an
 // origin).  A phase maps its threads onto its own colour's points only
 // (every other column of a row; every other row too for 9-point), one
 // column a lane: the region's 64 columns hold at most 32 of one colour.
 // Points outside the grid are never updated and their couplings
 // contribute exactly zero, so any grid shape works, down to a few points.
+//
+// K13, the row march (`ring2`), the 2D form of fused3.cu's `ring3`: a
+// block owns a strip of 2 NT - 2H columns (a region of 2 NT columns with H
+// = 1 + P (+ 1 with the residual or the norm) columns of halo on each
+// side) and a chunk of rows, and marches down its chunk (with H halo rows
+// at each end) one row a step.  Stage 1 (the recomputed residual of q_in
+// plus the interpolation) runs on row p - 1 at step p, colour stage s on
+// row p - s, the epilogue (the residual or the norm) on row p - H; the
+// rows between stages are exact for the reason fused3.cu's header note
+// gives.  Rows of q_in, b and the stencil planes arrive in shared-memory
+// rings by cp.async (async.cuh) kAhead steps before the step that first
+// reads them, CI and qc by coarse row (a CI row serves fine rows 2k - 1
+// and 2k, a qc row 2k - 1 .. 2k + 1), one commit group a step; the swept
+// q lives in a ring of its own.  Thread t takes region columns 2t and 2t +
+// 1 in every stage (a colour stage the one of its colour), so that a
+// 5-point stage reads the row the stage before updated only at its own
+// columns: one barrier a step publishes the step's copies and frees the
+// slots the next copies overwrite; 9-point couplings reach diagonally into
+// the next row, so each 9-point stage ends with a barrier.  Rows are
+// colour-compact (a row's even columns, then its odd ones), so that a
+// stage's stride-2 reads are conflict-free.  A block has NT = 128 threads;
+// the chunk and the grid come from the wrapper's plan (ops/cuda_fused2.py
+// `plan`: the chunk that runs the grid in whole waves of resident blocks),
+// checked at launch against `Ring2`.
 //
 // Out of place: a block reads q_in over its tile and halo while other
 // blocks write their tiles.  Updated in place, a block could read a
@@ -58,8 +79,10 @@
 // has exactly one owner block.  The norm epilogue writes one partial a
 // block (the sum of res² over the block's own points, in no fixed order
 // against the plain version's sum) into a buffer of
-// cedar_fused2_partials entries; the caller sums the buffer.
+// cedar_fused2_partials entries (K13: its plan's blocks); the caller sums
+// the buffer.
 
+#include "async.cuh"
 #include "stencil2.cuh"
 #include "transfer2.cuh"
 
@@ -83,9 +106,6 @@ __host__ __device__ constexpr int sweep_halo(bool nine, bool epi) {
 }
 __host__ __device__ constexpr int sweep_restrict_halo(bool nine) {
   return phases_of(nine) + 2;  // K12
-}
-__host__ __device__ constexpr int interp_sweep_halo(bool nine, bool epi) {
-  return 1 + phases_of(nine) + epi;  // K13
 }
 
 __device__ __forceinline__ bool in_grid(int z, int w, int nx, int ny) {
@@ -175,7 +195,7 @@ __device__ T block_sum(T v) {
   return tot;
 }
 
-// The epilogue of K11 and K13: the block's own points of s (local rows and
+// The epilogue of K11: the block's own points of s (local rows and
 // columns from H) to q_out, then the residual to res (kRes) or the sum of
 // its squares to partials[block] (kNorm).
 template <typename T, bool NINE, int H>
@@ -284,43 +304,300 @@ sweep_restrict_fused(const T* __restrict__ so, const T* __restrict__ q_in,
   }
 }
 
-// K13: q = q_in + P qc + res/diag (res = b - A q_in, recomputed), then one
-// multicolour sweep into q_out (+ res / partials).
-template <typename T, bool NINE, int H>
-__global__ void __launch_bounds__(kThreads)
-interp_sweep_fused(const T* __restrict__ ci_p, const T* __restrict__ qc,
-                   const T* __restrict__ so, const T* __restrict__ b,
-                   const T* __restrict__ q_in, T* __restrict__ q_out,
-                   T* __restrict__ res, T* __restrict__ partials, int nx,
-                   int ny, int nxc, int nyc, int colors, int ncolors,
-                   int mode) {
-  using A = Arith<T>;
-  constexpr int TW = kRW - 2 * H, RZ = kTZ + 2 * H;
-  __shared__ T s_pre[RZ * kRW];  // q_in
-  __shared__ T s[RZ * kRW];      // the interpolated q, then the swept one
-  const int z0 = blockIdx.y * kTZ - H, w0 = blockIdx.x * TW - H;
-  load_region<T, RZ>(s_pre, q_in, z0, w0, nx, ny);
+// ---------------------------------------------------------------------------
+// K13: the row march (see the header note).
+
+// Build settings of tools/tune_fused2.py only: the parts of `ring2` that a
+// timing probe skips (bit 0: the q_pre row copies, 1: the CI and qc
+// copies, 2: the stencil and b copies, 3: the barriers, 4: the residual of
+// the norm); 0 in every other build.
+#ifndef CEDAR_FUSED2_PROBE
+#define CEDAR_FUSED2_PROBE 0
+#endif
+constexpr int kProbe = CEDAR_FUSED2_PROBE;
+// steps between a copy's issue and its first read (tools/tune_fused2.py
+// builds others)
+#ifndef CEDAR_FUSED2_AHEAD
+#define CEDAR_FUSED2_AHEAD 1
+#endif
+constexpr int kAhead = CEDAR_FUSED2_AHEAD;
+static_assert(kAhead == 1 || kAhead == 2, "copies one or two steps ahead");
+// threads a block (tools/tune_fused2.py builds others)
+#ifndef CEDAR_FUSED2_THREADS
+#define CEDAR_FUSED2_THREADS 128
+#endif
+constexpr int kRingThreads = CEDAR_FUSED2_THREADS;
+static_assert(kRingThreads % 32 == 0 && kRingThreads <= 1024,
+              "whole warps a block");
+
+// The layout of a K13 block of NT threads (a strip of 2 NT region
+// columns); ops/cuda_fused2.py `interp_words` mirrors it and the launch
+// checks the plan against it.  Rings of region rows: the swept q (rows p -
+// SE - 1 .. p - 1), q_pre (p - 2 .. p + 2), the stencil planes and b (p -
+// SE .. p + 2); CI (two coarse rows of 8 weights) and qc (three coarse
+// rows) over the strip's nt + 2 coarse columns.
+template <bool NINE, int EPI>
+struct Ring2 {
+  static constexpr int SP = 1 + phases_of(NINE);  // the last colour stage
+  static constexpr int SE = SP + (EPI != kNone), H = SE;
+  static constexpr int WQ = SE + 1, WP = 3 + kAhead, WS = SE + 1 + kAhead;
+  static constexpr int NSB = (NINE ? 5 : 3) + 1;  // stencil planes and b
+  static constexpr int NT = kRingThreads, CW = NT + 2;
+  static constexpr size_t WORDS =
+      (size_t)2 * NT * (WQ + WP + WS * NSB) + (size_t)(2 * 8 + 3) * CW;
+};
+
+// The sum of v over a block of NW warps in a row, returned to thread 0.
+template <int NW, typename T>
+__device__ T block_sum_row(T v) {
+  __shared__ T warp_sums[NW];
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if ((threadIdx.x & 31) == 0) warp_sums[threadIdx.x >> 5] = v;
   __syncthreads();
-  // K3's expression, q + (P qc (+ res / diag off the coincident points)),
-  // with the pre-sweep residual read from s_pre: right at depth >= 1
-  const CI<T> ci = ci_of(ci_p, 0, 1, nxc, nyc);
-  for (int r = 1 + threadIdx.y; r < RZ - 1; r += kBlockY) {
-    const int z = z0 + r;
-    for (int c = 1 + threadIdx.x; c < kRW - 1; c += kBlockX) {
-      const int w = w0 + c;
-      if (!in_grid(z, w, nx, ny)) continue;
-      T v = interp_value(ci, qc, z, w, nxc, nyc);
-      if ((z | w) & 1)
-        v = A::add(v, A::div(residual_at<T, NINE>(s_pre, r, c, so, b, z, w,
-                                                  nx, ny),
-                             so[(long long)z * ny + w]));
-      s[r * kRW + c] = A::add(s_pre[r * kRW + c], v);
+  T tot = T(0);
+  if (threadIdx.x == 0)
+    for (int k = 0; k < NW; ++k) tot += warp_sums[k];
+  return tot;
+}
+
+struct RingDims2 {
+  int nx, ny, nxc, nyc, cz, colors;
+};
+
+// K13 on a strip of region columns and a chunk of rows: q = q_in + P qc +
+// res/diag (res = b - A q_in, recomputed), then one multicolour sweep into
+// q_out (+ res / partials).  Thread t takes region columns 2t and 2t + 1 in
+// every stage (a colour stage: the one of its colour).
+template <typename T, bool NINE, int EPI>
+__global__ void __launch_bounds__(kRingThreads)
+ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
+      const T* __restrict__ so, const T* __restrict__ b,
+      const T* __restrict__ q_in, T* __restrict__ q_out, T* __restrict__ res,
+      T* __restrict__ partials, const RingDims2 a) {
+  using A = Arith<T>;
+  using R = Ring2<NINE, EPI>;
+  constexpr int SP = R::SP, SE = R::SE, H = R::H, NSB = R::NSB;
+  constexpr int BI = NSB - 1;  // b's array in a stencil slot
+  constexpr int NT = R::NT, nt = NT, rw = 2 * NT, tw = rw - 2 * H;
+  constexpr int cw = R::CW;
+  const int nx = a.nx, ny = a.ny;
+  const long long P = (long long)nx * ny;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sm = reinterpret_cast<T*>(smem);
+  auto qs = [&](int x) { return sm + ((x + 8 * R::WQ) % R::WQ) * rw; };
+  T* const pbase = sm + R::WQ * rw;
+  auto ps = [&](int x) { return pbase + ((x + 8 * R::WP) % R::WP) * rw; };
+  T* const sbase = pbase + R::WP * rw;
+  auto ss = [&](int x) {
+    return sbase + ((x + 8 * R::WS) % R::WS) * NSB * rw;
+  };
+  T* const cbase = sbase + R::WS * NSB * rw;
+  auto cis = [&](int k) { return cbase + (k & 1) * 8 * cw; };
+  auto qcs = [&](int k) { return cbase + 16 * cw + (k % 3) * cw; };
+
+  const int t = threadIdx.x;
+  const int wt = blockIdx.x * tw, zt = blockIdx.y * a.cz;
+  const int w0 = wt - H, mc0 = w0 >> 1;  // the strip's first column, coarse
+  const int xe = min(zt + a.cz, nx);     // own rows [zt, xe)
+  // colour-compact position of region column c (even columns, then odd)
+  auto cpos = [&](int c) { return (c & 1) * nt + (c >> 1); };
+  auto valid = [&](int x, int s) {
+    return x >= max(zt - H + s, 0) && x < min(zt + a.cz + H - s, nx);
+  };
+
+  // --- the copies ---------------------------------------------------------
+  // row x of a grid array into a ring slot, zero off the grid: thread t
+  // copies columns t and t + nt
+  int goff[2], soff[2];
+  bool gin[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int c = t + nt * j, w = w0 + c;
+    gin[j] = w >= 0 && w < ny;
+    goff[j] = gin[j] ? w : 0;
+    soff[j] = cpos(c);
+  }
+  auto copy_row = [&](T* dst, const T* src, int x) {
+    const T* sp = src + (long long)x * ny;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) copy_async(dst + soff[j], sp + goff[j], gin[j]);
+  };
+  const long long cplane = (long long)(a.nxc + 1) * (a.nyc + 1);
+  // coarse row k of CI (8 weights) and of qc over the strip's coarse
+  // columns, zero off the arrays
+  auto copy_ci = [&](int k) {
+    T* d = cis(k);
+    for (int e = t; e < 8 * cw; e += nt) {
+      const int dd = e / cw, m = mc0 + e % cw;
+      const bool in = k >= 0 && k <= a.nxc && m >= 0 && m <= a.nyc;
+      copy_async(d + e,
+                 ci_p + (in ? dd * cplane + (long long)k * (a.nyc + 1) + m : 0),
+                 in);
+    }
+  };
+  auto copy_qc = [&](int k) {
+    T* d = qcs(k);
+    for (int e = t; e < cw; e += nt) {
+      const int m = mc0 + e;
+      const bool in = k >= 0 && k < a.nxc && m >= 0 && m < a.nyc;
+      copy_async(d + e, qc_p + (in ? (long long)k * a.nyc + m : 0), in);
+    }
+  };
+  const int p0 = max(zt - H, 0), load_end = min(zt + a.cz + H, nx);
+  const int x1 = max(zt - H + 1, 0);  // the first stage-1 row
+  // every copy that step u reads first, as one commit group
+  auto issue = [&](int u) {
+    if (u < load_end) {
+      if (!(kProbe & 1)) copy_row(ps(u), q_in, u);
+      if (!(kProbe & 4)) {
+        T* d = ss(u);
+#pragma unroll
+        for (int s = 0; s < NSB - 1; ++s) copy_row(d + s * rw, so + s * P, u);
+        copy_row(d + BI * rw, b, u);
+      }
+    }
+    // stage 1 at row x = u - 1 reads CI row (x + 1) >> 1 and qc rows
+    // x >> 1 and (x + 1) >> 1
+    const int x = u - 1;
+    if (!(kProbe & 2) && valid(x, 1) && (x == x1 || (x & 1))) {
+      copy_ci((x + 1) >> 1);
+      if (x == x1) copy_qc(x >> 1);
+      if (x & 1) copy_qc((x + 1) >> 1);
+    }
+    commit_async();
+  };
+
+  // --- the stages ---------------------------------------------------------
+  // Σ coupling · q at row x, region column c (grid column w): the stencil
+  // and b from the ring, q through q0 (the point in its row of a ring whose
+  // rows are dq words apart); in a colour-compact row the w + 1 and w - 1
+  // neighbours of a column of parity c & 1 lie WP and WM words away
+  auto offd = [&](int x, int c, int w, const T* q0, long long up,
+                  long long dn) -> T {
+    const int o = cpos(c);
+    const int WPo = (c & 1) ? 1 - nt : nt, WMo = (c & 1) ? -nt : nt - 1;
+    const bool zl = x > 0, zh = x + 1 < nx, wl = w > 0, wh = w + 1 < ny;
+    const T* s0 = ss(x) + o;
+    const T* s1 = ss(x + 1) + o;
+    // every read is made whether or not the neighbour lies on the grid
+    // (all stay inside the rings), so that none waits on a branch
+    return offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
+      const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
+                      (dw < 0 ? wl : dw > 0 ? wh : true);
+      const T sv = (dz > 0 ? s1 : s0)[d * rw + (dw > 0 ? WPo : 0)];
+      const T* qr = q0 + (dz < 0 ? dn : dz > 0 ? up : 0);
+      const T qv = qr[dw > 0 ? WPo : dw < 0 ? WMo : 0];
+      return ok ? A::mul(sv, qv) : T(0);
+    });
+  };
+  // b - A q at row x, column c (q as offd reads it)
+  auto residual = [&](int x, int c, int w, const T* q0, long long up,
+                      long long dn) -> T {
+    const T* s0 = ss(x) + cpos(c);
+    return A::sub(A::add(s0[BI * rw], offd(x, c, w, q0, up, dn)),
+                  A::mul(s0[0], *q0));
+  };
+  auto ci_at = [&](int d, int k, int m) -> T { return cis(k)[d * cw + m - mc0]; };
+  auto qc_at = [&](int k, int m) -> T { return qcs(k)[m - mc0]; };
+
+  T acc = T(0);
+#pragma unroll
+  for (int u = 0; u < kAhead; ++u) issue(p0 + u);
+  // A stage hands each point to the next stage in the same thread: stage
+  // s + 1 at row x - 1 reads row x (5-point) only at its own column, which
+  // stage s updated earlier in the same step; so 5-point stages need one
+  // barrier a step, which also publishes the copies of row p and frees the
+  // slots that step p + kAhead's copies overwrite.  9-point couplings reach
+  // diagonally into the next row: each 9-point stage ends with a barrier.
+  for (int p = p0; p < xe + SE; ++p) {
+    wait_async<kAhead - 1>();
+    if (!(kProbe & 8)) __syncthreads();
+    issue(p + kAhead);
+
+    {
+      // stage 1: K3's expression, q_pre + (P qc (+ res/diag off the
+      // coincident points)), with res = b - A q_pre from the q_pre ring; a
+      // thread's two columns in turn, so that the points of a warp share a
+      // parity class
+      const int x = p - 1;
+      if (valid(x, 1)) {
+        const T* pw = ps(x);
+        const long long up = ps(x + 1) - pw, dn = ps(x - 1) - pw;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 2 * t + j, w = w0 + c;
+          if (c < 1 || c >= rw - 1 || w < 0 || w >= ny) continue;
+          const T* q0 = pw + cpos(c);
+          T v = interp_at<T>(ci_at, qc_at, x, w);
+          if ((x | w) & 1)
+            v = A::add(v, A::div(residual(x, c, w, q0, up, dn),
+                                 ss(x)[cpos(c)]));
+          qs(x)[cpos(c)] = A::add(*q0, v);
+        }
+      }
+      if (NINE && !(kProbe & 8)) __syncthreads();
+    }
+
+    // the colour phases: q = (b + Σ coupling·q_nb) * (1/P) at the colour's
+    // points; 5-point (x + w) % 2 == color, 9-point color = 2 cw + cz, rows
+    // with x % 2 == cz, columns with w % 2 == cw
+#pragma unroll
+    for (int k = 0; k < phases_of(NINE); ++k) {
+      const int s = 2 + k, x = p - s;
+      const int color = (a.colors >> (4 * k)) & 15;
+      if (valid(x, s) && (!NINE || ((x - color) & 1) == 0)) {
+        const int cpar = NINE ? color >> 1 : color - x;
+        const int c = 2 * t + ((cpar - w0) & 1), w = w0 + c;
+        if (c >= s && c < rw - s && w >= 0 && w < ny) {
+          T* q0 = qs(x) + cpos(c);
+          const long long up = qs(x + 1) - qs(x), dn = qs(x - 1) - qs(x);
+          const T* s0 = ss(x) + cpos(c);
+          *q0 = A::mul(A::add(s0[BI * rw], offd(x, c, w, q0, up, dn)),
+                       A::div(T(1), s0[0]));
+        }
+      }
+      if (NINE && !(kProbe & 8)) __syncthreads();
+    }
+
+    {
+      // row p - SP is final: its own columns to q_out
+      const int x = p - SP;
+      if (x >= zt && x < xe) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 2 * t + j, w = w0 + c;
+          if (c >= H && c < H + tw && w < ny)
+            q_out[(long long)x * ny + w] = qs(x)[cpos(c)];
+        }
+      }
+    }
+
+    if constexpr (EPI == kRes || EPI == kNorm) {
+      // the residual of the block's own points of row p - SE
+      const int x = p - SE;
+      if (x >= zt && x < xe) {
+        const long long up = qs(x + 1) - qs(x), dn = qs(x - 1) - qs(x);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 2 * t + j, w = w0 + c;
+          if (c < H || c >= H + tw || w >= ny) continue;
+          const T* q0 = qs(x) + cpos(c);
+          const T rv = (kProbe & 16) ? *q0 : residual(x, c, w, q0, up, dn);
+          if (EPI == kRes)
+            res[(long long)x * ny + w] = rv;
+          else
+            acc = A::add(acc, A::mul(rv, rv));
+        }
+      }
     }
   }
-  __syncthreads();
-  phases<T, NINE, RZ>(s, so, b, z0, w0, nx, ny, colors, ncolors, 0, 0, 2);
-  store_tile<T, NINE, H>(s, q_out, res, partials, so, b, z0, w0, nx, ny,
-                         mode);
+  wait_async<0>();
+
+  if constexpr (EPI == kNorm) {
+    const T tot = block_sum_row<NT / 32>(acc);
+    if (t == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = tot;
+  }
 }
 
 // the grid of a kernel with halo H on an (nx, ny) grid
@@ -376,35 +653,65 @@ int launch_sweep_restrict(const void* so, const void* q_in, const void* b,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool NINE, int H>
-int launch_interp_sweep_h(const void* ci, const void* qc, const void* so,
-                          const void* b, const void* q_in, void* q_out,
-                          void* res, void* partials, int nx, int ny, int nxc,
-                          int nyc, int colors, int ncolors, int mode,
-                          cudaStream_t st) {
-  interp_sweep_fused<T, NINE, H><<<tiles(H, nx, ny), dim3(kBlockX, kBlockY),
-                                   0, st>>>(
+// The plan of a K13 launch (ops/cuda_fused2.py `plan`): threads a block,
+// rows a chunk, the grid (strips, chunks) and shared-memory bytes.
+struct Plan2 {
+  int nt, cz, gw, gc;
+  long long smem;
+};
+
+template <typename T, bool NINE, int EPI>
+int launch_ring2(const void* ci, const void* qc, const void* so,
+                 const void* b, const void* q_in, void* q_out, void* res,
+                 void* partials, int nx, int ny, int nxc, int nyc,
+                 int colors, const Plan2& p, cudaStream_t st) {
+  using R = Ring2<NINE, EPI>;
+  constexpr int TW = 2 * R::NT - 2 * R::H;
+  // the plan must be this variant's and cover the grid once
+  if (p.nt != R::NT || p.smem != (long long)(R::WORDS * sizeof(T)) ||
+      p.cz < 1 || p.gw != (ny + TW - 1) / TW || p.gc != (nx + p.cz - 1) / p.cz)
+    return (int)cudaErrorInvalidValue;
+  const RingDims2 d{nx, ny, nxc, nyc, p.cz, colors};
+  auto fn = ring2<T, NINE, EPI>;
+  // above 48 KB with block_sum_row's static array included
+  if (p.smem + 1024 > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fn<<<dim3(p.gw, p.gc), dim3(R::NT), p.smem, st>>>(
       (const T*)ci, (const T*)qc, (const T*)so, (const T*)b, (const T*)q_in,
-      (T*)q_out, (T*)res, (T*)partials, nx, ny, nxc, nyc, colors, ncolors,
-      mode);
+      (T*)q_out, (T*)res, (T*)partials, d);
   return (int)cudaGetLastError();
 }
 
+// K13 with `nine` and epilogue `mode` on plan p (go true), or the
+// shared-memory bytes of that variant (-1: none such)
 template <typename T>
-int launch_interp_sweep(const void* ci, const void* qc, const void* so,
-                        const void* b, const void* q_in, void* q_out,
-                        void* res, void* partials, int nx, int ny, int nxc,
-                        int nyc, int nine, int colors, int ncolors, int mode,
-                        cudaStream_t st) {
-  auto fn = launch_interp_sweep_h<T, false, interp_sweep_halo(false, false)>;
-  if (nine && mode != kNone)
-    fn = launch_interp_sweep_h<T, true, interp_sweep_halo(true, true)>;
-  else if (nine)
-    fn = launch_interp_sweep_h<T, true, interp_sweep_halo(true, false)>;
-  else if (mode != kNone)
-    fn = launch_interp_sweep_h<T, false, interp_sweep_halo(false, true)>;
-  return fn(ci, qc, so, b, q_in, q_out, res, partials, nx, ny, nxc, nyc,
-            colors, ncolors, mode, st);
+int interp_planned(bool go, const void* ci, const void* qc, const void* so,
+                   const void* b, const void* q_in, void* q_out, void* res,
+                   void* partials, int nx, int ny, int nxc, int nyc,
+                   int nine, int colors, int mode, const Plan2& p,
+                   cudaStream_t st) {
+#define CEDAR_K13(NINE, EPI)                                                \
+  if (!go) return (int)(Ring2<NINE, EPI>::WORDS * sizeof(T));              \
+  return launch_ring2<T, NINE, EPI>(ci, qc, so, b, q_in, q_out, res,        \
+                                    partials, nx, ny, nxc, nyc, colors, p, st)
+  if (nine) {
+    switch (mode) {
+      case kNone: CEDAR_K13(true, kNone);
+      case kRes: CEDAR_K13(true, kRes);
+      case kNorm: CEDAR_K13(true, kNorm);
+    }
+  } else {
+    switch (mode) {
+      case kNone: CEDAR_K13(false, kNone);
+      case kRes: CEDAR_K13(false, kRes);
+      case kNorm: CEDAR_K13(false, kNorm);
+    }
+  }
+#undef CEDAR_K13
+  return go ? (int)cudaErrorInvalidValue : -1;
 }
 
 }  // namespace
@@ -412,13 +719,33 @@ int launch_interp_sweep(const void* ci, const void* qc, const void* so,
 
 extern "C" {
 
-// The number of norm partials (of blocks) of K11 (interp = 0) or K13
-// (interp = 1) with the norm epilogue on an (nx, ny) grid.
-int cedar_fused2_partials(int interp, int nine, int nx, int ny) {
-  const dim3 g = cedar::tiles(interp ? cedar::interp_sweep_halo(nine, true)
-                                     : cedar::sweep_halo(nine, true),
-                              nx, ny);
+// The number of norm partials (of blocks) of K11 with the norm epilogue
+// on an (nx, ny) grid (K13's: its plan's blocks).
+int cedar_fused2_partials(int nine, int nx, int ny) {
+  const dim3 g = cedar::tiles(cedar::sweep_halo(nine, true), nx, ny);
   return (int)(g.x * g.y);
+}
+
+// The threads a K13 block, and the steps between a K13 copy's issue and
+// its first read.
+int cedar_fused2_threads() { return cedar::kRingThreads; }
+int cedar_fused2_ahead() { return cedar::kAhead; }
+
+// The shared-memory bytes of the K13 kernel (nine, mode 0-2), or -1 if
+// none is built: what ops/cuda_fused2.py `plan` computes.
+int cedar_fused2_interp_smem(int dtype, int nine, int mode) {
+  const cedar::Plan2 p{0, 0, 0, 0, 0};
+  if (dtype == cedar::kFloat32)
+    return cedar::interp_planned<float>(false, nullptr, nullptr, nullptr,
+                                        nullptr, nullptr, nullptr, nullptr,
+                                        nullptr, 0, 0, 0, 0, nine, 0, mode,
+                                        p, nullptr);
+  if (dtype == cedar::kFloat64)
+    return cedar::interp_planned<double>(false, nullptr, nullptr, nullptr,
+                                         nullptr, nullptr, nullptr, nullptr,
+                                         nullptr, 0, 0, 0, 0, nine, 0, mode,
+                                         p, nullptr);
+  return -1;
 }
 
 // K11: q_out = one sweep of q_in; mode 0 nothing more, 1 res = b - A q_out,
@@ -458,22 +785,25 @@ int cedar_sweep_restrict2(int dtype, const void* so, const void* q_in,
   return (int)cudaErrorInvalidValue;
 }
 
-// K13: q_out = one sweep of q_in + P qc + (b - A q_in) / diag; mode as K11.
-// Returns cudaGetLastError().
+// K13: q_out = one sweep of q_in + P qc + (b - A q_in) / diag; mode as
+// K11; on the plan (nt, cz, gw, gc, smem) of ops/cuda_fused2.py `plan`.
+// Returns a CUDA error code (0 on success).
 int cedar_interp_sweep2(int dtype, const void* ci, const void* qc,
                         const void* so, const void* b, const void* q_in,
                         void* q_out, void* res, void* partials, int nx,
                         int ny, int nxc, int nyc, int nine, int colors,
-                        int ncolors, int mode, void* stream) {
+                        int mode, int nt, int cz, int gw, int gc,
+                        long long smem, void* stream) {
+  const cedar::Plan2 p{nt, cz, gw, gc, smem};
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == cedar::kFloat32)
-    return cedar::launch_interp_sweep<float>(ci, qc, so, b, q_in, q_out, res,
-                                             partials, nx, ny, nxc, nyc, nine,
-                                             colors, ncolors, mode, st);
+    return cedar::interp_planned<float>(true, ci, qc, so, b, q_in, q_out,
+                                        res, partials, nx, ny, nxc, nyc,
+                                        nine, colors, mode, p, st);
   if (dtype == cedar::kFloat64)
-    return cedar::launch_interp_sweep<double>(ci, qc, so, b, q_in, q_out, res,
-                                              partials, nx, ny, nxc, nyc, nine,
-                                              colors, ncolors, mode, st);
+    return cedar::interp_planned<double>(true, ci, qc, so, b, q_in, q_out,
+                                         res, partials, nx, ny, nxc, nyc,
+                                         nine, colors, mode, p, st);
   return (int)cudaErrorInvalidValue;
 }
 

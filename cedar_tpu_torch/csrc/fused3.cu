@@ -62,17 +62,37 @@
 // parity class at a time and issues the class's CI and coarse loads
 // before it recomputes the residual (transfer3.cuh `interp_with`).
 //
-// A 27-point sweep runs as eight passes of one colour (cedar_fused3_colors;
-// K14 for each pass but the last of a pre-sweep, which is K15, and the
-// first of a post-sweep, which is K16), as the JAX kernel splits a sweep
-// into passes when one does not fit (pallas3_split.py `_plan_split`): its
-// couplings reach diagonally into the next plane, so its stages need a
-// barrier each, its so planes come from device memory, and each phase of a
-// pass adds a ring of halo on a grid that is already small (128³ at most
-// on the 256³ problem's 27-point levels).  Smaller blocks (8 warps, 4 an
-// SM) hide the latency of those loads.  The x chunk length cx is chosen
-// so that the card gets about kTargetBlocks blocks, and at least 2H
-// planes, to bound the recomputed halo planes.
+// The 27-point K15 and K16 run one colour of a sweep each (the last of a
+// pre-sweep, the first of a post-sweep; kPhases27) on the window
+// design, as the JAX kernel splits a sweep into passes when one does not
+// fit (pallas3_split.py `_plan_split`): its couplings reach diagonally
+// into the next plane, so its stages need a barrier each, its so planes
+// come from device memory, and each phase of a pass adds a ring of halo on
+// a grid that is already small (128³ at most on the 256³ problem's
+// 27-point levels).  Smaller blocks (8 warps, 4 an SM) hide the latency
+// of those loads.  The x chunk length cx is chosen so that the card gets
+// about kTargetBlocks blocks, and at least 2H planes, to bound the
+// recomputed halo planes.
+//
+// The 27-point K14 (`pass27`) runs the other colours, a launch a march of
+// up to kStages27 colours (cedar_fused3_pass27_stages): the march of the
+// window design, with a ring of q planes filled by cp.async two steps
+// ahead.  The wrapper gives a march an aligned pair of positions of the
+// colour order (one y and z parity), so that its colours read the same
+// stencil rows.  The colours of a march alternate in x parity, so a colour
+// stage works on every other step; on a step where it works, each thread
+// updates one point of the stage's colour, whose 27 stencil values and b
+// it gathered by cp.async into slots of its own on the stage's previous
+// working step (float32 with at most 4 stages; otherwise they are read from
+// device memory), so that no stage waits on device memory.  A step has one
+// barrier, and one more after each colour stage that works.  A warp takes a
+// pair of region rows; the tile rows, the x chunk and the grid come from
+// the wrapper's plan (ops/cuda_fused3.py `pass27_plan`), checked at launch
+// against `Pass27`.  A 27-point sweep whose residual or norm is asked for
+// runs its last colour as a one-colour K14 of the window design (`fused3`),
+// whose epilogue follows the colour's stage in the same march; in a march
+// of two colours the epilogue would add a ring of halo and registers that
+// spill.
 //
 // The ring design (`ring3`): the 7-point K15 and K16 read every plane a
 // stage needs from rings of slots in shared memory, filled by cp.async
@@ -546,7 +566,9 @@ int launch(const Args& a, const KPlan* want, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-// K14 with epilogue `mode`.
+// K14 on the window design with epilogue `mode`: a whole 7-point sweep, or
+// one 27-point colour (the last of a sweep whose residual or norm is asked
+// for; `pass27` runs the others).
 template <typename T>
 int launch_sweep(const Args& a, int ts, int mode, cudaStream_t st) {
 #define CEDAR_K14(EPI)                                                       \
@@ -601,10 +623,11 @@ struct Ring {
   static constexpr int NW = RY;  // a warp a region row
 };
 
-// Build settings of tools/tune_fused3.py only: the parts of ring3 that a
-// timing probe skips (bit 0: the coarse side's copies or L2 prefetch, 1:
-// the b and stencil copies, 2: the colour phases, 3: the barriers); 0 in
-// every other build.
+// Build settings of tools/tune_fused3.py only: the parts of ring3 and
+// pass27 that a timing probe skips (bit 0: the coarse side's copies or L2
+// prefetch, 1: the b and stencil copies, 2: the colour phases, 3: the
+// barriers; pass27: 4 the stencil gathers, 5 the colour stages); 0 in every
+// other build.
 #ifndef CEDAR_FUSED3_PROBE
 #define CEDAR_FUSED3_PROBE 0
 #endif
@@ -1015,6 +1038,301 @@ int ring_rows(bool go, const Args& a, const KPlan& p, cudaStream_t st) {
   return go ? (int)cudaErrorInvalidValue : -1;
 }
 
+// ---------------------------------------------------------------------------
+// 27-point K14: the march of several colours (`pass27`, see the header
+// note).
+
+// colour stages a march, and so a launch (tools/tune_fused3.py builds
+// others)
+#ifndef CEDAR_K14_STAGES
+#define CEDAR_K14_STAGES 2
+#endif
+constexpr int kStages27 = CEDAR_K14_STAGES;
+static_assert(kStages27 >= 1 && kStages27 <= 8, "1 to 8 colours a march");
+constexpr int kAhead27 = 2;  // steps between a copy's issue and its use
+constexpr int kVals = 28;    // a point's 27 stencil values and b
+constexpr int kNoColor = 15; // a colour code that names no colour
+// warps a block at most: 12 (170 registers a thread) where each thread
+// gathers its stencil values for three or four colour stages, else 16
+constexpr int kMaxWarps27 = kStages27 >= 3 && kStages27 <= 4 ? 12 : 16;
+
+// the value slot of the (dx, dy, dz) term of a point (13: the diagonal)
+__host__ __device__ constexpr int val_of(int dx, int dy, int dz) {
+  return (dx + 1) * 9 + (dy + 1) * 3 + dz + 1;
+}
+
+// The layout of a 27-point K14 block with tiles of ty rows
+// (ops/cuda_fused3.py `pass27_words` mirrors it; the launch checks the plan
+// against it): a warp for each pair of region rows, the q ring, and in
+// float32 with at most 4 stages a point's stencil values and b for each
+// colour stage and thread.
+template <typename T>
+struct Pass27 {
+  static constexpr int NPH = kStages27, H = NPH;
+  static constexpr int TZ = kRW - 2 * H;
+  static constexpr bool ST = sizeof(T) == 4 && NPH <= 4;
+  static constexpr int WQ = NPH + 2 + kAhead27;  // planes p - H - 1 .. p + 2
+  static __host__ __device__ constexpr int ry(int ty) { return ty + 2 * H; }
+  static __host__ __device__ constexpr int threads(int ty) {
+    return 16 * ry(ty);
+  }
+  static __host__ __device__ constexpr size_t words(int ty) {
+    return (size_t)WQ * ry(ty) * kRW +
+           (ST ? (size_t)NPH * kVals * threads(ty) : 0);
+  }
+  // tile rows a launch may take: even, at most kMaxWarps27 warps
+  static __host__ __device__ constexpr bool takes(int ty) {
+    return ty >= 2 && (ty & 1) == 0 && ry(ty) <= 2 * kMaxWarps27;
+  }
+};
+
+// A point of a 27-point K14 march as offd27 reads it: q0 at the point in
+// the q ring, whose planes x + 1 and x - 1 lie dq and dm words on and
+// whose colour-compact rows put the z + 1 and z - 1 neighbours of a column
+// of parity cp 32 or -31 and 31 or -32 words away; whether each neighbour
+// lies on the grid.
+template <typename T>
+struct Pt27 {
+  const T* q0;
+  long long dq, dm;
+  int cp;
+  bool xl, xh, yl, yh, zl, zh;
+  // whether the (dx, dy, dz) neighbour lies on the grid
+  __device__ __forceinline__ bool on(int dx, int dy, int dz) const {
+    return (dx < 0 ? xl : dx > 0 ? xh : true) &&
+           (dy < 0 ? yl : dy > 0 ? yh : true) &&
+           (dz < 0 ? zl : dz > 0 ? zh : true);
+  }
+};
+
+// Σ coupling · q over the neighbours of a 27-point K14 point
+// (offdiag_terms' order), the stencil value of a term from the point's
+// slots (value k at vs[k * nt]) or, vs null, from device memory (s0: the
+// point in so).  Every read is made whether or not the neighbour lies on
+// the grid (from the point itself where it does not), so that none waits
+// on a branch and all of a point's reads are in flight together.
+template <typename T>
+__device__ __forceinline__ T offd27(const Pt27<T>& t, const T* vs, int nt,
+                                    const T* __restrict__ s0, const Dims& a) {
+  using A = Arith<T>;
+  const long long sy = a.nz, sx = (long long)a.ny * a.nz, N = sx * a.nx;
+  const int ZP = t.cp ? -31 : 32, ZM = t.cp ? -32 : 31;
+  return offdiag_terms<T, true>([&](int dx, int dy, int dz, int P) -> T {
+    const bool ok = t.on(dx, dy, dz);
+    const T sval =
+        vs ? vs[val_of(dx, dy, dz) * nt]
+           : s0[ok ? P * N + (dx > 0 ? sx : 0) + (dy > 0 ? sy : 0) +
+                         (dz > 0 ? 1 : 0)
+                   : 0];
+    const T* qx = t.q0 + (dx < 0 ? t.dm : dx > 0 ? t.dq : 0);
+    const T qv = qx[dy * kRW + (dz > 0 ? ZP : dz < 0 ? ZM : 0)];
+    return ok ? A::mul(sval, qv) : T(0);
+  });
+}
+
+// 27-point K14: one march on a y-z tile and an x chunk, NPH colour stages
+// (codes in a.colors, 4 bits each, kNoColor past the last).  Warp w takes
+// region rows 2w and 2w + 1, lane l columns 2l and 2l + 1; a colour stage
+// gives each thread one point (the row and column of the colour's
+// parities), so that it can gather that point's stencil values by cp.async
+// for its stage's next active step into its own slots, which only it reads.
+template <typename T>
+__global__ void __launch_bounds__(32 * kMaxWarps27, 1)
+pass27(const T* __restrict__ so, const T* __restrict__ q_in,
+       const T* __restrict__ b, T* __restrict__ q_out, const Dims a,
+       const int ty) {
+  using A = Arith<T>;
+  using L = Pass27<T>;
+  constexpr int NPH = L::NPH, H = L::H, TZ = L::TZ;
+  constexpr int WQ = L::WQ;
+  constexpr bool ST = L::ST;
+  const int RY = L::ry(ty), PL = RY * kRW, NT = L::threads(ty);
+
+  const int nx = a.nx, ny = a.ny, nz = a.nz;
+  const long long sy = nz, sx = (long long)ny * nz, N = sx * nx;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sm = reinterpret_cast<T*>(smem);
+  auto qs = [&](int x) { return sm + ((x + 8 * WQ) % WQ) * PL; };
+  T* const sv = sm + (size_t)WQ * PL;  // [stage][value][thread]
+
+  const int zt = blockIdx.x * TZ, yt = blockIdx.y * ty, xt = blockIdx.z * a.cx;
+  const int z0 = zt - H, y0 = yt - H;
+  const int xe = min(xt + a.cx, nx);
+  const int lane = threadIdx.x, w = threadIdx.y, tid = w * 32 + lane;
+  auto valid = [&](int x, int s) {
+    return x >= max(xt - H + s, 0) && x < min(xt + a.cx + H - s, nx);
+  };
+
+  // the q ring: thread (w, lane) copies columns lane and lane + 32 of rows
+  // 2w and 2w + 1
+  int goff[4], soff[4];
+  bool gin[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int r = 2 * w + (j >> 1), c = lane + 32 * (j & 1);
+    const int y = y0 + r, z = z0 + c;
+    gin[j] = y >= 0 && y < ny && z >= 0 && z < nz;
+    goff[j] = gin[j] ? y * nz + z : 0;
+    soff[j] = r * kRW + cpos(c);
+  }
+  const int p0 = max(xt - H, 0), load_end = min(xt + a.cx + H, nx);
+  auto issue_q = [&](int t) {
+    if (t >= load_end) return;
+    T* d = qs(t);
+    const T* src = q_in + t * sx;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) copy_async(d + soff[j], src + goff[j], gin[j]);
+  };
+
+  // colour stage k (s = k + 1) at step p: plane p - s, the thread's point
+  // (row r, column c) of the colour's parities, and whether it runs
+  auto color_of = [&](int k) { return (a.colors >> (4 * k)) & 15; };
+  auto stage_on = [&](int k, int p) {
+    const int color = color_of(k), x = p - k - 1;
+    return color != kNoColor && valid(x, k + 1) &&
+           ((x + a.ox - color) & 1) == 0;
+  };
+  int pr[NPH], pc[NPH];
+  bool pin[NPH];  // the point lies on the grid at depth >= s in y and z
+#pragma unroll
+  for (int k = 0; k < NPH; ++k) {
+    const int color = color_of(k) & 7, s = k + 1;
+    pr[k] = 2 * w + ((((color >> 1) & 1) - y0 - a.oy) & 1);
+    pc[k] = 2 * lane + ((((color >> 2) & 1) - z0 - a.oz) & 1);
+    const int y = y0 + pr[k], z = z0 + pc[k];
+    pin[k] = pr[k] >= s && pr[k] < RY - s && pc[k] >= s && pc[k] < kRW - s &&
+             y >= 0 && y < ny && z >= 0 && z < nz;
+  }
+  // float32: the stencil values and b of stage k's point at step t into
+  // the thread's slots (zero where the neighbour is off the grid)
+  auto gather = [&](int t) {
+    if constexpr (ST && !(kProbe & 16)) {
+#pragma unroll
+      for (int k = 0; k < NPH; ++k) {
+        if (!pin[k] || !stage_on(k, t)) continue;
+        const int x = t - k - 1, y = y0 + pr[k], z = z0 + pc[k];
+        const long long i = x * sx + y * sy + z;
+        T* d = sv + (size_t)k * kVals * NT + tid;
+        const bool xl = x > 0, xh = x + 1 < nx, yl = y > 0, yh = y + 1 < ny;
+        const bool zl = z > 0, zh = z + 1 < nz;
+        offdiag_terms<T, true>([&](int dx, int dy, int dz, int P) -> T {
+          const bool ok = (dx < 0 ? xl : dx > 0 ? xh : true) &&
+                          (dy < 0 ? yl : dy > 0 ? yh : true) &&
+                          (dz < 0 ? zl : dz > 0 ? zh : true);
+          copy_async(d + val_of(dx, dy, dz) * NT,
+                     so + (ok ? P * N + i + (dx > 0 ? sx : 0) +
+                                    (dy > 0 ? sy : 0) + (dz > 0 ? 1 : 0)
+                              : 0),
+                     ok);
+          return T(0);
+        });
+        copy_async(d + val_of(0, 0, 0) * NT, so + i, true);
+        copy_async(d + (kVals - 1) * NT, b + i, true);
+      }
+    }
+  };
+
+  // a point of plane x, region row r, column c as offd27 reads it
+  auto at = [&](int x, int y, int z, int r, int c) {
+    return Pt27<T>{qs(x) + r * kRW + cpos(c), qs(x + 1) - qs(x),
+                   qs(x - 1) - qs(x), c & 1, x > 0, x + 1 < nx, y > 0,
+                   y + 1 < ny, z > 0, z + 1 < nz};
+  };
+
+#pragma unroll
+  for (int t = 0; t < kAhead27; ++t) {
+    issue_q(p0 + t);
+    gather(p0 + t);
+    commit_async();
+  }
+  // One barrier a step publishes the copies of plane p and frees the slots
+  // that step p + 2's copies overwrite; each colour stage that runs ends
+  // with a barrier (27-point couplings reach diagonally into the plane the
+  // stage before updated).  A stage's slots are refilled for its next
+  // active step (p + 2: the colours of a pass alternate in x parity) after
+  // that barrier.
+  for (int p = p0; p < xe + NPH; ++p) {
+    wait_async<kAhead27 - 1>();
+    if (!(kProbe & 8)) __syncthreads();
+    issue_q(p + kAhead27);
+
+#pragma unroll
+    for (int k = 0; k < NPH; ++k) {
+      if (!stage_on(k, p)) continue;
+      const int x = p - k - 1;
+      if (pin[k] && !(kProbe & 32)) {
+        const int r = pr[k], c = pc[k], y = y0 + r, z = z0 + c;
+        const long long i = x * sx + y * sy + z;
+        T* qx = qs(x) + r * kRW + cpos(c);
+        if constexpr (ST) {
+          const T* vs = sv + (size_t)k * kVals * NT + tid;
+          *qx = A::mul(A::add(vs[(kVals - 1) * NT],
+                              offd27<T>(at(x, y, z, r, c), vs, NT, nullptr, a)),
+                       A::div(T(1), vs[val_of(0, 0, 0) * NT]));
+        } else {
+          *qx = A::mul(
+              A::add(b[i], offd27<T>(at(x, y, z, r, c), nullptr, 0, so + i,
+                                     a)),
+              A::div(T(1), so[i]));
+        }
+      }
+      if (!(kProbe & 8)) __syncthreads();
+    }
+
+    {
+      // plane p - NPH is final: the block's own points to q_out
+      const int x = p - NPH;
+      if (x >= xt && x < xe) {
+        const T* src = qs(x);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = 2 * w + (j >> 1), c = 2 * lane + (j & 1);
+          const int y = y0 + r, z = z0 + c;
+          if (r >= H && r < H + ty && y < ny && c >= H && c < H + TZ &&
+              z < nz)
+            q_out[x * sx + y * sy + z] = src[r * kRW + cpos(c)];
+        }
+      }
+    }
+
+    gather(p + kAhead27);
+    commit_async();
+  }
+  wait_async<0>();
+}
+
+template <typename T>
+int launch_pass27(const Args& a, const KPlan& p, cudaStream_t st) {
+  using L = Pass27<T>;
+  // the plan must be this kernel's and cover the grid once
+  if (!L::takes(p.ty) || p.smem != (long long)(L::words(p.ty) * sizeof(T)) ||
+      p.cx < 1 || p.gz != (a.nz + L::TZ - 1) / L::TZ ||
+      p.gy != (a.ny + p.ty - 1) / p.ty || p.gc != (a.nx + p.cx - 1) / p.cx)
+    return (int)cudaErrorInvalidValue;
+  const Dims d{a.nx, a.ny, a.nz, a.nxc, a.nyc, a.nzc, p.cx, a.colors,
+               a.ox, a.oy, a.oz, 0};
+  auto fn = pass27<T>;
+  if (p.smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  fn<<<dim3(p.gz, p.gy, p.gc), dim3(32, L::threads(p.ty) / 32), p.smem,
+       st>>>((const T*)a.so, (const T*)a.q_in, (const T*)a.b, (T*)a.q_out, d,
+             p.ty);
+  return (int)cudaGetLastError();
+}
+
+// a 27-point K14 march on plan p (go true), or the shared-memory bytes of
+// the kernel with p's tile rows (-1: none such)
+template <typename T>
+int pass27_planned(bool go, const Args& a, const KPlan& p, cudaStream_t st) {
+  if (go) return launch_pass27<T>(a, p, st);
+  return Pass27<T>::takes(p.ty) ? (int)(Pass27<T>::words(p.ty) * sizeof(T))
+                                : -1;
+}
+
 // K15 (interp false, mode kRestrict) or K16 (interp true, mode kNone /
 // kRes / kNorm, 27-point kNone only) launched on plan p (go true); or the
 // shared-memory bytes of the kernel with p's tile rows (-1: none such).
@@ -1056,12 +1374,25 @@ int planned_dtype(int dtype, bool go, const Args& a, int ts, int interp,
 
 extern "C" {
 
-// The colours a pass takes: 2 (a whole 7-point sweep) or, 27-point, the
-// 8 colours of a sweep in 8 / cedar_fused3_colors(1) passes.
-int cedar_fused3_colors(int ts) { return cedar::phases_of(ts); }
+// The colours a 27-point K14 march (and launch) takes at most.
+int cedar_fused3_pass27_stages() { return cedar::kStages27; }
 
-// The number of norm partials (of blocks) of a K14 pass with the norm
-// epilogue on an (nx, ny, nz) grid (K16's: its plan's blocks).
+// The shared-memory bytes of the 27-point K14 kernel with tiles of ty rows,
+// or -1 if it takes no such tiles: what ops/cuda_fused3.py `pass27_plan`
+// computes.
+int cedar_fused3_pass27_smem(int dtype, int ty) {
+  const cedar::Args a{};
+  const cedar::KPlan p{ty, 0, 0, 0, 0, 0};
+  if (dtype == cedar::kFloat32)
+    return cedar::pass27_planned<float>(false, a, p, nullptr);
+  if (dtype == cedar::kFloat64)
+    return cedar::pass27_planned<double>(false, a, p, nullptr);
+  return -1;
+}
+
+// The number of norm partials (of blocks) of a K14 pass of the window
+// design (7-point, or one 27-point colour) with the norm epilogue on an
+// (nx, ny, nz) grid.
 int cedar_fused3_partials(int ts, int nx, int ny, int nz) {
   const cedar::Plan pl =
       cedar::plan(ts, false, cedar::kNorm, nx, ny, nz, 4);
@@ -1077,10 +1408,10 @@ int cedar_fused3_smem(int dtype, int ts, int interp, int mode, int ty) {
   return cedar::planned_dtype(dtype, false, a, ts, interp, mode, p, nullptr);
 }
 
-// K14: q_out = one pass (2 colours 7-point, 1 of the 8 27-point) of q_in;
-// colors packs the colour codes in order, 4 bits each; mode 0 nothing
-// more, 1 res = b - A q_out, 2 partials[block] = Σ res² over the block.
-// Returns a CUDA error code (0 on success).
+// K14 on the window design: q_out = one pass of q_in (2 colours 7-point,
+// one 27-point); colors packs the colour codes in order, 4 bits each; mode
+// 0 nothing more, 1 res = b - A q_out, 2 partials[block] = Σ res² over the
+// block.  Returns a CUDA error code (0 on success).
 int cedar_sweep3_fused(int dtype, const void* so, const void* q_in,
                        const void* b, void* q_out, void* res, void* partials,
                        int nx, int ny, int nz, int ts, int colors, int ox,
@@ -1092,6 +1423,25 @@ int cedar_sweep3_fused(int dtype, const void* so, const void* q_in,
     return cedar::launch_sweep<float>(a, ts, mode, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch_sweep<double>(a, ts, mode, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// 27-point K14: q_out = one march of up to cedar_fused3_pass27_stages()
+// colours of q_in (codes packed as above, 15 past the last), on the plan
+// (ty, cx, gz, gy, gc, smem) of ops/cuda_fused3.py `pass27_plan`.  Returns
+// a CUDA error code.
+int cedar_pass27(int dtype, const void* so, const void* q_in, const void* b,
+                 void* q_out, int nx, int ny, int nz, int colors, int ox,
+                 int oy, int oz, int ty, int cx, int gz, int gy, int gc,
+                 long long smem, void* stream) {
+  const cedar::Args a{so, q_in, b, nullptr, nullptr, q_out, nullptr, nullptr,
+                      nullptr, nx, ny, nz, 0, 0, 0, colors, ox, oy, oz, 0};
+  const cedar::KPlan p{ty, cx, gz, gy, gc, smem};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == cedar::kFloat32)
+    return cedar::pass27_planned<float>(true, a, p, st);
+  if (dtype == cedar::kFloat64)
+    return cedar::pass27_planned<double>(true, a, p, st);
   return (int)cudaErrorInvalidValue;
 }
 

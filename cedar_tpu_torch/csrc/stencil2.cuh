@@ -24,10 +24,34 @@ namespace cedar {
 // Dir2 plane indices (core/types.py); plane O = 0 is indexed directly
 constexpr int W = 1, S = 2, SW = 3, NW = 4;
 
-// Σ coupling · q(neighbour) at (z, w), in stencil2.offsets_for order, with
-// q read through qp = &q(z, w) and the row stride qs of what qp points
-// into: the grid itself (qs = ny), or a shared-memory tile of it in the
-// fused kernels of fused2.cu.
+// Σ term(dz, dw, P) over the neighbours of one point, in
+// stencil2.offsets_for order: term returns the coupling of the (dz, dw)
+// neighbour, stored at plane P shifted by the positive part of the offset
+// ((-1,0) W(z,w), (1,0) W(z+1,w), (0,-1) S(z,w), (0,1) S(z,w+1); 9-point
+// (-1,-1) SW(z,w), (1,-1) NW(z+1,w), (-1,1) NW(z,w+1), (1,1) SW(z+1,w+1)),
+// times that neighbour's q, or exactly zero for a neighbour off the grid.
+// The term order lives here only, so that every reader of the stencil and
+// q rounds alike.
+template <typename T, bool NINE, typename Term>
+__device__ __forceinline__ T offdiag_terms2(const Term& term) {
+  using A = Arith<T>;
+  T acc = term(-1, 0, W);
+  acc = A::add(acc, term(1, 0, W));
+  acc = A::add(acc, term(0, -1, S));
+  acc = A::add(acc, term(0, 1, S));
+  if (NINE) {
+    acc = A::add(acc, term(-1, -1, SW));
+    acc = A::add(acc, term(1, -1, NW));
+    acc = A::add(acc, term(-1, 1, NW));
+    acc = A::add(acc, term(1, 1, SW));
+  }
+  return acc;
+}
+
+// Σ coupling · q(neighbour) at (z, w) (offdiag_terms2), with q read
+// through qp = &q(z, w) and the row stride qs of what qp points into: the
+// grid itself (qs = ny), or a shared-memory tile of it in the fused
+// kernels of fused2.cu.
 template <typename T, bool NINE>
 __device__ __forceinline__ T offdiag_at(const T* __restrict__ so, long long P,
                                         int z, int w, int nx, int ny,
@@ -35,21 +59,13 @@ __device__ __forceinline__ T offdiag_at(const T* __restrict__ so, long long P,
   using A = Arith<T>;
   const long long i = (long long)z * ny + w;
   const bool zl = z > 0, zh = z + 1 < nx, wl = w > 0, wh = w + 1 < ny;
-  const T zero = T(0);
-  // (-1,0) W(z,w)      (1,0) W(z+1,w)
-  T acc = zl ? A::mul(so[W * P + i], qp[-qs]) : zero;
-  acc = A::add(acc, zh ? A::mul(so[W * P + i + ny], qp[qs]) : zero);
-  // (0,-1) S(z,w)      (0,1) S(z,w+1)
-  acc = A::add(acc, wl ? A::mul(so[S * P + i], qp[-1]) : zero);
-  acc = A::add(acc, wh ? A::mul(so[S * P + i + 1], qp[1]) : zero);
-  if (NINE) {
-    // (-1,-1) SW(z,w)  (1,-1) NW(z+1,w)  (-1,1) NW(z,w+1)  (1,1) SW(z+1,w+1)
-    acc = A::add(acc, (zl && wl) ? A::mul(so[SW * P + i], qp[-qs - 1]) : zero);
-    acc = A::add(acc, (zh && wl) ? A::mul(so[NW * P + i + ny], qp[qs - 1]) : zero);
-    acc = A::add(acc, (zl && wh) ? A::mul(so[NW * P + i + 1], qp[1 - qs]) : zero);
-    acc = A::add(acc, (zh && wh) ? A::mul(so[SW * P + i + ny + 1], qp[qs + 1]) : zero);
-  }
-  return acc;
+  return offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
+    const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
+                    (dw < 0 ? wl : dw > 0 ? wh : true);
+    return ok ? A::mul(so[d * P + i + (dz > 0 ? ny : 0) + (dw > 0 ? 1 : 0)],
+                       qp[dz * qs + dw])
+              : T(0);
+  });
 }
 
 // Σ coupling · q(neighbour) at (z, w) of the grid q.

@@ -56,19 +56,17 @@ __device__ __forceinline__ T restrict_value(const CI<T>& ci, const Fine& res,
 }
 
 // (P qc)[z, w]: the coarse value at coincident points, else the weighted
-// sum of the coarse neighbours of the point's parity class.  Shared by K3,
-// K5 and K13 so that they cannot drift apart.
-template <typename T>
-__device__ __forceinline__ T interp_value(const CI<T>& ci,
-                                          const T* __restrict__ qc, int z,
-                                          int w, int nxc, int nyc) {
+// sum of the coarse neighbours of the point's parity class, from the
+// weights ci(d, k, m) and the coarse values QC(k, m) (zero at k = nxc or m
+// = nyc; k, m >= 0 on every path below): functors, so that they can read
+// device memory (interp_value) or K13's shared-memory rings.  Shared by
+// K3, K5 and K13 so that they cannot drift apart.
+template <typename T, typename Ci, typename Qc>
+__device__ __forceinline__ T interp_at(const Ci& ci, const Qc& QC, int z,
+                                       int w) {
   using A = Arith<T>;
-  // coarse value, zero at index nxc / nyc (k, m >= 0 on every path below)
-  auto QC = [&](int k, int m) -> T {
-    return (k < nxc && m < nyc) ? qc[(long long)k * nyc + m] : T(0);
-  };
   const int pz = z & 1, pw = w & 1;
-  if (!pz && !pw) return qc[(long long)(z >> 1) * nyc + (w >> 1)];
+  if (!pz && !pw) return QC(z >> 1, w >> 1);
   if (pz && !pw) {  // x-line point (2k-1, 2m)
     const int k = (z + 1) >> 1, m = w >> 1;
     return A::add(A::mul(ci(LR, k, m), QC(k, m)),
@@ -85,6 +83,16 @@ __device__ __forceinline__ T interp_value(const CI<T>& ci,
   s = A::add(s, A::mul(ci(LNW, k, m), QC(k - 1, m)));
   s = A::add(s, A::mul(ci(LNE, k, m), QC(k, m)));
   return A::add(s, A::mul(ci(LSE, k, m), QC(k, m - 1)));
+}
+
+// interp_at with CI and qc (nxc, nyc) in device memory.
+template <typename T>
+__device__ __forceinline__ T interp_value(const CI<T>& ci,
+                                          const T* __restrict__ qc, int z,
+                                          int w, int nxc, int nyc) {
+  return interp_at<T>(ci, [&](int k, int m) -> T {
+    return (k < nxc && m < nyc) ? qc[(long long)k * nyc + m] : T(0);
+  }, z, w);
 }
 
 }  // namespace cedar

@@ -53,13 +53,17 @@ SIGNATURES = {
         "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "fused2": {
-        "cedar_fused2_partials": [_I, _I, _I, _I],
+        "cedar_fused2_partials": [_I, _I, _I],
         "cedar_sweep2_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _P],
         "cedar_sweep_restrict2": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _P],
+        "cedar_fused2_threads": [],
+        "cedar_fused2_ahead": [],
+        "cedar_fused2_interp_smem": [_I, _I, _I],
+        # K13 ends with its plan: nt, cz, gw, gc, smem
         "cedar_interp_sweep2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _P],
+                                _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
     },
     "planes2": {
         "cedar_line_xy_smooth2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -77,12 +81,16 @@ SIGNATURES = {
         "cedar_interp3": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "fused3": {
-        "cedar_fused3_colors": [_I],
+        "cedar_fused3_pass27_stages": [],
+        "cedar_fused3_pass27_smem": [_I, _I],
         "cedar_fused3_partials": [_I, _I, _I, _I],
         "cedar_fused3_smem": [_I, _I, _I, _I, _I],
         "cedar_sweep3_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _I, _P],
-        # K15 and K16 end with their plan: ty, cx, gz, gy, gc, smem
+        # the 27-point K14, K15 and K16 end with their plan: ty, cx, gz,
+        # gy, gc, smem
+        "cedar_pass27": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _L, _P],
         "cedar_sweep_restrict3": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                   _I, _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _L, _P],
@@ -91,6 +99,12 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _L, _P],
     },
 }
+
+#: a block's most shared memory on an H100 (227 KB), less 1 KB for a
+#: kernel's static shared memory
+BLOCK_SMEM = 232448 - 1024
+#: an SM's shared memory (228 KB), of which each resident block takes 1 KB
+SM_SMEM = 233472
 
 _libs: dict[str, ctypes.CDLL] = {}
 #: name -> (seconds spent in nvcc, nvcc's stderr: the ptxas register report)
@@ -245,3 +259,20 @@ def check_operands(*tensors: torch.Tensor) -> int:
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
     return DTYPE_CODES[t0.dtype]
+
+
+def chunk(n: int, tiles: int, slots: int, h: int) -> tuple[int, int]:
+    """The even chunk of the marched axis of length ``n`` (and the number
+    of chunks) whose grid of ``tiles`` tiles a chunk runs in the fewest
+    steps a block slot, in whole waves of ``slots`` resident blocks: a
+    block steps through its chunk and 2H halo steps (the plans of the
+    fused kernels that march, csrc/fused2.cu and csrc/fused3.cu)."""
+    best = None
+    for waves in range(1, 17):
+        cx = max(2, -(-n // max(1, waves * slots // tiles)))
+        cx += cx & 1
+        gc = -(-n // cx)
+        steps = -(-(tiles * gc) // slots) * (min(cx, n) + 2 * h)
+        if best is None or steps < best[0]:
+            best = (steps, cx, gc)
+    return best[1], best[2]

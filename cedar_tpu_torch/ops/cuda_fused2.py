@@ -15,14 +15,24 @@ All of them read ``q`` and return a new iterate: a kernel block reads
 ``q`` over its tile and a halo while other blocks write theirs, so the
 kernels work out of place.  ``*_launches`` count kernel launches,
 ``*_plain_calls`` plain-version calls.
+
+K13 launches on a :func:`plan` that this module computes from the shapes
+and the card's SM count and passes to the kernel: threads a block (a
+strip of twice as many region columns; :data:`THREADS`), rows a chunk,
+the grid and the shared-memory bytes (the launch checks them against the
+kernel's own), and so the number of norm partials.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import cuda_build, fused2, relax2
+from cedar_tpu_torch.ops.cuda_build import BLOCK_SMEM, SM_SMEM
 from cedar_tpu_torch.ops.cuda_transfer2 import _coarse_shape
 
 sweep_launches = 0
@@ -34,6 +44,82 @@ interp_sweep_plain_calls = 0
 
 # output modes of K11 and K13 (csrc/fused2.cu)
 _NONE, _RES, _NORM = 0, 1, 2
+#: K13's threads a block and the steps between a copy and its first read
+#: (csrc/fused2.cu ``kRingThreads``, ``kAhead``; tools/tune_fused2.py
+#: builds others with ``-DCEDAR_FUSED2_THREADS``, ``-DCEDAR_FUSED2_AHEAD``)
+THREADS, AHEAD = 128, 1
+
+
+def halo(nine: bool, mode: int) -> int:
+    """K13's halo H in rows and columns: the interpolation stage, the
+    colour phases (2 or 4) and the residual or norm epilogue."""
+    return 1 + (4 if nine else 2) + (mode != _NONE)
+
+
+def interp_words(nine: bool, mode: int, nt: int = THREADS,
+                 ahead: int = AHEAD) -> int:
+    """Shared-memory words of a K13 block of ``nt`` threads, copies
+    ``ahead`` steps ahead (csrc/fused2.cu ``Ring2::words``): rings of 2
+    nt-column rows of the swept q (H + 1), q_pre (3 + ahead), the stencil
+    planes and b (H + 1 + ahead slots of 4 or 6 rows), two coarse rows of
+    the 8 CI weights and three of qc over nt + 2 coarse columns."""
+    h = halo(nine, mode)
+    nsb = (5 if nine else 3) + 1
+    return (2 * nt * ((h + 1) + (3 + ahead) + (h + 1 + ahead) * nsb)
+            + 19 * (nt + 2))
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A K13 launch: blocks of ``nt`` threads on strips of ``tw`` owned
+    columns (``2 nt`` region columns, a halo of ``h``) and chunks of ``cz``
+    rows, a ``(gw, gc)`` grid, ``smem`` bytes a block, ``per_sm`` blocks
+    resident an SM."""
+    nt: int
+    tw: int
+    h: int
+    cz: int
+    gw: int
+    gc: int
+    smem: int
+    per_sm: int
+
+    @property
+    def blocks(self) -> int:
+        """The blocks of the launch, and the norm partials it writes."""
+        return self.gw * self.gc
+
+
+@functools.lru_cache(maxsize=256)
+def plan(itemsize: int, nine: bool, mode: int, shape, n_sm: int = 132,
+         build: tuple[int, int] = (THREADS, AHEAD)) -> Plan:
+    """The K13 launch on an ``(nx, ny)`` grid for a card of ``n_sm`` SMs,
+    for the kernel ``build`` (its threads a block and the steps its copies
+    run ahead, :func:`_build_of`): the chunk of rows whose grid runs in
+    whole waves of resident blocks."""
+    nx, ny = shape
+    nt, ahead = build
+    h = halo(nine, mode)
+    size = interp_words(nine, mode, nt, ahead) * itemsize
+    if size > BLOCK_SMEM:
+        raise ValueError(f"a K13 block of {nt} threads does not fit")
+    tw = 2 * nt - 2 * h
+    per_sm = min(2048 // nt, 32, SM_SMEM // (size + 1024))
+    gw = -(-ny // tw)
+    cz, gc = cuda_build.chunk(nx, gw, n_sm * per_sm, h)
+    return Plan(nt, tw, h, cz, gw, gc, size, per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _build_of(lib) -> tuple[int, int]:
+    """The threads a K13 block and the steps ahead of a K13 copy of the
+    build ``lib``, read once."""
+    return lib.cedar_fused2_threads(), lib.cedar_fused2_ahead()
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sm(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check(so, q, b, kind: StencilKind) -> None:
@@ -70,18 +156,18 @@ def _mode(fuse_residual: bool, fuse_norm: bool) -> int:
 
 
 def _outputs(lib, q: torch.Tensor, kind: StencilKind, mode: int,
-             interp: bool):
+             partials: int | None = None):
     """``q_out`` and the residual or partials buffer of ``mode`` (passed to
     the kernel as both its res and its partials pointer: it writes the one
-    its mode names); ``interp`` for K13, whose halo and so whose block
-    count differ from K11's."""
+    its mode names): K11's partials from ``cedar_fused2_partials``, K13's
+    its plan's blocks (``partials``)."""
     nx, ny = q.shape
     extra = None
     if mode == _RES:
         extra = torch.empty_like(q)
     elif mode == _NORM:
-        extra = q.new_empty(lib.cedar_fused2_partials(
-            int(interp), int(kind == StencilKind.nine_pt), nx, ny))
+        extra = q.new_empty(partials or lib.cedar_fused2_partials(
+            int(kind == StencilKind.nine_pt), nx, ny))
     return torch.empty_like(q), extra
 
 
@@ -105,7 +191,7 @@ def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
     dt = cuda_build.check_operands(so, q, b)
     lib = cuda_build.load("fused2")
     mode = _mode(fuse_residual, fuse_norm)
-    q_out, extra = _outputs(lib, q, kind, mode, interp=False)
+    q_out, extra = _outputs(lib, q, kind, mode)
     colors, ncolors = _colors(kind, updown)
     oz, ow = (int(o) for o in origin)
     nx, ny = q.shape
@@ -156,22 +242,34 @@ def interp_sweep(ci: torch.Tensor, qc: torch.Tensor, so: torch.Tensor,
                  fuse_norm: bool = False):
     """K13: ``q_pre + P qc + (b - A q_pre)/diag``, then one sweep, on the
     card; returns ``q_new`` (plus ``res`` or ``partials``)."""
+    return _interp_sweep(None, ci, qc, so, b, q_pre, kind, updown,
+                         fuse_residual, fuse_norm)
+
+
+def _interp_sweep(lib, ci, qc, so, b, q_pre, kind, updown,
+                  fuse_residual=False, fuse_norm=False):
+    """:func:`interp_sweep` with the library ``lib`` (a build of
+    csrc/fused2.cu; None: the default one), as tools/tune_fused2.py times
+    it."""
     global interp_sweep_launches
     _check(so, q_pre, b, kind)
     nxc, nyc = _check_qc(ci, qc, q_pre.shape)
     dt = cuda_build.check_operands(ci, qc, so, b, q_pre)
-    lib = cuda_build.load("fused2")
+    lib = lib or cuda_build.load("fused2")
     mode = _mode(fuse_residual, fuse_norm)
-    q_out, extra = _outputs(lib, q_pre, kind, mode, interp=True)
-    colors, ncolors = _colors(kind, updown)
+    nine = kind == StencilKind.nine_pt
+    p = plan(q_pre.element_size(), nine, mode, tuple(q_pre.shape),
+             _n_sm(q_pre.device), _build_of(lib))
+    q_out, extra = _outputs(lib, q_pre, kind, mode, p.blocks)
+    colors, _ = _colors(kind, updown)
     nx, ny = q_pre.shape
     cuda_build.check(
         lib.cedar_interp_sweep2(dt, ci.data_ptr(), qc.data_ptr(),
                                 so.data_ptr(), b.data_ptr(),
                                 q_pre.data_ptr(), q_out.data_ptr(),
                                 _ptr(extra), _ptr(extra), nx, ny, nxc, nyc,
-                                int(kind == StencilKind.nine_pt), colors,
-                                ncolors, mode, cuda_build.stream_of(q_pre)),
+                                int(nine), colors, mode, p.nt, p.cz, p.gw,
+                                p.gc, p.smem, cuda_build.stream_of(q_pre)),
         "interp_sweep2",
     )
     interp_sweep_launches += 1

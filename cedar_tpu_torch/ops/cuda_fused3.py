@@ -11,23 +11,30 @@ on the tensors' current stream; :func:`sweep_plain`,
 same functions in torch ops (:mod:`cedar_tpu_torch.ops.fused3`), which
 picks one by device.
 
-A kernel launch runs one pass: both colours of a 7-point sweep, or
-``cedar_fused3_colors(1)`` of the eight 27-point colours (one: a 27-point
-sweep is eight launches, K14 for all but the last of a pre-sweep, which is
-K15, and all but the first of a post-sweep, which is K16).  Each launch
-adds one to the count of the kernel it launches (``*_launches``);
-``*_plain_calls`` count plain-version calls.
+A kernel launch runs one pass: both colours of a 7-point sweep; a
+27-point K15 or K16 one of the eight 27-point colours (the last of a
+pre-sweep, the first of a post-sweep), a 27-point K14 a march of up to
+:data:`PASS27_STAGES` of them (``cedar_fused3_pass27_stages``: a 27-point
+sweep is four K14 launches), in groups aligned to the colour order, so
+that the colours of a march share their y and z parities.  A 27-point
+sweep whose residual or norm is asked for runs its last colour as a
+one-colour K14 of the window design, whose epilogue computes it
+(:func:`_passes`).  Each launch adds one to the count of the kernel it
+launches (``*_launches``); ``*_plain_calls`` count plain-version
+calls.
 
 All of them read ``q`` and return a new iterate: a kernel block reads
 ``q`` over its region and a halo while other blocks write theirs, so the
 kernels work out of place.
 
-K15 and K16 launch on a :func:`plan` that this module computes from the
-shapes and the card's SM count and passes to the kernel: tile rows, x
-chunk, grid and shared-memory bytes (the launch checks them against the
-kernel's own), and so the number of norm partials.  7-point K15 and K16
-run the ring design (copies by cp.async into rings of planes), 27-point
-ones the window design of K14 (csrc/fused3.cu's header note).
+K15 and K16 launch on a :func:`plan`, the 27-point K14 on a
+:func:`pass27_plan`, that this module computes from the shapes and the
+card's SM count and passes to the kernel: tile rows, x chunk, grid and
+shared-memory bytes (the launch checks them against the kernel's own),
+and so the number of norm partials.  7-point K15 and K16 run the ring
+design (copies by cp.async into rings of planes), 27-point ones the
+window design of the 7-point K14, the 27-point K14 its march of several
+colours (csrc/fused3.cu's header note).
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import torch
 
 from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import cuda_build, fused3, relax3
+from cedar_tpu_torch.ops.cuda_build import BLOCK_SMEM, SM_SMEM
 from cedar_tpu_torch.ops.cuda3 import _check_sweep as _check
 from cedar_tpu_torch.ops.cuda_transfer3 import _check_qc, _coarse_shape
 
@@ -52,11 +60,6 @@ interp_sweep_plain_calls = 0
 # output modes of K14 and K16, and K15's (csrc/fused3.cu)
 _NONE, _RES, _NORM, _RESTRICT = 0, 1, 2, 3
 
-#: a block's most shared memory on an H100 (227 KB), less 1 KB for the
-#: kernels' static shared memory
-BLOCK_SMEM = 232448 - 1024
-#: an SM's shared memory (228 KB), of which each resident block takes 1 KB
-SM_SMEM = 233472
 #: region columns (z) of K14-K16 (csrc/fused3.cu ``kRW``)
 RW = 64
 #: 7-point K15's and K16's tile rows built (csrc/fused3.cu
@@ -67,6 +70,18 @@ RING_ROWS = {4: (12, 10), 8: (4, 2)}
 #: resident blocks an SM (``kWarps27``, ``kMinBlocks27``)
 WINDOW_ROWS, TARGET_BLOCKS = 16, 528
 WINDOW_WARPS, WINDOW_BLOCKS = 8, 4
+#: colours a 27-point K14 march (and launch) takes (csrc/fused3.cu
+#: ``kStages27``; a build with ``-DCEDAR_K14_STAGES=m`` takes m), the
+#: values a point's stencil slots hold (``kVals``) and the colour code that
+#: names no colour (``kNoColor``)
+PASS27_STAGES, PASS27_VALS, NO_COLOR = 2, 28, 15
+
+
+def pass27_warps(stages: int = PASS27_STAGES) -> int:
+    """The most warps a 27-point K14 block takes (csrc/fused3.cu
+    ``kMaxWarps27``): 12 where each thread gathers its stencil values for
+    3 or 4 colour stages (170 registers a thread), else 16."""
+    return 12 if 3 <= stages <= 4 else 16
 
 
 def _stages(ts: bool, interp: bool, mode: int) -> tuple[int, int, int]:
@@ -113,6 +128,19 @@ def window_words(interp: bool, mode: int) -> int:
     pl = (ty + 2 * h) * RW
     return ((se + (1 if interp else 2)) * pl + (3 * pl if interp else 0)
             + (3 * (ty + 1) * (tz + 1) if mode == _RESTRICT else 0))
+
+
+def pass27_words(itemsize: int, ty: int, stages: int = PASS27_STAGES) -> int:
+    """Shared-memory words of a 27-point K14 block with tiles of ``ty``
+    rows (csrc/fused3.cu ``Pass27<...>::words``): the ring of q planes
+    (planes p - H - 1 .. p + 2, H = the stages of a march) and, in float32
+    with at most 4 stages, each thread's stencil values and b for each
+    colour stage."""
+    h = stages
+    ry = ty + 2 * h
+    staged = itemsize == 4 and stages <= 4
+    return ((h + 4) * ry * RW
+            + (stages * PASS27_VALS * 16 * ry if staged else 0))
 
 
 @dataclass(frozen=True)
@@ -178,17 +206,31 @@ def plan(itemsize: int, ts: bool, interp: bool, mode: int, shape,
     if ty not in size or size[ty] > BLOCK_SMEM:
         raise ValueError(f"no 7-point K15/K16 variant with {ty} tile rows")
     gz, gy = -(-nz // tz), -(-ny // ty)
-    tiles = gz * gy
-    best = None
-    for waves in range(1, 17):
-        cx = max(2, -(-nx // max(1, waves * n_sm // tiles)))
-        cx += cx & 1
-        gc = -(-nx // cx)
-        steps = -(-(tiles * gc) // n_sm) * (min(cx, nx) + 2 * h)
-        if best is None or steps < best[0]:
-            best = (steps, cx, gc)
-    return Plan(ty, tz, h, best[1], gz, gy, best[2], size[ty], ty + 2 * h,
-                1, True)
+    cx, gc = cuda_build.chunk(nx, gz * gy, n_sm, h)
+    return Plan(ty, tz, h, cx, gz, gy, gc, size[ty], ty + 2 * h, 1, True)
+
+
+@functools.lru_cache(maxsize=256)
+def pass27_plan(itemsize: int, shape, n_sm: int = 132,
+                stages: int = PASS27_STAGES) -> Plan:
+    """The launch of a 27-point K14 march of ``stages`` colours at most on
+    an ``(nx, ny, nz)`` grid: the most tile rows (even, a warp for each
+    pair of region rows, at most :func:`pass27_warps`) whose block fits,
+    then the x chunk whose grid runs in the fewest steps a block slot."""
+    nx, ny, nz = shape
+    h = stages
+    tz = RW - 2 * h
+    ty = next((t for t in range(2 * pass27_warps(stages) - 2 * h, 1, -2)
+               if pass27_words(itemsize, t, stages) * itemsize
+               <= BLOCK_SMEM), None)
+    if ty is None:
+        raise ValueError("no 27-point K14 tile fits a block")
+    smem = pass27_words(itemsize, ty, stages) * itemsize
+    warps = (ty + 2 * h) // 2
+    gz, gy = -(-nz // tz), -(-ny // ty)
+    per_sm = min(2048 // (32 * warps), SM_SMEM // (smem + 1024))
+    cx, gc = cuda_build.chunk(nx, gz * gy, n_sm * per_sm, h)
+    return Plan(ty, tz, h, cx, gz, gy, gc, smem, warps, per_sm, True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,14 +238,42 @@ def _n_sm(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _passes(lib, kind: StencilKind, updown: str) -> list[int]:
-    """The colour codes of :func:`relax3.color_order` in sweep order, packed
-    4 bits each, one int per launch (``cedar_fused3_colors`` colours a
-    launch)."""
-    order = relax3.color_order(kind, updown)
-    n = lib.cedar_fused3_colors(int(kind == StencilKind.twenty_seven_pt))
-    return [sum(c << (4 * k) for k, c in enumerate(order[i:i + n]))
-            for i in range(0, len(order), n)]
+def _pack(codes, slots: int = 0) -> int:
+    """Colour codes packed 4 bits each in order, :data:`NO_COLOR` in the
+    slots past them up to ``slots``."""
+    codes = list(codes) + [NO_COLOR] * (slots - len(codes))
+    return sum(c << (4 * k) for k, c in enumerate(codes))
+
+
+@functools.lru_cache(maxsize=None)
+def _stages_of(lib) -> int:
+    """The colours a 27-point K14 march of build ``lib`` takes, read once."""
+    return lib.cedar_fused3_pass27_stages()
+
+
+@functools.lru_cache(maxsize=None)
+def _passes(stages: int, kind: StencilKind, updown: str, role: str = "sweep",
+            mode: int = _NONE) -> tuple[tuple[str, tuple[int, ...]], ...]:
+    """The launches of one sweep in order, each ``(kernel, colours)`` in
+    :func:`relax3.color_order`'s codes: 7-point one launch of both colours
+    (K14, K15 or K16 by ``role``: "sweep", "restrict" or "interp");
+    27-point K16 on the first colour ("interp"), K15 on the last
+    ("restrict"), a K14 march ("pass27") for each block of ``stages``
+    positions of the colour order that holds any of the others, but the
+    last colour of a sweep with an epilogue ``mode``, which a one-colour
+    K14 of the window design ("K14") runs."""
+    order = tuple(relax3.color_order(kind, updown))
+    last = {"sweep": "K14", "restrict": "K15", "interp": "K16"}[role]
+    if kind != StencilKind.twenty_seven_pt:
+        return ((last, order),)
+    lo = int(role == "interp")
+    hi = 8 - (role == "restrict" or mode != _NONE)
+    marches = tuple(("pass27", order[max(j, lo):min(j + stages, hi)])
+                    for j in range(lo - lo % stages, hi, stages))
+    head = (("K16", order[:1]),) if role == "interp" else ()
+    tail = ((("K15", order[-1:]),) if role == "restrict"
+            else (("K14", order[-1:]),) if mode != _NONE else ())
+    return head + marches + tail
 
 
 def _mode(fuse_residual: bool, fuse_norm: bool) -> int:
@@ -229,9 +299,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _sweep_pass(lib, dt: int, so, q_in, b, kind: StencilKind, colors: int,
+def _sweep_pass(lib, dt: int, so, q_in, b, kind: StencilKind, colors,
                 origin, mode: int):
-    """One K14 launch; returns ``(q_out, res or partials or None)``."""
+    """One K14 launch of the window design on ``colors`` (a whole 7-point
+    sweep or one 27-point colour) with epilogue ``mode``; returns
+    ``(q_out, res or partials or None)``."""
     global sweep_launches
     q_out = torch.empty_like(q_in)
     ts = int(kind == StencilKind.twenty_seven_pt)
@@ -240,32 +312,68 @@ def _sweep_pass(lib, dt: int, so, q_in, b, kind: StencilKind, colors: int,
     cuda_build.check(
         lib.cedar_sweep3_fused(dt, so.data_ptr(), q_in.data_ptr(),
                                b.data_ptr(), q_out.data_ptr(), _ptr(extra),
-                               _ptr(extra), *q_in.shape, ts,
-                               colors, ox, oy, oz, mode,
-                               cuda_build.stream_of(q_in)),
+                               _ptr(extra), *q_in.shape, ts, _pack(colors),
+                               ox, oy, oz, mode, cuda_build.stream_of(q_in)),
         "sweep3_fused",
     )
     sweep_launches += 1
     return q_out, extra
 
 
+def _run(lib, dt: int, so, q, b, kind: StencilKind, passes, origin,
+         mode: int):
+    """The K14 launches of ``passes`` (:func:`_passes`: marches, and a
+    window-design K14 with epilogue ``mode``) in turn from ``q``; returns
+    ``(q_out, res or partials or None)``."""
+    global sweep_launches
+    extra = None
+    ox, oy, oz = (int(o) for o in origin)
+    for kernel, colors in passes:
+        if kernel == "K14":
+            q, extra = _sweep_pass(lib, dt, so, q, b, kind, colors, origin,
+                                   mode)
+            continue
+        m = _stages_of(lib)
+        p = pass27_plan(q.element_size(), tuple(q.shape), _n_sm(q.device),
+                        m)
+        q_out = torch.empty_like(q)
+        cuda_build.check(
+            lib.cedar_pass27(dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
+                             q_out.data_ptr(), *q.shape, _pack(colors, m),
+                             ox, oy, oz, *_plan_args(p),
+                             cuda_build.stream_of(q)),
+            "pass27",
+        )
+        sweep_launches += 1
+        q = q_out
+    return q, extra
+
+
 def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
           kind: StencilKind, updown: str, fuse_residual: bool = False,
           origin=(0, 0, 0), fuse_norm: bool = False):
     """K14: one whole multicolour sweep on the card, out of place (one
-    launch 7-point, one a pass 27-point).
+    launch 7-point; 27-point a march of :data:`PASS27_STAGES` colours a
+    launch, the last colour by itself where ``mode`` asks for an
+    epilogue).
 
     Returns ``q_new``, ``(q_new, res)`` with ``fuse_residual`` or
     ``(q_new, partials)`` with ``fuse_norm``."""
+    return _sweep(None, so, q, b, kind, updown, fuse_residual, origin,
+                  fuse_norm)
+
+
+def _sweep(lib, so, q, b, kind, updown, fuse_residual=False,
+           origin=(0, 0, 0), fuse_norm=False):
+    """:func:`sweep` with the library ``lib`` (a build of csrc/fused3.cu;
+    None: the default one), as tools/tune_fused3.py times it."""
     _check(so, q, b, kind)
     dt = cuda_build.check_operands(so, q, b)
-    lib = cuda_build.load("fused3")
+    lib = lib or cuda_build.load("fused3")
     mode = _mode(fuse_residual, fuse_norm)
-    *first, last = _passes(lib, kind, updown)
-    for colors in first:
-        q, _ = _sweep_pass(lib, dt, so, q, b, kind, colors, origin, _NONE)
-    q_out, extra = _sweep_pass(lib, dt, so, q, b, kind, last, origin, mode)
-    return _result(q_out, extra, mode)
+    passes = _passes(_stages_of(lib), kind, updown, "sweep", mode)
+    return _result(*_run(lib, dt, so, q, b, kind, passes, origin, mode),
+                   mode)
 
 
 def _plan_args(p: Plan):
@@ -291,21 +399,21 @@ def _sweep_restrict(lib, ty, so, q, b, ci, kind, updown, emit_res):
     nxc, nyc, nzc = _coarse_shape(ci, q.shape)
     dt = cuda_build.check_operands(so, q, b, ci)
     lib = lib or cuda_build.load("fused3")
-    *first, last = _passes(lib, kind, updown)
-    for colors in first:
-        q, _ = _sweep_pass(lib, dt, so, q, b, kind, colors, (0, 0, 0), _NONE)
+    ts = kind == StencilKind.twenty_seven_pt
+    *first, (_, last) = _passes(_stages_of(lib), kind, updown, "restrict")
+    q, _ = _run(lib, dt, so, q, b, kind, first, (0, 0, 0), _NONE)
     q_out = torch.empty_like(q)
     res = torch.empty_like(q) if emit_res else None
     cb = q.new_empty((nxc, nyc, nzc))
-    ts = kind == StencilKind.twenty_seven_pt
     p = plan(q.element_size(), ts, False, _RESTRICT, tuple(q.shape),
              _n_sm(q.device), ty)
     cuda_build.check(
         lib.cedar_sweep_restrict3(dt, so.data_ptr(), q.data_ptr(),
                                   b.data_ptr(), ci.data_ptr(),
                                   q_out.data_ptr(), _ptr(res), cb.data_ptr(),
-                                  *q.shape, nxc, nyc, nzc, int(ts), last,
-                                  int(emit_res), *_plan_args(p),
+                                  *q.shape, nxc, nyc, nzc, int(ts),
+                                  _pack(last), int(emit_res),
+                                  *_plan_args(p),
                                   cuda_build.stream_of(q)),
         "sweep_restrict3",
     )
@@ -335,9 +443,10 @@ def _interp_sweep(lib, ty, ci, qc, so, b, q_pre, kind, updown,
     dt = cuda_build.check_operands(ci, qc, so, b, q_pre)
     lib = lib or cuda_build.load("fused3")
     mode = _mode(fuse_residual, fuse_norm)
-    first, *rest = _passes(lib, kind, updown)
-    mode16 = _NONE if rest else mode
     ts = kind == StencilKind.twenty_seven_pt
+    (_, first), *rest = _passes(_stages_of(lib), kind, updown, "interp",
+                                mode)
+    mode16 = _NONE if rest else mode
     p = plan(q_pre.element_size(), ts, True, mode16, tuple(q_pre.shape),
              _n_sm(q_pre.device), ty)
     q_out = torch.empty_like(q_pre)
@@ -347,15 +456,16 @@ def _interp_sweep(lib, ty, ci, qc, so, b, q_pre, kind, updown,
                                 so.data_ptr(), b.data_ptr(),
                                 q_pre.data_ptr(), q_out.data_ptr(),
                                 _ptr(extra), _ptr(extra), *q_pre.shape,
-                                nxc, nyc, nzc, int(ts), first, mode16,
+                                nxc, nyc, nzc, int(ts), _pack(first),
+                                mode16,
                                 *_plan_args(p),
                                 cuda_build.stream_of(q_pre)),
         "interp_sweep3",
     )
     interp_sweep_launches += 1
-    for k, colors in enumerate(rest, 1):
-        q_out, extra = _sweep_pass(lib, dt, so, q_out, b, kind, colors,
-                                   (0, 0, 0), mode if k == len(rest) else _NONE)
+    if rest:
+        q_out, extra = _run(lib, dt, so, q_out, b, kind, rest, (0, 0, 0),
+                            mode)
     return _result(q_out, extra, mode)
 
 

@@ -1,40 +1,47 @@
-"""Time the fused 3D kernels K15 and K16 on the card, whole and by part.
+"""Time the fused 3D kernels K14, K15 and K16 on the card, whole and by
+part.
 
 K15 (sweep + residual + restriction, ``ops/cuda_fused3.sweep_restrict``,
 as the cycle calls it: no residual out) and K16 (interp-add + sweep,
-``interp_sweep``: 7-point without and with the norm, 27-point one colour)
-run at 256³ 7-point and 128³ 27-point float32, the shapes of
-``3d_poisson_7pt_256`` and ``3d_fe_27pt_128``.  Each is first held bit for
-bit against its plain version (the norm partials' sum to 1e-5), then
-timed with CUDA events.  The 7-point ones (the ring design) are timed for
-each tile-row option that csrc/fused3.cu builds (``--rows``;
-``cuda_fused3.RING_ROWS``) and each probe: builds of csrc/fused3.cu with
-``-DCEDAR_FUSED3_PROBE=bits`` that skip the coarse side's copies (K15) or
-L2 prefetch (K16) (1), the b and stencil copies (2), the colour phases (4)
-or the barriers (8), whose outputs are wrong and whose times split a call
-among its parts.
-It prints the card's name and power limit first.
+``interp_sweep``, without and with the norm) run at 256³ 7-point and 128³
+27-point float32, the shapes of ``3d_poisson_7pt_256`` and
+``3d_fe_27pt_128``; a 27-point K15 or K16 call is the whole pre- or
+post-sweep, its other colours by K14, and a whole 27-point K14 sweep
+(``sweep``) runs beside them.  Each is first held bit for bit against its
+plain version (the norm partials' sum to 1e-5), then timed with CUDA
+events.  The 7-point ones (the ring design) are timed for each tile-row
+option that csrc/fused3.cu builds (``--rows``; ``cuda_fused3.RING_ROWS``)
+and each probe: builds of csrc/fused3.cu with ``-DCEDAR_FUSED3_PROBE=bits``
+that skip the coarse side's copies (K15) or L2 prefetch (K16) (1), the b
+and stencil copies (2), the colour phases (4) or the barriers (8), whose
+outputs are wrong and whose times split a call among its parts.  The
+27-point ones are timed with each build of ``--stages M`` (the 27-point
+K14's colours a march, ``-DCEDAR_K14_STAGES=M``, bit-checked too) and each
+probe (8 the barriers, 16 the K14 stencil gathers, 32 its colour stages).
+``--only`` keeps the cases whose names hold one of its words.  It prints
+the card's name and power limit first.
 
 Run from the repository root on a machine with a CUDA device:
 
     python3 cedar_tpu_torch/tools/tune_fused3.py [--rows 12 10] \
-        [--probe 1 2 4 8]
+        [--probe 1 2 4 8] [--stages 1 4] [--only 27pt]
 
 With ``--tree DIR`` it times the kernels of another checkout of the
 repository (for example the parent commit, unpacked with ``git archive``,
 or ``.``), so that two designs compare in one call; with ``--probe`` it
 also times copies of that checkout whose csrc/fused3.cu is edited to skip
 the same parts of the window design (:data:`PROBES`: K14 and the
-27-point K15 and K16, and in an older source whose `fused3` ran every
-K15/K16, the 7-point ones too):
+27-point K15 and K16 of a source whose K14 ran them, and in an older
+source whose `fused3` ran every K15/K16, the 7-point ones too):
 
     python3 cedar_tpu_torch/tools/tune_fused3.py --tree DIR [--probe 1 2 4 8]
 
 ``--cycles`` times instead the fused V(1,1) cycles that run these kernels,
 ``3d_poisson_7pt_256`` and ``3d_fe_27pt_128`` (:data:`CELLS`), as the
 solve runs them (the median of 25 CUDA-event-timed cycles); with ``--tree``
-those of the other checkout, so that a call can run parent, change,
-change, parent.
+those of the other checkout, and with ``--tree DIR --pairs N`` N pairs of
+processes, this checkout and DIR, alternating which runs first, with the
+median of each side's medians.
 """
 
 from __future__ import annotations
@@ -76,7 +83,12 @@ def main(argv=None) -> None:
                     help="7-point tile rows (0: the plan's own)")
     ap.add_argument("--probe", type=int, nargs="+", default=[0],
                     help="probe bits: 1 coarse side, 2 b and stencil "
-                         "copies, 4 colour phases, 8 barriers skipped")
+                         "copies, 4 colour phases, 8 barriers skipped; "
+                         "27-point K14: 16 stencil gathers, 32 colour "
+                         "stages")
+    ap.add_argument("--stages", type=int, nargs="+", default=[],
+                    help="27-point K14 colours a march to build and time "
+                         "beside the default (-DCEDAR_K14_STAGES=M)")
     ap.add_argument("--tree", help="time this checkout's kernels instead")
     ap.add_argument("--build-only", action="store_true",
                     help="build the kernels and stop")
@@ -84,9 +96,15 @@ def main(argv=None) -> None:
                     help="skip the bit checks (a --tree probe copy)")
     ap.add_argument("--cycles", action="store_true",
                     help="time the cells' fused cycles instead")
+    ap.add_argument("--pairs", type=int, default=0,
+                    help="--cycles --tree: pairs of runs, alternating")
+    ap.add_argument("--only", nargs="+",
+                    help="time only the cases whose names hold one of these")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     args.probe = sorted({0, *args.probe})
+    if args.cycles and args.pairs:
+        return cycle_pairs(__file__, args.tree, args.pairs)
     if args.tree and len(args.probe) > 1:
         return run_trees(args)
     sys.path.insert(0, args.tree or str(Path(__file__).resolve().parents[2]))
@@ -99,61 +117,70 @@ def main(argv=None) -> None:
     cuda_build.load_all(["fused3"])
     if args.build_only:
         return
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip())
+    print_card()
     print(f"kernels of {cuda_fused3.__file__}", flush=True)
     if args.cycles:
         return cycles()
     tunable = hasattr(cuda_fused3, "_sweep_restrict")
-    cases = make_cases(tunable)
+    cases = {k: v for k, v in make_cases(tunable).items()
+             if not args.only or any(o in k for o in args.only)}
     if not tunable:
         run(cases, [0], {0: None}, args.reps, f"{args.tree} default build",
             not args.unchecked)
         return
     probes = {b: (f"CEDAR_FUSED3_PROBE={b}",) for b in args.probe if b}
-    cuda_build.build_variants("fused3", probes.values())
+    stages = {m: (f"CEDAR_K14_STAGES={m}",) for m in args.stages}
+    cuda_build.build_variants("fused3", [*probes.values(),
+                                         *stages.values()])
     for key, (secs, log) in cuda_build.build_log.items():
         print(f"ptxas {key} ({secs:.0f} s): " + "; ".join(
-            r for r in ring_report(log) if r.startswith("f ")))
+            r for r in ring_report(log) if r.startswith("f ")), flush=True)
     libs = {b: cuda_build.load_variant("fused3", probes[b]) if b
             else cuda_build.load("fused3") for b in args.probe}
+    libs27 = {"plan": libs[0]} | {
+        f"stages={m}": cuda_build.load_variant("fused3", d)
+        for m, d in stages.items()} | {
+        f"probe={b}": lib for b, lib in libs.items() if b}
     run(cases, args.rows, libs, args.reps, "this checkout",
-        not args.unchecked)
+        not args.unchecked, libs27)
 
 
-def run_trees(args) -> None:
-    """--tree with --probe: the checkout and its probe copies, built in
-    parallel, then timed one after another."""
-    trees = {b: probe_tree(args.tree, b) if b else args.tree
+def run_trees(args, script: str = __file__, source: str = "fused3",
+              probes=None) -> None:
+    """--tree with --probe: the checkout and its probe copies (of
+    csrc/<source>.cu, edited by ``probes``), built in parallel, then timed
+    one after another by ``script``."""
+    trees = {b: probe_tree(args.tree, b, source, probes) if b else args.tree
              for b in args.probe}
-    me = os.path.abspath(__file__)
+    me = os.path.abspath(script)
     jobs = [subprocess.Popen([sys.executable, me, "--tree", t,
                               "--build-only"]) for t in trees.values()]
     if any([j.wait() for j in jobs]):
-        sys.exit("tune_fused3: a build failed")
+        sys.exit(f"{Path(me).stem}: a build failed")
+    only = ["--only", *args.only] if args.only else []
     for b, t in trees.items():
         print(f"[probe={b}]", flush=True)
         subprocess.run([sys.executable, me, "--tree", t, "--reps",
-                        str(args.reps)] + (["--unchecked"] if b else []),
-                       check=True)
+                        str(args.reps), *only]
+                       + (["--unchecked"] if b else []), check=True)
 
 
-def probe_tree(tree: str, bits: int) -> str:
+def probe_tree(tree: str, bits: int, source: str = "fused3",
+               probes=None) -> str:
     """A copy of ``tree``'s package under ``tree``/_archive/probe<bits>
-    whose csrc/fused3.cu skips the parts of ``bits`` (:data:`PROBES`)."""
-    dst = os.path.join(tree, "_archive", f"probe{bits}")
+    whose csrc/<source>.cu skips the parts of ``bits`` (``probes``, default
+    :data:`PROBES`)."""
+    dst = os.path.join(tree, "_archive", f"{source}-probe{bits}")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(tree, "cedar_tpu_torch"),
                     os.path.join(dst, "cedar_tpu_torch"),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    path = os.path.join(dst, "cedar_tpu_torch", "csrc", "fused3.cu")
+    path = os.path.join(dst, "cedar_tpu_torch", "csrc", f"{source}.cu")
     with open(path) as f:
         src = f.read()
     assert src.count("namespace {\n\n") == 1
     src = src.replace("namespace {\n\n", _HELPER)
-    for bit, edits in PROBES.items():
+    for bit, edits in (PROBES if probes is None else probes).items():
         for old, new, n in edits if bits & bit else ():
             if src.count(old) != n:
                 raise ValueError(f"probe {bit}: {old!r} occurs "
@@ -174,8 +201,6 @@ def cycles(ncycles: int = 25) -> None:
     """The median, min and max CUDA-event time of ``ncycles`` fused
     V(1,1) cycles of each cell, after three warm-up cycles, each cycle as
     the solve runs it (with the convergence residual, no readback)."""
-    import statistics
-
     import torch
 
     import cedar_tpu_torch as ct
@@ -189,37 +214,88 @@ def cycles(ncycles: int = 25) -> None:
                                                  dev),
                        getattr(ct, kind), conf)
         b = ct.gallery.poisson3_rhs(n, n, n, torch.float32, dev)
-        x = torch.zeros_like(b)
-        for _ in range(3):
-            x = cycle3.cycle_residual(s.levels, s.kinds, x, b,
-                                      s.settings)[0]
-        ev = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(ncycles)]
-        torch.cuda.synchronize()
-        for e0, e1 in ev:
-            e0.record()
-            x = cycle3.cycle_residual(s.levels, s.kinds, x, b,
-                                      s.settings)[0]
-            e1.record()
-        torch.cuda.synchronize()
-        ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
-        print(f"{name} fused V(1,1) cycle ms: median "
-              f"{statistics.median(ms):.4f}, min {ms[0]:.4f}, "
-              f"max {ms[-1]:.4f}", flush=True)
+        time_cycles(name, lambda x: cycle3.cycle_residual(
+            s.levels, s.kinds, x, b, s.settings)[0], torch.zeros_like(b),
+            ncycles)
+        del s, b
+
+
+def time_cycles(name: str, one, x, ncycles: int) -> None:
+    """Prints the median, min and max CUDA-event ms of ``ncycles`` calls of
+    ``one`` (x -> x), after three warm-up calls."""
+    import statistics
+
+    import torch
+
+    for _ in range(3):
+        x = one(x)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(ncycles)]
+    torch.cuda.synchronize()
+    for e0, e1 in ev:
+        e0.record()
+        x = one(x)
+        e1.record()
+    torch.cuda.synchronize()
+    ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
+    print(f"{name} fused V(1,1) cycle ms: median "
+          f"{statistics.median(ms):.4f}, min {ms[0]:.4f}, "
+          f"max {ms[-1]:.4f}", flush=True)
+
+
+def cycle_pairs(script: str, tree: str, pairs: int) -> None:
+    """``pairs`` pairs of ``script --cycles`` processes, this checkout's
+    and ``tree``'s, alternating which runs first (hosts differ between
+    runs); then, per cell, the median of each side's medians and how often
+    this checkout was faster."""
+    import re
+    import statistics
+
+    me = os.path.abspath(script)
+    runs = {"this": [], "tree": []}
+    for k in range(pairs):
+        order = ("this", "tree") if k % 2 == 0 else ("tree", "this")
+        for side in order:
+            cmd = [sys.executable, me, "--cycles"] + (
+                ["--tree", tree] if side == "tree" else [])
+            out = subprocess.run(cmd, capture_output=True, text=True,
+                                 check=True).stdout
+            print(f"[pair {k} {side}]\n{out}", end="", flush=True)
+            runs[side].append(dict(re.findall(
+                r"(\S+) fused V\(1,1\) cycle ms: median ([\d.]+)", out)))
+    for cell in runs["this"][0]:
+        mine = [float(r[cell]) for r in runs["this"]]
+        theirs = [float(r[cell]) for r in runs["tree"]]
+        wins = sum(a < b for a, b in zip(mine, theirs))
+        print(f"{cell}: median of medians {statistics.median(mine):.4f} "
+              f"(this) against {statistics.median(theirs):.4f} ({tree}); "
+              f"this faster in {wins} of {pairs} pairs", flush=True)
+
+
+def print_card() -> None:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(),
+        flush=True)
 
 
 def ring_report(log: str):
-    """'f 7pt K16 m0 ty12: 96 regs, 0 spill' for each ring3 variant (7-point
-    K15 and K16) in nvcc's ptxas report ``log``."""
+    """'f ring3<0,1,12>: 96 regs, 0 spill' for each kernel of the ring
+    designs (ring3: 7-point K15/K16, interp, epilogue, tile rows; pass27:
+    the 27-point K14; ring2: K13, nine, epilogue) in nvcc's
+    ptxas report ``log``."""
     import re
 
-    name = None
+    name = spill = None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*ring3I([fd])Lb(\d)"
-                      r"ELi(\d)ELi(\d+)E", line)
+        m = re.search(r"Compiling entry function '.*?(ring3|pass27|ring2)"
+                      r"I([fd])((?:L[bi]\d+E)*)", line)
         if m:
-            t, interp, epi, ty = m.groups()
-            name = f"{t} 7pt {'K16' if interp == '1' else 'K15'} m{epi} ty{ty}"
+            kern, t, rest = m.groups()
+            args = ",".join(re.findall(r"L[bi](\d+)E", rest))
+            name = f"{t} {kern}<{args}>"
         m = re.search(r"(\d+) bytes spill stores", line)
         if name and m:
             spill = m.group(1)
@@ -246,6 +322,11 @@ def make_cases(tunable: bool) -> dict:
         return (cf._interp_sweep(lib, ty, *a) if tunable
                 else cf.interp_sweep(*a))
 
+    def k14(lib, ty, *a):
+        # a whole sweep: K14 launches only
+        return (cf._sweep(lib, *a) if hasattr(cf, "_sweep")
+                else cf.sweep(*a))
+
     cases = {}
     for n, ts in ((256, False), (128, True)):
         so, q, b, kind = problem((n,) * 3, ts, 30 + ts)
@@ -254,11 +335,16 @@ def make_cases(tunable: bool) -> dict:
         qc = torch.randn(tuple(m - 1 for m in ci.shape[1:]), generator=g,
                          device="cuda", dtype=torch.float32)
         pts = "27pt" if ts else "7pt"
+        if ts:
+            a14 = (so, q, b, kind, "down")
+            cases[f"K14 {pts} {n}^3"] = (
+                lambda lib, ty, a=a14: k14(lib, ty, *a),
+                lambda a=a14: cf.sweep_plain(*a))
         a15 = (so, q, b, ci, kind, "down", False)
         cases[f"K15 {pts} {n}^3"] = (
             lambda lib, ty, a=a15: k15(lib, ty, *a),
             lambda a=a15: cf.sweep_restrict_plain(*a))
-        for norm in ((False,) if ts else (False, True)):
+        for norm in (False, True):
             a16 = (ci, qc, so, b, q, kind, "up", False, norm)
             cases[f"K16 {pts} {n}^3" + (" +norm" if norm else "")] = (
                 lambda lib, ty, a=a16: k16(lib, ty, *a),
@@ -267,10 +353,11 @@ def make_cases(tunable: bool) -> dict:
 
 
 def run(cases: dict, rows_opts, libs: dict, reps: int, what: str,
-        checked: bool = True) -> None:
+        checked: bool = True, libs27=None) -> None:
     """Each case bit-checked with the probe-0 library (unless not
     ``checked``), then timed; the 7-point ones over the tile rows and the
-    probes' libraries."""
+    probes' libraries, the 27-point ones over the colours a K14 march of
+    ``libs27`` (label -> library; each bit-checked too)."""
     from cedar_tpu_torch.ops import cuda_fused3
 
     print(f"[{what}]", flush=True)
@@ -278,6 +365,13 @@ def run(cases: dict, rows_opts, libs: dict, reps: int, what: str,
         if checked:
             check(name, kernel(libs[0], None), plain())
         ring = name.split()[1] == "7pt"
+        if not ring and libs27:
+            for label, lib in libs27.items():
+                if checked and label.startswith("stages="):
+                    check(f"{name} {label}", kernel(lib, None), plain())
+                ms = time_ms(lambda: kernel(lib, None), reps)
+                print(f"{name} {label}: {ms:.4f} ms", flush=True)
+            continue
         for rows in rows_opts if ring else [0]:
             if rows and rows not in cuda_fused3.RING_ROWS[4]:
                 continue

@@ -33,14 +33,18 @@ Phases (each raises on failure; nothing is caught):
    sweep-residual-restrict (K12) and interp-add-sweep (K13), at the 2D
    shapes and (5, 4) float64, 5- and 9-point, DOWN and UP, every output
    mode, K11 with and without an origin: q, the residual and cb bit-equal,
-   the norm's partial sums to rtol NORM_RTOL; then the fused 3D kernels,
+   the norm's partial sums to rtol NORM_RTOL, and K13 also at the edges of
+   its strips and chunks (EDGE2), after a check that the wrapper's launch
+   plan sizes its shared memory as the kernel lays it out; then the fused
+   3D kernels,
    sweep (K14), sweep-residual-restrict (K15) and interp-add-sweep (K16),
    at the 3D shapes and (5, 4, 3) float64, both kinds, DOWN and UP, every
    output mode, K14 with and without an origin, K15 with and without the
-   residual, held to their plain versions the same way, and K15 and K16
-   also at float32 shapes at the edges of their tiling (EDGE3), after a
-   check that the wrapper's launch plan sizes their shared memory as the
-   kernels lay it out;
+   residual, held to their plain versions the same way, and K15, K16 and
+   the 27-point K14 (every split of a sweep into K14 launches) also at
+   float32 shapes at the edges of their tiling (EDGE3), after a check that
+   the wrapper's launch plans size their shared memory as the kernels lay
+   it out;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -76,10 +80,11 @@ Phases (each raises on failure; nothing is caught):
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K10 and the batched K2/K3 at (64, 128, 128);
    K12 and K13 against the dense sequences they replace (K1 with the
-   residual, then K2; K3, then K1); K14-K16 at 256³ 7-point and 128³
-   27-point, and K15 and K16 against the dense sequences they replace (K6
-   with the residual, then K7; K8, then K6, and with the residual and its
-   norm for K16 with the norm).
+   residual, then K2; K3, then K1; K13 also 9-point at 2048²); K14-K16 at
+   256³ 7-point and 128³ 27-point (a whole 27-point K14 sweep, the fused
+   27-point pre- and post-sweeps), and K15 and K16 against the dense
+   sequences they replace (K6 with the residual, then K7; K8, then K6, and
+   with the residual and its norm for K16 with the norm).
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
@@ -129,12 +134,18 @@ SHAPES3 = [((256, 256, 256), torch.float32, (False,)),
            ((128, 128, 128), torch.float32, (True,)),
            ((33, 21, 17), torch.float64, (False, True)),
            ((65, 65, 65), torch.float64, (False, True))]
-# K15 and K16's further shapes (float32), at the edges of their tiling:
-# nx not a multiple of the x chunk, nz not a multiple of 4, ny smaller than
+# K14-K16's further shapes (float32), at the edges of their tiling: nx
+# not a multiple of the x chunk, nz not a multiple of 4, ny smaller than
 # one tile, more tiles than resident blocks (7-point, 27-point)
 EDGE3 = [((97, 45, 131), (False,)), ((67, 33, 45), (True,)),
          ((40, 30, 37), (False, True)), ((50, 5, 70), (False, True)),
-         ((33, 200, 300), (False,)), ((7, 700, 250), (True,))]
+         ((33, 200, 300), (False,)), ((7, 700, 250), (True,)),
+         ((5, 600, 700), (True,))]
+# K13's further shapes: widths not a multiple of its strip, rows not a
+# multiple of its chunk, fewer rows than its halo, a few points
+EDGE2 = [((300, 997), torch.float32), ((3, 1000), torch.float32),
+         ((1031, 250), torch.float64), ((2, 3), torch.float64),
+         ((777, 513), torch.float32), ((4, 260), torch.float64)]
 # K4's further shapes: lines of 63 (LDLᵀ), 64 and 65 points (PCR), lengths
 # that are not a multiple of the PCR stride (1000, 777), and lines too long
 # for shared memory (9000 f32, 5000 f64: a device-memory scratch)
@@ -603,14 +614,36 @@ def compare_fused(what: str, got, want, mode: str) -> float:
     return err
 
 
+def check_fused2_plans() -> None:
+    """The wrapper's plan (ops/cuda_fused2.py) sizes K13's shared memory as
+    the kernel lays it out, for every variant that is built, and takes the
+    kernel's threads a block and steps ahead."""
+    lib = cuda_build.load("fused2")
+    build = (lib.cedar_fused2_threads(), lib.cedar_fused2_ahead())
+    if build != (cuda_fused2.THREADS, cuda_fused2.AHEAD):
+        raise AssertionError(f"K13 built with (threads, ahead) {build}")
+    for itemsize, nine, mode in itertools.product((4, 8), (False, True),
+                                                  (0, 1, 2)):
+        want = cuda_fused2.interp_words(nine, mode) * itemsize
+        got = lib.cedar_fused2_interp_smem(0 if itemsize == 4 else 1,
+                                           int(nine), mode)
+        if got != want:
+            raise AssertionError(f"K13 smem {itemsize} nine={nine} "
+                                 f"mode={mode}: kernel {got}, plan {want}")
+    print("  K13 plans size shared memory as the kernel does", flush=True)
+
+
 def phase_kernels_fused(errs: dict) -> dict:
     """K11-K13 against their plain versions at the 2D shapes and (5, 4)
     float64: every output mode, DOWN and UP, K11 with and without an
-    origin, K12 with and without the residual."""
+    origin, K12 with and without the residual; K13 also at its strips' and
+    chunks' edge shapes (EDGE2)."""
     print("[3] fused kernels against plain versions", flush=True)
     errs.update(dict.fromkeys(FUSED, 0.0))
+    check_fused2_plans()
     shapes = SHAPES + [((5, 4), torch.float64)]
-    for i, (shape, dtype) in enumerate(shapes):
+    for i, (shape, dtype) in enumerate(shapes + EDGE2):
+        edge = i >= len(shapes)
         tag = f"{shape} {str(dtype).replace('torch.', '')}"
         for nine in (False, True):
             so, q, b, kind = random_problem(shape, nine, dtype, 800 + i)
@@ -622,7 +655,7 @@ def phase_kernels_fused(errs: dict) -> dict:
             for updown in ("down", "up"):
                 for mode in ("none", "res", "norm"):
                     fr, fn = mode == "res", mode == "norm"
-                    for origin in ((0, 0), (1, 2)):
+                    for origin in () if edge else ((0, 0), (1, 2)):
                         e = compare_fused(
                             f"K11 sweep2_fused {pts} {updown} {mode} "
                             f"origin={origin} {tag}",
@@ -639,7 +672,7 @@ def phase_kernels_fused(errs: dict) -> dict:
                                                        kind, updown, fr, fn),
                         mode)
                     errs["interp_sweep2"] = max(errs["interp_sweep2"], e)
-                for emit in (False, True):
+                for emit in () if edge else (False, True):
                     what = (f"K12 sweep_restrict2 {pts} {updown} "
                             f"res={int(emit)} {tag}")
                     got = cuda_fused2.sweep_restrict(so, q, b, ci, kind,
@@ -682,14 +715,30 @@ def check_fused3_plans() -> None:
                     raise AssertionError(
                         f"K15/K16 smem {itemsize} ts={ts} interp={interp} "
                         f"mode={mode} ty={ty}: kernel {got}, plan {want}")
-    print("  K15/K16 plans size shared memory as the kernels do", flush=True)
+    # the 27-point K14: every tile-row count the plan may take
+    n = lib.cedar_fused3_pass27_stages()
+    if n != cuda_fused3.PASS27_STAGES:
+        raise AssertionError(f"27-point K14 built with {n} colours a march")
+    for itemsize in (4, 8):
+        for ty in range(2, 2 * 16 + 1, 2):
+            want = cuda_fused3.pass27_words(itemsize, ty) * itemsize
+            got = lib.cedar_fused3_pass27_smem(0 if itemsize == 4 else 1, ty)
+            if ty + 2 * n > 2 * cuda_fused3.pass27_warps(n):
+                want = -1
+            if got != want:
+                raise AssertionError(f"K14 27-pt smem {itemsize} ty={ty}: "
+                                     f"kernel {got}, plan {want}")
+    print("  K14-K16 plans size shared memory as the kernels do", flush=True)
 
 
 def phase_kernels_fused3(errs: dict) -> dict:
     """K14-K16 against their plain versions at the 3D shapes and (5, 4, 3)
     float64, both kinds: every output mode, DOWN and UP, K14 with and
-    without an origin, K15 with and without the residual; K15 and K16 also
-    at the tiling's edge shapes (EDGE3)."""
+    without an origin, K15 with and without the residual; K15, K16 and the
+    27-point K14 also at the tiling's edge shapes (EDGE3): a whole K14
+    sweep, K15's pre-sweep and K16's post-sweep, with and without an
+    epilogue, split the colours into K14 launches each way the wrapper
+    does."""
     print("[3] fused 3D kernels against plain versions", flush=True)
     errs.update(dict.fromkeys(FUSED3, 0.0))
     check_fused3_plans()
@@ -708,7 +757,10 @@ def phase_kernels_fused3(errs: dict) -> dict:
             for updown in ("down", "up"):
                 for mode in ("none", "res", "norm"):
                     fr, fn = mode == "res", mode == "norm"
-                    for origin in () if edge else ((0, 0, 0), (1, 2, 3)):
+                    origins = ((0, 0, 0), (1, 2, 3))
+                    if edge:
+                        origins = ((1, 0, 1),) if ts else ()
+                    for origin in origins:
                         e = compare_fused(
                             f"K14 sweep3_fused {pts} {updown} {mode} "
                             f"origin={origin} {tag}",
@@ -1303,26 +1355,37 @@ def run_path3(name: str, n: int, make, kind, solver: dict, need,
 
 def counts3() -> dict:
     """Kernel launches of one solve-loop cycle of the 3D paths.  A fused
-    level runs K15 and K16 once each; a 27-point sweep is P launches of 8/P
-    colours each (P = 8 / cedar_fused3_colors, one colour a launch), so a
-    27-point fused level also runs K14 P - 1 times beside K15 and beside
-    K16, and P times for each further sweep.  A dense level runs K6 once a
-    colour phase and once for the residual that feeds K7, then K8; the
-    dense top level's last post-sweep launches one more K6 for the
-    convergence residual."""
-    p = 8 // cuda_build.load("fused3").cedar_fused3_colors(1)
+    level runs K15 and K16 once each.  A 27-point K15 or K16 runs one of
+    the 8 colours, K14 the others (``cuda_fused3._passes``: a march a
+    launch, and a one-colour launch for the last colour of a sweep with the
+    norm), so a 27-point fused level also runs K14 ``pre`` times beside
+    K15, ``post`` times beside K16 (``post_norm`` on the top level of the
+    cycle, whose last post-sweep computes the norm) and ``whole`` times for
+    each further sweep.  A dense level runs K6 once a colour phase and once
+    for the residual that feeds K7, then K8; the dense top level's last
+    post-sweep launches one more K6 for the convergence residual."""
+    m = cuda_fused3._stages_of(cuda_build.load("fused3"))
+    ts = TwentySevenPt
+
+    def k14(updown, role, mode=0):
+        return sum(k in ("K14", "pass27") for k, _ in
+                   cuda_fused3._passes(m, ts, updown, role, mode))
+
+    pre, post = k14("down", "restrict"), k14("up", "interp")
+    post_norm, whole = k14("up", "interp", 2), k14("down", "sweep")
     return {
         # 256^3 7-point, 7 levels: fused 0-3 (level 0 7-point, 1-3
         # 27-point), dense 4-5
         "3d_poisson_7pt_256": {
             "sweep_restrict3": 4, "interp_sweep3": 4,
-            "sweep3_fused": 3 * 2 * (p - 1),
+            "sweep3_fused": 3 * (pre + post),
             "sweep3": 34, "restrict3": 2, "interp_add3": 2},
         # the same, V(2,2): per fused level one more pre- and post-sweep
-        # (level 0 2 K14, levels 1-3 2P); dense levels 2 x 8 + 1 + 2 x 8
+        # (level 0 2 K14, levels 1-3 2 whole); dense levels 2 x 8 + 1 +
+        # 2 x 8
         "3d_poisson_7pt_256 V(2,2)": {
             "sweep_restrict3": 4, "interp_sweep3": 4,
-            "sweep3_fused": 2 + 3 * (2 * (p - 1) + 2 * p),
+            "sweep3_fused": 2 + 3 * (pre + post + 2 * whole),
             "sweep3": 66, "restrict3": 2, "interp_add3": 2},
         "3d_poisson_7pt_256 dense": {
             "sweep_restrict3": 0, "interp_sweep3": 0, "sweep3_fused": 0,
@@ -1330,7 +1393,7 @@ def counts3() -> dict:
         # 128^3 27-point, 6 levels: fused 0-3, dense 4
         "3d_fe_27pt_128": {
             "sweep_restrict3": 4, "interp_sweep3": 4,
-            "sweep3_fused": 4 * 2 * (p - 1),
+            "sweep3_fused": 3 * (pre + post) + pre + post_norm,
             "sweep3": 17, "restrict3": 1, "interp_add3": 1},
         "3d_fe_27pt_128 dense": {
             "sweep_restrict3": 0, "interp_sweep3": 0, "sweep3_fused": 0,
@@ -1347,6 +1410,11 @@ def phase_paths3() -> dict:
     256³ V(2,2) (K14 at full width) and the fused F-cycle."""
     dense = {"fine-split": False}
     want = counts3()
+    # the 27-point K14 runs several colours a launch: fewer K14 launches a
+    # V(1,1) cycle than the 42 and 56 of one colour a launch
+    if (want["3d_poisson_7pt_256"]["sweep3_fused"] >= 42
+            or want["3d_fe_27pt_128"]["sweep3_fused"] >= 56):
+        raise AssertionError(f"27-point K14 launches a cycle: {want}")
     v7 = run_path3("3d_poisson_7pt_256", N_3D, gallery.poisson3, SevenPt,
                    {}, DENSE3 + FUSED3, want=want["3d_poisson_7pt_256"])
     torch.cuda.empty_cache()
@@ -1459,6 +1527,12 @@ def phase_times() -> dict:
     n, n9 = N_MAIN, N_MAIN // 2 + 1
     so, q, b, kind = random_problem((n, n), False, torch.float32, 7)
     so9, q9, b9, kind9 = random_problem((n9, n9), True, torch.float32, 8)
+    # K13 on the main path's first 9-point level (2048²)
+    m9 = N_MAIN // 2
+    sk, qk, bk, kk = random_problem((m9, m9), True, torch.float32, 11)
+    cik = interp2.setup_interp(sk, kk)
+    ck = torch.randn((cik.shape[1] - 1, cik.shape[2] - 1), device=DEV,
+                     dtype=torch.float32)
     ci = interp2.setup_interp(so, kind)
     g = torch.Generator(device=DEV).manual_seed(9)
     qc = torch.randn((ci.shape[1] - 1, ci.shape[2] - 1), generator=g,
@@ -1504,6 +1578,10 @@ def phase_times() -> dict:
                                                    "up", fuse_norm=True),
             lambda: cuda_fused2.interp_sweep(ci, qc, so, b, q, kind, "up",
                                              fuse_norm=True)),
+        "interp_sweep2 9pt 2048^2": (
+            lambda: cuda_fused2.interp_sweep_plain(cik, ck, sk, bk, qk, kk,
+                                                   "up"),
+            lambda: cuda_fused2.interp_sweep(cik, ck, sk, bk, qk, kk, "up")),
     }
     sl, ql, bl, kl = random_problem((N_LINES, N_LINES), True, torch.float32,
                                     10)
@@ -1532,11 +1610,16 @@ def phase_times() -> dict:
             lambda: cuda2.sweep(so, cuda_transfer2.interp_add(
                 ci, so, qc, b, q), b, kind, "up"),
             lambda: cuda_fused2.interp_sweep(ci, qc, so, b, q, kind, "up")),
+        "K3, K1 -> K13 9pt 2048^2": (
+            lambda: cuda2.sweep(sk, cuda_transfer2.interp_add(
+                cik, sk, ck, bk, qk), bk, kk, "up"),
+            lambda: cuda_fused2.interp_sweep(cik, ck, sk, bk, qk, kk, "up")),
     }, labels=("dense", "fused"))
     # the bytes each function must move (inputs read once, outputs written
     # once; interp-add reads only the diagonal plane of so) and its
     # floating-point operations, at the timed shapes, float32
     nc, m, e = ci.shape[1] - 1, N_LINES, 4
+    mc = cik.shape[1] - 1
     work = {
         "sweep2": ((3 + 3) * n * n * e, 10 * n * n),
         "restrict2": ((8 * (nc + 1) ** 2 + n * n + nc * nc) * e,
@@ -1557,7 +1640,15 @@ def phase_times() -> dict:
                             20 * n * n + 16 * nc * nc),
         "interp_sweep2": ((8 * (nc + 1) ** 2 + nc * nc + 6 * n * n) * e,
                           20 * n * n + 23 * n * n // 4),
+        # 9-point: five stencil planes; a residual 18 operations a point
+        "interp_sweep2 9pt 2048^2": (
+            (8 * (mc + 1) ** 2 + mc * mc + 8 * m9 * m9) * e,
+            36 * m9 * m9 + 23 * m9 * m9 // 4),
     }
+    for k in ("interp_sweep2", "interp_sweep2 9pt 2048^2"):
+        bms, by = bound(*work[k], torch.float32)
+        print(f"  {k}: bound {bms:.4f} ms by {by}; kernel {out[k][0]:.4f} "
+              "ms", flush=True)
     return {k: v + work[k] for k, v in out.items() if k in work}
 
 
@@ -1619,7 +1710,7 @@ def phase_times3() -> dict:
             lambda: cuda_transfer3.interp(ci, qc, (n,) * 3)),
         # the fused kernels as the cycle runs them: K14 for extra sweeps
         # (+ the norm for the last), K15 without the residual, K16 (+ the
-        # norm on the top level); 27-point: a launch a colour
+        # norm on the top level); 27-point: K14 a march of colours a launch
         "sweep3_fused": (
             lambda: cuda_fused3.sweep_plain(so, q, b, kind, "down"),
             lambda: cuda_fused3.sweep(so, q, b, kind, "down")),

@@ -341,26 +341,45 @@ def test_fused3_checks(bad):
             cuda_fused3.sweep_plain(tso, tq, tb, kind, "down")
 
 
-class _Colors:
-    """Stands in for the kernel library's ``cedar_fused3_colors``."""
-
-    def __init__(self, n27):
-        self.n27 = n27
-
-    def cedar_fused3_colors(self, ts):
-        return self.n27 if ts else 2
-
-
-@pytest.mark.parametrize("n27", [1, 2, 4])
+@pytest.mark.parametrize("stages", [1, 2, 4, 8])
 @pytest.mark.parametrize("ts", [False, True])
 @pytest.mark.parametrize("updown", ["down", "up"])
-def test_colour_passes_follow_color_order(ts, updown, n27):
-    """The kernels' packed colour passes are relax3.color_order's, two
-    colours a launch for 7-point and the library's count for 27-point
-    (27-point DOWN sweeps colours 8..1)."""
+@pytest.mark.parametrize("mode", [cuda_fused3._NONE, cuda_fused3._NORM],
+                         ids=["none", "norm"])
+def test_colour_passes_follow_color_order(ts, updown, stages, mode):
+    """The kernels' colour passes are relax3.color_order's, in order: two
+    colours a launch for 7-point; 27-point (DOWN sweeps colours 8..1) a
+    K14 sweep, a pre-sweep's K14 marches then K15 on the last colour, a
+    post-sweep's K16 on the first colour then K14 marches, each march one
+    block of ``stages`` positions of the colour order; with an epilogue, a
+    sweep's or post-sweep's last colour goes to a one-colour K14 of the
+    window design; a march packs into 4-bit codes with the no-colour code
+    past its last."""
     kind = StencilKind.twenty_seven_pt if ts else StencilKind.seven_pt
-    passes = cuda_fused3._passes(_Colors(n27), kind, updown)
-    n = n27 if ts else 2
-    assert len(passes) == (8 // n27 if ts else 1)
-    codes = [(p >> (4 * k)) & 15 for p in passes for k in range(n)]
-    assert codes == relax3.color_order(kind, updown)
+    order = relax3.color_order(kind, updown)
+    epi = mode != cuda_fused3._NONE
+    for role, own, ends in (("sweep", "K14", ("pass27", "K14")),
+                            ("restrict", "K15", ("pass27", "K15")),
+                            ("interp", "K16", ("K16", "K14"))):
+        passes = cuda_fused3._passes(stages, kind, updown, role, mode)
+        assert [c for _, g in passes for c in g] == order
+        if not ts:
+            assert passes == ((own, tuple(order)),)
+            continue
+        first, last = ends
+        if role != "restrict" and not epi:
+            last = "pass27"
+        assert (passes[0][0], passes[-1][0]) == (first, last)
+        lo = int(role == "interp")
+        hi = 8 - (role == "restrict" or epi)
+        marches = [g for k, g in passes if k == "pass27"]
+        assert len(marches) == -(-hi // stages) - lo // stages
+        for g in marches:
+            assert 1 <= len(g) <= stages
+            assert len({order.index(c) // stages for c in g}) == 1
+            packed = cuda_fused3._pack(g, stages)
+            codes = [(packed >> (4 * k)) & 15 for k in range(stages)]
+            assert codes == list(g) + [cuda_fused3.NO_COLOR] * (
+                stages - len(g))
+        assert len(passes) - len(marches) == (role != "sweep") + (
+            role != "restrict" and epi)

@@ -182,3 +182,90 @@ def test_layouts_by_hand():
     assert cf.window_words(False, cf._RESTRICT) == 4 * pl + 3 * 17 * 59
     p = cf.plan(4, True, False, cf._RESTRICT, (128,) * 3)
     assert (p.cx, p.gz, p.gy, p.gc, p.per_sm) == (6, 3, 8, 22, 4)
+
+
+# the 27-point K14 (`pass27`): every dtype, with the built colours a march
+# and builds of other stages (tools/tune_fused3.py)
+K14_CASES = list(itertools.product((4, 8), (cf.PASS27_STAGES, 1, 4)))
+
+
+def _k14_ids(c):
+    return f"{'f32' if c[0] == 4 else 'f64'}-K14-s{c[1]}"
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 128), (64, 512, 512)])
+@pytest.mark.parametrize("case", K14_CASES, ids=_k14_ids)
+def test_k14_shared_memory_fits(case, shape):
+    """A 27-point K14 block fits an SM as many times as planned, with a
+    warp for each pair of region rows (at most pass27_warps()), its tile
+    the most even rows that fit; a march's halo is its colour stages; it
+    stages the stencil (each thread's values and b a colour stage) in
+    float32 only."""
+    itemsize, stages = case
+    p = cf.pass27_plan(itemsize, shape, N_SM, stages)
+    h = stages
+    assert p.ring and p.h == h and p.tz == cf.RW - 2 * h
+    assert p.smem == cf.pass27_words(itemsize, p.ty, stages) * itemsize
+    assert p.smem + 1024 <= BLOCK_MAX
+    assert p.per_sm >= 1 and p.per_sm * (p.smem + 1024) <= SM_MAX
+    assert p.warps * 32 * p.per_sm <= 2048
+    mw = cf.pass27_warps(stages)
+    assert mw == (12 if stages == 4 else 16)
+    assert 2 * p.warps == p.ty + 2 * h <= 2 * mw
+    bigger = p.ty + 2
+    assert (bigger + 2 * h > 2 * mw or
+            cf.pass27_words(itemsize, bigger, stages) * itemsize
+            > cf.BLOCK_SMEM)
+    ring = (h + 4) * (p.ty + 2 * h) * cf.RW  # the q ring's words
+    assert (cf.pass27_words(itemsize, p.ty, stages) > ring) == (
+        itemsize == 4)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("case", K14_CASES, ids=_k14_ids)
+def test_k14_owned_points_cover_the_grid_once(case, shape):
+    """The 27-point K14 blocks' own boxes tile the grid, in whole waves of
+    the resident blocks no longer than one chunk a tile would take."""
+    itemsize, stages = case
+    nx, ny, nz = shape
+    p = cf.pass27_plan(itemsize, shape, N_SM, stages)
+    assert p.ty % 2 == 0 and p.cx % 2 == 0
+    assert (p.gz - 1) * p.tz < nz <= p.gz * p.tz
+    assert (p.gy - 1) * p.ty < ny <= p.gy * p.ty
+    assert (p.gc - 1) * p.cx < nx <= p.gc * p.cx
+    own = [min(p.cx, nx - c * p.cx) * min(p.ty, ny - y * p.ty)
+           * min(p.tz, nz - z * p.tz)
+           for c in range(p.gc) for y in range(p.gy) for z in range(p.gz)]
+    assert min(own) > 0 and sum(own) == nx * ny * nz
+    assert p.blocks == len(own)
+    slots = N_SM * p.per_sm
+    waves = -(-p.blocks // slots)
+    one_chunk = -(-(p.gz * p.gy) // slots)
+    assert waves * (p.cx + 2 * p.h) <= one_chunk * (nx + 2 * p.h)
+
+
+def test_k14_plan_takes_a_tile_override():
+    """The 27-point K14 plan of a build with other stages a march (as
+    tools/tune_fused3.py builds them) takes that build's halo, warps and
+    staging: 4 stages, halo 4 and 12 warps; 8 stages, the stencil from
+    device memory; and it refuses a build none of whose tiles fits."""
+    p = cf.pass27_plan(4, (128,) * 3, stages=4)
+    assert p.h == 4 and p.ty == 16 and p.warps == 12
+    p = cf.pass27_plan(4, (128,) * 3, stages=8)
+    assert p.h == 8 and p.smem == 12 * (p.ty + 16) * cf.RW * 4
+    with pytest.raises(ValueError):
+        cf.pass27_plan(4, (128,) * 3, stages=16)
+
+
+def test_k14_layout_by_hand():
+    """The 27-point K14 words against a layout worked out by hand: f32, 28
+    tile rows, marches of 2 colours: H = 2, 32 region rows, 16 warps; a
+    ring of 6 q planes of 32 x 64 and 2 x 28 values for each of 512
+    threads (160 KB, one block an SM), and its 128³ grid of 120 blocks in
+    one wave."""
+    assert cf.PASS27_STAGES == 2
+    assert cf.pass27_words(4, 28) == 6 * 32 * 64 + 2 * 28 * 512
+    p = cf.pass27_plan(4, (128,) * 3)
+    assert (p.ty, p.warps, p.per_sm, p.gz, p.gy, p.gc) == (
+        28, 16, 1, 3, 5, 8)
+    assert p.blocks == 120 <= N_SM
