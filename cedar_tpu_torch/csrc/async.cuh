@@ -1,6 +1,6 @@
 // Asynchronous copies from device memory into shared memory (Ampere's
-// cp.async, LDGSTS, on Hopper too) for the ring kernels K15/K16
-// (fused3.cu): each thread issues element copies that complete in the
+// cp.async, LDGSTS, on Hopper too) for the ring kernels (K12-K16) and K1's
+// resident load: each thread issues element copies that complete in the
 // background, groups them with commit_async, and waits for all but its N
 // newest groups with wait_async<N>; a barrier then publishes them to the
 // block.  A copy of `in` false writes zero (source size 0) and reads
@@ -17,6 +17,14 @@ __device__ __forceinline__ void copy_async(T* dst, const T* src, bool in) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
                "l"(src), "n"((int)sizeof(T)), "r"(in ? (int)sizeof(T) : 0)
+               : "memory");
+}
+
+// 16 aligned bytes, through L2 only (K1's resident load)
+__device__ __forceinline__ void copy_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
                : "memory");
 }
 

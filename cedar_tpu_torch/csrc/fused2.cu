@@ -16,301 +16,81 @@
 // (nx, ny) grid and compute what those compute.  The math is
 // ops/fused2.py's plain versions, which compose relax2.sweep_torch,
 // stencil2.residual, interp2.restrict_torch and interp2.interp_add_torch;
-// the arithmetic comes from stencil2.cuh (`offdiag_at`) and transfer2.cuh
-// (`restrict_value`, `interp_value`), so each output equals the separate
-// kernels K1, K2 and K3 in sequence bit for bit.
+// the arithmetic comes from stencil2.cuh (`offdiag_terms2`) and
+// transfer2.cuh (`restrict_value`, `interp_at`), so each output equals the
+// separate kernels K1, K2 and K3 in sequence bit for bit.
 //
 // What bounds them on the H100: bytes.  A sweep does about 1 flop per
 // byte.  The dense sequence moves q through device memory once per colour
 // phase and the residual once more; a fused kernel reads q once and writes
 // it once, and reads the stencil planes, b, CI and qc once each.
 //
-// K11 and K12, the tile design: a block owns an output tile of kTZ x TW
-// points and loads q over the tile plus a halo of H rings, a region kRW =
-// 64 columns wide (TW = 64 - 2H), into shared memory.  All colour phases
-// run there, with __syncthreads() between them, as the Pallas kernels run
-// them on a VMEM row slab with an 8-row halo.  The stencil planes, b and
-// CI are read-only and come from device memory through the read-only
-// path; only q lives in shared memory (with K12's residual tile).  A phase
-// updates a point from its neighbours, so each phase leaves one more ring
-// of the halo stale, and so does a residual read from the tile.  The
-// halos, with P = 2 phases (5-point) or 4 (9-point):
-//   K11: H = P, + 1 with the residual or the norm;
-//   K12: H = P + 1 (the residual) + 1 (restriction reads fine rows
-//        2k-1 .. 2k+1; the high side would not need it).
-// Colours anchor to global indices (relax2.color_order; K11 also takes an
-// origin).  A phase maps its threads onto its own colour's points only
-// (every other column of a row; every other row too for 9-point), one
-// column a lane: the region's 64 columns hold at most 32 of one colour.
-// Points outside the grid are never updated and their couplings
-// contribute exactly zero, so any grid shape works, down to a few points.
+// K11 is the tile design of tile2.cuh (shared with K1's streamed regime).
 //
-// K13, the row march (`ring2`), the 2D form of fused3.cu's `ring3`: a
-// block owns a strip of 2 NT - 2H columns (a region of 2 NT columns with H
-// = 1 + P (+ 1 with the residual or the norm) columns of halo on each
-// side) and a chunk of rows, and marches down its chunk (with H halo rows
-// at each end) one row a step.  Stage 1 (the recomputed residual of q_in
-// plus the interpolation) runs on row p - 1 at step p, colour stage s on
-// row p - s, the epilogue (the residual or the norm) on row p - H; the
-// rows between stages are exact for the reason fused3.cu's header note
-// gives.  Rows of q_in, b and the stencil planes arrive in shared-memory
-// rings by cp.async (async.cuh) kAhead steps before the step that first
-// reads them, CI and qc by coarse row (a CI row serves fine rows 2k - 1
-// and 2k, a qc row 2k - 1 .. 2k + 1), one commit group a step; the swept
-// q lives in a ring of its own.  Thread t takes region columns 2t and 2t +
-// 1 in every stage (a colour stage the one of its colour), so that a
-// 5-point stage reads the row the stage before updated only at its own
-// columns: one barrier a step publishes the step's copies and frees the
-// slots the next copies overwrite; 9-point couplings reach diagonally into
-// the next row, so each 9-point stage ends with a barrier.  Rows are
-// colour-compact (a row's even columns, then its odd ones), so that a
-// stage's stride-2 reads are conflict-free.  A block has NT = 128 threads;
-// the chunk and the grid come from the wrapper's plan (ops/cuda_fused2.py
+// K12 and K13, the row march (`ring2`), the 2D form of fused3.cu's
+// `ring3`: a block owns a strip of 2 NT - 2H columns (a region of 2 NT
+// columns with H columns of halo on each side) and a chunk of rows, and
+// marches down its chunk (with H halo rows at each end) one row a step.
+// K13: stage 1 (the recomputed residual of q_in plus the interpolation)
+// runs on row p - 1 at step p, colour stage s on row p - s, the epilogue
+// (the residual or the norm) on row p - SE; H = SE = 1 + P (+ 1 with the
+// epilogue), P = 2 colour phases (5-point) or 4 (9-point).  K12: colour
+// stage s on row p - s (its q rows are q_in's, copied in), the residual on
+// row p - SE (SE = P + 1) over the strip and one column more on its low
+// side, into a ring of four rows in shared memory (and to res on request),
+// and the restriction of the strip's coarse points of coarse row k at the
+// step after fine rows 2k - 1 .. 2k + 1 hold their residuals (row p - SE -
+// 2 at step p), as K15 does; its restriction reads fine row and column 2k -
+// 1, so H = SE + 1.  The rows between stages are exact for the reason
+// fused3.cu's header note gives.  Rows of q_in (K13: q_pre), b and the
+// stencil planes arrive in shared-memory rings by cp.async (async.cuh)
+// kAhead steps before the step that first reads them, CI (and K13's qc) by
+// coarse row (K13: a CI row serves fine rows 2k - 1 and 2k, a qc row 2k - 1
+// .. 2k + 1; K12: CI rows k and k + 1 serve coarse row k), one commit group
+// a step; K13's swept q lives in a ring of its own.  Thread t takes region
+// columns 2t and 2t + 1 in every stage (a colour stage the one of its
+// colour), so that a 5-point stage reads the row the stage before updated
+// only at its own columns: one barrier a step publishes the step's copies
+// (and K12's residual rows) and frees the slots the next copies overwrite;
+// 9-point couplings reach diagonally into the next row, so each 9-point
+// stage ends with a barrier.  Rows are colour-compact (a row's even
+// columns, then its odd ones), so that a stage's stride-2 reads, and the
+// restriction's, are conflict-free.  A block has NT = 128 threads; the
+// chunk and the grid come from the wrapper's plan (ops/cuda_fused2.py
 // `plan`: the chunk that runs the grid in whole waves of resident blocks),
 // checked at launch against `Ring2`.
 //
-// Out of place: a block reads q_in over its tile and halo while other
-// blocks write their tiles.  Updated in place, a block could read a
+// Out of place: a block reads q_in over its region and halo while other
+// blocks write their own points.  Updated in place, a block could read a
 // neighbour's updated interior as its halo, a race that is wrong only
 // sometimes.  So each kernel reads q_in and writes a separate q_out (the
 // wrappers in ops/cuda_fused2.py allocate it).
 //
-// K12's tiles start at even fine indices, so each coarse point (2k, 2m)
-// has exactly one owner block.  The norm epilogue writes one partial a
-// block (the sum of res² over the block's own points, in no fixed order
-// against the plain version's sum) into a buffer of
-// cedar_fused2_partials entries (K13: its plan's blocks); the caller sums
-// the buffer.
+// K12's strips and chunks start at even fine indices (its plan's chunks
+// are even), so each coarse point (2k, 2m) has exactly one owner block.
+// The norm epilogue writes one partial a block (the sum of res² over the
+// block's own points, in no fixed order against the plain version's sum)
+// into a buffer of cedar_fused2_partials entries (K13: its plan's blocks);
+// the caller sums the buffer.
 
 #include "async.cuh"
-#include "stencil2.cuh"
+#include "tile2.cuh"
 #include "transfer2.cuh"
 
 namespace cedar {
 namespace {
 
-constexpr int kTZ = 32;                       // output rows a block
-constexpr int kThreads = kBlockX * kBlockY;   // 256
-// output modes of K11 and K13
-constexpr int kNone = 0, kRes = 1, kNorm = 2;
-
-// the region's columns: two of a warp's rows; a 9-point f64 K13 with its
-// two buffers and H = 6 takes 2 x 44 x 64 x 8 bytes = 45 KB of shared memory
-constexpr int kRW = 2 * kBlockX;
-
-// The halos of the header note, with or without the residual / norm
-// epilogue ("epi").
-__host__ __device__ constexpr int phases_of(bool nine) { return nine ? 4 : 2; }
-__host__ __device__ constexpr int sweep_halo(bool nine, bool epi) {
-  return phases_of(nine) + epi;  // K11
-}
-__host__ __device__ constexpr int sweep_restrict_halo(bool nine) {
-  return phases_of(nine) + 2;  // K12
-}
-
-__device__ __forceinline__ bool in_grid(int z, int w, int nx, int ny) {
-  return z >= 0 && z < nx && w >= 0 && w < ny;
-}
-
-// s (RZ x kRW) = q over global rows [z0, z0 + RZ), columns [w0, w0 +
-// kRW); points outside the grid hold 0 (never read: their couplings are
-// zero).
-template <typename T, int RZ>
-__device__ void load_region(T* s, const T* __restrict__ q, int z0, int w0,
-                            int nx, int ny) {
-  for (int r = threadIdx.y; r < RZ; r += kBlockY) {
-    const int z = z0 + r;
-    for (int c = threadIdx.x; c < kRW; c += kBlockX) {
-      const int w = w0 + c;
-      s[r * kRW + c] =
-          in_grid(z, w, nx, ny) ? q[(long long)z * ny + w] : T(0);
-    }
-  }
-}
-
-// b - A q at grid point (z, w), held at local (r, c) of the tile s.
-template <typename T, bool NINE>
-__device__ __forceinline__ T residual_at(const T* s, int r, int c,
-                                         const T* __restrict__ so,
-                                         const T* __restrict__ b, int z,
-                                         int w, int nx, int ny) {
-  using A = Arith<T>;
-  const long long i = (long long)z * ny + w;
-  const T* qp = s + r * kRW + c;
-  return A::sub(A::add(b[i], offdiag_at<T, NINE>(so, (long long)nx * ny, z,
-                                                 w, nx, ny, qp, kRW)),
-                A::mul(so[i], *qp));
-}
-
-// The colour phases of one sweep on the tile s (RZ x kRW).  Phase k
-// updates its colour's points at depth >= d0 + k (the depth of a local
-// point is its distance in rings from the region's edge): if q is right at
-// depth >= d0 - 1 before, it is right at depth >= d0 - 1 + ncolors after.
-// colors packs the colour codes in sweep order, 4 bits each
-// (ops/cuda_fused2.py).  Lane x takes the x-th point of the colour in a
-// row; 9-point colours also skip every other row.
-template <typename T, bool NINE, int RZ>
-__device__ void phases(T* s, const T* __restrict__ so,
-                       const T* __restrict__ b, int z0, int w0, int nx,
-                       int ny, int colors, int ncolors, int oz, int ow,
-                       int d0) {
-  using A = Arith<T>;
-  const long long P = (long long)nx * ny;
-  for (int k = 0; k < ncolors; ++k) {
-    const int color = (colors >> (4 * k)) & 15;
-    const int lo = d0 + k;
-    // 5-point: (gz + gw) % 2 == color; 9-point: color = 2 cw + cz, rows
-    // with gz % 2 == cz, columns with gw % 2 == cw (gz = z + oz, gw = w +
-    // ow; & 1 is the parity of negative indices too)
-    const int r0 = NINE ? lo + (((color & 1) - z0 - oz - lo) & 1) : lo;
-    const int rstep = NINE ? 2 * kBlockY : kBlockY;
-    for (int r = r0 + (NINE ? 2 : 1) * threadIdx.y; r < RZ - lo; r += rstep) {
-      const int z = z0 + r;
-      if (z < 0 || z >= nx) continue;
-      const int cpar = NINE ? (color >> 1) : color - (z + oz);
-      const int c = lo + ((cpar - w0 - ow - lo) & 1) + 2 * threadIdx.x;
-      const int w = w0 + c;
-      if (c >= kRW - lo || w < 0 || w >= ny) continue;
-      const long long i = (long long)z * ny + w;
-      T* qp = s + r * kRW + c;
-      *qp = A::mul(A::add(b[i], offdiag_at<T, NINE>(so, P, z, w, nx, ny, qp,
-                                                    kRW)),
-                   A::div(T(1), so[i]));
-    }
-    __syncthreads();
-  }
-}
-
-// The sum of v over the block, returned to thread (0, 0).
-template <typename T>
-__device__ T block_sum(T v) {
-  __shared__ T warp_sums[kThreads / 32];
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  const int t = threadIdx.y * kBlockX + threadIdx.x;
-  if ((t & 31) == 0) warp_sums[t >> 5] = v;
-  __syncthreads();
-  T tot = T(0);
-  if (t == 0)
-    for (int k = 0; k < kThreads / 32; ++k) tot += warp_sums[k];
-  return tot;
-}
-
-// The epilogue of K11: the block's own points of s (local rows and
-// columns from H) to q_out, then the residual to res (kRes) or the sum of
-// its squares to partials[block] (kNorm).
-template <typename T, bool NINE, int H>
-__device__ void store_tile(const T* s, T* __restrict__ q_out,
-                           T* __restrict__ res, T* __restrict__ partials,
-                           const T* __restrict__ so, const T* __restrict__ b,
-                           int z0, int w0, int nx, int ny, int mode) {
-  using A = Arith<T>;
-  constexpr int TW = kRW - 2 * H;
-  T acc = T(0);
-  for (int r = H + threadIdx.y; r < H + kTZ; r += kBlockY) {
-    const int z = z0 + r;
-    if (z >= nx) break;
-    for (int c = H + threadIdx.x; c < H + TW; c += kBlockX) {
-      const int w = w0 + c;
-      if (w >= ny) break;
-      const long long i = (long long)z * ny + w;
-      q_out[i] = s[r * kRW + c];
-      if (mode == kNone) continue;
-      const T rv = residual_at<T, NINE>(s, r, c, so, b, z, w, nx, ny);
-      if (mode == kRes)
-        res[i] = rv;
-      else
-        acc = A::add(acc, A::mul(rv, rv));
-    }
-  }
-  if (mode == kNorm) {
-    const T tot = block_sum(acc);
-    if (threadIdx.x == 0 && threadIdx.y == 0)
-      partials[blockIdx.y * gridDim.x + blockIdx.x] = tot;
-  }
-}
-
-// K11: one multicolour sweep of q_in into q_out (+ res / partials).
-template <typename T, bool NINE, int H>
-__global__ void __launch_bounds__(kThreads)
-sweep_fused(const T* __restrict__ so, const T* __restrict__ q_in,
-            const T* __restrict__ b, T* __restrict__ q_out,
-            T* __restrict__ res, T* __restrict__ partials, int nx, int ny,
-            int colors, int ncolors, int oz, int ow, int mode) {
-  constexpr int TW = kRW - 2 * H, RZ = kTZ + 2 * H;
-  __shared__ T s[RZ * kRW];
-  const int z0 = blockIdx.y * kTZ - H, w0 = blockIdx.x * TW - H;
-  load_region<T, RZ>(s, q_in, z0, w0, nx, ny);
-  __syncthreads();
-  phases<T, NINE, RZ>(s, so, b, z0, w0, nx, ny, colors, ncolors, oz, ow, 1);
-  store_tile<T, NINE, H>(s, q_out, res, partials, so, b, z0, w0, nx, ny,
-                         mode);
-}
-
-// K12: the last pre-sweep of q_in into q_out, its residual (to res when
-// emit_res) and cb = Pᵀ res at the coarse points the tile owns.
-template <typename T, bool NINE>
-__global__ void __launch_bounds__(kThreads)
-sweep_restrict_fused(const T* __restrict__ so, const T* __restrict__ q_in,
-                     const T* __restrict__ b, const T* __restrict__ ci_p,
-                     T* __restrict__ q_out, T* __restrict__ res,
-                     T* __restrict__ cb, int nx, int ny, int nxc, int nyc,
-                     int colors, int ncolors, int emit_res) {
-  constexpr int H = sweep_restrict_halo(NINE);
-  constexpr int TW = kRW - 2 * H, RZ = kTZ + 2 * H;
-  // the residual over fine rows [zt - 1, zt + kTZ), columns [wt - 1, wt + TW)
-  constexpr int SZ = kTZ + 1, SW = TW + 1;
-  __shared__ T s[RZ * kRW];
-  __shared__ T sr[SZ * SW];
-  const int zt = blockIdx.y * kTZ, wt = blockIdx.x * TW;  // even
-  const int z0 = zt - H, w0 = wt - H;
-  load_region<T, RZ>(s, q_in, z0, w0, nx, ny);
-  __syncthreads();
-  phases<T, NINE, RZ>(s, so, b, z0, w0, nx, ny, colors, ncolors, 0, 0, 1);
-  for (int r = threadIdx.y; r < SZ; r += kBlockY) {
-    const int z = zt - 1 + r;
-    for (int c = threadIdx.x; c < SW; c += kBlockX) {
-      const int w = wt - 1 + c;
-      sr[r * SW + c] = in_grid(z, w, nx, ny)
-          ? residual_at<T, NINE>(s, r + H - 1, c + H - 1, so, b, z, w, nx,
-                                 ny)
-          : T(0);
-    }
-  }
-  __syncthreads();
-  for (int r = threadIdx.y; r < kTZ; r += kBlockY) {
-    const int z = zt + r;
-    if (z >= nx) break;
-    for (int c = threadIdx.x; c < TW; c += kBlockX) {
-      const int w = wt + c;
-      if (w >= ny) break;
-      const long long i = (long long)z * ny + w;
-      q_out[i] = s[(r + H) * kRW + c + H];
-      if (emit_res) res[i] = sr[(r + 1) * SW + c + 1];
-    }
-  }
-  const CI<T> ci = ci_of(ci_p, 0, 1, nxc, nyc);
-  auto fine = [&](int z, int w) -> T {
-    return in_grid(z, w, nx, ny) ? sr[(z - zt + 1) * SW + (w - wt + 1)]
-                                    : T(0);
-  };
-  for (int r = threadIdx.y; r < kTZ / 2; r += kBlockY) {
-    const int zc = zt / 2 + r;
-    if (zc >= nxc) break;
-    for (int c = threadIdx.x; c < TW / 2; c += kBlockX) {
-      const int wc = wt / 2 + c;
-      if (wc >= nyc) break;
-      cb[(long long)zc * nyc + wc] = restrict_value(ci, fine, zc, wc);
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K13: the row march (see the header note).
+// K12 and K13: the row march (see the header note).
+
+// K12's epilogue: the residual into its ring, then the restriction
+constexpr int kRestrict = 3;
 
 // Build settings of tools/tune_fused2.py only: the parts of `ring2` that a
-// timing probe skips (bit 0: the q_pre row copies, 1: the CI and qc
+// timing probe skips (bit 0: the q_in / q_pre row copies, 1: the CI and qc
 // copies, 2: the stencil and b copies, 3: the barriers, 4: the residual of
-// the norm); 0 in every other build.
+// the epilogue (K13's norm, K12's), 5: K12's restriction sum); 0 in every
+// other build.
 #ifndef CEDAR_FUSED2_PROBE
 #define CEDAR_FUSED2_PROBE 0
 #endif
@@ -329,22 +109,53 @@ static_assert(kAhead == 1 || kAhead == 2, "copies one or two steps ahead");
 constexpr int kRingThreads = CEDAR_FUSED2_THREADS;
 static_assert(kRingThreads % 32 == 0 && kRingThreads <= 1024,
               "whole warps a block");
+// an SM's shared memory, of which each resident block takes 1 KB more
+// than its own (ops/cuda_build.py SM_SMEM)
+constexpr size_t kSmSmem = 233472;
 
-// The layout of a K13 block of NT threads (a strip of 2 NT region
-// columns); ops/cuda_fused2.py `interp_words` mirrors it and the launch
-// checks the plan against it.  Rings of region rows: the swept q (rows p -
-// SE - 1 .. p - 1), q_pre (p - 2 .. p + 2), the stencil planes and b (p -
-// SE .. p + 2); CI (two coarse rows of 8 weights) and qc (three coarse
-// rows) over the strip's nt + 2 coarse columns.
+// The layout of a K12 (EPI kRestrict) or K13 (EPI kNone / kRes / kNorm)
+// block of NT threads (a strip of 2 NT region columns);
+// ops/cuda_fused2.py `ring_words` mirrors it and the launch checks the
+// plan against it.  Rings of region rows: q (K13: the swept q, rows p - SE
+// - 1 .. p - 1; K12: q_in copied in, rows p - SE - 1 .. p + kAhead),
+// K13's q_pre (p - 2 .. p + kAhead + 1), the stencil planes and b (p - SE
+// .. p + kAhead), K12's residual (p - SE - 3 .. p - SE); then coarse rows
+// of the 8 CI weights (K13: two, and three of qc, over the region's nt + 2
+// coarse columns; K12: three, over the strip's nt - H + 1).
 template <bool NINE, int EPI>
 struct Ring2 {
-  static constexpr int SP = 1 + phases_of(NINE);  // the last colour stage
-  static constexpr int SE = SP + (EPI != kNone), H = SE;
-  static constexpr int WQ = SE + 1, WP = 3 + kAhead, WS = SE + 1 + kAhead;
+  static constexpr bool K12 = EPI == kRestrict;
+  static constexpr int SP = !K12 + phases_of(NINE);  // the last colour stage
+  static constexpr int SE = SP + (EPI != kNone);     // the residual's stage
+  static constexpr int H = SE + K12;
+  static constexpr int WQ = K12 ? SE + 2 + kAhead : SE + 1;
+  static constexpr int WP = K12 ? 0 : 3 + kAhead;
+  static constexpr int WS = SE + 1 + kAhead;
+  static constexpr int WR = K12 ? 4 : 0;
   static constexpr int NSB = (NINE ? 5 : 3) + 1;  // stencil planes and b
   static constexpr int NT = kRingThreads, CW = NT + 2;
+  // K12's CI rows: a copy lands in the slot that the restriction of two
+  // coarse rows before read (kAhead <= 2 steps before its own)
+  static constexpr int NCI = K12 ? 3 : 2;
+  static constexpr int NC = 8 * NCI + (K12 ? 0 : 3);
   static constexpr size_t WORDS =
-      (size_t)2 * NT * (WQ + WP + WS * NSB) + (size_t)(2 * 8 + 3) * CW;
+      (size_t)2 * NT * (WQ + WP + WS * NSB + WR) + (size_t)NC * CW;
+  // blocks an SM that the plan counts on (ops/cuda_fused2.py `plan`):
+  // as many as the shared memory takes, within the SM's threads; the
+  // kernel's registers must leave room for them (chip_smoke.py checks)
+  template <typename T>
+  static constexpr int per_sm() {
+    const size_t n = kSmSmem / (WORDS * sizeof(T) + 1024);
+    const int most = 2048 / NT < 32 ? 2048 / NT : 32;
+    return n < (size_t)most ? (int)n : most;
+  }
+  // the registers a thread that leave room for per_sm blocks of NT
+  // threads, in the allocation unit of 8
+  template <typename T>
+  static constexpr int max_regs() {
+    const int r = 65536 / (per_sm<T>() * NT) / 8 * 8;
+    return r < 255 ? r : 255;
+  }
 };
 
 // The sum of v over a block of NW warps in a row, returned to thread 0.
@@ -361,25 +172,39 @@ __device__ T block_sum_row(T v) {
 }
 
 struct RingDims2 {
-  int nx, ny, nxc, nyc, cz, colors;
+  int nx, ny, nxc, nyc, cz, colors, emit_res;
 };
 
-// K13 on a strip of region columns and a chunk of rows: q = q_in + P qc +
-// res/diag (res = b - A q_in, recomputed), then one multicolour sweep into
-// q_out (+ res / partials).  Thread t takes region columns 2t and 2t + 1 in
-// every stage (a colour stage: the one of its colour).
+// K12 (EPI kRestrict): one multicolour sweep of q_in into q_out, its
+// residual (to res when a.emit_res) and cb = Pᵀ res into out.  K13 (EPI
+// kNone / kRes / kNorm): q = q_in + P qc + res/diag (res = b - A q_in,
+// recomputed), then one multicolour sweep into q_out (+ res, or the norm
+// partials into out).  On a strip of region columns and a chunk of rows;
+// thread t takes region columns 2t and 2t + 1 in every stage (a colour
+// stage: the one of its colour).
+//
+// Every variant holds its registers to what the plan's blocks an SM leave
+// (left free, a float32 5-point K13 took 103 to 117 registers, room for 4
+// blocks where the plan counts on 5, and ran its grid in two waves).  A
+// cap by __maxnreg__ was faster than one by __launch_bounds__' blocks an
+// SM, which took the float32 5-point variants down to 53-56 registers
+// (PERF.md §6).
 template <typename T, bool NINE, int EPI>
-__global__ void __launch_bounds__(kRingThreads)
+__global__ void __maxnreg__((Ring2<NINE, EPI>::template max_regs<T>()))
 ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
       const T* __restrict__ so, const T* __restrict__ b,
       const T* __restrict__ q_in, T* __restrict__ q_out, T* __restrict__ res,
-      T* __restrict__ partials, const RingDims2 a) {
+      T* __restrict__ out, const RingDims2 a) {
   using A = Arith<T>;
   using R = Ring2<NINE, EPI>;
+  constexpr bool K12 = R::K12;
   constexpr int SP = R::SP, SE = R::SE, H = R::H, NSB = R::NSB;
   constexpr int BI = NSB - 1;  // b's array in a stencil slot
   constexpr int NT = R::NT, nt = NT, rw = 2 * NT, tw = rw - 2 * H;
   constexpr int cw = R::CW;
+  // the coarse columns a CI row copy covers: K13 the region's, K12 the
+  // strip's own and one more
+  constexpr int ncc = K12 ? tw / 2 + 1 : cw;
   const int nx = a.nx, ny = a.ny;
   const long long P = (long long)nx * ny;
 
@@ -387,19 +212,23 @@ ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
   T* const sm = reinterpret_cast<T*>(smem);
   auto qs = [&](int x) { return sm + ((x + 8 * R::WQ) % R::WQ) * rw; };
   T* const pbase = sm + R::WQ * rw;
-  auto ps = [&](int x) { return pbase + ((x + 8 * R::WP) % R::WP) * rw; };
+  constexpr int WP = R::WP > 0 ? R::WP : 1;
+  auto ps = [&](int x) { return pbase + ((x + 8 * WP) % WP) * rw; };
   T* const sbase = pbase + R::WP * rw;
   auto ss = [&](int x) {
     return sbase + ((x + 8 * R::WS) % R::WS) * NSB * rw;
   };
-  T* const cbase = sbase + R::WS * NSB * rw;
-  auto cis = [&](int k) { return cbase + (k & 1) * 8 * cw; };
+  T* const rbase = sbase + R::WS * NSB * rw;
+  auto rs = [&](int x) { return rbase + ((x + 8 * 4) % 4) * rw; };
+  T* const cbase = rbase + R::WR * rw;
+  auto cis = [&](int k) { return cbase + (k % R::NCI) * 8 * cw; };
   auto qcs = [&](int k) { return cbase + 16 * cw + (k % 3) * cw; };
 
   const int t = threadIdx.x;
   const int wt = blockIdx.x * tw, zt = blockIdx.y * a.cz;
-  const int w0 = wt - H, mc0 = w0 >> 1;  // the strip's first column, coarse
-  const int xe = min(zt + a.cz, nx);     // own rows [zt, xe)
+  const int w0 = wt - H;  // the strip's first region column
+  const int mc0 = K12 ? wt >> 1 : w0 >> 1;  // the first coarse column copied
+  const int xe = min(zt + a.cz, nx);        // own rows [zt, xe)
   // colour-compact position of region column c (even columns, then odd)
   auto cpos = [&](int c) { return (c & 1) * nt + (c >> 1); };
   auto valid = [&](int x, int s) {
@@ -424,14 +253,14 @@ ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
     for (int j = 0; j < 2; ++j) copy_async(dst + soff[j], sp + goff[j], gin[j]);
   };
   const long long cplane = (long long)(a.nxc + 1) * (a.nyc + 1);
-  // coarse row k of CI (8 weights) and of qc over the strip's coarse
+  // coarse row k of CI (8 weights) and of qc over the copied coarse
   // columns, zero off the arrays
   auto copy_ci = [&](int k) {
     T* d = cis(k);
-    for (int e = t; e < 8 * cw; e += nt) {
-      const int dd = e / cw, m = mc0 + e % cw;
+    for (int e = t; e < 8 * ncc; e += nt) {
+      const int dd = e / ncc, m = mc0 + e % ncc;
       const bool in = k >= 0 && k <= a.nxc && m >= 0 && m <= a.nyc;
-      copy_async(d + e,
+      copy_async(d + dd * cw + e % ncc,
                  ci_p + (in ? dd * cplane + (long long)k * (a.nyc + 1) + m : 0),
                  in);
     }
@@ -445,11 +274,11 @@ ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
     }
   };
   const int p0 = max(zt - H, 0), load_end = min(zt + a.cz + H, nx);
-  const int x1 = max(zt - H + 1, 0);  // the first stage-1 row
+  const int x1 = max(zt - H + 1, 0);  // K13's first stage-1 row
   // every copy that step u reads first, as one commit group
   auto issue = [&](int u) {
     if (u < load_end) {
-      if (!(kProbe & 1)) copy_row(ps(u), q_in, u);
+      if (!(kProbe & 1)) copy_row(K12 ? qs(u) : ps(u), q_in, u);
       if (!(kProbe & 4)) {
         T* d = ss(u);
 #pragma unroll
@@ -457,13 +286,23 @@ ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
         copy_row(d + BI * rw, b, u);
       }
     }
-    // stage 1 at row x = u - 1 reads CI row (x + 1) >> 1 and qc rows
-    // x >> 1 and (x + 1) >> 1
-    const int x = u - 1;
-    if (!(kProbe & 2) && valid(x, 1) && (x == x1 || (x & 1))) {
-      copy_ci((x + 1) >> 1);
-      if (x == x1) copy_qc(x >> 1);
-      if (x & 1) copy_qc((x + 1) >> 1);
+    if constexpr (K12) {
+      // the restriction at step u, of fine row xr = u - SE - 2, reads CI
+      // rows xr / 2 and xr / 2 + 1
+      const int xr = u - SE - 2;
+      if (!(kProbe & 2) && xr >= zt && xr < xe && !(xr & 1)) {
+        if (xr == zt) copy_ci(xr >> 1);
+        copy_ci((xr >> 1) + 1);
+      }
+    } else {
+      // stage 1 at row x = u - 1 reads CI row (x + 1) >> 1 and qc rows
+      // x >> 1 and (x + 1) >> 1
+      const int x = u - 1;
+      if (!(kProbe & 2) && valid(x, 1) && (x == x1 || (x & 1))) {
+        copy_ci((x + 1) >> 1);
+        if (x == x1) copy_qc(x >> 1);
+        if (x & 1) copy_qc((x + 1) >> 1);
+      }
     }
     commit_async();
   };
@@ -498,7 +337,9 @@ ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
     return A::sub(A::add(s0[BI * rw], offd(x, c, w, q0, up, dn)),
                   A::mul(s0[0], *q0));
   };
-  auto ci_at = [&](int d, int k, int m) -> T { return cis(k)[d * cw + m - mc0]; };
+  auto ci_at = [&](int d, int k, int m) -> T {
+    return cis(k)[d * cw + m - mc0];
+  };
   auto qc_at = [&](int k, int m) -> T { return qcs(k)[m - mc0]; };
 
   T acc = T(0);
@@ -507,15 +348,17 @@ ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
   // A stage hands each point to the next stage in the same thread: stage
   // s + 1 at row x - 1 reads row x (5-point) only at its own column, which
   // stage s updated earlier in the same step; so 5-point stages need one
-  // barrier a step, which also publishes the copies of row p and frees the
-  // slots that step p + kAhead's copies overwrite.  9-point couplings reach
-  // diagonally into the next row: each 9-point stage ends with a barrier.
-  for (int p = p0; p < xe + SE; ++p) {
+  // barrier a step, which also publishes the copies of row p (and K12's
+  // residual rows) and frees the slots that step p + kAhead's copies
+  // overwrite.  9-point couplings reach diagonally into the next row: each
+  // 9-point stage ends with a barrier.  K12 restricts fine row p - SE - 2
+  // at step p: two steps more.
+  for (int p = p0; p < xe + SE + (K12 ? 2 : 0); ++p) {
     wait_async<kAhead - 1>();
     if (!(kProbe & 8)) __syncthreads();
     issue(p + kAhead);
 
-    {
+    if constexpr (!K12) {
       // stage 1: K3's expression, q_pre + (P qc (+ res/diag off the
       // coincident points)), with res = b - A q_pre from the q_pre ring; a
       // thread's two columns in turn, so that the points of a warp share a
@@ -544,7 +387,7 @@ ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
     // with x % 2 == cz, columns with w % 2 == cw
 #pragma unroll
     for (int k = 0; k < phases_of(NINE); ++k) {
-      const int s = 2 + k, x = p - s;
+      const int s = !K12 + 1 + k, x = p - s;
       const int color = (a.colors >> (4 * k)) & 15;
       if (valid(x, s) && (!NINE || ((x - color) & 1) == 0)) {
         const int cpar = NINE ? color >> 1 : color - x;
@@ -591,87 +434,96 @@ ring2(const T* __restrict__ ci_p, const T* __restrict__ qc_p,
         }
       }
     }
+
+    if constexpr (K12) {
+      {
+        // the residual of row p - SE over the strip and the column below
+        // it into the residual ring (the restriction reads fine row and
+        // column 2k - 1), and to res at the block's own points on request
+        const int x = p - SE;
+        if (x >= max(zt - 1, 0) && x < xe) {
+          const long long up = qs(x + 1) - qs(x), dn = qs(x - 1) - qs(x);
+          T* dst = rs(x);
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int c = 2 * t + j, w = w0 + c;
+            if (c < H - 1 || c >= H + tw || w < 0 || w >= ny) continue;
+            const T* q0 = qs(x) + cpos(c);
+            const T rv = (kProbe & 16) ? *q0 : residual(x, c, w, q0, up, dn);
+            dst[cpos(c)] = rv;
+            if (a.emit_res && x >= zt && c >= H)
+              res[(long long)x * ny + w] = rv;
+          }
+        }
+      }
+      // cb at the coarse points of fine row xr = p - SE - 2 that the block
+      // owns (an even row of the chunk; thread t the strip's t-th coarse
+      // column): its residual rows xr - 1 .. xr + 1 were written in the
+      // steps before, so the step's barrier covers them
+      const int xr = p - SE - 2;
+      if (xr >= zt && xr < xe && !(xr & 1)) {
+        const int k = xr >> 1, m = (wt >> 1) + t;
+        if (t < tw / 2 && k < a.nxc && m < a.nyc) {
+          auto fine = [&](int z, int w) -> T {
+            return (z >= 0 && z < nx && w >= 0 && w < ny)
+                       ? rs(z)[cpos(w - w0)]
+                       : T(0);
+          };
+          out[(long long)k * a.nyc + m] =
+              (kProbe & 32) ? fine(xr, 2 * m)
+                            : restrict_value(ci_at, fine, k, m);
+        }
+      }
+    }
   }
   wait_async<0>();
 
   if constexpr (EPI == kNorm) {
     const T tot = block_sum_row<NT / 32>(acc);
-    if (t == 0) partials[blockIdx.y * gridDim.x + blockIdx.x] = tot;
+    if (t == 0) out[blockIdx.y * gridDim.x + blockIdx.x] = tot;
   }
 }
 
-// the grid of a kernel with halo H on an (nx, ny) grid
-inline dim3 tiles(int h, int nx, int ny) {
-  const int tw = kRW - 2 * h;
-  return dim3((ny + tw - 1) / tw, (nx + kTZ - 1) / kTZ);
-}
-
-template <typename T, bool NINE, int H>
-int launch_sweep_h(const void* so, const void* q_in, const void* b,
-                   void* q_out, void* res, void* partials, int nx, int ny,
-                   int colors, int ncolors, int oz, int ow, int mode,
-                   cudaStream_t st) {
-  sweep_fused<T, NINE, H><<<tiles(H, nx, ny), dim3(kBlockX, kBlockY), 0,
-                            st>>>(
-      (const T*)so, (const T*)q_in, (const T*)b, (T*)q_out, (T*)res,
-      (T*)partials, nx, ny, colors, ncolors, oz, ow, mode);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_sweep(const void* so, const void* q_in, const void* b, void* q_out,
-                 void* res, void* partials, int nx, int ny, int nine,
-                 int colors, int ncolors, int oz, int ow, int mode,
-                 cudaStream_t st) {
-  auto fn = launch_sweep_h<T, false, sweep_halo(false, false)>;
-  if (nine && mode != kNone)
-    fn = launch_sweep_h<T, true, sweep_halo(true, true)>;
-  else if (nine)
-    fn = launch_sweep_h<T, true, sweep_halo(true, false)>;
-  else if (mode != kNone)
-    fn = launch_sweep_h<T, false, sweep_halo(false, true)>;
-  return fn(so, q_in, b, q_out, res, partials, nx, ny, colors, ncolors, oz,
-            ow, mode, st);
-}
-
-template <typename T>
-int launch_sweep_restrict(const void* so, const void* q_in, const void* b,
-                          const void* ci, void* q_out, void* res, void* cb,
-                          int nx, int ny, int nxc, int nyc, int nine,
-                          int colors, int ncolors, int emit_res,
-                          cudaStream_t st) {
-  const dim3 grid = tiles(sweep_restrict_halo(nine), nx, ny);
-  const dim3 block(kBlockX, kBlockY);
-  if (nine)
-    sweep_restrict_fused<T, true><<<grid, block, 0, st>>>(
-        (const T*)so, (const T*)q_in, (const T*)b, (const T*)ci, (T*)q_out,
-        (T*)res, (T*)cb, nx, ny, nxc, nyc, colors, ncolors, emit_res);
-  else
-    sweep_restrict_fused<T, false><<<grid, block, 0, st>>>(
-        (const T*)so, (const T*)q_in, (const T*)b, (const T*)ci, (T*)q_out,
-        (T*)res, (T*)cb, nx, ny, nxc, nyc, colors, ncolors, emit_res);
-  return (int)cudaGetLastError();
-}
-
-// The plan of a K13 launch (ops/cuda_fused2.py `plan`): threads a block,
-// rows a chunk, the grid (strips, chunks) and shared-memory bytes.
+// The plan of a K12 or K13 launch (ops/cuda_fused2.py `plan`): threads a
+// block, rows a chunk, the grid (strips, chunks) and shared-memory bytes.
 struct Plan2 {
   int nt, cz, gw, gc;
   long long smem;
 };
 
+// What ring_planned does: launch, or report the variant's shared-memory
+// bytes or the blocks of it that an SM holds.
+enum Query { kLaunch, kSmem, kOccupancy };
+
+// Blocks of the variant an SM holds with its shared memory, registers and
+// threads (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negative
+// CUDA error.
+template <typename T, bool NINE, int EPI>
+int occupancy2() {
+  using R = Ring2<NINE, EPI>;
+  auto fn = ring2<T, NINE, EPI>;
+  const int smem = (int)(R::WORDS * sizeof(T));
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  int n = 0;
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, R::NT, smem);
+  return e == cudaSuccess ? n : -(int)e;
+}
+
 template <typename T, bool NINE, int EPI>
 int launch_ring2(const void* ci, const void* qc, const void* so,
                  const void* b, const void* q_in, void* q_out, void* res,
-                 void* partials, int nx, int ny, int nxc, int nyc,
-                 int colors, const Plan2& p, cudaStream_t st) {
+                 void* out, const RingDims2& d, const Plan2& p,
+                 cudaStream_t st) {
   using R = Ring2<NINE, EPI>;
   constexpr int TW = 2 * R::NT - 2 * R::H;
-  // the plan must be this variant's and cover the grid once
+  // the plan must be this variant's and cover the grid once; K12's chunks
+  // start at even rows
   if (p.nt != R::NT || p.smem != (long long)(R::WORDS * sizeof(T)) ||
-      p.cz < 1 || p.gw != (ny + TW - 1) / TW || p.gc != (nx + p.cz - 1) / p.cz)
+      p.cz < 1 || (R::K12 && (p.cz & 1)) || d.cz != p.cz ||
+      p.gw != (d.ny + TW - 1) / TW || p.gc != (d.nx + p.cz - 1) / p.cz)
     return (int)cudaErrorInvalidValue;
-  const RingDims2 d{nx, ny, nxc, nyc, p.cz, colors};
   auto fn = ring2<T, NINE, EPI>;
   // above 48 KB with block_sum_row's static array included
   if (p.smem + 1024 > 48 * 1024) {
@@ -681,37 +533,47 @@ int launch_ring2(const void* ci, const void* qc, const void* so,
   }
   fn<<<dim3(p.gw, p.gc), dim3(R::NT), p.smem, st>>>(
       (const T*)ci, (const T*)qc, (const T*)so, (const T*)b, (const T*)q_in,
-      (T*)q_out, (T*)res, (T*)partials, d);
+      (T*)q_out, (T*)res, (T*)out, d);
   return (int)cudaGetLastError();
 }
 
-// K13 with `nine` and epilogue `mode` on plan p (go true), or the
-// shared-memory bytes of that variant (-1: none such)
+// K12 (mode kRestrict) or K13 (mode kNone / kRes / kNorm) with `nine`:
+// launched on plan p, or its shared-memory bytes or occupancy (query q; -1:
+// no such variant)
 template <typename T>
-int interp_planned(bool go, const void* ci, const void* qc, const void* so,
-                   const void* b, const void* q_in, void* q_out, void* res,
-                   void* partials, int nx, int ny, int nxc, int nyc,
-                   int nine, int colors, int mode, const Plan2& p,
-                   cudaStream_t st) {
-#define CEDAR_K13(NINE, EPI)                                                \
-  if (!go) return (int)(Ring2<NINE, EPI>::WORDS * sizeof(T));              \
-  return launch_ring2<T, NINE, EPI>(ci, qc, so, b, q_in, q_out, res,        \
-                                    partials, nx, ny, nxc, nyc, colors, p, st)
+int ring_planned(Query q, const void* ci, const void* qc, const void* so,
+                 const void* b, const void* q_in, void* q_out, void* res,
+                 void* out, const RingDims2& d, int nine, int mode,
+                 const Plan2& p, cudaStream_t st) {
+#define CEDAR_RING2(NINE, EPI)                                              \
+  if (q == kSmem) return (int)(Ring2<NINE, EPI>::WORDS * sizeof(T));       \
+  if (q == kOccupancy) return occupancy2<T, NINE, EPI>();                   \
+  return launch_ring2<T, NINE, EPI>(ci, qc, so, b, q_in, q_out, res, out,   \
+                                    d, p, st)
   if (nine) {
     switch (mode) {
-      case kNone: CEDAR_K13(true, kNone);
-      case kRes: CEDAR_K13(true, kRes);
-      case kNorm: CEDAR_K13(true, kNorm);
+      case kNone: CEDAR_RING2(true, kNone);
+      case kRes: CEDAR_RING2(true, kRes);
+      case kNorm: CEDAR_RING2(true, kNorm);
+      case kRestrict: CEDAR_RING2(true, kRestrict);
     }
   } else {
     switch (mode) {
-      case kNone: CEDAR_K13(false, kNone);
-      case kRes: CEDAR_K13(false, kRes);
-      case kNorm: CEDAR_K13(false, kNorm);
+      case kNone: CEDAR_RING2(false, kNone);
+      case kRes: CEDAR_RING2(false, kRes);
+      case kNorm: CEDAR_RING2(false, kNorm);
+      case kRestrict: CEDAR_RING2(false, kRestrict);
     }
   }
-#undef CEDAR_K13
-  return go ? (int)cudaErrorInvalidValue : -1;
+#undef CEDAR_RING2
+  return q == kLaunch ? (int)cudaErrorInvalidValue : -1;
+}
+
+template <typename... Args>
+int ring_dtype(int dtype, Query q, Args... args) {
+  if (dtype == kFloat32) return ring_planned<float>(q, args...);
+  if (dtype == kFloat64) return ring_planned<double>(q, args...);
+  return q == kLaunch ? (int)cudaErrorInvalidValue : -1;
 }
 
 }  // namespace
@@ -726,26 +588,22 @@ int cedar_fused2_partials(int nine, int nx, int ny) {
   return (int)(g.x * g.y);
 }
 
-// The threads a K13 block, and the steps between a K13 copy's issue and
+// The threads a K12 / K13 block, and the steps between a copy's issue and
 // its first read.
 int cedar_fused2_threads() { return cedar::kRingThreads; }
 int cedar_fused2_ahead() { return cedar::kAhead; }
 
-// The shared-memory bytes of the K13 kernel (nine, mode 0-2), or -1 if
-// none is built: what ops/cuda_fused2.py `plan` computes.
-int cedar_fused2_interp_smem(int dtype, int nine, int mode) {
+// The shared-memory bytes of the K12 (mode 3) or K13 (nine, mode 0-2)
+// kernel, or -1 if none is built: what ops/cuda_fused2.py `plan` computes;
+// with occupancy 1, the blocks of it that an SM holds (a negative CUDA
+// error on failure), which the plan's blocks an SM must not exceed.
+int cedar_fused2_smem(int dtype, int nine, int mode, int occupancy) {
   const cedar::Plan2 p{0, 0, 0, 0, 0};
-  if (dtype == cedar::kFloat32)
-    return cedar::interp_planned<float>(false, nullptr, nullptr, nullptr,
-                                        nullptr, nullptr, nullptr, nullptr,
-                                        nullptr, 0, 0, 0, 0, nine, 0, mode,
-                                        p, nullptr);
-  if (dtype == cedar::kFloat64)
-    return cedar::interp_planned<double>(false, nullptr, nullptr, nullptr,
-                                         nullptr, nullptr, nullptr, nullptr,
-                                         nullptr, 0, 0, 0, 0, nine, 0, mode,
-                                         p, nullptr);
-  return -1;
+  const cedar::RingDims2 d{0, 0, 0, 0, 0, 0, 0};
+  return cedar::ring_dtype(
+      dtype, occupancy ? cedar::kOccupancy : cedar::kSmem, nullptr, nullptr,
+      nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, d, nine, mode, p,
+      (cudaStream_t) nullptr);
 }
 
 // K11: q_out = one sweep of q_in; mode 0 nothing more, 1 res = b - A q_out,
@@ -767,22 +625,19 @@ int cedar_sweep2_fused(int dtype, const void* so, const void* q_in,
 }
 
 // K12: q_out = one sweep of q_in, res = b - A q_out (written when
-// emit_res), cb (nxc, nyc) = Pᵀ res.  Returns cudaGetLastError().
+// emit_res), cb (nxc, nyc) = Pᵀ res; on the plan (nt, cz, gw, gc, smem) of
+// ops/cuda_fused2.py `plan`.  Returns a CUDA error code (0 on success).
 int cedar_sweep_restrict2(int dtype, const void* so, const void* q_in,
                           const void* b, const void* ci, void* q_out,
                           void* res, void* cb, int nx, int ny, int nxc,
-                          int nyc, int nine, int colors, int ncolors,
-                          int emit_res, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == cedar::kFloat32)
-    return cedar::launch_sweep_restrict<float>(so, q_in, b, ci, q_out, res, cb,
-                                               nx, ny, nxc, nyc, nine, colors,
-                                               ncolors, emit_res, st);
-  if (dtype == cedar::kFloat64)
-    return cedar::launch_sweep_restrict<double>(so, q_in, b, ci, q_out, res,
-                                                cb, nx, ny, nxc, nyc, nine,
-                                                colors, ncolors, emit_res, st);
-  return (int)cudaErrorInvalidValue;
+                          int nyc, int nine, int colors, int emit_res, int nt,
+                          int cz, int gw, int gc, long long smem,
+                          void* stream) {
+  const cedar::Plan2 p{nt, cz, gw, gc, smem};
+  const cedar::RingDims2 d{nx, ny, nxc, nyc, cz, colors, emit_res};
+  return cedar::ring_dtype(dtype, cedar::kLaunch, ci, nullptr, so, b, q_in,
+                           q_out, res, cb, d, nine, cedar::kRestrict, p,
+                           (cudaStream_t)stream);
 }
 
 // K13: q_out = one sweep of q_in + P qc + (b - A q_in) / diag; mode as
@@ -795,16 +650,10 @@ int cedar_interp_sweep2(int dtype, const void* ci, const void* qc,
                         int mode, int nt, int cz, int gw, int gc,
                         long long smem, void* stream) {
   const cedar::Plan2 p{nt, cz, gw, gc, smem};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == cedar::kFloat32)
-    return cedar::interp_planned<float>(true, ci, qc, so, b, q_in, q_out,
-                                        res, partials, nx, ny, nxc, nyc,
-                                        nine, colors, mode, p, st);
-  if (dtype == cedar::kFloat64)
-    return cedar::interp_planned<double>(true, ci, qc, so, b, q_in, q_out,
-                                         res, partials, nx, ny, nxc, nyc,
-                                         nine, colors, mode, p, st);
-  return (int)cudaErrorInvalidValue;
+  const cedar::RingDims2 d{nx, ny, nxc, nyc, cz, colors, 0};
+  return cedar::ring_dtype(dtype, cedar::kLaunch, ci, qc, so, b, q_in, q_out,
+                           res, partials, d, nine, mode, p,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

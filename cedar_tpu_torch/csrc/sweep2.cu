@@ -1,104 +1,184 @@
-// K1: 2D multicolour Gauss-Seidel sweep, one colour phase per launch,
-// plus the residual b - A q as one more launch.
+// K1: one 2D multicolour Gauss-Seidel sweep (+ the residual b - A q), one
+// launch a sweep.
 //
 // Replaces the Pallas kernel cedar_tpu/ops/pallas2.py `_sweep_kernel`
 // (called by `_point_relax_call` / `point_relax`), which runs all colour
-// phases of a sweep on a VMEM-resident row slab and optionally emits the
-// residual.  Its math is ops/relax2.py (masked phase update) and
-// ops/stencil2.py (`offdiag_apply`, `residual`) of this package.
+// phases of a sweep and the optional residual in one kernel on a
+// VMEM-resident row slab.  Its math is ops/relax2.py (masked phase update)
+// and ops/stencil2.py (`offdiag_apply`, `residual`) of this package; the
+// arithmetic comes from stencil2.cuh (`offdiag_terms2`), so a sweep equals
+// relax2.sweep_torch bit for bit.
 //
-// What bounds it on the H100: bytes.  A phase reads the coupling planes
-// (3 for 5-point, 5 for 9-point), b and the neighbouring q values and
-// writes the phase's colour of q: about 1 flop per byte, far below the
-// card's ~20 flop/byte f32 balance point.  Design: one thread per grid
-// point with non-members returning at once, consecutive threads on
-// consecutive w so every load and store is coalesced; neighbour reads of
-// a warp fall in the same or adjacent 32-byte sectors, so L1/L2 serve the
-// reuse.  A colour phase is a grid-wide dependency (phase c+1 reads what
-// phase c wrote), so phases are separate launches on one stream rather
-// than one kernel with a grid barrier.  Keeping several phases on chip
-// (temporal blocking in shared memory, as the Pallas slab does in VMEM)
-// is left to later work.
+// What bounds it on the H100: bytes at the fine levels, and below them the
+// latency of a launch and of its few dependent steps.  A sweep reads the
+// coupling planes (3 for 5-point, 5 for 9-point), b and q and writes q:
+// about 1 flop per byte.  On the V-cycle's main path K1 runs on the dense
+// levels only (256² down to 8²), where each launch costs a few µs of
+// latency whatever it moves, so a sweep is one launch at every shape, in
+// one of two regimes that the wrapper's plan picks (ops/cuda2.py `plan`)
+// and the launch checks:
 //
-// In-place update is race-free only because no point couples to a point
-// of its own colour: red-black for 5-point, the (w%2, z%2) 4-colouring
-// for 9-point.  The Python wrapper (ops/cuda2.py) checks the stencil kind.
+// - Resident (`sweep_resident`): a level whose stencil planes, q and b fit
+//   one block's shared memory (9-point float32 up to 90², float64 up to
+//   64²) is loaded once by cp.async (16 bytes a copy where the arrays
+//   allow), all colour phases run there with block barriers between them,
+//   then the residual; the sweep is written once, to q_out.  One block on
+//   one SM: its load is bound by what one SM can take in, so larger levels
+//   go streamed (a cluster of blocks holding a level in distributed shared
+//   memory was slower than the streamed launch at 128² and 256²; PERF.md
+//   §6).  At 64² .. 8² 9-point float32 it takes 0.0034-0.0083 device ms a
+//   sweep where the tile kernel takes 0.0044-0.0101 (PERF.md §6).
+// - Streamed (`sweep_fused`, the tile design of tile2.cuh, shared with K11):
+//   every other shape: tiles of q with a halo of one ring a phase in
+//   shared memory, the stencil and b from device memory.
 //
-// Up-shifted couplings (to z+1 or w+1) read the neighbour's stored plane
-// (W[z+1,w], S[z,w+1], NW[z+1,w], NW[z,w+1], SW[z+1,w+1]); a term whose
-// neighbour lies outside the grid is exactly zero, which is what the
-// zero-filled shifts of the reference give.
+// Both regimes work out of place: q_in is left as it was.
+//
+// No point couples to a point of its own colour (red-black for 5-point,
+// the (w%2, z%2) 4-colouring for 9-point), so a phase updates its colour
+// from the others' values in any order.  Colours anchor at global indices
+// (z + oz, w + ow).  Up-shifted couplings (to z+1 or w+1) read the
+// neighbour's stored plane (W[z+1,w], S[z,w+1], NW[z+1,w], NW[z,w+1],
+// SW[z+1,w+1]); a term whose neighbour lies outside the grid is exactly
+// zero, which is what the zero-filled shifts of the reference give.
 
-#include "stencil2.cuh"
+#include "async.cuh"
+#include "tile2.cuh"
 
 namespace cedar {
 namespace {
 
-// offdiag (Σ coupling · q(neighbour), stencil2.offsets_for order) is in
-// stencil2.cuh, shared with K10's residual.
+// threads of a resident block
+constexpr int kResThreads = 1024;
 
-// One colour phase: q = (b + Σ coupling·q_nb) * (1/O) at this colour's
-// points.  Colours anchor at global indices (z + oz, w + ow):
-//   5-point: (gz + gw) % 2 == color
-//   9-point: gw % 2 == color / 2 and gz % 2 == color % 2
-template <typename T, bool NINE>
-__global__ void sweep_phase(const T* __restrict__ so, T* q,
-                            const T* __restrict__ b, int nx, int ny,
-                            int color, int oz, int ow) {
-  using A = Arith<T>;
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  if (z >= nx || w >= ny) return;
-  const int gz = z + oz, gw = w + ow;
-  const bool member = NINE
-      ? (((gw & 1) == (color >> 1)) && ((gz & 1) == (color & 1)))
-      : (((gz + gw) & 1) == color);
-  if (!member) return;
-  const long long i = (long long)z * ny + w;
-  const T rec = A::div(T(1), so[i]);  // plane O is plane 0
-  const long long P = (long long)nx * ny;
-  q[i] = A::mul(A::add(b[i], offdiag<T, NINE>(so, q, P, z, w, nx, ny)), rec);
+// arrays a resident block holds, each nx rows of ny: the stencil planes,
+// q, b
+__host__ __device__ constexpr int resident_arrays(bool nine) {
+  return (nine ? 5 : 3) + 2;
 }
 
-// res = (b + Σ coupling·q_nb) - O·q
+// K1, resident: one sweep of the level in shared memory, q_in read once
+// and q_out written once, + res on request; vec: every array starts
+// 16-byte aligned and holds a multiple of 16 bytes.
 template <typename T, bool NINE>
-__global__ void residual(const T* __restrict__ so, const T* __restrict__ q,
-                         const T* __restrict__ b, T* __restrict__ res,
-                         int nx, int ny) {
+__global__ void __launch_bounds__(kResThreads)
+sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
+               const T* __restrict__ b, T* __restrict__ q_out,
+               T* __restrict__ res, int nx, int ny, int colors, int ncolors,
+               int oz, int ow, int emit_res, int vec) {
   using A = Arith<T>;
-  const int w = blockIdx.x * blockDim.x + threadIdx.x;
-  const int z = blockIdx.y * blockDim.y + threadIdx.y;
-  if (z >= nx || w >= ny) return;
-  const long long i = (long long)z * ny + w;
-  const long long P = (long long)nx * ny;
-  res[i] = A::sub(A::add(b[i], offdiag<T, NINE>(so, q, P, z, w, nx, ny)),
-                  A::mul(so[i], q[i]));
+  constexpr int ND = resident_arrays(NINE) - 2, QA = ND, BA = ND + 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* const sm = reinterpret_cast<T*>(smem);
+  const int N = nx * ny;  // words an array
+  const int tid = threadIdx.x, nth = blockDim.x;
+
+  // every array, 16 bytes or one element a copy
+  auto load = [&](int a, const T* src) {
+    if (vec) {
+      constexpr int V = 16 / sizeof(T);
+      for (int e = tid * V; e < N; e += nth * V)
+        copy_async16(sm + a * N + e, src + e);
+    } else {
+      for (int e = tid; e < N; e += nth)
+        copy_async(sm + a * N + e, src + e, true);
+    }
+  };
+#pragma unroll
+  for (int d = 0; d < ND; ++d) load(d, so + (long long)d * N);
+  load(QA, q_in);
+  load(BA, b);
+  commit_async();
+  wait_async<0>();
+  __syncthreads();
+
+  // Σ coupling · q at (z, w), offdiag_terms2's order, and b and the
+  // diagonal there, all from shared memory (off-grid neighbours couple by
+  // exactly zero and are not read)
+  struct Pt {
+    T off, b, diag;
+    T* q;
+  };
+  auto point = [&](int z, int w) -> Pt {
+    const int i = z * ny + w;
+    T* q0 = sm + QA * N + i;
+    const bool zl = z > 0, zh = z + 1 < nx, wl = w > 0, wh = w + 1 < ny;
+    const T off = offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
+      const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
+                      (dw < 0 ? wl : dw > 0 ? wh : true);
+      return ok ? A::mul(sm[d * N + i + (dz > 0 ? ny : 0) + (dw > 0 ? 1 : 0)],
+                         q0[dz * ny + dw])
+                : T(0);
+    });
+    return Pt{off, sm[BA * N + i], sm[i], q0};
+  };
+
+  // the colour phases: q = (b + Σ coupling·q_nb) * (1/O) at the colour's
+  // points; 5-point (z + oz + w + ow) % 2 == color, 9-point color = 2 cw +
+  // cz, rows with (z + oz) % 2 == cz, columns with (w + ow) % 2 == cw
+  const int hw = (ny + 1) / 2;  // a row's points of one column parity
+  for (int k = 0; k < ncolors; ++k) {
+    const int color = (colors >> (4 * k)) & 15;
+    const int zf = NINE ? (((color & 1) - oz) & 1) : 0;
+    const int nrows = NINE ? max(nx - zf + 1, 0) / 2 : nx;
+    for (int e = tid; e < nrows * hw; e += nth) {
+      const int z = zf + (NINE ? 2 : 1) * (e / hw);
+      const int cpar = NINE ? color >> 1 : color - (z + oz);
+      const int w = 2 * (e % hw) + ((cpar - ow) & 1);
+      if (w >= ny) continue;
+      const Pt t = point(z, w);
+      *t.q = A::mul(A::add(t.b, t.off), A::div(T(1), t.diag));
+    }
+    __syncthreads();
+  }
+
+  // q to q_out, and the residual b - A q to res
+  for (int e = tid; e < N; e += nth) {
+    q_out[e] = sm[QA * N + e];
+    if (emit_res) {
+      const Pt t = point(e / ny, e % ny);
+      res[e] = A::sub(A::add(t.b, t.off), A::mul(t.diag, *t.q));
+    }
+  }
 }
 
-template <typename T>
-int launch_phase(const void* so, void* q, const void* b, int nx, int ny,
-                 int nine, int color, int oz, int ow, cudaStream_t st) {
-  const dim3 grid = grid_for(nx, ny), block(kBlockX, kBlockY);
-  if (nine)
-    sweep_phase<T, true><<<grid, block, 0, st>>>(
-        (const T*)so, (T*)q, (const T*)b, nx, ny, color, oz, ow);
-  else
-    sweep_phase<T, false><<<grid, block, 0, st>>>(
-        (const T*)so, (T*)q, (const T*)b, nx, ny, color, oz, ow);
+template <typename T, bool NINE>
+int launch_resident(const void* so, const void* q_in, const void* b,
+                    void* q_out, void* res, int nx, int ny, int colors,
+                    int ncolors, int oz, int ow, int emit_res,
+                    long long smem, cudaStream_t st) {
+  // the plan must hold the level's arrays in one block
+  if (smem != (long long)resident_arrays(NINE) * nx * ny * sizeof(T))
+    return (int)cudaErrorInvalidValue;
+  auto fn = sweep_resident<T, NINE>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  auto a16 = [](const void* p) { return ((size_t)p & 15) == 0; };
+  const int vec = a16(so) && a16(q_in) && a16(b) &&
+                  ((long long)nx * ny * sizeof(T)) % 16 == 0;
+  fn<<<1, kResThreads, smem, st>>>((const T*)so, (const T*)q_in, (const T*)b,
+                                   (T*)q_out, (T*)res, nx, ny, colors,
+                                   ncolors, oz, ow, emit_res, vec);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_residual(const void* so, const void* q, const void* b, void* res,
-                    int nx, int ny, int nine, cudaStream_t st) {
-  const dim3 grid = grid_for(nx, ny), block(kBlockX, kBlockY);
-  if (nine)
-    residual<T, true><<<grid, block, 0, st>>>(
-        (const T*)so, (const T*)q, (const T*)b, (T*)res, nx, ny);
-  else
-    residual<T, false><<<grid, block, 0, st>>>(
-        (const T*)so, (const T*)q, (const T*)b, (T*)res, nx, ny);
-  return (int)cudaGetLastError();
+int launch(const void* so, const void* q_in, const void* b, void* q_out,
+           void* res, int nx, int ny, int nine, int colors, int ncolors,
+           int oz, int ow, int emit_res, long long smem, cudaStream_t st) {
+  if (q_in == q_out) return (int)cudaErrorInvalidValue;
+  if (smem == 0) {
+    // streamed: the tile kernel, on static shared memory
+    return launch_sweep<T>(so, q_in, b, q_out, res, nullptr, nx, ny, nine,
+                           colors, ncolors, oz, ow, emit_res ? kRes : kNone,
+                           st);
+  }
+  auto fn = nine ? launch_resident<T, true> : launch_resident<T, false>;
+  return fn(so, q_in, b, q_out, res, nx, ny, colors, ncolors, oz, ow,
+            emit_res, smem, st);
 }
 
 }  // namespace
@@ -106,26 +186,24 @@ int launch_residual(const void* so, const void* q, const void* b, void* res,
 
 extern "C" {
 
-// One colour phase of the sweep, in place on q.  Returns cudaGetLastError().
-int cedar_sweep2_phase(int dtype, const void* so, void* q, const void* b,
-                       int nx, int ny, int nine, int color, int oz, int ow,
-                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == cedar::kFloat32)
-    return cedar::launch_phase<float>(so, q, b, nx, ny, nine, color, oz, ow, st);
-  if (dtype == cedar::kFloat64)
-    return cedar::launch_phase<double>(so, q, b, nx, ny, nine, color, oz, ow, st);
-  return (int)cudaErrorInvalidValue;
-}
+// The threads of a resident K1 block.
+int cedar_sweep2_threads() { return cedar::kResThreads; }
 
-// res = b - A q.  Returns cudaGetLastError().
-int cedar_residual2(int dtype, const void* so, const void* q, const void* b,
-                    void* res, int nx, int ny, int nine, void* stream) {
+// One whole sweep of q_in into q_out, another array (res = b - A q_out
+// when emit_res), on the plan of ops/cuda2.py `plan`: the bytes of the one
+// block that holds the level (resident), or smem = 0 (streamed).  Returns
+// a CUDA error code (0 on success).
+int cedar_sweep2(int dtype, const void* so, const void* q_in, const void* b,
+                 void* q_out, void* res, int nx, int ny, int nine, int colors,
+                 int ncolors, int oz, int ow, int emit_res, long long smem,
+                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == cedar::kFloat32)
-    return cedar::launch_residual<float>(so, q, b, res, nx, ny, nine, st);
+    return cedar::launch<float>(so, q_in, b, q_out, res, nx, ny, nine, colors,
+                                ncolors, oz, ow, emit_res, smem, st);
   if (dtype == cedar::kFloat64)
-    return cedar::launch_residual<double>(so, q, b, res, nx, ny, nine, st);
+    return cedar::launch<double>(so, q_in, b, q_out, res, nx, ny, nine,
+                                 colors, ncolors, oz, ow, emit_res, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -37,11 +37,14 @@ __device__ __forceinline__ CI<T> ci_of(const T* __restrict__ ci_p, int p,
 }
 
 // cb[zc, wc] = res(2zc, 2wc) + Σ weight · res(2zc+du, 2wc+dv), in
-// interp2.PW_TABLE order; res(z, w) is the fine value, zero outside the
-// grid (a functor, so that it can read device memory or a shared tile).
-template <typename T, typename Fine>
-__device__ __forceinline__ T restrict_value(const CI<T>& ci, const Fine& res,
-                                            int zc, int wc) {
+// interp2.PW_TABLE order; ci(d, k, m) is the weight and res(z, w) the fine
+// value, zero outside the grid (functors, so that they can read device
+// memory or K12's shared-memory rings).
+template <typename Ci, typename Fine>
+__device__ __forceinline__ auto restrict_value(const Ci& ci, const Fine& res,
+                                               int zc, int wc)
+    -> decltype(res(0, 0)) {
+  using T = decltype(res(0, 0));
   using A = Arith<T>;
   const int z = 2 * zc, w = 2 * wc;
   T acc = res(z, w);

@@ -1,30 +1,72 @@
 """K1: the 2D multicolour sweep kernel (CUDA) and its plain version.
 
 Counterpart of :mod:`cedar_tpu.ops.pallas2`.  :func:`sweep` launches
-``csrc/sweep2.cu`` once per colour phase (and once more for the fused
-residual) on the tensors' current stream; :func:`sweep_plain` computes the
-same function in torch ops (:func:`cedar_tpu_torch.ops.relax2.sweep_torch`).
+``csrc/sweep2.cu`` once a sweep (all colour phases, and the residual with
+``fuse_residual``) on the tensors' current stream, on a :func:`plan` that
+this module computes from the shapes and the launch checks: a level whose
+stencil planes, q and b fit one block's shared memory is swept there
+(resident), every other one by the tile kernel it shares with K11
+(streamed).  :func:`sweep_plain` computes the same function in torch ops
+(:func:`cedar_tpu_torch.ops.relax2.sweep_torch`).
 :func:`cedar_tpu_torch.ops.relax2.point_relax` picks one by device.
 
-Both update ``q`` in place.  ``launches`` counts kernel launches made by
-:func:`sweep`, ``plain_calls`` calls of :func:`sweep_plain`.
+Both return the swept iterate in a new tensor and leave ``q`` as it
+was, as the JAX function does.  ``launches`` counts the streamed launches
+made by :func:`sweep`, ``resident_launches`` the resident ones,
+``plain_calls`` calls of :func:`sweep_plain`.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
 from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import cuda_build, relax2
+from cedar_tpu_torch.ops.cuda_build import BLOCK_SMEM
 
 launches = 0
+resident_launches = 0
 plain_calls = 0
+
+#: threads of a resident block (csrc/sweep2.cu ``kResThreads``)
+THREADS = 1024
+
+
+def resident_bytes(itemsize: int, nine: bool, shape) -> int:
+    """Shared memory of a resident block that holds a level's stencil
+    planes (3 or 5), q and b."""
+    nx, ny = shape
+    return ((5 if nine else 3) + 2) * nx * ny * itemsize
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A K1 launch: resident (``smem`` the bytes of the one block that holds
+    the level) or streamed (``smem`` 0: the tile kernel, on static shared
+    memory)."""
+    smem: int
+
+    @property
+    def resident(self) -> bool:
+        return self.smem > 0
+
+
+@functools.lru_cache(maxsize=256)
+def plan(itemsize: int, nine: bool, shape) -> Plan:
+    """The K1 launch on an ``(nx, ny)`` grid: resident where the level's
+    arrays fit one block's shared memory, else streamed."""
+    size = resident_bytes(itemsize, nine, shape)
+    return Plan(size if size <= BLOCK_SMEM else 0)
 
 
 def _check_sweep(so, q, b, kind: StencilKind) -> None:
     if kind not in (StencilKind.five_pt, StencilKind.nine_pt):
-        # in-place phases are race-free only for colourings in which no
-        # point couples to its own colour: red-black 5-pt, 4-colour 9-pt
+        # a phase updates its colour from the others' values only for
+        # colourings in which no point couples to its own colour: red-black
+        # 5-pt, 4-colour 9-pt
         raise ValueError(f"sweep takes 2D five_pt or nine_pt, not {kind}")
     if q.ndim != 2 or b.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)} and b {tuple(b.shape)}")
@@ -39,47 +81,52 @@ def _check_sweep(so, q, b, kind: StencilKind) -> None:
 def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
           kind: StencilKind, updown: str, fuse_residual: bool = False,
           origin=(0, 0)):
-    """One full multicolour GS sweep on the card, ``q`` updated in place.
+    """One full multicolour GS sweep on the card, one launch, out of place.
 
-    Returns ``q``, or ``(q, res)`` with ``fuse_residual``."""
-    global launches
+    Returns the swept iterate, or ``(q_new, b - A q_new)`` with
+    ``fuse_residual``; ``q`` is left as it was."""
+    _check_sweep(so, q, b, kind)
+    p = plan(q.element_size(), kind == StencilKind.nine_pt, tuple(q.shape))
+    return _sweep(p, so, q, b, kind, updown, fuse_residual, origin)
+
+
+def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
+           origin=(0, 0)):
+    """:func:`sweep` on the plan ``p`` (tools/tune_fused2.py times both
+    regimes at one shape)."""
+    global launches, resident_launches
     _check_sweep(so, q, b, kind)
     dt = cuda_build.check_operands(so, q, b)
     lib = cuda_build.load("sweep2")
-    stream = cuda_build.stream_of(q)
-    nx, ny = q.shape
-    nine = int(kind == StencilKind.nine_pt)
+    nine = kind == StencilKind.nine_pt
+    q_out = torch.empty_like(q)
+    res = torch.empty_like(q) if fuse_residual else None
+    colors, ncolors = relax2.pack_colors(kind, updown)
     oz, ow = (int(o) for o in origin)
-    for c in relax2.color_order(kind, updown):
-        color = 2 * c[0] + c[1] if nine else c
-        cuda_build.check(
-            lib.cedar_sweep2_phase(dt, so.data_ptr(), q.data_ptr(),
-                                   b.data_ptr(), nx, ny, nine, color, oz, ow,
-                                   stream),
-            "sweep2 phase",
-        )
-        launches += 1
-    if not fuse_residual:
-        return q
-    res = torch.empty_like(q)
+    nx, ny = q.shape
     cuda_build.check(
-        lib.cedar_residual2(dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
-                            res.data_ptr(), nx, ny, nine, stream),
-        "sweep2 residual",
+        lib.cedar_sweep2(dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
+                         q_out.data_ptr(),
+                         None if res is None else res.data_ptr(), nx, ny,
+                         int(nine), colors, ncolors, oz, ow,
+                         int(fuse_residual), p.smem,
+                         cuda_build.stream_of(q)),
+        "sweep2",
     )
-    launches += 1
-    return q, res
+    if p.resident:
+        resident_launches += 1
+    else:
+        launches += 1
+    return (q_out, res) if fuse_residual else q_out
 
 
 def sweep_plain(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
                 kind: StencilKind, updown: str, fuse_residual: bool = False,
                 origin=(0, 0), recip=None):
-    """:func:`sweep` in torch ops, on any device; ``q`` updated in place."""
+    """:func:`sweep` in torch ops, on any device; returns new tensors and
+    leaves ``q`` as it was."""
     global plain_calls
     plain_calls += 1
     _check_sweep(so, q, b, kind)
-    out = relax2.sweep_torch(so, q, b, recip, kind, updown, fuse_residual,
-                             origin)
-    if fuse_residual:
-        return q.copy_(out[0]), out[1]
-    return q.copy_(out)
+    return relax2.sweep_torch(so, q, b, recip, kind, updown, fuse_residual,
+                              origin)

@@ -39,8 +39,10 @@ _L = ctypes.c_longlong
 #: C entry points of each source, name -> argtypes (all return int)
 SIGNATURES = {
     "sweep2": {
-        "cedar_sweep2_phase": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "cedar_residual2": [_I, _P, _P, _P, _P, _I, _I, _I, _P],
+        "cedar_sweep2_threads": [],
+        # ends with its plan: smem (0: streamed)
+        "cedar_sweep2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _I, _L, _P],
     },
     "transfer2": {
         "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
@@ -56,12 +58,13 @@ SIGNATURES = {
         "cedar_fused2_partials": [_I, _I, _I],
         "cedar_sweep2_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _I, _P],
-        "cedar_sweep_restrict2": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _P],
         "cedar_fused2_threads": [],
         "cedar_fused2_ahead": [],
-        "cedar_fused2_interp_smem": [_I, _I, _I],
-        # K13 ends with its plan: nt, cz, gw, gc, smem
+        "cedar_fused2_smem": [_I, _I, _I, _I],
+        # K12 and K13 end with their plan: nt, cz, gw, gc, smem
+        "cedar_sweep_restrict2": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                  _I, _I, _I, _I, _I, _I, _I, _I, _I, _L,
+                                  _P],
         "cedar_interp_sweep2": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
     },

@@ -16,11 +16,12 @@ All of them read ``q`` and return a new iterate: a kernel block reads
 kernels work out of place.  ``*_launches`` count kernel launches,
 ``*_plain_calls`` plain-version calls.
 
-K13 launches on a :func:`plan` that this module computes from the shapes
-and the card's SM count and passes to the kernel: threads a block (a
-strip of twice as many region columns; :data:`THREADS`), rows a chunk,
-the grid and the shared-memory bytes (the launch checks them against the
-kernel's own), and so the number of norm partials.
+K12 and K13 (the row march) launch on a :func:`plan` that this module
+computes from the shapes and the card's SM count and passes to the kernel:
+threads a block (a strip of twice as many region columns;
+:data:`THREADS`), rows a chunk, the grid and the shared-memory bytes (the
+launch checks them against the kernel's own), and so the number of K13's
+norm partials.
 """
 
 from __future__ import annotations
@@ -42,39 +43,53 @@ sweep_plain_calls = 0
 sweep_restrict_plain_calls = 0
 interp_sweep_plain_calls = 0
 
-# output modes of K11 and K13 (csrc/fused2.cu)
-_NONE, _RES, _NORM = 0, 1, 2
-#: K13's threads a block and the steps between a copy and its first read
+# output modes of K11 and K13, and K12's epilogue (csrc/fused2.cu)
+_NONE, _RES, _NORM, _RESTRICT = 0, 1, 2, 3
+#: K12's and K13's threads a block and the steps between a copy and its
+#: first read
 #: (csrc/fused2.cu ``kRingThreads``, ``kAhead``; tools/tune_fused2.py
 #: builds others with ``-DCEDAR_FUSED2_THREADS``, ``-DCEDAR_FUSED2_AHEAD``)
 THREADS, AHEAD = 128, 1
 
 
 def halo(nine: bool, mode: int) -> int:
-    """K13's halo H in rows and columns: the interpolation stage, the
-    colour phases (2 or 4) and the residual or norm epilogue."""
-    return 1 + (4 if nine else 2) + (mode != _NONE)
+    """The halo H in rows and columns of K13 (modes ``_NONE``, ``_RES``,
+    ``_NORM``: the interpolation stage, the colour phases (2 or 4) and the
+    residual or norm epilogue) or K12 (``_RESTRICT``: the colour phases,
+    the residual and the restriction's low row and column)."""
+    phases = 4 if nine else 2
+    if mode == _RESTRICT:
+        return phases + 2
+    return 1 + phases + (mode != _NONE)
 
 
-def interp_words(nine: bool, mode: int, nt: int = THREADS,
-                 ahead: int = AHEAD) -> int:
-    """Shared-memory words of a K13 block of ``nt`` threads, copies
-    ``ahead`` steps ahead (csrc/fused2.cu ``Ring2::words``): rings of 2
-    nt-column rows of the swept q (H + 1), q_pre (3 + ahead), the stencil
-    planes and b (H + 1 + ahead slots of 4 or 6 rows), two coarse rows of
-    the 8 CI weights and three of qc over nt + 2 coarse columns."""
+def ring_words(nine: bool, mode: int, nt: int = THREADS,
+               ahead: int = AHEAD) -> int:
+    """Shared-memory words of a K12 (``mode`` ``_RESTRICT``) or K13 block
+    of ``nt`` threads, copies ``ahead`` steps ahead (csrc/fused2.cu
+    ``Ring2::WORDS``), in rows of 2 nt columns.  K13: rings of the swept q
+    (H + 1 rows), q_pre (3 + ahead), the stencil planes and b (H + 1 +
+    ahead slots of 4 or 6 rows), then two coarse rows of the 8 CI weights
+    and three of qc over nt + 2 coarse columns.  K12 (SE = H - 1, the
+    residual's stage): rings of q (SE + 2 + ahead), the stencil planes and
+    b (SE + 1 + ahead slots), the residual (4 rows), then three coarse rows
+    of the 8 CI weights, laid out over nt + 2 coarse columns."""
     h = halo(nine, mode)
     nsb = (5 if nine else 3) + 1
+    if mode == _RESTRICT:
+        se = h - 1
+        return (2 * nt * ((se + 2 + ahead) + (se + 1 + ahead) * nsb + 4)
+                + 24 * (nt + 2))
     return (2 * nt * ((h + 1) + (3 + ahead) + (h + 1 + ahead) * nsb)
             + 19 * (nt + 2))
 
 
 @dataclass(frozen=True)
 class Plan:
-    """A K13 launch: blocks of ``nt`` threads on strips of ``tw`` owned
-    columns (``2 nt`` region columns, a halo of ``h``) and chunks of ``cz``
-    rows, a ``(gw, gc)`` grid, ``smem`` bytes a block, ``per_sm`` blocks
-    resident an SM."""
+    """A K12 or K13 launch: blocks of ``nt`` threads on strips of ``tw``
+    owned columns (``2 nt`` region columns, a halo of ``h``) and chunks of
+    ``cz`` rows, a ``(gw, gc)`` grid, ``smem`` bytes a block, ``per_sm``
+    blocks resident an SM."""
     nt: int
     tw: int
     h: int
@@ -93,16 +108,18 @@ class Plan:
 @functools.lru_cache(maxsize=256)
 def plan(itemsize: int, nine: bool, mode: int, shape, n_sm: int = 132,
          build: tuple[int, int] = (THREADS, AHEAD)) -> Plan:
-    """The K13 launch on an ``(nx, ny)`` grid for a card of ``n_sm`` SMs,
-    for the kernel ``build`` (its threads a block and the steps its copies
-    run ahead, :func:`_build_of`): the chunk of rows whose grid runs in
-    whole waves of resident blocks."""
+    """The launch of K13 (``mode`` an output mode) or K12 (``mode``
+    ``_RESTRICT``) on an ``(nx, ny)`` grid for a card of ``n_sm`` SMs, for
+    the kernel ``build`` (its threads a block and the steps its copies run
+    ahead, :func:`_build_of`): the chunk of rows whose grid runs in whole
+    waves of resident blocks (even, so that K12's chunks start at even
+    rows)."""
     nx, ny = shape
     nt, ahead = build
     h = halo(nine, mode)
-    size = interp_words(nine, mode, nt, ahead) * itemsize
+    size = ring_words(nine, mode, nt, ahead) * itemsize
     if size > BLOCK_SMEM:
-        raise ValueError(f"a K13 block of {nt} threads does not fit")
+        raise ValueError(f"a K12/K13 block of {nt} threads does not fit")
     tw = 2 * nt - 2 * h
     per_sm = min(2048 // nt, 32, SM_SMEM // (size + 1024))
     gw = -(-ny // tw)
@@ -112,8 +129,8 @@ def plan(itemsize: int, nine: bool, mode: int, shape, n_sm: int = 132,
 
 @functools.lru_cache(maxsize=None)
 def _build_of(lib) -> tuple[int, int]:
-    """The threads a K13 block and the steps ahead of a K13 copy of the
-    build ``lib``, read once."""
+    """The threads a K12/K13 block and the steps ahead of their copies in
+    the build ``lib``, read once."""
     return lib.cedar_fused2_threads(), lib.cedar_fused2_ahead()
 
 
@@ -139,16 +156,6 @@ def _check_qc(ci, qc, fine_shape) -> tuple[int, int]:
     if tuple(qc.shape) != nc:
         raise ValueError(f"qc {tuple(qc.shape)}, expected {nc}")
     return nc
-
-
-def _colors(kind: StencilKind, updown: str) -> tuple[int, int]:
-    """The colour codes of :func:`relax2.color_order`, packed 4 bits each
-    in sweep order (5-point parity; 9-point ``2 cw + cz``), and their
-    count."""
-    order = relax2.color_order(kind, updown)
-    codes = [2 * c[0] + c[1] if kind == StencilKind.nine_pt else c
-             for c in order]
-    return sum(code << (4 * k) for k, code in enumerate(codes)), len(codes)
 
 
 def _mode(fuse_residual: bool, fuse_norm: bool) -> int:
@@ -192,7 +199,7 @@ def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
     lib = cuda_build.load("fused2")
     mode = _mode(fuse_residual, fuse_norm)
     q_out, extra = _outputs(lib, q, kind, mode)
-    colors, ncolors = _colors(kind, updown)
+    colors, ncolors = relax2.pack_colors(kind, updown)
     oz, ow = (int(o) for o in origin)
     nx, ny = q.shape
     cuda_build.check(
@@ -212,24 +219,33 @@ def sweep_restrict(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
                    emit_res: bool = True):
     """K12: the sweep, its residual and ``cb = Pᵀ res`` on the card; returns
     ``(q_new, res or None, cb)``."""
+    return _sweep_restrict(None, so, q, b, ci, kind, updown, emit_res)
+
+
+def _sweep_restrict(lib, so, q, b, ci, kind, updown, emit_res=True):
+    """:func:`sweep_restrict` with the library ``lib`` (a build of
+    csrc/fused2.cu; None: the default one), as tools/tune_fused2.py times
+    it."""
     global sweep_restrict_launches
     _check(so, q, b, kind)
     nxc, nyc = _coarse_shape(ci, q.shape)
     dt = cuda_build.check_operands(so, q, b, ci)
-    lib = cuda_build.load("fused2")
+    lib = lib or cuda_build.load("fused2")
+    nine = kind == StencilKind.nine_pt
+    p = plan(q.element_size(), nine, _RESTRICT, tuple(q.shape),
+             _n_sm(q.device), _build_of(lib))
     q_out = torch.empty_like(q)
     res = torch.empty_like(q) if emit_res else None
     cb = q.new_empty((nxc, nyc))
-    colors, ncolors = _colors(kind, updown)
+    colors, _ = relax2.pack_colors(kind, updown)
     nx, ny = q.shape
     cuda_build.check(
         lib.cedar_sweep_restrict2(dt, so.data_ptr(), q.data_ptr(),
                                   b.data_ptr(), ci.data_ptr(),
                                   q_out.data_ptr(), _ptr(res), cb.data_ptr(),
-                                  nx, ny, nxc, nyc,
-                                  int(kind == StencilKind.nine_pt), colors,
-                                  ncolors, int(emit_res),
-                                  cuda_build.stream_of(q)),
+                                  nx, ny, nxc, nyc, int(nine), colors,
+                                  int(emit_res), p.nt, p.cz, p.gw, p.gc,
+                                  p.smem, cuda_build.stream_of(q)),
         "sweep_restrict2",
     )
     sweep_restrict_launches += 1
@@ -261,7 +277,7 @@ def _interp_sweep(lib, ci, qc, so, b, q_pre, kind, updown,
     p = plan(q_pre.element_size(), nine, mode, tuple(q_pre.shape),
              _n_sm(q_pre.device), _build_of(lib))
     q_out, extra = _outputs(lib, q_pre, kind, mode, p.blocks)
-    colors, _ = _colors(kind, updown)
+    colors, _ = relax2.pack_colors(kind, updown)
     nx, ny = q_pre.shape
     cuda_build.check(
         lib.cedar_interp_sweep2(dt, ci.data_ptr(), qc.data_ptr(),

@@ -16,10 +16,9 @@ versions below, which compose the plain versions of the dense ops
 (:func:`relax2.sweep_torch`, :func:`stencil2.residual`,
 :func:`interp2.restrict_torch`, :func:`interp2.interp_add_torch`).
 
-Unlike the dense sweep and interp-add, :func:`point_relax_split`,
-:func:`sweep_restrict_split` and :func:`interp_sweep_split` leave ``q``
-alone and return a new iterate (the kernels read ``q`` over a halo that
-other blocks would be writing).  ``partials`` is a 1-D tensor whose sum is
+Unlike interp-add, :func:`point_relax_split`, :func:`sweep_restrict_split`
+and :func:`interp_sweep_split` leave ``q`` alone and return a new iterate
+(the kernels read ``q`` over a halo that other blocks would be writing).  ``partials`` is a 1-D tensor whose sum is
 ``‖b − A q_new‖²``: one partial sum per kernel block on the card, a single
 element in the plain version.
 """

@@ -14,11 +14,15 @@ reference (BMG2_SymStd_relax_GS.f90):
 Colours anchor to GLOBAL indices ``(z + origin[0], w + origin[1])``.
 
 :func:`point_relax` dispatches by device: a CUDA tensor goes to the sweep
-kernel (:mod:`cedar_tpu_torch.ops.cuda2`), a CPU tensor to its plain
-version, which runs :func:`sweep_torch`.
+kernel (:mod:`cedar_tpu_torch.ops.cuda2`, one launch a sweep), a CPU tensor
+to its plain version, which runs :func:`sweep_torch`.  Either way it
+returns the swept iterate in a new tensor and leaves ``q`` as it was, as
+the JAX function does: callers rebind it.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -38,6 +42,16 @@ def color_order(kind: StencilKind, updown: str):
         return [0, 1] if updown == "down" else [1, 0]
     order = [(0, 0), (0, 1), (1, 0), (1, 1)]
     return order if updown == "down" else order[::-1]
+
+
+@functools.lru_cache(maxsize=None)
+def pack_colors(kind: StencilKind, updown: str) -> tuple[int, int]:
+    """The colour codes of :func:`color_order` packed 4 bits each in sweep
+    order (5-point parity; 9-point ``2 cw + cz``), as the sweep kernels
+    take them, and their count."""
+    codes = [2 * c[0] + c[1] if kind == StencilKind.nine_pt else c
+             for c in color_order(kind, updown)]
+    return sum(code << (4 * k) for k, code in enumerate(codes)), len(codes)
 
 
 def color_masks(shape, kind: StencilKind, updown: str, origin=(0, 0),
@@ -74,10 +88,10 @@ def point_relax(so, q, b, recip, kind: StencilKind, updown: str,
                 fuse_residual: bool = False, origin=(0, 0)):
     """One multicolour GS sweep (all colours), DOWN or UP ordering.
 
-    Updates ``q`` IN PLACE and returns it; with ``fuse_residual`` returns
-    ``(q, b - A q)`` of the swept iterate.  Callers that still need the
-    incoming ``q`` clone it first.  ``recip`` (``1/diag``) feeds the CPU
-    path; the CUDA kernel forms ``1/diag`` itself, with the same rounding.
+    Returns the swept iterate, a new tensor; with ``fuse_residual`` returns
+    ``(q_new, b - A q_new)``.  ``q`` is left as it was on both devices.
+    ``recip`` (``1/diag``) feeds the CPU path; the CUDA kernel forms
+    ``1/diag`` itself, with the same rounding.
     """
     from cedar_tpu_torch.ops import cuda2
 

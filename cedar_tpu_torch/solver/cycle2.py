@@ -19,8 +19,10 @@ pre-smooths and the residual that feeds the restriction in one call, as
 the JAX package does under ``_line_fused_ok``, and all post-smooths in
 another.
 
-Sweeps and interpolation update the iterate in place: ``ncycle`` and the
-dense ``run_cycle`` overwrite the ``x`` they are given.
+Each op returns the new iterate and the cycles rebind it.  Interpolation
+and line smoothing update the iterate in place (a point sweep does not):
+so ``ncycle`` and the dense ``run_cycle`` may overwrite the ``x`` they
+are given, and their callers clone it first.
 
 The fused fine-level V-cycle (:func:`ncycle_split`, the counterpart of the
 JAX package's split-resident cycle, under ``kernels.fine-split`` on the
@@ -281,8 +283,8 @@ def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
 def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
               settings: MLSettings):
     """One cycle of the configured type (reference: multilevel.h:289-296);
-    returns the new iterate.  The dense V-cycle overwrites ``x``, the fused
-    one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
+    returns the new iterate.  The dense V-cycle may overwrite ``x``, the
+    fused one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
     if len(levels) == 1:
         return cg.solve_cg(levels[0].ainv, b)
     if settings.cycle == CycleType.f:

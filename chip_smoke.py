@@ -17,7 +17,11 @@ Phases (each raises on failure; nothing is caught):
 3. kernel against plain version for the sweep (K1), restrict (K2),
    interp-add (K3), zebra line sweep (K4: x and y) and interp (K5) at
    (4096, 4096), (2049, 2049) and (2048, 2048) in float32 and (400, 400)
-   and (1025, 771) in float64, and the line sweep (K4, bit-equal) also on
+   and (1025, 771) in float64, and the sweep (K1, bit-equal, one launch a
+   sweep: DOWN and UP, with and without the residual and an origin, q
+   left as it was) also at the main path's dense levels, the 400² gate's levels, the edges of
+   its resident regime and a few points (SWEEP_SHAPES), float32 and
+   float64, and the line sweep (K4, bit-equal) also on
    lines of 63, 64 and 65 points, of lengths that are not a multiple of
    the PCR stride, and on lines too long for shared memory (LINE_SHAPES);
    then the 3D sweep (K6), restrict (K7),
@@ -33,10 +37,10 @@ Phases (each raises on failure; nothing is caught):
    sweep-residual-restrict (K12) and interp-add-sweep (K13), at the 2D
    shapes and (5, 4) float64, 5- and 9-point, DOWN and UP, every output
    mode, K11 with and without an origin: q, the residual and cb bit-equal,
-   the norm's partial sums to rtol NORM_RTOL, and K13 also at the edges of
-   its strips and chunks (EDGE2), after a check that the wrapper's launch
-   plan sizes its shared memory as the kernel lays it out; then the fused
-   3D kernels,
+   the norm's partial sums to rtol NORM_RTOL, K12 and K13 also at the
+   edges of their strips and chunks (EDGE2) and K12 at the main path's
+   fused levels, after a check that the wrappers' launch plans size shared
+   memory as the kernels lay it out; then the fused 3D kernels,
    sweep (K14), sweep-residual-restrict (K15) and interp-add-sweep (K16),
    at the 3D shapes and (5, 4, 3) float64, both kinds, DOWN and UP, every
    output mode, K14 with and without an origin, K15 with and without the
@@ -60,10 +64,12 @@ Phases (each raises on failure; nothing is caught):
    8³ Poisson plane-xyz, a 12x10x9 ``fe3`` 27-point plane-yz solve;
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
-   every kernel's launch count and the launches of one cycle; the
-   convergence rate on A x = 0 from a random start; then the per-cycle
-   time; then the same solve with the dense cycle (``kernels.fine-split``
-   false) and the fused V(2,2), with launches and per-cycle time;
+   every kernel's launch count and the launches of one cycle (K1 twice a
+   dense level, streamed or resident as its plan says, at most 32
+   launches in all); the convergence rate on A x
+   = 0 from a random start; then the per-cycle time; then the same solve
+   with the dense cycle (``kernels.fine-split`` false) and the fused
+   V(2,2), with launches and per-cycle time;
 5b. the 2D slices at full width: ``2d_fe_9pt_linexy_2048`` and
    ``2d_poisson_fcycle_4096`` (``bench.py``'s configurations), each with
    setup, a solve, launch counts, per-cycle time and peak memory, and the
@@ -78,13 +84,17 @@ Phases (each raises on failure; nothing is caught):
    of one cycle, K10's asserted;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
-   H100's data-sheet rates; K10 and the batched K2/K3 at (64, 128, 128);
+   H100's data-sheet rates; K1's resident regime at 64² 9-point (its
+   own entry, ``sweep2_resident``, in the kernel table; ``sweep2`` is the
+   streamed one); K10 and the batched K2/K3 at (64, 128, 128);
    K12 and K13 against the dense sequences they replace (K1 with the
    residual, then K2; K3, then K1; K13 also 9-point at 2048²); K14-K16 at
    256³ 7-point and 128³ 27-point (a whole 27-point K14 sweep, the fused
    27-point pre- and post-sweeps), and K15 and K16 against the dense
    sequences they replace (K6 with the residual, then K7; K8, then K6, and
-   with the residual and its norm for K16 with the norm).
+   with the residual and its norm for K16 with the norm); K1 at each of
+   the main path's dense levels and K12 at each of its fused levels, with
+   their bounds.
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
@@ -146,6 +156,13 @@ EDGE3 = [((97, 45, 131), (False,)), ((67, 33, 45), (True,)),
 EDGE2 = [((300, 997), torch.float32), ((3, 1000), torch.float32),
          ((1031, 250), torch.float64), ((2, 3), torch.float64),
          ((777, 513), torch.float32), ((4, 260), torch.float64)]
+# K1's further shapes, float32 and float64: the main path's dense levels
+# (256² .. 8²), the 400² gate's (25², 13², 7²), the edges of the resident
+# regime (90²: 9-point float32 in one block; 64²: 9-point float64; 65²,
+# 91² streamed) and a few points
+SWEEP_SHAPES = [(256, 256), (128, 128), (64, 64), (32, 32), (16, 16), (8, 8),
+                (25, 25), (13, 13), (7, 7), (90, 90), (91, 91), (65, 65),
+                (5, 4), (2, 3)]
 # K4's further shapes: lines of 63 (LDLᵀ), 64 and 65 points (PCR), lengths
 # that are not a multiple of the PCR stride (1000, 777), and lines too long
 # for shared memory (9000 f32, 5000 f64: a device-memory scratch)
@@ -161,7 +178,9 @@ SHAPES_B = [((64, 128, 128), torch.float32), ((7, 33, 21), torch.float64),
 SHAPES_BT = [((64, 128, 128), torch.float32), ((5, 33, 17), torch.float64)]
 # every row of the TPU kernel table (PERF.md) a kernel covers
 REPLACES = {
+    # K1 in its two regimes: streamed (the tile kernel) and resident
     "sweep2": "cedar_tpu/ops/pallas2.py:137",
+    "sweep2_resident": "cedar_tpu/ops/pallas2.py:137",
     "restrict2": "cedar_tpu/ops/pallas_transfer2.py:126",
     # row 7 (the split interp-add) is K3's function in the dense layout
     "interp_add2": ("cedar_tpu/ops/pallas_transfer2.py:256, "
@@ -193,6 +212,7 @@ REPLACES = {
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
+    "sweep2_resident": "cedar_tpu_torch/csrc/sweep2.cu",
     "restrict2": "cedar_tpu_torch/csrc/transfer2.cu",
     "interp_add2": "cedar_tpu_torch/csrc/transfer2.cu",
     "line2": "cedar_tpu_torch/csrc/lines2.cu",
@@ -210,6 +230,8 @@ SOURCES = {
     "interp_sweep3": "cedar_tpu_torch/csrc/fused3.cu",
 }
 KERNELS = tuple(REPLACES)
+# K1 launched in either regime
+K1 = ("sweep2", "sweep2_resident")
 # full widths: the V-cycle main path and the F-cycle at N_MAIN², line-xy
 # at N_LINES², the 3D 7-point V- and F-cycle at N_3D³ and the 27-point
 # V-cycle at N_27³, plane-xy at N_PLANES³ (bench.py's configurations)
@@ -234,6 +256,7 @@ DEV = torch.device("cuda", 0)
 def counts() -> dict:
     return {
         "sweep2": cuda2.launches,
+        "sweep2_resident": cuda2.resident_launches,
         "restrict2": cuda_transfer2.restrict_launches,
         "interp_add2": cuda_transfer2.interp_launches,
         "line2": cuda_lines2.launches,
@@ -250,6 +273,7 @@ def counts() -> dict:
         "sweep_restrict3": cuda_fused3.sweep_restrict_launches,
         "interp_sweep3": cuda_fused3.interp_sweep_launches,
         "sweep2_plain": cuda2.plain_calls,
+        "sweep2_resident_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
         "interp_add2_plain": cuda_transfer2.interp_plain_calls,
         "line2_plain": cuda_lines2.plain_calls,
@@ -269,7 +293,7 @@ def counts() -> dict:
 
 
 def reset_counts() -> None:
-    cuda2.launches = cuda2.plain_calls = 0
+    cuda2.launches = cuda2.resident_launches = cuda2.plain_calls = 0
     cuda_transfer2.restrict_launches = cuda_transfer2.interp_launches = 0
     cuda_transfer2.restrict_plain_calls = 0
     cuda_transfer2.interp_plain_calls = 0
@@ -294,9 +318,10 @@ def reset_counts() -> None:
 
 
 def require_launched(c: dict, names, what: str) -> None:
-    """Each kernel of ``names`` launched, and no plain version ran."""
+    """Each kernel of ``names`` launched (a tuple of names: one of them),
+    and no plain version ran."""
     for k in names:
-        if c[k] <= 0:
+        if sum(c[n] for n in (k if isinstance(k, tuple) else (k,))) <= 0:
             raise AssertionError(f"{what} did not launch {k}")
     for k in KERNELS:
         if c[k + "_plain"] != 0:
@@ -381,26 +406,11 @@ def phase_kernels() -> dict:
     errs = dict.fromkeys(KERNELS, 0.0)
     for i, (shape, dtype) in enumerate(SHAPES):
         tag = f"{shape} {str(dtype).replace('torch.', '')}"
-        odd = shape == (1025, 771)
         for nine in (False, True):
             so, q, b, kind = random_problem(shape, nine, dtype, 100 + i)
             pts = "9pt" if nine else "5pt"
-            origins = [(0, 0), (1, 2)] if odd else [(0, 0)]
-            for updown in ("down", "up"):
-                for fuse in (False, True):
-                    for origin in origins:
-                        got = cuda2.sweep(so, q.clone(), b, kind, updown,
-                                          fuse, origin)
-                        want = cuda2.sweep_plain(so, q.clone(), b, kind,
-                                                 updown, fuse, origin)
-                        what = (f"K1 sweep2 {pts} {updown} fuse={int(fuse)}"
-                                f" origin={origin} {tag}")
-                        if fuse:
-                            e = max(compare(what + " q", got[0], want[0]),
-                                    compare(what + " res", got[1], want[1]))
-                        else:
-                            e = compare(what, got, want)
-                        errs["sweep2"] = max(errs["sweep2"], e)
+            k, e = compare_sweep(so, q, b, kind, pts, tag)
+            errs[k] = max(errs[k], e)
             ci = interp2.setup_interp(so, kind)
             nc = (ci.shape[1] - 1, ci.shape[2] - 1)
             g = torch.Generator(device=DEV).manual_seed(200 + i)
@@ -427,7 +437,41 @@ def phase_kernels() -> dict:
             pts = "9pt" if nine else "5pt"
             errs["line2"] = max(errs["line2"],
                                 compare_lines(so, q, b, kind, pts, tag))
+    for i, (shape, dtype) in enumerate(
+            itertools.product(SWEEP_SHAPES, (torch.float32, torch.float64))):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 1100 + i)
+            pts = "9pt" if nine else "5pt"
+            k, e = compare_sweep(so, q, b, kind, pts, tag)
+            errs[k] = max(errs[k], e)
     return errs
+
+
+def compare_sweep(so, q, b, kind, pts: str, tag: str) -> float:
+    """K1, DOWN and UP, with and without the residual and an origin,
+    bit-equal to its plain version, and q left as it was (out of place in
+    both regimes); returns the regime's kernel name and the largest
+    error."""
+    e = 0.0
+    nine = kind == StencilKind.nine_pt
+    p = cuda2.plan(q.element_size(), nine, tuple(q.shape))
+    regime = "resident" if p.resident else "streamed"
+    q0 = q.clone()
+    for updown, fuse, origin in itertools.product(
+            ("down", "up"), (False, True), ((0, 0), (1, 2))):
+        got = cuda2.sweep(so, q, b, kind, updown, fuse, origin)
+        want = cuda2.sweep_plain(so, q, b, kind, updown, fuse, origin)
+        what = (f"K1 sweep2 {pts} {updown} fuse={int(fuse)} "
+                f"origin={origin} {tag} ({regime})")
+        if not torch.equal(q, q0):
+            raise AssertionError(f"{what}: the sweep changed q")
+        if fuse:
+            e = max(e, compare(what + " q", got[0], want[0], exact=True),
+                    compare(what + " res", got[1], want[1], exact=True))
+        else:
+            e = max(e, compare(what, got, want, exact=True))
+    return ("sweep2_resident" if p.resident else "sweep2"), e
 
 
 def compare_lines(so, q, b, kind, pts: str, tag: str) -> float:
@@ -615,29 +659,43 @@ def compare_fused(what: str, got, want, mode: str) -> float:
 
 
 def check_fused2_plans() -> None:
-    """The wrapper's plan (ops/cuda_fused2.py) sizes K13's shared memory as
-    the kernel lays it out, for every variant that is built, and takes the
-    kernel's threads a block and steps ahead."""
+    """The wrapper's plan (ops/cuda_fused2.py) sizes K12's and K13's shared
+    memory as the kernels lay it out, for every variant that is built, and
+    takes the kernels' threads a block and steps ahead; K1's (ops/cuda2.py)
+    takes its resident block's threads."""
     lib = cuda_build.load("fused2")
     build = (lib.cedar_fused2_threads(), lib.cedar_fused2_ahead())
     if build != (cuda_fused2.THREADS, cuda_fused2.AHEAD):
-        raise AssertionError(f"K13 built with (threads, ahead) {build}")
+        raise AssertionError(f"K12/K13 built with (threads, ahead) {build}")
     for itemsize, nine, mode in itertools.product((4, 8), (False, True),
-                                                  (0, 1, 2)):
-        want = cuda_fused2.interp_words(nine, mode) * itemsize
-        got = lib.cedar_fused2_interp_smem(0 if itemsize == 4 else 1,
-                                           int(nine), mode)
+                                                  (0, 1, 2, 3)):
+        want = cuda_fused2.ring_words(nine, mode) * itemsize
+        dt = 0 if itemsize == 4 else 1
+        got = lib.cedar_fused2_smem(dt, int(nine), mode, 0)
         if got != want:
-            raise AssertionError(f"K13 smem {itemsize} nine={nine} "
+            raise AssertionError(f"K12/K13 smem {itemsize} nine={nine} "
                                  f"mode={mode}: kernel {got}, plan {want}")
-    print("  K13 plans size shared memory as the kernel does", flush=True)
+        # the plan's blocks an SM must all be resident at once, or a grid
+        # planned as one wave runs in two
+        per_sm = cuda_fused2.plan(itemsize, nine, mode,
+                                  (N_MAIN, N_MAIN)).per_sm
+        fits = lib.cedar_fused2_smem(dt, int(nine), mode, 1)
+        if fits < per_sm:
+            raise AssertionError(f"K12/K13 {itemsize} nine={nine} mode={mode}"
+                                 f": an SM holds {fits} blocks, the plan "
+                                 f"counts on {per_sm}")
+    threads = cuda_build.load("sweep2").cedar_sweep2_threads()
+    if threads != cuda2.THREADS:
+        raise AssertionError(f"K1 built with {threads} threads a block")
+    print("  K1, K12 and K13 plans match the kernels' layouts", flush=True)
 
 
 def phase_kernels_fused(errs: dict) -> dict:
     """K11-K13 against their plain versions at the 2D shapes and (5, 4)
     float64: every output mode, DOWN and UP, K11 with and without an
-    origin, K12 with and without the residual; K13 also at its strips' and
-    chunks' edge shapes (EDGE2)."""
+    origin, K12 with and without the residual; K12 and K13 also at their
+    strips' and chunks' edge shapes (EDGE2), K12 at the main path's fused
+    levels 1024² and 512² 9-point too."""
     print("[3] fused kernels against plain versions", flush=True)
     errs.update(dict.fromkeys(FUSED, 0.0))
     check_fused2_plans()
@@ -672,24 +730,39 @@ def phase_kernels_fused(errs: dict) -> dict:
                                                        kind, updown, fr, fn),
                         mode)
                     errs["interp_sweep2"] = max(errs["interp_sweep2"], e)
-                for emit in () if edge else (False, True):
-                    what = (f"K12 sweep_restrict2 {pts} {updown} "
-                            f"res={int(emit)} {tag}")
-                    got = cuda_fused2.sweep_restrict(so, q, b, ci, kind,
-                                                     updown, emit)
-                    want = cuda_fused2.sweep_restrict_plain(
-                        so, q, b, ci, kind, updown, emit)
-                    e = max(compare(what + " q", got[0], want[0], exact=True),
-                            compare(what + " cb", got[2], want[2],
-                                    exact=True))
-                    if emit:
-                        e = max(e, compare(what + " res", got[1], want[1],
-                                           exact=True))
-                    elif got[1] is not None:
-                        raise AssertionError(f"{what}: residual returned")
-                    errs["sweep_restrict2"] = max(errs["sweep_restrict2"], e)
+                errs["sweep_restrict2"] = max(
+                    errs["sweep_restrict2"],
+                    compare_k12(so, q, b, ci, kind, updown, pts, tag))
             del so, q, b, ci, qc
+    # K12 at the main path's 9-point fused levels below 2048²
+    for i, n in enumerate((1024, 512)):
+        so, q, b, kind = random_problem((n, n), True, torch.float32, 870 + i)
+        ci = interp2.setup_interp(so, kind)
+        for updown in ("down", "up"):
+            errs["sweep_restrict2"] = max(
+                errs["sweep_restrict2"],
+                compare_k12(so, q, b, ci, kind, updown, "9pt",
+                            f"({n}, {n}) float32"))
+        del so, q, b, ci
     return errs
+
+
+def compare_k12(so, q, b, ci, kind, updown: str, pts: str, tag: str) -> float:
+    """K12 with and without the residual, q, res and cb bit-equal to its
+    plain version."""
+    e = 0.0
+    for emit in (False, True):
+        what = f"K12 sweep_restrict2 {pts} {updown} res={int(emit)} {tag}"
+        got = cuda_fused2.sweep_restrict(so, q, b, ci, kind, updown, emit)
+        want = cuda_fused2.sweep_restrict_plain(so, q, b, ci, kind, updown,
+                                                emit)
+        e = max(e, compare(what + " q", got[0], want[0], exact=True),
+                compare(what + " cb", got[2], want[2], exact=True))
+        if emit:
+            e = max(e, compare(what + " res", got[1], want[1], exact=True))
+        elif got[1] is not None:
+            raise AssertionError(f"{what}: residual returned")
+    return e
 
 
 FUSED3 = ("sweep3_fused", "sweep_restrict3", "interp_sweep3")
@@ -818,7 +891,7 @@ def phase_cedar_gate() -> None:
     # the card's default: the fused cycle on levels 0-3, dense on 4 and 5
     if not cycle2.fine_split_ok(s.levels, s.settings):
         raise AssertionError("Cedar gate: the fused cycle is not the default")
-    require_launched(c, ("sweep2", "restrict2", "interp_add2",
+    require_launched(c, (K1, "restrict2", "interp_add2",
                          "sweep_restrict2", "interp_sweep2"), "Cedar gate")
 
 
@@ -844,7 +917,7 @@ def phase_fused_gate() -> None:
     if not s.history[-1] < 1e-9:
         raise AssertionError("fused V(2,2) gate did not converge")
     require_launched(c, ("sweep2_fused", "sweep_restrict2", "interp_sweep2",
-                         "sweep2", "restrict2", "interp_add2"),
+                         K1, "restrict2", "interp_add2"),
                      "fused V(2,2) gate")
 
 
@@ -900,7 +973,7 @@ def phase_f64_gates() -> None:
     np.testing.assert_allclose(s.history, sc.history, rtol=1e-9, atol=1e-14)
     if not err < 1e-3:
         raise AssertionError("F-cycle error above discretisation accuracy")
-    require_launched(c, ("sweep2", "restrict2", "interp_add2", "interp2",
+    require_launched(c, (K1, "restrict2", "interp_add2", "interp2",
                          "sweep_restrict2", "interp_sweep2"), "F-cycle gate")
 
 
@@ -1086,15 +1159,28 @@ def phase_main_path() -> dict:
     # cycles must still cut the residual >= 5x overall
     if not s.history[-1] < s.history[0] / 5:
         raise AssertionError("main path: the solve did not converge")
-    require_launched(launches, ("sweep2", "restrict2", "interp_add2",
-                                "sweep_restrict2", "interp_sweep2"),
-                     "main path")
+    require_launched(launches, ("sweep2", "sweep2_resident", "restrict2",
+                                "interp_add2", "sweep_restrict2",
+                                "interp_sweep2"), "main path")
     # one solve-loop cycle: K12 and K13 on the fused levels 0-3, K1-K3 on
-    # the dense levels below, no K11 at V(1,1)
+    # the dense levels below (K1 one launch a sweep: the pre-sweep with its
+    # residual and the post-sweep; streamed at 256² and 128², resident
+    # below), no K11 at V(1,1); 32 launches in all
     dense = s.nlevels - 1 - SPLIT_LEVELS
-    one_cycle_launches(s, b, "main path", {
+    resident = sum(cuda2.plan(4, True, shape).resident
+                   for shape in s.shapes[SPLIT_LEVELS:-1])
+    one = one_cycle_launches(s, b, "main path", {
         "sweep_restrict2": SPLIT_LEVELS, "interp_sweep2": SPLIT_LEVELS,
-        "sweep2_fused": 0, "restrict2": dense, "interp_add2": dense})
+        "sweep2_fused": 0, "restrict2": dense, "interp_add2": dense,
+        "sweep2": 2 * (dense - resident), "sweep2_resident": 2 * resident})
+    total = sum(one.get(k, 0) for k in KERNELS)
+    k1 = sum(one.get(k, 0) for k in K1)
+    print(f"  main path: {total} kernel launches a cycle, K1 {k1}",
+          flush=True)
+    if k1 != 2 * dense:
+        raise AssertionError(f"main path: K1 launched {k1} times a cycle")
+    if total > 32:
+        raise AssertionError(f"main path: {total} launches a cycle > 32")
 
     # the convergence rate, free of that floor: A x = 0 from a random x0
     # (the error itself is what shrinks); each of 4 cycles must cut >= 5x
@@ -1168,8 +1254,7 @@ def phase_main_variants() -> dict:
             raise AssertionError(f"{name}: bad solution")
         if not s.history[-1] < s.history[0] / 5:
             raise AssertionError(f"{name}: the solve did not converge")
-        require_launched(launches, ("sweep2", "restrict2", "interp_add2"),
-                         name)
+        require_launched(launches, (K1, "restrict2", "interp_add2"), name)
         one_cycle_launches(s, b, name, want)
         ms = time_cycles(s, b, x)
         peak = torch.cuda.max_memory_allocated()
@@ -1270,7 +1355,7 @@ def phase_fcycle_4096() -> dict:
         raise AssertionError(f"{name}: history not constant and < 1")
     if not err < 1e-2:
         raise AssertionError(f"{name}: solution error {err:g}")
-    require_launched(launches, ("sweep2", "restrict2", "interp_add2",
+    require_launched(launches, (K1, "restrict2", "interp_add2",
                                 "interp2"), name)
     ms = time_cycles(s, b, x)
     peak = torch.cuda.max_memory_allocated()
@@ -1523,10 +1608,14 @@ def phase_times() -> dict:
     """Kernel against plain at the main paths' shapes (4096² f32; the line
     sweeps at 2048² 9-point f32), in turns (plain, kernel, kernel, plain)."""
     print("[6] per-kernel ms at 4096^2 float32, line sweeps at 2048^2 "
-          "9-pt (plain, kernel, kernel, plain)", flush=True)
+          "9-pt, K1 resident at 64^2 9-pt (plain, kernel, kernel, plain)",
+          flush=True)
     n, n9 = N_MAIN, N_MAIN // 2 + 1
     so, q, b, kind = random_problem((n, n), False, torch.float32, 7)
     so9, q9, b9, kind9 = random_problem((n9, n9), True, torch.float32, 8)
+    # K1's resident regime at a dense level of the main path (64² 9-point)
+    r = N_MAIN >> 6
+    sr, qr, br, kr = random_problem((r, r), True, torch.float32, 12)
     # K13 on the main path's first 9-point level (2048²)
     m9 = N_MAIN // 2
     sk, qk, bk, kk = random_problem((m9, m9), True, torch.float32, 11)
@@ -1546,6 +1635,10 @@ def phase_times() -> dict:
         "sweep2 9pt 2049^2": (
             lambda: cuda2.sweep_plain(so9, q9, b9, kind9, "down"),
             lambda: cuda2.sweep(so9, q9, b9, kind9, "down")),
+        # as the cycle runs it there: the pre-sweep with its residual
+        "sweep2_resident": (
+            lambda: cuda2.sweep_plain(sr, qr, br, kr, "down", True),
+            lambda: cuda2.sweep(sr, qr, br, kr, "down", True)),
         "restrict2": (lambda: cuda_transfer2.restrict_plain(ci, b),
                       lambda: cuda_transfer2.restrict(ci, b)),
         "interp_add2": (
@@ -1622,6 +1715,9 @@ def phase_times() -> dict:
     mc = cik.shape[1] - 1
     work = {
         "sweep2": ((3 + 3) * n * n * e, 10 * n * n),
+        # 9-point: 5 stencil planes, b and q read, q and the residual
+        # written; 18 operations a point for the sweep, 18 the residual
+        "sweep2_resident": ((5 + 3 + 1) * r * r * e, 36 * r * r),
         "restrict2": ((8 * (nc + 1) ** 2 + n * n + nc * nc) * e,
                       16 * nc * nc),
         "interp_add2": ((8 * (nc + 1) ** 2 + nc * nc + 4 * n * n) * e,
@@ -1650,6 +1746,59 @@ def phase_times() -> dict:
         print(f"  {k}: bound {bms:.4f} ms by {by}; kernel {out[k][0]:.4f} "
               "ms", flush=True)
     return {k: v + work[k] for k, v in out.items() if k in work}
+
+
+def phase_times_levels() -> None:
+    """K1 at each dense level of the main path (256² .. 8² 9-point float32:
+    the pre-sweep with its residual, the post-sweep) and K12 at each fused
+    level (4096² 5-point, 2048² .. 512² 9-point, no residual out), kernel
+    against plain in turns, each with its bound; every K1 call one
+    launch."""
+    print("[6] K1 at the main path's dense levels, K12 at its fused levels "
+          "(plain, kernel, kernel, plain)", flush=True)
+    e = 4
+    cases, work = {}, {}
+    for k, n in enumerate(N_MAIN >> s for s in range(SPLIT_LEVELS + 5,
+                                                     SPLIT_LEVELS - 1, -1)):
+        so, q, b, kind = random_problem((n, n), True, torch.float32, 40 + k)
+        tag = f"{n}^2"
+        # a 9-point sweep: 5 stencil planes, b and q read, q written; 18
+        # operations a point, and the residual (written) 18 more
+        cases[f"K1 9pt {tag} down +res"] = (
+            lambda a=(so, q, b, kind): cuda2.sweep_plain(*a, "down", True),
+            lambda a=(so, q, b, kind): cuda2.sweep(*a, "down", True))
+        work[f"K1 9pt {tag} down +res"] = ((5 + 3 + 1) * n * n * e,
+                                           36 * n * n)
+        cases[f"K1 9pt {tag} up"] = (
+            lambda a=(so, q, b, kind): cuda2.sweep_plain(*a, "up"),
+            lambda a=(so, q, b, kind): cuda2.sweep(*a, "up"))
+        work[f"K1 9pt {tag} up"] = ((5 + 3) * n * n * e, 18 * n * n)
+    for k, n in enumerate(N_MAIN >> s for s in range(SPLIT_LEVELS)):
+        nine = k > 0
+        so, q, b, kind = random_problem((n, n), nine, torch.float32, 50 + k)
+        ci = interp2.setup_interp(so, kind)
+        nc, nd = ci.shape[1] - 1, kind.ndirs
+        name = f"K12 {'9pt' if nine else '5pt'} {n}^2"
+        cases[name] = (
+            lambda a=(so, q, b, ci, kind): cuda_fused2.sweep_restrict_plain(
+                *a, "down", False),
+            lambda a=(so, q, b, ci, kind): cuda_fused2.sweep_restrict(
+                *a, "down", False))
+        # the stencil, b and q read, q written, CI read and cb written; a
+        # sweep and its residual (20 or 36 operations a point), 16 a coarse
+        # point
+        work[name] = ((8 * (nc + 1) ** 2 + (nd + 3) * n * n + nc * nc) * e,
+                      (36 if nine else 20) * n * n + 16 * nc * nc)
+    out = time_turns(cases)
+    k12 = [0.0, 0.0]
+    for name, (ms, plain_ms) in out.items():
+        bms, by = bound(*work[name], torch.float32)
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.6f} ms by {by}", flush=True)
+        if name.startswith("K12"):
+            k12 = [k12[0] + ms, k12[1] + bms]
+    print(f"  K12, the four fused levels: {k12[0]:.4f} ms a cycle, bound "
+          f"{k12[1]:.6f} ms", flush=True)
 
 
 def time_turns(cases: dict, slow=(), labels=("plain", "kernel")) -> dict:
@@ -1905,6 +2054,7 @@ def main() -> None:
     launches.update(phase_paths3())
     launches["line_xy2"] = phase_planes_128()["line_xy2"]
     times = phase_times() | phase_times3() | phase_times_planes()
+    phase_times_levels()
     table = []
     for name in KERNELS:
         ms, plain_ms, nbytes, flops = times[name]

@@ -329,9 +329,10 @@ def test_fused_checks(bad):
 @pytest.mark.parametrize("nine", [False, True])
 @pytest.mark.parametrize("updown", ["down", "up"])
 def test_colour_codes_follow_color_order(nine, updown):
-    """The kernels' packed colour sequence is relax2.color_order's."""
+    """The kernels' packed colour sequence (relax2.pack_colors, which K1
+    and K11-K13 take) is relax2.color_order's."""
     kind = StencilKind.nine_pt if nine else StencilKind.five_pt
-    packed, n = cuda_fused2._colors(kind, updown)
+    packed, n = relax2.pack_colors(kind, updown)
     codes = [(packed >> (4 * k)) & 15 for k in range(n)]
     want = [2 * c[0] + c[1] if nine else c
             for c in relax2.color_order(kind, updown)]

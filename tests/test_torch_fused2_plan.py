@@ -1,12 +1,15 @@
-"""The launch plan of the fused 2D kernel K13 (interp-add + sweep):
+"""The launch plan of the fused 2D kernels K12 (sweep + residual +
+restriction) and K13 (interp-add + sweep), the row march:
 ``cuda_fused2.plan``, which the wrapper computes and passes to the kernel
 (csrc/fused2.cu checks it against its own layout at launch).  Pure
-Python, no card: for both stencil kinds, both dtypes and every output
-mode, at the 2D paths' shapes and at shapes that hit the edges of its
-strips and chunks, the shared memory fits as many blocks an SM as are
+Python, no card: for both stencil kinds, both dtypes, every K13 output
+mode and K12, at the 2D paths' shapes and at shapes that hit the edges of
+the strips and chunks, the shared memory fits as many blocks an SM as are
 planned, the blocks' own points cover the grid exactly once, there is one
-norm partial a block, and the strip of a build with other threads a block
-(tools/tune_fused2.py) is honoured.
+norm partial a block, K12's strips and chunks start at even indices so
+that its blocks' coarse points cover the coarse grid exactly once, and the
+strip of a build with other threads a block (tools/tune_fused2.py) is
+honoured.
 """
 
 import itertools
@@ -17,12 +20,13 @@ import pytest
 from cedar_tpu_torch.ops import cuda_fused2 as cf
 
 CASES = list(itertools.product((4, 8), (False, True),
-                               (cf._NONE, cf._RES, cf._NORM)))
+                               (cf._NONE, cf._RES, cf._NORM, cf._RESTRICT)))
 # the 2D paths' shapes (4096² and its 9-point levels, the f64 gates) and
 # edge shapes: widths not a multiple of the strip, rows not a multiple of
 # the chunk, fewer rows than the halo, a few points
 SHAPES = [(4096, 4096), (2048, 2048), (2049, 2049), (400, 400), (1025, 771),
-          (5, 4), (300, 997), (3, 1000), (1031, 250), (2, 3), (777, 513)]
+          (5, 4), (300, 997), (3, 1000), (1031, 250), (2, 3), (777, 513),
+          (1024, 1024), (512, 512)]
 N_SM = 132
 # one block's most shared memory (227 KB) and an SM's (228 KB)
 BLOCK_MAX, SM_MAX = 232448, 233472
@@ -30,7 +34,8 @@ BLOCK_MAX, SM_MAX = 232448, 233472
 
 def _ids(c):
     itemsize, nine, mode = c
-    return f"{'f32' if itemsize == 4 else 'f64'}-{'9' if nine else '5'}pt-m{mode}"
+    what = "k12" if mode == cf._RESTRICT else f"m{mode}"
+    return f"{'f32' if itemsize == 4 else 'f64'}-{'9' if nine else '5'}pt-{what}"
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
@@ -39,12 +44,17 @@ def test_shared_memory_fits(case):
     SM's threads and resident blocks; its size is the kernel's layout."""
     itemsize, nine, mode = case
     p = cf.plan(itemsize, nine, mode, (4096, 4096), N_SM)
-    assert p.smem == cf.interp_words(nine, mode) * itemsize
+    assert p.smem == cf.ring_words(nine, mode) * itemsize
     assert p.smem + 1024 <= BLOCK_MAX
     assert p.per_sm >= 1 and p.per_sm * (p.smem + 1024) <= SM_MAX
     assert p.nt * p.per_sm <= 2048 and p.per_sm <= 32
     assert p.nt == cf.THREADS == 128
-    assert p.h == 1 + (4 if nine else 2) + (mode != cf._NONE)
+    phases = 4 if nine else 2
+    if mode == cf._RESTRICT:
+        # the phases, the residual and the restriction's low row / column
+        assert p.h == phases + 2
+    else:
+        assert p.h == 1 + phases + (mode != cf._NONE)
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -99,7 +109,7 @@ def test_plan_takes_an_override(case):
     block does not fit."""
     itemsize, nine, mode = case
     for nt, ahead in ((64, 1), (64, 2), (256, 1), (cf.THREADS, 2)):
-        size = cf.interp_words(nine, mode, nt, ahead) * itemsize
+        size = cf.ring_words(nine, mode, nt, ahead) * itemsize
         if size > cf.BLOCK_SMEM:
             with pytest.raises(ValueError):
                 cf.plan(itemsize, nine, mode, (512, 700), build=(nt, ahead))
@@ -120,13 +130,46 @@ def test_layouts_by_hand():
     columns; CI 2 x 8 and qc 3 coarse rows of 130 columns), and its 4096²
     grid; two steps ahead, one more q_pre row and stencil slot."""
     assert (cf.THREADS, cf.AHEAD) == (128, 1)
-    assert cf.interp_words(False, cf._NORM) == (
+    assert cf.ring_words(False, cf._NORM) == (
         256 * (5 + 4 + 6 * 4) + (16 + 3) * 130)
-    assert cf.interp_words(False, cf._NORM, 128, ahead=2) == (
+    assert cf.ring_words(False, cf._NORM, 128, ahead=2) == (
         256 * (5 + 5 + 7 * 4) + (16 + 3) * 130)
     # 9-point, no epilogue, 64 threads: H = 5
-    assert cf.interp_words(True, cf._NONE, 64) == (
+    assert cf.ring_words(True, cf._NONE, 64) == (
         128 * (6 + 4 + 7 * 6) + 19 * 66)
+    # K12, 5-point, 128 threads: H = 4, the residual at stage 3; rings of 6
+    # q rows, 5 slots of 3 stencil rows and b, 4 residual rows; CI 3 x 8
+    # coarse rows of 130 columns
+    assert cf.ring_words(False, cf._RESTRICT) == (
+        256 * (6 + 5 * 4 + 4) + 24 * 130)
+    # 9-point, two steps ahead: H = 6, 9 q rows, 8 slots of 6 rows
+    assert cf.ring_words(True, cf._RESTRICT, 128, ahead=2) == (
+        256 * (9 + 8 * 6 + 4) + 24 * 130)
+    k12 = cf.plan(4, False, cf._RESTRICT, (4096, 4096))
+    assert (k12.nt, k12.tw, k12.gw, k12.per_sm) == (128, 248, 17, 5)
     p = cf.plan(4, False, cf._NORM, (4096, 4096))
     assert (p.nt, p.tw, p.gw, p.per_sm) == (128, 248, 17, 5)
     assert p.gw * p.gc <= N_SM * p.per_sm
+
+
+K12 = [c for c in CASES if c[2] == cf._RESTRICT]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("case", K12, ids=_ids)
+def test_k12_coarse_points_have_one_owner(case, shape):
+    """K12's strips and chunks start at even fine indices (an even strip
+    width and chunk), so the coarse points (2k, 2m) of the blocks' own
+    boxes cover the coarse grid exactly once."""
+    itemsize, nine, mode = case
+    nx, ny = shape
+    p = cf.plan(itemsize, nine, mode, shape, N_SM)
+    assert p.tw % 2 == 0 and p.cz % 2 == 0
+    nxc, nyc = (nx + 1) // 2, (ny + 1) // 2
+    own = np.zeros((nxc, nyc), dtype=int)
+    for c, w in itertools.product(range(p.gc), range(p.gw)):
+        z0, w0 = c * p.cz, w * p.tw
+        assert z0 % 2 == 0 and w0 % 2 == 0
+        own[z0 // 2:min(z0 + p.cz, nx + 1) // 2,
+            w0 // 2:min(w0 + p.tw, ny + 1) // 2] += 1
+    assert (own == 1).all()

@@ -22,8 +22,8 @@ from cedar_tpu_torch.ops import cuda2, relax2
 
 torch.set_num_threads(2)
 
-# Torch inputs are copies (torch.tensor): the port writes q in place, and
-# JAX on the CPU may share the numpy buffer and read it asynchronously.
+# Torch inputs are copies (torch.tensor): JAX on the CPU may share the
+# numpy buffer and read it asynchronously.
 
 
 def _problem(seed, shape, nine, dtype=np.float64):
@@ -55,12 +55,67 @@ def test_point_relax_matches_jax_f64(shape, nine, updown, fuse):
     out = relax2.point_relax(tso, tq, tb, relax2.setup_recip(tso), kind,
                              updown, fuse_residual=fuse)
     got = out[0] if fuse else out
-    assert got is tq   # in place
+    # the sweep is returned; the plain version leaves q as it was
+    np.testing.assert_array_equal(tq.numpy(), q)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
     if fuse:
         want_res = jresidual(jso, want, jnp.asarray(b), jkind)
         np.testing.assert_allclose(out[1].numpy(), np.asarray(want_res),
                                    rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (16, 16), (5, 4)])
+@pytest.mark.parametrize("fuse", [False, True])
+def test_sweep_result_matches_jax_9pt_f64(shape, fuse):
+    """point_relax returns the sweep (and its residual) at the small
+    9-point levels that the card sweeps in one block, equal to the XLA
+    sweep to rtol 1e-12; q is left as it was."""
+    so, q, b = _problem(41 + shape[0], shape, True)
+    kind, jkind = _kinds(True)
+    jso = jnp.asarray(so)
+    for updown in ("down", "up"):
+        want = jrelax2.point_relax(jso, jnp.asarray(q), jnp.asarray(b),
+                                   jrelax2.setup_recip(jso), jkind, updown)
+        tso, tq, tb = (torch.tensor(a) for a in (so, q, b))
+        out = relax2.point_relax(tso, tq, tb, relax2.setup_recip(tso), kind,
+                                 updown, fuse_residual=fuse)
+        got = out[0] if fuse else out
+        np.testing.assert_array_equal(tq.numpy(), q)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=1e-12)
+        if fuse:
+            want_res = jresidual(jso, want, jnp.asarray(b), jkind)
+            np.testing.assert_allclose(out[1].numpy(), np.asarray(want_res),
+                                       rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("shape", [(8, 8), (16, 16), (5, 4)])
+@pytest.mark.parametrize("origin", [(0, 0), (1, 2)])
+@pytest.mark.parametrize("fuse", [False, True])
+def test_sweep_result_matches_pallas_9pt(shape, origin, fuse, monkeypatch):
+    """The same against the Pallas sweep (interpret mode, float32, the
+    tolerances of the tests above), with and without an origin and the
+    residual, DOWN and UP."""
+    monkeypatch.setattr(pallas2, "INTERPRET", True)
+    so, q, b = _problem(51 + shape[0], shape, True, np.float32)
+    kind, jkind = _kinds(True)
+    for updown in ("down", "up"):
+        want = pallas2.point_relax(
+            jnp.asarray(so), jnp.asarray(q), jnp.asarray(b), None, jkind,
+            updown, fuse_residual=fuse,
+            origin=jnp.asarray(origin, jnp.int32))
+        tq = torch.tensor(q)
+        got = relax2.point_relax(torch.tensor(so), tq, torch.tensor(b), None,
+                                 kind, updown, fuse_residual=fuse,
+                                 origin=origin)
+        np.testing.assert_array_equal(tq.numpy(), q)
+        if not fuse:
+            got, want = (got,), (want,)
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                                   atol=1e-5)
+        if fuse:
+            np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                       atol=1e-4)
 
 
 @pytest.mark.parametrize("nine", [False, True])
@@ -128,9 +183,11 @@ def test_cpu_dispatch_uses_plain_version():
     so, q, b = _problem(22, (8, 8), False)
     t = [torch.tensor(a) for a in (so, q, b)]
     launches, plain = cuda2.launches, cuda2.plain_calls
+    resident = cuda2.resident_launches
     relax2.point_relax(t[0], t[1], t[2], None, StencilKind.five_pt, "down")
     assert cuda2.plain_calls == plain + 1
     assert cuda2.launches == launches
+    assert cuda2.resident_launches == resident
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
