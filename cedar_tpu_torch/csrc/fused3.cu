@@ -17,7 +17,9 @@
 // the pre-smoothed iterate recomputed on chip, q + res/diag + P qc, then
 // the first post-sweep (+ the residual or the partial sums).  The Pallas
 // kernels work on the octant-split layout that Mosaic needs; these work on
-// the dense (nx, ny, nz) grid and compute what those compute.  The math is
+// the dense (nx, ny, nz) grid and compute what those compute.  K6's levels
+// above one block (sweep3.cu) run on K14 too: the 7-point ring march and,
+// for float32 levels of 128³ or more, the 27-point marches.  The math is
 // ops/fused3.py's plain versions, which compose relax3.sweep3_torch,
 // stencil3.residual, interp3.restrict_torch and interp3.interp_add_torch;
 // the arithmetic comes from stencil3.cuh (`offdiag_terms`) and
@@ -28,7 +30,8 @@
 // lose to is latency (PERF.md §6: the time of each part, measured by
 // skipping it).
 //
-// The window design (`fused3`): 2.5D blocking, the Hopper form of the TPU's
+// The window design (`fused3`, 27-point only since the 7-point K14 moved to
+// the ring design): 2.5D blocking, the Hopper form of the TPU's
 // wavefront (pallas3_stream.py:1-29).  A block owns a y-z tile of TY x TZ
 // points and a chunk of cx planes along x, and marches along x through
 // its chunk one plane a step.  A pass is a list of stages (K16's
@@ -50,20 +53,16 @@
 // grid's own boundary counts as infinitely deep, its couplings are zero).
 // The region is kRW = 64 columns (z) wide, TZ = 64 - 2H, and TY + 2H rows.
 //
-// Plane p + 1 is prefetched into registers while the stages of step p
-// run, and stored into the windows at the end of the step; for a 7-point
-// f32 pass the stencil planes and b are windowed too (the 27-point
-// stencil's 14 planes, and f64, would not fit), so that its stages read
-// shared memory only, apart from K16's CI and coarse values and K15's CI.
-// In a 7-point pass a thread keeps its points through every stage of a
-// step (see the step loop), so the stages need no barrier between them.
-// A phase maps its threads onto its own colour's points only, so no
-// thread idles on another colour.  K16 gives each warp the points of one
+// Plane p + 1 of q is prefetched into registers while the stages of step p
+// run, and stored into the windows at the end of the step; the stencil's
+// 14 planes and b come from device memory.  A phase maps its threads onto
+// its own colour's points only, so no thread idles on another colour.
+// K16 gives each warp the points of one
 // parity class at a time and issues the class's CI and coarse loads
 // before it recomputes the residual (transfer3.cuh `interp_with`).
 //
 // The 27-point K15 and K16 run one colour of a sweep each (the last of a
-// pre-sweep, the first of a post-sweep; kPhases27) on the window
+// pre-sweep, the first of a post-sweep; phases_of) on the window
 // design, as the JAX kernel splits a sweep into passes when one does not
 // fit (pallas3_split.py `_plan_split`): its couplings reach diagonally
 // into the next plane, so its stages need a barrier each, its so planes
@@ -94,8 +93,8 @@
 // of two colours the epilogue would add a ring of halo and registers that
 // spill.
 //
-// The ring design (`ring3`): the 7-point K15 and K16 read every plane a
-// stage needs from rings of slots in shared memory, filled by cp.async
+// The ring design (`ring3`): the 7-point K14, K15 and K16 read every plane
+// a stage needs from rings of slots in shared memory, filled by cp.async
 // (async.cuh: 4- or 8-byte elements, zero-filled off the grid) one step
 // before the step that first reads them, one commit group a step: q (K16:
 // q_pre), b and, in f32, the stencil planes 0-3, and K15's CI at its own
@@ -113,9 +112,12 @@
 // constant, each read is a constant offset from the point's pointers.  The
 // tile rows, the x chunk and the grid come from the wrapper's plan
 // (ops/cuda_fused3.py `plan`, checked at launch against `Ring`): the largest
-// built tile rows that fit a block (12 or 10 in f32, 4 or 2 in f64), one
-// block an SM, and the chunk that runs the grid in the fewest steps a block
-// slot.  The 27-point K15 and K16 stay on `fused3`: on the card every ring
+// built tile rows that fit a block (K15, K16: 12 or 10 in f32, 4 or 2 in
+// f64, one block an SM; the 7-point K14, the colour stages and a residual or
+// norm epilogue only, is built with 20 in f32 and 8 in f64), and the chunk
+// that runs the grid in the fewest steps a block slot.  The 7-point K14 took 0.30 ms a 256³
+// sweep where the window design took 0.37 (PERF.md §6).  The 27-point K15
+// and K16 stay on `fused3`: on the card every ring
 // variant measured for them (two to four blocks an SM, a copy warp, the
 // coarse side through L2) was slower (PERF.md §6; tools/tune_fused3.py).
 //
@@ -127,9 +129,9 @@
 // low ring (the restriction reads fine indices 2c - 1 .. 2c + 1).  The
 // norm epilogue writes one partial a block (the sum of res² over the
 // block's own points, in no fixed order against the plain version's sum):
-// cedar_fused3_partials entries for K14, the plan's blocks for K16; the
-// caller sums them.  K15 and K16 launch on the wrapper's plan, which the
-// launch checks against the kernel's own.
+// cedar_fused3_partials entries for the 27-point K14, the plan's blocks for
+// the 7-point K14 and K16; the caller sums them.  K14-K16 launch on the
+// wrapper's plan, which the launch checks against the kernel's own.
 
 #include "async.cuh"
 #include "stencil3.cuh"
@@ -143,23 +145,13 @@ constexpr int kRW = 64;                  // region columns (z)
 constexpr int kNone = 0, kRes = 1, kNorm = 2, kRestrict = 3;
 // blocks a launch aims at: four for each of the H100's 132 SMs
 constexpr int kTargetBlocks = 528;
-constexpr int kTileRows = 16;            // TY
-// warps a block and resident blocks an SM, at least: 7-point, 27-point
-constexpr int kWarps7 = 16, kMinBlocks7 = 1;
+constexpr int kTileRows = 16;            // TY of the window design
+// the window design's warps a block and resident blocks an SM, at least
 constexpr int kWarps27 = 8, kMinBlocks27 = 4;
-constexpr int kStaged = 5;               // windowed arrays: so planes 0-3, b
-constexpr int kPhases27 = 1;             // 27-point colours a pass
 
-__host__ __device__ constexpr int warps_of(bool ts) {
-  return ts ? kWarps27 : kWarps7;
-}
-__host__ __device__ constexpr int min_blocks(bool ts) {
-  return ts ? kMinBlocks27 : kMinBlocks7;
-}
-// colour phases of a pass (a 7-point sweep is one pass)
-__host__ __device__ constexpr int phases_of(bool ts) {
-  return ts ? kPhases27 : 2;
-}
+// colour phases of a pass: both of a 7-point sweep (the ring design), one
+// 27-point colour (the window design)
+__host__ __device__ constexpr int phases_of(bool ts) { return ts ? 1 : 2; }
 // the stage of the last phase, of the residual epilogue, and their number:
 // the halo H in rings and planes
 __host__ __device__ constexpr int last_phase(bool ts, bool interp) {
@@ -171,29 +163,18 @@ __host__ __device__ constexpr int epi_stage(bool ts, bool interp, int epi) {
 __host__ __device__ constexpr int halo(bool ts, bool interp, int epi) {
   return epi_stage(ts, interp, epi) + (epi == kRestrict);
 }
-// the stencil planes and b windowed in shared memory: 7-point f32
-__host__ __device__ constexpr bool staged(bool ts, int elem) {
-  return !ts && elem == 4;
-}
 // planes a window holds: q (or K16's interpolated q), stage s reading back
-// to plane p - SE - 1 while plane p + 1 arrives; K16's q_pre (p - 2 .. p);
-// the stencil and b (p - SE .. p)
-__host__ __device__ constexpr int q_slots(bool ts, bool interp, int epi) {
-  return epi_stage(ts, interp, epi) + (interp ? 1 : 2);
-}
-__host__ __device__ constexpr int s_slots(bool ts, bool interp, int epi) {
-  return epi_stage(ts, interp, epi) + 1;
+// to plane p - SE - 1 while plane p + 1 arrives; K16's q_pre (p - 2 .. p)
+__host__ __device__ constexpr int q_slots(bool interp, int epi) {
+  return epi_stage(true, interp, epi) + (interp ? 1 : 2);
 }
 constexpr int kPreSlots = 3, kResSlots = 3;
 
-__host__ __device__ constexpr size_t smem_words(bool ts, bool interp,
-                                                int epi, int elem) {
-  const int h = halo(ts, interp, epi), ry = kTileRows + 2 * h;
+// the shared-memory words of a window-design block
+__host__ __device__ constexpr size_t smem_words(bool interp, int epi) {
+  const int h = halo(true, interp, epi), ry = kTileRows + 2 * h;
   const int tz = kRW - 2 * h, pl = ry * kRW;
-  return (size_t)q_slots(ts, interp, epi) * pl +
-         (interp ? kPreSlots * pl : 0) +
-         (staged(ts, elem) ? (size_t)kStaged * s_slots(ts, interp, epi) * pl
-                           : 0) +
+  return (size_t)q_slots(interp, epi) * pl + (interp ? kPreSlots * pl : 0) +
          (epi == kRestrict ? kResSlots * (kTileRows + 1) * (tz + 1) : 0);
 }
 
@@ -215,16 +196,16 @@ struct Plan {
   size_t smem;
 };
 
-inline Plan plan(bool ts, bool interp, int epi, int nx, int ny, int nz,
-                 int elem) {
-  const int h = halo(ts, interp, epi), tz = kRW - 2 * h;
+// the plan of a window-design launch
+inline Plan plan(bool interp, int epi, int nx, int ny, int nz, int elem) {
+  const int h = halo(true, interp, epi), tz = kRW - 2 * h;
   const int gz = (nz + tz - 1) / tz, gy = (ny + kTileRows - 1) / kTileRows;
   const int chunks = (kTargetBlocks + gz * gy - 1) / (gz * gy);
   int cx = (nx + chunks - 1) / chunks;
   cx += cx & 1;
   if (cx < 2 * h) cx = 2 * h;
   return Plan{dim3(gz, gy, (nx + cx - 1) / cx), cx,
-              smem_words(ts, interp, epi, elem) * elem};
+              smem_words(interp, epi) * elem};
 }
 
 // The sum of v over the block of NW warps, returned to thread 0.
@@ -241,35 +222,31 @@ __device__ T block_sum(T v) {
   return tot;
 }
 
-// One pass on a y-z tile and an x chunk (see the header note).  K14:
-// INTERP false, EPI kNone / kRes / kNorm; K15: EPI kRestrict; K16: INTERP
-// true (q_in is q_pre).  Region row r goes to warp r % NW and columns 2l,
-// 2l + 1 to lane l (a phase: the one of its colour; 27-point phases take
-// the rows of their colour only).
-template <typename T, bool TS, bool INTERP, int EPI>
-__global__ void __launch_bounds__(32 * warps_of(TS), min_blocks(TS))
+// One 27-point pass on a y-z tile and an x chunk (see the header note).
+// K14: INTERP false, EPI kRes / kNorm; K15: EPI kRestrict; K16: INTERP true
+// (q_in is q_pre), EPI kNone.  Region row r goes to warp r % NW and columns
+// 2l, 2l + 1 to lane l (a phase: the one of its colour, on the rows of its
+// colour only).
+template <typename T, bool INTERP, int EPI>
+__global__ void __launch_bounds__(32 * kWarps27, kMinBlocks27)
 fused3(const T* __restrict__ so, const T* __restrict__ q_in,
        const T* __restrict__ b, const T* __restrict__ ci_p,
        const T* __restrict__ qc, T* __restrict__ q_out, T* __restrict__ res,
        T* __restrict__ cb, T* __restrict__ partials, const Dims a) {
   using A = Arith<T>;
-  constexpr bool ST = staged(TS, sizeof(T));
-  constexpr int NPH = phases_of(TS);
-  constexpr int SP = last_phase(TS, INTERP);
-  constexpr int SE = epi_stage(TS, INTERP, EPI);
-  constexpr int H = halo(TS, INTERP, EPI);
-  constexpr int WQ = q_slots(TS, INTERP, EPI), WS = s_slots(TS, INTERP, EPI);
+  constexpr int NPH = phases_of(true);
+  constexpr int SP = last_phase(true, INTERP);
+  constexpr int SE = epi_stage(true, INTERP, EPI);
+  constexpr int H = halo(true, INTERP, EPI);
+  constexpr int WQ = q_slots(INTERP, EPI);
   constexpr int TY = kTileRows, TZ = kRW - 2 * H, RY = TY + 2 * H;
   constexpr int PL = RY * kRW;              // one plane of the region
   constexpr int RW = TZ + 1, RPL = (TY + 1) * RW;  // residual window plane
-  constexpr int NW = warps_of(TS), NT = 32 * NW;
+  constexpr int NW = kWarps27, NT = 32 * NW;
   constexpr int NL = (PL + NT - 1) / NT;    // loads a thread
-  // rows a warp takes in a stage (27-point phases: rows of one parity);
-  // unrolled for 7-point, where it overlaps the rows' loads, but not for
-  // 27-point, whose 64-register budget it would spill
+  // rows a warp takes in a stage (a phase: rows of one parity), not
+  // unrolled: it would spill the 64-register budget
   constexpr int MR = (RY + NW - 1) / NW, MR2 = (RY / 2 + NW - 1) / NW;
-  constexpr int UR = TS ? 1 : MR;
-  constexpr int NS = ST ? kStaged : 0;
 
   const int nx = a.nx, ny = a.ny, nz = a.nz;
   const long long sy = nz, sx = (long long)ny * nz, N = sx * nx;
@@ -277,12 +254,10 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
   extern __shared__ __align__(16) unsigned char smem[];
   T* sq = reinterpret_cast<T*>(smem);      // WQ planes of q
   T* spre = sq + WQ * PL;                  // q_pre planes (K16)
-  T* sso = spre + (INTERP ? kPreSlots * PL : 0);  // stencil and b planes
-  T* sres = sso + (ST ? kStaged * WS * PL : 0);   // residual planes (K15)
+  T* sres = spre + (INTERP ? kPreSlots * PL : 0);  // residual planes (K15)
   // the window slot of plane x (x >= -8)
   auto slot = [&](int x) { return sq + ((x + 8 * WQ) % WQ) * PL; };
   auto pslot = [&](int x) { return spre + ((x + 8 * kPreSlots) % kPreSlots) * PL; };
-  auto sslot = [&](int x) { return sso + ((x + 8 * WS) % WS) * kStaged * PL; };
   auto rslot = [&](int x) { return sres + ((x + 8 * kResSlots) % kResSlots) * RPL; };
 
   const int zt = blockIdx.x * TZ, yt = blockIdx.y * TY, xt = blockIdx.z * a.cx;
@@ -299,21 +274,19 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
   auto residual_at = [&](const T* qm, const T* q0, const T* qp, int o, int x,
                          int y, int z) -> T {
     const long long i = x * sx + y * sy + z;
-    const T* s0 = ST ? sslot(x) + o : so + i;
-    const T* sp = ST ? sslot(x + 1) + o : so + i + sx;
-    const T bv = ST ? s0[4 * PL] : b[i];
+    const T* s0 = so + i;
     return A::sub(
-        A::add(bv, offdiag_at<T, TS>(s0, sp, ST ? PL : N, ST ? kRW : sy,
-                                     x > 0, x + 1 < nx, y > 0, y + 1 < ny,
-                                     z > 0, z + 1 < nz, qm + o, q0 + o,
-                                     qp + o, kRW)),
+        A::add(b[i], offdiag_at<T, true>(s0, s0 + sx, N, sy, x > 0,
+                                         x + 1 < nx, y > 0, y + 1 < ny,
+                                         z > 0, z + 1 < nz, qm + o, q0 + o,
+                                         qp + o, kRW)),
         A::mul(s0[0], q0[o]));
   };
 
-  // plane x of the input (and of so and b when windowed) into registers,
-  // zero off the grid (never read: their couplings are zero); thread tid
-  // takes column tid % 64 of rows tid / 64 + 8k
-  T vq[NL], vs[NS > 0 ? NS : 1][NL];
+  // plane x of the input into registers, zero off the grid (never read:
+  // their couplings are zero); thread tid takes column tid % 64 of rows
+  // tid / 64 + 8k
+  T vq[NL];
   auto prefetch = [&](int x) {
 #pragma unroll
     for (int k = 0; k < NL; ++k) {
@@ -322,9 +295,6 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
       const bool in = e < PL && y >= 0 && y < ny && z >= 0 && z < nz;
       const long long i = x * sx + y * sy + z;
       vq[k] = in ? q_in[i] : T(0);
-#pragma unroll
-      for (int s = 0; s < NS; ++s)
-        vs[s][k] = in ? (s < 4 ? so[s * N + i] : b[i]) : T(0);
     }
   };
   auto commit = [&](int x) {
@@ -334,8 +304,6 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
       const int e = tid + k * NT;
       if (e >= PL) break;
       dq[e] = vq[k];
-#pragma unroll
-      for (int s = 0; s < NS; ++s) sslot(x)[s * PL + e] = vs[s][k];
     }
   };
 
@@ -345,15 +313,9 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
   prefetch(p0);
   commit(p0);
   __syncthreads();
-  // A 7-point stage hands each point to the next stage in the same thread:
-  // row r of the region belongs to warp r % NW and columns 2l, 2l + 1
-  // to lane l, in every stage.  Stage s + 1 at plane x - 1 reads plane x
-  // only at its own point, which stage s updated earlier in the same
-  // thread, and its in-plane neighbours were final a step before; so the
-  // stages of a step need no barrier between them.  27-point couplings
-  // reach diagonally into the next plane, so its stages do.  The barrier
-  // at the end of a step lets the prefetched plane overwrite the oldest
-  // slots.
+  // 27-point couplings reach diagonally into the next plane, so each stage
+  // ends with a barrier.  The barrier at the end of a step lets the
+  // prefetched plane overwrite the oldest slots.
   for (int p = p0; p < xe + H; ++p) {
     const bool more = p + 1 < load_end;
     if (more) prefetch(p + 1);
@@ -365,7 +327,7 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
       if (valid(x, 1)) {
         T* dst = slot(x);
         const T *pm = pslot(x - 1), *p0w = pslot(x), *pp = pslot(x + 1);
-#pragma unroll UR
+#pragma unroll 1
         for (int m = 0; m < MR; ++m) {
           const int r = warp + NW * m;
           const int y = y0 + r;
@@ -380,51 +342,46 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
             dst[o] = A::add(
                 p0w[o], interp_with(ci, qc, x, y, z, a.nxc, a.nyc, a.nzc, [&] {
                   return A::div(residual_at(pm, p0w, pp, o, x, y, z),
-                                ST ? sslot(x)[o] : so[x * sx + y * sy + z]);
+                                so[x * sx + y * sy + z]);
                 }));
           }
         }
       }
-      if (TS) __syncthreads();
+      __syncthreads();
     }
 
-    // the colour phases: q = (b + Σ coupling·q_nb) * (1/P) at the
-    // colour's points; colours anchor at (x + ox, y + oy, z + oz):
-    // 7-point (gx + gy + gz) % 2 == color, 27-point gx % 2 == color & 1,
-    // gy % 2 == color >> 1 & 1, gz % 2 == color >> 2 & 1.  27-point
-    // phases run on the planes and rows of the colour's parities only.
+    // the colour phase: q = (b + Σ coupling·q_nb) * (1/P) at the colour's
+    // points, gx % 2 == color & 1, gy % 2 == color >> 1 & 1, gz % 2 ==
+    // color >> 2 & 1 (colours anchor at (x + ox, y + oy, z + oz)), on the
+    // planes and rows of the colour's parities only
 #pragma unroll
     for (int k = 0; k < NPH; ++k) {
       const int s = INTERP + 1 + k, x = p - s;
       const int color = (a.colors >> (4 * k)) & 15;
-      if (valid(x, s) && (!TS || ((x + a.ox - color) & 1) == 0)) {
-        const int r0 = TS ? s + ((((color >> 1) & 1) - y0 - a.oy - s) & 1) : 0;
+      if (valid(x, s) && ((x + a.ox - color) & 1) == 0) {
+        const int r0 = s + ((((color >> 1) & 1) - y0 - a.oy - s) & 1);
         T* qx = slot(x);
         const T *qm = slot(x - 1), *qp = slot(x + 1);
-#pragma unroll UR
-        for (int m = 0; m < (TS ? MR2 : MR); ++m) {
-          const int r = r0 + (TS ? 2 : 1) * (warp + NW * m);
+#pragma unroll 1
+        for (int m = 0; m < MR2; ++m) {
+          const int r = r0 + 2 * (warp + NW * m);
           const int y = y0 + r;
           if (r < s || r >= RY - s || y < 0 || y >= ny) continue;
-          const int cpar =
-              TS ? (color >> 2) & 1 : color - (x + a.ox) - (y + a.oy);
-          const int c = 2 * lane + ((cpar - z0 - a.oz) & 1);
+          const int c = 2 * lane + ((((color >> 2) & 1) - z0 - a.oz) & 1);
           const int z = z0 + c;
           if (c < s || c >= kRW - s || z < 0 || z >= nz) continue;
           const long long i = x * sx + y * sy + z;
           const int o = r * kRW + c;
-          const T* s0 = ST ? sslot(x) + o : so + i;
-          const T* sp = ST ? sslot(x + 1) + o : so + i + sx;
-          const T bv = ST ? s0[4 * PL] : b[i];
+          const T* s0 = so + i;
           qx[o] = A::mul(
-              A::add(bv, offdiag_at<T, TS>(s0, sp, ST ? PL : N, ST ? kRW : sy,
-                                           x > 0, x + 1 < nx, y > 0,
-                                           y + 1 < ny, z > 0, z + 1 < nz,
-                                           qm + o, qx + o, qp + o, kRW)),
+              A::add(b[i], offdiag_at<T, true>(s0, s0 + sx, N, sy, x > 0,
+                                               x + 1 < nx, y > 0, y + 1 < ny,
+                                               z > 0, z + 1 < nz, qm + o,
+                                               qx + o, qp + o, kRW)),
               A::div(T(1), s0[0]));
         }
       }
-      if (TS) __syncthreads();
+      __syncthreads();
     }
 
     {
@@ -432,7 +389,7 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
       const int x = p - SP;
       if (x >= xt && x < xe) {
         const T* src = slot(x);
-#pragma unroll UR
+#pragma unroll 1
         for (int m = 0; m < MR; ++m) {
           const int r = warp + NW * m;
           const int y = y0 + r;
@@ -452,7 +409,7 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
       const int x = p - SE;
       if (x >= xt && x < xe) {
         const T *qm = slot(x - 1), *q0 = slot(x), *qp = slot(x + 1);
-#pragma unroll UR
+#pragma unroll 1
         for (int m = 0; m < MR; ++m) {
           const int r = warp + NW * m;
           const int y = y0 + r;
@@ -478,7 +435,7 @@ fused3(const T* __restrict__ so, const T* __restrict__ q_in,
       if (x >= max(xt - 1, 0) && x < xe) {
         const T *qm = slot(x - 1), *q0 = slot(x), *qp = slot(x + 1);
         T* dst = rslot(x);
-#pragma unroll UR
+#pragma unroll 1
         for (int m = 0; m < MR; ++m) {
           const int r = warp + NW * m;
           if (r < H - 1 || r >= H + TY) continue;
@@ -543,9 +500,9 @@ struct KPlan {
 
 // A `fused3` launch on its own plan; the 27-point K15 and K16 pass the
 // wrapper's (want), which must be that plan.
-template <typename T, bool TS, bool INTERP, int EPI>
+template <typename T, bool INTERP, int EPI>
 int launch(const Args& a, const KPlan* want, cudaStream_t st) {
-  const Plan pl = plan(TS, INTERP, EPI, a.nx, a.ny, a.nz, sizeof(T));
+  const Plan pl = plan(INTERP, EPI, a.nx, a.ny, a.nz, sizeof(T));
   if (want && (want->ty != kTileRows || want->cx != pl.cx ||
                want->gz != (int)pl.grid.x || want->gy != (int)pl.grid.y ||
                want->gc != (int)pl.grid.z ||
@@ -553,33 +510,28 @@ int launch(const Args& a, const KPlan* want, cudaStream_t st) {
     return (int)cudaErrorInvalidValue;
   const Dims d{a.nx, a.ny, a.nz, a.nxc, a.nyc, a.nzc, pl.cx, a.colors,
                a.ox, a.oy, a.oz, a.emit_res};
-  auto fn = fused3<T, TS, INTERP, EPI>;
+  auto fn = fused3<T, INTERP, EPI>;
   // above 48 KB with block_sum's static array included
   if (pl.smem + 1024 > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
     if (e != cudaSuccess) return (int)e;
   }
-  fn<<<pl.grid, dim3(32, warps_of(TS)), pl.smem, st>>>(
+  fn<<<pl.grid, dim3(32, kWarps27), pl.smem, st>>>(
       (const T*)a.so, (const T*)a.q_in, (const T*)a.b, (const T*)a.ci,
       (const T*)a.qc, (T*)a.q_out, (T*)a.res, (T*)a.cb, (T*)a.partials, d);
   return (int)cudaGetLastError();
 }
 
-// K14 on the window design with epilogue `mode`: a whole 7-point sweep, or
-// one 27-point colour (the last of a sweep whose residual or norm is asked
-// for; `pass27` runs the others).
+// The 27-point K14 on the window design with epilogue `mode`: one colour,
+// the last of a sweep whose residual or norm is asked for (`pass27` runs
+// the others).
 template <typename T>
-int launch_sweep(const Args& a, int ts, int mode, cudaStream_t st) {
-#define CEDAR_K14(EPI)                                                       \
-  return ts ? launch<T, true, false, EPI>(a, nullptr, st)                    \
-            : launch<T, false, false, EPI>(a, nullptr, st)
+int launch_sweep(const Args& a, int mode, cudaStream_t st) {
   switch (mode) {
-    case kNone: CEDAR_K14(kNone);
-    case kRes: CEDAR_K14(kRes);
-    case kNorm: CEDAR_K14(kNorm);
+    case kRes: return launch<T, false, kRes>(a, nullptr, st);
+    case kNorm: return launch<T, false, kNorm>(a, nullptr, st);
   }
-#undef CEDAR_K14
   return (int)cudaErrorInvalidValue;
 }
 
@@ -587,28 +539,42 @@ int launch_sweep(const Args& a, int ts, int mode, cudaStream_t st) {
 // 7-point K15 and K16: the ring design (see the header note).
 
 constexpr int kAhead = 1;  // steps between a copy's issue and its first read
-// the tile rows built, float32 and float64, of which the plan takes one
+// The 7-point K14 caps its registers as for two blocks an SM: 2-3% faster
+// than one at 256³ (39 registers against 46 on its 20 tile rows; copies two
+// steps ahead bought nothing; PERF.md §6)
+constexpr int kMinBlocks14 = 2;
+// the tile rows built, float32 and float64: K15 and K16 two each, of which
+// the plan takes one; the 7-point K14 one each (20 rows beat 12 in float32,
+// PERF.md §6; tools/tune_fused3.py builds others with -DCEDAR_K14_ROWS)
 constexpr int kRingRows[2][2] = {{12, 10}, {4, 2}};
+#ifndef CEDAR_K14_ROWS
+#define CEDAR_K14_ROWS 20
+#endif
+constexpr int kRingRows14[2] = {CEDAR_K14_ROWS, 8};
 constexpr size_t rnd4(size_t w) { return (w + 3) & ~size_t(3); }
 
-// The compile-time layout of a 7-point K15 (INTERP false, EPI kRestrict)
-// or K16 (INTERP true, EPI kNone / kRes / kNorm) variant with tiles of TY
-// rows; ops/cuda_fused3.py `ring_words` mirrors WORDS and the launch
-// checks that the two agree.
+// The compile-time layout of a 7-point K14 (INTERP false, EPI kNone /
+// kRes / kNorm), K15 (INTERP false, EPI kRestrict) or K16 (INTERP true, EPI
+// kNone / kRes / kNorm) variant with tiles of TY rows; ops/cuda_fused3.py
+// `ring_words` mirrors WORDS and the launch checks that the two agree.
 template <typename T, bool INTERP, int EPI, int TY>
 struct Ring {
   // the stencil's planes 0-3 go through the ring too (float32)
   static constexpr bool ST = sizeof(T) == 4;
+  // K14: registers capped for MINB blocks an SM
+  static constexpr bool K14 = !INTERP && EPI != kRestrict;
+  static constexpr int AH = kAhead;
+  static constexpr int MINB = K14 ? kMinBlocks14 : 1;
   static constexpr int SP = last_phase(false, INTERP);
   static constexpr int SE = epi_stage(false, INTERP, EPI);
   static constexpr int H = halo(false, INTERP, EPI);
   static constexpr int RY = TY + 2 * H, TZ = kRW - 2 * H, PL = RY * kRW;
-  // slots with kAhead planes in flight: q (K15: loaded, stage s reading
+  // slots with AH planes in flight: q (K14, K15: loaded, stage s reading
   // back to plane p - SE - 1; K16: the interpolated q, written), K16's
   // q_pre, b (+ stencil)
-  static constexpr int WQ = INTERP ? SE + 1 : SE + 2 + kAhead;
-  static constexpr int WP = INTERP ? 3 + kAhead : 0;
-  static constexpr int WS = SE + 1 + kAhead;
+  static constexpr int WQ = INTERP ? SE + 1 : SE + 2 + AH;
+  static constexpr int WP = INTERP ? 3 + AH : 0;
+  static constexpr int WS = SE + 1 + AH;
   static constexpr int NSB = ST ? 5 : 1;  // arrays a b slot
   // K15: the CI of the block's coarse points and the next ones (two coarse
   // planes), the residual window (tile and low ring, four planes)
@@ -617,8 +583,9 @@ struct Ring {
   static constexpr size_t OP = rnd4((size_t)WQ * PL);
   static constexpr size_t OS = OP + rnd4((size_t)WP * PL);
   static constexpr size_t OC = OS + rnd4((size_t)WS * NSB * PL);
-  static constexpr size_t OR = OC + (INTERP ? 0 : rnd4(2 * (size_t)CIP));
-  static constexpr size_t WORDS = OR + (INTERP ? 0 : 4 * (size_t)RPL);
+  static constexpr bool RS = EPI == kRestrict;
+  static constexpr size_t OR = OC + (RS ? rnd4(2 * (size_t)CIP) : 0);
+  static constexpr size_t WORDS = OR + (RS ? 4 * (size_t)RPL : 0);
   static constexpr size_t BYTES = WORDS * sizeof(T);
   static constexpr int NW = RY;  // a warp a region row
 };
@@ -634,7 +601,7 @@ struct Ring {
 constexpr int kProbe = CEDAR_FUSED3_PROBE;
 
 struct RingDims {
-  int nx, ny, nz, nxc, nyc, nzc, cx, colors, emit_res;
+  int nx, ny, nz, nxc, nyc, nzc, cx, colors, ox, oy, oz, emit_res;
 };
 
 // colour-compact position of region column c: a row holds its even
@@ -642,12 +609,15 @@ struct RingDims {
 // and their z neighbours, are consecutive words
 __device__ __forceinline__ int cpos(int c) { return ((c & 1) << 5) | (c >> 1); }
 
-// 7-point K15 (INTERP false, EPI kRestrict; q_in is q) or K16 (INTERP
-// true, EPI kNone / kRes / kNorm; q_in is q_pre) on a y-z tile and an x
-// chunk: warp w takes region row w, lane l columns 2l and 2l + 1, in every
-// stage (a colour phase: the one of its colour).
+// 7-point K14 (INTERP false, EPI kNone / kRes / kNorm; q_in is q), K15
+// (INTERP false, EPI kRestrict) or K16 (INTERP true, EPI kNone / kRes /
+// kNorm; q_in is q_pre) on a y-z tile and an x chunk: warp w takes region
+// row w, lane l columns 2l and 2l + 1, in every stage (a colour phase: the
+// one of its colour).  Colours anchor at (x + ox, y + oy, z + oz): K15 and
+// K16 take a zero origin.
 template <typename T, bool INTERP, int EPI, int TY>
-__global__ void __launch_bounds__(32 * Ring<T, INTERP, EPI, TY>::NW, 1)
+__global__ void __launch_bounds__(32 * Ring<T, INTERP, EPI, TY>::NW,
+                                  Ring<T, INTERP, EPI, TY>::MINB)
 ring3(const T* __restrict__ so, const T* __restrict__ q_in,
       const T* __restrict__ b, const T* __restrict__ ci_p,
       const T* __restrict__ qc_p, T* __restrict__ q_out, T* __restrict__ res,
@@ -780,7 +750,7 @@ ring3(const T* __restrict__ so, const T* __restrict__ q_in,
         if (x == x1) prefetch_qc(x >> 1);
         if (x & 1) prefetch_qc((x >> 1) + 1);
       }
-    } else {
+    } else if constexpr (EPI == kRestrict) {
       // the restriction at plane x = t - SE - 2 reads CI planes x / 2 and
       // x / 2 + 1: the one slot that the restriction two steps before
       // read is free by now
@@ -856,17 +826,17 @@ ring3(const T* __restrict__ so, const T* __restrict__ q_in,
   const bool yin = y >= 0 && y < ny;
   const bool own_row = r >= H && r < H + TY && y < ny;
 #pragma unroll
-  for (int t = 0; t < kAhead; ++t) issue(p0 + t);
+  for (int t = 0; t < R::AH; ++t) issue(p0 + t);
   // A stage hands each point to the next stage in the same thread: stage
   // s + 1 at plane x - 1 reads plane x only at its own point, which stage
   // s updated earlier in the same step; so the stages need one barrier a
   // step, which also publishes the copies of plane p and frees the slots
-  // that step p + kAhead's copies overwrite.  (K15 restricts plane
-  // p - SE - 2 at step p: one step more.)
-  for (int p = p0; p < xe + H + !INTERP; ++p) {
-    wait_async<kAhead - 1>();
+  // that step p + AH's copies overwrite.  (K15 restricts plane p - SE - 2
+  // at step p: one step more.)
+  for (int p = p0; p < xe + H + R::RS; ++p) {
+    wait_async<R::AH - 1>();
     if (!(kProbe & 8)) __syncthreads();
-    issue(p + kAhead);
+    issue(p + R::AH);
 
     if constexpr (INTERP) {
       // stage 1: K8's expression, q_pre + (res/diag (off the coincident
@@ -893,14 +863,14 @@ ring3(const T* __restrict__ so, const T* __restrict__ q_in,
     }
 
     // the colour phases: q = (b + Σ coupling·q_nb) * (1/P) at the
-    // colour's points, (x + y + z) % 2 == color
+    // colour's points, (x + ox + y + oy + z + oz) % 2 == color
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
       const int s = INTERP + 1 + k, x = p - s;
       const int color = (a.colors >> (4 * k)) & 15;
       if (!(kProbe & 4) && valid(x, s) && r >= s && r < RY - s) {
         T* qx = qs(x);
-        const int pc = (color - x - y - z0) & 1;
+        const int pc = (color - x - a.ox - y - a.oy - z0 - a.oz) & 1;
         const int c = 2 * lane + pc, z = z0 + c;
         const Pt t = point(x, z, c, qs(x - 1), qx, qs(x + 1));
         const T v = A::mul(A::add(*t.bp, offd(pc, t)), A::div(T(1), t.s0[0]));
@@ -1008,8 +978,8 @@ int launch_ring(const Args& a, const KPlan& p, cudaStream_t st) {
       p.gz != (a.nz + R::TZ - 1) / R::TZ || p.gy != (a.ny + TY - 1) / TY ||
       p.gc != (a.nx + p.cx - 1) / p.cx)
     return (int)cudaErrorInvalidValue;
-  const RingDims d{a.nx,  a.ny, a.nz,     a.nxc,     a.nyc,
-                   a.nzc, p.cx, a.colors, a.emit_res};
+  const RingDims d{a.nx,  a.ny, a.nz,     a.nxc, a.nyc, a.nzc,
+                   p.cx,  a.colors, a.ox, a.oy, a.oz, a.emit_res};
   auto fn = ring3<T, INTERP, EPI, TY>;
   // above 48 KB with block_sum's static array included
   if (R::BYTES + 1024 > 48 * 1024) {
@@ -1027,14 +997,21 @@ int launch_ring(const Args& a, const KPlan& p, cudaStream_t st) {
 // the shared-memory bytes of that variant (-1: not built)
 template <typename T, bool INTERP, int EPI>
 int ring_rows(bool go, const Args& a, const KPlan& p, cudaStream_t st) {
-  constexpr int T0 = kRingRows[sizeof(T) == 8][0];
-  constexpr int T1 = kRingRows[sizeof(T) == 8][1];
-  if (p.ty == T0)
-    return go ? launch_ring<T, INTERP, EPI, T0>(a, p, st)
-              : (int)Ring<T, INTERP, EPI, T0>::BYTES;
-  if (p.ty == T1)
-    return go ? launch_ring<T, INTERP, EPI, T1>(a, p, st)
-              : (int)Ring<T, INTERP, EPI, T1>::BYTES;
+  constexpr int D = sizeof(T) == 8;
+  if constexpr (!INTERP && EPI != kRestrict) {
+    constexpr int T0 = kRingRows14[D];
+    if (p.ty == T0)
+      return go ? launch_ring<T, INTERP, EPI, T0>(a, p, st)
+                : (int)Ring<T, INTERP, EPI, T0>::BYTES;
+  } else {
+    constexpr int T0 = kRingRows[D][0], T1 = kRingRows[D][1];
+    if (p.ty == T0)
+      return go ? launch_ring<T, INTERP, EPI, T0>(a, p, st)
+                : (int)Ring<T, INTERP, EPI, T0>::BYTES;
+    if (p.ty == T1)
+      return go ? launch_ring<T, INTERP, EPI, T1>(a, p, st)
+                : (int)Ring<T, INTERP, EPI, T1>::BYTES;
+  }
   return go ? (int)cudaErrorInvalidValue : -1;
 }
 
@@ -1333,30 +1310,35 @@ int pass27_planned(bool go, const Args& a, const KPlan& p, cudaStream_t st) {
                                 : -1;
 }
 
-// K15 (interp false, mode kRestrict) or K16 (interp true, mode kNone /
-// kRes / kNorm, 27-point kNone only) launched on plan p (go true); or the
-// shared-memory bytes of the kernel with p's tile rows (-1: none such).
-// 7-point: the ring design; 27-point: the window design.
+// K15 (interp false, mode kRestrict), K16 (interp true, mode kNone /
+// kRes / kNorm, 27-point kNone only) or the 7-point K14 (interp false, mode
+// kNone / kRes / kNorm) launched on plan p (go true); or the shared-memory
+// bytes of the kernel with p's tile rows (-1: none such).  7-point: the
+// ring design; 27-point: the window design.
 template <typename T>
 int planned(bool go, const Args& a, int ts, int interp, int mode,
             const KPlan& p, cudaStream_t st) {
   const int bad = go ? (int)cudaErrorInvalidValue : -1;
-  if (interp ? mode != kNone && (ts || (mode != kRes && mode != kNorm))
-             : mode != kRestrict)
-    return bad;
   if (ts) {
+    if (interp ? mode != kNone : mode != kRestrict) return bad;
     if (!go)
-      return p.ty == kTileRows
-                 ? (int)(smem_words(true, interp, mode, sizeof(T)) * sizeof(T))
-                 : -1;
-    return interp ? launch<T, true, true, kNone>(a, &p, st)
-                  : launch<T, true, false, kRestrict>(a, &p, st);
+      return p.ty == kTileRows ? (int)(smem_words(interp, mode) * sizeof(T))
+                               : -1;
+    return interp ? launch<T, true, kNone>(a, &p, st)
+                  : launch<T, false, kRestrict>(a, &p, st);
   }
-  if (!interp) return ring_rows<T, false, kRestrict>(go, a, p, st);
   switch (mode) {
-    case kNone: return ring_rows<T, true, kNone>(go, a, p, st);
-    case kRes: return ring_rows<T, true, kRes>(go, a, p, st);
-    case kNorm: return ring_rows<T, true, kNorm>(go, a, p, st);
+    case kNone:
+      return interp ? ring_rows<T, true, kNone>(go, a, p, st)
+                    : ring_rows<T, false, kNone>(go, a, p, st);
+    case kRes:
+      return interp ? ring_rows<T, true, kRes>(go, a, p, st)
+                    : ring_rows<T, false, kRes>(go, a, p, st);
+    case kNorm:
+      return interp ? ring_rows<T, true, kNorm>(go, a, p, st)
+                    : ring_rows<T, false, kNorm>(go, a, p, st);
+    case kRestrict:
+      return interp ? bad : ring_rows<T, false, kRestrict>(go, a, p, st);
   }
   return bad;
 }
@@ -1390,40 +1372,61 @@ int cedar_fused3_pass27_smem(int dtype, int ty) {
   return -1;
 }
 
-// The number of norm partials (of blocks) of a K14 pass of the window
-// design (7-point, or one 27-point colour) with the norm epilogue on an
-// (nx, ny, nz) grid.
-int cedar_fused3_partials(int ts, int nx, int ny, int nz) {
-  const cedar::Plan pl =
-      cedar::plan(ts, false, cedar::kNorm, nx, ny, nz, 4);
+// The number of norm partials (of blocks) of a one-colour 27-point K14 of
+// the window design with the norm epilogue on an (nx, ny, nz) grid.
+int cedar_fused3_partials(int nx, int ny, int nz) {
+  const cedar::Plan pl = cedar::plan(false, cedar::kNorm, nx, ny, nz, 4);
   return (int)(pl.grid.x * pl.grid.y * pl.grid.z);
 }
 
-// The shared-memory bytes of the K15 (interp 0, mode 3) or K16 (interp 1,
-// mode 0-2) kernel with tiles of ty rows, or -1 if none is built: what
-// ops/cuda_fused3.py `plan` computes.
+// The blocks an SM that the 7-point K14's registers are capped for, and its
+// tile rows in dtype (ops/cuda_fused3.py `plan` reads them).
+int cedar_fused3_ring14_blocks() { return cedar::kMinBlocks14; }
+int cedar_fused3_ring14_rows(int dtype) {
+  return dtype == cedar::kFloat64 ? cedar::kRingRows14[1]
+                                  : cedar::kRingRows14[0];
+}
+
+// The shared-memory bytes of the K15 (interp 0, mode 3), K16 (interp 1,
+// mode 0-2) or 7-point K14 (ts 0, interp 0, mode 0-2) kernel with tiles of
+// ty rows, or -1 if none is built: what ops/cuda_fused3.py `plan` computes.
 int cedar_fused3_smem(int dtype, int ts, int interp, int mode, int ty) {
   const cedar::Args a{};
   const cedar::KPlan p{ty, 0, 0, 0, 0, 0};
   return cedar::planned_dtype(dtype, false, a, ts, interp, mode, p, nullptr);
 }
 
-// K14 on the window design: q_out = one pass of q_in (2 colours 7-point,
-// one 27-point); colors packs the colour codes in order, 4 bits each; mode
-// 0 nothing more, 1 res = b - A q_out, 2 partials[block] = Σ res² over the
-// block.  Returns a CUDA error code (0 on success).
+// The 27-point K14 on the window design: q_out = one colour of q_in (code
+// in colors), then mode 1 res = b - A q_out or 2 partials[block] = Σ res²
+// over the block.  Returns a CUDA error code (0 on success).
 int cedar_sweep3_fused(int dtype, const void* so, const void* q_in,
                        const void* b, void* q_out, void* res, void* partials,
-                       int nx, int ny, int nz, int ts, int colors, int ox,
-                       int oy, int oz, int mode, void* stream) {
+                       int nx, int ny, int nz, int colors, int ox, int oy,
+                       int oz, int mode, void* stream) {
   const cedar::Args a{so, q_in, b, nullptr, nullptr, q_out, res, nullptr,
                       partials, nx, ny, nz, 0, 0, 0, colors, ox, oy, oz, 0};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == cedar::kFloat32)
-    return cedar::launch_sweep<float>(a, ts, mode, st);
-  if (dtype == cedar::kFloat64)
-    return cedar::launch_sweep<double>(a, ts, mode, st);
+  if (dtype == cedar::kFloat32) return cedar::launch_sweep<float>(a, mode, st);
+  if (dtype == cedar::kFloat64) return cedar::launch_sweep<double>(a, mode, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The 7-point K14 on the ring design: q_out = one whole sweep of q_in
+// (colour codes packed as above), then mode 0 nothing more, 1 res = b -
+// A q_out, 2 partials[block] = Σ res² over the block; on the plan (ty, cx,
+// gz, gy, gc, smem) of ops/cuda_fused3.py `plan`.  Returns a CUDA error
+// code.
+int cedar_sweep3_ring(int dtype, const void* so, const void* q_in,
+                      const void* b, void* q_out, void* res, void* partials,
+                      int nx, int ny, int nz, int colors, int ox, int oy,
+                      int oz, int mode, int ty, int cx, int gz, int gy,
+                      int gc, long long smem, void* stream) {
+  const cedar::Args a{so, q_in, b, nullptr, nullptr, q_out, res, nullptr,
+                      partials, nx, ny, nz, 0, 0, 0, colors, ox, oy, oz, 0};
+  const cedar::KPlan p{ty, cx, gz, gy, gc, smem};
+  if (mode == cedar::kRestrict) return (int)cudaErrorInvalidValue;
+  return cedar::planned_dtype(dtype, true, a, 0, 0, mode, p,
+                              (cudaStream_t)stream);
 }
 
 // 27-point K14: q_out = one march of up to cedar_fused3_pass27_stages()

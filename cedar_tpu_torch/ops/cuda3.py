@@ -1,91 +1,235 @@
-"""K6: the 3D multicolour sweep kernel (CUDA) and its plain version.
+"""K6: the 3D multicolour sweep (CUDA) and its plain version.
 
 Counterpart of :mod:`cedar_tpu.ops.pallas3` (``_sweep_kernel`` and its
-(x, y)-tiled ``_sweep2d_kernel``).  :func:`sweep` launches
-``csrc/sweep3.cu`` once per colour phase (2 for 7-point, 8 for 27-point)
-and once more for the fused residual, on the tensors' current stream;
-:func:`sweep_plain` computes the same function in torch ops
+(x, y)-tiled ``_sweep2d_kernel``).  :func:`sweep` runs one sweep (all
+colour phases, and the residual with ``fuse_residual``) on the card, on
+the tensors' current stream, on a :func:`plan` that this module computes
+from the shapes, in the regime measured fastest there (PERF.md §6):
+
+* ``resident``: a small 27-point level, whose q and stencil planes fit one
+  block's shared memory, is swept there in one launch, a thread a point of
+  each colour (``csrc/sweep3.cu``);
+* ``ring``, ``pass27``: a large level runs on K14's launches
+  (:func:`cedar_tpu_torch.ops.cuda_fused3.launch_sweep`: the 7-point ring
+  march with its residual epilogue; the 27-point float32 marches, two
+  colours a launch, then the residual kernel), which compute the same
+  function;
+* ``phases``: every other level, one launch a colour phase (the first
+  writes every point of the new iterate) and one for the residual.
+
+:func:`sweep_plain` computes it in torch ops
 (:func:`cedar_tpu_torch.ops.relax3.sweep3_torch`).
 :func:`cedar_tpu_torch.ops.relax3.point_relax` picks one by device.
 
-Both update ``q`` in place.  ``launches`` counts kernel launches made by
-:func:`sweep`, ``plain_calls`` calls of :func:`sweep_plain`.
+Both return the swept iterate in a new tensor and leave ``q`` as it was,
+as the JAX function does.  ``resident_launches`` counts the resident
+launches made by :func:`sweep`, ``launches`` its per-colour and residual
+launches (its K14 launches count in ``cuda_fused3.sweep_launches``),
+``plain_calls`` calls of :func:`sweep_plain`.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+from dataclasses import dataclass
+
 import torch
 
 from cedar_tpu_torch.core.types import StencilKind
-from cedar_tpu_torch.ops import cuda_build, relax3
+from cedar_tpu_torch.ops import cuda_build, cuda_fused3, relax3
+from cedar_tpu_torch.ops.cuda_build import BLOCK_SMEM
 
 launches = 0
+resident_launches = 0
 plain_calls = 0
 
+#: threads of a resident block (csrc/sweep3.cu ``kResThreads``)
+THREADS = 512
+#: the fewest points of a level on K14's launches: 7-point (the ring, both
+#: dtypes), 27-point (the marches, float32); below them, and above the
+#: resident levels, the per-colour launches were the faster on the card
+#: (PERF.md §6)
+RING_POINTS = 200 ** 3
+PASS27_POINTS = 96 ** 3
 
-def _shares_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
-    return a.untyped_storage().data_ptr() == b.untyped_storage().data_ptr()
+
+def octant_words(shape) -> int:
+    """The words of one array in a resident block: 8 octants of half the
+    grid's extents, rounded up (csrc/sweep3.cu ``sweep_resident``)."""
+    return 8 * math.prod((n + 1) // 2 for n in shape)
 
 
-def _check_sweep(so, q, b, kind: StencilKind) -> None:
-    if kind not in (StencilKind.seven_pt, StencilKind.twenty_seven_pt):
-        # in-place phases are race-free only for colourings in which no
-        # point couples to its own colour: red-black 7-pt, 8-colour 27-pt
-        raise ValueError(f"sweep takes 3D seven_pt or twenty_seven_pt, "
-                         f"not {kind}")
-    if q.ndim != 3 or b.shape != q.shape:
-        raise ValueError(f"q {tuple(q.shape)} and b {tuple(b.shape)}")
-    if tuple(so.shape) != (kind.ndirs, *q.shape):
-        raise ValueError(
-            f"so {tuple(so.shape)} does not fit {kind} on {tuple(q.shape)}"
-        )
-    if _shares_storage(q, b) or _shares_storage(q, so):
-        raise ValueError("q must not share storage with so or b")
+@dataclass(frozen=True)
+class Plan:
+    """A K6 sweep: its ``route`` ("resident", "ring", "pass27" or
+    "phases"); a resident one is one launch of ``threads`` threads and
+    ``smem`` bytes."""
+    route: str
+    smem: int = 0
+    threads: int = 0
+
+    @property
+    def resident(self) -> bool:
+        return self.route == "resident"
+
+
+@functools.lru_cache(maxsize=256)
+def plan(itemsize: int, ts: bool, shape,
+         build: tuple[int, int] = (THREADS, BLOCK_SMEM)) -> Plan:
+    """The K6 sweep on an ``(nx, ny, nz)`` grid for the kernel ``build``
+    (its threads a block and the most shared memory a block may take,
+    :func:`_build_of`): resident where a 27-point level's octants (a
+    colour each) hold a point a thread at most and its q and 13
+    off-diagonal stencil planes fit one block; K14's launches from
+    :data:`RING_POINTS` points 7-point (``ring``) and
+    :data:`PASS27_POINTS` 27-point float32 (``pass27``); else
+    ``phases``."""
+    n = math.prod(shape)
+    threads, limit = build
+    m = octant_words(shape)
+    smem = 14 * m * itemsize
+    if ts and m <= 8 * threads and smem <= limit:
+        return Plan("resident", smem, threads)
+    if not ts and n >= RING_POINTS:
+        return Plan("ring")
+    if ts and itemsize == 4 and n >= PASS27_POINTS:
+        return Plan("pass27")
+    return Plan("phases")
+
+
+def launches_of(p: Plan, kind: StencilKind, fuse_residual: bool,
+                stages: int | None = None) -> int:
+    """The kernel launches of a sweep on plan ``p``: one resident or ring
+    (its epilogue computes the residual); a launch a colour phase, or a
+    27-point march a launch (``stages`` colours, default the built ones),
+    and one more for the residual."""
+    if p.route in ("resident", "ring"):
+        return 1
+    ncolors = 8 if kind == StencilKind.twenty_seven_pt else 2
+    if p.route == "pass27":
+        ncolors = len(cuda_fused3.passes(
+            stages or cuda_fused3.PASS27_STAGES, kind, "down", "sweep"))
+    return ncolors + fuse_residual
+
+
+@functools.lru_cache(maxsize=None)
+def _build_of(lib) -> tuple[int, int]:
+    """The threads of a resident block and the most shared memory it may
+    take in the build ``lib`` on the current card, read once."""
+    return lib.cedar_sweep3_threads(), lib.cedar_sweep3_smem()
 
 
 def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
           kind: StencilKind, updown: str, fuse_residual: bool = False,
           origin=(0, 0, 0)):
-    """One full multicolour GS sweep on the card, ``q`` updated in place.
+    """One full multicolour GS sweep on the card, out of place, in the
+    regime of :func:`plan`.
 
-    Returns ``q``, or ``(q, res)`` with ``fuse_residual``."""
-    global launches
-    _check_sweep(so, q, b, kind)
+    Returns the swept iterate, or ``(q_new, b - A q_new)`` with
+    ``fuse_residual``; ``q`` is left as it was."""
+    relax3.check_sweep(so, q, b, kind)
     dt = cuda_build.check_operands(so, q, b)
+    p = plan(q.element_size(), kind == StencilKind.twenty_seven_pt,
+             tuple(q.shape), _build_of(cuda_build.load("sweep3")))
+    return _launch(p, dt, so, q, b, kind, updown, fuse_residual, origin)
+
+
+def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
+           origin=(0, 0, 0)):
+    """:func:`sweep` on the plan ``p`` (tools/tune_fused3.py times every
+    regime at one shape)."""
+    relax3.check_sweep(so, q, b, kind)
+    dt = cuda_build.check_operands(so, q, b)
+    return _launch(p, dt, so, q, b, kind, updown, fuse_residual, origin)
+
+
+def _launch(p: Plan, dt: int, so, q, b, kind, updown, fuse_residual,
+            origin):
+    """The launches of a sweep on plan ``p`` (operands checked, dtype code
+    ``dt``)."""
+    if p.route == "resident":
+        return _resident(p, dt, so, q, b, kind, updown, fuse_residual,
+                         origin)
+    if p.route == "phases":
+        q_out = _phases(dt, so, q, b, kind, updown, origin)
+    else:
+        # K14: the ring's epilogue computes the residual; after the marches
+        # the residual kernel is the faster (PERF.md §6)
+        epilogue = p.route == "ring"
+        out = cuda_fused3.launch_sweep(dt, so, q, b, kind, updown,
+                                       fuse_residual and epilogue, origin)
+        if epilogue:
+            return out
+        q_out = out
+    if not fuse_residual:
+        return q_out
+    return q_out, _residual(dt, so, q_out, b, kind)
+
+
+def _resident(p: Plan, dt: int, so, q, b, kind, updown, fuse_residual,
+              origin):
+    """A resident sweep: one launch, its residual the epilogue."""
+    global resident_launches
+    if kind != StencilKind.twenty_seven_pt:
+        raise ValueError("a resident K6 sweep is 27-point")
+    q_out = torch.empty_like(q)
+    res = torch.empty_like(q) if fuse_residual else None
+    cuda_build.check(
+        cuda_build.load("sweep3").cedar_sweep3_resident(
+            dt, so.data_ptr(), q.data_ptr(), b.data_ptr(), q_out.data_ptr(),
+            None if res is None else res.data_ptr(), *q.shape,
+            relax3.pack_colors(kind, updown), *(int(o) for o in origin),
+            int(fuse_residual), p.smem, cuda_build.stream_of(q)),
+        "sweep3_resident",
+    )
+    resident_launches += 1
+    return (q_out, res) if fuse_residual else q_out
+
+
+def _phases(dt: int, so, q, b, kind, updown, origin):
+    """A launch a colour phase; the first writes every point of the new
+    iterate (its colour updated, the others copied)."""
+    global launches
     lib = cuda_build.load("sweep3")
     stream = cuda_build.stream_of(q)
-    nx, ny, nz = q.shape
     ts = int(kind == StencilKind.twenty_seven_pt)
-    ox, oy, oz = (int(o) for o in origin)
+    q_out = torch.empty_like(q)
+    qi, qo = q.data_ptr(), q_out.data_ptr()
     for color in relax3.color_order(kind, updown):
         cuda_build.check(
-            lib.cedar_sweep3_phase(dt, so.data_ptr(), q.data_ptr(),
-                                   b.data_ptr(), nx, ny, nz, ts, color, ox,
-                                   oy, oz, stream),
+            lib.cedar_sweep3_phase(dt, so.data_ptr(), qi, qo, b.data_ptr(),
+                                   *q.shape, ts, color,
+                                   *(int(o) for o in origin), stream),
             "sweep3 phase",
         )
         launches += 1
-    if not fuse_residual:
-        return q
+        qi = qo
+    return q_out
+
+
+def _residual(dt: int, so, q, b, kind):
+    """``b - A q`` by the residual kernel."""
+    global launches
     res = torch.empty_like(q)
     cuda_build.check(
-        lib.cedar_residual3(dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
-                            res.data_ptr(), nx, ny, nz, ts, stream),
+        cuda_build.load("sweep3").cedar_residual3(
+            dt, so.data_ptr(), q.data_ptr(), b.data_ptr(), res.data_ptr(),
+            *q.shape, int(kind == StencilKind.twenty_seven_pt),
+            cuda_build.stream_of(q)),
         "sweep3 residual",
     )
     launches += 1
-    return q, res
+    return res
 
 
 def sweep_plain(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
                 kind: StencilKind, updown: str, fuse_residual: bool = False,
                 origin=(0, 0, 0), recip=None):
-    """:func:`sweep` in torch ops, on any device; ``q`` updated in place."""
+    """:func:`sweep` in torch ops, on any device; returns new tensors and
+    leaves ``q`` as it was."""
     global plain_calls
     plain_calls += 1
-    _check_sweep(so, q, b, kind)
-    out = relax3.sweep3_torch(so, q, b, recip, kind, updown, fuse_residual,
-                              origin)
-    if fuse_residual:
-        return q.copy_(out[0]), out[1]
-    return q.copy_(out)
+    relax3.check_sweep(so, q, b, kind)
+    return relax3.sweep3_torch(so, q, b, recip, kind, updown, fuse_residual,
+                               origin)

@@ -73,8 +73,13 @@ SIGNATURES = {
                                   _I, _I, _I, _I, _I, _I, _L, _P],
     },
     "sweep3": {
-        "cedar_sweep3_phase": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                               _I, _P],
+        "cedar_sweep3_threads": [],
+        "cedar_sweep3_smem": [],
+        # ends with its plan: the block's smem
+        "cedar_sweep3_resident": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _L, _P],
+        "cedar_sweep3_phase": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                               _I, _I, _P],
         "cedar_residual3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "transfer3": {
@@ -86,12 +91,16 @@ SIGNATURES = {
     "fused3": {
         "cedar_fused3_pass27_stages": [],
         "cedar_fused3_pass27_smem": [_I, _I],
-        "cedar_fused3_partials": [_I, _I, _I, _I],
+        "cedar_fused3_partials": [_I, _I, _I],
+        "cedar_fused3_ring14_blocks": [],
+        "cedar_fused3_ring14_rows": [_I],
         "cedar_fused3_smem": [_I, _I, _I, _I, _I],
         "cedar_sweep3_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _I, _P],
-        # the 27-point K14, K15 and K16 end with their plan: ty, cx, gz,
-        # gy, gc, smem
+                               _I, _I, _I, _I, _P],
+        # the 7- and 27-point K14, K15 and K16 end with their plan: ty, cx,
+        # gz, gy, gc, smem
+        "cedar_sweep3_ring": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
         "cedar_pass27": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _L, _P],
         "cedar_sweep_restrict3": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,

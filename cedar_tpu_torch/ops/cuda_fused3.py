@@ -11,30 +11,32 @@ on the tensors' current stream; :func:`sweep_plain`,
 same functions in torch ops (:mod:`cedar_tpu_torch.ops.fused3`), which
 picks one by device.
 
-A kernel launch runs one pass: both colours of a 7-point sweep; a
-27-point K15 or K16 one of the eight 27-point colours (the last of a
-pre-sweep, the first of a post-sweep), a 27-point K14 a march of up to
-:data:`PASS27_STAGES` of them (``cedar_fused3_pass27_stages``: a 27-point
-sweep is four K14 launches), in groups aligned to the colour order, so
-that the colours of a march share their y and z parities.  A 27-point
-sweep whose residual or norm is asked for runs its last colour as a
-one-colour K14 of the window design, whose epilogue computes it
-(:func:`_passes`).  Each launch adds one to the count of the kernel it
-launches (``*_launches``); ``*_plain_calls`` count plain-version
-calls.
+A kernel launch runs one pass: both colours of a 7-point sweep (with its
+epilogue); a 27-point K15 or K16 one of the eight 27-point colours (the
+last of a pre-sweep, the first of a post-sweep), a 27-point K14 a march of
+up to :data:`PASS27_STAGES` of them (``cedar_fused3_pass27_stages``: a
+27-point sweep is four K14 launches), in groups aligned to the colour
+order, so that the colours of a march share their y and z parities.  A
+27-point sweep whose residual or norm is asked for runs its last colour as
+a one-colour K14 of the window design, whose epilogue computes it
+(:func:`passes`).  The 3D sweep K6 (:mod:`cedar_tpu_torch.ops.cuda3`)
+runs its largest levels on these K14 launches too, through
+:func:`launch_sweep`.  Each launch
+adds one to the count of the kernel it launches (``*_launches``);
+``*_plain_calls`` count plain-version calls.
 
 All of them read ``q`` and return a new iterate: a kernel block reads
 ``q`` over its region and a halo while other blocks write theirs, so the
 kernels work out of place.
 
-K15 and K16 launch on a :func:`plan`, the 27-point K14 on a
-:func:`pass27_plan`, that this module computes from the shapes and the
-card's SM count and passes to the kernel: tile rows, x chunk, grid and
-shared-memory bytes (the launch checks them against the kernel's own),
-and so the number of norm partials.  7-point K15 and K16 run the ring
-design (copies by cp.async into rings of planes), 27-point ones the
-window design of the 7-point K14, the 27-point K14 its march of several
-colours (csrc/fused3.cu's header note).
+K15, K16 and the 7-point K14 launch on a :func:`plan`, the 27-point K14
+on a :func:`pass27_plan`, that this module computes from the shapes and
+the card's SM count and passes to the kernel: tile rows, x chunk, grid
+and shared-memory bytes (the launch checks them against the kernel's
+own), and so the number of norm partials.  7-point K14, K15 and K16 run
+the ring design (copies by cp.async into rings of planes), 27-point K15
+and K16 the window design, the 27-point K14 its march of several colours
+(csrc/fused3.cu's header note).
 """
 
 from __future__ import annotations
@@ -47,7 +49,6 @@ import torch
 from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import cuda_build, fused3, relax3
 from cedar_tpu_torch.ops.cuda_build import BLOCK_SMEM, SM_SMEM
-from cedar_tpu_torch.ops.cuda3 import _check_sweep as _check
 from cedar_tpu_torch.ops.cuda_transfer3 import _check_qc, _coarse_shape
 
 sweep_launches = 0
@@ -63,8 +64,14 @@ _NONE, _RES, _NORM, _RESTRICT = 0, 1, 2, 3
 #: region columns (z) of K14-K16 (csrc/fused3.cu ``kRW``)
 RW = 64
 #: 7-point K15's and K16's tile rows built (csrc/fused3.cu
-#: ``kRingRows``) by itemsize, of which :func:`plan` takes one
+#: ``kRingRows``) by itemsize, of which :func:`plan` takes one; the 7-point
+#: K14's, one a dtype (``kRingRows14``; a build with ``-DCEDAR_K14_ROWS=t``
+#: takes t in float32, ``cedar_fused3_ring14_rows``)
 RING_ROWS = {4: (12, 10), 8: (4, 2)}
+RING14_ROWS = {4: 20, 8: 8}
+#: the blocks an SM the 7-point K14's registers are capped for
+#: (csrc/fused3.cu ``kMinBlocks14``)
+RING14_BLOCKS = 2
 #: 27-point K15's and K16's tile rows and the blocks a launch aims at
 #: (csrc/fused3.cu ``kTileRows``, ``kTargetBlocks``), their warps and
 #: resident blocks an SM (``kWarps27``, ``kMinBlocks27``)
@@ -102,18 +109,24 @@ def _rnd4(w: int) -> int:
     return (w + 3) & ~3
 
 
+def is_k14(interp: bool, mode: int) -> bool:
+    """Whether a 7-point ring variant is K14 (the colour stages and an
+    epilogue) rather than K15 or K16."""
+    return not interp and mode != _RESTRICT
+
+
 def ring_words(itemsize: int, interp: bool, mode: int, ty: int) -> int:
-    """Shared-memory words of a 7-point K15 (``interp`` false) or K16
-    block with tiles of ``ty`` rows: csrc/fused3.cu ``Ring<...>::WORDS``
-    (copies one step ahead): slots of q, of K16's q_pre, of b (and in f32
-    the stencil planes 0-3); K15's two CI planes and four residual
-    planes."""
+    """Shared-memory words of a 7-point K14 (``interp`` false, ``mode``
+    not ``_RESTRICT``), K15 (``_RESTRICT``) or K16 block with tiles of
+    ``ty`` rows: csrc/fused3.cu ``Ring<...>::WORDS`` (copies one step
+    ahead): slots of q, of K16's q_pre, of b (and in f32 the stencil planes
+    0-3); K15's two CI planes and four residual planes."""
     _, se, h = _stages(False, interp, mode)
     pl, tz = (ty + 2 * h) * RW, RW - 2 * h
     nsb = 5 if itemsize == 4 else 1
     words = (_rnd4((se + 1 if interp else se + 3) * pl)
              + _rnd4((4 if interp else 0) * pl) + _rnd4((se + 2) * nsb * pl))
-    if not interp:
+    if mode == _RESTRICT:
         words += (_rnd4(2 * 26 * (ty // 2 + 1) * (tz // 2 + 1))
                   + 4 * (ty + 1) * (tz + 1))
     return words
@@ -169,17 +182,21 @@ class Plan:
 
 @functools.lru_cache(maxsize=256)
 def plan(itemsize: int, ts: bool, interp: bool, mode: int, shape,
-         n_sm: int = 132, ty: int | None = None) -> Plan:
-    """The launch of K15 (``interp`` false, ``mode`` _RESTRICT) or K16 on
-    an ``(nx, ny, nz)`` grid for a card of ``n_sm`` SMs.
+         n_sm: int = 132, ty: int | None = None,
+         blocks14: int = RING14_BLOCKS) -> Plan:
+    """The launch of K15 (``interp`` false, ``mode`` _RESTRICT), K16 or
+    the 7-point K14 (``interp`` false, another mode) on an ``(nx, ny,
+    nz)`` grid for a card of ``n_sm`` SMs.
 
     7-point (the ring design): the tile rows ``ty``, or the largest
-    :data:`RING_ROWS` option that fits a block, then the x chunk whose grid
-    runs in the fewest steps a resident block slot (whole waves of
-    ``n_sm`` blocks), of an even length.  27-point (the window design):
-    16-row tiles, and chunks of an even length that give the card about
-    :data:`TARGET_BLOCKS` blocks and are at least 2H planes long.  Tiles
-    and chunks start at even indices, as K15's restriction needs."""
+    :data:`RING_ROWS` option that fits a block (K14: its build's, by
+    default :data:`RING14_ROWS`), then the x chunk whose grid runs in the fewest steps a resident block
+    slot (K14: as many blocks an SM as fit, at most the ``blocks14`` its
+    build caps its registers for), of an even length.  27-point (the
+    window design): 16-row tiles, and chunks of an even length that give
+    the card about :data:`TARGET_BLOCKS` blocks and are at least 2H planes
+    long.  Tiles and chunks start at even indices, as K15's restriction
+    needs."""
     nx, ny, nz = shape
     _, _, h = _stages(ts, interp, mode)
     tz = RW - 2 * h
@@ -195,19 +212,28 @@ def plan(itemsize: int, ts: bool, interp: bool, mode: int, shape,
         return Plan(WINDOW_ROWS, tz, h, cx, gz, gy, -(-nx // cx), smem,
                     WINDOW_WARPS,
                     min(WINDOW_BLOCKS, SM_SMEM // (smem + 1024)), False)
-    options = RING_ROWS[itemsize]
+    k14 = is_k14(interp, mode)
+    blocks = blocks14 if k14 else 1
+    options = ((ty or RING14_ROWS[itemsize],) if k14
+               else RING_ROWS[itemsize])
     size = {t: ring_words(itemsize, interp, mode, t) * itemsize
             for t in options}
+
+    def per_sm(t):
+        return min(blocks, SM_SMEM // (size[t] + 1024),
+                   2048 // (32 * (t + 2 * h)))
+
     if ty is None:
         fit = [t for t in options if size[t] <= BLOCK_SMEM]
         if not fit:
             raise ValueError(f"no built tile rows {options} fit a block")
         ty = max(fit)
     if ty not in size or size[ty] > BLOCK_SMEM:
-        raise ValueError(f"no 7-point K15/K16 variant with {ty} tile rows")
+        raise ValueError(f"no 7-point ring variant with {ty} tile rows")
     gz, gy = -(-nz // tz), -(-ny // ty)
-    cx, gc = cuda_build.chunk(nx, gz * gy, n_sm, h)
-    return Plan(ty, tz, h, cx, gz, gy, gc, size[ty], ty + 2 * h, 1, True)
+    cx, gc = cuda_build.chunk(nx, gz * gy, n_sm * per_sm(ty), h)
+    return Plan(ty, tz, h, cx, gz, gy, gc, size[ty], ty + 2 * h, per_sm(ty),
+                True)
 
 
 @functools.lru_cache(maxsize=256)
@@ -252,20 +278,30 @@ def _stages_of(lib) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _passes(stages: int, kind: StencilKind, updown: str, role: str = "sweep",
+def _ring14_of(lib) -> tuple[dict[int, int], int]:
+    """The 7-point K14's tile rows by itemsize and the blocks an SM its
+    registers are capped for, in build ``lib``, read once."""
+    rows = {4: lib.cedar_fused3_ring14_rows(0),
+            8: lib.cedar_fused3_ring14_rows(1)}
+    return rows, lib.cedar_fused3_ring14_blocks()
+
+
+@functools.lru_cache(maxsize=None)
+def passes(stages: int, kind: StencilKind, updown: str, role: str = "sweep",
             mode: int = _NONE) -> tuple[tuple[str, tuple[int, ...]], ...]:
     """The launches of one sweep in order, each ``(kernel, colours)`` in
     :func:`relax3.color_order`'s codes: 7-point one launch of both colours
-    (K14, K15 or K16 by ``role``: "sweep", "restrict" or "interp");
+    (the ring K14, K15 or K16 by ``role``: "sweep", "restrict" or
+    "interp": "ring", "K15", "K16");
     27-point K16 on the first colour ("interp"), K15 on the last
     ("restrict"), a K14 march ("pass27") for each block of ``stages``
     positions of the colour order that holds any of the others, but the
     last colour of a sweep with an epilogue ``mode``, which a one-colour
     K14 of the window design ("K14") runs."""
     order = tuple(relax3.color_order(kind, updown))
-    last = {"sweep": "K14", "restrict": "K15", "interp": "K16"}[role]
     if kind != StencilKind.twenty_seven_pt:
-        return ((last, order),)
+        return (({"sweep": "ring", "restrict": "K15", "interp": "K16"}[role],
+                 order),)
     lo = int(role == "interp")
     hi = 8 - (role == "restrict" or mode != _NONE)
     marches = tuple(("pass27", order[max(j, lo):min(j + stages, hi)])
@@ -299,20 +335,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _sweep_pass(lib, dt: int, so, q_in, b, kind: StencilKind, colors,
-                origin, mode: int):
-    """One K14 launch of the window design on ``colors`` (a whole 7-point
-    sweep or one 27-point colour) with epilogue ``mode``; returns
-    ``(q_out, res or partials or None)``."""
+def _window_pass(lib, dt: int, so, q_in, b, colors, origin, mode: int):
+    """One 27-point K14 launch of the window design on one colour with
+    epilogue ``mode``; returns ``(q_out, res or partials)``."""
     global sweep_launches
     q_out = torch.empty_like(q_in)
-    ts = int(kind == StencilKind.twenty_seven_pt)
-    extra = _extra(q_in, mode, lib.cedar_fused3_partials(ts, *q_in.shape))
+    extra = _extra(q_in, mode, lib.cedar_fused3_partials(*q_in.shape))
     ox, oy, oz = (int(o) for o in origin)
     cuda_build.check(
         lib.cedar_sweep3_fused(dt, so.data_ptr(), q_in.data_ptr(),
                                b.data_ptr(), q_out.data_ptr(), _ptr(extra),
-                               _ptr(extra), *q_in.shape, ts, _pack(colors),
+                               _ptr(extra), *q_in.shape, _pack(colors),
                                ox, oy, oz, mode, cuda_build.stream_of(q_in)),
         "sweep3_fused",
     )
@@ -320,23 +353,52 @@ def _sweep_pass(lib, dt: int, so, q_in, b, kind: StencilKind, colors,
     return q_out, extra
 
 
-def _run(lib, dt: int, so, q, b, kind: StencilKind, passes, origin,
-         mode: int):
-    """The K14 launches of ``passes`` (:func:`_passes`: marches, and a
-    window-design K14 with epilogue ``mode``) in turn from ``q``; returns
-    ``(q_out, res or partials or None)``."""
+def _ring_pass(lib, dt: int, so, q_in, b, colors, origin, mode: int):
+    """One 7-point K14 launch of the ring design: the whole sweep
+    (``colors``) with epilogue ``mode``, on :func:`plan` for the build
+    ``lib``; returns ``(q_out, res or partials or None)``."""
     global sweep_launches
-    extra = None
+    rows, blocks = _ring14_of(lib)
+    itemsize = q_in.element_size()
+    p = plan(itemsize, False, False, mode, tuple(q_in.shape),
+             _n_sm(q_in.device), rows[itemsize], blocks)
+    q_out = torch.empty_like(q_in)
+    extra = _extra(q_in, mode, p.blocks)
     ox, oy, oz = (int(o) for o in origin)
-    for kernel, colors in passes:
+    cuda_build.check(
+        lib.cedar_sweep3_ring(dt, so.data_ptr(), q_in.data_ptr(),
+                              b.data_ptr(), q_out.data_ptr(), _ptr(extra),
+                              _ptr(extra), *q_in.shape, _pack(colors), ox,
+                              oy, oz, mode, *_plan_args(p),
+                              cuda_build.stream_of(q_in)),
+        "sweep3_ring",
+    )
+    sweep_launches += 1
+    return q_out, extra
+
+
+def _run(lib, dt: int, so, q, b, kind: StencilKind, launches, origin,
+         mode: int):
+    """The K14 launches of ``launches`` (:func:`passes`: a 7-point ring
+    launch, or 27-point marches and a window-design K14) in turn from
+    ``q``, the last with epilogue ``mode``; returns ``(q_out, res or
+    partials or None)``.  The marches write two buffers in turn (a march
+    reads the other one), never ``q``."""
+    global sweep_launches
+    extra = spare = None
+    owned = False  # q is a buffer of this call's
+    ox, oy, oz = (int(o) for o in origin)
+    for kernel, colors in launches:
+        if kernel == "ring":
+            q, extra = _ring_pass(lib, dt, so, q, b, colors, origin, mode)
+            continue
         if kernel == "K14":
-            q, extra = _sweep_pass(lib, dt, so, q, b, kind, colors, origin,
-                                   mode)
+            q, extra = _window_pass(lib, dt, so, q, b, colors, origin, mode)
             continue
         m = _stages_of(lib)
         p = pass27_plan(q.element_size(), tuple(q.shape), _n_sm(q.device),
                         m)
-        q_out = torch.empty_like(q)
+        q_out = torch.empty_like(q) if spare is None else spare
         cuda_build.check(
             lib.cedar_pass27(dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
                              q_out.data_ptr(), *q.shape, _pack(colors, m),
@@ -345,7 +407,8 @@ def _run(lib, dt: int, so, q, b, kind: StencilKind, passes, origin,
             "pass27",
         )
         sweep_launches += 1
-        q = q_out
+        spare = q if owned else None
+        q, owned = q_out, True
     return q, extra
 
 
@@ -353,8 +416,8 @@ def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
           kind: StencilKind, updown: str, fuse_residual: bool = False,
           origin=(0, 0, 0), fuse_norm: bool = False):
     """K14: one whole multicolour sweep on the card, out of place (one
-    launch 7-point; 27-point a march of :data:`PASS27_STAGES` colours a
-    launch, the last colour by itself where ``mode`` asks for an
+    ring launch 7-point; 27-point a march of :data:`PASS27_STAGES` colours
+    a launch, the last colour by itself where ``mode`` asks for an
     epilogue).
 
     Returns ``q_new``, ``(q_new, res)`` with ``fuse_residual`` or
@@ -366,13 +429,24 @@ def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
 def _sweep(lib, so, q, b, kind, updown, fuse_residual=False,
            origin=(0, 0, 0), fuse_norm=False):
     """:func:`sweep` with the library ``lib`` (a build of csrc/fused3.cu;
-    None: the default one), as tools/tune_fused3.py times it."""
-    _check(so, q, b, kind)
+    None: the default one), as tools/tune_fused3.py times them."""
+    relax3.check_sweep(so, q, b, kind)
     dt = cuda_build.check_operands(so, q, b)
+    return launch_sweep(dt, so, q, b, kind, updown, fuse_residual, origin,
+                        fuse_norm, lib)
+
+
+def launch_sweep(dt: int, so, q, b, kind: StencilKind, updown: str,
+                 fuse_residual: bool = False, origin=(0, 0, 0),
+                 fuse_norm: bool = False, lib=None):
+    """The launches of :func:`sweep` on operands already checked
+    (:func:`relax3.check_sweep`, :func:`cuda_build.check_operands`, whose
+    dtype code is ``dt``), with the build ``lib`` (None: the default one):
+    the entry of K6's levels that run on K14 (:mod:`cuda3`)."""
     lib = lib or cuda_build.load("fused3")
     mode = _mode(fuse_residual, fuse_norm)
-    passes = _passes(_stages_of(lib), kind, updown, "sweep", mode)
-    return _result(*_run(lib, dt, so, q, b, kind, passes, origin, mode),
+    launches = passes(_stages_of(lib), kind, updown, "sweep", mode)
+    return _result(*_run(lib, dt, so, q, b, kind, launches, origin, mode),
                    mode)
 
 
@@ -395,12 +469,12 @@ def _sweep_restrict(lib, ty, so, q, b, ci, kind, updown, emit_res):
     csrc/fused3.cu; None: the default one) and the tile rows ``ty`` (None:
     the plan's), as tools/tune_fused3.py times them."""
     global sweep_restrict_launches
-    _check(so, q, b, kind)
+    relax3.check_sweep(so, q, b, kind)
     nxc, nyc, nzc = _coarse_shape(ci, q.shape)
     dt = cuda_build.check_operands(so, q, b, ci)
     lib = lib or cuda_build.load("fused3")
     ts = kind == StencilKind.twenty_seven_pt
-    *first, (_, last) = _passes(_stages_of(lib), kind, updown, "restrict")
+    *first, (_, last) = passes(_stages_of(lib), kind, updown, "restrict")
     q, _ = _run(lib, dt, so, q, b, kind, first, (0, 0, 0), _NONE)
     q_out = torch.empty_like(q)
     res = torch.empty_like(q) if emit_res else None
@@ -437,14 +511,14 @@ def _interp_sweep(lib, ty, ci, qc, so, b, q_pre, kind, updown,
     """:func:`interp_sweep` with ``lib`` and ``ty`` as in
     :func:`_sweep_restrict`."""
     global interp_sweep_launches
-    _check(so, q_pre, b, kind)
+    relax3.check_sweep(so, q_pre, b, kind)
     nxc, nyc, nzc = _coarse_shape(ci, q_pre.shape)
     _check_qc(qc, (nxc, nyc, nzc))
     dt = cuda_build.check_operands(ci, qc, so, b, q_pre)
     lib = lib or cuda_build.load("fused3")
     mode = _mode(fuse_residual, fuse_norm)
     ts = kind == StencilKind.twenty_seven_pt
-    (_, first), *rest = _passes(_stages_of(lib), kind, updown, "interp",
+    (_, first), *rest = passes(_stages_of(lib), kind, updown, "interp",
                                 mode)
     mode16 = _NONE if rest else mode
     p = plan(q_pre.element_size(), ts, True, mode16, tuple(q_pre.shape),
@@ -475,7 +549,7 @@ def sweep_plain(so, q, b, kind: StencilKind, updown: str,
     """:func:`sweep` in torch ops, on any device."""
     global sweep_plain_calls
     sweep_plain_calls += 1
-    _check(so, q, b, kind)
+    relax3.check_sweep(so, q, b, kind)
     return fused3.sweep_split3_torch(so, q, b, kind, updown, fuse_residual,
                                      origin, fuse_norm)
 
@@ -485,7 +559,7 @@ def sweep_restrict_plain(so, q, b, ci, kind: StencilKind, updown: str,
     """:func:`sweep_restrict` in torch ops, on any device."""
     global sweep_restrict_plain_calls
     sweep_restrict_plain_calls += 1
-    _check(so, q, b, kind)
+    relax3.check_sweep(so, q, b, kind)
     _coarse_shape(ci, q.shape)
     return fused3.sweep_restrict3_torch(so, q, b, ci, kind, updown, emit_res)
 
@@ -495,7 +569,7 @@ def interp_sweep_plain(ci, qc, so, b, q_pre, kind: StencilKind, updown: str,
     """:func:`interp_sweep` in torch ops, on any device."""
     global interp_sweep_plain_calls
     interp_sweep_plain_calls += 1
-    _check(so, q_pre, b, kind)
+    relax3.check_sweep(so, q_pre, b, kind)
     _check_qc(qc, _coarse_shape(ci, q_pre.shape))
     return fused3.interp_sweep3_torch(ci, qc, so, b, q_pre, kind, updown,
                                       fuse_residual, fuse_norm)

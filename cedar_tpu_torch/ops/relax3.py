@@ -18,10 +18,13 @@ z + origin[2])``.
 
 :func:`point_relax` dispatches by device: a CUDA tensor goes to the sweep
 kernel (:mod:`cedar_tpu_torch.ops.cuda3`), a CPU tensor to its plain
-version, which runs :func:`sweep3_torch`.
+version, which runs :func:`sweep3_torch`.  Both return the swept iterate
+in a new tensor and leave ``q`` as it was.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -42,6 +45,30 @@ def color_order(kind: StencilKind, updown: str) -> list[int]:
         return [0, 1] if updown == "up" else [1, 0]
     order = list(range(8))
     return order if updown == "up" else order[::-1]
+
+
+@functools.lru_cache(maxsize=None)
+def pack_colors(kind: StencilKind, updown: str) -> int:
+    """The colour codes of :func:`color_order` packed 4 bits each in sweep
+    order, as the sweep kernels take them."""
+    return sum(c << (4 * k) for k, c in enumerate(color_order(kind, updown)))
+
+
+def check_sweep(so, q, b, kind: StencilKind) -> None:
+    """The operand checks of a 3D point sweep (the kernels' wrappers and
+    their plain versions)."""
+    if kind not in (StencilKind.seven_pt, StencilKind.twenty_seven_pt):
+        # a phase updates its colour from the others' values only for
+        # colourings in which no point couples to its own colour: red-black
+        # 7-pt, 8-colour 27-pt
+        raise ValueError(f"sweep takes 3D seven_pt or twenty_seven_pt, "
+                         f"not {kind}")
+    if q.ndim != 3 or b.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)} and b {tuple(b.shape)}")
+    if tuple(so.shape) != (kind.ndirs, *q.shape):
+        raise ValueError(
+            f"so {tuple(so.shape)} does not fit {kind} on {tuple(q.shape)}"
+        )
 
 
 def color_masks(shape, kind: StencilKind, updown: str, origin=(0, 0, 0),
@@ -82,11 +109,11 @@ def point_relax(so, q, b, recip, kind: StencilKind, updown: str,
                 fuse_residual: bool = False, origin=None):
     """One multicolour GS sweep (all colours), DOWN or UP ordering.
 
-    Updates ``q`` IN PLACE and returns it; with ``fuse_residual`` returns
-    ``(q, b - A q)`` of the swept iterate.  ``origin`` (default zeros) is
-    the global index of ``q[0, 0, 0]``.  ``recip`` (``1/diag``) feeds the
-    CPU path; the CUDA kernel forms ``1/diag`` itself, with the same
-    rounding.
+    Returns the swept iterate in a new tensor and leaves ``q`` as it was;
+    with ``fuse_residual`` returns ``(q_new, b - A q_new)``.  ``origin``
+    (default zeros) is the global index of ``q[0, 0, 0]``.  ``recip``
+    (``1/diag``) feeds the CPU path; the CUDA kernels form ``1/diag``
+    themselves, with the same rounding.
     """
     from cedar_tpu_torch.ops import cuda3
 

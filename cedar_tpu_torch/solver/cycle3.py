@@ -12,8 +12,9 @@ The last pre-sweep of each level emits the residual that feeds the
 restriction, and with ``fuse_final_residual`` the last post-sweep of the
 top level emits the convergence residual, as the Pallas path does.
 
-Sweeps and interpolation update the iterate in place: ``ncycle`` and the
-dense ``run_cycle`` overwrite the ``x`` they are given.
+Point sweeps return a new iterate, interpolation updates it in place:
+``ncycle`` and the dense ``run_cycle`` may overwrite the ``x`` they are
+given (with no pre-sweep, or with plane relaxation).
 
 The fused fine-level V-cycle (:func:`ncycle_split`, the counterpart of the
 JAX package's split-resident cycle and its wavefront kernels, under
@@ -247,8 +248,8 @@ def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
 def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
               settings: MLSettings):
     """One cycle of the configured type (reference: multilevel.h:289-296);
-    returns the new iterate.  The dense V-cycle overwrites ``x``, the fused
-    one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
+    returns the new iterate.  The dense V-cycle may overwrite ``x``, the
+    fused one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
     if len(levels) == 1:
         return cg.solve_cg(levels[0].ainv, b)
     if settings.cycle == CycleType.f:

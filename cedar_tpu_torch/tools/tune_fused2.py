@@ -163,34 +163,9 @@ def main(argv=None) -> None:
                     t3.check(f"{name} {label}", kernel(opt), plain())
         for label, opt in opts.items():
             ms = t3.time_ms(lambda: kernel(opt), args.reps)
-            dms = device_ms(lambda: kernel(opt), args.reps)
+            dms = t3.device_ms(lambda: kernel(opt), args.reps)
             print(f"{name} {label}: {ms:.4f} ms (device {dms:.4f} ms)",
                   flush=True)
-
-
-def device_ms(fn, reps: int = 20) -> float:
-    """The device time of the kernels that ``fn`` launches, ms a call: the
-    sum over ``reps`` calls under torch.profiler.  Beside the CUDA-event
-    time of back-to-back calls, which a wrapper's host time bounds at the
-    small levels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            # the attribute's name changed across PyTorch releases
-            us += next((float(getattr(evt, k)) for k in (
-                "self_device_time_total", "self_cuda_time_total")
-                if hasattr(evt, k)), 0.0)
-    return us / 1e3 / reps
 
 
 def make_cases() -> dict:

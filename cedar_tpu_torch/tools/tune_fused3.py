@@ -1,5 +1,5 @@
-"""Time the fused 3D kernels K14, K15 and K16 on the card, whole and by
-part.
+"""Time the 3D sweep K6 and the fused 3D kernels K14, K15 and K16 on the
+card, whole and by part.
 
 K15 (sweep + residual + restriction, ``ops/cuda_fused3.sweep_restrict``,
 as the cycle calls it: no residual out) and K16 (interp-add + sweep,
@@ -18,13 +18,23 @@ outputs are wrong and whose times split a call among its parts.  The
 27-point ones are timed with each build of ``--stages M`` (the 27-point
 K14's colours a march, ``-DCEDAR_K14_STAGES=M``, bit-checked too) and each
 probe (8 the barriers, 16 the K14 stencil gathers, 32 its colour stages).
-``--only`` keeps the cases whose names hold one of its words.  It prints
-the card's name and power limit first.
+The 7-point K14 (``sweep`` at 256³: the ring design with the colour
+stages only, without and with the residual and the norm) is timed with
+each build of ``--rows14 T`` (its float32 tile rows,
+``-DCEDAR_K14_ROWS=T``, bit-checked too) and each probe.  K6 (``ops/cuda3.sweep``: DOWN with the residual, UP without, as
+the dense levels run it) runs at every level shape of the 3D paths and
+on both sides of its regimes' edges (:data:`K6_LEVELS`) on its plan and
+forced onto each other regime (``cuda3.Plan``: ``phases``, and K14's
+``pass27`` or ``ring``), with
+CUDA-event times and the device time of its kernels under
+torch.profiler (the small levels are host-bound).
+``--only`` keeps the cases whose names hold one of its words (``K6``,
+``K14``, ``7pt``, ...).  It prints the card's name and power limit first.
 
 Run from the repository root on a machine with a CUDA device:
 
     python3 cedar_tpu_torch/tools/tune_fused3.py [--rows 12 10] \
-        [--probe 1 2 4 8] [--stages 1 4] [--only 27pt]
+        [--probe 1 2 4 8] [--stages 1 4] [--rows14 12] [--only 27pt]
 
 With ``--tree DIR`` it times the kernels of another checkout of the
 repository (for example the parent commit, unpacked with ``git archive``,
@@ -36,12 +46,14 @@ source whose `fused3` ran every K15/K16, the 7-point ones too):
 
     python3 cedar_tpu_torch/tools/tune_fused3.py --tree DIR [--probe 1 2 4 8]
 
-``--cycles`` times instead the fused V(1,1) cycles that run these kernels,
-``3d_poisson_7pt_256`` and ``3d_fe_27pt_128`` (:data:`CELLS`), as the
-solve runs them (the median of 25 CUDA-event-timed cycles); with ``--tree``
-those of the other checkout, and with ``--tree DIR --pairs N`` N pairs of
-processes, this checkout and DIR, alternating which runs first, with the
-median of each side's medians.
+``--cycles`` times instead the V(1,1) cycles that run these kernels,
+``3d_poisson_7pt_256`` and ``3d_fe_27pt_128``, fused and dense
+(:data:`CELLS`), as the solve runs them (the median of 25
+CUDA-event-timed cycles); with ``--tree`` those of the other checkout,
+and with ``--tree DIR --pairs N`` N pairs of processes, this checkout and
+DIR, alternating which runs first, with the median of each side's
+medians.  An older checkout's K6 (one launch a colour phase, in place)
+runs under the same case names.
 """
 
 from __future__ import annotations
@@ -89,6 +101,9 @@ def main(argv=None) -> None:
     ap.add_argument("--stages", type=int, nargs="+", default=[],
                     help="27-point K14 colours a march to build and time "
                          "beside the default (-DCEDAR_K14_STAGES=M)")
+    ap.add_argument("--rows14", type=int, nargs="+", default=[],
+                    help="7-point K14 float32 tile rows to build and time "
+                         "beside the default (-DCEDAR_K14_ROWS=T)")
     ap.add_argument("--tree", help="time this checkout's kernels instead")
     ap.add_argument("--build-only", action="store_true",
                     help="build the kernels and stop")
@@ -114,7 +129,7 @@ def main(argv=None) -> None:
         sys.exit("tune_fused3: no CUDA device")
     from cedar_tpu_torch.ops import cuda_build, cuda_fused3
 
-    cuda_build.load_all(["fused3"])
+    cuda_build.load_all(["fused3", "sweep3"])
     if args.build_only:
         return
     print_card()
@@ -122,16 +137,19 @@ def main(argv=None) -> None:
     if args.cycles:
         return cycles()
     tunable = hasattr(cuda_fused3, "_sweep_restrict")
-    cases = {k: v for k, v in make_cases(tunable).items()
-             if not args.only or any(o in k for o in args.only)}
+    want = (lambda k: not args.only or any(o in k for o in args.only))
+    cases = {k: v for k, v in make_cases(tunable).items() if want(k)}
+    if not args.only or any(o.startswith("K6") for o in args.only):
+        cases |= {k: v for k, v in make_k6_cases().items() if want(k)}
     if not tunable:
         run(cases, [0], {0: None}, args.reps, f"{args.tree} default build",
             not args.unchecked)
         return
     probes = {b: (f"CEDAR_FUSED3_PROBE={b}",) for b in args.probe if b}
     stages = {m: (f"CEDAR_K14_STAGES={m}",) for m in args.stages}
-    cuda_build.build_variants("fused3", [*probes.values(),
-                                         *stages.values()])
+    rows14 = {t: (f"CEDAR_K14_ROWS={t}",) for t in args.rows14}
+    cuda_build.build_variants("fused3", [*probes.values(), *stages.values(),
+                                         *rows14.values()])
     for key, (secs, log) in cuda_build.build_log.items():
         print(f"ptxas {key} ({secs:.0f} s): " + "; ".join(
             r for r in ring_report(log) if r.startswith("f ")), flush=True)
@@ -141,8 +159,12 @@ def main(argv=None) -> None:
         f"stages={m}": cuda_build.load_variant("fused3", d)
         for m, d in stages.items()} | {
         f"probe={b}": lib for b, lib in libs.items() if b}
+    libs14 = {"plan": libs[0]} | {
+        f"rows14={t}": cuda_build.load_variant("fused3", d)
+        for t, d in rows14.items()} | {
+        f"probe={b}": lib for b, lib in libs.items() if b}
     run(cases, args.rows, libs, args.reps, "this checkout",
-        not args.unchecked, libs27)
+        not args.unchecked, libs27, libs14)
 
 
 def run_trees(args, script: str = __file__, source: str = "fused3",
@@ -191,25 +213,28 @@ def probe_tree(tree: str, bits: int, source: str = "fused3",
     return dst
 
 
-#: the cells whose fused cycles run K15 and K16: (n, gallery operator,
-#: stencil kind)
-CELLS = {"3d_poisson_7pt_256": (256, "poisson3", "SevenPt"),
-         "3d_fe_27pt_128": (128, "fe3", "TwentySevenPt")}
+#: the cells whose cycles run K6 and K14-K16: (n, gallery operator,
+#: stencil kind, the fused cycle)
+CELLS = {"3d_poisson_7pt_256": (256, "poisson3", "SevenPt", True),
+         "3d_fe_27pt_128": (128, "fe3", "TwentySevenPt", True),
+         "3d_poisson_7pt_256-dense": (256, "poisson3", "SevenPt", False),
+         "3d_fe_27pt_128-dense": (128, "fe3", "TwentySevenPt", False)}
 
 
 def cycles(ncycles: int = 25) -> None:
-    """The median, min and max CUDA-event time of ``ncycles`` fused
-    V(1,1) cycles of each cell, after three warm-up cycles, each cycle as
-    the solve runs it (with the convergence residual, no readback)."""
+    """The median, min and max CUDA-event time of ``ncycles`` V(1,1)
+    cycles of each cell, after three warm-up cycles, each cycle as the
+    solve runs it (with the convergence residual, no readback)."""
     import torch
 
     import cedar_tpu_torch as ct
     from cedar_tpu_torch.solver import cycle3
 
     dev = torch.device("cuda", 0)
-    for name, (n, make, kind) in CELLS.items():
-        conf = ct.Config({"log": [], "solver": {"cycle": {
-            "nrelax-pre": 1, "nrelax-post": 1}}})
+    for name, (n, make, kind, fused) in CELLS.items():
+        conf = ct.Config({"log": [], "kernels": {"fine-split": fused},
+                          "solver": {"cycle": {
+                              "nrelax-pre": 1, "nrelax-post": 1}}})
         s = ct.Solver3(getattr(ct.gallery, make)(n, n, n, torch.float32,
                                                  dev),
                        getattr(ct, kind), conf)
@@ -238,7 +263,7 @@ def time_cycles(name: str, one, x, ncycles: int) -> None:
         e1.record()
     torch.cuda.synchronize()
     ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
-    print(f"{name} fused V(1,1) cycle ms: median "
+    print(f"{name} V(1,1) cycle ms: median "
           f"{statistics.median(ms):.4f}, min {ms[0]:.4f}, "
           f"max {ms[-1]:.4f}", flush=True)
 
@@ -262,7 +287,7 @@ def cycle_pairs(script: str, tree: str, pairs: int) -> None:
                                  check=True).stdout
             print(f"[pair {k} {side}]\n{out}", end="", flush=True)
             runs[side].append(dict(re.findall(
-                r"(\S+) fused V\(1,1\) cycle ms: median ([\d.]+)", out)))
+                r"(\S+) V\(1,1\) cycle ms: median ([\d.]+)", out)))
     for cell in runs["this"][0]:
         mine = [float(r[cell]) for r in runs["this"]]
         theirs = [float(r[cell]) for r in runs["tree"]]
@@ -283,14 +308,15 @@ def print_card() -> None:
 
 def ring_report(log: str):
     """'f ring3<0,1,12>: 96 regs, 0 spill' for each kernel of the ring
-    designs (ring3: 7-point K15/K16, interp, epilogue, tile rows; pass27:
-    the 27-point K14; ring2: K13, nine, epilogue) in nvcc's
-    ptxas report ``log``."""
+    designs (ring3: 7-point K14-K16, interp, epilogue, tile rows; pass27:
+    the 27-point K14; ring2: K13, nine, epilogue) and of K6's resident
+    regime (sweep_resident: 27-point) in nvcc's ptxas report ``log``."""
     import re
 
     name = spill = None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '.*?(ring3|pass27|ring2)"
+        m = re.search(r"Compiling entry function '.*?(ring3|pass27|ring2"
+                      r"|sweep_resident)"
                       r"I([fd])((?:L[bi]\d+E)*)", line)
         if m:
             kern, t, rest = m.groups()
@@ -305,10 +331,52 @@ def ring_report(log: str):
             name = None
 
 
+#: K6's shapes: every level of the 3D paths (256³ 7-point and its 27-point
+#: levels, 128³ 27-point's, float32; Cedar's 200³ float64 test's), and
+#: shapes between them on both sides of each regime's edge: (n, 27-point,
+#: itemsize)
+K6_LEVELS = ([(n, False, 4) for n in (256, 200, 128, 64, 16)]
+             + [(n, True, 4) for n in (128, 96, 64, 32, 16, 14, 12, 8)]
+             + [(n, False, 8) for n in (200, 64)]
+             + [(n, True, 8) for n in (128, 100, 64, 50, 25, 13, 12, 7)])
+
+
+def make_k6_cases() -> dict:
+    """name -> (kernel(plan or None, q), plain(q), q, opts): K6 DOWN with
+    the residual and UP without at :data:`K6_LEVELS`; ``plan`` forces this
+    checkout's regime (``cuda3.Plan``), ``opts`` the regimes to force there
+    (an older checkout's K6 updates q in place, so the check gives it a
+    copy)."""
+    import torch
+
+    from cedar_tpu_torch.ops import cuda3
+
+    cases = {}
+    for n, ts, itemsize in K6_LEVELS:
+        dt = torch.float32 if itemsize == 4 else torch.float64
+        so, q, b, kind = problem((n,) * 3, ts, 50 + n, dt)
+        opts = {"plan": None}
+        if hasattr(cuda3, "_sweep"):
+            mine = cuda3.plan(itemsize, ts, (n,) * 3).route
+            forced = {"phases": cuda3.Plan("phases"),
+                      "K14": cuda3.Plan("pass27" if ts else "ring")}
+            opts |= {k: p for k, p in forced.items() if p.route != mine}
+        tag = f"{'27pt' if ts else '7pt'} {n}^3 f{8 * itemsize}"
+        for updown, fuse in (("down", True), ("up", False)):
+            a = (b, kind, updown, fuse)
+            cases[f"K6 {tag} {updown}" + (" +res" if fuse else "")] = (
+                lambda p, q, so=so, a=a: (
+                    cuda3.sweep(so, q, *a) if p is None
+                    else cuda3._sweep(p, so, q, *a)),
+                lambda q, so=so, a=a: cuda3.sweep_plain(so, q, *a),
+                q, opts)
+    return cases
+
+
 def make_cases(tunable: bool) -> dict:
     """name -> (kernel(lib, ty), plain()) at 256³ 7-point and 128³
     27-point float32; an older checkout's kernel takes its own library and
-    plan (``tunable`` false)."""
+    plan (``tunable`` false); K14 takes the tile rows of its library."""
     import torch
 
     from cedar_tpu_torch.ops import cuda_fused3 as cf
@@ -324,8 +392,7 @@ def make_cases(tunable: bool) -> dict:
 
     def k14(lib, ty, *a):
         # a whole sweep: K14 launches only
-        return (cf._sweep(lib, *a) if hasattr(cf, "_sweep")
-                else cf.sweep(*a))
+        return cf._sweep(lib, *a) if hasattr(cf, "_sweep") else cf.sweep(*a)
 
     cases = {}
     for n, ts in ((256, False), (128, True)):
@@ -335,9 +402,13 @@ def make_cases(tunable: bool) -> dict:
         qc = torch.randn(tuple(m - 1 for m in ci.shape[1:]), generator=g,
                          device="cuda", dtype=torch.float32)
         pts = "27pt" if ts else "7pt"
-        if ts:
-            a14 = (so, q, b, kind, "down")
-            cases[f"K14 {pts} {n}^3"] = (
+        # 27-point: a whole sweep; 7-point: without and with the residual
+        # and the norm (the cycle's K14: an extra sweep, the last one)
+        for res, norm in ((False, False),) if ts else (
+                (False, False), (True, False), (False, True)):
+            a14 = (so, q, b, kind, "down", res, (0, 0, 0), norm)
+            cases[f"K14 {pts} {n}^3" + (" +res" if res else "")
+                  + (" +norm" if norm else "")] = (
                 lambda lib, ty, a=a14: k14(lib, ty, *a),
                 lambda a=a14: cf.sweep_plain(*a))
         a15 = (so, q, b, ci, kind, "down", False)
@@ -353,17 +424,32 @@ def make_cases(tunable: bool) -> dict:
 
 
 def run(cases: dict, rows_opts, libs: dict, reps: int, what: str,
-        checked: bool = True, libs27=None) -> None:
+        checked: bool = True, libs27=None, libs14=None) -> None:
     """Each case bit-checked with the probe-0 library (unless not
     ``checked``), then timed; the 7-point ones over the tile rows and the
-    probes' libraries, the 27-point ones over the colours a K14 march of
-    ``libs27`` (label -> library; each bit-checked too)."""
+    probes' libraries (the 7-point K14 over ``libs14``: label -> library,
+    its builds of other tile rows bit-checked too), the 27-point ones over
+    the colours a K14 march of ``libs27`` (label -> library; each
+    bit-checked too)."""
     from cedar_tpu_torch.ops import cuda_fused3
 
     print(f"[{what}]", flush=True)
-    for name, (kernel, plain) in cases.items():
+    for name, case in cases.items():
+        if name.startswith("K6 "):
+            run_k6(name, *case, reps, checked)
+            continue
+        kernel, plain = case
         if checked:
             check(name, kernel(libs[0], None), plain())
+        if name.startswith("K14 7pt") and libs14:
+            for label, lib in libs14.items():
+                if checked and label.startswith("rows14="):
+                    check(f"{name} {label}", kernel(lib, None), plain())
+                ms = time_ms(lambda: kernel(lib, None), reps)
+                dms = device_ms(lambda: kernel(lib, None), reps)
+                print(f"{name} {label}: {ms:.4f} ms (device {dms:.4f} ms)",
+                      flush=True)
+            continue
         ring = name.split()[1] == "7pt"
         if not ring and libs27:
             for label, lib in libs27.items():
@@ -384,6 +470,46 @@ def run(cases: dict, rows_opts, libs: dict, reps: int, what: str,
                       f"{ms:.4f} ms", flush=True)
 
 
+def run_k6(name: str, kernel, plain, q, opts: dict, reps: int,
+           checked: bool) -> None:
+    """A K6 case on its plan and forced onto each regime of ``opts``; an
+    older checkout's K6 on its own launches.  Timed on q itself (an older
+    K6 sweeps it in place, again and again)."""
+    for label, opt in opts.items():
+        if checked:
+            check(f"{name} {label}", kernel(opt, q.clone()),
+                  plain(q.clone()))
+        ms = time_ms(lambda: kernel(opt, q), reps)
+        dms = device_ms(lambda: kernel(opt, q), reps)
+        print(f"{name} {label}: {ms:.4f} ms (device {dms:.4f} ms)",
+              flush=True)
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """The device time of the kernels that ``fn`` launches, ms a call: the
+    sum over ``reps`` calls under torch.profiler.  Beside the CUDA-event
+    time of back-to-back calls, which a wrapper's host time bounds at the
+    small levels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            # the attribute's name changed across PyTorch releases
+            us += next((float(getattr(evt, k)) for k in (
+                "self_device_time_total", "self_cuda_time_total")
+                if hasattr(evt, k)), 0.0)
+    return us / 1e3 / reps
+
+
 def fits(name: str, rows: int) -> bool:
     """Whether 7-point case ``name`` with ``rows`` tile rows fits a
     block's shared memory (float32)."""
@@ -395,15 +521,16 @@ def fits(name: str, rows: int) -> bool:
     return cf.ring_words(4, interp, mode, rows) * 4 <= cf.BLOCK_SMEM
 
 
-def problem(shape, ts: bool, seed: int):
-    """A diagonally dominant random float32 3D stencil (chip_smoke.py's
-    ``random_problem3``) with random q and b on the card."""
+def problem(shape, ts: bool, seed: int, dt=None):
+    """A diagonally dominant random 3D stencil of dtype ``dt`` (default
+    float32; chip_smoke.py's ``random_problem3``) with random q and b on
+    the card."""
     import torch
 
     from cedar_tpu_torch.core.types import Dir3, StencilKind
     from cedar_tpu_torch.ops import stencil3
 
-    dev, dt = "cuda", torch.float32
+    dev, dt = "cuda", dt or torch.float32
     g = torch.Generator(device=dev).manual_seed(seed)
     nx, ny, nz = shape
 

@@ -24,10 +24,14 @@ Phases (each raises on failure; nothing is caught):
    float64, and the line sweep (K4, bit-equal) also on
    lines of 63, 64 and 65 points, of lengths that are not a multiple of
    the PCR stride, and on lines too long for shared memory (LINE_SHAPES);
-   then the 3D sweep (K6), restrict (K7),
-   interp-add (K8) and interp (K9) at (256, 256, 256) 7-point and
-   (128, 128, 128) 27-point float32 and (33, 21, 17) and (65, 65, 65)
-   float64, both kinds; then the batched line-xy smooth (K10, bit-equal)
+   then the 3D sweep (K6, bit-equal, in the regime its plan picks: one
+   resident launch, a launch a colour phase, or K14's launches; DOWN and
+   UP, with and without the residual and an origin, q left as it was),
+   restrict (K7), interp-add (K8) and interp (K9) at (256, 256, 256)
+   7-point and (128, 128, 128) 27-point float32 and (33, 21, 17) and
+   (65, 65, 65) float64, both kinds, and K6 also at the 3D paths' dense
+   levels, the 200³ gate's levels and the edges of its regimes
+   (K6_SHAPES); then the batched line-xy smooth (K10, bit-equal)
    at SHAPES_B (from (64, 128, 128) float32 to lines of 63-65 points and
    lines too long for shared memory), 5- and 9-point, DOWN and UP, 1 and
    2 sweeps, with and without the residual,
@@ -94,7 +98,10 @@ Phases (each raises on failure; nothing is caught):
    sequences they replace (K6 with the residual, then K7; K8, then K6, and
    with the residual and its norm for K16 with the norm); K1 at each of
    the main path's dense levels and K12 at each of its fused levels, with
-   their bounds.
+   their bounds; K6 at 16³ 27-point DOWN with the residual (resident,
+   ``sweep3_resident``) and at 64³ (a launch a colour phase and the
+   residual, ``sweep3``), and at 256³ 7-point and 128³ 27-point (K14's
+   launches, ``sweep3_fused``).
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
@@ -163,6 +170,30 @@ EDGE2 = [((300, 997), torch.float32), ((3, 1000), torch.float32),
 SWEEP_SHAPES = [(256, 256), (128, 128), (64, 64), (32, 32), (16, 16), (8, 8),
                 (25, 25), (13, 13), (7, 7), (90, 90), (91, 91), (65, 65),
                 (5, 4), (2, 3)]
+# K6's further shapes: the 3D paths' dense levels (27-point float32 64³,
+# 32³ a launch a colour phase, 16³, 8³ resident), the 200³ float64 gate's
+# (25³, 13³ a launch a colour phase, 7³ resident), the edges of the
+# regimes (resident 27-point: float32 16³ / 17³ and 512 / 513 points an
+# octant, float64 12³ / 13³; the 27-point marches from 96³ float32; the
+# 7-point ring from 200³) and a few points, as (shape, dtype, 27-point or
+# not)
+K6_SHAPES = [((16,) * 3, torch.float32, (False, True)),
+             ((8,) * 3, torch.float32, (False, True)),
+             ((32,) * 3, torch.float32, (True,)),
+             ((64,) * 3, torch.float32, (True,)),
+             ((17,) * 3, torch.float32, (True,)),
+             ((52, 38, 2), torch.float32, (True,)),
+             ((54, 38, 2), torch.float32, (True,)),
+             ((95, 96, 96), torch.float32, (True,)),
+             ((96,) * 3, torch.float32, (True,)),
+             ((199, 200, 200), torch.float32, (False,)),
+             ((200,) * 3, torch.float32, (False,)),
+             ((25,) * 3, torch.float64, (False, True)),
+             ((13,) * 3, torch.float64, (True,)),
+             ((12,) * 3, torch.float64, (True,)),
+             ((7,) * 3, torch.float64, (False, True)),
+             ((5, 4, 3), torch.float64, (False, True)),
+             ((2, 3, 1), torch.float32, (False, True))]
 # K4's further shapes: lines of 63 (LDLᵀ), 64 and 65 points (PCR), lengths
 # that are not a multiple of the PCR stride (1000, 777), and lines too long
 # for shared memory (9000 f32, 5000 f64: a device-memory scratch)
@@ -187,7 +218,11 @@ REPLACES = {
                     "cedar_tpu/ops/pallas_transfer2.py:266"),
     "line2": "cedar_tpu/ops/pallas_lines2.py:142",
     "interp2": "cedar_tpu/ops/pallas_transfer2.py:817",
+    # K6 in its regimes: one launch a colour phase and the residual, one
+    # block at the coarse levels (resident); K14's launches above them
     "sweep3": "cedar_tpu/ops/pallas3.py:190, cedar_tpu/ops/pallas3.py:473",
+    "sweep3_resident": ("cedar_tpu/ops/pallas3.py:190, "
+                        "cedar_tpu/ops/pallas3.py:473"),
     "restrict3": ("cedar_tpu/ops/pallas_transfer3.py:192, "
                   "cedar_tpu/ops/pallas3_split.py:723, "
                   "cedar_tpu/ops/pallas3_split.py:823"),
@@ -199,11 +234,14 @@ REPLACES = {
     "sweep2_fused": "cedar_tpu/ops/pallas2_split.py:200",
     "sweep_restrict2": "cedar_tpu/ops/pallas_transfer2.py:341",
     "interp_sweep2": "cedar_tpu/ops/pallas_transfer2.py:545",
-    # rows 14 and 20 (the split sweep and its wavefront schedule), 15 (+ the
+    # rows 14 and 20 (the split sweep and its wavefront schedule; K6's
+    # levels above one block, rows 11 and 12, run it too), 15 (+ the
     # wavefront sweep_restrict_stream3 route), 17 and 21
     "sweep3_fused": ("cedar_tpu/ops/pallas3_split.py:442, "
                      "cedar_tpu/ops/pallas3_stream.py:161, "
-                     "cedar_tpu/ops/pallas3_stream.py:227"),
+                     "cedar_tpu/ops/pallas3_stream.py:227, "
+                     "cedar_tpu/ops/pallas3.py:190, "
+                     "cedar_tpu/ops/pallas3.py:473"),
     "sweep_restrict3": ("cedar_tpu/ops/pallas3_split.py:465, "
                         "cedar_tpu/ops/pallas3_stream.py:893"),
     "interp_sweep3": ("cedar_tpu/ops/pallas3_split.py:492, "
@@ -218,6 +256,7 @@ SOURCES = {
     "line2": "cedar_tpu_torch/csrc/lines2.cu",
     "interp2": "cedar_tpu_torch/csrc/transfer2.cu",
     "sweep3": "cedar_tpu_torch/csrc/sweep3.cu",
+    "sweep3_resident": "cedar_tpu_torch/csrc/sweep3.cu",
     "restrict3": "cedar_tpu_torch/csrc/transfer3.cu",
     "interp_add3": "cedar_tpu_torch/csrc/transfer3.cu",
     "interp3": "cedar_tpu_torch/csrc/transfer3.cu",
@@ -262,6 +301,7 @@ def counts() -> dict:
         "line2": cuda_lines2.launches,
         "interp2": cuda_transfer2.interp2_launches,
         "sweep3": cuda3.launches,
+        "sweep3_resident": cuda3.resident_launches,
         "restrict3": cuda_transfer3.restrict_launches,
         "interp_add3": cuda_transfer3.interp_add_launches,
         "interp3": cuda_transfer3.interp_launches,
@@ -279,6 +319,7 @@ def counts() -> dict:
         "line2_plain": cuda_lines2.plain_calls,
         "interp2_plain": cuda_transfer2.interp2_plain_calls,
         "sweep3_plain": cuda3.plain_calls,
+        "sweep3_resident_plain": cuda3.plain_calls,
         "restrict3_plain": cuda_transfer3.restrict_plain_calls,
         "interp_add3_plain": cuda_transfer3.interp_add_plain_calls,
         "interp3_plain": cuda_transfer3.interp_plain_calls,
@@ -299,7 +340,7 @@ def reset_counts() -> None:
     cuda_transfer2.interp_plain_calls = 0
     cuda_transfer2.interp2_launches = cuda_transfer2.interp2_plain_calls = 0
     cuda_lines2.launches = cuda_lines2.plain_calls = 0
-    cuda3.launches = cuda3.plain_calls = 0
+    cuda3.launches = cuda3.resident_launches = cuda3.plain_calls = 0
     cuda_transfer3.restrict_launches = 0
     cuda_transfer3.interp_add_launches = 0
     cuda_transfer3.interp_launches = 0
@@ -523,33 +564,31 @@ def random_problem3(shape, ts: bool, dtype, seed: int):
 
 
 def phase_kernels3(errs: dict) -> dict:
-    """K6-K9 against their plain versions at the 3D shapes."""
+    """K6-K9 against their plain versions at the 3D shapes, K6 also at
+    K6_SHAPES."""
     print("[3] 3D kernels against plain versions", flush=True)
-    for k in ("sweep3", "restrict3", "interp_add3", "interp3"):
+    for k in ("sweep3", "sweep3_resident", "restrict3", "interp_add3",
+              "interp3"):
         errs.setdefault(k, 0.0)
+    threads, smem = (cuda_build.load("sweep3").cedar_sweep3_threads(),
+                     cuda_build.load("sweep3").cedar_sweep3_smem())
+    if (threads, smem) != (cuda3.THREADS, cuda_build.BLOCK_SMEM):
+        raise AssertionError(f"K6 built with {threads} threads a block and "
+                             f"{smem} bytes of shared memory")
+    for i, (shape, dtype, kinds) in enumerate(K6_SHAPES):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for ts in kinds:
+            so, q, b, kind = random_problem3(shape, ts, dtype, 1300 + i)
+            k, e = compare_sweep3(so, q, b, kind, tag)
+            errs[k] = max(errs.get(k, 0.0), e)
+            del so, q, b
     for i, (shape, dtype, kinds) in enumerate(SHAPES3):
         tag = f"{shape} {str(dtype).replace('torch.', '')}"
-        small = dtype == torch.float64
         for ts in kinds:
             so, q, b, kind = random_problem3(shape, ts, dtype, 300 + i)
             pts = "27pt" if ts else "7pt"
-            origins = [(0, 0, 0), (1, 2, 3)] if small else [(0, 0, 0)]
-            for updown in ("down", "up"):
-                for fuse in (False, True):
-                    for origin in origins:
-                        got = cuda3.sweep(so, q.clone(), b, kind, updown,
-                                          fuse, origin)
-                        want = cuda3.sweep_plain(so, q.clone(), b, kind,
-                                                 updown, fuse, origin)
-                        what = (f"K6 sweep3 {pts} {updown} fuse={int(fuse)}"
-                                f" origin={origin} {tag}")
-                        if fuse:
-                            e = max(compare(what + " q", got[0], want[0]),
-                                    compare(what + " res", got[1], want[1]))
-                        else:
-                            e = compare(what, got, want)
-                        errs["sweep3"] = max(errs["sweep3"], e)
-                        del got, want
+            k, e = compare_sweep3(so, q, b, kind, tag)
+            errs[k] = max(errs.get(k, 0.0), e)
             ci = interp3.setup_interp(so, kind)
             nc = tuple(n - 1 for n in ci.shape[1:])
             g = torch.Generator(device=DEV).manual_seed(400 + i)
@@ -569,6 +608,34 @@ def phase_kernels3(errs: dict) -> dict:
             errs["interp3"] = max(errs["interp3"], e)
             del so, q, b, ci, qc
     return errs
+
+
+def compare_sweep3(so, q, b, kind, tag: str):
+    """K6, DOWN and UP, with and without the residual and an odd origin,
+    bit-equal to its plain version, and q left as it was, in the regime
+    its plan picks (resident in one block, one launch a colour phase, or
+    K14's launches); returns the kernel's name in the table (K14's
+    launches count as ``sweep3_fused``) and the largest error."""
+    ts = kind == StencilKind.twenty_seven_pt
+    p = cuda3.plan(q.element_size(), ts, tuple(q.shape))
+    regime = p.route
+    pts = "27pt" if ts else "7pt"
+    q0, e = q.clone(), 0.0
+    for updown, fuse, origin in itertools.product(
+            ("down", "up"), (False, True), ((0, 0, 0), (1, 2, 3))):
+        what = (f"K6 sweep3 {pts} {updown} fuse={int(fuse)} "
+                f"origin={origin} {tag} ({regime})")
+        got = cuda3.sweep(so, q, b, kind, updown, fuse, origin)
+        want = cuda3.sweep_plain(so, q, b, kind, updown, fuse, origin)
+        if not torch.equal(q, q0):
+            raise AssertionError(f"{what}: the sweep changed q")
+        if fuse:
+            e = max(e, compare(what + " q", got[0], want[0], exact=True),
+                    compare(what + " res", got[1], want[1], exact=True))
+        else:
+            e = max(e, compare(what, got, want, exact=True))
+    return {"resident": "sweep3_resident", "phases": "sweep3"}.get(
+        p.route, "sweep3_fused"), e
 
 
 def phase_kernels_planes(errs: dict) -> dict:
@@ -769,24 +836,38 @@ FUSED3 = ("sweep3_fused", "sweep_restrict3", "interp_sweep3")
 
 
 def check_fused3_plans() -> None:
-    """The wrapper's plan (ops/cuda_fused3.py) sizes K15/K16's shared
-    memory as the kernels lay it out, for every variant that is built."""
+    """The wrapper's plan (ops/cuda_fused3.py) sizes the shared memory of
+    K15, K16 and the 7-point K14 as the kernels lay it out, for every
+    variant that is built and fits a block, and takes the 7-point K14's
+    build (its tile rows and the blocks an SM of its registers' cap)."""
     lib = cuda_build.load("fused3")
+    rows14, blocks14 = cuda_fused3._ring14_of(lib)
+    if blocks14 != cuda_fused3.RING14_BLOCKS:
+        raise AssertionError(f"7-point K14 registers capped for {blocks14} "
+                             "blocks an SM")
+    if rows14 != cuda_fused3.RING14_ROWS:
+        raise AssertionError(f"7-point K14 built with tile rows {rows14}")
     for itemsize, ts in itertools.product((4, 8), (False, True)):
         dt = 0 if itemsize == 4 else 1
-        modes = [(False, 3), (True, 0)] + ([] if ts else [(True, 1),
-                                                          (True, 2)])
+        modes = [(False, 3), (True, 0)] + ([] if ts else [
+            (True, 1), (True, 2), (False, 0), (False, 1), (False, 2)])
         for interp, mode in modes:
-            rows = (cuda_fused3.RING_ROWS[itemsize]
+            k14 = cuda_fused3.is_k14(interp, mode)
+            rows = (((cuda_fused3.RING14_ROWS[itemsize],) if k14 else
+                     cuda_fused3.RING_ROWS[itemsize])
                     if cuda_fused3.is_ring(ts) else (cuda_fused3.WINDOW_ROWS,))
             for ty in rows:
+                words = (cuda_fused3.ring_words(itemsize, interp, mode, ty)
+                         if cuda_fused3.is_ring(ts) else 0)
+                if words * itemsize > cuda_build.BLOCK_SMEM:
+                    continue  # built, never planned: it does not fit
                 want = cuda_fused3.plan(itemsize, ts, interp, mode,
                                         (64, 64, 64), ty=ty).smem
                 got = lib.cedar_fused3_smem(dt, int(ts), int(interp), mode,
                                             ty)
                 if got != want:
                     raise AssertionError(
-                        f"K15/K16 smem {itemsize} ts={ts} interp={interp} "
+                        f"K14-K16 smem {itemsize} ts={ts} interp={interp} "
                         f"mode={mode} ty={ty}: kernel {got}, plan {want}")
     # the 27-point K14: every tile-row count the plan may take
     n = lib.cedar_fused3_pass27_stages()
@@ -813,7 +894,8 @@ def phase_kernels_fused3(errs: dict) -> dict:
     epilogue, split the colours into K14 launches each way the wrapper
     does."""
     print("[3] fused 3D kernels against plain versions", flush=True)
-    errs.update(dict.fromkeys(FUSED3, 0.0))
+    for k in FUSED3:
+        errs.setdefault(k, 0.0)
     check_fused3_plans()
     shapes = SHAPES3 + [((5, 4, 3), torch.float64, (False, True))]
     shapes += [(shape, torch.float32, kinds) for shape, kinds in EDGE3]
@@ -832,7 +914,7 @@ def phase_kernels_fused3(errs: dict) -> dict:
                     fr, fn = mode == "res", mode == "norm"
                     origins = ((0, 0, 0), (1, 2, 3))
                     if edge:
-                        origins = ((1, 0, 1),) if ts else ()
+                        origins = ((1, 0, 1),)
                     for origin in origins:
                         e = compare_fused(
                             f"K14 sweep3_fused {pts} {updown} {mode} "
@@ -1004,7 +1086,8 @@ def phase_cedar3() -> None:
     if not cycle3.fine_split_ok(s.levels, s.settings):
         raise AssertionError("Cedar 3D test: the fused cycle is not the "
                              "default")
-    require_launched(c, ("sweep3", "restrict3", "interp_add3") + FUSED3,
+    require_launched(c, ("sweep3_resident", "restrict3", "interp_add3")
+                     + FUSED3,
                      "Cedar 3D test")
 
 
@@ -1441,52 +1524,86 @@ def run_path3(name: str, n: int, make, kind, solver: dict, need,
 def counts3() -> dict:
     """Kernel launches of one solve-loop cycle of the 3D paths.  A fused
     level runs K15 and K16 once each.  A 27-point K15 or K16 runs one of
-    the 8 colours, K14 the others (``cuda_fused3._passes``: a march a
+    the 8 colours, K14 the others (``cuda_fused3.passes``: a march a
     launch, and a one-colour launch for the last colour of a sweep with the
     norm), so a 27-point fused level also runs K14 ``pre`` times beside
     K15, ``post`` times beside K16 (``post_norm`` on the top level of the
     cycle, whose last post-sweep computes the norm) and ``whole`` times for
-    each further sweep.  A dense level runs K6 once a colour phase and once
-    for the residual that feeds K7, then K8; the dense top level's last
-    post-sweep launches one more K6 for the convergence residual."""
+    each further sweep; a 7-point fused level runs one K14 launch for each
+    further sweep.  A dense level runs K6 DOWN with the residual that feeds
+    K7, then K8, then K6 UP (the dense top level's last with the
+    convergence residual): K6's plan (``cuda3.plan``) makes each sweep one
+    resident launch at the levels that fit one block, else K14's launches
+    (``cuda3.launches_of``)."""
     m = cuda_fused3._stages_of(cuda_build.load("fused3"))
     ts = TwentySevenPt
+    smem = cuda3._build_of(cuda_build.load("sweep3"))
 
     def k14(updown, role, mode=0):
         return sum(k in ("K14", "pass27") for k, _ in
-                   cuda_fused3._passes(m, ts, updown, role, mode))
+                   cuda_fused3.passes(m, ts, updown, role, mode))
+
+    def dense(levels, top_res=False):
+        """K6's launches of the dense levels (n, 27-point or not), a DOWN +
+        residual and an UP sweep each (``top_res``: the first level's UP
+        with the residual), by kernel: resident, a colour phase or the
+        residual (``sweep3``), K14's marches or ring."""
+        c = {"sweep3": 0, "sweep3_resident": 0, "sweep3_fused": 0}
+        for k, (n, t) in enumerate(levels):
+            kind = ts if t else SevenPt
+            p = cuda3.plan(4, t, (n,) * 3, smem)
+            for fuse in (True, top_res and k == 0):
+                count = cuda3.launches_of(p, kind, fuse, m)
+                if p.route in ("resident", "phases"):
+                    c["sweep3" if p.route == "phases"
+                      else "sweep3_resident"] += count
+                else:
+                    # the 27-point marches' residual is a launch of its own
+                    extra = int(fuse and p.route == "pass27")
+                    c["sweep3_fused"] += count - extra
+                    c["sweep3"] += extra
+        return c
 
     pre, post = k14("down", "restrict"), k14("up", "interp")
     post_norm, whole = k14("up", "interp", 2), k14("down", "sweep")
+    d256 = dense([(n, True) for n in (16, 8)])
+    d128 = dense([(8, True)])
     return {
         # 256^3 7-point, 7 levels: fused 0-3 (level 0 7-point, 1-3
-        # 27-point), dense 4-5
+        # 27-point), dense 4-5 (16^3, 8^3: resident)
         "3d_poisson_7pt_256": {
             "sweep_restrict3": 4, "interp_sweep3": 4,
-            "sweep3_fused": 3 * (pre + post),
-            "sweep3": 34, "restrict3": 2, "interp_add3": 2},
+            "sweep3_fused": 3 * (pre + post) + d256["sweep3_fused"],
+            "sweep3_resident": d256["sweep3_resident"],
+            "sweep3": d256["sweep3"], "restrict3": 2, "interp_add3": 2},
         # the same, V(2,2): per fused level one more pre- and post-sweep
-        # (level 0 2 K14, levels 1-3 2 whole); dense levels 2 x 8 + 1 +
-        # 2 x 8
+        # (level 0 2 K14 ring launches, levels 1-3 2 whole); dense levels
+        # two sweeps each way
         "3d_poisson_7pt_256 V(2,2)": {
             "sweep_restrict3": 4, "interp_sweep3": 4,
             "sweep3_fused": 2 + 3 * (pre + post + 2 * whole),
-            "sweep3": 66, "restrict3": 2, "interp_add3": 2},
+            "sweep3_resident": 2 * d256["sweep3_resident"],
+            "sweep3": 2 * d256["sweep3"], "restrict3": 2, "interp_add3": 2},
         "3d_poisson_7pt_256 dense": {
-            "sweep_restrict3": 0, "interp_sweep3": 0, "sweep3_fused": 0,
-            "sweep3": 91, "restrict3": 6, "interp_add3": 6},
-        # 128^3 27-point, 6 levels: fused 0-3, dense 4
+            "sweep_restrict3": 0, "interp_sweep3": 0,
+            **dense([(256, False)] + [(n, True) for n in
+                                      (128, 64, 32, 16, 8)], True),
+            "restrict3": 6, "interp_add3": 6},
+        # 128^3 27-point, 6 levels: fused 0-3, dense 4 (8^3: resident)
         "3d_fe_27pt_128": {
             "sweep_restrict3": 4, "interp_sweep3": 4,
-            "sweep3_fused": 3 * (pre + post) + pre + post_norm,
-            "sweep3": 17, "restrict3": 1, "interp_add3": 1},
+            "sweep3_fused": (3 * (pre + post) + pre + post_norm
+                             + d128["sweep3_fused"]),
+            "sweep3_resident": d128["sweep3_resident"],
+            "sweep3": d128["sweep3"], "restrict3": 1, "interp_add3": 1},
         "3d_fe_27pt_128 dense": {
-            "sweep_restrict3": 0, "interp_sweep3": 0, "sweep3_fused": 0,
-            "sweep3": 86, "restrict3": 5, "interp_add3": 5},
+            "sweep_restrict3": 0, "interp_sweep3": 0,
+            **dense([(n, True) for n in (128, 64, 32, 16, 8)], True),
+            "restrict3": 5, "interp_add3": 5},
     }
 
 
-DENSE3 = ("sweep3", "restrict3", "interp_add3")
+DENSE3 = ("sweep3_resident", "restrict3", "interp_add3")
 
 
 def phase_paths3() -> dict:
@@ -1496,15 +1613,26 @@ def phase_paths3() -> dict:
     dense = {"fine-split": False}
     want = counts3()
     # the 27-point K14 runs several colours a launch: fewer K14 launches a
-    # V(1,1) cycle than the 42 and 56 of one colour a launch
+    # V(1,1) cycle than the 42 and 56 of one colour a launch; K6 one launch
+    # a sweep on the dense levels that fit a block: 4, 8 and 2 on the fused
+    # cycles (34, 66 and 17 of one launch a colour phase), and fewer
+    # launches in all on the dense cycles than the 91 and 86 K6 launches of
+    # one a colour phase and the residual, with K7 and K8
+    k6 = {k: v["sweep3_resident"] + v["sweep3"] for k, v in want.items()}
     if (want["3d_poisson_7pt_256"]["sweep3_fused"] >= 42
-            or want["3d_fe_27pt_128"]["sweep3_fused"] >= 56):
-        raise AssertionError(f"27-point K14 launches a cycle: {want}")
+            or want["3d_fe_27pt_128"]["sweep3_fused"] >= 56
+            or (k6["3d_poisson_7pt_256"], k6["3d_poisson_7pt_256 V(2,2)"],
+                k6["3d_fe_27pt_128"]) != (4, 8, 2)
+            or sum(want["3d_poisson_7pt_256 dense"].values()) >= 91 + 12
+            or sum(want["3d_fe_27pt_128 dense"].values()) >= 86 + 10):
+        raise AssertionError(f"3D launches a cycle: {want}")
+    print(f"  3D launches a cycle: {want}", flush=True)
     v7 = run_path3("3d_poisson_7pt_256", N_3D, gallery.poisson3, SevenPt,
                    {}, DENSE3 + FUSED3, want=want["3d_poisson_7pt_256"])
     torch.cuda.empty_cache()
-    run_path3("3d_poisson_7pt_256 dense", N_3D, gallery.poisson3, SevenPt,
-              {}, DENSE3, dense, want["3d_poisson_7pt_256 dense"])
+    d7 = run_path3("3d_poisson_7pt_256 dense", N_3D, gallery.poisson3,
+                   SevenPt, {}, ("sweep3",) + DENSE3 + FUSED3[:1], dense,
+                   want["3d_poisson_7pt_256 dense"])
     torch.cuda.empty_cache()
     v22 = run_path3("3d_poisson_7pt_256 V(2,2)", N_3D, gallery.poisson3,
                     SevenPt, {"cycle": {"nrelax-pre": 2, "nrelax-post": 2}},
@@ -1514,14 +1642,18 @@ def phase_paths3() -> dict:
               DENSE3 + FUSED3, want=want["3d_fe_27pt_128"])
     torch.cuda.empty_cache()
     run_path3("3d_fe_27pt_128 dense", N_27, gallery.fe3, TwentySevenPt, {},
-              DENSE3, dense, want["3d_fe_27pt_128 dense"])
+              ("sweep3",) + DENSE3 + FUSED3[:1], dense,
+              want["3d_fe_27pt_128 dense"])
     torch.cuda.empty_cache()
     f7 = run_path3("3d_poisson_fcycle_256", N_3D, gallery.poisson3, SevenPt,
                    {"cycle": {"type": "f"}},
                    ("restrict3", "interp3") + DENSE3 + FUSED3)
     torch.cuda.empty_cache()
+    # K6's per-colour launches run on the dense cycle (its 64³ and 32³
+    # levels, the 128³ level's residual)
     return {k: v7[k] for k in DENSE3 + FUSED3} | {
-        "sweep3_fused": v22["sweep3_fused"], "interp3": f7["interp3"]}
+        "sweep3_fused": v22["sweep3_fused"], "interp3": f7["interp3"],
+        "sweep3": d7["sweep3"]}
 
 
 def phase_planes_128() -> dict:
@@ -1823,8 +1955,9 @@ def phase_times3() -> dict:
     7-point float32; the 27-point sweeps at 128³), in turns (plain,
     kernel, kernel, plain); K15 and K16 against the dense sequences they
     replace."""
-    print("[6] per-kernel ms at 256^3 7-pt float32, 27-pt sweeps at 128^3 "
-          "(plain, kernel, kernel, plain)", flush=True)
+    print("[6] per-kernel ms at 256^3 7-pt float32, 27-pt sweeps at 128^3, "
+          "K6 at 16^3 (resident) and 64^3 (a launch a colour) 27-pt (plain, "
+          "kernel, kernel, plain)", flush=True)
     n, n27 = N_3D, N_27
     so, q, b, kind = random_problem3((n,) * 3, False, torch.float32, 17)
     so27, q27, b27, kind27 = random_problem3((n27,) * 3, True,
@@ -1837,16 +1970,29 @@ def phase_times3() -> dict:
     nc27 = ci27.shape[1] - 1
     qc27 = torch.randn((nc27,) * 3, generator=g, device=DEV,
                        dtype=torch.float32)
+    # K6 at dense levels of the 3D paths (27-point): resident at 16³, one
+    # launch a colour phase (and the residual) at 64³
+    r, r6 = N_3D >> 4, N_3D >> 2
+    sr, qr, br, kr = random_problem3((r,) * 3, True, torch.float32, 20)
+    s6, q6, b6, k6 = random_problem3((r6,) * 3, True, torch.float32, 21)
     cases = {
-        "sweep3": (lambda: cuda3.sweep_plain(so, q, b, kind, "down"),
-                   lambda: cuda3.sweep(so, q, b, kind, "down")),
-        "sweep3 +res": (
+        "sweep3_resident": (
+            lambda: cuda3.sweep_plain(sr, qr, br, kr, "down", True),
+            lambda: cuda3.sweep(sr, qr, br, kr, "down", True)),
+        "sweep3": (
+            lambda: cuda3.sweep_plain(s6, q6, b6, k6, "down", True),
+            lambda: cuda3.sweep(s6, q6, b6, k6, "down", True)),
+        # K6 at 256³ 7-point and 128³ 27-point: K14's launches
+        "K6 256^3 (ring)": (
+            lambda: cuda3.sweep_plain(so, q, b, kind, "down"),
+            lambda: cuda3.sweep(so, q, b, kind, "down")),
+        "K6 256^3 +res (ring)": (
             lambda: cuda3.sweep_plain(so, q, b, kind, "down", True),
             lambda: cuda3.sweep(so, q, b, kind, "down", True)),
-        "sweep3 27pt 128^3": (
+        "K6 27pt 128^3 (pass27)": (
             lambda: cuda3.sweep_plain(so27, q27, b27, kind27, "down"),
             lambda: cuda3.sweep(so27, q27, b27, kind27, "down")),
-        "sweep3 27pt 128^3 +res": (
+        "K6 27pt 128^3 +res (pass27)": (
             lambda: cuda3.sweep_plain(so27, q27, b27, kind27, "down", True),
             lambda: cuda3.sweep(so27, q27, b27, kind27, "down", True)),
         "restrict3": (lambda: cuda_transfer3.restrict_plain(ci, b),
@@ -1896,8 +2042,8 @@ def phase_times3() -> dict:
                                              kind27, "up")),
     }
     out = time_turns(cases)
-    # K15 and K16 against the dense launches they replace (the dense ones
-    # update q in place, so it drifts: the timing does not depend on it)
+    # K15 and K16 against the dense launches they replace (K8's interp-add
+    # updates qd in place, so it drifts: the timing does not depend on it)
     print("[6] fused 3D kernels against the dense sequences they replace "
           "(dense, fused, fused, dense)", flush=True)
     qd, qd27 = q.clone(), q27.clone()
@@ -1937,8 +2083,14 @@ def phase_times3() -> dict:
     N, Nc, W, e = n ** 3, nc ** 3, 26 * (nc + 1) ** 3, 4
     N27, Nc27, W27 = n27 ** 3, nc27 ** 3, 26 * (nc27 + 1) ** 3
     work = {
-        "sweep3": ((4 + 3) * N * e, 14 * N),
-        "sweep3 27pt 128^3": ((14 + 3) * N27 * e, 54 * N27),
+        # the sweep and its residual: the stencil, q and b read, q and res
+        # written
+        "sweep3_resident": ((14 + 4) * r ** 3 * e, 108 * r ** 3),
+        "sweep3": ((14 + 4) * r6 ** 3 * e, 108 * r6 ** 3),
+        "K6 256^3 (ring)": ((4 + 3) * N * e, 14 * N),
+        "K6 256^3 +res (ring)": ((4 + 4) * N * e, 28 * N),
+        "K6 27pt 128^3 (pass27)": ((14 + 3) * N27 * e, 54 * N27),
+        "K6 27pt 128^3 +res (pass27)": ((14 + 4) * N27 * e, 108 * N27),
         "restrict3": ((W + N + Nc) * e, 52 * Nc),
         "interp_add3": ((W + Nc + 4 * N) * e, 67 * N // 8),
         "interp3": ((W + Nc + N) * e, 52 * N // 8),

@@ -331,7 +331,16 @@ def test_fused3_checks(bad):
     elif bad == "qc":
         tqc = tqc[:, :5]
     elif bad == "alias":
-        tb = tq
+        # q sharing storage with b: the kernels write new tensors, so none
+        # reads what it writes; the sweep equals the one of copies and
+        # leaves q as it was
+        q0 = tq.clone()
+        got = cuda_fused3.sweep_plain(tso, tq, tq, kind, "down", True)
+        want = cuda_fused3.sweep_plain(tso, q0.clone(), q0.clone(), kind,
+                                       "down", True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(tq, q0)
+        return
     with pytest.raises(ValueError):
         if bad == "qc":
             cuda_fused3.interp_sweep_plain(tci, tqc, tso, tb, tq, kind, "up")
@@ -348,7 +357,7 @@ def test_fused3_checks(bad):
                          ids=["none", "norm"])
 def test_colour_passes_follow_color_order(ts, updown, stages, mode):
     """The kernels' colour passes are relax3.color_order's, in order: two
-    colours a launch for 7-point; 27-point (DOWN sweeps colours 8..1) a
+    colours a launch for 7-point (K14 on the ring design); 27-point (DOWN sweeps colours 8..1) a
     K14 sweep, a pre-sweep's K14 marches then K15 on the last colour, a
     post-sweep's K16 on the first colour then K14 marches, each march one
     block of ``stages`` positions of the colour order; with an epilogue, a
@@ -358,10 +367,10 @@ def test_colour_passes_follow_color_order(ts, updown, stages, mode):
     kind = StencilKind.twenty_seven_pt if ts else StencilKind.seven_pt
     order = relax3.color_order(kind, updown)
     epi = mode != cuda_fused3._NONE
-    for role, own, ends in (("sweep", "K14", ("pass27", "K14")),
+    for role, own, ends in (("sweep", "ring", ("pass27", "K14")),
                             ("restrict", "K15", ("pass27", "K15")),
                             ("interp", "K16", ("K16", "K14"))):
-        passes = cuda_fused3._passes(stages, kind, updown, role, mode)
+        passes = cuda_fused3.passes(stages, kind, updown, role, mode)
         assert [c for _, g in passes for c in g] == order
         if not ts:
             assert passes == ((own, tuple(order)),)

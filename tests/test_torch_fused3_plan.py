@@ -1,6 +1,7 @@
 """The launch plan of the fused 3D kernels K15 (sweep + residual +
-restriction) and K16 (interp-add + sweep): ``cuda_fused3.plan``, which the
-wrappers compute and pass to the kernels (csrc/fused3.cu checks it against
+restriction), K16 (interp-add + sweep) and the 7-point K14 (the ring
+sweep): ``cuda_fused3.plan``, which the wrappers compute and pass to the
+kernels (csrc/fused3.cu checks it against
 its own layout at launch).  Pure Python, no card: for both stencil kinds,
 both dtypes and every output mode, at the paths' shapes and at shapes that
 hit the tiling's edges, the shared memory fits as many blocks an SM as
@@ -16,9 +17,11 @@ import pytest
 
 from cedar_tpu_torch.ops import cuda_fused3 as cf
 
-# (interp, mode): K15, then K16 with each output mode
+# (interp, mode): K15, K16 with each output mode, the 7-point K14 with
+# each output mode
 VARIANTS = [(False, cf._RESTRICT), (True, cf._NONE), (True, cf._RES),
-            (True, cf._NORM)]
+            (True, cf._NORM), (False, cf._NONE), (False, cf._RES),
+            (False, cf._NORM)]
 # the paths' shapes (256³ 7-point, 128³ 27-point, the f64 gates) and edge
 # shapes: nz not a multiple of 4, nx not a multiple of the chunk, ny
 # smaller than one tile, more work items than resident blocks
@@ -33,8 +36,10 @@ BLOCK_MAX, SM_MAX = 232448, 233472
 def _cases():
     for itemsize, ts, (interp, mode) in itertools.product(
             (4, 8), (False, True), VARIANTS):
-        if ts and interp and mode != cf._NONE:
+        if ts and mode not in (cf._NONE, cf._RESTRICT):
             continue  # a 27-point K16 pass takes no epilogue
+        if ts and not interp and mode != cf._RESTRICT:
+            continue  # the 27-point K14 launches on pass27_plan
         yield itemsize, ts, interp, mode
 
 
@@ -43,8 +48,10 @@ CASES = list(_cases())
 
 def _ids(c):
     itemsize, ts, interp, mode = c
+    name = ("K16" if interp else "K15" if mode == cf._RESTRICT
+            else "K14")
     return (f"{'f32' if itemsize == 4 else 'f64'}-{'27' if ts else '7'}pt-"
-            f"{'K16' if interp else 'K15'}-m{mode}")
+            f"{name}-m{mode}")
 
 
 def _coarse(n):
@@ -64,11 +71,16 @@ def test_shared_memory_fits(case):
     assert p.per_sm * (p.smem + 1024) <= SM_MAX
     assert p.warps * 32 * p.per_sm <= 2048
     if p.ring:
+        k14 = cf.is_k14(interp, mode)
+        rows = ((cf.RING14_ROWS[itemsize],) if k14
+                else cf.RING_ROWS[itemsize])
         sizes = {t: cf.ring_words(itemsize, interp, mode, t) * itemsize
-                 for t in cf.RING_ROWS[itemsize]}
+                 for t in rows}
         assert p.smem == sizes[p.ty]
         assert p.ty == max(t for t, s in sizes.items() if s <= cf.BLOCK_SMEM)
-        assert p.per_sm == 1 and p.warps == p.ty + 2 * p.h
+        assert p.warps == p.ty + 2 * p.h
+        assert p.per_sm == (min(cf.RING14_BLOCKS, SM_MAX // (p.smem + 1024),
+                                2048 // (32 * p.warps)) if k14 else 1)
     else:
         assert p.ty == 16
         assert p.smem == cf.window_words(interp, mode) * itemsize
@@ -118,7 +130,7 @@ def test_every_point_has_one_owner(case, shape):
             coarse[xc, yt // 2:yt // 2 + p.ty // 2,
                    zt // 2:zt // 2 + p.tz // 2] += 1
     assert (fine == 1).all()
-    if not interp:
+    if mode == cf._RESTRICT:
         assert (coarse == 1).all()
 
 
@@ -145,17 +157,22 @@ def test_grid_runs_in_few_waves(case):
 
 def test_plan_takes_a_tile_override():
     """tools/tune_fused3.py times each built tile-row option of 7-point
-    K15 and K16: the plan takes each built option (each fits a block) and
-    refuses one that is not built; 27-point K15 and K16 take 16 rows
-    only."""
+    K15 and K16 and builds of the 7-point K14 with other tile rows
+    (``-DCEDAR_K14_ROWS``): the plan takes each built K15/K16 option (each
+    fits a block) and refuses one that is not built; it takes K14's rows
+    where its block fits and refuses them where it does not; 27-point K15
+    and K16 take 16 rows only."""
     for itemsize, (interp, mode) in itertools.product((4, 8), VARIANTS):
-        for ty in cf.RING_ROWS[itemsize]:
+        k14 = cf.is_k14(interp, mode)
+        for ty in ((cf.RING14_ROWS[itemsize], 12, 4) if k14
+                   else cf.RING_ROWS[itemsize]):
             size = cf.ring_words(itemsize, interp, mode, ty) * itemsize
             assert size <= cf.BLOCK_SMEM
             assert cf.plan(itemsize, False, interp, mode, (64,) * 3,
                            ty=ty).ty == ty
         with pytest.raises(ValueError):
-            cf.plan(itemsize, False, interp, mode, (64,) * 3, ty=14)
+            cf.plan(itemsize, False, interp, mode, (64,) * 3,
+                    ty=64 if k14 else 14)
     for interp, mode in ((False, cf._RESTRICT), (True, cf._NONE)):
         assert cf.plan(4, True, interp, mode, (64,) * 3, ty=16).ty == 16
         with pytest.raises(ValueError):
@@ -182,6 +199,30 @@ def test_layouts_by_hand():
     assert cf.window_words(False, cf._RESTRICT) == 4 * pl + 3 * 17 * 59
     p = cf.plan(4, True, False, cf._RESTRICT, (128,) * 3)
     assert (p.cx, p.gz, p.gy, p.gc, p.per_sm) == (6, 3, 8, 22, 4)
+
+
+def test_k14_ring_layout_by_hand():
+    """The 7-point K14 (the ring design with the colour stages only, H = 2,
+    copies one step ahead) against a layout worked out by hand: f32, 20
+    tile rows, 24 region rows (24 warps): 5 q slots and 4 slots of b and
+    the 4 stencil planes, 25 planes of 24 x 64 words (150 KB, one block an
+    SM); with the residual H = 3, 26 region rows and 31 planes (201 KB);
+    a build on 12 tile rows two blocks an SM (100 KB each), as many as its
+    registers are capped for; float64 8 rows, the stencil from device
+    memory."""
+    assert cf.RING14_BLOCKS == 2
+    assert cf._stages(False, False, cf._NONE) == (2, 2, 2)
+    assert cf.ring_words(4, False, cf._NONE, 20) == 25 * 24 * 64
+    p = cf.plan(4, False, False, cf._NONE, (256,) * 3)
+    assert (p.ty, p.h, p.warps, p.per_sm, p.gz, p.gy) == (20, 2, 24, 1, 5,
+                                                          13)
+    assert p.smem == 25 * 24 * 64 * 4
+    p = cf.plan(4, False, False, cf._RES, (256,) * 3)
+    assert (p.ty, p.h, p.smem) == (20, 3, 31 * 26 * 64 * 4)
+    p = cf.plan(4, False, False, cf._NONE, (256,) * 3, ty=12)
+    assert (p.ty, p.per_sm, p.smem) == (12, 2, 25 * 16 * 64 * 4)
+    p = cf.plan(8, False, False, cf._NORM, (200,) * 3)
+    assert (p.ty, p.h, p.smem) == (8, 3, (6 + 5) * 14 * 64 * 8)
 
 
 # the 27-point K14 (`pass27`): every dtype, with the built colours a march

@@ -4,8 +4,9 @@ sweep kernel in interpret mode in float32 (the tolerances of
 tests/test_pallas_3d.py), and the Fortran transcription of
 tests/oracles3.py.
 
-The CUDA kernel itself runs only on the card; chip_smoke.py holds it
-against the plain version checked here.
+The CUDA kernels themselves run only on the card; chip_smoke.py holds
+them against the plain version checked here.  Both return the sweep in a
+new tensor and leave q as it was.
 """
 
 import jax.numpy as jnp
@@ -20,12 +21,12 @@ from cedar_tpu.ops import relax3 as jrelax3
 from cedar_tpu.ops import stencil3 as jstencil3
 
 from cedar_tpu_torch.core.types import StencilKind
-from cedar_tpu_torch.ops import cuda3, relax3, stencil3
+from cedar_tpu_torch.ops import cuda3, cuda_fused3, relax3, stencil3
 
 torch.set_num_threads(2)
 
-# Torch inputs are copies (torch.tensor): the port writes q in place, and
-# JAX on the CPU may share the numpy buffer and read it asynchronously.
+# Torch inputs are copies (torch.tensor): JAX on the CPU may share the
+# numpy buffer and read it asynchronously.
 
 
 def _problem(seed, shape, ts, dtype=np.float64):
@@ -83,12 +84,58 @@ def test_point_relax_matches_jax_f64(shape, ts, updown, fuse):
     out = relax3.point_relax(tso, tq, tb, relax3.setup_recip(tso), kind,
                              updown, fuse_residual=fuse)
     got = out[0] if fuse else out
-    assert got is tq   # in place
+    assert got is not tq   # out of place
+    np.testing.assert_array_equal(tq.numpy(), q)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
     if fuse:
         want_res = jstencil3.residual(jso, want, jnp.asarray(b), jkind)
         np.testing.assert_allclose(out[1].numpy(), np.asarray(want_res),
                                    rtol=1e-12, atol=1e-13)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("ts", [False, True])
+@pytest.mark.parametrize("fuse", [False, True])
+def test_point_relax_leaves_q_unchanged(dtype, ts, fuse, monkeypatch):
+    """point_relax returns the sweep (and its residual) in new tensors and
+    leaves q as it was, DOWN and UP, and equals cedar_tpu's point_relax:
+    in float32 the Pallas kernel in interpret mode with an odd origin (atol
+    1e-5 and 1e-4, the tolerances of the tests above), in float64 the XLA
+    sweep, which takes no origin (rtol 1e-12, atol 1e-13)."""
+    monkeypatch.setattr(pallas3, "INTERPRET", True)
+    f32 = dtype == np.float32
+    shape = ((32, 16, 40) if ts else (24, 16, 40)) if f32 else (9, 7, 6)
+    so, q, b = _problem(31 + ts + 2 * fuse, shape, ts, dtype)
+    kind, jkind = _kinds(ts)
+    jso, jq, jb = jnp.asarray(so), jnp.asarray(q), jnp.asarray(b)
+    origin = (1, 0, 1) if f32 else (0, 0, 0)
+    for updown in ("down", "up"):
+        tso, tq, tb = (torch.tensor(a) for a in (so, q, b))
+        out = relax3.point_relax(tso, tq, tb, None, kind, updown,
+                                 fuse_residual=fuse, origin=origin)
+        np.testing.assert_array_equal(tq.numpy(), q)
+        got_q, got_res = out if fuse else (out, None)
+        assert got_q is not tq
+        if f32:
+            want_q, want_res = pallas3.point_relax(
+                jso, jq, jb, None, updown, fuse_residual=True, kind=jkind,
+                origin=jnp.asarray(origin, jnp.int32))
+            np.testing.assert_allclose(got_q.numpy(), np.asarray(want_q),
+                                       atol=1e-5)
+            if fuse:
+                np.testing.assert_allclose(got_res.numpy(),
+                                           np.asarray(want_res), atol=1e-4)
+            continue
+        want_q = jrelax3.point_relax(jso, jq, jb, jrelax3.setup_recip(jso),
+                                     jkind, updown)
+        np.testing.assert_allclose(got_q.numpy(), np.asarray(want_q),
+                                   rtol=1e-12)
+        if fuse:
+            np.testing.assert_allclose(
+                got_res.numpy(),
+                np.asarray(jstencil3.residual(jso, want_q, jb, jkind)),
+                rtol=1e-12, atol=1e-13)
 
 
 @pytest.mark.parametrize("ts", [False, True])
@@ -168,10 +215,13 @@ def test_origin_parity_only():
 def test_cpu_dispatch_uses_plain_version():
     so, q, b = _problem(22, (6, 6, 6), False)
     t = [torch.tensor(a) for a in (so, q, b)]
-    launches, plain = cuda3.launches, cuda3.plain_calls
+    launches = (cuda3.launches, cuda3.resident_launches,
+                cuda_fused3.sweep_launches)
+    plain = cuda3.plain_calls
     relax3.point_relax(t[0], t[1], t[2], None, StencilKind.seven_pt, "down")
     assert cuda3.plain_calls == plain + 1
-    assert cuda3.launches == launches
+    assert (cuda3.launches, cuda3.resident_launches,
+            cuda_fused3.sweep_launches) == launches
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
@@ -186,15 +236,26 @@ def test_sweep_checks(bad):
     so, q, b = _problem(24, (6, 6, 6), False)
     so, q, b = (torch.tensor(a) for a in (so, q, b))
     kind = StencilKind.seven_pt
+    if bad in ("alias", "view"):
+        # q sharing storage with b or so: every kernel writes a new tensor,
+        # so no launch reads what it writes; the sweep equals the one of
+        # copies and leaves its inputs as they were
+        if bad == "alias":
+            b = q
+        else:
+            q = so[1]
+        so0, q0, b0 = so.clone(), q.clone(), b.clone()
+        got = cuda3.sweep_plain(so, q, b, kind, "down", True)
+        want = cuda3.sweep_plain(so0, q0.clone(), b0.clone(), kind, "down",
+                                 True)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert (torch.equal(so, so0) and torch.equal(q, q0)
+                and torch.equal(b, b0))
+        return
     if bad == "kind":
         kind = StencilKind.nine_pt
     elif bad == "shape":
         b = b[:, :, :5]
-    elif bad == "alias":
-        b = q
-    elif bad == "view":
-        # q a view into the storage of so: the in-place phases would race
-        q = so[1]
     elif bad == "dtype":
         so, q, b = (a.to(torch.float16) for a in (so, q, b))
         with pytest.raises(TypeError, match="float32 or float64"):
