@@ -1,7 +1,8 @@
 // Asynchronous copies from device memory into shared memory (Ampere's
-// cp.async, LDGSTS, on Hopper too) for the ring kernels (K12-K16) and K1's
-// resident load: each thread issues element copies that complete in the
-// background, groups them with commit_async, and waits for all but its N
+// cp.async, LDGSTS, on Hopper too) for the ring kernels (K12-K16, the edge
+// kernel) and K1's resident load: each thread issues element copies that
+// complete in the background, groups them with commit_async, and waits for
+// all but its N
 // newest groups with wait_async<N>; a barrier then publishes them to the
 // block.  A copy of `in` false writes zero (source size 0) and reads
 // nothing.
@@ -25,6 +26,16 @@ __device__ __forceinline__ void copy_async16(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src)
+               : "memory");
+}
+
+// 16 aligned bytes, through L2 only, zero-filled (reading nothing) when in
+// is false (the edge kernel's rows)
+__device__ __forceinline__ void copy_async16(void* dst, const void* src,
+                                             bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(in ? 16 : 0)
                : "memory");
 }
 

@@ -17,9 +17,13 @@
 // the pre-smoothed iterate recomputed on chip, q + res/diag + P qc, then
 // the first post-sweep (+ the residual or the partial sums).  The Pallas
 // kernels work on the octant-split layout that Mosaic needs; these work on
-// the dense (nx, ny, nz) grid and compute what those compute.  K6's levels
-// above one block (sweep3.cu) run on K14 too: the 7-point ring march and,
-// for float32 levels of 128³ or more, the 27-point marches.  The math is
+// the dense (nx, ny, nz) grid and compute what those compute.  Here: the
+// 7-point K14, K15 and K16 (`ring3`) and the 27-point K14's marches
+// (`pass27`).  A 27-point K15 or K16 is a sweep on K6's route (sweep3.cu,
+// or these marches) with the edge kernel (edge3.cu) after or before it,
+// composed by ops/cuda_fused3.py.  K6's levels above one block (sweep3.cu)
+// run on K14 too: the 7-point ring march and, for float32 levels of 96³ or
+// more, the 27-point marches.  The math is
 // ops/fused3.py's plain versions, which compose relax3.sweep3_torch,
 // stencil3.residual, interp3.restrict_torch and interp3.interp_add_torch;
 // the arithmetic comes from stencil3.cuh (`offdiag_terms`) and
@@ -30,56 +34,17 @@
 // lose to is latency (PERF.md §6: the time of each part, measured by
 // skipping it).
 //
-// The window design (`fused3`, 27-point only since the 7-point K14 moved to
-// the ring design): 2.5D blocking, the Hopper form of the TPU's
-// wavefront (pallas3_stream.py:1-29).  A block owns a y-z tile of TY x TZ
-// points and a chunk of cx planes along x, and marches along x through
-// its chunk one plane a step.  A pass is a list of stages (K16's
-// interpolation, the colour phases, the residual epilogue, K15's
-// restriction); at step p the block holds planes up to p in rolling
-// windows of planes in shared memory and applies stage s to plane p - s,
-// s = 1, 2, ...  Stage s at plane x reads planes x - 1 .. x + 1 of the
-// window.  That is exact: plane x + 1 holds the state after stage s - 1
-// (it got stage s - 1 earlier in the same step), plane x - 1 the state
-// after stage s, which differs from the state after s - 1 only at points
-// of the colour of stage s, and a point couples to no point of its own
-// colour.  So one in-place copy of each plane serves every stage.
-//
-// Each stage also stales one ring of the y-z region and one plane at each
-// end of the chunk, so the region carries a halo of H = (number of
-// stages) rings and the chunk H planes at each end, recomputed by the
-// neighbouring blocks: stage s updates points at depth >= s (the depth of
-// a point is its distance in rings or planes from the region's edge; the
-// grid's own boundary counts as infinitely deep, its couplings are zero).
-// The region is kRW = 64 columns (z) wide, TZ = 64 - 2H, and TY + 2H rows.
-//
-// Plane p + 1 of q is prefetched into registers while the stages of step p
-// run, and stored into the windows at the end of the step; the stencil's
-// 14 planes and b come from device memory.  A phase maps its threads onto
-// its own colour's points only, so no thread idles on another colour.
-// K16 gives each warp the points of one
-// parity class at a time and issues the class's CI and coarse loads
-// before it recomputes the residual (transfer3.cuh `interp_with`).
-//
-// The 27-point K15 and K16 run one colour of a sweep each (the last of a
-// pre-sweep, the first of a post-sweep; phases_of) on the window
-// design, as the JAX kernel splits a sweep into passes when one does not
-// fit (pallas3_split.py `_plan_split`): its couplings reach diagonally
-// into the next plane, so its stages need a barrier each, its so planes
-// come from device memory, and each phase of a pass adds a ring of halo on
-// a grid that is already small (128³ at most on the 256³ problem's
-// 27-point levels).  Smaller blocks (8 warps, 4 an SM) hide the latency
-// of those loads.  The x chunk length cx is chosen so that the card gets
-// about kTargetBlocks blocks, and at least 2H planes, to bound the
-// recomputed halo planes.
-//
-// The 27-point K14 (`pass27`) runs the other colours, a launch a march of
-// up to kStages27 colours (cedar_fused3_pass27_stages): the march of the
-// window design, with a ring of q planes filled by cp.async two steps
-// ahead.  The wrapper gives a march an aligned pair of positions of the
-// colour order (one y and z parity), so that its colours read the same
-// stencil rows.  The colours of a march alternate in x parity, so a colour
-// stage works on every other step; on a step where it works, each thread
+// The 27-point K14 (`pass27`) runs a sweep's colours, a launch a march of
+// up to kStages27 colours (cedar_fused3_pass27_stages): a block owns a y-z
+// tile and an x chunk and marches along x one plane a step; colour stage s
+// updates plane p - s at step p (one in-place copy of each plane serves
+// every stage: no point couples to its own colour), each stage staling one
+// ring of halo, so the region carries a halo of as many rings and planes as
+// stages; a ring of q planes is filled by cp.async two steps ahead.  The
+// wrapper gives a march an aligned pair of positions of the colour order
+// (one y and z parity), so that its colours read the same stencil rows.
+// The colours of a march alternate in x parity, so a colour stage works on
+// every other step; on a step where it works, each thread
 // updates one point of the stage's colour, whose 27 stencil values and b
 // it gathered by cp.async into slots of its own on the stage's previous
 // working step (float32 with at most 4 stages; otherwise they are read from
@@ -87,11 +52,9 @@
 // barrier, and one more after each colour stage that works.  A warp takes a
 // pair of region rows; the tile rows, the x chunk and the grid come from
 // the wrapper's plan (ops/cuda_fused3.py `pass27_plan`), checked at launch
-// against `Pass27`.  A 27-point sweep whose residual or norm is asked for
-// runs its last colour as a one-colour K14 of the window design (`fused3`),
-// whose epilogue follows the colour's stage in the same march; in a march
-// of two colours the epilogue would add a ring of halo and registers that
-// spill.
+// against `Pass27`.  No epilogue rides in a march (it would add a ring of
+// halo and registers that spill): a 27-point sweep whose residual or norm
+// is asked for is followed by a launch of its own (ops/cuda3.py).
 //
 // The ring design (`ring3`): the 7-point K14, K15 and K16 read every plane
 // a stage needs from rings of slots in shared memory, filled by cp.async
@@ -116,10 +79,7 @@
 // f64, one block an SM; the 7-point K14, the colour stages and a residual or
 // norm epilogue only, is built with 20 in f32 and 8 in f64), and the chunk
 // that runs the grid in the fewest steps a block slot.  The 7-point K14 took 0.30 ms a 256³
-// sweep where the window design took 0.37 (PERF.md §6).  The 27-point K15
-// and K16 stay on `fused3`: on the card every ring
-// variant measured for them (two to four blocks an SM, a copy warp, the
-// coarse side through L2) was slower (PERF.md §6; tools/tune_fused3.py).
+// sweep where the earlier window design took 0.37 (PERF.md §6).
 //
 // Out of place: a block reads q_in over its region while other blocks
 // write their tiles, so each kernel reads q_in and writes a separate
@@ -129,9 +89,9 @@
 // low ring (the restriction reads fine indices 2c - 1 .. 2c + 1).  The
 // norm epilogue writes one partial a block (the sum of res² over the
 // block's own points, in no fixed order against the plain version's sum):
-// cedar_fused3_partials entries for the 27-point K14, the plan's blocks for
-// the 7-point K14 and K16; the caller sums them.  K14-K16 launch on the
-// wrapper's plan, which the launch checks against the kernel's own.
+// the plan's blocks for the 7-point K14 and K16; the caller sums them.
+// K14-K16 launch on the wrapper's plan, which the launch checks against the
+// kernel's own.
 
 #include "async.cuh"
 #include "stencil3.cuh"
@@ -143,39 +103,18 @@ namespace {
 constexpr int kRW = 64;                  // region columns (z)
 // epilogues: nothing, the residual, the norm partials, residual + restrict
 constexpr int kNone = 0, kRes = 1, kNorm = 2, kRestrict = 3;
-// blocks a launch aims at: four for each of the H100's 132 SMs
-constexpr int kTargetBlocks = 528;
-constexpr int kTileRows = 16;            // TY of the window design
-// the window design's warps a block and resident blocks an SM, at least
-constexpr int kWarps27 = 8, kMinBlocks27 = 4;
-
-// colour phases of a pass: both of a 7-point sweep (the ring design), one
-// 27-point colour (the window design)
-__host__ __device__ constexpr int phases_of(bool ts) { return ts ? 1 : 2; }
-// the stage of the last phase, of the residual epilogue, and their number:
-// the halo H in rings and planes
-__host__ __device__ constexpr int last_phase(bool ts, bool interp) {
-  return interp + phases_of(ts);
+// colour phases of a 7-point pass (both of a sweep), the stage of the
+// last phase, of the residual epilogue, and their number: the halo H in
+// rings and planes
+constexpr int kPhases = 2;
+__host__ __device__ constexpr int last_phase(bool interp) {
+  return interp + kPhases;
 }
-__host__ __device__ constexpr int epi_stage(bool ts, bool interp, int epi) {
-  return last_phase(ts, interp) + (epi != kNone);
+__host__ __device__ constexpr int epi_stage(bool interp, int epi) {
+  return last_phase(interp) + (epi != kNone);
 }
-__host__ __device__ constexpr int halo(bool ts, bool interp, int epi) {
-  return epi_stage(ts, interp, epi) + (epi == kRestrict);
-}
-// planes a window holds: q (or K16's interpolated q), stage s reading back
-// to plane p - SE - 1 while plane p + 1 arrives; K16's q_pre (p - 2 .. p)
-__host__ __device__ constexpr int q_slots(bool interp, int epi) {
-  return epi_stage(true, interp, epi) + (interp ? 1 : 2);
-}
-constexpr int kPreSlots = 3, kResSlots = 3;
-
-// the shared-memory words of a window-design block
-__host__ __device__ constexpr size_t smem_words(bool interp, int epi) {
-  const int h = halo(true, interp, epi), ry = kTileRows + 2 * h;
-  const int tz = kRW - 2 * h, pl = ry * kRW;
-  return (size_t)q_slots(interp, epi) * pl + (interp ? kPreSlots * pl : 0) +
-         (epi == kRestrict ? kResSlots * (kTileRows + 1) * (tz + 1) : 0);
+__host__ __device__ constexpr int halo(bool interp, int epi) {
+  return epi_stage(interp, epi) + (epi == kRestrict);
 }
 
 struct Args {
@@ -189,24 +128,6 @@ struct Args {
 struct Dims {
   int nx, ny, nz, nxc, nyc, nzc, cx, colors, ox, oy, oz, emit_res;
 };
-
-struct Plan {
-  dim3 grid;
-  int cx;
-  size_t smem;
-};
-
-// the plan of a window-design launch
-inline Plan plan(bool interp, int epi, int nx, int ny, int nz, int elem) {
-  const int h = halo(true, interp, epi), tz = kRW - 2 * h;
-  const int gz = (nz + tz - 1) / tz, gy = (ny + kTileRows - 1) / kTileRows;
-  const int chunks = (kTargetBlocks + gz * gy - 1) / (gz * gy);
-  int cx = (nx + chunks - 1) / chunks;
-  cx += cx & 1;
-  if (cx < 2 * h) cx = 2 * h;
-  return Plan{dim3(gz, gy, (nx + cx - 1) / cx), cx,
-              smem_words(interp, epi) * elem};
-}
 
 // The sum of v over the block of NW warps, returned to thread 0.
 template <int NW, typename T>
@@ -222,318 +143,12 @@ __device__ T block_sum(T v) {
   return tot;
 }
 
-// One 27-point pass on a y-z tile and an x chunk (see the header note).
-// K14: INTERP false, EPI kRes / kNorm; K15: EPI kRestrict; K16: INTERP true
-// (q_in is q_pre), EPI kNone.  Region row r goes to warp r % NW and columns
-// 2l, 2l + 1 to lane l (a phase: the one of its colour, on the rows of its
-// colour only).
-template <typename T, bool INTERP, int EPI>
-__global__ void __launch_bounds__(32 * kWarps27, kMinBlocks27)
-fused3(const T* __restrict__ so, const T* __restrict__ q_in,
-       const T* __restrict__ b, const T* __restrict__ ci_p,
-       const T* __restrict__ qc, T* __restrict__ q_out, T* __restrict__ res,
-       T* __restrict__ cb, T* __restrict__ partials, const Dims a) {
-  using A = Arith<T>;
-  constexpr int NPH = phases_of(true);
-  constexpr int SP = last_phase(true, INTERP);
-  constexpr int SE = epi_stage(true, INTERP, EPI);
-  constexpr int H = halo(true, INTERP, EPI);
-  constexpr int WQ = q_slots(INTERP, EPI);
-  constexpr int TY = kTileRows, TZ = kRW - 2 * H, RY = TY + 2 * H;
-  constexpr int PL = RY * kRW;              // one plane of the region
-  constexpr int RW = TZ + 1, RPL = (TY + 1) * RW;  // residual window plane
-  constexpr int NW = kWarps27, NT = 32 * NW;
-  constexpr int NL = (PL + NT - 1) / NT;    // loads a thread
-  // rows a warp takes in a stage (a phase: rows of one parity), not
-  // unrolled: it would spill the 64-register budget
-  constexpr int MR = (RY + NW - 1) / NW, MR2 = (RY / 2 + NW - 1) / NW;
-
-  const int nx = a.nx, ny = a.ny, nz = a.nz;
-  const long long sy = nz, sx = (long long)ny * nz, N = sx * nx;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* sq = reinterpret_cast<T*>(smem);      // WQ planes of q
-  T* spre = sq + WQ * PL;                  // q_pre planes (K16)
-  T* sres = spre + (INTERP ? kPreSlots * PL : 0);  // residual planes (K15)
-  // the window slot of plane x (x >= -8)
-  auto slot = [&](int x) { return sq + ((x + 8 * WQ) % WQ) * PL; };
-  auto pslot = [&](int x) { return spre + ((x + 8 * kPreSlots) % kPreSlots) * PL; };
-  auto rslot = [&](int x) { return sres + ((x + 8 * kResSlots) % kResSlots) * RPL; };
-
-  const int zt = blockIdx.x * TZ, yt = blockIdx.y * TY, xt = blockIdx.z * a.cx;
-  const int z0 = zt - H, y0 = yt - H;  // the region's origin
-  const int xe = min(xt + a.cx, nx);   // own planes [xt, xe)
-  const int lane = threadIdx.x, warp = threadIdx.y;
-  const int tid = warp * 32 + lane;
-  // stage s runs at plane x where x lies at depth >= s in the chunk
-  auto valid = [&](int x, int s) {
-    return x >= max(xt - H + s, 0) && x < min(xt + a.cx + H - s, nx);
-  };
-  // b - A q at (x, y, z), held at offset o of the window planes (lo, mid,
-  // hi) of q
-  auto residual_at = [&](const T* qm, const T* q0, const T* qp, int o, int x,
-                         int y, int z) -> T {
-    const long long i = x * sx + y * sy + z;
-    const T* s0 = so + i;
-    return A::sub(
-        A::add(b[i], offdiag_at<T, true>(s0, s0 + sx, N, sy, x > 0,
-                                         x + 1 < nx, y > 0, y + 1 < ny,
-                                         z > 0, z + 1 < nz, qm + o, q0 + o,
-                                         qp + o, kRW)),
-        A::mul(s0[0], q0[o]));
-  };
-
-  // plane x of the input into registers, zero off the grid (never read:
-  // their couplings are zero); thread tid takes column tid % 64 of rows
-  // tid / 64 + 8k
-  T vq[NL];
-  auto prefetch = [&](int x) {
-#pragma unroll
-    for (int k = 0; k < NL; ++k) {
-      const int e = tid + k * NT, r = e / kRW, c = e % kRW;
-      const int y = y0 + r, z = z0 + c;
-      const bool in = e < PL && y >= 0 && y < ny && z >= 0 && z < nz;
-      const long long i = x * sx + y * sy + z;
-      vq[k] = in ? q_in[i] : T(0);
-    }
-  };
-  auto commit = [&](int x) {
-    T* dq = INTERP ? pslot(x) : slot(x);
-#pragma unroll
-    for (int k = 0; k < NL; ++k) {
-      const int e = tid + k * NT;
-      if (e >= PL) break;
-      dq[e] = vq[k];
-    }
-  };
-
-  const CI3<T> ci = make_ci(ci_p, a.nxc, a.nyc, a.nzc);
-  T acc = T(0);
-  const int p0 = max(xt - H, 0), load_end = min(xt + a.cx + H, nx);
-  prefetch(p0);
-  commit(p0);
-  __syncthreads();
-  // 27-point couplings reach diagonally into the next plane, so each stage
-  // ends with a barrier.  The barrier at the end of a step lets the
-  // prefetched plane overwrite the oldest slots.
-  for (int p = p0; p < xe + H; ++p) {
-    const bool more = p + 1 < load_end;
-    if (more) prefetch(p + 1);
-
-    if (INTERP) {
-      // stage 1: K8's expression, q_pre + (res/diag (off the coincident
-      // points) + P qc), with res = b - A q_pre from the q_pre window
-      const int x = p - 1;
-      if (valid(x, 1)) {
-        T* dst = slot(x);
-        const T *pm = pslot(x - 1), *p0w = pslot(x), *pp = pslot(x + 1);
-#pragma unroll 1
-        for (int m = 0; m < MR; ++m) {
-          const int r = warp + NW * m;
-          const int y = y0 + r;
-          if (r < 1 || r >= RY - 1 || y < 0 || y >= ny) continue;
-          // a lane's two columns in turn, so that the points of a warp
-          // share a parity class (one branch of interp_with)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = 2 * lane + j, z = z0 + c;
-            if (c < 1 || c >= kRW - 1 || z < 0 || z >= nz) continue;
-            const int o = r * kRW + c;
-            dst[o] = A::add(
-                p0w[o], interp_with(ci, qc, x, y, z, a.nxc, a.nyc, a.nzc, [&] {
-                  return A::div(residual_at(pm, p0w, pp, o, x, y, z),
-                                so[x * sx + y * sy + z]);
-                }));
-          }
-        }
-      }
-      __syncthreads();
-    }
-
-    // the colour phase: q = (b + Σ coupling·q_nb) * (1/P) at the colour's
-    // points, gx % 2 == color & 1, gy % 2 == color >> 1 & 1, gz % 2 ==
-    // color >> 2 & 1 (colours anchor at (x + ox, y + oy, z + oz)), on the
-    // planes and rows of the colour's parities only
-#pragma unroll
-    for (int k = 0; k < NPH; ++k) {
-      const int s = INTERP + 1 + k, x = p - s;
-      const int color = (a.colors >> (4 * k)) & 15;
-      if (valid(x, s) && ((x + a.ox - color) & 1) == 0) {
-        const int r0 = s + ((((color >> 1) & 1) - y0 - a.oy - s) & 1);
-        T* qx = slot(x);
-        const T *qm = slot(x - 1), *qp = slot(x + 1);
-#pragma unroll 1
-        for (int m = 0; m < MR2; ++m) {
-          const int r = r0 + 2 * (warp + NW * m);
-          const int y = y0 + r;
-          if (r < s || r >= RY - s || y < 0 || y >= ny) continue;
-          const int c = 2 * lane + ((((color >> 2) & 1) - z0 - a.oz) & 1);
-          const int z = z0 + c;
-          if (c < s || c >= kRW - s || z < 0 || z >= nz) continue;
-          const long long i = x * sx + y * sy + z;
-          const int o = r * kRW + c;
-          const T* s0 = so + i;
-          qx[o] = A::mul(
-              A::add(b[i], offdiag_at<T, true>(s0, s0 + sx, N, sy, x > 0,
-                                               x + 1 < nx, y > 0, y + 1 < ny,
-                                               z > 0, z + 1 < nz, qm + o,
-                                               qx + o, qp + o, kRW)),
-              A::div(T(1), s0[0]));
-        }
-      }
-      __syncthreads();
-    }
-
-    {
-      // plane p - SP is final: its own tile to q_out
-      const int x = p - SP;
-      if (x >= xt && x < xe) {
-        const T* src = slot(x);
-#pragma unroll 1
-        for (int m = 0; m < MR; ++m) {
-          const int r = warp + NW * m;
-          const int y = y0 + r;
-          if (r < H || r >= H + TY || y >= ny) continue;
-          T* dst = q_out + x * sx + y * sy;
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = 2 * lane + j, z = z0 + c;
-            if (c >= H && c < H + TZ && z < nz) dst[z] = src[r * kRW + c];
-          }
-        }
-      }
-    }
-
-    if (EPI == kRes || EPI == kNorm) {
-      // the residual of the block's own points of plane p - SE
-      const int x = p - SE;
-      if (x >= xt && x < xe) {
-        const T *qm = slot(x - 1), *q0 = slot(x), *qp = slot(x + 1);
-#pragma unroll 1
-        for (int m = 0; m < MR; ++m) {
-          const int r = warp + NW * m;
-          const int y = y0 + r;
-          if (r < H || r >= H + TY || y >= ny) continue;
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = 2 * lane + j, z = z0 + c;
-            if (c < H || c >= H + TZ || z >= nz) continue;
-            const T rv = residual_at(qm, q0, qp, r * kRW + c, x, y, z);
-            if (EPI == kRes)
-              res[x * sx + y * sy + z] = rv;
-            else
-              acc = A::add(acc, A::mul(rv, rv));
-          }
-        }
-      }
-    }
-
-    if (EPI == kRestrict) {
-      // the residual of plane p - SE over the tile and its low ring (zero
-      // off the grid) into the residual window, and to res on request
-      const int x = p - SE;
-      if (x >= max(xt - 1, 0) && x < xe) {
-        const T *qm = slot(x - 1), *q0 = slot(x), *qp = slot(x + 1);
-        T* dst = rslot(x);
-#pragma unroll 1
-        for (int m = 0; m < MR; ++m) {
-          const int r = warp + NW * m;
-          if (r < H - 1 || r >= H + TY) continue;
-          const int y = y0 + r;
-          const bool own = a.emit_res && x >= xt && r >= H;
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            const int c = 2 * lane + j, z = z0 + c;
-            if (c < H - 1 || c >= H + TZ) continue;
-            T rv = T(0);
-            if (y >= 0 && y < ny && z >= 0 && z < nz) {
-              rv = residual_at(qm, q0, qp, r * kRW + c, x, y, z);
-              if (own && c >= H) res[x * sx + y * sy + z] = rv;
-            }
-            dst[(r - H + 1) * RW + (c - H + 1)] = rv;
-          }
-        }
-      }
-    }
-
-    __syncthreads();
-    if (EPI == kRestrict) {
-      // cb at the coarse points of plane p - SE - 1 that the block owns
-      // (an even plane of the chunk)
-      const int x = p - SE - 1;
-      if (x >= xt && x < xe && (x & 1) == 0) {
-        const int xc = x >> 1;
-        for (int e = tid; e < (TY / 2) * (TZ / 2); e += NT) {
-          const int yc = yt / 2 + e / (TZ / 2), zc = zt / 2 + e % (TZ / 2);
-          if (yc >= a.nyc || zc >= a.nzc) continue;
-          auto fine = [&](int ox, int oy, int oz) -> T {
-            const int fx = x + ox, fy = 2 * yc + oy, fz = 2 * zc + oz;
-            return (fx >= 0 && fx < nx && fy >= 0 && fy < ny && fz >= 0 &&
-                    fz < nz)
-                       ? rslot(fx)[(fy - yt + 1) * RW + (fz - zt + 1)]
-                       : T(0);
-          };
-          cb[((long long)xc * a.nyc + yc) * a.nzc + zc] =
-              restrict_value(ci, fine, xc, yc, zc);
-        }
-      }
-    }
-    if (more) commit(p + 1);
-    __syncthreads();
-  }
-
-  if (EPI == kNorm) {
-    const T tot = block_sum<NW>(acc);
-    if (tid == 0)
-      partials[((long long)blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x +
-               blockIdx.x] = tot;
-  }
-}
-
-
 // The plan of a K15 or K16 launch (ops/cuda_fused3.py `plan`): tile rows,
 // x chunk, grid and shared-memory bytes.
 struct KPlan {
   int ty, cx, gz, gy, gc;
   long long smem;
 };
-
-// A `fused3` launch on its own plan; the 27-point K15 and K16 pass the
-// wrapper's (want), which must be that plan.
-template <typename T, bool INTERP, int EPI>
-int launch(const Args& a, const KPlan* want, cudaStream_t st) {
-  const Plan pl = plan(INTERP, EPI, a.nx, a.ny, a.nz, sizeof(T));
-  if (want && (want->ty != kTileRows || want->cx != pl.cx ||
-               want->gz != (int)pl.grid.x || want->gy != (int)pl.grid.y ||
-               want->gc != (int)pl.grid.z ||
-               want->smem != (long long)pl.smem))
-    return (int)cudaErrorInvalidValue;
-  const Dims d{a.nx, a.ny, a.nz, a.nxc, a.nyc, a.nzc, pl.cx, a.colors,
-               a.ox, a.oy, a.oz, a.emit_res};
-  auto fn = fused3<T, INTERP, EPI>;
-  // above 48 KB with block_sum's static array included
-  if (pl.smem + 1024 > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  fn<<<pl.grid, dim3(32, kWarps27), pl.smem, st>>>(
-      (const T*)a.so, (const T*)a.q_in, (const T*)a.b, (const T*)a.ci,
-      (const T*)a.qc, (T*)a.q_out, (T*)a.res, (T*)a.cb, (T*)a.partials, d);
-  return (int)cudaGetLastError();
-}
-
-// The 27-point K14 on the window design with epilogue `mode`: one colour,
-// the last of a sweep whose residual or norm is asked for (`pass27` runs
-// the others).
-template <typename T>
-int launch_sweep(const Args& a, int mode, cudaStream_t st) {
-  switch (mode) {
-    case kRes: return launch<T, false, kRes>(a, nullptr, st);
-    case kNorm: return launch<T, false, kNorm>(a, nullptr, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
 
 // ---------------------------------------------------------------------------
 // 7-point K15 and K16: the ring design (see the header note).
@@ -565,9 +180,9 @@ struct Ring {
   static constexpr bool K14 = !INTERP && EPI != kRestrict;
   static constexpr int AH = kAhead;
   static constexpr int MINB = K14 ? kMinBlocks14 : 1;
-  static constexpr int SP = last_phase(false, INTERP);
-  static constexpr int SE = epi_stage(false, INTERP, EPI);
-  static constexpr int H = halo(false, INTERP, EPI);
+  static constexpr int SP = last_phase(INTERP);
+  static constexpr int SE = epi_stage(INTERP, EPI);
+  static constexpr int H = halo(INTERP, EPI);
   static constexpr int RY = TY + 2 * H, TZ = kRW - 2 * H, PL = RY * kRW;
   // slots with AH planes in flight: q (K14, K15: loaded, stage s reading
   // back to plane p - SE - 1; K16: the interpolated q, written), K16's
@@ -1311,22 +926,13 @@ int pass27_planned(bool go, const Args& a, const KPlan& p, cudaStream_t st) {
 }
 
 // K15 (interp false, mode kRestrict), K16 (interp true, mode kNone /
-// kRes / kNorm, 27-point kNone only) or the 7-point K14 (interp false, mode
-// kNone / kRes / kNorm) launched on plan p (go true); or the shared-memory
-// bytes of the kernel with p's tile rows (-1: none such).  7-point: the
-// ring design; 27-point: the window design.
+// kRes / kNorm) or the 7-point K14 (interp false, mode kNone / kRes /
+// kNorm), 7-point all of them (the ring design), launched on plan p (go
+// true); or the shared-memory bytes of the kernel with p's tile rows (-1:
+// none such).
 template <typename T>
-int planned(bool go, const Args& a, int ts, int interp, int mode,
-            const KPlan& p, cudaStream_t st) {
-  const int bad = go ? (int)cudaErrorInvalidValue : -1;
-  if (ts) {
-    if (interp ? mode != kNone : mode != kRestrict) return bad;
-    if (!go)
-      return p.ty == kTileRows ? (int)(smem_words(interp, mode) * sizeof(T))
-                               : -1;
-    return interp ? launch<T, true, kNone>(a, &p, st)
-                  : launch<T, false, kRestrict>(a, &p, st);
-  }
+int planned(bool go, const Args& a, int interp, int mode, const KPlan& p,
+            cudaStream_t st) {
   switch (mode) {
     case kNone:
       return interp ? ring_rows<T, true, kNone>(go, a, p, st)
@@ -1338,16 +944,15 @@ int planned(bool go, const Args& a, int ts, int interp, int mode,
       return interp ? ring_rows<T, true, kNorm>(go, a, p, st)
                     : ring_rows<T, false, kNorm>(go, a, p, st);
     case kRestrict:
-      return interp ? bad : ring_rows<T, false, kRestrict>(go, a, p, st);
+      if (!interp) return ring_rows<T, false, kRestrict>(go, a, p, st);
   }
-  return bad;
+  return go ? (int)cudaErrorInvalidValue : -1;
 }
 
-int planned_dtype(int dtype, bool go, const Args& a, int ts, int interp,
-                  int mode, const KPlan& p, cudaStream_t st) {
-  if (dtype == kFloat32) return planned<float>(go, a, ts, interp, mode, p, st);
-  if (dtype == kFloat64)
-    return planned<double>(go, a, ts, interp, mode, p, st);
+int planned_dtype(int dtype, bool go, const Args& a, int interp, int mode,
+                  const KPlan& p, cudaStream_t st) {
+  if (dtype == kFloat32) return planned<float>(go, a, interp, mode, p, st);
+  if (dtype == kFloat64) return planned<double>(go, a, interp, mode, p, st);
   return go ? (int)cudaErrorInvalidValue : -1;
 }
 
@@ -1372,13 +977,6 @@ int cedar_fused3_pass27_smem(int dtype, int ty) {
   return -1;
 }
 
-// The number of norm partials (of blocks) of a one-colour 27-point K14 of
-// the window design with the norm epilogue on an (nx, ny, nz) grid.
-int cedar_fused3_partials(int nx, int ny, int nz) {
-  const cedar::Plan pl = cedar::plan(false, cedar::kNorm, nx, ny, nz, 4);
-  return (int)(pl.grid.x * pl.grid.y * pl.grid.z);
-}
-
 // The blocks an SM that the 7-point K14's registers are capped for, and its
 // tile rows in dtype (ops/cuda_fused3.py `plan` reads them).
 int cedar_fused3_ring14_blocks() { return cedar::kMinBlocks14; }
@@ -1387,35 +985,20 @@ int cedar_fused3_ring14_rows(int dtype) {
                                   : cedar::kRingRows14[0];
 }
 
-// The shared-memory bytes of the K15 (interp 0, mode 3), K16 (interp 1,
-// mode 0-2) or 7-point K14 (ts 0, interp 0, mode 0-2) kernel with tiles of
-// ty rows, or -1 if none is built: what ops/cuda_fused3.py `plan` computes.
-int cedar_fused3_smem(int dtype, int ts, int interp, int mode, int ty) {
+// The shared-memory bytes of the 7-point K15 (interp 0, mode 3), K16
+// (interp 1, mode 0-2) or K14 (interp 0, mode 0-2) kernel with tiles of ty
+// rows, or -1 if none is built: what ops/cuda_fused3.py `plan` computes.
+int cedar_fused3_smem(int dtype, int interp, int mode, int ty) {
   const cedar::Args a{};
   const cedar::KPlan p{ty, 0, 0, 0, 0, 0};
-  return cedar::planned_dtype(dtype, false, a, ts, interp, mode, p, nullptr);
-}
-
-// The 27-point K14 on the window design: q_out = one colour of q_in (code
-// in colors), then mode 1 res = b - A q_out or 2 partials[block] = Σ res²
-// over the block.  Returns a CUDA error code (0 on success).
-int cedar_sweep3_fused(int dtype, const void* so, const void* q_in,
-                       const void* b, void* q_out, void* res, void* partials,
-                       int nx, int ny, int nz, int colors, int ox, int oy,
-                       int oz, int mode, void* stream) {
-  const cedar::Args a{so, q_in, b, nullptr, nullptr, q_out, res, nullptr,
-                      partials, nx, ny, nz, 0, 0, 0, colors, ox, oy, oz, 0};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == cedar::kFloat32) return cedar::launch_sweep<float>(a, mode, st);
-  if (dtype == cedar::kFloat64) return cedar::launch_sweep<double>(a, mode, st);
-  return (int)cudaErrorInvalidValue;
+  return cedar::planned_dtype(dtype, false, a, interp, mode, p, nullptr);
 }
 
 // The 7-point K14 on the ring design: q_out = one whole sweep of q_in
-// (colour codes packed as above), then mode 0 nothing more, 1 res = b -
-// A q_out, 2 partials[block] = Σ res² over the block; on the plan (ty, cx,
-// gz, gy, gc, smem) of ops/cuda_fused3.py `plan`.  Returns a CUDA error
-// code.
+// (colour codes packed 4 bits each in order), then mode 0 nothing more, 1
+// res = b - A q_out, 2 partials[block] = Σ res² over the block; on the plan
+// (ty, cx, gz, gy, gc, smem) of ops/cuda_fused3.py `plan`.  Returns a CUDA
+// error code.
 int cedar_sweep3_ring(int dtype, const void* so, const void* q_in,
                       const void* b, void* q_out, void* res, void* partials,
                       int nx, int ny, int nz, int colors, int ox, int oy,
@@ -1425,7 +1008,7 @@ int cedar_sweep3_ring(int dtype, const void* so, const void* q_in,
                       partials, nx, ny, nz, 0, 0, 0, colors, ox, oy, oz, 0};
   const cedar::KPlan p{ty, cx, gz, gy, gc, smem};
   if (mode == cedar::kRestrict) return (int)cudaErrorInvalidValue;
-  return cedar::planned_dtype(dtype, true, a, 0, 0, mode, p,
+  return cedar::planned_dtype(dtype, true, a, 0, mode, p,
                               (cudaStream_t)stream);
 }
 
@@ -1448,35 +1031,35 @@ int cedar_pass27(int dtype, const void* so, const void* q_in, const void* b,
   return (int)cudaErrorInvalidValue;
 }
 
-// K15: q_out = one pass of q_in, res = b - A q_out (written when
-// emit_res), cb (nxc, nyc, nzc) = Pᵀ res, on the plan (ty, cx, gz, gy,
-// gc, smem) of ops/cuda_fused3.py.  Returns a CUDA error code.
+// The 7-point K15: q_out = one sweep of q_in (colour codes as above), res
+// = b - A q_out (written when emit_res), cb (nxc, nyc, nzc) = Pᵀ res, on
+// the plan (ty, cx, gz, gy, gc, smem) of ops/cuda_fused3.py.  Returns a
+// CUDA error code.
 int cedar_sweep_restrict3(int dtype, const void* so, const void* q_in,
                           const void* b, const void* ci, void* q_out,
                           void* res, void* cb, int nx, int ny, int nz,
-                          int nxc, int nyc, int nzc, int ts, int colors,
+                          int nxc, int nyc, int nzc, int colors,
                           int emit_res, int ty, int cx, int gz, int gy,
                           int gc, long long smem, void* stream) {
   const cedar::Args a{so, q_in, b, ci, nullptr, q_out, res, cb, nullptr,
                       nx, ny, nz, nxc, nyc, nzc, colors, 0, 0, 0, emit_res};
   const cedar::KPlan p{ty, cx, gz, gy, gc, smem};
-  return cedar::planned_dtype(dtype, true, a, ts, 0, cedar::kRestrict, p,
+  return cedar::planned_dtype(dtype, true, a, 0, cedar::kRestrict, p,
                               (cudaStream_t)stream);
 }
 
-// K16: q_out = one pass of q_pre + (b - A q_pre) / diag + P qc; mode as
-// K14 (0 only for 27-point, whose second pass is a K14); plan as K15.
-// Returns a CUDA error code.
+// The 7-point K16: q_out = one sweep of q_pre + (b - A q_pre) / diag + P
+// qc; mode as K14; plan as K15.  Returns a CUDA error code.
 int cedar_interp_sweep3(int dtype, const void* ci, const void* qc,
                         const void* so, const void* b, const void* q_pre,
                         void* q_out, void* res, void* partials, int nx,
-                        int ny, int nz, int nxc, int nyc, int nzc, int ts,
+                        int ny, int nz, int nxc, int nyc, int nzc,
                         int colors, int mode, int ty, int cx, int gz, int gy,
                         int gc, long long smem, void* stream) {
   const cedar::Args a{so, q_pre, b, ci, qc, q_out, res, nullptr, partials,
                       nx, ny, nz, nxc, nyc, nzc, colors, 0, 0, 0, 0};
   const cedar::KPlan p{ty, cx, gz, gy, gc, smem};
-  return cedar::planned_dtype(dtype, true, a, ts, 1, mode, p,
+  return cedar::planned_dtype(dtype, true, a, 1, mode, p,
                               (cudaStream_t)stream);
 }
 

@@ -1,9 +1,10 @@
-// 3D stencil device code shared by K6 (sweep3.cu) and K14-K16 (fused3.cu),
-// so that the kernels round alike: the off-diagonal sum of the sweep and
-// the residual, in the term order of ops/stencil3.py (`offsets_for`,
-// `offdiag_apply`) of this package.  `offdiag_terms` holds the order;
-// `offdiag_at` reads plain strided memory (K6, K14), K15/K16 read their
-// colour-compact shared-memory rings through their own term.
+// 3D stencil device code shared by K6 (sweep3.cu), K14-K16 (fused3.cu) and
+// the edge kernel (edge3.cu), so that the kernels round alike: the
+// off-diagonal sum of the sweep and the residual, in the term order of
+// ops/stencil3.py (`offsets_for`, `offdiag_apply`) of this package.
+// `offdiag_terms` holds the order; `offdiag_at` reads plain strided memory
+// (K6), the marching kernels read their shared-memory rings through their
+// own term.
 //
 // The stencil `so` is (ndir, nx, ny, nz), row-major with z contiguous;
 // plane P = 0 is the diagonal.  Up-shifted couplings read the neighbour's
@@ -73,8 +74,8 @@ __device__ __forceinline__ T offdiag_terms(const Term& term) {
 // read through s0 and sp, the point's position in its own x plane and in
 // the x+1 plane, with the stride N between stencil planes and the row (y)
 // stride ss; q through qm, q0 and qp, the point's position in the planes
-// x-1, x and x+1, with the row stride qs; z is contiguous.  Either may be
-// the grid itself (K6) or planes of a shared-memory window (K14).  xl ..
+// x-1, x and x+1, with the row stride qs; z is contiguous (K6 reads the
+// grid itself).  xl ..
 // zh say whether the low / high neighbour along each axis lies on the
 // grid.
 template <typename T, bool TS>

@@ -1,9 +1,10 @@
 // 3D BoxMG transfer device code shared by K7-K9 (transfer3.cu) and the
-// fused kernels K15/K16 (fused3.cu), so that a fused kernel rounds as the
-// separate transfers do: the CI weight access, the restriction of one
-// coarse point and the interpolated value of one fine point.  The weights
-// and coarse values come through accessors (CI3, QC3 on the grid; K15/K16
-// pass their own over shared-memory rings), so the term order is written
+// fused kernels K15/K16 (fused3.cu, edge3.cu), so that a fused kernel
+// rounds as the separate transfers do: the CI weight access, the
+// restriction of one coarse point and the interpolated value of one fine
+// point.  The weights and coarse values come through accessors (CI3, QC3
+// on the grid; the 7-point K15 passes its own over shared-memory rings),
+// so the term order is written
 // once.  The term
 // orders are those of ops/interp3.py (`restrict_torch`, the PW3_TABLE
 // order, and `_interp_parts`) of this package (reference:

@@ -12,10 +12,16 @@ from the shapes, in the regime measured fastest there (PERF.md §6):
 * ``ring``, ``pass27``: a large level runs on K14's launches
   (:func:`cedar_tpu_torch.ops.cuda_fused3.launch_sweep`: the 7-point ring
   march with its residual epilogue; the 27-point float32 marches, two
-  colours a launch, then the residual kernel), which compute the same
+  colours a launch, then the residual launch), which compute the same
   function;
 * ``phases``: every other level, one launch a colour phase (the first
   writes every point of the new iterate) and one for the residual.
+
+The residual launch after K14's 27-point marches is the edge kernel's
+(:func:`cedar_tpu_torch.ops.cuda_fused3.launch_edge`, mode res); after the
+per-colour launches, 7- or 27-point, the residual kernel of
+``csrc/sweep3.cu`` (:data:`EDGE_RESIDUAL`).  :func:`launch` runs a sweep
+on checked operands: the 27-point K14, K15 and K16 sweep through it.
 
 :func:`sweep_plain` computes it in torch ops
 (:func:`cedar_tpu_torch.ops.relax3.sweep3_torch`).
@@ -24,8 +30,9 @@ from the shapes, in the regime measured fastest there (PERF.md §6):
 Both return the swept iterate in a new tensor and leave ``q`` as it was,
 as the JAX function does.  ``resident_launches`` counts the resident
 launches made by :func:`sweep`, ``launches`` its per-colour and residual
-launches (its K14 launches count in ``cuda_fused3.sweep_launches``),
-``plain_calls`` calls of :func:`sweep_plain`.
+launches (its K14 launches count in ``cuda_fused3.sweep_launches``, the
+edge kernel's in ``cuda_fused3.edge_launches``), ``plain_calls`` calls of
+:func:`sweep_plain`.
 """
 
 from __future__ import annotations
@@ -52,6 +59,10 @@ THREADS = 512
 #: (PERF.md §6)
 RING_POINTS = 200 ** 3
 PASS27_POINTS = 96 ** 3
+#: the regimes whose 27-point residual launch is the edge kernel's
+#: (csrc/edge3.cu); the others' is csrc/sweep3.cu ``residual``: each the
+#: faster where it runs on the card (PERF.md §6)
+EDGE_RESIDUAL = ("pass27",)
 
 
 def octant_words(shape) -> int:
@@ -98,19 +109,35 @@ def plan(itemsize: int, ts: bool, shape,
     return Plan("phases")
 
 
+def launch_list(p: Plan, kind: StencilKind, updown: str,
+                fuse_residual: bool, stages: int | None = None):
+    """The kernel launches of a sweep on plan ``p`` in order, each
+    ``(kernel, what)`` by the name of the count it adds to (chip_smoke.py's
+    kernel table): one resident ("sweep3_resident") or ring
+    ("sweep3_fused"), whose epilogue computes the residual; a launch a
+    colour phase ("sweep3"), or a 27-point march a launch ("sweep3_fused",
+    ``stages`` colours, default the built ones), and one more for the
+    residual (the edge kernel "edge27" in the regimes of
+    :data:`EDGE_RESIDUAL`, 27-point, else "sweep3")."""
+    if p.route == "resident":
+        return (("sweep3_resident", "sweep"),)
+    if p.route == "ring":
+        return (("sweep3_fused", "ring"),)
+    ts = kind == StencilKind.twenty_seven_pt
+    if p.route == "pass27":
+        body = tuple(("sweep3_fused", g) for _, g in cuda_fused3.passes(
+            stages or cuda_fused3.PASS27_STAGES, kind, updown))
+    else:
+        body = tuple(("sweep3", c) for c in relax3.color_order(kind, updown))
+    res = "edge27" if ts and p.route in EDGE_RESIDUAL else "sweep3"
+    return body + (((res, "residual"),) if fuse_residual else ())
+
+
 def launches_of(p: Plan, kind: StencilKind, fuse_residual: bool,
                 stages: int | None = None) -> int:
-    """The kernel launches of a sweep on plan ``p``: one resident or ring
-    (its epilogue computes the residual); a launch a colour phase, or a
-    27-point march a launch (``stages`` colours, default the built ones),
-    and one more for the residual."""
-    if p.route in ("resident", "ring"):
-        return 1
-    ncolors = 8 if kind == StencilKind.twenty_seven_pt else 2
-    if p.route == "pass27":
-        ncolors = len(cuda_fused3.passes(
-            stages or cuda_fused3.PASS27_STAGES, kind, "down", "sweep"))
-    return ncolors + fuse_residual
+    """The number of kernel launches of a sweep on plan ``p``
+    (:func:`launch_list`)."""
+    return len(launch_list(p, kind, "down", fuse_residual, stages))
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,9 +157,20 @@ def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
     ``fuse_residual``; ``q`` is left as it was."""
     relax3.check_sweep(so, q, b, kind)
     dt = cuda_build.check_operands(so, q, b)
+    return launch(dt, so, q, b, kind, updown, fuse_residual, origin)
+
+
+def launch(dt: int, so, q, b, kind: StencilKind, updown: str,
+           fuse_residual: bool = False, origin=(0, 0, 0), lib14=None):
+    """The launches of :func:`sweep` on operands already checked
+    (:func:`relax3.check_sweep`, :func:`cuda_build.check_operands`, whose
+    dtype code is ``dt``), K14's with the build ``lib14`` of
+    csrc/fused3.cu (None: the default one): the entry of the 27-point K14,
+    K15 and K16 (:mod:`cuda_fused3`)."""
     p = plan(q.element_size(), kind == StencilKind.twenty_seven_pt,
              tuple(q.shape), _build_of(cuda_build.load("sweep3")))
-    return _launch(p, dt, so, q, b, kind, updown, fuse_residual, origin)
+    return _launch(p, dt, so, q, b, kind, updown, fuse_residual, origin,
+                   lib14)
 
 
 def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
@@ -145,9 +183,9 @@ def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
 
 
 def _launch(p: Plan, dt: int, so, q, b, kind, updown, fuse_residual,
-            origin):
+            origin, lib14=None):
     """The launches of a sweep on plan ``p`` (operands checked, dtype code
-    ``dt``)."""
+    ``dt``), in the order of :func:`launch_list`."""
     if p.route == "resident":
         return _resident(p, dt, so, q, b, kind, updown, fuse_residual,
                          origin)
@@ -155,16 +193,19 @@ def _launch(p: Plan, dt: int, so, q, b, kind, updown, fuse_residual,
         q_out = _phases(dt, so, q, b, kind, updown, origin)
     else:
         # K14: the ring's epilogue computes the residual; after the marches
-        # the residual kernel is the faster (PERF.md §6)
+        # a launch of its own is the faster (PERF.md §6)
         epilogue = p.route == "ring"
         out = cuda_fused3.launch_sweep(dt, so, q, b, kind, updown,
-                                       fuse_residual and epilogue, origin)
+                                       fuse_residual and epilogue, origin,
+                                       lib=lib14)
         if epilogue:
             return out
         q_out = out
     if not fuse_residual:
         return q_out
-    return q_out, _residual(dt, so, q_out, b, kind)
+    edge = (kind == StencilKind.twenty_seven_pt
+            and p.route in EDGE_RESIDUAL)
+    return q_out, _residual(dt, so, q_out, b, kind, edge)
 
 
 def _resident(p: Plan, dt: int, so, q, b, kind, updown, fuse_residual,
@@ -208,9 +249,13 @@ def _phases(dt: int, so, q, b, kind, updown, origin):
     return q_out
 
 
-def _residual(dt: int, so, q, b, kind):
-    """``b - A q`` by the residual kernel."""
+def _residual(dt: int, so, q, b, kind, edge: bool = False):
+    """``b - A q`` by the residual kernel, or (``edge``, 27-point) by the
+    edge kernel."""
     global launches
+    if edge:
+        return cuda_fused3.launch_edge(dt, cuda_fused3.EDGE_MODES["res"], so,
+                                       q, b)
     res = torch.empty_like(q)
     cuda_build.check(
         cuda_build.load("sweep3").cedar_residual3(

@@ -91,24 +91,29 @@ SIGNATURES = {
     "fused3": {
         "cedar_fused3_pass27_stages": [],
         "cedar_fused3_pass27_smem": [_I, _I],
-        "cedar_fused3_partials": [_I, _I, _I],
         "cedar_fused3_ring14_blocks": [],
         "cedar_fused3_ring14_rows": [_I],
-        "cedar_fused3_smem": [_I, _I, _I, _I, _I],
-        "cedar_sweep3_fused": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                               _I, _I, _I, _I, _P],
-        # the 7- and 27-point K14, K15 and K16 end with their plan: ty, cx,
-        # gz, gy, gc, smem
+        "cedar_fused3_smem": [_I, _I, _I, _I],
+        # the 7-point K14, K15 and K16 and the 27-point K14 end with their
+        # plan: ty, cx, gz, gy, gc, smem
         "cedar_sweep3_ring": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
         "cedar_pass27": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _I, _I, _I, _I, _I, _L, _P],
         "cedar_sweep_restrict3": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _I,
+                                  _I, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _I, _I, _L, _P],
         "cedar_interp_sweep3": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                                _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _I, _I, _I, _I,
                                 _I, _I, _I, _I, _I, _L, _P],
+    },
+    "edge3": {
+        "cedar_edge3_threads": [],
+        "cedar_edge3_cols": [_I],
+        "cedar_edge3_smem": [_I, _I, _I],
+        # ends with its plan: ty, cx, gz, gy, gc, smem
+        "cedar_edge3": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                        _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
     },
 }
 

@@ -16,10 +16,12 @@ run the hand-written CUDA kernels, on the CPU their plain torch versions.
   as a Python loop that reads the convergence norm back once per cycle;
   ``history`` holds the reference's per-iteration "relative l2 norm" lines.
 
-``kernels.fine-split`` (default: true on the card, false on the CPU, as
-cedar_tpu turns it on wherever its Pallas kernels run) selects the fused
-fine-level V-cycle (:func:`cycle3.ncycle_split`, kernels K14-K16 on the
-card) on the top ``kernels.split-levels`` levels (default 4).
+``kernels.fine-split`` (default false on both devices: on the H100 the
+fused cycle measured slower than the dense one, and both give the same
+values bit for bit) selects the fused fine-level V-cycle
+(:func:`cycle3.ncycle_split`, kernels K14-K16 and the 27-point edge
+kernel on the card) on the top ``kernels.split-levels`` levels (default
+4).
 """
 
 from __future__ import annotations
@@ -145,9 +147,8 @@ class Solver3:
     Raises ``NotImplementedError`` for configurations outside the 3D point
     or plane relaxation V- or F-cycle with a direct coarse solve (plane
     relaxation: embedded line-xy V-cycles with a direct coarse solve).
-    With point relaxation and ``kernels.fine-split`` (the card's default)
-    the V-cycle, and the F-cycle's inner V-cycles, run the fused top
-    levels.
+    With point relaxation and ``kernels.fine-split: true`` the V-cycle,
+    and the F-cycle's inner V-cycles, run the fused top levels.
     """
 
     def __init__(self, so: torch.Tensor,
@@ -161,12 +162,15 @@ class Solver3:
         missing = _unsupported(conf, self.settings, so, kind)
         if missing is not None:
             raise NotImplementedError(f"cedar_tpu_torch: {missing}")
-        # the fused fine-level cycle: on by default wherever the kernels
-        # run, as cedar_tpu turns it on with its Pallas kernels
-        # (cedar_tpu/solver/solver3.py:234-236); the gates on the cycle
-        # and relaxation are cycle3.fine_split_ok's
+        # the fused fine-level cycle: off unless asked for.  cedar_tpu
+        # turns it on wherever its Pallas kernels run
+        # (cedar_tpu/solver/solver3.py:234-236); on the H100 the fused
+        # 3D cycle measured slower than the dense one in alternating pairs
+        # (3d_poisson_7pt_256 and 3d_fe_27pt_128, PERF.md §6), and
+        # the two give the same values bit for bit.  The gates on the
+        # cycle and relaxation are cycle3.fine_split_ok's
         self.settings.fine_split = bool(conf.get("kernels.fine-split",
-                                                 so.is_cuda))
+                                                 False))
         self.settings.split_levels = int(conf.get("kernels.split-levels", 4))
         log.set_enabled(conf.get("log", ["status", "error"]))
         self.kind = kind

@@ -5,11 +5,12 @@ Builds one of ten float32 configurations — ``vcycle`` (default: Poisson
 by default), ``vcycle-dense`` (the same with ``kernels.fine-split`` false:
 the dense cycle), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1)),
 ``fcycle`` (Poisson 4096², F-cycle), ``vcycle3`` (7-point Poisson 256³,
-V(1,1), fused on the top four levels by default: ``3d_poisson_7pt_256``),
-``vcycle3-dense`` (the same, dense), ``fe27`` (27-point ``gallery.fe3``
-128³, V(1,1), fused: ``3d_fe_27pt_128``), ``fe27-dense`` (the same,
-dense), ``fcycle3`` (7-point Poisson 256³, F-cycle) or ``planexy``
-(7-point ``diag_diffusion3(1, 1, 1e-3)`` 128³, plane-xy V(1,1) with the
+V(1,1), fused on the top four levels, ``kernels.fine-split`` true:
+``3d_poisson_7pt_256``), ``vcycle3-dense`` (the same, dense), ``fe27``
+(27-point ``gallery.fe3`` 128³, V(1,1), fused: ``3d_fe_27pt_128``),
+``fe27-dense`` (the same, dense), ``fcycle3`` (7-point Poisson 256³,
+F-cycle) or ``planexy`` (7-point ``diag_diffusion3(1, 1, 1e-3)`` 128³,
+plane-xy V(1,1) with the
 default plane-config: ``3d_aniso_planexy_128``) — runs a few warm-up
 cycles as the solve runs them, then traces ten cycles with
 ``torch.profiler`` and prints:
@@ -54,10 +55,12 @@ CONFIGS = {
                      {"fine-split": False}),
     "linexy": (2, 2048, gallery.fe, NinePt, {"relaxation": "line-xy"}),
     "fcycle": (2, 4096, gallery.poisson, FivePt, {"cycle": {"type": "f"}}),
-    "vcycle3": (3, 256, gallery.poisson3, SevenPt, {}),
+    "vcycle3": (3, 256, gallery.poisson3, SevenPt, {},
+                {"fine-split": True}),
     "vcycle3-dense": (3, 256, gallery.poisson3, SevenPt, {},
                       {"fine-split": False}),
-    "fe27": (3, 128, gallery.fe3, TwentySevenPt, {}),
+    "fe27": (3, 128, gallery.fe3, TwentySevenPt, {},
+             {"fine-split": True}),
     "fe27-dense": (3, 128, gallery.fe3, TwentySevenPt, {},
                    {"fine-split": False}),
     "fcycle3": (3, 256, gallery.poisson3, SevenPt, {"cycle": {"type": "f"}}),

@@ -1,59 +1,66 @@
-"""Time the 3D sweep K6 and the fused 3D kernels K14, K15 and K16 on the
-card, whole and by part.
+"""Time the 3D sweep K6, the fused 3D kernels K14, K15 and K16 and the
+27-point edge kernel on the card, whole and by part.
 
-K15 (sweep + residual + restriction, ``ops/cuda_fused3.sweep_restrict``,
-as the cycle calls it: no residual out) and K16 (interp-add + sweep,
-``interp_sweep``, without and with the norm) run at 256³ 7-point and 128³
-27-point float32, the shapes of ``3d_poisson_7pt_256`` and
-``3d_fe_27pt_128``; a 27-point K15 or K16 call is the whole pre- or
-post-sweep, its other colours by K14, and a whole 27-point K14 sweep
-(``sweep``) runs beside them.  Each is first held bit for bit against its
+The 7-point K15 (sweep + residual + restriction,
+``ops/cuda_fused3.sweep_restrict``, as the cycle calls it: no residual
+out) and K16 (interp-add + sweep, ``interp_sweep``, without and with the
+norm) run at 256³ float32, the shape of ``3d_poisson_7pt_256``, beside the
+7-point K14 (``sweep`` at 256³: the ring design with the colour stages
+only, without and with the residual and the norm), and a whole 27-point
+K14 sweep at 128³ float32.  Each is first held bit for bit against its
 plain version (the norm partials' sum to 1e-5), then timed with CUDA
-events.  The 7-point ones (the ring design) are timed for each tile-row
-option that csrc/fused3.cu builds (``--rows``; ``cuda_fused3.RING_ROWS``)
-and each probe: builds of csrc/fused3.cu with ``-DCEDAR_FUSED3_PROBE=bits``
-that skip the coarse side's copies (K15) or L2 prefetch (K16) (1), the b
-and stencil copies (2), the colour phases (4) or the barriers (8), whose
-outputs are wrong and whose times split a call among its parts.  The
-27-point ones are timed with each build of ``--stages M`` (the 27-point
-K14's colours a march, ``-DCEDAR_K14_STAGES=M``, bit-checked too) and each
-probe (8 the barriers, 16 the K14 stencil gathers, 32 its colour stages).
-The 7-point K14 (``sweep`` at 256³: the ring design with the colour
-stages only, without and with the residual and the norm) is timed with
-each build of ``--rows14 T`` (its float32 tile rows,
-``-DCEDAR_K14_ROWS=T``, bit-checked too) and each probe.  K6 (``ops/cuda3.sweep``: DOWN with the residual, UP without, as
-the dense levels run it) runs at every level shape of the 3D paths and
-on both sides of its regimes' edges (:data:`K6_LEVELS`) on its plan and
-forced onto each other regime (``cuda3.Plan``: ``phases``, and K14's
-``pass27`` or ``ring``), with
-CUDA-event times and the device time of its kernels under
-torch.profiler (the small levels are host-bound).
-``--only`` keeps the cases whose names hold one of its words (``K6``,
-``K14``, ``7pt``, ...).  It prints the card's name and power limit first.
+events.  The 7-point K15 and K16 (the ring design) are timed for each
+tile-row option that csrc/fused3.cu builds (``--rows``;
+``cuda_fused3.RING_ROWS``) and each probe: builds of csrc/fused3.cu with
+``-DCEDAR_FUSED3_PROBE=bits`` that skip the coarse side's copies (K15) or
+L2 prefetch (K16) (1), the b and stencil copies (2), the colour phases (4)
+or the barriers (8), whose outputs are wrong and whose times split a call
+among its parts.  The 27-point K14 is timed with each build of ``--stages
+M`` (its colours a march, ``-DCEDAR_K14_STAGES=M``, bit-checked too) and
+each probe (8 the barriers, 16 the K14 stencil gathers, 32 its colour
+stages); the 7-point K14 with each build of ``--rows14 T`` (its float32
+tile rows, ``-DCEDAR_K14_ROWS=T``, bit-checked too) and each probe.
+
+The 27-point K15 and K16 (K6's sweep with the edge kernel) run at 128³,
+64³, 32³ and 16³ in float32 and float64 (:data:`EDGE_LEVELS`), beside the
+dense sequences that compute the same functions (``D15``: K6 DOWN with the
+residual, then K7; ``D16``: the residual launch, K8, then K6 UP), the
+27-point K14 with the norm at 128³ float32, the edge kernel alone in each
+mode (``E27``; with each build of ``--edge-probe bits``,
+``-DCEDAR_EDGE3_PROBE``: 1 the stencil copies, 2 the residual, 4 the
+restriction or the interpolation's coarse side, 8 the barriers skipped,
+and of ``--edge-threads N``, ``-DCEDAR_EDGE3_THREADS``), and K6's 27-point
+residual launch by each kernel (``R27``: the edge kernel's mode res, the
+residual kernel of csrc/sweep3.cu), with CUDA-event times and the device
+time of their kernels under torch.profiler.  K6 (``ops/cuda3.sweep``:
+DOWN with the residual, UP without, as the dense levels run it) runs at
+every level shape of the 3D paths and on both sides of its regimes' edges
+(:data:`K6_LEVELS`) on its plan and forced onto each other regime
+(``cuda3.Plan``: ``phases``, and K14's ``pass27`` or ``ring``), timed the
+same way.  ``--only`` keeps the cases whose names hold one of its words
+(``K6``, ``K14``, ``7pt``, ``E27``, ...).  It prints the card's name and
+power limit first.
 
 Run from the repository root on a machine with a CUDA device:
 
     python3 cedar_tpu_torch/tools/tune_fused3.py [--rows 12 10] \
-        [--probe 1 2 4 8] [--stages 1 4] [--rows14 12] [--only 27pt]
+        [--probe 1 2 4 8] [--stages 1 4] [--rows14 12] [--only E27] \
+        [--edge-probe 1 2 4 8] [--edge-threads 256 1024]
 
 With ``--tree DIR`` it times the kernels of another checkout of the
-repository (for example the parent commit, unpacked with ``git archive``,
-or ``.``), so that two designs compare in one call; with ``--probe`` it
-also times copies of that checkout whose csrc/fused3.cu is edited to skip
-the same parts of the window design (:data:`PROBES`: K14 and the
-27-point K15 and K16 of a source whose K14 ran them, and in an older
-source whose `fused3` ran every K15/K16, the 7-point ones too):
-
-    python3 cedar_tpu_torch/tools/tune_fused3.py --tree DIR [--probe 1 2 4 8]
+repository (for example the parent commit, unpacked with ``git archive``)
+under the same case names, so that two designs compare in one call (an
+older checkout without the edge kernel skips its cases).
 
 ``--cycles`` times instead the V(1,1) cycles that run these kernels,
 ``3d_poisson_7pt_256`` and ``3d_fe_27pt_128``, fused and dense
 (:data:`CELLS`), as the solve runs them (the median of 25
-CUDA-event-timed cycles); with ``--tree`` those of the other checkout,
-and with ``--tree DIR --pairs N`` N pairs of processes, this checkout and
-DIR, alternating which runs first, with the median of each side's
-medians.  An older checkout's K6 (one launch a colour phase, in place)
-runs under the same case names.
+CUDA-event-timed cycles); with ``--tree`` those of the other checkout.
+``--cycles --pairs N`` runs N processes, alternating whether the fused or
+the dense cells go first, and counts the pairs in which each cell's fused
+cycle is at or below its dense one; with ``--tree DIR`` N pairs of
+processes, this checkout and DIR, alternating which runs first, with the
+median of each side's medians too.
 """
 
 from __future__ import annotations
@@ -65,25 +72,11 @@ import subprocess
 import sys
 from pathlib import Path
 
-#: Edits of the window design's template in csrc/fused3.cu (`fused3`: K14
-#: and the 27-point K15/K16; in older sources every K15/K16 too) that
-#: skip a part, by probe bit: the coarse side (K16's interpolation, K15's
-#: restriction), the prefetch of the windowed stencil and b, the colour
-#: phases, the barriers.  Each text must occur as often as given.
-PROBES = {
-    1: [("interp_with(ci, qc, x, y, z, a.nxc, a.nyc, a.nzc, [&] {",
-         "probe_init([&] {", 1),
-        ("if (x >= xt && x < xe && (x & 1) == 0) {\n        const int xc",
-         "if (false) {\n        const int xc", 1)],
-    2: [("constexpr int NS = ST ? kStaged : 0;", "constexpr int NS = 0;", 1)],
-    4: [("if (valid(x, s) && (!TS || ((x + a.ox - color) & 1) == 0)) {",
-         "if (false) {", 1)],
-    8: [("if (TS) __syncthreads();", "", 2),
-        ("    __syncthreads();\n    if (EPI == kRestrict) {",
-         "    if (EPI == kRestrict) {", 1),
-        ("if (more) commit(p + 1);\n    __syncthreads();",
-         "if (more) commit(p + 1);", 1)],
-}
+#: the 27-point levels at which K15, K16 and the edge kernel are timed:
+#: (n, itemsize)
+EDGE_LEVELS = [(n, i) for i in (4, 8) for n in (128, 64, 32, 16)]
+#: what a probe copy (:func:`probe_tree`) puts at the top of its source's
+#: anonymous namespace, for edits that replace a call by ``probe_init``
 _HELPER = ("namespace {\n\n"
            "template <class F>\n"
            "__device__ auto probe_init(const F& f) { return f(); }\n")
@@ -104,6 +97,13 @@ def main(argv=None) -> None:
     ap.add_argument("--rows14", type=int, nargs="+", default=[],
                     help="7-point K14 float32 tile rows to build and time "
                          "beside the default (-DCEDAR_K14_ROWS=T)")
+    ap.add_argument("--edge-probe", type=int, nargs="+", default=[],
+                    help="edge kernel probe bits: 1 stencil copies, 2 the "
+                         "residual, 4 the restriction or the coarse side, "
+                         "8 barriers skipped (-DCEDAR_EDGE3_PROBE)")
+    ap.add_argument("--edge-threads", type=int, nargs="+", default=[],
+                    help="edge kernel threads a block to build and time "
+                         "beside the default (-DCEDAR_EDGE3_THREADS)")
     ap.add_argument("--tree", help="time this checkout's kernels instead")
     ap.add_argument("--build-only", action="store_true",
                     help="build the kernels and stop")
@@ -112,16 +112,16 @@ def main(argv=None) -> None:
     ap.add_argument("--cycles", action="store_true",
                     help="time the cells' fused cycles instead")
     ap.add_argument("--pairs", type=int, default=0,
-                    help="--cycles --tree: pairs of runs, alternating")
+                    help="--cycles: pairs of runs, alternating")
+    ap.add_argument("--order", choices=("fused", "dense"), default="fused",
+                    help="--cycles: which of a cell's cycles goes first")
     ap.add_argument("--only", nargs="+",
                     help="time only the cases whose names hold one of these")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
     args.probe = sorted({0, *args.probe})
     if args.cycles and args.pairs:
-        return cycle_pairs(__file__, args.tree, args.pairs)
-    if args.tree and len(args.probe) > 1:
-        return run_trees(args)
+        return cycle_pairs(__file__, args.tree, args.pairs, orders=True)
     sys.path.insert(0, args.tree or str(Path(__file__).resolve().parents[2]))
     import torch
 
@@ -129,13 +129,15 @@ def main(argv=None) -> None:
         sys.exit("tune_fused3: no CUDA device")
     from cedar_tpu_torch.ops import cuda_build, cuda_fused3
 
-    cuda_build.load_all(["fused3", "sweep3"])
+    edge = hasattr(cuda_fused3, "edge")
+    cuda_build.load_all(["fused3", "sweep3", "transfer3"]
+                        + (["edge3"] if edge else []))
     if args.build_only:
         return
     print_card()
     print(f"kernels of {cuda_fused3.__file__}", flush=True)
     if args.cycles:
-        return cycles()
+        return cycles(args.order)
     tunable = hasattr(cuda_fused3, "_sweep_restrict")
     want = (lambda k: not args.only or any(o in k for o in args.only))
     cases = {k: v for k, v in make_cases(tunable).items() if want(k)}
@@ -145,6 +147,16 @@ def main(argv=None) -> None:
         run(cases, [0], {0: None}, args.reps, f"{args.tree} default build",
             not args.unchecked)
         return
+    new = {k: v for k, v in make_edge_cases(edge).items() if want(k)}
+    eprobes = {f"probe={b}": (f"CEDAR_EDGE3_PROBE={b}",)
+               for b in args.edge_probe}
+    eprobes |= {f"threads={t}": (f"CEDAR_EDGE3_THREADS={t}",)
+                for t in args.edge_threads}
+    if edge and eprobes:
+        cuda_build.build_variants("edge3", list(eprobes.values()))
+    elibs = {k: cuda_build.load_variant("edge3", d)
+             for k, d in eprobes.items()} if edge else {}
+    run_new(new, args.reps, elibs, not args.unchecked)
     probes = {b: (f"CEDAR_FUSED3_PROBE={b}",) for b in args.probe if b}
     stages = {m: (f"CEDAR_K14_STAGES={m}",) for m in args.stages}
     rows14 = {t: (f"CEDAR_K14_ROWS={t}",) for t in args.rows14}
@@ -167,11 +179,10 @@ def main(argv=None) -> None:
         not args.unchecked, libs27, libs14)
 
 
-def run_trees(args, script: str = __file__, source: str = "fused3",
-              probes=None) -> None:
-    """--tree with --probe: the checkout and its probe copies (of
-    csrc/<source>.cu, edited by ``probes``), built in parallel, then timed
-    one after another by ``script``."""
+def run_trees(args, script: str, source: str, probes: dict) -> None:
+    """--tree with --probe (tools/tune_fused2.py): the checkout and its
+    probe copies (of csrc/<source>.cu, edited by ``probes``), built in
+    parallel, then timed one after another by ``script``."""
     trees = {b: probe_tree(args.tree, b, source, probes) if b else args.tree
              for b in args.probe}
     me = os.path.abspath(script)
@@ -187,11 +198,10 @@ def run_trees(args, script: str = __file__, source: str = "fused3",
                        + (["--unchecked"] if b else []), check=True)
 
 
-def probe_tree(tree: str, bits: int, source: str = "fused3",
-               probes=None) -> str:
+def probe_tree(tree: str, bits: int, source: str, probes: dict) -> str:
     """A copy of ``tree``'s package under ``tree``/_archive/probe<bits>
-    whose csrc/<source>.cu skips the parts of ``bits`` (``probes``, default
-    :data:`PROBES`)."""
+    whose csrc/<source>.cu skips the parts of ``bits`` (``probes``: bit ->
+    edits (old, new, times))."""
     dst = os.path.join(tree, "_archive", f"{source}-probe{bits}")
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(os.path.join(tree, "cedar_tpu_torch"),
@@ -202,7 +212,7 @@ def probe_tree(tree: str, bits: int, source: str = "fused3",
         src = f.read()
     assert src.count("namespace {\n\n") == 1
     src = src.replace("namespace {\n\n", _HELPER)
-    for bit, edits in (PROBES if probes is None else probes).items():
+    for bit, edits in probes.items():
         for old, new, n in edits if bits & bit else ():
             if src.count(old) != n:
                 raise ValueError(f"probe {bit}: {old!r} occurs "
@@ -221,17 +231,22 @@ CELLS = {"3d_poisson_7pt_256": (256, "poisson3", "SevenPt", True),
          "3d_fe_27pt_128-dense": (128, "fe3", "TwentySevenPt", False)}
 
 
-def cycles(ncycles: int = 25) -> None:
+def cycles(order: str = "fused", ncycles: int = 25) -> None:
     """The median, min and max CUDA-event time of ``ncycles`` V(1,1)
     cycles of each cell, after three warm-up cycles, each cycle as the
-    solve runs it (with the convergence residual, no readback)."""
+    solve runs it (with the convergence residual, no readback); each
+    configuration's fused and dense cells one after the other, ``order``
+    first."""
     import torch
 
     import cedar_tpu_torch as ct
     from cedar_tpu_torch.solver import cycle3
 
     dev = torch.device("cuda", 0)
-    for name, (n, make, kind, fused) in CELLS.items():
+    names = sorted(CELLS, key=lambda c: (c.replace("-dense", ""),
+                                         CELLS[c][3] != (order == "fused")))
+    for name in names:
+        n, make, kind, fused = CELLS[name]
         conf = ct.Config({"log": [], "kernels": {"fine-split": fused},
                           "solver": {"cycle": {
                               "nrelax-pre": 1, "nrelax-post": 1}}})
@@ -268,26 +283,46 @@ def time_cycles(name: str, one, x, ncycles: int) -> None:
           f"max {ms[-1]:.4f}", flush=True)
 
 
-def cycle_pairs(script: str, tree: str, pairs: int) -> None:
+def cycle_pairs(script: str, tree: str | None, pairs: int,
+                orders: bool = False) -> None:
     """``pairs`` pairs of ``script --cycles`` processes, this checkout's
     and ``tree``'s, alternating which runs first (hosts differ between
-    runs); then, per cell, the median of each side's medians and how often
-    this checkout was faster."""
+    runs), or without ``tree`` ``pairs`` processes of this checkout;
+    ``orders``: alternating too whether a configuration's fused or dense
+    cell goes first (``--order``).  Then, per cell, the median of each
+    side's medians and how often this checkout was faster; per side and
+    configuration, in how many pairs the fused cycle was at or below the
+    dense one."""
     import re
     import statistics
 
     me = os.path.abspath(script)
     runs = {"this": [], "tree": []}
     for k in range(pairs):
-        order = ("this", "tree") if k % 2 == 0 else ("tree", "this")
-        for side in order:
+        sides = ("this",) if tree is None else (
+            ("this", "tree") if k % 2 == 0 else ("tree", "this"))
+        for side in sides:
             cmd = [sys.executable, me, "--cycles"] + (
-                ["--tree", tree] if side == "tree" else [])
+                ["--tree", tree] if side == "tree" else []) + (
+                ["--order", ("fused", "dense")[k % 2]] if orders else [])
             out = subprocess.run(cmd, capture_output=True, text=True,
                                  check=True).stdout
             print(f"[pair {k} {side}]\n{out}", end="", flush=True)
             runs[side].append(dict(re.findall(
                 r"(\S+) V\(1,1\) cycle ms: median ([\d.]+)", out)))
+    for side in ("this", "tree"):
+        for cell in runs[side][0] if runs[side] else ():
+            if cell + "-dense" not in runs[side][0]:
+                continue
+            f = [float(r[cell]) for r in runs[side]]
+            d = [float(r[cell + "-dense"]) for r in runs[side]]
+            wins = sum(a <= b for a, b in zip(f, d))
+            print(f"{side} {cell}: fused median of medians "
+                  f"{statistics.median(f):.4f} against dense "
+                  f"{statistics.median(d):.4f}; fused at or below dense in "
+                  f"{wins} of {len(f)} pairs", flush=True)
+    if tree is None:
+        return
     for cell in runs["this"][0]:
         mine = [float(r[cell]) for r in runs["this"]]
         theirs = [float(r[cell]) for r in runs["tree"]]
@@ -316,7 +351,7 @@ def ring_report(log: str):
     name = spill = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '.*?(ring3|pass27|ring2"
-                      r"|sweep_resident)"
+                      r"|sweep_resident|edge3)"
                       r"I([fd])((?:L[bi]\d+E)*)", line)
         if m:
             kern, t, rest = m.groups()
@@ -374,9 +409,10 @@ def make_k6_cases() -> dict:
 
 
 def make_cases(tunable: bool) -> dict:
-    """name -> (kernel(lib, ty), plain()) at 256³ 7-point and 128³
-    27-point float32; an older checkout's kernel takes its own library and
-    plan (``tunable`` false); K14 takes the tile rows of its library."""
+    """name -> (kernel(lib, ty), plain()): the 7-point K14-K16 at 256³ and
+    a whole 27-point K14 sweep at 128³, float32; an older checkout's kernel
+    takes its own library and plan (``tunable`` false); K14 takes the tile
+    rows of its library."""
     import torch
 
     from cedar_tpu_torch.ops import cuda_fused3 as cf
@@ -397,15 +433,21 @@ def make_cases(tunable: bool) -> dict:
     cases = {}
     for n, ts in ((256, False), (128, True)):
         so, q, b, kind = problem((n,) * 3, ts, 30 + ts)
+        pts = "27pt" if ts else "7pt"
+        if ts:
+            # a whole sweep (the 27-point K15 and K16: make_edge_cases)
+            a14 = (so, q, b, kind, "down", False, (0, 0, 0), False)
+            cases[f"K14 {pts} {n}^3"] = (
+                lambda lib, ty, a=a14: k14(lib, ty, *a),
+                lambda a=a14: cf.sweep_plain(*a))
+            continue
         ci = interp3.setup_interp(so, kind)
         g = torch.Generator(device="cuda").manual_seed(40 + ts)
         qc = torch.randn(tuple(m - 1 for m in ci.shape[1:]), generator=g,
                          device="cuda", dtype=torch.float32)
-        pts = "27pt" if ts else "7pt"
-        # 27-point: a whole sweep; 7-point: without and with the residual
-        # and the norm (the cycle's K14: an extra sweep, the last one)
-        for res, norm in ((False, False),) if ts else (
-                (False, False), (True, False), (False, True)):
+        # without and with the residual and the norm (the cycle's K14: an
+        # extra sweep, the last one)
+        for res, norm in ((False, False), (True, False), (False, True)):
             a14 = (so, q, b, kind, "down", res, (0, 0, 0), norm)
             cases[f"K14 {pts} {n}^3" + (" +res" if res else "")
                   + (" +norm" if norm else "")] = (
@@ -421,6 +463,132 @@ def make_cases(tunable: bool) -> dict:
                 lambda lib, ty, a=a16: k16(lib, ty, *a),
                 lambda a=a16: cf.interp_sweep_plain(*a))
     return cases
+
+
+def make_edge_cases(edge: bool) -> dict:
+    """name -> (kernel(lib, timed), plain()) at :data:`EDGE_LEVELS`
+    (27-point): K15 (DOWN, no residual out) and K16 (UP) as the cycle calls
+    them, and the dense sequences that compute the same functions (``D15``:
+    K6 DOWN with the residual, then K7; ``D16``: the residual launch, K8
+    (in place: on a copy of q when checked, on a buffer that drifts when
+    ``timed``), then K6 UP); the 27-point K14 with the norm at 128³
+    float32; with the edge kernel (``edge``: not in an older checkout) the
+    edge kernel alone in each mode (``E27``, on the build ``lib``: None the
+    default one) and K6's 27-point residual launch by each kernel
+    (``R27``)."""
+    import torch
+
+    from cedar_tpu_torch.ops import (
+        cuda3, cuda_build, cuda_transfer3, interp3, stencil3,
+    )
+    from cedar_tpu_torch.ops import cuda_fused3 as cf
+
+    cases = {}
+    for n, itemsize in EDGE_LEVELS:
+        dt = torch.float32 if itemsize == 4 else torch.float64
+        so, q, b, kind = problem((n,) * 3, True, 60 + n + itemsize, dt)
+        ci = interp3.setup_interp(so, kind)
+        g = torch.Generator(device="cuda").manual_seed(70 + n)
+        qc = torch.randn(tuple(m - 1 for m in ci.shape[1:]), generator=g,
+                         device="cuda", dtype=dt)
+        code = cuda_build.check_operands(so, q, b)
+        qd = q.clone()
+        tag = f"27pt {n}^3 f{8 * itemsize}"
+        a15 = (so, q, b, ci, kind, "down", False)
+        cases[f"K15 {tag}"] = (lambda lib, t, a=a15: cf.sweep_restrict(*a),
+                               lambda a=a15: cf.sweep_restrict_plain(*a))
+        a16 = (ci, qc, so, b, q, kind, "up")
+        cases[f"K16 {tag}"] = (lambda lib, t, a=a16: cf.interp_sweep(*a),
+                               lambda a=a16: cf.interp_sweep_plain(*a))
+
+        def d15(lib, t, so=so, q=q, b=b, ci=ci, kind=kind):
+            qn, res = cuda3.sweep(so, q, b, kind, "down", True)
+            return qn, None, cuda_transfer3.restrict(ci, res)
+
+        # the residual launch that K6 runs at this shape (an older
+        # checkout: its own)
+        edge_res = (hasattr(cuda3, "EDGE_RESIDUAL")
+                    and cuda3.plan(itemsize, True, (n,) * 3).route
+                    in cuda3.EDGE_RESIDUAL)
+
+        def d16(lib, t, so=so, q=q, b=b, ci=ci, qc=qc, kind=kind, qd=qd,
+                code=code, edge_res=edge_res):
+            res = (cuda3._residual(code, so, q, b, kind, True) if edge_res
+                   else cuda3._residual(code, so, q, b, kind))
+            mid = cuda_transfer3.interp_add(ci, so, qc, res,
+                                            qd if t else q.clone())
+            return cuda3.sweep(so, mid, b, kind, "up")
+
+        cases[f"D15 {tag}"] = (d15, lambda a=a15: cf.sweep_restrict_plain(*a))
+        cases[f"D16 {tag}"] = (d16, lambda a=a16: cf.interp_sweep_plain(*a))
+        if n == 128 and itemsize == 4:
+            a14 = (so, q, b, kind, "up", False, (0, 0, 0), True)
+            cases[f"K14 {tag} +norm"] = (
+                lambda lib, t, a=a14: cf.sweep(*a),
+                lambda a=a14: cf.sweep_plain(*a))
+        if not edge:
+            continue
+        for mode in cf.EDGE_MODES:
+            cases[f"E27 {mode} {tag}"] = (
+                lambda lib, t, m=cf.EDGE_MODES[mode], so=so, q=q, b=b, ci=ci,
+                qc=qc, code=code: cf.launch_edge(code, m, so, q, b, ci, qc,
+                                                 lib=lib),
+                lambda mode=mode, so=so, q=q, b=b, ci=ci, qc=qc:
+                    cf.edge_plain(so, q, b, mode, ci, qc))
+        for kernel in ("edge", "sweep3"):
+            def r27(lib, t, kernel=kernel, so=so, q=q, b=b, kind=kind,
+                    code=code):
+                return cuda3._residual(code, so, q, b, kind,
+                                       kernel == "edge")
+
+            cases[f"R27 {kernel} {tag}"] = (
+                r27, lambda so=so, q=q, b=b, kind=kind:
+                    stencil3.residual(so, q, b, kind))
+    return cases
+
+
+def run_new(cases: dict, reps: int, elibs: dict, checked: bool) -> None:
+    """The cases of :func:`make_edge_cases`, each held to its plain version
+    (unless not ``checked``), then timed: CUDA-event ms a call and the
+    device ms of its kernels; the edge kernel's (``E27``) also on each
+    build of ``elibs`` (label -> library: probes unchecked, other threads
+    checked)."""
+    for name, (kernel, plain) in cases.items():
+        if checked:
+            check_new(name, kernel(None, False), plain())
+        builds = {"plan": None}
+        if name.startswith("E27"):
+            builds |= elibs
+        for label, lib in builds.items():
+            if checked and label.startswith("threads="):
+                check_new(f"{name} {label}", kernel(lib, False), plain())
+            ms = time_ms(lambda: kernel(lib, True), reps)
+            dms = device_ms(lambda: kernel(lib, True), reps)
+            print(f"{name} {label}: {ms:.4f} ms (device {dms:.4f} ms)",
+                  flush=True)
+
+
+def check_new(what: str, got, want) -> None:
+    """Outputs bit-equal; a norm's partials (``norm`` in ``what``: the
+    outputs of different sizes) summing to within 1e-5 (float32) or 1e-12
+    of the plain version's."""
+    import torch
+
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    for k, (g, w) in enumerate(zip(got, want)):
+        if g is None and w is None:
+            continue
+        if "norm" in what and g.numel() != w.numel():
+            n, r = float(g.sum()), float(w.sum())
+            tol = 1e-5 if g.dtype == torch.float32 else 1e-12
+            if not abs(n - r) <= tol * r:
+                raise AssertionError(f"{what}: norm {n} against {r}")
+        elif not torch.equal(g, w):
+            raise AssertionError(f"{what}: output {k} differs from the "
+                                 "plain version")
+    print(f"{what}: equal to the plain version", flush=True)
 
 
 def run(cases: dict, rows_opts, libs: dict, reps: int, what: str,

@@ -48,18 +48,20 @@ Phases (each raises on failure; nothing is caught):
    sweep (K14), sweep-residual-restrict (K15) and interp-add-sweep (K16),
    at the 3D shapes and (5, 4, 3) float64, both kinds, DOWN and UP, every
    output mode, K14 with and without an origin, K15 with and without the
-   residual, held to their plain versions the same way, and K15, K16 and
-   the 27-point K14 (every split of a sweep into K14 launches) also at
-   float32 shapes at the edges of their tiling (EDGE3), after a check that
-   the wrapper's launch plans size their shared memory as the kernels lay
-   it out;
+   residual, held to their plain versions the same way (a 27-point one is
+   K6's sweep and the edge kernel), and the edge kernel alone in each mode
+   against the plain ops it stands for; also at the edges of their tiling
+   (EDGE3, float32 and 27-point float64) and at the 3D paths' 27-point
+   levels and the 200³ gate's odd ones (LEVELS27), after a check that the
+   wrappers' launch plans size their shared memory as the kernels lay it
+   out;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
 4b. float64 gates of the line-xy and F-cycle paths: the 400² solves on the
    card against the same solves on the CPU (plain versions);
 4c. Cedar's 3D integration test (200³ float64 7-point Poisson) through
-   the kernels (the fused cycle, the card's default: K14-K16 on levels
+   the kernels (the fused cycle: K14-K16 and the edge kernel on levels
    0-3), then the float64 3D gates, fused on the card against dense on the
    CPU: a 33³ 7-point V(2,2) and a 17³ 27-point V(1,1) solve and a 33³
    F-cycle;
@@ -79,8 +81,8 @@ Phases (each raises on failure; nothing is caught):
    setup, a solve, launch counts, per-cycle time and peak memory, and the
    line-xy cycle's K4 launches (one a zebra colour) asserted;
 5c. the 3D slice at full width: ``3d_poisson_7pt_256`` and
-   ``3d_fe_27pt_128`` (``bench.py``'s configurations), each fused (the
-   card's default) and dense (``kernels.fine-split`` false), the fused
+   ``3d_fe_27pt_128`` (``bench.py``'s configurations), each fused
+   (``kernels.fine-split`` true) and dense (false), the fused
    256³ V(2,2) and the fused 256³ F-cycle, each with the same numbers and
    the launches of one cycle;
 5d. the plane-relaxation slice at full width: ``3d_aniso_planexy_128``
@@ -247,6 +249,11 @@ REPLACES = {
     "interp_sweep3": ("cedar_tpu/ops/pallas3_split.py:492, "
                       "cedar_tpu/ops/pallas3_stream.py:175, "
                       "cedar_tpu/ops/pallas3_stream.py:192"),
+    # the 27-point K15 and K16 beside K6's sweep: the residual and its
+    # restriction (row 15), the interp-add of the recomputed residual
+    # (row 17), and the norm of a 27-point fused top level
+    "edge27": ("cedar_tpu/ops/pallas3_split.py:465, "
+               "cedar_tpu/ops/pallas3_split.py:492"),
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -267,6 +274,7 @@ SOURCES = {
     "sweep3_fused": "cedar_tpu_torch/csrc/fused3.cu",
     "sweep_restrict3": "cedar_tpu_torch/csrc/fused3.cu",
     "interp_sweep3": "cedar_tpu_torch/csrc/fused3.cu",
+    "edge27": "cedar_tpu_torch/csrc/edge3.cu",
 }
 KERNELS = tuple(REPLACES)
 # K1 launched in either regime
@@ -312,6 +320,7 @@ def counts() -> dict:
         "sweep3_fused": cuda_fused3.sweep_launches,
         "sweep_restrict3": cuda_fused3.sweep_restrict_launches,
         "interp_sweep3": cuda_fused3.interp_sweep_launches,
+        "edge27": cuda_fused3.edge_launches,
         "sweep2_plain": cuda2.plain_calls,
         "sweep2_resident_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
@@ -330,6 +339,7 @@ def counts() -> dict:
         "sweep3_fused_plain": cuda_fused3.sweep_plain_calls,
         "sweep_restrict3_plain": cuda_fused3.sweep_restrict_plain_calls,
         "interp_sweep3_plain": cuda_fused3.interp_sweep_plain_calls,
+        "edge27_plain": cuda_fused3.edge_plain_calls,
     }
 
 
@@ -353,7 +363,7 @@ def reset_counts() -> None:
     cuda_fused2.sweep_restrict_plain_calls = 0
     cuda_fused2.interp_sweep_launches = 0
     cuda_fused2.interp_sweep_plain_calls = 0
-    for k in ("sweep", "sweep_restrict", "interp_sweep"):
+    for k in ("sweep", "sweep_restrict", "interp_sweep", "edge"):
         setattr(cuda_fused3, f"{k}_launches", 0)
         setattr(cuda_fused3, f"{k}_plain_calls", 0)
 
@@ -836,10 +846,12 @@ FUSED3 = ("sweep3_fused", "sweep_restrict3", "interp_sweep3")
 
 
 def check_fused3_plans() -> None:
-    """The wrapper's plan (ops/cuda_fused3.py) sizes the shared memory of
-    K15, K16 and the 7-point K14 as the kernels lay it out, for every
-    variant that is built and fits a block, and takes the 7-point K14's
-    build (its tile rows and the blocks an SM of its registers' cap)."""
+    """The wrappers' plans (ops/cuda_fused3.py) size the shared memory of
+    the 7-point K14-K16, the 27-point K14 and the edge kernel as the
+    kernels lay it out, for every variant that is built and fits a block,
+    and take the builds' constants (the 7-point K14's tile rows and the
+    blocks an SM of its registers' cap, the 27-point K14's colours a march,
+    the edge kernel's threads and tile columns)."""
     lib = cuda_build.load("fused3")
     rows14, blocks14 = cuda_fused3._ring14_of(lib)
     if blocks14 != cuda_fused3.RING14_BLOCKS:
@@ -847,27 +859,23 @@ def check_fused3_plans() -> None:
                              "blocks an SM")
     if rows14 != cuda_fused3.RING14_ROWS:
         raise AssertionError(f"7-point K14 built with tile rows {rows14}")
-    for itemsize, ts in itertools.product((4, 8), (False, True)):
+    for itemsize in (4, 8):
         dt = 0 if itemsize == 4 else 1
-        modes = [(False, 3), (True, 0)] + ([] if ts else [
-            (True, 1), (True, 2), (False, 0), (False, 1), (False, 2)])
-        for interp, mode in modes:
+        for interp, mode in [(False, 3), (True, 0), (True, 1), (True, 2),
+                             (False, 0), (False, 1), (False, 2)]:
             k14 = cuda_fused3.is_k14(interp, mode)
-            rows = (((cuda_fused3.RING14_ROWS[itemsize],) if k14 else
-                     cuda_fused3.RING_ROWS[itemsize])
-                    if cuda_fused3.is_ring(ts) else (cuda_fused3.WINDOW_ROWS,))
+            rows = ((cuda_fused3.RING14_ROWS[itemsize],) if k14 else
+                    cuda_fused3.RING_ROWS[itemsize])
             for ty in rows:
-                words = (cuda_fused3.ring_words(itemsize, interp, mode, ty)
-                         if cuda_fused3.is_ring(ts) else 0)
+                words = cuda_fused3.ring_words(itemsize, interp, mode, ty)
                 if words * itemsize > cuda_build.BLOCK_SMEM:
                     continue  # built, never planned: it does not fit
-                want = cuda_fused3.plan(itemsize, ts, interp, mode,
+                want = cuda_fused3.plan(itemsize, interp, mode,
                                         (64, 64, 64), ty=ty).smem
-                got = lib.cedar_fused3_smem(dt, int(ts), int(interp), mode,
-                                            ty)
+                got = lib.cedar_fused3_smem(dt, int(interp), mode, ty)
                 if got != want:
                     raise AssertionError(
-                        f"K14-K16 smem {itemsize} ts={ts} interp={interp} "
+                        f"K14-K16 smem {itemsize} interp={interp} "
                         f"mode={mode} ty={ty}: kernel {got}, plan {want}")
     # the 27-point K14: every tile-row count the plan may take
     n = lib.cedar_fused3_pass27_stages()
@@ -882,23 +890,61 @@ def check_fused3_plans() -> None:
             if got != want:
                 raise AssertionError(f"K14 27-pt smem {itemsize} ty={ty}: "
                                      f"kernel {got}, plan {want}")
-    print("  K14-K16 plans size shared memory as the kernels do", flush=True)
+    # the edge kernel: its build, every even tile-row count up to the most
+    # a block holds, and the plans of the 3D paths' 27-point levels
+    edge = cuda_build.load("edge3")
+    build = cuda_fused3._edge_of(edge)
+    if build != cuda_fused3.EDGE_BUILD:
+        raise AssertionError(f"edge kernel built as {build}")
+    for itemsize, mode in itertools.product(
+            (4, 8), cuda_fused3.EDGE_MODES.values()):
+        dt = 0 if itemsize == 4 else 1
+        tz = build[1] if itemsize == 4 else build[2]
+        for ty in range(2, 34, 2):
+            want = cuda_fused3.edge_words(itemsize, mode, ty, tz) * itemsize
+            got = edge.cedar_edge3_smem(dt, mode, ty)
+            if got != want:
+                raise AssertionError(f"edge smem {itemsize} mode={mode} "
+                                     f"ty={ty}: kernel {got}, plan {want}")
+        for n in (128, 64, 32, 16, 8, 25, 13):
+            p = cuda_fused3.edge_plan(itemsize, mode, (n,) * 3,
+                                      build=build)
+            if edge.cedar_edge3_smem(dt, mode, p.ty) != p.smem:
+                raise AssertionError(f"edge plan {itemsize} mode={mode} "
+                                     f"{n}^3: smem {p.smem}")
+    print("  K14-K16 and edge plans size shared memory as the kernels do",
+          flush=True)
+
+
+# the 27-point levels of the 3D paths (float32 64³ .. 8³ below the 128³ of
+# SHAPES3) and the 200³ float64 gate's odd levels, where the fused
+# kernels are held too (27-point only)
+LEVELS27 = [((64,) * 3, torch.float32), ((32,) * 3, torch.float32),
+            ((16,) * 3, torch.float32), ((8,) * 3, torch.float32),
+            ((25,) * 3, torch.float64), ((13,) * 3, torch.float64),
+            ((7,) * 3, torch.float64)]
 
 
 def phase_kernels_fused3(errs: dict) -> dict:
-    """K14-K16 against their plain versions at the 3D shapes and (5, 4, 3)
-    float64, both kinds: every output mode, DOWN and UP, K14 with and
-    without an origin, K15 with and without the residual; K15, K16 and the
-    27-point K14 also at the tiling's edge shapes (EDGE3): a whole K14
-    sweep, K15's pre-sweep and K16's post-sweep, with and without an
-    epilogue, split the colours into K14 launches each way the wrapper
-    does."""
+    """K14-K16 and the edge kernel against their plain versions at the 3D
+    shapes and (5, 4, 3) float64, both kinds: every output mode, DOWN and
+    UP, K14 with and without an origin, K15 with and without the residual;
+    also at the tilings' edge shapes (EDGE3; float32, and the 27-point
+    ones in float64 too) with an odd origin, and at the 3D paths' 27-point
+    levels and the 200³ gate's odd ones (LEVELS27).  A 27-point K14, K15
+    or K16 sweeps on K6's route with the edge kernel beside it
+    (``cuda_fused3.launch_list``); the edge kernel is also held alone, in
+    each mode, against stencil3.residual, interp3.restrict_torch and
+    interp3.interp_add_torch."""
     print("[3] fused 3D kernels against plain versions", flush=True)
-    for k in FUSED3:
+    for k in FUSED3 + ("edge27",):
         errs.setdefault(k, 0.0)
     check_fused3_plans()
     shapes = SHAPES3 + [((5, 4, 3), torch.float64, (False, True))]
     shapes += [(shape, torch.float32, kinds) for shape, kinds in EDGE3]
+    shapes += [(shape, torch.float64, (True,)) for shape, kinds in EDGE3
+               if True in kinds]
+    shapes += [(shape, dtype, (True,)) for shape, dtype in LEVELS27]
     for i, (shape, dtype, kinds) in enumerate(shapes):
         edge = i >= len(SHAPES3) + 1
         tag = f"{shape} {str(dtype).replace('torch.', '')}"
@@ -949,8 +995,44 @@ def phase_kernels_fused3(errs: dict) -> dict:
                         raise AssertionError(f"{what}: residual returned")
                     errs["sweep_restrict3"] = max(errs["sweep_restrict3"], e)
                     del got, want
+            if ts:
+                errs["edge27"] = max(errs["edge27"],
+                                     compare_edge(so, q, b, ci, qc, tag))
             del so, q, b, ci, qc
     return errs
+
+
+def compare_edge(so, q, b, ci, qc, tag: str) -> float:
+    """The edge kernel alone in each mode against the plain ops it stands
+    for (stencil3.residual, interp3.restrict_torch,
+    interp3.interp_add_torch): bit-equal, the norm's partials summing to
+    the sum of res² within NORM_RTOL, q left as it was."""
+    kind = StencilKind.twenty_seven_pt
+    q0 = q.clone()
+    r = stencil3.residual(so, q, b, kind)
+    e = compare(f"edge27 res {tag}", cuda_fused3.edge(so, q, b, "res"), r,
+                exact=True)
+    for emit in (False, True):
+        what = f"edge27 restrict res={int(emit)} {tag}"
+        got_r, got_cb = cuda_fused3.edge(so, q, b, "restrict", ci,
+                                         emit_res=emit)
+        e = max(e, compare(what + " cb", got_cb,
+                           interp3.restrict_torch(ci, r), exact=True))
+        if emit:
+            e = max(e, compare(what + " res", got_r, r, exact=True))
+        elif got_r is not None:
+            raise AssertionError(f"{what}: residual returned")
+    e = max(e, compare(f"edge27 interp {tag}",
+                       cuda_fused3.edge(so, q, b, "interp", ci, qc),
+                       interp3.interp_add_torch(ci, so, qc, r, q),
+                       exact=True))
+    n, want = (float(cuda_fused3.edge(so, q, b, "norm").sum()),
+               float((r * r).sum()))
+    if not abs(n - want) <= NORM_RTOL[q.dtype] * want:
+        raise AssertionError(f"edge27 norm {tag}: {n} against {want}")
+    if not torch.equal(q, q0):
+        raise AssertionError(f"edge27 {tag}: q changed")
+    return e
 
 
 def phase_cedar_gate() -> None:
@@ -1061,13 +1143,15 @@ def phase_f64_gates() -> None:
 
 def phase_cedar3() -> None:
     """Cedar's 3D integration test through the kernels: V(2,1), the
-    package defaults, fused on levels 0-3 (the card's default; K14 for the
-    extra pre-sweep), dense on levels 4 and 5."""
+    package defaults but ``kernels.fine-split: true``: fused on levels 0-3
+    (K14 for the extra pre-sweep; the 27-point levels' K15 and K16 are
+    K6's sweeps and the edge kernel), dense on levels 4 and 5."""
     n = N_CEDAR3
     print(f"[4c] Cedar 3D test: Poisson {n}^3 float64 7-pt through the "
           "kernels", flush=True)
     reset_counts()
-    conf = Config({"log": [], "solver": {"tol": 1e-9, "max-iter": 30}})
+    conf = Config({"log": [], "kernels": {"fine-split": True},
+                   "solver": {"tol": 1e-9, "max-iter": 30}})
     so = gallery.poisson3(n, n, n, torch.float64, DEV)
     b = gallery.poisson3_rhs(n, n, n, torch.float64, DEV)
     s = Solver3(so, SevenPt, conf)
@@ -1084,18 +1168,17 @@ def phase_cedar3() -> None:
     if not (rnorm < 1e-8 and err < 1e-4):
         raise AssertionError("Cedar 3D test failed")
     if not cycle3.fine_split_ok(s.levels, s.settings):
-        raise AssertionError("Cedar 3D test: the fused cycle is not the "
-                             "default")
-    require_launched(c, ("sweep3_resident", "restrict3", "interp_add3")
-                     + FUSED3,
+        raise AssertionError("Cedar 3D test: the cycle is not fused")
+    require_launched(c, ("sweep3_resident", "restrict3", "interp_add3",
+                         "edge27") + FUSED3,
                      "Cedar 3D test")
 
 
 def phase_3d_gates() -> None:
     """The float64 3D V-cycle and F-cycle solves on the card against the
-    same solves on the CPU (plain versions).  With the defaults the card
-    runs the fused cycle (every level but the coarsest at these sizes) and
-    the CPU the dense one."""
+    same solves on the CPU (plain versions): the card runs the fused cycle
+    (``kernels.fine-split: true``; every level but the coarsest at these
+    sizes) and the CPU the dense one."""
     print("[4c] float64 3D gates, card (fused) against CPU (dense)",
           flush=True)
     cpu = torch.device("cpu")
@@ -1105,20 +1188,21 @@ def phase_3d_gates() -> None:
           "cycle": {"nrelax-pre": 2, "nrelax-post": 2}}, FUSED3),
         ("fe3 17^3 V(1,1)", 17, gallery.fe3, TwentySevenPt,
          {"tol": 1e-10, "max-iter": 10,
-          "cycle": {"nrelax-pre": 1, "nrelax-post": 1}}, FUSED3),
+          "cycle": {"nrelax-pre": 1, "nrelax-post": 1}},
+         ("edge27", "sweep3", "sweep3_resident")),
         ("poisson3 33^3 F", 33, gallery.poisson3, SevenPt,
          {"cycle": {"type": "f"}, "tol": 1e-10, "max-iter": 3},
          ("restrict3", "interp3") + FUSED3),
     ]
     for what, n, make, kind, solver, need in gates:
-        conf = Config({"log": [], "solver": solver})
         so = make(n, n, n, torch.float64, cpu)
         b = gallery.poisson3_rhs(n, n, n, torch.float64, cpu)
         reset_counts()
-        s = Solver3(so.to(DEV), kind, conf)
+        s = Solver3(so.to(DEV), kind, Config({
+            "log": [], "kernels": {"fine-split": True}, "solver": solver}))
         s.solve(b.to(DEV))
         c = counts()
-        sc = Solver3(so, kind, conf)
+        sc = Solver3(so, kind, Config({"log": [], "solver": solver}))
         sc.solve(b)
         print(f"  {what}: card {' '.join(f'{h:.9g}' for h in s.history)}",
               flush=True)
@@ -1522,84 +1606,64 @@ def run_path3(name: str, n: int, make, kind, solver: dict, need,
 
 
 def counts3() -> dict:
-    """Kernel launches of one solve-loop cycle of the 3D paths.  A fused
-    level runs K15 and K16 once each.  A 27-point K15 or K16 runs one of
-    the 8 colours, K14 the others (``cuda_fused3.passes``: a march a
-    launch, and a one-colour launch for the last colour of a sweep with the
-    norm), so a 27-point fused level also runs K14 ``pre`` times beside
-    K15, ``post`` times beside K16 (``post_norm`` on the top level of the
-    cycle, whose last post-sweep computes the norm) and ``whole`` times for
-    each further sweep; a 7-point fused level runs one K14 launch for each
-    further sweep.  A dense level runs K6 DOWN with the residual that feeds
-    K7, then K8, then K6 UP (the dense top level's last with the
-    convergence residual): K6's plan (``cuda3.plan``) makes each sweep one
-    resident launch at the levels that fit one block, else K14's launches
-    (``cuda3.launches_of``)."""
+    """Kernel launches of one solve-loop cycle of the 3D paths, derived
+    from the plans.  A fused level runs K15 and K16 once each and K14 for
+    each further sweep (the last post-sweep of the top level with the
+    norm), each call as ``cuda_fused3.launch_list`` gives it: 7-point one
+    ring launch; 27-point the sweep on K6's route (``cuda3.plan``:
+    resident, a launch a colour and the residual, or K14's marches) and an
+    edge launch for K15's restriction, K16's interpolation and the top
+    level's norm.  A dense level runs its pre-sweeps DOWN, the last with
+    the residual that feeds K7, then K8, then its post-sweeps UP (the dense
+    top level's last with the convergence residual), each as
+    ``cuda3.launch_list`` gives it."""
     m = cuda_fused3._stages_of(cuda_build.load("fused3"))
-    ts = TwentySevenPt
     smem = cuda3._build_of(cuda_build.load("sweep3"))
+    none, norm = cuda_fused3._NONE, cuda_fused3._NORM
 
-    def k14(updown, role, mode=0):
-        return sum(k in ("K14", "pass27") for k, _ in
-                   cuda_fused3.passes(m, ts, updown, role, mode))
+    def cycle(levels, fused, pre=1, post=1):
+        """The launches of a cycle over ``levels`` ((n, 27-point), from
+        the top, the coarse solve's level left out), the first ``fused``
+        of them fused, V(pre, post)."""
+        c = {}
 
-    def dense(levels, top_res=False):
-        """K6's launches of the dense levels (n, 27-point or not), a DOWN +
-        residual and an UP sweep each (``top_res``: the first level's UP
-        with the residual), by kernel: resident, a colour phase or the
-        residual (``sweep3``), K14's marches or ring."""
-        c = {"sweep3": 0, "sweep3_resident": 0, "sweep3_fused": 0}
+        def add(launches):
+            for k, _ in launches:
+                c[k] = c.get(k, 0) + 1
+
         for k, (n, t) in enumerate(levels):
-            kind = ts if t else SevenPt
-            p = cuda3.plan(4, t, (n,) * 3, smem)
-            for fuse in (True, top_res and k == 0):
-                count = cuda3.launches_of(p, kind, fuse, m)
-                if p.route in ("resident", "phases"):
-                    c["sweep3" if p.route == "phases"
-                      else "sweep3_resident"] += count
-                else:
-                    # the 27-point marches' residual is a launch of its own
-                    extra = int(fuse and p.route == "pass27")
-                    c["sweep3_fused"] += count - extra
-                    c["sweep3"] += extra
+            kind, shape = (TwentySevenPt if t else SevenPt), (n,) * 3
+            if k < fused:
+                def call(updown, role, mode=none):
+                    add(cuda_fused3.launch_list(4, kind, shape, updown, role,
+                                                mode, m, smem))
+                for _ in range(pre - 1):
+                    call("down", "sweep")
+                call("down", "restrict")
+                call("up", "interp", norm if k == 0 and post == 1 else none)
+                for j in range(post - 1):
+                    call("up", "sweep",
+                         norm if k == 0 and j == post - 2 else none)
+                continue
+            p = cuda3.plan(4, t, shape, smem)
+            for j in range(pre):
+                add(cuda3.launch_list(p, kind, "down", j == pre - 1, m))
+            for j in range(post):
+                add(cuda3.launch_list(p, kind, "up",
+                                      k == 0 and j == post - 1, m))
+        c["restrict3"] = c["interp_add3"] = len(levels) - fused
         return c
 
-    pre, post = k14("down", "restrict"), k14("up", "interp")
-    post_norm, whole = k14("up", "interp", 2), k14("down", "sweep")
-    d256 = dense([(n, True) for n in (16, 8)])
-    d128 = dense([(8, True)])
+    # 256^3 7-point, 7 levels (the coarsest 4^3 solved); 128^3 27-point,
+    # 6 levels; fused on the top SPLIT_LEVELS
+    l256 = [(256, False)] + [(n, True) for n in (128, 64, 32, 16, 8)]
+    l128 = [(n, True) for n in (128, 64, 32, 16, 8)]
     return {
-        # 256^3 7-point, 7 levels: fused 0-3 (level 0 7-point, 1-3
-        # 27-point), dense 4-5 (16^3, 8^3: resident)
-        "3d_poisson_7pt_256": {
-            "sweep_restrict3": 4, "interp_sweep3": 4,
-            "sweep3_fused": 3 * (pre + post) + d256["sweep3_fused"],
-            "sweep3_resident": d256["sweep3_resident"],
-            "sweep3": d256["sweep3"], "restrict3": 2, "interp_add3": 2},
-        # the same, V(2,2): per fused level one more pre- and post-sweep
-        # (level 0 2 K14 ring launches, levels 1-3 2 whole); dense levels
-        # two sweeps each way
-        "3d_poisson_7pt_256 V(2,2)": {
-            "sweep_restrict3": 4, "interp_sweep3": 4,
-            "sweep3_fused": 2 + 3 * (pre + post + 2 * whole),
-            "sweep3_resident": 2 * d256["sweep3_resident"],
-            "sweep3": 2 * d256["sweep3"], "restrict3": 2, "interp_add3": 2},
-        "3d_poisson_7pt_256 dense": {
-            "sweep_restrict3": 0, "interp_sweep3": 0,
-            **dense([(256, False)] + [(n, True) for n in
-                                      (128, 64, 32, 16, 8)], True),
-            "restrict3": 6, "interp_add3": 6},
-        # 128^3 27-point, 6 levels: fused 0-3, dense 4 (8^3: resident)
-        "3d_fe_27pt_128": {
-            "sweep_restrict3": 4, "interp_sweep3": 4,
-            "sweep3_fused": (3 * (pre + post) + pre + post_norm
-                             + d128["sweep3_fused"]),
-            "sweep3_resident": d128["sweep3_resident"],
-            "sweep3": d128["sweep3"], "restrict3": 1, "interp_add3": 1},
-        "3d_fe_27pt_128 dense": {
-            "sweep_restrict3": 0, "interp_sweep3": 0,
-            **dense([(n, True) for n in (128, 64, 32, 16, 8)], True),
-            "restrict3": 5, "interp_add3": 5},
+        "3d_poisson_7pt_256": cycle(l256, SPLIT_LEVELS),
+        "3d_poisson_7pt_256 V(2,2)": cycle(l256, SPLIT_LEVELS, 2, 2),
+        "3d_poisson_7pt_256 dense": cycle(l256, 0),
+        "3d_fe_27pt_128": cycle(l128, SPLIT_LEVELS),
+        "3d_fe_27pt_128 dense": cycle(l128, 0),
     }
 
 
@@ -1608,50 +1672,52 @@ DENSE3 = ("sweep3_resident", "restrict3", "interp_add3")
 
 def phase_paths3() -> dict:
     """The 3D slice at full width (bench.py:162-171, :186-195): each
-    V-cycle configuration fused (the card's default) and dense, the fused
-    256³ V(2,2) (K14 at full width) and the fused F-cycle."""
-    dense = {"fine-split": False}
+    V-cycle configuration fused (``kernels.fine-split: true``) and dense,
+    the fused 256³ V(2,2) and the fused F-cycle, each cycle's launches
+    checked against :func:`counts3`."""
+    fused, dense = {"fine-split": True}, {"fine-split": False}
     want = counts3()
-    # the 27-point K14 runs several colours a launch: fewer K14 launches a
-    # V(1,1) cycle than the 42 and 56 of one colour a launch; K6 one launch
-    # a sweep on the dense levels that fit a block: 4, 8 and 2 on the fused
-    # cycles (34, 66 and 17 of one launch a colour phase), and fewer
-    # launches in all on the dense cycles than the 91 and 86 K6 launches of
-    # one a colour phase and the residual, with K7 and K8
-    k6 = {k: v["sweep3_resident"] + v["sweep3"] for k, v in want.items()}
-    if (want["3d_poisson_7pt_256"]["sweep3_fused"] >= 42
-            or want["3d_fe_27pt_128"]["sweep3_fused"] >= 56
-            or (k6["3d_poisson_7pt_256"], k6["3d_poisson_7pt_256 V(2,2)"],
-                k6["3d_fe_27pt_128"]) != (4, 8, 2)
-            or sum(want["3d_poisson_7pt_256 dense"].values()) >= 91 + 12
-            or sum(want["3d_fe_27pt_128 dense"].values()) >= 86 + 10):
+    # no 27-point level launches the 7-point K15 or K16: a 27-point fused
+    # level's K15 and K16 are K6's sweep and an edge launch each
+    if (want["3d_fe_27pt_128"].get("sweep_restrict3", 0)
+            or want["3d_fe_27pt_128"].get("interp_sweep3", 0)
+            or want["3d_poisson_7pt_256"]["sweep_restrict3"] != 1
+            or want["3d_fe_27pt_128"]["edge27"] != 2 * SPLIT_LEVELS + 1
+            or want["3d_poisson_7pt_256"]["edge27"]
+            != 2 * (SPLIT_LEVELS - 1)):
         raise AssertionError(f"3D launches a cycle: {want}")
     print(f"  3D launches a cycle: {want}", flush=True)
+
+    def need(cell):
+        return tuple(k for k, v in want[cell].items() if v)
+
     v7 = run_path3("3d_poisson_7pt_256", N_3D, gallery.poisson3, SevenPt,
-                   {}, DENSE3 + FUSED3, want=want["3d_poisson_7pt_256"])
+                   {}, need("3d_poisson_7pt_256"), fused,
+                   want["3d_poisson_7pt_256"])
     torch.cuda.empty_cache()
     d7 = run_path3("3d_poisson_7pt_256 dense", N_3D, gallery.poisson3,
-                   SevenPt, {}, ("sweep3",) + DENSE3 + FUSED3[:1], dense,
+                   SevenPt, {}, need("3d_poisson_7pt_256 dense"), dense,
                    want["3d_poisson_7pt_256 dense"])
     torch.cuda.empty_cache()
     v22 = run_path3("3d_poisson_7pt_256 V(2,2)", N_3D, gallery.poisson3,
                     SevenPt, {"cycle": {"nrelax-pre": 2, "nrelax-post": 2}},
-                    DENSE3 + FUSED3, want=want["3d_poisson_7pt_256 V(2,2)"])
+                    need("3d_poisson_7pt_256 V(2,2)"), fused,
+                    want["3d_poisson_7pt_256 V(2,2)"])
     torch.cuda.empty_cache()
     run_path3("3d_fe_27pt_128", N_27, gallery.fe3, TwentySevenPt, {},
-              DENSE3 + FUSED3, want=want["3d_fe_27pt_128"])
+              need("3d_fe_27pt_128"), fused, want["3d_fe_27pt_128"])
     torch.cuda.empty_cache()
     run_path3("3d_fe_27pt_128 dense", N_27, gallery.fe3, TwentySevenPt, {},
-              ("sweep3",) + DENSE3 + FUSED3[:1], dense,
+              need("3d_fe_27pt_128 dense"), dense,
               want["3d_fe_27pt_128 dense"])
     torch.cuda.empty_cache()
     f7 = run_path3("3d_poisson_fcycle_256", N_3D, gallery.poisson3, SevenPt,
                    {"cycle": {"type": "f"}},
-                   ("restrict3", "interp3") + DENSE3 + FUSED3)
+                   ("restrict3", "interp3") + DENSE3 + FUSED3, fused)
     torch.cuda.empty_cache()
     # K6's per-colour launches run on the dense cycle (its 64³ and 32³
     # levels, the 128³ level's residual)
-    return {k: v7[k] for k in DENSE3 + FUSED3} | {
+    return {k: v7[k] for k in DENSE3 + FUSED3 + ("edge27",)} | {
         "sweep3_fused": v22["sweep3_fused"], "interp3": f7["interp3"],
         "sweep3": d7["sweep3"]}
 
@@ -2040,6 +2106,22 @@ def phase_times3() -> dict:
                                                    q27, kind27, "up"),
             lambda: cuda_fused3.interp_sweep(ci27, qc27, so27, b27, q27,
                                              kind27, "up")),
+        # the edge kernel as the 27-point K15 runs it (the residual and
+        # its restriction, no residual out), and in its other modes
+        "edge27": (
+            lambda: cuda_fused3.edge_plain(so27, q27, b27, "restrict",
+                                           ci27),
+            lambda: cuda_fused3.edge(so27, q27, b27, "restrict", ci27)),
+        "edge27 interp": (
+            lambda: cuda_fused3.edge_plain(so27, q27, b27, "interp", ci27,
+                                           qc27),
+            lambda: cuda_fused3.edge(so27, q27, b27, "interp", ci27, qc27)),
+        "edge27 res": (
+            lambda: cuda_fused3.edge_plain(so27, q27, b27, "res"),
+            lambda: cuda_fused3.edge(so27, q27, b27, "res")),
+        "edge27 norm": (
+            lambda: cuda_fused3.edge_plain(so27, q27, b27, "norm"),
+            lambda: cuda_fused3.edge(so27, q27, b27, "norm")),
     }
     out = time_turns(cases)
     # K15 and K16 against the dense launches they replace (K8's interp-add
@@ -2108,6 +2190,14 @@ def phase_times3() -> dict:
                                 42 * N + 67 * N // 8),
         "interp_sweep3 27pt 128^3": ((W27 + Nc27 + 17 * N27) * e,
                                      108 * N27 + 67 * N27 // 8),
+        # the edge kernel: the 14 stencil planes, q and b read; restrict:
+        # the CI planes read and cb written; interp: CI and qc read and q
+        # written; res: res written; norm: no grid written
+        "edge27": ((W27 + 16 * N27 + Nc27) * e, 54 * N27 + 52 * Nc27),
+        "edge27 interp": ((W27 + Nc27 + 17 * N27) * e,
+                          54 * N27 + 67 * N27 // 8),
+        "edge27 res": (17 * N27 * e, 54 * N27),
+        "edge27 norm": (16 * N27 * e, 56 * N27),
     }
     for k, (nbytes, flops) in work.items():
         bms, by = bound(nbytes, flops, torch.float32)

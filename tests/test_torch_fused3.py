@@ -281,24 +281,105 @@ def test_fused3_ops_equal_dense_ops(ts, updown):
     assert torch.equal(gq, dq) and torch.equal(gr, dr)
 
 
+# --- the edge kernel's plain version ---------------------------------------
+
+@pytest.mark.parametrize("shape", F64_SHAPES + [(12, 9, 14)])
+def test_edge_plain_matches_jax_f64(shape):
+    """The edge kernel's plain version in each mode against cedar_tpu's
+    dense XLA ops in float64 at odd and ragged shapes: the residual, its
+    norm, cb = Pᵀ res (with and without the residual out) and the
+    interp-add of the recomputed residual."""
+    so, q, b, ci, qc = _problem(81 + shape[0], shape, True, np.float64)
+    jkind = JKind.twenty_seven_pt
+    jso, jq, jb = jnp.asarray(so), jnp.asarray(q), jnp.asarray(b)
+    tso, tq, tb, tci, tqc = _t(so, q, b, ci, qc)
+    want_r = jresidual(jso, jq, jb, jkind)
+    _close64(cuda_fused3.edge_plain(tso, tq, tb, "res"), want_r)
+    np.testing.assert_allclose(
+        float(cuda_fused3.edge_plain(tso, tq, tb, "norm").sum()),
+        float(jnp.sum(want_r * want_r)), rtol=1e-12)
+    want_cb = jinterp3.restrict(jnp.asarray(ci), want_r)
+    for emit in (False, True):
+        r, cb = cuda_fused3.edge_plain(tso, tq, tb, "restrict", tci,
+                                       emit_res=emit)
+        _close64(cb, want_cb)
+        if emit:
+            _close64(r, want_r)
+        else:
+            assert r is None
+    want_q = jinterp3.interp_add(jnp.asarray(ci), jso, jnp.asarray(qc),
+                                 want_r, jq)
+    got = cuda_fused3.edge_plain(tso, tq, tb, "interp", tci, tqc)
+    _close64(got, want_q)
+    np.testing.assert_array_equal(tq.numpy(), q)   # out of place
+
+
+def test_edge_plain_composes_the_fused_ops():
+    """K15's and K16's plain versions are, bit for bit, the sweep followed
+    by the edge kernel's restriction and the edge kernel's interpolation
+    followed by the sweep (+ the norm), as the 27-point kernels compose
+    them on the card."""
+    so, q, b, ci, qc = _problem(83, (13, 10, 11), True, np.float64)
+    kind = StencilKind.twenty_seven_pt
+    tso, tq, tb, tci, tqc = _t(so, q, b, ci, qc)
+    gq, gr, gcb = cuda_fused3.sweep_restrict_plain(tso, tq, tb, tci, kind,
+                                                   "down", True)
+    sq = cuda3.sweep_plain(tso, tq, tb, kind, "down")
+    r, cb = cuda_fused3.edge_plain(tso, sq, tb, "restrict", tci,
+                                   emit_res=True)
+    assert torch.equal(gq, sq) and torch.equal(gr, r)
+    assert torch.equal(gcb, cb)
+    gq, gp = cuda_fused3.interp_sweep_plain(tci, tqc, tso, tb, tq, kind,
+                                            "up", fuse_norm=True)
+    mid = cuda_fused3.edge_plain(tso, tq, tb, "interp", tci, tqc)
+    sq = cuda3.sweep_plain(tso, mid, tb, kind, "up")
+    assert torch.equal(gq, sq)
+    assert torch.equal(gp, cuda_fused3.edge_plain(tso, sq, tb, "norm"))
+
+
+@pytest.mark.parametrize("bad", ["kind", "ci", "qc", "mode"])
+def test_edge_checks(bad):
+    """The edge kernel takes a 27-point level, the coarse level's CI and
+    the coarse values of its shape, and one of its four modes."""
+    so, q, b, ci, qc = _problem(84, (9, 11, 6), True, np.float64)
+    tso, tq, tb, tci, tqc = _t(so, q, b, ci, qc)
+    mode = "interp"
+    if bad == "kind":
+        tso = tso[:4]
+    elif bad == "ci":
+        tci = tci[:, :, :4]
+    elif bad == "qc":
+        tqc = tqc[:, :5]
+    with pytest.raises(KeyError if bad == "mode" else ValueError):
+        cuda_fused3.edge_plain(tso, tq, tb, "sweep" if bad == "mode"
+                               else mode, tci, tqc)
+
+
 # --- dispatch, counters and checks -----------------------------------------
 
 def test_cpu_dispatch_uses_plain_versions():
-    so, q, b, ci, qc = _problem(71, (9, 11, 6), False, np.float64)
-    kind = StencilKind.seven_pt
-    tso, tq, tb, tci, tqc = _t(so, q, b, ci, qc)
     names = ("sweep", "sweep_restrict", "interp_sweep")
     plain = [getattr(cuda_fused3, f"{n}_plain_calls") for n in names]
     launches = [getattr(cuda_fused3, f"{n}_launches") for n in names]
-    k6, k7 = cuda3.plain_calls, cuda_transfer3.restrict_plain_calls
-    fused3.point_relax_split3(tso, tq, tb, kind, "down")
-    fused3.sweep_restrict_split3(tso, tq, tb, tci, kind, "down")
-    fused3.interp_sweep_split3(tci, tqc, tso, tb, tq, kind, "up")
+    edge = (cuda_fused3.edge_launches, cuda_fused3.edge_plain_calls)
+    k6 = (cuda3.plain_calls, cuda3.launches, cuda3.resident_launches)
+    k7 = cuda_transfer3.restrict_plain_calls
+    for ts in (False, True):
+        so, q, b, ci, qc = _problem(71, (9, 11, 6), ts, np.float64)
+        kind, _ = _kinds(ts)
+        tso, tq, tb, tci, tqc = _t(so, q, b, ci, qc)
+        fused3.point_relax_split3(tso, tq, tb, kind, "down")
+        fused3.sweep_restrict_split3(tso, tq, tb, tci, kind, "down")
+        fused3.interp_sweep_split3(tci, tqc, tso, tb, tq, kind, "up")
     for n, p, k in zip(names, plain, launches):
-        assert getattr(cuda_fused3, f"{n}_plain_calls") == p + 1
+        assert getattr(cuda_fused3, f"{n}_plain_calls") == p + 2
         assert getattr(cuda_fused3, f"{n}_launches") == k
-    # the plain versions compose torch ops, not the dense wrappers
-    assert cuda3.plain_calls == k6
+    # no kernel launched: neither the edge kernel nor K6's; the plain
+    # versions compose torch ops, not the dense wrappers or the edge
+    # kernel's plain version
+    assert (cuda_fused3.edge_launches, cuda_fused3.edge_plain_calls) == edge
+    assert (cuda3.plain_calls, cuda3.launches,
+            cuda3.resident_launches) == k6
     assert cuda_transfer3.restrict_plain_calls == k7
 
 
@@ -312,6 +393,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         cuda_fused3.sweep_restrict(tso, tq, tb, tci, kind, "down")
     with pytest.raises(ValueError, match="not on CUDA"):
         cuda_fused3.interp_sweep(tci, tqc, tso, tb, tq, kind, "down")
+    for mode in cuda_fused3.EDGE_MODES:
+        with pytest.raises(ValueError, match="not on CUDA"):
+            cuda_fused3.edge(tso, tq, tb, mode, tci, tqc)
 
 
 @pytest.mark.parametrize("bad", ["kind", "batch", "so", "ci", "qc",
@@ -357,38 +441,35 @@ def test_fused3_checks(bad):
                          ids=["none", "norm"])
 def test_colour_passes_follow_color_order(ts, updown, stages, mode):
     """The kernels' colour passes are relax3.color_order's, in order: two
-    colours a launch for 7-point (K14 on the ring design); 27-point (DOWN sweeps colours 8..1) a
-    K14 sweep, a pre-sweep's K14 marches then K15 on the last colour, a
-    post-sweep's K16 on the first colour then K14 marches, each march one
-    block of ``stages`` positions of the colour order; with an epilogue, a
-    sweep's or post-sweep's last colour goes to a one-colour K14 of the
-    window design; a march packs into 4-bit codes with the no-colour code
-    past its last."""
+    colours a launch for 7-point (K14, K15 or K16 on the ring design);
+    27-point (DOWN sweeps colours 8..1) K14 marches, each one block of
+    ``stages`` positions of the colour order, whatever the role; a march
+    packs into 4-bit codes with the no-colour code past its last.  A
+    27-point K14, K15 or K16 call at 128³ float32 (K6's route: the
+    marches) runs exactly those marches, after K16's interpolation and
+    before K15's restriction or the norm (``mode``), edge launches."""
     kind = StencilKind.twenty_seven_pt if ts else StencilKind.seven_pt
     order = relax3.color_order(kind, updown)
-    epi = mode != cuda_fused3._NONE
-    for role, own, ends in (("sweep", "ring", ("pass27", "K14")),
-                            ("restrict", "K15", ("pass27", "K15")),
-                            ("interp", "K16", ("K16", "K14"))):
-        passes = cuda_fused3.passes(stages, kind, updown, role, mode)
+    for role, own in (("sweep", "ring"), ("restrict", "K15"),
+                      ("interp", "K16")):
+        passes = cuda_fused3.passes(stages, kind, updown, role)
         assert [c for _, g in passes for c in g] == order
         if not ts:
             assert passes == ((own, tuple(order)),)
             continue
-        first, last = ends
-        if role != "restrict" and not epi:
-            last = "pass27"
-        assert (passes[0][0], passes[-1][0]) == (first, last)
-        lo = int(role == "interp")
-        hi = 8 - (role == "restrict" or epi)
-        marches = [g for k, g in passes if k == "pass27"]
-        assert len(marches) == -(-hi // stages) - lo // stages
-        for g in marches:
-            assert 1 <= len(g) <= stages
+        assert len(passes) == -(-8 // stages)
+        for k, g in passes:
+            assert k == "pass27" and 1 <= len(g) <= stages
             assert len({order.index(c) // stages for c in g}) == 1
             packed = cuda_fused3._pack(g, stages)
             codes = [(packed >> (4 * k)) & 15 for k in range(stages)]
             assert codes == list(g) + [cuda_fused3.NO_COLOR] * (
                 stages - len(g))
-        assert len(passes) - len(marches) == (role != "sweep") + (
-            role != "restrict" and epi)
+        m = cuda_fused3._NONE if role == "restrict" else mode
+        got = cuda_fused3.launch_list(4, kind, (128,) * 3, updown, role, m,
+                                      stages)
+        head = (("edge27", "interp"),) if role == "interp" else ()
+        tail = ((("edge27", "restrict"),) if role == "restrict" else
+                (("edge27", "norm"),) if m == cuda_fused3._NORM else ())
+        assert got == head + tuple(("sweep3_fused", g)
+                                   for _, g in passes) + tail

@@ -192,8 +192,8 @@ def test_fused_launch_pattern(pre, post, split_levels, want):
     """Per cycle: K15 and K16 once on each fused level, K14 for the other
     sweeps (the last post-sweep of the top level with the norm); the
     levels below split-levels run the dense cycle.  (These count the ops;
-    on the card a 27-point op launches one more K14 for its other four
-    colours.)"""
+    on the card a 27-point op is K6's sweep and an edge launch,
+    ``cuda_fused3.launch_list``.)"""
     so = gallery.poisson3(65, 65, 65, torch.float64, "cpu")
     b = gallery.poisson3_rhs(65, 65, 65, torch.float64, "cpu")
     cycle = {"nrelax-pre": pre, "nrelax-post": post}
@@ -216,11 +216,15 @@ def test_fused_launch_pattern(pre, post, split_levels, want):
     ({"fine-split": False}, False, 4),
     ({"fine-split": True, "split-levels": 2}, True, 2),
     ({"backend": "pallas"}, False, 4),
+    ({"split-levels": 3}, False, 3),
+    ({"fine-split": True, "split-levels": 3}, True, 3),
 ])
 def test_fine_split_settings(kernels, fused, split_levels):
-    """On the CPU the cycle stays dense unless the config asks for the
-    fused one; split-levels is honoured (cedar_tpu/solver/solver3.py:
-    234-236, with "the kernels run" meaning the operator is on the card)."""
+    """The cycle stays dense unless the config asks for the fused one (on
+    the card too: there the fused 3D cycle measured slower than the dense
+    one, PERF.md §6, where cedar_tpu/solver/solver3.py:234-236 turns
+    it on with its kernels); an explicit ``fine-split: true`` selects it;
+    split-levels is honoured."""
     s = Solver3(gallery.poisson3(17, 17, 17, device="cpu"), SevenPt,
                 {"log": [], "kernels": kernels})
     assert s.settings.fine_split is fused
