@@ -12,6 +12,7 @@ Nothing here runs at import: the CPU tests import every module of the port.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -45,9 +46,11 @@ SIGNATURES = {
                          _I, _L, _P],
     },
     "transfer2": {
-        "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # K2 and K3 end with their plan: seg, nseg, threads, gy
+        "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
         "cedar_interp_add2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _P],
+                              _I, _I, _I, _I, _P],
         "cedar_interp2": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "lines2": {
@@ -256,6 +259,13 @@ def stream_of(t: torch.Tensor) -> int:
             f"cuda:{torch.cuda.current_device()}"
         )
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def n_sm(device: torch.device) -> int:
+    """The SMs of a CUDA device (the launch plans size their grids by
+    it), read once."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check_operands(*tensors: torch.Tensor) -> int:

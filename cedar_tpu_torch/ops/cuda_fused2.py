@@ -134,10 +134,6 @@ def _build_of(lib) -> tuple[int, int]:
     return lib.cedar_fused2_threads(), lib.cedar_fused2_ahead()
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
 
 def _check(so, q, b, kind: StencilKind) -> None:
     if kind not in (StencilKind.five_pt, StencilKind.nine_pt):
@@ -233,7 +229,7 @@ def _sweep_restrict(lib, so, q, b, ci, kind, updown, emit_res=True):
     lib = lib or cuda_build.load("fused2")
     nine = kind == StencilKind.nine_pt
     p = plan(q.element_size(), nine, _RESTRICT, tuple(q.shape),
-             _n_sm(q.device), _build_of(lib))
+             cuda_build.n_sm(q.device), _build_of(lib))
     q_out = torch.empty_like(q)
     res = torch.empty_like(q) if emit_res else None
     cb = q.new_empty((nxc, nyc))
@@ -275,7 +271,7 @@ def _interp_sweep(lib, ci, qc, so, b, q_pre, kind, updown,
     mode = _mode(fuse_residual, fuse_norm)
     nine = kind == StencilKind.nine_pt
     p = plan(q_pre.element_size(), nine, mode, tuple(q_pre.shape),
-             _n_sm(q_pre.device), _build_of(lib))
+             cuda_build.n_sm(q_pre.device), _build_of(lib))
     q_out, extra = _outputs(lib, q_pre, kind, mode, p.blocks)
     colors, _ = relax2.pack_colors(kind, updown)
     nx, ny = q_pre.shape

@@ -295,10 +295,6 @@ def edge_plan(itemsize: int, mode: int, shape, n_sm: int = 132,
     return EdgePlan(ty, tz, cx, gz, gy, gc, smem, threads, per_sm)
 
 
-@functools.lru_cache(maxsize=None)
-def _n_sm(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
 
 def _pack(codes, slots: int = 0) -> int:
     """Colour codes packed 4 bits each in order, :data:`NO_COLOR` in the
@@ -410,7 +406,8 @@ def _ring_pass(lib, dt: int, so, q_in, b, colors, origin, mode: int):
     global sweep_launches
     rows, blocks = _ring14_of(lib)
     itemsize = q_in.element_size()
-    p = plan(itemsize, False, mode, tuple(q_in.shape), _n_sm(q_in.device),
+    p = plan(itemsize, False, mode, tuple(q_in.shape),
+             cuda_build.n_sm(q_in.device),
              rows[itemsize], blocks)
     q_out = torch.empty_like(q_in)
     extra = _extra(q_in, mode, p.blocks)
@@ -436,7 +433,8 @@ def _marches(lib, dt: int, so, q, b, launches, origin):
     owned = False  # q is a buffer of this call's
     ox, oy, oz = (int(o) for o in origin)
     m = _stages_of(lib)
-    p = pass27_plan(q.element_size(), tuple(q.shape), _n_sm(q.device), m)
+    p = pass27_plan(q.element_size(), tuple(q.shape),
+                    cuda_build.n_sm(q.device), m)
     for _, colors in launches:
         q_out = torch.empty_like(q) if spare is None else spare
         cuda_build.check(
@@ -538,7 +536,7 @@ def _sweep_restrict(lib, ty, so, q, b, ci, kind, updown, emit_res):
     res = torch.empty_like(q) if emit_res else None
     cb = q.new_empty((nxc, nyc, nzc))
     p = plan(q.element_size(), False, _RESTRICT, tuple(q.shape),
-             _n_sm(q.device), ty)
+             cuda_build.n_sm(q.device), ty)
     cuda_build.check(
         lib.cedar_sweep_restrict3(dt, so.data_ptr(), q.data_ptr(),
                                   b.data_ptr(), ci.data_ptr(),
@@ -580,7 +578,7 @@ def _interp_sweep(lib, ty, ci, qc, so, b, q_pre, kind, updown,
         return _sweep27(dt, so, q, b, kind, updown, mode)
     lib = lib or cuda_build.load("fused3")
     p = plan(q_pre.element_size(), True, mode, tuple(q_pre.shape),
-             _n_sm(q_pre.device), ty)
+             cuda_build.n_sm(q_pre.device), ty)
     q_out = torch.empty_like(q_pre)
     extra = _extra(q_pre, mode, p.blocks)
     cuda_build.check(
@@ -630,8 +628,8 @@ def launch_edge(dt: int, mode: int, so, q, b, ci=None, qc=None,
     (:mod:`cuda3`).  Returns what :func:`edge` does."""
     global edge_launches
     lib = lib or cuda_build.load("edge3")
-    p = edge_plan(q.element_size(), mode, tuple(q.shape), _n_sm(q.device),
-                  _edge_of(lib))
+    p = edge_plan(q.element_size(), mode, tuple(q.shape),
+                  cuda_build.n_sm(q.device), _edge_of(lib))
     res, nc = None, (0, 0, 0)
     if mode == _RESTRICT:
         nc = _coarse_shape(ci, q.shape)

@@ -14,9 +14,17 @@ residual; interp-add updates ``q`` in place (both versions do).  Restrict
 and interp-add also take a batch of planes in one launch: ``res`` / ``q``
 ``(B, nx, ny)``, ``so`` ``(ndir, B, nx, ny)``, CI ``(8, B, nxc+1, nyc+1)``.
 ``*_launches`` count kernel launches, ``*_plain_calls`` plain-version calls.
+
+Restrict and interp-add launch on a :func:`plan` that this module computes
+from the shapes and the launch checks: segments of lanes over consecutive
+coarse columns of one row of one plane, the rows of every plane one after
+the other, so that a block of small planes holds several whole planes.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 
@@ -28,6 +36,66 @@ interp2_launches = 0
 restrict_plain_calls = 0
 interp_plain_calls = 0
 interp2_plain_calls = 0
+
+
+#: threads a K2 or K3 block, largest first: :func:`plan` takes the largest
+#: whose launch still has a block for every SM
+THREADS = (256, 128, 64)
+#: the H100's SMs
+N_SM = 132
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A K2 or K3 launch (csrc/transfer2.cu checks it): segments of ``seg``
+    lanes (a power of two up to a warp) over consecutive coarse columns of
+    one row, ``nseg`` segments a row; blocks of ``threads`` threads, that
+    is ``threads // seg`` rows; a grid of ``(nseg, gy)`` blocks over
+    ``rows`` rows: K2's coarse rows, ``B * nxc``, or K3's cell rows, ``B *
+    (nxc + 1)`` (cell k holds fine rows 2k-1 and 2k)."""
+    seg: int
+    nseg: int
+    threads: int
+    gy: int
+    rows: int
+
+    @property
+    def regime(self) -> str:
+        """``packed`` where a warp holds several rows (planes of at most 16
+        coarse columns), else ``strip`` (a warp a row segment)."""
+        return "packed" if self.seg < 32 else "strip"
+
+    @property
+    def blocks(self) -> int:
+        return self.nseg * self.gy
+
+
+@functools.lru_cache(maxsize=512)
+def plan(kernel: str, shape, n_sm: int = N_SM) -> Plan:
+    """The launch of K2 (``kernel`` ``"restrict"``) or K3
+    (``"interp_add"``) on a ``(B, nx, ny)`` batch of fine planes: a segment
+    of the smallest power of two lanes that holds the ``nyc`` coarse
+    columns, at most a warp; the most threads a block that still give each
+    of ``n_sm`` SMs a block."""
+    nb, nx, ny = shape
+    nxc, nyc = (nx - 1) // 2 + 1, (ny - 1) // 2 + 1
+    if kernel not in ("restrict", "interp_add"):
+        raise ValueError(f"no transfer plan for {kernel!r}")
+    rows = nb * (nxc if kernel == "restrict" else nxc + 1)
+    seg = min(32, 1 << (nyc - 1).bit_length())
+    nseg = -(-nyc // seg)
+    for threads in THREADS:
+        gy = -(-rows // (threads // seg))
+        if nseg * gy >= n_sm:
+            break
+    if gy > 65535:
+        raise ValueError(f"{kernel} on {tuple(shape)}: {gy} blocks of rows")
+    return Plan(seg, nseg, threads, gy, rows)
+
+
+def _planes(grid: torch.Tensor) -> tuple[int, int, int]:
+    """``(B, nx, ny)`` of a ``(nx, ny)`` or ``(B, nx, ny)`` tensor."""
+    return (_batch(grid), *grid.shape[-2:])
 
 
 def _coarse_shape(ci: torch.Tensor, fine_shape) -> tuple[int, int]:
@@ -62,9 +130,11 @@ def restrict(ci: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     lib = cuda_build.load("transfer2")
     cb = res.new_empty(res.shape[:-2] + (nxc, nyc))
     nx, ny = res.shape[-2:]
+    p = plan("restrict", _planes(res), cuda_build.n_sm(res.device))
     cuda_build.check(
         lib.cedar_restrict2(dt, ci.data_ptr(), res.data_ptr(), cb.data_ptr(),
-                            nx, ny, nxc, nyc, nb, cuda_build.stream_of(res)),
+                            nx, ny, nxc, nyc, nb, p.seg, p.nseg, p.threads,
+                            p.gy, cuda_build.stream_of(res)),
         "restrict2",
     )
     restrict_launches += 1
@@ -88,10 +158,12 @@ def interp_add(ci, so, qc, res, q) -> torch.Tensor:
     dt = cuda_build.check_operands(ci, so, qc, res, q)
     lib = cuda_build.load("transfer2")
     nx, ny = q.shape[-2:]
+    p = plan("interp_add", _planes(q), cuda_build.n_sm(q.device))
     cuda_build.check(
         lib.cedar_interp_add2(dt, ci.data_ptr(), so.data_ptr(), qc.data_ptr(),
                               res.data_ptr(), q.data_ptr(), nx, ny, nxc, nyc,
-                              nb, cuda_build.stream_of(q)),
+                              nb, p.seg, p.nseg, p.threads, p.gy,
+                              cuda_build.stream_of(q)),
         "interp_add2",
     )
     interp_launches += 1

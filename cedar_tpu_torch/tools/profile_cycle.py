@@ -18,6 +18,9 @@ cycles as the solve runs them, then traces ten cycles with
 * wall ms per cycle (CUDA events) and the device's busy and idle share
   (summed kernel time over wall time);
 * device time per kernel name, per cycle;
+* device time and launches of the 2D transfers K2 and K3 per cycle
+  (csrc/transfer2.cu ``restrict_kernel``, ``interp_add_kernel``; the 3D
+  kernels of those names, with six int parameters, not counted);
 * host time per profiler scope ("relaxation", "restrict", …), per cycle
   (with plane relaxation the embedded 2D cycles' scopes run inside the
   outer "relaxation" and count in both).
@@ -27,10 +30,16 @@ Run from the repository root on a machine with a CUDA device:
     python3 -m cedar_tpu_torch.tools.profile_cycle \
         [vcycle|vcycle-dense|linexy|fcycle|vcycle3|vcycle3-dense|fe27|
          fe27-dense|fcycle3|planexy]
+
+To profile another checkout (for example the parent commit, unpacked with
+``git archive`` into DIR), run the script by path with that checkout
+first on the path: ``PYTHONPATH=DIR python3
+cedar_tpu_torch/tools/profile_cycle.py planexy``.
 """
 
 from __future__ import annotations
 
+import re
 import sys
 
 import torch
@@ -79,6 +88,18 @@ def _device_us(evt) -> float:
     return 0.0
 
 
+def transfer2(key: str) -> str | None:
+    """"K2" or "K3" for a profiler key of the 2D restrict or interp-add
+    kernel (five int parameters; those of csrc/transfer3.cu have six),
+    else None."""
+    for kernel, label in (("restrict_kernel<", "K2"),
+                          ("interp_add_kernel<", "K3")):
+        if kernel in key:
+            params = key.split(kernel, 1)[1]
+            return label if len(re.findall(r"\bint\b", params)) == 5 else None
+    return None
+
+
 def main(name: str = "vcycle") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_cycle: no CUDA device")
@@ -115,6 +136,7 @@ def main(name: str = "vcycle") -> None:
 
     dev_ms = {}
     host_ms = {}
+    k23 = {"K2": [0.0, 0], "K3": [0.0, 0]}
     for evt in prof.key_averages():
         if evt.key in SCOPES:
             # a scope's device-side copy repeats its kernels' time: take
@@ -125,6 +147,10 @@ def main(name: str = "vcycle") -> None:
         d = _device_us(evt)
         if d > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             dev_ms[evt.key] = d / 1e3 / CYCLES
+            label = transfer2(evt.key)
+            if label:
+                k23[label][0] += d / 1e3 / CYCLES
+                k23[label][1] += evt.count / CYCLES
     busy = sum(dev_ms.values())
     print(f"device: {torch.cuda.get_device_name(0)}; {name}: {n}^{dim} "
           f"float32, {s.nlevels} levels")
@@ -135,6 +161,9 @@ def main(name: str = "vcycle") -> None:
     print("device ms/cycle by kernel:")
     for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:9.4f}  {k[:100]}")
+    (k2, n2), (k3, n3) = k23["K2"], k23["K3"]
+    print(f"K2 + K3 device ms/cycle: {k2:.4f} ({n2:g} launches) + {k3:.4f} "
+          f"({n3:g}) = {k2 + k3:.4f}")
     print("host ms/cycle by scope (inclusive):")
     for k, v in sorted(host_ms.items(), key=lambda kv: -kv[1]):
         print(f"  {v:9.4f}  {k}")

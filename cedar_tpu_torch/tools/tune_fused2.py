@@ -29,6 +29,18 @@ Run from the repository root on a machine with a CUDA device:
     python3 cedar_tpu_torch/tools/tune_fused2.py [--threads 64] \
         [--ahead 2] [--probe 1 2 4 8 16 32] [--only K12]
 
+``--only K2 K3`` times the 2D transfers K2 (``ops/cuda_transfer2.restrict``)
+and K3 (``interp_add``), float32, at the batched shapes of the plane-xy
+cycle of ``3d_aniso_planexy_128`` (:func:`plane_transfer_shapes`: every
+(B, n, n) batch of fine planes its embedded cycles restrict, with the
+launches a cycle) and unbatched at 4096² (K2 4096² -> 2048², K3 4096²):
+each bit-checked against its plain version, then timed by CUDA events
+over back-to-back calls, and by the device time of its kernel under
+torch.profiler, warm (back to back) and with the L2 flushed before each
+launch (a 256 MB write between the calls, not counted), beside its bound
+(bytes at 3.35 TB/s).  Last it sums the flushed device ms of K2 + K3 over
+one plane-xy cycle, launches times ms a shape.
+
 With ``--tree DIR`` it times the kernels of another checkout (for example
 the parent commit, unpacked with ``git archive``) under the same case
 names, and with ``--probe`` also copies of that checkout whose
@@ -39,11 +51,14 @@ copy):
     python3 cedar_tpu_torch/tools/tune_fused2.py --tree DIR \
         [--probe 1 4 8 16 32] [--only K12]
 
-``--cycles`` times instead the fused 4096² V(1,1) cycle that runs K12,
-K13 and K1 (the median of 25 CUDA-event-timed cycles, as the solve runs
-them); with ``--tree DIR --pairs N`` it runs N pairs of processes, this
-checkout and DIR, alternating which goes first, and prints the medians of
-both.  Run it as a script path, not ``-m``, so that ``--tree`` wins.
+``--cycles`` times instead the cycles of the 2D cells (:data:`CELLS`):
+the fused 4096² V(1,1) cycle that runs K12, K13 and K1, and the cells
+whose cycles run K2 and K3 (the dense 4096² V(1,1), the fused V(2,2),
+the 4096² F-cycle, ``2d_fe_9pt_linexy_2048``, ``3d_aniso_planexy_128``),
+each the median of 25 CUDA-event-timed cycles as the solve runs them;
+``--only`` keeps the cells whose names hold one of its words; with
+``--tree DIR --pairs N`` it runs N pairs of processes, this checkout and
+DIR, alternating which goes first, and prints the medians of both.  Run it as a script path, not ``-m``, so that ``--tree`` wins.
 """
 
 from __future__ import annotations
@@ -115,7 +130,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     args.probe = sorted({0, *args.probe})
     if args.cycles and args.pairs:
-        return t3.cycle_pairs(__file__, args.tree, args.pairs)
+        return t3.cycle_pairs(__file__, args.tree, args.pairs,
+                              extra=["--only", *args.only] if args.only
+                              else [])
     if args.tree and len(args.probe) > 1:
         return t3.run_trees(args, __file__, "fused2", PROBES)
     sys.path.insert(0, args.tree or str(Path(__file__).resolve().parents[2]))
@@ -125,15 +142,16 @@ def main(argv=None) -> None:
         sys.exit("tune_fused2: no CUDA device")
     from cedar_tpu_torch.ops import cuda_build, cuda_fused2
 
-    cuda_build.load_all(["fused2", "sweep2"])
+    cuda_build.load_all(["fused2", "sweep2", "transfer2"])
     if args.build_only:
         return
     t3.print_card()
     print(f"kernels of {cuda_fused2.__file__}", flush=True)
     if args.cycles:
-        return cycles()
-    cases = {k: v for k, v in make_cases().items()
-             if not args.only or any(o in k.split() for o in args.only)}
+        return cycles(args.only)
+    want = (lambda k: not args.only or any(o in k.split() for o in args.only))
+    cases = {k: v for k, v in make_cases().items() if want(k)}
+    transfers = {k: v for k, v in make_transfer_cases().items() if want(k)}
     libs = {"probe=0": cuda_build.load("fused2")}
     if hasattr(cuda_fused2, "_sweep_restrict"):
         variants = {f"probe={b}": (f"CEDAR_FUSED2_PROBE={b}",)
@@ -155,6 +173,8 @@ def main(argv=None) -> None:
     k1_opts = {"plan": None}
     if hasattr(cuda2, "_sweep"):
         k1_opts["streamed"] = cuda2.Plan(0)
+    if transfers:
+        run_transfers(transfers, args.reps, not args.unchecked)
     for name, (kernel, plain) in cases.items():
         opts = k1_opts if name.startswith("K1 ") else libs
         if not args.unchecked:
@@ -218,9 +238,94 @@ def make_cases() -> dict:
     return cases
 
 
-def problem(shape, nine: bool, seed: int):
+def plane_transfer_shapes(n: int = 128) -> dict:
+    """``(B, n1, n2)`` -> K2 launches (as many K3) a plane-xy V(1,1) cycle
+    of an ``n``³ problem with the default settings: on each non-coarsest
+    3D level, 2 plane relaxations of 2 colours, each one embedded V-cycle
+    over the colour's planes with a K2 and a K3 on each non-coarsest plane
+    level."""
+    from cedar_tpu_torch.config import Config
+    from cedar_tpu_torch.settings import MLSettings
+    from cedar_tpu_torch.solver import solver2, solver3
+
+    s = MLSettings.from_config(Config({"solver": {
+        "relaxation": "plane-xy"}}))
+    shapes3 = solver3.level_shapes(n, n, n, solver3.compute_num_levels(
+        n, n, n, s.min_coarse))
+    out = {}
+    for nx, ny, nz in shapes3[:-1]:
+        for c in (0, 1):
+            nb = len(range(c, nz, 2))
+            levels2 = solver2.level_shapes(nx, ny, solver2.compute_num_levels(
+                nx, ny, s.plane_settings.min_coarse))
+            for shape in levels2[:-1]:
+                out[(nb, *shape)] = out.get((nb, *shape), 0) + 2
+    return out
+
+
+def make_transfer_cases() -> dict:
+    """name -> (kernel, plain, bytes, plane-xy launches): K2 and K3 at the
+    plane-xy cycle's batches and unbatched at 4096², float32, 5-point (K3
+    updates its q in place, its plain version a copy)."""
+    import torch
+
+    from cedar_tpu_torch.ops import cuda_transfer2 as ct
+    from cedar_tpu_torch.ops import interp2
+
+    shapes = {**plane_transfer_shapes(), (1, 4096, 4096): 0}
+    cases = {}
+    for k, ((nb, nx, ny), launches) in enumerate(shapes.items()):
+        so, q, b, kind = problem((nx, ny), False, 90 + k, nb)
+        ci = interp2.setup_interp(so, kind)
+        nxc, nyc = ci.shape[-2] - 1, ci.shape[-1] - 1
+        g = torch.Generator(device="cuda").manual_seed(190 + k)
+        qc = torch.randn(b.shape[:-2] + (nxc, nyc), generator=g,
+                         device="cuda", dtype=torch.float32)
+        tag = f"({nb}, {nx}^2)" if nb > 1 else f"{nx}^2"
+        cw = 8 * nb * (nxc + 1) * (nyc + 1)
+        cases[f"K2 {tag}"] = (
+            lambda a=(ci, b): ct.restrict(*a),
+            lambda a=(ci, b): ct.restrict_plain(*a),
+            (cw + nb * nx * ny + nb * nxc * nyc) * 4, launches)
+        cases[f"K3 {tag}"] = (
+            lambda a=(ci, so, qc, b, q): ct.interp_add(*a),
+            lambda a=(ci, so, qc, b, q): ct.interp_add_plain(
+                *a[:4], a[4].clone()),
+            (cw + nb * nxc * nyc + 4 * nb * nx * ny) * 4, launches)
+    return cases
+
+
+def run_transfers(cases: dict, reps: int, checked: bool) -> None:
+    """Each K2/K3 case bit-checked (the plain version first: K3 updates q),
+    then its event ms, warm and L2-flushed device ms and bound;
+    then the flushed device ms of K2 + K3 summed over one plane-xy
+    cycle."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    total = {"K2": 0.0, "K3": 0.0}
+    for name, (kernel, plain, nbytes, launches) in cases.items():
+        if checked:
+            want = plain()
+            t3.check(name, kernel(), want)
+        ms = t3.time_ms(kernel, reps)
+        warm = t3.device_ms(kernel, reps)
+        cold = t3.device_ms(kernel, reps, between=flush.zero_,
+                            only=("restrict_kernel", "interp_add_kernel"))
+        print(f"{name}: {ms:.5f} ms (device {warm:.5f} ms warm, {cold:.5f} "
+              f"ms L2 flushed; bound {nbytes / 3.35e12 * 1e3:.5f} ms; "
+              f"{launches} a plane-xy cycle)", flush=True)
+        total[name.split()[0]] += launches * cold
+    if any(total.values()):
+        print(f"plane-xy cycle: K2 {total['K2']:.4f} + K3 {total['K3']:.4f} "
+              f"= {sum(total.values()):.4f} device ms (L2 flushed, "
+              "launches x ms a shape)", flush=True)
+
+
+def problem(shape, nine: bool, seed: int, nb: int = 1):
     """A diagonally dominant random float32 2D stencil (chip_smoke.py's
-    ``random_problem``) with random q and b on the card."""
+    ``random_problem``) with random q and b on the card; ``nb`` > 1: a
+    ``(nb, nx, ny)`` batch of planes (stencil ``(ndir, nb, nx, ny)``)."""
     import torch
 
     from cedar_tpu_torch.core.types import StencilKind
@@ -229,18 +334,20 @@ def problem(shape, nine: bool, seed: int):
     dev, dt = "cuda", torch.float32
     g = torch.Generator(device=dev).manual_seed(seed)
     nx, ny = shape
+    batch = (nb,) if nb > 1 else ()
+    shape = (*batch, nx, ny)
 
     def u(lo, hi, *s):
-        return lo + (hi - lo) * torch.rand(s, generator=g, device=dev,
-                                           dtype=dt)
+        return lo + (hi - lo) * torch.rand((*batch, *s), generator=g,
+                                           device=dev, dtype=dt)
 
     kind = StencilKind.nine_pt if nine else StencilKind.five_pt
-    so = torch.zeros((kind.ndirs, nx, ny), dtype=dt, device=dev)
-    so[1, 1:, :] = u(0.5, 1.5, nx - 1, ny)
-    so[2, :, 1:] = u(0.5, 1.5, nx, ny - 1)
+    so = torch.zeros((kind.ndirs, *shape), dtype=dt, device=dev)
+    so[1, ..., 1:, :] = u(0.5, 1.5, nx - 1, ny)
+    so[2, ..., :, 1:] = u(0.5, 1.5, nx, ny - 1)
     if nine:
-        so[3, 1:, 1:] = u(0.1, 0.5, nx - 1, ny - 1)
-        so[4, 1:, 1:] = u(0.1, 0.5, nx - 1, ny - 1)
+        so[3, ..., 1:, 1:] = u(0.1, 0.5, nx - 1, ny - 1)
+        so[4, ..., 1:, 1:] = u(0.1, 0.5, nx - 1, ny - 1)
     so[0] = offdiag_apply(so, torch.ones(shape, dtype=dt, device=dev),
                           kind) + u(0.05, 0.2, nx, ny)
     q = torch.randn(shape, generator=g, device=dev, dtype=dt)
@@ -248,24 +355,57 @@ def problem(shape, nine: bool, seed: int):
     return so, q, b, kind
 
 
-def cycles(ncycles: int = 25) -> None:
-    """The median, min and max CUDA-event time of ``ncycles`` fused 4096²
-    Poisson V(1,1) cycles, after three warm-up cycles, each as the solve
-    runs it (with the convergence residual, no readback)."""
+#: the 2D cells timed by --cycles: name -> (n, dimension, gallery
+#: operator, stencil kind, solver settings, kernels settings)
+CELLS = {
+    "2d_poisson_4096": (4096, 2, "poisson", "FivePt", {}, {}),
+    "2d_poisson_4096-dense": (4096, 2, "poisson", "FivePt", {},
+                              {"fine-split": False}),
+    "2d_poisson_4096_v22": (4096, 2, "poisson", "FivePt", {"cycle": {
+        "nrelax-pre": 2, "nrelax-post": 2}}, {}),
+    "2d_poisson_fcycle_4096": (4096, 2, "poisson", "FivePt", {"cycle": {
+        "type": "f"}}, {}),
+    "2d_fe_9pt_linexy_2048": (2048, 2, "fe", "NinePt", {
+        "relaxation": "line-xy"}, {}),
+    "3d_aniso_planexy_128": (128, 3, "diag_diffusion3", "SevenPt", {
+        "relaxation": "plane-xy"}, {}),
+}
+
+
+def cycles(only=None, ncycles: int = 25) -> None:
+    """The median, min and max CUDA-event time of ``ncycles`` cycles of
+    each cell of :data:`CELLS` (or those whose names hold a word of
+    ``only``), after three warm-up cycles, each as the solve runs it (with
+    the convergence residual, no readback)."""
     import torch
 
     import cedar_tpu_torch as ct
-    from cedar_tpu_torch.solver import cycle2
+    from cedar_tpu_torch.solver import cycle2, cycle3
 
-    n, dev = 4096, torch.device("cuda", 0)
-    conf = ct.Config({"log": [], "solver": {"cycle": {
-        "nrelax-pre": 1, "nrelax-post": 1}}})
-    s = ct.Solver2(ct.gallery.poisson(n, n, torch.float32, dev), ct.FivePt,
-                   conf)
-    b = ct.gallery.poisson_rhs(n, n, torch.float32, dev)
-    t3.time_cycles("2d_poisson_4096", lambda x: cycle2.cycle_residual(
-        s.levels, s.kinds, x, b, s.settings)[0], torch.zeros_like(b),
-        ncycles)
+    dev = torch.device("cuda", 0)
+    for name, (n, dim, make, kind, solver, kernels) in CELLS.items():
+        if only and not any(o in name for o in only):
+            continue
+        cyc = solver.get("cycle", {})
+        conf = ct.Config({"log": [], "kernels": kernels, "solver": {
+            **solver, "cycle": {"nrelax-pre": 1, "nrelax-post": 1, **cyc}}})
+        shape = (n,) * dim
+        if make == "diag_diffusion3":
+            so = ct.gallery.diag_diffusion3(*shape, 1.0, 1.0, 1e-3,
+                                            torch.float32, dev)
+        else:
+            so = getattr(ct.gallery, make)(*shape, torch.float32, dev)
+        solver_cls, rhs, mod = ((ct.Solver2, ct.gallery.poisson_rhs, cycle2)
+                                if dim == 2 else
+                                (ct.Solver3, ct.gallery.poisson3_rhs, cycle3))
+        s = solver_cls(so, getattr(ct, kind), conf)
+        b = rhs(*shape, torch.float32, dev)
+        pre, post = (cyc.get("nrelax-pre", 1), cyc.get("nrelax-post", 1))
+        label = ("F" if cyc.get("type") == "f" else "V") + f"({pre},{post})"
+        t3.time_cycles(name, lambda x: mod.cycle_residual(
+            s.levels, s.kinds, x, b, s.settings)[0], torch.zeros_like(b),
+            ncycles, label)
+        del s, so, b
 
 
 if __name__ == "__main__":

@@ -260,9 +260,11 @@ def cycles(order: str = "fused", ncycles: int = 25) -> None:
         del s, b
 
 
-def time_cycles(name: str, one, x, ncycles: int) -> None:
+def time_cycles(name: str, one, x, ncycles: int,
+                label: str = "V(1,1)") -> None:
     """Prints the median, min and max CUDA-event ms of ``ncycles`` calls of
-    ``one`` (x -> x), after three warm-up calls."""
+    ``one`` (x -> x), after three warm-up calls; ``label`` names the
+    cycle."""
     import statistics
 
     import torch
@@ -278,13 +280,13 @@ def time_cycles(name: str, one, x, ncycles: int) -> None:
         e1.record()
     torch.cuda.synchronize()
     ms = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
-    print(f"{name} V(1,1) cycle ms: median "
+    print(f"{name} {label} cycle ms: median "
           f"{statistics.median(ms):.4f}, min {ms[0]:.4f}, "
           f"max {ms[-1]:.4f}", flush=True)
 
 
 def cycle_pairs(script: str, tree: str | None, pairs: int,
-                orders: bool = False) -> None:
+                orders: bool = False, extra=()) -> None:
     """``pairs`` pairs of ``script --cycles`` processes, this checkout's
     and ``tree``'s, alternating which runs first (hosts differ between
     runs), or without ``tree`` ``pairs`` processes of this checkout;
@@ -302,14 +304,14 @@ def cycle_pairs(script: str, tree: str | None, pairs: int,
         sides = ("this",) if tree is None else (
             ("this", "tree") if k % 2 == 0 else ("tree", "this"))
         for side in sides:
-            cmd = [sys.executable, me, "--cycles"] + (
+            cmd = [sys.executable, me, "--cycles", *extra] + (
                 ["--tree", tree] if side == "tree" else []) + (
                 ["--order", ("fused", "dense")[k % 2]] if orders else [])
             out = subprocess.run(cmd, capture_output=True, text=True,
                                  check=True).stdout
             print(f"[pair {k} {side}]\n{out}", end="", flush=True)
             runs[side].append(dict(re.findall(
-                r"(\S+) V\(1,1\) cycle ms: median ([\d.]+)", out)))
+                r"(\S+) [VF]\(\d,\d\) cycle ms: median ([\d.]+)", out)))
     for side in ("this", "tree"):
         for cell in runs[side][0] if runs[side] else ():
             if cell + "-dense" not in runs[side][0]:
@@ -653,11 +655,13 @@ def run_k6(name: str, kernel, plain, q, opts: dict, reps: int,
               flush=True)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, between=None, only=()) -> float:
     """The device time of the kernels that ``fn`` launches, ms a call: the
     sum over ``reps`` calls under torch.profiler.  Beside the CUDA-event
     time of back-to-back calls, which a wrapper's host time bounds at the
-    small levels."""
+    small levels.  ``between``: called before each call (an L2 flush), its
+    kernels not counted when ``only`` names the kernels to count (parts of
+    their names)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -666,10 +670,14 @@ def device_ms(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if between is not None:
+                between()
             fn()
         torch.cuda.synchronize()
     us = 0.0
     for evt in prof.key_averages():
+        if only and not any(o in evt.key for o in only):
+            continue
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             # the attribute's name changed across PyTorch releases
             us += next((float(getattr(evt, k)) for k in (

@@ -35,9 +35,13 @@ Phases (each raises on failure; nothing is caught):
    at SHAPES_B (from (64, 128, 128) float32 to lines of 63-65 points and
    lines too long for shared memory), 5- and 9-point, DOWN and UP, 1 and
    2 sweeps, with and without the residual,
-   and the batched restrict and interp-add (K2, K3) at (64, 128, 128)
-   float32 and (5, 33, 17) float64, a batch of one against the unbatched
-   launch; then the fused fine-level kernels, sweep (K11),
+   and the batched restrict and interp-add (K2, K3, bit-equal) at
+   SHAPES_BT, a batch of one against the unbatched launch; K2 and K3
+   (bit-equal) also at every batch of planes of the plane-xy cycle, at odd
+   and even sizes and at the dense levels of the 4096² path and of the
+   400² gate (TRANSFER_SHAPES), float32 and float64, and with q, res and
+   the stencil at odd element offsets; then the fused fine-level kernels,
+   sweep (K11),
    sweep-residual-restrict (K12) and interp-add-sweep (K13), at the 2D
    shapes and (5, 4) float64, 5- and 9-point, DOWN and UP, every output
    mode, K11 with and without an origin: q, the residual and cb bit-equal,
@@ -92,7 +96,9 @@ Phases (each raises on failure; nothing is caught):
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
    own entry, ``sweep2_resident``, in the kernel table; ``sweep2`` is the
-   streamed one); K10 and the batched K2/K3 at (64, 128, 128);
+   streamed one); K10 and the batched K2/K3 at (64, 128, 128); K2 and
+   K3 also by their device time with the L2 flushed, at 4096² and (64,
+   128, 128);
    K12 and K13 against the dense sequences they replace (K1 with the
    residual, then K2; K3, then K1; K13 also 9-point at 2048²); K14-K16 at
    256³ 7-point and 128³ 27-point (a whole 27-point K14 sweep, the fused
@@ -135,6 +141,8 @@ from cedar_tpu_torch.ops import (
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
 from cedar_tpu_torch.solver import cycle2, cycle3
+from cedar_tpu_torch.tools.tune_fused2 import plane_transfer_shapes
+from cedar_tpu_torch.tools.tune_fused3 import device_ms
 
 CEDAR_HISTORY = [
     0.388629, 0.0443548, 0.00494131, 0.000513399, 5.44908e-05,
@@ -208,7 +216,16 @@ LINE_SHAPES = [((63, 65), torch.float32), ((64, 63), torch.float64),
 SHAPES_B = [((64, 128, 128), torch.float32), ((7, 33, 21), torch.float64),
             ((5, 4, 3), torch.float64), ((3, 63, 65), torch.float32),
             ((2, 64, 1000), torch.float64), ((1, 5, 7000), torch.float64)]
-SHAPES_BT = [((64, 128, 128), torch.float32), ((5, 33, 17), torch.float64)]
+SHAPES_BT = [((64, 128, 128), torch.float32), ((5, 33, 17), torch.float64),
+             ((3, 129, 65), torch.float32), ((7, 2, 3), torch.float64)]
+# K2 and K3's further shapes (B, nx, ny), float32 and float64, beside the
+# plane-xy cycle's batches (tools/tune_fused2.plane_transfer_shapes): odd and even sizes, a row or a
+# column of one point, and unbatched the 4096² path's dense levels (256²
+# .. 8²) and the 400² gate's levels (200² .. 7²; 400² is in SHAPES)
+TRANSFER_SHAPES = ([(3, 129, 65), (5, 33, 17), (7, 2, 3), (1, 65, 63),
+                    (2, 1, 9), (4, 9, 1), (2, 66, 130)]
+                   + [(1, n, n) for n in (256, 128, 64, 32, 16, 8)]
+                   + [(1, n, n) for n in (200, 100, 50, 25, 13, 7)])
 # every row of the TPU kernel table (PERF.md) a kernel covers
 REPLACES = {
     # K1 in its two regimes: streamed (the tile kernel) and resident
@@ -468,12 +485,13 @@ def phase_kernels() -> dict:
             qc = torch.randn(nc, generator=g, device=DEV, dtype=dtype)
             e = compare(f"K2 restrict2 {pts} {tag}",
                         cuda_transfer2.restrict(ci, b),
-                        cuda_transfer2.restrict_plain(ci, b))
+                        cuda_transfer2.restrict_plain(ci, b), exact=True)
             errs["restrict2"] = max(errs["restrict2"], e)
             e = compare(f"K3 interp_add2 {pts} {tag}",
                         cuda_transfer2.interp_add(ci, so, qc, b, q.clone()),
                         cuda_transfer2.interp_add_plain(ci, so, qc, b,
-                                                        q.clone()))
+                                                        q.clone()),
+                        exact=True)
             errs["interp_add2"] = max(errs["interp_add2"], e)
             e = compare(f"K5 interp2 {pts} {tag}",
                         cuda_transfer2.interp(ci, qc, shape),
@@ -687,12 +705,13 @@ def phase_kernels_planes(errs: dict) -> dict:
                              generator=g, device=DEV, dtype=dtype)
             e = compare(f"K2 restrict2 batched {pts} {tag}",
                         cuda_transfer2.restrict(ci, b),
-                        cuda_transfer2.restrict_plain(ci, b))
+                        cuda_transfer2.restrict_plain(ci, b), exact=True)
             errs["restrict2"] = max(errs["restrict2"], e)
             e = compare(f"K3 interp_add2 batched {pts} {tag}",
                         cuda_transfer2.interp_add(ci, so, qc, b, q.clone()),
                         cuda_transfer2.interp_add_plain(ci, so, qc, b,
-                                                        q.clone()))
+                                                        q.clone()),
+                        exact=True)
             errs["interp_add2"] = max(errs["interp_add2"], e)
             # B = 1 is today's unbatched launch: bit-equal
             ci1, so1 = ci[:, :1].contiguous(), so[:, :1].contiguous()
@@ -711,6 +730,63 @@ def phase_kernels_planes(errs: dict) -> dict:
                                      "from the unbatched launch")
             print(f"  K2, K3 batch of one {pts} {tag}: bit-equal to the "
                   "unbatched launch", flush=True)
+            del so, q, b, ci, qc
+    return errs
+
+
+def at_odd_offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` that starts one element into its
+    buffer."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def phase_transfers2(errs: dict) -> dict:
+    """K2 and K3 bit-equal to their plain versions at every batch of the
+    plane-xy cycle and at TRANSFER_SHAPES, float32 and float64, 5- and
+    9-point; and with q, res and the stencil at odd element offsets (rows
+    whose pairs start at odd addresses)."""
+    print("[3] K2, K3 at the plane-xy batches, odd sizes and the gates' "
+          "levels", flush=True)
+    shapes = [*plane_transfer_shapes(N_PLANES), *TRANSFER_SHAPES]
+    for i, (shape, dtype) in enumerate(
+            itertools.product(shapes, (torch.float32, torch.float64))):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 1500 + i)
+            pts = "9pt" if nine else "5pt"
+            if shape[0] == 1:  # unbatched
+                so, q, b = so[:, 0], q[0], b[0]
+            ci = interp2.setup_interp(so, kind)
+            g = torch.Generator(device=DEV).manual_seed(1700 + i)
+            qc = torch.randn(b.shape[:-2] + (ci.shape[-2] - 1,
+                                             ci.shape[-1] - 1),
+                             generator=g, device=DEV, dtype=dtype)
+            e = compare(f"K2 restrict2 {pts} {tag}",
+                        cuda_transfer2.restrict(ci, b),
+                        cuda_transfer2.restrict_plain(ci, b), exact=True)
+            errs["restrict2"] = max(errs["restrict2"], e)
+            e = compare(f"K3 interp_add2 {pts} {tag}",
+                        cuda_transfer2.interp_add(ci, so, qc, b, q.clone()),
+                        cuda_transfer2.interp_add_plain(ci, so, qc, b,
+                                                        q.clone()),
+                        exact=True)
+            errs["interp_add2"] = max(errs["interp_add2"], e)
+            if shape in ((5, 33, 17), (2, 66, 130)):
+                # res, then q and the stencil, one element into their
+                # buffers: every row's pairs at the other parity
+                tag += " odd offsets"
+                e = compare(f"K2 restrict2 {pts} {tag}",
+                            cuda_transfer2.restrict(ci, at_odd_offset(b)),
+                            cuda_transfer2.restrict_plain(ci, b), exact=True)
+                errs["restrict2"] = max(errs["restrict2"], e)
+                e = compare(f"K3 interp_add2 {pts} {tag}",
+                            cuda_transfer2.interp_add(
+                                ci, at_odd_offset(so), qc, b,
+                                at_odd_offset(q)),
+                            cuda_transfer2.interp_add_plain(
+                                ci, so, qc, b, q.clone()), exact=True)
+                errs["interp_add2"] = max(errs["interp_add2"], e)
             del so, q, b, ci, qc
     return errs
 
@@ -1802,6 +1878,18 @@ def time_ms(fn, reps=20, warm=3) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def print_transfer_device_ms(cases: dict, work: dict, keys) -> None:
+    """K2's and K3's device ms of ``keys`` with the L2 flushed before each
+    call (a 256 MB write, not counted) beside their bounds."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=DEV)
+    for k in keys:
+        dms = device_ms(cases[k][1], between=flush.zero_,
+                        only=("restrict_kernel", "interp_add_kernel"))
+        bms, by = bound(*work[k], torch.float32)
+        print(f"  {k}: device {dms:.4f} ms (L2 flushed), bound {bms:.4f} "
+              f"ms by {by}", flush=True)
+
+
 def phase_times() -> dict:
     """Kernel against plain at the main paths' shapes (4096² f32; the line
     sweeps at 2048² 9-point f32), in turns (plain, kernel, kernel, plain)."""
@@ -1943,6 +2031,7 @@ def phase_times() -> dict:
         bms, by = bound(*work[k], torch.float32)
         print(f"  {k}: bound {bms:.4f} ms by {by}; kernel {out[k][0]:.4f} "
               "ms", flush=True)
+    print_transfer_device_ms(cases, work, ("restrict2", "interp_add2"))
     return {k: v + work[k] for k, v in out.items() if k in work}
 
 
@@ -2257,6 +2346,8 @@ def phase_times_planes() -> dict:
         print(f"  {k}: bound {bms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
               f"{flops / 1e9:.4f} GFLOP); kernel {out[k][0]:.4f} ms",
               flush=True)
+    print_transfer_device_ms(cases, work, ("restrict2 batched",
+                                           "interp_add2 batched"))
     # the table's K10 entry: the 5-point smooth of the main path's planes
     key = "line_xy2 5pt x2 +res"
     return {"line_xy2": out[key] + work[key]}
@@ -2281,6 +2372,7 @@ def main() -> None:
     errs = phase_kernels()
     errs = phase_kernels3(errs)
     errs = phase_kernels_planes(errs)
+    errs = phase_transfers2(errs)
     errs = phase_kernels_fused(errs)
     errs = phase_kernels_fused3(errs)
     phase_cedar_gate()
