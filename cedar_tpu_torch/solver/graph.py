@@ -1,0 +1,194 @@
+"""One captured CUDA graph per cycle: the port's compiled solve.
+
+The JAX package compiles its whole solve and its single cycle
+(``jax.jit`` of ``_solve_impl`` and ``_cycle_impl``,
+cedar_tpu/solver/solver2.py:311-312, solver3.py:294-295); its solve runs
+every cycle, the convergence norm and the history inside one XLA program,
+under ``lax.while_loop``.  Here one iteration of that loop, the cycle and
+its norm (:func:`cedar_tpu_torch.solver.cycle2.cycle_residual` or
+``cycle3``'s), is captured once as a CUDA graph over static buffers and
+replayed once a cycle; the host reads the norm back after each replay,
+the loop's ``cond`` (:func:`iterate`).  A solver's ``vcycle`` replays a
+graph of ``run_cycle`` of its own.
+
+* :class:`CycleGraphs` keeps a solver's graphs, one per use ("solve",
+  "vcycle") and per shape, dtype and device of ``b``, in one memory pool.
+  A graph reads and writes its static ``x``, ``b`` (and ``norm``): the
+  caller's tensors are copied in, and a clone of ``x`` is handed back, so
+  that a later solve cannot overwrite an earlier result.
+* Before its capture, a graph runs the same iteration once eagerly on
+  scratch copies of its buffers, on the capture's side stream: that is
+  where the kernels are built and their libraries loaded, CUDA loads the
+  kernels' modules, cuBLAS makes its handle and workspace, and the launch
+  plans are computed and cached, all outside the capture.
+* The hierarchy's tensors (the levels' stencils, interpolation weights,
+  inverses) are captured by address: they must not be replaced after a
+  solver's first solve or vcycle on the card.
+* The kernel wrappers' launch counters are Python integers: they count at
+  capture (and in the warm-up), never at a replay.
+
+On the card ``solve`` and ``vcycle`` always replay a graph; a capture or a
+replay that fails raises.  The CPU runs the same iteration eagerly
+(:func:`iterate` over ``cycle_residual``), the plain version of the
+graph.  :class:`CudaGraphs` is the one place that touches
+``torch.cuda.CUDAGraph``; a stand-in with its three methods (``warm``,
+``capture``, ``replay``) runs the same bookkeeping on the CPU.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cedar_tpu_torch.settings import MLSettings
+
+
+def iterate(step, res0: float, settings: MLSettings) -> list[float]:
+    """The solve loop (reference: multilevel.h:278-298): ``step()`` runs
+    one iteration and returns ``‖b - A x‖₂`` as a 0-d tensor, read back
+    once a cycle; stops below ``tol``, on NaN (like the JAX loop), or
+    after ``max-iter`` cycles.  Returns the relative norms."""
+    hist = []
+    while len(hist) < settings.maxiter:
+        rel = float(step()) / res0   # the one readback of the cycle
+        hist.append(rel)
+        if not rel >= settings.tol:   # stops on NaN, like the JAX loop
+            break
+    return hist
+
+
+class CudaGraphs:
+    """Capture and replay on the card: a side stream for the warm-up and
+    the captures, one memory pool for all of a solver's graphs
+    (``torch.cuda.graph_pool_handle``), torch's default capture mode."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def warm(self, fn) -> None:
+        """Run ``fn`` eagerly on the side stream and wait for it."""
+        cur = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            fn()
+        cur.wait_stream(self.stream)
+        torch.cuda.synchronize(self.device)
+
+    def capture(self, fn) -> torch.cuda.CUDAGraph:
+        """``fn`` captured, not run."""
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
+            fn()
+        return g
+
+    @staticmethod
+    def replay(g: torch.cuda.CUDAGraph) -> None:
+        """Launch ``g`` on the current stream."""
+        g.replay()
+
+
+class CycleGraph:
+    """One captured iteration over static buffers ``x``, ``b`` and
+    ``norm``: ``what`` "solve" (the cycle and ``‖b - A x‖₂``,
+    ``cycle.cycle_residual``) or "vcycle" (the cycle alone,
+    ``cycle.run_cycle``) over the hierarchy ``levels``, captured by
+    ``backend``.
+
+    :meth:`warm` and :meth:`capture` run once, in that order (a caller
+    that counts the captured launches resets the counters between them);
+    :meth:`replay` runs them first where they have not run."""
+
+    def __init__(self, backend, what: str, cycle, levels, kinds,
+                 settings: MLSettings, b: torch.Tensor):
+        if what not in ("solve", "vcycle"):
+            raise ValueError(f"a cycle graph is 'solve' or 'vcycle', not "
+                             f"{what!r}")
+        self.backend, self.what, self.cycle = backend, what, cycle
+        self.levels, self.kinds, self.settings = levels, kinds, settings
+        self.x = torch.zeros_like(b)
+        self.b = torch.zeros_like(b)
+        self.norm = b.new_zeros(())
+        self.graph = None
+        self._warmed = False
+
+    def _step(self, x: torch.Tensor, b: torch.Tensor,
+              norm: torch.Tensor) -> None:
+        """One iteration on the buffers given: ``x`` becomes the new
+        iterate, ``norm`` its residual norm ("solve")."""
+        args = (self.levels, self.kinds, x, b, self.settings)
+        if self.what == "solve":
+            x_new, rnorm = self.cycle.cycle_residual(*args)
+            norm.copy_(rnorm)
+        else:
+            x_new = self.cycle.run_cycle(*args)
+        x.copy_(x_new)
+
+    def warm(self) -> None:
+        """The iteration once, eagerly, on scratch copies of the buffers."""
+        x, b, norm = self.x.clone(), self.b.clone(), self.norm.clone()
+        self.backend.warm(lambda: self._step(x, b, norm))
+        self._warmed = True
+
+    def capture(self) -> None:
+        """The iteration captured over the static buffers."""
+        if not self._warmed:
+            raise RuntimeError("warm the iteration before capturing it")
+        self.graph = self.backend.capture(
+            lambda: self._step(self.x, self.b, self.norm))
+
+    def replay(self) -> torch.Tensor:
+        """One iteration; returns the static ``norm`` (no readback)."""
+        if self.graph is None:
+            self.warm()
+            self.capture()
+        self.backend.replay(self.graph)
+        return self.norm
+
+
+class CycleGraphs:
+    """A solver's captured iterations over its hierarchy ``levels``
+    (``kinds``, ``settings``; ``cycle`` the cycle module of its dimension,
+    :mod:`cycle2` or :mod:`cycle3`).
+
+    ``backend`` does the capturing: by default :class:`CudaGraphs` on the
+    device of the first ``b``, made with the first graph."""
+
+    def __init__(self, cycle, levels, kinds, settings: MLSettings,
+                 backend=None):
+        self.cycle, self.levels, self.kinds = cycle, levels, kinds
+        self.settings = settings
+        self.backend = backend
+        self.graphs: dict[tuple, CycleGraph] = {}
+
+    def graph(self, what: str, b: torch.Tensor) -> CycleGraph:
+        """The graph of ``what`` for a ``b`` of this shape, dtype and
+        device, made (not yet captured) at the first call."""
+        key = (what, tuple(b.shape), b.dtype, b.device)
+        g = self.graphs.get(key)
+        if g is None:
+            if self.backend is None:
+                self.backend = CudaGraphs(b.device)
+            g = self.graphs[key] = CycleGraph(
+                self.backend, what, self.cycle, self.levels, self.kinds,
+                self.settings, b)
+        return g
+
+    def solve(self, x: torch.Tensor, b: torch.Tensor, res0: float):
+        """Cycles from ``x`` until :func:`iterate` stops, one replay a
+        cycle; returns ``(x, history)``, ``x`` a new tensor.  ``x`` and
+        ``b`` are not modified."""
+        g = self.graph("solve", b)
+        g.x.copy_(x)
+        g.b.copy_(b)
+        hist = iterate(g.replay, res0, self.settings)
+        return g.x.clone(), hist
+
+    def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """One cycle from ``x`` as a new tensor; ``x`` and ``b`` are not
+        modified."""
+        g = self.graph("vcycle", b)
+        g.x.copy_(x)
+        g.b.copy_(b)
+        g.replay()
+        return g.x.clone()

@@ -15,6 +15,11 @@ run the hand-written CUDA kernels, on the CPU their plain torch versions.
 * **solve** — residual-norm-controlled cycle iteration (multilevel.h:278-298)
   as a Python loop that reads the convergence norm back once per cycle;
   ``history`` holds the reference's per-iteration "relative l2 norm" lines.
+  On the card each cycle, with its norm, is one replay of a captured CUDA
+  graph (:mod:`cedar_tpu_torch.solver.graph`, the counterpart of the JAX
+  package's compiled solve), and ``vcycle`` replays a graph of its own;
+  the hierarchy's tensors are captured by address, so they must not be
+  replaced after setup.  On the CPU the same iteration runs eagerly.
 
 ``kernels.fine-split`` (default false on both devices: on the H100 the
 fused cycle measured slower than the dense one, and both give the same
@@ -37,7 +42,7 @@ from cedar_tpu_torch.ops.interp3 import setup_interp
 from cedar_tpu_torch.ops.relax3 import setup_recip
 from cedar_tpu_torch.ops.stencil3 import residual
 from cedar_tpu_torch.settings import CycleType, MLSettings, RelaxType
-from cedar_tpu_torch.solver import cycle3
+from cedar_tpu_torch.solver import cycle3, graph
 from cedar_tpu_torch.solver.level import Level
 from cedar_tpu_torch.solver.solver2 import _l2, unsupported_coarse_solver
 from cedar_tpu_torch.utils import log
@@ -149,6 +154,11 @@ class Solver3:
     relaxation: embedded line-xy V-cycles with a direct coarse solve).
     With point relaxation and ``kernels.fine-split: true`` the V-cycle,
     and the F-cycle's inner V-cycles, run the fused top levels.
+
+    On the card ``solve`` and ``vcycle`` replay CUDA graphs captured at
+    their first call (``graphs``) that read the hierarchy ``levels`` (and
+    its plane hierarchies) by address: do not replace its tensors after
+    setup.
     """
 
     def __init__(self, so: torch.Tensor,
@@ -195,15 +205,26 @@ class Solver3:
             self.levels = planes3.setup_planes(self.levels, self.kinds,
                                                self.settings)
         self.timelog.end("setup", force=self.levels)
+        # the captured iterations of solve and vcycle on the card, over
+        # this hierarchy: its tensors must not be replaced from here on
+        self.graphs = graph.CycleGraphs(cycle3, self.levels, self.kinds,
+                                        self.settings)
 
     def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        """One cycle (reference: multilevel::vcycle); ``x`` is not modified."""
+        """One cycle (reference: multilevel::vcycle); ``x`` is not modified.
+        On the card it replays the solver's captured cycle
+        (:class:`~cedar_tpu_torch.solver.graph.CycleGraphs`)."""
+        if b.is_cuda:
+            return self.graphs.vcycle(x, b)
         return cycle3.run_cycle(self.levels, self.kinds, x.clone(), b,
                                 self.settings)
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None):
         """Iterate cycles until the relative residual drops below ``tol`` or
-        ``max-iter`` cycles ran; ``x0`` (default zeros) is not modified."""
+        ``max-iter`` cycles ran; ``x0`` (default zeros) is not modified.
+        On the card each cycle is one replay of the captured iteration
+        (:class:`~cedar_tpu_torch.solver.graph.CycleGraphs`), on the CPU
+        the same iteration runs eagerly."""
         settings = self.settings
         fine = self.levels[0]
         x = torch.zeros_like(b) if x0 is None else x0.clone()
@@ -211,14 +232,16 @@ class Solver3:
         r0 = residual(fine.so, x, b, self.kinds[0])
         # floor protects the b = 0 (already-converged) edge case
         res0 = max(float(_l2(r0)), torch.finfo(b.dtype).tiny)
-        hist = []
-        while len(hist) < settings.maxiter:
-            x, rnorm = cycle3.cycle_residual(self.levels, self.kinds, x, b,
-                                             settings)
-            rel = float(rnorm) / res0   # the one readback of the cycle
-            hist.append(rel)
-            if not rel >= settings.tol:   # stops on NaN, like the JAX loop
-                break
+        if b.is_cuda:
+            x, hist = self.graphs.solve(x, b, res0)
+        else:
+            def step():
+                nonlocal x
+                x, rnorm = cycle3.cycle_residual(self.levels, self.kinds,
+                                                  x, b, settings)
+                return rnorm
+
+            hist = graph.iterate(step, res0, settings)
         self.timelog.end("solve", force=x)
         log.info(f"Initial residual l2 norm: {res0:g}")
         for i, rel in enumerate(hist):

@@ -12,18 +12,24 @@ V(1,1), fused on the top four levels, ``kernels.fine-split`` true:
 F-cycle) or ``planexy`` (7-point ``diag_diffusion3(1, 1, 1e-3)`` 128³,
 plane-xy V(1,1) with the
 default plane-config: ``3d_aniso_planexy_128``) — runs a few warm-up
-cycles as the solve runs them, then traces ten cycles with
-``torch.profiler`` and prints:
+cycles, then traces ten cycles with ``torch.profiler``, twice: eagerly
+(``[eager]``, each iteration as the CPU's solve loop runs it, one launch
+at a time) and as replays of the solver's captured CUDA graph
+(``[graph]``, as its ``solve`` runs on the card), and prints for each:
 
-* wall ms per cycle (CUDA events) and the device's busy and idle share
-  (summed kernel time over wall time);
+* wall ms per cycle (CUDA events, without and under the profiler) and
+  the device's busy and idle share (summed kernel time over the wall
+  time under the profiler);
 * device time per kernel name, per cycle;
 * device time and launches of the 2D transfers K2 and K3 per cycle
   (csrc/transfer2.cu ``restrict_kernel``, ``interp_add_kernel``; the 3D
   kernels of those names, with six int parameters, not counted);
 * host time per profiler scope ("relaxation", "restrict", …), per cycle
   (with plane relaxation the embedded 2D cycles' scopes run inside the
-  outer "relaxation" and count in both).
+  outer "relaxation" and count in both; a replay runs no scope).
+
+Where the profiler reports no device time for the replays, it says so
+and gives their CUDA-event wall time alone.
 
 Run from the repository root on a machine with a CUDA device:
 
@@ -100,36 +106,26 @@ def transfer2(key: str) -> str | None:
     return None
 
 
-def main(name: str = "vcycle") -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_cycle: no CUDA device")
-    dev = torch.device("cuda", 0)
-    dim, n, make, kind, solver, *kernels = CONFIGS[name]
-    conf = Config({"log": [], "kernels": kernels[0] if kernels else {},
-                   "solver": {**solver, "cycle": {
-                       "nrelax-pre": 1, "nrelax-post": 1,
-                       **solver.get("cycle", {})}}})
-    shape = (n,) * dim
-    solver_cls, rhs, cyc = ((Solver2, gallery.poisson_rhs, cycle2) if dim == 2
-                            else (Solver3, gallery.poisson3_rhs, cycle3))
-    s = solver_cls(make(*shape, torch.float32, dev), kind, conf)
-    b = rhs(*shape, torch.float32, dev)
-    x = torch.zeros_like(b)
-
-    def cycle(x):
-        # as the solver's solve runs it, without the norm's readback
-        return cyc.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
-
+def profile_cycles(label: str, cycle) -> None:
+    """Time ``CYCLES`` calls of ``cycle`` by CUDA events, then trace as
+    many, and print the report (module docstring) under ``label``."""
     for _ in range(3):
-        x = cycle(x)
-    torch.cuda.synchronize()
+        cycle()
     e0 = torch.cuda.Event(enable_timing=True)
     e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    e0.record()
+    for _ in range(CYCLES):
+        cycle()
+    e1.record()
+    torch.cuda.synchronize()
+    print(f"[{label}] wall ms/cycle (CUDA events, no profiler): "
+          f"{e0.elapsed_time(e1) / CYCLES:.4f}")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         e0.record()
         for _ in range(CYCLES):
-            x = cycle(x)
+            cycle()
         e1.record()
         torch.cuda.synchronize()
     wall_ms = e0.elapsed_time(e1) / CYCLES
@@ -147,26 +143,63 @@ def main(name: str = "vcycle") -> None:
         d = _device_us(evt)
         if d > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             dev_ms[evt.key] = d / 1e3 / CYCLES
-            label = transfer2(evt.key)
-            if label:
-                k23[label][0] += d / 1e3 / CYCLES
-                k23[label][1] += evt.count / CYCLES
+            label2 = transfer2(evt.key)
+            if label2:
+                k23[label2][0] += d / 1e3 / CYCLES
+                k23[label2][1] += evt.count / CYCLES
     busy = sum(dev_ms.values())
-    print(f"device: {torch.cuda.get_device_name(0)}; {name}: {n}^{dim} "
-          f"float32, {s.nlevels} levels")
-    print(f"wall ms/cycle (CUDA events, under the profiler): {wall_ms:.4f}")
-    print(f"device busy ms/cycle: {busy:.4f} "
+    print(f"[{label}] wall ms/cycle (CUDA events, under the profiler): "
+          f"{wall_ms:.4f}")
+    if not dev_ms:
+        print(f"[{label}] the profiler saw no device time: wall ms only")
+        return
+    print(f"[{label}] device busy ms/cycle: {busy:.4f} "
           f"(busy share {busy / wall_ms:.3f}, idle share "
-          f"{1 - busy / wall_ms:.3f})")
-    print("device ms/cycle by kernel:")
+          f"{1 - busy / wall_ms:.3f}); {len(dev_ms)} kernel names")
+    print(f"[{label}] device ms/cycle by kernel:")
     for k, v in sorted(dev_ms.items(), key=lambda kv: -kv[1])[:15]:
         print(f"  {v:9.4f}  {k[:100]}")
     (k2, n2), (k3, n3) = k23["K2"], k23["K3"]
-    print(f"K2 + K3 device ms/cycle: {k2:.4f} ({n2:g} launches) + {k3:.4f} "
-          f"({n3:g}) = {k2 + k3:.4f}")
-    print("host ms/cycle by scope (inclusive):")
-    for k, v in sorted(host_ms.items(), key=lambda kv: -kv[1]):
-        print(f"  {v:9.4f}  {k}")
+    print(f"[{label}] K2 + K3 device ms/cycle: {k2:.4f} ({n2:g} launches) "
+          f"+ {k3:.4f} ({n3:g}) = {k2 + k3:.4f}")
+    if host_ms:
+        print(f"[{label}] host ms/cycle by scope (inclusive):")
+        for k, v in sorted(host_ms.items(), key=lambda kv: -kv[1]):
+            print(f"  {v:9.4f}  {k}")
+
+
+def main(name: str = "vcycle") -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_cycle: no CUDA device")
+    dev = torch.device("cuda", 0)
+    dim, n, make, kind, solver, *kernels = CONFIGS[name]
+    conf = Config({"log": [], "kernels": kernels[0] if kernels else {},
+                   "solver": {**solver, "cycle": {
+                       "nrelax-pre": 1, "nrelax-post": 1,
+                       **solver.get("cycle", {})}}})
+    shape = (n,) * dim
+    solver_cls, rhs, cyc = ((Solver2, gallery.poisson_rhs, cycle2) if dim == 2
+                            else (Solver3, gallery.poisson3_rhs, cycle3))
+    s = solver_cls(make(*shape, torch.float32, dev), kind, conf)
+    b = rhs(*shape, torch.float32, dev)
+    x = torch.zeros_like(b)
+    print(f"device: {torch.cuda.get_device_name(0)}; {name}: {n}^{dim} "
+          f"float32, {s.nlevels} levels")
+
+    def eager():
+        # one iteration as the CPU's solve loop runs it, without the
+        # norm's readback
+        nonlocal x
+        x = cyc.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
+
+    profile_cycles("eager", eager)
+    if not hasattr(s, "graphs"):
+        return   # a checkout from before the captured solve
+    # the solver's own captured iteration, as its solve replays it on the
+    # card (without the norm's readback)
+    g = s.graphs.graph("solve", b)
+    g.b.copy_(b)
+    profile_cycles("graph", g.replay)
 
 
 if __name__ == "__main__":

@@ -55,7 +55,8 @@ copy):
 the fused 4096² V(1,1) cycle that runs K12, K13 and K1, and the cells
 whose cycles run K2 and K3 (the dense 4096² V(1,1), the fused V(2,2),
 the 4096² F-cycle, ``2d_fe_9pt_linexy_2048``, ``3d_aniso_planexy_128``),
-each the median of 25 CUDA-event-timed cycles as the solve runs them;
+each the median of 25 CUDA-event-timed cycles as the solve runs them on
+the card (replays of the solver's captured iteration);
 ``--only`` keeps the cells whose names hold one of its words; with
 ``--tree DIR --pairs N`` it runs N pairs of processes, this checkout and
 DIR, alternating which goes first, and prints the medians of both.  Run it as a script path, not ``-m``, so that ``--tree`` wins.
@@ -375,8 +376,9 @@ CELLS = {
 def cycles(only=None, ncycles: int = 25) -> None:
     """The median, min and max CUDA-event time of ``ncycles`` cycles of
     each cell of :data:`CELLS` (or those whose names hold a word of
-    ``only``), after three warm-up cycles, each as the solve runs it (with
-    the convergence residual, no readback)."""
+    ``only``), after three warm-up cycles, each as the solve runs it on the
+    card (``tune_fused3.solve_iteration``: a replay of the captured
+    iteration, with the convergence norm, no readback)."""
     import torch
 
     import cedar_tpu_torch as ct
@@ -402,9 +404,8 @@ def cycles(only=None, ncycles: int = 25) -> None:
         b = rhs(*shape, torch.float32, dev)
         pre, post = (cyc.get("nrelax-pre", 1), cyc.get("nrelax-post", 1))
         label = ("F" if cyc.get("type") == "f" else "V") + f"({pre},{post})"
-        t3.time_cycles(name, lambda x: mod.cycle_residual(
-            s.levels, s.kinds, x, b, s.settings)[0], torch.zeros_like(b),
-            ncycles, label)
+        t3.time_cycles(name, t3.solve_iteration(s, b, mod),
+                       torch.zeros_like(b), ncycles, label)
         del s, so, b
 
 

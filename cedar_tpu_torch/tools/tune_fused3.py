@@ -55,7 +55,8 @@ older checkout without the edge kernel skips its cases).
 ``--cycles`` times instead the V(1,1) cycles that run these kernels,
 ``3d_poisson_7pt_256`` and ``3d_fe_27pt_128``, fused and dense
 (:data:`CELLS`), as the solve runs them (the median of 25
-CUDA-event-timed cycles); with ``--tree`` those of the other checkout.
+CUDA-event-timed replays of the solver's captured iteration); with
+``--tree`` those of the other checkout.
 ``--cycles --pairs N`` runs N processes, alternating whether the fused or
 the dense cells go first, and counts the pairs in which each cell's fused
 cycle is at or below its dense one; with ``--tree DIR`` N pairs of
@@ -234,9 +235,10 @@ CELLS = {"3d_poisson_7pt_256": (256, "poisson3", "SevenPt", True),
 def cycles(order: str = "fused", ncycles: int = 25) -> None:
     """The median, min and max CUDA-event time of ``ncycles`` V(1,1)
     cycles of each cell, after three warm-up cycles, each cycle as the
-    solve runs it (with the convergence residual, no readback); each
-    configuration's fused and dense cells one after the other, ``order``
-    first."""
+    solve runs it on the card (a replay of the solver's captured
+    iteration, with the convergence norm, no readback; in a checkout from
+    before the captured solve, the eager iteration); each configuration's
+    fused and dense cells one after the other, ``order`` first."""
     import torch
 
     import cedar_tpu_torch as ct
@@ -254,10 +256,27 @@ def cycles(order: str = "fused", ncycles: int = 25) -> None:
                                                  dev),
                        getattr(ct, kind), conf)
         b = ct.gallery.poisson3_rhs(n, n, n, torch.float32, dev)
-        time_cycles(name, lambda x: cycle3.cycle_residual(
-            s.levels, s.kinds, x, b, s.settings)[0], torch.zeros_like(b),
-            ncycles)
+        time_cycles(name, solve_iteration(s, b, cycle3), torch.zeros_like(b),
+                    ncycles)
         del s, b
+
+
+def solve_iteration(s, b, cycle):
+    """One iteration of the solver ``s``'s solve on the card (``x`` ->
+    ``x``): a replay of its captured iteration (cycle and norm) over its
+    static buffers, ``b`` copied in; in a checkout from before the
+    captured solve, ``cycle.cycle_residual`` eagerly."""
+    if not hasattr(s, "graphs"):
+        return lambda x: cycle.cycle_residual(s.levels, s.kinds, x, b,
+                                              s.settings)[0]
+    g = s.graphs.graph("solve", b)
+    g.b.copy_(b)
+
+    def one(x):
+        g.replay()
+        return x
+
+    return one
 
 
 def time_cycles(name: str, one, x, ncycles: int,

@@ -72,6 +72,10 @@ Phases (each raises on failure; nothing is caught):
 4d. float64 plane-relaxation gates, card against CPU: 16³
    ``diag_diffusion3(1, 1, 1e-3)`` plane-xy (to 1e-9 within 5 cycles),
    8³ Poisson plane-xyz, a 12x10x9 ``fe3`` 27-point plane-yz solve;
+4e. every configuration the port runs (GRAPH_CONFIGS: 2D point V, V(2,2)
+   and F fused and dense, line-x, -y, -xy; 3D 7- and 27-point V and F,
+   fused and dense, plane-xy, -xz, -yz, -xyz), small, float32 and
+   float64, through the solver's captured graph;
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -111,6 +115,14 @@ Phases (each raises on failure; nothing is caught):
    residual, ``sweep3``), and at 256³ 7-point and 128³ 27-point (K14's
    launches, ``sweep3_fused``).
 
+Every solve of phases 4-5d runs as the solvers run it on the card, one
+replay of a captured CUDA graph a cycle, and is held bit for bit to the
+same solve run eagerly (``cycle_residual`` a cycle), a ``vcycle`` to
+``run_cycle``; the launches of a cycle are counted at a fresh capture,
+which prints its warm-up and capture seconds and its memory beside an
+eager cycle's, and a replay must count none; the per-cycle times are
+eager against graph, 5 alternating pairs of 25 cycles.
+
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
 kernel table as JSON; the last line is
@@ -140,7 +152,7 @@ from cedar_tpu_torch.ops import (
     stencil3,
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
-from cedar_tpu_torch.solver import cycle2, cycle3
+from cedar_tpu_torch.solver import cycle2, cycle3, graph
 from cedar_tpu_torch.tools.tune_fused2 import plane_transfer_shapes
 from cedar_tpu_torch.tools.tune_fused3 import device_ms
 
@@ -315,6 +327,8 @@ HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 
 DEV = torch.device("cuda", 0)
+# eager against graph cycle times: alternating pairs of runs
+PAIRS = 5
 
 
 def counts() -> dict:
@@ -1133,6 +1147,7 @@ def phase_cedar_gate() -> None:
         raise AssertionError("Cedar gate: the fused cycle is not the default")
     require_launched(c, (K1, "restrict2", "interp_add2",
                          "sweep_restrict2", "interp_sweep2"), "Cedar gate")
+    check_graph(s, b, x, "Cedar gate")
 
 
 def phase_fused_gate() -> None:
@@ -1162,11 +1177,18 @@ def phase_fused_gate() -> None:
 
 
 def gate_solve(dev, so, kind, conf, b):
-    """Setup and solve on ``dev``; returns (solver, x, counts)."""
+    """Setup and solve on ``dev``; returns (solver, x, counts).  On the
+    card the graph solve is held to the eager one (:func:`check_graph`)
+    after the counts are read."""
     reset_counts()
     s = Solver2(so.to(dev), kind, conf)
     x = s.solve(b.to(dev))
-    return s, x, counts()
+    c = counts()
+    if x.is_cuda:
+        check_graph(s, b.to(dev), x, f"{kind.name} {tuple(so.shape[1:])} "
+                    f"{s.settings.relaxation.value} "
+                    f"{s.settings.cycle.value}-cycle gate")
+    return s, x, c
 
 
 def phase_f64_gates() -> None:
@@ -1248,6 +1270,7 @@ def phase_cedar3() -> None:
     require_launched(c, ("sweep3_resident", "restrict3", "interp_add3",
                          "edge27") + FUSED3,
                      "Cedar 3D test")
+    check_graph(s, b, x, "Cedar 3D test", cycle3)
 
 
 def phase_3d_gates() -> None:
@@ -1276,8 +1299,9 @@ def phase_3d_gates() -> None:
         reset_counts()
         s = Solver3(so.to(DEV), kind, Config({
             "log": [], "kernels": {"fine-split": True}, "solver": solver}))
-        s.solve(b.to(DEV))
+        x = s.solve(b.to(DEV))
         c = counts()
+        check_graph(s, b.to(DEV), x, what, cycle3)
         sc = Solver3(so, kind, Config({"log": [], "solver": solver}))
         sc.solve(b)
         print(f"  {what}: card {' '.join(f'{h:.9g}' for h in s.history)}",
@@ -1326,8 +1350,9 @@ def phase_plane_gates() -> None:
         b = gallery.poisson3_rhs(*shape, torch.float64, cpu)
         reset_counts()
         s = Solver3(so.to(DEV), kind, conf)
-        s.solve(b.to(DEV))
+        x = s.solve(b.to(DEV))
         c = counts()
+        check_graph(s, b.to(DEV), x, what, cycle3)
         sc = Solver3(so, kind, conf)
         sc.solve(b)
         print(f"  {what}: card {' '.join(f'{h:.9g}' for h in s.history)}",
@@ -1344,32 +1369,163 @@ def phase_plane_gates() -> None:
         require_launched(c, PLANE_KERNELS, what)
 
 
-def time_cycles(s, b, x, ncycles=25, cycle=cycle2):
-    """CUDA-event time of each of ``ncycles`` cycles as the solve runs them
-    (the cycle and the convergence residual, fused where the solve fuses
-    it; no readback), after three warm-up cycles; prints the median, min,
-    max and host clock.  ``cycle`` is the cycle module of the solver's
-    dimension."""
-    def one(x):
-        return cycle.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
+# every configuration the port runs, small: name -> (gallery operator,
+# kind, shape, conf); each in float32 and float64 through the graph
+GRAPH_CONFIGS = {
+    "2d point V fused": (gallery.poisson, FivePt, (129, 97), {}),
+    "2d point V dense": (gallery.poisson, FivePt, (129, 97),
+                         {"kernels": {"fine-split": False}}),
+    "2d point V(2,2) fused": (gallery.poisson, FivePt, (129, 97), {
+        "solver": {"cycle": {"nrelax-pre": 2, "nrelax-post": 2}}}),
+    "2d point F fused": (gallery.poisson, FivePt, (129, 97),
+                         {"solver": {"cycle": {"type": "f"}}}),
+    "2d point F dense": (gallery.poisson, FivePt, (129, 97), {
+        "kernels": {"fine-split": False},
+        "solver": {"cycle": {"type": "f"}}}),
+    "2d line-x": (gallery.fe, NinePt, (129, 97),
+                  {"solver": {"relaxation": "line-x"}}),
+    "2d line-y": (gallery.fe, NinePt, (129, 97),
+                  {"solver": {"relaxation": "line-y"}}),
+    "2d line-xy": (gallery.fe, NinePt, (257, 257),
+                   {"solver": {"relaxation": "line-xy"}}),
+    "3d 7pt V dense": (gallery.poisson3, SevenPt, (33, 33, 33), {}),
+    "3d 7pt V fused": (gallery.poisson3, SevenPt, (33, 33, 33),
+                       {"kernels": {"fine-split": True}}),
+    "3d 7pt V(2,2) fused": (gallery.poisson3, SevenPt, (33, 33, 33), {
+        "kernels": {"fine-split": True},
+        "solver": {"cycle": {"nrelax-pre": 2, "nrelax-post": 2}}}),
+    "3d 7pt F fused": (gallery.poisson3, SevenPt, (33, 33, 33), {
+        "kernels": {"fine-split": True},
+        "solver": {"cycle": {"type": "f"}}}),
+    "3d 7pt F dense": (gallery.poisson3, SevenPt, (33, 33, 33),
+                       {"solver": {"cycle": {"type": "f"}}}),
+    "3d 27pt V dense": (gallery.fe3, TwentySevenPt, (33, 33, 33), {}),
+    "3d 27pt V fused": (gallery.fe3, TwentySevenPt, (33, 33, 33),
+                        {"kernels": {"fine-split": True}}),
+    "3d 27pt F fused": (gallery.fe3, TwentySevenPt, (33, 33, 33), {
+        "kernels": {"fine-split": True},
+        "solver": {"cycle": {"type": "f"}}}),
+    "3d plane-xy": (aniso3, SevenPt, (32, 32, 32),
+                    {"solver": {"relaxation": "plane-xy"}}),
+    "3d plane-xz": (aniso3, SevenPt, (24, 20, 16),
+                    {"solver": {"relaxation": "plane-xz"}}),
+    "3d 27pt plane-yz": (gallery.fe3, TwentySevenPt, (16, 20, 24),
+                         {"solver": {"relaxation": "plane-yz"}}),
+    "3d plane-xyz": (gallery.poisson3, SevenPt, (16, 16, 16),
+                     {"solver": {"relaxation": "plane-xyz"}}),
+}
 
-    for _ in range(3):
-        x = one(x)
+
+def phase_graph_configs() -> None:
+    """Every configuration the port runs (:data:`GRAPH_CONFIGS`), float32
+    and float64, through the solver's captured graph: a solve of at most
+    six cycles held bit for bit to the eager loop and a vcycle to
+    ``run_cycle`` (:func:`check_graph`)."""
+    print("[4e] every configuration through the graph, float32 and "
+          "float64", flush=True)
+    for dt in (torch.float32, torch.float64):
+        for name, (make, kind, shape, conf) in GRAPH_CONFIGS.items():
+            what = f"{name} {shape} {str(dt)[6:]}"
+            cls, rhs, cyc = (
+                (Solver2, gallery.poisson_rhs, cycle2) if len(shape) == 2
+                else (Solver3, gallery.poisson3_rhs, cycle3))
+            solver = {"tol": 1e-6 if dt == torch.float32 else 1e-10,
+                      "max-iter": 6, **conf.get("solver", {})}
+            s = cls(make(*shape, dt, DEV), kind,
+                    Config({"log": [], **conf, "solver": solver}))
+            b = rhs(*shape, dt, DEV)
+            x = s.solve(b)
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"{what}: bad solution")
+            check_graph(s, b, x, what, cyc)
+            del s, b, x
+    torch.cuda.empty_cache()
+
+
+def run_cycles(one, ncycles: int) -> tuple[float, float, float, float]:
+    """CUDA-event ms of each of ``ncycles`` calls of ``one``: (median, min,
+    max, host clock ms a cycle)."""
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in range(ncycles)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for e0, e1 in ev:
         e0.record()
-        x = one(x)
+        one()
         e1.record()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3 / ncycles
     cyc = sorted(e0.elapsed_time(e1) for e0, e1 in ev)
-    ms = statistics.median(cyc)
-    print(f"  cycle ms: median {ms:.4f}, min {cyc[0]:.4f}, max {cyc[-1]:.4f}"
-          f" (host clock {host_ms:.4f} ms/cycle)", flush=True)
-    return ms
+    return statistics.median(cyc), cyc[0], cyc[-1], host_ms
+
+
+def time_cycles(s, b, x, ncycles=25, cycle=cycle2, pairs=PAIRS):
+    """Eager against graph: ``pairs`` pairs of ``ncycles`` CUDA-event-timed
+    cycles as the solve runs them (the cycle and the convergence norm, no
+    readback), the eager ``cycle_residual`` and a replay of the solver's
+    captured iteration, alternating which goes first, after three warm-up
+    cycles each; prints each run's median, min, max and host clock, and
+    per way the median of the medians and the range of the medians.
+    ``cycle`` is the cycle module of the solver's dimension.  Returns the
+    graph's median of medians."""
+    g = s.graphs.graph("solve", b)
+    g.x.copy_(x)
+    g.b.copy_(b)
+    xe = x.clone()
+
+    def eager():
+        nonlocal xe
+        xe = cycle.cycle_residual(s.levels, s.kinds, xe, b, s.settings)[0]
+
+    ways = {"eager": eager, "graph": g.replay}
+    for one in ways.values():
+        for _ in range(3):
+            one()
+    runs = {"eager": [], "graph": []}
+    for k in range(pairs):
+        for way in (("eager", "graph") if k % 2 == 0 else ("graph", "eager")):
+            ms, lo, hi, host = run_cycles(ways[way], ncycles)
+            runs[way].append(ms)
+            print(f"  pair {k} {way} cycle ms: median {ms:.4f}, min "
+                  f"{lo:.4f}, max {hi:.4f} (host clock {host:.4f} ms/cycle)",
+                  flush=True)
+    med = {w: statistics.median(v) for w, v in runs.items()}
+    wins = sum(a < e for a, e in zip(runs["graph"], runs["eager"]))
+    print(f"  cycle ms, median of {pairs} medians: eager {med['eager']:.4f} "
+          f"({min(runs['eager']):.4f}-{max(runs['eager']):.4f}), graph "
+          f"{med['graph']:.4f} ({min(runs['graph']):.4f}-"
+          f"{max(runs['graph']):.4f}); graph faster in {wins} of {pairs}",
+          flush=True)
+    return med["graph"]
+
+
+def check_graph(s, b, x, what: str, cycle=cycle2, x0=None) -> None:
+    """The solver's last solve, from ``x0`` (default zeros), which replayed
+    its captured iteration (``x``, ``s.history``), against the same solve
+    run eagerly (``cycle_residual`` a cycle, the loop of the CPU), and one
+    ``vcycle`` (its own graph) against ``run_cycle``: bit for bit."""
+    xe = torch.zeros_like(b) if x0 is None else x0.clone()
+
+    def step():
+        nonlocal xe
+        xe, rnorm = cycle.cycle_residual(s.levels, s.kinds, xe, b,
+                                         s.settings)
+        return rnorm
+
+    hist = graph.iterate(step, s.res0, s.settings)
+    if hist != s.history:
+        raise AssertionError(f"{what}: graph history {s.history} != eager "
+                             f"{hist}")
+    if not torch.equal(x, xe):
+        raise AssertionError(f"{what}: graph x != eager x (max |diff| "
+                             f"{float((x - xe).abs().max()):.3e})")
+    xv = s.vcycle(x, b)
+    xr = cycle.run_cycle(s.levels, s.kinds, x.clone(), b, s.settings)
+    if not torch.equal(xv, xr):
+        raise AssertionError(f"{what}: graph vcycle != run_cycle (max "
+                             f"|diff| {float((xv - xr).abs().max()):.3e})")
+    print(f"  {what}: graph = eager bit for bit ({len(hist)} cycles: "
+          "history and x; a vcycle)", flush=True)
 
 
 def phase_main_path() -> dict:
@@ -1390,6 +1546,7 @@ def phase_main_path() -> dict:
     x = s.solve(b)
     torch.cuda.synchronize()
     launches = counts()
+    peak = torch.cuda.max_memory_allocated()
     print(f"  levels {s.nlevels}: {s.shapes[0]} .. {s.shapes[-1]}; "
           f"setup {setup_s:.3f} s", flush=True)
     print(f"  history: {' '.join(f'{h:.6g}' for h in s.history)}", flush=True)
@@ -1405,6 +1562,7 @@ def phase_main_path() -> dict:
     require_launched(launches, ("sweep2", "sweep2_resident", "restrict2",
                                 "interp_add2", "sweep_restrict2",
                                 "interp_sweep2"), "main path")
+    check_graph(s, b, x, "main path")
     # one solve-loop cycle: K12 and K13 on the fused levels 0-3, K1-K3 on
     # the dense levels below (K1 one launch a sweep: the pre-sweep with its
     # residual and the post-sweep; streamed at 256² and 128², resident
@@ -1429,31 +1587,73 @@ def phase_main_path() -> dict:
     # (the error itself is what shrinks); each of 4 cycles must cut >= 5x
     g = torch.Generator(device=DEV).manual_seed(11)
     x0 = torch.randn((n, n), generator=g, device=DEV, dtype=torch.float32)
-    s.solve(torch.zeros_like(b), x0)
+    xr = s.solve(torch.zeros_like(b), x0)
     h = [1.0] + s.history
     print(f"  A x = 0 from random x0: {' '.join(f'{v:.6g}' for v in h[1:])}",
           flush=True)
+    check_graph(s, torch.zeros_like(b), xr, "main path, A x = 0", x0=x0)
     if len(h) < 5 or any(h[i + 1] > h[i] / 5 for i in range(4)):
         raise AssertionError("main path: a cycle cut the residual < 5x")
 
     ms = time_cycles(s, b, x)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  DOF/s: {n * n / (ms * 1e-3):.4e}; peak memory "
-          f"{peak / 2**20:.1f} MiB", flush=True)
+    print(f"  DOF/s: {n * n / (ms * 1e-3):.4e}; "
+          f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+          flush=True)
     return launches
 
 
-def one_cycle_launches(s, b, what: str, want: dict, cycle=cycle2) -> dict:
-    """The launches of one solve-loop cycle from x = 0, checked against
-    ``want`` (kernel -> count); ``cycle`` is the cycle module of the
-    solver's dimension."""
-    reset_counts()
+def one_cycle_launches(s, b, what: str, want: dict | None,
+                       cycle=cycle2) -> dict:
+    """The launches of one captured solve-loop cycle, checked against
+    ``want`` (kernel -> count; None: not checked): a graph of the solver's
+    iteration over its hierarchy, warmed up, the counts reset, captured
+    from x = 0; a replay then adds no launch and runs no plain version.
+    Prints the warm-up and capture seconds, and the device memory of one
+    eager cycle (its peak above what was allocated before it) and of the
+    graph (what its pool keeps reserved after the capture, beside its
+    static buffers).  ``cycle`` is the cycle module of the solver's
+    dimension."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     cycle.cycle_residual(s.levels, s.kinds, torch.zeros_like(b), b,
                          s.settings)
     torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    g = graph.CycleGraphs(cycle, s.levels, s.kinds, s.settings).graph(
+        "solve", b)
+    g.b.copy_(b)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    t0 = time.perf_counter()
+    g.warm()
+    t1 = time.perf_counter()
+    reset_counts()
+    # the capture empties the allocator's cache first: the warm-up's
+    # memory is not the pool's
+    g.capture()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
     one = {k: v for k, v in counts().items() if v}
-    print(f"  {what}: launches a cycle {one}", flush=True)
-    for k, v in want.items():
+    pool = torch.cuda.memory_reserved() - reserved
+    reset_counts()
+    g.replay()
+    torch.cuda.synchronize()
+    if any(counts().values()):
+        raise AssertionError(f"{what}: a replay counted {counts()}")
+    if not torch.isfinite(g.norm) or not torch.isfinite(g.x).all():
+        raise AssertionError(f"{what}: the replayed cycle is not finite")
+    del g
+    torch.cuda.empty_cache()
+    print(f"  {what}: launches a captured cycle {one}", flush=True)
+    print(f"  {what}: warm-up {t1 - t0:.3f} s, capture {t2 - t1:.3f} s; "
+          f"memory: eager cycle peak {eager_peak / 2**20:.1f} MiB, graph "
+          f"pool {pool / 2**20:.1f} MiB (+ static x, b "
+          f"{2 * b.nbytes / 2**20:.1f} MiB)", flush=True)
+    if any(k.endswith("_plain") for k in one):
+        raise AssertionError(f"{what}: the captured cycle ran a plain "
+                             "version")
+    for k, v in (want or {}).items():
         if one.get(k, 0) != v:
             raise AssertionError(f"{what}: {k} launched {one.get(k, 0)} "
                                  f"times a cycle, not {v}")
@@ -1490,6 +1690,7 @@ def phase_main_variants() -> dict:
         x = s.solve(b)
         torch.cuda.synchronize()
         launches = counts()
+        peak = torch.cuda.max_memory_allocated()
         print(f"  {name}: setup {setup_s:.3f} s; history "
               f"{' '.join(f'{h:.6g}' for h in s.history)}", flush=True)
         print(f"  {name}: counts {launches}", flush=True)
@@ -1498,11 +1699,12 @@ def phase_main_variants() -> dict:
         if not s.history[-1] < s.history[0] / 5:
             raise AssertionError(f"{name}: the solve did not converge")
         require_launched(launches, (K1, "restrict2", "interp_add2"), name)
+        check_graph(s, b, x, name)
         one_cycle_launches(s, b, name, want)
         ms = time_cycles(s, b, x)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"  {name}: DOF/s {n * n / (ms * 1e-3):.4e}; peak memory "
-              f"{peak / 2**20:.1f} MiB", flush=True)
+        print(f"  {name}: DOF/s {n * n / (ms * 1e-3):.4e}; "
+              f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+              flush=True)
         out[name] = launches
         del s, x
     return out["fused V(2,2)"]
@@ -1527,6 +1729,7 @@ def phase_linexy_2048() -> dict:
     x = s.solve(b)
     torch.cuda.synchronize()
     launches = counts()
+    peak = torch.cuda.max_memory_allocated()
     print(f"  {name}: levels {s.nlevels}: {s.shapes[0]} .. {s.shapes[-1]}; "
           f"setup {setup_s:.3f} s", flush=True)
     print(f"  {name}: history {' '.join(f'{h:.6g}' for h in s.history)}",
@@ -1537,6 +1740,7 @@ def phase_linexy_2048() -> dict:
     if not s.history[-1] < s.history[0] / 5:
         raise AssertionError(f"{name}: the solve did not converge")
     require_launched(launches, ("line2", "restrict2", "interp_add2"), name)
+    check_graph(s, b, x, name)
     # one launch a zebra colour: x- and y-lines, two colours each, pre- and
     # post-relaxation, on every level but the coarsest
     one_cycle_launches(s, b, name, {"line2": 8 * (s.nlevels - 1)})
@@ -1558,9 +1762,9 @@ def phase_linexy_2048() -> dict:
         raise AssertionError(f"{name}: a cycle cut the residual < 5x")
 
     ms = time_cycles(s, b, x)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  {name}: DOF/s {n * n / (ms * 1e-3):.4e}; peak memory "
-          f"{peak / 2**20:.1f} MiB", flush=True)
+    print(f"  {name}: DOF/s {n * n / (ms * 1e-3):.4e}; "
+          f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+          flush=True)
     return launches
 
 
@@ -1584,6 +1788,7 @@ def phase_fcycle_4096() -> dict:
     x = s.solve(b)
     torch.cuda.synchronize()
     launches = counts()
+    peak = torch.cuda.max_memory_allocated()
     err = float((x - gallery.poisson_solution(n, n, torch.float32,
                                               DEV)).abs().max())
     print(f"  {name}: levels {s.nlevels}; setup {setup_s:.3f} s", flush=True)
@@ -1600,10 +1805,12 @@ def phase_fcycle_4096() -> dict:
         raise AssertionError(f"{name}: solution error {err:g}")
     require_launched(launches, (K1, "restrict2", "interp_add2",
                                 "interp2"), name)
+    check_graph(s, b, x, name)
+    one_cycle_launches(s, b, name, None)
     ms = time_cycles(s, b, x)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  {name}: DOF/s {n * n / (ms * 1e-3):.4e}; peak memory "
-          f"{peak / 2**20:.1f} MiB", flush=True)
+    print(f"  {name}: DOF/s {n * n / (ms * 1e-3):.4e}; "
+          f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+          flush=True)
     return launches
 
 
@@ -1636,6 +1843,7 @@ def run_path3(name: str, n: int, make, kind, solver: dict, need,
     x = s.solve(b)
     torch.cuda.synchronize()
     launches = counts()
+    peak = torch.cuda.max_memory_allocated()
     del so
     print(f"  {name}: levels {s.nlevels}: {s.shapes[0]} .. {s.shapes[-1]}; "
           f"setup {setup_s:.3f} s", flush=True)
@@ -1645,8 +1853,8 @@ def run_path3(name: str, n: int, make, kind, solver: dict, need,
     if not torch.isfinite(x).all() or tuple(x.shape) != (n, n, n):
         raise AssertionError(f"{name}: bad solution")
     require_launched(launches, need, name)
-    if want is not None:
-        one_cycle_launches(s, b, name, want, cycle3)
+    check_graph(s, b, x, name, cycle3)
+    one_cycle_launches(s, b, name, want, cycle3)
     if fcycle:
         # the F-cycle recomputes the same x each iteration (as cedar_tpu's),
         # so A x = 0 from a random x0 gives x = 0: the solution error
@@ -1667,17 +1875,19 @@ def run_path3(name: str, n: int, make, kind, solver: dict, need,
         g = torch.Generator(device=DEV).manual_seed(13)
         x0 = torch.randn((n, n, n), generator=g, device=DEV,
                          dtype=torch.float32)
-        s.solve(torch.zeros_like(b), x0)
+        xr = s.solve(torch.zeros_like(b), x0)
         h = [1.0] + s.history
         print(f"  {name}: A x = 0 from random x0: "
               f"{' '.join(f'{v:.6g}' for v in h[1:])}", flush=True)
-        del x0
+        check_graph(s, torch.zeros_like(b), xr, f"{name}, A x = 0", cycle3,
+                    x0=x0)
+        del x0, xr
         if len(h) < 5 or any(h[i + 1] > h[i] / 4 for i in range(4)):
             raise AssertionError(f"{name}: a cycle cut the residual < 4x")
     ms = time_cycles(s, b, x, cycle=cycle3)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  {name}: DOF/s {n ** 3 / (ms * 1e-3):.4e}; peak memory "
-          f"{peak / 2**20:.1f} MiB", flush=True)
+    print(f"  {name}: DOF/s {n ** 3 / (ms * 1e-3):.4e}; "
+          f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+          flush=True)
     return launches
 
 
@@ -1821,6 +2031,7 @@ def phase_planes_128() -> dict:
     x = s.solve(b)
     torch.cuda.synchronize()
     launches = counts()
+    peak = torch.cuda.max_memory_allocated()
     del so
     print(f"  {name}: levels {s.nlevels}: {s.shapes[0]} .. {s.shapes[-1]}; "
           f"setup {setup_s:.3f} s", flush=True)
@@ -1834,6 +2045,7 @@ def phase_planes_128() -> dict:
     if not s.history[0] < 0.2 or not s.history[-1] <= s.history[0]:
         raise AssertionError(f"{name}: the solve did not converge")
     require_launched(launches, PLANE_KERNELS, name)
+    check_graph(s, b, x, name, cycle3)
     # K10 once a call: on every outer level but the coarsest, a pre- and a
     # post-relaxation, each one embedded V-cycle a plane colour, whose
     # levels but the coarsest smooth in two calls (pre-smooths with the
@@ -1859,9 +2071,9 @@ def phase_planes_128() -> dict:
     if any(h[i] > 1e-5 and not h[i + 1] <= h[i] / 4 for i in range(4)):
         raise AssertionError(f"{name}: a cycle cut the residual < 4x")
     ms = time_cycles(s, b, x, cycle=cycle3)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"  {name}: DOF/s {n ** 3 / (ms * 1e-3):.4e}; peak memory "
-          f"{peak / 2**20:.1f} MiB", flush=True)
+    print(f"  {name}: DOF/s {n ** 3 / (ms * 1e-3):.4e}; "
+          f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+          flush=True)
     return launches
 
 
@@ -2366,29 +2578,42 @@ def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def timed(phase, *args):
+    """``phase(*args)``, its host seconds printed after it."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"  ({phase.__name__}: {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    return out
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     phase_device()
-    phase_build()
-    errs = phase_kernels()
-    errs = phase_kernels3(errs)
-    errs = phase_kernels_planes(errs)
-    errs = phase_transfers2(errs)
-    errs = phase_kernels_fused(errs)
-    errs = phase_kernels_fused3(errs)
-    phase_cedar_gate()
-    phase_fused_gate()
-    phase_f64_gates()
-    phase_cedar3()
-    phase_3d_gates()
-    phase_plane_gates()
-    launches = phase_main_path()
-    launches["sweep2_fused"] = phase_main_variants()["sweep2_fused"]
-    launches["line2"] = phase_linexy_2048()["line2"]
-    launches["interp2"] = phase_fcycle_4096()["interp2"]
-    launches.update(phase_paths3())
-    launches["line_xy2"] = phase_planes_128()["line_xy2"]
-    times = phase_times() | phase_times3() | phase_times_planes()
-    phase_times_levels()
+    timed(phase_build)
+    errs = timed(phase_kernels)
+    errs = timed(phase_kernels3, errs)
+    errs = timed(phase_kernels_planes, errs)
+    errs = timed(phase_transfers2, errs)
+    errs = timed(phase_kernels_fused, errs)
+    errs = timed(phase_kernels_fused3, errs)
+    timed(phase_cedar_gate)
+    timed(phase_fused_gate)
+    timed(phase_f64_gates)
+    timed(phase_cedar3)
+    timed(phase_3d_gates)
+    timed(phase_plane_gates)
+    timed(phase_graph_configs)
+    launches = timed(phase_main_path)
+    launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
+    launches["line2"] = timed(phase_linexy_2048)["line2"]
+    launches["interp2"] = timed(phase_fcycle_4096)["interp2"]
+    launches.update(timed(phase_paths3))
+    launches["line_xy2"] = timed(phase_planes_128)["line_xy2"]
+    times = (timed(phase_times) | timed(phase_times3)
+             | timed(phase_times_planes))
+    timed(phase_times_levels)
+    print(f"  (all phases: {time.perf_counter() - t0:.1f} s)", flush=True)
     table = []
     for name in KERNELS:
         ms, plain_ms, nbytes, flops = times[name]
