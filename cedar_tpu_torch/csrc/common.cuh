@@ -32,6 +32,19 @@ template <> struct Arith<double> {
 constexpr int kFloat32 = 0;
 constexpr int kFloat64 = 1;
 
+// The periodic axes of a 2D wrap-aware kernel: x (the first axis, z) and
+// y (the second, w).
+struct Wrap {
+  bool x = false, y = false;
+};
+
+// z modulo n in [0, n), for any int z (a tile's halo can wrap more than
+// once around a grid smaller than the tile).
+__device__ __forceinline__ int wrap_index(int z, int n) {
+  z %= n;
+  return z < 0 ? z + n : z;
+}
+
 // 2D launch shape: x runs along the contiguous (w) axis, y along rows (z).
 constexpr int kBlockX = 32;
 constexpr int kBlockY = 8;

@@ -12,7 +12,11 @@
 // __restrict__: K10 reads and writes it within one launch, across block
 // barriers, so its loads must not go through the read-only cache.
 // Couplings whose neighbour lies outside the grid read as exactly 0, as
-// the zero-filled shifts of the plain versions give.
+// the zero-filled shifts of the plain versions give.  On a periodic axis
+// there is no outside: the wrap-aware instantiations (template flag PER,
+// with the periodic axes in a Wrap) read a neighbour at -1 as the last
+// point and an up-shifted coupling at the last point from the first, as
+// the wrapped shifts (core/shift.py `shift2(..., periodic)`) give.
 #pragma once
 
 #include <algorithm>
@@ -51,21 +55,39 @@ __device__ __forceinline__ T offdiag_terms2(const Term& term) {
 // Σ coupling · q(neighbour) at (z, w) (offdiag_terms2), with q read
 // through qp = &q(z, w) and the row stride qs of what qp points into: the
 // grid itself (qs = ny), or a shared-memory tile of it in the fused
-// kernels of fused2.cu.
-template <typename T, bool NINE>
+// kernels of fused2.cu.  With PER the couplings wrap around the axes of
+// wr (qp's neighbours must then hold the wrapped values: a tile whose halo
+// was loaded with wrap-around).
+template <typename T, bool NINE, bool PER = false>
 __device__ __forceinline__ T offdiag_at(const T* __restrict__ so, long long P,
                                         int z, int w, int nx, int ny,
-                                        const T* qp, long long qs) {
+                                        const T* qp, long long qs,
+                                        Wrap wr = Wrap{}) {
   using A = Arith<T>;
-  const long long i = (long long)z * ny + w;
-  const bool zl = z > 0, zh = z + 1 < nx, wl = w > 0, wh = w + 1 < ny;
-  return offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
-    const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
-                    (dw < 0 ? wl : dw > 0 ? wh : true);
-    return ok ? A::mul(so[d * P + i + (dz > 0 ? ny : 0) + (dw > 0 ? 1 : 0)],
-                       qp[dz * qs + dw])
-              : T(0);
-  });
+  if constexpr (!PER) {
+    const long long i = (long long)z * ny + w;
+    const bool zl = z > 0, zh = z + 1 < nx, wl = w > 0, wh = w + 1 < ny;
+    return offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
+      const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
+                      (dw < 0 ? wl : dw > 0 ? wh : true);
+      return ok ? A::mul(so[d * P + i + (dz > 0 ? ny : 0) + (dw > 0 ? 1 : 0)],
+                         qp[dz * qs + dw])
+                : T(0);
+    });
+  } else {
+    const bool zl = wr.x || z > 0, zh = wr.x || z + 1 < nx;
+    const bool wl = wr.y || w > 0, wh = wr.y || w + 1 < ny;
+    // the up-shifted planes' row and column: z + 1 and w + 1, wrapped
+    const int zn = z + 1 == nx ? 0 : z + 1, wn = w + 1 == ny ? 0 : w + 1;
+    return offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
+      const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
+                      (dw < 0 ? wl : dw > 0 ? wh : true);
+      return ok ? A::mul(so[d * P + (long long)(dz > 0 ? zn : z) * ny +
+                            (dw > 0 ? wn : w)],
+                         qp[dz * qs + dw])
+                : T(0);
+    });
+  }
 }
 
 // Σ coupling · q(neighbour) at (z, w) of the grid q.
@@ -115,6 +137,61 @@ __device__ __forceinline__ T rhs_y(const T* __restrict__ so, const T* q,
     r = A::add(r, (il && wh) ? A::mul(so[NW * P + idx + 1], q[idx - ny + 1]) : zero);
     r = A::add(r, (ih && wl) ? A::mul(so[NW * P + idx + ny], q[idx + ny - 1]) : zero);
     r = A::add(r, (ih && wh) ? A::mul(so[SW * P + idx + ny + 1], q[idx + ny + 1]) : zero);
+  }
+  return r;
+}
+
+// rhs_x on a periodic grid (the axes of wr): b + couplings to the columns
+// j-1 and j+1 of the point (z, j), the neighbours wrapped, in
+// lines2.line_rhs_x order.
+template <typename T, bool NINE>
+__device__ __forceinline__ T rhs_x_wrap(const T* __restrict__ so, const T* q,
+                                        const T* __restrict__ b, long long P,
+                                        int z, int j, int nx, int ny,
+                                        Wrap wr) {
+  using A = Arith<T>;
+  const T zero = T(0);
+  const bool zl = wr.x || z > 0, zh = wr.x || z + 1 < nx;
+  const bool jl = wr.y || j > 0, jh = wr.y || j + 1 < ny;
+  const long long r0 = (long long)z * ny;
+  const long long rm = (long long)(z == 0 ? nx - 1 : z - 1) * ny;
+  const long long rn = (long long)(z + 1 == nx ? 0 : z + 1) * ny;
+  const int jm = j == 0 ? ny - 1 : j - 1, jn = j + 1 == ny ? 0 : j + 1;
+  T r = b[r0 + j];
+  r = A::add(r, jl ? A::mul(so[S * P + r0 + j], q[r0 + jm]) : zero);
+  r = A::add(r, jh ? A::mul(so[S * P + r0 + jn], q[r0 + jn]) : zero);
+  if (NINE) {
+    r = A::add(r, (zl && jl) ? A::mul(so[SW * P + r0 + j], q[rm + jm]) : zero);
+    r = A::add(r, (zh && jl) ? A::mul(so[NW * P + rn + j], q[rn + jm]) : zero);
+    r = A::add(r, (zl && jh) ? A::mul(so[NW * P + r0 + jn], q[rm + jn]) : zero);
+    r = A::add(r, (zh && jh) ? A::mul(so[SW * P + rn + jn], q[rn + jn]) : zero);
+  }
+  return r;
+}
+
+// rhs_y on a periodic grid: b + couplings to the rows i-1 and i+1 of the
+// point (i, w), the neighbours wrapped, in rhs_y's order.
+template <typename T, bool NINE>
+__device__ __forceinline__ T rhs_y_wrap(const T* __restrict__ so, const T* q,
+                                        const T* __restrict__ b, long long P,
+                                        int i, int w, int nx, int ny,
+                                        Wrap wr) {
+  using A = Arith<T>;
+  const T zero = T(0);
+  const bool il = wr.x || i > 0, ih = wr.x || i + 1 < nx;
+  const bool wl = wr.y || w > 0, wh = wr.y || w + 1 < ny;
+  const long long r0 = (long long)i * ny;
+  const long long rm = (long long)(i == 0 ? nx - 1 : i - 1) * ny;
+  const long long rn = (long long)(i + 1 == nx ? 0 : i + 1) * ny;
+  const int wm = w == 0 ? ny - 1 : w - 1, wn = w + 1 == ny ? 0 : w + 1;
+  T r = b[r0 + w];
+  r = A::add(r, il ? A::mul(so[W * P + r0 + w], q[rm + w]) : zero);
+  r = A::add(r, ih ? A::mul(so[W * P + rn + w], q[rn + w]) : zero);
+  if (NINE) {
+    r = A::add(r, (il && wl) ? A::mul(so[SW * P + r0 + w], q[rm + wm]) : zero);
+    r = A::add(r, (il && wh) ? A::mul(so[NW * P + r0 + wn], q[rm + wn]) : zero);
+    r = A::add(r, (ih && wl) ? A::mul(so[NW * P + rn + w], q[rn + wm]) : zero);
+    r = A::add(r, (ih && wh) ? A::mul(so[SW * P + rn + wn], q[rn + wn]) : zero);
   }
   return r;
 }
@@ -185,6 +262,112 @@ __device__ __forceinline__ Row<T> line_row(const T* __restrict__ so,
                          line > 0, line + 1 < ny);
   }
   return v;
+}
+
+// line_row on a periodic grid (the axes of wr).  A line along a periodic
+// axis is cyclic (lines2.cyclic_solve): its rows are those of the modified
+// matrix A' (the corners dropped, d[0] -= γ and d[n-1] -= cl·cu/γ, with
+// γ = -d[0] and cl = cu the wrap coupling of point 0, -W(0) or -S(0)),
+// and it is staged twice: slot 0 with the rhs, slot 1 with the
+// Sherman–Morrison vector u = (γ, 0, …, 0, cl) in r.  A line across a
+// periodic axis reads its neighbour lines with wrap-around.
+template <typename T, bool NINE, bool Y>
+__device__ __forceinline__ Row<T> line_row_wrap(const T* __restrict__ so,
+                                                const T* q,
+                                                const T* __restrict__ b,
+                                                long long P, int nx, int ny,
+                                                int line, int i, Wrap wr,
+                                                int slot) {
+  using A = Arith<T>;
+  Row<T> v{T(0), T(1), T(0), T(0)};
+  const int n = Y ? ny : nx;
+  if (i >= n) return v;
+  const int step = Y ? 1 : ny;  // the index stride along the line
+  const long long i0 = Y ? (long long)line * ny : line;  // point 0
+  const long long idx = i0 + (long long)i * step;
+  const int c = Y ? S : W;  // the coupling along the line
+  v.lo = i > 0 ? -so[c * P + idx] : T(0);
+  v.up = i + 1 < n ? -so[c * P + idx + step] : T(0);
+  v.dg = so[idx];
+  if (slot == 0)
+    v.r = Y ? rhs_y_wrap<T, NINE>(so, q, b, P, line, i, nx, ny, wr)
+            : rhs_x_wrap<T, NINE>(so, q, b, P, i, line, nx, ny, wr);
+  if (Y ? wr.y : wr.x) {
+    const T gamma = -so[i0], cl = -so[c * P + i0];
+    if (i == 0) v.dg = A::sub(v.dg, gamma);
+    if (i == n - 1) v.dg = A::sub(v.dg, A::div(A::mul(cl, cl), gamma));
+    if (slot == 1) v.r = i == n - 1 ? cl : i == 0 ? gamma : T(0);
+  }
+  return v;
+}
+
+// The Sherman–Morrison factor of a cyclic line from its two solves (y:
+// the rhs, z: u; lines2.cyclic_solve), kept in z's row 0, whose lo the
+// store does not read:
+//   t = cu/γ,  vy = y[0] + t y[n-1],  vz = z[0] + t z[n-1],
+//   f = vy / (1 + vz);  then x = y - z f (cyclic_value)
+template <typename T, bool Y>
+__device__ __forceinline__ void cyclic_factor(const Row<T>* y, Row<T>* z,
+                                              int n,
+                                              const T* __restrict__ so,
+                                              long long P, int ny, int line) {
+  using A = Arith<T>;
+  const long long i0 = Y ? (long long)line * ny : line;
+  const T gamma = -so[i0], cu = -so[(Y ? S : W) * P + i0];
+  const T t = A::div(cu, gamma);
+  const T vy = A::add(y[0].r, A::mul(t, y[n - 1].r));
+  const T vz = A::add(z[0].r, A::mul(t, z[n - 1].r));
+  z[0].lo = A::div(vy, A::add(T(1), vz));
+}
+
+template <typename T>
+__device__ __forceinline__ T cyclic_value(const Row<T>* y, const Row<T>* z,
+                                          int i) {
+  using A = Arith<T>;
+  return A::sub(y[i].r, A::mul(z[i].r, z[0].lo));
+}
+
+// stage_lines on a periodic grid: L holds `slots` (2 for cyclic lines,
+// else 1) systems a line, line l of the colour in L's lines l * slots ..
+// l * slots + slots - 1 (line_row_wrap's slots).
+template <typename T, bool NINE, bool Y>
+__device__ void stage_lines_wrap(const Lines<T>& L, const T* __restrict__ so,
+                                 const T* q, const T* __restrict__ b,
+                                 long long P, int nx, int ny, int parity,
+                                 int t0, Wrap wr, int slots) {
+  const int total = L.nl * L.npad;
+  for (int k = threadIdx.x; k < total; k += blockDim.x) {
+    const int l = Y ? k / L.npad : k % L.nl;
+    const int i = Y ? k % L.npad : k / L.nl;
+    L.a[Y ? k : l * L.npad + i] = line_row_wrap<T, NINE, Y>(
+        so, q, b, P, nx, ny, 2 * (t0 + l / slots) + parity, i, wr,
+        l % slots);
+  }
+}
+
+// store_lines after stage_lines_wrap: a cyclic line's points combine its
+// two solves (cyclic_factor, a thread a line, a barrier, cyclic_value).
+template <typename T, bool Y>
+__device__ void store_lines_wrap(const Lines<T>& L, Row<T>* rows, T* q,
+                                 const T* __restrict__ so, long long P,
+                                 int ny, int parity, int t0, int slots) {
+  const int nl = L.nl / slots, total = nl * L.n;
+  if (slots == 2) {
+    for (int l = threadIdx.x; l < nl; l += blockDim.x) {
+      Row<T>* y = rows + 2LL * l * L.npad;
+      cyclic_factor<T, Y>(y, y + L.npad, L.n, so, P, ny,
+                          2 * (t0 + l) + parity);
+    }
+    __syncthreads();
+  }
+  for (int k = threadIdx.x; k < total; k += blockDim.x) {
+    const int l = Y ? k / L.n : k % nl;
+    const int i = Y ? k % L.n : k / nl;
+    const int line = 2 * (t0 + l) + parity;
+    const Row<T>* y = rows + (long long)l * slots * L.npad;
+    q[Y ? (long long)line * ny + i : (long long)i * ny + line] =
+        slots == 1 ? y[i].r : cyclic_value(y, y + L.npad, i);
+  }
 }
 
 // Stage the active lines t0 .. t0 + L.nl - 1 of the zebra colour `parity`

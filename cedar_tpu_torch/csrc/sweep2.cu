@@ -41,6 +41,21 @@
 // neighbour's stored plane (W[z+1,w], S[z,w+1], NW[z+1,w], NW[z,w+1],
 // SW[z+1,w+1]); a term whose neighbour lies outside the grid is exactly
 // zero, which is what the zero-filled shifts of the reference give.
+//
+// Periodic mode (the Pallas sweep's `periodic`, cedar_tpu/ops/pallas2.py
+// `_sweep_kernel`: lane rolls of the y couplings, wrapped x halo blocks, no
+// high-edge mask under x-periodicity): on a periodic axis a neighbour at -1
+// or n is the point n-1 or 0, and an up-shifted coupling at the last point
+// reads the first one's plane (W[0,w] at z = nx-1; `shift2(..., periodic)`),
+// so the zero rule above holds on non-periodic axes only, the residual
+// included.  An odd extent along a periodic axis (a 400² grid coarsens to
+// 25²) puts the last point and the first, neighbours, into one colour; the
+// plain version then computes each point of a phase from the values before
+// the phase.  The resident regime does so there (JAC): a phase computes
+// its colour's points into registers, and writes them after a barrier;
+// with even extents it updates in place, as without the wrap.  The
+// streamed regime uses tile2.cuh's `sweep_wrap` (its Jacobi phases where
+// an extent is odd).
 
 #include "async.cuh"
 #include "tile2.cuh"
@@ -57,15 +72,21 @@ __host__ __device__ constexpr int resident_arrays(bool nine) {
   return (nine ? 5 : 3) + 2;
 }
 
+// a periodic resident phase's points a thread, in registers: a colour of a
+// level that fits one block has at most this many points a thread
+constexpr int kResPer = 8;
+
 // K1, resident: one sweep of the level in shared memory, q_in read once
 // and q_out written once, + res on request; vec: every array starts
-// 16-byte aligned and holds a multiple of 16 bytes.
-template <typename T, bool NINE>
+// 16-byte aligned and holds a multiple of 16 bytes.  PER: the periodic
+// mode, on the axes of wr; JAC: an odd extent along one of them (the
+// header note).
+template <typename T, bool NINE, bool PER, bool JAC>
 __global__ void __launch_bounds__(kResThreads)
 sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
                const T* __restrict__ b, T* __restrict__ q_out,
                T* __restrict__ res, int nx, int ny, int colors, int ncolors,
-               int oz, int ow, int emit_res, int vec) {
+               int oz, int ow, int emit_res, int vec, Wrap wr) {
   using A = Arith<T>;
   constexpr int ND = resident_arrays(NINE) - 2, QA = ND, BA = ND + 1;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -102,14 +123,33 @@ sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
   auto point = [&](int z, int w) -> Pt {
     const int i = z * ny + w;
     T* q0 = sm + QA * N + i;
-    const bool zl = z > 0, zh = z + 1 < nx, wl = w > 0, wh = w + 1 < ny;
-    const T off = offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
-      const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
-                      (dw < 0 ? wl : dw > 0 ? wh : true);
-      return ok ? A::mul(sm[d * N + i + (dz > 0 ? ny : 0) + (dw > 0 ? 1 : 0)],
-                         q0[dz * ny + dw])
-                : T(0);
-    });
+    T off;
+    if constexpr (!PER) {
+      const bool zl = z > 0, zh = z + 1 < nx, wl = w > 0, wh = w + 1 < ny;
+      off = offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
+        const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
+                        (dw < 0 ? wl : dw > 0 ? wh : true);
+        return ok ? A::mul(sm[d * N + i + (dz > 0 ? ny : 0) + (dw > 0 ? 1 : 0)],
+                           q0[dz * ny + dw])
+                  : T(0);
+      });
+    } else {
+      // the neighbours' rows and columns, wrapped on the periodic axes
+      const bool zl = wr.x || z > 0, zh = wr.x || z + 1 < nx;
+      const bool wl = wr.y || w > 0, wh = wr.y || w + 1 < ny;
+      const int zm = z == 0 ? nx - 1 : z - 1, zn = z + 1 == nx ? 0 : z + 1;
+      const int wm = w == 0 ? ny - 1 : w - 1, wn = w + 1 == ny ? 0 : w + 1;
+      off = offdiag_terms2<T, NINE>([&](int dz, int dw, int d) -> T {
+        const bool ok = (dz < 0 ? zl : dz > 0 ? zh : true) &&
+                        (dw < 0 ? wl : dw > 0 ? wh : true);
+        const int zq = dz < 0 ? zm : dz > 0 ? zn : z;
+        const int wq = dw < 0 ? wm : dw > 0 ? wn : w;
+        return ok ? A::mul(sm[d * N + (dz > 0 ? zn : z) * ny +
+                              (dw > 0 ? wn : w)],
+                           sm[QA * N + zq * ny + wq])
+                  : T(0);
+      });
+    }
     return Pt{off, sm[BA * N + i], sm[i], q0};
   };
 
@@ -121,13 +161,42 @@ sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
     const int color = (colors >> (4 * k)) & 15;
     const int zf = NINE ? (((color & 1) - oz) & 1) : 0;
     const int nrows = NINE ? max(nx - zf + 1, 0) / 2 : nx;
-    for (int e = tid; e < nrows * hw; e += nth) {
-      const int z = zf + (NINE ? 2 : 1) * (e / hw);
+    // the colour's point e: (z, w), or w >= ny for none
+    auto at = [&](int e, int& z, int& w) {
+      z = zf + (NINE ? 2 : 1) * (e / hw);
       const int cpar = NINE ? color >> 1 : color - (z + oz);
-      const int w = 2 * (e % hw) + ((cpar - ow) & 1);
-      if (w >= ny) continue;
-      const Pt t = point(z, w);
-      *t.q = A::mul(A::add(t.b, t.off), A::div(T(1), t.diag));
+      w = 2 * (e % hw) + ((cpar - ow) & 1);
+    };
+    if constexpr (!JAC) {
+      for (int e = tid; e < nrows * hw; e += nth) {
+        int z, w;
+        at(e, z, w);
+        if (w >= ny) continue;
+        const Pt t = point(z, w);
+        *t.q = A::mul(A::add(t.b, t.off), A::div(T(1), t.diag));
+      }
+    } else {
+      // every point from the values before the phase (the wrap may couple
+      // points of one colour): compute, barrier, write
+      T v[kResPer];
+#pragma unroll
+      for (int u = 0; u < kResPer; ++u) {
+        const int e = tid + u * nth;
+        int z, w;
+        at(e, z, w);
+        if (e >= nrows * hw || w >= ny) continue;
+        const Pt t = point(z, w);
+        v[u] = A::mul(A::add(t.b, t.off), A::div(T(1), t.diag));
+      }
+      __syncthreads();
+#pragma unroll
+      for (int u = 0; u < kResPer; ++u) {
+        const int e = tid + u * nth;
+        int z, w;
+        at(e, z, w);
+        if (e >= nrows * hw || w >= ny) continue;
+        sm[QA * N + z * ny + w] = v[u];
+      }
     }
     __syncthreads();
   }
@@ -142,15 +211,19 @@ sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
   }
 }
 
-template <typename T, bool NINE>
+template <typename T, bool NINE, bool PER, bool JAC>
 int launch_resident(const void* so, const void* q_in, const void* b,
                     void* q_out, void* res, int nx, int ny, int colors,
                     int ncolors, int oz, int ow, int emit_res,
-                    long long smem, cudaStream_t st) {
+                    long long smem, Wrap wr, cudaStream_t st) {
   // the plan must hold the level's arrays in one block
   if (smem != (long long)resident_arrays(NINE) * nx * ny * sizeof(T))
     return (int)cudaErrorInvalidValue;
-  auto fn = sweep_resident<T, NINE>;
+  // a Jacobi phase holds its colour's points in registers
+  const long long most = (long long)(NINE ? (nx + 1) / 2 : nx) * ((ny + 1) / 2);
+  if (JAC && most > (long long)kResPer * kResThreads)
+    return (int)cudaErrorInvalidValue;
+  auto fn = sweep_resident<T, NINE, PER, JAC>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -161,24 +234,38 @@ int launch_resident(const void* so, const void* q_in, const void* b,
                   ((long long)nx * ny * sizeof(T)) % 16 == 0;
   fn<<<1, kResThreads, smem, st>>>((const T*)so, (const T*)q_in, (const T*)b,
                                    (T*)q_out, (T*)res, nx, ny, colors,
-                                   ncolors, oz, ow, emit_res, vec);
+                                   ncolors, oz, ow, emit_res, vec, wr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* so, const void* q_in, const void* b, void* q_out,
            void* res, int nx, int ny, int nine, int colors, int ncolors,
-           int oz, int ow, int emit_res, long long smem, cudaStream_t st) {
+           int oz, int ow, int emit_res, Wrap wr, long long smem,
+           cudaStream_t st) {
   if (q_in == q_out) return (int)cudaErrorInvalidValue;
+  const bool per = wr.x || wr.y;
   if (smem == 0) {
     // streamed: the tile kernel, on static shared memory
+    const int mode = emit_res ? kRes : kNone;
+    if (per)
+      return launch_sweep_wrap<T>(so, q_in, b, q_out, res, nx, ny, nine,
+                                  colors, ncolors, oz, ow, mode, wr, st);
     return launch_sweep<T>(so, q_in, b, q_out, res, nullptr, nx, ny, nine,
-                           colors, ncolors, oz, ow, emit_res ? kRes : kNone,
-                           st);
+                           colors, ncolors, oz, ow, mode, st);
   }
-  auto fn = nine ? launch_resident<T, true> : launch_resident<T, false>;
+  // the Jacobi phases where an extent along a periodic axis is odd
+  const bool jac = (wr.x && (nx & 1)) || (wr.y && (ny & 1));
+  auto fn = launch_resident<T, false, false, false>;
+  if (nine)
+    fn = !per ? launch_resident<T, true, false, false>
+              : jac ? launch_resident<T, true, true, true>
+                    : launch_resident<T, true, true, false>;
+  else if (per)
+    fn = jac ? launch_resident<T, false, true, true>
+             : launch_resident<T, false, true, false>;
   return fn(so, q_in, b, q_out, res, nx, ny, colors, ncolors, oz, ow,
-            emit_res, smem, st);
+            emit_res, smem, wr, st);
 }
 
 }  // namespace
@@ -190,20 +277,25 @@ extern "C" {
 int cedar_sweep2_threads() { return cedar::kResThreads; }
 
 // One whole sweep of q_in into q_out, another array (res = b - A q_out
-// when emit_res), on the plan of ops/cuda2.py `plan`: the bytes of the one
-// block that holds the level (resident), or smem = 0 (streamed).  Returns
-// a CUDA error code (0 on success).
+// when emit_res), periodic along x (px) and y (py) where they are 1, on the
+// plan of ops/cuda2.py `plan`: the bytes of the one block that holds the
+// level (resident), or smem = 0 (streamed).  Returns a CUDA error code (0
+// on success).
 int cedar_sweep2(int dtype, const void* so, const void* q_in, const void* b,
                  void* q_out, void* res, int nx, int ny, int nine, int colors,
-                 int ncolors, int oz, int ow, int emit_res, long long smem,
-                 void* stream) {
+                 int ncolors, int oz, int ow, int emit_res, int px, int py,
+                 long long smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  cedar::Wrap wr;
+  wr.x = px != 0;
+  wr.y = py != 0;
   if (dtype == cedar::kFloat32)
     return cedar::launch<float>(so, q_in, b, q_out, res, nx, ny, nine, colors,
-                                ncolors, oz, ow, emit_res, smem, st);
+                                ncolors, oz, ow, emit_res, wr, smem, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch<double>(so, q_in, b, q_out, res, nx, ny, nine,
-                                 colors, ncolors, oz, ow, emit_res, smem, st);
+                                 colors, ncolors, oz, ow, emit_res, wr, smem,
+                                 st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -25,6 +25,18 @@
 // over the block's own points, in no fixed order against the plain
 // version's sum) into a buffer of one entry a block (`tiles`); the caller
 // sums it.
+//
+// Periodic grids (K1's periodic mode, `sweep_wrap`; the counterpart of the
+// Pallas sweep's `periodic` mode): the region's halo is loaded with
+// wrap-around, a region point outside the grid on a periodic axis stands
+// for its wrapped point and is updated as that one is, and the couplings
+// wrap (stencil2.cuh `offdiag_at` with PER).  With even extents along the
+// periodic axes the colouring is consistent around the wrap and a phase
+// updates in place as above.  An odd extent along a periodic axis puts the
+// last point and the first, which are neighbours, into one colour: there
+// (JAC) a phase computes its colour's points from the values before the
+// phase, as the plain version's masked update does, into registers, and
+// writes them after a barrier.
 #pragma once
 
 #include "stencil2.cuh"
@@ -55,13 +67,18 @@ __device__ __forceinline__ bool in_grid(int z, int w, int nx, int ny) {
 // s (RZ x kRW) = q over global rows [z0, z0 + RZ), columns [w0, w0 +
 // kRW); points outside the grid hold 0 (never read: their couplings are
 // zero).
-template <typename T, int RZ>
+// With PER the periodic axes of wr wrap.
+template <typename T, int RZ, bool PER = false>
 __device__ void load_region(T* s, const T* __restrict__ q, int z0, int w0,
-                            int nx, int ny) {
+                            int nx, int ny, Wrap wr = Wrap{}) {
   for (int r = threadIdx.y; r < RZ; r += kBlockY) {
-    const int z = z0 + r;
+    int z = z0 + r;
+    if constexpr (PER)
+      if (wr.x) z = wrap_index(z, nx);
     for (int c = threadIdx.x; c < kRW; c += kBlockX) {
-      const int w = w0 + c;
+      int w = w0 + c;
+      if constexpr (PER)
+        if (wr.y) w = wrap_index(w, ny);
       s[r * kRW + c] =
           in_grid(z, w, nx, ny) ? q[(long long)z * ny + w] : T(0);
     }
@@ -69,16 +86,18 @@ __device__ void load_region(T* s, const T* __restrict__ q, int z0, int w0,
 }
 
 // b - A q at grid point (z, w), held at local (r, c) of the tile s.
-template <typename T, bool NINE>
+template <typename T, bool NINE, bool PER = false>
 __device__ __forceinline__ T residual_at(const T* s, int r, int c,
                                          const T* __restrict__ so,
                                          const T* __restrict__ b, int z,
-                                         int w, int nx, int ny) {
+                                         int w, int nx, int ny,
+                                         Wrap wr = Wrap{}) {
   using A = Arith<T>;
   const long long i = (long long)z * ny + w;
   const T* qp = s + r * kRW + c;
-  return A::sub(A::add(b[i], offdiag_at<T, NINE>(so, (long long)nx * ny, z,
-                                                 w, nx, ny, qp, kRW)),
+  return A::sub(A::add(b[i], offdiag_at<T, NINE, PER>(so, (long long)nx * ny,
+                                                      z, w, nx, ny, qp, kRW,
+                                                      wr)),
                 A::mul(so[i], *qp));
 }
 
@@ -89,11 +108,15 @@ __device__ __forceinline__ T residual_at(const T* s, int r, int c,
 // colors packs the colour codes in sweep order, 4 bits each
 // (ops/cuda_fused2.py).  Lane x takes the x-th point of the colour in a
 // row; 9-point colours also skip every other row.
-template <typename T, bool NINE, int RZ>
+//
+// With PER a region point on a periodic axis stands for its wrapped grid
+// point (extents even along the periodic axes: the wrapped point has the
+// parity of the unwrapped one, so the mapping above holds).
+template <typename T, bool NINE, int RZ, bool PER = false>
 __device__ void phases(T* s, const T* __restrict__ so,
                        const T* __restrict__ b, int z0, int w0, int nx,
                        int ny, int colors, int ncolors, int oz, int ow,
-                       int d0) {
+                       int d0, Wrap wr = Wrap{}) {
   using A = Arith<T>;
   const long long P = (long long)nx * ny;
   for (int k = 0; k < ncolors; ++k) {
@@ -106,17 +129,66 @@ __device__ void phases(T* s, const T* __restrict__ so,
     const int rstep = NINE ? 2 * kBlockY : kBlockY;
     for (int r = r0 + (NINE ? 2 : 1) * threadIdx.y; r < RZ - lo; r += rstep) {
       const int z = z0 + r;
-      if (z < 0 || z >= nx) continue;
+      int zg = z;
+      if constexpr (PER)
+        if (wr.x) zg = wrap_index(z, nx);
+      if (zg < 0 || zg >= nx) continue;
       const int cpar = NINE ? (color >> 1) : color - (z + oz);
       const int c = lo + ((cpar - w0 - ow - lo) & 1) + 2 * threadIdx.x;
-      const int w = w0 + c;
-      if (c >= kRW - lo || w < 0 || w >= ny) continue;
-      const long long i = (long long)z * ny + w;
+      int wg = w0 + c;
+      if constexpr (PER)
+        if (wr.y) wg = wrap_index(wg, ny);
+      if (c >= kRW - lo || wg < 0 || wg >= ny) continue;
+      const long long i = (long long)zg * ny + wg;
       T* qp = s + r * kRW + c;
-      *qp = A::mul(A::add(b[i], offdiag_at<T, NINE>(so, P, z, w, nx, ny, qp,
-                                                    kRW)),
+      *qp = A::mul(A::add(b[i], offdiag_at<T, NINE, PER>(so, P, zg, wg, nx,
+                                                         ny, qp, kRW, wr)),
                    A::div(T(1), so[i]));
     }
+    __syncthreads();
+  }
+}
+
+// phases for an odd extent along a periodic axis (JAC in the header note):
+// the colour of a region point is that of its wrapped grid point, and a
+// phase writes its colour's points only after every thread has computed
+// them from the values before the phase.  A thread takes the region points
+// t, t + kThreads, ... (U of them), in registers.
+template <typename T, bool NINE, int RZ>
+__device__ void phases_jacobi(T* s, const T* __restrict__ so,
+                              const T* __restrict__ b, int z0, int w0,
+                              int nx, int ny, int colors, int ncolors,
+                              int oz, int ow, int d0, Wrap wr) {
+  using A = Arith<T>;
+  constexpr int U = (RZ * kRW + kThreads - 1) / kThreads;
+  const long long P = (long long)nx * ny;
+  const int t = threadIdx.y * kBlockX + threadIdx.x;
+  for (int k = 0; k < ncolors; ++k) {
+    const int color = (colors >> (4 * k)) & 15;
+    const int lo = d0 + k;
+    T v[U];
+    unsigned act = 0;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int e = t + u * kThreads, r = e / kRW, c = e % kRW;
+      if (e >= RZ * kRW || r < lo || r >= RZ - lo || c < lo || c >= kRW - lo)
+        continue;
+      int zg = z0 + r, wg = w0 + c;
+      if (wr.x) zg = wrap_index(zg, nx);
+      if (wr.y) wg = wrap_index(wg, ny);
+      if (!in_grid(zg, wg, nx, ny)) continue;
+      const int pz = (zg + oz) & 1, pw = (wg + ow) & 1;
+      if (NINE ? color != 2 * pw + pz : color != ((pz + pw) & 1)) continue;
+      const long long i = (long long)zg * ny + wg;
+      v[u] = A::mul(A::add(b[i], offdiag_at<T, NINE, true>(
+                                     so, P, zg, wg, nx, ny, s + e, kRW, wr)),
+                    A::div(T(1), so[i]));
+      act |= 1u << u;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (act >> u & 1) s[t + u * kThreads] = v[u];
     __syncthreads();
   }
 }
@@ -138,11 +210,12 @@ __device__ T block_sum(T v) {
 // The epilogue: the block's own points of s (local rows and
 // columns from H) to q_out, then the residual to res (kRes) or the sum of
 // its squares to partials[block] (kNorm).
-template <typename T, bool NINE, int H>
+template <typename T, bool NINE, int H, bool PER = false>
 __device__ void store_tile(const T* s, T* __restrict__ q_out,
                            T* __restrict__ res, T* __restrict__ partials,
                            const T* __restrict__ so, const T* __restrict__ b,
-                           int z0, int w0, int nx, int ny, int mode) {
+                           int z0, int w0, int nx, int ny, int mode,
+                           Wrap wr = Wrap{}) {
   using A = Arith<T>;
   constexpr int TW = kRW - 2 * H;
   T acc = T(0);
@@ -155,7 +228,7 @@ __device__ void store_tile(const T* s, T* __restrict__ q_out,
       const long long i = (long long)z * ny + w;
       q_out[i] = s[r * kRW + c];
       if (mode == kNone) continue;
-      const T rv = residual_at<T, NINE>(s, r, c, so, b, z, w, nx, ny);
+      const T rv = residual_at<T, NINE, PER>(s, r, c, so, b, z, w, nx, ny, wr);
       if (mode == kRes)
         res[i] = rv;
       else
@@ -184,6 +257,30 @@ sweep_fused(const T* __restrict__ so, const T* __restrict__ q_in,
   phases<T, NINE, RZ>(s, so, b, z0, w0, nx, ny, colors, ncolors, oz, ow, 1);
   store_tile<T, NINE, H>(s, q_out, res, partials, so, b, z0, w0, nx, ny,
                          mode);
+}
+
+// K1's periodic mode: sweep_fused with the halo loaded and the couplings
+// read with wrap-around on the axes of wr; JAC for an odd extent along one
+// of them (the header note).  Residual (kRes) or nothing (kNone).
+template <typename T, bool NINE, int H, bool JAC>
+__global__ void __launch_bounds__(kThreads)
+sweep_wrap(const T* __restrict__ so, const T* __restrict__ q_in,
+           const T* __restrict__ b, T* __restrict__ q_out,
+           T* __restrict__ res, int nx, int ny, int colors, int ncolors,
+           int oz, int ow, int mode, Wrap wr) {
+  constexpr int RZ = kTZ + 2 * H;
+  __shared__ T s[RZ * kRW];
+  const int z0 = blockIdx.y * kTZ - H, w0 = blockIdx.x * (kRW - 2 * H) - H;
+  load_region<T, RZ, true>(s, q_in, z0, w0, nx, ny, wr);
+  __syncthreads();
+  if (JAC)
+    phases_jacobi<T, NINE, RZ>(s, so, b, z0, w0, nx, ny, colors, ncolors, oz,
+                               ow, 1, wr);
+  else
+    phases<T, NINE, RZ, true>(s, so, b, z0, w0, nx, ny, colors, ncolors, oz,
+                              ow, 1, wr);
+  store_tile<T, NINE, H, true>(s, q_out, res, nullptr, so, b, z0, w0, nx, ny,
+                               mode, wr);
 }
 
 // the grid of a tile kernel with halo H on an (nx, ny) grid
@@ -218,6 +315,48 @@ int launch_sweep(const void* so, const void* q_in, const void* b, void* q_out,
     fn = launch_sweep_h<T, false, sweep_halo(false, true)>;
   return fn(so, q_in, b, q_out, res, partials, nx, ny, colors, ncolors, oz,
             ow, mode, st);
+}
+
+template <typename T, bool NINE, int H, bool JAC>
+int launch_wrap_h(const void* so, const void* q_in, const void* b,
+                  void* q_out, void* res, int nx, int ny, int colors,
+                  int ncolors, int oz, int ow, int mode, Wrap wr,
+                  cudaStream_t st) {
+  sweep_wrap<T, NINE, H, JAC><<<tiles(H, nx, ny), dim3(kBlockX, kBlockY), 0,
+                                st>>>(
+      (const T*)so, (const T*)q_in, (const T*)b, (T*)q_out, (T*)res, nx, ny,
+      colors, ncolors, oz, ow, mode, wr);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool JAC>
+int launch_wrap_jac(const void* so, const void* q_in, const void* b,
+                    void* q_out, void* res, int nx, int ny, int nine,
+                    int colors, int ncolors, int oz, int ow, int mode,
+                    Wrap wr, cudaStream_t st) {
+  auto fn = launch_wrap_h<T, false, sweep_halo(false, false), JAC>;
+  if (nine && mode != kNone)
+    fn = launch_wrap_h<T, true, sweep_halo(true, true), JAC>;
+  else if (nine)
+    fn = launch_wrap_h<T, true, sweep_halo(true, false), JAC>;
+  else if (mode != kNone)
+    fn = launch_wrap_h<T, false, sweep_halo(false, true), JAC>;
+  return fn(so, q_in, b, q_out, res, nx, ny, colors, ncolors, oz, ow, mode,
+            wr, st);
+}
+
+// K1's periodic mode on the tile kernel (kNone or kRes): the Jacobi phases
+// where an extent along a periodic axis is odd.
+template <typename T>
+int launch_sweep_wrap(const void* so, const void* q_in, const void* b,
+                      void* q_out, void* res, int nx, int ny, int nine,
+                      int colors, int ncolors, int oz, int ow, int mode,
+                      Wrap wr, cudaStream_t st) {
+  if (mode == kNorm) return (int)cudaErrorInvalidValue;
+  const bool jac = (wr.x && (nx & 1)) || (wr.y && (ny & 1));
+  auto fn = jac ? launch_wrap_jac<T, true> : launch_wrap_jac<T, false>;
+  return fn(so, q_in, b, q_out, res, nx, ny, nine, colors, ncolors, oz, ow,
+            mode, wr, st);
 }
 
 }  // namespace

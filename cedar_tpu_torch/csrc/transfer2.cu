@@ -75,6 +75,15 @@
 // embedded 2D cycles, ops/planes3.py): grid arrays (nb, nx, ny), the
 // stencil (ndir, nb, nx, ny) and CI (8, nb, nxc+1, nyc+1), the batch axis
 // after the direction axis; nb = 1 is the unbatched launch.
+//
+// Periodic grids (template flag PER, the periodic axes in a Wrap; the JAX
+// package runs these transfers in XLA there, cedar_tpu/ops/interp2.py
+// `restrict` and `interp_add` with `periodic`): K2 reads a fine neighbour
+// at -1 (or nx) on a periodic axis as nx-1 (or 0), the coarse-sample wrap;
+// K3 and K5 read qc at coarse index nxc (nyc) as index 0, the padded qcp.
+// CI's wrap entries come from setup (ops/interp2.setup_interp), so the
+// weights need no special case, and restrict_value / interp_at read
+// through the same functors as before.
 
 #include <cstdint>
 
@@ -144,20 +153,35 @@ __device__ __forceinline__ T fine_at(const T* __restrict__ r, int z, int w,
 // interp2.PW_TABLE order.  Block (seg, threads / seg): x the lane of a
 // row segment (coarse column wc), y a row (plane p, coarse row zc: p * nxc
 // + zc); grid x the segment of the row, y the block of rows.
-template <typename T>
+template <typename T, bool PER>
 __global__ void restrict_kernel(const T* __restrict__ ci_p,
                                 const T* __restrict__ res,
                                 T* __restrict__ cb, int nx, int ny, int nxc,
-                                int nyc, int nb) {
+                                int nyc, int nb, Wrap wr) {
   const int wc = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
   if (r >= nb * nxc || wc >= nyc) return;
   const int p = r / nxc, zc = r - p * nxc;
   const CI<T> ci = ci_of(ci_p, p, nb, nxc, nyc);
   res += p * ((long long)nx * ny);
-  auto fine = [&](int z, int w) { return fine_at(res, z, w, nx, ny); };
-  cb[p * ((long long)nxc * nyc) + (long long)zc * nyc + wc] =
-      restrict_value(ci, fine, zc, wc);
+  T* const out = cb + p * ((long long)nxc * nyc) + (long long)zc * nyc + wc;
+  if constexpr (!PER) {
+    auto fine = [&](int z, int w) { return fine_at(res, z, w, nx, ny); };
+    *out = restrict_value(ci, fine, zc, wc);
+  } else {
+    // the fine rows and columns 2zc - 1, 2zc + 1 (2wc -+ 1), wrapped on
+    // the periodic axes once; restrict_value asks only for these
+    const int z0 = 2 * zc, w0 = 2 * wc;
+    const int zm = wr.x && z0 == 0 ? nx - 1 : z0 - 1;
+    const int zp = wr.x && z0 + 1 == nx ? 0 : z0 + 1;
+    const int wm = wr.y && w0 == 0 ? ny - 1 : w0 - 1;
+    const int wp = wr.y && w0 + 1 == ny ? 0 : w0 + 1;
+    auto fine = [&](int z, int w) {
+      return fine_at(res, z < z0 ? zm : z > z0 ? zp : z0,
+                     w < w0 ? wm : w > w0 ? wp : w0, nx, ny);
+    };
+    *out = restrict_value(ci, fine, zc, wc);
+  }
 }
 
 // q[z, w] += P qc (+ res / diag off the coincident points), in place.
@@ -168,13 +192,13 @@ __global__ void restrict_kernel(const T* __restrict__ ci_p,
 // before the first shuffle and the first store (one round trip to memory,
 // the segment's edge lanes' own loads included), and no thread returns
 // before the shuffles.
-template <typename T>
+template <typename T, bool PER>
 __global__ void interp_add_kernel(const T* __restrict__ ci_p,
                                   const T* __restrict__ so,
                                   const T* __restrict__ qc,
                                   const T* __restrict__ res,
                                   T* __restrict__ q, int nx, int ny, int nxc,
-                                  int nyc, int nb) {
+                                  int nyc, int nb, Wrap wr) {
   using A = Arith<T>;
   const int seg = blockDim.x, lane = threadIdx.x;
   const bool first = lane == 0, last = lane == seg - 1;
@@ -185,6 +209,10 @@ __global__ void interp_add_kernel(const T* __restrict__ ci_p,
   const CI<T> ci = ci_of(ci_p, p, nb, nxc, nyc);
   const T* __restrict__ qcp = qc + p * ((long long)nxc * nyc);
   auto qc_at = [&](bool in, int kk, int mm) -> T {
+    if constexpr (PER) {  // coarse index nxc (nyc) is index 0
+      if (wr.x && kk == nxc) kk = 0;
+      if (wr.y && mm == nyc) mm = 0;
+    }
     return (in && kk >= 0 && kk < nxc && mm >= 0 && mm < nyc)
                ? qcp[(long long)kk * nyc + mm]
                : T(0);
@@ -270,15 +298,23 @@ __global__ void interp_add_kernel(const T* __restrict__ ci_p,
 
 // K5: x[z, w] = (P qc)[z, w], a new fine tensor (the F-cycle's level
 // entry: no residual, no addend).
-template <typename T>
+template <typename T, bool PER>
 __global__ void interp_kernel(const T* __restrict__ ci_p,
                               const T* __restrict__ qc, T* __restrict__ x,
-                              int nx, int ny, int nxc, int nyc) {
+                              int nx, int ny, int nxc, int nyc, Wrap wr) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
   if (z >= nx || w >= ny) return;
   const CI<T> ci{ci_p, (long long)(nxc + 1) * (nyc + 1), nyc + 1};
-  x[(long long)z * ny + w] = interp_value(ci, qc, z, w, nxc, nyc);
+  if constexpr (!PER) {
+    x[(long long)z * ny + w] = interp_value(ci, qc, z, w, nxc, nyc);
+  } else {  // coarse index nxc (nyc) is index 0
+    x[(long long)z * ny + w] = interp_at<T>(ci, [&](int k, int m) -> T {
+      if (wr.x && k == nxc) k = 0;
+      if (wr.y && m == nyc) m = 0;
+      return (k < nxc && m < nyc) ? qc[(long long)k * nyc + m] : T(0);
+    }, z, w);
+  }
 }
 
 // The launch of K2 or K3 (ops/cuda_transfer2.plan): segments of `seg`
@@ -300,34 +336,45 @@ inline bool plan_ok(const TransferPlan& p, int rows, int nyc) {
 
 template <typename T>
 int launch_restrict(const void* ci, const void* res, void* cb, int nx, int ny,
-                    int nxc, int nyc, int nb, const TransferPlan& p,
+                    int nxc, int nyc, int nb, Wrap wr, const TransferPlan& p,
                     cudaStream_t st) {
   if (!plan_ok(p, nb * nxc, nyc)) return (int)cudaErrorInvalidValue;
-  restrict_kernel<T><<<dim3(p.nseg, p.gy), dim3(p.seg, p.threads / p.seg),
-                       0, st>>>((const T*)ci, (const T*)res, (T*)cb, nx, ny,
-                                nxc, nyc, nb);
+  auto fn = (wr.x || wr.y) ? restrict_kernel<T, true>
+                           : restrict_kernel<T, false>;
+  fn<<<dim3(p.nseg, p.gy), dim3(p.seg, p.threads / p.seg), 0, st>>>(
+      (const T*)ci, (const T*)res, (T*)cb, nx, ny, nxc, nyc, nb, wr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_interp_add(const void* ci, const void* so, const void* qc,
                       const void* res, void* q, int nx, int ny, int nxc,
-                      int nyc, int nb, const TransferPlan& p,
+                      int nyc, int nb, Wrap wr, const TransferPlan& p,
                       cudaStream_t st) {
   if (!plan_ok(p, nb * (nxc + 1), nyc)) return (int)cudaErrorInvalidValue;
-  interp_add_kernel<T><<<dim3(p.nseg, p.gy), dim3(p.seg, p.threads / p.seg),
-                         0, st>>>((const T*)ci, (const T*)so, (const T*)qc,
-                                  (const T*)res, (T*)q, nx, ny, nxc, nyc,
-                                  nb);
+  auto fn = (wr.x || wr.y) ? interp_add_kernel<T, true>
+                           : interp_add_kernel<T, false>;
+  fn<<<dim3(p.nseg, p.gy), dim3(p.seg, p.threads / p.seg), 0, st>>>(
+      (const T*)ci, (const T*)so, (const T*)qc, (const T*)res, (T*)q, nx, ny,
+      nxc, nyc, nb, wr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_interp(const void* ci, const void* qc, void* x, int nx, int ny,
-                  int nxc, int nyc, cudaStream_t st) {
-  interp_kernel<T><<<grid_for(nx, ny), dim3(kBlockX, kBlockY), 0, st>>>(
-      (const T*)ci, (const T*)qc, (T*)x, nx, ny, nxc, nyc);
+                  int nxc, int nyc, Wrap wr, cudaStream_t st) {
+  auto fn = (wr.x || wr.y) ? interp_kernel<T, true> : interp_kernel<T, false>;
+  fn<<<grid_for(nx, ny), dim3(kBlockX, kBlockY), 0, st>>>(
+      (const T*)ci, (const T*)qc, (T*)x, nx, ny, nxc, nyc, wr);
   return (int)cudaGetLastError();
+}
+
+// The periodic axes as the C entry points take them.
+inline Wrap wrap_of(int px, int py) {
+  Wrap wr;
+  wr.x = px != 0;
+  wr.y = py != 0;
+  return wr;
 }
 
 }  // namespace
@@ -335,50 +382,55 @@ int launch_interp(const void* ci, const void* qc, void* x, int nx, int ny,
 
 extern "C" {
 
-// cb (nb, nxc, nyc) = Pᵀ res (nb, nx, ny), plane by plane, on the plan
-// (seg, nseg, threads, gy) of ops/cuda_transfer2.plan.
+// cb (nb, nxc, nyc) = Pᵀ res (nb, nx, ny), plane by plane, periodic along
+// x (px) and y (py) where they are 1, on the plan (seg, nseg, threads, gy)
+// of ops/cuda_transfer2.plan.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a wrong plan.
 int cedar_restrict2(int dtype, const void* ci, const void* res, void* cb,
-                    int nx, int ny, int nxc, int nyc, int nb, int seg,
-                    int nseg, int threads, int gy, void* stream) {
+                    int nx, int ny, int nxc, int nyc, int nb, int px, int py,
+                    int seg, int nseg, int threads, int gy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const cedar::TransferPlan p{seg, nseg, threads, gy};
+  const cedar::Wrap wr = cedar::wrap_of(px, py);
   if (dtype == cedar::kFloat32)
     return cedar::launch_restrict<float>(ci, res, cb, nx, ny, nxc, nyc, nb,
-                                         p, st);
+                                         wr, p, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch_restrict<double>(ci, res, cb, nx, ny, nxc, nyc, nb,
-                                          p, st);
+                                          wr, p, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // q (nb, nx, ny) += P qc (nb, nxc, nyc) + res / so[O], in place, plane by
-// plane, on the plan (seg, nseg, threads, gy) of ops/cuda_transfer2.plan.
+// plane, periodic along x (px) and y (py) where they are 1, on the plan
+// (seg, nseg, threads, gy) of ops/cuda_transfer2.plan.
 // Returns cudaGetLastError(), or cudaErrorInvalidValue for a wrong plan.
 int cedar_interp_add2(int dtype, const void* ci, const void* so,
                       const void* qc, const void* res, void* q, int nx,
-                      int ny, int nxc, int nyc, int nb, int seg, int nseg,
-                      int threads, int gy, void* stream) {
+                      int ny, int nxc, int nyc, int nb, int px, int py,
+                      int seg, int nseg, int threads, int gy, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const cedar::TransferPlan p{seg, nseg, threads, gy};
+  const cedar::Wrap wr = cedar::wrap_of(px, py);
   if (dtype == cedar::kFloat32)
     return cedar::launch_interp_add<float>(ci, so, qc, res, q, nx, ny, nxc,
-                                           nyc, nb, p, st);
+                                           nyc, nb, wr, p, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch_interp_add<double>(ci, so, qc, res, q, nx, ny, nxc,
-                                            nyc, nb, p, st);
+                                            nyc, nb, wr, p, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// x (nx, ny) = P qc (nxc, nyc), written in full.
-// Returns cudaGetLastError().
+// x (nx, ny) = P qc (nxc, nyc), written in full, periodic along x (px) and
+// y (py) where they are 1.  Returns cudaGetLastError().
 int cedar_interp2(int dtype, const void* ci, const void* qc, void* x, int nx,
-                  int ny, int nxc, int nyc, void* stream) {
+                  int ny, int nxc, int nyc, int px, int py, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const cedar::Wrap wr = cedar::wrap_of(px, py);
   if (dtype == cedar::kFloat32)
-    return cedar::launch_interp<float>(ci, qc, x, nx, ny, nxc, nyc, st);
+    return cedar::launch_interp<float>(ci, qc, x, nx, ny, nxc, nyc, wr, st);
   if (dtype == cedar::kFloat64)
-    return cedar::launch_interp<double>(ci, qc, x, nx, ny, nxc, nyc, st);
+    return cedar::launch_interp<double>(ci, qc, x, nx, ny, nxc, nyc, wr, st);
   return (int)cudaErrorInvalidValue;
 }
 

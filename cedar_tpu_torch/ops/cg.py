@@ -28,13 +28,23 @@ from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import stencil2, stencil3
 
 
-def assemble_dense(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
+def assemble_dense(so: torch.Tensor, kind: StencilKind,
+                   periodic=None) -> torch.Tensor:
     """Dense row-form matrix of the operator over 2 or 3 axes, x-fastest
     ordering (x, then y, then z: the reference's KK loop,
-    SETUP_cg_LU.f90:116-144); ``(*batch, n, n)`` for a batched ``so``."""
-    stencil = stencil2 if kind.ndim == 2 else stencil3
-    af = stencil.full_offsets(so, kind)
+    SETUP_cg_LU.f90:116-144); ``(*batch, n, n)`` for a batched ``so``.
+    A neighbour across an axis marked in ``periodic`` (2D only) wraps
+    around (cedar_tpu/ops/cg.py:35-70)."""
     dims = kind.ndim
+    if periodic is None:
+        periodic = (False,) * dims
+    if dims == 2:
+        af = stencil2.full_offsets(so, kind, periodic)
+    elif any(periodic):
+        raise NotImplementedError("3D periodic grids (ROADMAP queue 1, "
+                                  "item 4)")
+    else:
+        af = stencil3.full_offsets(so, kind)
     nshape = tuple(so.shape[-dims:])
     batch = tuple(so.shape[1:-dims])
     n = int(np.prod(nshape))
@@ -52,7 +62,10 @@ def assemble_dense(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
         valid = np.ones(nshape, bool)
         for d in range(dims):
             nb_d = idx[d] + off[d]
-            valid &= (nb_d >= 0) & (nb_d < nshape[d])
+            if periodic[d]:
+                nb_d = nb_d % nshape[d]
+            else:
+                valid &= (nb_d >= 0) & (nb_d < nshape[d])
             nb_flat += np.clip(nb_d, 0, nshape[d] - 1) * strides[d]
         col = torch.as_tensor(nb_flat.reshape(-1), device=so.device)
         vals = torch.where(
@@ -65,9 +78,11 @@ def assemble_dense(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
 
 
 def setup_cg_lu(so: torch.Tensor, kind: StencilKind,
-                indefinite: bool = False) -> torch.Tensor:
-    """Assemble, (shift,) and invert the coarse operator.  Returns A⁻¹."""
-    mat = assemble_dense(so, kind)
+                indefinite: bool = False, periodic=None) -> torch.Tensor:
+    """Assemble, (shift,) and invert the coarse operator.  Returns A⁻¹.
+    ``indefinite`` (the doubly periodic singular case) adds the last
+    diagonal entry once more, the reference's rank-deficiency shift."""
+    mat = assemble_dense(so, kind, periodic)
     if indefinite:
         # reference: ABD(last,last) += SO(coarse last interior, KO)
         mat[..., -1, -1] += so[0].reshape(mat.shape[:-2] + (-1,))[..., -1]
@@ -77,15 +92,24 @@ def setup_cg_lu(so: torch.Tensor, kind: StencilKind,
     return torch.linalg.solve_triangular(chol.mT, y, upper=True)
 
 
-def solve_cg(ainv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def solve_cg(ainv: torch.Tensor, b: torch.Tensor,
+             subtract_mean: bool = False) -> torch.Tensor:
     """x = A⁻¹ b on the coarsest grid, any dimension (x-fastest
     flattening: the axes reversed); a batch ``ainv`` ``(B, n, n)`` solves
-    ``b`` ``(B, n1, n2)`` plane by plane."""
+    ``b`` ``(B, n1, n2)`` plane by plane.  ``subtract_mean`` removes the
+    mean of x (of each plane), the reference's projection off the null
+    space of a singular operator (SOLVE_cg.f90:124-141)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     if ainv.ndim == 3:
         bt = b.transpose(-1, -2).reshape(b.shape[0], -1, 1)
         x = torch.bmm(ainv, bt).reshape(b.shape[0], b.shape[2], b.shape[1])
-        return x.transpose(-1, -2).contiguous()
+        x = x.transpose(-1, -2).contiguous()
+        if subtract_mean:
+            x = x - x.mean(dim=(-2, -1), keepdim=True)
+        return x
     axes = tuple(reversed(range(b.ndim)))
     x = (ainv @ b.permute(axes).reshape(-1))
-    return x.reshape(tuple(reversed(b.shape))).permute(axes).contiguous()
+    x = x.reshape(tuple(reversed(b.shape))).permute(axes).contiguous()
+    if subtract_mean:
+        x = x - torch.mean(x)
+    return x

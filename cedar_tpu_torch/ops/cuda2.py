@@ -11,9 +11,12 @@ stencil planes, q and b fit one block's shared memory is swept there
 :func:`cedar_tpu_torch.ops.relax2.point_relax` picks one by device.
 
 Both return the swept iterate in a new tensor and leave ``q`` as it
-was, as the JAX function does.  ``launches`` counts the streamed launches
+was, as the JAX function does.  ``periodic`` wraps the couplings around
+the marked axes (the Pallas kernel's ``periodic`` mode); the plan does not
+depend on it.  ``launches`` counts the streamed launches
 made by :func:`sweep`, ``resident_launches`` the resident ones,
-``plain_calls`` calls of :func:`sweep_plain`.
+``plain_calls`` calls of :func:`sweep_plain`; ``periodic_launches`` and
+``periodic_resident_launches`` count the periodic ones among them.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from cedar_tpu_torch.ops.cuda_build import BLOCK_SMEM
 
 launches = 0
 resident_launches = 0
+periodic_launches = 0
+periodic_resident_launches = 0
 plain_calls = 0
 
 #: threads of a resident block (csrc/sweep2.cu ``kResThreads``)
@@ -80,21 +85,22 @@ def _check_sweep(so, q, b, kind: StencilKind) -> None:
 
 def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
           kind: StencilKind, updown: str, fuse_residual: bool = False,
-          origin=(0, 0)):
+          origin=(0, 0), periodic=(False, False)):
     """One full multicolour GS sweep on the card, one launch, out of place.
 
     Returns the swept iterate, or ``(q_new, b - A q_new)`` with
     ``fuse_residual``; ``q`` is left as it was."""
     _check_sweep(so, q, b, kind)
     p = plan(q.element_size(), kind == StencilKind.nine_pt, tuple(q.shape))
-    return _sweep(p, so, q, b, kind, updown, fuse_residual, origin)
+    return _sweep(p, so, q, b, kind, updown, fuse_residual, origin, periodic)
 
 
 def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
-           origin=(0, 0)):
+           origin=(0, 0), periodic=(False, False)):
     """:func:`sweep` on the plan ``p`` (tools/tune_fused2.py times both
     regimes at one shape)."""
     global launches, resident_launches
+    global periodic_launches, periodic_resident_launches
     _check_sweep(so, q, b, kind)
     dt = cuda_build.check_operands(so, q, b)
     lib = cuda_build.load("sweep2")
@@ -109,24 +115,27 @@ def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
                          q_out.data_ptr(),
                          None if res is None else res.data_ptr(), nx, ny,
                          int(nine), colors, ncolors, oz, ow,
-                         int(fuse_residual), p.smem,
+                         int(fuse_residual), int(bool(periodic[0])),
+                         int(bool(periodic[1])), p.smem,
                          cuda_build.stream_of(q)),
         "sweep2",
     )
     if p.resident:
         resident_launches += 1
+        periodic_resident_launches += any(periodic)
     else:
         launches += 1
+        periodic_launches += any(periodic)
     return (q_out, res) if fuse_residual else q_out
 
 
 def sweep_plain(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
                 kind: StencilKind, updown: str, fuse_residual: bool = False,
-                origin=(0, 0), recip=None):
+                origin=(0, 0), periodic=(False, False), recip=None):
     """:func:`sweep` in torch ops, on any device; returns new tensors and
     leaves ``q`` as it was."""
     global plain_calls
     plain_calls += 1
     _check_sweep(so, q, b, kind)
     return relax2.sweep_torch(so, q, b, recip, kind, updown, fuse_residual,
-                              origin)
+                              origin, periodic)

@@ -41,21 +41,25 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "sweep2": {
         "cedar_sweep2_threads": [],
-        # ends with its plan: smem (0: streamed)
+        # ends with the periodic axes, then its plan: smem (0: streamed)
         "cedar_sweep2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _L, _P],
+                         _I, _I, _I, _L, _P],
     },
     "transfer2": {
-        # K2 and K3 end with their plan: seg, nseg, threads, gy
+        # K2 and K3 end with the periodic axes, then their plan: seg,
+        # nseg, threads, gy; K5 with the periodic axes
         "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _I, _P],
+                            _I, _I, _I, _P],
         "cedar_interp_add2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _P],
-        "cedar_interp2": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _I, _I, _P],
+        "cedar_interp2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
     "lines2": {
-        "cedar_line2_x": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-        "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # end with the periodic axes (x, y)
+        "cedar_line2_x": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+        "cedar_line2_y": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
     },
     "fused2": {
         "cedar_fused2_partials": [_I, _I, _I],

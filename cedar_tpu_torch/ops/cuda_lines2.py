@@ -18,8 +18,17 @@ device-memory scratch; x-lines run in clusters of ``K4_CLUSTER`` blocks
 that stage and store their lines together.  The plain versions take the
 :func:`~cedar_tpu_torch.ops.lines2.setup_lines` factors for the short lines
 or, given None, factor the same way.  ``launches`` counts kernel launches
-made by :func:`line_x` / :func:`line_y` (one a colour), ``plain_calls``
+made by :func:`line_x` / :func:`line_y` (one a colour;
+``periodic_launches`` the periodic ones among them), ``plain_calls``
 calls of the plain versions.
+
+``periodic`` marks the periodic axes.  A line along a periodic axis is
+cyclic: the kernel stages it twice, with the right-hand side and with the
+Sherman–Morrison vector u, solves both with the modified matrix and
+combines them as :func:`~cedar_tpu_torch.ops.lines2.cyclic_solve` does, so
+a block holds half as many cyclic lines.  Across a periodic axis the
+right-hand side wraps, and an odd number of lines raises before any
+launch (:func:`~cedar_tpu_torch.ops.lines2.check_lines`).
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import cuda_build, lines2
 
 launches = 0
+periodic_launches = 0
 plain_calls = 0
 
 #: shared memory the line kernels (K4, K10) give a block's lines, bytes:
@@ -49,15 +59,18 @@ def line_pad(n: int, h: int) -> int:
     return -(-n // h) * h if h else n | 1
 
 
-def group(n: int, nactive: int, itemsize: int, rows: int) -> tuple:
+def group(n: int, nactive: int, itemsize: int, rows: int,
+          cyclic: bool = False) -> tuple:
     """``(h, lines, scratch)`` for solving lines of ``n`` points: the PCR
     stride, the lines a block holds at once (at most ``nactive`` and
     ``rows`` rows, one at least) and whether they must sit in a device-memory
-    scratch (a line's 8 · npad values beyond ``LINE_SMEM``)."""
+    scratch (a line's 8 · npad values beyond ``LINE_SMEM``).  A cyclic line
+    takes the room of two."""
     h = lines2.pcr_stride(n)
+    slots = 2 if cyclic else 1
     npad = line_pad(n, h)
-    fit = LINE_SMEM // (8 * npad * itemsize)
-    lines = max(1, min(nactive, fit, rows // npad))
+    fit = LINE_SMEM // (8 * slots * npad * itemsize)
+    lines = max(1, min(nactive, fit, rows // (slots * npad)))
     return h, lines, fit == 0
 
 
@@ -79,8 +92,8 @@ def _check(so, q, b, kind: StencilKind) -> None:
 
 
 def _launch(entry: str, so, q, b, kind: StencilKind, updown: str,
-            nlines: int, length: int):
-    global launches
+            nlines: int, length: int, periodic, cyclic: bool):
+    global launches, periodic_launches
     _check(so, q, b, kind)
     dt = cuda_build.check_operands(so, q, b)
     lib = cuda_build.load("lines2")
@@ -89,49 +102,61 @@ def _launch(entry: str, so, q, b, kind: StencilKind, updown: str,
     nx, ny = q.shape
     nine = int(kind == StencilKind.nine_pt)
     h, lines, far = group(length, (nlines + 1) // 2, q.element_size(),
-                          K4_ROWS)
-    # a line too long for shared memory: its arrays, a block each (x-lines
-    # run in clusters of K4_CLUSTER blocks)
+                          K4_ROWS, cyclic)
+    # a line too long for shared memory: its arrays (both of a cyclic
+    # line's systems), a block each (x-lines run in clusters of K4_CLUSTER
+    # blocks)
     blocks = -(-((nlines + 1) // 2) // K4_CLUSTER) * K4_CLUSTER
-    scratch = (q.new_empty((blocks, 8 * line_pad(length, h)))
+    slots = 2 if cyclic else 1
+    scratch = (q.new_empty((blocks, 8 * slots * line_pad(length, h)))
                if far else None)
+    px, py = (int(bool(p)) for p in periodic)
     for parity in lines2.colour_order(updown):
         cuda_build.check(
             fn(dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
                None if scratch is None else scratch.data_ptr(), nx, ny, nine,
-               parity, h, lines, stream),
+               parity, h, lines, px, py, stream),
             entry,
         )
         launches += 1
+        periodic_launches += any(periodic)
     return q
 
 
 def line_x(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
-           kind: StencilKind, updown: str) -> torch.Tensor:
+           kind: StencilKind, updown: str,
+           periodic=(False, False)) -> torch.Tensor:
     """One zebra x-line sweep on the card, ``q`` updated in place."""
     nx, ny = q.shape
-    return _launch("cedar_line2_x", so, q, b, kind, updown, ny, nx)
+    lines2.check_lines(ny, periodic[1], "x")
+    return _launch("cedar_line2_x", so, q, b, kind, updown, ny, nx, periodic,
+                   bool(periodic[0]))
 
 
 def line_y(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
-           kind: StencilKind, updown: str) -> torch.Tensor:
+           kind: StencilKind, updown: str,
+           periodic=(False, False)) -> torch.Tensor:
     """One zebra y-line sweep on the card, ``q`` updated in place; the
     operands are read where they lie (no transposes)."""
     nx, ny = q.shape
-    return _launch("cedar_line2_y", so, q, b, kind, updown, nx, ny)
+    lines2.check_lines(nx, periodic[0], "y")
+    return _launch("cedar_line2_y", so, q, b, kind, updown, nx, ny, periodic,
+                   bool(periodic[1]))
 
 
-def line_x_plain(so, q, b, kind: StencilKind, updown: str, sor=None):
+def line_x_plain(so, q, b, kind: StencilKind, updown: str, sor=None,
+                 periodic=(False, False)):
     """:func:`line_x` in torch ops, on any device; ``q`` in place."""
     global plain_calls
     plain_calls += 1
     _check(so, q, b, kind)
-    return lines2.sweep_x_torch(so, q, b, sor, kind, updown)
+    return lines2.sweep_x_torch(so, q, b, sor, kind, updown, periodic)
 
 
-def line_y_plain(so, q, b, kind: StencilKind, updown: str, sor=None):
+def line_y_plain(so, q, b, kind: StencilKind, updown: str, sor=None,
+                 periodic=(False, False)):
     """:func:`line_y` in torch ops, on any device; ``q`` in place."""
     global plain_calls
     plain_calls += 1
     _check(so, q, b, kind)
-    return lines2.sweep_y_torch(so, q, b, sor, kind, updown)
+    return lines2.sweep_y_torch(so, q, b, sor, kind, updown, periodic)

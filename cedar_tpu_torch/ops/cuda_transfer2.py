@@ -13,7 +13,12 @@ The kernels read the unpadded CI ``(8, nxc+1, nyc+1)`` and the dense
 residual; interp-add updates ``q`` in place (both versions do).  Restrict
 and interp-add also take a batch of planes in one launch: ``res`` / ``q``
 ``(B, nx, ny)``, ``so`` ``(ndir, B, nx, ny)``, CI ``(8, B, nxc+1, nyc+1)``.
-``*_launches`` count kernel launches, ``*_plain_calls`` plain-version calls.
+``*_launches`` count kernel launches (``*_periodic_launches`` the periodic
+ones among them), ``*_plain_calls`` plain-version calls.
+Each takes ``periodic``: the restriction's fine samples wrap around the
+marked axes, and the interpolations read coarse index ``nxc`` (``nyc``) as
+index 0; the weights' wrap entries come from setup
+(:func:`cedar_tpu_torch.ops.interp2.setup_interp`).
 
 Restrict and interp-add launch on a :func:`plan` that this module computes
 from the shapes and the launch checks: segments of lanes over consecutive
@@ -33,6 +38,9 @@ from cedar_tpu_torch.ops import cuda_build, interp2
 restrict_launches = 0
 interp_launches = 0
 interp2_launches = 0
+restrict_periodic_launches = 0
+interp_periodic_launches = 0
+interp2_periodic_launches = 0
 restrict_plain_calls = 0
 interp_plain_calls = 0
 interp2_plain_calls = 0
@@ -120,10 +128,16 @@ def _batch(grid: torch.Tensor) -> int:
     return grid.shape[0] if grid.ndim == 3 else 1
 
 
-def restrict(ci: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+def _wrap(periodic) -> tuple[int, int]:
+    """The periodic axes as the C entry points take them."""
+    return int(bool(periodic[0])), int(bool(periodic[1]))
+
+
+def restrict(ci: torch.Tensor, res: torch.Tensor,
+             periodic=(False, False)) -> torch.Tensor:
     """``cb = Pᵀ res`` on the card; returns a new ``(nxc, nyc)`` (or
     ``(B, nxc, nyc)``) tensor."""
-    global restrict_launches
+    global restrict_launches, restrict_periodic_launches
     nb = _batch(res)
     nxc, nyc = _coarse_shape(ci, res.shape)
     dt = cuda_build.check_operands(ci, res)
@@ -133,17 +147,19 @@ def restrict(ci: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
     p = plan("restrict", _planes(res), cuda_build.n_sm(res.device))
     cuda_build.check(
         lib.cedar_restrict2(dt, ci.data_ptr(), res.data_ptr(), cb.data_ptr(),
-                            nx, ny, nxc, nyc, nb, p.seg, p.nseg, p.threads,
-                            p.gy, cuda_build.stream_of(res)),
+                            nx, ny, nxc, nyc, nb, *_wrap(periodic), p.seg,
+                            p.nseg, p.threads, p.gy,
+                            cuda_build.stream_of(res)),
         "restrict2",
     )
     restrict_launches += 1
+    restrict_periodic_launches += any(periodic)
     return cb
 
 
-def interp_add(ci, so, qc, res, q) -> torch.Tensor:
+def interp_add(ci, so, qc, res, q, periodic=(False, False)) -> torch.Tensor:
     """``q += P qc + res/diag`` on the card, in place; returns ``q``."""
-    global interp_launches
+    global interp_launches, interp_periodic_launches
     nb = _batch(q)
     if res.shape != q.shape:
         raise ValueError(f"q {tuple(q.shape)} and res {tuple(res.shape)}")
@@ -162,17 +178,19 @@ def interp_add(ci, so, qc, res, q) -> torch.Tensor:
     cuda_build.check(
         lib.cedar_interp_add2(dt, ci.data_ptr(), so.data_ptr(), qc.data_ptr(),
                               res.data_ptr(), q.data_ptr(), nx, ny, nxc, nyc,
-                              nb, p.seg, p.nseg, p.threads, p.gy,
-                              cuda_build.stream_of(q)),
+                              nb, *_wrap(periodic), p.seg, p.nseg, p.threads,
+                              p.gy, cuda_build.stream_of(q)),
         "interp_add2",
     )
     interp_launches += 1
+    interp_periodic_launches += any(periodic)
     return q
 
 
-def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape) -> torch.Tensor:
+def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape,
+           periodic=(False, False)) -> torch.Tensor:
     """``x = P qc`` on the card; returns a new ``fine_shape`` tensor."""
-    global interp2_launches
+    global interp2_launches, interp2_periodic_launches
     if len(fine_shape) != 2:
         raise ValueError(f"interp takes one plane, not {tuple(fine_shape)}")
     nxc, nyc = _coarse_shape(ci, fine_shape)
@@ -184,34 +202,39 @@ def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape) -> torch.Tensor:
     x = qc.new_empty((nx, ny))
     cuda_build.check(
         lib.cedar_interp2(dt, ci.data_ptr(), qc.data_ptr(), x.data_ptr(), nx,
-                          ny, nxc, nyc, cuda_build.stream_of(qc)),
+                          ny, nxc, nyc, *_wrap(periodic),
+                          cuda_build.stream_of(qc)),
         "interp2",
     )
     interp2_launches += 1
+    interp2_periodic_launches += any(periodic)
     return x
 
 
-def restrict_plain(ci: torch.Tensor, res: torch.Tensor) -> torch.Tensor:
+def restrict_plain(ci: torch.Tensor, res: torch.Tensor,
+                   periodic=(False, False)) -> torch.Tensor:
     """:func:`restrict` in torch ops, on any device."""
     global restrict_plain_calls
     restrict_plain_calls += 1
     _coarse_shape(ci, res.shape)
-    return interp2.restrict_torch(ci, res)
+    return interp2.restrict_torch(ci, res, periodic)
 
 
-def interp_add_plain(ci, so, qc, res, q) -> torch.Tensor:
+def interp_add_plain(ci, so, qc, res, q,
+                     periodic=(False, False)) -> torch.Tensor:
     """:func:`interp_add` in torch ops, on any device; ``q`` in place."""
     global interp_plain_calls
     interp_plain_calls += 1
     _coarse_shape(ci, q.shape)
-    return q.copy_(interp2.interp_add_torch(ci, so, qc, res, q))
+    return q.copy_(interp2.interp_add_torch(ci, so, qc, res, q, periodic))
 
 
-def interp_plain(ci: torch.Tensor, qc: torch.Tensor, fine_shape):
+def interp_plain(ci: torch.Tensor, qc: torch.Tensor, fine_shape,
+                 periodic=(False, False)):
     """:func:`interp` in torch ops, on any device."""
     global interp2_plain_calls
     interp2_plain_calls += 1
     nc = _coarse_shape(ci, fine_shape)
     if tuple(qc.shape) != nc:
         raise ValueError(f"qc {tuple(qc.shape)}, expected {nc}")
-    return interp2.interp_torch(ci, qc, fine_shape)
+    return interp2.interp_torch(ci, qc, fine_shape, periodic)

@@ -1,6 +1,6 @@
 """2D operator-induced (BoxMG) interpolation: setup, apply, restrict.
 
-PyTorch counterpart of :mod:`cedar_tpu.ops.interp2`, non-periodic:
+PyTorch counterpart of :mod:`cedar_tpu.ops.interp2`:
 
 * :func:`setup_interp` — BMG2_SymStd_SETUP_interp_OI.f90:105-256, with the
   indefiniteness guard ``SUM + (c-SUM)·max(c-(1+EP)SUM,0)/(|c-(1+EP)SUM|+ZEPS)``.
@@ -18,6 +18,12 @@ versions, which run :func:`restrict_torch`, :func:`interp_add_torch` and
 Weight storage: CI planes of shape ``(nxc+1, nyc+1)`` — see
 :class:`cedar_tpu_torch.core.types.InterpDir2`.
 
+On a periodic axis (``periodic``) fine point -1 is fine point nx-1: the
+weights at CI index 0 mirror the last ones (even extents, the standard
+periodic-coarsening compatibility; cedar_tpu/ops/interp2.py:162-171), the
+restriction samples the fine grid with wrap-around, and coarse index nxc
+(nyc) reads coarse index 0.
+
 Every function also takes a batch of independent planes (plane
 relaxation's embedded 2D hierarchies): grid arrays ``(B, nx, ny)``, the
 stencil ``(ndir, B, nx, ny)`` and CI ``(8, B, nxc+1, nyc+1)``, the batch
@@ -32,7 +38,7 @@ import torch
 from cedar_tpu_torch.core.parity import (
     deinterleave2, interleave2, subgrid_sample,
 )
-from cedar_tpu_torch.core.shift import shift2
+from cedar_tpu_torch.core.shift import coarse_sample, shift2
 from cedar_tpu_torch.core.types import Dir2, InterpDir2 as L, StencilKind
 
 
@@ -56,14 +62,17 @@ def _guarded_den_corner(c, sum0, groups, zeps):
     return sum0 + (c - sum0) * gate
 
 
-def setup_interp(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
+def setup_interp(so: torch.Tensor, kind: StencilKind,
+                 periodic=(False, False)) -> torch.Tensor:
     """Build the 8-plane CI interpolation weights from the fine stencil."""
     O, W, S = so[Dir2.O], so[Dir2.W], so[Dir2.S]
     nine = kind != StencilKind.five_pt
     if nine:
         SW, NW = so[Dir2.SW], so[Dir2.NW]
     zeps = float(torch.finfo(so.dtype).eps)
-    sh = shift2
+
+    def sh(p, dz, dw):
+        return shift2(p, dz, dw, periodic)
 
     nx, ny = so.shape[-2], so.shape[-1]
     nxc = (nx - 1) // 2 + 1
@@ -141,6 +150,15 @@ def setup_interp(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
     ci[L.LSE, ..., 1:1 + kx, 1:1 + my] = lse_d[..., 1::2, 1::2]
     ci[L.LNW, ..., 1:1 + kx, 1:1 + my] = lnw_d[..., 1::2, 1::2]
     ci[L.LNE, ..., 1:1 + kx, 1:1 + my] = lne_d[..., 1::2, 1::2]
+
+    # periodic wrap: fine point -1 is nx-1, so index 0 of the planes stored
+    # at odd x-parity mirrors the high entry kx; likewise in y
+    if periodic[0]:
+        for p in (L.LL, L.LR, L.LSW, L.LNW, L.LNE, L.LSE):
+            ci[p, ..., 0, :] = ci[p, ..., kx, :]
+    if periodic[1]:
+        for p in (L.LA, L.LB, L.LSW, L.LNW, L.LNE, L.LSE):
+            ci[p, ..., :, 0] = ci[p, ..., :, my]
     return ci
 
 
@@ -179,25 +197,40 @@ def parity_sample(parts: dict, du: int, dv: int, nc):
                           nc)
 
 
-def restrict_torch(ci: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """``qc = Pᵀ q`` in torch ops, terms in :data:`PW_TABLE` order."""
+def restrict_torch(ci: torch.Tensor, q: torch.Tensor,
+                   periodic=(False, False)) -> torch.Tensor:
+    """``qc = Pᵀ q`` in torch ops, terms in :data:`PW_TABLE` order; on
+    periodic grids the fine samples wrap around."""
     nc = (ci.shape[-2] - 1, ci.shape[-1] - 1)
     pw = pw_weights(ci)
-    parts = deinterleave2(q)
-    qc = parity_sample(parts, 0, 0, nc)
+    if any(periodic):
+        def sample(du, dv):
+            return coarse_sample(q, (du, dv), nc, periodic)
+    else:
+        parts = deinterleave2(q)
+
+        def sample(du, dv):
+            return parity_sample(parts, du, dv, nc)
+    qc = sample(0, 0)
     for off, wgt in pw.items():
         if off != (0, 0):
-            qc = qc + wgt * parity_sample(parts, off[0], off[1], nc)
+            qc = qc + wgt * sample(*off)
     return qc
 
 
-def _interp_parts(ci, qc, nx: int, ny: int, r2p=None) -> dict:
+def _interp_parts(ci, qc, nx: int, ny: int, r2p=None,
+                  periodic=(False, False)) -> dict:
     """The parity parts of ``P qc`` on the fine grid (plus ``r2p``, the
     parity parts of res/diag, at the fine-only points when given)."""
     nxc, nyc = qc.shape[-2:]
     kx = nx // 2
     my = ny // 2
-    qcp = torch.nn.functional.pad(qc, (0, 1, 0, 1))  # index nxc/nyc reads 0
+    # index nxc/nyc reads 0, or wraps to coarse index 0 (periodic)
+    qcp = torch.nn.functional.pad(qc, (0, 1, 0, 1))
+    if periodic[0]:
+        qcp[..., nxc, :] = qcp[..., 0, :]
+    if periodic[1]:
+        qcp[..., :, nyc] = qcp[..., :, 0]
 
     def plus_res(part, key):
         return part if r2p is None else part + r2p[key]
@@ -221,34 +254,38 @@ def _interp_parts(ci, qc, nx: int, ny: int, r2p=None) -> dict:
     return parts
 
 
-def interp_add_torch(ci, so, qc, res, q) -> torch.Tensor:
+def interp_add_torch(ci, so, qc, res, q,
+                     periodic=(False, False)) -> torch.Tensor:
     """``q + P qc (+ res/diag at fine-only points)`` in torch ops; returns a
     new tensor."""
     nx, ny = q.shape[-2:]
     r2p = deinterleave2(res / so[Dir2.O])
-    return q + interleave2(_interp_parts(ci, qc, nx, ny, r2p), nx, ny)
+    return q + interleave2(_interp_parts(ci, qc, nx, ny, r2p, periodic),
+                           nx, ny)
 
 
-def interp_torch(ci, qc, fine_shape) -> torch.Tensor:
+def interp_torch(ci, qc, fine_shape, periodic=(False, False)) -> torch.Tensor:
     """``P qc`` on the fine grid in torch ops (the F-cycle's level entry:
     :func:`interp_add_torch` with zero residual and zero addend, exactly);
     returns a new tensor."""
     nx, ny = fine_shape
-    return interleave2(_interp_parts(ci, qc, nx, ny), nx, ny)
+    return interleave2(_interp_parts(ci, qc, nx, ny, periodic=periodic),
+                       nx, ny)
 
 
-def restrict(ci: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def restrict(ci: torch.Tensor, q: torch.Tensor,
+             periodic=(False, False)) -> torch.Tensor:
     """``qc = Pᵀ q`` (reference: BMG2_SymStd_restrict.f90:76-92)."""
     from cedar_tpu_torch.ops import cuda_transfer2
 
     if q.is_cuda:
-        return cuda_transfer2.restrict(ci, q)
+        return cuda_transfer2.restrict(ci, q, periodic)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no restrict for tensors on {q.device}")
-    return cuda_transfer2.restrict_plain(ci, q)
+    return cuda_transfer2.restrict_plain(ci, q, periodic)
 
 
-def interp_add(ci, so, qc, res, q) -> torch.Tensor:
+def interp_add(ci, so, qc, res, q, periodic=(False, False)) -> torch.Tensor:
     """``q += P qc  (+ res/diag at fine-only points)``, IN PLACE on ``q``.
 
     Reference: BMG2_SymStd_interp_add.f90:101-137.  ``res`` is the residual
@@ -258,19 +295,20 @@ def interp_add(ci, so, qc, res, q) -> torch.Tensor:
     from cedar_tpu_torch.ops import cuda_transfer2
 
     if q.is_cuda:
-        return cuda_transfer2.interp_add(ci, so, qc, res, q)
+        return cuda_transfer2.interp_add(ci, so, qc, res, q, periodic)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no interp_add for tensors on {q.device}")
-    return cuda_transfer2.interp_add_plain(ci, so, qc, res, q)
+    return cuda_transfer2.interp_add_plain(ci, so, qc, res, q, periodic)
 
 
-def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape) -> torch.Tensor:
+def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape,
+           periodic=(False, False)) -> torch.Tensor:
     """``x = P qc``, a new fine-grid tensor of ``fine_shape``: the F-cycle's
     level entry (reference: fcycle.h:66-72)."""
     from cedar_tpu_torch.ops import cuda_transfer2
 
     if qc.is_cuda:
-        return cuda_transfer2.interp(ci, qc, fine_shape)
+        return cuda_transfer2.interp(ci, qc, fine_shape, periodic)
     if qc.device.type != "cpu":
         raise NotImplementedError(f"no interp for tensors on {qc.device}")
-    return cuda_transfer2.interp_plain(ci, qc, fine_shape)
+    return cuda_transfer2.interp_plain(ci, qc, fine_shape, periodic)

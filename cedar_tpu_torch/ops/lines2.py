@@ -1,7 +1,7 @@
 """2D zebra line relaxation with batched tridiagonal line solves.
 
-PyTorch counterpart of the non-periodic serial part of
-:mod:`cedar_tpu.ops.lines2` (reference: BMG2_SymStd_relax_lines_{x,y}.f90,
+PyTorch counterpart of the serial part of :mod:`cedar_tpu.ops.lines2`
+(reference: BMG2_SymStd_relax_lines_{x,y}.f90,
 BMG2_SymStd_SETUP_lines_{x,y}.f90):
 
 * zebra order — DOWN relaxes the lines of odd index first (Fortran
@@ -33,10 +33,16 @@ goes through the same code.
 the line kernel (:mod:`cedar_tpu_torch.ops.cuda_lines2`, factored on the
 fly), a CPU tensor to its plain version.  Both update ``q`` IN PLACE.
 
+Periodic grids (``periodic``): across a periodic axis the right-hand side
+wraps around, and the number of lines must be even (line 0 and the last
+line are neighbours, so they must take different colours); along a
+periodic axis a line is cyclic and takes :func:`cyclic_solve`, two solves
+with the modified matrix by the same length rule and a Sherman–Morrison
+correction (cedar_tpu/ops/lines2.py:108-141).
+
 Not ported: the full-length PCR (``cedar_tpu.ops.lines2._pcr_solve``) and
 the SPIKE solve that ``solver.ml-relax.enabled`` selects (ROADMAP queue 1,
-item 7), the cyclic Sherman–Morrison solve of periodic lines (item 4) and
-the distributed SPIKE solve (item 9).
+item 7) and the distributed SPIKE solve (item 9).
 """
 
 from __future__ import annotations
@@ -177,19 +183,70 @@ def line_coeffs_x(so: torch.Tensor):
     return lo, so[Dir2.O], _shift_rows(e, 1, 0.0)
 
 
-def line_rhs_x(so, q, b, kind: StencilKind) -> torch.Tensor:
+def cyclic_solve(lo: torch.Tensor, dg: torch.Tensor, up: torch.Tensor,
+                 wrap: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Solve cyclic tridiagonal systems along axis -2, batched over the
+    others: :func:`line_coeffs_x`'s ``lo``, ``dg``, ``up`` and the wrap
+    coupling ``wrap`` of row 0 to row n-1 (and back: the operator is
+    symmetric).  Sherman–Morrison (cedar_tpu/ops/lines2.py:108-141):
+
+        A' = A_cyc with  d[0]   -= γ,   γ = -d[0]
+                         d[n-1] -= cl·cu/γ,  corners dropped
+        u  = (γ, 0, …, cl),   v = (1, 0, …, cu/γ)
+        x  = y − z · (v·y)/(1 + v·z),   A'y = r,  A'z = u
+
+    both solves of A' by the line's length rule (:func:`pcr_solve` or the
+    LDLᵀ recurrence, factored from A'), as the kernel K4 runs them."""
+    n = r.shape[-2]
+    cl = cu = wrap
+    gamma = -dg[..., 0, :]
+    dg = dg.clone()
+    dg[..., 0, :] = dg[..., 0, :] - gamma
+    dg[..., n - 1, :] = dg[..., n - 1, :] - cl * cu / gamma
+    u = torch.zeros_like(r)
+    u[..., 0, :] = gamma
+    u[..., n - 1, :] = cl
+    h = pcr_stride(n)
+    if h:
+        y, z = (pcr_solve(lo, dg, up, v, h) for v in (r, u))
+    else:
+        fac = _factor(dg, lo)
+        y, z = (tridiag_solve(fac, v) for v in (r, u))
+    t = cu / gamma
+    vy = y[..., 0, :] + t * y[..., n - 1, :]
+    vz = z[..., 0, :] + t * z[..., n - 1, :]
+    return y - z * (vy / (1.0 + vz))[..., None, :]
+
+
+def check_lines(nlines: int, periodic_across: bool, axis: str) -> None:
+    """Zebra lines across a periodic axis need an even number of lines:
+    line 0 and the last line are neighbours (cedar_tpu/ops/lines2.py:
+    636-640)."""
+    if periodic_across and nlines % 2:
+        other = "y" if axis == "x" else "x"
+        raise ValueError(
+            f"zebra {axis}-line relaxation needs an even number of lines "
+            f"when the {other} axis is periodic (line 0 and line "
+            f"{nlines - 1} are neighbors)")
+
+
+def line_rhs_x(so, q, b, kind: StencilKind,
+               periodic=(False, False)) -> torch.Tensor:
     """rhs = b + couplings to the neighbouring lines (everything but the
     W/E terms along the line), in ``_line_rhs_x``'s term order."""
+    def sh(a, dz, dw):
+        return shift2(a, dz, dw, periodic)
+
     S = so[Dir2.S]
-    rhs = b + S * shift2(q, 0, -1) + shift2(S, 0, 1) * shift2(q, 0, 1)
+    rhs = b + S * sh(q, 0, -1) + sh(S, 0, 1) * sh(q, 0, 1)
     if kind != StencilKind.five_pt:
         SW, NW = so[Dir2.SW], so[Dir2.NW]
         rhs = (
             rhs
-            + SW * shift2(q, -1, -1)
-            + shift2(NW, 1, 0) * shift2(q, 1, -1)
-            + shift2(NW, 0, 1) * shift2(q, -1, 1)
-            + shift2(SW, 1, 1) * shift2(q, 1, 1)
+            + SW * sh(q, -1, -1)
+            + sh(NW, 1, 0) * sh(q, 1, -1)
+            + sh(NW, 0, 1) * sh(q, -1, 1)
+            + sh(SW, 1, 1) * sh(q, 1, 1)
         )
     return rhs
 
@@ -199,53 +256,67 @@ def colour_order(updown: str):
     return (1, 0) if updown == "down" else (0, 1)
 
 
-def sweep_x_torch(so, q, b, sor, kind: StencilKind, updown: str):
+def sweep_x_torch(so, q, b, sor, kind: StencilKind, updown: str,
+                  periodic=(False, False)):
     """One zebra x-line sweep in torch ops, IN PLACE on ``q`` (which may be
     a transposed view).  Lines of :func:`pcr_stride` h > 0 take
     :func:`pcr_solve` (``sor`` unused), the others the LDLᵀ recurrence with
-    the factors ``sor``, or factored from ``so`` where ``sor`` is None."""
+    the factors ``sor``, or factored from ``so`` where ``sor`` is None.
+    Along a periodic x axis the lines are cyclic (:func:`cyclic_solve`,
+    ``sor`` unused); across a periodic y axis the rhs wraps."""
+    check_lines(q.shape[-1], periodic[1], "x")
+    cyclic = bool(periodic[0])
     h = pcr_stride(q.shape[-2])
-    if h:
+    if h or cyclic:
         lo, dg, up = line_coeffs_x(so)
     elif sor is None:
         sor = _factor(so[Dir2.O], -so[Dir2.W])
     for parity in colour_order(updown):
-        rhs = line_rhs_x(so, q, b, kind)[..., parity::2]
-        if h:
-            sl = (..., slice(parity, None, 2))
+        rhs = line_rhs_x(so, q, b, kind, periodic)[..., parity::2]
+        sl = (..., slice(parity, None, 2))
+        if cyclic:
+            wrap = -so[Dir2.W][..., 0, parity::2]
+            q[sl] = cyclic_solve(lo[sl], dg[sl], up[sl], wrap, rhs)
+        elif h:
             q[sl] = pcr_solve(lo[sl], dg[sl], up[sl], rhs, h)
         else:
-            q[..., parity::2] = tridiag_solve(sor[..., parity::2], rhs)
+            q[sl] = tridiag_solve(sor[sl], rhs)
     return q
 
 
-def sweep_y_torch(so, q, b, sor, kind: StencilKind, updown: str):
+def sweep_y_torch(so, q, b, sor, kind: StencilKind, updown: str,
+                  periodic=(False, False)):
     """One zebra y-line sweep: :func:`sweep_x_torch` on the transposed
     system, IN PLACE on ``q`` through its transposed view."""
     sor_t = None if sor is None else sor.mT
-    sweep_x_torch(transpose_so(so, kind), q.mT, b.mT, sor_t, kind, updown)
+    sweep_x_torch(transpose_so(so, kind), q.mT, b.mT, sor_t, kind, updown,
+                  (periodic[1], periodic[0]))
     return q
 
 
-def line_relax_x(so, q, b, sor, kind: StencilKind, updown: str):
+def line_relax_x(so, q, b, sor, kind: StencilKind, updown: str,
+                 periodic=(False, False)):
     """One zebra x-line sweep (both colours), IN PLACE on ``q``; returns
     ``q``.  ``sor`` (:func:`setup_lines` factors, or None) feeds the CPU
     path; the CUDA kernel factors on the fly, with the same rounding."""
     from cedar_tpu_torch.ops import cuda_lines2
 
     if q.is_cuda:
-        return cuda_lines2.line_x(so, q, b, kind, updown)
+        return cuda_lines2.line_x(so, q, b, kind, updown, periodic)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no line sweep for tensors on {q.device}")
-    return cuda_lines2.line_x_plain(so, q, b, kind, updown, sor=sor)
+    return cuda_lines2.line_x_plain(so, q, b, kind, updown, sor=sor,
+                                    periodic=periodic)
 
 
-def line_relax_y(so, q, b, sor, kind: StencilKind, updown: str):
+def line_relax_y(so, q, b, sor, kind: StencilKind, updown: str,
+                 periodic=(False, False)):
     """One zebra y-line sweep (both colours), IN PLACE on ``q``."""
     from cedar_tpu_torch.ops import cuda_lines2
 
     if q.is_cuda:
-        return cuda_lines2.line_y(so, q, b, kind, updown)
+        return cuda_lines2.line_y(so, q, b, kind, updown, periodic)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no line sweep for tensors on {q.device}")
-    return cuda_lines2.line_y_plain(so, q, b, kind, updown, sor=sor)
+    return cuda_lines2.line_y_plain(so, q, b, kind, updown, sor=sor,
+                                    periodic=periodic)

@@ -13,6 +13,11 @@ reference (BMG2_SymStd_relax_GS.f90):
 
 Colours anchor to GLOBAL indices ``(z + origin[0], w + origin[1])``.
 
+On a periodic axis (``periodic``, cedar_tpu/ops/relax2.py:73-83) the
+couplings wrap around.  Along a periodic axis of odd extent the wrap couples
+points of one colour (the last point and the first); a phase still computes
+every point of its colour from the values before the phase.
+
 :func:`point_relax` dispatches by device: a CUDA tensor goes to the sweep
 kernel (:mod:`cedar_tpu_torch.ops.cuda2`, one launch a sweep), a CPU tensor
 to its plain version, which runs :func:`sweep_torch`.  Either way it
@@ -71,21 +76,23 @@ def color_masks(shape, kind: StencilKind, updown: str, origin=(0, 0),
 
 
 def sweep_torch(so, q, b, recip, kind: StencilKind, updown: str,
-                fuse_residual: bool = False, origin=(0, 0)):
+                fuse_residual: bool = False, origin=(0, 0),
+                periodic=(False, False)):
     """One multicolour GS sweep in torch ops; returns new tensors
     (``q`` is not modified).  With ``fuse_residual`` returns ``(q, res)``."""
     if recip is None:
         recip = setup_recip(so)
     for mask in color_masks(q.shape, kind, updown, origin, q.device):
-        upd = (b + offdiag_apply(so, q, kind)) * recip
+        upd = (b + offdiag_apply(so, q, kind, periodic)) * recip
         q = torch.where(mask, upd, q)
     if fuse_residual:
-        return q, residual(so, q, b, kind)
+        return q, residual(so, q, b, kind, periodic)
     return q
 
 
 def point_relax(so, q, b, recip, kind: StencilKind, updown: str,
-                fuse_residual: bool = False, origin=(0, 0)):
+                fuse_residual: bool = False, origin=(0, 0),
+                periodic=(False, False)):
     """One multicolour GS sweep (all colours), DOWN or UP ordering.
 
     Returns the swept iterate, a new tensor; with ``fuse_residual`` returns
@@ -96,8 +103,9 @@ def point_relax(so, q, b, recip, kind: StencilKind, updown: str,
     from cedar_tpu_torch.ops import cuda2
 
     if q.is_cuda:
-        return cuda2.sweep(so, q, b, kind, updown, fuse_residual, origin)
+        return cuda2.sweep(so, q, b, kind, updown, fuse_residual, origin,
+                           periodic)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no sweep for tensors on {q.device}")
     return cuda2.sweep_plain(so, q, b, kind, updown, fuse_residual, origin,
-                             recip=recip)
+                             periodic, recip=recip)

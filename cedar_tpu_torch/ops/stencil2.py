@@ -1,7 +1,9 @@
 """2D stencil application primitives: matvec, residual, full-offset views.
 
 PyTorch counterpart of :mod:`cedar_tpu.ops.stencil2` (reference:
-BMG2_SymStd_residual.f90:85-119, BMG2_SymStd_UTILS_matvec.f90), non-periodic.
+BMG2_SymStd_residual.f90:85-119, BMG2_SymStd_UTILS_matvec.f90).  On an axis
+marked in ``periodic`` the shifts wrap around (a neighbour at -1 is the last
+point, and an up-shifted coupling at the last point reads the first).
 
 Sign convention (reference residual loop): off-diagonals are stored positive
 so ``(A q)(z,w) = O·q - Σ_offdiag so_d·q_neighbor`` and
@@ -44,16 +46,17 @@ def offsets_for(kind: StencilKind):
     return list(NEIGHBOR_COUPLINGS.keys())
 
 
-def coupling(so: torch.Tensor, off) -> torch.Tensor:
+def coupling(so: torch.Tensor, off, periodic=(False, False)) -> torch.Tensor:
     """Positive coupling magnitude of each point to its ``off`` neighbor."""
     plane, sz, sw = NEIGHBOR_COUPLINGS[off]
     p = so[plane]
     if sz or sw:
-        p = shift2(p, sz, sw)
+        p = shift2(p, sz, sw, periodic)
     return p
 
 
-def full_offsets(so: torch.Tensor, kind: StencilKind):
+def full_offsets(so: torch.Tensor, kind: StencilKind,
+                 periodic=(False, False)):
     """Row-form full stencil: dict ``(dz,dw) -> A[(z,w),(z+dz,w+dw)]``.
 
     Off-diagonal entries carry their TRUE (negative of stored) sign;
@@ -61,28 +64,29 @@ def full_offsets(so: torch.Tensor, kind: StencilKind):
     """
     out = {(0, 0): so[Dir2.O]}
     for off in offsets_for(kind):
-        out[off] = -coupling(so, off)
+        out[off] = -coupling(so, off, periodic)
     return out
 
 
-def offdiag_apply(so: torch.Tensor, q: torch.Tensor,
-                  kind: StencilKind) -> torch.Tensor:
+def offdiag_apply(so: torch.Tensor, q: torch.Tensor, kind: StencilKind,
+                  periodic=(False, False)) -> torch.Tensor:
     """``Σ_offdiag so_d(z,w) · q(neighbor)`` with positive-stored couplings,
     summed in :func:`offsets_for` order (the sweep kernel keeps it)."""
     acc = None
     for off in offsets_for(kind):
-        term = coupling(so, off) * shift2(q, off[0], off[1])
+        term = (coupling(so, off, periodic)
+                * shift2(q, off[0], off[1], periodic))
         acc = term if acc is None else acc + term
     return acc
 
 
-def matvec(so: torch.Tensor, q: torch.Tensor,
-           kind: StencilKind) -> torch.Tensor:
+def matvec(so: torch.Tensor, q: torch.Tensor, kind: StencilKind,
+           periodic=(False, False)) -> torch.Tensor:
     """``A q`` (reference: BMG2_SymStd_UTILS_matvec.f90)."""
-    return so[Dir2.O] * q - offdiag_apply(so, q, kind)
+    return so[Dir2.O] * q - offdiag_apply(so, q, kind, periodic)
 
 
 def residual(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
-             kind: StencilKind) -> torch.Tensor:
+             kind: StencilKind, periodic=(False, False)) -> torch.Tensor:
     """``b - A q`` (reference: BMG2_SymStd_residual.f90:85-119)."""
-    return b + offdiag_apply(so, q, kind) - so[Dir2.O] * q
+    return b + offdiag_apply(so, q, kind, periodic) - so[Dir2.O] * q

@@ -37,6 +37,11 @@ pre-sweep returns is the ``q_pre`` from which the fused interp-add
 recomputes the restricted residual, the cycle's invariant
 (cedar_tpu/ops/pallas_transfer2.py:555-569), so the ``x`` it is given is
 never written.
+
+``periodic`` (``grid.periodic``) goes to every sweep, residual and
+transfer of the dense cycle.  The fused cycle stays off on periodic grids
+(:func:`fine_split_ok`), as in the JAX package, whose split workspaces are
+built only where no axis is periodic.
 """
 
 from __future__ import annotations
@@ -56,20 +61,22 @@ from cedar_tpu_torch.settings import CycleType, MLSettings, RelaxType
 from cedar_tpu_torch.utils.timing import scope
 
 
-def _smooth(lev, kind, x, b, settings: MLSettings, updown: str):
+def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
+            periodic=(False, False)):
     """One smoothing application (reference: multilevel.h:134-223).
 
     line-xy applies line-x then line-y DOWN (pre-smoothing) and line-y then
     line-x UP (symmetric post-smoothing)."""
     rt = settings.relaxation
     if rt == RelaxType.point:
-        return point_relax(lev.so, x, b, lev.recip, kind, updown)
+        return point_relax(lev.so, x, b, lev.recip, kind, updown,
+                           periodic=periodic)
 
     def lx(x):
-        return line_relax_x(lev.so, x, b, lev.sor_x, kind, updown)
+        return line_relax_x(lev.so, x, b, lev.sor_x, kind, updown, periodic)
 
     def ly(x):
-        return line_relax_y(lev.so, x, b, lev.sor_y, kind, updown)
+        return line_relax_y(lev.so, x, b, lev.sor_y, kind, updown, periodic)
 
     if rt == RelaxType.line_x:
         return lx(x)
@@ -107,7 +114,7 @@ def fuse_final_ok(levels, settings: MLSettings) -> bool:
 
 def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
            settings: MLSettings, n: int = 1,
-           fuse_final_residual: bool = False):
+           fuse_final_residual: bool = False, periodic=(False, False)):
     """Recursive n-cycle (n=1: V, n=2: W).  Reference: vcycle.h:57-115.
 
     With ``fuse_final_residual`` (callers check :func:`fuse_final_ok`)
@@ -124,30 +131,32 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
         # fused final pre-sweep + residual
         with scope("relaxation"):
             for _ in range(pre - 1):
-                x = point_relax(lev.so, x, b, lev.recip, kind, "down")
+                x = point_relax(lev.so, x, b, lev.recip, kind, "down",
+                                periodic=periodic)
         with scope("relaxation-residual-fused"):
             x, res = point_relax(lev.so, x, b, lev.recip, kind, "down",
-                                 fuse_residual=True)
+                                 fuse_residual=True, periodic=periodic)
     else:
         with scope("relaxation"):
             for _ in range(pre):
-                x = _smooth(lev, kind, x, b, settings, "down")
+                x = _smooth(lev, kind, x, b, settings, "down", periodic)
         with scope("residual"):
-            res = residual(lev.so, x, b, kind)
+            res = residual(lev.so, x, b, kind, periodic)
 
     coarse = levels[lvl + 1]
     with scope("restrict"):
-        cb = restrict(coarse.ci, res)
+        cb = restrict(coarse.ci, res, periodic)
     if lvl + 1 == len(levels) - 1:
         with scope("coarse-solve"):
             cx = cg.solve_cg(coarse.ainv, cb)
     else:
         cx = torch.zeros_like(cb)
         for _ in range(n):
-            cx = ncycle(levels, kinds, lvl + 1, cx, cb, settings, n)
+            cx = ncycle(levels, kinds, lvl + 1, cx, cb, settings, n,
+                        periodic=periodic)
 
     with scope("interp-add"):
-        x = interp_add(coarse.ci, lev.so, cx, res, x)
+        x = interp_add(coarse.ci, lev.so, cx, res, x, periodic)
 
     # nonsymmetric relaxation (solver.relax-symmetric false) keeps the
     # forward sweep order for post-smoothing (BMG2_SymStd_relax_GS.f90:78-87)
@@ -158,22 +167,25 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
             x = _batched_smooth(lev, kind, x, b, settings, post, nplain)
         else:
             for _ in range(nplain):
-                x = _smooth(lev, kind, x, b, settings, post)
+                x = _smooth(lev, kind, x, b, settings, post, periodic)
     if fuse_final_residual:
         with scope("relaxation-residual-fused"):
             return point_relax(lev.so, x, b, lev.recip, kind, post,
-                               fuse_residual=True)
+                               fuse_residual=True, periodic=periodic)
     return x
 
 
-def fine_split_ok(levels, settings: MLSettings) -> bool:
+def fine_split_ok(levels, settings: MLSettings,
+                  periodic=(False, False)) -> bool:
     """Whether the solve runs the fused fine-level cycle
-    (:func:`ncycle_split`): ``kernels.fine-split``, a V-cycle, point
-    relaxation with at least one pre- and one post-sweep, two levels or
-    more (cedar_tpu/solver/cycle2.py:170, whose split workspaces are gated
-    on the same settings)."""
+    (:func:`ncycle_split`): ``kernels.fine-split``, no periodic axis, a
+    V-cycle, point relaxation with at least one pre- and one post-sweep,
+    two levels or more (cedar_tpu/solver/cycle2.py:170, whose split
+    workspaces are gated on the same settings and built only where no axis
+    is periodic, cedar_tpu/solver/solver2.py:152-156)."""
     return (
         settings.fine_split
+        and not any(periodic)
         and settings.cycle == CycleType.v
         and settings.relaxation == RelaxType.point
         and settings.nrelax_pre >= 1
@@ -256,7 +268,7 @@ def ncycle_split(levels, kinds, x: torch.Tensor, b: torch.Tensor,
 
 
 def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
-              settings: MLSettings) -> torch.Tensor:
+              settings: MLSettings, periodic=(False, False)) -> torch.Tensor:
     """Full multigrid cycle (reference: fcycle.h:49-84); returns a new x.
 
     Restricts ``b`` down to the coarsest level, solves there, then on each
@@ -269,33 +281,33 @@ def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
             return cg.solve_cg(lev.ainv, b)
     coarse = levels[lvl + 1]
     with scope("restrict"):
-        cb = restrict(coarse.ci, b)
-    cx = fmg_cycle(levels, kinds, lvl + 1, cb, settings)
+        cb = restrict(coarse.ci, b, periodic)
+    cx = fmg_cycle(levels, kinds, lvl + 1, cb, settings, periodic)
     with scope("interp"):
-        x = interp(coarse.ci, cx, b.shape)
-    split_here = (_split_ok_at(levels, lvl, settings)
+        x = interp(coarse.ci, cx, b.shape, periodic)
+    split_here = (not any(periodic) and _split_ok_at(levels, lvl, settings)
                   and settings.nrelax_pre >= 1 and settings.nrelax_post >= 1)
     if split_here:
         return ncycle_split(levels, kinds, x, b, settings, lvl=lvl)[0]
-    return ncycle(levels, kinds, lvl, x, b, settings)
+    return ncycle(levels, kinds, lvl, x, b, settings, periodic=periodic)
 
 
 def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
-              settings: MLSettings):
+              settings: MLSettings, periodic=(False, False)):
     """One cycle of the configured type (reference: multilevel.h:289-296);
     returns the new iterate.  The dense V-cycle may overwrite ``x``, the
     fused one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
     if len(levels) == 1:
         return cg.solve_cg(levels[0].ainv, b)
     if settings.cycle == CycleType.f:
-        return fmg_cycle(levels, kinds, 0, b, settings)
-    if fine_split_ok(levels, settings):
+        return fmg_cycle(levels, kinds, 0, b, settings, periodic)
+    if fine_split_ok(levels, settings, periodic):
         return ncycle_split(levels, kinds, x, b, settings)[0]
-    return ncycle(levels, kinds, 0, x, b, settings)
+    return ncycle(levels, kinds, 0, x, b, settings, periodic=periodic)
 
 
 def cycle_residual(levels, kinds, x: torch.Tensor, b: torch.Tensor,
-                   settings: MLSettings):
+                   settings: MLSettings, periodic=(False, False)):
     """One iteration of the solve loop: the cycle, then ``‖b - A x‖₂`` on
     the finest level.  Returns ``(x, norm)``, the norm a 0-d tensor (no
     readback).
@@ -305,14 +317,14 @@ def cycle_residual(levels, kinds, x: torch.Tensor, b: torch.Tensor,
     (cedar_tpu/solver/solver2.py:334-365); otherwise the residual comes out
     of the last post-sweep where :func:`fuse_final_ok` allows
     (cedar_tpu/solver/solver2.py:370-394), or after the cycle."""
-    if fine_split_ok(levels, settings):
+    if fine_split_ok(levels, settings, periodic):
         x, partials = ncycle_split(levels, kinds, x, b, settings,
                                    fuse_final_residual=True)
         return x, torch.sqrt(torch.sum(partials))
     if fuse_final_ok(levels, settings):
         x, r = ncycle(levels, kinds, 0, x, b, settings,
-                      fuse_final_residual=True)
+                      fuse_final_residual=True, periodic=periodic)
     else:
-        x = run_cycle(levels, kinds, x, b, settings)
-        r = residual(levels[0].so, x, b, kinds[0])
+        x = run_cycle(levels, kinds, x, b, settings, periodic)
+        r = residual(levels[0].so, x, b, kinds[0], periodic)
     return x, torch.sqrt(torch.sum(r * r))

@@ -22,8 +22,10 @@ graph of ``run_cycle`` of its own.
   kernels' modules, cuBLAS makes its handle and workspace, and the launch
   plans are computed and cached, all outside the capture.
 * The hierarchy's tensors (the levels' stencils, interpolation weights,
-  inverses) are captured by address: they must not be replaced after a
-  solver's first solve or vcycle on the card.
+  inverses) are captured by address.  A solver that is given another
+  hierarchy (its ``levels`` assigned) makes a new :class:`CycleGraphs`
+  over it, which captures anew; the old one, its graphs and its memory
+  pool are dropped.
 * The kernel wrappers' launch counters are Python integers: they count at
   capture (and in the warm-up), never at a replay.
 
@@ -100,12 +102,13 @@ class CycleGraph:
     :meth:`replay` runs them first where they have not run."""
 
     def __init__(self, backend, what: str, cycle, levels, kinds,
-                 settings: MLSettings, b: torch.Tensor):
+                 settings: MLSettings, b: torch.Tensor, cycle_kw=None):
         if what not in ("solve", "vcycle"):
             raise ValueError(f"a cycle graph is 'solve' or 'vcycle', not "
                              f"{what!r}")
         self.backend, self.what, self.cycle = backend, what, cycle
         self.levels, self.kinds, self.settings = levels, kinds, settings
+        self.cycle_kw = cycle_kw or {}
         self.x = torch.zeros_like(b)
         self.b = torch.zeros_like(b)
         self.norm = b.new_zeros(())
@@ -118,10 +121,10 @@ class CycleGraph:
         iterate, ``norm`` its residual norm ("solve")."""
         args = (self.levels, self.kinds, x, b, self.settings)
         if self.what == "solve":
-            x_new, rnorm = self.cycle.cycle_residual(*args)
+            x_new, rnorm = self.cycle.cycle_residual(*args, **self.cycle_kw)
             norm.copy_(rnorm)
         else:
-            x_new = self.cycle.run_cycle(*args)
+            x_new = self.cycle.run_cycle(*args, **self.cycle_kw)
         x.copy_(x_new)
 
     def warm(self) -> None:
@@ -149,16 +152,18 @@ class CycleGraph:
 class CycleGraphs:
     """A solver's captured iterations over its hierarchy ``levels``
     (``kinds``, ``settings``; ``cycle`` the cycle module of its dimension,
-    :mod:`cycle2` or :mod:`cycle3`).
+    :mod:`cycle2` or :mod:`cycle3`; ``periodic``, where given, the periodic
+    axes that :mod:`cycle2`'s cycles take).
 
     ``backend`` does the capturing: by default :class:`CudaGraphs` on the
     device of the first ``b``, made with the first graph."""
 
     def __init__(self, cycle, levels, kinds, settings: MLSettings,
-                 backend=None):
+                 backend=None, periodic=None):
         self.cycle, self.levels, self.kinds = cycle, levels, kinds
         self.settings = settings
         self.backend = backend
+        self.cycle_kw = {} if periodic is None else {"periodic": periodic}
         self.graphs: dict[tuple, CycleGraph] = {}
 
     def graph(self, what: str, b: torch.Tensor) -> CycleGraph:
@@ -171,7 +176,7 @@ class CycleGraphs:
                 self.backend = CudaGraphs(b.device)
             g = self.graphs[key] = CycleGraph(
                 self.backend, what, self.cycle, self.levels, self.kinds,
-                self.settings, b)
+                self.settings, b, self.cycle_kw)
         return g
 
     def solve(self, x: torch.Tensor, b: torch.Tensor, res0: float):

@@ -3,8 +3,10 @@
 PyTorch counterpart of :mod:`cedar_tpu.solver.solver2` (reference:
 include/cedar/2d/solver.h:21-122, include/cedar/multilevel.h:26-318) for
 point and line relaxation, V-, W- and F-cycles and the direct (LU) coarse
-solve, non-periodic.  :func:`setup_hierarchy` also builds the batched
-hierarchies of 3D plane relaxation's embedded solvers.
+solve, on grids with or without periodic axes (``grid.periodic``; the
+doubly periodic singular case with ``solver.definite: false``).
+:func:`setup_hierarchy` also builds the batched hierarchies of 3D plane
+relaxation's embedded solvers.
 Tensors stay on the device of the operator given: on the card the sweeps
 and grid transfers run the hand-written CUDA kernels, on the CPU their
 plain torch versions.
@@ -16,14 +18,17 @@ plain torch versions.
   ``history`` holds the reference's per-iteration "relative l2 norm" lines.
   On the card each cycle, with its norm, is one replay of a captured CUDA
   graph (:mod:`cedar_tpu_torch.solver.graph`, the counterpart of the JAX
-  package's compiled solve), and ``vcycle`` replays a graph of its own;
-  the hierarchy's tensors are captured by address, so they must not be
-  replaced after setup.  On the CPU the same iteration runs eagerly.
+  package's compiled solve), and ``vcycle`` replays a graph of its own.
+  The graphs read the hierarchy by address: assigning ``levels`` drops
+  them, and the next call captures anew over the new hierarchy (the JAX
+  package passes its hierarchy to the compiled programs at every call).
+  On the CPU the same iteration runs eagerly.
 
 ``kernels.fine-split`` (default: true on the card, false on the CPU, as
 cedar_tpu turns it on wherever its Pallas kernels run) selects the fused
 fine-level V-cycle (:func:`cycle2.ncycle_split`) on the top
-``kernels.split-levels`` levels (default 4).
+``kernels.split-levels`` levels (default 4); periodic grids run the dense
+cycle whatever it says, as in cedar_tpu.
 """
 
 from __future__ import annotations
@@ -68,46 +73,54 @@ def level_shapes(nx: int, ny: int, nlevels: int) -> list[tuple[int, int]]:
 
 
 def setup_level_workspace(so: torch.Tensor, kind: StencilKind,
-                          settings: MLSettings) -> tuple:
+                          settings: MLSettings,
+                          periodic=(False, False)) -> tuple:
     """``(recip, sor_x, sor_y)`` of one level (or of a batch of planes,
     ``so`` ``(ndir, B, nx, ny)``): 1/diag for point relaxation, the LDLᵀ
     factors of the configured line axes (cedar_tpu/solver/
     solver2.py:87-127).  On CUDA tensors the line kernel factors on the fly,
     so no line factors are set up there, as the JAX package skips them
-    where its setup-free fused kernel runs."""
+    where its setup-free fused kernel runs; nor along a periodic axis, whose
+    cyclic lines factor their modified matrix on the fly on both devices."""
     rt = settings.relaxation
     recip = setup_recip(so) if rt == RelaxType.point else None
     factor = not so.is_cuda
     sor_x = (setup_lines(so, kind, "x")
-             if factor and rt in (RelaxType.line_x, RelaxType.line_xy)
+             if factor and not periodic[0]
+             and rt in (RelaxType.line_x, RelaxType.line_xy)
              else None)
     sor_y = (setup_lines(so, kind, "y")
-             if factor and rt in (RelaxType.line_y, RelaxType.line_xy)
+             if factor and not periodic[1]
+             and rt in (RelaxType.line_y, RelaxType.line_xy)
              else None)
     return recip, sor_x, sor_y
 
 
 def setup_hierarchy(so_fine: torch.Tensor, fine_kind: StencilKind,
                     nlevels: int, settings: MLSettings | None = None,
-                    indefinite: bool = False) -> tuple:
+                    indefinite: bool = False,
+                    periodic=(False, False)) -> tuple:
     """Build the level hierarchy with an LU coarse solve (reference:
     multilevel.h:243-265); ``settings`` (default: Cedar's defaults, point
     relaxation) picks the relaxation workspace.  A batched ``so_fine``
     ``(ndir, B, nx, ny)`` (plane relaxation's planes) gives a hierarchy of
-    batched levels, plane by plane the hierarchy of each plane."""
+    batched levels, plane by plane the hierarchy of each plane.  On
+    ``periodic`` axes the interpolation, the Galerkin product and the
+    coarse matrix wrap around."""
     if settings is None:
         settings = MLSettings()
     levels = []
     so, kind, ci = so_fine.contiguous(), fine_kind, None
     for _ in range(nlevels - 1):
-        ci_next = setup_interp(so, kind)
-        recip, sor_x, sor_y = setup_level_workspace(so, kind, settings)
+        ci_next = setup_interp(so, kind, periodic)
+        recip, sor_x, sor_y = setup_level_workspace(so, kind, settings,
+                                                    periodic)
         levels.append(Level(so=so, recip=recip, ci=ci, sor_x=sor_x,
                             sor_y=sor_y))
-        so = coarsen_op(ci_next, so, kind).contiguous()
+        so = coarsen_op(ci_next, so, kind, periodic).contiguous()
         kind, ci = StencilKind.nine_pt, ci_next
-    levels.append(Level(so=so, ci=ci,
-                        ainv=cg.setup_cg_lu(so, kind, indefinite)))
+    levels.append(Level(so=so, ci=ci, ainv=cg.setup_cg_lu(
+        so, kind, indefinite, periodic)))
     return tuple(levels)
 
 
@@ -129,8 +142,6 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
     if settings.ml_relax_enabled:
         return ("solver.ml-relax.enabled (ROADMAP queue 1, item 7: the "
                 "PCR and SPIKE line solves)")
-    if any(conf.get("grid.periodic", [False, False])):
-        return "grid.periodic (ROADMAP queue 1, item 4: periodic grids)"
     missing = unsupported_coarse_solver(settings.coarse_solver)
     if missing is not None:
         return missing
@@ -169,7 +180,10 @@ class Solver2:
 
     On the card ``solve`` and ``vcycle`` replay CUDA graphs captured at
     their first call (``graphs``) that read the hierarchy ``levels`` by
-    address: do not replace its tensors after setup.
+    address.  Assigning ``levels`` (a hierarchy of the same shapes, e.g.
+    one carried across with ``levels_from_numpy``) drops the graphs and
+    releases their memory pool; the next call captures over the new one.
+    Do not change the hierarchy's tensors in place after a capture.
     """
 
     def __init__(self, so: torch.Tensor,
@@ -192,6 +206,8 @@ class Solver2:
         self.settings.split_levels = int(conf.get("kernels.split-levels", 4))
         log.set_enabled(conf.get("log", ["status", "error"]))
         self.kind = kind
+        per = conf.get("grid.periodic", [False, False])
+        self.periodic = (bool(per[0]), bool(per[1]))
         self.indefinite = not conf.get("solver.definite", True)
 
         nx, ny = so.shape[1], so.shape[2]
@@ -208,12 +224,21 @@ class Solver2:
         self.timelog = TimeLog()
         self.timelog.begin("setup")
         self.levels = setup_hierarchy(so, kind, nlevels, self.settings,
-                                      self.indefinite)
+                                      self.indefinite, self.periodic)
         self.timelog.end("setup", force=self.levels)
+
+    @property
+    def levels(self) -> tuple:
+        """The hierarchy; assigning another drops the captured graphs."""
+        return self._levels
+
+    @levels.setter
+    def levels(self, levels) -> None:
+        self._levels = levels
         # the captured iterations of solve and vcycle on the card, over
-        # this hierarchy: its tensors must not be replaced from here on
-        self.graphs = graph.CycleGraphs(cycle2, self.levels, self.kinds,
-                                        self.settings)
+        # this hierarchy, captured at their first call
+        self.graphs = graph.CycleGraphs(cycle2, levels, self.kinds,
+                                        self.settings, periodic=self.periodic)
 
     def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One cycle (reference: multilevel::vcycle); ``x`` is not modified.
@@ -222,7 +247,7 @@ class Solver2:
         if b.is_cuda:
             return self.graphs.vcycle(x, b)
         return cycle2.run_cycle(self.levels, self.kinds, x.clone(), b,
-                                self.settings)
+                                self.settings, self.periodic)
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None):
         """Iterate cycles until the relative residual drops below ``tol`` or
@@ -234,7 +259,7 @@ class Solver2:
         fine = self.levels[0]
         x = torch.zeros_like(b) if x0 is None else x0.clone()
         self.timelog.begin("solve")
-        r0 = residual(fine.so, x, b, self.kinds[0])
+        r0 = residual(fine.so, x, b, self.kinds[0], self.periodic)
         # floor protects the b = 0 (already-converged) edge case
         res0 = max(float(_l2(r0)), torch.finfo(b.dtype).tiny)
         if b.is_cuda:
@@ -243,7 +268,8 @@ class Solver2:
             def step():
                 nonlocal x
                 x, rnorm = cycle2.cycle_residual(self.levels, self.kinds,
-                                                  x, b, settings)
+                                                  x, b, settings,
+                                                  self.periodic)
                 return rnorm
 
             hist = graph.iterate(step, res0, settings)

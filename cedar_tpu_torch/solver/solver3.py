@@ -17,9 +17,10 @@ run the hand-written CUDA kernels, on the CPU their plain torch versions.
   ``history`` holds the reference's per-iteration "relative l2 norm" lines.
   On the card each cycle, with its norm, is one replay of a captured CUDA
   graph (:mod:`cedar_tpu_torch.solver.graph`, the counterpart of the JAX
-  package's compiled solve), and ``vcycle`` replays a graph of its own;
-  the hierarchy's tensors are captured by address, so they must not be
-  replaced after setup.  On the CPU the same iteration runs eagerly.
+  package's compiled solve), and ``vcycle`` replays a graph of its own.
+  The graphs read the hierarchy by address: assigning ``levels`` drops
+  them, and the next call captures anew.  On the CPU the same iteration
+  runs eagerly.
 
 ``kernels.fine-split`` (default false on both devices: on the H100 the
 fused cycle measured slower than the dense one, and both give the same
@@ -111,7 +112,7 @@ def _unsupported_planes(conf: Config, settings: MLSettings) -> str | None:
                 "item 7: the PCR and SPIKE line solves)")
     if pconf is not None and any(pconf.get("grid.periodic", [])):
         return ("plane-config grid.periodic (ROADMAP queue 1, item 4: "
-                "periodic grids)")
+                "3D periodic grids)")
     return None
 
 
@@ -127,7 +128,8 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
         return (f"relaxation {settings.relaxation.value} in 3D (cedar_tpu "
                 "relaxes 3D grids by points or planes)")
     if any(conf.get("grid.periodic", [False, False, False])):
-        return "grid.periodic (ROADMAP queue 1, item 4: periodic grids)"
+        return ("grid.periodic in 3D (ROADMAP queue 1, item 4: 3D periodic "
+                "grids)")
     missing = unsupported_coarse_solver(settings.coarse_solver)
     if missing is not None:
         return missing
@@ -157,8 +159,9 @@ class Solver3:
 
     On the card ``solve`` and ``vcycle`` replay CUDA graphs captured at
     their first call (``graphs``) that read the hierarchy ``levels`` (and
-    its plane hierarchies) by address: do not replace its tensors after
-    setup.
+    its plane hierarchies) by address.  Assigning ``levels`` drops the
+    graphs and releases their memory pool; the next call captures over the
+    new hierarchy.  Do not change its tensors in place after a capture.
     """
 
     def __init__(self, so: torch.Tensor,
@@ -205,9 +208,18 @@ class Solver3:
             self.levels = planes3.setup_planes(self.levels, self.kinds,
                                                self.settings)
         self.timelog.end("setup", force=self.levels)
+
+    @property
+    def levels(self) -> tuple:
+        """The hierarchy; assigning another drops the captured graphs."""
+        return self._levels
+
+    @levels.setter
+    def levels(self, levels) -> None:
+        self._levels = levels
         # the captured iterations of solve and vcycle on the card, over
-        # this hierarchy: its tensors must not be replaced from here on
-        self.graphs = graph.CycleGraphs(cycle3, self.levels, self.kinds,
+        # this hierarchy, captured at their first call
+        self.graphs = graph.CycleGraphs(cycle3, levels, self.kinds,
                                         self.settings)
 
     def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

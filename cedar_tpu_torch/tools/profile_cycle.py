@@ -1,6 +1,6 @@
 """Where the time of one 2D or 3D cycle goes on the card.
 
-Builds one of ten float32 configurations — ``vcycle`` (default: Poisson
+Builds one of eleven float32 configurations — ``vcycle`` (default: Poisson
 4096², V(1,1), the fused fine-level cycle that the solver runs on the card
 by default), ``vcycle-dense`` (the same with ``kernels.fine-split`` false:
 the dense cycle), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1)),
@@ -11,7 +11,9 @@ V(1,1), fused on the top four levels, ``kernels.fine-split`` true:
 ``fe27-dense`` (the same, dense), ``fcycle3`` (7-point Poisson 256³,
 F-cycle) or ``planexy`` (7-point ``diag_diffusion3(1, 1, 1e-3)`` 128³,
 plane-xy V(1,1) with the
-default plane-config: ``3d_aniso_planexy_128``) — runs a few warm-up
+default plane-config: ``3d_aniso_planexy_128``) or ``vcycle-periodic``
+(Poisson 4096² periodic in x, V(1,1): the dense cycle with K1-K3 in their
+periodic modes) — runs a few warm-up
 cycles, then traces ten cycles with ``torch.profiler``, twice: eagerly
 (``[eager]``, each iteration as the CPU's solve loop runs it, one launch
 at a time) and as replays of the solver's captured CUDA graph
@@ -35,7 +37,7 @@ Run from the repository root on a machine with a CUDA device:
 
     python3 -m cedar_tpu_torch.tools.profile_cycle \
         [vcycle|vcycle-dense|linexy|fcycle|vcycle3|vcycle3-dense|fe27|
-         fe27-dense|fcycle3|planexy]
+         fe27-dense|fcycle3|planexy|vcycle-periodic]
 
 To profile another checkout (for example the parent commit, unpacked with
 ``git archive`` into DIR), run the script by path with that checkout
@@ -62,8 +64,18 @@ CYCLES = 10
 SCOPES = ("relaxation", "relaxation-residual-fused",
           "relaxation-residual-restrict-fused", "interp-add-relax-fused",
           "restrict", "interp-add", "interp", "coarse-solve", "residual")
+def _periodic_x(make):
+    """``make``'s 2D operator periodic along x: the W couplings of row 0,
+    which the wrap reads, copied from row 1."""
+    def periodic(nx, ny, dtype, dev):
+        so = make(nx, ny, dtype, dev)
+        so[1, 0] = so[1, 1]
+        return so
+    return periodic
+
+
 # name -> (dimension, n, gallery operator, kind, solver settings[, kernels
-# settings])
+# settings[, grid settings]])
 CONFIGS = {
     "vcycle": (2, 4096, gallery.poisson, FivePt, {}),
     "vcycle-dense": (2, 4096, gallery.poisson, FivePt, {},
@@ -83,6 +95,8 @@ CONFIGS = {
                 gallery.diag_diffusion3(nx, ny, nz, 1.0, 1.0, 1e-3, dtype,
                                         dev),
                 SevenPt, {"relaxation": "plane-xy"}),
+    "vcycle-periodic": (2, 4096, _periodic_x(gallery.poisson), FivePt, {},
+                        {}, {"periodic": [True, False]}),
 }
 
 
@@ -172,8 +186,9 @@ def main(name: str = "vcycle") -> None:
     if not torch.cuda.is_available():
         raise SystemExit("profile_cycle: no CUDA device")
     dev = torch.device("cuda", 0)
-    dim, n, make, kind, solver, *kernels = CONFIGS[name]
-    conf = Config({"log": [], "kernels": kernels[0] if kernels else {},
+    dim, n, make, kind, solver, *more = CONFIGS[name]
+    kernels, grid = (*more, {}, {})[:2]
+    conf = Config({"log": [], "kernels": kernels, "grid": grid,
                    "solver": {**solver, "cycle": {
                        "nrelax-pre": 1, "nrelax-post": 1,
                        **solver.get("cycle", {})}}})
@@ -186,11 +201,15 @@ def main(name: str = "vcycle") -> None:
     print(f"device: {torch.cuda.get_device_name(0)}; {name}: {n}^{dim} "
           f"float32, {s.nlevels} levels")
 
+    # the cycles' own keywords (the periodic axes), where the solver has
+    # them
+    kw = getattr(getattr(s, "graphs", None), "cycle_kw", {})
+
     def eager():
         # one iteration as the CPU's solve loop runs it, without the
         # norm's readback
         nonlocal x
-        x = cyc.cycle_residual(s.levels, s.kinds, x, b, s.settings)[0]
+        x = cyc.cycle_residual(s.levels, s.kinds, x, b, s.settings, **kw)[0]
 
     profile_cycles("eager", eager)
     if not hasattr(s, "graphs"):

@@ -5,11 +5,13 @@ levels' sweep K1 on the card, whole and by part.
 K12 (``ops/cuda_fused2.sweep_restrict``, as the V-cycle calls it: DOWN, no
 residual out) runs at the main path's fused levels, 4096² 5-point and
 2048², 1024² and 512² 9-point float32; K13 (``interp_sweep``: UP, without
-and with the convergence norm) at 4096² 5-point and 2048² 9-point; K1
-(``ops/cuda2.sweep``: DOWN with the residual, UP without, as the dense
-levels run it) at the main path's dense levels, 256² down to 8² 9-point
-float32, on the regime its plan picks (``plan``) and on the tile kernel
-at every level (``streamed``).  Each case is first held bit for bit against its plain version
+and with the convergence norm) at 4096² 5-point and 2048² 9-point; K11
+(``sweep``: DOWN, and UP with the norm, as V(2,2) runs it) at 4096²
+5-point; K1 (``ops/cuda2.sweep``: DOWN with the residual, UP without, as
+the dense levels run it) at the main path's dense levels, 256² down to 8²
+9-point float32, and at 4096² 5-point (the dense cycle's top level), on
+the regime its plan picks (``plan``) and on the tile kernel at every level
+(``streamed``).  Each case is first held bit for bit against its plain version
 (the norm partials' sum to 1e-5), then timed with CUDA events (back to
 back calls: at the small levels the wrappers' host time bounds it) and by
 the device time of its kernels under torch.profiler.  K12 and K13 are
@@ -228,11 +230,19 @@ def make_cases() -> dict:
                 cases[f"K13 {pts} {n}^2" + (" +norm" if norm else "")] = (
                     lambda lib, a=a: k13(lib, *a),
                     lambda a=a: cf.interp_sweep_plain(*a))
-    for k, n in enumerate(DENSE_LEVELS):
-        so, q, b, kind = problem((n, n), True, 70 + k)
+    so, q, b, kind = problem((4096, 4096), False, 66)
+    for updown, norm in (("down", False), ("up", True)):
+        a = (so, q, b, kind, updown, norm)
+        cases[f"K11 5pt 4096^2 {updown}" + (" +norm" if norm else "")] = (
+            lambda lib, a=a: cf.sweep(*a[:5], fuse_norm=a[5]),
+            lambda a=a: cf.sweep_plain(*a[:5], fuse_norm=a[5]))
+    for k, n in enumerate((4096, *DENSE_LEVELS)):
+        nine = n < 4096
+        so, q, b, kind = problem((n, n), nine, 70 + k)
         for updown, fuse in (("down", True), ("up", False)):
             a = (so, q, b, kind, updown, fuse)
-            cases[f"K1 9pt {n}^2 {updown}" + (" +res" if fuse else "")] = (
+            pts = "9pt" if nine else "5pt"
+            cases[f"K1 {pts} {n}^2 {updown}" + (" +res" if fuse else "")] = (
                 lambda p, a=a: (cuda2.sweep(*a) if p is None
                                 else cuda2._sweep(p, *a)),
                 lambda a=a: cuda2.sweep_plain(*a))

@@ -58,7 +58,13 @@ Phases (each raises on failure; nothing is caught):
    (EDGE3, float32 and 27-point float64) and at the 3D paths' 27-point
    levels and the 200³ gate's odd ones (LEVELS27), after a check that the
    wrappers' launch plans size their shared memory as the kernels lay it
-   out;
+   out; then the periodic modes (PERIODIC_SWEEP, PERIODIC_TRANSFER,
+   PERIODIC_LINES: x-, y- and doubly periodic, 5- and 9-point, bit-equal):
+   K1 in both regimes at 4096², 2049² and the periodic paths' levels,
+   odd extents included (the small ones on the streamed tile kernel too),
+   K2, K3 and K5 at 4096² and odd/even level pairs, K4 cyclic along the
+   line and wrapped across it (an odd line count across a periodic axis
+   must raise);
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -74,8 +80,12 @@ Phases (each raises on failure; nothing is caught):
    8³ Poisson plane-xyz, a 12x10x9 ``fe3`` 27-point plane-yz solve;
 4e. every configuration the port runs (GRAPH_CONFIGS: 2D point V, V(2,2)
    and F fused and dense, line-x, -y, -xy; 3D 7- and 27-point V and F,
-   fused and dense, plane-xy, -xz, -yz, -xyz), small, float32 and
-   float64, through the solver's captured graph;
+   fused and dense, plane-xy, -xz, -yz, -xyz; 2D periodic point V,
+   line-x, -y, -xy, F and the doubly periodic indefinite solve), small,
+   float32 and float64, through the solver's captured graph;
+4f. float64 periodic gates at 256², card against CPU (PERIODIC_CONFIGS:
+   x-periodic point V(1,1), line-x, y-periodic line-y, line-xy, 9-point,
+   F-cycle, the doubly periodic indefinite solve to 1e-10);
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -96,6 +106,10 @@ Phases (each raises on failure; nothing is caught):
 5d. the plane-relaxation slice at full width: ``3d_aniso_planexy_128``
    (``bench.py``'s configuration), with the same numbers and the launches
    of one cycle, K10's asserted;
+5e. the 2D periodic path at full width: 4096² x-periodic and doubly
+   periodic (indefinite) Poisson V(1,1), 2048² x-periodic line-x, each
+   with setup, a solve, the launches of one cycle (all periodic, no plain
+   version), per-cycle time and peak memory;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
@@ -113,9 +127,11 @@ Phases (each raises on failure; nothing is caught):
    their bounds; K6 at 16³ 27-point DOWN with the residual (resident,
    ``sweep3_resident``) and at 64³ (a launch a colour phase and the
    residual, ``sweep3``), and at 256³ 7-point and 128³ 27-point (K14's
-   launches, ``sweep3_fused``).
+   launches, ``sweep3_fused``); the periodic modes at the same shapes
+   (K1 streamed 4096² and resident 64², K2, K3, K5 at 4096², K4 2048²
+   cyclic x and wrapped y), with their bounds.
 
-Every solve of phases 4-5d runs as the solvers run it on the card, one
+Every solve of phases 4-5e runs as the solvers run it on the card, one
 replay of a captured CUDA graph a cycle, and is held bit for bit to the
 same solve run eagerly (``cycle_residual`` a cycle), a ``vcycle`` to
 ``run_cycle``; the launches of a cycle are counted at a fresh capture,
@@ -125,7 +141,8 @@ eager against graph, 5 alternating pairs of 25 cycles.
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
-kernel table as JSON; the last line is
+kernel table as JSON (the periodic modes as entries of their own,
+``*_periodic``); the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -283,6 +300,17 @@ REPLACES = {
     # (row 17), and the norm of a 27-point fused top level
     "edge27": ("cedar_tpu/ops/pallas3_split.py:465, "
                "cedar_tpu/ops/pallas3_split.py:492"),
+    # the periodic modes, entries of their own (their launches are those
+    # of the periodic paths): K1's is the Pallas sweep's periodic mode;
+    # the JAX package runs the periodic transfers and line solves in XLA,
+    # so K2-K5's periodic modes extend the kernels of those rows
+    "sweep2_periodic": "cedar_tpu/ops/pallas2.py:137",
+    "sweep2_resident_periodic": "cedar_tpu/ops/pallas2.py:137",
+    "restrict2_periodic": "cedar_tpu/ops/pallas_transfer2.py:126",
+    "interp_add2_periodic": ("cedar_tpu/ops/pallas_transfer2.py:256, "
+                             "cedar_tpu/ops/pallas_transfer2.py:266"),
+    "line2_periodic": "cedar_tpu/ops/pallas_lines2.py:142",
+    "interp2_periodic": "cedar_tpu/ops/pallas_transfer2.py:817",
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -304,7 +332,17 @@ SOURCES = {
     "sweep_restrict3": "cedar_tpu_torch/csrc/fused3.cu",
     "interp_sweep3": "cedar_tpu_torch/csrc/fused3.cu",
     "edge27": "cedar_tpu_torch/csrc/edge3.cu",
+    "sweep2_periodic": "cedar_tpu_torch/csrc/tile2.cuh",
+    "sweep2_resident_periodic": "cedar_tpu_torch/csrc/sweep2.cu",
+    "restrict2_periodic": "cedar_tpu_torch/csrc/transfer2.cu",
+    "interp_add2_periodic": "cedar_tpu_torch/csrc/transfer2.cu",
+    "line2_periodic": "cedar_tpu_torch/csrc/lines2.cu",
+    "interp2_periodic": "cedar_tpu_torch/csrc/transfer2.cu",
 }
+# the periodic modes' entries, each with the entry of its kernel
+PERIODIC_OF = {k + "_periodic": k for k in (
+    "sweep2", "sweep2_resident", "restrict2", "interp_add2", "line2",
+    "interp2")}
 KERNELS = tuple(REPLACES)
 # K1 launched in either regime
 K1 = ("sweep2", "sweep2_resident")
@@ -316,6 +354,8 @@ N_LINES = 2048
 N_3D = 256
 N_27 = 128
 N_PLANES = 128
+# the float64 periodic gates (card against CPU)
+N_PERIODIC_GATE = 256
 # kernels.split-levels: the top levels that run the fused cycle (the
 # solver's default)
 SPLIT_LEVELS = 4
@@ -352,6 +392,12 @@ def counts() -> dict:
         "sweep_restrict3": cuda_fused3.sweep_restrict_launches,
         "interp_sweep3": cuda_fused3.interp_sweep_launches,
         "edge27": cuda_fused3.edge_launches,
+        "sweep2_periodic": cuda2.periodic_launches,
+        "sweep2_resident_periodic": cuda2.periodic_resident_launches,
+        "restrict2_periodic": cuda_transfer2.restrict_periodic_launches,
+        "interp_add2_periodic": cuda_transfer2.interp_periodic_launches,
+        "line2_periodic": cuda_lines2.periodic_launches,
+        "interp2_periodic": cuda_transfer2.interp2_periodic_launches,
         "sweep2_plain": cuda2.plain_calls,
         "sweep2_resident_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
@@ -371,12 +417,23 @@ def counts() -> dict:
         "sweep_restrict3_plain": cuda_fused3.sweep_restrict_plain_calls,
         "interp_sweep3_plain": cuda_fused3.interp_sweep_plain_calls,
         "edge27_plain": cuda_fused3.edge_plain_calls,
+        "sweep2_periodic_plain": cuda2.plain_calls,
+        "sweep2_resident_periodic_plain": cuda2.plain_calls,
+        "restrict2_periodic_plain": cuda_transfer2.restrict_plain_calls,
+        "interp_add2_periodic_plain": cuda_transfer2.interp_plain_calls,
+        "line2_periodic_plain": cuda_lines2.plain_calls,
+        "interp2_periodic_plain": cuda_transfer2.interp2_plain_calls,
     }
 
 
 def reset_counts() -> None:
     cuda2.launches = cuda2.resident_launches = cuda2.plain_calls = 0
+    cuda2.periodic_launches = cuda2.periodic_resident_launches = 0
     cuda_transfer2.restrict_launches = cuda_transfer2.interp_launches = 0
+    cuda_transfer2.restrict_periodic_launches = 0
+    cuda_transfer2.interp_periodic_launches = 0
+    cuda_transfer2.interp2_periodic_launches = 0
+    cuda_lines2.periodic_launches = 0
     cuda_transfer2.restrict_plain_calls = 0
     cuda_transfer2.interp_plain_calls = 0
     cuda_transfer2.interp2_launches = cuda_transfer2.interp2_plain_calls = 0
@@ -531,20 +588,26 @@ def phase_kernels() -> dict:
     return errs
 
 
-def compare_sweep(so, q, b, kind, pts: str, tag: str) -> float:
+def compare_sweep(so, q, b, kind, pts: str, tag: str,
+                  periodic=(False, False), p=None) -> float:
     """K1, DOWN and UP, with and without the residual and an origin,
     bit-equal to its plain version, and q left as it was (out of place in
-    both regimes); returns the regime's kernel name and the largest
-    error."""
+    both regimes); ``periodic`` the periodic axes, ``p`` a plan (default
+    :func:`cuda2.plan`'s); returns the regime's kernel name and the
+    largest error."""
     e = 0.0
     nine = kind == StencilKind.nine_pt
-    p = cuda2.plan(q.element_size(), nine, tuple(q.shape))
+    if p is None:
+        p = cuda2.plan(q.element_size(), nine, tuple(q.shape))
     regime = "resident" if p.resident else "streamed"
+    if any(periodic):
+        regime += f", periodic {tuple(int(a) for a in periodic)}"
     q0 = q.clone()
     for updown, fuse, origin in itertools.product(
             ("down", "up"), (False, True), ((0, 0), (1, 2))):
-        got = cuda2.sweep(so, q, b, kind, updown, fuse, origin)
-        want = cuda2.sweep_plain(so, q, b, kind, updown, fuse, origin)
+        got = cuda2._sweep(p, so, q, b, kind, updown, fuse, origin, periodic)
+        want = cuda2.sweep_plain(so, q, b, kind, updown, fuse, origin,
+                                 periodic)
         what = (f"K1 sweep2 {pts} {updown} fuse={int(fuse)} "
                 f"origin={origin} {tag} ({regime})")
         if not torch.equal(q, q0):
@@ -557,17 +620,38 @@ def compare_sweep(so, q, b, kind, pts: str, tag: str) -> float:
     return ("sweep2_resident" if p.resident else "sweep2"), e
 
 
-def compare_lines(so, q, b, kind, pts: str, tag: str) -> float:
-    """K4, x- and y-lines, DOWN and UP, bit-equal to its plain version."""
+def compare_lines(so, q, b, kind, pts: str, tag: str,
+                  periodic=(False, False)) -> float:
+    """K4, x- and y-lines, DOWN and UP, bit-equal to its plain version;
+    on ``periodic`` axes cyclic along the line and wrapped across it.  An
+    odd number of lines across a periodic axis must raise in both."""
     e = 0.0
+    per = tuple(bool(a) for a in periodic)
+    if any(per):
+        tag += f" periodic {tuple(int(a) for a in per)}"
     for axis in ("x", "y"):
         kernel = cuda_lines2.line_x if axis == "x" else cuda_lines2.line_y
         plain = (cuda_lines2.line_x_plain if axis == "x"
                  else cuda_lines2.line_y_plain)
+        across, nlines = ((per[1], q.shape[1]) if axis == "x"
+                          else (per[0], q.shape[0]))
+        if across and nlines % 2:
+            for fn in (kernel, plain):
+                try:
+                    fn(so, q.clone(), b, kind, "down", periodic=per)
+                except ValueError:
+                    continue
+                raise AssertionError(f"K4 {axis} {tag}: {nlines} lines "
+                                     "across a periodic axis did not raise")
+            print(f"  K4 line2 {axis} {pts} {tag}: {nlines} lines across a "
+                  "periodic axis raise", flush=True)
+            continue
         for updown in ("down", "up"):
             e = max(e, compare(f"K4 line2 {axis} {pts} {updown} {tag}",
-                               kernel(so, q.clone(), b, kind, updown),
-                               plain(so, q.clone(), b, kind, updown),
+                               kernel(so, q.clone(), b, kind, updown,
+                                      periodic=per),
+                               plain(so, q.clone(), b, kind, updown,
+                                     periodic=per),
                                exact=True))
     return e
 
@@ -802,6 +886,131 @@ def phase_transfers2(errs: dict) -> dict:
                                 ci, so, qc, b, q.clone()), exact=True)
                 errs["interp_add2"] = max(errs["interp_add2"], e)
             del so, q, b, ci, qc
+    return errs
+
+
+# the periodic axes of a 2D grid: x, y and both
+PERIODIC = ((True, False), (False, True), (True, True))
+# K1's periodic mode: both regimes at full width (streamed 4096² and the
+# odd 2049²) and at the levels of the periodic paths (4096² .. 8², the
+# 400² gate's 25², 13², 7²: odd extents, where the wrap couples points of
+# one colour), the resident regime's edges (90², 64²), an odd and an even
+# extent (65x64) and a few points, float32 and float64 (the full widths
+# float32 only); the small ones also forced onto the streamed tile kernel
+PERIODIC_SWEEP = ([((4096, 4096), torch.float32),
+                   ((2049, 2049), torch.float32)]
+                  + [(s, dt) for s in ((256, 256), (64, 64), (90, 90),
+                                       (65, 64), (25, 25), (13, 13), (7, 7),
+                                       (8, 8), (5, 4), (2, 3))
+                     for dt in (torch.float32, torch.float64)])
+# K2, K3 and K5's periodic mode: the 4096² -> 2048² transfer, the 400²
+# gate's (400² float64 and its odd levels 25², 13², 7²) and odd/even pairs
+PERIODIC_TRANSFER = [((4096, 4096), torch.float32),
+                     ((400, 400), torch.float64),
+                     ((50, 50), torch.float32), ((25, 25), torch.float64),
+                     ((13, 13), torch.float32), ((7, 7), torch.float64),
+                     ((65, 64), torch.float32), ((8, 8), torch.float64)]
+# K4's periodic mode: the 2048² line-x path, lines of 63 (LDLᵀ), 64 and 65
+# points, 1000 points, lines too long for shared memory (9000 float32,
+# 5000 float64: the device-memory scratch), and line counts odd and even
+PERIODIC_LINES = [((2048, 2048), torch.float32), ((63, 64), torch.float32),
+                  ((64, 64), torch.float64), ((65, 66), torch.float64),
+                  ((1000, 778), torch.float32), ((9000, 6), torch.float32),
+                  ((6, 5000), torch.float64), ((24, 9), torch.float64)]
+
+
+def random_periodic_problem(shape, nine: bool, dtype, seed: int, periodic):
+    """:func:`random_problem` with the couplings across the periodic axes
+    (the planes' row or column 0, which the wrap reads) made too, and the
+    diagonal dominant over the wrapped couplings."""
+    so, q, b, kind = random_problem(shape, nine, dtype, seed)
+    g = torch.Generator(device=DEV).manual_seed(seed + 7)
+
+    def u(lo, hi, *s):
+        return lo + (hi - lo) * torch.rand(s, generator=g, device=DEV,
+                                           dtype=dtype)
+
+    nx, ny = shape
+    if periodic[0]:
+        so[1, 0, :] = u(0.5, 1.5, ny)
+        if nine:
+            so[3, 0, :] = u(0.1, 0.5, ny)
+            so[4, 0, :] = u(0.1, 0.5, ny)
+    if periodic[1]:
+        so[2, :, 0] = u(0.5, 1.5, nx)
+        if nine:
+            so[3, :, 0] = u(0.1, 0.5, nx)
+            so[4, :, 0] = u(0.1, 0.5, nx)
+    so[0] = offdiag_apply(so, torch.ones(shape, dtype=dtype, device=DEV),
+                          kind, periodic) + u(0.05, 0.2, nx, ny)
+    return so, q, b, kind
+
+
+def phase_kernels_periodic(errs: dict) -> dict:
+    """The periodic modes, bit-equal to their plain versions, on x-, y-
+    and doubly periodic grids, 5- and 9-point: K1 at PERIODIC_SWEEP (DOWN
+    and UP, with and without the residual and an origin, q left as it was,
+    in the regime of its plan, and the small shapes on the streamed tile
+    kernel too), K2, K3 and K5 at PERIODIC_TRANSFER (CI from the periodic
+    setup), K4 at PERIODIC_LINES (x and y)."""
+    print("[3] periodic modes against plain versions", flush=True)
+
+    def note(k: str, e: float) -> None:
+        errs[k + "_periodic"] = max(errs[k + "_periodic"], e)
+
+    streamed = cuda2.Plan(0)
+    for i, ((shape, dtype), per) in enumerate(
+            itertools.product(PERIODIC_SWEEP, PERIODIC)):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_periodic_problem(shape, nine, dtype,
+                                                     2100 + i, per)
+            pts = "9pt" if nine else "5pt"
+            k, e = compare_sweep(so, q, b, kind, pts, tag, per)
+            note(k, e)
+            if shape[0] < 1000 and k == "sweep2_resident":
+                k, e = compare_sweep(so, q, b, kind, pts, tag, per, streamed)
+                note(k, e)
+    for i, ((shape, dtype), per) in enumerate(
+            itertools.product(PERIODIC_TRANSFER, PERIODIC)):
+        tag = (f"{shape} {str(dtype).replace('torch.', '')} periodic "
+               f"{tuple(int(a) for a in per)}")
+        for nine in (False, True):
+            so, q, b, kind = random_periodic_problem(shape, nine, dtype,
+                                                     2300 + i, per)
+            pts = "9pt" if nine else "5pt"
+            ci = interp2.setup_interp(so, kind, per)
+            nc = (ci.shape[1] - 1, ci.shape[2] - 1)
+            g = torch.Generator(device=DEV).manual_seed(2500 + i)
+            qc = torch.randn(nc, generator=g, device=DEV, dtype=dtype)
+            e = compare(f"K2 restrict2 {pts} {tag}",
+                        cuda_transfer2.restrict(ci, b, per),
+                        cuda_transfer2.restrict_plain(ci, b, per),
+                        exact=True)
+            note("restrict2", e)
+            e = compare(f"K3 interp_add2 {pts} {tag}",
+                        cuda_transfer2.interp_add(ci, so, qc, b, q.clone(),
+                                                  per),
+                        cuda_transfer2.interp_add_plain(ci, so, qc, b,
+                                                        q.clone(), per),
+                        exact=True)
+            note("interp_add2", e)
+            e = compare(f"K5 interp2 {pts} {tag}",
+                        cuda_transfer2.interp(ci, qc, shape, per),
+                        cuda_transfer2.interp_plain(ci, qc, shape, per),
+                        exact=True)
+            note("interp2", e)
+            del so, q, b, ci, qc
+    for i, ((shape, dtype), per) in enumerate(
+            itertools.product(PERIODIC_LINES, PERIODIC)):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_periodic_problem(shape, nine, dtype,
+                                                     2700 + i, per)
+            pts = "9pt" if nine else "5pt"
+            note("line2", compare_lines(so, q, b, kind, pts, tag, per))
+            del so, q, b
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -1369,6 +1578,106 @@ def phase_plane_gates() -> None:
         require_launched(c, PLANE_KERNELS, what)
 
 
+def periodic_grid(make, per):
+    """``make``'s operator (a 2D gallery function) on a grid periodic along
+    ``per``: the couplings across those axes (the planes' row or column 0,
+    which the wrap reads) copied from row or column 1."""
+    def periodic(nx, ny, dtype=None, device=None):
+        so = make(nx, ny, dtype, device)
+        nine = so.shape[0] == 5
+        if per[0]:
+            planes = [1, 3, 4] if nine else [1]
+            so[planes, 0, :] = so[planes, 1, :]
+        if per[1]:
+            planes = [2, 3, 4] if nine else [2]
+            so[planes, :, 0] = so[planes, :, 1]
+        return so
+    return periodic
+
+
+def aniso_x(nx, ny, dtype=None, device=None):
+    """Strong coupling along x: the line-x cells' operator."""
+    return gallery.diag_diffusion(nx, ny, 1.0, 0.1, dtype, device)
+
+
+def aniso_y(nx, ny, dtype=None, device=None):
+    return gallery.diag_diffusion(nx, ny, 0.1, 1.0, dtype, device)
+
+
+def periodic_conf(per, **solver) -> dict:
+    return {"grid": {"periodic": list(per)}, "solver": solver}
+
+
+X, Y, XY = (True, False), (False, True), (True, True)
+# the 2D periodic configurations: name -> (operator, kind, conf); the
+# doubly periodic one is singular (solver.definite false, b with its mean
+# removed)
+PERIODIC_CONFIGS = {
+    "point x": (periodic_grid(gallery.poisson, X), FivePt, periodic_conf(X)),
+    "line-x": (periodic_grid(aniso_x, X), FivePt,
+               periodic_conf(X, relaxation="line-x")),
+    "line-y": (periodic_grid(aniso_y, Y), FivePt,
+               periodic_conf(Y, relaxation="line-y")),
+    "line-xy": (periodic_grid(gallery.fe, X), NinePt,
+                periodic_conf(X, relaxation="line-xy")),
+    "9pt x": (periodic_grid(gallery.fe, X), NinePt, periodic_conf(X)),
+    "F x": (periodic_grid(gallery.poisson, X), FivePt,
+            periodic_conf(X, cycle={"type": "f"})),
+    "indefinite xy": (periodic_grid(gallery.poisson, XY), FivePt,
+                      periodic_conf(XY, definite=False)),
+}
+
+
+def periodic_rhs(conf: dict, nx: int, ny: int, dtype, device):
+    """poisson_rhs, its mean removed where the operator is singular."""
+    b = gallery.poisson_rhs(nx, ny, dtype, device)
+    if not conf["solver"].get("definite", True):
+        b = b - b.mean()
+    return b
+
+
+def phase_periodic_gates() -> dict:
+    """Float64 periodic gates at 256², card against CPU (rtol 1e-9, atol
+    1e-14, as the other gates): :data:`PERIODIC_CONFIGS` (point V(1,1)
+    x-periodic, line-x, line-y, line-xy, 9-point, the F-cycle, the doubly
+    periodic indefinite solve to 1e-10).  Returns the F-cycle's counts."""
+    print("[4f] float64 periodic gates, card against CPU", flush=True)
+    n, cpu = N_PERIODIC_GATE, torch.device("cpu")
+    out = {}
+    for name, (make, kind, conf) in PERIODIC_CONFIGS.items():
+        conf = {**conf, "log": [], "solver": {
+            "cycle": {"nrelax-pre": 1, "nrelax-post": 1}, "tol": 1e-10,
+            "max-iter": 20, **conf["solver"]}}
+        so = make(n, n, torch.float64, cpu)
+        b = periodic_rhs(conf, n, n, torch.float64, cpu)
+        s, x, c = gate_solve(DEV, so, kind, Config(conf), b)
+        sc, _, _ = gate_solve(cpu, so, kind, Config(conf), b)
+        print(f"  {name} {n}^2: card "
+              f"{' '.join(f'{h:.9g}' for h in s.history)}", flush=True)
+        print(f"  CPU {' '.join(f'{h:.9g}' for h in sc.history)}; counts "
+              f"{ {k: v for k, v in c.items() if v} }", flush=True)
+        np.testing.assert_allclose(s.history, sc.history, rtol=1e-9,
+                                   atol=1e-14)
+        if name.startswith("F"):
+            if len(set(s.history)) != 1 or not s.history[0] < 1:
+                raise AssertionError(f"{name}: F-cycle history")
+            out = c
+        elif not s.history[-1] < 1e-10:
+            raise AssertionError(f"{name}: did not reach 1e-10")
+        point = "relaxation" not in conf["solver"]
+        need = ([K1, ("sweep2_periodic", "sweep2_resident_periodic")]
+                if point else ["line2", "line2_periodic"])
+        need += ["restrict2_periodic", "interp_add2_periodic"]
+        if name.startswith("F"):
+            need.append("interp2_periodic")
+        require_launched(c, need, f"periodic gate {name}")
+        for k, base in PERIODIC_OF.items():
+            if c[k] != c[base]:
+                raise AssertionError(f"{name}: {c[base] - c[k]} launches "
+                                     f"of {base} not periodic")
+    return out
+
+
 # every configuration the port runs, small: name -> (gallery operator,
 # kind, shape, conf); each in float32 and float64 through the graph
 GRAPH_CONFIGS = {
@@ -1413,6 +1722,11 @@ GRAPH_CONFIGS = {
                          {"solver": {"relaxation": "plane-yz"}}),
     "3d plane-xyz": (gallery.poisson3, SevenPt, (16, 16, 16),
                      {"solver": {"relaxation": "plane-xyz"}}),
+    # the periodic ones (even extents on every relaxed level, as lines
+    # across a periodic axis need)
+    **{f"2d periodic {name}": (make, kind, (64, 48), conf)
+       for name, (make, kind, conf) in PERIODIC_CONFIGS.items()
+       if name != "9pt x"},
 }
 
 
@@ -1434,6 +1748,8 @@ def phase_graph_configs() -> None:
             s = cls(make(*shape, dt, DEV), kind,
                     Config({"log": [], **conf, "solver": solver}))
             b = rhs(*shape, dt, DEV)
+            if not conf.get("solver", {}).get("definite", True):
+                b = b - b.mean()   # the singular doubly periodic operator
             x = s.solve(b)
             if not torch.isfinite(x).all():
                 raise AssertionError(f"{what}: bad solution")
@@ -1475,7 +1791,8 @@ def time_cycles(s, b, x, ncycles=25, cycle=cycle2, pairs=PAIRS):
 
     def eager():
         nonlocal xe
-        xe = cycle.cycle_residual(s.levels, s.kinds, xe, b, s.settings)[0]
+        xe = cycle.cycle_residual(s.levels, s.kinds, xe, b, s.settings,
+                                  **s.graphs.cycle_kw)[0]
 
     ways = {"eager": eager, "graph": g.replay}
     for one in ways.values():
@@ -1509,7 +1826,7 @@ def check_graph(s, b, x, what: str, cycle=cycle2, x0=None) -> None:
     def step():
         nonlocal xe
         xe, rnorm = cycle.cycle_residual(s.levels, s.kinds, xe, b,
-                                         s.settings)
+                                         s.settings, **s.graphs.cycle_kw)
         return rnorm
 
     hist = graph.iterate(step, s.res0, s.settings)
@@ -1520,7 +1837,8 @@ def check_graph(s, b, x, what: str, cycle=cycle2, x0=None) -> None:
         raise AssertionError(f"{what}: graph x != eager x (max |diff| "
                              f"{float((x - xe).abs().max()):.3e})")
     xv = s.vcycle(x, b)
-    xr = cycle.run_cycle(s.levels, s.kinds, x.clone(), b, s.settings)
+    xr = cycle.run_cycle(s.levels, s.kinds, x.clone(), b, s.settings,
+                         **s.graphs.cycle_kw)
     if not torch.equal(xv, xr):
         raise AssertionError(f"{what}: graph vcycle != run_cycle (max "
                              f"|diff| {float((xv - xr).abs().max()):.3e})")
@@ -1617,11 +1935,11 @@ def one_cycle_launches(s, b, what: str, want: dict | None,
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cycle.cycle_residual(s.levels, s.kinds, torch.zeros_like(b), b,
-                         s.settings)
+                         s.settings, **s.graphs.cycle_kw)
     torch.cuda.synchronize()
     eager_peak = torch.cuda.max_memory_allocated() - base
-    g = graph.CycleGraphs(cycle, s.levels, s.kinds, s.settings).graph(
-        "solve", b)
+    g = graph.CycleGraphs(cycle, s.levels, s.kinds, s.settings,
+                          **s.graphs.cycle_kw).graph("solve", b)
     g.b.copy_(b)
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved()
@@ -1812,6 +2130,85 @@ def phase_fcycle_4096() -> dict:
           f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
           flush=True)
     return launches
+
+
+def phase_periodic_full() -> dict:
+    """The 2D periodic path at full width, float32: 4096² x-periodic
+    5-point Poisson V(1,1) (the dense cycle: K1 streamed at 4096² .. 128²,
+    resident from 64² down, K2/K3 on every level), the same grid doubly
+    periodic with ``solver.definite: false`` (b with its mean removed), and
+    2048² line-x on an x-periodic anisotropic operator.  Each: setup, a
+    solve, the launches of one captured cycle asserted (every launch
+    periodic, no plain version; K4 one launch a zebra colour), graph
+    against eager ms a cycle, peak memory.  Returns the periodic entries'
+    launches in the solves."""
+    out = {}
+    cases = (
+        ("2d_poisson_periodic_x_4096", N_MAIN, "point x"),
+        ("2d_poisson_periodic_xy_4096", N_MAIN, "indefinite xy"),
+        ("2d_aniso_periodic_x_linex_2048", N_LINES, "line-x"),
+    )
+    for name, n, which in cases:
+        make, kind, conf = PERIODIC_CONFIGS[which]
+        conf = {**conf, "log": [], "solver": {
+            "cycle": {"nrelax-pre": 1, "nrelax-post": 1}, "tol": 1e-7,
+            "max-iter": 4, **conf["solver"]}}
+        print(f"[5e] {name}: {which}, {n}^2 float32 V(1,1)", flush=True)
+        so = make(n, n, torch.float32, DEV)
+        b = periodic_rhs(conf, n, n, torch.float32, DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = Solver2(so, kind, Config(conf))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        x = s.solve(b)
+        torch.cuda.synchronize()
+        c = counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {name}: levels {s.nlevels}; setup {setup_s:.3f} s; "
+              f"history {' '.join(f'{h:.6g}' for h in s.history)}",
+              flush=True)
+        print(f"  {name}: counts { {k: v for k, v in c.items() if v} }",
+              flush=True)
+        if not torch.isfinite(x).all() or tuple(x.shape) != (n, n):
+            raise AssertionError(f"{name}: bad solution")
+        if not s.history[-1] < s.history[0]:
+            raise AssertionError(f"{name}: the solve did not converge")
+        point = which != "line-x"
+        require_launched(c, ["restrict2_periodic", "interp_add2_periodic",
+                             ("sweep2_periodic", "sweep2_resident_periodic")
+                             if point else "line2_periodic"], name)
+        check_graph(s, b, x, name)
+        relaxed = s.nlevels - 1
+        if point:
+            resident = sum(
+                cuda2.plan(4, kind == StencilKind.nine_pt, shape).resident
+                for kind, shape in zip(s.kinds[:-1], s.shapes[:-1]))
+            want = {"sweep2": 2 * (relaxed - resident),
+                    "sweep2_resident": 2 * resident, "line2": 0}
+        else:
+            want = {"line2": 4 * relaxed, "sweep2": 0, "sweep2_resident": 0}
+        want.update({"restrict2": relaxed, "interp_add2": relaxed,
+                     "sweep_restrict2": 0, "interp_sweep2": 0,
+                     "sweep2_fused": 0})
+        want.update({k: want[base] for k, base in PERIODIC_OF.items()
+                     if base in want})
+        one = one_cycle_launches(s, b, name, want)
+        total = sum(one.get(k, 0) for k in KERNELS if k not in PERIODIC_OF)
+        print(f"  {name}: {total} kernel launches a cycle, all periodic",
+              flush=True)
+        ms = time_cycles(s, b, x)
+        print(f"  {name}: DOF/s {n * n / (ms * 1e-3):.4e}; "
+              f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+              flush=True)
+        for k in PERIODIC_OF:
+            if c[k]:
+                out[k] = out.get(k, 0) + c[k]
+        del s, x, so, b
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_path3(name: str, n: int, make, kind, solver: dict, need,
@@ -2565,6 +2962,89 @@ def phase_times_planes() -> dict:
     return {"line_xy2": out[key] + work[key]}
 
 
+def phase_times_periodic() -> dict:
+    """The periodic modes against plain, in turns (plain, kernel, kernel,
+    plain), at the shapes of phase_times' non-periodic entries (this call
+    times those too): K1 streamed at 4096² 5-point (x- and doubly
+    periodic, with and without the residual), resident at 64² 9-point
+    with the residual, K2, K3 and K5 at 4096², K4 at 2048² 9-point (x-lines
+    cyclic, y-lines across the periodic x axis); each with its bound (the
+    bytes and operations of the non-periodic entry; a cyclic line solves
+    two systems)."""
+    print("[6] periodic modes: per-kernel ms at the main paths' shapes "
+          "(plain, kernel, kernel, plain)", flush=True)
+    n, r, m = N_MAIN, N_MAIN >> 6, N_LINES
+    so, q, b, kind = random_periodic_problem((n, n), False, torch.float32,
+                                             31, XY)
+    sr, qr, br, kr = random_periodic_problem((r, r), True, torch.float32,
+                                             32, X)
+    sl, ql, bl, kl = random_periodic_problem((m, m), True, torch.float32,
+                                             33, X)
+    ci = interp2.setup_interp(so, kind, X)
+    g = torch.Generator(device=DEV).manual_seed(34)
+    qc = torch.randn((ci.shape[1] - 1, ci.shape[2] - 1), generator=g,
+                     device=DEV, dtype=torch.float32)
+    cases = {
+        "sweep2_periodic": (
+            lambda: cuda2.sweep_plain(so, q, b, kind, "down", periodic=X),
+            lambda: cuda2.sweep(so, q, b, kind, "down", periodic=X)),
+        "sweep2 +res periodic x": (
+            lambda: cuda2.sweep_plain(so, q, b, kind, "down", True,
+                                      periodic=X),
+            lambda: cuda2.sweep(so, q, b, kind, "down", True, periodic=X)),
+        "sweep2 periodic xy": (
+            lambda: cuda2.sweep_plain(so, q, b, kind, "down", periodic=XY),
+            lambda: cuda2.sweep(so, q, b, kind, "down", periodic=XY)),
+        "sweep2_resident_periodic": (
+            lambda: cuda2.sweep_plain(sr, qr, br, kr, "down", True,
+                                      periodic=X),
+            lambda: cuda2.sweep(sr, qr, br, kr, "down", True, periodic=X)),
+        "restrict2_periodic": (
+            lambda: cuda_transfer2.restrict_plain(ci, b, X),
+            lambda: cuda_transfer2.restrict(ci, b, X)),
+        "interp_add2_periodic": (
+            lambda: cuda_transfer2.interp_add_plain(ci, so, qc, b, q, X),
+            lambda: cuda_transfer2.interp_add(ci, so, qc, b, q, X)),
+        "interp2_periodic": (
+            lambda: cuda_transfer2.interp_plain(ci, qc, (n, n), X),
+            lambda: cuda_transfer2.interp(ci, qc, (n, n), X)),
+    }
+    lines = {
+        "line2 x cyclic": (
+            lambda: cuda_lines2.line_x_plain(sl, ql, bl, kl, "down",
+                                             periodic=X),
+            lambda: cuda_lines2.line_x(sl, ql, bl, kl, "down", periodic=X)),
+        "line2 y periodic x": (
+            lambda: cuda_lines2.line_y_plain(sl, ql, bl, kl, "down",
+                                             periodic=X),
+            lambda: cuda_lines2.line_y(sl, ql, bl, kl, "down", periodic=X)),
+    }
+    out = time_turns({**cases, **lines}, slow=lines)
+    out["line2_periodic"] = tuple(
+        (a + c) / 2 for a, c in zip(out["line2 x cyclic"],
+                                    out["line2 y periodic x"]))
+    nc, e, s_ = ci.shape[1] - 1, 4, pcr_steps(m)
+    work = {
+        "sweep2_periodic": ((3 + 3) * n * n * e, 10 * n * n),
+        "sweep2_resident_periodic": ((5 + 3 + 1) * r * r * e, 36 * r * r),
+        "restrict2_periodic": ((8 * (nc + 1) ** 2 + n * n + nc * nc) * e,
+                               16 * nc * nc),
+        "interp_add2_periodic": ((8 * (nc + 1) ** 2 + nc * nc + 4 * n * n)
+                                 * e, 23 * n * n // 4),
+        "interp2_periodic": ((8 * (nc + 1) ** 2 + nc * nc + n * n) * e,
+                             13 * n * n // 4),
+        # the mean of the two sweeps: a cyclic x-line solves two systems
+        # and combines them (4 operations a point), a y-line one
+        "line2_periodic": ((5 + 3) * m * m * e,
+                           (12 + (3 * (12 * s_ + 8) + 4) // 2) * m * m),
+    }
+    for k, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, torch.float32)
+        print(f"  {k}: bound {bms:.4f} ms by {by}; kernel {out[k][0]:.4f} "
+              f"ms, plain {out[k][1]:.4f} ms", flush=True)
+    return {k: v + work[k] for k, v in out.items() if k in work}
+
+
 def pcr_steps(n: int) -> int:
     """PCR steps of the line solve of a line of ``n`` points (log2 h)."""
     return max(lines2.pcr_stride(n), 1).bit_length() - 1
@@ -2595,6 +3075,7 @@ def main() -> None:
     errs = timed(phase_kernels3, errs)
     errs = timed(phase_kernels_planes, errs)
     errs = timed(phase_transfers2, errs)
+    errs = timed(phase_kernels_periodic, errs)
     errs = timed(phase_kernels_fused, errs)
     errs = timed(phase_kernels_fused3, errs)
     timed(phase_cedar_gate)
@@ -2603,6 +3084,7 @@ def main() -> None:
     timed(phase_cedar3)
     timed(phase_3d_gates)
     timed(phase_plane_gates)
+    fcycle_periodic = timed(phase_periodic_gates)
     timed(phase_graph_configs)
     launches = timed(phase_main_path)
     launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
@@ -2610,8 +3092,11 @@ def main() -> None:
     launches["interp2"] = timed(phase_fcycle_4096)["interp2"]
     launches.update(timed(phase_paths3))
     launches["line_xy2"] = timed(phase_planes_128)["line_xy2"]
+    launches.update(timed(phase_periodic_full))
+    # K5's periodic mode runs in the periodic F-cycle (phase 4f)
+    launches["interp2_periodic"] = fcycle_periodic["interp2_periodic"]
     times = (timed(phase_times) | timed(phase_times3)
-             | timed(phase_times_planes))
+             | timed(phase_times_planes) | timed(phase_times_periodic))
     timed(phase_times_levels)
     print(f"  (all phases: {time.perf_counter() - t0:.1f} s)", flush=True)
     table = []

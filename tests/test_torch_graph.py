@@ -6,12 +6,18 @@
   fused and dense, plane-xy, -xz, -yz and -xyz; float32 and float64) runs
   no op that reads a device value back to the host and builds no tensor
   from host data, either of which would break or freeze a CUDA graph.
+  The 2D periodic configurations (point V and F, line-x, -y and -xy,
+  the doubly periodic indefinite case, fine-split asked for) too.
 * The graph runner's bookkeeping, with a stand-in backend that records
   the captured callable and replays it eagerly: its ``solve`` equals the
   solver's eager loop bit for bit (history, ``x``, iteration count at a
   ``tol``, ``max-iter`` and NaN stop), leaves ``x0`` and ``b`` alone and
   returns results a later call does not overwrite; its ``solve`` against
   cedar_tpu's.
+* A solver given another hierarchy (``s.levels = ...``, one carried
+  across from cedar_tpu with ``levels_from_numpy``) drops its graphs, and
+  the graph path's ``solve`` and ``vcycle`` then follow the new hierarchy,
+  bit for bit equal to the eager loop over it.
 """
 
 import contextlib
@@ -31,6 +37,7 @@ from cedar_tpu_torch import (
     FivePt, NinePt, SevenPt, Solver2, Solver3, TwentySevenPt, gallery,
 )
 from cedar_tpu_torch.solver import cycle2, cycle3, graph
+from cedar_tpu_torch.solver.level import levels_from_numpy
 
 torch.set_num_threads(2)
 
@@ -81,6 +88,22 @@ CONFIGS = {
                     _plane("plane-yz")),
     "3d-plane-xyz": (gallery.poisson3, SevenPt, (8, 8, 8),
                      _plane("plane-xyz")),
+    "2d-periodic-point-v": (gallery.poisson, FivePt, (16, 12),
+                            {"grid": {"periodic": [True, False]}}),
+    "2d-periodic-point-f": (gallery.poisson, FivePt, (16, 12), {
+        "grid": {"periodic": [False, True]},
+        "solver": {"cycle": {"type": "f"}}}),
+    "2d-periodic-fine-split": (gallery.poisson, FivePt, (16, 12), {
+        **FUSED2, "grid": {"periodic": [True, True]}}),
+    "2d-periodic-line-x": (gallery.fe, NinePt, (16, 12), {
+        "grid": {"periodic": [True, False]},
+        "solver": {"relaxation": "line-x"}}),
+    "2d-periodic-line-y": (gallery.fe, NinePt, (16, 12), {
+        "grid": {"periodic": [False, True]},
+        "solver": {"relaxation": "line-y"}}),
+    "2d-periodic-line-xy-indefinite": (gallery.poisson, FivePt, (16, 12), {
+        "grid": {"periodic": [True, True]},
+        "solver": {"relaxation": "line-xy", "definite": False}}),
 }
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
@@ -150,7 +173,8 @@ def test_cycle_is_capture_safe(name, fn, dtype, monkeypatch):
     cycle = cycle2 if b.ndim == 2 else cycle3
     x = torch.zeros_like(b)
     with capture_safe(monkeypatch):
-        out = getattr(cycle, fn)(s.levels, s.kinds, x, b, s.settings)
+        out = getattr(cycle, fn)(s.levels, s.kinds, x, b, s.settings,
+                                 **s.graphs.cycle_kw)
     x_new = out[0] if fn == "cycle_residual" else out
     assert x_new.shape == b.shape and torch.isfinite(x_new).all()
     if fn == "cycle_residual":
@@ -159,14 +183,15 @@ def test_cycle_is_capture_safe(name, fn, dtype, monkeypatch):
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("name", ["2d-point-v-dense", "2d-line-xy",
-                                  "3d-7pt-v-dense", "3d-27pt-v-dense"])
+                                  "3d-7pt-v-dense", "3d-27pt-v-dense",
+                                  "2d-periodic-line-x"])
 def test_w_cycle_is_capture_safe(name, dtype, monkeypatch):
     """The W-cycle (``ncycle`` with n = 2)."""
     s, b = solver_of(name, DTYPES[dtype])
     cycle = cycle2 if b.ndim == 2 else cycle3
     with capture_safe(monkeypatch):
         x = cycle.ncycle(s.levels, s.kinds, 0, torch.zeros_like(b), b,
-                         s.settings, n=2)
+                         s.settings, n=2, **s.graphs.cycle_kw)
     assert torch.isfinite(x).all()
 
 
@@ -192,7 +217,8 @@ class EagerGraphs:
 
 def runner_of(s, b):
     return graph.CycleGraphs(cycle2 if b.ndim == 2 else cycle3, s.levels,
-                             s.kinds, s.settings, EagerGraphs())
+                             s.kinds, s.settings, EagerGraphs(),
+                             **s.graphs.cycle_kw)
 
 
 # name -> (gallery operator, kind, shape, conf) of the runner's solves
@@ -295,6 +321,80 @@ def test_cpu_solve_runs_eagerly():
     s.solve(b, x0)
     s.vcycle(x0, b)
     assert s.graphs.graphs == {} and s.graphs.backend is None
+
+
+def _jax_levels(js):
+    return levels_from_numpy(
+        [{k: np.asarray(v) for k, v in lev._asdict().items()
+          if v is not None} for lev in js.levels], dtype=torch.float64)
+
+
+# name -> (port operator of the solver, cedar_tpu operator whose hierarchy
+# replaces its own, port kind, JAX kind, conf): the same shapes, another
+# operator
+REPLACED = {
+    "2d": (lambda: gallery.poisson(33, 29, device=CPU),
+           lambda: jgallery.diag_diffusion(33, 29, 1.0, 0.1),
+           FivePt, JKind.five_pt, {}),
+    "2d-periodic": (lambda: gallery.poisson(32, 24, device=CPU),
+                    lambda: jnp.asarray(_periodic_x(32, 24)),
+                    FivePt, JKind.five_pt,
+                    {"grid": {"periodic": [True, False]}}),
+    "3d": (lambda: gallery.poisson3(13, 11, 9, device=CPU),
+           lambda: jgallery.diag_diffusion3(13, 11, 9, 1.0, 0.5, 0.1),
+           SevenPt, JKind.seven_pt, {}),
+}
+
+
+def _periodic_x(nx, ny):
+    """5-point Poisson periodic in x: W couples row 0 to row nx-1."""
+    so = np.zeros((3, nx, ny))
+    so[1] = 1.0
+    so[2, :, 1:] = 1.0
+    so[0] = 4.0
+    return so
+
+
+@pytest.mark.parametrize("name", list(REPLACED))
+def test_graphs_follow_replaced_levels(name):
+    """``s.levels = other`` drops the graphs captured over the old
+    hierarchy; the graph path's solve and vcycle (the stand-in backend)
+    then run the new one: bit for bit the eager loop over it, and its
+    vcycle that of cedar_tpu over the same hierarchy."""
+    make, jmake, kind, jkind, conf = REPLACED[name]
+    conf = {"log": [], **conf, "solver": {"tol": 1e-30, "max-iter": 3}}
+    so = make()
+    cls, jcls = (Solver2, JSolver2) if so.ndim == 3 else (Solver3, JSolver3)
+    s = cls(so, kind, conf)
+    rng = np.random.default_rng(8)
+    b = torch.tensor(rng.standard_normal(tuple(so.shape[1:])))
+    x0 = torch.tensor(rng.standard_normal(tuple(so.shape[1:])))
+    # a capture over the setup hierarchy
+    s.graphs.backend = EagerGraphs()
+    x_old, _ = s.graphs.solve(x0, b, 1.0)
+    old = s.graphs
+    assert len(old.graphs) == 1
+
+    js = jcls(jmake(), jkind, conf)
+    s.levels = _jax_levels(js)
+    assert s.graphs is not old and s.graphs.levels is s.levels
+    assert s.graphs.graphs == {} and s.graphs.backend is None
+    assert s.graphs.cycle_kw == old.cycle_kw
+    s.graphs.backend = EagerGraphs()
+
+    x_eager = s.solve(b, x0)   # the CPU's eager loop over s.levels
+    x_graph, hist = s.graphs.solve(x0, b, s.res0)
+    np.testing.assert_array_equal(hist, s.history)
+    assert torch.equal(x_graph, x_eager)
+    assert not torch.equal(x_graph, x_old)
+    assert s.graphs.backend.captured == 1
+
+    got = s.graphs.vcycle(x0, b)
+    assert torch.equal(got, s.vcycle(x0, b))
+    want = np.asarray(js.vcycle(jnp.asarray(x0.numpy()),
+                                jnp.asarray(b.numpy())))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12,
+                               atol=1e-13 * float(np.abs(want).max()))
 
 
 # name -> (JAX gallery operator, port kind, JAX kind, shape)

@@ -153,32 +153,63 @@ def test_single_level_and_post_free_cycles():
 
 
 # each refused configuration with what its message names: the ROADMAP
-# item (queue 1) that ports it, or the reason it is not ported
+# item (queue 1) that ports it, or the reason it is not ported; the ids
+# are those the list had before its periodic entries were ported
 UNPORTED = [
-    ({"solver": {"relaxation": "line-x", "ml-relax": {"enabled": True}}},
-     r"item 7\b"),
-    ({"solver": {"relaxation": "line-y"}, "grid": {"periodic": [True, True]}},
-     r"item 4\b"),
-    ({"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
+    ("conf0", {"solver": {"relaxation": "line-x",
+                          "ml-relax": {"enabled": True}}}, r"item 7\b"),
+    ("conf2", {"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
      r"item 9\b"),
-    ({"solver": {"relaxation": "plane-xy"}}, "use Solver3"),
-    ({"grid": {"periodic": [True, False]}}, r"item 4\b"),
-    ({"solver": {"cg-solver": "cedar"}}, r"item 5\b.*inner multigrid"),
-    ({"solver": {"cg-solver": "redist"}}, r"item 9\b"),
-    ({"kernels": {"fine-split": True}, "grid": {"periodic": [False, True]}},
-     r"item 4\b"),
-    ({"kernels": {"backend": "xla"}}, "the device decides"),
-    ({"grid": {"np": [2, 2]}}, r"item 9\b.*distribution"),
+    ("conf3", {"solver": {"relaxation": "plane-xy"}}, "use Solver3"),
+    ("conf5", {"solver": {"cg-solver": "cedar"}},
+     r"item 5\b.*inner multigrid"),
+    ("conf6", {"solver": {"cg-solver": "redist"}}, r"item 9\b"),
+    ("conf8", {"kernels": {"backend": "xla"}}, "the device decides"),
+    ("conf9", {"grid": {"np": [2, 2]}}, r"item 9\b.*distribution"),
 ]
 
 
 @pytest.mark.parametrize("conf,names", [
-    pytest.param(conf, names, id=f"conf{i}")
-    for i, (conf, names) in enumerate(UNPORTED)])
+    pytest.param(conf, names, id=i) for i, conf, names in UNPORTED])
 def test_unported_options_raise(conf, names):
     with pytest.raises(NotImplementedError, match="cedar_tpu_torch") as e:
         Solver2(gallery.poisson(16, 16, device="cpu"), FivePt, conf)
     assert re.search(names, str(e.value)), str(e.value)
+
+
+# the 2D periodic configurations that test_unported_options_raise held
+# refused until they were ported (its conf1, conf4 and conf7)
+PERIODIC_PORTED = [
+    ("conf1", {"solver": {"relaxation": "line-y"},
+               "grid": {"periodic": [True, True]}}),
+    ("conf4", {"grid": {"periodic": [True, False]}}),
+    ("conf7", {"kernels": {"fine-split": True},
+               "grid": {"periodic": [False, True]}}),
+]
+
+
+@pytest.mark.parametrize("conf", [
+    pytest.param(conf, id=i) for i, conf in PERIODIC_PORTED])
+def test_periodic_options_solve(conf):
+    """The same configurations build and solve: gallery.poisson stores no
+    coupling across its edges, so its periodic operator is definite and
+    every right-hand side is compatible; the residual of the solution,
+    with the wrap, falls below the tolerance (the fused cycle stays off on
+    periodic grids, as in cedar_tpu)."""
+    from cedar_tpu_torch.solver import cycle2
+
+    conf = {**conf, "log": [], "solver": {
+        **conf.get("solver", {}), "tol": 1e-9, "max-iter": 30}}
+    so = gallery.poisson(16, 16, device="cpu")
+    b = gallery.poisson_rhs(16, 16, device="cpu")
+    s = Solver2(so, FivePt, conf)
+    per = tuple(conf["grid"]["periodic"])
+    assert s.periodic == per
+    assert not cycle2.fine_split_ok(s.levels, s.settings, s.periodic)
+    x = s.solve(b)
+    assert s.history[-1] < 1e-9
+    r = residual(so, x, b, FivePt, per)
+    assert float(r.norm() / b.norm()) < 1e-9
 
 
 def test_3d_raises():
