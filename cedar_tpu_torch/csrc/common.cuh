@@ -38,6 +38,12 @@ struct Wrap {
   bool x = false, y = false;
 };
 
+// The periodic axes of a 3D wrap-aware kernel: x, y and z (the first,
+// second and third axis of a (nx, ny, nz) grid).
+struct Wrap3 {
+  bool x = false, y = false, z = false;
+};
+
 // z modulo n in [0, n), for any int z (a tile's halo can wrap more than
 // once around a grid smaller than the tile).
 __device__ __forceinline__ int wrap_index(int z, int n) {

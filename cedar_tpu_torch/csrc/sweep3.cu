@@ -43,6 +43,17 @@
 // 7-point, the (x%2, y%2, z%2) 8-colouring for 27-point), so a phase
 // updates its colour from the others' values in any order.  Colours
 // anchor at global indices (x + ox, y + oy, z + oz).
+//
+// Periodic mode (PER; the Pallas kernels' `periodic`, here its plain
+// version ops/relax3.sweep3_torch with `periodic`): the couplings wrap
+// around the periodic axes (stencil3.cuh `offdiag_wrap_terms`), a
+// compile-time instantiation beside the unchanged non-periodic ones.  Along
+// a periodic axis of odd extent the first and last points are neighbours of
+// one colour, and the plain version updates a colour from the values
+// before its phase: there the resident kernel computes a phase into
+// registers and writes it after a barrier (JAC), and the per-colour launches
+// go from one buffer to another (the wrapper's ping-pong, ops/cuda3.py)
+// instead of in place.  The wrap costs integer work and no bytes.
 
 #include "async.cuh"
 #include "stencil3.cuh"
@@ -64,12 +75,17 @@ constexpr int kResThreads = 512;
 // neighbours' q and stencil values, a fixed number of words away: no bank
 // conflicts (in the grid's own order a colour's points lie two words
 // apart).
-template <typename T>
+//
+// PER wraps the couplings around the axes of wr (a neighbour's word from
+// its wrapped grid index: across the wrap of an odd extent it lies in the
+// same octant); JAC (odd periodic extents) writes each phase after a
+// barrier, so that a phase reads only the values before it.
+template <typename T, bool PER, bool JAC>
 __global__ void __launch_bounds__(kResThreads)
 sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
                const T* __restrict__ b, T* __restrict__ q_out,
                T* __restrict__ res, int nx, int ny, int nz, int colors,
-               int ox, int oy, int oz, int emit_res) {
+               int ox, int oy, int oz, int emit_res, Wrap3 wr) {
   using A = Arith<T>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hx = (nx + 1) >> 1, hy = (ny + 1) >> 1, hz = (nz + 1) >> 1;
@@ -125,6 +141,14 @@ sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
   const int hyz = hy * hz;
   auto offd = [&](int x, int y, int z, int px, int py, int pz,
                   int w) -> T {
+    if constexpr (PER) {
+      return offdiag_wrap_terms<T, true>(
+          x, y, z, nx, ny, nz, wr,
+          [&](int xs, int ys, int zs, int P, int xn, int yn, int zn) -> T {
+            return A::mul(ss[(P - 1) * m + word(xs, ys, zs)],
+                          sq[word(xn, yn, zn)]);
+          });
+    }
     // the words between a point and its neighbour one step down or up
     // each axis: the other octant, and a half step where it crosses one
     const int fx = (1 - 2 * px) * H, fy = (1 - 2 * py) * 2 * H;
@@ -157,7 +181,16 @@ sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
   // color >> 2 & 1: one octant each, a point a thread
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    if (own[k]) {
+    if constexpr (JAC) {
+      T v = T(0);
+      const int w = word_of(k);
+      if (own[k])
+        v = A::mul(A::add(bv[k], offd(gx[k], gy[k], gz[k], px[k], py[k],
+                                      pz[k], w)),
+                   A::div(T(1), dv[k]));
+      __syncthreads();
+      if (own[k]) sq[w] = v;
+    } else if (own[k]) {
       const int w = word_of(k);
       const T v = A::add(bv[k], offd(gx[k], gy[k], gz[k], px[k], py[k],
                                      pz[k], w));
@@ -182,11 +215,17 @@ sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
   }
 }
 
+// The extents along a periodic axis of wr include an odd one: the wrap
+// couples points of one colour, and the phases run as Jacobi steps.
+inline bool odd_wrap(int nx, int ny, int nz, Wrap3 wr) {
+  return (wr.x && (nx & 1)) || (wr.y && (ny & 1)) || (wr.z && (nz & 1));
+}
+
 template <typename T>
 int launch_resident(const void* so, const void* q_in, const void* b,
                     void* q_out, void* res, int nx, int ny, int nz,
                     int colors, int ox, int oy, int oz, int emit_res,
-                    long long smem, cudaStream_t st) {
+                    Wrap3 wr, long long smem, cudaStream_t st) {
   if (q_in == q_out) return (int)cudaErrorInvalidValue;
   // the plan must hold q and the 13 off-diagonal planes in one block, in
   // octants of half the grid's extents (rounded up) of a point a thread
@@ -194,7 +233,10 @@ int launch_resident(const void* so, const void* q_in, const void* b,
       (long long)((nx + 1) / 2) * ((ny + 1) / 2) * ((nz + 1) / 2);
   if (h > kResThreads || smem != 14 * 8 * h * (long long)sizeof(T))
     return (int)cudaErrorInvalidValue;
-  auto fn = sweep_resident<T>;
+  const bool per = wr.x || wr.y || wr.z;
+  auto fn = !per ? sweep_resident<T, false, false>
+            : odd_wrap(nx, ny, nz, wr) ? sweep_resident<T, true, true>
+                                       : sweep_resident<T, true, false>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -202,7 +244,7 @@ int launch_resident(const void* so, const void* q_in, const void* b,
   }
   fn<<<1, kResThreads, smem, st>>>((const T*)so, (const T*)q_in, (const T*)b,
                                    (T*)q_out, (T*)res, nx, ny, nz, colors, ox,
-                                   oy, oz, emit_res);
+                                   oy, oz, emit_res, wr);
   return (int)cudaGetLastError();
 }
 
@@ -216,11 +258,16 @@ int launch_resident(const void* so, const void* q_in, const void* b,
 //   7-point:  (gx + gy + gz) % 2 == color
 //   27-point: gx % 2 == color & 1, gy % 2 == color >> 1 & 1,
 //             gz % 2 == color >> 2 & 1
-template <typename T, bool TS>
+// PER wraps the couplings around the axes of wr (stencil3.cuh
+// offdiag_wrap: its steps across the wrap found once a thread; a branch to
+// offdiag away from the wrap measured slower at 128³ 27-point, where every
+// z row has a warp at the wrap); at an odd periodic extent every phase
+// goes from one array to another (the wrapper's ping-pong).
+template <typename T, bool TS, bool PER>
 __global__ void sweep_phase(const T* __restrict__ so, const T* q_in,
                             T* q_out, const T* __restrict__ b, int nx,
                             int ny, int nz, int color, int ox, int oy,
-                            int oz) {
+                            int oz, Wrap3 wr) {
   using A = Arith<T>;
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -237,43 +284,62 @@ __global__ void sweep_phase(const T* __restrict__ so, const T* q_in,
     return;
   }
   const T rec = A::div(T(1), so[i]);  // plane P is plane 0
-  q_out[i] = A::mul(
-      A::add(b[i], offdiag<T, TS>(so, q_in, x, y, z, nx, ny, nz)), rec);
+  if constexpr (PER)
+    q_out[i] = A::mul(
+        A::add(b[i], offdiag_wrap<T, TS>(so, q_in, x, y, z, nx, ny, nz, wr)),
+        rec);
+  else
+    q_out[i] = A::mul(
+        A::add(b[i], offdiag<T, TS>(so, q_in, x, y, z, nx, ny, nz)), rec);
 }
 
-// res = (b + Σ coupling·q_nb) - P·q
-template <typename T, bool TS>
+// res = (b + Σ coupling·q_nb) - P·q (PER: the couplings wrap around wr)
+template <typename T, bool TS, bool PER>
 __global__ void residual(const T* __restrict__ so, const T* __restrict__ q,
                          const T* __restrict__ b, T* __restrict__ res,
-                         int nx, int ny, int nz) {
+                         int nx, int ny, int nz, Wrap3 wr) {
   using A = Arith<T>;
   const int z = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   const int x = blockIdx.z;
   if (y >= ny || z >= nz) return;
   const long long i = ((long long)x * ny + y) * nz + z;
-  res[i] = A::sub(A::add(b[i], offdiag<T, TS>(so, q, x, y, z, nx, ny, nz)),
-                  A::mul(so[i], q[i]));
+  if constexpr (PER)
+    res[i] = A::sub(
+        A::add(b[i], offdiag_wrap<T, TS>(so, q, x, y, z, nx, ny, nz, wr)),
+        A::mul(so[i], q[i]));
+  else
+    res[i] = A::sub(A::add(b[i], offdiag<T, TS>(so, q, x, y, z, nx, ny, nz)),
+                    A::mul(so[i], q[i]));
 }
 
 template <typename T>
 int launch_phase(const void* so, const void* q_in, void* q_out,
                  const void* b, int nx, int ny, int nz, int ts, int color,
-                 int ox, int oy, int oz, cudaStream_t st) {
+                 int ox, int oy, int oz, Wrap3 wr, cudaStream_t st) {
+  // an odd periodic extent runs its phases from one array to another
+  if (q_in == q_out && odd_wrap(nx, ny, nz, wr))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid = grid3_for(nx, ny, nz), block(kBlockX, kBlockY);
-  auto fn = ts ? sweep_phase<T, true> : sweep_phase<T, false>;
+  const bool per = wr.x || wr.y || wr.z;
+  auto fn = ts ? (per ? sweep_phase<T, true, true> : sweep_phase<T, true, false>)
+               : (per ? sweep_phase<T, false, true>
+                      : sweep_phase<T, false, false>);
   fn<<<grid, block, 0, st>>>((const T*)so, (const T*)q_in, (T*)q_out,
-                             (const T*)b, nx, ny, nz, color, ox, oy, oz);
+                             (const T*)b, nx, ny, nz, color, ox, oy, oz, wr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_residual(const void* so, const void* q, const void* b, void* res,
-                    int nx, int ny, int nz, int ts, cudaStream_t st) {
+                    int nx, int ny, int nz, int ts, Wrap3 wr,
+                    cudaStream_t st) {
   const dim3 grid = grid3_for(nx, ny, nz), block(kBlockX, kBlockY);
-  auto fn = ts ? residual<T, true> : residual<T, false>;
+  const bool per = wr.x || wr.y || wr.z;
+  auto fn = ts ? (per ? residual<T, true, true> : residual<T, true, false>)
+               : (per ? residual<T, false, true> : residual<T, false, false>);
   fn<<<grid, block, 0, st>>>((const T*)so, (const T*)q, (const T*)b, (T*)res,
-                             nx, ny, nz);
+                             nx, ny, nz, wr);
   return (int)cudaGetLastError();
 }
 
@@ -301,50 +367,60 @@ int cedar_sweep3_smem() {
 // A q_out when emit_res), in one block on the plan of ops/cuda3.py `plan`:
 // smem the bytes of q and the 13 off-diagonal stencil planes in octant
 // order.
-// colors packs the 8 colour codes in order, 4 bits each.  Returns a CUDA
-// error code (0 on success).
+// colors packs the 8 colour codes in order, 4 bits each; px, py, pz mark
+// the periodic axes.  Returns a CUDA error code (0 on success).
 int cedar_sweep3_resident(int dtype, const void* so, const void* q_in,
                           const void* b, void* q_out, void* res, int nx,
                           int ny, int nz, int colors, int ox, int oy, int oz,
-                          int emit_res, long long smem, void* stream) {
+                          int emit_res, int px, int py, int pz,
+                          long long smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const cedar::Wrap3 wr{px != 0, py != 0, pz != 0};
   if (dtype == cedar::kFloat32)
     return cedar::launch_resident<float>(so, q_in, b, q_out, res, nx, ny, nz,
-                                         colors, ox, oy, oz, emit_res, smem,
-                                         st);
+                                         colors, ox, oy, oz, emit_res, wr,
+                                         smem, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch_resident<double>(so, q_in, b, q_out, res, nx, ny,
                                           nz, colors, ox, oy, oz, emit_res,
-                                          smem, st);
+                                          wr, smem, st);
   return (int)cudaErrorInvalidValue;
 }
 
 // One colour phase of the per-colour regime from q_in into q_out: the
 // sweep's first (q_in another array: q_out gets every point) or a later
-// one (q_in == q_out, in place).  Returns a CUDA error code.
+// one (q_in == q_out, in place; refused at an odd periodic extent, whose
+// phases go from one array to another).  px, py, pz mark the periodic
+// axes.  Returns a CUDA error code.
 int cedar_sweep3_phase(int dtype, const void* so, const void* q_in,
                        void* q_out, const void* b, int nx, int ny, int nz,
-                       int ts, int color, int ox, int oy, int oz,
-                       void* stream) {
+                       int ts, int color, int ox, int oy, int oz, int px,
+                       int py, int pz, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const cedar::Wrap3 wr{px != 0, py != 0, pz != 0};
   if (dtype == cedar::kFloat32)
     return cedar::launch_phase<float>(so, q_in, q_out, b, nx, ny, nz, ts,
-                                      color, ox, oy, oz, st);
+                                      color, ox, oy, oz, wr, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch_phase<double>(so, q_in, q_out, b, nx, ny, nz, ts,
-                                       color, ox, oy, oz, st);
+                                       color, ox, oy, oz, wr, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// res = b - A q (the per-colour and the 27-point march regimes' residual).
-// Returns a CUDA error code.
+// res = b - A q (the per-colour and the 27-point march regimes' residual),
+// the couplings wrapping around the periodic axes px, py, pz.  Returns a
+// CUDA error code.
 int cedar_residual3(int dtype, const void* so, const void* q, const void* b,
-                    void* res, int nx, int ny, int nz, int ts, void* stream) {
+                    void* res, int nx, int ny, int nz, int ts, int px,
+                    int py, int pz, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const cedar::Wrap3 wr{px != 0, py != 0, pz != 0};
   if (dtype == cedar::kFloat32)
-    return cedar::launch_residual<float>(so, q, b, res, nx, ny, nz, ts, st);
+    return cedar::launch_residual<float>(so, q, b, res, nx, ny, nz, ts, wr,
+                                         st);
   if (dtype == cedar::kFloat64)
-    return cedar::launch_residual<double>(so, q, b, res, nx, ny, nz, ts, st);
+    return cedar::launch_residual<double>(so, q, b, res, nx, ny, nz, ts, wr,
+                                          st);
   return (int)cudaErrorInvalidValue;
 }
 

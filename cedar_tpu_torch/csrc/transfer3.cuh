@@ -15,6 +15,12 @@
 // point; at even fine extents the weight toward the missing upper coarse
 // point is zero by construction, and the coarse value there reads as
 // zero.  Fine indices off the grid read as zero.
+//
+// On a periodic axis (K7-K9's periodic mode) the fine accessor wraps the
+// fine index around (interp3.restrict_torch's coarse_sample with wrap) and
+// QC3Wrap reads coarse index nxc (nyc, nzc) as index 0 (interp3's padded
+// qc with qcp[n_c] = qcp[0]); the CI needs no change, its wrap entries at
+// index 0 come from setup (interp3.setup_interp).
 #pragma once
 
 #include "common.cuh"
@@ -63,6 +69,34 @@ struct QC3 {
                : T(0);
   }
 };
+
+// QC3 on periodic axes: coarse index nxc (nyc, nzc) along an axis of wr
+// is coarse index 0 (the only index past the grid that the interpolation
+// asks for).
+template <typename T>
+struct QC3Wrap {
+  const T* __restrict__ p;
+  int nxc, nyc, nzc;
+  Wrap3 wr;
+  __device__ __forceinline__ T operator()(int i, int j, int k) const {
+    if (wr.x && i == nxc) i = 0;
+    if (wr.y && j == nyc) j = 0;
+    if (wr.z && k == nzc) k = 0;
+    return (i < nxc && j < nyc && k < nzc)
+               ? p[((long long)i * nyc + j) * nzc + k]
+               : T(0);
+  }
+};
+
+// Whether fine point (x, y, z) reads coarse index nxc (nyc, nzc) along a
+// periodic axis of wr: an odd index 2h + 1 whose upper coarse neighbour
+// h + 1 lies past the grid.  Only there does QC3Wrap differ from QC3.
+__device__ __forceinline__ bool reads_wrap(int x, int y, int z, int nxc,
+                                           int nyc, int nzc, Wrap3 wr) {
+  return (wr.x && (x & 1) && (x >> 1) + 1 == nxc) ||
+         (wr.y && (y & 1) && (y >> 1) + 1 == nyc) ||
+         (wr.z && (z & 1) && (z >> 1) + 1 == nzc);
+}
 
 // cb[c] = res[2c] + Σ weight · res[2c + off] over off = -δ in plane order
 // (interp3.restrict_torch: [(0,0,0)] + PW3_TABLE); the weight toward

@@ -152,3 +152,37 @@ def fe3(nx: int, ny: int, nz: int, dtype=None, device=None) -> torch.Tensor:
     so[Dir3.BSE, 1:, 1:, 1:] = 1.0
     so[Dir3.P] = 26.0
     return _tensor(so, dtype, device)
+
+
+# the stored 3D planes whose entries at index 0 of each axis couple across
+# it (3d/base_types.h: every plane with a W, S or B in its name reaches one
+# point down x, y or z)
+_ACROSS3 = (
+    (Dir3.PW, Dir3.PSW, Dir3.PNW, Dir3.BW, Dir3.BE, Dir3.BSW, Dir3.BSE,
+     Dir3.BNW, Dir3.BNE),
+    (Dir3.PS, Dir3.PSW, Dir3.PNW, Dir3.BS, Dir3.BN, Dir3.BSW, Dir3.BSE,
+     Dir3.BNW, Dir3.BNE),
+    (Dir3.B, Dir3.BW, Dir3.BE, Dir3.BS, Dir3.BN, Dir3.BSW, Dir3.BSE,
+     Dir3.BNW, Dir3.BNE),
+)
+
+
+def periodic3(so: torch.Tensor, periodic) -> torch.Tensor:
+    """A 3D operator (``poisson3``, ``diag_diffusion3``, ``fe3``) on a grid
+    periodic along the axes marked in ``periodic``: on each such axis the
+    couplings at index 0 of the planes that couple across it (the entries
+    the wrap reads, zero in the Dirichlet operator) copied from index 1,
+    axis by axis.  The gallery's interiors are the same at every point, so
+    every coupling is kept across the wrap; the diagonal is unchanged.
+    Returns a new tensor; with every axis periodic the operator is singular
+    (its rows sum to zero: ``solver.definite: false``)."""
+    out = so.clone()
+    for ax, per in enumerate(periodic):
+        if not per:
+            continue
+        planes = [int(d) for d in _ACROSS3[ax] if int(d) < so.shape[0]]
+        dst = [planes] + [slice(None)] * 3
+        src = [planes] + [slice(None)] * 3
+        dst[1 + ax], src[1 + ax] = 0, 1
+        out[tuple(dst)] = out[tuple(src)]
+    return out

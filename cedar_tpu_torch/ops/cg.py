@@ -33,18 +33,13 @@ def assemble_dense(so: torch.Tensor, kind: StencilKind,
     """Dense row-form matrix of the operator over 2 or 3 axes, x-fastest
     ordering (x, then y, then z: the reference's KK loop,
     SETUP_cg_LU.f90:116-144); ``(*batch, n, n)`` for a batched ``so``.
-    A neighbour across an axis marked in ``periodic`` (2D only) wraps
-    around (cedar_tpu/ops/cg.py:35-70)."""
+    A neighbour across an axis marked in ``periodic`` wraps around
+    (cedar_tpu/ops/cg.py:35-70)."""
     dims = kind.ndim
     if periodic is None:
         periodic = (False,) * dims
-    if dims == 2:
-        af = stencil2.full_offsets(so, kind, periodic)
-    elif any(periodic):
-        raise NotImplementedError("3D periodic grids (ROADMAP queue 1, "
-                                  "item 4)")
-    else:
-        af = stencil3.full_offsets(so, kind)
+    stencil = stencil2 if dims == 2 else stencil3
+    af = stencil.full_offsets(so, kind, periodic)
     nshape = tuple(so.shape[-dims:])
     batch = tuple(so.shape[1:-dims])
     n = int(np.prod(nshape))
@@ -80,7 +75,7 @@ def assemble_dense(so: torch.Tensor, kind: StencilKind,
 def setup_cg_lu(so: torch.Tensor, kind: StencilKind,
                 indefinite: bool = False, periodic=None) -> torch.Tensor:
     """Assemble, (shift,) and invert the coarse operator.  Returns A⁻¹.
-    ``indefinite`` (the doubly periodic singular case) adds the last
+    ``indefinite`` (the fully periodic singular case) adds the last
     diagonal entry once more, the reference's rank-deficiency shift."""
     mat = assemble_dense(so, kind, periodic)
     if indefinite:

@@ -82,18 +82,23 @@ SIGNATURES = {
     "sweep3": {
         "cedar_sweep3_threads": [],
         "cedar_sweep3_smem": [],
-        # ends with its plan: the block's smem
+        # each ends with the periodic axes (x, y, z); the resident one
+        # then with its plan: the block's smem
         "cedar_sweep3_resident": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _L, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _L, _P],
         "cedar_sweep3_phase": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                               _I, _I, _P],
-        "cedar_residual3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                               _I, _I, _I, _I, _I, _P],
+        "cedar_residual3": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
     },
     "transfer3": {
-        "cedar_restrict3": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # each ends with the periodic axes (x, y, z)
+        "cedar_restrict3": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
         "cedar_interp_add3": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _P],
-        "cedar_interp3": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _I, _P],
+        "cedar_interp3": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
     },
     "fused3": {
         "cedar_fused3_pass27_stages": [],

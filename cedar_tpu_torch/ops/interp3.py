@@ -1,6 +1,6 @@
 """3D operator-induced (BoxMG) interpolation: setup, apply, restrict.
 
-PyTorch counterpart of :mod:`cedar_tpu.ops.interp3`, non-periodic:
+PyTorch counterpart of :mod:`cedar_tpu.ops.interp3`:
 
 * :func:`setup_interp` — BMG3_SymStd_SETUP_interp_OI.f90 as dense passes:
   edge points collapse onto their line, face points collapse the
@@ -22,6 +22,14 @@ versions, which run :func:`restrict_torch`, :func:`interp_add_torch` and
 
 Weight storage: 26 CI planes of shape ``(nxc+1, nyc+1, nzc+1)`` — see
 :class:`cedar_tpu_torch.core.types.InterpDir3` for the plane/δ layout.
+
+On a periodic axis (``periodic``) fine point -1 is fine point n-1: the
+couplings wrap around, the weights at CI index 0 of the planes stored at odd
+parity along that axis mirror the last ones (cedar_tpu/ops/interp3.py:
+278-292; even extents are the standard periodic-coarsening compatibility,
+and odd ones take the same mirror, as the JAX package does), the
+restriction samples the fine grid with wrap-around (:func:`coarse_sample`),
+and coarse index nxc (nyc, nzc) reads coarse index 0.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ import torch
 from cedar_tpu_torch.core.parity import (
     deinterleave3, interleave3, subgrid_sample_nd,
 )
-from cedar_tpu_torch.core.shift import shift3
+from cedar_tpu_torch.core.shift import coarse_sample, shift3
 from cedar_tpu_torch.core.types import Dir3, InterpDir3 as L, StencilKind
 from cedar_tpu_torch.ops.stencil3 import (
     NEIGHBOR_COUPLINGS_27, coupling, offsets_for,
@@ -82,7 +90,8 @@ def _category(delta) -> tuple:
     return tuple(1 if d else 0 for d in delta)
 
 
-def setup_interp(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
+def setup_interp(so: torch.Tensor, kind: StencilKind,
+                 periodic=(False, False, False)) -> torch.Tensor:
     """Build the 26-plane CI interpolation weights from the fine stencil."""
     P = so[Dir3.P]
     zeps = float(torch.finfo(so.dtype).eps)
@@ -93,7 +102,7 @@ def setup_interp(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
     kx, my, lz = nx // 2, ny // 2, nz // 2
 
     present = set(offsets_for(kind))
-    cpl = {off: (coupling(so, off) if off in present else None)
+    cpl = {off: (coupling(so, off, periodic) if off in present else None)
            for off in NEIGHBOR_COUPLINGS_27}
 
     def csum(offs):
@@ -105,7 +114,9 @@ def setup_interp(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
             acc = c if acc is None else acc + c
         return torch.zeros_like(P) if acc is None else acc
 
-    sh = shift3
+    def sh(arr, d0, d1, d2):
+        return shift3(arr, d0, d1, d2, periodic)
+
     all_offs = list(NEIGHBOR_COUPLINGS_27.keys())
 
     # -- edge points: collapse onto the line through the two coarse
@@ -258,6 +269,18 @@ def setup_interp(so: torch.Tensor, kind: StencilKind) -> torch.Tensor:
     for delta in itertools.product((-1, 1), repeat=3):
         ci[(_PLANE_OF[delta],) + windows[(1, 1, 1)]] = par(corner(delta),
                                                             (1, 1, 1))
+
+    # periodic wrap: fine point -1 is n-1, so index 0 of the planes stored
+    # at odd parity along a periodic axis mirrors the high entry (kx, my,
+    # lz), axis by axis in the JAX package's order
+    his = (kx, my, lz)
+    for plane, delta in DELTA.items():
+        for ax in range(3):
+            if periodic[ax] and delta[ax]:
+                lo = [slice(None)] * 3
+                hi = [slice(None)] * 3
+                lo[ax], hi[ax] = 0, his[ax]
+                ci[(plane,) + tuple(lo)] = ci[(plane,) + tuple(hi)]
     return ci
 
 
@@ -280,25 +303,42 @@ def parity_sample(parts: dict, off, nc):
     return subgrid_sample_nd(parts[p], sht, nc)
 
 
-def restrict_torch(ci: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """``qc = Pᵀ q`` in torch ops, terms in :data:`PW3_TABLE` order."""
+def restrict_torch(ci: torch.Tensor, q: torch.Tensor,
+                   periodic=(False, False, False)) -> torch.Tensor:
+    """``qc = Pᵀ q`` in torch ops, terms in :data:`PW3_TABLE` order; on
+    periodic grids the fine samples wrap around."""
     nc = (ci.shape[1] - 1, ci.shape[2] - 1, ci.shape[3] - 1)
     pw = pw_weights(ci)
-    parts = deinterleave3(q)
-    qc = parity_sample(parts, (0, 0, 0), nc)
+    if any(periodic):
+        def sample(off):
+            return coarse_sample(q, off, nc, periodic)
+    else:
+        parts = deinterleave3(q)
+
+        def sample(off):
+            return parity_sample(parts, off, nc)
+    qc = sample((0, 0, 0))
     for off, wgt in pw.items():
         if off != (0, 0, 0):
-            qc = qc + wgt * parity_sample(parts, off, nc)
+            qc = qc + wgt * sample(off)
     return qc
 
 
-def _interp_parts(ci, qc, fine_shape, r2p=None) -> dict:
+def _interp_parts(ci, qc, fine_shape, r2p=None,
+                  periodic=(False, False, False)) -> dict:
     """The parity parts of ``P qc`` on the fine grid; with ``r2p`` (the
     parity parts of res/diag) each fine-only class starts from it."""
     nx, ny, nz = fine_shape
     nxc, nyc, nzc = qc.shape
     kx, my, lz = nx // 2, ny // 2, nz // 2
-    qcp = torch.nn.functional.pad(qc, (0, 1, 0, 1, 0, 1))  # index nc reads 0
+    # index nc reads 0, or wraps to coarse index 0 (periodic), axis by axis
+    qcp = torch.nn.functional.pad(qc, (0, 1, 0, 1, 0, 1))
+    if periodic[0]:
+        qcp[nxc] = qcp[0]
+    if periodic[1]:
+        qcp[:, nyc] = qcp[:, 0]
+    if periodic[2]:
+        qcp[:, :, nzc] = qcp[:, :, 0]
     # coarse-solution slices per axis by δ component, and weight slices by
     # the category's parity (reference interp_add.f90 loop bounds)
     csl = {
@@ -325,32 +365,38 @@ def _interp_parts(ci, qc, fine_shape, r2p=None) -> dict:
     return parts
 
 
-def interp_add_torch(ci, so, qc, res, q) -> torch.Tensor:
+def interp_add_torch(ci, so, qc, res, q,
+                     periodic=(False, False, False)) -> torch.Tensor:
     """``q + P qc (+ res/diag at fine-only points)`` in torch ops; returns a
     new tensor."""
     r2p = deinterleave3(res / so[Dir3.P])
-    return q + interleave3(_interp_parts(ci, qc, q.shape, r2p), *q.shape)
+    return q + interleave3(_interp_parts(ci, qc, q.shape, r2p, periodic),
+                           *q.shape)
 
 
-def interp_torch(ci, qc, fine_shape) -> torch.Tensor:
+def interp_torch(ci, qc, fine_shape,
+                 periodic=(False, False, False)) -> torch.Tensor:
     """``P qc`` on the fine grid in torch ops (the F-cycle's level entry:
     :func:`interp_add_torch` with zero residual and zero addend, to the
     sign of a zero); returns a new tensor."""
-    return interleave3(_interp_parts(ci, qc, fine_shape), *fine_shape)
+    return interleave3(_interp_parts(ci, qc, fine_shape, periodic=periodic),
+                       *fine_shape)
 
 
-def restrict(ci: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+def restrict(ci: torch.Tensor, q: torch.Tensor,
+             periodic=(False, False, False)) -> torch.Tensor:
     """``qc = Pᵀ q`` (reference: BMG3_SymStd_restrict.f90:115-145)."""
     from cedar_tpu_torch.ops import cuda_transfer3
 
     if q.is_cuda:
-        return cuda_transfer3.restrict(ci, q)
+        return cuda_transfer3.restrict(ci, q, periodic)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no restrict for tensors on {q.device}")
-    return cuda_transfer3.restrict_plain(ci, q)
+    return cuda_transfer3.restrict_plain(ci, q, periodic)
 
 
-def interp_add(ci, so, qc, res, q) -> torch.Tensor:
+def interp_add(ci, so, qc, res, q,
+               periodic=(False, False, False)) -> torch.Tensor:
     """``q += P qc  (+ res/diag at fine-only points)``, IN PLACE on ``q``.
 
     Reference: BMG3_SymStd_interp_add.f90:88-242.  ``res`` is the residual
@@ -360,19 +406,20 @@ def interp_add(ci, so, qc, res, q) -> torch.Tensor:
     from cedar_tpu_torch.ops import cuda_transfer3
 
     if q.is_cuda:
-        return cuda_transfer3.interp_add(ci, so, qc, res, q)
+        return cuda_transfer3.interp_add(ci, so, qc, res, q, periodic)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no interp_add for tensors on {q.device}")
-    return cuda_transfer3.interp_add_plain(ci, so, qc, res, q)
+    return cuda_transfer3.interp_add_plain(ci, so, qc, res, q, periodic)
 
 
-def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape) -> torch.Tensor:
+def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape,
+           periodic=(False, False, False)) -> torch.Tensor:
     """``x = P qc``, a new fine-grid tensor of ``fine_shape``: the F-cycle's
     level entry (reference: fcycle.h:66-72)."""
     from cedar_tpu_torch.ops import cuda_transfer3
 
     if qc.is_cuda:
-        return cuda_transfer3.interp(ci, qc, fine_shape)
+        return cuda_transfer3.interp(ci, qc, fine_shape, periodic)
     if qc.device.type != "cpu":
         raise NotImplementedError(f"no interp for tensors on {qc.device}")
-    return cuda_transfer3.interp_plain(ci, qc, fine_shape)
+    return cuda_transfer3.interp_plain(ci, qc, fine_shape, periodic)

@@ -30,6 +30,12 @@ relax_planes.h:85-92; the two agree whenever the operator is
 plane-invariant).  Each colour's planes are gathered into one contiguous
 batch at setup (its own hierarchy) and at every relaxation (the iterate and
 the rhs), so the kernels never see a strided view.
+
+On periodic grids only the out-of-plane couplings wrap
+(:func:`out_of_plane_apply` with ``periodic``): the embedded 2D hierarchies
+and cycles are non-periodic, as the JAX package builds them
+(cedar_tpu/ops/planes3.py:131-176), so a periodic axis inside the planes is
+not wrapped by the plane solves.
 """
 
 from __future__ import annotations
@@ -72,14 +78,17 @@ def slice_so(so3: torch.Tensor, kind3: StencilKind,
 
 
 def out_of_plane_apply(so3: torch.Tensor, q: torch.Tensor,
-                       kind3: StencilKind, axis: int) -> torch.Tensor:
+                       kind3: StencilKind, axis: int,
+                       periodic=(False, False, False)) -> torch.Tensor:
     """Σ couplings with a nonzero offset along ``axis`` × neighbour
-    values, in :func:`~cedar_tpu_torch.ops.stencil3.offsets_for` order."""
+    values, in :func:`~cedar_tpu_torch.ops.stencil3.offsets_for` order;
+    the shifts wrap around the ``periodic`` axes."""
     acc = None
     for off in offsets_for(kind3):
         if off[axis] == 0:
             continue
-        term = coupling(so3, off) * shift3(q, *off)
+        term = (coupling(so3, off, periodic)
+                * shift3(q, *off, periodic=periodic))
         acc = term if acc is None else acc + term
     return acc
 
@@ -120,14 +129,16 @@ def setup_planes(levels, kinds, settings: MLSettings) -> tuple:
 
 
 def plane_relax(lev, kind3: StencilKind, x: torch.Tensor, b: torch.Tensor,
-                orient: str, updown: str, settings: MLSettings):
+                orient: str, updown: str, settings: MLSettings,
+                periodic=(False, False, False)):
     """One zebra plane-relaxation sweep (both colours), IN PLACE on ``x``;
     returns ``x``.
 
     Per colour: the rhs b + out-of-plane couplings at the current values;
     that colour's planes of ``x`` and of the rhs gathered into contiguous
     ``(B, n1, n2)`` tensors; ``max(1, plane max-iter)`` embedded cycles
-    from the current plane values; the planes written back."""
+    from the current plane values; the planes written back.  Only the
+    out-of-plane couplings wrap around the ``periodic`` axes."""
     from cedar_tpu_torch.solver import cycle2
 
     axis = PLANE_SPECS[orient][0]
@@ -138,7 +149,7 @@ def plane_relax(lev, kind3: StencilKind, x: torch.Tensor, b: torch.Tensor,
         if hier is None:
             continue
         kinds2 = [plane_kind2(kind3)] + [StencilKind.nine_pt] * (len(hier) - 1)
-        rhs = b + out_of_plane_apply(lev.so, x, kind3, axis)
+        rhs = b + out_of_plane_apply(lev.so, x, kind3, axis, periodic)
         b2 = _colour_planes(rhs, axis, c).contiguous()
         # the embedded cycle updates its iterate in place: a gathered copy
         x2 = _colour_planes(x, axis, c).clone(

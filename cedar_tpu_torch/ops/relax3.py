@@ -16,6 +16,12 @@ reference (BMG3_SymStd_relax_GS.f90:85-187):
 Colours anchor to GLOBAL indices ``(x + origin[0], y + origin[1],
 z + origin[2])``.
 
+On a periodic axis (``periodic``, cedar_tpu/ops/relax3.py:61-84) the
+couplings wrap around.  Along a periodic axis of odd extent the wrap couples
+points of one colour (the last point and the first); a phase still computes
+every point of its colour from the values before the phase, as the JAX
+masked update does.
+
 :func:`point_relax` dispatches by device: a CUDA tensor goes to the sweep
 kernel (:mod:`cedar_tpu_torch.ops.cuda3`), a CPU tensor to its plain
 version, which runs :func:`sweep3_torch`.  Both return the swept iterate
@@ -92,35 +98,39 @@ def color_masks(shape, kind: StencilKind, updown: str, origin=(0, 0, 0),
 
 
 def sweep3_torch(so, q, b, recip, kind: StencilKind, updown: str,
-                 fuse_residual: bool = False, origin=(0, 0, 0)):
+                 fuse_residual: bool = False, origin=(0, 0, 0),
+                 periodic=(False, False, False)):
     """One multicolour GS sweep in torch ops; returns new tensors
     (``q`` is not modified).  With ``fuse_residual`` returns ``(q, res)``."""
     if recip is None:
         recip = setup_recip(so)
     for mask in color_masks(q.shape, kind, updown, origin, q.device):
-        upd = (b + offdiag_apply(so, q, kind)) * recip
+        upd = (b + offdiag_apply(so, q, kind, periodic)) * recip
         q = torch.where(mask, upd, q)
     if fuse_residual:
-        return q, residual(so, q, b, kind)
+        return q, residual(so, q, b, kind, periodic)
     return q
 
 
 def point_relax(so, q, b, recip, kind: StencilKind, updown: str,
-                fuse_residual: bool = False, origin=None):
+                fuse_residual: bool = False, origin=None,
+                periodic=(False, False, False)):
     """One multicolour GS sweep (all colours), DOWN or UP ordering.
 
     Returns the swept iterate in a new tensor and leaves ``q`` as it was;
     with ``fuse_residual`` returns ``(q_new, b - A q_new)``.  ``origin``
     (default zeros) is the global index of ``q[0, 0, 0]``.  ``recip``
     (``1/diag``) feeds the CPU path; the CUDA kernels form ``1/diag``
-    themselves, with the same rounding.
+    themselves, with the same rounding.  ``periodic`` marks the axes whose
+    couplings wrap around.
     """
     from cedar_tpu_torch.ops import cuda3
 
     origin = (0, 0, 0) if origin is None else tuple(int(o) for o in origin)
     if q.is_cuda:
-        return cuda3.sweep(so, q, b, kind, updown, fuse_residual, origin)
+        return cuda3.sweep(so, q, b, kind, updown, fuse_residual, origin,
+                           periodic)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no sweep for tensors on {q.device}")
     return cuda3.sweep_plain(so, q, b, kind, updown, fuse_residual, origin,
-                             recip=recip)
+                             periodic, recip=recip)

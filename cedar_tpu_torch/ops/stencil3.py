@@ -2,7 +2,10 @@
 full-offset views.
 
 PyTorch counterpart of :mod:`cedar_tpu.ops.stencil3` (reference:
-BMG3_SymStd_residual.f90, BMG3_SymStd_UTILS_matvec.f90), non-periodic.
+BMG3_SymStd_residual.f90, BMG3_SymStd_UTILS_matvec.f90).  On an axis
+marked in ``periodic`` the shifts wrap around (a neighbour at -1 is the last
+point, and an up-shifted coupling at the last point reads the first;
+cedar_tpu/ops/stencil3.py:75-103).
 
 Symmetric storage (reference: 3d/base_types.h): plane directions
 pw/ps/psw/pnw behave like the 2D w/s/sw/nw within each z-plane; the b*
@@ -74,42 +77,46 @@ def offsets_for(kind: StencilKind):
     return list(NEIGHBOR_COUPLINGS_27.keys())
 
 
-def coupling(so: torch.Tensor, off) -> torch.Tensor:
+def coupling(so: torch.Tensor, off,
+             periodic=(False, False, False)) -> torch.Tensor:
     """Positive coupling magnitude of each point to its ``off`` neighbor."""
     plane, sh = NEIGHBOR_COUPLINGS_27[off]
     p = so[plane]
     if any(sh):
-        p = shift3(p, *sh)
+        p = shift3(p, *sh, periodic=periodic)
     return p
 
 
-def full_offsets(so: torch.Tensor, kind: StencilKind):
+def full_offsets(so: torch.Tensor, kind: StencilKind,
+                 periodic=(False, False, False)):
     """Row-form full stencil: dict ``off -> A[pt, pt+off]`` (off-diagonals
     with their TRUE, negative sign; the centre entry is ``+P``)."""
     out = {(0, 0, 0): so[Dir3.P]}
     for off in offsets_for(kind):
-        out[off] = -coupling(so, off)
+        out[off] = -coupling(so, off, periodic)
     return out
 
 
-def offdiag_apply(so: torch.Tensor, q: torch.Tensor,
-                  kind: StencilKind) -> torch.Tensor:
+def offdiag_apply(so: torch.Tensor, q: torch.Tensor, kind: StencilKind,
+                  periodic=(False, False, False)) -> torch.Tensor:
     """``Σ_offdiag so_d · q(neighbor)``, summed in :func:`offsets_for`
     order (the sweep kernel keeps it)."""
     acc = None
     for off in offsets_for(kind):
-        term = coupling(so, off) * shift3(q, *off)
+        term = (coupling(so, off, periodic)
+                * shift3(q, *off, periodic=periodic))
         acc = term if acc is None else acc + term
     return acc
 
 
-def matvec(so: torch.Tensor, q: torch.Tensor,
-           kind: StencilKind) -> torch.Tensor:
+def matvec(so: torch.Tensor, q: torch.Tensor, kind: StencilKind,
+           periodic=(False, False, False)) -> torch.Tensor:
     """``A q`` (reference: BMG3_SymStd_UTILS_matvec.f90)."""
-    return so[Dir3.P] * q - offdiag_apply(so, q, kind)
+    return so[Dir3.P] * q - offdiag_apply(so, q, kind, periodic)
 
 
 def residual(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
-             kind: StencilKind) -> torch.Tensor:
+             kind: StencilKind,
+             periodic=(False, False, False)) -> torch.Tensor:
     """``b - A q`` (reference: BMG3_SymStd_residual.f90)."""
-    return b + offdiag_apply(so, q, kind) - so[Dir3.P] * q
+    return b + offdiag_apply(so, q, kind, periodic) - so[Dir3.P] * q

@@ -29,6 +29,12 @@ the buffers on.  The ``q`` that the fused pre-sweep returns is the
 ``q_pre`` from which the fused interp-add recomputes the restricted
 residual, the cycle's invariant, so the ``x`` it is given is never
 written.
+
+``periodic`` (``grid.periodic``) goes to every sweep, residual, transfer
+and plane relaxation of the dense cycle.  The fused cycle stays off on
+periodic grids (:func:`fine_split_ok`), as in the JAX package, which
+sends every periodic case to its dense path (cedar_tpu/solver/cycle3.py:
+24-25) and builds its split workspaces only where no axis is periodic.
 """
 
 from __future__ import annotations
@@ -46,30 +52,32 @@ from cedar_tpu_torch.settings import CycleType, MLSettings, RelaxType
 from cedar_tpu_torch.utils.timing import scope
 
 
-def _smooth(lev, kind, x, b, settings: MLSettings, updown: str):
+def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
+            periodic=(False, False, False)):
     """One smoothing application (reference: multilevel.h:134-223).
 
     plane-xyz applies xy, yz, xz plane sweeps DOWN and xz, yz, xy UP
     (3d/mpi/solver.h relax_dir dispatch)."""
     rt = settings.relaxation
     if rt == RelaxType.point:
-        return point_relax(lev.so, x, b, lev.recip, kind, updown)
+        return point_relax(lev.so, x, b, lev.recip, kind, updown,
+                           periodic=periodic)
     if rt in planes3.ORIENTS_OF:
         orients = planes3.ORIENTS_OF[rt]
         if updown == "up":
             orients = orients[::-1]
         for orient in orients:
             x = planes3.plane_relax(lev, kind, x, b, orient, updown,
-                                    settings)
+                                    settings, periodic)
         return x
     raise ValueError(f"invalid 3D relaxation: {rt}")
 
 
 def _nsmooth(lev, kind, x, b, settings: MLSettings, updown: str,
-             nrelax: int):
+             nrelax: int, periodic=(False, False, False)):
     """``nrelax`` identical sweeps."""
     for _ in range(nrelax):
-        x = _smooth(lev, kind, x, b, settings, updown)
+        x = _smooth(lev, kind, x, b, settings, updown, periodic)
     return x
 
 
@@ -88,7 +96,8 @@ def fuse_final_ok(levels, settings: MLSettings) -> bool:
 
 def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
            settings: MLSettings, n: int = 1,
-           fuse_final_residual: bool = False):
+           fuse_final_residual: bool = False,
+           periodic=(False, False, False)):
     """Recursive n-cycle (n=1: V, n=2: W).  Reference: vcycle.h:57-115.
 
     With ``fuse_final_residual`` (callers check :func:`fuse_final_ok`)
@@ -99,51 +108,56 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
     if pre >= 1 and settings.relaxation == RelaxType.point:
         # fused final pre-sweep + residual
         with scope("relaxation"):
-            x = _nsmooth(lev, kind, x, b, settings, "down", pre - 1)
+            x = _nsmooth(lev, kind, x, b, settings, "down", pre - 1,
+                         periodic)
         with scope("relaxation-residual-fused"):
             x, res = point_relax(lev.so, x, b, lev.recip, kind, "down",
-                                 fuse_residual=True)
+                                 fuse_residual=True, periodic=periodic)
     else:
         with scope("relaxation"):
-            x = _nsmooth(lev, kind, x, b, settings, "down", pre)
+            x = _nsmooth(lev, kind, x, b, settings, "down", pre, periodic)
         with scope("residual"):
-            res = residual(lev.so, x, b, kind)
+            res = residual(lev.so, x, b, kind, periodic)
 
     coarse = levels[lvl + 1]
     with scope("restrict"):
-        cb = restrict(coarse.ci, res)
+        cb = restrict(coarse.ci, res, periodic)
     if lvl + 1 == len(levels) - 1:
         with scope("coarse-solve"):
             cx = cg.solve_cg(coarse.ainv, cb)
     else:
         cx = torch.zeros_like(cb)
         for _ in range(n):
-            cx = ncycle(levels, kinds, lvl + 1, cx, cb, settings, n)
+            cx = ncycle(levels, kinds, lvl + 1, cx, cb, settings, n,
+                        periodic=periodic)
 
     with scope("interp-add"):
-        x = interp_add(coarse.ci, lev.so, cx, res, x)
+        x = interp_add(coarse.ci, lev.so, cx, res, x, periodic)
 
     # nonsymmetric relaxation keeps the forward sweep order for
     # post-smoothing (reference: IRELAX_SYM, BMG3_SymStd_relax_GS.f90)
     post = "up" if settings.relax_symmetric else "down"
     nplain = settings.nrelax_post - (1 if fuse_final_residual else 0)
     with scope("relaxation"):
-        x = _nsmooth(lev, kind, x, b, settings, post, nplain)
+        x = _nsmooth(lev, kind, x, b, settings, post, nplain, periodic)
     if fuse_final_residual:
         with scope("relaxation-residual-fused"):
             return point_relax(lev.so, x, b, lev.recip, kind, post,
-                               fuse_residual=True)
+                               fuse_residual=True, periodic=periodic)
     return x
 
 
-def fine_split_ok(levels, settings: MLSettings) -> bool:
+def fine_split_ok(levels, settings: MLSettings,
+                  periodic=(False, False, False)) -> bool:
     """Whether the solve runs the fused fine-level cycle
-    (:func:`ncycle_split`): ``kernels.fine-split``, a V-cycle, point
-    relaxation with at least one pre- and one post-sweep, two levels or
-    more (cedar_tpu/solver/cycle3.py:124, whose split workspaces are gated
-    on the same settings)."""
+    (:func:`ncycle_split`): ``kernels.fine-split``, no periodic axis, a
+    V-cycle, point relaxation with at least one pre- and one post-sweep,
+    two levels or more (cedar_tpu/solver/cycle3.py:124-139, whose split
+    workspaces are gated on the same settings and built only where no axis
+    is periodic, cedar_tpu/solver/solver3.py:95)."""
     return (
         settings.fine_split
+        and not any(periodic)
         and settings.cycle == CycleType.v
         and settings.relaxation == RelaxType.point
         and settings.nrelax_pre >= 1
@@ -219,7 +233,8 @@ def ncycle_split(levels, kinds, x: torch.Tensor, b: torch.Tensor,
 
 
 def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
-              settings: MLSettings) -> torch.Tensor:
+              settings: MLSettings,
+              periodic=(False, False, False)) -> torch.Tensor:
     """Full multigrid cycle (reference: fcycle.h:49-84); returns a new x.
 
     Restricts ``b`` down to the coarsest level, solves there, then on each
@@ -234,33 +249,33 @@ def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
             return cg.solve_cg(lev.ainv, b)
     coarse = levels[lvl + 1]
     with scope("restrict"):
-        cb = restrict(coarse.ci, b)
-    cx = fmg_cycle(levels, kinds, lvl + 1, cb, settings)
+        cb = restrict(coarse.ci, b, periodic)
+    cx = fmg_cycle(levels, kinds, lvl + 1, cb, settings, periodic)
     with scope("interp"):
-        x = interp(coarse.ci, cx, b.shape)
-    split_here = (_split_ok_at(levels, lvl, settings)
+        x = interp(coarse.ci, cx, b.shape, periodic)
+    split_here = (not any(periodic) and _split_ok_at(levels, lvl, settings)
                   and settings.nrelax_pre >= 1 and settings.nrelax_post >= 1)
     if split_here:
         return ncycle_split(levels, kinds, x, b, settings, lvl=lvl)[0]
-    return ncycle(levels, kinds, lvl, x, b, settings)
+    return ncycle(levels, kinds, lvl, x, b, settings, periodic=periodic)
 
 
 def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
-              settings: MLSettings):
+              settings: MLSettings, periodic=(False, False, False)):
     """One cycle of the configured type (reference: multilevel.h:289-296);
     returns the new iterate.  The dense V-cycle may overwrite ``x``, the
     fused one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
     if len(levels) == 1:
         return cg.solve_cg(levels[0].ainv, b)
     if settings.cycle == CycleType.f:
-        return fmg_cycle(levels, kinds, 0, b, settings)
-    if fine_split_ok(levels, settings):
+        return fmg_cycle(levels, kinds, 0, b, settings, periodic)
+    if fine_split_ok(levels, settings, periodic):
         return ncycle_split(levels, kinds, x, b, settings)[0]
-    return ncycle(levels, kinds, 0, x, b, settings)
+    return ncycle(levels, kinds, 0, x, b, settings, periodic=periodic)
 
 
 def cycle_residual(levels, kinds, x: torch.Tensor, b: torch.Tensor,
-                   settings: MLSettings):
+                   settings: MLSettings, periodic=(False, False, False)):
     """One iteration of the solve loop: the cycle, then ``‖b - A x‖₂`` on
     the finest level.  Returns ``(x, norm)``, the norm a 0-d tensor (no
     readback).
@@ -270,14 +285,14 @@ def cycle_residual(levels, kinds, x: torch.Tensor, b: torch.Tensor,
     (cedar_tpu/solver/solver3.py:316-347); otherwise the residual comes out
     of the last post-sweep where :func:`fuse_final_ok` allows (the JAX
     solve loop's rule, solver3.py:349-375), or after the cycle."""
-    if fine_split_ok(levels, settings):
+    if fine_split_ok(levels, settings, periodic):
         x, partials = ncycle_split(levels, kinds, x, b, settings,
                                    fuse_final_residual=True)
         return x, torch.sqrt(torch.sum(partials))
     if fuse_final_ok(levels, settings):
         x, r = ncycle(levels, kinds, 0, x, b, settings,
-                      fuse_final_residual=True)
+                      fuse_final_residual=True, periodic=periodic)
     else:
-        x = run_cycle(levels, kinds, x, b, settings)
-        r = residual(levels[0].so, x, b, kinds[0])
+        x = run_cycle(levels, kinds, x, b, settings, periodic)
+        r = residual(levels[0].so, x, b, kinds[0], periodic)
     return x, torch.sqrt(torch.sum(r * r))

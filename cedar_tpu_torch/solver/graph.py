@@ -153,7 +153,7 @@ class CycleGraphs:
     """A solver's captured iterations over its hierarchy ``levels``
     (``kinds``, ``settings``; ``cycle`` the cycle module of its dimension,
     :mod:`cycle2` or :mod:`cycle3`; ``periodic``, where given, the periodic
-    axes that :mod:`cycle2`'s cycles take).
+    axes that its cycles take).
 
     ``backend`` does the capturing: by default :class:`CudaGraphs` on the
     device of the first ``b``, made with the first graph."""

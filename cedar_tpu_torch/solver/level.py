@@ -47,7 +47,8 @@ def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
     hierarchy (``cip``, the padded restriction weights; ``so2``, the
     octant-split stencil; ``pw4``, the split transfer weights).  The arrays
     are copied as they are: a periodic hierarchy comes across unchanged,
-    CI with its wrap entries (tests/test_torch_periodic2_solver.py).  A
+    CI with its wrap entries (tests/test_torch_periodic2_solver.py,
+    tests/test_torch_periodic3_solver.py).  A
     ``sor_x`` / ``sor_y`` that is not an array (the JAX package's SPIKE
     factors, ``lines2.SpikeLines``, which it builds for lines of 16 points
     or more) is not converted: the field stays None and the line sweep

@@ -3,7 +3,9 @@
 PyTorch counterpart of :mod:`cedar_tpu.solver.solver3` (reference:
 include/cedar/3d/solver.h:17-130, include/cedar/multilevel.h:26-318) for
 point and plane relaxation, V-, W- and F-cycles and the direct (LU) coarse
-solve, non-periodic and serial.  Tensors stay on the device of the
+solve, serial, on grids with or without periodic axes (``grid.periodic``,
+any subset of x, y and z; the triply periodic singular case with
+``solver.definite: false``).  Tensors stay on the device of the
 operator given: on the card the sweeps, line-xy smooths and grid transfers
 run the hand-written CUDA kernels, on the CPU their plain torch versions.
 
@@ -27,7 +29,7 @@ fused cycle measured slower than the dense one, and both give the same
 values bit for bit) selects the fused fine-level V-cycle
 (:func:`cycle3.ncycle_split`, kernels K14-K16 and the 27-point edge
 kernel on the card) on the top ``kernels.split-levels`` levels (default
-4).
+4); periodic grids run the dense cycle whatever it says, as in cedar_tpu.
 """
 
 from __future__ import annotations
@@ -72,22 +74,26 @@ def level_shapes(nx: int, ny: int, nz: int,
 
 def setup_hierarchy(so_fine: torch.Tensor, fine_kind: StencilKind,
                     nlevels: int, settings: MLSettings | None = None,
-                    indefinite: bool = False) -> tuple:
+                    indefinite: bool = False,
+                    periodic=(False, False, False)) -> tuple:
     """Build the level hierarchy with an LU coarse solve (reference:
     multilevel.h:243-265); ``settings`` (default: Cedar's defaults, point
     relaxation) decides whether the levels carry 1/diag, which only point
-    relaxation reads (cedar_tpu/solver/solver3.py:84,159)."""
+    relaxation reads (cedar_tpu/solver/solver3.py:84,159).  On
+    ``periodic`` axes the interpolation, the Galerkin product and the
+    coarse matrix wrap around (cedar_tpu/solver/solver3.py:63-81,
+    172-184)."""
     point = settings is None or settings.relaxation == RelaxType.point
     levels = []
     so, kind, ci = so_fine.contiguous(), fine_kind, None
     for _ in range(nlevels - 1):
-        ci_next = setup_interp(so, kind)
+        ci_next = setup_interp(so, kind, periodic)
         levels.append(Level(so=so, recip=setup_recip(so) if point else None,
                             ci=ci))
-        so = coarsen_op(ci_next, so, kind).contiguous()
+        so = coarsen_op(ci_next, so, kind, periodic).contiguous()
         kind, ci = StencilKind.twenty_seven_pt, ci_next
-    levels.append(Level(so=so, ci=ci,
-                        ainv=cg.setup_cg_lu(so, kind, indefinite)))
+    levels.append(Level(so=so, ci=ci, ainv=cg.setup_cg_lu(
+        so, kind, indefinite, periodic)))
     return tuple(levels)
 
 
@@ -110,9 +116,9 @@ def _unsupported_planes(conf: Config, settings: MLSettings) -> str | None:
     if ps.ml_relax_enabled:
         return ("plane-config solver.ml-relax.enabled (ROADMAP queue 1, "
                 "item 7: the PCR and SPIKE line solves)")
-    if pconf is not None and any(pconf.get("grid.periodic", [])):
-        return ("plane-config grid.periodic (ROADMAP queue 1, item 4: "
-                "3D periodic grids)")
+    # the plane-config's own grid.periodic is accepted and ignored: the
+    # JAX package builds its plane solvers non-periodic whatever it says
+    # (cedar_tpu/ops/planes3.py:131-176)
     return None
 
 
@@ -127,9 +133,6 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
     elif settings.relaxation != RelaxType.point:
         return (f"relaxation {settings.relaxation.value} in 3D (cedar_tpu "
                 "relaxes 3D grids by points or planes)")
-    if any(conf.get("grid.periodic", [False, False, False])):
-        return ("grid.periodic in 3D (ROADMAP queue 1, item 4: 3D periodic "
-                "grids)")
     missing = unsupported_coarse_solver(settings.coarse_solver)
     if missing is not None:
         return missing
@@ -187,6 +190,11 @@ class Solver3:
         self.settings.split_levels = int(conf.get("kernels.split-levels", 4))
         log.set_enabled(conf.get("log", ["status", "error"]))
         self.kind = kind
+        # grid.periodic padded to three axes (cedar_tpu/solver/
+        # solver3.py:255-258)
+        per = list(conf.get("grid.periodic", [False, False, False]))
+        per += [False] * (3 - len(per))
+        self.periodic = tuple(bool(p) for p in per[:3])
         self.indefinite = not conf.get("solver.definite", True)
 
         nx, ny, nz = so.shape[1], so.shape[2], so.shape[3]
@@ -203,7 +211,7 @@ class Solver3:
         self.timelog = TimeLog()
         self.timelog.begin("setup")
         self.levels = setup_hierarchy(so, kind, nlevels, self.settings,
-                                      self.indefinite)
+                                      self.indefinite, self.periodic)
         if self.settings.relaxation in planes3.ORIENTS_OF:
             self.levels = planes3.setup_planes(self.levels, self.kinds,
                                                self.settings)
@@ -220,7 +228,7 @@ class Solver3:
         # the captured iterations of solve and vcycle on the card, over
         # this hierarchy, captured at their first call
         self.graphs = graph.CycleGraphs(cycle3, levels, self.kinds,
-                                        self.settings)
+                                        self.settings, periodic=self.periodic)
 
     def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One cycle (reference: multilevel::vcycle); ``x`` is not modified.
@@ -229,7 +237,7 @@ class Solver3:
         if b.is_cuda:
             return self.graphs.vcycle(x, b)
         return cycle3.run_cycle(self.levels, self.kinds, x.clone(), b,
-                                self.settings)
+                                self.settings, self.periodic)
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None):
         """Iterate cycles until the relative residual drops below ``tol`` or
@@ -241,7 +249,7 @@ class Solver3:
         fine = self.levels[0]
         x = torch.zeros_like(b) if x0 is None else x0.clone()
         self.timelog.begin("solve")
-        r0 = residual(fine.so, x, b, self.kinds[0])
+        r0 = residual(fine.so, x, b, self.kinds[0], self.periodic)
         # floor protects the b = 0 (already-converged) edge case
         res0 = max(float(_l2(r0)), torch.finfo(b.dtype).tiny)
         if b.is_cuda:
@@ -250,7 +258,8 @@ class Solver3:
             def step():
                 nonlocal x
                 x, rnorm = cycle3.cycle_residual(self.levels, self.kinds,
-                                                  x, b, settings)
+                                                  x, b, settings,
+                                                  self.periodic)
                 return rnorm
 
             hist = graph.iterate(step, res0, settings)

@@ -13,7 +13,9 @@ F-cycle) or ``planexy`` (7-point ``diag_diffusion3(1, 1, 1e-3)`` 128³,
 plane-xy V(1,1) with the
 default plane-config: ``3d_aniso_planexy_128``) or ``vcycle-periodic``
 (Poisson 4096² periodic in x, V(1,1): the dense cycle with K1-K3 in their
-periodic modes) — runs a few warm-up
+periodic modes) or ``vcycle3-periodic`` (7-point Poisson 256³ periodic in
+x, V(1,1): the dense cycle with K6-K8 in their periodic modes) — runs a
+few warm-up
 cycles, then traces ten cycles with ``torch.profiler``, twice: eagerly
 (``[eager]``, each iteration as the CPU's solve loop runs it, one launch
 at a time) and as replays of the solver's captured CUDA graph
@@ -37,7 +39,7 @@ Run from the repository root on a machine with a CUDA device:
 
     python3 -m cedar_tpu_torch.tools.profile_cycle \
         [vcycle|vcycle-dense|linexy|fcycle|vcycle3|vcycle3-dense|fe27|
-         fe27-dense|fcycle3|planexy|vcycle-periodic]
+         fe27-dense|fcycle3|planexy|vcycle-periodic|vcycle3-periodic]
 
 To profile another checkout (for example the parent commit, unpacked with
 ``git archive`` into DIR), run the script by path with that checkout
@@ -74,6 +76,14 @@ def _periodic_x(make):
     return periodic
 
 
+def _periodic3_x(make):
+    """``make``'s 3D operator periodic along x (gallery.periodic3)."""
+    def periodic(nx, ny, nz, dtype, dev):
+        return gallery.periodic3(make(nx, ny, nz, dtype, dev),
+                                 (True, False, False))
+    return periodic
+
+
 # name -> (dimension, n, gallery operator, kind, solver settings[, kernels
 # settings[, grid settings]])
 CONFIGS = {
@@ -97,6 +107,8 @@ CONFIGS = {
                 SevenPt, {"relaxation": "plane-xy"}),
     "vcycle-periodic": (2, 4096, _periodic_x(gallery.poisson), FivePt, {},
                         {}, {"periodic": [True, False]}),
+    "vcycle3-periodic": (3, 256, _periodic3_x(gallery.poisson3), SevenPt, {},
+                         {}, {"periodic": [True, False, False]}),
 }
 
 

@@ -3,7 +3,7 @@
 against its plain PyTorch version, and drives the 2D V-cycle (fused and
 dense), line-xy and F-cycle solves, the 3D 7- and 27-point V-cycle (fused
 and dense) and F-cycle solves and the 3D plane-relaxation solve on the
-card.
+card, and the 2D and 3D periodic solves.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -64,7 +64,12 @@ Phases (each raises on failure; nothing is caught):
    odd extents included (the small ones on the streamed tile kernel too),
    K2, K3 and K5 at 4096² and odd/even level pairs, K4 cyclic along the
    line and wrapped across it (an odd line count across a periodic axis
-   must raise);
+   must raise); then the 3D periodic modes (PERIODIC3_SWEEP,
+   PERIODIC3_TRANSFER: x-, y-, z- and triply periodic, 7- and 27-point,
+   bit-equal): K6 in the regime of its plan (a launch a colour at 256³
+   7-point and 128³ 27-point, resident at 16³ float32 and 12³ float64)
+   and the resident levels on the per-colour launches too, odd periodic
+   extents included (Jacobi phases), K7, K8 and K9;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -81,11 +86,18 @@ Phases (each raises on failure; nothing is caught):
 4e. every configuration the port runs (GRAPH_CONFIGS: 2D point V, V(2,2)
    and F fused and dense, line-x, -y, -xy; 3D 7- and 27-point V and F,
    fused and dense, plane-xy, -xz, -yz, -xyz; 2D periodic point V,
-   line-x, -y, -xy, F and the doubly periodic indefinite solve), small,
-   float32 and float64, through the solver's captured graph;
+   line-x, -y, -xy, F and the doubly periodic indefinite solve; 3D
+   periodic 7-point V, the 27-point triply periodic indefinite V, F,
+   plane-yz and fine-split asked for, at 22x16x16), small, float32 and
+   float64, through the solver's captured graph;
 4f. float64 periodic gates at 256², card against CPU (PERIODIC_CONFIGS:
    x-periodic point V(1,1), line-x, y-periodic line-y, line-xy, 9-point,
    F-cycle, the doubly periodic indefinite solve to 1e-10);
+4g. float64 3D periodic gates at 32³ and 44x32x32, card against CPU
+   (PERIODIC3_CONFIGS: 7-point x-periodic V(1,1), the 27-point triply
+   periodic indefinite V, (44, 32, 32) x-periodic, odd at its third level,
+   the z-periodic F-cycle, x-periodic plane-yz), every K6-K9 launch
+   periodic;
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -110,6 +122,10 @@ Phases (each raises on failure; nothing is caught):
    periodic (indefinite) Poisson V(1,1), 2048² x-periodic line-x, each
    with setup, a solve, the launches of one cycle (all periodic, no plain
    version), per-cycle time and peak memory;
+5f. the 3D periodic path at full width: ``3d_poisson_7pt_256`` periodic
+   in x and triply periodic (indefinite), 128³ ``fe3`` triply periodic,
+   ``3d_aniso_planexy_128`` periodic in z, each with the same numbers
+   (K6-K9's launches all periodic);
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
@@ -129,9 +145,11 @@ Phases (each raises on failure; nothing is caught):
    residual, ``sweep3``), and at 256³ 7-point and 128³ 27-point (K14's
    launches, ``sweep3_fused``); the periodic modes at the same shapes
    (K1 streamed 4096² and resident 64², K2, K3, K5 at 4096², K4 2048²
-   cyclic x and wrapped y), with their bounds.
+   cyclic x and wrapped y), with their bounds; K6-K9's periodic modes at
+   256³ 7-point and 128³ 27-point (K6 per colour, beside the same launches
+   without the wrap) and K6 resident at 16³ 27-point.
 
-Every solve of phases 4-5e runs as the solvers run it on the card, one
+Every solve of phases 4-5f runs as the solvers run it on the card, one
 replay of a captured CUDA graph a cycle, and is held bit for bit to the
 same solve run eagerly (``cycle_residual`` a cycle), a ``vcycle`` to
 ``run_cycle``; the launches of a cycle are counted at a fresh capture,
@@ -311,6 +329,20 @@ REPLACES = {
                              "cedar_tpu/ops/pallas_transfer2.py:266"),
     "line2_periodic": "cedar_tpu/ops/pallas_lines2.py:142",
     "interp2_periodic": "cedar_tpu/ops/pallas_transfer2.py:817",
+    # the 3D periodic modes: the JAX package runs every periodic 3D cycle
+    # in XLA (cedar_tpu/solver/cycle3.py:24-25), so K6-K9's periodic modes
+    # extend the kernels of their rows
+    "sweep3_periodic": ("cedar_tpu/ops/pallas3.py:190, "
+                        "cedar_tpu/ops/pallas3.py:473"),
+    "sweep3_resident_periodic": ("cedar_tpu/ops/pallas3.py:190, "
+                                 "cedar_tpu/ops/pallas3.py:473"),
+    "restrict3_periodic": ("cedar_tpu/ops/pallas_transfer3.py:192, "
+                           "cedar_tpu/ops/pallas3_split.py:723, "
+                           "cedar_tpu/ops/pallas3_split.py:823"),
+    "interp_add3_periodic": ("cedar_tpu/ops/pallas3_split.py:1063, "
+                             "cedar_tpu/ops/pallas3_split.py:1247"),
+    "interp3_periodic": ("cedar_tpu/ops/pallas3_split.py:1101, "
+                         "cedar_tpu/ops/pallas3_split.py:1198"),
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -338,11 +370,19 @@ SOURCES = {
     "interp_add2_periodic": "cedar_tpu_torch/csrc/transfer2.cu",
     "line2_periodic": "cedar_tpu_torch/csrc/lines2.cu",
     "interp2_periodic": "cedar_tpu_torch/csrc/transfer2.cu",
+    "sweep3_periodic": "cedar_tpu_torch/csrc/sweep3.cu",
+    "sweep3_resident_periodic": "cedar_tpu_torch/csrc/sweep3.cu",
+    "restrict3_periodic": "cedar_tpu_torch/csrc/transfer3.cu",
+    "interp_add3_periodic": "cedar_tpu_torch/csrc/transfer3.cu",
+    "interp3_periodic": "cedar_tpu_torch/csrc/transfer3.cu",
 }
 # the periodic modes' entries, each with the entry of its kernel
 PERIODIC_OF = {k + "_periodic": k for k in (
     "sweep2", "sweep2_resident", "restrict2", "interp_add2", "line2",
     "interp2")}
+PERIODIC3_OF = {k + "_periodic": k for k in (
+    "sweep3", "sweep3_resident", "restrict3", "interp_add3", "interp3")}
+PERIODIC_OF.update(PERIODIC3_OF)
 KERNELS = tuple(REPLACES)
 # K1 launched in either regime
 K1 = ("sweep2", "sweep2_resident")
@@ -398,6 +438,11 @@ def counts() -> dict:
         "interp_add2_periodic": cuda_transfer2.interp_periodic_launches,
         "line2_periodic": cuda_lines2.periodic_launches,
         "interp2_periodic": cuda_transfer2.interp2_periodic_launches,
+        "sweep3_periodic": cuda3.periodic_launches,
+        "sweep3_resident_periodic": cuda3.periodic_resident_launches,
+        "restrict3_periodic": cuda_transfer3.restrict_periodic_launches,
+        "interp_add3_periodic": cuda_transfer3.interp_add_periodic_launches,
+        "interp3_periodic": cuda_transfer3.interp_periodic_launches,
         "sweep2_plain": cuda2.plain_calls,
         "sweep2_resident_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
@@ -423,6 +468,11 @@ def counts() -> dict:
         "interp_add2_periodic_plain": cuda_transfer2.interp_plain_calls,
         "line2_periodic_plain": cuda_lines2.plain_calls,
         "interp2_periodic_plain": cuda_transfer2.interp2_plain_calls,
+        "sweep3_periodic_plain": cuda3.plain_calls,
+        "sweep3_resident_periodic_plain": cuda3.plain_calls,
+        "restrict3_periodic_plain": cuda_transfer3.restrict_plain_calls,
+        "interp_add3_periodic_plain": cuda_transfer3.interp_add_plain_calls,
+        "interp3_periodic_plain": cuda_transfer3.interp_plain_calls,
     }
 
 
@@ -439,6 +489,10 @@ def reset_counts() -> None:
     cuda_transfer2.interp2_launches = cuda_transfer2.interp2_plain_calls = 0
     cuda_lines2.launches = cuda_lines2.plain_calls = 0
     cuda3.launches = cuda3.resident_launches = cuda3.plain_calls = 0
+    cuda3.periodic_launches = cuda3.periodic_resident_launches = 0
+    cuda_transfer3.restrict_periodic_launches = 0
+    cuda_transfer3.interp_add_periodic_launches = 0
+    cuda_transfer3.interp_periodic_launches = 0
     cuda_transfer3.restrict_launches = 0
     cuda_transfer3.interp_add_launches = 0
     cuda_transfer3.interp_launches = 0
@@ -736,23 +790,35 @@ def phase_kernels3(errs: dict) -> dict:
     return errs
 
 
-def compare_sweep3(so, q, b, kind, tag: str):
+def compare_sweep3(so, q, b, kind, tag: str, periodic=(False,) * 3,
+                   plan=None):
     """K6, DOWN and UP, with and without the residual and an odd origin,
     bit-equal to its plain version, and q left as it was, in the regime
     its plan picks (resident in one block, one launch a colour phase, or
-    K14's launches); returns the kernel's name in the table (K14's
-    launches count as ``sweep3_fused``) and the largest error."""
+    K14's launches; ``plan``: that one instead), with the couplings
+    wrapping around the ``periodic`` axes; returns the kernel's name in
+    the table (K14's launches count as ``sweep3_fused``; a periodic one's
+    ends in ``_periodic``) and the largest error."""
     ts = kind == StencilKind.twenty_seven_pt
-    p = cuda3.plan(q.element_size(), ts, tuple(q.shape))
+    p = plan or cuda3.plan(q.element_size(), ts, tuple(q.shape),
+                           periodic=any(periodic))
     regime = p.route
     pts = "27pt" if ts else "7pt"
+    if any(periodic):
+        regime += (f" periodic {tuple(int(a) for a in periodic)}"
+                   + (" jacobi" if cuda3.odd_wrap(q.shape, periodic)
+                      else ""))
     q0, e = q.clone(), 0.0
     for updown, fuse, origin in itertools.product(
             ("down", "up"), (False, True), ((0, 0, 0), (1, 2, 3))):
         what = (f"K6 sweep3 {pts} {updown} fuse={int(fuse)} "
                 f"origin={origin} {tag} ({regime})")
-        got = cuda3.sweep(so, q, b, kind, updown, fuse, origin)
-        want = cuda3.sweep_plain(so, q, b, kind, updown, fuse, origin)
+        got = (cuda3.sweep(so, q, b, kind, updown, fuse, origin, periodic)
+               if plan is None else
+               cuda3._sweep(p, so, q, b, kind, updown, fuse, origin,
+                            periodic))
+        want = cuda3.sweep_plain(so, q, b, kind, updown, fuse, origin,
+                                 periodic)
         if not torch.equal(q, q0):
             raise AssertionError(f"{what}: the sweep changed q")
         if fuse:
@@ -760,8 +826,9 @@ def compare_sweep3(so, q, b, kind, tag: str):
                     compare(what + " res", got[1], want[1], exact=True))
         else:
             e = max(e, compare(what, got, want, exact=True))
-    return {"resident": "sweep3_resident", "phases": "sweep3"}.get(
-        p.route, "sweep3_fused"), e
+    name = {"resident": "sweep3_resident", "phases": "sweep3"}.get(
+        p.route, "sweep3_fused")
+    return name + ("_periodic" if any(periodic) else ""), e
 
 
 def phase_kernels_planes(errs: dict) -> dict:
@@ -1010,6 +1077,107 @@ def phase_kernels_periodic(errs: dict) -> dict:
             pts = "9pt" if nine else "5pt"
             note("line2", compare_lines(so, q, b, kind, pts, tag, per))
             del so, q, b
+    torch.cuda.empty_cache()
+    return errs
+
+
+# the 3D periodic axes checked: x, y, z, and all three
+PERIODIC3 = [(True, False, False), (False, True, False),
+             (False, False, True), (True, True, True)]
+# K6's periodic mode, as (shape, dtype, 27-point or not): the full-width
+# periodic paths' top levels (256³ 7-point, 128³ 27-point: per colour), an
+# odd extent on x alone (65, 64, 64) and on every axis (65, 63, 33), the
+# 22x16x16 -> 11x8x8 levels (odd at the second), the resident regime's
+# edges (16³ float32, 12³ float64) and odd extents there (11x8x8, 11x9x7
+# float64: its Jacobi phases), and a few points
+PERIODIC3_SWEEP = [((256,) * 3, torch.float32, (False,)),
+                   ((128,) * 3, torch.float32, (True,)),
+                   ((65, 64, 64), torch.float32, (False, True)),
+                   ((65, 63, 33), torch.float32, (False, True)),
+                   ((22, 16, 16), torch.float32, (False, True)),
+                   ((16,) * 3, torch.float32, (True,)),
+                   ((12,) * 3, torch.float64, (True,)),
+                   ((11, 8, 8), torch.float64, (False, True)),
+                   ((11, 9, 7), torch.float64, (False, True)),
+                   ((5, 4, 3), torch.float64, (False, True))]
+# K7, K8 and K9's periodic mode: the 256³ 7-point and 128³ 27-point
+# transfers, odd and even extents, a few points
+PERIODIC3_TRANSFER = [((256,) * 3, torch.float32, (False,)),
+                      ((128,) * 3, torch.float32, (True,)),
+                      ((65, 63, 33), torch.float32, (False, True)),
+                      ((22, 16, 16), torch.float32, (False, True)),
+                      ((11, 9, 7), torch.float64, (False, True)),
+                      ((12,) * 3, torch.float64, (True,)),
+                      ((5, 4, 3), torch.float64, (False, True))]
+
+
+def random_periodic_problem3(shape, ts: bool, dtype, seed: int, periodic):
+    """:func:`random_problem3` on a grid periodic along ``periodic``: the
+    couplings across those axes (index 0 of the planes that reach across,
+    which the wrap reads) copied from index 1 (``gallery.periodic3``), and
+    the diagonal dominant over the wrapped couplings."""
+    so, q, b, kind = random_problem3(shape, ts, dtype, seed)
+    so = gallery.periodic3(so, periodic)
+    g = torch.Generator(device=DEV).manual_seed(seed + 7)
+    so[Dir3.P] = stencil3.offdiag_apply(
+        so, torch.ones(shape, dtype=dtype, device=DEV), kind, periodic) + (
+            0.05 + 0.15 * torch.rand(shape, generator=g, device=DEV,
+                                     dtype=dtype))
+    return so, q, b, kind
+
+
+def phase_kernels_periodic3(errs: dict) -> dict:
+    """K6-K9's periodic modes, bit-equal to their plain versions, on x-,
+    y-, z- and triply periodic grids, 7- and 27-point: K6 at
+    PERIODIC3_SWEEP (DOWN and UP, with and without the residual and an
+    origin, q left as it was) in the regime of its plan (resident or a
+    launch a colour phase; Jacobi phases at odd periodic extents) and the
+    resident levels on the per-colour launches too; K7, K8 and K9 at
+    PERIODIC3_TRANSFER (CI from the periodic setup)."""
+    print("[3] 3D periodic modes against plain versions", flush=True)
+
+    def note(k: str, e: float) -> None:
+        errs[k] = max(errs.get(k, 0.0), e)
+
+    phases = cuda3.Plan("phases")
+    for i, ((shape, dtype, kinds), per) in enumerate(
+            itertools.product(PERIODIC3_SWEEP, PERIODIC3)):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for ts in kinds:
+            so, q, b, kind = random_periodic_problem3(shape, ts, dtype,
+                                                      3100 + i, per)
+            k, e = compare_sweep3(so, q, b, kind, tag, per)
+            note(k, e)
+            if k == "sweep3_resident_periodic":
+                note(*compare_sweep3(so, q, b, kind, tag, per, phases))
+            del so, q, b
+    for i, ((shape, dtype, kinds), per) in enumerate(
+            itertools.product(PERIODIC3_TRANSFER, PERIODIC3)):
+        tag = (f"{shape} {str(dtype).replace('torch.', '')} periodic "
+               f"{tuple(int(a) for a in per)}")
+        for ts in kinds:
+            so, q, b, kind = random_periodic_problem3(shape, ts, dtype,
+                                                      3300 + i, per)
+            pts = "27pt" if ts else "7pt"
+            ci = interp3.setup_interp(so, kind, per)
+            nc = tuple(n - 1 for n in ci.shape[1:])
+            g = torch.Generator(device=DEV).manual_seed(3500 + i)
+            qc = torch.randn(nc, generator=g, device=DEV, dtype=dtype)
+            note("restrict3_periodic", compare(
+                f"K7 restrict3 {pts} {tag}",
+                cuda_transfer3.restrict(ci, b, per),
+                cuda_transfer3.restrict_plain(ci, b, per), exact=True))
+            note("interp_add3_periodic", compare(
+                f"K8 interp_add3 {pts} {tag}",
+                cuda_transfer3.interp_add(ci, so, qc, b, q.clone(), per),
+                cuda_transfer3.interp_add_plain(ci, so, qc, b, q.clone(),
+                                                per), exact=True))
+            note("interp3_periodic", compare(
+                f"K9 interp3 {pts} {tag}",
+                cuda_transfer3.interp(ci, qc, shape, per),
+                cuda_transfer3.interp_plain(ci, qc, shape, per),
+                exact=True))
+            del so, q, b, ci, qc
     torch.cuda.empty_cache()
     return errs
 
@@ -1678,6 +1846,108 @@ def phase_periodic_gates() -> dict:
     return out
 
 
+def periodic3(make, per):
+    """``make``'s 3D operator on a grid periodic along ``per``: every
+    coupling kept across the wrap (``gallery.periodic3``)."""
+    def periodic(nx, ny, nz, dtype=None, device=None):
+        return gallery.periodic3(make(nx, ny, nz, dtype, device), per)
+    periodic.__name__ = f"{make.__name__} periodic {per}"
+    return periodic
+
+
+def aniso_yz(nx, ny, nz, dtype=None, device=None):
+    """Strong coupling in the yz planes (plane-yz's operator)."""
+    return gallery.diag_diffusion3(nx, ny, nz, 1e-3, 1.0, 1.0, dtype, device)
+
+
+X3, Z3, XYZ3 = (True, False, False), (False, False, True), (True,) * 3
+# the 3D periodic configurations: name -> (operator, kind, shape of the
+# float64 gate, conf); the triply periodic ones are singular
+# (solver.definite false, b with its mean removed).  (44, 32, 32) coarsens
+# to 22, 11 and 6 along its periodic x: odd at the third level.  Plane
+# relaxation with the periodic axis normal to its planes (inside them,
+# the JAX package's non-periodic plane solves stall, and the port copies
+# them)
+PERIODIC3_CONFIGS = {
+    "7pt x V": (periodic3(gallery.poisson3, X3), SevenPt, (32, 32, 32),
+                periodic_conf(X3)),
+    "27pt xyz indefinite V": (periodic3(gallery.fe3, XYZ3), TwentySevenPt,
+                              (32, 32, 32),
+                              periodic_conf(XYZ3, definite=False)),
+    "7pt x V odd": (periodic3(gallery.poisson3, X3), SevenPt, (44, 32, 32),
+                    periodic_conf(X3)),
+    "7pt z F": (periodic3(gallery.poisson3, Z3), SevenPt, (32, 32, 32),
+                periodic_conf(Z3, cycle={"type": "f"})),
+    "plane-yz x": (periodic3(aniso_yz, X3), SevenPt, (32, 32, 32),
+                   periodic_conf(X3, relaxation="plane-yz")),
+}
+
+
+def periodic_rhs3(conf: dict, shape, dtype, device):
+    """poisson3_rhs, its mean removed where the operator is singular."""
+    b = gallery.poisson3_rhs(*shape, dtype, device)
+    if not conf["solver"].get("definite", True):
+        b = b - b.mean()
+    return b
+
+
+def require_periodic3(c: dict, what: str) -> None:
+    """Every launch of K6-K9 periodic."""
+    for k, base in PERIODIC3_OF.items():
+        if c[k] != c[base]:
+            raise AssertionError(f"{what}: {c[base] - c[k]} launches of "
+                                 f"{base} not periodic")
+
+
+def phase_periodic3_gates() -> dict:
+    """Float64 3D periodic gates at 32³-44x32x32, card against CPU (rtol
+    1e-9, atol 1e-14, as the other gates): :data:`PERIODIC3_CONFIGS` (the
+    7-point x-periodic V(1,1), the 27-point triply periodic indefinite V,
+    the x-periodic (44, 32, 32) V, the z-periodic F-cycle, x-periodic
+    plane-yz), each through the solver's graph.  Returns the F-cycle's
+    counts."""
+    print("[4g] float64 3D periodic gates, card against CPU", flush=True)
+    cpu = torch.device("cpu")
+    out = {}
+    for name, (make, kind, shape, conf) in PERIODIC3_CONFIGS.items():
+        fcycle = conf["solver"].get("cycle", {}).get("type") == "f"
+        conf = {**conf, "log": [], "solver": {
+            "tol": 1e-10, "max-iter": 3 if fcycle else 20,
+            **conf["solver"]}}
+        so = make(*shape, torch.float64, cpu)
+        b = periodic_rhs3(conf, shape, torch.float64, cpu)
+        reset_counts()
+        s = Solver3(so.to(DEV), kind, Config(conf))
+        x = s.solve(b.to(DEV))
+        c = counts()
+        check_graph(s, b.to(DEV), x, f"periodic3 gate {name}", cycle3)
+        sc = Solver3(so, kind, Config(conf))
+        sc.solve(b)
+        print(f"  {name} {shape}: card "
+              f"{' '.join(f'{h:.9g}' for h in s.history)}", flush=True)
+        print(f"  CPU {' '.join(f'{h:.9g}' for h in sc.history)}; counts "
+              f"{ {k: v for k, v in c.items() if v} }", flush=True)
+        np.testing.assert_allclose(s.history, sc.history, rtol=1e-9,
+                                   atol=1e-14)
+        if fcycle:
+            if len(set(s.history)) != 1 or not s.history[0] < 1:
+                raise AssertionError(f"{name}: F-cycle history")
+            out = c
+        elif not s.history[-1] < 1e-10:
+            raise AssertionError(f"{name}: did not reach 1e-10")
+        relax = conf["solver"].get("relaxation", "point")
+        need = ["restrict3_periodic", "interp_add3_periodic"]
+        if relax == "point":
+            need.append(("sweep3_periodic", "sweep3_resident_periodic"))
+        else:
+            need += ["line_xy2", "restrict2", "interp_add2"]
+        if fcycle:
+            need.append("interp3_periodic")
+        require_launched(c, need, f"periodic3 gate {name}")
+        require_periodic3(c, f"periodic3 gate {name}")
+    return out
+
+
 # every configuration the port runs, small: name -> (gallery operator,
 # kind, shape, conf); each in float32 and float64 through the graph
 GRAPH_CONFIGS = {
@@ -1727,6 +1997,14 @@ GRAPH_CONFIGS = {
     **{f"2d periodic {name}": (make, kind, (64, 48), conf)
        for name, (make, kind, conf) in PERIODIC_CONFIGS.items()
        if name != "9pt x"},
+    # the 3D periodic ones at an odd periodic extent on a swept level
+    # (22 -> 11) and the fused cycle asked for
+    **{f"3d periodic {name}": (make, kind, (22, 16, 16), conf)
+       for name, (make, kind, _, conf) in PERIODIC3_CONFIGS.items()
+       if name != "7pt x V odd"},
+    "3d periodic fine-split": (periodic3(gallery.poisson3, X3), SevenPt,
+                               (22, 16, 16), {"kernels": {"fine-split": True},
+                                              **periodic_conf(X3)}),
 }
 
 
@@ -1749,7 +2027,7 @@ def phase_graph_configs() -> None:
                     Config({"log": [], **conf, "solver": solver}))
             b = rhs(*shape, dt, DEV)
             if not conf.get("solver", {}).get("definite", True):
-                b = b - b.mean()   # the singular doubly periodic operator
+                b = b - b.mean()   # the singular fully periodic operator
             x = s.solve(b)
             if not torch.isfinite(x).all():
                 raise AssertionError(f"{what}: bad solution")
@@ -2207,6 +2485,113 @@ def phase_periodic_full() -> dict:
             if c[k]:
                 out[k] = out.get(k, 0) + c[k]
         del s, x, so, b
+        torch.cuda.empty_cache()
+    return out
+
+
+def periodic3_cycle_launches(s) -> dict:
+    """The launches of one solve-loop cycle of a dense periodic 3D point
+    V(1,1) cycle, from the plans: each level but the coarsest one sweep
+    DOWN with the residual (that feeds K7) and one UP (the top level's
+    with the convergence residual) on K6's periodic route
+    (``cuda3.plan(..., periodic=True)``: resident or a launch a colour and
+    the residual), K7 and K8 once; every launch periodic."""
+    smem = cuda3._build_of(cuda_build.load("sweep3"))
+    c = {}
+    for lvl, (kind, shape) in enumerate(zip(s.kinds[:-1], s.shapes[:-1])):
+        ts = kind == StencilKind.twenty_seven_pt
+        p = cuda3.plan(4, ts, shape, smem, True)
+        for k, _ in (cuda3.launch_list(p, kind, "down", True)
+                     + cuda3.launch_list(p, kind, "up", lvl == 0)):
+            c[k] = c.get(k, 0) + 1
+    c["restrict3"] = c["interp_add3"] = s.nlevels - 1
+    for k in ("sweep3", "sweep3_resident"):
+        c.setdefault(k, 0)
+    c.update({k: c[base] for k, base in PERIODIC3_OF.items() if base in c})
+    c.update(dict.fromkeys(FUSED3 + ("edge27",), 0))
+    return c
+
+
+def phase_periodic3_full() -> dict:
+    """The 3D periodic path at full width, float32, each with setup, a
+    solve of four cycles, the launches of one captured cycle asserted
+    (every K6-K9 launch periodic, no plain version), graph against eager
+    ms a cycle, the capture's seconds and memory, peak memory:
+    ``3d_poisson_7pt_256`` (bench.py:162-171) periodic in x, the same grid
+    triply periodic and singular (b with its mean removed), 128³ 27-point
+    ``fe3`` triply periodic (every coupling kept across the wrap), each
+    point V(1,1) on the dense cycle; ``3d_aniso_planexy_128``
+    (bench.py:173-184) periodic in z, normal to the planes.  Returns the
+    periodic entries' launches in the solves."""
+    out = {}
+    cases = (
+        ("3d_poisson_7pt_256_periodic_x", N_3D,
+         periodic3(gallery.poisson3, X3), SevenPt, periodic_conf(X3)),
+        ("3d_poisson_7pt_256_periodic_xyz", N_3D,
+         periodic3(gallery.poisson3, XYZ3), SevenPt,
+         periodic_conf(XYZ3, definite=False)),
+        ("3d_fe_27pt_128_periodic_xyz", N_27, periodic3(gallery.fe3, XYZ3),
+         TwentySevenPt, periodic_conf(XYZ3, definite=False)),
+        ("3d_aniso_planexy_128_periodic_z", N_PLANES, periodic3(aniso3, Z3),
+         SevenPt, periodic_conf(Z3, relaxation="plane-xy")),
+    )
+    for name, n, make, kind, conf in cases:
+        conf = {**conf, "log": [], "solver": {
+            "cycle": {"nrelax-pre": 1, "nrelax-post": 1}, "tol": 1e-6,
+            "max-iter": 4, **conf["solver"]}}
+        print(f"[5f] {name}: {make.__name__}, {n}^3 float32 V(1,1)",
+              flush=True)
+        so = make(n, n, n, torch.float32, DEV)
+        b = periodic_rhs3(conf, (n,) * 3, torch.float32, DEV)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = Solver3(so, kind, Config(conf))
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        del so
+        x = s.solve(b)
+        torch.cuda.synchronize()
+        c = counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {name}: levels {s.nlevels}: {s.shapes[0]} .. "
+              f"{s.shapes[-1]}; setup {setup_s:.3f} s; history "
+              f"{' '.join(f'{h:.6g}' for h in s.history)}", flush=True)
+        print(f"  {name}: counts { {k: v for k, v in c.items() if v} }",
+              flush=True)
+        if not torch.isfinite(x).all() or tuple(x.shape) != (n,) * 3:
+            raise AssertionError(f"{name}: bad solution")
+        if not s.history[-1] < s.history[0]:
+            raise AssertionError(f"{name}: the solve did not converge")
+        point = "relaxation" not in conf["solver"]
+        require_launched(c, ["restrict3_periodic", "interp_add3_periodic"]
+                         + ([("sweep3_periodic", "sweep3_resident_periodic")]
+                            if point else list(PLANE_KERNELS)), name)
+        require_periodic3(c, name)
+        check_graph(s, b, x, name, cycle3)
+        if point:
+            want = periodic3_cycle_launches(s)
+        else:
+            # K10 as in phase_planes_128; the outer transfers periodic
+            want = {"line_xy2": sum(
+                2 * 2 * (len(h) - 1) for lev in s.levels[:-1]
+                for h in lev.planes["xy"] if h is not None),
+                "restrict3_periodic": s.nlevels - 1,
+                "interp_add3_periodic": s.nlevels - 1}
+        one = one_cycle_launches(s, b, name, want, cycle3)
+        require_periodic3({k: one.get(k, 0) for k in c}, name)
+        total = sum(one.get(k, 0) for k in KERNELS if k not in PERIODIC_OF)
+        print(f"  {name}: {total} kernel launches a cycle, K6-K9's all "
+              "periodic", flush=True)
+        ms = time_cycles(s, b, x, cycle=cycle3)
+        print(f"  {name}: DOF/s {n ** 3 / (ms * 1e-3):.4e}; "
+              f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+              flush=True)
+        for k in PERIODIC3_OF:
+            if c[k]:
+                out[k] = out.get(k, 0) + c[k]
+        del s, x, b
         torch.cuda.empty_cache()
     return out
 
@@ -3045,6 +3430,117 @@ def phase_times_periodic() -> dict:
     return {k: v + work[k] for k, v in out.items() if k in work}
 
 
+def phase_times_periodic3() -> dict:
+    """K6-K9's periodic modes against plain, in turns (plain, kernel,
+    kernel, plain), at the full-width periodic paths' shapes: K6 per colour
+    at 256³ 7-point (x- and triply periodic, DOWN with the residual) and
+    128³ 27-point (triply periodic), beside the same per-colour launches
+    without the wrap (the non-periodic paths take K14's routes there:
+    phase_times3's ``K6 256^3 +res (ring)`` and ``K6 27pt 128^3 +res
+    (pass27)``), K6 resident at 16³ 27-point (and at 15³, its Jacobi
+    phases), K7, K8 and K9 at 256³ 7-point x-periodic beside the same
+    kernels without the wrap; each with its bound (the bytes and
+    operations of the non-periodic entry)."""
+    print("[6] 3D periodic modes: per-kernel ms at the periodic paths' "
+          "shapes (plain, kernel, kernel, plain)", flush=True)
+    n, n27, r = N_3D, N_27, N_3D >> 4
+    so, q, b, kind = random_periodic_problem3((n,) * 3, False,
+                                              torch.float32, 41, X3)
+    s27, q27, b27, k27 = random_periodic_problem3((n27,) * 3, True,
+                                                  torch.float32, 42, XYZ3)
+    sr, qr, br, kr = random_periodic_problem3((r,) * 3, True,
+                                              torch.float32, 43, XYZ3)
+    so15, q15, b15, k15 = random_periodic_problem3((r - 1,) * 3, True,
+                                                   torch.float32, 44, XYZ3)
+    ci = interp3.setup_interp(so, kind, X3)
+    nc = ci.shape[1] - 1
+    g = torch.Generator(device=DEV).manual_seed(45)
+    qc = torch.randn((nc,) * 3, generator=g, device=DEV, dtype=torch.float32)
+    ph, no = cuda3.Plan("phases"), (False,) * 3
+    cases = {
+        "sweep3_periodic": (
+            lambda: cuda3.sweep_plain(so, q, b, kind, "down", True,
+                                      periodic=X3),
+            lambda: cuda3.sweep(so, q, b, kind, "down", True, periodic=X3)),
+        "K6 256^3 +res phases, no wrap": (
+            lambda: cuda3.sweep_plain(so, q, b, kind, "down", True),
+            lambda: cuda3._sweep(ph, so, q, b, kind, "down", True)),
+        "K6 256^3 +res periodic xyz": (
+            lambda: cuda3.sweep_plain(so, q, b, kind, "down", True,
+                                      periodic=XYZ3),
+            lambda: cuda3.sweep(so, q, b, kind, "down", True,
+                                periodic=XYZ3)),
+        "K6 27pt 128^3 +res periodic xyz": (
+            lambda: cuda3.sweep_plain(s27, q27, b27, k27, "down", True,
+                                      periodic=XYZ3),
+            lambda: cuda3.sweep(s27, q27, b27, k27, "down", True,
+                                periodic=XYZ3)),
+        "K6 27pt 128^3 +res phases, no wrap": (
+            lambda: cuda3.sweep_plain(s27, q27, b27, k27, "down", True),
+            lambda: cuda3._sweep(ph, s27, q27, b27, k27, "down", True, no)),
+        "sweep3_resident_periodic": (
+            lambda: cuda3.sweep_plain(sr, qr, br, kr, "down", True,
+                                      periodic=XYZ3),
+            lambda: cuda3.sweep(sr, qr, br, kr, "down", True,
+                                periodic=XYZ3)),
+        "K6 27pt 16^3 +res resident, no wrap": (
+            lambda: cuda3.sweep_plain(sr, qr, br, kr, "down", True),
+            lambda: cuda3.sweep(sr, qr, br, kr, "down", True)),
+        "K6 27pt 15^3 +res resident periodic xyz (jacobi)": (
+            lambda: cuda3.sweep_plain(so15, q15, b15, k15, "down", True,
+                                      periodic=XYZ3),
+            lambda: cuda3.sweep(so15, q15, b15, k15, "down", True,
+                                periodic=XYZ3)),
+        "restrict3_periodic": (
+            lambda: cuda_transfer3.restrict_plain(ci, b, X3),
+            lambda: cuda_transfer3.restrict(ci, b, X3)),
+        "restrict3, no wrap": (
+            lambda: cuda_transfer3.restrict_plain(ci, b),
+            lambda: cuda_transfer3.restrict(ci, b)),
+        "interp_add3_periodic": (
+            lambda: cuda_transfer3.interp_add_plain(ci, so, qc, b, q, X3),
+            lambda: cuda_transfer3.interp_add(ci, so, qc, b, q, X3)),
+        "interp_add3, no wrap": (
+            lambda: cuda_transfer3.interp_add_plain(ci, so, qc, b, q),
+            lambda: cuda_transfer3.interp_add(ci, so, qc, b, q)),
+        "interp3_periodic": (
+            lambda: cuda_transfer3.interp_plain(ci, qc, (n,) * 3, X3),
+            lambda: cuda_transfer3.interp(ci, qc, (n,) * 3, X3)),
+        "interp3, no wrap": (
+            lambda: cuda_transfer3.interp_plain(ci, qc, (n,) * 3),
+            lambda: cuda_transfer3.interp(ci, qc, (n,) * 3)),
+    }
+    out = time_turns(cases)
+    # bytes and operations as in phase_times3: the sweep with its residual
+    # reads the stencil, q and b and writes q and res
+    N, Nc, W, e = n ** 3, nc ** 3, 26 * (nc + 1) ** 3, 4
+    N27 = n27 ** 3
+    work = {
+        "sweep3_periodic": ((4 + 4) * N * e, 28 * N),
+        "K6 256^3 +res phases, no wrap": ((4 + 4) * N * e, 28 * N),
+        "K6 256^3 +res periodic xyz": ((4 + 4) * N * e, 28 * N),
+        "K6 27pt 128^3 +res periodic xyz": ((14 + 4) * N27 * e, 108 * N27),
+        "K6 27pt 128^3 +res phases, no wrap": ((14 + 4) * N27 * e,
+                                               108 * N27),
+        "sweep3_resident_periodic": ((14 + 4) * r ** 3 * e, 108 * r ** 3),
+        "K6 27pt 16^3 +res resident, no wrap": ((14 + 4) * r ** 3 * e,
+                                                108 * r ** 3),
+        "K6 27pt 15^3 +res resident periodic xyz (jacobi)": (
+            (14 + 4) * (r - 1) ** 3 * e, 108 * (r - 1) ** 3),
+        "restrict3_periodic": ((W + N + Nc) * e, 52 * Nc),
+        "restrict3, no wrap": ((W + N + Nc) * e, 52 * Nc),
+        "interp_add3_periodic": ((W + Nc + 4 * N) * e, 67 * N // 8),
+        "interp_add3, no wrap": ((W + Nc + 4 * N) * e, 67 * N // 8),
+        "interp3_periodic": ((W + Nc + N) * e, 52 * N // 8),
+        "interp3, no wrap": ((W + Nc + N) * e, 52 * N // 8),
+    }
+    for k, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, torch.float32)
+        print(f"  {k}: bound {bms:.4f} ms by {by}; kernel {out[k][0]:.4f} "
+              f"ms, plain {out[k][1]:.4f} ms", flush=True)
+    return {k: v + work[k] for k, v in out.items() if k in work}
+
+
 def pcr_steps(n: int) -> int:
     """PCR steps of the line solve of a line of ``n`` points (log2 h)."""
     return max(lines2.pcr_stride(n), 1).bit_length() - 1
@@ -3076,6 +3572,7 @@ def main() -> None:
     errs = timed(phase_kernels_planes, errs)
     errs = timed(phase_transfers2, errs)
     errs = timed(phase_kernels_periodic, errs)
+    errs = timed(phase_kernels_periodic3, errs)
     errs = timed(phase_kernels_fused, errs)
     errs = timed(phase_kernels_fused3, errs)
     timed(phase_cedar_gate)
@@ -3085,6 +3582,7 @@ def main() -> None:
     timed(phase_3d_gates)
     timed(phase_plane_gates)
     fcycle_periodic = timed(phase_periodic_gates)
+    fcycle_periodic3 = timed(phase_periodic3_gates)
     timed(phase_graph_configs)
     launches = timed(phase_main_path)
     launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
@@ -3093,10 +3591,14 @@ def main() -> None:
     launches.update(timed(phase_paths3))
     launches["line_xy2"] = timed(phase_planes_128)["line_xy2"]
     launches.update(timed(phase_periodic_full))
-    # K5's periodic mode runs in the periodic F-cycle (phase 4f)
+    launches.update(timed(phase_periodic3_full))
+    # K5's and K9's periodic modes run in the periodic F-cycles (phases 4f
+    # and 4g)
     launches["interp2_periodic"] = fcycle_periodic["interp2_periodic"]
+    launches["interp3_periodic"] = fcycle_periodic3["interp3_periodic"]
     times = (timed(phase_times) | timed(phase_times3)
-             | timed(phase_times_planes) | timed(phase_times_periodic))
+             | timed(phase_times_planes) | timed(phase_times_periodic)
+             | timed(phase_times_periodic3))
     timed(phase_times_levels)
     print(f"  (all phases: {time.perf_counter() - t0:.1f} s)", flush=True)
     table = []

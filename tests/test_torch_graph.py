@@ -7,7 +7,10 @@
   no op that reads a device value back to the host and builds no tensor
   from host data, either of which would break or freeze a CUDA graph.
   The 2D periodic configurations (point V and F, line-x, -y and -xy,
-  the doubly periodic indefinite case, fine-split asked for) too.
+  the doubly periodic indefinite case, fine-split asked for) and the 3D
+  ones (7-point V at even and odd periodic extents, the 27-point triply
+  periodic indefinite case, F, plane-yz and plane-xy, fine-split asked
+  for) too.
 * The graph runner's bookkeeping, with a stand-in backend that records
   the captured callable and replays it eagerly: its ``solve`` equals the
   solver's eager loop bit for bit (history, ``x``, iteration count at a
@@ -52,6 +55,18 @@ def _aniso3(nx, ny, nz, dtype, device):
 
 def _plane(relax):
     return {"solver": {"relaxation": relax}}
+
+
+def _periodic3(make, per):
+    """``make``'s 3D operator with its couplings kept across the periodic
+    axes ``per`` (gallery.periodic3)."""
+    def periodic(nx, ny, nz, dtype, device):
+        return gallery.periodic3(make(nx, ny, nz, dtype, device), per)
+    return periodic
+
+
+def _grid3(per, **solver):
+    return {"grid": {"periodic": list(per)}, "solver": solver}
 
 
 # name -> (gallery operator, kind, shape, conf); 2-4 levels each
@@ -104,6 +119,28 @@ CONFIGS = {
     "2d-periodic-line-xy-indefinite": (gallery.poisson, FivePt, (16, 12), {
         "grid": {"periodic": [True, True]},
         "solver": {"relaxation": "line-xy", "definite": False}}),
+    "3d-periodic-7pt-v": (_periodic3(gallery.poisson3, (True, False, False)),
+                          SevenPt, (10, 8, 8),
+                          _grid3((True, False, False))),
+    "3d-periodic-7pt-v-odd": (_periodic3(gallery.poisson3,
+                                         (False, True, False)),
+                              SevenPt, (8, 11, 8),
+                              _grid3((False, True, False))),
+    "3d-periodic-27pt-v-indefinite": (
+        _periodic3(gallery.fe3, (True, True, True)), TwentySevenPt,
+        (8, 8, 8), _grid3((True, True, True), definite=False)),
+    "3d-periodic-f": (_periodic3(gallery.poisson3, (False, False, True)),
+                      SevenPt, (8, 8, 10),
+                      _grid3((False, False, True), cycle={"type": "f"})),
+    "3d-periodic-fine-split": (
+        _periodic3(gallery.poisson3, (True, False, False)), SevenPt,
+        (10, 8, 8), {**FUSED3, **_grid3((True, False, False))}),
+    "3d-periodic-plane-yz": (
+        _periodic3(gallery.poisson3, (True, False, False)), SevenPt,
+        (8, 8, 8), _grid3((True, False, False), relaxation="plane-yz")),
+    "3d-periodic-plane-xy": (
+        _periodic3(_aniso3, (False, False, True)), SevenPt, (8, 8, 8),
+        _grid3((False, False, True), relaxation="plane-xy")),
 }
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
@@ -184,7 +221,8 @@ def test_cycle_is_capture_safe(name, fn, dtype, monkeypatch):
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("name", ["2d-point-v-dense", "2d-line-xy",
                                   "3d-7pt-v-dense", "3d-27pt-v-dense",
-                                  "2d-periodic-line-x"])
+                                  "2d-periodic-line-x",
+                                  "3d-periodic-27pt-v-indefinite"])
 def test_w_cycle_is_capture_safe(name, dtype, monkeypatch):
     """The W-cycle (``ncycle`` with n = 2)."""
     s, b = solver_of(name, DTYPES[dtype])

@@ -167,7 +167,10 @@ UNPORTED = [
       "plane-config": {"solver": {"relaxation": "line-xy",
                                   "cycle": {"type": "f"}}}}, r"item 6\b"),
     ({"solver": {"relaxation": "line-x"}}, "points or planes"),
-    ({"grid": {"periodic": [True, False, False]}}, r"item 4\b"),
+    # a periodic grid is ported; with the inner multigrid coarse solve it
+    # is still refused
+    ({"grid": {"periodic": [True, False, False]},
+      "solver": {"cg-solver": "cedar"}}, r"item 5\b.*inner multigrid"),
     ({"solver": {"cg-solver": "cedar"}}, r"item 5\b.*inner multigrid"),
     ({"solver": {"cg-solver": "redist"}}, r"item 9\b"),
     ({"solver": {"relaxation": "plane-yz"},

@@ -155,8 +155,12 @@ def test_cycle_on_jax_plane_hierarchy(carried):
      "F-cycle"),
     ({"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
      "cg-solver"),
-    ({"solver": {"relaxation": "line-xy"},
-      "grid": {"periodic": [True, False, False]}}, "periodic"),
+    # the plane-config's grid.periodic is accepted (and ignored, as in
+    # cedar_tpu); with an F-cycle the plane-config is still refused
+    pytest.param({"solver": {"relaxation": "line-xy",
+                             "cycle": {"type": "f"}},
+                  "grid": {"periodic": [True, False, False]}}, "F-cycle",
+                 id="pconf5-periodic"),
     ({"solver": {"relaxation": "line-xy", "ml-relax": {"enabled": True}}},
      "ml-relax"),
 ])
