@@ -616,11 +616,11 @@ int cedar_sweep2_fused(int dtype, const void* so, const void* q_in,
   if (dtype == cedar::kFloat32)
     return cedar::launch_sweep<float>(so, q_in, b, q_out, res, partials, nx,
                                       ny, nine, colors, ncolors, oz, ow, mode,
-                                      st);
+                                      1, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch_sweep<double>(so, q_in, b, q_out, res, partials, nx,
                                        ny, nine, colors, ncolors, oz, ow, mode,
-                                       st);
+                                       1, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -46,6 +46,18 @@
 // of a 128² f32 plane is two groups one after the other; a cluster of
 // blocks a plane is later work.  Measured: PERF.md, Findings.
 //
+// One-direction mode (axes 1: x-lines only, 2: y-lines only; 3 is the
+// line-xy smooth): K4's zebra sweep of every plane of a batch, the batched
+// K4 of plane relaxation's line-x and line-y plane smoothers (the JAX
+// package's zebra line sweep batched by its `custom_vmap`,
+// cedar_tpu/ops/pallas_lines2.py `_vmap_core`), nsweeps of them
+// and the residual in one launch.  A smooth is then the x (y) passes of
+// the order above, DOWN parity 1 then 0, UP 0 then 1: K4's colour order
+// (ops/lines2.py `colour_order`), and each line is solved as K4 solves it.
+// Planes are never periodic (the JAX package builds its plane solvers
+// non-periodic, cedar_tpu/ops/planes3.py `setup_planes`), so no cyclic
+// line is needed.
+//
 // In place is race-free: a pass's rhs reads q only on lines of the other
 // colour, its solves write only their own lines, and the barriers order
 // the phases (the Python wrapper refuses aliased operands and other
@@ -84,7 +96,7 @@ template <typename T, bool NINE>
 __global__ void __launch_bounds__(1024)
     smooth_kernel(const T* __restrict__ so, T* q, const T* __restrict__ b,
                   T* __restrict__ res, T* scratch, int nb, int nx, int ny,
-                  int up, int nsweeps, Plan pl) {
+                  int up, int nsweeps, int axes, Plan pl) {
   using A = Arith<T>;
   extern __shared__ __align__(32) unsigned char smem_raw[];
   const int p = blockIdx.x;
@@ -96,17 +108,26 @@ __global__ void __launch_bounds__(1024)
   Row<T>* base = pl.per_plane
                      ? reinterpret_cast<Row<T>*>(scratch + p * pl.per_plane)
                      : reinterpret_cast<Row<T>*>(smem_raw);
+  const bool xl = axes & 1, yl = axes & 2;
   for (int s = 0; s < nsweeps; ++s) {
     if (!up) {
-      pass<T, NINE, false>(so, q, b, base, P, nx, ny, 1, pl.hx, pl.lx);
-      pass<T, NINE, false>(so, q, b, base, P, nx, ny, 0, pl.hx, pl.lx);
-      pass<T, NINE, true>(so, q, b, base, P, nx, ny, 1, pl.hy, pl.ly);
-      pass<T, NINE, true>(so, q, b, base, P, nx, ny, 0, pl.hy, pl.ly);
+      if (xl) {
+        pass<T, NINE, false>(so, q, b, base, P, nx, ny, 1, pl.hx, pl.lx);
+        pass<T, NINE, false>(so, q, b, base, P, nx, ny, 0, pl.hx, pl.lx);
+      }
+      if (yl) {
+        pass<T, NINE, true>(so, q, b, base, P, nx, ny, 1, pl.hy, pl.ly);
+        pass<T, NINE, true>(so, q, b, base, P, nx, ny, 0, pl.hy, pl.ly);
+      }
     } else {
-      pass<T, NINE, true>(so, q, b, base, P, nx, ny, 0, pl.hy, pl.ly);
-      pass<T, NINE, true>(so, q, b, base, P, nx, ny, 1, pl.hy, pl.ly);
-      pass<T, NINE, false>(so, q, b, base, P, nx, ny, 0, pl.hx, pl.lx);
-      pass<T, NINE, false>(so, q, b, base, P, nx, ny, 1, pl.hx, pl.lx);
+      if (yl) {
+        pass<T, NINE, true>(so, q, b, base, P, nx, ny, 0, pl.hy, pl.ly);
+        pass<T, NINE, true>(so, q, b, base, P, nx, ny, 1, pl.hy, pl.ly);
+      }
+      if (xl) {
+        pass<T, NINE, false>(so, q, b, base, P, nx, ny, 0, pl.hx, pl.lx);
+        pass<T, NINE, false>(so, q, b, base, P, nx, ny, 1, pl.hx, pl.lx);
+      }
     }
   }
   if (res == nullptr) return;
@@ -121,14 +142,16 @@ __global__ void __launch_bounds__(1024)
 
 template <typename T>
 int launch(const void* so, void* q, const void* b, void* res, void* scratch,
-           int nb, int nx, int ny, int nine, int up, int nsweeps,
+           int nb, int nx, int ny, int nine, int up, int nsweeps, int axes,
            const Plan& pl, cudaStream_t st) {
   if (nb <= 0 || nx <= 0 || ny <= 0) return 0;
-  if (pl.lx <= 0 || pl.ly <= 0 || pl.hx < 0 || pl.hy < 0 ||
-      (pl.per_plane > 0) != (scratch != nullptr))
+  if (axes < 1 || axes > 3 || pl.lx <= 0 || pl.ly <= 0 || pl.hx < 0 ||
+      pl.hy < 0 || (pl.per_plane > 0) != (scratch != nullptr))
     return (int)cudaErrorInvalidValue;
-  const long long rows = std::max((long long)pl.lx * line_pad(nx, pl.hx),
-                                  (long long)pl.ly * line_pad(ny, pl.hy));
+  // the rows a group of the passes that run
+  const long long rows =
+      std::max((axes & 1) ? (long long)pl.lx * line_pad(nx, pl.hx) : 1,
+               (axes & 2) ? (long long)pl.ly * line_pad(ny, pl.hy) : 1);
   const size_t smem = pl.per_plane ? 0 : lines_bytes<T>(rows, 1);
   auto fn = nine ? smooth_kernel<T, true> : smooth_kernel<T, false>;
   if (smem > 47 * 1024) {
@@ -138,7 +161,7 @@ int launch(const void* so, void* q, const void* b, void* res, void* scratch,
   }
   fn<<<nb, line_threads(rows), smem, st>>>(
       (const T*)so, (T*)q, (const T*)b, (T*)res, (T*)scratch, nb, nx, ny,
-      up, nsweeps, pl);
+      up, nsweeps, axes, pl);
   return (int)cudaGetLastError();
 }
 
@@ -149,24 +172,26 @@ extern "C" {
 
 // nsweeps line-xy smooths (up = 0: DOWN order, 1: UP) of the nb planes of
 // q (nb, nx, ny), in place, then res = b - A q when res is not null: one
-// kernel launch.  hx, hy: the PCR interleave strides of the x-lines (nx
-// points) and y-lines (ny points), ops/lines2.pcr_stride (0: the LDLᵀ
+// kernel launch.  axes: 3 line-xy, 1 x-lines only, 2 y-lines only (the
+// one-direction mode).  hx, hy: the PCR interleave strides of the x-lines
+// (nx points) and y-lines (ny points), ops/lines2.pcr_stride (0: the LDLᵀ
 // recurrence); lx, ly: lines a group of an x or y pass; scratch: null to
 // hold a group in shared memory, or per_plane elements a plane (8 * the
-// larger of lx * npad_x and ly * npad_y, npad: stencil2.cuh `line_pad`).
-// Returns cudaGetLastError().
+// larger of lx * npad_x and ly * npad_y of the passes that run, npad:
+// stencil2.cuh `line_pad`).  Returns cudaGetLastError().
 int cedar_line_xy_smooth2(int dtype, const void* so, void* q, const void* b,
                           void* res, void* scratch, int nb, int nx, int ny,
-                          int nine, int up, int nsweeps, int hx, int hy,
-                          int lx, int ly, long long per_plane, void* stream) {
+                          int nine, int up, int nsweeps, int axes, int hx,
+                          int hy, int lx, int ly, long long per_plane,
+                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const cedar::Plan pl{hx, hy, lx, ly, per_plane};
   if (dtype == cedar::kFloat32)
     return cedar::launch<float>(so, q, b, res, scratch, nb, nx, ny, nine, up,
-                                nsweeps, pl, st);
+                                nsweeps, axes, pl, st);
   if (dtype == cedar::kFloat64)
     return cedar::launch<double>(so, q, b, res, scratch, nb, nx, ny, nine, up,
-                                 nsweeps, pl, st);
+                                 nsweeps, axes, pl, st);
   return (int)cudaErrorInvalidValue;
 }
 

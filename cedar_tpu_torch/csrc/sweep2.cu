@@ -34,6 +34,15 @@
 //
 // Both regimes work out of place: q_in is left as it was.
 //
+// Batches of planes (3D plane relaxation's embedded point smoothers,
+// ops/planes3.py; the Pallas sweep batched by `pallas_call`'s vmap rule
+// under the JAX package's vmapped plane cycles, cedar_tpu/ops/pallas2.py
+// `point_relax`): q, b and res (nb, nx, ny), the stencil (ndir, nb, nx,
+// ny), one launch for every plane.  The plan is a plane's: the resident
+// kernel takes one block a plane, the tile kernel blockIdx.z as the plane.
+// Colours anchor to each plane's own origin, so every plane is swept as
+// the unbatched sweep sweeps it, bit for bit.  Planes are never periodic.
+//
 // No point couples to a point of its own colour (red-black for 5-point,
 // the (w%2, z%2) 4-colouring for 9-point), so a phase updates its colour
 // from the others' values in any order.  Colours anchor at global indices
@@ -80,19 +89,26 @@ constexpr int kResPer = 8;
 // and q_out written once, + res on request; vec: every array starts
 // 16-byte aligned and holds a multiple of 16 bytes.  PER: the periodic
 // mode, on the axes of wr; JAC: an odd extent along one of them (the
-// header note).
+// header note).  Block p sweeps plane p of a batch of nb (the header
+// note), the stencil planes of one plane nb*nx*ny words apart.
 template <typename T, bool NINE, bool PER, bool JAC>
 __global__ void __launch_bounds__(kResThreads)
 sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
                const T* __restrict__ b, T* __restrict__ q_out,
-               T* __restrict__ res, int nx, int ny, int colors, int ncolors,
-               int oz, int ow, int emit_res, int vec, Wrap wr) {
+               T* __restrict__ res, int nx, int ny, int nb, int colors,
+               int ncolors, int oz, int ow, int emit_res, int vec, Wrap wr) {
   using A = Arith<T>;
   constexpr int ND = resident_arrays(NINE) - 2, QA = ND, BA = ND + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const sm = reinterpret_cast<T*>(smem);
   const int N = nx * ny;  // words an array
   const int tid = threadIdx.x, nth = blockDim.x;
+  const long long pz = (long long)blockIdx.x * N, sd = (long long)nb * N;
+  so += pz;
+  q_in += pz;
+  b += pz;
+  q_out += pz;
+  if (emit_res) res += pz;
 
   // every array, 16 bytes or one element a copy
   auto load = [&](int a, const T* src) {
@@ -106,7 +122,7 @@ sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
     }
   };
 #pragma unroll
-  for (int d = 0; d < ND; ++d) load(d, so + (long long)d * N);
+  for (int d = 0; d < ND; ++d) load(d, so + d * sd);
   load(QA, q_in);
   load(BA, b);
   commit_async();
@@ -213,8 +229,8 @@ sweep_resident(const T* __restrict__ so, const T* __restrict__ q_in,
 
 template <typename T, bool NINE, bool PER, bool JAC>
 int launch_resident(const void* so, const void* q_in, const void* b,
-                    void* q_out, void* res, int nx, int ny, int colors,
-                    int ncolors, int oz, int ow, int emit_res,
+                    void* q_out, void* res, int nx, int ny, int nb,
+                    int colors, int ncolors, int oz, int ow, int emit_res,
                     long long smem, Wrap wr, cudaStream_t st) {
   // the plan must hold the level's arrays in one block
   if (smem != (long long)resident_arrays(NINE) * nx * ny * sizeof(T))
@@ -232,19 +248,23 @@ int launch_resident(const void* so, const void* q_in, const void* b,
   auto a16 = [](const void* p) { return ((size_t)p & 15) == 0; };
   const int vec = a16(so) && a16(q_in) && a16(b) &&
                   ((long long)nx * ny * sizeof(T)) % 16 == 0;
-  fn<<<1, kResThreads, smem, st>>>((const T*)so, (const T*)q_in, (const T*)b,
-                                   (T*)q_out, (T*)res, nx, ny, colors,
-                                   ncolors, oz, ow, emit_res, vec, wr);
+  fn<<<nb, kResThreads, smem, st>>>((const T*)so, (const T*)q_in,
+                                    (const T*)b, (T*)q_out, (T*)res, nx, ny,
+                                    nb, colors, ncolors, oz, ow, emit_res,
+                                    vec, wr);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* so, const void* q_in, const void* b, void* q_out,
-           void* res, int nx, int ny, int nine, int colors, int ncolors,
-           int oz, int ow, int emit_res, Wrap wr, long long smem,
-           cudaStream_t st) {
+           void* res, int nx, int ny, int nb, int nine, int colors,
+           int ncolors, int oz, int ow, int emit_res, Wrap wr,
+           long long smem, cudaStream_t st) {
   if (q_in == q_out) return (int)cudaErrorInvalidValue;
   const bool per = wr.x || wr.y;
+  // batches of planes: never periodic (plane relaxation's planes)
+  if (nb < 1 || nb > 65535 || (per && nb != 1))
+    return (int)cudaErrorInvalidValue;
   if (smem == 0) {
     // streamed: the tile kernel, on static shared memory
     const int mode = emit_res ? kRes : kNone;
@@ -252,7 +272,7 @@ int launch(const void* so, const void* q_in, const void* b, void* q_out,
       return launch_sweep_wrap<T>(so, q_in, b, q_out, res, nx, ny, nine,
                                   colors, ncolors, oz, ow, mode, wr, st);
     return launch_sweep<T>(so, q_in, b, q_out, res, nullptr, nx, ny, nine,
-                           colors, ncolors, oz, ow, mode, st);
+                           colors, ncolors, oz, ow, mode, nb, st);
   }
   // the Jacobi phases where an extent along a periodic axis is odd
   const bool jac = (wr.x && (nx & 1)) || (wr.y && (ny & 1));
@@ -264,7 +284,7 @@ int launch(const void* so, const void* q_in, const void* b, void* q_out,
   else if (per)
     fn = jac ? launch_resident<T, false, true, true>
              : launch_resident<T, false, true, false>;
-  return fn(so, q_in, b, q_out, res, nx, ny, colors, ncolors, oz, ow,
+  return fn(so, q_in, b, q_out, res, nx, ny, nb, colors, ncolors, oz, ow,
             emit_res, smem, wr, st);
 }
 
@@ -277,23 +297,25 @@ extern "C" {
 int cedar_sweep2_threads() { return cedar::kResThreads; }
 
 // One whole sweep of q_in into q_out, another array (res = b - A q_out
-// when emit_res), periodic along x (px) and y (py) where they are 1, on the
-// plan of ops/cuda2.py `plan`: the bytes of the one block that holds the
-// level (resident), or smem = 0 (streamed).  Returns a CUDA error code (0
-// on success).
+// when emit_res), on each of nb planes (q, b, res (nb, nx, ny), the stencil
+// (ndir, nb, nx, ny); nb = 1: one grid), periodic along x (px) and y (py)
+// where they are 1 (one plane only), on the plan of ops/cuda2.py `plan`:
+// the bytes of the one block that holds a plane (resident), or smem = 0
+// (streamed).  Returns a CUDA error code (0 on success).
 int cedar_sweep2(int dtype, const void* so, const void* q_in, const void* b,
-                 void* q_out, void* res, int nx, int ny, int nine, int colors,
-                 int ncolors, int oz, int ow, int emit_res, int px, int py,
-                 long long smem, void* stream) {
+                 void* q_out, void* res, int nx, int ny, int nb, int nine,
+                 int colors, int ncolors, int oz, int ow, int emit_res,
+                 int px, int py, long long smem, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   cedar::Wrap wr;
   wr.x = px != 0;
   wr.y = py != 0;
   if (dtype == cedar::kFloat32)
-    return cedar::launch<float>(so, q_in, b, q_out, res, nx, ny, nine, colors,
-                                ncolors, oz, ow, emit_res, wr, smem, st);
+    return cedar::launch<float>(so, q_in, b, q_out, res, nx, ny, nb, nine,
+                                colors, ncolors, oz, ow, emit_res, wr, smem,
+                                st);
   if (dtype == cedar::kFloat64)
-    return cedar::launch<double>(so, q_in, b, q_out, res, nx, ny, nine,
+    return cedar::launch<double>(so, q_in, b, q_out, res, nx, ny, nb, nine,
                                  colors, ncolors, oz, ow, emit_res, wr, smem,
                                  st);
   return (int)cudaErrorInvalidValue;

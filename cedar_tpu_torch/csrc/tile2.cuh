@@ -89,15 +89,15 @@ __device__ void load_region(T* s, const T* __restrict__ q, int z0, int w0,
 template <typename T, bool NINE, bool PER = false>
 __device__ __forceinline__ T residual_at(const T* s, int r, int c,
                                          const T* __restrict__ so,
+                                         long long sd,
                                          const T* __restrict__ b, int z,
                                          int w, int nx, int ny,
                                          Wrap wr = Wrap{}) {
   using A = Arith<T>;
   const long long i = (long long)z * ny + w;
   const T* qp = s + r * kRW + c;
-  return A::sub(A::add(b[i], offdiag_at<T, NINE, PER>(so, (long long)nx * ny,
-                                                      z, w, nx, ny, qp, kRW,
-                                                      wr)),
+  return A::sub(A::add(b[i], offdiag_at<T, NINE, PER>(so, sd, z, w, nx, ny,
+                                                      qp, kRW, wr)),
                 A::mul(so[i], *qp));
 }
 
@@ -113,12 +113,11 @@ __device__ __forceinline__ T residual_at(const T* s, int r, int c,
 // point (extents even along the periodic axes: the wrapped point has the
 // parity of the unwrapped one, so the mapping above holds).
 template <typename T, bool NINE, int RZ, bool PER = false>
-__device__ void phases(T* s, const T* __restrict__ so,
+__device__ void phases(T* s, const T* __restrict__ so, long long P,
                        const T* __restrict__ b, int z0, int w0, int nx,
                        int ny, int colors, int ncolors, int oz, int ow,
                        int d0, Wrap wr = Wrap{}) {
   using A = Arith<T>;
-  const long long P = (long long)nx * ny;
   for (int k = 0; k < ncolors; ++k) {
     const int color = (colors >> (4 * k)) & 15;
     const int lo = d0 + k;
@@ -155,13 +154,12 @@ __device__ void phases(T* s, const T* __restrict__ so,
 // them from the values before the phase.  A thread takes the region points
 // t, t + kThreads, ... (U of them), in registers.
 template <typename T, bool NINE, int RZ>
-__device__ void phases_jacobi(T* s, const T* __restrict__ so,
+__device__ void phases_jacobi(T* s, const T* __restrict__ so, long long P,
                               const T* __restrict__ b, int z0, int w0,
                               int nx, int ny, int colors, int ncolors,
                               int oz, int ow, int d0, Wrap wr) {
   using A = Arith<T>;
   constexpr int U = (RZ * kRW + kThreads - 1) / kThreads;
-  const long long P = (long long)nx * ny;
   const int t = threadIdx.y * kBlockX + threadIdx.x;
   for (int k = 0; k < ncolors; ++k) {
     const int color = (colors >> (4 * k)) & 15;
@@ -213,9 +211,9 @@ __device__ T block_sum(T v) {
 template <typename T, bool NINE, int H, bool PER = false>
 __device__ void store_tile(const T* s, T* __restrict__ q_out,
                            T* __restrict__ res, T* __restrict__ partials,
-                           const T* __restrict__ so, const T* __restrict__ b,
-                           int z0, int w0, int nx, int ny, int mode,
-                           Wrap wr = Wrap{}) {
+                           const T* __restrict__ so, long long sd,
+                           const T* __restrict__ b, int z0, int w0, int nx,
+                           int ny, int mode, Wrap wr = Wrap{}) {
   using A = Arith<T>;
   constexpr int TW = kRW - 2 * H;
   T acc = T(0);
@@ -228,7 +226,8 @@ __device__ void store_tile(const T* s, T* __restrict__ q_out,
       const long long i = (long long)z * ny + w;
       q_out[i] = s[r * kRW + c];
       if (mode == kNone) continue;
-      const T rv = residual_at<T, NINE, PER>(s, r, c, so, b, z, w, nx, ny, wr);
+      const T rv =
+          residual_at<T, NINE, PER>(s, r, c, so, sd, b, z, w, nx, ny, wr);
       if (mode == kRes)
         res[i] = rv;
       else
@@ -242,21 +241,32 @@ __device__ void store_tile(const T* s, T* __restrict__ q_out,
   }
 }
 
-// One multicolour sweep of q_in into q_out (+ res / partials).
+// One multicolour sweep of q_in into q_out (+ res / partials) on each of
+// nb independent planes, blockIdx.z the plane: q, b and res (nb, nx, ny),
+// the stencil (ndir, nb, nx, ny), so that stencil plane d of plane p sits
+// at so + d * nb*nx*ny + p * nx*ny.  Colours anchor to each plane's own
+// origin.  The norm partials (kNorm) are for one plane (nb = 1).
 template <typename T, bool NINE, int H>
 __global__ void __launch_bounds__(kThreads)
 sweep_fused(const T* __restrict__ so, const T* __restrict__ q_in,
             const T* __restrict__ b, T* __restrict__ q_out,
             T* __restrict__ res, T* __restrict__ partials, int nx, int ny,
-            int colors, int ncolors, int oz, int ow, int mode) {
+            int colors, int ncolors, int oz, int ow, int mode, int nb) {
   constexpr int TW = kRW - 2 * H, RZ = kTZ + 2 * H;
   __shared__ T s[RZ * kRW];
+  const long long N = (long long)nx * ny, pz = blockIdx.z * N;
+  so += pz;
+  q_in += pz;
+  b += pz;
+  q_out += pz;
+  if (mode == kRes) res += pz;
   const int z0 = blockIdx.y * kTZ - H, w0 = blockIdx.x * TW - H;
   load_region<T, RZ>(s, q_in, z0, w0, nx, ny);
   __syncthreads();
-  phases<T, NINE, RZ>(s, so, b, z0, w0, nx, ny, colors, ncolors, oz, ow, 1);
-  store_tile<T, NINE, H>(s, q_out, res, partials, so, b, z0, w0, nx, ny,
-                         mode);
+  phases<T, NINE, RZ>(s, so, nb * N, b, z0, w0, nx, ny, colors, ncolors, oz,
+                      ow, 1);
+  store_tile<T, NINE, H>(s, q_out, res, partials, so, nb * N, b, z0, w0, nx,
+                         ny, mode);
 }
 
 // K1's periodic mode: sweep_fused with the halo loaded and the couplings
@@ -271,41 +281,45 @@ sweep_wrap(const T* __restrict__ so, const T* __restrict__ q_in,
   constexpr int RZ = kTZ + 2 * H;
   __shared__ T s[RZ * kRW];
   const int z0 = blockIdx.y * kTZ - H, w0 = blockIdx.x * (kRW - 2 * H) - H;
+  const long long P = (long long)nx * ny;
   load_region<T, RZ, true>(s, q_in, z0, w0, nx, ny, wr);
   __syncthreads();
   if (JAC)
-    phases_jacobi<T, NINE, RZ>(s, so, b, z0, w0, nx, ny, colors, ncolors, oz,
-                               ow, 1, wr);
+    phases_jacobi<T, NINE, RZ>(s, so, P, b, z0, w0, nx, ny, colors, ncolors,
+                               oz, ow, 1, wr);
   else
-    phases<T, NINE, RZ, true>(s, so, b, z0, w0, nx, ny, colors, ncolors, oz,
-                              ow, 1, wr);
-  store_tile<T, NINE, H, true>(s, q_out, res, nullptr, so, b, z0, w0, nx, ny,
-                               mode, wr);
+    phases<T, NINE, RZ, true>(s, so, P, b, z0, w0, nx, ny, colors, ncolors,
+                              oz, ow, 1, wr);
+  store_tile<T, NINE, H, true>(s, q_out, res, nullptr, so, P, b, z0, w0, nx,
+                               ny, mode, wr);
 }
 
-// the grid of a tile kernel with halo H on an (nx, ny) grid
-inline dim3 tiles(int h, int nx, int ny) {
+// the grid of a tile kernel with halo H on nb planes of (nx, ny)
+inline dim3 tiles(int h, int nx, int ny, int nb = 1) {
   const int tw = kRW - 2 * h;
-  return dim3((ny + tw - 1) / tw, (nx + kTZ - 1) / kTZ);
+  return dim3((ny + tw - 1) / tw, (nx + kTZ - 1) / kTZ, nb);
 }
 
 template <typename T, bool NINE, int H>
 int launch_sweep_h(const void* so, const void* q_in, const void* b,
                    void* q_out, void* res, void* partials, int nx, int ny,
-                   int colors, int ncolors, int oz, int ow, int mode,
+                   int colors, int ncolors, int oz, int ow, int mode, int nb,
                    cudaStream_t st) {
-  sweep_fused<T, NINE, H><<<tiles(H, nx, ny), dim3(kBlockX, kBlockY), 0,
+  sweep_fused<T, NINE, H><<<tiles(H, nx, ny, nb), dim3(kBlockX, kBlockY), 0,
                             st>>>(
       (const T*)so, (const T*)q_in, (const T*)b, (T*)q_out, (T*)res,
-      (T*)partials, nx, ny, colors, ncolors, oz, ow, mode);
+      (T*)partials, nx, ny, colors, ncolors, oz, ow, mode, nb);
   return (int)cudaGetLastError();
 }
 
+// nb planes (the norm partials for one only)
 template <typename T>
 int launch_sweep(const void* so, const void* q_in, const void* b, void* q_out,
                  void* res, void* partials, int nx, int ny, int nine,
-                 int colors, int ncolors, int oz, int ow, int mode,
+                 int colors, int ncolors, int oz, int ow, int mode, int nb,
                  cudaStream_t st) {
+  if (nb < 1 || nb > 65535 || (mode == kNorm && nb != 1))
+    return (int)cudaErrorInvalidValue;
   auto fn = launch_sweep_h<T, false, sweep_halo(false, false)>;
   if (nine && mode != kNone)
     fn = launch_sweep_h<T, true, sweep_halo(true, true)>;
@@ -314,7 +328,7 @@ int launch_sweep(const void* so, const void* q_in, const void* b, void* q_out,
   else if (mode != kNone)
     fn = launch_sweep_h<T, false, sweep_halo(false, true)>;
   return fn(so, q_in, b, q_out, res, partials, nx, ny, colors, ncolors, oz,
-            ow, mode, st);
+            ow, mode, nb, st);
 }
 
 template <typename T, bool NINE, int H, bool JAC>

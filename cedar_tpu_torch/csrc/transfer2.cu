@@ -297,15 +297,22 @@ __global__ void interp_add_kernel(const T* __restrict__ ci_p,
 }
 
 // K5: x[z, w] = (P qc)[z, w], a new fine tensor (the F-cycle's level
-// entry: no residual, no addend).
+// entry: no residual, no addend), a thread a fine point.  blockIdx.z is the
+// plane of a batch of nb (plane relaxation's embedded F-cycles; the JAX
+// package's vmapped `interp_split_nores`): x (nb, nx, ny), qc (nb, nxc,
+// nyc), CI (8, nb, nxc+1, nyc+1), each plane as alone.
 template <typename T, bool PER>
 __global__ void interp_kernel(const T* __restrict__ ci_p,
                               const T* __restrict__ qc, T* __restrict__ x,
-                              int nx, int ny, int nxc, int nyc, Wrap wr) {
+                              int nx, int ny, int nxc, int nyc, int nb,
+                              Wrap wr) {
   const int w = blockIdx.x * blockDim.x + threadIdx.x;
   const int z = blockIdx.y * blockDim.y + threadIdx.y;
   if (z >= nx || w >= ny) return;
-  const CI<T> ci{ci_p, (long long)(nxc + 1) * (nyc + 1), nyc + 1};
+  const int p = blockIdx.z;
+  const CI<T> ci = ci_of(ci_p, p, nb, nxc, nyc);
+  qc += p * ((long long)nxc * nyc);
+  x += p * ((long long)nx * ny);
   if constexpr (!PER) {
     x[(long long)z * ny + w] = interp_value(ci, qc, z, w, nxc, nyc);
   } else {  // coarse index nxc (nyc) is index 0
@@ -362,10 +369,13 @@ int launch_interp_add(const void* ci, const void* so, const void* qc,
 
 template <typename T>
 int launch_interp(const void* ci, const void* qc, void* x, int nx, int ny,
-                  int nxc, int nyc, Wrap wr, cudaStream_t st) {
+                  int nxc, int nyc, int nb, Wrap wr, cudaStream_t st) {
+  if (nb < 1 || nb > 65535) return (int)cudaErrorInvalidValue;
   auto fn = (wr.x || wr.y) ? interp_kernel<T, true> : interp_kernel<T, false>;
-  fn<<<grid_for(nx, ny), dim3(kBlockX, kBlockY), 0, st>>>(
-      (const T*)ci, (const T*)qc, (T*)x, nx, ny, nxc, nyc, wr);
+  dim3 grid = grid_for(nx, ny);
+  grid.z = nb;
+  fn<<<grid, dim3(kBlockX, kBlockY), 0, st>>>(
+      (const T*)ci, (const T*)qc, (T*)x, nx, ny, nxc, nyc, nb, wr);
   return (int)cudaGetLastError();
 }
 
@@ -421,16 +431,20 @@ int cedar_interp_add2(int dtype, const void* ci, const void* so,
   return (int)cudaErrorInvalidValue;
 }
 
-// x (nx, ny) = P qc (nxc, nyc), written in full, periodic along x (px) and
-// y (py) where they are 1.  Returns cudaGetLastError().
+// x (nb, nx, ny) = P qc (nb, nxc, nyc), written in full, plane by plane,
+// periodic along x (px) and y (py) where they are 1.  Returns
+// cudaGetLastError().
 int cedar_interp2(int dtype, const void* ci, const void* qc, void* x, int nx,
-                  int ny, int nxc, int nyc, int px, int py, void* stream) {
+                  int ny, int nxc, int nyc, int nb, int px, int py,
+                  void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const cedar::Wrap wr = cedar::wrap_of(px, py);
   if (dtype == cedar::kFloat32)
-    return cedar::launch_interp<float>(ci, qc, x, nx, ny, nxc, nyc, wr, st);
+    return cedar::launch_interp<float>(ci, qc, x, nx, ny, nxc, nyc, nb, wr,
+                                       st);
   if (dtype == cedar::kFloat64)
-    return cedar::launch_interp<double>(ci, qc, x, nx, ny, nxc, nyc, wr, st);
+    return cedar::launch_interp<double>(ci, qc, x, nx, ny, nxc, nyc, nb, wr,
+                                        st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -13,10 +13,16 @@ stencil planes, q and b fit one block's shared memory is swept there
 Both return the swept iterate in a new tensor and leave ``q`` as it
 was, as the JAX function does.  ``periodic`` wraps the couplings around
 the marked axes (the Pallas kernel's ``periodic`` mode); the plan does not
-depend on it.  ``launches`` counts the streamed launches
-made by :func:`sweep`, ``resident_launches`` the resident ones,
-``plain_calls`` calls of :func:`sweep_plain`; ``periodic_launches`` and
-``periodic_resident_launches`` count the periodic ones among them.
+depend on it.  A batch of independent planes (plane relaxation's embedded
+point smoothers: ``q`` and ``b`` ``(B, nx, ny)``, ``so`` ``(ndir, B, nx,
+ny)``, never periodic) is one launch on the plan of one plane, each plane
+swept as alone, its colours anchored to its own origin (the Pallas
+sweep batched by ``pallas_call``'s vmap rule).  ``launches`` counts the
+streamed launches made by :func:`sweep`, ``resident_launches`` the
+resident ones, ``plain_calls`` calls of :func:`sweep_plain`;
+``periodic_launches`` and ``periodic_resident_launches`` count the
+periodic ones among them, ``batched_launches`` the batched ones (either
+regime).
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ launches = 0
 resident_launches = 0
 periodic_launches = 0
 periodic_resident_launches = 0
+batched_launches = 0
 plain_calls = 0
 
 #: threads of a resident block (csrc/sweep2.cu ``kResThreads``)
@@ -67,20 +74,23 @@ def plan(itemsize: int, nine: bool, shape) -> Plan:
     return Plan(size if size <= BLOCK_SMEM else 0)
 
 
-def _check_sweep(so, q, b, kind: StencilKind) -> None:
+def _check_sweep(so, q, b, kind: StencilKind, periodic=(False, False)):
     if kind not in (StencilKind.five_pt, StencilKind.nine_pt):
         # a phase updates its colour from the others' values only for
         # colourings in which no point couples to its own colour: red-black
         # 5-pt, 4-colour 9-pt
         raise ValueError(f"sweep takes 2D five_pt or nine_pt, not {kind}")
-    if q.ndim != 2 or b.shape != q.shape:
-        raise ValueError(f"q {tuple(q.shape)} and b {tuple(b.shape)}")
+    if q.ndim not in (2, 3) or b.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)} and b {tuple(b.shape)}: "
+                         "expected (nx, ny) or a batch (B, nx, ny)")
     if tuple(so.shape) != (kind.ndirs, *q.shape):
         raise ValueError(
             f"so {tuple(so.shape)} does not fit {kind} on {tuple(q.shape)}"
         )
     if b.data_ptr() == q.data_ptr():
         raise ValueError("b and q must not share storage")
+    if q.ndim == 3 and any(periodic):
+        raise ValueError("a batch of planes is never periodic")
 
 
 def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
@@ -89,9 +99,11 @@ def sweep(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
     """One full multicolour GS sweep on the card, one launch, out of place.
 
     Returns the swept iterate, or ``(q_new, b - A q_new)`` with
-    ``fuse_residual``; ``q`` is left as it was."""
-    _check_sweep(so, q, b, kind)
-    p = plan(q.element_size(), kind == StencilKind.nine_pt, tuple(q.shape))
+    ``fuse_residual``; ``q`` is left as it was.  A batch ``(B, nx, ny)``
+    is one launch on one plane's plan."""
+    _check_sweep(so, q, b, kind, periodic)
+    p = plan(q.element_size(), kind == StencilKind.nine_pt,
+             tuple(q.shape[-2:]))
     return _sweep(p, so, q, b, kind, updown, fuse_residual, origin, periodic)
 
 
@@ -99,9 +111,9 @@ def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
            origin=(0, 0), periodic=(False, False)):
     """:func:`sweep` on the plan ``p`` (tools/tune_fused2.py times both
     regimes at one shape)."""
-    global launches, resident_launches
+    global launches, resident_launches, batched_launches
     global periodic_launches, periodic_resident_launches
-    _check_sweep(so, q, b, kind)
+    _check_sweep(so, q, b, kind, periodic)
     dt = cuda_build.check_operands(so, q, b)
     lib = cuda_build.load("sweep2")
     nine = kind == StencilKind.nine_pt
@@ -109,11 +121,12 @@ def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
     res = torch.empty_like(q) if fuse_residual else None
     colors, ncolors = relax2.pack_colors(kind, updown)
     oz, ow = (int(o) for o in origin)
-    nx, ny = q.shape
+    nx, ny = q.shape[-2:]
+    nb = q.shape[0] if q.ndim == 3 else 1
     cuda_build.check(
         lib.cedar_sweep2(dt, so.data_ptr(), q.data_ptr(), b.data_ptr(),
                          q_out.data_ptr(),
-                         None if res is None else res.data_ptr(), nx, ny,
+                         None if res is None else res.data_ptr(), nx, ny, nb,
                          int(nine), colors, ncolors, oz, ow,
                          int(fuse_residual), int(bool(periodic[0])),
                          int(bool(periodic[1])), p.smem,
@@ -126,6 +139,7 @@ def _sweep(p: Plan, so, q, b, kind, updown, fuse_residual=False,
     else:
         launches += 1
         periodic_launches += any(periodic)
+    batched_launches += q.ndim == 3
     return (q_out, res) if fuse_residual else q_out
 
 
@@ -136,6 +150,6 @@ def sweep_plain(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
     leaves ``q`` as it was."""
     global plain_calls
     plain_calls += 1
-    _check_sweep(so, q, b, kind)
+    _check_sweep(so, q, b, kind, periodic)
     return relax2.sweep_torch(so, q, b, recip, kind, updown, fuse_residual,
                               origin, periodic)

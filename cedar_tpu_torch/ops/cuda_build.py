@@ -41,18 +41,20 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "sweep2": {
         "cedar_sweep2_threads": [],
-        # ends with the periodic axes, then its plan: smem (0: streamed)
+        # nx, ny, the planes of a batch; ends with the periodic axes, then
+        # its plan: smem (0: streamed)
         "cedar_sweep2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _L, _P],
+                         _I, _I, _I, _I, _L, _P],
     },
     "transfer2": {
         # K2 and K3 end with the periodic axes, then their plan: seg,
-        # nseg, threads, gy; K5 with the periodic axes
+        # nseg, threads, gy; K5 (nx, ny, nxc, nyc, the planes of a batch)
+        # with the periodic axes
         "cedar_restrict2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _I, _I, _I, _P],
         "cedar_interp_add2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _I, _I, _I, _I, _P],
-        "cedar_interp2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "cedar_interp2": [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     "lines2": {
         # end with the periodic axes (x, y)
@@ -76,8 +78,10 @@ SIGNATURES = {
                                 _I, _I, _I, _I, _I, _I, _I, _I, _I, _L, _P],
     },
     "planes2": {
+        # nb, nx, ny, nine, up, nsweeps, axes, then the plan: hx, hy, lx,
+        # ly, per_plane
         "cedar_line_xy_smooth2": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                  _I, _I, _I, _I, _I, _I, _L, _P],
+                                  _I, _I, _I, _I, _I, _I, _I, _L, _P],
     },
     "sweep3": {
         "cedar_sweep3_threads": [],

@@ -22,6 +22,14 @@ made by :func:`line_x` / :func:`line_y` (one a colour;
 ``periodic_launches`` the periodic ones among them), ``plain_calls``
 calls of the plain versions.
 
+A batch of independent planes (``q`` and ``b`` ``(B, nx, ny)``, ``so``
+``(ndir, B, nx, ny)``; plane relaxation's line-x and line-y plane
+smoothers, never periodic) goes to K10's one-direction mode
+(:func:`cedar_tpu_torch.ops.cuda_planes2.smooth` with ``axes`` "x" or
+"y", counted in its ``line_launches``): one launch for both colours of
+every plane, each line solved as here, so each plane equals its
+unbatched sweep bit for bit.  The plain versions take the batch as it is.
+
 ``periodic`` marks the periodic axes.  A line along a periodic axis is
 cyclic: the kernel stages it twice, with the right-hand side and with the
 Sherman–Morrison vector u, solves both with the modified matrix and
@@ -74,11 +82,14 @@ def group(n: int, nactive: int, itemsize: int, rows: int,
     return h, lines, fit == 0
 
 
-def _check(so, q, b, kind: StencilKind) -> None:
+def _check(so, q, b, kind: StencilKind, periodic=(False, False)) -> None:
     if kind not in (StencilKind.five_pt, StencilKind.nine_pt):
         raise ValueError(f"line sweep takes 2D five_pt or nine_pt, not {kind}")
-    if q.ndim != 2 or b.shape != q.shape:
-        raise ValueError(f"q {tuple(q.shape)} and b {tuple(b.shape)}")
+    if q.ndim not in (2, 3) or b.shape != q.shape:
+        raise ValueError(f"q {tuple(q.shape)} and b {tuple(b.shape)}: "
+                         "expected (nx, ny) or a batch (B, nx, ny)")
+    if q.ndim == 3 and any(periodic):
+        raise ValueError("a batch of planes is never periodic")
     if tuple(so.shape) != (kind.ndirs, *q.shape):
         raise ValueError(
             f"so {tuple(so.shape)} does not fit {kind} on {tuple(q.shape)}"
@@ -94,6 +105,8 @@ def _check(so, q, b, kind: StencilKind) -> None:
 def _launch(entry: str, so, q, b, kind: StencilKind, updown: str,
             nlines: int, length: int, periodic, cyclic: bool):
     global launches, periodic_launches
+    if q.ndim != 2:
+        raise ValueError(f"K4 takes one plane, not {tuple(q.shape)}")
     _check(so, q, b, kind)
     dt = cuda_build.check_operands(so, q, b)
     lib = cuda_build.load("lines2")
@@ -126,7 +139,10 @@ def _launch(entry: str, so, q, b, kind: StencilKind, updown: str,
 def line_x(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
            kind: StencilKind, updown: str,
            periodic=(False, False)) -> torch.Tensor:
-    """One zebra x-line sweep on the card, ``q`` updated in place."""
+    """One zebra x-line sweep on the card, ``q`` updated in place (a
+    batch of planes: one launch of K10's one-direction mode)."""
+    if q.ndim == 3:
+        return _batched(so, q, b, kind, updown, periodic, "x")
     nx, ny = q.shape
     lines2.check_lines(ny, periodic[1], "x")
     return _launch("cedar_line2_x", so, q, b, kind, updown, ny, nx, periodic,
@@ -138,10 +154,21 @@ def line_y(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
            periodic=(False, False)) -> torch.Tensor:
     """One zebra y-line sweep on the card, ``q`` updated in place; the
     operands are read where they lie (no transposes)."""
+    if q.ndim == 3:
+        return _batched(so, q, b, kind, updown, periodic, "y")
     nx, ny = q.shape
     lines2.check_lines(nx, periodic[0], "y")
     return _launch("cedar_line2_y", so, q, b, kind, updown, nx, ny, periodic,
                    bool(periodic[1]))
+
+
+def _batched(so, q, b, kind: StencilKind, updown: str, periodic,
+             axes: str) -> torch.Tensor:
+    """A zebra sweep of every plane of a batch: K10 along ``axes``."""
+    from cedar_tpu_torch.ops import cuda_planes2
+
+    _check(so, q, b, kind, periodic)
+    return cuda_planes2.smooth(so, q, b, kind, updown, 1, axes=axes)
 
 
 def line_x_plain(so, q, b, kind: StencilKind, updown: str, sor=None,
@@ -149,7 +176,7 @@ def line_x_plain(so, q, b, kind: StencilKind, updown: str, sor=None,
     """:func:`line_x` in torch ops, on any device; ``q`` in place."""
     global plain_calls
     plain_calls += 1
-    _check(so, q, b, kind)
+    _check(so, q, b, kind, periodic)
     return lines2.sweep_x_torch(so, q, b, sor, kind, updown, periodic)
 
 
@@ -158,5 +185,5 @@ def line_y_plain(so, q, b, kind: StencilKind, updown: str, sor=None,
     """:func:`line_y` in torch ops, on any device; ``q`` in place."""
     global plain_calls
     plain_calls += 1
-    _check(so, q, b, kind)
+    _check(so, q, b, kind, periodic)
     return lines2.sweep_y_torch(so, q, b, sor, kind, updown, periodic)

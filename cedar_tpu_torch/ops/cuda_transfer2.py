@@ -10,11 +10,13 @@ functions in torch ops (:mod:`cedar_tpu_torch.ops.interp2`).
 :mod:`cedar_tpu_torch.ops.interp2` picks one by device.
 
 The kernels read the unpadded CI ``(8, nxc+1, nyc+1)`` and the dense
-residual; interp-add updates ``q`` in place (both versions do).  Restrict
-and interp-add also take a batch of planes in one launch: ``res`` / ``q``
-``(B, nx, ny)``, ``so`` ``(ndir, B, nx, ny)``, CI ``(8, B, nxc+1, nyc+1)``.
+residual; interp-add updates ``q`` in place (both versions do).  All
+three also take a batch of planes in one launch: ``res`` / ``q`` / ``x``
+``(B, nx, ny)``, ``qc`` ``(B, nxc, nyc)``, ``so`` ``(ndir, B, nx, ny)``,
+CI ``(8, B, nxc+1, nyc+1)`` (K5 a grid z over the planes).
 ``*_launches`` count kernel launches (``*_periodic_launches`` the periodic
-ones among them), ``*_plain_calls`` plain-version calls.
+ones among them, ``interp2_batched_launches`` K5's batched ones),
+``*_plain_calls`` plain-version calls.
 Each takes ``periodic``: the restriction's fine samples wrap around the
 marked axes, and the interpolations read coarse index ``nxc`` (``nyc``) as
 index 0; the weights' wrap entries come from setup
@@ -41,6 +43,7 @@ interp2_launches = 0
 restrict_periodic_launches = 0
 interp_periodic_launches = 0
 interp2_periodic_launches = 0
+interp2_batched_launches = 0
 restrict_plain_calls = 0
 interp_plain_calls = 0
 interp2_plain_calls = 0
@@ -187,27 +190,40 @@ def interp_add(ci, so, qc, res, q, periodic=(False, False)) -> torch.Tensor:
     return q
 
 
+def _check_interp(ci, qc, fine_shape) -> tuple[int, int]:
+    """The coarse shape of ``x = P qc`` on ``fine_shape`` (``(nx, ny)`` or
+    ``(B, nx, ny)``), checked."""
+    if len(fine_shape) not in (2, 3):
+        raise ValueError(f"interp takes (nx, ny) or (B, nx, ny), not "
+                         f"{tuple(fine_shape)}")
+    nc = _coarse_shape(ci, fine_shape)
+    want = tuple(fine_shape[:-2]) + nc
+    if tuple(qc.shape) != want:
+        raise ValueError(f"qc {tuple(qc.shape)}, expected {want}")
+    return nc
+
+
 def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape,
            periodic=(False, False)) -> torch.Tensor:
-    """``x = P qc`` on the card; returns a new ``fine_shape`` tensor."""
+    """``x = P qc`` on the card; returns a new ``fine_shape`` tensor (a
+    batch ``(B, nx, ny)``: one launch)."""
     global interp2_launches, interp2_periodic_launches
-    if len(fine_shape) != 2:
-        raise ValueError(f"interp takes one plane, not {tuple(fine_shape)}")
-    nxc, nyc = _coarse_shape(ci, fine_shape)
-    if tuple(qc.shape) != (nxc, nyc):
-        raise ValueError(f"qc {tuple(qc.shape)}, expected {(nxc, nyc)}")
+    global interp2_batched_launches
+    nxc, nyc = _check_interp(ci, qc, fine_shape)
     dt = cuda_build.check_operands(ci, qc)
     lib = cuda_build.load("transfer2")
-    nx, ny = fine_shape
-    x = qc.new_empty((nx, ny))
+    nx, ny = fine_shape[-2:]
+    nb = fine_shape[0] if len(fine_shape) == 3 else 1
+    x = qc.new_empty(tuple(fine_shape))
     cuda_build.check(
         lib.cedar_interp2(dt, ci.data_ptr(), qc.data_ptr(), x.data_ptr(), nx,
-                          ny, nxc, nyc, *_wrap(periodic),
+                          ny, nxc, nyc, nb, *_wrap(periodic),
                           cuda_build.stream_of(qc)),
         "interp2",
     )
     interp2_launches += 1
     interp2_periodic_launches += any(periodic)
+    interp2_batched_launches += len(fine_shape) == 3
     return x
 
 
@@ -234,7 +250,5 @@ def interp_plain(ci: torch.Tensor, qc: torch.Tensor, fine_shape,
     """:func:`interp` in torch ops, on any device."""
     global interp2_plain_calls
     interp2_plain_calls += 1
-    nc = _coarse_shape(ci, fine_shape)
-    if tuple(qc.shape) != nc:
-        raise ValueError(f"qc {tuple(qc.shape)}, expected {nc}")
+    _check_interp(ci, qc, fine_shape)
     return interp2.interp_torch(ci, qc, fine_shape, periodic)

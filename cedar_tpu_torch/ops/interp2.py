@@ -266,9 +266,10 @@ def interp_add_torch(ci, so, qc, res, q,
 
 def interp_torch(ci, qc, fine_shape, periodic=(False, False)) -> torch.Tensor:
     """``P qc`` on the fine grid in torch ops (the F-cycle's level entry:
-    :func:`interp_add_torch` with zero residual and zero addend, exactly);
-    returns a new tensor."""
-    nx, ny = fine_shape
+    :func:`interp_add_torch` with zero residual and zero addend, exactly;
+    ``fine_shape`` ``(nx, ny)`` or a batch ``(B, nx, ny)``); returns a new
+    tensor."""
+    nx, ny = fine_shape[-2:]
     return interleave2(_interp_parts(ci, qc, nx, ny, periodic=periodic),
                        nx, ny)
 

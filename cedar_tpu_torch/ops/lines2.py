@@ -31,7 +31,9 @@ goes through the same code.
 :func:`line_relax_x` and :func:`line_relax_y` dispatch by device, as
 :func:`cedar_tpu_torch.ops.relax2.point_relax` does: a CUDA tensor goes to
 the line kernel (:mod:`cedar_tpu_torch.ops.cuda_lines2`, factored on the
-fly), a CPU tensor to its plain version.  Both update ``q`` IN PLACE.
+fly; a batch of planes ``(B, nx, ny)`` with ``so`` ``(ndir, B, nx, ny)``,
+never periodic, one launch of the batched mode), a CPU tensor to its plain
+version.  Both update ``q`` IN PLACE.
 
 Periodic grids (``periodic``): across a periodic axis the right-hand side
 wraps around, and the number of lines must be even (line 0 and the last

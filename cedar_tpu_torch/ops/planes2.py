@@ -12,6 +12,9 @@ to kernel K10 (:mod:`cedar_tpu_torch.ops.cuda_planes2`, one launch for all
 sweeps of all planes), a CPU tensor to its plain version.  Both update
 ``q`` IN PLACE.  ``sor_x`` / ``sor_y`` (:func:`~cedar_tpu_torch.ops.
 lines2.setup_lines` factors of the batch, or None) feed the CPU path only.
+:func:`line_nsmooth` runs the zebra x-line or y-line sweeps alone (K10's
+one-direction mode on the card: the batched K4 of line-x and line-y plane
+smoothers).
 """
 
 from __future__ import annotations
@@ -21,16 +24,23 @@ import torch
 from cedar_tpu_torch.core.types import StencilKind
 
 
-def _smooth(so, q, b, kind, updown, nsweeps, emit_res, sor_x, sor_y):
+def line_nsmooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
+                 kind: StencilKind, updown: str, nsweeps: int, axes: str,
+                 emit_res: bool = False, sor_x=None, sor_y=None):
+    """``nsweeps`` smooths of every plane along ``axes`` ("x": zebra
+    x-line sweeps, "y": y-line sweeps, "xy": line-xy smooths), IN PLACE on
+    ``q``, with the residual ``b - A q`` in the same launch where
+    ``emit_res``.  Returns ``q`` or ``(q, res)``."""
     from cedar_tpu_torch.ops import cuda_planes2
 
     if q.is_cuda:
-        return cuda_planes2.smooth(so, q, b, kind, updown, nsweeps, emit_res)
+        return cuda_planes2.smooth(so, q, b, kind, updown, nsweeps, emit_res,
+                                   axes)
     if q.device.type != "cpu":
-        raise NotImplementedError(f"no line-xy smooth for tensors on "
+        raise NotImplementedError(f"no line smooth for tensors on "
                                   f"{q.device}")
     return cuda_planes2.smooth_plain(so, q, b, kind, updown, nsweeps,
-                                     emit_res, sor_x, sor_y)
+                                     emit_res, sor_x, sor_y, axes)
 
 
 def line_xy_smooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
@@ -38,7 +48,8 @@ def line_xy_smooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
                    sor_x=None, sor_y=None) -> torch.Tensor:
     """``nsweeps`` line-xy smooths of every plane (x zebra then y zebra
     DOWN, y then x UP), IN PLACE on ``q``; returns ``q``."""
-    return _smooth(so, q, b, kind, updown, nsweeps, False, sor_x, sor_y)
+    return line_nsmooth(so, q, b, kind, updown, nsweeps, "xy", False, sor_x,
+                        sor_y)
 
 
 def line_xy_nsmooth_res(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
@@ -46,4 +57,5 @@ def line_xy_nsmooth_res(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
                         sor_x=None, sor_y=None):
     """:func:`line_xy_smooth`, then the residual ``b - A q`` in the same
     launch.  Returns ``(q, res)``."""
-    return _smooth(so, q, b, kind, updown, nsweeps, True, sor_x, sor_y)
+    return line_nsmooth(so, q, b, kind, updown, nsweeps, "xy", True, sor_x,
+                        sor_y)

@@ -7,9 +7,14 @@ with its own 2D solver (configured by ``plane-config``, default one
 V(2,1) cycle of line-xy relaxation, src/kernel_params.cc:72-78).  The
 planes of a colour are independent, so here they run as ONE batched 2D
 cycle over a batched 2D hierarchy (:mod:`cedar_tpu_torch.solver.cycle2`
-on levels holding ``(ndir, B, n1, n2)`` stencils): on the card each
-line-xy smooth of the whole batch is one launch of kernel K10, each
-transfer one launch of K2 or K3.
+on levels holding ``(ndir, B, n1, n2)`` stencils), the V- or F-cycle of
+``plane-config`` with its relaxation (point, line-x, line-y or line-xy)
+and its coarse solve (LU, or the inner multigrid solve of ``cg-solver:
+cedar``, batched too, each plane stopping on its own convergence): on the
+card each smooth of the whole batch is one launch (K1 a point sweep; K10
+all pre- or post-smooths of line-xy, and of line-x or line-y in its
+one-direction mode), each transfer one launch of K2, K3 or K5 (the
+F-cycle's interpolation).
 
 Plane 2D operators are the in-plane couplings with the full 3D diagonal
 (copy_coeff, relax_planes.h:77-161):
@@ -53,6 +58,10 @@ PLANE_SPECS = {
     "xz": (1, [Dir3.P, Dir3.PW, Dir3.B], [Dir3.BW, Dir3.BE]),
     "yz": (0, [Dir3.P, Dir3.PS, Dir3.B], [Dir3.BS, Dir3.BN]),
 }
+
+#: the relaxations of the embedded plane solvers
+PLANE_RELAX = (RelaxType.point, RelaxType.line_x, RelaxType.line_y,
+               RelaxType.line_xy)
 
 ORIENTS_OF = {
     RelaxType.plane_xy: ("xy",),
@@ -103,8 +112,10 @@ def setup_planes(levels, kinds, settings: MLSettings) -> tuple:
     """Attach the batched 2D plane hierarchies to every non-coarsest level:
     per orientation, one hierarchy per zebra colour over that colour's
     planes, each built from its own coefficient slices with
-    ``compute_num_levels(n1, n2, plane min-coarse)`` levels (as the JAX
-    package's ``setup_planes`` does)."""
+    ``compute_num_levels(n1, n2, plane min-coarse)`` levels from the plane
+    settings (the relaxation's workspace: 1/diag for point relaxation, the
+    line factors on the CPU; an inner hierarchy under ``cg-solver:
+    cedar``), as the JAX package's ``setup_planes`` does."""
     from cedar_tpu_torch.solver import solver2
 
     psettings = settings.plane_settings

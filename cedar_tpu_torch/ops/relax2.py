@@ -11,7 +11,10 @@ reference (BMG2_SymStd_relax_GS.f90):
 * 9-point: four colours ``(w % 2, z % 2)`` in the order
   ``(0,0), (0,1), (1,0), (1,1)`` DOWN, reversed UP.
 
-Colours anchor to GLOBAL indices ``(z + origin[0], w + origin[1])``.
+Colours anchor to GLOBAL indices ``(z + origin[0], w + origin[1])``.  A
+batch of independent planes (``q`` ``(B, nx, ny)``, ``so`` ``(ndir, B,
+nx, ny)``: plane relaxation's embedded point smoothers) is swept plane by
+plane, each plane's colours anchored to its own origin.
 
 On a periodic axis (``periodic``, cedar_tpu/ops/relax2.py:73-83) the
 couplings wrap around.  Along a periodic axis of odd extent the wrap couples
@@ -61,9 +64,11 @@ def pack_colors(kind: StencilKind, updown: str) -> tuple[int, int]:
 
 def color_masks(shape, kind: StencilKind, updown: str, origin=(0, 0),
                 device=None):
-    """Boolean masks for each colour phase, in reference sweep order."""
-    zp = (torch.arange(shape[0], device=device)[:, None] + origin[0]) % 2
-    wp = (torch.arange(shape[1], device=device)[None, :] + origin[1]) % 2
+    """Boolean masks for each colour phase, in reference sweep order,
+    colouring the last two axes of ``shape``: each plane of a batch ``(B,
+    nx, ny)`` is coloured from its own origin."""
+    zp = (torch.arange(shape[-2], device=device)[:, None] + origin[0]) % 2
+    wp = (torch.arange(shape[-1], device=device)[None, :] + origin[1]) % 2
     masks = []
     for c in color_order(kind, updown):
         if kind == StencilKind.five_pt:

@@ -13,11 +13,20 @@ path does; line relaxation computes each residual separately.
 
 A hierarchy whose levels hold a batch of planes (3D plane relaxation's
 embedded cycles: ``so`` ``(ndir, B, nx, ny)``, ``x`` ``(B, nx, ny)``) runs
-the same cycle over the batch.  Its line-xy smoothing goes through
-:mod:`cedar_tpu_torch.ops.planes2` (kernel K10 on the card): all
-pre-smooths and the residual that feeds the restriction in one call, as
-the JAX package does under ``_line_fused_ok``, and all post-smooths in
-another.
+the same dense V- or F-cycle over the batch (:func:`_batched_smooth`):
+point relaxation by the batched sweep (kernel K1, one launch a sweep of
+every plane; the last pre-sweep emits the residual), line-x, line-y and
+line-xy through :mod:`cedar_tpu_torch.ops.planes2` (kernel K10, in its
+one-direction mode for line-x and line-y): all pre-smooths and the
+residual that feeds the restriction in one call, as the JAX package does
+under ``_line_fused_ok``, and all post-smooths in another.  The F-cycle's
+level entry is the batched interpolation (K5).
+
+The coarsest level solves by LU (``ainv``) or, under ``cg-solver:
+cedar``, by the inner multigrid solve over its ``inner`` hierarchy
+(:func:`coarse_solve`, :mod:`cedar_tpu_torch.solver.inner`: a masked loop
+of ``max-iter`` inner cycles that the captured cycle holds whole), batched
+planes included.
 
 Each op returns the new iterate and the cycles rebind it.  Interpolation
 and line smoothing update the iterate in place (a point sweep does not):
@@ -48,6 +57,7 @@ from __future__ import annotations
 
 import torch
 
+from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import cg, planes2
 from cedar_tpu_torch.ops.fused2 import (
     interp_add_split, interp_sweep_split, point_relax_split,
@@ -58,7 +68,23 @@ from cedar_tpu_torch.ops.lines2 import line_relax_x, line_relax_y
 from cedar_tpu_torch.ops.relax2 import point_relax
 from cedar_tpu_torch.ops.stencil2 import residual
 from cedar_tpu_torch.settings import CycleType, MLSettings, RelaxType
+from cedar_tpu_torch.solver import inner
 from cedar_tpu_torch.utils.timing import scope
+
+# relaxation -> the line axes of a batched line smooth
+_LINE_AXES = {RelaxType.line_x: "x", RelaxType.line_y: "y",
+              RelaxType.line_xy: "xy"}
+
+
+def coarse_solve(lev, b: torch.Tensor, settings: MLSettings,
+                 periodic=(False, False)) -> torch.Tensor:
+    """The coarsest level's solve: the inner multigrid solve where the
+    level holds an inner hierarchy (``cg-solver: cedar``; the JAX package's
+    ``_coarse_solve_inner``), else the LU solve."""
+    if lev.inner is not None:
+        return inner.solve(run_cycle, residual, StencilKind.nine_pt, lev, b,
+                           settings, periodic, 2)
+    return cg.solve_cg(lev.ainv, b)
 
 
 def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
@@ -89,14 +115,29 @@ def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
 
 def _batched_smooth(lev, kind, x, b, settings: MLSettings, updown: str,
                     nsweeps: int, emit_res: bool = False):
-    """``nsweeps`` line-xy smooths of a batch of planes (plane relaxation
-    embeds only line-xy cycles)."""
-    if settings.relaxation != RelaxType.line_xy:
-        raise ValueError(f"batched 2D levels relax by line-xy, not "
-                         f"{settings.relaxation.value}")
-    smooth = (planes2.line_xy_nsmooth_res if emit_res
-              else planes2.line_xy_smooth)
-    return smooth(lev.so, x, b, kind, updown, nsweeps, lev.sor_x, lev.sor_y)
+    """``nsweeps`` smooths of a batch of planes, then, with ``emit_res``,
+    the residual ``b - A x`` (returns ``(x, res)``): point relaxation by
+    the batched sweep, the last one emitting the residual (with no sweep
+    the residual alone); line-x, line-y and line-xy in one
+    :func:`~cedar_tpu_torch.ops.planes2.line_nsmooth` call, in place."""
+    rt = settings.relaxation
+    if rt == RelaxType.point:
+        res = None
+        for k in range(nsweeps):
+            if emit_res and k == nsweeps - 1:
+                x, res = point_relax(lev.so, x, b, lev.recip, kind, updown,
+                                     fuse_residual=True)
+            else:
+                x = point_relax(lev.so, x, b, lev.recip, kind, updown)
+        if not emit_res:
+            return x
+        return x, residual(lev.so, x, b, kind) if res is None else res
+    if rt not in _LINE_AXES:
+        raise ValueError(f"invalid relaxation of a batch of planes: "
+                         f"{rt.value}")
+    return planes2.line_nsmooth(lev.so, x, b, kind, updown, nsweeps,
+                                _LINE_AXES[rt], emit_res, lev.sor_x,
+                                lev.sor_y)
 
 
 def fuse_final_ok(levels, settings: MLSettings) -> bool:
@@ -123,7 +164,8 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
     lev, kind = levels[lvl], kinds[lvl]
     pre = settings.nrelax_pre
     if x.ndim == 3:
-        # a batch of planes: all pre-smooths + the residual in one call
+        # a batch of planes: all pre-smooths + the residual (one call of
+        # the line smooth; the point sweeps' last emits it)
         with scope("relaxation-residual-fused"):
             x, res = _batched_smooth(lev, kind, x, b, settings, "down", pre,
                                      emit_res=True)
@@ -148,7 +190,7 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
         cb = restrict(coarse.ci, res, periodic)
     if lvl + 1 == len(levels) - 1:
         with scope("coarse-solve"):
-            cx = cg.solve_cg(coarse.ainv, cb)
+            cx = coarse_solve(coarse, cb, settings, periodic)
     else:
         cx = torch.zeros_like(cb)
         for _ in range(n):
@@ -233,7 +275,7 @@ def ncycle_split(levels, kinds, x: torch.Tensor, b: torch.Tensor,
 
     if lvl + 1 == len(levels) - 1:
         with scope("coarse-solve"):
-            cx = cg.solve_cg(coarse.ainv, cb)
+            cx = coarse_solve(coarse, cb, settings)
     elif _split_ok_at(levels, lvl + 1, settings):
         cx, _ = ncycle_split(levels, kinds, torch.zeros_like(cb), cb,
                              settings, lvl=lvl + 1)
@@ -278,7 +320,7 @@ def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
     lev = levels[lvl]
     if lvl == len(levels) - 1:
         with scope("coarse-solve"):
-            return cg.solve_cg(lev.ainv, b)
+            return coarse_solve(lev, b, settings, periodic)
     coarse = levels[lvl + 1]
     with scope("restrict"):
         cb = restrict(coarse.ci, b, periodic)
@@ -298,7 +340,7 @@ def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
     returns the new iterate.  The dense V-cycle may overwrite ``x``, the
     fused one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
     if len(levels) == 1:
-        return cg.solve_cg(levels[0].ainv, b)
+        return coarse_solve(levels[0], b, settings, periodic)
     if settings.cycle == CycleType.f:
         return fmg_cycle(levels, kinds, 0, b, settings, periodic)
     if fine_split_ok(levels, settings, periodic):

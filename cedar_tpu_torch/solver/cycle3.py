@@ -30,6 +30,12 @@ the buffers on.  The ``q`` that the fused pre-sweep returns is the
 residual, the cycle's invariant, so the ``x`` it is given is never
 written.
 
+The coarsest level solves by LU (``ainv``) or, under ``cg-solver:
+cedar``, by the inner multigrid solve over its ``inner`` hierarchy (27-point
+levels, point relaxation; :func:`coarse_solve`,
+:mod:`cedar_tpu_torch.solver.inner`), in every cycle, the fused one
+included.
+
 ``periodic`` (``grid.periodic``) goes to every sweep, residual, transfer
 and plane relaxation of the dense cycle.  The fused cycle stays off on
 periodic grids (:func:`fine_split_ok`), as in the JAX package, which
@@ -41,6 +47,7 @@ from __future__ import annotations
 
 import torch
 
+from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import cg, planes3
 from cedar_tpu_torch.ops.fused3 import (
     interp_sweep_split3, point_relax_split3, sweep_restrict_split3,
@@ -49,7 +56,19 @@ from cedar_tpu_torch.ops.interp3 import interp, interp_add, restrict
 from cedar_tpu_torch.ops.relax3 import point_relax
 from cedar_tpu_torch.ops.stencil3 import residual
 from cedar_tpu_torch.settings import CycleType, MLSettings, RelaxType
+from cedar_tpu_torch.solver import inner
 from cedar_tpu_torch.utils.timing import scope
+
+
+def coarse_solve(lev, b: torch.Tensor, settings: MLSettings,
+                 periodic=(False, False, False)) -> torch.Tensor:
+    """The coarsest level's solve: the inner multigrid solve where the
+    level holds an inner hierarchy (``cg-solver: cedar``; the JAX package's
+    ``_coarse_solve_inner``), else the LU solve."""
+    if lev.inner is not None:
+        return inner.solve(run_cycle, residual, StencilKind.twenty_seven_pt,
+                           lev, b, settings, periodic, 3)
+    return cg.solve_cg(lev.ainv, b)
 
 
 def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
@@ -124,7 +143,7 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
         cb = restrict(coarse.ci, res, periodic)
     if lvl + 1 == len(levels) - 1:
         with scope("coarse-solve"):
-            cx = cg.solve_cg(coarse.ainv, cb)
+            cx = coarse_solve(coarse, cb, settings, periodic)
     else:
         cx = torch.zeros_like(cb)
         for _ in range(n):
@@ -189,7 +208,7 @@ def ncycle_split(levels, kinds, x: torch.Tensor, b: torch.Tensor,
     is never stored: the fused interp-add recomputes it from the
     pre-smoothed iterate and runs the first post-sweep.  The next level
     runs fused too where :func:`_split_ok_at` allows, else the dense
-    :func:`ncycle`; the coarse solve is the LU solve.  Returns ``(x,
+    :func:`ncycle`; the coarse solve is :func:`coarse_solve`.  Returns ``(x,
     None)``, or with ``fuse_final_residual`` ``(x, partials)``: partial
     sums of the squared residual of the last post-sweep, whose sum is
     ``‖b - A x‖²``.  ``x`` is not modified.  Callers check
@@ -205,7 +224,7 @@ def ncycle_split(levels, kinds, x: torch.Tensor, b: torch.Tensor,
 
     if lvl + 1 == len(levels) - 1:
         with scope("coarse-solve"):
-            cx = cg.solve_cg(coarse.ainv, cb)
+            cx = coarse_solve(coarse, cb, settings)
     elif _split_ok_at(levels, lvl + 1, settings):
         cx, _ = ncycle_split(levels, kinds, torch.zeros_like(cb), cb,
                              settings, lvl=lvl + 1)
@@ -246,7 +265,7 @@ def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
     lev = levels[lvl]
     if lvl == len(levels) - 1:
         with scope("coarse-solve"):
-            return cg.solve_cg(lev.ainv, b)
+            return coarse_solve(lev, b, settings, periodic)
     coarse = levels[lvl + 1]
     with scope("restrict"):
         cb = restrict(coarse.ci, b, periodic)
@@ -266,7 +285,7 @@ def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
     returns the new iterate.  The dense V-cycle may overwrite ``x``, the
     fused one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
     if len(levels) == 1:
-        return cg.solve_cg(levels[0].ainv, b)
+        return coarse_solve(levels[0], b, settings, periodic)
     if settings.cycle == CycleType.f:
         return fmg_cycle(levels, kinds, 0, b, settings, periodic)
     if fine_split_ok(levels, settings, periodic):

@@ -2,13 +2,15 @@
 
 PyTorch counterpart of :mod:`cedar_tpu.solver.level`, with the fields the
 2D point- and line-relaxation and the 3D point- and plane-relaxation paths
-with a direct coarse solve use.  ``levels[l+1].ci`` interpolates level
-``l+1`` -> ``l``; ``ainv`` is set on the coarsest level.
+use.  ``levels[l+1].ci`` interpolates level ``l+1`` -> ``l``; the coarsest
+level holds ``ainv`` (the direct coarse solve) or ``inner`` (``cg-solver:
+cedar``: the nested hierarchy of the inner multigrid solve, itself a tuple
+of levels whose coarsest may hold an ``inner`` again).
 
 A level of a batched 2D hierarchy (the embedded plane solvers of plane
 relaxation) holds a batch of planes, the batch axis after the leading
 axis: ``so`` ``(ndir, B, nx, ny)``, ``ci`` ``(8, B, …)``, ``sor_*`` ``(2,
-B, nx, ny)``, ``ainv`` ``(B, n, n)``.
+B, nx, ny)``, ``ainv`` ``(B, n, n)``; its ``inner`` is batched alike.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ class Level(NamedTuple):
     # 3D plane relaxation: orient -> (colour 0, colour 1) batched 2D
     # hierarchies of the planes of that zebra colour (None when empty)
     planes: Optional[dict] = None
+    # coarsest, cg-solver cedar: the inner solver's hierarchy
+    inner: Optional[tuple] = None
 
 
 def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
@@ -38,7 +42,9 @@ def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
     package's :class:`Level` tuple.
 
     Each entry is a mapping or a ``NamedTuple`` with any of the fields
-    ``so``, ``recip``, ``ci``, ``sor_x``, ``sor_y``, ``ainv``, ``planes``;
+    ``so``, ``recip``, ``ci``, ``sor_x``, ``sor_y``, ``ainv``, ``planes``,
+    ``inner`` (the nested hierarchy of ``cg-solver: cedar``, carried across
+    the same way, to any depth);
     other fields are ignored, among them the TPU layouts that the port's
     dense kernels do not use: those of a JAX ``Solver2`` hierarchy with
     ``kernels.fine-split`` (``cip``, the padded CI; ``rec2``, the
@@ -57,21 +63,23 @@ def levels_from_numpy(levels_np, device=None, dtype=None) -> tuple:
 
     ``planes`` (orient -> the JAX package's batched 2D hierarchy over all
     planes, batch axis first: ``(B, ndir, nx, ny)``, ``(B, 8, …)``, ``(B, n,
-    n)``) becomes orient -> one hierarchy per zebra colour in this
-    package's layout, the planes ``c::2`` of the batch, contiguous.
+    n)``, its ``inner`` batched alike) becomes orient -> one hierarchy per
+    zebra colour in this package's layout, the planes ``c::2`` of the
+    batch, contiguous.
     """
     out = []
     for lev in levels_np:
         fields = _fields(lev)
         conv = {k: torch.tensor(np.asarray(fields[k]), dtype=dtype,
                                 device=device)
-                for k in Level._fields
-                if k != "planes" and _is_array(fields.get(k))}
+                for k in Level._fields if _is_array(fields.get(k))}
         if fields.get("planes") is not None:
             conv["planes"] = {
                 orient: tuple(_colour(hier, c, device, dtype) for c in (0, 1))
                 for orient, hier in fields["planes"].items()
             }
+        if fields.get("inner") is not None:
+            conv["inner"] = levels_from_numpy(fields["inner"], device, dtype)
         out.append(Level(**conv))
     return tuple(out)
 
@@ -87,14 +95,16 @@ def _is_array(v) -> bool:
 def _colour(hier, c: int, device, dtype):
     """The planes ``c::2`` of a batch-first JAX plane hierarchy, moved to
     this package's layout (batch axis after the leading axis of the
-    stencil, CI and line factors; first for ``ainv`` and ``recip``), or
-    None when that colour has no plane."""
+    stencil, CI and line factors; first for ``ainv`` and ``recip``), its
+    ``inner`` hierarchy too, or None when that colour has no plane."""
     levels = []
     for lev in hier:
         fields = _fields(lev)
         conv = {}
+        if fields.get("inner") is not None:
+            conv["inner"] = _colour(fields["inner"], c, device, dtype)
         for k in Level._fields:
-            if k == "planes" or not _is_array(fields.get(k)):
+            if not _is_array(fields.get(k)):
                 continue
             a = np.asarray(fields[k])
             if a.shape[0] <= c:

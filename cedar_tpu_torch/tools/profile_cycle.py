@@ -1,6 +1,6 @@
 """Where the time of one 2D or 3D cycle goes on the card.
 
-Builds one of eleven float32 configurations — ``vcycle`` (default: Poisson
+Builds one of eighteen float32 configurations — ``vcycle`` (default: Poisson
 4096², V(1,1), the fused fine-level cycle that the solver runs on the card
 by default), ``vcycle-dense`` (the same with ``kernels.fine-split`` false:
 the dense cycle), ``linexy`` (9-point ``gallery.fe`` 2048², line-xy V(1,1)),
@@ -14,8 +14,16 @@ plane-xy V(1,1) with the
 default plane-config: ``3d_aniso_planexy_128``) or ``vcycle-periodic``
 (Poisson 4096² periodic in x, V(1,1): the dense cycle with K1-K3 in their
 periodic modes) or ``vcycle3-periodic`` (7-point Poisson 256³ periodic in
-x, V(1,1): the dense cycle with K6-K8 in their periodic modes) — runs a
-few warm-up
+x, V(1,1): the dense cycle with K6-K8 in their periodic modes), or the
+configurations of the inner multigrid coarse solve and of the
+plane-configs beyond line-xy V-cycles: ``planexy-point``,
+``planexy-linex``, ``planexy-fcycle`` (``3d_aniso_planexy_128`` with one
+embedded point V(2,1), line-x V(2,1) or line-xy F-cycle a colour: the
+batched K1, K4 (K10's one-direction mode) and K5), ``planexy-cedar``
+(line-xy with ``cg-solver: cedar``, plane min-coarse 16, the inner solve
+of 10 steps), ``vcycle-cedar`` (Poisson 4096², V(1,1), ``num-levels: 3``,
+``cg-solver: cedar`` with a cg-config of tol 1e-4 and 10 steps) and
+``vcycle3-cedar`` (7-point Poisson 256³, the same) — runs a few warm-up
 cycles, then traces ten cycles with ``torch.profiler``, twice: eagerly
 (``[eager]``, each iteration as the CPU's solve loop runs it, one launch
 at a time) and as replays of the solver's captured CUDA graph
@@ -32,6 +40,11 @@ at a time) and as replays of the solver's captured CUDA graph
   (with plane relaxation the embedded 2D cycles' scopes run inside the
   outer "relaxation" and count in both; a replay runs no scope).
 
+With an inner coarse solve it then traces the solve alone (the outer
+coarsest level's, or the first plane hierarchy's: a batch of planes) as
+replays of a graph of its own (``[inner graph]``, ms per solve), and
+prints how many of its steps were active in one eager cycle.
+
 Where the profiler reports no device time for the replays, it says so
 and gives their CUDA-event wall time alone.
 
@@ -39,7 +52,9 @@ Run from the repository root on a machine with a CUDA device:
 
     python3 -m cedar_tpu_torch.tools.profile_cycle \
         [vcycle|vcycle-dense|linexy|fcycle|vcycle3|vcycle3-dense|fe27|
-         fe27-dense|fcycle3|planexy|vcycle-periodic|vcycle3-periodic]
+         fe27-dense|fcycle3|planexy|vcycle-periodic|vcycle3-periodic|
+         planexy-point|planexy-linex|planexy-fcycle|planexy-cedar|
+         vcycle-cedar|vcycle3-cedar]
 
 To profile another checkout (for example the parent commit, unpacked with
 ``git archive`` into DIR), run the script by path with that checkout
@@ -59,13 +74,30 @@ from cedar_tpu_torch import (
     Config, FivePt, NinePt, SevenPt, Solver2, Solver3, TwentySevenPt,
     gallery,
 )
-from cedar_tpu_torch.solver import cycle2, cycle3
+from cedar_tpu_torch.solver import cycle2, cycle3, graph, inner
 
 
 CYCLES = 10
 SCOPES = ("relaxation", "relaxation-residual-fused",
           "relaxation-residual-restrict-fused", "interp-add-relax-fused",
           "restrict", "interp-add", "interp", "coarse-solve", "residual")
+def _aniso3(nx, ny, nz, dtype, dev):
+    return gallery.diag_diffusion3(nx, ny, nz, 1.0, 1.0, 1e-3, dtype, dev)
+
+
+#: the inner coarse solve's cg-config at full width
+CG = {"solver": {"tol": 1e-4, "max-iter": 10}}
+
+
+def _plane(psolver: dict, cg: dict | None = None) -> dict:
+    """A plane-config of one embedded cycle a colour (as the default),
+    with ``psolver``'s solver keys (and a cg-config)."""
+    out = {"plane-config": {"solver": {"max-iter": 1, **psolver}}}
+    if cg is not None:
+        out["plane-config"]["cg-config"] = cg
+    return out
+
+
 def _periodic_x(make):
     """``make``'s 2D operator periodic along x: the W couplings of row 0,
     which the wrap reads, copied from row 1."""
@@ -101,14 +133,26 @@ CONFIGS = {
     "fe27-dense": (3, 128, gallery.fe3, TwentySevenPt, {},
                    {"fine-split": False}),
     "fcycle3": (3, 256, gallery.poisson3, SevenPt, {"cycle": {"type": "f"}}),
-    "planexy": (3, 128, lambda nx, ny, nz, dtype, dev:
-                gallery.diag_diffusion3(nx, ny, nz, 1.0, 1.0, 1e-3, dtype,
-                                        dev),
-                SevenPt, {"relaxation": "plane-xy"}),
+    "planexy": (3, 128, _aniso3, SevenPt, {"relaxation": "plane-xy"}),
     "vcycle-periodic": (2, 4096, _periodic_x(gallery.poisson), FivePt, {},
                         {}, {"periodic": [True, False]}),
     "vcycle3-periodic": (3, 256, _periodic3_x(gallery.poisson3), SevenPt, {},
                          {}, {"periodic": [True, False, False]}),
+    "planexy-point": (3, 128, _aniso3, SevenPt, {"relaxation": "plane-xy"},
+                      {}, {}, _plane({"relaxation": "point"})),
+    "planexy-linex": (3, 128, _aniso3, SevenPt, {"relaxation": "plane-xy"},
+                      {}, {}, _plane({"relaxation": "line-x"})),
+    "planexy-fcycle": (3, 128, _aniso3, SevenPt, {"relaxation": "plane-xy"},
+                       {}, {}, _plane({"relaxation": "line-xy",
+                                       "cycle": {"type": "f"}})),
+    "planexy-cedar": (3, 128, _aniso3, SevenPt, {"relaxation": "plane-xy"},
+                      {}, {}, _plane({"relaxation": "line-xy",
+                                      "cg-solver": "cedar",
+                                      "min-coarse": 16}, CG)),
+    "vcycle-cedar": (2, 4096, gallery.poisson, FivePt, {
+        "num-levels": 3, "cg-solver": "cedar"}, {}, {}, {"cg-config": CG}),
+    "vcycle3-cedar": (3, 256, gallery.poisson3, SevenPt, {
+        "num-levels": 3, "cg-solver": "cedar"}, {}, {}, {"cg-config": CG}),
 }
 
 
@@ -199,8 +243,8 @@ def main(name: str = "vcycle") -> None:
         raise SystemExit("profile_cycle: no CUDA device")
     dev = torch.device("cuda", 0)
     dim, n, make, kind, solver, *more = CONFIGS[name]
-    kernels, grid = (*more, {}, {})[:2]
-    conf = Config({"log": [], "kernels": kernels, "grid": grid,
+    kernels, grid, extra = (*more, {}, {}, {})[:3]
+    conf = Config({"log": [], "kernels": kernels, "grid": grid, **extra,
                    "solver": {**solver, "cycle": {
                        "nrelax-pre": 1, "nrelax-post": 1,
                        **solver.get("cycle", {})}}})
@@ -231,6 +275,46 @@ def main(name: str = "vcycle") -> None:
     g = s.graphs.graph("solve", b)
     g.b.copy_(b)
     profile_cycles("graph", g.replay)
+    found = inner_of(s, cyc)
+    if found is None:
+        return
+    inner.record_active = steps = []
+    cyc.cycle_residual(s.levels, s.kinds, torch.zeros_like(b), b, s.settings,
+                       **kw)
+    torch.cuda.synchronize()
+    inner.record_active = None
+    useful = sum(bool(a.any()) for a in steps)
+    print(f"[inner] one eager cycle: {len(steps)} inner steps run, {useful} "
+          "with a plane (or the grid) still active")
+    coarse, settings, icyc = found
+    gen = torch.Generator(device=dev).manual_seed(40)
+    cb = torch.randn(tuple(coarse.so.shape[1:]), generator=gen, device=dev,
+                     dtype=coarse.so.dtype)
+    out = torch.empty_like(cb)
+
+    def solve_once():
+        out.copy_(icyc.coarse_solve(coarse, cb, settings))
+
+    backend = graph.CudaGraphs(dev)
+    backend.warm(solve_once)
+    gi = backend.capture(solve_once)
+    print(f"[inner graph] the inner solve alone on {tuple(cb.shape)}, "
+          f"{settings.cg_settings.maxiter} steps a solve")
+    profile_cycles("inner graph", lambda: backend.replay(gi))
+
+
+def inner_of(s, cyc):
+    """``(coarsest level, settings, cycle module)`` of the solver's inner
+    coarse solve, or else of the first plane hierarchy's; None where there
+    is none."""
+    if s.levels[-1].inner is not None:
+        return s.levels[-1], s.settings, cyc
+    for lev in s.levels:
+        for hiers in (lev.planes or {}).values():
+            for h in hiers:
+                if h is not None and h[-1].inner is not None:
+                    return h[-1], s.settings.plane_settings, cycle2
+    return None
 
 
 if __name__ == "__main__":

@@ -3,7 +3,8 @@
 against its plain PyTorch version, and drives the 2D V-cycle (fused and
 dense), line-xy and F-cycle solves, the 3D 7- and 27-point V-cycle (fused
 and dense) and F-cycle solves and the 3D plane-relaxation solve on the
-card, and the 2D and 3D periodic solves.
+card, the 2D and 3D periodic solves, and the inner multigrid coarse solve
+(``cg-solver: cedar``) and the plane-configs beyond line-xy V-cycles.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -69,7 +70,13 @@ Phases (each raises on failure; nothing is caught):
    bit-equal): K6 in the regime of its plan (a launch a colour at 256³
    7-point and 128³ 27-point, resident at 16³ float32 and 12³ float64)
    and the resident levels on the per-colour launches too, odd periodic
-   extents included (Jacobi phases), K7, K8 and K9;
+   extents included (Jacobi phases), K7, K8 and K9; then the batched K1
+   (both regimes, the small planes on the tile kernel too), K4 (x and y:
+   K10's one-direction mode, a sweep and 2 sweeps + the residual) and K5
+   at every batch of the plane-xy 128³ cycle and at BATCH_EDGES (odd
+   plane counts and sizes, one-row planes, lines of 63-65 points, K1's
+   resident edge), float32 and float64, bit-equal, and a batch of one
+   bit-equal to the unbatched launch;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -98,6 +105,10 @@ Phases (each raises on failure; nothing is caught):
    periodic indefinite V, (44, 32, 32) x-periodic, odd at its third level,
    the z-periodic F-cycle, x-periodic plane-yz), every K6-K9 launch
    periodic;
+4h. float64 inner coarse solve gates: tests/test_cgsolve.py's cases (2D
+   128², 3D 24³, nested to depth 2) on the card against its LU solve
+   within 1e-10; the plane-config variants (PLANE_GATES: point, line-x
+   27-point, line-y, F-cycle, cedar) at 32³, card against CPU;
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -126,6 +137,11 @@ Phases (each raises on failure; nothing is caught):
    in x and triply periodic (indefinite), 128³ ``fe3`` triply periodic,
    ``3d_aniso_planexy_128`` periodic in z, each with the same numbers
    (K6-K9's launches all periodic);
+5g. the new configurations at full width: ``3d_aniso_planexy_128`` with
+   plane-config point, line-x, line-xy F-cycle and ``cedar``, 4096²
+   V(1,1) and ``3d_poisson_7pt_256`` with ``num-levels: 3`` and
+   ``cedar``, each with the same numbers, the inner steps that were
+   active in one cycle and one inner solve's graph ms;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
@@ -147,7 +163,9 @@ Phases (each raises on failure; nothing is caught):
    (K1 streamed 4096² and resident 64², K2, K3, K5 at 4096², K4 2048²
    cyclic x and wrapped y), with their bounds; K6-K9's periodic modes at
    256³ 7-point and 128³ 27-point (K6 per colour, beside the same launches
-   without the wrap) and K6 resident at 16³ 27-point.
+   without the wrap) and K6 resident at 16³ 27-point; the batched K1
+   (5-point + res at (64, 128²), 9-point at (64, 64²)), K4 (x and y at
+   (64, 128²)) and K5 ((64, 64²) -> (64, 128²)).
 
 Every solve of phases 4-5f runs as the solvers run it on the card, one
 replay of a captured CUDA graph a cycle, and is held bit for bit to the
@@ -168,6 +186,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -187,7 +206,8 @@ from cedar_tpu_torch.ops import (
     stencil3,
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
-from cedar_tpu_torch.solver import cycle2, cycle3, graph
+from cedar_tpu_torch.solver import cycle2, cycle3, graph, inner
+from cedar_tpu_torch.tools.profile_cycle import inner_of
 from cedar_tpu_torch.tools.tune_fused2 import plane_transfer_shapes
 from cedar_tpu_torch.tools.tune_fused3 import device_ms
 
@@ -343,6 +363,15 @@ REPLACES = {
                              "cedar_tpu/ops/pallas3_split.py:1247"),
     "interp3_periodic": ("cedar_tpu/ops/pallas3_split.py:1101, "
                          "cedar_tpu/ops/pallas3_split.py:1198"),
+    # the batched modes, entries of their own (their launches are those of
+    # the plane-config paths): the Pallas sweep batched by pallas_call's
+    # vmap rule, the zebra line sweep through its custom_vmap, the F-cycle's
+    # interpolation under the vmapped plane cycles
+    "sweep2_batched": ("cedar_tpu/ops/pallas2.py:137, "
+                       "cedar_tpu/ops/pallas2.py:346"),
+    "line2_batched": ("cedar_tpu/ops/pallas_lines2.py:142, "
+                      "cedar_tpu/ops/pallas_lines2.py:296"),
+    "interp2_batched": "cedar_tpu/ops/pallas_transfer2.py:817",
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -375,6 +404,9 @@ SOURCES = {
     "restrict3_periodic": "cedar_tpu_torch/csrc/transfer3.cu",
     "interp_add3_periodic": "cedar_tpu_torch/csrc/transfer3.cu",
     "interp3_periodic": "cedar_tpu_torch/csrc/transfer3.cu",
+    "sweep2_batched": "cedar_tpu_torch/csrc/sweep2.cu",
+    "line2_batched": "cedar_tpu_torch/csrc/planes2.cu",
+    "interp2_batched": "cedar_tpu_torch/csrc/transfer2.cu",
 }
 # the periodic modes' entries, each with the entry of its kernel
 PERIODIC_OF = {k + "_periodic": k for k in (
@@ -396,6 +428,8 @@ N_27 = 128
 N_PLANES = 128
 # the float64 periodic gates (card against CPU)
 N_PERIODIC_GATE = 256
+# the float64 plane-config gates (card against CPU)
+N_PLANE_GATE = 32
 # kernels.split-levels: the top levels that run the fused cycle (the
 # solver's default)
 SPLIT_LEVELS = 4
@@ -443,6 +477,9 @@ def counts() -> dict:
         "restrict3_periodic": cuda_transfer3.restrict_periodic_launches,
         "interp_add3_periodic": cuda_transfer3.interp_add_periodic_launches,
         "interp3_periodic": cuda_transfer3.interp_periodic_launches,
+        "sweep2_batched": cuda2.batched_launches,
+        "line2_batched": cuda_planes2.line_launches,
+        "interp2_batched": cuda_transfer2.interp2_batched_launches,
         "sweep2_plain": cuda2.plain_calls,
         "sweep2_resident_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
@@ -473,12 +510,18 @@ def counts() -> dict:
         "restrict3_periodic_plain": cuda_transfer3.restrict_plain_calls,
         "interp_add3_periodic_plain": cuda_transfer3.interp_add_plain_calls,
         "interp3_periodic_plain": cuda_transfer3.interp_plain_calls,
+        "sweep2_batched_plain": cuda2.plain_calls,
+        "line2_batched_plain": cuda_planes2.plain_calls,
+        "interp2_batched_plain": cuda_transfer2.interp2_plain_calls,
     }
 
 
 def reset_counts() -> None:
     cuda2.launches = cuda2.resident_launches = cuda2.plain_calls = 0
     cuda2.periodic_launches = cuda2.periodic_resident_launches = 0
+    cuda2.batched_launches = 0
+    cuda_planes2.line_launches = 0
+    cuda_transfer2.interp2_batched_launches = 0
     cuda_transfer2.restrict_launches = cuda_transfer2.interp_launches = 0
     cuda_transfer2.restrict_periodic_launches = 0
     cuda_transfer2.interp_periodic_launches = 0
@@ -1950,6 +1993,53 @@ def phase_periodic3_gates() -> dict:
 
 # every configuration the port runs, small: name -> (gallery operator,
 # kind, shape, conf); each in float32 and float64 through the graph
+def cedar_conf(levels: int, cg: dict, **solver) -> dict:
+    """``cg-solver: cedar`` below ``levels`` outer levels, the cg-config's
+    solver section ``cg``."""
+    return {"solver": {"num-levels": levels, "cg-solver": "cedar", **solver},
+            "cg-config": {"solver": cg}}
+
+
+# tests/test_cgsolve.py's cases (tests/test_torch_cgsolve.py): name ->
+# (gallery function, kind, shape, config)
+CEDAR_GATES = {
+    "2d 128^2": (gallery.poisson, FivePt, (128, 128), cedar_conf(
+        3, {"tol": 1e-12, "max-iter": 20})),
+    "3d 24^3": (gallery.poisson3, SevenPt, (24, 24, 24), cedar_conf(
+        2, {"tol": 1e-12, "max-iter": 20})),
+    "2d 128^2 nested": (gallery.poisson, FivePt, (128, 128), {
+        "solver": {"num-levels": 2, "cg-solver": "cedar"},
+        "cg-config": {"solver": {"tol": 1e-12, "max-iter": 20,
+                                 "num-levels": 2, "cg-solver": "cedar"},
+                      "cg-config": {"solver": {"tol": 1e-12,
+                                               "max-iter": 20}}}}),
+}
+
+
+def plane_conf(relax: str, pconf: dict) -> dict:
+    return {"solver": {"relaxation": relax}, "plane-config": pconf}
+
+
+# the float64 plane-config gates at 32³, card against CPU: name ->
+# (gallery function, kind, config)
+PLANE_GATES = {
+    "plane-xy point": (aniso3, SevenPt, plane_conf(
+        "plane-xy", {"solver": {"relaxation": "point"}})),
+    "plane-yz line-x 27pt": (gallery.fe3, TwentySevenPt, plane_conf(
+        "plane-yz", {"solver": {"relaxation": "line-x"}})),
+    "plane-xyz line-y": (gallery.poisson3, SevenPt, plane_conf(
+        "plane-xyz", {"solver": {"relaxation": "line-y", "max-iter": 1}})),
+    "plane-xy F": (aniso3, SevenPt, plane_conf(
+        "plane-xy", {"solver": {"relaxation": "line-xy", "max-iter": 1,
+                                "cycle": {"type": "f"}}})),
+    "plane-xy cedar": (aniso3, SevenPt, plane_conf(
+        "plane-xy", {"solver": {"relaxation": "point", "cg-solver": "cedar",
+                                "min-coarse": 5},
+                     "cg-config": {"solver": {"tol": 1e-6,
+                                              "max-iter": 6}}})),
+}
+
+
 GRAPH_CONFIGS = {
     "2d point V fused": (gallery.poisson, FivePt, (129, 97), {}),
     "2d point V dense": (gallery.poisson, FivePt, (129, 97),
@@ -2005,6 +2095,30 @@ GRAPH_CONFIGS = {
     "3d periodic fine-split": (periodic3(gallery.poisson3, X3), SevenPt,
                                (22, 16, 16), {"kernels": {"fine-split": True},
                                               **periodic_conf(X3)}),
+    # the inner multigrid coarse solve (cg-solver cedar) and the
+    # plane-configs beyond line-xy V-cycles
+    "2d cedar V fused": (gallery.poisson, FivePt, (129, 97), cedar_conf(
+        3, {"tol": 1e-6, "max-iter": 4})),
+    "2d cedar V dense nested": (gallery.poisson, FivePt, (129, 97), {
+        "kernels": {"fine-split": False},
+        "solver": {"num-levels": 2, "cg-solver": "cedar"},
+        "cg-config": {"solver": {"tol": 1e-6, "max-iter": 3,
+                                 "num-levels": 2, "cg-solver": "cedar"},
+                      "cg-config": {"solver": {"max-iter": 3}}}}),
+    "2d cedar F": (gallery.poisson, FivePt, (129, 97), cedar_conf(
+        3, {"tol": 1e-6, "max-iter": 4}, cycle={"type": "f"})),
+    "2d cedar periodic indefinite": (periodic_grid(gallery.poisson,
+                                                   (True, True)),
+                                     FivePt, (64, 48), {
+        **cedar_conf(2, {"tol": 1e-6, "max-iter": 4}, definite=False),
+        "grid": {"periodic": [True, True]}}),
+    "3d cedar V dense": (gallery.poisson3, SevenPt, (33, 33, 33), cedar_conf(
+        2, {"tol": 1e-6, "max-iter": 4})),
+    "3d cedar V fused 27pt": (gallery.fe3, TwentySevenPt, (33, 33, 33), {
+        "kernels": {"fine-split": True},
+        **cedar_conf(3, {"tol": 1e-6, "max-iter": 4})}),
+    **{f"3d {name}": (make, kind, (24, 24, 24), conf)
+       for name, (make, kind, conf) in PLANE_GATES.items()},
 }
 
 
@@ -2474,7 +2588,8 @@ def phase_periodic_full() -> dict:
         want.update({k: want[base] for k, base in PERIODIC_OF.items()
                      if base in want})
         one = one_cycle_launches(s, b, name, want)
-        total = sum(one.get(k, 0) for k in KERNELS if k not in PERIODIC_OF)
+        total = sum(one.get(k, 0) for k in KERNELS
+                    if k not in PERIODIC_OF and k not in BATCHED_OF)
         print(f"  {name}: {total} kernel launches a cycle, all periodic",
               flush=True)
         ms = time_cycles(s, b, x)
@@ -2581,7 +2696,8 @@ def phase_periodic3_full() -> dict:
                 "interp_add3_periodic": s.nlevels - 1}
         one = one_cycle_launches(s, b, name, want, cycle3)
         require_periodic3({k: one.get(k, 0) for k in c}, name)
-        total = sum(one.get(k, 0) for k in KERNELS if k not in PERIODIC_OF)
+        total = sum(one.get(k, 0) for k in KERNELS
+                    if k not in PERIODIC_OF and k not in BATCHED_OF)
         print(f"  {name}: {total} kernel launches a cycle, K6-K9's all "
               "periodic", flush=True)
         ms = time_cycles(s, b, x, cycle=cycle3)
@@ -3541,6 +3657,382 @@ def phase_times_periodic3() -> dict:
     return {k: v + work[k] for k, v in out.items() if k in work}
 
 
+# --- the batched kernels, the inner coarse solve and the plane-configs ---
+
+# the batched modes' entries of the kernel table (their launches: those of
+# the plane-config paths), each with the entry of its unbatched kernel
+BATCHED_OF = {"sweep2_batched": "sweep2", "line2_batched": "line2",
+              "interp2_batched": "interp2"}
+# K1, K4 and K5's batched comparisons beyond the plane-xy 128³ cycle's
+# batches: an odd plane count at odd sizes, one-row and one-column planes,
+# lines of 63, 64 and 65 points, K1's resident regime at its edge (9-point
+# float32 90² resident, 91² streamed; float64 64², 65²)
+BATCH_EDGES = [(7, 33, 21), (5, 1, 9), (3, 9, 1), (3, 63, 65), (2, 64, 63),
+               (2, 65, 64), (3, 90, 90), (3, 91, 91)]
+# the inner solve's cg-config at full width (the coarse grids are far past
+# what an LU could hold)
+CG_FULL = {"solver": {"tol": 1e-4, "max-iter": 10}}
+# the plane-config variants of 3d_aniso_planexy_128 (one embedded cycle a
+# colour, as the default plane-config); cedar: plane hierarchies stop at
+# 16² (plane min-coarse 16), each plane's inner solver 16², 8², 4²
+PLANE_VARIANTS = {
+    "point": {"solver": {"relaxation": "point", "max-iter": 1}},
+    "line-x": {"solver": {"relaxation": "line-x", "max-iter": 1}},
+    "line-xy F": {"solver": {"relaxation": "line-xy", "max-iter": 1,
+                             "cycle": {"type": "f"}}},
+    "cedar": {"solver": {"relaxation": "line-xy", "max-iter": 1,
+                         "cg-solver": "cedar", "min-coarse": 16},
+              "cg-config": CG_FULL},
+}
+# what each plane-config variant must launch (its batched kernel)
+PLANE_VARIANT_KERNELS = {"point": ("sweep2_batched",),
+                         "line-x": ("line2_batched",),
+                         "line-xy F": ("interp2_batched", "line_xy2"),
+                         "cedar": ("line_xy2",)}
+
+
+def batched_shapes():
+    """The (B, nx, ny) batches of K1, K4 and K5's comparisons: every
+    batch of planes of the plane-xy 128³ cycle (64 planes of 128² down to
+    the 8² planes), then BATCH_EDGES."""
+    return [*plane_transfer_shapes(N_PLANES), *BATCH_EDGES]
+
+
+def phase_kernels_batched(errs: dict) -> dict:
+    """The batched K1 (DOWN and UP, with and without the residual and an
+    origin, 5- and 9-point, in its plan's regime and the small planes on
+    the tile kernel too), K4 (x and y lines: the batched sweep, and K10's
+    one-direction mode with 2 sweeps and the residual) and K5 bit-equal to
+    their plain versions on batches of planes, float32 and float64; a
+    batch of one equal to the unbatched launch."""
+    print("[3] batched K1, K4, K5 against plain versions", flush=True)
+    for k in BATCHED_OF:
+        errs.setdefault(k, 0.0)
+    n = 0
+    for i, (shape, dtype) in enumerate(
+            itertools.product(batched_shapes(),
+                              (torch.float32, torch.float64))):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 2100 + i)
+            pts = "9pt" if nine else "5pt"
+            p = cuda2.plan(q.element_size(), nine, shape[1:])
+            plans = [p] + ([cuda2.Plan(0)] if p.resident else [])
+            for pl in plans:
+                _, e = compare_sweep(so, q, b, kind, pts, tag + " batched",
+                                     p=pl)
+                errs["sweep2_batched"] = max(errs["sweep2_batched"], e)
+                n += 12
+            for axis in ("x", "y"):
+                kernel = (cuda_lines2.line_x if axis == "x"
+                          else cuda_lines2.line_y)
+                plain = (cuda_lines2.line_x_plain if axis == "x"
+                         else cuda_lines2.line_y_plain)
+                for updown in ("down", "up"):
+                    what = f"K4 line2 batched {axis} {pts} {updown} {tag}"
+                    e = compare(what, kernel(so, q.clone(), b, kind, updown),
+                                plain(so, q.clone(), b, kind, updown),
+                                exact=True)
+                    got = cuda_planes2.smooth(so, q.clone(), b, kind, updown,
+                                              2, True, axes=axis)
+                    want = cuda_planes2.smooth_plain(so, q.clone(), b, kind,
+                                                     updown, 2, True,
+                                                     axes=axis)
+                    e = max(e, compare(what + " x2 +res q", got[0], want[0],
+                                       exact=True),
+                            compare(what + " x2 +res res", got[1], want[1],
+                                    exact=True))
+                    errs["line2_batched"] = max(errs["line2_batched"], e)
+                    n += 3
+            ci = interp2.setup_interp(so, kind)
+            g = torch.Generator(device=DEV).manual_seed(2300 + i)
+            qc = torch.randn((shape[0], ci.shape[-2] - 1, ci.shape[-1] - 1),
+                             generator=g, device=DEV, dtype=dtype)
+            e = compare(f"K5 interp2 batched {pts} {tag}",
+                        cuda_transfer2.interp(ci, qc, shape),
+                        cuda_transfer2.interp_plain(ci, qc, shape),
+                        exact=True)
+            errs["interp2_batched"] = max(errs["interp2_batched"], e)
+            n += 1
+            if shape == (7, 33, 21):
+                # a batch of one: today's unbatched launches, bit for bit
+                one = [t[:, :1].contiguous() if t.ndim == 4 else
+                       t[:1].contiguous() for t in (so, q, b, ci, qc)]
+                got = cuda2.sweep(one[0], one[1], one[2], kind, "down",
+                                  True)
+                want = cuda2.sweep(one[0][:, 0], one[1][0], one[2][0], kind,
+                                   "down", True)
+                got5 = cuda_transfer2.interp(one[3], one[4], (1, 33, 21))
+                want5 = cuda_transfer2.interp(one[3][:, 0].contiguous(),
+                                              one[4][0], (33, 21))
+                if not (torch.equal(got[0][0], want[0])
+                        and torch.equal(got[1][0], want[1])
+                        and torch.equal(got5[0], want5)):
+                    raise AssertionError(f"K1/K5 batch of one {pts} {tag} "
+                                         "differs from the unbatched launch")
+                print(f"  K1, K5 batch of one {pts} {tag}: bit-equal to the "
+                      "unbatched launch", flush=True)
+            del so, q, b, ci, qc
+    print(f"  {n} batched comparisons, max_abs_err "
+          f"{max(errs[k] for k in BATCHED_OF):.3e}", flush=True)
+    return errs
+
+
+def phase_cedar_gates() -> None:
+    """[4h] float64: tests/test_cgsolve.py's cases on the card (the inner
+    multigrid coarse solve to its LU solve within 1e-10, through the
+    graph), and the plane-config variants at 32³, card against CPU (rtol
+    1e-9, atol 1e-14)."""
+    print("[4h] float64 inner coarse solve and plane-config gates",
+          flush=True)
+    cpu = torch.device("cpu")
+    for what, (make, kind, shape, conf) in CEDAR_GATES.items():
+        cls, rhs, cyc = ((Solver2, gallery.poisson_rhs, cycle2)
+                         if len(shape) == 2
+                         else (Solver3, gallery.poisson3_rhs, cycle3))
+        so = make(*shape, torch.float64, DEV)
+        b = rhs(*shape, torch.float64, DEV)
+        reset_counts()
+        s = cls(so, kind, Config({"log": [], **conf, "solver": {
+            **conf["solver"], "tol": 1e-10, "max-iter": 30}}))
+        x = s.solve(b)
+        c = counts()
+        check_graph(s, b, x, what, cyc)
+        xa = cls(so, kind, Config({"log": [], "solver": {
+            "tol": 1e-10, "max-iter": 30}})).solve(b)
+        err = float((x - xa).abs().max())
+        print(f"  {what}: cedar {len(s.history)} cycles, "
+              f"{s.history[-1]:.6g}; max |x - x_LU| {err:.3e}", flush=True)
+        if not err < 1e-10:
+            raise AssertionError(f"{what}: cedar differs from LU by {err}")
+        require_launched(c, (K1, "restrict2") if len(shape) == 2 else
+                         (("sweep3", "sweep3_resident", "sweep3_fused"),
+                          "restrict3"), what)
+        del s, so, b, x, xa
+    for what, (make, kind, conf) in PLANE_GATES.items():
+        shape = (N_PLANE_GATE,) * 3
+        conf = Config({"log": [], **conf, "solver": {
+            **conf["solver"], "tol": 1e-9, "max-iter": 12}})
+        so = make(*shape, torch.float64, cpu)
+        b = gallery.poisson3_rhs(*shape, torch.float64, cpu)
+        reset_counts()
+        s = Solver3(so.to(DEV), kind, conf)
+        x = s.solve(b.to(DEV))
+        c = counts()
+        check_graph(s, b.to(DEV), x, what, cycle3)
+        sc = Solver3(so, kind, conf)
+        sc.solve(b)
+        print(f"  {what}: card {' '.join(f'{h:.9g}' for h in s.history)}",
+              flush=True)
+        print(f"  {what}: CPU  {' '.join(f'{h:.9g}' for h in sc.history)}",
+              flush=True)
+        np.testing.assert_allclose(s.history, sc.history, rtol=1e-9,
+                                   atol=1e-14)
+        relax = s.settings.plane_settings.relaxation.value
+        need = {"point": "sweep2_batched", "line-x": "line2_batched",
+                "line-y": "line2_batched"}.get(relax, "line_xy2")
+        require_launched(c, (need,), what)
+        del s, sc, so, b, x
+
+
+def inner_steps(s, b, cycle) -> tuple[int, int, int, int]:
+    """The inner solves' steps in one eager cycle from x = 0: those in
+    which the grid (a plane of a batch) was still active, as the JAX
+    package's loop (vmapped) would run them, and all the masked loops ran;
+    then the same counted a plane."""
+    inner.record_active = steps = []
+    try:
+        cycle.cycle_residual(s.levels, s.kinds, torch.zeros_like(b), b,
+                             s.settings, **s.graphs.cycle_kw)
+        torch.cuda.synchronize()
+    finally:
+        inner.record_active = None
+    return (sum(bool(a.any()) for a in steps), len(steps),
+            int(sum(int(a.sum()) for a in steps)),
+            sum(a.numel() for a in steps))
+
+
+def inner_solve_ms(found) -> float:
+    """CUDA-event ms of one inner coarse solve (``found``: :func:`inner_of`)
+    on a random rhs, as replays of a graph of its own."""
+    coarse, settings, cyc = found
+    g = torch.Generator(device=DEV).manual_seed(40)
+    cb = torch.randn(tuple(coarse.so.shape[1:]), generator=g, device=DEV,
+                     dtype=coarse.so.dtype)
+    out = torch.empty_like(cb)
+
+    def one():
+        out.copy_(cyc.coarse_solve(coarse, cb, settings))
+
+    backend = graph.CudaGraphs(DEV)
+    backend.warm(one)
+    gr = backend.capture(one)
+    ms = time_ms(lambda: backend.replay(gr))
+    del gr, backend
+    torch.cuda.empty_cache()
+    return ms
+
+
+def run_cell(name: str, cls, make, kind, shape, conf: dict, need,
+             cycle) -> dict:
+    """One configuration at full width, float32: setup, a solve of four
+    cycles with launch counts (``need`` launched), graph against eager bit
+    for bit, the launches of one captured cycle with its warm-up and
+    capture seconds and memory, the inner solve's active steps, the
+    per-cycle time (eager against graph in pairs), peak memory."""
+    print(f"[5g] {name}: {make.__name__} {shape} float32, {conf}",
+          flush=True)
+    rhs = gallery.poisson_rhs if len(shape) == 2 else gallery.poisson3_rhs
+    conf = Config({"log": [], **conf, "solver": {
+        "cycle": {"nrelax-pre": 1, "nrelax-post": 1},
+        **conf.get("solver", {}), "max-iter": 4, "tol": 1e-6}})
+    so = make(*shape, torch.float32, DEV)
+    b = rhs(*shape, torch.float32, DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    s = cls(so, kind, conf)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    launches = counts()
+    peak = torch.cuda.max_memory_allocated()
+    del so
+    print(f"  {name}: levels {s.nlevels}: {s.shapes[0]} .. {s.shapes[-1]}; "
+          f"setup {setup_s:.3f} s", flush=True)
+    print(f"  {name}: history {' '.join(f'{h:.9g}' for h in s.history)}",
+          flush=True)
+    print(f"  {name}: counts {launches}", flush=True)
+    if not torch.isfinite(x).all() or tuple(x.shape) != shape:
+        raise AssertionError(f"{name}: bad solution")
+    # (the first cycle of the 4096² problem leaves 1.07 of the residual,
+    # as the main path's leaves 1.20; plane F-cycles stall at their plane
+    # solves' accuracy, as in cedar_tpu)
+    if not s.history[-1] < s.history[0]:
+        raise AssertionError(f"{name}: the solve did not converge")
+    require_launched(launches, need, name)
+    check_graph(s, b, x, name, cycle)
+    one_cycle_launches(s, b, name, None, cycle)
+    found = inner_of(s, cycle)
+    if found is not None:
+        useful, steps, pa, pt = inner_steps(s, b, cycle)
+        maxiter = found[1].cg_settings.maxiter
+        ms = inner_solve_ms(found)
+        print(f"  {name}: inner solves of one cycle: {useful} of {steps} "
+              f"steps with the grid (a plane) still active ({pa} of {pt} "
+              f"plane-steps); one solve {ms:.4f} ms (graph, "
+              f"{tuple(found[0].so.shape[1:])}, {maxiter} steps), the "
+              f"discarded steps about {(steps - useful) * ms / maxiter:.4f} "
+              "ms a cycle (at that solve's size)", flush=True)
+    ms = time_cycles(s, b, x, ncycles=10, cycle=cycle)
+    print(f"  {name}: DOF/s {math.prod(shape) / (ms * 1e-3):.4e}; "
+          f"peak memory (setup and solve) {peak / 2**20:.1f} MiB",
+          flush=True)
+    return launches
+
+
+def phase_cedar_full() -> dict:
+    """[5g] The new configurations at full width through the graph and
+    eagerly: ``3d_aniso_planexy_128`` with plane-config point, line-x,
+    line-xy F-cycle and cg-solver cedar; 4096² 5-point V(1,1) and
+    ``3d_poisson_7pt_256`` with ``num-levels: 3`` and ``cg-solver:
+    cedar``.  Returns the batched kernels' launches (their cells' solves)."""
+    out = {}
+    n = N_PLANES
+    for variant, pconf in PLANE_VARIANTS.items():
+        c = run_cell(f"3d_aniso_planexy_128 plane-config {variant}",
+                     Solver3, aniso3, SevenPt, (n, n, n),
+                     plane_conf("plane-xy", pconf),
+                     PLANE_VARIANT_KERNELS[variant] + ("restrict2",
+                                                       "interp_add2",
+                                                       "restrict3"),
+                     cycle3)
+        for k in PLANE_VARIANT_KERNELS[variant]:
+            if k in BATCHED_OF:
+                out[k] = c[k]
+    run_cell("4096^2 V(1,1) num-levels 3 cedar", Solver2, gallery.poisson,
+             FivePt, (N_MAIN, N_MAIN), cedar_conf(3, CG_FULL["solver"]),
+             (K1, "restrict2", "interp_add2", "sweep_restrict2",
+              "interp_sweep2"), cycle2)
+    run_cell("3d_poisson_7pt_256 num-levels 3 cedar", Solver3,
+             gallery.poisson3, SevenPt, (N_3D,) * 3,
+             cedar_conf(3, CG_FULL["solver"]),
+             ("restrict3", "interp_add3", ("sweep3", "sweep3_resident",
+                                           "sweep3_fused")), cycle3)
+    return out
+
+
+def phase_times_batched() -> dict:
+    """The batched K1 (5-point + the residual at (64, 128²), streamed;
+    9-point at (64, 64²), resident), K4 (x and y sweeps at (64, 128²)
+    5-point) and K5 ((64, 64²) -> (64, 128²)) against plain, float32, in
+    turns, with their bounds."""
+    print("[6] batched K1, K4, K5 ms (plain, kernel, kernel, plain)",
+          flush=True)
+    cases, work = {}, {}
+    for shape, nine in (((64, N_PLANES, N_PLANES), False),
+                        ((64, N_PLANES // 2, N_PLANES // 2), True)):
+        so, q, b, kind = random_problem(shape, nine, torch.float32,
+                                        30 + nine)
+        nb, n = shape[0], shape[1]
+        N = nb * n * n
+        pts = "9pt" if nine else "5pt"
+        key = f"sweep2_batched {pts} {shape} +res"
+        cases[key] = (
+            lambda so=so, q=q, b=b, kind=kind: cuda2.sweep_plain(
+                so, q, b, kind, "down", True),
+            lambda so=so, q=q, b=b, kind=kind: cuda2.sweep(
+                so, q, b, kind, "down", True))
+        ndir = kind.ndirs
+        # the stencil planes, q and b read, q and res written; 2 ndir + 1
+        # operations a point a sweep and the residual
+        work[key] = ((ndir + 4) * N * 4, 2 * (2 * ndir + 1) * N)
+        if nine:
+            continue
+        for axis in ("x", "y"):
+            key = f"line2_batched {axis} {pts} {shape}"
+            fn = cuda_lines2.line_x if axis == "x" else cuda_lines2.line_y
+            pf = (cuda_lines2.line_x_plain if axis == "x"
+                  else cuda_lines2.line_y_plain)
+            cases[key] = (
+                lambda pf=pf, so=so, q=q, b=b, kind=kind: pf(
+                    so, q, b, kind, "down"),
+                lambda fn=fn, so=so, q=q, b=b, kind=kind: fn(
+                    so, q, b, kind, "down"))
+            # the stencil planes, b and q read, q written; the rhs (4), 12
+            # a PCR step and 8 for the interleaved Thomas a point
+            work[key] = ((ndir + 3) * N * 4, (4 + 12 * pcr_steps(n) + 8) * N)
+        ci = interp2.setup_interp(so, kind)
+        nc = ci.shape[-1] - 1
+        g = torch.Generator(device=DEV).manual_seed(31)
+        qc = torch.randn((nb, nc, nc), generator=g, device=DEV,
+                         dtype=torch.float32)
+        key = f"interp2_batched {pts} {shape}"
+        cases[key] = (
+            lambda ci=ci, qc=qc, sh=shape: cuda_transfer2.interp_plain(
+                ci, qc, sh),
+            lambda ci=ci, qc=qc, sh=shape: cuda_transfer2.interp(ci, qc, sh))
+        work[key] = ((8 * nb * (nc + 1) ** 2 + nb * nc * nc + N) * 4,
+                     4 * N)
+    out = time_turns(cases, slow=[k for k in cases if "line2" in k])
+    for k, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, torch.float32)
+        # the device time beside the event time of back-to-back calls,
+        # which a wrapper's host time bounds at these sizes
+        dms = device_ms(cases[k][1])
+        print(f"  {k}: bound {bms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
+              f"{flops / 1e9:.4f} GFLOP); kernel {out[k][0]:.4f} ms "
+              f"(device {dms:.4f}), plain {out[k][1]:.4f} ms", flush=True)
+    # the table's entries: the 5-point sweep + res, the x sweep, the interp
+    top = (64, N_PLANES, N_PLANES)
+    main = {"sweep2_batched": f"sweep2_batched 5pt {top} +res",
+            "line2_batched": f"line2_batched x 5pt {top}",
+            "interp2_batched": f"interp2_batched 5pt {top}"}
+    return {k: out[v] + work[v] for k, v in main.items()}
+
+
 def pcr_steps(n: int) -> int:
     """PCR steps of the line solve of a line of ``n`` points (log2 h)."""
     return max(lines2.pcr_stride(n), 1).bit_length() - 1
@@ -3570,6 +4062,7 @@ def main() -> None:
     errs = timed(phase_kernels)
     errs = timed(phase_kernels3, errs)
     errs = timed(phase_kernels_planes, errs)
+    errs = timed(phase_kernels_batched, errs)
     errs = timed(phase_transfers2, errs)
     errs = timed(phase_kernels_periodic, errs)
     errs = timed(phase_kernels_periodic3, errs)
@@ -3583,6 +4076,7 @@ def main() -> None:
     timed(phase_plane_gates)
     fcycle_periodic = timed(phase_periodic_gates)
     fcycle_periodic3 = timed(phase_periodic3_gates)
+    timed(phase_cedar_gates)
     timed(phase_graph_configs)
     launches = timed(phase_main_path)
     launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
@@ -3592,13 +4086,14 @@ def main() -> None:
     launches["line_xy2"] = timed(phase_planes_128)["line_xy2"]
     launches.update(timed(phase_periodic_full))
     launches.update(timed(phase_periodic3_full))
+    launches.update(timed(phase_cedar_full))
     # K5's and K9's periodic modes run in the periodic F-cycles (phases 4f
     # and 4g)
     launches["interp2_periodic"] = fcycle_periodic["interp2_periodic"]
     launches["interp3_periodic"] = fcycle_periodic3["interp3_periodic"]
     times = (timed(phase_times) | timed(phase_times3)
              | timed(phase_times_planes) | timed(phase_times_periodic)
-             | timed(phase_times_periodic3))
+             | timed(phase_times_periodic3) | timed(phase_times_batched))
     timed(phase_times_levels)
     print(f"  (all phases: {time.perf_counter() - t0:.1f} s)", flush=True)
     table = []

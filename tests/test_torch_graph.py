@@ -10,7 +10,10 @@
   the doubly periodic indefinite case, fine-split asked for) and the 3D
   ones (7-point V at even and odd periodic extents, the 27-point triply
   periodic indefinite case, F, plane-yz and plane-xy, fine-split asked
-  for) too.
+  for) too; the inner multigrid coarse solve (``cg-solver: cedar``: 2D
+  V, F, fused, nested and doubly periodic indefinite, 3D V and fused) and
+  the plane-configs of point, line-x and line-y relaxation, the F-cycle
+  and the inner solve.
 * The graph runner's bookkeeping, with a stand-in backend that records
   the captured callable and replays it eagerly: its ``solve`` equals the
   solver's eager loop bit for bit (history, ``x``, iteration count at a
@@ -67,6 +70,24 @@ def _periodic3(make, per):
 
 def _grid3(per, **solver):
     return {"grid": {"periodic": list(per)}, "solver": solver}
+
+
+def _cedar(levels, cg=None, **solver):
+    """The inner multigrid coarse solve below ``levels`` outer levels,
+    a cg-config of 3 steps (``cg``: more of its solver section)."""
+    return {"solver": {"num-levels": levels, "cg-solver": "cedar",
+                       **solver},
+            "cg-config": {"solver": {"tol": 1e-6, "max-iter": 3,
+                                     **(cg or {})}}}
+
+
+def _plane_config(relax, **psolver):
+    """``relax`` plane relaxation with the plane-config solver section
+    ``psolver`` (an inner solve: a cg-config of 3 steps)."""
+    return {"solver": {"relaxation": relax},
+            "plane-config": {"solver": psolver,
+                             "cg-config": {"solver": {"tol": 1e-6,
+                                                      "max-iter": 3}}}}
 
 
 # name -> (gallery operator, kind, shape, conf); 2-4 levels each
@@ -141,6 +162,37 @@ CONFIGS = {
     "3d-periodic-plane-xy": (
         _periodic3(_aniso3, (False, False, True)), SevenPt, (8, 8, 8),
         _grid3((False, False, True), relaxation="plane-xy")),
+    # the inner multigrid coarse solve (a masked loop of max-iter inner
+    # cycles) and the plane-configs beyond line-xy V-cycles
+    "2d-cedar-v": (gallery.poisson, FivePt, (33, 29), _cedar(2)),
+    "2d-cedar-nested": (gallery.poisson, FivePt, (33, 29), {
+        **_cedar(2, {"num-levels": 2, "cg-solver": "cedar"}),
+        "cg-config": {"solver": {"max-iter": 3, "num-levels": 2,
+                                 "cg-solver": "cedar"},
+                      "cg-config": {"solver": {"max-iter": 3}}}}),
+    "2d-cedar-f": (gallery.poisson, FivePt, (33, 29),
+                   _cedar(2, cycle={"type": "f"})),
+    "2d-cedar-fused": (gallery.poisson, FivePt, (33, 29),
+                       {**FUSED2, **_cedar(3)}),
+    "2d-cedar-periodic-indefinite": (
+        gallery.poisson, FivePt, (32, 24), {
+            **_cedar(2, definite=False),
+            "grid": {"periodic": [True, True]}}),
+    "3d-cedar-v": (gallery.poisson3, SevenPt, (9, 9, 9), _cedar(2)),
+    "3d-cedar-fused": (gallery.fe3, TwentySevenPt, (17, 17, 17),
+                       {**FUSED3, **_cedar(3)}),
+    "3d-plane-point": (_aniso3, SevenPt, (8, 8, 7),
+                       _plane_config("plane-xy", relaxation="point")),
+    "3d-plane-line-x": (gallery.fe3, TwentySevenPt, (8, 7, 6),
+                        _plane_config("plane-yz", relaxation="line-x")),
+    "3d-plane-line-y": (gallery.poisson3, SevenPt, (7, 7, 7),
+                        _plane_config("plane-xyz", relaxation="line-y")),
+    "3d-plane-f": (_aniso3, SevenPt, (8, 8, 8),
+                   _plane_config("plane-xy", cycle={"type": "f"},
+                                 **{"max-iter": 1})),
+    "3d-plane-cedar": (_aniso3, SevenPt, (10, 10, 5),
+                       _plane_config("plane-xy", **{
+                           "cg-solver": "cedar", "min-coarse": 5})),
 }
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 
@@ -262,6 +314,7 @@ def runner_of(s, b):
 # name -> (gallery operator, kind, shape, conf) of the runner's solves
 SOLVES = {
     "2d-fused": (gallery.poisson, FivePt, (33, 29), FUSED2),
+    "2d-cedar": (gallery.poisson, FivePt, (33, 29), _cedar(2)),
     "2d-line-xy": (gallery.fe, NinePt, (33, 29),
                    {"solver": {"relaxation": "line-xy"}}),
     "3d-7pt": (gallery.poisson3, SevenPt, (17, 15, 13), {}),

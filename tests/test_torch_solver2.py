@@ -161,8 +161,6 @@ UNPORTED = [
     ("conf2", {"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
      r"item 9\b"),
     ("conf3", {"solver": {"relaxation": "plane-xy"}}, "use Solver3"),
-    ("conf5", {"solver": {"cg-solver": "cedar"}},
-     r"item 5\b.*inner multigrid"),
     ("conf6", {"solver": {"cg-solver": "redist"}}, r"item 9\b"),
     ("conf8", {"kernels": {"backend": "xla"}}, "the device decides"),
     ("conf9", {"grid": {"np": [2, 2]}}, r"item 9\b.*distribution"),
@@ -210,6 +208,33 @@ def test_periodic_options_solve(conf):
     assert s.history[-1] < 1e-9
     r = residual(so, x, b, FivePt, per)
     assert float(r.norm() / b.norm()) < 1e-9
+
+
+# the inner multigrid coarse solve, which test_unported_options_raise held
+# refused until it was ported (its conf5)
+CEDAR_PORTED = [
+    ("conf5", {"solver": {"cg-solver": "cedar"}}),
+]
+
+
+@pytest.mark.parametrize("conf", [
+    pytest.param(conf, id=i) for i, conf in CEDAR_PORTED])
+def test_cedar_options_solve(conf):
+    """The same configuration builds and solves: the coarsest level holds
+    the inner solver's hierarchy (its cg-config inherited from the outer
+    config with an LU coarse solve, as in cedar_tpu), and the solve
+    reaches the tolerance."""
+    conf = {**conf, "log": [], "solver": {
+        **conf["solver"], "tol": 1e-9, "max-iter": 30}}
+    so = gallery.poisson(16, 16, device="cpu")
+    b = gallery.poisson_rhs(16, 16, device="cpu")
+    s = Solver2(so, FivePt, conf)
+    inner = s.levels[-1].inner
+    assert inner is not None and s.levels[-1].ainv is None
+    assert inner[-1].ainv is not None and inner[-1].inner is None
+    x = s.solve(b)
+    assert s.history[-1] < 1e-9
+    assert float(residual(so, x, b, FivePt).norm() / b.norm()) < 1e-9
 
 
 def test_3d_raises():

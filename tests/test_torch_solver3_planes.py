@@ -5,8 +5,8 @@
   plane-yz, and outer F-cycles with plane-xy;
 * a JAX plane hierarchy carried across (``levels_from_numpy``): one port
   cycle on it equals cedar_tpu's own cycle;
-* every plane-config outside the port raises, and ``Solver2`` refuses
-  plane relaxation.
+* the plane-configs outside the port raise, those it ports build and
+  solve, and ``Solver2`` refuses plane relaxation.
 """
 
 import copy
@@ -148,26 +148,63 @@ def test_cycle_on_jax_plane_hierarchy(carried):
 
 
 @pytest.mark.parametrize("pconf, match", [
-    ({"solver": {"relaxation": "point"}}, "relaxation point"),
-    ({"solver": {"relaxation": "line-x"}}, "relaxation line-x"),
-    ({"solver": {"relaxation": "line-y"}}, "relaxation line-y"),
-    ({"solver": {"relaxation": "line-xy", "cycle": {"type": "f"}}},
-     "F-cycle"),
-    ({"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
-     "cg-solver"),
-    # the plane-config's grid.periodic is accepted (and ignored, as in
-    # cedar_tpu); with an F-cycle the plane-config is still refused
     pytest.param({"solver": {"relaxation": "line-xy",
-                             "cycle": {"type": "f"}},
-                  "grid": {"periodic": [True, False, False]}}, "F-cycle",
-                 id="pconf5-periodic"),
-    ({"solver": {"relaxation": "line-xy", "ml-relax": {"enabled": True}}},
-     "ml-relax"),
+                             "cg-solver": "redist"}},
+                 "cg-solver", id="pconf4-cg-solver"),
+    pytest.param({"solver": {"relaxation": "line-xy",
+                             "ml-relax": {"enabled": True}}},
+                 "ml-relax", id="pconf6-ml-relax"),
 ])
 def test_unported_plane_configs_raise(pconf, match):
     conf = {"solver": {"relaxation": "plane-xy"}, "plane-config": pconf}
     with pytest.raises(NotImplementedError, match=f"cedar_tpu_torch.*{match}"):
         Solver3(gallery.poisson3(8, 8, 8, device="cpu"), SevenPt, conf)
+
+
+# the plane-configs that test_unported_plane_configs_raise held refused
+# until they were ported, under its ids
+PLANE_PORTED = [
+    pytest.param({"solver": {"relaxation": "point"}},
+                 id="pconf0-relaxation point"),
+    pytest.param({"solver": {"relaxation": "line-x"}},
+                 id="pconf1-relaxation line-x"),
+    pytest.param({"solver": {"relaxation": "line-y"}},
+                 id="pconf2-relaxation line-y"),
+    pytest.param({"solver": {"relaxation": "line-xy",
+                             "cycle": {"type": "f"}}}, id="pconf3-F-cycle"),
+    # the plane-config's grid.periodic is accepted and ignored, as in
+    # cedar_tpu
+    pytest.param({"solver": {"relaxation": "line-xy",
+                             "cycle": {"type": "f"}},
+                  "grid": {"periodic": [True, False, False]}},
+                 id="pconf5-periodic"),
+]
+
+
+@pytest.mark.parametrize("pconf", PLANE_PORTED)
+def test_ported_plane_configs_solve(pconf):
+    """The same plane-configs build and solve: the embedded solvers run
+    the configured relaxation and cycle, their hierarchies non-periodic,
+    and the solve reaches the tolerance; with F-cycles, which start each
+    plane solve from its rhs alone (as cedar_tpu's do), the plane solves
+    are as inexact at every outer cycle and the solve stalls at their
+    accuracy (4.51e-4 here, the first cycle's)."""
+    fcycle = pconf["solver"].get("cycle", {}).get("type") == "f"
+    conf = {"log": [], "solver": {"relaxation": "plane-xy", "tol": 1e-9,
+                                  "max-iter": 4 if fcycle else 20},
+            "plane-config": pconf}
+    so = gallery.diag_diffusion3(8, 8, 8, 1.0, 1.0, 1e-3, device="cpu")
+    b = gallery.poisson3_rhs(8, 8, 8, device="cpu")
+    s = Solver3(so, SevenPt, conf)
+    ps = s.settings.plane_settings
+    assert ps.relaxation.value == pconf["solver"]["relaxation"]
+    x = s.solve(b)
+    r = float(residual(s.levels[0].so, x, b, SevenPt).norm() / b.norm())
+    if fcycle:
+        assert len(s.history) == 4 and s.history[-1] < 5e-4
+        assert r < 5e-4
+    else:
+        assert s.history[-1] < 1e-9 and r < 1e-9
 
 
 def test_solver2_refuses_plane_relaxation():
