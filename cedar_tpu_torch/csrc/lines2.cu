@@ -11,7 +11,11 @@
 //   rhs = b + S(i,j) q(i,j-1) + S(i,j+1) q(i,j+1) [+ the 4 corner terms]
 //   lines of pcr_stride h > 0 (n >= 64 points): log2 h PCR steps, then
 //   Thomas on the h interleaved systems (stencil2.cuh `solve_lines`);
-//   shorter lines: the LDLᵀ recurrence, one thread a line.
+//   shorter lines: the LDLᵀ recurrence, one thread a line.  Under
+//   solver.ml-relax.enabled the wrapper passes the full stride (h the power
+//   of two at or above n: all log2 h PCR steps, then r / dg, cedar_tpu's
+//   `_pcr_solve`, the XLA solve ml-relax selects); the same kernel, its
+//   lines padded to h rows, so fewer fit a block (ops/cuda_lines2.group).
 // The y entry swaps the roles of the axes and reads the operands where
 // they lie: its rhs is the x rhs of the transposed stencil (lines2.
 // transpose_so: W<->S, SW->SWᵀ, NW->NWᵀ) in the same term order, so it

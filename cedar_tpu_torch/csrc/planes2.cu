@@ -58,6 +58,10 @@
 // non-periodic, cedar_tpu/ops/planes3.py `setup_planes`), so no cyclic
 // line is needed.
 //
+// Both modes take the full PCR stride too (hx, hy from pcr_stride's
+// `full`: a plane-config's solver.ml-relax.enabled), each line then solved
+// by the full-length PCR as K4 solves it with the full stride.
+//
 // In place is race-free: a pass's rhs reads q only on lines of the other
 // colour, its solves write only their own lines, and the barriers order
 // the phases (the Python wrapper refuses aliased operands and other

@@ -205,7 +205,12 @@ __device__ __forceinline__ T rhs_y_wrap(const T* __restrict__ so, const T* q,
 // to the row after (up) and the rhs (r), which the solution replaces.
 // Lines of pcr_stride h > 0 (ops/lines2.pcr_stride) take log2 h PCR steps,
 // then Thomas on the h interleaved systems; shorter lines (h = 0) take the
-// LDLᵀ recurrence, one thread a line.
+// LDLᵀ recurrence, one thread a line.  h is a launch argument, any power of
+// two: under solver.ml-relax.enabled (pcr_stride's `full`) it is the power
+// of two at or above n, so PCR runs to the end (cedar_tpu's full-length
+// `_pcr_solve`), the line is padded to h rows and Thomas is one row a
+// system, r / dg.  Nothing here bounds h by the block: a PCR step strides
+// its rows by the block's threads, Thomas its systems.
 
 // One row of a line's system, read and written as one vector.
 template <typename T>
@@ -478,8 +483,9 @@ __device__ void pcr_step(const Row<T>* src, Row<T>* dst, int rows, int npad,
 }
 
 // Thomas on the h interleaved systems of each line (rows k, k+h, ...), one
-// thread a system, in place on `rows` after the PCR steps; in the term
-// order of lines2.pcr_solve:
+// thread a system, in place on `rows` after the PCR steps (with the full
+// stride a system is one row: x = r / dg); in the term order of
+// lines2.pcr_solve:
 //   l_t = lo_t / d_{t-1},  d_t = dg_t - l_t up_{t-1},
 //   z_t = r_t - l_t z_{t-1};
 //   x_{T-1} = z / d,  x_t = (z_t - up_t x_{t+1}) / d_t

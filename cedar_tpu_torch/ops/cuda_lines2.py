@@ -22,6 +22,14 @@ made by :func:`line_x` / :func:`line_y` (one a colour;
 ``periodic_launches`` the periodic ones among them), ``plain_calls``
 calls of the plain versions.
 
+``full`` (``solver.ml-relax.enabled``) takes the stride from
+:func:`~cedar_tpu_torch.ops.lines2.pcr_stride` ``(n, full=True)``: the
+power of two at or above the line's length, so that PCR runs to the end
+(cedar_tpu's full-length ``_pcr_solve``) and Thomas is one row a system.
+The kernel is the same; a line is padded to that power of two, so fewer
+lines fit a block's shared memory.  ``fullpcr_launches`` counts the
+launches made with ``full`` (also counted in ``launches``).
+
 A batch of independent planes (``q`` and ``b`` ``(B, nx, ny)``, ``so``
 ``(ndir, B, nx, ny)``; plane relaxation's line-x and line-y plane
 smoothers, never periodic) goes to K10's one-direction mode
@@ -48,6 +56,7 @@ from cedar_tpu_torch.ops import cuda_build, lines2
 
 launches = 0
 periodic_launches = 0
+fullpcr_launches = 0
 plain_calls = 0
 
 #: shared memory the line kernels (K4, K10) give a block's lines, bytes:
@@ -68,13 +77,13 @@ def line_pad(n: int, h: int) -> int:
 
 
 def group(n: int, nactive: int, itemsize: int, rows: int,
-          cyclic: bool = False) -> tuple:
+          cyclic: bool = False, full: bool = False) -> tuple:
     """``(h, lines, scratch)`` for solving lines of ``n`` points: the PCR
-    stride, the lines a block holds at once (at most ``nactive`` and
-    ``rows`` rows, one at least) and whether they must sit in a device-memory
-    scratch (a line's 8 · npad values beyond ``LINE_SMEM``).  A cyclic line
-    takes the room of two."""
-    h = lines2.pcr_stride(n)
+    stride (``full``: the full-length one), the lines a block holds at once
+    (at most ``nactive`` and ``rows`` rows, one at least) and whether they
+    must sit in a device-memory scratch (a line's 8 · npad values beyond
+    ``LINE_SMEM``).  A cyclic line takes the room of two."""
+    h = lines2.pcr_stride(n, full)
     slots = 2 if cyclic else 1
     npad = line_pad(n, h)
     fit = LINE_SMEM // (8 * slots * npad * itemsize)
@@ -103,8 +112,8 @@ def _check(so, q, b, kind: StencilKind, periodic=(False, False)) -> None:
 
 
 def _launch(entry: str, so, q, b, kind: StencilKind, updown: str,
-            nlines: int, length: int, periodic, cyclic: bool):
-    global launches, periodic_launches
+            nlines: int, length: int, periodic, cyclic: bool, full: bool):
+    global launches, periodic_launches, fullpcr_launches
     if q.ndim != 2:
         raise ValueError(f"K4 takes one plane, not {tuple(q.shape)}")
     _check(so, q, b, kind)
@@ -115,7 +124,7 @@ def _launch(entry: str, so, q, b, kind: StencilKind, updown: str,
     nx, ny = q.shape
     nine = int(kind == StencilKind.nine_pt)
     h, lines, far = group(length, (nlines + 1) // 2, q.element_size(),
-                          K4_ROWS, cyclic)
+                          K4_ROWS, cyclic, full)
     # a line too long for shared memory: its arrays (both of a cyclic
     # line's systems), a block each (x-lines run in clusters of K4_CLUSTER
     # blocks)
@@ -133,57 +142,59 @@ def _launch(entry: str, so, q, b, kind: StencilKind, updown: str,
         )
         launches += 1
         periodic_launches += any(periodic)
+        fullpcr_launches += full
     return q
 
 
 def line_x(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
-           kind: StencilKind, updown: str,
-           periodic=(False, False)) -> torch.Tensor:
+           kind: StencilKind, updown: str, periodic=(False, False),
+           full: bool = False) -> torch.Tensor:
     """One zebra x-line sweep on the card, ``q`` updated in place (a
     batch of planes: one launch of K10's one-direction mode)."""
     if q.ndim == 3:
-        return _batched(so, q, b, kind, updown, periodic, "x")
+        return _batched(so, q, b, kind, updown, periodic, "x", full)
     nx, ny = q.shape
     lines2.check_lines(ny, periodic[1], "x")
     return _launch("cedar_line2_x", so, q, b, kind, updown, ny, nx, periodic,
-                   bool(periodic[0]))
+                   bool(periodic[0]), full)
 
 
 def line_y(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
-           kind: StencilKind, updown: str,
-           periodic=(False, False)) -> torch.Tensor:
+           kind: StencilKind, updown: str, periodic=(False, False),
+           full: bool = False) -> torch.Tensor:
     """One zebra y-line sweep on the card, ``q`` updated in place; the
     operands are read where they lie (no transposes)."""
     if q.ndim == 3:
-        return _batched(so, q, b, kind, updown, periodic, "y")
+        return _batched(so, q, b, kind, updown, periodic, "y", full)
     nx, ny = q.shape
     lines2.check_lines(nx, periodic[0], "y")
     return _launch("cedar_line2_y", so, q, b, kind, updown, nx, ny, periodic,
-                   bool(periodic[1]))
+                   bool(periodic[1]), full)
 
 
 def _batched(so, q, b, kind: StencilKind, updown: str, periodic,
-             axes: str) -> torch.Tensor:
+             axes: str, full: bool) -> torch.Tensor:
     """A zebra sweep of every plane of a batch: K10 along ``axes``."""
     from cedar_tpu_torch.ops import cuda_planes2
 
     _check(so, q, b, kind, periodic)
-    return cuda_planes2.smooth(so, q, b, kind, updown, 1, axes=axes)
+    return cuda_planes2.smooth(so, q, b, kind, updown, 1, axes=axes,
+                               full=full)
 
 
 def line_x_plain(so, q, b, kind: StencilKind, updown: str, sor=None,
-                 periodic=(False, False)):
+                 periodic=(False, False), full: bool = False):
     """:func:`line_x` in torch ops, on any device; ``q`` in place."""
     global plain_calls
     plain_calls += 1
     _check(so, q, b, kind, periodic)
-    return lines2.sweep_x_torch(so, q, b, sor, kind, updown, periodic)
+    return lines2.sweep_x_torch(so, q, b, sor, kind, updown, periodic, full)
 
 
 def line_y_plain(so, q, b, kind: StencilKind, updown: str, sor=None,
-                 periodic=(False, False)):
+                 periodic=(False, False), full: bool = False):
     """:func:`line_y` in torch ops, on any device; ``q`` in place."""
     global plain_calls
     plain_calls += 1
     _check(so, q, b, kind, periodic)
-    return lines2.sweep_y_torch(so, q, b, sor, kind, updown, periodic)
+    return lines2.sweep_y_torch(so, q, b, sor, kind, updown, periodic, full)

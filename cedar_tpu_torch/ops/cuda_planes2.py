@@ -28,8 +28,10 @@ scratch for a line too long for it).  The plain version takes the
 :func:`~cedar_tpu_torch.ops.lines2.setup_lines` factors of the batch for
 the short lines or, given None, factors the same way.  ``launches`` counts
 kernel launches made by :func:`smooth` in line-xy mode (one a call),
-``line_launches`` those in the one-direction mode, ``plain_calls`` calls
-of :func:`smooth_plain`.
+``line_launches`` those in the one-direction mode, ``fullpcr_launches``
+those of either mode made with ``full`` (``solver.ml-relax.enabled``: each
+line solved by the full-length PCR, as K4 does with ``full``),
+``plain_calls`` calls of :func:`smooth_plain`.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from cedar_tpu_torch.ops.stencil2 import residual
 
 launches = 0
 line_launches = 0
+fullpcr_launches = 0
 plain_calls = 0
 
 #: ``axes`` -> the kernel's mode bits (1: x-lines, 2: y-lines)
@@ -74,11 +77,12 @@ def _check(so, q, b, kind: StencilKind, updown: str,
 
 def smooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
            kind: StencilKind, updown: str, nsweeps: int = 1,
-           emit_res: bool = False, axes: str = "xy"):
+           emit_res: bool = False, axes: str = "xy", full: bool = False):
     """``nsweeps`` line-xy smooths (``axes`` "x" or "y": zebra x- or
     y-line sweeps) of every plane on the card, ``q`` updated in place: one
-    launch.  Returns ``q``, or ``(q, b - A q)`` with ``emit_res``."""
-    global launches, line_launches
+    launch.  Returns ``q``, or ``(q, b - A q)`` with ``emit_res``.
+    ``full``: the lines take the full-length PCR."""
+    global launches, line_launches, fullpcr_launches
     _check(so, q, b, kind, updown, axes)
     dt = cuda_build.check_operands(so, q, b)
     res = torch.empty_like(q) if emit_res else None
@@ -89,8 +93,10 @@ def smooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
         # one line in a device-memory scratch if one does not fit (of the
         # passes that run)
         size = q.element_size()
-        hx, lx, far_x = cuda_lines2.group(nx, (ny + 1) // 2, size, nx * ny)
-        hy, ly, far_y = cuda_lines2.group(ny, (nx + 1) // 2, size, nx * ny)
+        hx, lx, far_x = cuda_lines2.group(nx, (ny + 1) // 2, size, nx * ny,
+                                          full=full)
+        hy, ly, far_y = cuda_lines2.group(ny, (nx + 1) // 2, size, nx * ny,
+                                          full=full)
         on_x, on_y = AXES[axes] & 1, AXES[axes] & 2
         per_plane = 0
         if (far_x and on_x) or (far_y and on_y):
@@ -112,20 +118,23 @@ def smooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
             launches += 1
         else:
             line_launches += 1
+        fullpcr_launches += full
     return (q, res) if emit_res else q
 
 
 def smooth_plain(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
                  kind: StencilKind, updown: str, nsweeps: int = 1,
                  emit_res: bool = False, sor_x=None, sor_y=None,
-                 axes: str = "xy"):
+                 axes: str = "xy", full: bool = False):
     """:func:`smooth` in torch ops, on any device; ``q`` in place.
     ``sor_x`` / ``sor_y``: the batch's line factors, or None."""
     global plain_calls
     plain_calls += 1
     _check(so, q, b, kind, updown, axes)
-    passes = [lambda: lines2.sweep_x_torch(so, q, b, sor_x, kind, updown),
-              lambda: lines2.sweep_y_torch(so, q, b, sor_y, kind, updown)]
+    passes = [lambda: lines2.sweep_x_torch(so, q, b, sor_x, kind, updown,
+                                           full=full),
+              lambda: lines2.sweep_y_torch(so, q, b, sor_y, kind, updown,
+                                           full=full)]
     passes = [p for p, a in zip(passes, "xy") if a in axes]
     if updown == "up":
         passes.reverse()

@@ -42,9 +42,15 @@ periodic axis a line is cyclic and takes :func:`cyclic_solve`, two solves
 with the modified matrix by the same length rule and a Sherman–Morrison
 correction (cedar_tpu/ops/lines2.py:108-141).
 
-Not ported: the full-length PCR (``cedar_tpu.ops.lines2._pcr_solve``) and
-the SPIKE solve that ``solver.ml-relax.enabled`` selects (ROADMAP queue 1,
-item 7) and the distributed SPIKE solve (item 9).
+``solver.ml-relax.enabled`` selects cedar_tpu's full-length PCR
+(``cedar_tpu.ops.lines2._pcr_solve``) for the lines of ``PCR_MIN_LEN``
+points or more: every function that solves lines takes ``full``, and
+:func:`pcr_stride` then gives h = the power of two at or above n, so that
+:func:`pcr_solve` runs all log2 h PCR steps and its Thomas step is
+``r / dg``; shorter lines keep the LDLᵀ recurrence.  The serial SPIKE solve
+is cedar_tpu's XLA formulation of the same tridiagonal solve and is not
+ported (ROADMAP, "Do not port"); the distributed SPIKE solve waits for
+distribution (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -108,7 +114,7 @@ def tridiag_solve(sor: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 PCR_MIN_LEN = 64
 
 
-def pcr_stride(n: int) -> int:
+def pcr_stride(n: int, full: bool = False) -> int:
     """The interleave stride h at which :func:`pcr_solve` stops PCR on a
     line of ``n`` points, or 0 where the line takes the LDLᵀ recurrence
     (n < ``PCR_MIN_LEN``).  The kernels K4 and K10 take h from here too.
@@ -116,9 +122,13 @@ def pcr_stride(n: int) -> int:
     h trades log2 h PCR steps over every row against Thomas chains of
     2n/h dependent steps: on the H100 8 was fastest for 128-point lines
     (K10) and 32 for 2048-point lines (K4) among 8, 16, 32 and 64
-    (``tools/tune_lines.py``; PERF.md, Findings)."""
+    (``tools/tune_lines.py``; PERF.md, Findings).  With ``full``
+    (``solver.ml-relax.enabled``) h is the power of two at or above n:
+    PCR runs to the end, cedar_tpu's ``_pcr_solve``."""
     if n < PCR_MIN_LEN:
         return 0
+    if full:
+        return 1 << (n - 1).bit_length()
     return 8 if n < 512 else 32
 
 
@@ -142,6 +152,9 @@ def pcr_solve(lo: torch.Tensor, dg: torch.Tensor, up: torch.Tensor,
     the h interleaved systems of ⌈n/h⌉ rows, in the term order of
     ``cedar_tpu.ops.pallas_lines2._solve_all_lines``; the line is padded to
     a multiple of h with identity rows (diagonal 1, couplings and rhs 0).
+    With h at or above n (:func:`pcr_stride` ``full``) that is
+    cedar_tpu's full-length ``_pcr_solve``: its log2 h steps, then ``r /
+    dg``.
     """
     n = r.shape[-2]
     npad = -(-n // h) * h
@@ -186,7 +199,8 @@ def line_coeffs_x(so: torch.Tensor):
 
 
 def cyclic_solve(lo: torch.Tensor, dg: torch.Tensor, up: torch.Tensor,
-                 wrap: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+                 wrap: torch.Tensor, r: torch.Tensor,
+                 full: bool = False) -> torch.Tensor:
     """Solve cyclic tridiagonal systems along axis -2, batched over the
     others: :func:`line_coeffs_x`'s ``lo``, ``dg``, ``up`` and the wrap
     coupling ``wrap`` of row 0 to row n-1 (and back: the operator is
@@ -197,8 +211,9 @@ def cyclic_solve(lo: torch.Tensor, dg: torch.Tensor, up: torch.Tensor,
         u  = (γ, 0, …, cl),   v = (1, 0, …, cu/γ)
         x  = y − z · (v·y)/(1 + v·z),   A'y = r,  A'z = u
 
-    both solves of A' by the line's length rule (:func:`pcr_solve` or the
-    LDLᵀ recurrence, factored from A'), as the kernel K4 runs them."""
+    both solves of A' by the line's length rule (:func:`pcr_solve` to
+    :func:`pcr_stride` ``(n, full)`` or the LDLᵀ recurrence, factored from
+    A'), as the kernel K4 runs them."""
     n = r.shape[-2]
     cl = cu = wrap
     gamma = -dg[..., 0, :]
@@ -208,7 +223,7 @@ def cyclic_solve(lo: torch.Tensor, dg: torch.Tensor, up: torch.Tensor,
     u = torch.zeros_like(r)
     u[..., 0, :] = gamma
     u[..., n - 1, :] = cl
-    h = pcr_stride(n)
+    h = pcr_stride(n, full)
     if h:
         y, z = (pcr_solve(lo, dg, up, v, h) for v in (r, u))
     else:
@@ -259,16 +274,17 @@ def colour_order(updown: str):
 
 
 def sweep_x_torch(so, q, b, sor, kind: StencilKind, updown: str,
-                  periodic=(False, False)):
+                  periodic=(False, False), full: bool = False):
     """One zebra x-line sweep in torch ops, IN PLACE on ``q`` (which may be
-    a transposed view).  Lines of :func:`pcr_stride` h > 0 take
-    :func:`pcr_solve` (``sor`` unused), the others the LDLᵀ recurrence with
-    the factors ``sor``, or factored from ``so`` where ``sor`` is None.
-    Along a periodic x axis the lines are cyclic (:func:`cyclic_solve`,
-    ``sor`` unused); across a periodic y axis the rhs wraps."""
+    a transposed view).  Lines of :func:`pcr_stride` ``(n, full)`` h > 0
+    take :func:`pcr_solve` (``sor`` unused), the others the LDLᵀ
+    recurrence with the factors ``sor``, or factored from ``so`` where
+    ``sor`` is None.  Along a periodic x axis the lines are cyclic
+    (:func:`cyclic_solve`, ``sor`` unused); across a periodic y axis the
+    rhs wraps."""
     check_lines(q.shape[-1], periodic[1], "x")
     cyclic = bool(periodic[0])
-    h = pcr_stride(q.shape[-2])
+    h = pcr_stride(q.shape[-2], full)
     if h or cyclic:
         lo, dg, up = line_coeffs_x(so)
     elif sor is None:
@@ -278,7 +294,7 @@ def sweep_x_torch(so, q, b, sor, kind: StencilKind, updown: str,
         sl = (..., slice(parity, None, 2))
         if cyclic:
             wrap = -so[Dir2.W][..., 0, parity::2]
-            q[sl] = cyclic_solve(lo[sl], dg[sl], up[sl], wrap, rhs)
+            q[sl] = cyclic_solve(lo[sl], dg[sl], up[sl], wrap, rhs, full)
         elif h:
             q[sl] = pcr_solve(lo[sl], dg[sl], up[sl], rhs, h)
         else:
@@ -287,38 +303,39 @@ def sweep_x_torch(so, q, b, sor, kind: StencilKind, updown: str,
 
 
 def sweep_y_torch(so, q, b, sor, kind: StencilKind, updown: str,
-                  periodic=(False, False)):
+                  periodic=(False, False), full: bool = False):
     """One zebra y-line sweep: :func:`sweep_x_torch` on the transposed
     system, IN PLACE on ``q`` through its transposed view."""
     sor_t = None if sor is None else sor.mT
     sweep_x_torch(transpose_so(so, kind), q.mT, b.mT, sor_t, kind, updown,
-                  (periodic[1], periodic[0]))
+                  (periodic[1], periodic[0]), full)
     return q
 
 
 def line_relax_x(so, q, b, sor, kind: StencilKind, updown: str,
-                 periodic=(False, False)):
+                 periodic=(False, False), full: bool = False):
     """One zebra x-line sweep (both colours), IN PLACE on ``q``; returns
     ``q``.  ``sor`` (:func:`setup_lines` factors, or None) feeds the CPU
-    path; the CUDA kernel factors on the fly, with the same rounding."""
+    path; the CUDA kernel factors on the fly, with the same rounding.
+    ``full`` (``solver.ml-relax.enabled``): the full-length PCR."""
     from cedar_tpu_torch.ops import cuda_lines2
 
     if q.is_cuda:
-        return cuda_lines2.line_x(so, q, b, kind, updown, periodic)
+        return cuda_lines2.line_x(so, q, b, kind, updown, periodic, full)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no line sweep for tensors on {q.device}")
     return cuda_lines2.line_x_plain(so, q, b, kind, updown, sor=sor,
-                                    periodic=periodic)
+                                    periodic=periodic, full=full)
 
 
 def line_relax_y(so, q, b, sor, kind: StencilKind, updown: str,
-                 periodic=(False, False)):
+                 periodic=(False, False), full: bool = False):
     """One zebra y-line sweep (both colours), IN PLACE on ``q``."""
     from cedar_tpu_torch.ops import cuda_lines2
 
     if q.is_cuda:
-        return cuda_lines2.line_y(so, q, b, kind, updown, periodic)
+        return cuda_lines2.line_y(so, q, b, kind, updown, periodic, full)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no line sweep for tensors on {q.device}")
     return cuda_lines2.line_y_plain(so, q, b, kind, updown, sor=sor,
-                                    periodic=periodic)
+                                    periodic=periodic, full=full)

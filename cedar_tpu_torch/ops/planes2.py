@@ -26,21 +26,23 @@ from cedar_tpu_torch.core.types import StencilKind
 
 def line_nsmooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
                  kind: StencilKind, updown: str, nsweeps: int, axes: str,
-                 emit_res: bool = False, sor_x=None, sor_y=None):
+                 emit_res: bool = False, sor_x=None, sor_y=None,
+                 full: bool = False):
     """``nsweeps`` smooths of every plane along ``axes`` ("x": zebra
     x-line sweeps, "y": y-line sweeps, "xy": line-xy smooths), IN PLACE on
     ``q``, with the residual ``b - A q`` in the same launch where
-    ``emit_res``.  Returns ``q`` or ``(q, res)``."""
+    ``emit_res``; ``full`` (``solver.ml-relax.enabled``): the lines take
+    the full-length PCR.  Returns ``q`` or ``(q, res)``."""
     from cedar_tpu_torch.ops import cuda_planes2
 
     if q.is_cuda:
         return cuda_planes2.smooth(so, q, b, kind, updown, nsweeps, emit_res,
-                                   axes)
+                                   axes, full)
     if q.device.type != "cpu":
         raise NotImplementedError(f"no line smooth for tensors on "
                                   f"{q.device}")
     return cuda_planes2.smooth_plain(so, q, b, kind, updown, nsweeps,
-                                     emit_res, sor_x, sor_y, axes)
+                                     emit_res, sor_x, sor_y, axes, full)
 
 
 def line_xy_smooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,

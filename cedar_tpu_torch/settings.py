@@ -96,14 +96,14 @@ class MLSettings:
     relax_symmetric: bool = True
     # multilevel line relaxation (reference: solver.ml-relax.* selecting the
     # log-depth "n-level" line solves of include/cedar/2d/mpi/ml_relax.h over
-    # the two-level gather).  TPU analogues: enabled=True forces the
-    # log-depth PCR line algorithm; enabled=False (default, matching the
-    # reference default) uses the two-level interface reduction (cached
-    # SPIKE factors) on long serial lines.  min-gsz is the group size below
-    # which the reduction tree collapses to a direct (Thomas) solve;
-    # factorize is accepted for config parity but is a no-op here — the
-    # SPIKE path always caches factors at setup, and PCR re-eliminates by
-    # construction (the reference's "n-level" vs "n-level-elim" split).
+    # the two-level gather).  enabled=True solves every line of 64 points
+    # or more by the full-length PCR (ops/lines2.pcr_stride with ``full``,
+    # cedar_tpu's ``_pcr_solve``) in the line kernels K4 and K10 and their
+    # plain versions; enabled=False (the default) by PCR to a short stride,
+    # then Thomas on the interleaved systems.  min-gsz and factorize are
+    # read only by cedar_tpu's distributed line solve (parallel/dist.py),
+    # which waits for distribution (ROADMAP queue 1, item 9); on serial
+    # grids nothing reads them, as in cedar_tpu.
     ml_relax_enabled: bool = False
     ml_relax_min_gsz: int = 3
     ml_relax_factorize: bool = True

@@ -92,17 +92,22 @@ def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
     """One smoothing application (reference: multilevel.h:134-223).
 
     line-xy applies line-x then line-y DOWN (pre-smoothing) and line-y then
-    line-x UP (symmetric post-smoothing)."""
+    line-x UP (symmetric post-smoothing).  ``solver.ml-relax.enabled``
+    solves the lines by the full-length PCR (cedar_tpu/solver/
+    cycle2.py:76-110 selects ``_pcr_solve`` under it)."""
     rt = settings.relaxation
     if rt == RelaxType.point:
         return point_relax(lev.so, x, b, lev.recip, kind, updown,
                            periodic=periodic)
+    full = settings.ml_relax_enabled
 
     def lx(x):
-        return line_relax_x(lev.so, x, b, lev.sor_x, kind, updown, periodic)
+        return line_relax_x(lev.so, x, b, lev.sor_x, kind, updown, periodic,
+                            full)
 
     def ly(x):
-        return line_relax_y(lev.so, x, b, lev.sor_y, kind, updown, periodic)
+        return line_relax_y(lev.so, x, b, lev.sor_y, kind, updown, periodic,
+                            full)
 
     if rt == RelaxType.line_x:
         return lx(x)
@@ -137,7 +142,7 @@ def _batched_smooth(lev, kind, x, b, settings: MLSettings, updown: str,
                          f"{rt.value}")
     return planes2.line_nsmooth(lev.so, x, b, kind, updown, nsweeps,
                                 _LINE_AXES[rt], emit_res, lev.sor_x,
-                                lev.sor_y)
+                                lev.sor_y, settings.ml_relax_enabled)
 
 
 def fuse_final_ok(levels, settings: MLSettings) -> bool:

@@ -170,9 +170,6 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
     if settings.relaxation not in _RELAX_2D:
         return (f"relaxation {settings.relaxation.value} in 2D (plane "
                 "relaxation is 3D: use Solver3)")
-    if settings.ml_relax_enabled:
-        return ("solver.ml-relax.enabled (ROADMAP queue 1, item 7: the "
-                "PCR and SPIKE line solves)")
     missing = unsupported_coarse_solver(settings)
     if missing is not None:
         return missing
@@ -187,18 +184,14 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
 def unsupported_coarse_solver(settings: MLSettings,
                               where: str = "") -> str | None:
     """Why the coarse solve of ``settings`` is refused, or None: a
-    redistributed coarse solve at any depth of ``cg-config``, or
-    ``ml-relax`` in an inner solver; ``where`` prefixes the key
-    ("plane-config ").  LU and the inner multigrid solve (``cedar``),
-    nested, are ported."""
+    redistributed coarse solve at any depth of ``cg-config``; ``where``
+    prefixes the key ("plane-config ").  LU and the inner multigrid solve
+    (``cedar``), nested, are ported."""
     while settings.coarse_solver != CGType.lu:
         if settings.coarse_solver == CGType.redist:
             return (f"{where}cg-solver redist (ROADMAP queue 1, item 9: "
                     "redistributed coarse solves)")
         settings, where = settings.cg_settings, where + "cg-config "
-        if settings.ml_relax_enabled:
-            return (f"{where}solver.ml-relax.enabled (ROADMAP queue 1, "
-                    "item 7: the PCR and SPIKE line solves)")
     return None
 
 

@@ -142,9 +142,6 @@ def _unsupported_planes(settings: MLSettings) -> str | None:
     if ps.relaxation not in planes3.PLANE_RELAX:
         return (f"plane-config relaxation {ps.relaxation.value} (the "
                 "embedded plane solvers are 2D)")
-    if ps.ml_relax_enabled:
-        return ("plane-config solver.ml-relax.enabled (ROADMAP queue 1, "
-                "item 7: the PCR and SPIKE line solves)")
     missing = unsupported_coarse_solver(ps, "plane-config ")
     if missing is not None:
         return missing

@@ -102,7 +102,8 @@ def main(argv=None) -> None:
     try:
         for h in args.h:
             lines2.pcr_stride = (
-                (lambda n, h=h: h if rule(n) else 0) if h else rule)
+                (lambda n, full=False, h=h: h if rule(n) else 0) if h
+                else rule)
             for kb in args.smem:
                 cuda_lines2.LINE_SMEM = kb * 1024
                 tag = f"h={h} smem={kb}K"

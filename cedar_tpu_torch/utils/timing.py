@@ -9,6 +9,9 @@ PyTorch counterpart of :mod:`cedar_tpu.utils.timing`:
 * :func:`scope` — a ``torch.profiler.record_function`` range, so profiler
   traces attribute time to "relaxation"/"restrict"/… like the reference's
   labels.
+* :func:`profile_trace` — a device profile of a block of code, written
+  where TensorBoard's profiler plugin reads it (the counterpart of
+  ``jax.profiler.start_trace`` / ``stop_trace``).
 """
 
 from __future__ import annotations
@@ -102,3 +105,21 @@ class TimeLog:
 def scope(name: str):
     """Stage annotation for profiler traces (e.g. 'relaxation')."""
     return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def profile_trace(logdir: str):
+    """Capture a profile of the enclosed block into ``logdir``: the CPU
+    activity, and the card's kernels when CUDA is available (CUPTI sees
+    the kernels inside CUDA graph replays too), as a Chrome-trace JSON
+    file that TensorBoard's profiler plugin reads
+    (``torch.profiler.tensorboard_trace_handler``).  Nothing is caught:
+    an exception in the block ends the trace and propagates."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                str(logdir))):
+        yield

@@ -3,8 +3,10 @@
 against its plain PyTorch version, and drives the 2D V-cycle (fused and
 dense), line-xy and F-cycle solves, the 3D 7- and 27-point V-cycle (fused
 and dense) and F-cycle solves and the 3D plane-relaxation solve on the
-card, the 2D and 3D periodic solves, and the inner multigrid coarse solve
-(``cg-solver: cedar``) and the plane-configs beyond line-xy V-cycles.
+card, the 2D and 3D periodic solves, the inner multigrid coarse solve
+(``cg-solver: cedar``) and the plane-configs beyond line-xy V-cycles,
+``solver.ml-relax.enabled`` (K4 and K10 at the full PCR stride), the
+handle API (``capi``), the examples and ``profile_trace``.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -76,7 +78,12 @@ Phases (each raises on failure; nothing is caught):
    at every batch of the plane-xy 128³ cycle and at BATCH_EDGES (odd
    plane counts and sizes, one-row planes, lines of 63-65 points, K1's
    resident edge), float32 and float64, bit-equal, and a batch of one
-   bit-equal to the unbatched launch;
+   bit-equal to the unbatched launch; then K4 and K10 at the full PCR
+   stride (``solver.ml-relax.enabled``), bit-equal to their plain versions
+   at the full stride: K4 x and y, 5- and 9-point, DOWN and UP, at 2048²
+   float32 and LINE_SHAPES, cyclic and wrapped at PERIODIC_LINES, K10 in
+   both modes, a sweep and 2 sweeps with the residual, at (64, 128²) and
+   BATCH_EDGES, float32 and float64;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -109,6 +116,14 @@ Phases (each raises on failure; nothing is caught):
    128², 3D 24³, nested to depth 2) on the card against its LU solve
    within 1e-10; the plane-config variants (PLANE_GATES: point, line-x
    27-point, line-y, F-cycle, cedar) at 32³, card against CPU;
+4i. float64 gates, card against CPU (rtol 1e-9, atol 1e-14): ml-relax
+   line-xy at 400² ``diag_diffusion(100, 1)``, plane-xy 64x64x8 with a
+   plane-config ml-relax (every K4 and K10 launch at the full stride), a
+   2D and a 3D handle solve through ``capi`` (``operator_apply`` to
+   1e-13); the four examples on the card at their default sizes (each
+   finishes; the planes example's cycles equal the CPU's) and on the card
+   and the CPU at their CPU tests' sizes (error norms to rtol 1e-3, as
+   those tests hold them to cedar_tpu's examples);
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -142,6 +157,15 @@ Phases (each raises on failure; nothing is caught):
    V(1,1) and ``3d_poisson_7pt_256`` with ``num-levels: 3`` and
    ``cedar``, each with the same numbers, the inner steps that were
    active in one cycle and one inner solve's graph ms;
+5h. ``2d_fe_9pt_linexy_2048`` with ml-relax (K4 once a zebra colour,
+   every launch at the full stride) and ``3d_aniso_planexy_128`` with a
+   plane-config ml-relax (K10 at the full stride), each beside its default
+   stride: setup, a solve, the launches of one cycle and the two graphs'
+   cycle ms in alternating pairs; a 4096² float64 5-point V(1,1) handle
+   solve (``bmg2_operator_set_full``, ``bmg2_solver_run``), its x bit for
+   bit ``Solver2``'s, with setup, solve and copy seconds; a 4096² V(1,1)
+   graph solve of four cycles inside ``profile_trace``, whose trace must
+   parse and name the K12 and K13 launches of the replays;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
@@ -165,7 +189,9 @@ Phases (each raises on failure; nothing is caught):
    256³ 7-point and 128³ 27-point (K6 per colour, beside the same launches
    without the wrap) and K6 resident at 16³ 27-point; the batched K1
    (5-point + res at (64, 128²), 9-point at (64, 64²)), K4 (x and y at
-   (64, 128²)) and K5 ((64, 64²) -> (64, 128²)).
+   (64, 128²)) and K5 ((64, 64²) -> (64, 128²)); K4 (2048² 9-point, x
+   and y) and K10 ((64, 128²) 5-point) at the full stride against their
+   plain versions and beside the default stride.
 
 Every solve of phases 4-5f runs as the solvers run it on the card, one
 replay of a captured CUDA graph a cycle, and is held bit for bit to the
@@ -177,8 +203,9 @@ eager against graph, 5 alternating pairs of 25 cycles.
 
 It imports neither JAX nor cedar_tpu.  Without a CUDA device it exits
 non-zero before printing any result.  The line before the last is the
-kernel table as JSON (the periodic modes as entries of their own,
-``*_periodic``); the last line is
+kernel table as JSON (the periodic, batched and full-stride modes as
+entries of their own, ``*_periodic``, ``*_batched``, ``*_fullpcr``); the
+last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -187,9 +214,12 @@ from __future__ import annotations
 import itertools
 import json
 import math
+import os
+import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -197,7 +227,7 @@ import torch
 
 from cedar_tpu_torch import (
     Config, FivePt, NinePt, SevenPt, Solver2, Solver3, TwentySevenPt,
-    gallery,
+    capi, gallery,
 )
 from cedar_tpu_torch.core.types import Dir3, StencilKind
 from cedar_tpu_torch.ops import (
@@ -210,6 +240,7 @@ from cedar_tpu_torch.solver import cycle2, cycle3, graph, inner
 from cedar_tpu_torch.tools.profile_cycle import inner_of
 from cedar_tpu_torch.tools.tune_fused2 import plane_transfer_shapes
 from cedar_tpu_torch.tools.tune_fused3 import device_ms
+from cedar_tpu_torch.utils.timing import profile_trace
 
 CEDAR_HISTORY = [
     0.388629, 0.0443548, 0.00494131, 0.000513399, 5.44908e-05,
@@ -372,6 +403,14 @@ REPLACES = {
     "line2_batched": ("cedar_tpu/ops/pallas_lines2.py:142, "
                       "cedar_tpu/ops/pallas_lines2.py:296"),
     "interp2_batched": "cedar_tpu/ops/pallas_transfer2.py:817",
+    # the full-stride modes (solver.ml-relax.enabled), entries of their own
+    # (their launches are those of the ml-relax paths): under ml-relax the
+    # JAX package solves the lines by its full-length PCR in XLA
+    # (`_pcr_solve`) in place of the line kernels of rows 9 and 10
+    "line2_fullpcr": ("cedar_tpu/ops/lines2.py:80, "
+                      "cedar_tpu/ops/pallas_lines2.py:142"),
+    "planes2_fullpcr": ("cedar_tpu/ops/lines2.py:80, "
+                        "cedar_tpu/ops/pallas_planes2.py:158"),
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -407,6 +446,8 @@ SOURCES = {
     "sweep2_batched": "cedar_tpu_torch/csrc/sweep2.cu",
     "line2_batched": "cedar_tpu_torch/csrc/planes2.cu",
     "interp2_batched": "cedar_tpu_torch/csrc/transfer2.cu",
+    "line2_fullpcr": "cedar_tpu_torch/csrc/lines2.cu",
+    "planes2_fullpcr": "cedar_tpu_torch/csrc/planes2.cu",
 }
 # the periodic modes' entries, each with the entry of its kernel
 PERIODIC_OF = {k + "_periodic": k for k in (
@@ -480,6 +521,8 @@ def counts() -> dict:
         "sweep2_batched": cuda2.batched_launches,
         "line2_batched": cuda_planes2.line_launches,
         "interp2_batched": cuda_transfer2.interp2_batched_launches,
+        "line2_fullpcr": cuda_lines2.fullpcr_launches,
+        "planes2_fullpcr": cuda_planes2.fullpcr_launches,
         "sweep2_plain": cuda2.plain_calls,
         "sweep2_resident_plain": cuda2.plain_calls,
         "restrict2_plain": cuda_transfer2.restrict_plain_calls,
@@ -513,6 +556,8 @@ def counts() -> dict:
         "sweep2_batched_plain": cuda2.plain_calls,
         "line2_batched_plain": cuda_planes2.plain_calls,
         "interp2_batched_plain": cuda_transfer2.interp2_plain_calls,
+        "line2_fullpcr_plain": cuda_lines2.plain_calls,
+        "planes2_fullpcr_plain": cuda_planes2.plain_calls,
     }
 
 
@@ -521,6 +566,7 @@ def reset_counts() -> None:
     cuda2.periodic_launches = cuda2.periodic_resident_launches = 0
     cuda2.batched_launches = 0
     cuda_planes2.line_launches = 0
+    cuda_lines2.fullpcr_launches = cuda_planes2.fullpcr_launches = 0
     cuda_transfer2.interp2_batched_launches = 0
     cuda_transfer2.restrict_launches = cuda_transfer2.interp_launches = 0
     cuda_transfer2.restrict_periodic_launches = 0
@@ -718,14 +764,17 @@ def compare_sweep(so, q, b, kind, pts: str, tag: str,
 
 
 def compare_lines(so, q, b, kind, pts: str, tag: str,
-                  periodic=(False, False)) -> float:
+                  periodic=(False, False), full: bool = False) -> float:
     """K4, x- and y-lines, DOWN and UP, bit-equal to its plain version;
     on ``periodic`` axes cyclic along the line and wrapped across it.  An
-    odd number of lines across a periodic axis must raise in both."""
+    odd number of lines across a periodic axis must raise in both.
+    ``full``: both at the full PCR stride (``solver.ml-relax.enabled``)."""
     e = 0.0
     per = tuple(bool(a) for a in periodic)
     if any(per):
         tag += f" periodic {tuple(int(a) for a in per)}"
+    if full:
+        tag += " full-stride"
     for axis in ("x", "y"):
         kernel = cuda_lines2.line_x if axis == "x" else cuda_lines2.line_y
         plain = (cuda_lines2.line_x_plain if axis == "x"
@@ -746,9 +795,9 @@ def compare_lines(so, q, b, kind, pts: str, tag: str,
         for updown in ("down", "up"):
             e = max(e, compare(f"K4 line2 {axis} {pts} {updown} {tag}",
                                kernel(so, q.clone(), b, kind, updown,
-                                      periodic=per),
+                                      periodic=per, full=full),
                                plain(so, q.clone(), b, kind, updown,
-                                     periodic=per),
+                                     periodic=per, full=full),
                                exact=True))
     return e
 
@@ -2016,6 +2065,10 @@ CEDAR_GATES = {
 }
 
 
+# solver.ml-relax.enabled: the full-length PCR line solve
+ML = {"ml-relax": {"enabled": True}}
+
+
 def plane_conf(relax: str, pconf: dict) -> dict:
     return {"solver": {"relaxation": relax}, "plane-config": pconf}
 
@@ -2119,6 +2172,20 @@ GRAPH_CONFIGS = {
         **cedar_conf(3, {"tol": 1e-6, "max-iter": 4})}),
     **{f"3d {name}": (make, kind, (24, 24, 24), conf)
        for name, (make, kind, conf) in PLANE_GATES.items()},
+    # solver.ml-relax.enabled: the lines of 64 points or more by the
+    # full-length PCR (K4 and K10 at the full stride), at the top level, in
+    # a plane-config and in a cg-config
+    "2d ml line-x": (gallery.fe, NinePt, (129, 97),
+                     {"solver": {"relaxation": "line-x", **ML}}),
+    "2d ml line-y": (gallery.fe, NinePt, (129, 97),
+                     {"solver": {"relaxation": "line-y", **ML}}),
+    "2d ml line-xy": (gallery.fe, NinePt, (257, 257),
+                      {"solver": {"relaxation": "line-xy", **ML}}),
+    "3d plane-xy ml line-xy": (aniso3, SevenPt, (64, 64, 8), plane_conf(
+        "plane-xy", {"solver": {"relaxation": "line-xy", "max-iter": 1,
+                                **ML}})),
+    "2d cedar ml line-x": (gallery.poisson, FivePt, (257, 129), cedar_conf(
+        2, {"relaxation": "line-x", "tol": 1e-6, "max-iter": 4, **ML})),
 }
 
 
@@ -4033,9 +4100,556 @@ def phase_times_batched() -> dict:
     return {k: out[v] + work[v] for k, v in main.items()}
 
 
-def pcr_steps(n: int) -> int:
-    """PCR steps of the line solve of a line of ``n`` points (log2 h)."""
-    return max(lines2.pcr_stride(n), 1).bit_length() - 1
+# ---- solver.ml-relax.enabled, the handle API, the examples, profile_trace
+
+
+def phase_kernels_fullpcr(errs: dict) -> dict:
+    """K4 and K10 at the full PCR stride (``solver.ml-relax.enabled``:
+    h the power of two at or above the line's length), bit-equal to their
+    plain versions at the full stride: K4 x and y, 5- and 9-point, DOWN and
+    UP, at 2048² float32 and LINE_SHAPES (lines of 63, 64 and 65 points,
+    lengths that are no power of two, lines too long for shared memory) in
+    float32 and float64, and cyclic and wrapped at PERIODIC_LINES; K10 in
+    both modes (line-xy, x, y), DOWN and UP, a sweep and 2 sweeps with the
+    residual, at (64, 128²) and BATCH_EDGES in float32 and float64."""
+    print("[3] K4 and K10 at the full PCR stride against plain versions",
+          flush=True)
+    for k in ("line2_fullpcr", "planes2_fullpcr"):
+        errs.setdefault(k, 0.0)
+    dts = (torch.float32, torch.float64)
+    n = 0
+    shapes = [((N_LINES, N_LINES), torch.float32)] + [
+        (s, dt) for s, _ in LINE_SHAPES for dt in dts]
+    for i, (shape, dtype) in enumerate(shapes):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 3100 + i)
+            pts = "9pt" if nine else "5pt"
+            e = compare_lines(so, q, b, kind, pts, tag, full=True)
+            errs["line2_fullpcr"] = max(errs["line2_fullpcr"], e)
+            n += 4
+            del so, q, b
+    for i, ((shape, dtype), per) in enumerate(
+            itertools.product(PERIODIC_LINES, PERIODIC)):
+        tag = f"{shape} {str(dtype).replace('torch.', '')}"
+        for nine in (False, True):
+            so, q, b, kind = random_periodic_problem(shape, nine, dtype,
+                                                     3300 + i, per)
+            pts = "9pt" if nine else "5pt"
+            e = compare_lines(so, q, b, kind, pts, tag, per, full=True)
+            errs["line2_fullpcr"] = max(errs["line2_fullpcr"], e)
+            n += 4
+            del so, q, b
+    for i, (shape, dtype) in enumerate(itertools.product(
+            [(64, N_PLANES, N_PLANES), *BATCH_EDGES], dts)):
+        tag = f"{shape} {str(dtype).replace('torch.', '')} full-stride"
+        for nine in (False, True):
+            so, q, b, kind = random_problem(shape, nine, dtype, 3500 + i)
+            pts = "9pt" if nine else "5pt"
+            for axes, updown, (nsweeps, res) in itertools.product(
+                    ("xy", "x", "y"), ("down", "up"),
+                    ((1, False), (2, True))):
+                got = cuda_planes2.smooth(so, q.clone(), b, kind, updown,
+                                          nsweeps, res, axes, full=True)
+                want = cuda_planes2.smooth_plain(so, q.clone(), b, kind,
+                                                 updown, nsweeps, res,
+                                                 axes=axes, full=True)
+                what = (f"K10 {axes} {pts} {updown} x{nsweeps} "
+                        f"res={int(res)} {tag}")
+                if res:
+                    e = max(compare(what + " q", got[0], want[0],
+                                    exact=True),
+                            compare(what + " res", got[1], want[1],
+                                    exact=True))
+                else:
+                    e = compare(what, got, want, exact=True)
+                errs["planes2_fullpcr"] = max(errs["planes2_fullpcr"], e)
+                n += 1 + res
+            del so, q, b
+    torch.cuda.empty_cache()
+    print(f"  {n} full-stride comparisons, max_abs_err "
+          f"{max(errs['line2_fullpcr'], errs['planes2_fullpcr']):.3e}",
+          flush=True)
+    return errs
+
+
+def require_full(c: dict, what: str) -> None:
+    """Every K4 and K10 launch of ``c`` at the full stride, one at least."""
+    line = c["line2"]
+    plane = c["line_xy2"] + c["line2_batched"]
+    if (c["line2_fullpcr"], c["planes2_fullpcr"]) != (line, plane) or not (
+            line or plane):
+        raise AssertionError(f"{what}: full-stride launches "
+                             f"{c['line2_fullpcr']} K4, "
+                             f"{c['planes2_fullpcr']} K10 of {line}, {plane}")
+
+
+def example_norm(line: str) -> float:
+    return float(re.search(r"Solution norm: (\S+)", line).group(1))
+
+
+def phase_mlrelax_gates() -> None:
+    """[4i] float64 gates, card against CPU (rtol 1e-9, atol 1e-14): the
+    ml-relax line-xy solve of 400² ``diag_diffusion(100, 1)`` (its top
+    lines of 400 and 200 points by the full-length PCR), plane-xy 64x64x8
+    with a plane-config ml-relax, a 2D and a 3D handle solve through
+    ``capi`` (and ``operator_apply``, card against CPU, to 1e-13); then
+    the four examples on the card and on the CPU (:func:`run_example`), at
+    their default sizes and at their CPU tests' sizes."""
+    print("[4i] float64 ml-relax, handle API and example gates, card "
+          "against CPU", flush=True)
+    cpu = torch.device("cpu")
+    n = 400
+    conf = Config({"log": [], "solver": {
+        "relaxation": "line-xy", "cycle": {"nrelax-pre": 1, "nrelax-post": 1},
+        "tol": 1e-10, "max-iter": 10, **ML}})
+    so = gallery.diag_diffusion(n, n, 100.0, 1.0, torch.float64, cpu)
+    b = gallery.poisson_rhs(n, n, torch.float64, cpu)
+    s, x, c = gate_solve(DEV, so, FivePt, conf, b)
+    sc, xc, _ = gate_solve(cpu, so, FivePt, conf, b)
+    print(f"  ml-relax line-xy {n}^2: card "
+          f"{' '.join(f'{h:.9g}' for h in s.history)}", flush=True)
+    print(f"  CPU: {' '.join(f'{h:.9g}' for h in sc.history)}; counts {c}",
+          flush=True)
+    np.testing.assert_allclose(s.history, sc.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.cpu().numpy(), xc.numpy(), rtol=1e-9,
+                               atol=1e-9 * float(xc.abs().max()))
+    require_launched(c, ("line2", "line2_fullpcr", "restrict2",
+                         "interp_add2"), "ml-relax line-xy gate")
+    require_full(c, "ml-relax line-xy gate")
+
+    what, shape = "plane-xy 64x64x8 plane-config ml-relax", (64, 64, 8)
+    conf = Config({"log": [], "solver": {
+        "relaxation": "plane-xy", "tol": 1e-9, "max-iter": 20},
+        "plane-config": {"solver": {"relaxation": "line-xy", "max-iter": 1,
+                                    **ML}}})
+    so = aniso3(*shape, torch.float64, cpu)
+    b = gallery.poisson3_rhs(*shape, torch.float64, cpu)
+    reset_counts()
+    s = Solver3(so.to(DEV), SevenPt, conf)
+    x = s.solve(b.to(DEV))
+    c = counts()
+    check_graph(s, b.to(DEV), x, what, cycle3)
+    sc = Solver3(so, SevenPt, conf)
+    xc = sc.solve(b)
+    print(f"  {what}: card {' '.join(f'{h:.9g}' for h in s.history)}; CPU "
+          f"{' '.join(f'{h:.9g}' for h in sc.history)}; counts {c}",
+          flush=True)
+    np.testing.assert_allclose(s.history, sc.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.cpu().numpy(), xc.numpy(), rtol=1e-9,
+                               atol=1e-9 * float(xc.abs().max()))
+    require_launched(c, PLANE_KERNELS + ("planes2_fullpcr",), what)
+    require_full(c, what)
+
+    # the handle API: the same numpy operator on both devices
+    for what, mk, dims in (
+            ("capi 2D fe 200^2", lambda: gallery.fe(200, 200, torch.float64,
+                                                    cpu), 2),
+            ("capi 3D poisson3 40^3", lambda: gallery.poisson3(
+                40, 40, 40, torch.float64, cpu), 3)):
+        so = mk().numpy()
+        shape = so.shape[1:]
+        topo = (capi.bmg2_topo_create if dims == 2 else capi.bmg3_topo_create)
+        solve = {}
+        rng = np.random.default_rng(40 + dims)
+        b = rng.standard_normal(shape)
+        xin = rng.standard_normal(shape)
+        for dev in (None, "cpu"):   # None: the topology's default, the card
+            op = capi.bmg2_operator_create(topo(*shape, device=dev)) \
+                if dims == 2 else capi.bmg3_operator_create(
+                    topo(*shape, device=dev))
+            capi.bmg2_operator_set_full(op, so)
+            ax = capi.bmg2_operator_apply(op, xin)
+            slv = (capi.bmg2_solver_create if dims == 2
+                   else capi.bmg3_solver_create)(op, {
+                       "log": [], "solver": {"tol": 1e-10, "max-iter": 20}})
+            x = np.zeros(shape)
+            capi.bmg2_solver_run(slv, x, b)
+            solve[dev] = (ax, x, capi._get(slv).history,
+                          capi._get(slv).levels[0].so.device)
+            capi.bmg2_solver_destroy(slv)
+            capi.bmg2_operator_destroy(op)
+        (ax, x, h, d), (axc, xc, hc, dc) = solve[None], solve["cpu"]
+        print(f"  {what}: card ({d}) {' '.join(f'{v:.9g}' for v in h)}; "
+              f"CPU ({dc}) {' '.join(f'{v:.9g}' for v in hc)}; apply max "
+              f"|card - CPU| {np.abs(ax - axc).max():.3e}", flush=True)
+        if d.type != "cuda" or dc.type != "cpu":
+            raise AssertionError(f"{what}: solved on {d} and {dc}")
+        np.testing.assert_allclose(ax, axc, rtol=0, atol=1e-13)
+        np.testing.assert_allclose(h, hc, rtol=1e-9, atol=1e-14)
+        np.testing.assert_allclose(x, xc, rtol=1e-9,
+                                   atol=1e-9 * float(np.abs(xc).max()))
+        if not h[-1] < 1e-10:
+            raise AssertionError(f"{what}: did not converge to 1e-10")
+
+    # the examples: at their default sizes on the card (no --device: the
+    # default), then at the sizes of their CPU tests (EXAMPLE_SIZES) on the
+    # card and the CPU, where the error norms must agree to rtol 1e-3, as
+    # the CPU tests hold them to cedar_tpu's examples; at the default sizes
+    # the float32 solves stall at their floor (400²: 2.3e-4 relative) and
+    # the norm carries that floor's noise (card 2.21133e-05, CPU
+    # 1.96099e-05), so there only the planes example is compared, by its
+    # cycle count.  In a scratch directory: the 2D one writes timings.json
+    # where it runs.
+    from cedar_tpu_torch.examples import (
+        anisotropic_3d_planes, basic_2d_ser, basic_3d_ser, capi_poisson,
+    )
+
+    here = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for mod in (basic_2d_ser, basic_3d_ser, anisotropic_3d_planes,
+                        capi_poisson):
+                name = mod.__name__.rsplit(".", 1)[1]
+                for size in [[]] + ([EXAMPLE_SIZES[name]]
+                                     if EXAMPLE_SIZES[name] else []):
+                    run_example(mod, name, size)
+        finally:
+            os.chdir(here)
+
+
+# the sizes of tests/test_torch_examples.py's runs
+EXAMPLE_SIZES = {"basic_2d_ser": ["64", "48"], "basic_3d_ser": ["16"],
+                 "anisotropic_3d_planes": ["16"], "capi_poisson": []}
+
+
+def run_example(mod, name: str, size: list) -> None:
+    """One example at ``size`` (``[]``: its defaults) on the card, and on
+    the CPU where the two are compared: each must finish, the card through
+    kernels only; the planes example takes as many cycles on both, and at
+    its CPU test's size (``EXAMPLE_SIZES``) another's error norms agree to
+    rtol 1e-3."""
+    tag = f"{name} {' '.join(size) or 'default size'}"
+    reset_counts()
+    t0 = time.perf_counter()
+    card = mod.main(size)
+    t1 = time.perf_counter()
+    c = {k: v for k, v in counts().items() if v}
+    compared = (name == "anisotropic_3d_planes"
+                or size == EXAMPLE_SIZES[name])
+    host = mod.main([*size, "--device", "cpu"]) if compared else card
+    t2 = time.perf_counter()
+    print(f"  example {tag}: card {card[0]!r} ({t1 - t0:.2f} s)"
+          + (f", CPU {host[0]!r} ({t2 - t1:.2f} s)" if compared else "")
+          + f"; launches {c}", flush=True)
+    if card[-1] != "Finished Test" or host[-1] != card[-1]:
+        raise AssertionError(f"{tag}: did not finish")
+    if not c or any(k.endswith("_plain") for k in c):
+        raise AssertionError(f"{tag}: the card ran no kernel or a plain "
+                             "version")
+    if name == "anisotropic_3d_planes":
+        cycles = [re.match(r"converged in (\d+) cycles", v).group(1)
+                  for v in (card[0], host[0])]
+        if cycles[0] != cycles[1]:
+            raise AssertionError(f"{tag}: {cycles[0]} cycles on the card, "
+                                 f"{cycles[1]} on the CPU")
+    elif size == EXAMPLE_SIZES[name]:
+        np.testing.assert_allclose(example_norm(card[0]),
+                                   example_norm(host[0]), rtol=1e-3)
+    elif not math.isfinite(example_norm(card[0])):
+        raise AssertionError(f"{tag}: error norm {card[0]!r}")
+
+
+def graph_pairs(cases: dict, ncycles: int = 25, pairs: int = PAIRS) -> dict:
+    """Replays of solvers' captured iterations against each other:
+    ``cases`` name -> (solver, b, x); ``pairs`` rounds of ``ncycles``
+    CUDA-event-timed replays of each, the order turned each round, after
+    three warm-up replays each.  Prints each run and the median of the
+    medians; returns name -> that median."""
+    one = {}
+    for name, (s, b, x) in cases.items():
+        g = s.graphs.graph("solve", b)
+        g.x.copy_(x)
+        g.b.copy_(b)
+        one[name] = g.replay
+        for _ in range(3):
+            g.replay()
+    runs = {k: [] for k in cases}
+    names = list(cases)
+    for k in range(pairs):
+        for name in (names if k % 2 == 0 else names[::-1]):
+            ms, lo, hi, host = run_cycles(one[name], ncycles)
+            runs[name].append(ms)
+            print(f"  pair {k} {name}: graph cycle ms median {ms:.4f}, min "
+                  f"{lo:.4f}, max {hi:.4f} (host clock {host:.4f})",
+                  flush=True)
+    med = {k: statistics.median(v) for k, v in runs.items()}
+    print("  graph cycle ms, median of medians: " + "; ".join(
+        f"{k} {med[k]:.4f} ({min(runs[k]):.4f}-{max(runs[k]):.4f})"
+        for k in names), flush=True)
+    return med
+
+
+def ml_cell(name: str, cls, make, kind, shape, conf: dict, need,
+            want, cycle) -> tuple:
+    """One cell at full width, float32, with ``solver.ml-relax.enabled``
+    (``conf`` the ml-relax configuration) beside the same configuration at
+    the default stride: for each, setup, a solve of four cycles with its
+    launch counts, graph against eager bit for bit and the launches of one
+    captured cycle (``want(s)``: kernel -> count, the ml-relax one's K4 and
+    K10 all at the full stride); then the two graphs' cycle ms in
+    alternating pairs.  Returns (the ml-relax solve's launches, the medians)."""
+    rhs = gallery.poisson_rhs if len(shape) == 2 else gallery.poisson3_rhs
+    so = make(*shape, torch.float32, DEV)
+    b = rhs(*shape, torch.float32, DEV)
+    solved, out = {}, None
+    for stride, c in (("full", conf), ("default", strip_ml(conf))):
+        label = f"{name} {stride} stride"
+        print(f"[5h] {label}: {make.__name__} {shape} float32, {c}",
+              flush=True)
+        c = Config({"log": [], **c})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        s = cls(so, kind, c)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x = s.solve(b)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = counts()
+        peak = torch.cuda.max_memory_allocated()
+        print(f"  {label}: setup {t1 - t0:.3f} s, solve {t2 - t1:.3f} s "
+              f"({len(s.history)} cycles, the first with its warm-up and "
+              f"capture); history {' '.join(f'{h:.9g}' for h in s.history)}"
+              f"; peak memory {peak / 2**20:.1f} MiB", flush=True)
+        print(f"  {label}: counts {launches}", flush=True)
+        if not torch.isfinite(x).all() or tuple(x.shape) != shape:
+            raise AssertionError(f"{label}: bad solution")
+        if not s.history[-1] < s.history[0]:
+            raise AssertionError(f"{label}: the solve did not converge")
+        require_launched(launches, need if stride == "full" else [
+            k for k in need if not k.endswith("_fullpcr")], label)
+        check_graph(s, b, x, label, cycle)
+        w = want(s)
+        if stride == "full":
+            out = launches
+            require_full(launches, label)
+        else:
+            w = {k: (0 if k.endswith("_fullpcr") else v)
+                 for k, v in w.items()}
+        one_cycle_launches(s, b, label, w, cycle)
+        solved[f"{stride} stride"] = (s, b, x)
+    return out, graph_pairs(solved)
+
+
+def strip_ml(conf: dict) -> dict:
+    """``conf`` with every ``ml-relax`` section removed (the default
+    stride), nested sections included."""
+    if not isinstance(conf, dict):
+        return conf
+    return {k: strip_ml(v) for k, v in conf.items() if k != "ml-relax"}
+
+
+def handle_solve_4096() -> None:
+    """A 4096² float64 5-point V(1,1) solve through the handle API
+    (``bmg2_operator_set_full``, ``bmg2_solver_run``, the default device:
+    the card), its x bit for bit that of ``Solver2`` on the same tensors;
+    setup, solve and the numpy <-> card copies in seconds."""
+    n = N_MAIN
+    print(f"[5h] handle solve: Poisson {n}^2 float64 V(1,1) through capi",
+          flush=True)
+    conf = {"log": [], "solver": {
+        "cycle": {"nrelax-pre": 1, "nrelax-post": 1}, "tol": 1e-10,
+        "max-iter": 4}}
+    so = gallery.poisson(n, n, torch.float64, "cpu").numpy()
+    b = gallery.poisson_rhs(n, n, torch.float64, "cpu").numpy()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    op = capi.bmg2_operator_create(capi.bmg2_topo_create(n, n))
+    capi.bmg2_operator_set_full(op, so)
+    slv = capi.bmg2_solver_create(op, conf)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x = np.zeros((n, n))
+    capi.bmg2_solver_run(slv, x, b)
+    t2 = time.perf_counter()
+    s = capi._get(slv)
+    # the copies a run makes: b and x to the card, x back
+    t3 = time.perf_counter()
+    tb = torch.as_tensor(b, device=DEV)
+    tx = torch.as_tensor(x, device=DEV)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    back = tx.cpu().numpy()
+    t5 = time.perf_counter()
+    print(f"  handle solve: setup {t1 - t0:.3f} s (with the stencil's copy "
+          f"to the card), run {t2 - t1:.3f} s ({len(s.history)} cycles, "
+          f"the first with its warm-up and capture; history "
+          f"{' '.join(f'{h:.9g}' for h in s.history)}); numpy -> card "
+          f"{t4 - t3:.4f} s (b and x, {2 * b.nbytes / 2**20:.0f} MiB), card "
+          f"-> numpy {t5 - t4:.4f} s (x)", flush=True)
+    ref = Solver2(torch.as_tensor(so[:3], device=DEV), FivePt, conf)
+    xr = ref.solve(tb, torch.zeros_like(tb))
+    if not np.array_equal(x, xr.cpu().numpy()) or not np.array_equal(
+            back, x):
+        raise AssertionError("handle solve: x differs from Solver2's (max "
+                             f"|diff| {np.abs(x - xr.cpu().numpy()).max()})")
+    if ref.history != s.history or s.levels[0].so.device.type != "cuda":
+        raise AssertionError("handle solve: history or device differs")
+    print("  handle solve: x bit for bit Solver2's on the same tensors",
+          flush=True)
+    capi.bmg2_solver_destroy(slv)
+    capi.bmg2_operator_destroy(op)
+    del s, ref, xr, tb, tx
+    torch.cuda.empty_cache()
+
+
+# K12 and K13 by the kernel's name in a trace: csrc/fused2.cu `ring2<T,
+# NINE, EPI>`, EPI 3 (kRestrict) for K12, else K13
+RING2 = re.compile(
+    r"ring2<(?:float|double), (?:true|false|\(bool\)\d), (?:\(int\))?(\d)>")
+
+
+def traced_solve_4096() -> None:
+    """A 4096² float32 V(1,1) graph solve of four cycles inside
+    ``profile_trace``, after a first solve that captured the graph: the
+    trace file must parse as JSON and name K12 and K13 launched inside the
+    replays (the fused cycle's four levels each, every cycle)."""
+    n = N_MAIN
+    print(f"[5h] profile_trace: Poisson {n}^2 float32 V(1,1), a graph solve "
+          "of four cycles", flush=True)
+    conf = Config({"log": [], "solver": {
+        "cycle": {"nrelax-pre": 1, "nrelax-post": 1}, "tol": 1e-30,
+        "max-iter": 4}})
+    s = Solver2(gallery.poisson(n, n, torch.float32, DEV), FivePt, conf)
+    b = gallery.poisson_rhs(n, n, torch.float32, DEV)
+    s.solve(b)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with profile_trace(tmp):
+            s.solve(b)
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        files = [f for f in os.listdir(tmp) if f.endswith(".json")]
+        if len(files) != 1:
+            raise AssertionError(f"profile_trace wrote {files}")
+        path = os.path.join(tmp, files[0])
+        size = os.path.getsize(path)
+        with open(path) as f:
+            trace = json.load(f)
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    k12 = k13 = 0
+    for e in kernels:
+        m = RING2.search(e.get("name", ""))
+        if m:
+            k12 += m.group(1) == "3"
+            k13 += m.group(1) != "3"
+    want = 4 * SPLIT_LEVELS
+    print(f"  profile_trace: {t1 - t0:.3f} s, {size / 2**20:.1f} MiB, "
+          f"{len(trace['traceEvents'])} events, {len(kernels)} kernels: K12 "
+          f"{k12}, K13 {k13}", flush=True)
+    if k12 != want or k13 != want:
+        raise AssertionError(f"profile_trace: K12 {k12}, K13 {k13} in the "
+                             f"replays, not {want} each")
+
+
+def phase_mlrelax_full() -> dict:
+    """[5h] ``2d_fe_9pt_linexy_2048`` with ml-relax (K4 once a zebra
+    colour, every launch at the full stride) and ``3d_aniso_planexy_128``
+    with a plane-config ml-relax (K10 at the full stride), each beside its
+    default stride; the 4096² float64 handle solve; the 4096² traced graph
+    solve.  Returns the full-stride launches of the two cells."""
+    n = N_LINES
+    lines, _ = ml_cell(
+        "2d_fe_9pt_linexy_2048 ml-relax", Solver2, gallery.fe, NinePt,
+        (n, n), {"solver": {"relaxation": "line-xy",
+                            "cycle": {"nrelax-pre": 1, "nrelax-post": 1},
+                            "max-iter": 4, "tol": 1e-6, **ML}},
+        ("line2", "line2_fullpcr", "restrict2", "interp_add2"),
+        lambda s: {"line2": 8 * (s.nlevels - 1),
+                   "line2_fullpcr": 8 * (s.nlevels - 1)}, cycle2)
+
+    def k10(s):
+        k = sum(2 * 2 * (len(h) - 1) for lev in s.levels[:-1]
+                for h in lev.planes["xy"] if h is not None)
+        return {"line_xy2": k, "planes2_fullpcr": k}
+
+    n = N_PLANES
+    planes, _ = ml_cell(
+        "3d_aniso_planexy_128 plane-config ml-relax", Solver3, aniso3,
+        SevenPt, (n, n, n), {
+            "solver": {"relaxation": "plane-xy",
+                       "cycle": {"nrelax-pre": 1, "nrelax-post": 1},
+                       "max-iter": 4, "tol": 1e-6},
+            "plane-config": {"solver": {"relaxation": "line-xy",
+                                        "max-iter": 1, **ML}}},
+        PLANE_KERNELS + ("planes2_fullpcr",), k10, cycle3)
+    handle_solve_4096()
+    traced_solve_4096()
+    return {"line2_fullpcr": lines["line2_fullpcr"],
+            "planes2_fullpcr": planes["planes2_fullpcr"]}
+
+
+def phase_times_fullpcr() -> dict:
+    """K4 (2048² 9-point float32, x and y) and K10 ((64, 128²) 5-point
+    float32, 2 smooths + the residual) at the full stride against their
+    plain versions at the full stride, and beside the default stride in
+    the same call (default, full, full, default), event and device ms; the
+    bound is the default stride's bytes (unchanged) or the full stride's
+    operations, whichever is larger."""
+    print("[6] K4 and K10 at the full PCR stride (plain, kernel, kernel, "
+          "plain; then default against full stride)", flush=True)
+    m = N_LINES
+    sl, ql, bl, kl = random_problem((m, m), True, torch.float32, 10)
+    shape = (64, N_PLANES, N_PLANES)
+    sp, qp, bp, kp = random_problem(shape, False, torch.float32, 20)
+
+    def k4(axis, full, plain=False):
+        fn = {("x", False): cuda_lines2.line_x,
+              ("y", False): cuda_lines2.line_y,
+              ("x", True): cuda_lines2.line_x_plain,
+              ("y", True): cuda_lines2.line_y_plain}[axis, plain]
+        return lambda: fn(sl, ql, bl, kl, "down", full=full)
+
+    def k10(full, plain=False):
+        if plain:
+            return lambda: cuda_planes2.smooth_plain(sp, qp, bp, kp, "down",
+                                                     2, True, full=full)
+        return lambda: cuda_planes2.smooth(sp, qp, bp, kp, "down", 2, True,
+                                           full=full)
+
+    cases = {"line2_fullpcr x": (k4("x", True, True), k4("x", True)),
+             "line2_fullpcr y": (k4("y", True, True), k4("y", True)),
+             "planes2_fullpcr 5pt x2 +res": (k10(True, True), k10(True))}
+    out = time_turns(cases, slow=list(cases))
+    time_turns({
+        "K4 x 2048^2 9pt": (k4("x", False), k4("x", True)),
+        "K4 y 2048^2 9pt": (k4("y", False), k4("y", True)),
+        "K10 (64, 128^2) 5pt x2 +res": (k10(False), k10(True)),
+    }, labels=("default", "full"))
+    for name, fd, ff in (("K4 x", k4("x", False), k4("x", True)),
+                         ("K4 y", k4("y", False), k4("y", True)),
+                         ("K10", k10(False), k10(True))):
+        print(f"  {name}: device ms default stride {device_ms(fd):.4f}, "
+              f"full stride {device_ms(ff):.4f}", flush=True)
+    N = shape[0] * shape[1] * shape[2]
+    work = {
+        # as phase_times' line2 and phase_times_planes' line_xy2, with the
+        # full stride's PCR steps
+        "line2_fullpcr": ((5 + 3) * m * m * 4,
+                          (12 + 12 * pcr_steps(m, True) + 8) * m * m),
+        "planes2_fullpcr": ((3 + 4) * N * 4, (2 * 2 * (
+            4 + 12 * pcr_steps(N_PLANES, True) + 8) + 10) * N),
+    }
+    res = {"line2_fullpcr": tuple((a + c) / 2 for a, c in zip(
+               out["line2_fullpcr x"], out["line2_fullpcr y"])),
+           "planes2_fullpcr": out["planes2_fullpcr 5pt x2 +res"]}
+    for k, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, torch.float32)
+        print(f"  {k}: bound {bms:.4f} ms by {by} ({nbytes / 1e9:.4f} GB, "
+              f"{flops / 1e9:.4f} GFLOP); kernel {res[k][0]:.4f} ms, plain "
+              f"{res[k][1]:.4f} ms", flush=True)
+    return {k: res[k] + work[k] for k in work}
+
+
+def pcr_steps(n: int, full: bool = False) -> int:
+    """PCR steps of the line solve of a line of ``n`` points (log2 h;
+    ``full``: at the full stride)."""
+    return max(lines2.pcr_stride(n, full), 1).bit_length() - 1
 
 
 def bound(nbytes: int, flops: int, dtype) -> tuple[float, str]:
@@ -4063,6 +4677,7 @@ def main() -> None:
     errs = timed(phase_kernels3, errs)
     errs = timed(phase_kernels_planes, errs)
     errs = timed(phase_kernels_batched, errs)
+    errs = timed(phase_kernels_fullpcr, errs)
     errs = timed(phase_transfers2, errs)
     errs = timed(phase_kernels_periodic, errs)
     errs = timed(phase_kernels_periodic3, errs)
@@ -4077,6 +4692,7 @@ def main() -> None:
     fcycle_periodic = timed(phase_periodic_gates)
     fcycle_periodic3 = timed(phase_periodic3_gates)
     timed(phase_cedar_gates)
+    timed(phase_mlrelax_gates)
     timed(phase_graph_configs)
     launches = timed(phase_main_path)
     launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
@@ -4087,13 +4703,15 @@ def main() -> None:
     launches.update(timed(phase_periodic_full))
     launches.update(timed(phase_periodic3_full))
     launches.update(timed(phase_cedar_full))
+    launches.update(timed(phase_mlrelax_full))
     # K5's and K9's periodic modes run in the periodic F-cycles (phases 4f
     # and 4g)
     launches["interp2_periodic"] = fcycle_periodic["interp2_periodic"]
     launches["interp3_periodic"] = fcycle_periodic3["interp3_periodic"]
     times = (timed(phase_times) | timed(phase_times3)
              | timed(phase_times_planes) | timed(phase_times_periodic)
-             | timed(phase_times_periodic3) | timed(phase_times_batched))
+             | timed(phase_times_periodic3) | timed(phase_times_batched)
+             | timed(phase_times_fullpcr))
     timed(phase_times_levels)
     print(f"  (all phases: {time.perf_counter() - t0:.1f} s)", flush=True)
     table = []

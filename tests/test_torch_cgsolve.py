@@ -15,8 +15,8 @@ cedar_tpu, float64.
 * a nested cedar_tpu hierarchy carried across (``levels_from_numpy``):
   the port's cycle on it equals the port's cycle on its own setup;
 * the configurations that stay refused: plane relaxation inside a 3D
-  ``cg-config`` (cedar_tpu fails on it too), ``ml-relax`` and ``redist``
-  anywhere in the chain.
+  ``cg-config`` (cedar_tpu fails on it too) and ``redist`` anywhere in the
+  chain; ``ml-relax`` in a ``cg-config`` solves as cedar_tpu's does.
 """
 
 import copy
@@ -307,11 +307,30 @@ def test_plane_relaxation_in_3d_cg_config_refused():
 @pytest.mark.parametrize("conf, names", [
     (_cedar(2, {"cg-solver": "redist"}), r"cg-config cg-solver redist.*"
      r"item 9\b"),
-    (_cedar(2, {"ml-relax": {"enabled": True}, "relaxation": "line-x"}),
-     r"cg-config solver.ml-relax.*item 7\b"),
     ({**_cedar(2, {"relaxation": "plane-xy"})}, "2D inner solver"),
 ])
 def test_refused_inner_configs(conf, names):
     with pytest.raises(NotImplementedError, match="cedar_tpu_torch") as e:
         Solver2(gallery.poisson(33, 33, device="cpu"), FivePt, conf)
     assert re.search(names, str(e.value)), str(e.value)
+
+
+def test_ml_relax_inner_config_solves():
+    """``ml-relax`` in a ``cg-config``, which test_refused_inner_configs
+    held refused until it was ported: the same configuration solves as
+    cedar_tpu's does (its inner solver relaxes 17-point x-lines, so the
+    LDLᵀ recurrence; the full-length PCR of an inner solver's long lines
+    is tests/test_torch_mlrelax.py's)."""
+    conf = _cedar(2, {"ml-relax": {"enabled": True}, "relaxation": "line-x",
+                      "tol": 1e-8, "max-iter": 3}, **{"max-iter": 6})
+    so = np.asarray(jgallery.poisson(33, 33))
+    b = np.asarray(jgallery.poisson_rhs(33, 33))
+    js = JSolver2(jnp.asarray(so), JKind.five_pt, conf)
+    jx = np.asarray(js.solve(jnp.asarray(b)))
+    s = Solver2(torch.tensor(so), FivePt, conf)
+    assert s.settings.cg_settings.ml_relax_enabled
+    x = s.solve(torch.tensor(b))
+    assert len(s.history) == len(js.history)
+    np.testing.assert_allclose(s.history, js.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=0,
+                               atol=1e-10 * float(np.abs(jx).max()))

@@ -13,7 +13,8 @@
   for) too; the inner multigrid coarse solve (``cg-solver: cedar``: 2D
   V, F, fused, nested and doubly periodic indefinite, 3D V and fused) and
   the plane-configs of point, line-x and line-y relaxation, the F-cycle
-  and the inner solve.
+  and the inner solve; ``solver.ml-relax.enabled`` (line-xy, a cyclic
+  line-x, a plane-config's, a cg-config's).
 * The graph runner's bookkeeping, with a stand-in backend that records
   the captured callable and replays it eagerly: its ``solve`` equals the
   solver's eager loop bit for bit (history, ``x``, iteration count at a
@@ -70,6 +71,9 @@ def _periodic3(make, per):
 
 def _grid3(per, **solver):
     return {"grid": {"periodic": list(per)}, "solver": solver}
+
+
+ML = {"ml-relax": {"enabled": True}}
 
 
 def _cedar(levels, cg=None, **solver):
@@ -193,6 +197,18 @@ CONFIGS = {
     "3d-plane-cedar": (_aniso3, SevenPt, (10, 10, 5),
                        _plane_config("plane-xy", **{
                            "cg-solver": "cedar", "min-coarse": 5})),
+    # solver.ml-relax.enabled: the top level's lines of 64 points or more
+    # (a cyclic one too; a plane-config's; an inner solver's) by the
+    # full-length PCR
+    "2d-ml-line-xy": (gallery.fe, NinePt, (72, 66),
+                      {"solver": {"relaxation": "line-xy", **ML}}),
+    "2d-ml-periodic-line-x": (gallery.poisson, FivePt, (70, 12), {
+        "grid": {"periodic": [True, False]},
+        "solver": {"relaxation": "line-x", **ML}}),
+    "3d-plane-ml": (_aniso3, SevenPt, (65, 6, 2),
+                    _plane_config("plane-xy", relaxation="line-xy", **ML)),
+    "2d-cedar-ml": (gallery.poisson, FivePt, (130, 33),
+                    _cedar(2, {"relaxation": "line-x", **ML})),
 }
 DTYPES = {"f32": torch.float32, "f64": torch.float64}
 

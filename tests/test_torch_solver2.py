@@ -156,8 +156,6 @@ def test_single_level_and_post_free_cycles():
 # item (queue 1) that ports it, or the reason it is not ported; the ids
 # are those the list had before its periodic entries were ported
 UNPORTED = [
-    ("conf0", {"solver": {"relaxation": "line-x",
-                          "ml-relax": {"enabled": True}}}, r"item 7\b"),
     ("conf2", {"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
      r"item 9\b"),
     ("conf3", {"solver": {"relaxation": "plane-xy"}}, "use Solver3"),
@@ -235,6 +233,35 @@ def test_cedar_options_solve(conf):
     x = s.solve(b)
     assert s.history[-1] < 1e-9
     assert float(residual(so, x, b, FivePt).norm() / b.norm()) < 1e-9
+
+
+# solver.ml-relax.enabled, which test_unported_options_raise held refused
+# until it was ported (its conf0)
+ML_PORTED = [
+    ("conf0", {"solver": {"relaxation": "line-x",
+                          "ml-relax": {"enabled": True}}}),
+]
+
+
+@pytest.mark.parametrize("conf", [
+    pytest.param(conf, id=i) for i, conf in ML_PORTED])
+def test_ml_relax_options_solve(conf):
+    """The same configuration builds and solves as cedar_tpu's does: its
+    80-point x-lines by the full-length PCR (histories to rtol 1e-9, atol
+    1e-14 near the rounding floor; x to 1e-9 of max |x|)."""
+    conf = {**conf, "log": [], "solver": {
+        **conf["solver"], "tol": 1e-9, "max-iter": 12}}
+    so = np.asarray(jgallery.poisson(80, 16))
+    b = np.asarray(jgallery.poisson_rhs(80, 16))
+    js = JSolver2(jnp.asarray(so), JKind.five_pt, conf)
+    jx = np.asarray(js.solve(jnp.asarray(b)))
+    s = Solver2(torch.tensor(so), FivePt, conf)
+    assert s.settings.ml_relax_enabled
+    x = s.solve(torch.tensor(b))
+    assert len(s.history) == len(js.history) and s.history[-1] < 1e-9
+    np.testing.assert_allclose(s.history, js.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=1e-9,
+                               atol=1e-9 * float(np.abs(jx).max()))
 
 
 def test_3d_raises():

@@ -151,9 +151,6 @@ def test_cycle_on_jax_plane_hierarchy(carried):
     pytest.param({"solver": {"relaxation": "line-xy",
                              "cg-solver": "redist"}},
                  "cg-solver", id="pconf4-cg-solver"),
-    pytest.param({"solver": {"relaxation": "line-xy",
-                             "ml-relax": {"enabled": True}}},
-                 "ml-relax", id="pconf6-ml-relax"),
 ])
 def test_unported_plane_configs_raise(pconf, match):
     conf = {"solver": {"relaxation": "plane-xy"}, "plane-config": pconf}
@@ -178,6 +175,9 @@ PLANE_PORTED = [
                              "cycle": {"type": "f"}},
                   "grid": {"periodic": [True, False, False]}},
                  id="pconf5-periodic"),
+    pytest.param({"solver": {"relaxation": "line-xy",
+                             "ml-relax": {"enabled": True}}},
+                 id="pconf6-ml-relax"),
 ]
 
 
