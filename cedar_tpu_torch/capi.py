@@ -13,8 +13,10 @@ versions of the kernels).  Without a card the default raises: a handle
 solve never falls back to the CPU by itself.  The operator is held in
 float64 on the host, as cedar_tpu's is (``np.zeros``); solver creation
 copies it to the device, and ``run`` copies ``b`` and ``x`` there (in the
-operator's dtype) and the solution back.  A device mesh (``mesh=``)
-waits for distribution (ROADMAP queue 1, item 9).
+operator's dtype) and the solution back.  A process mesh (``mesh=``, a
+:class:`cedar_tpu_torch.parallel.topo.Mesh`; every rank of it makes the
+same calls) gives distributed solvers (``DistSolver2``/``DistSolver3``,
+cedar_tpu/capi.py:158-167) on the mesh's device.
 
 Example (mirrors examples/basic-2d-ser/poisson.cc)::
 
@@ -63,13 +65,16 @@ def _get(h):
 
 class _Topo:
     def __init__(self, shape, mesh=None, config=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "cedar_tpu_torch: a device mesh (ROADMAP queue 1, item 9: "
-                "distribution)")
+        from cedar_tpu_torch.parallel.topo import Mesh
+
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError("cedar_tpu_torch: mesh must be a "
+                            "cedar_tpu_torch.parallel.topo.Mesh (make_mesh)")
         self.shape = tuple(int(n) for n in shape)
         self.config = config or {}
-        self.device = default_device(device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else default_device(
+            device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "cedar_tpu_torch: no CUDA device; pass device='cpu' to "
@@ -187,6 +192,11 @@ bmg3_operator_destroy = bmg2_operator_destroy
 def _solver_create(op_h: int, config, ndim: int) -> int:
     o = _get(op_h)
     conf = Config(config or o.topo.config)
+    if o.topo.mesh is not None:
+        from cedar_tpu_torch.parallel import DistSolver2, DistSolver3
+
+        cls = DistSolver2 if ndim == 2 else DistSolver3
+        return _new(cls(*o.stencil(), conf, o.topo.mesh))
     cls = Solver2 if ndim == 2 else Solver3
     return _new(cls(*o.stencil(), conf))
 

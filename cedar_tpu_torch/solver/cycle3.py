@@ -71,16 +71,38 @@ def coarse_solve(lev, b: torch.Tensor, settings: MLSettings,
     return cg.solve_cg(lev.ainv, b)
 
 
+def _relax(lev, kind, x, b, updown: str, periodic, dist=None, lvl=0,
+           fuse_residual: bool = False):
+    """One point sweep of level ``lvl``: the serial sweep, or under a mesh
+    (``dist``, :class:`cedar_tpu_torch.parallel.halo.DistContext`) the
+    sweep of this rank's block."""
+    if dist is not None:
+        return dist.relax(lvl, kind, x, b, updown, fuse_residual)
+    return point_relax(lev.so, x, b, lev.recip, kind, updown,
+                       fuse_residual=fuse_residual, periodic=periodic)
+
+
+def _residual(lev, kind, x, b, periodic, dist=None, lvl=0):
+    if dist is not None:
+        return dist.residual(lvl, kind, x, b)
+    return residual(lev.so, x, b, kind, periodic)
+
+
+def _norm(r, dist=None):
+    if dist is not None:
+        return dist.norm(r)
+    return torch.sqrt(torch.sum(r * r))
+
+
 def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
-            periodic=(False, False, False)):
+            periodic=(False, False, False), dist=None, lvl=0):
     """One smoothing application (reference: multilevel.h:134-223).
 
     plane-xyz applies xy, yz, xz plane sweeps DOWN and xz, yz, xy UP
     (3d/mpi/solver.h relax_dir dispatch)."""
     rt = settings.relaxation
     if rt == RelaxType.point:
-        return point_relax(lev.so, x, b, lev.recip, kind, updown,
-                           periodic=periodic)
+        return _relax(lev, kind, x, b, updown, periodic, dist, lvl)
     if rt in planes3.ORIENTS_OF:
         orients = planes3.ORIENTS_OF[rt]
         if updown == "up":
@@ -93,10 +115,10 @@ def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
 
 
 def _nsmooth(lev, kind, x, b, settings: MLSettings, updown: str,
-             nrelax: int, periodic=(False, False, False)):
+             nrelax: int, periodic=(False, False, False), dist=None, lvl=0):
     """``nrelax`` identical sweeps."""
     for _ in range(nrelax):
-        x = _smooth(lev, kind, x, b, settings, updown, periodic)
+        x = _smooth(lev, kind, x, b, settings, updown, periodic, dist, lvl)
     return x
 
 
@@ -116,31 +138,34 @@ def fuse_final_ok(levels, settings: MLSettings) -> bool:
 def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
            settings: MLSettings, n: int = 1,
            fuse_final_residual: bool = False,
-           periodic=(False, False, False)):
+           periodic=(False, False, False), dist=None):
     """Recursive n-cycle (n=1: V, n=2: W).  Reference: vcycle.h:57-115.
 
     With ``fuse_final_residual`` (callers check :func:`fuse_final_ok`)
     returns ``(x, b - A x)``, the residual coming out of the last
-    post-sweep."""
+    post-sweep.  Under a mesh (``dist``) as
+    :func:`cedar_tpu_torch.solver.cycle2.ncycle`."""
     lev, kind = levels[lvl], kinds[lvl]
     pre = settings.nrelax_pre
     if pre >= 1 and settings.relaxation == RelaxType.point:
         # fused final pre-sweep + residual
         with scope("relaxation"):
             x = _nsmooth(lev, kind, x, b, settings, "down", pre - 1,
-                         periodic)
+                         periodic, dist, lvl)
         with scope("relaxation-residual-fused"):
-            x, res = point_relax(lev.so, x, b, lev.recip, kind, "down",
-                                 fuse_residual=True, periodic=periodic)
+            x, res = _relax(lev, kind, x, b, "down", periodic, dist, lvl,
+                            fuse_residual=True)
     else:
         with scope("relaxation"):
-            x = _nsmooth(lev, kind, x, b, settings, "down", pre, periodic)
+            x = _nsmooth(lev, kind, x, b, settings, "down", pre, periodic,
+                         dist, lvl)
         with scope("residual"):
-            res = residual(lev.so, x, b, kind, periodic)
+            res = _residual(lev, kind, x, b, periodic, dist, lvl)
 
     coarse = levels[lvl + 1]
     with scope("restrict"):
-        cb = restrict(coarse.ci, res, periodic)
+        cb = (restrict(coarse.ci, res, periodic) if dist is None
+              else dist.restrict(lvl, res))
     if lvl + 1 == len(levels) - 1:
         with scope("coarse-solve"):
             cx = coarse_solve(coarse, cb, settings, periodic)
@@ -148,21 +173,23 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
         cx = torch.zeros_like(cb)
         for _ in range(n):
             cx = ncycle(levels, kinds, lvl + 1, cx, cb, settings, n,
-                        periodic=periodic)
+                        periodic=periodic, dist=dist)
 
     with scope("interp-add"):
-        x = interp_add(coarse.ci, lev.so, cx, res, x, periodic)
+        x = (interp_add(coarse.ci, lev.so, cx, res, x, periodic)
+             if dist is None else dist.interp_add(lvl, cx, res, x))
 
     # nonsymmetric relaxation keeps the forward sweep order for
     # post-smoothing (reference: IRELAX_SYM, BMG3_SymStd_relax_GS.f90)
     post = "up" if settings.relax_symmetric else "down"
     nplain = settings.nrelax_post - (1 if fuse_final_residual else 0)
     with scope("relaxation"):
-        x = _nsmooth(lev, kind, x, b, settings, post, nplain, periodic)
+        x = _nsmooth(lev, kind, x, b, settings, post, nplain, periodic,
+                     dist, lvl)
     if fuse_final_residual:
         with scope("relaxation-residual-fused"):
-            return point_relax(lev.so, x, b, lev.recip, kind, post,
-                               fuse_residual=True, periodic=periodic)
+            return _relax(lev, kind, x, b, post, periodic, dist, lvl,
+                          fuse_residual=True)
     return x
 
 
@@ -253,7 +280,7 @@ def ncycle_split(levels, kinds, x: torch.Tensor, b: torch.Tensor,
 
 def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
               settings: MLSettings,
-              periodic=(False, False, False)) -> torch.Tensor:
+              periodic=(False, False, False), dist=None) -> torch.Tensor:
     """Full multigrid cycle (reference: fcycle.h:49-84); returns a new x.
 
     Restricts ``b`` down to the coarsest level, solves there, then on each
@@ -261,40 +288,48 @@ def fmg_cycle(levels, kinds, lvl: int, b: torch.Tensor,
     and no addend) and runs one V-cycle from it, fused where
     :func:`_split_ok_at` allows (cedar_tpu/solver/cycle3.py:378-424).
     Like the JAX package, it starts from ``b`` alone: an incoming iterate
-    plays no part."""
+    plays no part.  Under a mesh (``dist``) as :func:`ncycle`."""
     lev = levels[lvl]
     if lvl == len(levels) - 1:
         with scope("coarse-solve"):
             return coarse_solve(lev, b, settings, periodic)
     coarse = levels[lvl + 1]
     with scope("restrict"):
-        cb = restrict(coarse.ci, b, periodic)
-    cx = fmg_cycle(levels, kinds, lvl + 1, cb, settings, periodic)
+        cb = (restrict(coarse.ci, b, periodic) if dist is None
+              else dist.restrict(lvl, b))
+    cx = fmg_cycle(levels, kinds, lvl + 1, cb, settings, periodic, dist)
     with scope("interp"):
-        x = interp(coarse.ci, cx, b.shape, periodic)
-    split_here = (not any(periodic) and _split_ok_at(levels, lvl, settings)
+        x = (interp(coarse.ci, cx, b.shape, periodic) if dist is None
+             else dist.interp(lvl, cx))
+    split_here = (dist is None and not any(periodic)
+                  and _split_ok_at(levels, lvl, settings)
                   and settings.nrelax_pre >= 1 and settings.nrelax_post >= 1)
     if split_here:
         return ncycle_split(levels, kinds, x, b, settings, lvl=lvl)[0]
-    return ncycle(levels, kinds, lvl, x, b, settings, periodic=periodic)
+    return ncycle(levels, kinds, lvl, x, b, settings, periodic=periodic,
+                  dist=dist)
 
 
 def run_cycle(levels, kinds, x: torch.Tensor, b: torch.Tensor,
-              settings: MLSettings, periodic=(False, False, False)):
+              settings: MLSettings, periodic=(False, False, False),
+              dist=None):
     """One cycle of the configured type (reference: multilevel.h:289-296);
     returns the new iterate.  The dense V-cycle may overwrite ``x``, the
-    fused one (:func:`fine_split_ok`) leaves it, an F-cycle ignores it."""
+    fused one (:func:`fine_split_ok`, never under a mesh) leaves it, an
+    F-cycle ignores it."""
     if len(levels) == 1:
         return coarse_solve(levels[0], b, settings, periodic)
     if settings.cycle == CycleType.f:
-        return fmg_cycle(levels, kinds, 0, b, settings, periodic)
-    if fine_split_ok(levels, settings, periodic):
+        return fmg_cycle(levels, kinds, 0, b, settings, periodic, dist)
+    if dist is None and fine_split_ok(levels, settings, periodic):
         return ncycle_split(levels, kinds, x, b, settings)[0]
-    return ncycle(levels, kinds, 0, x, b, settings, periodic=periodic)
+    return ncycle(levels, kinds, 0, x, b, settings, periodic=periodic,
+                  dist=dist)
 
 
 def cycle_residual(levels, kinds, x: torch.Tensor, b: torch.Tensor,
-                   settings: MLSettings, periodic=(False, False, False)):
+                   settings: MLSettings, periodic=(False, False, False),
+                   dist=None):
     """One iteration of the solve loop: the cycle, then ``‖b - A x‖₂`` on
     the finest level.  Returns ``(x, norm)``, the norm a 0-d tensor (no
     readback).
@@ -303,15 +338,17 @@ def cycle_residual(levels, kinds, x: torch.Tensor, b: torch.Tensor,
     sums of its last post-sweep, as the JAX solve loop does
     (cedar_tpu/solver/solver3.py:316-347); otherwise the residual comes out
     of the last post-sweep where :func:`fuse_final_ok` allows (the JAX
-    solve loop's rule, solver3.py:349-375), or after the cycle."""
-    if fine_split_ok(levels, settings, periodic):
+    solve loop's rule, solver3.py:349-375), or after the cycle.  Under a
+    mesh (``dist``) the norm adds this rank's partial sum to the others'
+    (one all-reduce)."""
+    if dist is None and fine_split_ok(levels, settings, periodic):
         x, partials = ncycle_split(levels, kinds, x, b, settings,
                                    fuse_final_residual=True)
         return x, torch.sqrt(torch.sum(partials))
     if fuse_final_ok(levels, settings):
         x, r = ncycle(levels, kinds, 0, x, b, settings,
-                      fuse_final_residual=True, periodic=periodic)
+                      fuse_final_residual=True, periodic=periodic, dist=dist)
     else:
-        x = run_cycle(levels, kinds, x, b, settings, periodic)
-        r = residual(levels[0].so, x, b, kinds[0], periodic)
-    return x, torch.sqrt(torch.sum(r * r))
+        x = run_cycle(levels, kinds, x, b, settings, periodic, dist)
+        r = _residual(levels[0], kinds[0], x, b, periodic, dist)
+    return x, _norm(r, dist)

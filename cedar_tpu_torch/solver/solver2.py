@@ -3,7 +3,8 @@
 PyTorch counterpart of :mod:`cedar_tpu.solver.solver2` (reference:
 include/cedar/2d/solver.h:21-122, include/cedar/multilevel.h:26-318) for
 point and line relaxation, V-, W- and F-cycles, the direct (LU) coarse
-solve and the inner multigrid coarse solve (``cg-solver: cedar``,
+solve and the inner multigrid coarse solve (``cg-solver: cedar``, or
+``redist``, which cedar_tpu runs as the same inner solve on a serial grid;
 configured by ``cg-config``, nested to any depth), on grids with or
 without periodic axes (``grid.periodic``; the doubly periodic singular
 case with ``solver.definite: false``).
@@ -126,6 +127,8 @@ def setup_hierarchy(so_fine: torch.Tensor, fine_kind: StencilKind,
         so = coarsen_op(ci_next, so, kind, periodic).contiguous()
         kind, ci = StencilKind.nine_pt, ci_next
     if settings.coarse_solver != CGType.lu and nlevels > 1:
+        # cg-solver cedar or redist: on a serial grid cedar_tpu runs both
+        # as the inner multigrid solve (cedar_tpu/solver/solver2.py:208-223)
         levels.append(Level(so=so, ci=ci, inner=setup_inner(
             so, settings, indefinite, periodic)))
     else:
@@ -164,34 +167,18 @@ _RELAX_2D = (RelaxType.point, RelaxType.line_x, RelaxType.line_y,
 
 
 def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
-    """The first configured feature outside this package, or None."""
+    """The first configured feature outside this package, or None.
+    ``grid.np`` (a process grid) is accepted and ignored on a serial
+    solver, as cedar_tpu ignores it; the distributed solvers take a mesh
+    (:mod:`cedar_tpu_torch.parallel`)."""
     if so.ndim != 3 or kind.ndim != 2:
         return "3D operators: use Solver3"
     if settings.relaxation not in _RELAX_2D:
         return (f"relaxation {settings.relaxation.value} in 2D (plane "
                 "relaxation is 3D: use Solver3)")
-    missing = unsupported_coarse_solver(settings)
-    if missing is not None:
-        return missing
     if conf.get("kernels.backend", "auto") == "xla":
         return ("kernels.backend xla (the device decides: kernels on CUDA, "
                 "torch ops on the CPU)")
-    if any(int(p) > 1 for p in conf.get("grid.np", [])):
-        return "grid.np: meshes (ROADMAP queue 1, item 9: distribution)"
-    return None
-
-
-def unsupported_coarse_solver(settings: MLSettings,
-                              where: str = "") -> str | None:
-    """Why the coarse solve of ``settings`` is refused, or None: a
-    redistributed coarse solve at any depth of ``cg-config``; ``where``
-    prefixes the key ("plane-config ").  LU and the inner multigrid solve
-    (``cedar``), nested, are ported."""
-    while settings.coarse_solver != CGType.lu:
-        if settings.coarse_solver == CGType.redist:
-            return (f"{where}cg-solver redist (ROADMAP queue 1, item 9: "
-                    "redistributed coarse solves)")
-        settings, where = settings.cg_settings, where + "cg-config "
     return None
 
 
@@ -207,7 +194,7 @@ class Solver2:
 
     Raises ``NotImplementedError`` for configurations outside the 2D point
     or line relaxation V- or F-cycle with a direct or inner multigrid
-    (``cg-solver: cedar``) coarse solve.
+    (``cg-solver: cedar`` or ``redist``) coarse solve.
 
     On the card ``solve`` and ``vcycle`` replay CUDA graphs captured at
     their first call (``graphs``) that read the hierarchy ``levels`` by

@@ -3,8 +3,9 @@
 PyTorch counterpart of :mod:`cedar_tpu.solver.solver3` (reference:
 include/cedar/3d/solver.h:17-130, include/cedar/multilevel.h:26-318) for
 point and plane relaxation, V-, W- and F-cycles, the direct (LU) coarse
-solve and the inner multigrid coarse solve (``cg-solver: cedar``, a
-27-point point-relaxation hierarchy, nested to any depth), serial, on
+solve and the inner multigrid coarse solve (``cg-solver: cedar``, or
+``redist``, which cedar_tpu runs as the same inner solve on a serial grid;
+a 27-point point-relaxation hierarchy, nested to any depth), serial, on
 grids with or without periodic axes (``grid.periodic``,
 any subset of x, y and z; the triply periodic singular case with
 ``solver.definite: false``).  Tensors stay on the device of the
@@ -52,7 +53,7 @@ from cedar_tpu_torch.ops.stencil3 import residual
 from cedar_tpu_torch.settings import CGType, MLSettings, RelaxType
 from cedar_tpu_torch.solver import cycle3, graph
 from cedar_tpu_torch.solver.level import Level
-from cedar_tpu_torch.solver.solver2 import _l2, unsupported_coarse_solver
+from cedar_tpu_torch.solver.solver2 import _l2
 from cedar_tpu_torch.utils import log
 from cedar_tpu_torch.utils.timing import TimeLog
 
@@ -142,9 +143,6 @@ def _unsupported_planes(settings: MLSettings) -> str | None:
     if ps.relaxation not in planes3.PLANE_RELAX:
         return (f"plane-config relaxation {ps.relaxation.value} (the "
                 "embedded plane solvers are 2D)")
-    missing = unsupported_coarse_solver(ps, "plane-config ")
-    if missing is not None:
-        return missing
     # the plane-config's own grid.periodic is accepted and ignored: the
     # JAX package builds its plane solvers non-periodic whatever it says
     # (cedar_tpu/ops/planes3.py:131-176)
@@ -162,14 +160,10 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
     elif settings.relaxation != RelaxType.point:
         return (f"relaxation {settings.relaxation.value} in 3D (cedar_tpu "
                 "relaxes 3D grids by points or planes)")
-    missing = unsupported_coarse_solver(settings)
-    if missing is not None:
-        return missing
     if conf.get("kernels.backend", "auto") == "xla":
         return ("kernels.backend xla (the device decides: kernels on CUDA, "
                 "torch ops on the CPU)")
-    if any(int(p) > 1 for p in conf.get("grid.np", [])):
-        return "grid.np: meshes (ROADMAP queue 1, item 9: distribution)"
+    # grid.np is accepted and ignored on a serial solver, as in cedar_tpu
     return None
 
 

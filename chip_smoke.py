@@ -6,7 +6,9 @@ and dense) and F-cycle solves and the 3D plane-relaxation solve on the
 card, the 2D and 3D periodic solves, the inner multigrid coarse solve
 (``cg-solver: cedar``) and the plane-configs beyond line-xy V-cycles,
 ``solver.ml-relax.enabled`` (K4 and K10 at the full PCR stride), the
-handle API (``capi``), the examples and ``profile_trace``.
+handle API (``capi``), the examples and ``profile_trace``, and the
+distributed point-relaxation solvers (``DistSolver2``, ``DistSolver3``
+over ``torch.distributed``) in worlds of processes sharing the card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -83,7 +85,11 @@ Phases (each raises on failure; nothing is caught):
    at the full stride: K4 x and y, 5- and 9-point, DOWN and UP, at 2048²
    float32 and LINE_SHAPES, cyclic and wrapped at PERIODIC_LINES, K10 in
    both modes, a sweep and 2 sweeps with the residual, at (64, 128²) and
-   BATCH_EDGES, float32 and float64;
+   BATCH_EDGES, float32 and float64; then K1 and K6 on the distributed
+   paths' shard shapes (a block extended by H = 8: 4096² and 400² on
+   (2, 2), 256³ and 200³ on (2, 2, 2), levels 0 and 1) at the origins of
+   the first rank of an axis (-H), another rank's and an odd one, DOWN
+   and UP, with and without the residual, bit-equal;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -124,6 +130,15 @@ Phases (each raises on failure; nothing is caught):
    finishes; the planes example's cycles equal the CPU's) and on the card
    and the CPU at their CPU tests' sizes (error norms to rtol 1e-3, as
    those tests hold them to cedar_tpu's examples);
+4j. distribution gates: the serial dense solves on the card first
+   (``kernels.fine-split`` false, the distributed solvers' cycle), then
+   Cedar's 400² float64 history through ``DistSolver2`` on a (2, 2) world
+   of 4 processes over gloo, each rank on the card (every message staged
+   through the host: one card, so no NCCL among them), x bit for bit the
+   serial solve's and the history within the norm's NORM_RTOL; Cedar's
+   200³ float64 test through ``DistSolver3`` on a (2, 2, 2) world of 8,
+   x bit for bit; a world of one over NCCL (its all-reduce on the card),
+   bit for bit; the same worlds run phase 5i's paths;
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -166,6 +181,13 @@ Phases (each raises on failure; nothing is caught):
    bit ``Solver2``'s, with setup, solve and copy seconds; a 4096² V(1,1)
    graph solve of four cycles inside ``profile_trace``, whose trace must
    parse and name the K12 and K13 launches of the replays;
+5i. the distributed paths at full width (run in phase 4j's worlds):
+   4096² float32 5-point V(1,1) on (2, 2) and ``3d_poisson_7pt_256`` on
+   (2, 2, 2), a solve of four cycles, x bit for bit the serial dense
+   solve's, then one counted cycle (its exchanges, bytes sent, gathers,
+   reductions, host-staged bytes, K1 and K6 launches on rank 0) and ms a
+   cycle over 10 eager cycles on every rank: N processes sharing one card
+   over gloo, not a multi-GPU figure;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
@@ -191,7 +213,9 @@ Phases (each raises on failure; nothing is caught):
    (5-point + res at (64, 128²), 9-point at (64, 64²)), K4 (x and y at
    (64, 128²)) and K5 ((64, 64²) -> (64, 128²)); K4 (2048² 9-point, x
    and y) and K10 ((64, 128²) 5-point) at the full stride against their
-   plain versions and beside the default stride.
+   plain versions and beside the default stride; K1 and K6 on the
+   distributed paths' full-size shards ((2064, 2064) 5-point and 144³
+   7-point float32) at origin -H.
 
 Every solve of phases 4-5f runs as the solvers run it on the card, one
 replay of a captured CUDA graph a cycle, and is held bit for bit to the
@@ -236,6 +260,9 @@ from cedar_tpu_torch.ops import (
     stencil3,
 )
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
+from cedar_tpu_torch.parallel import DistSolver2, DistSolver3, make_mesh
+from cedar_tpu_torch.parallel import comm, shard_relax
+from cedar_tpu_torch.parallel.launch import spawn
 from cedar_tpu_torch.solver import cycle2, cycle3, graph, inner
 from cedar_tpu_torch.tools.profile_cycle import inner_of
 from cedar_tpu_torch.tools.tune_fused2 import plane_transfer_shapes
@@ -411,6 +438,13 @@ REPLACES = {
                       "cedar_tpu/ops/pallas_lines2.py:142"),
     "planes2_fullpcr": ("cedar_tpu/ops/lines2.py:80, "
                         "cedar_tpu/ops/pallas_planes2.py:158"),
+    # the distributed modes, entries of their own (their launches are the
+    # distributed paths' on one rank): K1 and K6 on halo-extended shards
+    # with the global colour origin, as cedar_tpu's shard_map sweeps
+    # (cedar_tpu/parallel/shard_relax.py:137, :169) call the Pallas kernels
+    "sweep2_dist": "cedar_tpu/ops/pallas2.py:137",
+    "sweep3_dist": ("cedar_tpu/ops/pallas3.py:190, "
+                    "cedar_tpu/ops/pallas3.py:473"),
 }
 SOURCES = {
     "sweep2": "cedar_tpu_torch/csrc/sweep2.cu",
@@ -448,6 +482,8 @@ SOURCES = {
     "interp2_batched": "cedar_tpu_torch/csrc/transfer2.cu",
     "line2_fullpcr": "cedar_tpu_torch/csrc/lines2.cu",
     "planes2_fullpcr": "cedar_tpu_torch/csrc/planes2.cu",
+    "sweep2_dist": "cedar_tpu_torch/csrc/sweep2.cu",
+    "sweep3_dist": "cedar_tpu_torch/csrc/sweep3.cu",
 }
 # the periodic modes' entries, each with the entry of its kernel
 PERIODIC_OF = {k + "_periodic": k for k in (
@@ -558,7 +594,21 @@ def counts() -> dict:
         "interp2_batched_plain": cuda_transfer2.interp2_plain_calls,
         "line2_fullpcr_plain": cuda_lines2.plain_calls,
         "planes2_fullpcr_plain": cuda_planes2.plain_calls,
+        # the distributed entries' plain versions are K1's and K6's (their
+        # launches: dist_counts, in a rank)
+        "sweep2_dist_plain": cuda2.plain_calls,
+        "sweep3_dist_plain": cuda3.plain_calls,
     }
+
+
+def dist_counts() -> dict:
+    """:func:`counts` with the distributed entries (in a rank of a
+    distributed path): K1's and K6's launches in any regime."""
+    c = counts()
+    c["sweep2_dist"] = c["sweep2"] + c["sweep2_resident"]
+    c["sweep3_dist"] = (c["sweep3"] + c["sweep3_resident"]
+                        + c["sweep3_fused"])
+    return c
 
 
 def reset_counts() -> None:
@@ -732,7 +782,8 @@ def phase_kernels() -> dict:
 
 
 def compare_sweep(so, q, b, kind, pts: str, tag: str,
-                  periodic=(False, False), p=None) -> float:
+                  periodic=(False, False), p=None,
+                  origins=((0, 0), (1, 2))) -> float:
     """K1, DOWN and UP, with and without the residual and an origin,
     bit-equal to its plain version, and q left as it was (out of place in
     both regimes); ``periodic`` the periodic axes, ``p`` a plan (default
@@ -747,7 +798,7 @@ def compare_sweep(so, q, b, kind, pts: str, tag: str,
         regime += f", periodic {tuple(int(a) for a in periodic)}"
     q0 = q.clone()
     for updown, fuse, origin in itertools.product(
-            ("down", "up"), (False, True), ((0, 0), (1, 2))):
+            ("down", "up"), (False, True), origins):
         got = cuda2._sweep(p, so, q, b, kind, updown, fuse, origin, periodic)
         want = cuda2.sweep_plain(so, q, b, kind, updown, fuse, origin,
                                  periodic)
@@ -883,7 +934,7 @@ def phase_kernels3(errs: dict) -> dict:
 
 
 def compare_sweep3(so, q, b, kind, tag: str, periodic=(False,) * 3,
-                   plan=None):
+                   plan=None, origins=((0, 0, 0), (1, 2, 3))):
     """K6, DOWN and UP, with and without the residual and an odd origin,
     bit-equal to its plain version, and q left as it was, in the regime
     its plan picks (resident in one block, one launch a colour phase, or
@@ -902,7 +953,7 @@ def compare_sweep3(so, q, b, kind, tag: str, periodic=(False,) * 3,
                       else ""))
     q0, e = q.clone(), 0.0
     for updown, fuse, origin in itertools.product(
-            ("down", "up"), (False, True), ((0, 0, 0), (1, 2, 3))):
+            ("down", "up"), (False, True), origins):
         what = (f"K6 sweep3 {pts} {updown} fuse={int(fuse)} "
                 f"origin={origin} {tag} ({regime})")
         got = (cuda3.sweep(so, q, b, kind, updown, fuse, origin, periodic)
@@ -4646,6 +4697,348 @@ def phase_times_fullpcr() -> dict:
     return {k: res[k] + work[k] for k in work}
 
 
+# -- distribution (phases 3, 4j, 5i, 6): DistSolver2/3 over torch.distributed
+
+DIST_H = shard_relax.H
+# the shard shapes of the distributed paths (a block extended by H), with
+# the origins of the first rank of an axis (-H), of another rank and an
+# odd one: the 4096² and 400² levels 0 and 1 on a (2, 2) mesh, the 256³
+# and 200³ levels 0 and 1 on (2, 2, 2)
+DIST_SWEEP_SHAPES = [
+    ((N_MAIN // 2 + 2 * DIST_H,) * 2, torch.float32, False),
+    ((N_MAIN // 4 + 2 * DIST_H,) * 2, torch.float32, True),
+    ((200 + 2 * DIST_H,) * 2, torch.float64, False),
+    ((100 + 2 * DIST_H,) * 2, torch.float64, True)]
+DIST_SWEEP3_SHAPES = [
+    ((N_3D // 2 + 2 * DIST_H,) * 3, torch.float32, False),
+    ((N_3D // 4 + 2 * DIST_H,) * 3, torch.float32, True),
+    ((N_CEDAR3 // 2 + 2 * DIST_H,) * 3, torch.float64, False),
+    ((N_CEDAR3 // 4 + 2 * DIST_H,) * 3, torch.float64, True)]
+DIST_ORIGINS2 = ((-DIST_H, -DIST_H), (N_MAIN // 2 - DIST_H, -DIST_H),
+                 (-7, 3))
+DIST_ORIGINS3 = ((-DIST_H,) * 3, (N_3D // 2 - DIST_H, -DIST_H, -DIST_H),
+                 (-7, 3, 1))
+# a world's ranks share the one card, over gloo: every message goes
+# through the host (comm.staged_bytes)
+DIST_WORLD_TIMEOUT = 420
+CEDAR_CONF2 = {"log": [], "solver": {
+    "num-levels": 7, "cycle": {"nrelax-pre": 1, "nrelax-post": 1},
+    "tol": 1e-10, "max-iter": 10}}
+CEDAR_CONF3 = {"log": [], "solver": {"tol": 1e-9, "max-iter": 30}}
+DIST_CYCLES = 10
+
+
+def phase_kernels_dist(errs: dict) -> dict:
+    """K1 and K6 on the distributed paths' shard shapes at the origins of
+    DIST_ORIGINS2 / 3 (-H on the first rank of an axis), bit-equal to
+    their plain versions."""
+    print("[3] K1 and K6 on shard shapes, origin -H and others",
+          flush=True)
+    e2 = e3 = 0.0
+    for i, (shape, dtype, nine) in enumerate(DIST_SWEEP_SHAPES):
+        so, q, b, kind = random_problem(shape, nine, dtype, 2000 + i)
+        tag = f"{shape} {str(dtype).replace('torch.', '')} shard"
+        _, e = compare_sweep(so, q, b, kind, "9pt" if nine else "5pt", tag,
+                             origins=DIST_ORIGINS2)
+        e2 = max(e2, e)
+        del so, q, b
+    for i, (shape, dtype, ts) in enumerate(DIST_SWEEP3_SHAPES):
+        so, q, b, kind = random_problem3(shape, ts, dtype, 2100 + i)
+        tag = f"{shape} {str(dtype).replace('torch.', '')} shard"
+        _, e = compare_sweep3(so, q, b, kind, tag, origins=DIST_ORIGINS3)
+        e3 = max(e3, e)
+        del so, q, b
+    errs["sweep2_dist"], errs["sweep3_dist"] = e2, e3
+    return errs
+
+
+def _dist_cycle(s, cycle, bb, xb) -> tuple:
+    """One counted cycle of a distributed solver on this rank's blocks:
+    the kernels' launches and the communication."""
+    torch.cuda.synchronize()
+    reset_counts()
+    comm.reset()
+    xb, r = cycle.cycle_residual(s.levels, s.kinds, xb, bb, s.settings,
+                                 s.periodic, dist=s.dist)
+    float(r)
+    return xb, dist_counts(), comm.counts()
+
+
+def _dist_ms(s, cycle, bb, xb, ncycles=DIST_CYCLES) -> float:
+    """ms a cycle over ``ncycles`` eager cycles (each reads its norm
+    back), the ranks started together."""
+    import torch.distributed as tdist
+
+    torch.cuda.synchronize()
+    tdist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(ncycles):
+        xb, r = cycle.cycle_residual(s.levels, s.kinds, xb, bb, s.settings,
+                                     s.periodic, dist=s.dist)
+        float(r)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / ncycles * 1e3
+
+
+def _dist_run(rank, cls, cycle, so, kind, conf, b, mesh, full: bool):
+    """Setup, solve and (``full``) one counted cycle and the ms a cycle
+    of a distributed solver on this rank."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reset_counts()
+    comm.reset()
+    s = cls(so, kind, copy_conf(conf), mesh)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    out = {"setup_s": t1 - t0, "solve_s": t2 - t1, "history": s.history,
+           "specs": s.specs, "solve_counts": dist_counts(),
+           "solve_comm": comm.counts(), "finite": bool(torch.isfinite(
+               x).all()), "shape": tuple(x.shape)}
+    if rank == 0:
+        out["x"] = x.cpu()
+    if full:
+        bb, xb = s._block(b), s._block(x)
+        xb, out["cycle_counts"], out["cycle_comm"] = _dist_cycle(
+            s, cycle, bb, xb)
+        out["ms"] = _dist_ms(s, cycle, bb, xb)
+    return s, x, out
+
+
+def copy_conf(conf: dict) -> dict:
+    return json.loads(json.dumps(conf))
+
+
+def dist_world2(rank: int) -> dict:
+    """The 2D distributed path on a (2, 2) gloo world, each rank on the
+    card: Cedar's 400² float64 gate (phase 4j) and the 4096² float32
+    V(1,1) path (phase 5i)."""
+    mesh = make_mesh(2, shape=(2, 2), device=DEV)
+    out = {"backend": mesh.backend, "staged": mesh.staged}
+    so = gallery.poisson(400, 400, torch.float64, DEV)
+    b = gallery.poisson_rhs(400, 400, torch.float64, DEV)
+    s, x, out["gate"] = _dist_run(rank, DistSolver2, cycle2, so, FivePt,
+                                  CEDAR_CONF2, b, mesh, False)
+    out["gate"]["err"] = float((x - gallery.poisson_solution(
+        400, 400, torch.float64, DEV)).abs().max())
+    del s, x, so, b
+    n = N_MAIN
+    so = gallery.poisson(n, n, torch.float32, DEV)
+    b = gallery.poisson_rhs(n, n, torch.float32, DEV)
+    conf = {"log": [], "solver": {"cycle": {"nrelax-pre": 1,
+                                            "nrelax-post": 1},
+                                  "tol": 1e-30, "max-iter": 4}}
+    _, _, out["full"] = _dist_run(rank, DistSolver2, cycle2, so, FivePt,
+                                  conf, b, mesh, True)
+    return out
+
+
+def dist_world3(rank: int) -> dict:
+    """The 3D distributed path on a (2, 2, 2) gloo world, each rank on
+    the card: Cedar's 200³ float64 test (phase 4j) and
+    ``3d_poisson_7pt_256`` float32 (phase 5i)."""
+    mesh = make_mesh(3, shape=(2, 2, 2), device=DEV)
+    out = {"backend": mesh.backend, "staged": mesh.staged}
+    n = N_CEDAR3
+    so = gallery.poisson3(n, n, n, torch.float64, DEV)
+    b = gallery.poisson3_rhs(n, n, n, torch.float64, DEV)
+    s, x, out["gate"] = _dist_run(rank, DistSolver3, cycle3, so, SevenPt,
+                                  CEDAR_CONF3, b, mesh, False)
+    out["gate"]["rnorm"] = float(stencil3.residual(so, x, b,
+                                                   SevenPt).norm())
+    out["gate"]["err"] = float((x - gallery.poisson3_solution(
+        n, n, n, torch.float64, DEV)).abs().max())
+    del s, x, so, b
+    n = N_3D
+    so = gallery.poisson3(n, n, n, torch.float32, DEV)
+    b = gallery.poisson3_rhs(n, n, n, torch.float32, DEV)
+    conf = {"log": [], "solver": {"tol": 1e-30, "max-iter": 4}}
+    _, _, out["full"] = _dist_run(rank, DistSolver3, cycle3, so, SevenPt,
+                                  conf, b, mesh, True)
+    return out
+
+
+def dist_world_nccl(rank: int) -> dict:
+    """A world of one over NCCL: the 400² float64 gate, its norm's
+    all-reduce on the card."""
+    mesh = make_mesh(2, shape=(1, 1), device=DEV)
+    so = gallery.poisson(400, 400, torch.float64, DEV)
+    b = gallery.poisson_rhs(400, 400, torch.float64, DEV)
+    _, _, out = _dist_run(rank, DistSolver2, cycle2, so, FivePt,
+                          CEDAR_CONF2, b, mesh, False)
+    out["backend"] = mesh.backend
+    return out
+
+
+def _serial(cls, so, kind, conf):
+    """The serial solve on the card with the dense cycle (the distributed
+    solvers' cycle), through the solver's captured graphs."""
+    conf = {**copy_conf(conf), "kernels": {"fine-split": False}}
+    return cls(so, kind, conf)
+
+
+def _check_dist(what: str, got: dict, want_x, want_hist) -> None:
+    x = got["x"].to(DEV)
+    if not torch.equal(x, want_x):
+        err = float((x - want_x).abs().max())
+        raise AssertionError(f"{what}: x differs from the serial solve on "
+                             f"the card ({err:.3e})")
+    if len(got["history"]) != len(want_hist):
+        raise AssertionError(f"{what}: {len(got['history'])} cycles, serial "
+                             f"{len(want_hist)}")
+    # the norm's partial sums are added in another order
+    np.testing.assert_allclose(got["history"], want_hist,
+                               rtol=NORM_RTOL[x.dtype])
+
+
+def _world(fn, nranks: int, backend: str = "gloo") -> list:
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = spawn(fn, nranks, backend=backend, timeout=DIST_WORLD_TIMEOUT,
+                    init_dir=tmp, threads=None)
+    print(f"  world of {nranks} ({backend}) {fn.__name__}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return res
+
+
+def phase_dist_gates() -> dict:
+    """4j: Cedar's 400² float64 history through DistSolver2 on a (2, 2)
+    gloo world, x bit for bit against Solver2 with the dense cycle on the
+    card; Cedar's 200³ float64 test through DistSolver3 on (2, 2, 2), x bit
+    for bit against Solver3 (dense); a world of one over NCCL equal to
+    Solver2 bit for bit.  Also runs phase 5i's full-size paths in the same
+    worlds (their results are returned)."""
+    print("[4j] distributed gates: 4 and 8 processes sharing the card over "
+          "gloo (host-staged messages), 1 over NCCL", flush=True)
+    so = gallery.poisson(400, 400, torch.float64, DEV)
+    b = gallery.poisson_rhs(400, 400, torch.float64, DEV)
+    s2 = _serial(Solver2, so, FivePt, CEDAR_CONF2)
+    x2 = s2.solve(b)
+    n = N_CEDAR3
+    so3 = gallery.poisson3(n, n, n, torch.float64, DEV)
+    b3 = gallery.poisson3_rhs(n, n, n, torch.float64, DEV)
+    s3 = _serial(Solver3, so3, SevenPt, CEDAR_CONF3)
+    x3 = s3.solve(b3)
+    full2 = _serial(Solver2, gallery.poisson(N_MAIN, N_MAIN, torch.float32,
+                                             DEV), FivePt, {
+        "log": [], "solver": {"cycle": {"nrelax-pre": 1, "nrelax-post": 1},
+                              "tol": 1e-30, "max-iter": 4}})
+    x_full2 = full2.solve(gallery.poisson_rhs(N_MAIN, N_MAIN, torch.float32,
+                                              DEV))
+    hist_full2 = full2.history
+    del full2
+    full3 = _serial(Solver3, gallery.poisson3(N_3D, N_3D, N_3D,
+                                              torch.float32, DEV), SevenPt,
+                    {"log": [], "solver": {"tol": 1e-30, "max-iter": 4}})
+    x_full3 = full3.solve(gallery.poisson3_rhs(N_3D, N_3D, N_3D,
+                                               torch.float32, DEV))
+    hist_full3 = full3.history
+    del full3, so, so3
+    torch.cuda.empty_cache()
+
+    w2 = _world(dist_world2, 4)
+    g = w2[0]["gate"]
+    print(f"  2D: backend {w2[0]['backend']}, host-staged "
+          f"{w2[0]['staged']}; specs {g['specs']}", flush=True)
+    print(f"  400^2 history: {' '.join(f'{h:g}' for h in g['history'])}; "
+          f"error {g['err']:g}; setup {g['setup_s']:.2f} s, solve "
+          f"{g['solve_s']:.2f} s", flush=True)
+    np.testing.assert_allclose(g["history"], CEDAR_HISTORY, rtol=2e-5)
+    np.testing.assert_allclose(g["err"], CEDAR_ERROR, rtol=1e-4)
+    _check_dist("400^2 DistSolver2", g, x2, s2.history)
+    require_launched(g["solve_counts"], ("sweep2_dist", "restrict2",
+                                         "interp_add2"), "400^2 dist gate")
+    if not (w2[0]["backend"] == "gloo" and w2[0]["staged"]):
+        raise AssertionError("the 2D world is not gloo with host staging")
+
+    w3 = _world(dist_world3, 8)
+    g = w3[0]["gate"]
+    print(f"  3D: specs {g['specs']}; history "
+          f"{' '.join(f'{h:.6g}' for h in g['history'])}; |b - A x|_2 = "
+          f"{g['rnorm']:.4e}, |x - x*|_inf = {g['err']:.6g}; setup "
+          f"{g['setup_s']:.2f} s, solve {g['solve_s']:.2f} s", flush=True)
+    if not (g["rnorm"] < 1e-8 and g["err"] < 1e-4):
+        raise AssertionError("Cedar 3D test through DistSolver3 failed")
+    _check_dist("200^3 DistSolver3", g, x3, s3.history)
+    require_launched(g["solve_counts"], ("sweep3_dist", "restrict3",
+                                         "interp_add3"), "200^3 dist gate")
+
+    w1 = _world(dist_world_nccl, 1, "nccl")
+    print(f"  world of one over {w1[0]['backend']}: history "
+          f"{' '.join(f'{h:g}' for h in w1[0]['history'])}", flush=True)
+    if w1[0]["backend"] != "nccl":
+        raise AssertionError("the world of one is not NCCL")
+    _check_dist("400^2 DistSolver2 over NCCL", w1[0], x2, s2.history)
+    return {"w2": w2, "w3": w3, "x_full2": x_full2, "hist_full2": hist_full2,
+            "x_full3": x_full3, "hist_full3": hist_full3}
+
+
+def phase_dist_full(worlds: dict) -> dict:
+    """5i: the 4096² float32 5-point V(1,1) path on a (2, 2) world and
+    ``3d_poisson_7pt_256`` on (2, 2, 2) (run in phase 4j's worlds): per
+    cycle the exchanges, bytes, gathers, reductions, host-staged bytes,
+    K1 and K6 launches a rank and ms a cycle; x bit for bit against the
+    serial dense solve on the card."""
+    print("[5i] distributed paths at full width: N processes sharing ONE "
+          "card over gloo (host-staged), not a multi-GPU figure", flush=True)
+    out = {}
+    for key, name, n, xs, hs, k in (
+            ("w2", f"{N_MAIN}^2 5pt f32 V(1,1) (2,2)", N_MAIN,
+             worlds["x_full2"], worlds["hist_full2"], "sweep2_dist"),
+            ("w3", f"3d_poisson_7pt_256 f32 (2,2,2)", N_3D,
+             worlds["x_full3"], worlds["hist_full3"], "sweep3_dist")):
+        res = worlds[key]
+        f = res[0]["full"]
+        _check_dist(name, f, xs, hs)
+        for r, w in enumerate(res):
+            if not (w["full"]["finite"] and w["full"]["shape"] == xs.shape):
+                raise AssertionError(f"{name}: rank {r} result")
+        cc, cm = f["cycle_counts"], f["cycle_comm"]
+        print(f"  {name}: specs {f['specs']}; setup {f['setup_s']:.2f} s, "
+              f"solve (4 cycles) {f['solve_s']:.2f} s; history "
+              f"{' '.join(f'{h:.4g}' for h in f['history'])}", flush=True)
+        print(f"    a cycle on rank 0: {cm['exchanges']} exchanges, "
+              f"{cm['exchange_bytes']} B sent, {cm['gathers']} gathers "
+              f"({cm['gather_bytes']} B), {cm['reductions']} reductions, "
+              f"{cm['staged_bytes']} B host-staged; K1 {cc['sweep2_dist']}, "
+              f"K6 {cc['sweep3_dist']} launches", flush=True)
+        print(f"    ms a cycle ({DIST_CYCLES} eager cycles, ranks "
+              f"together): " + ", ".join(f"rank {r} {w['full']['ms']:.2f}"
+                                         for r, w in enumerate(res)),
+              flush=True)
+        require_launched(cc, (k,), name)
+        out[k] = f["solve_counts"][k]
+        out[k + " ms"] = f["ms"]
+    return out
+
+
+def phase_times_dist() -> dict:
+    """K1 and K6 on the full-size shards (4096² on (2, 2): (2064, 2064)
+    5-point f32; 256³ on (2, 2, 2): 144³ 7-point f32) at origin -H, DOWN,
+    kernel against plain, with their bounds."""
+    print("[6] K1 and K6 on full-size shards at origin -H (plain, kernel, "
+          "kernel, plain)", flush=True)
+    n2 = N_MAIN // 2 + 2 * DIST_H
+    n3 = N_3D // 2 + 2 * DIST_H
+    so, q, b, kind = random_problem((n2, n2), False, torch.float32, 2200)
+    s3, q3, b3, k3 = random_problem3((n3,) * 3, False, torch.float32, 2201)
+    o2, o3 = (-DIST_H,) * 2, (-DIST_H,) * 3
+    out = time_turns({
+        "sweep2_dist": (
+            lambda: cuda2.sweep_plain(so, q, b, kind, "down", origin=o2),
+            lambda: cuda2.sweep(so, q, b, kind, "down", origin=o2)),
+        "sweep3_dist": (
+            lambda: cuda3.sweep_plain(s3, q3, b3, k3, "down", origin=o3),
+            lambda: cuda3.sweep(s3, q3, b3, k3, "down", origin=o3)),
+    })
+    e = 4
+    work = {"sweep2_dist": ((3 + 3) * n2 * n2 * e, 10 * n2 * n2),
+            "sweep3_dist": ((4 + 3) * n3 ** 3 * e, 14 * n3 ** 3)}
+    return {k: out[k] + work[k] for k in work}
+
+
 def pcr_steps(n: int, full: bool = False) -> int:
     """PCR steps of the line solve of a line of ``n`` points (log2 h;
     ``full``: at the full stride)."""
@@ -4683,6 +5076,7 @@ def main() -> None:
     errs = timed(phase_kernels_periodic3, errs)
     errs = timed(phase_kernels_fused, errs)
     errs = timed(phase_kernels_fused3, errs)
+    errs = timed(phase_kernels_dist, errs)
     timed(phase_cedar_gate)
     timed(phase_fused_gate)
     timed(phase_f64_gates)
@@ -4694,6 +5088,7 @@ def main() -> None:
     timed(phase_cedar_gates)
     timed(phase_mlrelax_gates)
     timed(phase_graph_configs)
+    worlds = timed(phase_dist_gates)
     launches = timed(phase_main_path)
     launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
     launches["line2"] = timed(phase_linexy_2048)["line2"]
@@ -4704,6 +5099,9 @@ def main() -> None:
     launches.update(timed(phase_periodic3_full))
     launches.update(timed(phase_cedar_full))
     launches.update(timed(phase_mlrelax_full))
+    dist_full = timed(phase_dist_full, worlds)
+    launches["sweep2_dist"] = dist_full["sweep2_dist"]
+    launches["sweep3_dist"] = dist_full["sweep3_dist"]
     # K5's and K9's periodic modes run in the periodic F-cycles (phases 4f
     # and 4g)
     launches["interp2_periodic"] = fcycle_periodic["interp2_periodic"]
@@ -4711,7 +5109,7 @@ def main() -> None:
     times = (timed(phase_times) | timed(phase_times3)
              | timed(phase_times_planes) | timed(phase_times_periodic)
              | timed(phase_times_periodic3) | timed(phase_times_batched)
-             | timed(phase_times_fullpcr))
+             | timed(phase_times_fullpcr) | timed(phase_times_dist))
     timed(phase_times_levels)
     print(f"  (all phases: {time.perf_counter() - t0:.1f} s)", flush=True)
     table = []

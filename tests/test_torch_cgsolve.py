@@ -15,8 +15,8 @@ cedar_tpu, float64.
 * a nested cedar_tpu hierarchy carried across (``levels_from_numpy``):
   the port's cycle on it equals the port's cycle on its own setup;
 * the configurations that stay refused: plane relaxation inside a 3D
-  ``cg-config`` (cedar_tpu fails on it too) and ``redist`` anywhere in the
-  chain; ``ml-relax`` in a ``cg-config`` solves as cedar_tpu's does.
+  ``cg-config`` (cedar_tpu fails on it too); ``redist`` in a
+  ``cg-config`` and ``ml-relax`` there solve as cedar_tpu's do.
 """
 
 import copy
@@ -305,14 +305,37 @@ def test_plane_relaxation_in_3d_cg_config_refused():
 
 
 @pytest.mark.parametrize("conf, names", [
-    (_cedar(2, {"cg-solver": "redist"}), r"cg-config cg-solver redist.*"
-     r"item 9\b"),
-    ({**_cedar(2, {"relaxation": "plane-xy"})}, "2D inner solver"),
+    pytest.param({**_cedar(2, {"relaxation": "plane-xy"})},
+                 "2D inner solver", id="conf1-2D inner solver"),
 ])
 def test_refused_inner_configs(conf, names):
     with pytest.raises(NotImplementedError, match="cedar_tpu_torch") as e:
         Solver2(gallery.poisson(33, 33, device="cpu"), FivePt, conf)
     assert re.search(names, str(e.value)), str(e.value)
+
+
+@pytest.mark.parametrize("conf", [
+    pytest.param(_cedar(2, {"cg-solver": "redist"}, **{"max-iter": 8}),
+                 id="conf0-cg-config cg-solver redist.*item 9\\b"),
+])
+def test_redist_inner_config_solves(conf):
+    """``redist`` in a ``cg-config``, which test_refused_inner_configs held
+    refused (under this id) until it was ported: the inner solver's own
+    coarse solve is a further inner multigrid solve (its cg-config
+    inherited, with LU below it), as cedar_tpu runs it on a serial grid;
+    the histories agree to rtol 1e-9 (atol 1e-14), x to 1e-10 of max |x|."""
+    so = np.asarray(jgallery.poisson(33, 33))
+    b = np.asarray(jgallery.poisson_rhs(33, 33))
+    js = JSolver2(jnp.asarray(so), JKind.five_pt, copy.deepcopy(conf))
+    jx = np.asarray(js.solve(jnp.asarray(b)))
+    s = Solver2(torch.tensor(so), FivePt, copy.deepcopy(conf))
+    inner2 = s.levels[-1].inner[-1].inner
+    assert inner2 is not None and inner2[-1].ainv is not None
+    x = s.solve(torch.tensor(b))
+    assert len(s.history) == len(js.history)
+    np.testing.assert_allclose(s.history, js.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=0,
+                               atol=1e-10 * float(np.abs(jx).max()))
 
 
 def test_ml_relax_inner_config_solves():

@@ -156,12 +156,8 @@ def test_single_level_and_post_free_cycles():
 # item (queue 1) that ports it, or the reason it is not ported; the ids
 # are those the list had before its periodic entries were ported
 UNPORTED = [
-    ("conf2", {"solver": {"relaxation": "line-xy", "cg-solver": "redist"}},
-     r"item 9\b"),
     ("conf3", {"solver": {"relaxation": "plane-xy"}}, "use Solver3"),
-    ("conf6", {"solver": {"cg-solver": "redist"}}, r"item 9\b"),
     ("conf8", {"kernels": {"backend": "xla"}}, "the device decides"),
-    ("conf9", {"grid": {"np": [2, 2]}}, r"item 9\b.*distribution"),
 ]
 
 
@@ -206,6 +202,39 @@ def test_periodic_options_solve(conf):
     assert s.history[-1] < 1e-9
     r = residual(so, x, b, FivePt, per)
     assert float(r.norm() / b.norm()) < 1e-9
+
+
+# the serial cg-solver redist and grid.np, which test_unported_options_raise
+# held refused until they were ported (its conf2, conf6 and conf9):
+# cedar_tpu runs redist on a serial grid as the inner multigrid solve and
+# ignores grid.np
+REDIST_PORTED = [
+    ("conf2", {"solver": {"relaxation": "line-xy", "cg-solver": "redist"}}),
+    ("conf6", {"solver": {"cg-solver": "redist"}}),
+    ("conf9", {"grid": {"np": [2, 2]}}),
+]
+
+
+@pytest.mark.parametrize("conf", [
+    pytest.param(conf, id=i) for i, conf in REDIST_PORTED])
+def test_redist_and_np_options_solve(conf):
+    """The same configurations solve as cedar_tpu's Solver2 does (f64 16²,
+    its default tol and max-iter): the same cycle count, the histories to
+    rtol 1e-9, x to 1e-10 of max |x|; under redist the coarsest level
+    holds the inner hierarchy."""
+    conf = {**conf, "log": []}
+    so = np.asarray(jgallery.poisson(16, 16))
+    b = np.asarray(jgallery.poisson_rhs(16, 16))
+    js = JSolver2(jnp.asarray(so), JKind.five_pt, copy.deepcopy(conf))
+    jx = np.asarray(js.solve(jnp.asarray(b)))
+    s = Solver2(torch.tensor(so), FivePt, copy.deepcopy(conf))
+    redist = conf.get("solver", {}).get("cg-solver") == "redist"
+    assert (s.levels[-1].inner is not None) == redist
+    x = s.solve(torch.tensor(b))
+    assert len(s.history) == len(js.history)
+    np.testing.assert_allclose(s.history, js.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=0,
+                               atol=1e-10 * float(np.abs(jx).max()))
 
 
 # the inner multigrid coarse solve, which test_unported_options_raise held

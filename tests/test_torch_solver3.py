@@ -164,9 +164,7 @@ def test_single_level_solve():
 # were ported
 UNPORTED = [
     ("conf2", {"solver": {"relaxation": "line-x"}}, "points or planes"),
-    ("conf5", {"solver": {"cg-solver": "redist"}}, r"item 9\b"),
     ("conf7", {"kernels": {"backend": "xla"}}, "the device decides"),
-    ("conf8", {"grid": {"np": [2, 1, 1]}}, r"item 9\b.*distribution"),
 ]
 
 
@@ -176,6 +174,36 @@ def test_unported_options_raise(conf, names):
     with pytest.raises(NotImplementedError, match="cedar_tpu_torch") as e:
         Solver3(gallery.poisson3(8, 8, 8, device="cpu"), SevenPt, conf)
     assert re.search(names, str(e.value)), str(e.value)
+
+
+# the serial cg-solver redist and grid.np, which test_unported_options_raise
+# held refused until they were ported (its conf5 and conf8): cedar_tpu runs
+# redist on a serial grid as the inner multigrid solve and ignores grid.np
+REDIST_PORTED = [
+    ("conf5", {"solver": {"cg-solver": "redist"}}),
+    ("conf8", {"grid": {"np": [2, 1, 1]}}),
+]
+
+
+@pytest.mark.parametrize("conf", [
+    pytest.param(conf, id=i) for i, conf in REDIST_PORTED])
+def test_redist_and_np_options_solve(conf):
+    """The same configurations solve as cedar_tpu's Solver3 does (f64 8³,
+    b = 1, its default tol and max-iter): the same cycle count, the
+    histories to rtol 1e-9 (atol 1e-14 near the rounding floor), x to 1e-10 of max |x|."""
+    conf = {**conf, "log": []}
+    so = np.asarray(jgallery.poisson3(8, 8, 8))
+    b = np.ones((8, 8, 8))
+    js = JSolver3(jnp.asarray(so), JKind.seven_pt, copy.deepcopy(conf))
+    jx = np.asarray(js.solve(jnp.asarray(b)))
+    s = Solver3(torch.tensor(so), SevenPt, copy.deepcopy(conf))
+    redist = conf.get("solver", {}).get("cg-solver") == "redist"
+    assert (s.levels[-1].inner is not None) == redist
+    x = s.solve(torch.tensor(b))
+    assert len(s.history) == len(js.history)
+    np.testing.assert_allclose(s.history, js.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=0,
+                               atol=1e-10 * float(np.abs(jx).max()))
 
 
 # the plane-config (ROADMAP queue 1, item 6) and cg-solver cedar (item 5)

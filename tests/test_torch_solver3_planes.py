@@ -147,19 +147,8 @@ def test_cycle_on_jax_plane_hierarchy(carried):
                                atol=1e-12 * float(np.abs(want).max()))
 
 
-@pytest.mark.parametrize("pconf, match", [
-    pytest.param({"solver": {"relaxation": "line-xy",
-                             "cg-solver": "redist"}},
-                 "cg-solver", id="pconf4-cg-solver"),
-])
-def test_unported_plane_configs_raise(pconf, match):
-    conf = {"solver": {"relaxation": "plane-xy"}, "plane-config": pconf}
-    with pytest.raises(NotImplementedError, match=f"cedar_tpu_torch.*{match}"):
-        Solver3(gallery.poisson3(8, 8, 8, device="cpu"), SevenPt, conf)
-
-
-# the plane-configs that test_unported_plane_configs_raise held refused
-# until they were ported, under its ids
+# the plane-configs that a refusal test held refused until they were
+# ported, under its ids
 PLANE_PORTED = [
     pytest.param({"solver": {"relaxation": "point"}},
                  id="pconf0-relaxation point"),
@@ -178,6 +167,12 @@ PLANE_PORTED = [
     pytest.param({"solver": {"relaxation": "line-xy",
                              "ml-relax": {"enabled": True}}},
                  id="pconf6-ml-relax"),
+    # cg-solver redist, which test_unported_plane_configs_raise held
+    # refused under this id: the planes' inner multigrid solve, as
+    # cedar_tpu runs it
+    pytest.param({"solver": {"relaxation": "line-xy",
+                             "cg-solver": "redist"}},
+                 id="pconf4-cg-solver"),
 ]
 
 
@@ -211,3 +206,25 @@ def test_solver2_refuses_plane_relaxation():
     with pytest.raises(NotImplementedError, match="plane relaxation is 3D"):
         Solver2(gallery.fe(9, 9, device="cpu"), NinePt,
                 {"solver": {"relaxation": "plane-xy"}})
+
+
+def test_redist_plane_config_matches_cedar_tpu():
+    """pconf4 (``cg-solver: redist`` in the plane-config) against
+    cedar_tpu's Solver3 of the same configuration: the planes' coarse
+    solve is their inner multigrid solve in both packages; the histories
+    agree to rtol 1e-9 (atol 1e-14 near the rounding floor), x to 1e-10
+    of max |x|."""
+    conf = {"log": [], "solver": {"relaxation": "plane-xy", "tol": 1e-9,
+                                  "max-iter": 3},
+            "plane-config": {"solver": {"relaxation": "line-xy",
+                                        "cg-solver": "redist"}}}
+    so = np.asarray(jgallery.poisson3(8, 8, 8))
+    b = np.ones((8, 8, 8))
+    js = JSolver3(jnp.asarray(so), JKind.seven_pt, copy.deepcopy(conf))
+    jx = np.asarray(js.solve(jnp.asarray(b)))
+    s = Solver3(torch.tensor(so), SevenPt, copy.deepcopy(conf))
+    x = s.solve(torch.tensor(b))
+    assert len(s.history) == len(js.history)
+    np.testing.assert_allclose(s.history, js.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=0,
+                               atol=1e-10 * float(np.abs(jx).max()))
