@@ -9,7 +9,8 @@ JAX package's name only: it stores the fine level lane-parity split
 because Mosaic cannot reshape lanes in a kernel.  These functions compute
 the same values on the dense ``(nx, ny)`` grid, non-periodic, one plane.
 
-Each function dispatches by device, as :func:`relax2.point_relax` does:
+Each function dispatches by device and backend, as
+:func:`relax2.point_relax` does:
 CUDA tensors go to the fused kernels (:mod:`cedar_tpu_torch.ops.cuda_fused2`:
 K11-K13; K3 for :func:`interp_add_split`), CPU tensors to the plain
 versions below, which compose the plain versions of the dense ops
@@ -27,15 +28,11 @@ from __future__ import annotations
 
 import torch
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import interp2
 from cedar_tpu_torch.ops.relax2 import sweep_torch
 from cedar_tpu_torch.ops.stencil2 import residual
-
-
-def _on_cpu(t: torch.Tensor, what: str) -> None:
-    if t.device.type != "cpu":
-        raise NotImplementedError(f"no {what} for tensors on {t.device}")
 
 
 def _norm_partials(res: torch.Tensor) -> torch.Tensor:
@@ -90,10 +87,9 @@ def point_relax_split(so, q, b, kind: StencilKind, updown: str,
     Colours anchor to ``(z + origin[0], w + origin[1])``."""
     from cedar_tpu_torch.ops import cuda_fused2
 
-    if q.is_cuda:
+    if backend.kernels(q, "point_relax_split"):
         return cuda_fused2.sweep(so, q, b, kind, updown, fuse_residual,
                                  origin, fuse_norm)
-    _on_cpu(q, "point_relax_split")
     return cuda_fused2.sweep_plain(so, q, b, kind, updown, fuse_residual,
                                    origin, fuse_norm)
 
@@ -110,10 +106,9 @@ def sweep_restrict_split(so, q, b, ci_c, kind: StencilKind, updown: str,
     modified."""
     from cedar_tpu_torch.ops import cuda_fused2
 
-    if q.is_cuda:
+    if backend.kernels(q, "sweep_restrict_split"):
         return cuda_fused2.sweep_restrict(so, q, b, ci_c, kind, updown,
                                           emit_res)
-    _on_cpu(q, "sweep_restrict_split")
     return cuda_fused2.sweep_restrict_plain(so, q, b, ci_c, kind, updown,
                                             emit_res)
 
@@ -133,10 +128,9 @@ def interp_sweep_split(ci_c, qc, so, b, q_pre, kind: StencilKind,
     partials with ``fuse_norm``); ``q_pre`` is not modified."""
     from cedar_tpu_torch.ops import cuda_fused2
 
-    if q_pre.is_cuda:
+    if backend.kernels(q_pre, "interp_sweep_split"):
         return cuda_fused2.interp_sweep(ci_c, qc, so, b, q_pre, kind, updown,
                                         fuse_residual, fuse_norm)
-    _on_cpu(q_pre, "interp_sweep_split")
     return cuda_fused2.interp_sweep_plain(ci_c, qc, so, b, q_pre, kind,
                                           updown, fuse_residual, fuse_norm)
 

@@ -12,7 +12,8 @@ functions compute the same values on the dense ``(nx, ny, nz)`` grid,
 non-periodic, with the unpadded CI ``(26, nxc+1, nyc+1, nzc+1)`` and a
 dense ``qc``: no ``split4``/``merge4``, no ``pw4``, no padding.
 
-Each function dispatches by device, as :func:`relax3.point_relax` does:
+Each function dispatches by device and backend, as
+:func:`relax3.point_relax` does:
 CUDA tensors go to the fused kernels (:mod:`cedar_tpu_torch.ops.cuda_fused3`:
 K14-K16), CPU tensors to the plain versions below, which compose the plain
 versions of the dense ops (:func:`relax3.sweep3_torch`,
@@ -28,9 +29,10 @@ plain version.
 
 from __future__ import annotations
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import interp3
-from cedar_tpu_torch.ops.fused2 import _norm_partials, _on_cpu
+from cedar_tpu_torch.ops.fused2 import _norm_partials
 from cedar_tpu_torch.ops.relax3 import sweep3_torch
 from cedar_tpu_torch.ops.stencil3 import residual
 
@@ -83,10 +85,9 @@ def point_relax_split3(so, q, b, kind: StencilKind, updown: str,
     ``(x + origin[0], y + origin[1], z + origin[2])``."""
     from cedar_tpu_torch.ops import cuda_fused3
 
-    if q.is_cuda:
+    if backend.kernels(q, "point_relax_split3"):
         return cuda_fused3.sweep(so, q, b, kind, updown, fuse_residual,
                                  origin, fuse_norm)
-    _on_cpu(q, "point_relax_split3")
     return cuda_fused3.sweep_plain(so, q, b, kind, updown, fuse_residual,
                                    origin, fuse_norm)
 
@@ -103,10 +104,9 @@ def sweep_restrict_split3(so, q, b, ci_c, kind: StencilKind, updown: str,
     then ``cb = Pᵀ res``.  ``q`` is not modified."""
     from cedar_tpu_torch.ops import cuda_fused3
 
-    if q.is_cuda:
+    if backend.kernels(q, "sweep_restrict_split3"):
         return cuda_fused3.sweep_restrict(so, q, b, ci_c, kind, updown,
                                           emit_res)
-    _on_cpu(q, "sweep_restrict_split3")
     return cuda_fused3.sweep_restrict_plain(so, q, b, ci_c, kind, updown,
                                             emit_res)
 
@@ -127,9 +127,8 @@ def interp_sweep_split3(ci_c, qc, so, b, q_pre, kind: StencilKind,
     is not modified."""
     from cedar_tpu_torch.ops import cuda_fused3
 
-    if q_pre.is_cuda:
+    if backend.kernels(q_pre, "interp_sweep_split3"):
         return cuda_fused3.interp_sweep(ci_c, qc, so, b, q_pre, kind, updown,
                                         fuse_residual, fuse_norm)
-    _on_cpu(q_pre, "interp_sweep_split3")
     return cuda_fused3.interp_sweep_plain(ci_c, qc, so, b, q_pre, kind,
                                           updown, fuse_residual, fuse_norm)

@@ -9,7 +9,9 @@ PyTorch counterpart of :mod:`cedar_tpu.ops.interp2`:
   (``Q += P·Qc`` at coincident points, ``Q += P·Qc + res/diag`` elsewhere).
 * :func:`interp` — ``X = P·Qc``, the F-cycle's level entry (fcycle.h:66-72).
 
-:func:`restrict`, :func:`interp_add` and :func:`interp` dispatch by device:
+:func:`restrict`, :func:`interp_add` and :func:`interp` dispatch by device
+and ``kernels.backend`` (:mod:`cedar_tpu_torch.ops.backend`: under
+``xla`` every tensor takes the plain version):
 CUDA tensors go to the transfer kernels
 (:mod:`cedar_tpu_torch.ops.cuda_transfer2`), CPU tensors to their plain
 versions, which run :func:`restrict_torch`, :func:`interp_add_torch` and
@@ -35,6 +37,7 @@ from __future__ import annotations
 
 import torch
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.core.parity import (
     deinterleave2, interleave2, subgrid_sample,
 )
@@ -279,10 +282,8 @@ def restrict(ci: torch.Tensor, q: torch.Tensor,
     """``qc = Pᵀ q`` (reference: BMG2_SymStd_restrict.f90:76-92)."""
     from cedar_tpu_torch.ops import cuda_transfer2
 
-    if q.is_cuda:
+    if backend.kernels(q, "restrict"):
         return cuda_transfer2.restrict(ci, q, periodic)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no restrict for tensors on {q.device}")
     return cuda_transfer2.restrict_plain(ci, q, periodic)
 
 
@@ -295,10 +296,8 @@ def interp_add(ci, so, qc, res, q, periodic=(False, False)) -> torch.Tensor:
     """
     from cedar_tpu_torch.ops import cuda_transfer2
 
-    if q.is_cuda:
+    if backend.kernels(q, "interp_add"):
         return cuda_transfer2.interp_add(ci, so, qc, res, q, periodic)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no interp_add for tensors on {q.device}")
     return cuda_transfer2.interp_add_plain(ci, so, qc, res, q, periodic)
 
 
@@ -308,8 +307,6 @@ def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape,
     level entry (reference: fcycle.h:66-72)."""
     from cedar_tpu_torch.ops import cuda_transfer2
 
-    if qc.is_cuda:
+    if backend.kernels(qc, "interp"):
         return cuda_transfer2.interp(ci, qc, fine_shape, periodic)
-    if qc.device.type != "cpu":
-        raise NotImplementedError(f"no interp for tensors on {qc.device}")
     return cuda_transfer2.interp_plain(ci, qc, fine_shape, periodic)

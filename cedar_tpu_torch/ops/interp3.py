@@ -14,7 +14,9 @@ PyTorch counterpart of :mod:`cedar_tpu.ops.interp3`:
 * :func:`interp` — ``X = P·Qc``, the F-cycle's level entry
   (cedar_tpu/solver/cycle3.py:405-426).
 
-:func:`restrict`, :func:`interp_add` and :func:`interp` dispatch by device:
+:func:`restrict`, :func:`interp_add` and :func:`interp` dispatch by device
+and ``kernels.backend`` (:mod:`cedar_tpu_torch.ops.backend`: under
+``xla`` every tensor takes the plain version):
 CUDA tensors go to the transfer kernels
 (:mod:`cedar_tpu_torch.ops.cuda_transfer3`), CPU tensors to their plain
 versions, which run :func:`restrict_torch`, :func:`interp_add_torch` and
@@ -38,6 +40,7 @@ import itertools
 
 import torch
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.core.parity import (
     deinterleave3, interleave3, subgrid_sample_nd,
 )
@@ -388,10 +391,8 @@ def restrict(ci: torch.Tensor, q: torch.Tensor,
     """``qc = Pᵀ q`` (reference: BMG3_SymStd_restrict.f90:115-145)."""
     from cedar_tpu_torch.ops import cuda_transfer3
 
-    if q.is_cuda:
+    if backend.kernels(q, "restrict"):
         return cuda_transfer3.restrict(ci, q, periodic)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no restrict for tensors on {q.device}")
     return cuda_transfer3.restrict_plain(ci, q, periodic)
 
 
@@ -405,10 +406,8 @@ def interp_add(ci, so, qc, res, q,
     """
     from cedar_tpu_torch.ops import cuda_transfer3
 
-    if q.is_cuda:
+    if backend.kernels(q, "interp_add"):
         return cuda_transfer3.interp_add(ci, so, qc, res, q, periodic)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no interp_add for tensors on {q.device}")
     return cuda_transfer3.interp_add_plain(ci, so, qc, res, q, periodic)
 
 
@@ -418,8 +417,6 @@ def interp(ci: torch.Tensor, qc: torch.Tensor, fine_shape,
     level entry (reference: fcycle.h:66-72)."""
     from cedar_tpu_torch.ops import cuda_transfer3
 
-    if qc.is_cuda:
+    if backend.kernels(qc, "interp"):
         return cuda_transfer3.interp(ci, qc, fine_shape, periodic)
-    if qc.device.type != "cpu":
-        raise NotImplementedError(f"no interp for tensors on {qc.device}")
     return cuda_transfer3.interp_plain(ci, qc, fine_shape, periodic)

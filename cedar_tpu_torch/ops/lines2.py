@@ -28,10 +28,10 @@ reads the grid from the last two axes, so a batch of planes (``so``
 ``(ndir, B, nx, ny)``, ``q`` ``(B, nx, ny)``, factors ``(2, B, nx, ny)``)
 goes through the same code.
 
-:func:`line_relax_x` and :func:`line_relax_y` dispatch by device, as
-:func:`cedar_tpu_torch.ops.relax2.point_relax` does: a CUDA tensor goes to
-the line kernel (:mod:`cedar_tpu_torch.ops.cuda_lines2`, factored on the
-fly; a batch of planes ``(B, nx, ny)`` with ``so`` ``(ndir, B, nx, ny)``,
+:func:`line_relax_x` and :func:`line_relax_y` dispatch by device and
+backend, as :func:`cedar_tpu_torch.ops.relax2.point_relax` does: a CUDA
+tensor goes to the line kernel (:mod:`cedar_tpu_torch.ops.cuda_lines2`,
+factored on the fly; a batch of planes ``(B, nx, ny)`` with ``so`` ``(ndir, B, nx, ny)``,
 never periodic, one launch of the batched mode), a CPU tensor to its plain
 version.  Both update ``q`` IN PLACE.
 
@@ -49,8 +49,14 @@ points or more: every function that solves lines takes ``full``, and
 :func:`pcr_solve` runs all log2 h PCR steps and its Thomas step is
 ``r / dg``; shorter lines keep the LDLᵀ recurrence.  The serial SPIKE solve
 is cedar_tpu's XLA formulation of the same tridiagonal solve and is not
-ported (ROADMAP, "Do not port"); the distributed SPIKE solve waits for
-distribution (ROADMAP queue 1, item 9).
+ported (ROADMAP, "Do not port"); the distributed SPIKE solve is
+:mod:`cedar_tpu_torch.parallel.lines`, and a sweep along a partitioned
+line axis that does not take it gathers whole lines and runs this
+module's sweep on them (:meth:`cedar_tpu_torch.parallel.halo.DistContext.
+line_relax`).
+
+Under ``kernels.backend: xla`` (:mod:`cedar_tpu_torch.ops.backend`) a CUDA
+tensor takes the plain version too.
 """
 
 from __future__ import annotations
@@ -58,6 +64,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.core.shift import shift2
 from cedar_tpu_torch.core.types import Dir2, StencilKind
 
@@ -320,10 +327,8 @@ def line_relax_x(so, q, b, sor, kind: StencilKind, updown: str,
     ``full`` (``solver.ml-relax.enabled``): the full-length PCR."""
     from cedar_tpu_torch.ops import cuda_lines2
 
-    if q.is_cuda:
+    if backend.kernels(q, "line sweep"):
         return cuda_lines2.line_x(so, q, b, kind, updown, periodic, full)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no line sweep for tensors on {q.device}")
     return cuda_lines2.line_x_plain(so, q, b, kind, updown, sor=sor,
                                     periodic=periodic, full=full)
 
@@ -333,9 +338,7 @@ def line_relax_y(so, q, b, sor, kind: StencilKind, updown: str,
     """One zebra y-line sweep (both colours), IN PLACE on ``q``."""
     from cedar_tpu_torch.ops import cuda_lines2
 
-    if q.is_cuda:
+    if backend.kernels(q, "line sweep"):
         return cuda_lines2.line_y(so, q, b, kind, updown, periodic, full)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no line sweep for tensors on {q.device}")
     return cuda_lines2.line_y_plain(so, q, b, kind, updown, sor=sor,
                                     periodic=periodic, full=full)

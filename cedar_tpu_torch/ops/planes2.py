@@ -6,7 +6,7 @@ embedded 2D cycles of 3D plane relaxation (:mod:`cedar_tpu_torch.ops.
 planes3`), where every level is a batch of planes (``so`` ``(ndir, B, nx,
 ny)``, ``q`` and ``b`` ``(B, nx, ny)``).
 
-Each function dispatches by device, as
+Each function dispatches by device and backend, as
 :func:`cedar_tpu_torch.ops.lines2.line_relax_x` does: a CUDA tensor goes
 to kernel K10 (:mod:`cedar_tpu_torch.ops.cuda_planes2`, one launch for all
 sweeps of all planes), a CPU tensor to its plain version.  Both update
@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.core.types import StencilKind
 
 
@@ -35,12 +36,9 @@ def line_nsmooth(so: torch.Tensor, q: torch.Tensor, b: torch.Tensor,
     the full-length PCR.  Returns ``q`` or ``(q, res)``."""
     from cedar_tpu_torch.ops import cuda_planes2
 
-    if q.is_cuda:
+    if backend.kernels(q, "line smooth"):
         return cuda_planes2.smooth(so, q, b, kind, updown, nsweeps, emit_res,
                                    axes, full)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no line smooth for tensors on "
-                                  f"{q.device}")
     return cuda_planes2.smooth_plain(so, q, b, kind, updown, nsweeps,
                                      emit_res, sor_x, sor_y, axes, full)
 

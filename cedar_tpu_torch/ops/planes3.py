@@ -49,6 +49,7 @@ import torch
 
 from cedar_tpu_torch.core.shift import shift3
 from cedar_tpu_torch.core.types import Dir3, StencilKind
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.ops.stencil3 import coupling, offsets_for
 from cedar_tpu_torch.settings import MLSettings, RelaxType
 
@@ -165,7 +166,9 @@ def plane_relax(lev, kind3: StencilKind, x: torch.Tensor, b: torch.Tensor,
         # the embedded cycle updates its iterate in place: a gathered copy
         x2 = _colour_planes(x, axis, c).clone(
             memory_format=torch.contiguous_format)
-        for _ in range(reps):
-            x2 = cycle2.run_cycle(hier, kinds2, x2, b2, psettings)
+        # a plane-config that pins kernels.backend holds for its solves
+        with backend.using(psettings.kernel_backend):
+            for _ in range(reps):
+                x2 = cycle2.run_cycle(hier, kinds2, x2, b2, psettings)
         _colour_planes(x, axis, c).copy_(x2)
     return x

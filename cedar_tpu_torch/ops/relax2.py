@@ -21,9 +21,11 @@ couplings wrap around.  Along a periodic axis of odd extent the wrap couples
 points of one colour (the last point and the first); a phase still computes
 every point of its colour from the values before the phase.
 
-:func:`point_relax` dispatches by device: a CUDA tensor goes to the sweep
-kernel (:mod:`cedar_tpu_torch.ops.cuda2`, one launch a sweep), a CPU tensor
-to its plain version, which runs :func:`sweep_torch`.  Either way it
+:func:`point_relax` dispatches by device (and ``kernels.backend``,
+:mod:`cedar_tpu_torch.ops.backend`: under ``xla`` every tensor takes the
+plain version): a CUDA tensor goes to the sweep kernel
+(:mod:`cedar_tpu_torch.ops.cuda2`, one launch a sweep), a CPU tensor to
+its plain version, which runs :func:`sweep_torch`.  Either way it
 returns the swept iterate in a new tensor and leaves ``q`` as it was, as
 the JAX function does: callers rebind it.
 """
@@ -34,6 +36,7 @@ import functools
 
 import torch
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.core.types import Dir2, StencilKind
 from cedar_tpu_torch.ops.stencil2 import offdiag_apply, residual
 
@@ -107,10 +110,8 @@ def point_relax(so, q, b, recip, kind: StencilKind, updown: str,
     """
     from cedar_tpu_torch.ops import cuda2
 
-    if q.is_cuda:
+    if backend.kernels(q, "sweep"):
         return cuda2.sweep(so, q, b, kind, updown, fuse_residual, origin,
                            periodic)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no sweep for tensors on {q.device}")
     return cuda2.sweep_plain(so, q, b, kind, updown, fuse_residual, origin,
                              periodic, recip=recip)

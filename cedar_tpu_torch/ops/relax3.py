@@ -22,9 +22,11 @@ points of one colour (the last point and the first); a phase still computes
 every point of its colour from the values before the phase, as the JAX
 masked update does.
 
-:func:`point_relax` dispatches by device: a CUDA tensor goes to the sweep
-kernel (:mod:`cedar_tpu_torch.ops.cuda3`), a CPU tensor to its plain
-version, which runs :func:`sweep3_torch`.  Both return the swept iterate
+:func:`point_relax` dispatches by device (and ``kernels.backend``,
+:mod:`cedar_tpu_torch.ops.backend`: under ``xla`` every tensor takes the
+plain version): a CUDA tensor goes to the sweep kernel
+(:mod:`cedar_tpu_torch.ops.cuda3`), a CPU tensor to its plain version,
+which runs :func:`sweep3_torch`.  Both return the swept iterate
 in a new tensor and leave ``q`` as it was.
 """
 
@@ -34,6 +36,7 @@ import functools
 
 import torch
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.core.types import Dir3, StencilKind
 from cedar_tpu_torch.ops.stencil3 import offdiag_apply, residual
 
@@ -127,10 +130,8 @@ def point_relax(so, q, b, recip, kind: StencilKind, updown: str,
     from cedar_tpu_torch.ops import cuda3
 
     origin = (0, 0, 0) if origin is None else tuple(int(o) for o in origin)
-    if q.is_cuda:
+    if backend.kernels(q, "sweep"):
         return cuda3.sweep(so, q, b, kind, updown, fuse_residual, origin,
                            periodic)
-    if q.device.type != "cpu":
-        raise NotImplementedError(f"no sweep for tensors on {q.device}")
     return cuda3.sweep_plain(so, q, b, kind, updown, fuse_residual, origin,
                              periodic, recip=recip)

@@ -8,8 +8,9 @@ each is an explicit call:
 
 * :func:`halo_extend` — one ``batch_isend_irecv`` of an ``H``-wide slab
   each way per partitioned axis, the axes in turn so that the corners
-  fill, zeros beyond the mesh edges (a halo wider than a neighbour's block
-  takes one more exchange per block, passed on);
+  fill, zeros beyond the mesh edges, or on a periodic axis the wrap from
+  the rank at the far end of the ring (a halo wider than a neighbour's
+  block takes one more exchange per block, passed on);
 * :func:`center` — the block back out of an extended one;
 * :func:`all_gather_axis` — agglomeration of one axis onto every rank of
   its mesh row or column (blocks of unequal sizes padded to the largest);
@@ -23,8 +24,12 @@ backend or device by itself.
 
 Counters (module attributes, reset by :func:`reset`): ``exchanges`` (one
 ``batch_isend_irecv`` call), ``exchange_bytes`` (bytes this rank sent in
-them), ``gathers`` and ``gather_bytes`` (all-gathers and the bytes this
-rank contributed), ``reductions``, ``staged_bytes``.
+them), ``wrap_exchanges`` (the exchanges along a periodic axis, which
+carry the wrap at the ends of the ring), ``gathers`` and ``gather_bytes``
+(all-gathers and the bytes this rank contributed), ``line_gathers`` and
+``spike_gathers`` (the all-gathers tagged ``"line"``, the whole lines of
+a line sweep, and ``"spike"``, the interface rows of a distributed SPIKE
+colour), ``reductions``, ``staged_bytes``.
 """
 
 from __future__ import annotations
@@ -34,23 +39,28 @@ import torch.distributed as dist
 
 exchanges = 0
 exchange_bytes = 0
+wrap_exchanges = 0
 gathers = 0
 gather_bytes = 0
+line_gathers = 0
+spike_gathers = 0
 reductions = 0
 staged_bytes = 0
 
 
 def reset() -> None:
     global exchanges, exchange_bytes, gathers, gather_bytes, reductions
-    global staged_bytes
+    global staged_bytes, wrap_exchanges, line_gathers, spike_gathers
     exchanges = exchange_bytes = gathers = gather_bytes = reductions = 0
-    staged_bytes = 0
+    staged_bytes = wrap_exchanges = line_gathers = spike_gathers = 0
 
 
 def counts() -> dict:
     return {"exchanges": exchanges, "exchange_bytes": exchange_bytes,
-            "gathers": gathers, "gather_bytes": gather_bytes,
-            "reductions": reductions, "staged_bytes": staged_bytes}
+            "wrap_exchanges": wrap_exchanges, "gathers": gathers,
+            "gather_bytes": gather_bytes, "line_gathers": line_gathers,
+            "spike_gathers": spike_gathers, "reductions": reductions,
+            "staged_bytes": staged_bytes}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -79,40 +89,48 @@ def _empty_like(t: torch.Tensor, mesh) -> torch.Tensor:
                        device="cpu" if mesh.staged else t.device)
 
 
-def _sendrecv(to_prev, to_next, prev, nxt, mesh):
+def _sendrecv(to_prev, to_next, prev, nxt, mesh, wrap=False):
     """One exchange along a mesh axis: ``to_next`` goes to ``nxt``,
     ``to_prev`` to ``prev``; returns what came from ``prev`` and from
-    ``nxt`` (zeros where there is no neighbour)."""
-    global exchanges, exchange_bytes
-    ops, got = [], []
-    for peer, send in ((prev, to_prev), (nxt, to_next)):
-        if peer is None:
-            got.append(None)
-            continue
-        s = _to_host(send, mesh)
-        r = _empty_like(send, mesh)
-        ops.append(dist.P2POp(dist.isend, s, peer, mesh.group))
-        ops.append(dist.P2POp(dist.irecv, r, peer, mesh.group))
-        exchange_bytes += _nbytes(s)
-        got.append(r)
-    if ops:
+    ``nxt`` (zeros where there is no neighbour).
+
+    Messages between two ranks match in the order they were posted, and on
+    a ring of two ranks ``prev`` and ``nxt`` are one rank: so every rank
+    posts its send to ``nxt`` before its send to ``prev``, and its receive
+    from ``prev`` before its receive from ``nxt``."""
+    global exchanges, exchange_bytes, wrap_exchanges
+    sends, recvs, got = [], [], {}
+    for peer, send in ((nxt, to_next), (prev, to_prev)):
+        if peer is not None:
+            s = _to_host(send, mesh)
+            sends.append(dist.P2POp(dist.isend, s, peer, mesh.group))
+            exchange_bytes += _nbytes(s)
+    for key, peer, like in (("prev", prev, to_next), ("next", nxt, to_prev)):
+        if peer is not None:
+            got[key] = _empty_like(like, mesh)
+            recvs.append(dist.P2POp(dist.irecv, got[key], peer, mesh.group))
+    if sends or recvs:
         exchanges += 1
-        for req in dist.batch_isend_irecv(ops):
+        wrap_exchanges += bool(wrap)
+        for req in dist.batch_isend_irecv(sends + recvs):
             req.wait()
-    return tuple(torch.zeros_like(send) if r is None else _from_host(r, mesh)
-                 for r, send in zip(got, (to_prev, to_next)))
+    return tuple(_from_host(got[key], mesh) if key in got
+                 else torch.zeros_like(like)
+                 for key, like in (("prev", to_next), ("next", to_prev)))
 
 
-def _extend_axis(a: torch.Tensor, dim: int, name: str, mesh, H: int):
+def _extend_axis(a: torch.Tensor, dim: int, name: str, mesh, H: int,
+                 wrap: bool = False):
     m = a.shape[dim]
-    prev, nxt = mesh.neighbours[name]
+    prev, nxt = mesh.ring[name] if wrap else mesh.neighbours[name]
     rounds = -(-H // m)
     w = H if rounds == 1 else m
     to_next = a.narrow(dim, m - w, w)
     to_prev = a.narrow(dim, 0, w)
     lows, highs = [], []
     for _ in range(rounds):
-        from_prev, from_next = _sendrecv(to_prev, to_next, prev, nxt, mesh)
+        from_prev, from_next = _sendrecv(to_prev, to_next, prev, nxt, mesh,
+                                         wrap)
         lows.insert(0, from_prev)
         highs.append(from_next)
         # a halo wider than a block: pass the neighbours' blocks on
@@ -124,15 +142,18 @@ def _extend_axis(a: torch.Tensor, dim: int, name: str, mesh, H: int):
     return torch.cat([low, a, high], dim)
 
 
-def halo_extend(a: torch.Tensor, names, mesh, H: int, lead: int = 0):
+def halo_extend(a: torch.Tensor, names, mesh, H: int, lead: int = 0,
+                periodic=None):
     """``a`` (a block, its spatial axes after ``lead`` leading axes)
     extended by ``H`` points on both sides of each axis partitioned over a
     mesh axis of more than one rank (``names[d]`` not None), with the
-    neighbours' values, zeros beyond the mesh edges; the axes in turn, so
-    that the corners fill."""
+    neighbours' values, zeros beyond the mesh edges, or along a
+    ``periodic`` axis the values of the ranks at the other end of the ring
+    (the wrap); the axes in turn, so that the corners fill."""
     for d, name in enumerate(names):
         if name is not None and mesh.shape[name] > 1 and H > 0:
-            a = _extend_axis(a, d + lead, name, mesh, H)
+            a = _extend_axis(a, d + lead, name, mesh, H,
+                             bool(periodic and periodic[d]))
     return a
 
 
@@ -146,11 +167,14 @@ def center(a: torch.Tensor, names, mesh, H: int, lead: int = 0):
     return a[tuple(idx)]
 
 
-def all_gather_axis(a: torch.Tensor, dim: int, name: str, mesh, sizes):
+def all_gather_axis(a: torch.Tensor, dim: int, name: str, mesh, sizes,
+                    tag: str | None = None):
     """The blocks of ``a`` along mesh axis ``name`` (``sizes[c]`` the
     extent along ``dim`` of the block at coordinate ``c``) concatenated
-    along ``dim``, on every rank of the mesh row or column."""
-    global gathers, gather_bytes
+    along ``dim``, on every rank of the mesh row or column.  ``tag``
+    ("line" or "spike") counts it in ``line_gathers`` or
+    ``spike_gathers`` too."""
+    global gathers, gather_bytes, line_gathers, spike_gathers
     group = mesh.axis_groups[name]
     if group is None:
         return a
@@ -163,6 +187,8 @@ def all_gather_axis(a: torch.Tensor, dim: int, name: str, mesh, sizes):
     parts = [torch.empty_like(src) for _ in sizes]
     gathers += 1
     gather_bytes += _nbytes(src)
+    line_gathers += tag == "line"
+    spike_gathers += tag == "spike"
     dist.all_gather(parts, src, group=group)
     return _from_host(torch.cat([p.narrow(dim, 0, n)
                                  for p, n in zip(parts, sizes)], dim), mesh)

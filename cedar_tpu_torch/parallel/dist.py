@@ -1,5 +1,5 @@
 """Distributed BoxMG solvers over ``torch.distributed``: ``DistSolver2``
-and ``DistSolver3``, point relaxation.
+and ``DistSolver3``, point and (2D) line relaxation, periodic axes.
 
 PyTorch counterpart of :mod:`cedar_tpu.parallel.dist` (reference:
 include/cedar/2d/mpi/solver.h, 3d/mpi/solver.h).  One process a rank,
@@ -20,17 +20,31 @@ each on its own device, each holding its blocks of every level:
   (unit diagonal, zero couplings, zero rhs) to a multiple of
   ``2^L * mesh_dim``, the level count pinned to the one of the true
   extents, and results cut back (cedar_tpu/parallel/dist.py:163-237);
+* a periodic axis (``grid.periodic``) takes no pad: a level partitions it
+  only where its blocks are even and replicates it otherwise
+  (:func:`periodic_specs`); the halos carry the wrap
+  (:mod:`cedar_tpu_torch.parallel.halo`).  A doubly or triply periodic
+  indefinite solve (``solver.definite: false``) keeps the replicated
+  coarse LU with its null-space handling;
+* line relaxation (2D: line-x, line-y, line-xy, with or without
+  ``solver.ml-relax.enabled``): per level and axis the distributed SPIKE
+  solve (:mod:`cedar_tpu_torch.parallel.lines`) where cedar_tpu chooses it
+  (cedar_tpu/parallel/dist.py:292-322: not under ml-relax, an eligible
+  partitioned line axis), else the gather of whole lines and the serial
+  sweep (K4 on the card) on them (:meth:`cedar_tpu_torch.parallel.halo.
+  DistContext.line_relax`);
+* ``kernels.backend: xla`` runs the plain versions of the kernels
+  (:mod:`cedar_tpu_torch.ops.backend`);
 * ``solve`` and ``vcycle`` run the port's cycle (``cycleN.ncycle``,
   ``fmg_cycle``, ``cycle_residual``) eagerly with the distributed ops of
   :class:`cedar_tpu_torch.parallel.halo.DistContext`, one all-reduce of
   the norm a cycle, and return the global x on every rank (one
   all-gather).
 
-Not here (ROADMAP queue 1, item 9): line relaxation under a mesh (the
-distributed SPIKE solve), plane relaxation under a mesh, periodic axes
-under a mesh, and the cycle captured as a CUDA graph; the fused
-fine-level cycle (``kernels.fine-split``) stays off under a mesh, as in
-cedar_tpu (cedar_tpu/solver/cycle2.py:170-176).
+Not here (ROADMAP queue 1, item 9): plane relaxation under a mesh and
+the distributed cycle captured as a CUDA graph; the fused fine-level
+cycle (``kernels.fine-split``) stays off under a mesh, as in cedar_tpu
+(cedar_tpu/solver/cycle2.py:170-176).
 """
 
 from __future__ import annotations
@@ -41,7 +55,7 @@ import torch.nn.functional as F
 from cedar_tpu_torch import schema
 from cedar_tpu_torch.config import Config
 from cedar_tpu_torch.core.types import StencilKind
-from cedar_tpu_torch.ops import cg
+from cedar_tpu_torch.ops import backend, cg
 from cedar_tpu_torch.parallel import halo, shard_relax
 from cedar_tpu_torch.parallel.halo import Layout
 from cedar_tpu_torch.parallel.policy import level_specs
@@ -52,38 +66,66 @@ from cedar_tpu_torch.solver.level import Level
 from cedar_tpu_torch.utils import log
 from cedar_tpu_torch.utils.timing import TimeLog
 
-_ITEM9 = "ROADMAP queue 1, item 9: distribution"
+_ITEM9 = "ROADMAP queue 1, item 9"
+
+# relaxation -> the line axes it sweeps
+_LINE_AXES = {RelaxType.line_x: ("x",), RelaxType.line_y: ("y",),
+              RelaxType.line_xy: ("x", "y")}
 
 
-def layouts(shapes, specs, mesh) -> list:
+def layouts(shapes, specs, mesh, periodic=None) -> list:
     """Each level's :class:`~cedar_tpu_torch.parallel.halo.Layout` on this
     rank."""
-    return [Layout.of(shape, spec, mesh) for shape, spec in zip(shapes,
-                                                                specs)]
+    return [Layout.of(shape, spec, mesh, periodic)
+            for shape, spec in zip(shapes, specs)]
 
 
-def local_levels(levels, mesh, specs) -> tuple:
+def periodic_specs(specs, shapes, mesh, periodic) -> list:
+    """``specs`` with each periodic axis replicated on the levels where
+    its blocks would be odd or uneven (cedar_tpu/parallel/dist.py:58-63,
+    :181-198: an odd periodic extent replicates): a partitioned periodic
+    axis needs an even block, so that a window from an even index reaches
+    the wrap in whole coarse cells."""
+    per = tuple(periodic or ())
+    out = []
+    for spec, shape in zip(specs, shapes):
+        spec = list(spec)
+        for d, ax in enumerate(spec):
+            if (ax is not None and d < len(per) and per[d]
+                    and shape[d] % (2 * mesh.shape[ax])):
+                spec[d] = None
+        out.append(tuple(spec))
+    return out
+
+
+def local_levels(levels, mesh, specs, periodic=None) -> tuple:
     """This rank's blocks of a global hierarchy (e.g. ``levels_from_numpy``
     of cedar_tpu's, or a serial solver's ``levels``) under ``specs``: each
     level's stencil block, the CI entries its transfers read, and the
     coarsest level's ``ainv`` or ``inner`` (replicated), the layout the
-    distributed solvers set up."""
-    lays = layouts([lev.so.shape[1:] for lev in levels], specs, mesh)
+    distributed solvers set up (``periodic``: the grid's periodic
+    axes)."""
+    lays = layouts([lev.so.shape[1:] for lev in levels], specs, mesh,
+                   periodic)
     return tuple(halo.cut_level(lev, lay, lays[i - 1] if i else None)
                  for i, (lev, lay) in enumerate(zip(levels, lays)))
 
 
-def pad_operator(so: torch.Tensor, mesh_dims, min_local: int = 8):
+def pad_operator(so: torch.Tensor, mesh_dims, min_local: int = 8,
+                 periodic=None):
     """``(so_padded, pads)``: axes that do not divide over the mesh padded
     with inert rows (unit diagonal, zero couplings) to a multiple of
     ``2^L * mesh_dim``, L the deepest level whose local extent still
     clears ``min_local`` (cedar_tpu/parallel/dist.py:163-220: the pad is
-    less than one block of the coarsest partitioned level)."""
+    less than one block of the coarsest partitioned level).  A periodic
+    axis takes no pad (it would sit between the wrap's neighbours): it is
+    replicated instead (:func:`periodic_specs`)."""
     dims = tuple(so.shape[1:])
+    per = tuple(periodic or ()) + (False,) * len(dims)
     pads = []
     for d, n in enumerate(dims):
         nd = mesh_dims[d]
-        if nd > 1 and n % nd:
+        if nd > 1 and n % nd and not per[d]:
             L = 1
             while n >= 2 ** (L + 1) * nd * max(min_local, 1):
                 L += 1
@@ -119,13 +161,18 @@ class _DistSolver:
             raise ValueError(f"need a {self._ndim}-axis mesh, got "
                              f"{self.mesh.axis_names}")
         log.set_enabled(conf.get("log", ["status", "error"]))
+        per = list(conf.get("grid.periodic", []))
+        per += [False] * (self._ndim - len(per))
+        self.periodic = tuple(bool(p) for p in per[:self._ndim])
         so = so.to(self.mesh.device)
         so = self._pad_operator(so, conf)
         self.conf = conf
         self.settings = MLSettings.from_config(conf)
         self.settings.fine_split = False
+        # kernels.backend, "auto" by the mesh's device
+        # (cedar_tpu/parallel/dist.py:134-144)
+        backend.resolve(self.settings, conf, self.mesh.device.type == "cuda")
         self.kind = kind
-        self.periodic = (False,) * self._ndim
         self.indefinite = not conf.get("solver.definite", True)
         sm = self._solver_module()
         dims = tuple(so.shape[1:])
@@ -151,7 +198,10 @@ class _DistSolver:
             machine_params=machine)
         # the coarsest level is replicated: a redundant coarse solve
         self.specs[-1] = (None,) * self._ndim
-        self.layouts = layouts(self.shapes, self.specs, self.mesh)
+        self.specs = periodic_specs(self.specs, self.shapes, self.mesh,
+                                    self.periodic)
+        self.layouts = layouts(self.shapes, self.specs, self.mesh,
+                               self.periodic)
         supported = (shard_relax.supported2 if self._ndim == 2
                      else shard_relax.supported3)
         if not supported(self.shapes[0], so.dtype, kind,
@@ -161,8 +211,9 @@ class _DistSolver:
                 f"{so.dtype} operator")
         self.timelog = TimeLog()
         self.timelog.begin("setup")
-        self.levels = self._setup(halo._cut(so, self.layouts[0].lo,
-                                            self.layouts[0].hi, lead=1))
+        with backend.using(self.settings.kernel_backend):
+            self.levels = self._setup(halo._cut(so, self.layouts[0].lo,
+                                                self.layouts[0].hi, lead=1))
         self.timelog.end("setup", force=self.levels)
 
     # -- configuration -----------------------------------------------------
@@ -172,17 +223,13 @@ class _DistSolver:
                 f"cedar_tpu_torch: a {self._ndim}D distributed solver needs "
                 f"a {self._ndim}D operator")
         rt = settings.relaxation
-        if rt in (RelaxType.line_x, RelaxType.line_y, RelaxType.line_xy):
-            raise NotImplementedError(
-                f"cedar_tpu_torch: line relaxation ({rt.value}) under a mesh "
-                f"({_ITEM9}: the distributed line solve)")
-        if rt != RelaxType.point:
+        if rt != RelaxType.point and rt not in _LINE_AXES:
             raise NotImplementedError(
                 f"cedar_tpu_torch: plane relaxation ({rt.value}) under a "
-                f"mesh ({_ITEM9})")
-        if any(conf.get("grid.periodic", [])):
+                f"mesh is not ported yet ({_ITEM9})")
+        if rt in _LINE_AXES and self._ndim != 2:
             raise NotImplementedError(
-                f"cedar_tpu_torch: periodic axes under a mesh ({_ITEM9})")
+                f"cedar_tpu_torch: {rt.value} is a 2D relaxation")
 
     def _pad_operator(self, so, conf):
         """The operator padded by :func:`pad_operator`; with a pad, the
@@ -190,7 +237,8 @@ class _DistSolver:
         ``solver.num-levels`` is set)."""
         self._true_dims = tuple(so.shape[1:])
         sop, pads = pad_operator(so, self.mesh.dims,
-                                 conf.get("redist.min-local", 8))
+                                 conf.get("redist.min-local", 8),
+                                 self.periodic)
         if any(pads):
             st = MLSettings.from_config(conf)
             if st.num_levels <= 0:
@@ -229,10 +277,10 @@ class _DistSolver:
             so, ci = so_c, ci_c
         if self.settings.coarse_solver != CGType.lu and self.nlevels > 1:
             levels.append(Level(so=so, ci=ci, inner=sm.setup_inner(
-                so, self.settings, self.indefinite)))
+                so, self.settings, self.indefinite, self.periodic)))
         else:
             levels.append(Level(so=so, ci=ci, ainv=cg.setup_cg_lu(
-                so, self.kinds[-1], self.indefinite)))
+                so, self.kinds[-1], self.indefinite, self.periodic)))
         return tuple(levels)
 
     @property
@@ -244,15 +292,21 @@ class _DistSolver:
     @levels.setter
     def levels(self, levels) -> None:
         self._levels = tuple(levels)
-        self.dist = halo.DistContext(self._levels, self.layouts, self.mesh)
+        rt = self.settings.relaxation
+        with backend.using(self.settings.kernel_backend):
+            self.dist = halo.DistContext(
+                self._levels, self.layouts, self.mesh, self.kinds,
+                _LINE_AXES.get(rt, ()),
+                spike=not self.settings.ml_relax_enabled)
 
     # -- solve -------------------------------------------------------------
     def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One cycle from the global ``x`` and ``b``; the global result on
         every rank (``x`` is not modified)."""
-        xb = self._cycle_module().run_cycle(
-            self.levels, self.kinds, self._block(x), self._block(b),
-            self.settings, self.periodic, dist=self.dist)
+        with backend.using(self.settings.kernel_backend):
+            xb = self._cycle_module().run_cycle(
+                self.levels, self.kinds, self._block(x), self._block(b),
+                self.settings, self.periodic, dist=self.dist)
         return self._unpad_func(self.dist.gather(xb))
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None):
@@ -272,7 +326,8 @@ class _DistSolver:
                                           settings, self.periodic, dist=dist)
             return rnorm
 
-        hist = graph.iterate(step, res0, settings)
+        with backend.using(settings.kernel_backend):
+            hist = graph.iterate(step, res0, settings)
         self.timelog.end("solve", force=x)
         log.info(f"Initial residual l2 norm: {res0:g}")
         for i, rel in enumerate(hist):
@@ -291,7 +346,8 @@ class _DistSolver:
 
 class DistSolver2(_DistSolver):
     """2D BoxMG block-partitioned over a 2-axis process mesh
-    (:func:`cedar_tpu_torch.parallel.make_mesh`); point relaxation."""
+    (:func:`cedar_tpu_torch.parallel.make_mesh`); point and line
+    relaxation, periodic axes."""
 
     _ndim = 2
 
@@ -311,7 +367,7 @@ class DistSolver2(_DistSolver):
 
 class DistSolver3(_DistSolver):
     """3D BoxMG block-partitioned over a 3-axis process mesh; point
-    relaxation."""
+    relaxation, periodic axes."""
 
     _ndim = 3
 

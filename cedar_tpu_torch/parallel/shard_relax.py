@@ -8,15 +8,19 @@ cedar_tpu, each sweep
 1. extends q (and b, unless the caller holds it extended) by ``H``
    points on each partitioned axis, one exchange each way per axis
    (:func:`cedar_tpu_torch.parallel.comm.halo_extend`), zeros beyond the
-   mesh edges; the stencil, extended once at setup, has there its
-   diagonal repaired to 1 so that the discarded halo updates stay finite
-   (cedar_tpu/parallel/shard_relax.py:135-136, :167-168), and its
-   entries that couple a point outside the domain zeroed, so that the
-   halo stays 0 (:func:`sweep_stencil`);
+   mesh edges of a non-periodic axis; the stencil, extended once at
+   setup, has there its diagonal repaired to 1 so that the discarded halo
+   updates stay finite (cedar_tpu/parallel/shard_relax.py:135-136,
+   :167-168), and its entries that couple a point outside the domain
+   zeroed, so that the halo stays 0 (:func:`sweep_stencil`).  Along a
+   partitioned periodic axis the halo holds the wrap (the far rank's
+   values, and its stencil, couplings across the edge kept);
 2. runs the port's serial sweep (``relax2.point_relax``, K1 on the card;
    ``relax3.point_relax``, K6) on the extended block, its colours anchored
    to global indices by the origin ``coord * local - H`` (``-H`` on the
-   first rank of an axis);
+   first rank of an axis), in the kernel's own periodic mode along a
+   periodic axis that the level replicates (:func:`op_periodic`; the
+   odd-extent Jacobi phases included);
 3. keeps the block.
 
 A colour phase reads the neighbours one point away, so after ``k``
@@ -47,6 +51,16 @@ def _parted(names, mesh):
     return [n is not None and mesh.shape[n] > 1 for n in names]
 
 
+def op_periodic(names, mesh, periodic) -> tuple:
+    """The ``periodic`` argument of a serial op on a window: the periodic
+    axes that the level does not partition (the window holds the whole
+    axis, the op wraps it); along a partitioned periodic axis the wrap is
+    in the halo."""
+    per = tuple(periodic) if periodic else (False,) * len(names)
+    return tuple(bool(p) and not q
+                 for p, q in zip(per, _parted(names, mesh)))
+
+
 def origin(names, mesh, local_shape) -> tuple:
     """The global index of the extended block's first point on each axis
     (cedar_tpu/parallel/shard_relax.py:67-77)."""
@@ -72,16 +86,21 @@ def _outward(ndim: int) -> dict:
     return out
 
 
-def sweep_stencil(so_h: torch.Tensor, names, mesh) -> torch.Tensor:
+def sweep_stencil(so_h: torch.Tensor, names, mesh,
+                  periodic=None) -> torch.Tensor:
     """The stencil for the sweeps from ``so_h``, the block extended by
     ``H`` (zeros beyond the mesh edges): at a mesh edge the diagonal of
     the zeros repaired to 1 and the entries of the first layer that couple
     a point outside the domain set to 0, so that the halo stays 0 through
-    the sweep, as the serial sweep reads it.  ``so_h`` itself where the
-    block touches no mesh edge."""
+    the sweep, as the serial sweep reads it.  A periodic axis has no edge:
+    its halo holds the wrap and the couplings across it stay.  ``so_h``
+    itself where the block touches no mesh edge."""
     ndim = so_h.ndim - 1
+    per = tuple(periodic) if periodic else (False,) * ndim
     edges = []                 # (axis, whether it is the low edge)
     for d, (n, p) in enumerate(zip(names, _parted(names, mesh))):
+        if per[d]:
+            continue
         if p and mesh.coord(n) == 0:
             edges.append((d, True))
         if p and mesh.coord(n) == mesh.shape[n] - 1:
@@ -128,11 +147,12 @@ def _ncolors(kind: StencilKind) -> int:
             StencilKind.nine_pt: 4, StencilKind.twenty_seven_pt: 8}[kind]
 
 
-def residual(so_e, q, b, kind, names, mesh) -> torch.Tensor:
+def residual(so_e, q, b, kind, names, mesh, periodic=None) -> torch.Tensor:
     """``b - A q`` on the block, from ``so_e`` (the stencil extended by
-    ``H``) and q extended by one point (halo width 1)."""
+    ``H``) and q extended by one point (halo width 1; the wrap along a
+    partitioned periodic axis)."""
     ndim = q.ndim
-    q1 = comm.halo_extend(q, names, mesh, 1)
+    q1 = comm.halo_extend(q, names, mesh, 1, periodic=periodic)
     idx = [slice(None)]
     for n, p in zip(names, _parted(names, mesh)):
         idx.append(slice(H - 1, -(H - 1)) if p else slice(None))
@@ -142,43 +162,47 @@ def residual(so_e, q, b, kind, names, mesh) -> torch.Tensor:
         pad += [1, 1] if p else [0, 0]
     b1 = torch.nn.functional.pad(b, pad)
     st = stencil2 if ndim == 2 else stencil3
-    return comm.center(st.residual(so1, q1, b1, kind), names, mesh,
-                       1).contiguous()
+    return comm.center(st.residual(so1, q1, b1, kind,
+                                   op_periodic(names, mesh, periodic)),
+                       names, mesh, 1).contiguous()
 
 
 def _point_relax(rx, so_e, q, b, kind, updown, names, mesh, fuse_residual,
-                 b_e=None):
+                 b_e=None, periodic=None):
     # the kernels take contiguous operands
-    q_e = comm.halo_extend(q, names, mesh, H).contiguous()
+    q_e = comm.halo_extend(q, names, mesh, H, periodic=periodic).contiguous()
     if b_e is None:
-        b_e = comm.halo_extend(b, names, mesh, H).contiguous()
+        b_e = comm.halo_extend(b, names, mesh, H,
+                               periodic=periodic).contiguous()
     org = origin(names, mesh, q.shape)
     fuse = fuse_residual and _ncolors(kind) < H
     out = rx.point_relax(so_e, q_e, b_e, None, kind, updown,
-                         fuse_residual=fuse, origin=org)
+                         fuse_residual=fuse, origin=org,
+                         periodic=op_periodic(names, mesh, periodic))
     if fuse:
         return (comm.center(out[0], names, mesh, H).contiguous(),
                 comm.center(out[1], names, mesh, H).contiguous())
     q = comm.center(out, names, mesh, H).contiguous()
     if fuse_residual:
-        return q, residual(so_e, q, b, kind, names, mesh)
+        return q, residual(so_e, q, b, kind, names, mesh, periodic)
     return q
 
 
 def point_relax2(so_e, q, b, kind, updown, names, mesh,
-                 fuse_residual=False, b_e=None):
+                 fuse_residual=False, b_e=None, periodic=None):
     """The 2D multicolour sweep of the block ``q`` (K1 on the card), from
     the stencil of :func:`sweep_stencil` and, where given, ``b``
     extended by ``H`` (``b_e``); returns the new block, with
-    ``fuse_residual`` also ``b - A q``."""
+    ``fuse_residual`` also ``b - A q``.  ``periodic``: the grid's periodic
+    axes."""
     return _point_relax(relax2, so_e, q, b, kind, updown, names, mesh,
-                        fuse_residual, b_e)
+                        fuse_residual, b_e, periodic)
 
 
 def point_relax3(so_e, q, b, kind, updown, names, mesh,
-                 fuse_residual=False, b_e=None):
+                 fuse_residual=False, b_e=None, periodic=None):
     """The 3D multicolour sweep of the block ``q`` (K6 on the card); as
     :func:`point_relax2`."""
     return _point_relax(relax3, so_e, q, b, kind, updown, names, mesh,
-                        fuse_residual, b_e)
+                        fuse_residual, b_e, periodic)
 

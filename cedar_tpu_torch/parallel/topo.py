@@ -69,7 +69,9 @@ class Mesh:
     ``shape`` maps each axis name to its extent (as a JAX mesh's does),
     ``dims`` is the same as a tuple, ``coords`` this rank's coordinates,
     ``neighbours[name]`` the ``(previous, next)`` global ranks along an
-    axis (None at the mesh edge), ``axis_groups[name]`` the subgroup of
+    axis (None at the mesh edge), ``ring[name]`` the same around the ring
+    of the axis (a periodic axis: the last rank's next is the first; None
+    on an axis of one rank), ``axis_groups[name]`` the subgroup of
     the ranks that share every other coordinate with this one.
     ``backend`` is the group's own; ``staged`` says that collectives on
     CUDA tensors go through the host (gloo, which lacks them), which
@@ -85,6 +87,7 @@ class Mesh:
     backend: str = "gloo"
     ranks: tuple = ()
     neighbours: dict = field(default_factory=dict)
+    ring: dict = field(default_factory=dict)
     axis_groups: dict = field(default_factory=dict)
 
     @property
@@ -154,6 +157,8 @@ def make_mesh(ndim: int, group=None, shape=None, device=None) -> Mesh:
 
         mesh.neighbours[name] = (at(c - 1) if c > 0 else None,
                                  at(c + 1) if c + 1 < shape[d] else None)
+        mesh.ring[name] = ((at((c - 1) % shape[d]), at((c + 1) % shape[d]))
+                           if shape[d] > 1 else (None, None))
         # every rank creates every subgroup, in the same order
         lines = np.moveaxis(grid, d, -1).reshape(-1, shape[d])
         for line in lines:

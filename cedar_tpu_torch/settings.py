@@ -100,10 +100,11 @@ class MLSettings:
     # or more by the full-length PCR (ops/lines2.pcr_stride with ``full``,
     # cedar_tpu's ``_pcr_solve``) in the line kernels K4 and K10 and their
     # plain versions; enabled=False (the default) by PCR to a short stride,
-    # then Thomas on the interleaved systems.  min-gsz and factorize are
-    # read only by cedar_tpu's distributed line solve (parallel/dist.py),
-    # which waits for distribution (ROADMAP queue 1, item 9); on serial
-    # grids nothing reads them, as in cedar_tpu.
+    # then Thomas on the interleaved systems; under a mesh enabled=True
+    # also keeps the lines off the distributed SPIKE solve (the gather of
+    # whole lines on every level, cedar_tpu/parallel/dist.py:292-301).
+    # min-gsz and factorize are parsed and read by nothing, in cedar_tpu
+    # too (its settings parse them; no solve reads them).
     ml_relax_enabled: bool = False
     ml_relax_min_gsz: int = 3
     ml_relax_factorize: bool = True
@@ -111,8 +112,10 @@ class MLSettings:
     rsettings: RedistSettings | None = None
     plane_settings: "MLSettings | None" = None
     cg_settings: "MLSettings | None" = None  # inner solver (cg-solver != LU)
-    # "xla" | "pallas": resolved from config "kernels.backend" ("auto" picks
-    # pallas on TPU) by the solver constructors
+    # "xla" | "pallas": resolved from config "kernels.backend" by the
+    # solver constructors (ops/backend.resolve: "auto" picks pallas, the
+    # hand-written kernels, on the card); "xla" runs the plain torch
+    # versions of the kernels on either device
     kernel_backend: str = "xla"
     # fine-level lane-parity-split resident cycle (ops.pallas2_split).
     # "auto" resolves per backend at solver construction; explicit

@@ -117,17 +117,24 @@ def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
     line-xy applies line-x then line-y DOWN (pre-smoothing) and line-y then
     line-x UP (symmetric post-smoothing).  ``solver.ml-relax.enabled``
     solves the lines by the full-length PCR (cedar_tpu/solver/
-    cycle2.py:76-110 selects ``_pcr_solve`` under it)."""
+    cycle2.py:76-110 selects ``_pcr_solve`` under it).  Under a mesh
+    (``dist``) the sweeps are the block's
+    (:meth:`~cedar_tpu_torch.parallel.halo.DistContext.relax` and
+    ``line_relax``)."""
     rt = settings.relaxation
     if rt == RelaxType.point:
         return _relax(lev, kind, x, b, updown, periodic, dist, lvl)
     full = settings.ml_relax_enabled
 
     def lx(x):
+        if dist is not None:
+            return dist.line_relax(lvl, "x", kind, x, b, updown, full)
         return line_relax_x(lev.so, x, b, lev.sor_x, kind, updown, periodic,
                             full)
 
     def ly(x):
+        if dist is not None:
+            return dist.line_relax(lvl, "y", kind, x, b, updown, full)
         return line_relax_y(lev.so, x, b, lev.sor_y, kind, updown, periodic,
                             full)
 
@@ -191,9 +198,9 @@ def ncycle(levels, kinds, lvl: int, x: torch.Tensor, b: torch.Tensor,
     post-sweep.  Under a mesh (``dist``, the JAX cycle's ``constraints``)
     every level's arrays are this rank's blocks and the sweeps, residuals
     and transfers are :class:`~cedar_tpu_torch.parallel.halo.DistContext`'s
-    (point relaxation): the restricted rhs comes back in the next level's
-    layout, gathered where it agglomerates, and the interp-add reads this
-    rank's part of the coarse correction; the coarsest level is
+    (point and line relaxation): the restricted rhs comes back in the next
+    level's layout, gathered where it agglomerates, and the interp-add
+    reads this rank's part of the coarse correction; the coarsest level is
     replicated."""
     lev, kind = levels[lvl], kinds[lvl]
     pre = settings.nrelax_pre

@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.settings import MLSettings
 
 #: where a list, each step appends its ``active`` mask (a device tensor,
@@ -59,13 +60,15 @@ def solve(run_cycle, residual, kind, coarse, cb: torch.Tensor,
     r0 = torch.maximum(norm(cb), cb.new_full((), 1e-300))
     x = torch.zeros_like(cb)
     rel = torch.full_like(r0, float("inf"))
-    for _ in range(ist.maxiter):
-        active = rel >= ist.tol
-        if record_active is not None:
-            record_active.append(active)
-        x_new = run_cycle(inner, kinds, x.clone(), cb, ist, periodic)
-        rel_new = norm(residual(inner[0].so, x_new, cb, kinds[0],
-                                periodic)) / r0
-        x = torch.where(active, x_new, x)
-        rel = torch.where(active, rel_new, rel)
+    # a cg-config that pins kernels.backend holds for the inner cycles
+    with backend.using(ist.kernel_backend):
+        for _ in range(ist.maxiter):
+            active = rel >= ist.tol
+            if record_active is not None:
+                record_active.append(active)
+            x_new = run_cycle(inner, kinds, x.clone(), cb, ist, periodic)
+            rel_new = norm(residual(inner[0].so, x_new, cb, kinds[0],
+                                    periodic)) / r0
+            x = torch.where(active, x_new, x)
+            rel = torch.where(active, rel_new, rel)
     return x

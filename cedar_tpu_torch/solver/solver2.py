@@ -43,7 +43,7 @@ import torch
 from cedar_tpu_torch import schema
 from cedar_tpu_torch.config import Config
 from cedar_tpu_torch.core.types import StencilKind
-from cedar_tpu_torch.ops import cg
+from cedar_tpu_torch.ops import backend, cg
 from cedar_tpu_torch.ops.galerkin2 import coarsen_op
 from cedar_tpu_torch.ops.interp2 import setup_interp
 from cedar_tpu_torch.ops.lines2 import setup_lines
@@ -176,9 +176,6 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
     if settings.relaxation not in _RELAX_2D:
         return (f"relaxation {settings.relaxation.value} in 2D (plane "
                 "relaxation is 3D: use Solver3)")
-    if conf.get("kernels.backend", "auto") == "xla":
-        return ("kernels.backend xla (the device decides: kernels on CUDA, "
-                "torch ops on the CPU)")
     return None
 
 
@@ -215,12 +212,16 @@ class Solver2:
         missing = _unsupported(conf, self.settings, so, kind)
         if missing is not None:
             raise NotImplementedError(f"cedar_tpu_torch: {missing}")
+        # kernels.backend: the kernels on the card unless "xla"
+        # (ops/backend.py; cedar_tpu/solver/solver2.py:264-277)
+        backend.resolve(self.settings, conf, so.is_cuda)
         # the fused fine-level cycle: on by default wherever the kernels
         # run, as cedar_tpu turns it on with its Pallas kernels
         # (cedar_tpu/solver/solver2.py:277-282); the gates on the cycle
         # and relaxation are cycle2.fine_split_ok's
-        self.settings.fine_split = bool(conf.get("kernels.fine-split",
-                                                 so.is_cuda))
+        self.settings.fine_split = bool(conf.get(
+            "kernels.fine-split",
+            so.is_cuda and self.settings.kernel_backend == "pallas"))
         self.settings.split_levels = int(conf.get("kernels.split-levels", 4))
         log.set_enabled(conf.get("log", ["status", "error"]))
         self.kind = kind
@@ -241,8 +242,9 @@ class Solver2:
 
         self.timelog = TimeLog()
         self.timelog.begin("setup")
-        self.levels = setup_hierarchy(so, kind, nlevels, self.settings,
-                                      self.indefinite, self.periodic)
+        with backend.using(self.settings.kernel_backend):
+            self.levels = setup_hierarchy(so, kind, nlevels, self.settings,
+                                          self.indefinite, self.periodic)
         self.timelog.end("setup", force=self.levels)
 
     @property
@@ -262,10 +264,11 @@ class Solver2:
         """One cycle (reference: multilevel::vcycle); ``x`` is not modified.
         On the card it replays the solver's captured cycle
         (:class:`~cedar_tpu_torch.solver.graph.CycleGraphs`)."""
-        if b.is_cuda:
-            return self.graphs.vcycle(x, b)
-        return cycle2.run_cycle(self.levels, self.kinds, x.clone(), b,
-                                self.settings, self.periodic)
+        with backend.using(self.settings.kernel_backend):
+            if b.is_cuda:
+                return self.graphs.vcycle(x, b)
+            return cycle2.run_cycle(self.levels, self.kinds, x.clone(), b,
+                                    self.settings, self.periodic)
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None):
         """Iterate cycles until the relative residual drops below ``tol`` or
@@ -280,17 +283,18 @@ class Solver2:
         r0 = residual(fine.so, x, b, self.kinds[0], self.periodic)
         # floor protects the b = 0 (already-converged) edge case
         res0 = max(float(_l2(r0)), torch.finfo(b.dtype).tiny)
-        if b.is_cuda:
-            x, hist = self.graphs.solve(x, b, res0)
-        else:
-            def step():
-                nonlocal x
-                x, rnorm = cycle2.cycle_residual(self.levels, self.kinds,
-                                                  x, b, settings,
-                                                  self.periodic)
-                return rnorm
+        with backend.using(settings.kernel_backend):
+            if b.is_cuda:
+                x, hist = self.graphs.solve(x, b, res0)
+            else:
+                def step():
+                    nonlocal x
+                    x, rnorm = cycle2.cycle_residual(self.levels, self.kinds,
+                                                      x, b, settings,
+                                                      self.periodic)
+                    return rnorm
 
-            hist = graph.iterate(step, res0, settings)
+                hist = graph.iterate(step, res0, settings)
         self.timelog.end("solve", force=x)
         log.info(f"Initial residual l2 norm: {res0:g}")
         for i, rel in enumerate(hist):

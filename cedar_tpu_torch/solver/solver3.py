@@ -45,7 +45,7 @@ import torch
 from cedar_tpu_torch import schema
 from cedar_tpu_torch.config import Config
 from cedar_tpu_torch.core.types import StencilKind
-from cedar_tpu_torch.ops import cg, planes3
+from cedar_tpu_torch.ops import backend, cg, planes3
 from cedar_tpu_torch.ops.galerkin3 import coarsen_op
 from cedar_tpu_torch.ops.interp3 import setup_interp
 from cedar_tpu_torch.ops.relax3 import setup_recip
@@ -160,9 +160,6 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
     elif settings.relaxation != RelaxType.point:
         return (f"relaxation {settings.relaxation.value} in 3D (cedar_tpu "
                 "relaxes 3D grids by points or planes)")
-    if conf.get("kernels.backend", "auto") == "xla":
-        return ("kernels.backend xla (the device decides: kernels on CUDA, "
-                "torch ops on the CPU)")
     # grid.np is accepted and ignored on a serial solver, as in cedar_tpu
     return None
 
@@ -212,6 +209,10 @@ class Solver3:
         self.settings.fine_split = bool(conf.get("kernels.fine-split",
                                                  False))
         self.settings.split_levels = int(conf.get("kernels.split-levels", 4))
+        # kernels.backend: the kernels on the card unless "xla"; a
+        # plane-config that pins its own holds for the plane solves
+        # (ops/backend.py; cedar_tpu/solver/solver3.py:221-256)
+        backend.resolve(self.settings, conf, so.is_cuda)
         log.set_enabled(conf.get("log", ["status", "error"]))
         self.kind = kind
         # grid.periodic padded to three axes (cedar_tpu/solver/
@@ -234,11 +235,13 @@ class Solver3:
 
         self.timelog = TimeLog()
         self.timelog.begin("setup")
-        self.levels = setup_hierarchy(so, kind, nlevels, self.settings,
-                                      self.indefinite, self.periodic)
-        if self.settings.relaxation in planes3.ORIENTS_OF:
-            self.levels = planes3.setup_planes(self.levels, self.kinds,
-                                               self.settings)
+        with backend.using(self.settings.kernel_backend):
+            levels = setup_hierarchy(so, kind, nlevels, self.settings,
+                                     self.indefinite, self.periodic)
+            if self.settings.relaxation in planes3.ORIENTS_OF:
+                levels = planes3.setup_planes(levels, self.kinds,
+                                              self.settings)
+        self.levels = levels
         self.timelog.end("setup", force=self.levels)
 
     @property
@@ -258,10 +261,11 @@ class Solver3:
         """One cycle (reference: multilevel::vcycle); ``x`` is not modified.
         On the card it replays the solver's captured cycle
         (:class:`~cedar_tpu_torch.solver.graph.CycleGraphs`)."""
-        if b.is_cuda:
-            return self.graphs.vcycle(x, b)
-        return cycle3.run_cycle(self.levels, self.kinds, x.clone(), b,
-                                self.settings, self.periodic)
+        with backend.using(self.settings.kernel_backend):
+            if b.is_cuda:
+                return self.graphs.vcycle(x, b)
+            return cycle3.run_cycle(self.levels, self.kinds, x.clone(), b,
+                                    self.settings, self.periodic)
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None):
         """Iterate cycles until the relative residual drops below ``tol`` or
@@ -276,17 +280,18 @@ class Solver3:
         r0 = residual(fine.so, x, b, self.kinds[0], self.periodic)
         # floor protects the b = 0 (already-converged) edge case
         res0 = max(float(_l2(r0)), torch.finfo(b.dtype).tiny)
-        if b.is_cuda:
-            x, hist = self.graphs.solve(x, b, res0)
-        else:
-            def step():
-                nonlocal x
-                x, rnorm = cycle3.cycle_residual(self.levels, self.kinds,
-                                                  x, b, settings,
-                                                  self.periodic)
-                return rnorm
+        with backend.using(settings.kernel_backend):
+            if b.is_cuda:
+                x, hist = self.graphs.solve(x, b, res0)
+            else:
+                def step():
+                    nonlocal x
+                    x, rnorm = cycle3.cycle_residual(self.levels, self.kinds,
+                                                      x, b, settings,
+                                                      self.periodic)
+                    return rnorm
 
-            hist = graph.iterate(step, res0, settings)
+                hist = graph.iterate(step, res0, settings)
         self.timelog.end("solve", force=x)
         log.info(f"Initial residual l2 norm: {res0:g}")
         for i, rel in enumerate(hist):

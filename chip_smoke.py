@@ -7,8 +7,10 @@ card, the 2D and 3D periodic solves, the inner multigrid coarse solve
 (``cg-solver: cedar``) and the plane-configs beyond line-xy V-cycles,
 ``solver.ml-relax.enabled`` (K4 and K10 at the full PCR stride), the
 handle API (``capi``), the examples and ``profile_trace``, and the
-distributed point-relaxation solvers (``DistSolver2``, ``DistSolver3``
-over ``torch.distributed``) in worlds of processes sharing the card.
+distributed solvers (``DistSolver2``, ``DistSolver3`` over
+``torch.distributed``: point and line relaxation, the distributed SPIKE
+line solve, periodic axes) in worlds of processes sharing the card, and
+``kernels.backend: xla`` (the plain versions on the card).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -89,7 +91,10 @@ Phases (each raises on failure; nothing is caught):
    paths' shard shapes (a block extended by H = 8: 4096² and 400² on
    (2, 2), 256³ and 200³ on (2, 2, 2), levels 0 and 1) at the origins of
    the first rank of an axis (-H), another rank's and an odd one, DOWN
-   and UP, with and without the residual, bit-equal;
+   and UP, with and without the residual, bit-equal; K4 on the
+   distributed line paths' shapes (DIST_LINE_SHAPES: gathered windows,
+   cyclic lines on one, SPIKE interiors) and K1 and K6 with a replicated
+   periodic axis beside an origin, bit-equal;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -138,7 +143,14 @@ Phases (each raises on failure; nothing is caught):
    serial solve's and the history within the norm's NORM_RTOL; Cedar's
    200³ float64 test through ``DistSolver3`` on a (2, 2, 2) world of 8,
    x bit for bit; a world of one over NCCL (its all-reduce on the card),
-   bit for bit; the same worlds run phase 5i's paths;
+   bit for bit; the same worlds run phase 4k's, 5i's and 5j's paths;
+4k. distributed float64 gates (the (2, 2) world's DIST_RUNS2 "f64_*"):
+   512² line-xy ``diag_diffusion(50, 1)`` within 1e-10 of the serial
+   solve, SPIKE on level 0 for x and y; with ml-relax (the gather) and
+   256² doubly periodic (indefinite) bit for bit;
+4l. ``kernels.backend: xla``: the 4096² float32 V(1,1) solve through the
+   graph bit for bit the kernels' dense cycle, no kernel of the table in
+   a captured cycle, the two graphs' ms in alternating pairs;
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -188,6 +200,14 @@ Phases (each raises on failure; nothing is caught):
    reductions, host-staged bytes, K1 and K6 launches on rank 0) and ms a
    cycle over 10 eager cycles on every rank: N processes sharing one card
    over gloo, not a multi-GPU figure;
+5j. the line and periodic paths at full width (run in phase 4j's
+   worlds): ``2d_fe_9pt_linexy_2048`` float32 V(1,1) on (2, 2) with
+   ml-relax (the gather, x bit for bit the serial solve) and by default
+   (SPIKE, x within SPIKE_RTOL32 of max |x|), 4096² doubly periodic and
+   2048² x-periodic line-x on (2, 2), ``3d_poisson_7pt_256`` x-periodic
+   on (2, 2, 2) (x bit for bit), each with one counted cycle beside
+   tools/dist_comm.py's prediction, the line paths with ms a cycle and
+   ms a level-0 sweep by path;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
@@ -215,7 +235,9 @@ Phases (each raises on failure; nothing is caught):
    and y) and K10 ((64, 128²) 5-point) at the full stride against their
    plain versions and beside the default stride; K1 and K6 on the
    distributed paths' full-size shards ((2064, 2064) 5-point and 144³
-   7-point float32) at origin -H.
+   7-point float32) at origin -H; K4 on the gathered x-line window of
+   ``2d_fe_9pt_linexy_2048`` on (2, 2) and on its level-0 SPIKE
+   interior.
 
 Every solve of phases 4-5f runs as the solvers run it on the card, one
 replay of a captured CUDA graph a cycle, and is held bit for bit to the
@@ -255,7 +277,7 @@ from cedar_tpu_torch import (
 )
 from cedar_tpu_torch.core.types import Dir3, StencilKind
 from cedar_tpu_torch.ops import (
-    cuda2, cuda3, cuda_build, cuda_fused2, cuda_fused3, cuda_lines2,
+    backend, cuda2, cuda3, cuda_build, cuda_fused2, cuda_fused3, cuda_lines2,
     cuda_planes2, cuda_transfer2, cuda_transfer3, interp2, interp3, lines2,
     stencil3,
 )
@@ -264,6 +286,7 @@ from cedar_tpu_torch.parallel import DistSolver2, DistSolver3, make_mesh
 from cedar_tpu_torch.parallel import comm, shard_relax
 from cedar_tpu_torch.parallel.launch import spawn
 from cedar_tpu_torch.solver import cycle2, cycle3, graph, inner
+from cedar_tpu_torch.tools import dist_comm
 from cedar_tpu_torch.tools.profile_cycle import inner_of
 from cedar_tpu_torch.tools.tune_fused2 import plane_transfer_shapes
 from cedar_tpu_torch.tools.tune_fused3 import device_ms
@@ -4726,6 +4749,49 @@ CEDAR_CONF2 = {"log": [], "solver": {
     "tol": 1e-10, "max-iter": 10}}
 CEDAR_CONF3 = {"log": [], "solver": {"tol": 1e-9, "max-iter": 30}}
 DIST_CYCLES = 10
+V11 = {"nrelax-pre": 1, "nrelax-post": 1}
+LINEXY = {"relaxation": "line-xy", "cycle": V11, "tol": 1e-30,
+          "max-iter": 4}
+ML = {"ml-relax": {"enabled": True}}
+# the (2, 2) world's line and periodic runs: key -> (operator, kind, conf,
+# n, dtype, whether its ms a cycle is timed); "f64_*": phase 4k's gates,
+# the others phase 5j's full-width paths
+DIST_RUNS2 = {
+    "linexy_ml": (gallery.fe, NinePt,
+                  {"log": [], "solver": {**LINEXY, **ML}}, N_LINES,
+                  torch.float32, True),
+    "linexy": (gallery.fe, NinePt, {"log": [], "solver": LINEXY}, N_LINES,
+               torch.float32, True),
+    "per_xy": (periodic_grid(gallery.poisson, XY), FivePt,
+               {"log": [], **periodic_conf(XY, definite=False, cycle=V11,
+                                           tol=1e-30, **{"max-iter": 4})},
+               N_MAIN, torch.float32, False),
+    "per_linex": (periodic_grid(aniso_x, X), FivePt,
+                  {"log": [], **periodic_conf(X, relaxation="line-x",
+                                              cycle=V11, tol=1e-30,
+                                              **{"max-iter": 4})},
+                  N_LINES, torch.float32, False),
+    "f64_lxy": (lambda nx, ny, dtype, device: gallery.diag_diffusion(
+        nx, ny, 50.0, 1.0, dtype, device), FivePt,
+        {"log": [], "solver": {"relaxation": "line-xy", "tol": 1e-8,
+                               "max-iter": 25}}, 512, torch.float64, False),
+    "f64_lxy_ml": (lambda nx, ny, dtype, device: gallery.diag_diffusion(
+        nx, ny, 50.0, 1.0, dtype, device), FivePt,
+        {"log": [], "solver": {"relaxation": "line-xy", "tol": 1e-8,
+                               "max-iter": 25, **ML}}, 512, torch.float64,
+        False),
+    "f64_per_xy": (periodic_grid(gallery.poisson, XY), FivePt,
+                   {"log": [], **periodic_conf(XY, definite=False, tol=1e-8,
+                                               **{"max-iter": 30})},
+                   256, torch.float64, False),
+}
+# the (2, 2, 2) world's periodic run: 3d_poisson_7pt_256 x-periodic
+DIST_RUN3 = (periodic3(gallery.poisson3, X3), SevenPt,
+             {"log": [], **periodic_conf(X3, tol=1e-30, **{"max-iter": 4})},
+             N_3D, torch.float32, False)
+# the SPIKE solve of 2d_fe_9pt_linexy_2048 f32 against the serial line
+# sweep's factorisation: x within this share of max |x| after 4 cycles
+SPIKE_RTOL32 = 1e-4
 
 
 def phase_kernels_dist(errs: dict) -> dict:
@@ -4780,9 +4846,33 @@ def _dist_ms(s, cycle, bb, xb, ncycles=DIST_CYCLES) -> float:
     return (time.perf_counter() - t0) / ncycles * 1e3
 
 
-def _dist_run(rank, cls, cycle, so, kind, conf, b, mesh, full: bool):
-    """Setup, solve and (``full``) one counted cycle and the ms a cycle
-    of a distributed solver on this rank."""
+def _line_sweep_ms(s, bb, xb, reps: int = 5) -> dict:
+    """ms of one zebra sweep (both colours) of level 0 along each line
+    axis of a distributed solver, by the path it takes there (the SPIKE
+    solve or the gather), the ranks started together."""
+    import torch.distributed as tdist
+
+    out = {}
+    for axis in ("x", "y"):
+        if (0, axis) not in s.dist.spike and (
+                0, 0 if axis == "x" else 1) not in s.dist._line_so:
+            continue
+        torch.cuda.synchronize()
+        tdist.barrier()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            s.dist.line_relax(0, axis, s.kinds[0], xb, bb, "down",
+                              s.settings.ml_relax_enabled)
+        torch.cuda.synchronize()
+        path = "spike" if (0, axis) in s.dist.spike else "gather"
+        out[f"{axis} {path}"] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def _dist_run(rank, cls, cycle, so, kind, conf, b, mesh, full: bool,
+              timed: bool = True):
+    """Setup, solve and (``full``) one counted cycle and (``timed``) the
+    ms a cycle of a distributed solver on this rank."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reset_counts()
@@ -4799,11 +4889,15 @@ def _dist_run(rank, cls, cycle, so, kind, conf, b, mesh, full: bool):
                x).all()), "shape": tuple(x.shape)}
     if rank == 0:
         out["x"] = x.cpu()
+    out["spike"] = sorted(s.dist.spike)
     if full:
         bb, xb = s._block(b), s._block(x)
         xb, out["cycle_counts"], out["cycle_comm"] = _dist_cycle(
             s, cycle, bb, xb)
-        out["ms"] = _dist_ms(s, cycle, bb, xb)
+        if timed:
+            out["ms"] = _dist_ms(s, cycle, bb, xb)
+            if s.dist.spike or s.dist._line_so:
+                out["line_ms"] = _line_sweep_ms(s, bb, xb)
     return s, x, out
 
 
@@ -4832,6 +4926,14 @@ def dist_world2(rank: int) -> dict:
                                   "tol": 1e-30, "max-iter": 4}}
     _, _, out["full"] = _dist_run(rank, DistSolver2, cycle2, so, FivePt,
                                   conf, b, mesh, True)
+    del so, b
+    for key, (make, kind, conf, n, dtype, timed) in DIST_RUNS2.items():
+        so = make(n, n, dtype, DEV)
+        b = periodic_rhs(conf, n, n, dtype, DEV)
+        _, _, out[key] = _dist_run(rank, DistSolver2, cycle2, so, kind,
+                                   conf, b, mesh, True, timed)
+        del so, b
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4857,6 +4959,12 @@ def dist_world3(rank: int) -> dict:
     conf = {"log": [], "solver": {"tol": 1e-30, "max-iter": 4}}
     _, _, out["full"] = _dist_run(rank, DistSolver3, cycle3, so, SevenPt,
                                   conf, b, mesh, True)
+    del so, b
+    make, kind, conf, n, dtype, timed = DIST_RUN3
+    so = make(n, n, n, dtype, DEV)
+    b = periodic_rhs3(conf, (n, n, n), dtype, DEV)
+    _, _, out["per_x3"] = _dist_run(rank, DistSolver3, cycle3, so, kind,
+                                    conf, b, mesh, True, timed)
     return out
 
 
@@ -4908,8 +5016,9 @@ def phase_dist_gates() -> dict:
     gloo world, x bit for bit against Solver2 with the dense cycle on the
     card; Cedar's 200³ float64 test through DistSolver3 on (2, 2, 2), x bit
     for bit against Solver3 (dense); a world of one over NCCL equal to
-    Solver2 bit for bit.  Also runs phase 5i's full-size paths in the same
-    worlds (their results are returned)."""
+    Solver2 bit for bit.  Also runs phase 4k's and phase 5i's and 5j's
+    runs in the same worlds (their results are returned, with the serial
+    references on the card)."""
     print("[4j] distributed gates: 4 and 8 processes sharing the card over "
           "gloo (host-staged messages), 1 over NCCL", flush=True)
     so = gallery.poisson(400, 400, torch.float64, DEV)
@@ -4936,6 +5045,17 @@ def phase_dist_gates() -> dict:
                                                torch.float32, DEV))
     hist_full3 = full3.history
     del full3, so, so3
+    refs = {}
+    for key, (make, kind, conf, n, dtype, _) in DIST_RUNS2.items():
+        s = _serial(Solver2, make(n, n, dtype, DEV), kind, conf)
+        refs[key] = (s.solve(periodic_rhs(conf, n, n, dtype, DEV)),
+                     s.history)
+        del s
+    make, kind, conf, n, dtype, _ = DIST_RUN3
+    s = _serial(Solver3, make(n, n, n, dtype, DEV), kind, conf)
+    refs["per_x3"] = (s.solve(periodic_rhs3(conf, (n, n, n), dtype, DEV)),
+                      s.history)
+    del s
     torch.cuda.empty_cache()
 
     w2 = _world(dist_world2, 4)
@@ -4972,7 +5092,7 @@ def phase_dist_gates() -> dict:
         raise AssertionError("the world of one is not NCCL")
     _check_dist("400^2 DistSolver2 over NCCL", w1[0], x2, s2.history)
     return {"w2": w2, "w3": w3, "x_full2": x_full2, "hist_full2": hist_full2,
-            "x_full3": x_full3, "hist_full3": hist_full3}
+            "x_full3": x_full3, "hist_full3": hist_full3, "refs": refs}
 
 
 def phase_dist_full(worlds: dict) -> dict:
@@ -5039,6 +5159,282 @@ def phase_times_dist() -> dict:
     return {k: out[k] + work[k] for k in work}
 
 
+# -- line relaxation and periodic axes under a mesh, kernels.backend xla
+# (phases 3, 4k, 4l, 5j, 6)
+
+# K4 on the shapes of the distributed line paths: the gathered windows of
+# 2d_fe_9pt_linexy_2048 on (2, 2) (whole x-lines by the block's columns
+# and H more on each side, and the y-lines' transpose), cyclic x-lines of
+# the 2048² x-periodic line-x, the SPIKE interior systems of its level 0
+# (1022 rows by one colour's 512 lines) and of the 512² f64 gate, and the
+# f64 gate's window
+DIST_LINE_SHAPES = [
+    ((N_LINES, N_LINES // 2 + 2 * DIST_H), torch.float32, True, (0, 0)),
+    ((N_LINES // 2 + 2 * DIST_H, N_LINES), torch.float32, True, (0, 0)),
+    ((N_LINES, N_LINES // 2 + 2 * DIST_H), torch.float32, False, (1, 0)),
+    ((N_LINES // 2 - 2, N_LINES // 4), torch.float32, False, (0, 0)),
+    ((254, 128), torch.float64, False, (0, 0)),
+    ((512, 256 + 2 * DIST_H), torch.float64, False, (0, 0)),
+]
+
+
+def phase_kernels_dist_lines(errs: dict) -> dict:
+    """K4 on the distributed line paths' shapes (:data:`DIST_LINE_SHAPES`),
+    and K1 and K6 with a periodic axis that the level replicates beside an
+    origin on a partitioned one (the wrap of the replicated axis in the
+    kernel, the other's in the halo; odd extents take the Jacobi phases),
+    bit-equal to their plain versions."""
+    print("[3] K4 on gathered line windows and SPIKE interiors; K1 and K6 "
+          "periodic with an origin", flush=True)
+    for i, (shape, dtype, nine, per) in enumerate(DIST_LINE_SHAPES):
+        per = tuple(bool(a) for a in per)
+        so, q, b, kind = random_periodic_problem(shape, nine, dtype,
+                                                 2300 + i, per)
+        tag = f"{shape} {str(dtype).replace('torch.', '')} dist"
+        key = "line2_periodic" if any(per) else "line2"
+        errs[key] = max(errs[key], compare_lines(
+            so, q, b, kind, "9pt" if nine else "5pt", tag, per))
+        del so, q, b
+    for i, (shape, dtype, nine) in enumerate((
+            ((63, 48), torch.float64, False), ((64, 80), torch.float32,
+                                               True))):
+        per = (True, False)
+        so, q, b, kind = random_periodic_problem(shape, nine, dtype,
+                                                 2310 + i, per)
+        name, e = compare_sweep(so, q, b, kind, "9pt" if nine else "5pt",
+                                f"{shape} dist", per,
+                                origins=((0, -DIST_H), (0, 3)))
+        errs[name + "_periodic"] = max(errs[name + "_periodic"], e)
+    for i, (shape, dtype, ts) in enumerate((
+            ((21, 24, 24), torch.float64, False),
+            ((32, 24, 24), torch.float32, True))):
+        per = (True, False, False)
+        so, q, b, kind = random_periodic_problem3(shape, ts, dtype,
+                                                  2320 + i, per)
+        name, e = compare_sweep3(so, q, b, kind, f"{shape} dist", per,
+                                 origins=((0, -DIST_H, -DIST_H), (0, 3, 1)))
+        errs[name] = max(errs[name], e)
+    return errs
+
+
+def _model(res: dict, n: int, ndim: int, conf: dict, kind,
+           itemsize: int) -> dict:
+    """tools/dist_comm.py's prediction of one cycle on rank 0 of the run
+    ``res`` (its specs)."""
+    from cedar_tpu_torch.solver import solver2, solver3
+
+    sm = solver2 if ndim == 2 else solver3
+    st = conf["solver"]
+    shapes = sm.level_shapes(*(n,) * ndim, len(res["specs"]))
+    pts = {FivePt: 5, NinePt: 9, SevenPt: 7, TwentySevenPt: 27}[kind]
+    return dist_comm.predict(
+        shapes, res["specs"], (2,) * ndim, itemsize,
+        st.get("cycle", {}).get("nrelax-pre", 2),
+        st.get("cycle", {}).get("nrelax-post", 1),
+        {5: 2, 7: 2, 9: 4, 27: 8}[pts], 4 if ndim == 2 else 8,
+        st.get("relaxation", "point"),
+        st.get("ml-relax", {}).get("enabled", False),
+        conf.get("grid", {}).get("periodic"))
+
+
+def _report_dist(name: str, res: list, key: str, ref, n: int, ndim: int,
+                 conf: dict, kind, exact: bool = True) -> dict:
+    """Check one distributed run of a world (``res``: its ranks' results
+    under ``key``) against its serial reference on the card (bit for bit,
+    or for the f32 SPIKE solve within :data:`SPIKE_RTOL32` of max |x|, the
+    same cycle count), print its counted cycle beside the model's and its
+    ms; returns rank 0's result."""
+    f = res[0][key]
+    x_ser, hist_ser = ref
+    if exact:
+        _check_dist(name, f, x_ser, hist_ser)
+    else:
+        x = f["x"].to(DEV)
+        err = float((x - x_ser).abs().max())
+        scale = float(x_ser.abs().max())
+        print(f"  {name}: max |x - x_serial| {err:.4e} = "
+              f"{err / scale:.3e} of max |x|", flush=True)
+        if not err <= SPIKE_RTOL32 * scale:
+            raise AssertionError(f"{name}: x off the serial solve by "
+                                 f"{err / scale:.3e} of max |x|")
+        if len(f["history"]) != len(hist_ser):
+            raise AssertionError(f"{name}: cycle count differs")
+    for r, w in enumerate(res):
+        if not (w[key]["finite"] and w[key]["shape"] == x_ser.shape):
+            raise AssertionError(f"{name}: rank {r} result")
+    cm = f["cycle_comm"]
+    model = _model(f, n, ndim, conf, kind, x_ser.element_size())
+    print(f"  {name}: specs {f['specs']}; SPIKE on {f['spike']}; setup "
+          f"{f['setup_s']:.2f} s, solve {f['solve_s']:.2f} s; history "
+          f"{' '.join(f'{h:.4g}' for h in f['history'])}", flush=True)
+    print(f"    a cycle on rank 0: {cm['exchanges']} exchanges "
+          f"({cm['wrap_exchanges']} along a periodic axis), "
+          f"{cm['exchange_bytes']} B sent, {cm['gathers']} gathers "
+          f"({cm['line_gathers']} of lines, {cm['spike_gathers']} SPIKE "
+          f"interfaces; {cm['gather_bytes']} B), {cm['reductions']} "
+          f"reductions, {cm['staged_bytes']} B host-staged; K4 "
+          f"{f['cycle_counts']['line2']}, K1 {f['cycle_counts']['sweep2_dist']}"
+          f", K6 {f['cycle_counts']['sweep3_dist']} launches", flush=True)
+    print(f"    model (tools/dist_comm.py): {model}", flush=True)
+    if "ms" in f:
+        print(f"    ms a cycle ({DIST_CYCLES} eager cycles, ranks "
+              f"together): " + ", ".join(f"rank {r} {w[key]['ms']:.2f}"
+                                         for r, w in enumerate(res)),
+              flush=True)
+    if "line_ms" in f:
+        print("    ms a level-0 sweep (two colours), rank 0: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in f["line_ms"].items()), flush=True)
+    return f
+
+
+def phase_dist_f64_gates(worlds: dict) -> None:
+    """4k: float64 gates of the (2, 2) world (run in phase 4j): 512²
+    line-xy ``diag_diffusion(50, 1)`` within 1e-10 of the serial solve
+    with SPIKE on level 0 for both axes; the same with ml-relax (the
+    gather) bit for bit; 256² doubly periodic (indefinite) bit for bit.
+    Cedar's 400² history through DistSolver2 is phase 4j's."""
+    print("[4k] distributed f64 gates: SPIKE, the line gather, the wrap",
+          flush=True)
+    w2, refs = worlds["w2"], worlds["refs"]
+    for key in ("f64_lxy", "f64_lxy_ml", "f64_per_xy"):
+        make, kind, conf, n, dtype, _ = DIST_RUNS2[key]
+        f = w2[0][key]
+        x_ser, hist_ser = refs[key]
+        if key == "f64_lxy":
+            err = float((f["x"].to(DEV) - x_ser).abs().max())
+            print(f"  {key}: max |x - x_serial| {err:.3e}; SPIKE on "
+                  f"{f['spike']}; {len(f['history'])} cycles (serial "
+                  f"{len(hist_ser)})", flush=True)
+            if not err < 1e-10:
+                raise AssertionError(f"{key}: x off the serial solve")
+            if not {(0, "x"), (0, "y")} <= set(f["spike"]):
+                raise AssertionError(f"{key}: level 0 takes no SPIKE")
+        else:
+            _check_dist(key, f, x_ser, hist_ser)
+            print(f"  {key}: x bit for bit the serial solve, "
+                  f"{len(f['history'])} cycles", flush=True)
+        require_launched(f["solve_counts"], (
+            "line2",) if "lxy" in key else (("sweep2_dist",)), key)
+
+
+def phase_dist_lines_full(worlds: dict) -> dict:
+    """5j: the line and periodic paths at full width on the (2, 2) and
+    (2, 2, 2) worlds (run in phase 4j): ``2d_fe_9pt_linexy_2048`` f32
+    V(1,1) with ml-relax (the gather on every level, x bit for bit the
+    serial ml-relax solve) and by default (SPIKE where eligible, x within
+    :data:`SPIKE_RTOL32`), each with its counted cycle, ms a cycle and ms
+    a level-0 sweep; 4096² doubly periodic and 2048² x-periodic line-x
+    f32 V(1,1), and ``3d_poisson_7pt_256`` x-periodic, x bit for bit.
+    Returns K4's launches in the distributed solves."""
+    print("[5j] distributed lines and periodic axes at full width: N "
+          "processes sharing ONE card over gloo (host-staged), not a "
+          "multi-GPU figure", flush=True)
+    refs, out = worlds["refs"], {"line2": 0}
+    for key, ndim in (("linexy_ml", 2), ("linexy", 2), ("per_xy", 2),
+                      ("per_linex", 2), ("per_x3", 3)):
+        res = worlds["w2" if ndim == 2 else "w3"]
+        make, kind, conf, n, dtype, _ = (DIST_RUNS2[key] if ndim == 2
+                                         else DIST_RUN3)
+        f = _report_dist(f"{key} {n}^{ndim}", res, key, refs[key], n, ndim,
+                         conf, kind, exact=key != "linexy")
+        need = ("line2",) if "line" in key else (
+            "sweep2_dist" if ndim == 2 else "sweep3_dist",)
+        require_launched(f["cycle_counts"], need, key)
+        if key == "linexy" and not {(0, "x"), (0, "y")} <= set(f["spike"]):
+            raise AssertionError("linexy: level 0 takes no SPIKE")
+        out["line2"] += f["solve_counts"]["line2"]
+    return out
+
+
+def _xla_cycle_launches(s, b) -> dict:
+    """The launches and plain calls of one captured cycle of ``s`` under
+    its own backend (a fresh capture, as :func:`one_cycle_launches`)."""
+    with backend.using(s.settings.kernel_backend):
+        g = graph.CycleGraphs(cycle2, s.levels, s.kinds, s.settings,
+                              **s.graphs.cycle_kw).graph("solve", b)
+        g.b.copy_(b)
+        g.warm()
+        reset_counts()
+        g.capture()
+        torch.cuda.synchronize()
+        one = {k: v for k, v in counts().items() if v}
+        del g
+    return one
+
+
+def phase_backend_xla() -> None:
+    """4l: ``kernels.backend: xla`` (fault F1): the 4096² f32 5-point
+    V(1,1) solve through the solver's graph, x bit for bit the default
+    backend's dense cycle (``kernels.fine-split: false``), no kernel of
+    the table launched in a captured cycle (its plain versions instead),
+    and its graph ms beside the kernels' in alternating pairs."""
+    n = N_MAIN
+    print(f"[4l] kernels.backend xla: {n}^2 5pt f32 V(1,1), the plain "
+          "versions on the card", flush=True)
+    so = gallery.poisson(n, n, torch.float32, DEV)
+    b = gallery.poisson_rhs(n, n, torch.float32, DEV)
+    solver = {"cycle": V11, "tol": 1e-30, "max-iter": 4}
+    sk = Solver2(so, FivePt, {"log": [], "solver": solver,
+                              "kernels": {"fine-split": False}})
+    sx = Solver2(so, FivePt, {"log": [], "solver": solver,
+                              "kernels": {"backend": "xla"}})
+    if sx.settings.fine_split:
+        raise AssertionError("xla: the fused cycle is on")
+    xk = sk.solve(b)
+    reset_counts()
+    xx = sx.solve(b)
+    c = counts()
+    if not torch.equal(xk, xx) or sk.history != sx.history:
+        raise AssertionError("xla: x differs from the kernels' dense cycle "
+                             f"({float((xk - xx).abs().max()):.3e})")
+    one = _xla_cycle_launches(sx, b)
+    launched = {k: v for k, v in one.items() if k in KERNELS}
+    print(f"  xla: x bit for bit the kernels' dense cycle; history "
+          f"{' '.join(f'{h:.6g}' for h in sx.history)}", flush=True)
+    print(f"  xla: a captured cycle {one}", flush=True)
+    if launched or any(c.get(k, 0) for k in KERNELS):
+        raise AssertionError(f"xla launched kernels: {launched}")
+    if not one.get("sweep2_plain"):
+        raise AssertionError("xla: no plain sweep in the captured cycle")
+    med = graph_pairs({"kernels": (sk, b, xk), "xla": (sx, b, xx)})
+    print(f"  graph ms a cycle: kernels {med['kernels']:.4f}, xla "
+          f"{med['xla']:.4f} ({med['xla'] / med['kernels']:.2f}x)",
+          flush=True)
+    del sk, sx, so, b
+    torch.cuda.empty_cache()
+
+
+def phase_times_dist_lines() -> None:
+    """K4 on the distributed line paths' full-size shapes (the gathered
+    x-line window of ``2d_fe_9pt_linexy_2048`` on (2, 2), 9-point, and
+    the level-0 SPIKE interior, 5-point; DOWN, f32), kernel against plain,
+    with their bounds (printed; the table's line2 entry keeps its
+    shape)."""
+    print("[6] K4 on the distributed line shapes (plain, kernel, kernel, "
+          "plain)", flush=True)
+    cases, work = {}, {}
+    e = 4
+    for name, shape, nine in (
+            ("K4 window x", (N_LINES, N_LINES // 2 + 2 * DIST_H), True),
+            ("K4 SPIKE interior", (N_LINES // 2 - 2, N_LINES // 4), False)):
+        so, q, b, kind = random_problem(shape, nine, torch.float32, 2400)
+        m, k = shape
+        cases[name] = (
+            lambda so=so, q=q, b=b, kind=kind: cuda_lines2.line_x_plain(
+                so, q.clone(), b, kind, "down"),
+            lambda so=so, q=q, b=b, kind=kind: cuda_lines2.line_x(
+                so, q.clone(), b, kind, "down"))
+        planes = 5 if nine else 3
+        work[name] = ((planes + 3) * m * k * e,
+                      ((12 if nine else 4) + 12 * pcr_steps(m) + 8) * m * k)
+    out = time_turns(cases, slow=tuple(cases))
+    for name in cases:
+        ms, plain_ms = out[name]
+        bms, by = bound(*work[name], torch.float32)
+        print(f"  {name}: kernel {ms:.4f} ms (with q's copy), plain "
+              f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
+
+
 def pcr_steps(n: int, full: bool = False) -> int:
     """PCR steps of the line solve of a line of ``n`` points (log2 h;
     ``full``: at the full stride)."""
@@ -5077,6 +5473,7 @@ def main() -> None:
     errs = timed(phase_kernels_fused, errs)
     errs = timed(phase_kernels_fused3, errs)
     errs = timed(phase_kernels_dist, errs)
+    errs = timed(phase_kernels_dist_lines, errs)
     timed(phase_cedar_gate)
     timed(phase_fused_gate)
     timed(phase_f64_gates)
@@ -5089,6 +5486,8 @@ def main() -> None:
     timed(phase_mlrelax_gates)
     timed(phase_graph_configs)
     worlds = timed(phase_dist_gates)
+    timed(phase_dist_f64_gates, worlds)
+    timed(phase_backend_xla)
     launches = timed(phase_main_path)
     launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
     launches["line2"] = timed(phase_linexy_2048)["line2"]
@@ -5100,6 +5499,7 @@ def main() -> None:
     launches.update(timed(phase_cedar_full))
     launches.update(timed(phase_mlrelax_full))
     dist_full = timed(phase_dist_full, worlds)
+    timed(phase_dist_lines_full, worlds)
     launches["sweep2_dist"] = dist_full["sweep2_dist"]
     launches["sweep3_dist"] = dist_full["sweep3_dist"]
     # K5's and K9's periodic modes run in the periodic F-cycles (phases 4f
@@ -5110,6 +5510,7 @@ def main() -> None:
              | timed(phase_times_planes) | timed(phase_times_periodic)
              | timed(phase_times_periodic3) | timed(phase_times_batched)
              | timed(phase_times_fullpcr) | timed(phase_times_dist))
+    timed(phase_times_dist_lines)
     timed(phase_times_levels)
     print(f"  (all phases: {time.perf_counter() - t0:.1f} s)", flush=True)
     table = []

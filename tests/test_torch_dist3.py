@@ -13,7 +13,11 @@ cedar_tpu's.
   port's, the history to rtol 1e-12; the 7-point x against cedar_tpu's
   serial Solver3 at its tests/test_dist.py tolerances (< 1e-12, padded
   < 1e-9; the port's serial 27-point solve is held to cedar_tpu's in
-  tests/test_torch_solver3.py).
+  tests/test_torch_solver3.py);
+* periodic axes: x-periodic and triply periodic indefinite
+  (``solver.definite: false``, a mean-free b) 7-point solves at 16³, the
+  wrap in the halos of the partitioned axes: x bit for bit with the
+  serial port's, and against cedar_tpu's serial Solver3 to 1e-11.
 
 The rank function imports neither jax nor cedar_tpu; the test process
 computes the references while the world runs.
@@ -36,6 +40,19 @@ from cedar_tpu_torch.solver import solver3
 CONF = {"log": [], "solver": {"tol": 1e-9, "max-iter": 12}}
 CASES = [("p16", 16, False), ("fe16", 16, True), ("p17", 17, False),
          ("fe17", 17, True)]
+# name -> periodic axes (triply periodic: indefinite, b mean-free)
+PERIODIC_CASES = {"px16": (True, False, False), "pxyz16": (True, True, True)}
+
+
+def _periodic_case(per):
+    so = gallery.periodic3(gallery.poisson3(16, 16, 16, device="cpu"), per)
+    b = gallery.poisson3_rhs(16, 16, 16, device="cpu")
+    if all(per):
+        b = b - b.mean()
+    conf = {"log": [], "grid": {"periodic": list(per)},
+            "solver": {"tol": 1e-9, "max-iter": 12,
+                       "definite": not all(per)}}
+    return so, b, conf
 
 
 def random_so3(rng, n, full):
@@ -114,11 +131,21 @@ def _world(rank):
             r["x_ser"], r["hist_ser"] = ser.solve(b), ser.history
             r["nlevels_ser"] = ser.nlevels
         out[name] = r
+    for name, per in PERIODIC_CASES.items():
+        so, b, conf = _periodic_case(per)
+        s = DistSolver3(so, SevenPt, copy.deepcopy(conf), mesh)
+        r = {"x": s.solve(b), "hist": s.history, "specs": s.specs}
+        if rank == 0:
+            ser = Solver3(so, SevenPt, copy.deepcopy(conf))
+            r["x_ser"], r["hist_ser"] = ser.solve(b), ser.history
+        out[name] = r
     return out
 
 
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
+    import jax.numpy as jnp
+
     from cedar_tpu import Solver3 as JSolver3
     from cedar_tpu import gallery as jgallery
     from cedar_tpu.core.types import StencilKind as JKind
@@ -133,6 +160,11 @@ def world(tmp_path_factory):
             want[name] = np.asarray(JSolver3(
                 jgallery.poisson3(n, n, n), JKind.seven_pt,
                 copy.deepcopy(CONF)).solve(jgallery.poisson3_rhs(n, n, n)))
+        for name, per in PERIODIC_CASES.items():
+            so, b, conf = _periodic_case(per)
+            want[name] = np.asarray(JSolver3(
+                jnp.asarray(so.numpy()), JKind.seven_pt, conf).solve(
+                    jnp.asarray(b.numpy())))
     finally:
         got = w.join()
     return got, want
@@ -165,3 +197,16 @@ def test_solve_matches_cedar_tpu(world, name, tol):
     got, want = world
     r = got[0][name]
     assert float(np.abs(r["x"].numpy() - want[name]).max()) < tol
+
+
+@pytest.mark.parametrize("name", list(PERIODIC_CASES))
+def test_periodic_solve_equals_serial_port(world, name):
+    got, want = world
+    r = got[0][name]
+    assert r["specs"][0] == ("x", "y", "z")
+    assert torch.equal(r["x"], r["x_ser"])
+    assert len(r["hist"]) == len(r["hist_ser"])
+    np.testing.assert_allclose(r["hist"], r["hist_ser"], rtol=1e-12)
+    for g in got[1:]:
+        assert torch.equal(g[name]["x"], r["x"])
+    assert float(np.abs(r["x"].numpy() - want[name]).max()) < 1e-11

@@ -1,11 +1,13 @@
 """The port's distribution helpers against cedar_tpu's, pure Python (no
-process world): the mesh factorization and block partition, the per-level
+process world, but for one world of one process): the mesh factorization and block partition, the per-level
 partition policy (coarsen, manual, astar) against cedar_tpu's
 ``level_specs`` on virtual JAX meshes of the same shapes (nothing is
 compiled), the performance model (native and Python, under equal
 explicit machine parameters) against cedar_tpu's, the inert padding
-against cedar_tpu's on numpy, and the refusals that name ROADMAP queue 1
-item 9 (raised before the mesh is used)."""
+against cedar_tpu's on numpy, the refusals of plane relaxation that name
+ROADMAP queue 1 item 9 (raised before the mesh is used), and the
+configurations refused until line relaxation and periodic axes were
+ported, solved in a world of one process."""
 
 import numpy as np
 import pytest
@@ -148,24 +150,78 @@ def test_pad_operator_matches_cedar_tpu(dims, mesh, min_local):
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("conf,names", [
-    ({"solver": {"relaxation": "line-x"}}, "line relaxation"),
-    ({"solver": {"relaxation": "line-xy"}}, "line relaxation"),
-    ({"grid": {"periodic": [True, False]}}, "periodic axes"),
+@pytest.mark.parametrize("dims,mesh,periodic", [
+    ((65, 65), (2, 2), (True, False)), ((17, 17, 17), (2, 2, 2),
+                                        (False, True, True)),
 ])
-def test_dist2_refusals_name_item9(conf, names):
-    with pytest.raises(NotImplementedError, match=f"{names}.*item 9"):
-        DistSolver2(gallery.poisson(16, 16, device="cpu"), FivePt, conf,
-                    mesh=None)
-    if "line" in names:
-        with pytest.raises(NotImplementedError, match="item 9"):
-            DistSolver2(gallery.fe(16, 16, device="cpu"), NinePt, conf)
+def test_pad_operator_periodic_matches_cedar_tpu(dims, mesh, periodic):
+    """A periodic axis takes no pad (cedar_tpu/parallel/dist.py:181-198)."""
+    rng = np.random.default_rng(dims[0])
+    so = rng.standard_normal((3 if len(dims) == 2 else 4,) + dims)
+    conf = JConfig({"grid": {"periodic": list(periodic)}})
+    want = np.asarray(jdist._DistMixin._pad_operator(
+        _Fake(len(dims)), jnp.asarray(so), conf, _jmesh(mesh)))
+    got, pads = pad_operator(torch.tensor(so), mesh, 8, periodic)
+    assert [p for p, per in zip(pads, periodic) if per] == [0] * sum(periodic)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the configurations that DistSolver2 and DistSolver3 refused until line
+# relaxation and periodic axes were ported (test_dist2_refusals_name_item9's
+# three cases and test_dist3_refusals_name_item9's periodic one): each
+# solves in a world of one (mesh (1, 1)[, 1]), x bit for bit the serial
+# port's
+FORMERLY_REFUSED = {
+    "line-x": (2, "poisson", {"solver": {"relaxation": "line-x"}}),
+    "line-x-9pt": (2, "fe", {"solver": {"relaxation": "line-x"}}),
+    "line-xy": (2, "fe", {"solver": {"relaxation": "line-xy"}}),
+    "periodic-2d": (2, "poisson", {"grid": {"periodic": [True, False]}}),
+    "periodic-3d": (3, "poisson3", {"grid": {"periodic": [False, False,
+                                                          True]}}),
+}
+
+
+def _world_of_one(rank):
+    from cedar_tpu_torch import Solver2, Solver3
+
+    out = {}
+    meshes = {2: topo.make_mesh(2, device="cpu"),
+              3: topo.make_mesh(3, device="cpu")}
+    for key, (ndim, op, conf) in FORMERLY_REFUSED.items():
+        conf = {**conf, "log": [], "solver": {
+            **conf.get("solver", {}), "tol": 1e-9, "max-iter": 20}}
+        n = 16 if ndim == 2 else 8
+        so = getattr(gallery, op)(*(n,) * ndim, device="cpu")
+        b = (gallery.poisson_rhs(n, n, device="cpu") if ndim == 2
+             else gallery.poisson3_rhs(n, n, n, device="cpu"))
+        kind = {"poisson": FivePt, "fe": NinePt, "poisson3": SevenPt}[op]
+        dcls, scls = ((DistSolver2, Solver2) if ndim == 2
+                      else (DistSolver3, Solver3))
+        d = dcls(so, kind, conf, meshes[ndim])
+        s = scls(so, kind, conf)
+        out[key] = (d.solve(b), d.history, s.solve(b), s.history)
+    return out
+
+
+@pytest.fixture(scope="module")
+def world_of_one(tmp_path_factory):
+    from cedar_tpu_torch.parallel.launch import spawn
+
+    return spawn(_world_of_one, 1, timeout=300,
+                 init_dir=str(tmp_path_factory.mktemp("world")))[0]
+
+
+@pytest.mark.parametrize("key", list(FORMERLY_REFUSED))
+def test_formerly_refused_configurations_solve(world_of_one, key):
+    x, hist, x_ser, hist_ser = world_of_one[key]
+    assert hist[-1] < 1e-9
+    assert torch.equal(x, x_ser)
+    assert len(hist) == len(hist_ser)
 
 
 @pytest.mark.parametrize("conf,names", [
     ({"solver": {"relaxation": "plane-xy"}}, "plane relaxation"),
     ({"solver": {"relaxation": "plane-xyz"}}, "plane relaxation"),
-    ({"grid": {"periodic": [False, False, True]}}, "periodic axes"),
 ])
 def test_dist3_refusals_name_item9(conf, names):
     with pytest.raises(NotImplementedError, match=f"{names}.*item 9"):

@@ -18,7 +18,9 @@ from cedar_tpu import gallery as jgallery
 from cedar_tpu.core.types import StencilKind as JKind
 
 from cedar_tpu_torch import Config, FivePt, NinePt, Solver2, gallery
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.ops.stencil2 import residual
+from cedar_tpu_torch.settings import MLSettings
 from cedar_tpu_torch.solver.level import levels_from_numpy
 
 torch.set_num_threads(2)
@@ -157,7 +159,6 @@ def test_single_level_and_post_free_cycles():
 # are those the list had before its periodic entries were ported
 UNPORTED = [
     ("conf3", {"solver": {"relaxation": "plane-xy"}}, "use Solver3"),
-    ("conf8", {"kernels": {"backend": "xla"}}, "the device decides"),
 ]
 
 
@@ -167,6 +168,55 @@ def test_unported_options_raise(conf, names):
     with pytest.raises(NotImplementedError, match="cedar_tpu_torch") as e:
         Solver2(gallery.poisson(16, 16, device="cpu"), FivePt, conf)
     assert re.search(names, str(e.value)), str(e.value)
+
+
+# kernels.backend xla, which test_unported_options_raise held refused
+# until it was ported (its conf8); also in a cg-config
+BACKEND_PORTED = [
+    ("conf8", {"kernels": {"backend": "xla"}}),
+    ("conf8-cg", {"solver": {"cg-solver": "cedar"},
+                  "cg-config": {"kernels": {"backend": "xla"},
+                                "solver": {"max-iter": 3}}}),
+]
+
+
+@pytest.mark.parametrize("conf", [
+    pytest.param(conf, id=i) for i, conf in BACKEND_PORTED])
+def test_backend_xla_solves(conf):
+    """The configuration solves as cedar_tpu's Solver2 with the same
+    ``kernels.backend`` does (f64 16²): the same cycle count, the
+    histories to rtol 1e-9, x to 1e-10 of max |x|; the resolved backend
+    is xla (the plain versions, on either device) with the fused cycle
+    off, and on the CPU, where the plain versions run anyway, x is bit for
+    bit the default backend's."""
+    conf = {**conf, "log": []}
+    so = np.asarray(jgallery.poisson(16, 16))
+    b = np.asarray(jgallery.poisson_rhs(16, 16))
+    js = JSolver2(jnp.asarray(so), JKind.five_pt, copy.deepcopy(conf))
+    jx = np.asarray(js.solve(jnp.asarray(b)))
+    s = Solver2(torch.tensor(so), FivePt, copy.deepcopy(conf))
+    pinned = conf.get("kernels", conf.get("cg-config", {}).get("kernels"))
+    st = s.settings if "kernels" in conf else s.settings.cg_settings
+    assert st.kernel_backend == pinned["backend"] == "xla"
+    assert not s.settings.fine_split
+    # on the card: the pinned value holds where it is pinned, the rest of
+    # the solve resolves to the kernels
+    card = MLSettings.from_config(Config(copy.deepcopy(conf)))
+    backend.resolve(card, Config(copy.deepcopy(conf)), on_card=True)
+    assert card.cg_settings is None or card.cg_settings.kernel_backend == \
+        "xla"
+    assert card.kernel_backend == ("xla" if "kernels" in conf
+                                   else "pallas")
+    x = s.solve(torch.tensor(b))
+    assert len(s.history) == len(js.history)
+    np.testing.assert_allclose(s.history, js.history, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(x.numpy(), jx, rtol=0,
+                               atol=1e-10 * float(np.abs(jx).max()))
+    plain = copy.deepcopy(conf)
+    plain.pop("kernels", None)
+    plain.get("cg-config", {}).pop("kernels", None)
+    assert torch.equal(x, Solver2(torch.tensor(so), FivePt,
+                                  plain).solve(torch.tensor(b)))
 
 
 # the 2D periodic configurations that test_unported_options_raise held

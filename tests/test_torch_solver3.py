@@ -23,7 +23,9 @@ from cedar_tpu.solver import cycle3 as jcycle3
 from cedar_tpu_torch import (
     Config, SevenPt, Solver2, Solver3, TwentySevenPt, gallery,
 )
+from cedar_tpu_torch.ops import backend
 from cedar_tpu_torch.ops.stencil3 import residual
+from cedar_tpu_torch.settings import MLSettings
 from cedar_tpu_torch.solver import cycle3
 from cedar_tpu_torch.solver.level import levels_from_numpy
 
@@ -164,7 +166,6 @@ def test_single_level_solve():
 # were ported
 UNPORTED = [
     ("conf2", {"solver": {"relaxation": "line-x"}}, "points or planes"),
-    ("conf7", {"kernels": {"backend": "xla"}}, "the device decides"),
 ]
 
 
@@ -174,6 +175,53 @@ def test_unported_options_raise(conf, names):
     with pytest.raises(NotImplementedError, match="cedar_tpu_torch") as e:
         Solver3(gallery.poisson3(8, 8, 8, device="cpu"), SevenPt, conf)
     assert re.search(names, str(e.value)), str(e.value)
+
+
+# kernels.backend xla, which test_unported_options_raise held refused
+# until it was ported (its conf7), and in a plane-config
+BACKEND_PORTED = [
+    ("conf7", {"kernels": {"backend": "xla"}}),
+    ("conf7-plane", {"solver": {"relaxation": "plane-xy"},
+                     "plane-config": {"kernels": {"backend": "xla"}}}),
+]
+
+
+@pytest.mark.parametrize("conf", [
+    pytest.param(conf, id=i) for i, conf in BACKEND_PORTED])
+def test_backend_xla_solves(conf):
+    """The configuration is accepted and solves: the top level's against
+    cedar_tpu's Solver3 with the same ``kernels.backend`` (f64 8³, b = 1:
+    the same cycle count, the histories to rtol 1e-9 (atol 1e-14 near the rounding floor), x to 1e-10 of max
+    |x|), the plane-config's pinned for the embedded plane solves only
+    (the top level resolves to the kernels on the card); on the CPU, where the plain versions run
+    anyway, x is bit for bit the default backend's."""
+    conf = {**conf, "log": []}
+    so = np.asarray(jgallery.poisson3(8, 8, 8))
+    b = np.ones((8, 8, 8))
+    s = Solver3(torch.tensor(so), SevenPt, copy.deepcopy(conf))
+    x = s.solve(torch.tensor(b))
+    if "plane-config" in conf:
+        # on the card the top level would resolve to the kernels, the
+        # plane solves keep their pinned xla
+        st = MLSettings.from_config(Config(copy.deepcopy(conf)))
+        backend.resolve(st, Config(copy.deepcopy(conf)), on_card=True)
+        assert st.kernel_backend == "pallas"
+        assert st.plane_settings.kernel_backend == "xla"
+        assert s.settings.plane_settings.kernel_backend == "xla"
+    else:
+        assert s.settings.kernel_backend == "xla"
+        js = JSolver3(jnp.asarray(so), JKind.seven_pt, copy.deepcopy(conf))
+        jx = np.asarray(js.solve(jnp.asarray(b)))
+        assert len(s.history) == len(js.history)
+        np.testing.assert_allclose(s.history, js.history, rtol=1e-9,
+                                   atol=1e-14)
+        np.testing.assert_allclose(x.numpy(), jx, rtol=0,
+                                   atol=1e-10 * float(np.abs(jx).max()))
+    plain = copy.deepcopy(conf)
+    plain.pop("kernels", None)
+    plain.get("plane-config", {}).pop("kernels", None)
+    assert torch.equal(x, Solver3(torch.tensor(so), SevenPt,
+                                  plain).solve(torch.tensor(b)))
 
 
 # the serial cg-solver redist and grid.np, which test_unported_options_raise
