@@ -16,7 +16,13 @@ cannot turn the coarse solve into TF32.
 A batch of independent operators (plane relaxation's embedded 2D
 hierarchies: ``so`` ``(ndir, B, n1, n2)``) gives a batch of inverses
 ``(B, n, n)``, factored by the batched library calls, and :func:`solve_cg`
-applies them to ``b`` ``(B, n1, n2)`` as one batched product.
+applies them to ``b`` ``(B, n1, n2)`` as one elementwise product and a
+pairwise sum along each row (:func:`_rowsum`), elementwise ops only, so
+that a plane's result does not depend on the batch it sits in: on the
+card a batched matmul, or a reduction, rounds a plane's result one way
+or another by the batch count (an H100: 1e-14 at f64 between batches of
+32 and 16), and a rank of a distributed plane solve holds fewer planes
+than the serial batch (:mod:`cedar_tpu_torch.parallel.planes`).
 """
 
 from __future__ import annotations
@@ -87,17 +93,31 @@ def setup_cg_lu(so: torch.Tensor, kind: StencilKind,
     return torch.linalg.solve_triangular(chol.mT, y, upper=True)
 
 
+def _rowsum(p: torch.Tensor) -> torch.Tensor:
+    """Σ along the last axis in a fixed pairwise order (the halves added,
+    an odd last entry carried), by elementwise adds alone."""
+    while p.shape[-1] > 1:
+        n = p.shape[-1]
+        h = n // 2
+        s = p[..., :h] + p[..., h:2 * h]
+        if n % 2:
+            s = torch.cat([s, p[..., 2 * h:]], dim=-1)
+        p = s
+    return p[..., 0]
+
+
 def solve_cg(ainv: torch.Tensor, b: torch.Tensor,
              subtract_mean: bool = False) -> torch.Tensor:
     """x = A⁻¹ b on the coarsest grid, any dimension (x-fastest
     flattening: the axes reversed); a batch ``ainv`` ``(B, n, n)`` solves
-    ``b`` ``(B, n1, n2)`` plane by plane.  ``subtract_mean`` removes the
+    ``b`` ``(B, n1, n2)`` plane by plane, each plane's result independent
+    of the batch (:func:`_rowsum`).  ``subtract_mean`` removes the
     mean of x (of each plane), the reference's projection off the null
     space of a singular operator (SOLVE_cg.f90:124-141)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     if ainv.ndim == 3:
-        bt = b.transpose(-1, -2).reshape(b.shape[0], -1, 1)
-        x = torch.bmm(ainv, bt).reshape(b.shape[0], b.shape[2], b.shape[1])
+        bt = b.transpose(-1, -2).reshape(b.shape[0], 1, -1)
+        x = _rowsum(ainv * bt).reshape(b.shape[0], b.shape[2], b.shape[1])
         x = x.transpose(-1, -2).contiguous()
         if subtract_mean:
             x = x - x.mean(dim=(-2, -1), keepdim=True)

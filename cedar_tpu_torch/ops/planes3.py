@@ -103,10 +103,40 @@ def out_of_plane_apply(so3: torch.Tensor, q: torch.Tensor,
     return acc
 
 
-def _colour_planes(a: torch.Tensor, axis: int, c: int) -> torch.Tensor:
-    """The planes ``c::2`` along ``axis`` of a 3D array, as a strided
-    ``(B, n1, n2)`` view."""
-    return a.movedim(axis, 0)[c::2]
+def colour_start(c: int, lo: int = 0) -> int:
+    """The local index of the first plane of zebra colour ``c`` (global
+    parity ``c``) in a stack of planes whose first has global index
+    ``lo``."""
+    return (c - lo) % 2
+
+
+def colour_planes(a: torch.Tensor, axis: int, c: int,
+                  lo: int = 0) -> torch.Tensor:
+    """The planes of global parity ``c`` along ``axis`` of a 3D array whose
+    first plane has global index ``lo``, as a strided ``(B, n1, n2)``
+    view."""
+    return a.movedim(axis, 0)[colour_start(c, lo)::2]
+
+
+def setup_colours(so3: torch.Tensor, kind3: StencilKind, orient: str,
+                  psettings: MLSettings, lo: int = 0) -> tuple:
+    """The batched 2D hierarchies ``(colour 0, colour 1)`` of a stack of
+    whole planes of orientation ``orient`` (``so3`` the 3D stencil over
+    them, its first plane of global index ``lo``), each over the planes of
+    that global parity (None where the stack has none), with
+    ``compute_num_levels(n1, n2, plane min-coarse)`` levels.  Each plane's
+    hierarchy depends on that plane alone."""
+    from cedar_tpu_torch.solver import solver2
+
+    so2 = slice_so(so3, kind3, orient)
+    n1, n2 = so2.shape[-2:]
+    nlev2 = solver2.compute_num_levels(n1, n2, psettings.min_coarse)
+    return tuple(
+        solver2.setup_hierarchy(so2[:, colour_start(c, lo)::2],
+                                plane_kind2(kind3), nlev2, psettings)
+        if so2.shape[1] > colour_start(c, lo) else None
+        for c in (0, 1)
+    )
 
 
 def setup_planes(levels, kinds, settings: MLSettings) -> tuple:
@@ -117,25 +147,14 @@ def setup_planes(levels, kinds, settings: MLSettings) -> tuple:
     settings (the relaxation's workspace: 1/diag for point relaxation, the
     line factors on the CPU; an inner hierarchy under ``cg-solver:
     cedar``), as the JAX package's ``setup_planes`` does."""
-    from cedar_tpu_torch.solver import solver2
-
     psettings = settings.plane_settings
     new_levels = []
     for lvl, (lev, kind3) in enumerate(zip(levels, kinds)):
         if lvl == len(levels) - 1:
             new_levels.append(lev)
             continue
-        planes = {}
-        for orient in ORIENTS_OF[settings.relaxation]:
-            so2 = slice_so(lev.so, kind3, orient)
-            n1, n2 = so2.shape[-2:]
-            nlev2 = solver2.compute_num_levels(n1, n2, psettings.min_coarse)
-            planes[orient] = tuple(
-                solver2.setup_hierarchy(so2[:, c::2], plane_kind2(kind3),
-                                        nlev2, psettings)
-                if so2.shape[1] > c else None
-                for c in (0, 1)
-            )
+        planes = {orient: setup_colours(lev.so, kind3, orient, psettings)
+                  for orient in ORIENTS_OF[settings.relaxation]}
         new_levels.append(lev._replace(planes=planes))
     return tuple(new_levels)
 
@@ -162,13 +181,13 @@ def plane_relax(lev, kind3: StencilKind, x: torch.Tensor, b: torch.Tensor,
             continue
         kinds2 = [plane_kind2(kind3)] + [StencilKind.nine_pt] * (len(hier) - 1)
         rhs = b + out_of_plane_apply(lev.so, x, kind3, axis, periodic)
-        b2 = _colour_planes(rhs, axis, c).contiguous()
+        b2 = colour_planes(rhs, axis, c).contiguous()
         # the embedded cycle updates its iterate in place: a gathered copy
-        x2 = _colour_planes(x, axis, c).clone(
+        x2 = colour_planes(x, axis, c).clone(
             memory_format=torch.contiguous_format)
         # a plane-config that pins kernels.backend holds for its solves
         with backend.using(psettings.kernel_backend):
             for _ in range(reps):
                 x2 = cycle2.run_cycle(hier, kinds2, x2, b2, psettings)
-        _colour_planes(x, axis, c).copy_(x2)
+        colour_planes(x, axis, c).copy_(x2)
     return x

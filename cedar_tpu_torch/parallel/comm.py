@@ -26,10 +26,12 @@ Counters (module attributes, reset by :func:`reset`): ``exchanges`` (one
 ``batch_isend_irecv`` call), ``exchange_bytes`` (bytes this rank sent in
 them), ``wrap_exchanges`` (the exchanges along a periodic axis, which
 carry the wrap at the ends of the ring), ``gathers`` and ``gather_bytes``
-(all-gathers and the bytes this rank contributed), ``line_gathers`` and
-``spike_gathers`` (the all-gathers tagged ``"line"``, the whole lines of
-a line sweep, and ``"spike"``, the interface rows of a distributed SPIKE
-colour), ``reductions``, ``staged_bytes``.
+(all-gathers and the bytes this rank contributed), ``line_gathers``,
+``spike_gathers`` and ``plane_gathers`` (the all-gathers tagged
+``"line"``, the whole lines of a line sweep, ``"spike"``, the interface
+rows of a distributed SPIKE colour, and ``"plane"``, the whole planes of
+a plane sweep's colour or of its setup), ``reductions``,
+``staged_bytes``.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ gathers = 0
 gather_bytes = 0
 line_gathers = 0
 spike_gathers = 0
+plane_gathers = 0
 reductions = 0
 staged_bytes = 0
 
@@ -51,15 +54,18 @@ staged_bytes = 0
 def reset() -> None:
     global exchanges, exchange_bytes, gathers, gather_bytes, reductions
     global staged_bytes, wrap_exchanges, line_gathers, spike_gathers
+    global plane_gathers
     exchanges = exchange_bytes = gathers = gather_bytes = reductions = 0
     staged_bytes = wrap_exchanges = line_gathers = spike_gathers = 0
+    plane_gathers = 0
 
 
 def counts() -> dict:
     return {"exchanges": exchanges, "exchange_bytes": exchange_bytes,
             "wrap_exchanges": wrap_exchanges, "gathers": gathers,
             "gather_bytes": gather_bytes, "line_gathers": line_gathers,
-            "spike_gathers": spike_gathers, "reductions": reductions,
+            "spike_gathers": spike_gathers, "plane_gathers": plane_gathers,
+            "reductions": reductions,
             "staged_bytes": staged_bytes}
 
 
@@ -172,9 +178,9 @@ def all_gather_axis(a: torch.Tensor, dim: int, name: str, mesh, sizes,
     """The blocks of ``a`` along mesh axis ``name`` (``sizes[c]`` the
     extent along ``dim`` of the block at coordinate ``c``) concatenated
     along ``dim``, on every rank of the mesh row or column.  ``tag``
-    ("line" or "spike") counts it in ``line_gathers`` or
-    ``spike_gathers`` too."""
-    global gathers, gather_bytes, line_gathers, spike_gathers
+    ("line", "spike" or "plane") counts it in ``line_gathers``,
+    ``spike_gathers`` or ``plane_gathers`` too."""
+    global gathers, gather_bytes, line_gathers, spike_gathers, plane_gathers
     group = mesh.axis_groups[name]
     if group is None:
         return a
@@ -189,6 +195,7 @@ def all_gather_axis(a: torch.Tensor, dim: int, name: str, mesh, sizes,
     gather_bytes += _nbytes(src)
     line_gathers += tag == "line"
     spike_gathers += tag == "spike"
+    plane_gathers += tag == "plane"
     dist.all_gather(parts, src, group=group)
     return _from_host(torch.cat([p.narrow(dim, 0, n)
                                  for p, n in zip(parts, sizes)], dim), mesh)

@@ -1,5 +1,6 @@
 """Distributed BoxMG solvers over ``torch.distributed``: ``DistSolver2``
-and ``DistSolver3``, point and (2D) line relaxation, periodic axes.
+and ``DistSolver3``, point, (2D) line and (3D) plane relaxation,
+periodic axes.
 
 PyTorch counterpart of :mod:`cedar_tpu.parallel.dist` (reference:
 include/cedar/2d/mpi/solver.h, 3d/mpi/solver.h).  One process a rank,
@@ -33,6 +34,16 @@ each on its own device, each holding its blocks of every level:
   partitioned line axis), else the gather of whole lines and the serial
   sweep (K4 on the card) on them (:meth:`cedar_tpu_torch.parallel.halo.
   DistContext.line_relax`);
+* plane relaxation (3D: plane-xy, plane-xz, plane-yz, plane-xyz, with
+  every plane-config the serial solver runs): per level and orientation
+  the rank's planes gathered whole in-plane and relaxed by the serial
+  batched plane cycles (K10, K1, K4 or K5 and K2/K3 on the card), their
+  colour hierarchies set up on the rank's planes or cut from a carried
+  global hierarchy (:mod:`cedar_tpu_torch.parallel.planes`); cedar_tpu
+  pins its distributed plane cycles to XLA for a TPU reason
+  (cedar_tpu/parallel/dist.py:369), the port runs its kernels under
+  ``kernels.backend: auto`` and a plane-config that pins its own backend
+  keeps it;
 * ``kernels.backend: xla`` runs the plain versions of the kernels
   (:mod:`cedar_tpu_torch.ops.backend`);
 * ``solve`` and ``vcycle`` run the port's cycle (``cycleN.ncycle``,
@@ -41,10 +52,9 @@ each on its own device, each holding its blocks of every level:
   the norm a cycle, and return the global x on every rank (one
   all-gather).
 
-Not here (ROADMAP queue 1, item 9): plane relaxation under a mesh and
-the distributed cycle captured as a CUDA graph; the fused fine-level
-cycle (``kernels.fine-split``) stays off under a mesh, as in cedar_tpu
-(cedar_tpu/solver/cycle2.py:170-176).
+Not here (ROADMAP queue 1, item 9): the distributed cycle captured as a
+CUDA graph; the fused fine-level cycle (``kernels.fine-split``) stays off
+under a mesh, as in cedar_tpu (cedar_tpu/solver/cycle2.py:170-176).
 """
 
 from __future__ import annotations
@@ -55,7 +65,7 @@ import torch.nn.functional as F
 from cedar_tpu_torch import schema
 from cedar_tpu_torch.config import Config
 from cedar_tpu_torch.core.types import StencilKind
-from cedar_tpu_torch.ops import backend, cg
+from cedar_tpu_torch.ops import backend, cg, planes3
 from cedar_tpu_torch.parallel import halo, shard_relax
 from cedar_tpu_torch.parallel.halo import Layout
 from cedar_tpu_torch.parallel.policy import level_specs
@@ -65,8 +75,6 @@ from cedar_tpu_torch.solver import graph
 from cedar_tpu_torch.solver.level import Level
 from cedar_tpu_torch.utils import log
 from cedar_tpu_torch.utils.timing import TimeLog
-
-_ITEM9 = "ROADMAP queue 1, item 9"
 
 # relaxation -> the line axes it sweeps
 _LINE_AXES = {RelaxType.line_x: ("x",), RelaxType.line_y: ("y",),
@@ -101,7 +109,8 @@ def periodic_specs(specs, shapes, mesh, periodic) -> list:
 def local_levels(levels, mesh, specs, periodic=None) -> tuple:
     """This rank's blocks of a global hierarchy (e.g. ``levels_from_numpy``
     of cedar_tpu's, or a serial solver's ``levels``) under ``specs``: each
-    level's stencil block, the CI entries its transfers read, and the
+    level's stencil block, the CI entries its transfers read, its plane
+    hierarchies cut to the block's planes of each colour, and the
     coarsest level's ``ainv`` or ``inner`` (replicated), the layout the
     distributed solvers set up (``periodic``: the grid's periodic
     axes)."""
@@ -223,13 +232,18 @@ class _DistSolver:
                 f"cedar_tpu_torch: a {self._ndim}D distributed solver needs "
                 f"a {self._ndim}D operator")
         rt = settings.relaxation
-        if rt != RelaxType.point and rt not in _LINE_AXES:
-            raise NotImplementedError(
-                f"cedar_tpu_torch: plane relaxation ({rt.value}) under a "
-                f"mesh is not ported yet ({_ITEM9})")
         if rt in _LINE_AXES and self._ndim != 2:
             raise NotImplementedError(
                 f"cedar_tpu_torch: {rt.value} is a 2D relaxation")
+        if rt in planes3.ORIENTS_OF:
+            if self._ndim != 3:
+                raise NotImplementedError(
+                    f"cedar_tpu_torch: {rt.value} is a 3D relaxation")
+            from cedar_tpu_torch.solver.solver3 import unsupported_planes
+
+            missing = unsupported_planes(settings)
+            if missing is not None:
+                raise NotImplementedError(f"cedar_tpu_torch: {missing}")
 
     def _pad_operator(self, so, conf):
         """The operator padded by :func:`pad_operator`; with a pad, the
@@ -262,8 +276,10 @@ class _DistSolver:
         return a[tuple(slice(0, n) for n in self._true_dims)]
 
     def _block(self, a):
+        # a copy: plane relaxation updates its iterate in place
         lay = self.layouts[0]
-        return halo._cut(self._pad_func(a), lay.lo, lay.hi).contiguous()
+        return halo._cut(self._pad_func(a), lay.lo, lay.hi).clone(
+            memory_format=torch.contiguous_format)
 
     # -- setup -------------------------------------------------------------
     def _setup(self, so_block) -> tuple:
@@ -297,7 +313,9 @@ class _DistSolver:
             self.dist = halo.DistContext(
                 self._levels, self.layouts, self.mesh, self.kinds,
                 _LINE_AXES.get(rt, ()),
-                spike=not self.settings.ml_relax_enabled)
+                spike=not self.settings.ml_relax_enabled,
+                plane_orients=planes3.ORIENTS_OF.get(rt, ()),
+                plane_settings=self.settings.plane_settings)
 
     # -- solve -------------------------------------------------------------
     def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -366,8 +384,8 @@ class DistSolver2(_DistSolver):
 
 
 class DistSolver3(_DistSolver):
-    """3D BoxMG block-partitioned over a 3-axis process mesh; point
-    relaxation, periodic axes."""
+    """3D BoxMG block-partitioned over a 3-axis process mesh; point and
+    plane relaxation, periodic axes."""
 
     _ndim = 3
 

@@ -57,6 +57,11 @@ all-gather), the cross-line axis extended by ``H`` (two colours need a
 halo of 2), the serial sweep (K4 on the card, cyclic lines along a
 periodic line axis) on the window, and the block kept.  The stencil's
 window is gathered once, at construction, and ``b``'s once a visit.
+
+Plane relaxation (3D, :meth:`DistContext.plane_relax` and
+:mod:`cedar_tpu_torch.parallel.planes`): per level and orientation the
+rank's planes made whole in-plane and relaxed by the serial batched plane
+cycles, each colour after a halo of one for its out-of-plane rhs.
 """
 
 from __future__ import annotations
@@ -69,7 +74,8 @@ import torch.nn.functional as F
 
 from cedar_tpu_torch.core.types import StencilKind
 from cedar_tpu_torch.ops import lines2
-from cedar_tpu_torch.parallel import comm, shard_relax
+from cedar_tpu_torch.ops.planes3 import PLANE_SPECS
+from cedar_tpu_torch.parallel import comm, planes, shard_relax
 from cedar_tpu_torch.parallel.shard_relax import H, op_periodic
 from cedar_tpu_torch.solver.level import Level
 
@@ -313,10 +319,16 @@ class DistContext:
     level but the coarsest: per level and axis the distributed SPIKE
     workspace where ``spike`` allows it and the level is eligible
     (:func:`cedar_tpu_torch.parallel.lines.eligible`), else the stencil's
-    window of whole lines for the gather (one gather each, here)."""
+    window of whole lines for the gather (one gather each, here).
+
+    ``plane_orients`` (3D: "xy", "xz", "yz") sets up plane relaxation on
+    every level but the coarsest by ``plane_settings`` (the plane-config's
+    ``MLSettings``): per level and orientation the workspace of
+    :func:`cedar_tpu_torch.parallel.planes.setup`, the colour hierarchies
+    of the rank's planes (those the level carries, else set up here)."""
 
     def __init__(self, levels, layouts, mesh, kinds=None, line_axes=(),
-                 spike=False):
+                 spike=False, plane_orients=(), plane_settings=None):
         from cedar_tpu_torch.parallel import lines
 
         self.mesh = mesh
@@ -345,6 +357,11 @@ class DistContext:
                     s, e = self.line_window(lay, d)
                     self._line_so[(lvl, d)] = self._lines_of(
                         levels[lvl].so, lay, d, s, e, lead=1)
+        # plane relaxation: (lvl, orient) -> planes.PlaneWork
+        self.planes = {
+            (lvl, orient): planes.setup(self, lvl, levels[lvl], kinds[lvl],
+                                        orient, plane_settings)
+            for lvl in range(len(levels) - 1) for orient in plane_orients}
 
     def _b_ext(self, lvl, b):
         held = self._b.get(lvl)
@@ -417,6 +434,12 @@ class DistContext:
         sweep(so_w, q_w, held[1], None, kind, updown, tuple(per), full)
         return _cut(q_w, [lo - a for lo, a in zip(lay.lo, s)],
                     [hi - a for hi, a in zip(lay.hi, s)])
+
+    def plane_relax(self, lvl, kind, x, b, orient, updown, settings):
+        """One zebra plane sweep of orientation ``orient`` of the block
+        ``x``, in place (:func:`cedar_tpu_torch.parallel.planes.relax`);
+        returns ``x``."""
+        return planes.relax(self, lvl, kind, x, b, orient, updown, settings)
 
     def residual(self, lvl, kind, x, b):
         """``b - A x`` on the block (halo 1)."""
@@ -503,11 +526,20 @@ def cut_level(lev, lay: Layout, finer: Layout | None) -> Level:
     """A global level's blocks in ``lay``, its CI entries those of the
     finer layout's transfer window (:func:`ci_window`; along a periodic
     axis the entries past the ends are the wrapped ones, CI entry ``k``
-    being entry ``k + nc``)."""
+    being entry ``k + nc``), its plane hierarchies cut to the block's
+    planes of each colour (:func:`cedar_tpu_torch.parallel.planes.
+    cut_colours`)."""
     so = _cut(lev.so, lay.lo, lay.hi, lead=1)
     ci = None
     if finer is not None and lev.ci is not None:
         ws, we = ci_window(finer)
         periods = [n if p else None for n, p in zip(lay.shape, lay.periodic)]
         ci = _cut_wrap(lev.ci, ws, we, 1, periods)
-    return Level(so=so, ci=ci, ainv=lev.ainv, inner=lev.inner)
+    cut = None
+    if lev.planes:
+        cut = {orient: planes.cut_colours(
+                   colours, lay.lo[PLANE_SPECS[orient][0]],
+                   lay.hi[PLANE_SPECS[orient][0]])
+               for orient, colours in lev.planes.items()}
+    return Level(so=so, ci=ci, ainv=lev.ainv, planes=cut,
+                 inner=lev.inner)

@@ -99,7 +99,9 @@ def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
     """One smoothing application (reference: multilevel.h:134-223).
 
     plane-xyz applies xy, yz, xz plane sweeps DOWN and xz, yz, xy UP
-    (3d/mpi/solver.h relax_dir dispatch)."""
+    (3d/mpi/solver.h relax_dir dispatch).  Under a mesh (``dist``) each
+    plane sweep is the rank's (:meth:`cedar_tpu_torch.parallel.halo.
+    DistContext.plane_relax`)."""
     rt = settings.relaxation
     if rt == RelaxType.point:
         return _relax(lev, kind, x, b, updown, periodic, dist, lvl)
@@ -108,8 +110,12 @@ def _smooth(lev, kind, x, b, settings: MLSettings, updown: str,
         if updown == "up":
             orients = orients[::-1]
         for orient in orients:
-            x = planes3.plane_relax(lev, kind, x, b, orient, updown,
-                                    settings, periodic)
+            if dist is not None:
+                x = dist.plane_relax(lvl, kind, x, b, orient, updown,
+                                     settings)
+            else:
+                x = planes3.plane_relax(lev, kind, x, b, orient, updown,
+                                        settings, periodic)
         return x
     raise ValueError(f"invalid 3D relaxation: {rt}")
 

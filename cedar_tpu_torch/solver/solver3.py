@@ -135,7 +135,7 @@ def setup_inner(so: torch.Tensor, settings: MLSettings, indefinite: bool,
                            indefinite, periodic)
 
 
-def _unsupported_planes(settings: MLSettings) -> str | None:
+def unsupported_planes(settings: MLSettings) -> str | None:
     """The first plane-config feature outside this package, or None: the
     embedded plane solvers run batched point, line-x, line-y or line-xy
     V- or F-cycles with an LU or inner multigrid coarse solve."""
@@ -154,7 +154,7 @@ def _unsupported(conf: Config, settings: MLSettings, so, kind) -> str | None:
     if so.ndim != 4 or kind.ndim != 3:
         return "2D operators: use Solver2"
     if settings.relaxation in planes3.ORIENTS_OF:
-        missing = _unsupported_planes(settings)
+        missing = unsupported_planes(settings)
         if missing is not None:
             return missing
     elif settings.relaxation != RelaxType.point:

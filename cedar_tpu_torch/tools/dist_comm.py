@@ -7,7 +7,8 @@ faces of every partitioned axis, ``nsweeps + 2`` exchanges a level).
 
     python3 -m cedar_tpu_torch.tools.dist_comm [--n 4096] [--ndim 2]
         [--mesh 2 2] [--itemsize 4] [--pre 1] [--post 1] [--kind 5]
-        [--relax point|line-x|line-y|line-xy] [--ml] [--periodic 1 0]
+        [--relax point|line-x|line-y|line-xy|plane-xy|plane-xz|plane-yz|
+                 plane-xyz] [--ml] [--periodic 1 0]
 
 prints one line for the first rank of the mesh (a corner: one neighbour
 along each axis of two ranks, two along a periodic one, whose ring
@@ -22,9 +23,17 @@ lines.eligible` says so and ``--ml`` is off (each colour: q extended by
 one on every partitioned axis, one interface all-gather, two K4 launches
 for the interior solve), else the gather (q's cross-line axis extended by
 ``H``, its line axis gathered, b's once a level visit; two K4 launches);
-each level's residual takes a halo of one.  ``wrap_exchanges`` counts
-the exchanges along a periodic axis, ``line_gathers`` and
-``spike_gathers`` the gathers of each line path, ``k4`` the K4 launches.
+each level's residual takes a halo of one.  Plane relaxation (3D,
+``--relax plane-*``, :mod:`cedar_tpu_torch.parallel.planes`): each colour
+of a plane sweep extends q by one (along the plane axis on a 7-point
+level, along every partitioned axis on a 27-point one) and, where the
+rank holds planes of that colour, gathers them whole in-plane (one
+all-gather a partitioned in-plane axis); ``k10`` counts the embedded
+cycles' K10 launches under the default plane-config (one V(2,1) line-xy
+cycle a colour: two launches on each plane level but the coarsest).
+``wrap_exchanges`` counts the exchanges along a periodic axis,
+``line_gathers``, ``spike_gathers`` and ``plane_gathers`` the gathers of
+each path, ``k4`` the K4 launches.
 """
 
 from __future__ import annotations
@@ -37,6 +46,10 @@ from cedar_tpu_torch.parallel.shard_relax import H
 
 _AXES = {"point": (), "line-x": ("x",), "line-y": ("y",),
          "line-xy": ("x", "y")}
+# plane relaxation: orientations in DOWN order (UP reverses them)
+_ORIENTS = {"plane-xy": ("xy",), "plane-xz": ("xz",), "plane-yz": ("yz",),
+            "plane-xyz": ("xy", "yz", "xz")}
+_PLANE_AXIS = {"xy": 2, "xz": 1, "yz": 0}
 
 
 def _extend(block, parted, neighbours, h, itemsize, periodic=None):
@@ -77,7 +90,8 @@ def predict(shapes, specs, mesh_dims, itemsize=4, pre=1, post=1,
                   for d, n in enumerate(mesh_dims)]
     out = {"exchanges": 0, "exchange_bytes": 0, "wrap_exchanges": 0,
            "gathers": 0, "line_gathers": 0, "spike_gathers": 0,
-           "reductions": 1, "k4": 0, "model_halo_bytes": 0}
+           "plane_gathers": 0, "reductions": 1, "k4": 0, "k10": 0,
+           "model_halo_bytes": 0}
     L = len(shapes)
     corner = _Corner(mesh_dims)
 
@@ -89,10 +103,12 @@ def predict(shapes, specs, mesh_dims, itemsize=4, pre=1, post=1,
         return [n // mesh_dims[d] if parted_of(lvl)[d] else n
                 for d, n in enumerate(shapes[lvl])]
 
-    def add(lvl, h, times=1, only=None):
+    def add(lvl, h, times=1, only=None, axes=None):
         parted = parted_of(lvl)
         if only is not None:
             parted = [p and d == only for d, p in enumerate(parted)]
+        if axes is not None:
+            parted = [p and d in axes for d, p in enumerate(parted)]
         ex, nb, wr = _extend(block_of(lvl), parted, neighbours, h,
                              itemsize, per)
         out["exchanges"] += ex * times
@@ -128,12 +144,38 @@ def predict(shapes, specs, mesh_dims, itemsize=4, pre=1, post=1,
             out["gathers"] += 1
             out["line_gathers"] += 1
 
+    def plane_sweep(lvl, orient):
+        from cedar_tpu_torch.solver.solver2 import compute_num_levels
+
+        p = _PLANE_AXIS[orient]
+        # a 27-point level (every coarse level; the fine one where its
+        # sweep has 8 colours) takes the halo on every partitioned axis
+        full = lvl > 0 or fine_colours == 8
+        shape, parted = shapes[lvl], parted_of(lvl)
+        n1, n2 = (shape[d] for d in range(3) if d != p)
+        for c in (0, 1):
+            if shape[p] <= c:
+                continue
+            add(lvl, 1, axes=[d for d in range(3) if d == p or full])
+            if block_of(lvl)[p] <= c:      # the corner's planes [0, block)
+                continue
+            n = sum(1 for d in range(3) if d != p and parted[d])
+            out["gathers"] += n
+            out["plane_gathers"] += n
+            out["k10"] += 2 * (compute_num_levels(n1, n2, 3) - 1)
+
     from cedar_tpu_torch.perf import _halo_bytes
 
-    axes = _AXES[relax]
+    axes = _AXES.get(relax, ())
+    orients = _ORIENTS.get(relax, ())
     for lvl in range(L - 1):
         colours = fine_colours if lvl == 0 else coarse_colours
-        if axes:
+        if orients:
+            for _ in range(pre):
+                for orient in orients:
+                    plane_sweep(lvl, orient)
+            add(lvl, 1)                    # the residual
+        elif axes:
             for axis in axes:
                 line_b(lvl, axis)
             for _ in range(pre):
@@ -153,7 +195,13 @@ def predict(shapes, specs, mesh_dims, itemsize=4, pre=1, post=1,
         out["exchanges"] += ex
         out["exchange_bytes"] += nb
         out["wrap_exchanges"] += wr
-        if axes:
+        if orients:
+            for _ in range(post):
+                for orient in reversed(orients):
+                    plane_sweep(lvl, orient)
+            if lvl == 0:
+                add(lvl, 1)                # the convergence residual
+        elif axes:
             for _ in range(post):
                 for axis in reversed(axes):
                     line_sweep(lvl, axis)
@@ -180,7 +228,8 @@ def main(argv=None) -> None:
     p.add_argument("--kind", type=int, default=5,
                    help="the fine stencil: 5, 9, 7 or 27 points")
     p.add_argument("--min-local", type=int, default=8)
-    p.add_argument("--relax", default="point", choices=list(_AXES))
+    p.add_argument("--relax", default="point",
+                   choices=list(_AXES) + list(_ORIENTS))
     p.add_argument("--ml", action="store_true",
                    help="solver.ml-relax.enabled: no SPIKE")
     p.add_argument("--periodic", type=int, nargs="+", default=[],

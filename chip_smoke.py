@@ -8,9 +8,9 @@ card, the 2D and 3D periodic solves, the inner multigrid coarse solve
 ``solver.ml-relax.enabled`` (K4 and K10 at the full PCR stride), the
 handle API (``capi``), the examples and ``profile_trace``, and the
 distributed solvers (``DistSolver2``, ``DistSolver3`` over
-``torch.distributed``: point and line relaxation, the distributed SPIKE
-line solve, periodic axes) in worlds of processes sharing the card, and
-``kernels.backend: xla`` (the plain versions on the card).
+``torch.distributed``: point, line and plane relaxation, the distributed
+SPIKE line solve, periodic axes) in worlds of processes sharing the card,
+and ``kernels.backend: xla`` (the plain versions on the card).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -94,7 +94,11 @@ Phases (each raises on failure; nothing is caught):
    and UP, with and without the residual, bit-equal; K4 on the
    distributed line paths' shapes (DIST_LINE_SHAPES: gathered windows,
    cyclic lines on one, SPIKE interiors) and K1 and K6 with a replicated
-   periodic axis beside an origin, bit-equal;
+   periodic axis beside an origin, bit-equal; K10, the batched K1, K4
+   and K5, and K2/K3 at the batches of a rank's plane cycles
+   (``dist_plane_shapes``: 32 planes of 128² down to 4 of 8² float32, 16
+   of 64² down to 4 of 8² float64) and odd batches (DIST_PLANE_ODD),
+   5- and 9-point, bit-equal;
 4. Cedar's 400² float64 residual history through the kernels (the fused
    cycle, the card's default); a 400² float64 V(2,2) solve, fused on the
    card against dense on the CPU;
@@ -151,6 +155,11 @@ Phases (each raises on failure; nothing is caught):
 4l. ``kernels.backend: xla``: the 4096² float32 V(1,1) solve through the
    graph bit for bit the kernels' dense cycle, no kernel of the table in
    a captured cycle, the two graphs' ms in alternating pairs;
+4m. distributed plane relaxation, float64 (the (2, 2, 2) world's
+   DIST_PLANE_RUNS "f64_*"): 64³ ``diag_diffusion3(1, 1, 1e-3)``
+   plane-xy and plane-xyz to tol 1e-9, x bit for bit the serial solve on
+   the card; every rank's colour hierarchies and their batched coarse
+   solve bit for bit the serial ones cut to its planes;
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -198,8 +207,8 @@ Phases (each raises on failure; nothing is caught):
    (2, 2, 2), a solve of four cycles, x bit for bit the serial dense
    solve's, then one counted cycle (its exchanges, bytes sent, gathers,
    reductions, host-staged bytes, K1 and K6 launches on rank 0) and ms a
-   cycle over 10 eager cycles on every rank: N processes sharing one card
-   over gloo, not a multi-GPU figure;
+   cycle over DIST_CYCLES eager cycles on every rank: N processes sharing
+   one card over gloo, not a multi-GPU figure;
 5j. the line and periodic paths at full width (run in phase 4j's
    worlds): ``2d_fe_9pt_linexy_2048`` float32 V(1,1) on (2, 2) with
    ml-relax (the gather, x bit for bit the serial solve) and by default
@@ -208,6 +217,13 @@ Phases (each raises on failure; nothing is caught):
    on (2, 2, 2) (x bit for bit), each with one counted cycle beside
    tools/dist_comm.py's prediction, the line paths with ms a cycle and
    ms a level-0 sweep by path;
+5k. distributed plane relaxation at full width (run in phase 4j's
+   (2, 2, 2) world): ``3d_aniso_planexy_128`` float32 V(1,1), x bit for
+   bit the serial solve, rank 0's counted cycle equal to
+   tools/dist_comm.py's model (exchanges, bytes, gathers, plane gathers,
+   reductions, K10's 120 launches), the ranks' colour hierarchies
+   checked as in 4m, ms a cycle over DIST_CYCLES eager cycles and
+   ms a level-0 xy sweep (host figures);
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
@@ -237,7 +253,8 @@ Phases (each raises on failure; nothing is caught):
    distributed paths' full-size shards ((2064, 2064) 5-point and 144³
    7-point float32) at origin -H; K4 on the gathered x-line window of
    ``2d_fe_9pt_linexy_2048`` on (2, 2) and on its level-0 SPIKE
-   interior.
+   interior; K10, the batched K1, K4, K5 and K2/K3 at a rank's level-0
+   plane batch of ``3d_aniso_planexy_128`` on (2, 2, 2), (32, 128²).
 
 Every solve of phases 4-5f runs as the solvers run it on the card, one
 replay of a captured CUDA graph a cycle, and is held bit for bit to the
@@ -4748,7 +4765,7 @@ CEDAR_CONF2 = {"log": [], "solver": {
     "num-levels": 7, "cycle": {"nrelax-pre": 1, "nrelax-post": 1},
     "tol": 1e-10, "max-iter": 10}}
 CEDAR_CONF3 = {"log": [], "solver": {"tol": 1e-9, "max-iter": 30}}
-DIST_CYCLES = 10
+DIST_CYCLES = 5
 V11 = {"nrelax-pre": 1, "nrelax-post": 1}
 LINEXY = {"relaxation": "line-xy", "cycle": V11, "tol": 1e-30,
           "max-iter": 4}
@@ -4965,6 +4982,8 @@ def dist_world3(rank: int) -> dict:
     b = periodic_rhs3(conf, (n, n, n), dtype, DEV)
     _, _, out["per_x3"] = _dist_run(rank, DistSolver3, cycle3, so, kind,
                                     conf, b, mesh, True, timed)
+    del so, b
+    dist_world3_planes(rank, mesh, out)
     return out
 
 
@@ -5056,6 +5075,11 @@ def phase_dist_gates() -> dict:
     refs["per_x3"] = (s.solve(periodic_rhs3(conf, (n, n, n), dtype, DEV)),
                       s.history)
     del s
+    for key, (make, kind, conf, n, dtype, _) in DIST_PLANE_RUNS.items():
+        s = _serial(Solver3, make(n, n, n, dtype, DEV), kind, conf)
+        refs[key] = (s.solve(gallery.poisson3_rhs(n, n, n, dtype, DEV)),
+                     s.history)
+        del s
     torch.cuda.empty_cache()
 
     w2 = _world(dist_world2, 4)
@@ -5435,6 +5459,347 @@ def phase_times_dist_lines() -> None:
               f"{plain_ms:.4f} ms, bound {bms:.4f} ms ({by})", flush=True)
 
 
+# -- plane relaxation under a mesh (phases 3, 4m, 5k, 6): DistSolver3 with
+# plane-xy and plane-xyz, each rank's planes gathered whole in-plane and
+# relaxed by the batched plane cycles (K10, K1/K4/K5 batched, K2/K3)
+
+# the (2, 2, 2) world's plane runs: key -> (operator, kind, conf, n,
+# dtype, whether a cycle is counted and timed); "f64_*": phase 4m's gates,
+# "planes_128": phase 5k's 3d_aniso_planexy_128 cell
+DIST_PLANE_RUNS = {
+    "f64_pxy": (aniso3, SevenPt, {"log": [], "solver": {
+        "relaxation": "plane-xy", "tol": 1e-9, "max-iter": 10}}, 64,
+        torch.float64, False),
+    "f64_pxyz": (aniso3, SevenPt, {"log": [], "solver": {
+        "relaxation": "plane-xyz", "tol": 1e-9, "max-iter": 10}}, 64,
+        torch.float64, False),
+    "planes_128": (aniso3, SevenPt, {"log": [], "solver": {
+        "relaxation": "plane-xy", "cycle": V11, "tol": 1e-30,
+        "max-iter": 4}}, N_PLANES, torch.float32, True),
+}
+# the batched kernels' odd batches (odd blocks along the plane axis give
+# an odd count of a colour's planes)
+DIST_PLANE_ODD = [((5, 20, 20), torch.float64), ((3, 40, 40), torch.float32),
+                  ((9, 10, 10), torch.float32)]
+
+
+def dist_plane_shapes(n: int, dtype) -> list:
+    """The ``(B, n1, n2)`` batches of a rank's plane cycles of plane-xy on
+    an ``n``³ grid on (2, 2, 2) (rank 0: each level's block along z, its
+    planes of a colour, at every plane level but the coarsest), in
+    ``dtype``: 32 planes of 128² down to 4 of 8² at 128³."""
+    from cedar_tpu_torch.parallel.policy import level_specs
+    from cedar_tpu_torch.solver import solver2, solver3
+
+    shapes3 = solver3.level_shapes(n, n, n, solver3.compute_num_levels(
+        n, n, n, 3))
+    specs = level_specs(shapes3, (2, 2, 2), 8)
+    out = []
+    for (nx, ny, nz), spec in zip(shapes3[:-1], specs):
+        nb = (nz // 2 if spec[2] is not None else nz) // 2
+        levels2 = solver2.level_shapes(nx, ny, solver2.compute_num_levels(
+            nx, ny, 3))
+        out += [((nb, *s), dtype) for s in levels2[:-1]]
+    return list(dict.fromkeys(out))
+
+
+def compare_batched(shape, dtype, seed: int, errs: dict) -> int:
+    """K10 (DOWN and UP, 2 sweeps, with and without the residual), the
+    batched K1 (its plan's regime), K4 (x and y, DOWN and UP), K5, K2 and
+    K3 on one batch of planes, 5- and 9-point, each bit-equal to its plain
+    version; returns the number of comparisons."""
+    n = 0
+    tag = f"{shape} {str(dtype).replace('torch.', '')} rank batch"
+    for nine in (False, True):
+        so, q, b, kind = random_problem(shape, nine, dtype, seed + nine)
+        pts = "9pt" if nine else "5pt"
+        for updown in ("down", "up"):
+            for res in (False, True):
+                got = cuda_planes2.smooth(so, q.clone(), b, kind, updown, 2,
+                                          res)
+                want = cuda_planes2.smooth_plain(so, q.clone(), b, kind,
+                                                 updown, 2, res)
+                what = f"K10 line_xy2 {pts} {updown} x2 res={int(res)} {tag}"
+                got, want = ((got, want) if res else ((got,), (want,)))
+                errs["line_xy2"] = max(errs["line_xy2"], *(
+                    compare(what, g, w, exact=True)
+                    for g, w in zip(got, want)))
+                n += len(got)
+            for axis in ("x", "y"):
+                kernel = (cuda_lines2.line_x if axis == "x"
+                          else cuda_lines2.line_y)
+                plain = (cuda_lines2.line_x_plain if axis == "x"
+                         else cuda_lines2.line_y_plain)
+                errs["line2_batched"] = max(errs["line2_batched"], compare(
+                    f"K4 line2 batched {axis} {pts} {updown} {tag}",
+                    kernel(so, q.clone(), b, kind, updown),
+                    plain(so, q.clone(), b, kind, updown), exact=True))
+                n += 1
+        _, e = compare_sweep(so, q, b, kind, pts, tag, p=cuda2.plan(
+            q.element_size(), nine, shape[1:]))
+        errs["sweep2_batched"] = max(errs["sweep2_batched"], e)
+        n += 12
+        ci = interp2.setup_interp(so, kind)
+        g = torch.Generator(device=DEV).manual_seed(seed + 7)
+        qc = torch.randn((shape[0], ci.shape[-2] - 1, ci.shape[-1] - 1),
+                         generator=g, device=DEV, dtype=dtype)
+        errs["interp2_batched"] = max(errs["interp2_batched"], compare(
+            f"K5 interp2 batched {pts} {tag}",
+            cuda_transfer2.interp(ci, qc, shape),
+            cuda_transfer2.interp_plain(ci, qc, shape), exact=True))
+        errs["restrict2"] = max(errs["restrict2"], compare(
+            f"K2 restrict2 batched {pts} {tag}",
+            cuda_transfer2.restrict(ci, b),
+            cuda_transfer2.restrict_plain(ci, b), exact=True))
+        errs["interp_add2"] = max(errs["interp_add2"], compare(
+            f"K3 interp_add2 batched {pts} {tag}",
+            cuda_transfer2.interp_add(ci, so, qc, b, q.clone()),
+            cuda_transfer2.interp_add_plain(ci, so, qc, b, q.clone()),
+            exact=True))
+        n += 3
+        del so, q, b, ci, qc
+    return n
+
+
+def phase_kernels_dist_planes(errs: dict) -> dict:
+    """K10, the batched K1, K4 and K5, and K2/K3 at the batches of a
+    rank's plane cycles (:func:`dist_plane_shapes`: ``3d_aniso_planexy_
+    128`` float32 and the 64³ gates float64 on (2, 2, 2)) and at odd
+    batches (:data:`DIST_PLANE_ODD`), bit-equal to their plain versions."""
+    print("[3] K10, batched K1/K4/K5, K2/K3 at the ranks' plane batches",
+          flush=True)
+    for k in ("line_xy2", *BATCHED_OF):
+        errs.setdefault(k, 0.0)
+    shapes = (dist_plane_shapes(N_PLANES, torch.float32)
+              + dist_plane_shapes(64, torch.float64) + DIST_PLANE_ODD)
+    n = sum(compare_batched(shape, dtype, 2500 + 10 * i, errs)
+            for i, (shape, dtype) in enumerate(shapes))
+    print(f"  {n} comparisons at {len(shapes)} batches, all bit-equal",
+          flush=True)
+    return errs
+
+
+def _same_hier(a, b) -> bool:
+    """Two batched 2D hierarchies (None for no plane) equal field by
+    field."""
+    if a is None or b is None:
+        return a is None and b is None
+    if len(a) != len(b):
+        return False
+    for la, lb in zip(a, b):
+        for k in ("so", "recip", "ci", "sor_x", "sor_y", "ainv"):
+            fa, fb = getattr(la, k), getattr(lb, k)
+            if (fa is None) != (fb is None) or (
+                    fa is not None and not torch.equal(fa, fb)):
+                return False
+        if not _same_hier(la.inner, lb.inner):
+            return False
+    return True
+
+
+def _plane_setup_check(s, so, kind, conf) -> dict:
+    """This rank's colour hierarchies against the serial solver's on the
+    card cut to its planes, field by field, and their batched coarse
+    solve (the last plane level's ``ainv``) against the serial one at the
+    serial batch, on a random rhs."""
+    from cedar_tpu_torch.ops import cg, planes3
+    from cedar_tpu_torch.parallel import planes
+
+    ser = _serial(Solver3, so, kind, conf)
+    equal, err, n = True, 0.0, 0
+    for (lvl, orient), ws in s.dist.planes.items():
+        lay = s.layouts[lvl]
+        p = planes3.PLANE_SPECS[orient][0]
+        glob = ser.levels[lvl].planes[orient]
+        want = planes.cut_colours(glob, lay.lo[p], lay.hi[p])
+        for c, (hr, hw, hs) in enumerate(zip(ws.colours, want, glob)):
+            equal &= _same_hier(hr, hw)
+            n += 1
+            if hr is None:
+                continue
+            g = torch.Generator(device=DEV).manual_seed(lvl)
+            cb = torch.randn((hs[-1].ainv.shape[0], *hs[-1].so.shape[-2:]),
+                             generator=g, device=DEV, dtype=so.dtype)
+            first = (lay.lo[p] + planes3.colour_start(c, lay.lo[p]) - c) // 2
+            nb = hr[-1].ainv.shape[0]
+            got = cg.solve_cg(hr[-1].ainv,
+                              cb[first:first + nb].contiguous())
+            err = max(err, float((got - cg.solve_cg(hs[-1].ainv, cb)[
+                first:first + nb]).abs().max()))
+    del ser
+    return {"equal": bool(equal), "coarse_err": err, "hierarchies": n}
+
+
+def _plane_sweep_ms(s, bb, xb, reps: int = 5) -> float:
+    """ms of one level-0 xy plane sweep (both colours) of a distributed
+    solver, the ranks started together."""
+    import torch.distributed as tdist
+
+    torch.cuda.synchronize()
+    tdist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        s.dist.plane_relax(0, s.kinds[0], xb, bb, "xy", "down", s.settings)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def dist_world3_planes(rank: int, mesh, out: dict) -> None:
+    """The plane runs of the (2, 2, 2) world (:data:`DIST_PLANE_RUNS`):
+    each solve with its launches and communication; the setup check
+    (:func:`_plane_setup_check`) of the plane-xy gate and the cell; the
+    cell's counted cycle, ms a cycle and ms a level-0 sweep."""
+    for key, (make, kind, conf, n, dtype, full) in DIST_PLANE_RUNS.items():
+        so = make(n, n, n, dtype, DEV)
+        b = gallery.poisson3_rhs(n, n, n, dtype, DEV)
+        s, x, r = _dist_run(rank, DistSolver3, cycle3, so, kind, conf, b,
+                            mesh, full, False)
+        if full:
+            bb, xb = s._block(b), s._block(x)
+            r["cycle_ms"] = _dist_ms(s, cycle3, bb, xb)
+            r["sweep_ms"] = _plane_sweep_ms(s, bb, xb)
+        if key != "f64_pxyz":
+            r["setup_check"] = _plane_setup_check(s, so, kind, conf)
+        out[key] = r
+        del s, x, so, b
+        torch.cuda.empty_cache()
+
+
+def _require_plane_setup(name: str, res: list, key: str) -> None:
+    for r, w in enumerate(res):
+        sc = w[key]["setup_check"]
+        if not sc["equal"] or sc["coarse_err"] != 0.0:
+            raise AssertionError(f"{name}: rank {r}'s colour hierarchies or "
+                                 f"coarse solve differ from the serial "
+                                 f"ones cut to its planes ({sc})")
+    print(f"  {name}: every rank's colour hierarchies ("
+          f"{res[0][key]['setup_check']['hierarchies']} on rank 0) and "
+          "their batched coarse solve bit for bit the serial ones cut to "
+          "its planes", flush=True)
+
+
+def phase_dist_planes_gates(worlds: dict) -> None:
+    """4m: float64 gates of the (2, 2, 2) world (run in phase 4j): 64³
+    ``diag_diffusion3(1, 1, 1e-3)`` plane-xy and plane-xyz to tol 1e-9, x
+    bit for bit the serial solve on the card, the ranks' colour
+    hierarchies and coarse solves bit for bit the serial ones."""
+    print("[4m] distributed plane relaxation f64 gates (64^3 on (2,2,2))",
+          flush=True)
+    w3, refs = worlds["w3"], worlds["refs"]
+    for key in ("f64_pxy", "f64_pxyz"):
+        f = w3[0][key]
+        _check_dist(key, f, *refs[key])
+        for r, w in enumerate(w3):
+            if not (w[key]["finite"]
+                    and w[key]["shape"] == tuple(refs[key][0].shape)):
+                raise AssertionError(f"{key}: rank {r} result")
+        print(f"  {key}: x bit for bit the serial solve, "
+              f"{len(f['history'])} cycles, history "
+              f"{' '.join(f'{h:.4g}' for h in f['history'])}; setup "
+              f"{f['setup_s']:.2f} s, solve {f['solve_s']:.2f} s",
+              flush=True)
+        if f["history"][-1] >= 1e-9:
+            raise AssertionError(f"{key}: did not converge")
+        require_launched(f["solve_counts"], ("line_xy2", "restrict2",
+                                             "interp_add2"), key)
+    _require_plane_setup("f64_pxy", w3, "f64_pxy")
+
+
+def phase_dist_planes_full(worlds: dict) -> dict:
+    """5k: ``3d_aniso_planexy_128`` float32 V(1,1) on the (2, 2, 2) world
+    (run in phase 4j): x bit for bit the serial solve on the card, the
+    counted cycle of rank 0 equal to tools/dist_comm.py's model (the
+    exchanges, bytes, gathers, plane gathers, reductions and K10
+    launches), ms a cycle and a level-0 sweep (host figures: 8 processes
+    share the card over gloo).  Returns K10's launches in the cycle."""
+    print("[5k] distributed plane relaxation at full width: 8 processes "
+          "sharing ONE card over gloo (host-staged), not a multi-GPU "
+          "figure", flush=True)
+    res, key = worlds["w3"], "planes_128"
+    make, kind, conf, n, dtype, _ = DIST_PLANE_RUNS[key]
+    f = _report_dist(f"3d_aniso_planexy_128 {n}^3 (2,2,2)", res, key,
+                     worlds["refs"][key], n, 3, conf, kind)
+    _require_plane_setup(key, res, key)
+    cm, cc = f["cycle_comm"], f["cycle_counts"]
+    model = _model(f, n, 3, conf, kind, 4)
+    for k in ("exchanges", "exchange_bytes", "gathers", "plane_gathers",
+              "reductions"):
+        if cm[k] != model[k]:
+            raise AssertionError(f"{key}: {k} {cm[k]}, model {model[k]}")
+    if cc["line_xy2"] != model["k10"]:
+        raise AssertionError(f"{key}: K10 {cc['line_xy2']} a cycle, model "
+                             f"{model['k10']}")
+    print(f"  {key}: the counted cycle equals the model; K10 "
+          f"{cc['line_xy2']} launches a cycle on rank 0 (serial cycle: "
+          f"120), K2 {cc['restrict2']}, K3 {cc['interp_add2']}; ms a "
+          f"cycle ({DIST_CYCLES} eager cycles) "
+          + ", ".join(f"rank {r} {w[key]['cycle_ms']:.2f}"
+                      for r, w in enumerate(res))
+          + f"; ms a level-0 xy sweep, rank 0: {f['sweep_ms']:.2f}",
+          flush=True)
+    require_launched(cc, ("line_xy2", "restrict2", "interp_add2",
+                          "restrict3", "interp_add3"), key)
+    return {"line_xy2": cc["line_xy2"]}
+
+
+def phase_times_dist_planes() -> None:
+    """K10 (2 sweeps + the residual), the batched K1 (+ the residual), K4
+    (x), K5, K2 and K3 at a rank's level-0 batch of
+    ``3d_aniso_planexy_128`` on (2, 2, 2) (32 planes of 128², 5-point
+    float32), kernel against plain in turns, with their bounds
+    (printed)."""
+    nb, n = 32, N_PLANES
+    shape = (nb, n, n)
+    print(f"[6] the rank's plane batch {shape} float32 (plain, kernel, "
+          "kernel, plain)", flush=True)
+    so, q, b, kind = random_problem(shape, False, torch.float32, 2600)
+    ci = interp2.setup_interp(so, kind)
+    nc = ci.shape[-1] - 1
+    g = torch.Generator(device=DEV).manual_seed(2601)
+    qc = torch.randn((nb, nc, nc), generator=g, device=DEV,
+                     dtype=torch.float32)
+    N, Nc, W = nb * n * n, nb * nc * nc, 8 * nb * (nc + 1) ** 2
+    cases = {
+        "line_xy2 x2 +res": (
+            lambda: cuda_planes2.smooth_plain(so, q, b, kind, "down", 2,
+                                              True),
+            lambda: cuda_planes2.smooth(so, q, b, kind, "down", 2, True)),
+        "sweep2_batched +res": (
+            lambda: cuda2.sweep_plain(so, q, b, kind, "down", True),
+            lambda: cuda2.sweep(so, q, b, kind, "down", True)),
+        "line2_batched x": (
+            lambda: cuda_lines2.line_x_plain(so, q, b, kind, "down"),
+            lambda: cuda_lines2.line_x(so, q, b, kind, "down")),
+        "interp2_batched": (
+            lambda: cuda_transfer2.interp_plain(ci, qc, shape),
+            lambda: cuda_transfer2.interp(ci, qc, shape)),
+        "restrict2 batched": (
+            lambda: cuda_transfer2.restrict_plain(ci, b),
+            lambda: cuda_transfer2.restrict(ci, b)),
+        "interp_add2 batched": (
+            lambda: cuda_transfer2.interp_add_plain(ci, so, qc, b, q),
+            lambda: cuda_transfer2.interp_add(ci, so, qc, b, q)),
+    }
+    # bytes and operations as phase_times_planes and phase_times_batched
+    # count them (5-point: 3 stencil planes)
+    work = {
+        "line_xy2 x2 +res": (7 * N * 4,
+                             (2 * 2 * (4 + 12 * pcr_steps(n) + 8) + 10) * N),
+        "sweep2_batched +res": (7 * N * 4, 2 * 7 * N),
+        "line2_batched x": (6 * N * 4, (4 + 12 * pcr_steps(n) + 8) * N),
+        "interp2_batched": ((W + Nc + N) * 4, 4 * N),
+        "restrict2 batched": ((W + N + Nc) * 4, 16 * Nc),
+        "interp_add2 batched": ((W + Nc + 4 * N) * 4, 23 * N // 4),
+    }
+    out = time_turns(cases, slow=("line_xy2 x2 +res", "line2_batched x"))
+    for k, (nbytes, flops) in work.items():
+        bms, by = bound(nbytes, flops, torch.float32)
+        print(f"  {k} {shape}: bound {bms:.4f} ms by {by}; kernel "
+              f"{out[k][0]:.4f} ms (device {device_ms(cases[k][1]):.4f}), "
+              f"plain {out[k][1]:.4f} ms", flush=True)
+    del so, q, b, ci, qc
+
+
 def pcr_steps(n: int, full: bool = False) -> int:
     """PCR steps of the line solve of a line of ``n`` points (log2 h;
     ``full``: at the full stride)."""
@@ -5474,6 +5839,7 @@ def main() -> None:
     errs = timed(phase_kernels_fused3, errs)
     errs = timed(phase_kernels_dist, errs)
     errs = timed(phase_kernels_dist_lines, errs)
+    errs = timed(phase_kernels_dist_planes, errs)
     timed(phase_cedar_gate)
     timed(phase_fused_gate)
     timed(phase_f64_gates)
@@ -5487,6 +5853,7 @@ def main() -> None:
     timed(phase_graph_configs)
     worlds = timed(phase_dist_gates)
     timed(phase_dist_f64_gates, worlds)
+    timed(phase_dist_planes_gates, worlds)
     timed(phase_backend_xla)
     launches = timed(phase_main_path)
     launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
@@ -5500,6 +5867,7 @@ def main() -> None:
     launches.update(timed(phase_mlrelax_full))
     dist_full = timed(phase_dist_full, worlds)
     timed(phase_dist_lines_full, worlds)
+    timed(phase_dist_planes_full, worlds)
     launches["sweep2_dist"] = dist_full["sweep2_dist"]
     launches["sweep3_dist"] = dist_full["sweep3_dist"]
     # K5's and K9's periodic modes run in the periodic F-cycles (phases 4f
@@ -5511,6 +5879,7 @@ def main() -> None:
              | timed(phase_times_periodic3) | timed(phase_times_batched)
              | timed(phase_times_fullpcr) | timed(phase_times_dist))
     timed(phase_times_dist_lines)
+    timed(phase_times_dist_planes)
     timed(phase_times_levels)
     print(f"  (all phases: {time.perf_counter() - t0:.1f} s)", flush=True)
     table = []

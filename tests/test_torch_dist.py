@@ -14,8 +14,9 @@ which computes them while the world runs.
   store couplings across the boundary, at a level with an odd block (its
   restriction gathered onto a replicated level); a level's distributed
   setup (CI and the coarse stencil) equals the serial setup's blocks;
-* V-, W- and F-cycle solves, 5- and 9-point: x bit for bit with the
-  serial port's, the history to rtol 1e-12 with the same cycle count, and
+* V-, W- and F-cycle solves, 5- and 9-point (the F-cycle both), and the
+  128² ``cg-solver: redist`` solve: x bit for bit with the serial port's,
+  the history to rtol 1e-12 with the same cycle count, and
   x against cedar_tpu's serial Solver2 at the tolerances of its own
   tests/test_dist.py (96² < 1e-12 and the padded 65² < 1e-9, solved to
   tol 1e-9; meshes (4, 1), (1, 4), (2, 2) < 1e-11 and the manual path <
@@ -166,6 +167,7 @@ def _world(rank, ref):
     out["v9_64"] = _solve(mesh, fe64, NinePt, CONF4, b64, rank)
     fconf = {"log": [], "solver": {"cycle": {"type": "f"}, "max-iter": 3}}
     out["f5_64"] = _solve(mesh, p64, FivePt, fconf, b64, rank)
+    out["f9_64"] = _solve(mesh, fe64, NinePt, fconf, b64, rank)
     p65, b65 = gallery.poisson(65, 65, device="cpu"), \
         gallery.poisson_rhs(65, 65, device="cpu")
     out["pad65"] = _solve(mesh, p65, FivePt, CONF, b65, rank)
@@ -184,6 +186,14 @@ def _world(rank, ref):
     out["redist64"] = _solve(mesh, p64, FivePt, redist, b64, rank,
                              serial=False)
     out["lu64"] = _solve(mesh, p64, FivePt, lu, b64, rank, serial=False)
+    # redist at 128²: the inner hierarchy (32² .. 4²) on the replicated
+    # 32² coarsest level, against the serial port's (redist there is the
+    # same inner solve)
+    out["redist128"] = _solve(
+        mesh, gallery.poisson(128, 128, device="cpu"), FivePt,
+        {"log": [], "solver": {"tol": 1e-10, "max-iter": 30,
+                               "num-levels": 3, "cg-solver": "redist"}},
+        gallery.poisson_rhs(128, 128, device="cpu"), rank)
     for shape in ((4, 1), (1, 4)):
         m = make_mesh(2, shape=shape, device="cpu")
         out[f"mesh{shape}"] = _solve(m, p64, FivePt, CONF4, b64, rank)
@@ -299,9 +309,9 @@ def test_ops_bit_for_bit(world):
     assert specs == [("x", "y"), ("x", "y"), (None, None)]
 
 
-@pytest.mark.parametrize("key", ["v5_96", "v9_64", "f5_64",
+@pytest.mark.parametrize("key", ["v5_96", "v9_64", "f5_64", "f9_64",
                                  "pad65", "eager64", "lazy64", "manual64",
-                                 "mesh(4, 1)", "mesh(1, 4)"])
+                                 "redist128", "mesh(4, 1)", "mesh(1, 4)"])
 def test_solves_equal_serial_port(world, key):
     r = world[0][0][key]
     assert torch.equal(r["x"], r["x_ser"])

@@ -4,10 +4,9 @@ partition policy (coarsen, manual, astar) against cedar_tpu's
 ``level_specs`` on virtual JAX meshes of the same shapes (nothing is
 compiled), the performance model (native and Python, under equal
 explicit machine parameters) against cedar_tpu's, the inert padding
-against cedar_tpu's on numpy, the refusals of plane relaxation that name
-ROADMAP queue 1 item 9 (raised before the mesh is used), and the
-configurations refused until line relaxation and periodic axes were
-ported, solved in a world of one process."""
+against cedar_tpu's on numpy, and the configurations refused until line
+relaxation, periodic axes and plane relaxation were ported, solved in a
+world of one process."""
 
 import numpy as np
 import pytest
@@ -167,8 +166,9 @@ def test_pad_operator_periodic_matches_cedar_tpu(dims, mesh, periodic):
 
 
 # the configurations that DistSolver2 and DistSolver3 refused until line
-# relaxation and periodic axes were ported (test_dist2_refusals_name_item9's
-# three cases and test_dist3_refusals_name_item9's periodic one): each
+# relaxation, periodic axes and plane relaxation were ported
+# (test_dist2_refusals_name_item9's three cases and
+# test_dist3_refusals_name_item9's periodic one and two plane ones): each
 # solves in a world of one (mesh (1, 1)[, 1]), x bit for bit the serial
 # port's
 FORMERLY_REFUSED = {
@@ -178,6 +178,8 @@ FORMERLY_REFUSED = {
     "periodic-2d": (2, "poisson", {"grid": {"periodic": [True, False]}}),
     "periodic-3d": (3, "poisson3", {"grid": {"periodic": [False, False,
                                                           True]}}),
+    "plane-xy": (3, "poisson3", {"solver": {"relaxation": "plane-xy"}}),
+    "plane-xyz": (3, "poisson3", {"solver": {"relaxation": "plane-xyz"}}),
 }
 
 
@@ -217,15 +219,6 @@ def test_formerly_refused_configurations_solve(world_of_one, key):
     assert hist[-1] < 1e-9
     assert torch.equal(x, x_ser)
     assert len(hist) == len(hist_ser)
-
-
-@pytest.mark.parametrize("conf,names", [
-    ({"solver": {"relaxation": "plane-xy"}}, "plane relaxation"),
-    ({"solver": {"relaxation": "plane-xyz"}}, "plane relaxation"),
-])
-def test_dist3_refusals_name_item9(conf, names):
-    with pytest.raises(NotImplementedError, match=f"{names}.*item 9"):
-        DistSolver3(gallery.poisson3(8, 8, 8, device="cpu"), SevenPt, conf)
 
 
 def test_make_mesh_needs_a_process_group():
