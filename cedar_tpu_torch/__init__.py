@@ -1,8 +1,8 @@
 """cedar_tpu_torch — BoxMG multigrid in PyTorch with CUDA kernels for Hopper.
 
 A port of :mod:`cedar_tpu` (JAX and Pallas on a TPU) to PyTorch on an
-NVIDIA H100: everything cedar_tpu does on serial grids, and its
-distributed point-relaxation path.  This package holds Cedar-compatible
+NVIDIA H100: everything cedar_tpu does, on serial grids and under a
+process mesh.  This package holds Cedar-compatible
 config and settings, the 2D and 3D galleries, BoxMG setup
 (operator-induced interpolation, Galerkin coarsening, the dense coarse
 inverse), and the 2D and 3D solves: point, zebra line
@@ -18,12 +18,16 @@ sweeps, line and plane smooths, restriction and interpolation run
 hand-written CUDA C++ kernels (``csrc/``, built at first use); on CPU
 tensors they run plain torch versions of the same functions.
 
-:mod:`cedar_tpu_torch.parallel` distributes the point-relaxation solve
-over ``torch.distributed`` (``DistSolver2``, ``DistSolver3`` on a
+:mod:`cedar_tpu_torch.parallel` distributes the solve over
+``torch.distributed`` (``DistSolver2``, ``DistSolver3`` on a
 ``make_mesh`` process mesh: per-level agglomeration by the coarsen,
-manual or A* policy, inert padding, K1 and K6 on halo-extended shards,
-the LU, ``cedar`` or ``redist`` coarse solve replicated).  Line and plane
-relaxation and periodic axes under a mesh are not ported yet.
+manual or A* policy, inert padding, point relaxation by K1 and K6 on
+halo-extended shards, line relaxation by the gather of whole lines or the
+distributed SPIKE solve, plane relaxation on each rank's planes gathered
+whole, periodic axes, the LU, ``cedar`` or ``redist`` coarse solve
+replicated), each solve on the card a replay of a recorded iteration a
+cycle: one CUDA graph under NCCL, captured segments between the calls
+staged through the host under gloo.
 
 It imports neither JAX nor :mod:`cedar_tpu`.
 """

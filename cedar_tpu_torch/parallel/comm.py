@@ -22,6 +22,15 @@ has no collectives for them) each message is copied to the host and back
 here, openly: ``staged_bytes`` counts those copies.  Nothing here switches
 backend or device by itself.
 
+Every call reaches ``torch.distributed`` through :func:`run`, the one
+choke point: it gets the call's inputs, the tensors it writes (allocated
+before, so that a replay writes the same memory) and whether a CUDA-graph
+capture may hold it (:func:`capturable`, the table :data:`CAPTURABLE`).
+Inside :func:`recording` it hands the call to a recorder
+(:class:`cedar_tpu_torch.solver.graph.RecordedIteration`), which cuts its
+capture at each call that a capture may not hold and runs that call
+between the replays of the segments.
+
 Counters (module attributes, reset by :func:`reset`): ``exchanges`` (one
 ``batch_isend_irecv`` call), ``exchange_bytes`` (bytes this rank sent in
 them), ``wrap_exchanges`` (the exchanges along a periodic axis, which
@@ -31,10 +40,14 @@ carry the wrap at the ends of the ring), ``gathers`` and ``gather_bytes``
 ``"line"``, the whole lines of a line sweep, ``"spike"``, the interface
 rows of a distributed SPIKE colour, and ``"plane"``, the whole planes of
 a plane sweep's colour or of its setup), ``reductions``,
-``staged_bytes``.
+``staged_bytes``.  They count a call where it runs eagerly or is recorded
+(captured, or cut around), never at a replay of a recorded iteration: a
+cycle's counts are those of its capture.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.distributed as dist
@@ -49,6 +62,20 @@ spike_gathers = 0
 plane_gathers = 0
 reductions = 0
 staged_bytes = 0
+
+# Whether a CUDA-graph capture may hold a call, by the group's backend and
+# the kind of call ("exchange": batch_isend_irecv, "all_gather",
+# "all_reduce").  gloo runs its calls on the host (CUDA tensors staged
+# through it), outside any stream: none.  NCCL enqueues its kernels on a
+# stream, which torch's ProcessGroupNCCL lets a capture record: all (its
+# communicators created before, by an eager iteration).  Decided from the
+# backend before anything runs; another backend is refused.
+CAPTURABLE = {
+    "gloo": {"exchange": False, "all_gather": False, "all_reduce": False},
+    "nccl": {"exchange": True, "all_gather": True, "all_reduce": True},
+}
+
+_recorder = None
 
 
 def reset() -> None:
@@ -69,30 +96,49 @@ def counts() -> dict:
             "staged_bytes": staged_bytes}
 
 
+def capturable(mesh, kind: str) -> bool:
+    """Whether a capture may hold a call of ``kind`` on ``mesh``'s group
+    (:data:`CAPTURABLE`)."""
+    try:
+        return CAPTURABLE[mesh.backend][kind]
+    except KeyError:
+        raise NotImplementedError(
+            f"cedar_tpu_torch: no capture rule for a {kind} call over "
+            f"{mesh.backend!r}") from None
+
+
+@contextlib.contextmanager
+def recording(recorder):
+    """Calls made inside go to ``recorder.call(fn, inputs, outputs,
+    capturable)`` instead of running."""
+    global _recorder
+    prev, _recorder = _recorder, recorder
+    try:
+        yield
+    finally:
+        _recorder = prev
+
+
+def run(fn, inputs: list, outputs: list, capturable: bool) -> None:
+    """The one place a call reaches ``torch.distributed``:
+    ``fn(inputs, outputs)`` reads the tensors ``inputs`` and writes the
+    result into the tensors ``outputs``, in place; ``capturable`` says
+    whether a capture may hold it.  Inside :func:`recording` the recorder
+    takes it (and may run ``fn`` again at each replay, on the same
+    tensors)."""
+    if _recorder is not None:
+        _recorder.call(fn, inputs, outputs, capturable)
+    else:
+        fn(inputs, outputs)
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
-def _to_host(t: torch.Tensor, mesh) -> torch.Tensor:
-    """``t`` where the backend takes it: a host copy under staging."""
-    global staged_bytes
-    if not mesh.staged:
-        return t.contiguous()
-    staged_bytes += _nbytes(t)
-    return t.to("cpu")
-
-
-def _from_host(t: torch.Tensor, mesh) -> torch.Tensor:
-    global staged_bytes
-    if not mesh.staged:
-        return t
-    staged_bytes += _nbytes(t)
-    return t.to(mesh.device)
-
-
-def _empty_like(t: torch.Tensor, mesh) -> torch.Tensor:
-    return torch.empty(t.shape, dtype=t.dtype,
-                       device="cpu" if mesh.staged else t.device)
+def _host(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous host copy of ``t``."""
+    return torch.empty(t.shape, dtype=t.dtype, device="cpu").copy_(t)
 
 
 def _sendrecv(to_prev, to_next, prev, nxt, mesh, wrap=False):
@@ -104,24 +150,39 @@ def _sendrecv(to_prev, to_next, prev, nxt, mesh, wrap=False):
     a ring of two ranks ``prev`` and ``nxt`` are one rank: so every rank
     posts its send to ``nxt`` before its send to ``prev``, and its receive
     from ``prev`` before its receive from ``nxt``."""
-    global exchanges, exchange_bytes, wrap_exchanges
-    sends, recvs, got = [], [], {}
-    for peer, send in ((nxt, to_next), (prev, to_prev)):
-        if peer is not None:
-            s = _to_host(send, mesh)
-            sends.append(dist.P2POp(dist.isend, s, peer, mesh.group))
-            exchange_bytes += _nbytes(s)
-    for key, peer, like in (("prev", prev, to_next), ("next", nxt, to_prev)):
-        if peer is not None:
-            got[key] = _empty_like(like, mesh)
-            recvs.append(dist.P2POp(dist.irecv, got[key], peer, mesh.group))
+    global exchanges, exchange_bytes, wrap_exchanges, staged_bytes
+    sends = [(peer, t) for peer, t in ((nxt, to_next), (prev, to_prev))
+             if peer is not None]
+    recvs = [(key, peer, like) for key, peer, like in (
+        ("prev", prev, to_next), ("next", nxt, to_prev)) if peer is not None]
+    got = {key: torch.empty(like.shape, dtype=like.dtype, device=like.device)
+           for key, _, like in recvs}
     if sends or recvs:
+        staged = mesh.staged
+        sent = sum(_nbytes(t) for _, t in sends)
         exchanges += 1
         wrap_exchanges += bool(wrap)
-        for req in dist.batch_isend_irecv(sends + recvs):
-            req.wait()
-    return tuple(_from_host(got[key], mesh) if key in got
-                 else torch.zeros_like(like)
+        exchange_bytes += sent
+        if staged:
+            staged_bytes += sent + sum(_nbytes(t) for t in got.values())
+
+        def fn(ins, outs):
+            bufs = [_host(o) if staged else o for o in outs]
+            ops = [dist.P2POp(dist.isend,
+                              _host(t) if staged else t.contiguous(), peer,
+                              mesh.group)
+                   for (peer, _), t in zip(sends, ins)]
+            ops += [dist.P2POp(dist.irecv, buf, peer, mesh.group)
+                    for (_, peer, _), buf in zip(recvs, bufs)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            if staged:
+                for o, buf in zip(outs, bufs):
+                    o.copy_(buf)
+
+        run(fn, [t for _, t in sends], [got[key] for key, _, _ in recvs],
+            capturable(mesh, "exchange"))
+    return tuple(got[key] if key in got else torch.zeros_like(like)
                  for key, like in (("prev", to_next), ("next", to_prev)))
 
 
@@ -181,6 +242,7 @@ def all_gather_axis(a: torch.Tensor, dim: int, name: str, mesh, sizes,
     ("line", "spike" or "plane") counts it in ``line_gathers``,
     ``spike_gathers`` or ``plane_gathers`` too."""
     global gathers, gather_bytes, line_gathers, spike_gathers, plane_gathers
+    global staged_bytes
     group = mesh.axis_groups[name]
     if group is None:
         return a
@@ -189,33 +251,69 @@ def all_gather_axis(a: torch.Tensor, dim: int, name: str, mesh, sizes,
         pad = list(a.shape)
         pad[dim] = mx - a.shape[dim]
         a = torch.cat([a, a.new_zeros(pad)], dim)
-    src = _to_host(a, mesh)
-    parts = [torch.empty_like(src) for _ in sizes]
+    shape = list(a.shape)
+    shape[dim] = sum(sizes)
+    out = a.new_empty(shape)
+    staged = mesh.staged
     gathers += 1
-    gather_bytes += _nbytes(src)
+    gather_bytes += _nbytes(a)
     line_gathers += tag == "line"
     spike_gathers += tag == "spike"
     plane_gathers += tag == "plane"
-    dist.all_gather(parts, src, group=group)
-    return _from_host(torch.cat([p.narrow(dim, 0, n)
-                                 for p, n in zip(parts, sizes)], dim), mesh)
+    if staged:
+        staged_bytes += _nbytes(a) + _nbytes(out)
+
+    def fn(ins, outs):
+        src = _host(ins[0]) if staged else ins[0].contiguous()
+        parts = [torch.empty_like(src) for _ in sizes]
+        dist.all_gather(parts, src, group=group)
+        pieces = [p.narrow(dim, 0, n) for p, n in zip(parts, sizes)]
+        if staged:
+            outs[0].copy_(torch.cat(pieces, dim))
+        else:
+            torch.cat(pieces, dim, out=outs[0])
+
+    run(fn, [a], [out], capturable(mesh, "all_gather"))
+    return out
 
 
 def all_gather_world(a: torch.Tensor, mesh) -> list:
     """Every rank's ``a`` (all of one shape), in rank order of the mesh."""
-    global gathers, gather_bytes
-    src = _to_host(a, mesh)
-    parts = [torch.empty_like(src) for _ in range(mesh.size)]
+    global gathers, gather_bytes, staged_bytes
+    outs = [torch.empty(a.shape, dtype=a.dtype, device=a.device)
+            for _ in range(mesh.size)]
+    staged = mesh.staged
     gathers += 1
-    gather_bytes += _nbytes(src)
-    dist.all_gather(parts, src, group=mesh.group)
-    return [_from_host(p, mesh) for p in parts]
+    gather_bytes += _nbytes(a)
+    if staged:
+        staged_bytes += _nbytes(a) * (1 + mesh.size)
+
+    def fn(ins, outs):
+        src = _host(ins[0]) if staged else ins[0].contiguous()
+        parts = [torch.empty_like(src) for _ in outs] if staged else outs
+        dist.all_gather(parts, src, group=mesh.group)
+        if staged:
+            for o, p in zip(outs, parts):
+                o.copy_(p)
+
+    run(fn, [a], outs, capturable(mesh, "all_gather"))
+    return outs
 
 
 def all_reduce_sum(t: torch.Tensor, mesh) -> torch.Tensor:
     """The sum of ``t`` over the mesh's ranks, on every rank."""
-    global reductions
-    src = _to_host(t, mesh).clone()
+    global reductions, staged_bytes
+    out = torch.empty(t.shape, dtype=t.dtype, device=t.device)
+    staged = mesh.staged
     reductions += 1
-    dist.all_reduce(src, op=dist.ReduceOp.SUM, group=mesh.group)
-    return _from_host(src, mesh)
+    if staged:
+        staged_bytes += 2 * _nbytes(t)
+
+    def fn(ins, outs):
+        buf = _host(ins[0]) if staged else outs[0].copy_(ins[0])
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+        if staged:
+            outs[0].copy_(buf)
+
+    run(fn, [t], [out], capturable(mesh, "all_reduce"))
+    return out

@@ -47,14 +47,20 @@ each on its own device, each holding its blocks of every level:
 * ``kernels.backend: xla`` runs the plain versions of the kernels
   (:mod:`cedar_tpu_torch.ops.backend`);
 * ``solve`` and ``vcycle`` run the port's cycle (``cycleN.ncycle``,
-  ``fmg_cycle``, ``cycle_residual``) eagerly with the distributed ops of
-  :class:`cedar_tpu_torch.parallel.halo.DistContext`, one all-reduce of
-  the norm a cycle, and return the global x on every rank (one
-  all-gather).
-
-Not here (ROADMAP queue 1, item 9): the distributed cycle captured as a
-CUDA graph; the fused fine-level cycle (``kernels.fine-split``) stays off
-under a mesh, as in cedar_tpu (cedar_tpu/solver/cycle2.py:170-176).
+  ``fmg_cycle``, ``cycle_residual``) with the distributed ops of
+  :class:`cedar_tpu_torch.parallel.halo.DistContext` on this rank's
+  blocks, one all-reduce of the norm a cycle (inside the iteration), one
+  readback of it a cycle, and return the global x on every rank (one
+  all-gather, after the loop).  On the card each iteration is a replay of
+  the solver's recorded iteration (:class:`cedar_tpu_torch.solver.graph.
+  RecordedIteration`, the counterpart of cedar_tpu's ``jax.jit`` of its
+  distributed solve and cycle, cedar_tpu/parallel/dist.py:289-290): one
+  CUDA graph under NCCL, its collectives inside; under gloo, whose
+  messages are staged through the host, captured segments with the calls
+  run between them.  A capture or a replay that fails raises; the CPU
+  runs the same iteration eagerly.  The fused fine-level cycle
+  (``kernels.fine-split``) stays off under a mesh, as in cedar_tpu
+  (cedar_tpu/solver/cycle2.py:170-176).
 """
 
 from __future__ import annotations
@@ -302,7 +308,8 @@ class _DistSolver:
     @property
     def levels(self) -> tuple:
         """This rank's hierarchy; assigning another (e.g. one of
-        :func:`local_levels`) rebuilds the distributed ops' workspace."""
+        :func:`local_levels`) rebuilds the distributed ops' workspace and
+        drops the recorded iterations (the next ``solve`` records anew)."""
         return self._levels
 
     @levels.setter
@@ -316,36 +323,53 @@ class _DistSolver:
                 spike=not self.settings.ml_relax_enabled,
                 plane_orients=planes3.ORIENTS_OF.get(rt, ()),
                 plane_settings=self.settings.plane_settings)
+        # the recorded iterations of solve and vcycle on the card, over
+        # this hierarchy and workspace, recorded at their first call
+        self.graphs = graph.CycleGraphs(
+            self._cycle_module(), self._levels, self.kinds, self.settings,
+            periodic=self.periodic, dist=self.dist)
 
     # -- solve -------------------------------------------------------------
     def vcycle(self, x: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """One cycle from the global ``x`` and ``b``; the global result on
-        every rank (``x`` is not modified)."""
+        every rank (``x`` is not modified).  On the card it replays the
+        recorded cycle (:class:`~cedar_tpu_torch.solver.graph.
+        CycleGraphs`)."""
+        xb, bb = self._block(x), self._block(b)
         with backend.using(self.settings.kernel_backend):
-            xb = self._cycle_module().run_cycle(
-                self.levels, self.kinds, self._block(x), self._block(b),
-                self.settings, self.periodic, dist=self.dist)
+            if bb.is_cuda:
+                xb = self.graphs.vcycle(xb, bb)
+            else:
+                xb = self._cycle_module().run_cycle(
+                    self.levels, self.kinds, xb, bb, self.settings,
+                    self.periodic, dist=self.dist)
         return self._unpad_func(self.dist.gather(xb))
 
     def solve(self, b: torch.Tensor, x0: torch.Tensor | None = None):
         """Iterate cycles on the global ``b`` until the relative residual
         drops below ``tol`` or ``max-iter`` cycles ran; returns the global x
-        on every rank.  ``history`` holds the relative norms."""
+        on every rank (``x0`` is not modified).  ``history`` holds the
+        relative norms.  On the card each cycle is one replay of the
+        recorded iteration (:class:`~cedar_tpu_torch.solver.graph.
+        CycleGraphs`), on the CPU the same iteration runs eagerly."""
         cyc, settings, dist = self._cycle_module(), self.settings, self.dist
         bb = self._block(b)
         x = torch.zeros_like(bb) if x0 is None else self._block(x0)
         self.timelog.begin("solve")
         r0 = dist.residual(0, self.kinds[0], x, bb)
         res0 = max(float(dist.norm(r0)), torch.finfo(bb.dtype).tiny)
-
-        def step():
-            nonlocal x
-            x, rnorm = cyc.cycle_residual(self.levels, self.kinds, x, bb,
-                                          settings, self.periodic, dist=dist)
-            return rnorm
-
         with backend.using(settings.kernel_backend):
-            hist = graph.iterate(step, res0, settings)
+            if bb.is_cuda:
+                x, hist = self.graphs.solve(x, bb, res0)
+            else:
+                def step():
+                    nonlocal x
+                    x, rnorm = cyc.cycle_residual(self.levels, self.kinds, x,
+                                                  bb, settings, self.periodic,
+                                                  dist=dist)
+                    return rnorm
+
+                hist = graph.iterate(step, res0, settings)
         self.timelog.end("solve", force=x)
         log.info(f"Initial residual l2 norm: {res0:g}")
         for i, rel in enumerate(hist):

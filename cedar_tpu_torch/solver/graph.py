@@ -29,17 +29,35 @@ graph of ``run_cycle`` of its own.
 * The kernel wrappers' launch counters are Python integers: they count at
   capture (and in the warm-up), never at a replay.
 
+A distributed solver's iteration (cedar_tpu compiles its distributed
+solve and cycle the same way, cedar_tpu/parallel/dist.py:289-290) is a
+:class:`RecordedIteration`: an ordered list of captured segments, with
+the communication calls that a capture may not hold between them
+(:mod:`cedar_tpu_torch.parallel.comm`, whose :func:`~cedar_tpu_torch.
+parallel.comm.run` hands each call to the recording).  Under NCCL every
+call is captured and the list is one graph; under gloo (each message
+staged through the host) the capture is cut at every call, and a replay
+runs each call eagerly between its segments, on the tensors recorded.
+
 On the card ``solve`` and ``vcycle`` always replay a graph; a capture or a
 replay that fails raises.  The CPU runs the same iteration eagerly
 (:func:`iterate` over ``cycle_residual``), the plain version of the
 graph.  :class:`CudaGraphs` is the one place that touches
-``torch.cuda.CUDAGraph``; a stand-in with its three methods (``warm``,
-``capture``, ``replay``) runs the same bookkeeping on the CPU.
+``torch.cuda.CUDAGraph``; a stand-in with its methods (``warm``,
+``capture``, ``replay``; ``capturing``, ``begin`` and ``end`` for a
+recorded iteration) runs the same bookkeeping on the CPU.
 """
 
 from __future__ import annotations
 
+import contextlib
+import warnings
+import weakref
+
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils import _pytree as pytree
+from torch.utils._python_dispatch import _disable_current_modes
 
 from cedar_tpu_torch.settings import MLSettings
 
@@ -82,6 +100,33 @@ class CudaGraphs:
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g, pool=self.pool, stream=self.stream):
             fn()
+        return g
+
+    @contextlib.contextmanager
+    def capturing(self):
+        """The side stream for a capture in segments (:meth:`begin`,
+        :meth:`end`), the card synchronised first as ``torch.cuda.graph``
+        does, without its garbage collection and cache release before
+        each capture: an iteration staged through the host has a segment
+        a call."""
+        torch.cuda.synchronize(self.device)
+        with torch.cuda.stream(self.stream):
+            yield
+        torch.cuda.synchronize(self.device)
+
+    def begin(self) -> None:
+        """Open a segment's capture on the current (side) stream, in the
+        solver's pool."""
+        self._open = torch.cuda.CUDAGraph()
+        self._open.capture_begin(pool=self.pool)
+
+    def end(self) -> torch.cuda.CUDAGraph:
+        """Close the open segment's capture; returns its graph.  A segment
+        between two calls may hold no kernel: its graph is empty."""
+        g, self._open = self._open, None
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            g.capture_end()
         return g
 
     @staticmethod
@@ -140,12 +185,122 @@ class CycleGraph:
         self.graph = self.backend.capture(
             lambda: self._step(self.x, self.b, self.norm))
 
-    def replay(self) -> torch.Tensor:
-        """One iteration; returns the static ``norm`` (no readback)."""
+    def prepare(self) -> None:
+        """:meth:`warm` and :meth:`capture` where they have not run."""
         if self.graph is None:
             self.warm()
             self.capture()
+
+    def replay(self) -> torch.Tensor:
+        """One iteration; returns the static ``norm`` (no readback)."""
+        self.prepare()
         self.backend.replay(self.graph)
+        return self.norm
+
+
+class _Live(TorchFunctionMode):
+    """Weak references to the tensors that the torch calls inside return,
+    taken (those still alive) by :meth:`take`.  A function mode: the
+    first dispatch mode of a process imports torch's symbolic machinery,
+    seconds on a host shared by a world's ranks."""
+
+    def __init__(self):
+        super().__init__()
+        self.refs = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.refs += [weakref.ref(t) for t in pytree.tree_leaves(out)
+                      if isinstance(t, torch.Tensor)]
+        return out
+
+    def take(self) -> list:
+        alive = [t for t in (r() for r in self.refs) if t is not None]
+        self.refs = []
+        return alive
+
+
+class RecordedIteration(CycleGraph):
+    """A distributed :class:`CycleGraph` (``cycle_kw`` holds ``dist``):
+    the iteration captured as ``segments``, cut at each communication
+    call that a capture may not hold; ``calls[i]`` runs between
+    ``segments[i]`` and ``segments[i + 1]``.  Under NCCL it is one
+    segment; under gloo one more than the iteration has calls.
+
+    The capture runs the iteration's Python once, with the communication
+    handed here (:func:`cedar_tpu_torch.parallel.comm.recording`): a call
+    that a capture may hold is captured where it stands; at any other the
+    open segment closes, the call runs (on the capture's data, which no
+    kernel has computed yet: its values do not matter, only that every
+    rank makes the same calls), and the next segment opens, captured
+    reading the call's outputs.  A replay walks the list in order: a
+    segment, then the next call on its recorded input tensors, writing its
+    recorded outputs.  The iteration holds, for as long as it lives, every
+    call with its inputs and outputs (``calls``) and every tensor alive at
+    a cut (``held``: whatever crosses a segment boundary, found by weak
+    references to what the torch calls of the capture return), so that no
+    other capture in the pool reuses their memory.  All segments are captured in
+    the solver's one pool and replayed in the order of their capture."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.segments, self.calls, self.held = [], [], []
+        self._live, self._open = None, False
+
+    def capture(self) -> None:
+        """The iteration recorded over the static buffers."""
+        from cedar_tpu_torch.parallel import comm
+
+        if not self._warmed:
+            raise RuntimeError("warm the iteration before capturing it")
+        self.segments, self.calls, self.held = [], [], []
+        self._live = _Live()
+        with self.backend.capturing(), self._live, comm.recording(self):
+            self._begin()
+            try:
+                self._step(self.x, self.b, self.norm)
+            except BaseException:
+                if self._open:   # leave the stream out of capture mode
+                    self._open = False
+                    with contextlib.suppress(Exception):
+                        self.backend.end()
+                raise
+            self._end()
+        self._live = None
+        self.graph = self.segments
+
+    def _begin(self) -> None:
+        self.backend.begin()
+        self._open = True
+
+    def _end(self) -> None:
+        self._open = False
+        self.segments.append(self.backend.end())
+
+    def call(self, fn, inputs: list, outputs: list,
+             capturable: bool) -> None:
+        """A communication call met in the capture
+        (:func:`cedar_tpu_torch.parallel.comm.run`)."""
+        if capturable:
+            with _disable_current_modes():
+                fn(inputs, outputs)
+            return
+        self._end()
+        self.held += self._live.take()
+        with _disable_current_modes():
+            fn(inputs, outputs)
+        self.calls.append((fn, inputs, outputs))
+        self._begin()
+
+    def replay(self) -> torch.Tensor:
+        """One iteration: each segment, then the call after it; returns
+        the static ``norm`` (no readback)."""
+        self.prepare()
+        for i, seg in enumerate(self.segments):
+            self.backend.replay(seg)
+            if i < len(self.calls):
+                fn, inputs, outputs = self.calls[i]
+                fn(inputs, outputs)
         return self.norm
 
 
@@ -153,17 +308,21 @@ class CycleGraphs:
     """A solver's captured iterations over its hierarchy ``levels``
     (``kinds``, ``settings``; ``cycle`` the cycle module of its dimension,
     :mod:`cycle2` or :mod:`cycle3`; ``periodic``, where given, the periodic
-    axes that its cycles take).
+    axes that its cycles take; ``dist``, a distributed solver's
+    :class:`~cedar_tpu_torch.parallel.halo.DistContext`, whose iterations
+    are :class:`RecordedIteration` s over this rank's blocks).
 
     ``backend`` does the capturing: by default :class:`CudaGraphs` on the
     device of the first ``b``, made with the first graph."""
 
     def __init__(self, cycle, levels, kinds, settings: MLSettings,
-                 backend=None, periodic=None):
+                 backend=None, periodic=None, dist=None):
         self.cycle, self.levels, self.kinds = cycle, levels, kinds
         self.settings = settings
         self.backend = backend
         self.cycle_kw = {} if periodic is None else {"periodic": periodic}
+        if dist is not None:
+            self.cycle_kw["dist"] = dist
         self.graphs: dict[tuple, CycleGraph] = {}
 
     def graph(self, what: str, b: torch.Tensor) -> CycleGraph:
@@ -174,7 +333,9 @@ class CycleGraphs:
         if g is None:
             if self.backend is None:
                 self.backend = CudaGraphs(b.device)
-            g = self.graphs[key] = CycleGraph(
+            kind = (RecordedIteration if "dist" in self.cycle_kw
+                    else CycleGraph)
+            g = self.graphs[key] = kind(
                 self.backend, what, self.cycle, self.levels, self.kinds,
                 self.settings, b, self.cycle_kw)
         return g
@@ -184,6 +345,7 @@ class CycleGraphs:
         cycle; returns ``(x, history)``, ``x`` a new tensor.  ``x`` and
         ``b`` are not modified."""
         g = self.graph("solve", b)
+        g.prepare()   # captured before the copy-in: the capture reads no value
         g.x.copy_(x)
         g.b.copy_(b)
         hist = iterate(g.replay, res0, self.settings)
@@ -193,6 +355,7 @@ class CycleGraphs:
         """One cycle from ``x`` as a new tensor; ``x`` and ``b`` are not
         modified."""
         g = self.graph("vcycle", b)
+        g.prepare()
         g.x.copy_(x)
         g.b.copy_(b)
         g.replay()

@@ -9,12 +9,17 @@ card, the 2D and 3D periodic solves, the inner multigrid coarse solve
 handle API (``capi``), the examples and ``profile_trace``, and the
 distributed solvers (``DistSolver2``, ``DistSolver3`` over
 ``torch.distributed``: point, line and plane relaxation, the distributed
-SPIKE line solve, periodic axes) in worlds of processes sharing the card,
-and ``kernels.backend: xla`` (the plain versions on the card).
+SPIKE line solve, periodic axes; each solve a replay of a recorded
+iteration a cycle: segments between the staged calls over gloo, one graph
+over NCCL) in worlds of processes sharing the card, and
+``kernels.backend: xla`` (the plain versions on the card).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--dist]
+
+(``--dist``: the distributed phases alone, 4j-4n and 5i-5l, without the
+kernel table.)
 
 Phases (each raises on failure; nothing is caught):
 
@@ -160,6 +165,15 @@ Phases (each raises on failure; nothing is caught):
    plane-xy and plane-xyz to tol 1e-9, x bit for bit the serial solve on
    the card; every rank's colour hierarchies and their batched coarse
    solve bit for bit the serial ones cut to its planes;
+4n. the recorded distributed iteration (run in phase 4j's worlds): the
+   400² gate on (2, 2) (also under ``kernels.backend: xla``, x bit for
+   bit the kernels', no kernel launched), the 200³ test on (2, 2, 2),
+   both in the NCCL world of one, ``2d_fe_9pt_linexy_2048`` with SPIKE
+   on (2, 2) and 4m's 64³ f64 plane-xy: on every rank x and the history
+   bit for bit the eager distributed loop's (``cycle_residual(...,
+   dist=s.dist)`` a cycle) and a ``vcycle`` bit for bit ``run_cycle``;
+   rank 0's segments one more than tools/dist_comm.py's predicted calls
+   over gloo, one graph over NCCL;
 5. the main path: 2D Poisson 4096² float32, V(1,1), the fused cycle (the
    solver's default on the card), setup and a solve of four cycles, with
    every kernel's launch count and the launches of one cycle (K1 twice a
@@ -207,8 +221,9 @@ Phases (each raises on failure; nothing is caught):
    (2, 2, 2), a solve of four cycles, x bit for bit the serial dense
    solve's, then one counted cycle (its exchanges, bytes sent, gathers,
    reductions, host-staged bytes, K1 and K6 launches on rank 0) and ms a
-   cycle over DIST_CYCLES eager cycles on every rank: N processes sharing
-   one card over gloo, not a multi-GPU figure;
+   cycle (eager) on every rank: N processes sharing one card over gloo,
+   not a multi-GPU figure; every counted cycle of 5i-5k is counted at a
+   capture (a fresh recording, whose replay counts nothing);
 5j. the line and periodic paths at full width (run in phase 4j's
    worlds): ``2d_fe_9pt_linexy_2048`` float32 V(1,1) on (2, 2) with
    ml-relax (the gather, x bit for bit the serial solve) and by default
@@ -222,8 +237,13 @@ Phases (each raises on failure; nothing is caught):
    bit the serial solve, rank 0's counted cycle equal to
    tools/dist_comm.py's model (exchanges, bytes, gathers, plane gathers,
    reductions, K10's 120 launches), the ranks' colour hierarchies
-   checked as in 4m, ms a cycle over DIST_CYCLES eager cycles and
-   ms a level-0 xy sweep (host figures);
+   checked as in 4m, ms a cycle (5l's eager median) and ms a level-0
+   xy sweep (host figures);
+5l. eager against replayed ms a cycle (host figures), in alternating
+   pairs of runs (GRAPH_DIST_PAIRS of GRAPH_DIST_CYCLES cycles), of the
+   4096² V(1,1) path on (2, 2) and ``3d_aniso_planexy_128`` on (2, 2, 2);
+   every full-width run's recording: warm-up and capture seconds,
+   segments, calls, tensors held;
 6. per-kernel times at the main paths' shapes, kernel against plain, and
    each kernel's bound: the least time for its bytes and operations at the
    H100's data-sheet rates; K1's resident regime at 64² 9-point (its
@@ -4765,7 +4785,10 @@ CEDAR_CONF2 = {"log": [], "solver": {
     "num-levels": 7, "cycle": {"nrelax-pre": 1, "nrelax-post": 1},
     "tol": 1e-10, "max-iter": 10}}
 CEDAR_CONF3 = {"log": [], "solver": {"tol": 1e-9, "max-iter": 30}}
-DIST_CYCLES = 5
+DIST_CYCLES = 3
+# 5l: eager against replayed distributed cycles, pairs of runs of cycles
+GRAPH_DIST_CYCLES = 3
+GRAPH_DIST_PAIRS = 3
 V11 = {"nrelax-pre": 1, "nrelax-post": 1}
 LINEXY = {"relaxation": "line-xy", "cycle": V11, "tol": 1e-30,
           "max-iter": 4}
@@ -4835,16 +4858,39 @@ def phase_kernels_dist(errs: dict) -> dict:
     return errs
 
 
-def _dist_cycle(s, cycle, bb, xb) -> tuple:
-    """One counted cycle of a distributed solver on this rank's blocks:
-    the kernels' launches and the communication."""
-    torch.cuda.synchronize()
-    reset_counts()
-    comm.reset()
-    xb, r = cycle.cycle_residual(s.levels, s.kinds, xb, bb, s.settings,
-                                 s.periodic, dist=s.dist)
-    float(r)
-    return xb, dist_counts(), comm.counts()
+def _recorded_cycle(s, cycle, bb) -> tuple:
+    """One counted cycle of a distributed solver on this rank's blocks,
+    counted at a capture: a fresh recording of the solve's iteration
+    (:class:`cedar_tpu_torch.solver.graph.RecordedIteration`) over the
+    solver's hierarchy, warmed up, the counts reset, captured; a replay
+    then counts no launch and no call.  Returns the kernels' launches, the
+    communication and the recording's warm-up and capture seconds, its
+    segments and calls."""
+    g = graph.CycleGraphs(cycle, s.levels, s.kinds, s.settings,
+                          periodic=s.periodic, dist=s.dist).graph(
+                              "solve", bb)
+    g.b.copy_(bb)
+    with backend.using(s.settings.kernel_backend):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g.warm()
+        t1 = time.perf_counter()
+        reset_counts()
+        comm.reset()
+        g.capture()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches, calls = dist_counts(), comm.counts()
+        reset_counts()
+        comm.reset()
+        float(g.replay())
+    if any(counts().values()) or any(comm.counts().values()):
+        raise AssertionError(f"a replay counted {counts()} {comm.counts()}")
+    rec = {"warm_s": t1 - t0, "capture_s": t2 - t1,
+           "segments": len(g.segments), "calls": len(g.calls),
+           "held": len(g.held)}
+    del g
+    return launches, calls, rec
 
 
 def _dist_ms(s, cycle, bb, xb, ncycles=DIST_CYCLES) -> float:
@@ -4861,6 +4907,72 @@ def _dist_ms(s, cycle, bb, xb, ncycles=DIST_CYCLES) -> float:
         float(r)
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) / ncycles * 1e3
+
+
+def _dist_pairs(s, cycle, bb, xb, ncycles: int = GRAPH_DIST_CYCLES,
+                pairs: int = GRAPH_DIST_PAIRS) -> dict:
+    """5l: eager against replayed ms a cycle of a distributed solver,
+    ``pairs`` pairs of ``ncycles`` cycles as the solve loop runs them (one
+    readback of the norm a cycle), the order turned each pair, the ranks
+    started together (host clock: the world's ranks share the card)."""
+    import torch.distributed as tdist
+
+    g = s.graphs.graph("solve", bb)
+    g.prepare()
+    g.x.copy_(xb)
+    g.b.copy_(bb)
+    xe = xb.clone()
+
+    def eager():
+        nonlocal xe
+        xe, r = cycle.cycle_residual(s.levels, s.kinds, xe, bb, s.settings,
+                                     s.periodic, dist=s.dist)
+        return r
+
+    ways = {"eager": eager, "graph": g.replay}
+    runs = {"eager": [], "graph": []}
+    with backend.using(s.settings.kernel_backend):
+        for k in range(pairs):
+            for way in (("eager", "graph") if k % 2 == 0
+                        else ("graph", "eager")):
+                torch.cuda.synchronize()
+                tdist.barrier()
+                t0 = time.perf_counter()
+                for _ in range(ncycles):
+                    float(ways[way]())
+                torch.cuda.synchronize()
+                runs[way].append((time.perf_counter() - t0) / ncycles * 1e3)
+    return {w: (statistics.median(v), min(v), max(v))
+            for w, v in runs.items()}
+
+
+def _graph_check(s, cycle, b, x) -> dict:
+    """4n: the solver's last solve (``x``, ``s.history``), a replay of its
+    recorded iteration a cycle, against the same solve run eagerly from
+    zeros (``cycle_residual(..., dist=s.dist)`` a cycle, the CPU's loop)
+    and one ``vcycle`` (its own recording) against ``run_cycle``: bit for
+    bit on this rank; the solve's segments and calls."""
+    bb = s._block(b)
+    xe = torch.zeros_like(bb)
+
+    def step():
+        nonlocal xe
+        xe, rnorm = cycle.cycle_residual(s.levels, s.kinds, xe, bb,
+                                         s.settings, s.periodic, dist=s.dist)
+        return rnorm
+
+    with backend.using(s.settings.kernel_backend):
+        hist = graph.iterate(step, s.res0, s.settings)
+        x_eager = s._unpad_func(s.dist.gather(xe))
+        xv = s.vcycle(x, b)
+        xr = s._unpad_func(s.dist.gather(cycle.run_cycle(
+            s.levels, s.kinds, s._block(x), bb, s.settings, s.periodic,
+            dist=s.dist)))
+    g = s.graphs.graph("solve", bb)
+    return {"hist_equal": hist == s.history, "x_equal": torch.equal(
+        x_eager, x), "x_diff": float((x_eager - x).abs().max()),
+        "vcycle_equal": torch.equal(xv, xr), "segments": len(g.segments),
+        "calls": len(g.calls), "recordings": len(s.graphs.graphs)}
 
 
 def _line_sweep_ms(s, bb, xb, reps: int = 5) -> dict:
@@ -4887,9 +4999,12 @@ def _line_sweep_ms(s, bb, xb, reps: int = 5) -> dict:
 
 
 def _dist_run(rank, cls, cycle, so, kind, conf, b, mesh, full: bool,
-              timed: bool = True):
-    """Setup, solve and (``full``) one counted cycle and (``timed``) the
-    ms a cycle of a distributed solver on this rank."""
+              timed: bool = True, check: bool = False, pairs: bool = False):
+    """Setup, solve (a replay of the recorded iteration a cycle) and
+    (``check``) :func:`_graph_check`; (``full``) one cycle counted at a
+    capture (:func:`_recorded_cycle`) and (``timed``) the ms a cycle over
+    DIST_CYCLES eager cycles, or (``pairs``) eager against replayed in
+    pairs (:func:`_dist_pairs`), of a distributed solver on this rank."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reset_counts()
@@ -4907,14 +5022,19 @@ def _dist_run(rank, cls, cycle, so, kind, conf, b, mesh, full: bool,
     if rank == 0:
         out["x"] = x.cpu()
     out["spike"] = sorted(s.dist.spike)
+    if check:
+        out["graph"] = _graph_check(s, cycle, b, x)
     if full:
         bb, xb = s._block(b), s._block(x)
-        xb, out["cycle_counts"], out["cycle_comm"] = _dist_cycle(
-            s, cycle, bb, xb)
-        if timed:
+        out["cycle_counts"], out["cycle_comm"], out["recorded"] = (
+            _recorded_cycle(s, cycle, bb))
+        if pairs:
+            out["pairs"] = _dist_pairs(s, cycle, bb, xb)
+            out["ms"] = out["pairs"]["eager"][0]
+        elif timed:
             out["ms"] = _dist_ms(s, cycle, bb, xb)
-            if s.dist.spike or s.dist._line_so:
-                out["line_ms"] = _line_sweep_ms(s, bb, xb)
+        if timed and (s.dist.spike or s.dist._line_so):
+            out["line_ms"] = _line_sweep_ms(s, bb, xb)
     return s, x, out
 
 
@@ -4931,10 +5051,17 @@ def dist_world2(rank: int) -> dict:
     so = gallery.poisson(400, 400, torch.float64, DEV)
     b = gallery.poisson_rhs(400, 400, torch.float64, DEV)
     s, x, out["gate"] = _dist_run(rank, DistSolver2, cycle2, so, FivePt,
-                                  CEDAR_CONF2, b, mesh, False)
+                                  CEDAR_CONF2, b, mesh, False, check=True)
     out["gate"]["err"] = float((x - gallery.poisson_solution(
         400, 400, torch.float64, DEV)).abs().max())
-    del s, x, so, b
+    # kernels.backend xla under the mesh: recorded too, the plain versions
+    # in its segments
+    _, xx, out["gate_xla"] = _dist_run(
+        rank, DistSolver2, cycle2, so, FivePt,
+        {**CEDAR_CONF2, "kernels": {"backend": "xla"}}, b, mesh, False,
+        check=True)
+    out["gate_xla"]["x_equal_kernels"] = torch.equal(xx, x)
+    del s, x, xx, so, b
     n = N_MAIN
     so = gallery.poisson(n, n, torch.float32, DEV)
     b = gallery.poisson_rhs(n, n, torch.float32, DEV)
@@ -4942,13 +5069,14 @@ def dist_world2(rank: int) -> dict:
                                             "nrelax-post": 1},
                                   "tol": 1e-30, "max-iter": 4}}
     _, _, out["full"] = _dist_run(rank, DistSolver2, cycle2, so, FivePt,
-                                  conf, b, mesh, True)
+                                  conf, b, mesh, True, pairs=True)
     del so, b
     for key, (make, kind, conf, n, dtype, timed) in DIST_RUNS2.items():
         so = make(n, n, dtype, DEV)
         b = periodic_rhs(conf, n, n, dtype, DEV)
         _, _, out[key] = _dist_run(rank, DistSolver2, cycle2, so, kind,
-                                   conf, b, mesh, True, timed)
+                                   conf, b, mesh, True, timed,
+                                   check=key == "linexy")
         del so, b
         torch.cuda.empty_cache()
     return out
@@ -4964,7 +5092,7 @@ def dist_world3(rank: int) -> dict:
     so = gallery.poisson3(n, n, n, torch.float64, DEV)
     b = gallery.poisson3_rhs(n, n, n, torch.float64, DEV)
     s, x, out["gate"] = _dist_run(rank, DistSolver3, cycle3, so, SevenPt,
-                                  CEDAR_CONF3, b, mesh, False)
+                                  CEDAR_CONF3, b, mesh, False, check=True)
     out["gate"]["rnorm"] = float(stencil3.residual(so, x, b,
                                                    SevenPt).norm())
     out["gate"]["err"] = float((x - gallery.poisson3_solution(
@@ -4988,14 +5116,22 @@ def dist_world3(rank: int) -> dict:
 
 
 def dist_world_nccl(rank: int) -> dict:
-    """A world of one over NCCL: the 400² float64 gate, its norm's
-    all-reduce on the card."""
+    """A world of one over NCCL: the 400² float64 gate and Cedar's 200³
+    float64 test, each iteration one graph with its norm's all-reduce
+    inside (phases 4j, 4n)."""
     mesh = make_mesh(2, shape=(1, 1), device=DEV)
     so = gallery.poisson(400, 400, torch.float64, DEV)
     b = gallery.poisson_rhs(400, 400, torch.float64, DEV)
     _, _, out = _dist_run(rank, DistSolver2, cycle2, so, FivePt,
-                          CEDAR_CONF2, b, mesh, False)
+                          CEDAR_CONF2, b, mesh, False, check=True)
     out["backend"] = mesh.backend
+    del so, b
+    n = N_CEDAR3
+    mesh3 = make_mesh(3, shape=(1, 1, 1), device=DEV)
+    so = gallery.poisson3(n, n, n, torch.float64, DEV)
+    b = gallery.poisson3_rhs(n, n, n, torch.float64, DEV)
+    _, _, out["gate3"] = _dist_run(rank, DistSolver3, cycle3, so, SevenPt,
+                                   CEDAR_CONF3, b, mesh3, False, check=True)
     return out
 
 
@@ -5115,7 +5251,10 @@ def phase_dist_gates() -> dict:
     if w1[0]["backend"] != "nccl":
         raise AssertionError("the world of one is not NCCL")
     _check_dist("400^2 DistSolver2 over NCCL", w1[0], x2, s2.history)
-    return {"w2": w2, "w3": w3, "x_full2": x_full2, "hist_full2": hist_full2,
+    _check_dist("200^3 DistSolver3 over NCCL", w1[0]["gate3"], x3,
+                s3.history)
+    return {"w2": w2, "w3": w3, "w1": w1, "x_full2": x_full2,
+            "hist_full2": hist_full2,
             "x_full3": x_full3, "hist_full3": hist_full3, "refs": refs}
 
 
@@ -5148,14 +5287,119 @@ def phase_dist_full(worlds: dict) -> dict:
               f"({cm['gather_bytes']} B), {cm['reductions']} reductions, "
               f"{cm['staged_bytes']} B host-staged; K1 {cc['sweep2_dist']}, "
               f"K6 {cc['sweep3_dist']} launches", flush=True)
-        print(f"    ms a cycle ({DIST_CYCLES} eager cycles, ranks "
-              f"together): " + ", ".join(f"rank {r} {w['full']['ms']:.2f}"
-                                         for r, w in enumerate(res)),
+        print(f"    eager ms a cycle (ranks together; 4096^2: the median of "
+              f"5l's runs): " + ", ".join(f"rank {r} {w['full']['ms']:.2f}"
+                                          for r, w in enumerate(res)),
               flush=True)
         require_launched(cc, (k,), name)
-        out[k] = f["solve_counts"][k]
+        out[k] = cc[k]
         out[k + " ms"] = f["ms"]
     return out
+
+
+def graph_checks() -> list:
+    """4n's runs: (label, world, key, n, ndim, conf, kind, mesh); each
+    solve replayed its recorded iteration, checked on every rank by
+    :func:`_graph_check`."""
+    return [
+        ("400^2 f64 (2,2) gloo", "w2", "gate", 400, 2, CEDAR_CONF2, FivePt,
+         (2, 2)),
+        ("400^2 f64 (2,2) gloo, kernels.backend xla", "w2", "gate_xla",
+         400, 2, CEDAR_CONF2, FivePt, (2, 2)),
+        ("200^3 f64 (2,2,2) gloo", "w3", "gate", N_CEDAR3, 3, CEDAR_CONF3,
+         SevenPt, (2, 2, 2)),
+        ("400^2 f64 NCCL world of one", "w1", None, 400, 2, CEDAR_CONF2,
+         FivePt, (1, 1)),
+        ("200^3 f64 NCCL world of one", "w1", "gate3", N_CEDAR3, 3,
+         CEDAR_CONF3, SevenPt, (1, 1, 1)),
+        ("2d_fe_9pt_linexy_2048 f32 SPIKE (2,2) gloo", "w2", "linexy",
+         N_LINES, 2, DIST_RUNS2["linexy"][2], NinePt, (2, 2)),
+        ("64^3 f64 plane-xy (2,2,2) gloo", "w3", "f64_pxy", 64, 3,
+         DIST_PLANE_RUNS["f64_pxy"][2], SevenPt, (2, 2, 2)),
+    ]
+
+
+def phase_dist_graph(worlds: dict) -> None:
+    """4n: the distributed solves replay a recorded iteration
+    (:func:`graph_checks`, run in phase 4j's worlds): on every rank x and
+    the history bit for bit the eager distributed loop's and a ``vcycle``
+    bit for bit ``run_cycle`` (their x against the serial graph solve:
+    phases 4j, 4m, 5j); the solve's segments one more than
+    tools/dist_comm.py's predicted calls (exchanges, gathers, reductions)
+    over gloo, one graph over NCCL; under ``kernels.backend: xla`` x bit
+    for bit the kernels' and no kernel launched."""
+    print("[4n] the recorded distributed iteration: segments between the "
+          "staged calls over gloo, one graph over NCCL", flush=True)
+    for label, world, key, n, ndim, conf, kind, mesh in graph_checks():
+        res = worlds[world]
+        runs = [w if key is None else w[key] for w in res]
+        for r, w in enumerate(runs):
+            gc = w["graph"]
+            if not (gc["hist_equal"] and gc["x_equal"]
+                    and gc["vcycle_equal"]):
+                raise AssertionError(f"{label}: rank {r}: the recorded "
+                                     f"solve differs from the eager loop "
+                                     f"({gc})")
+            if gc["segments"] != gc["calls"] + 1:
+                raise AssertionError(f"{label}: rank {r}: {gc['segments']} "
+                                     f"segments for {gc['calls']} calls")
+        f = runs[0]
+        gc = f["graph"]
+        model = _model(f, n, ndim, conf, kind, 4 if "f32" in label else 8,
+                       mesh)
+        calls = model["exchanges"] + model["gathers"] + model["reductions"]
+        nccl = world == "w1"
+        want = 1 if nccl else calls + 1
+        print(f"  {label}: x, history ({len(f['history'])} cycles) and a "
+              f"vcycle bit for bit the eager loop on every rank; rank 0 "
+              f"{'graphs' if nccl else 'segments'} {gc['segments']} "
+              f"({gc['calls']} calls cut), model {calls} calls -> {want}",
+              flush=True)
+        if gc["segments"] != want or (nccl and gc["calls"]):
+            raise AssertionError(f"{label}: {gc['segments']} segments, "
+                                 f"{gc['calls']} calls cut, model {want}")
+    x = worlds["w2"][0]["gate_xla"]
+    launched = {k: v for k, v in x["solve_counts"].items()
+                if k in KERNELS and v}
+    if not x["x_equal_kernels"] or launched:
+        raise AssertionError(f"xla under the mesh: x equal "
+                             f"{x['x_equal_kernels']}, launched {launched}")
+    print("  kernels.backend xla on (2,2): x bit for bit the kernels' on "
+          "every rank, no kernel launched", flush=True)
+
+
+def phase_dist_graph_times(worlds: dict) -> None:
+    """5l: eager against replayed ms a cycle, in alternating pairs, of the
+    4096² f32 V(1,1) path on (2, 2) and ``3d_aniso_planexy_128`` on
+    (2, 2, 2) (run in phase 4j's worlds), and every full-width run's
+    recording: warm-up and capture seconds, segments, calls.  Host
+    figures: the world's ranks share the one card over gloo."""
+    print("[5l] eager against replayed distributed cycles: N processes "
+          "sharing ONE card over gloo, host figures", flush=True)
+    for label, world, key in (("4096^2 5pt f32 V(1,1) (2,2)", "w2", "full"),
+                              ("3d_aniso_planexy_128 f32 (2,2,2)", "w3",
+                               "planes_128")):
+        for r, w in enumerate(worlds[world]):
+            p = w[key]["pairs"]
+            print(f"  {label} rank {r}: ms a cycle, median of "
+                  f"{GRAPH_DIST_PAIRS} runs of {GRAPH_DIST_CYCLES} "
+                  f"(range): eager {p['eager'][0]:.2f} ({p['eager'][1]:.2f}"
+                  f"-{p['eager'][2]:.2f}), replayed {p['graph'][0]:.2f} "
+                  f"({p['graph'][1]:.2f}-{p['graph'][2]:.2f})", flush=True)
+    for world, keys in (("w2", ["full", *DIST_RUNS2]),
+                        ("w3", ["full", "per_x3", "planes_128"])):
+        for key in keys:
+            rec = [w[key]["recorded"] for w in worlds[world]]
+            print(f"  {world} {key}: recorded on rank 0 in "
+                  f"{rec[0]['warm_s']:.3f} s warm-up + "
+                  f"{rec[0]['capture_s']:.3f} s capture "
+                  f"(ranks: {min(r['capture_s'] for r in rec):.3f}-"
+                  f"{max(r['capture_s'] for r in rec):.3f} s), "
+                  f"{rec[0]['segments']} segments, {rec[0]['calls']} calls, "
+                  f"{rec[0]['held']} tensors held", flush=True)
+            for r in rec:
+                if r["segments"] != r["calls"] + 1:
+                    raise AssertionError(f"{world} {key}: {r}")
 
 
 def phase_times_dist() -> dict:
@@ -5242,9 +5486,9 @@ def phase_kernels_dist_lines(errs: dict) -> dict:
 
 
 def _model(res: dict, n: int, ndim: int, conf: dict, kind,
-           itemsize: int) -> dict:
+           itemsize: int, mesh=None) -> dict:
     """tools/dist_comm.py's prediction of one cycle on rank 0 of the run
-    ``res`` (its specs)."""
+    ``res`` (its specs) on ``mesh`` (default (2,) * ndim)."""
     from cedar_tpu_torch.solver import solver2, solver3
 
     sm = solver2 if ndim == 2 else solver3
@@ -5252,7 +5496,7 @@ def _model(res: dict, n: int, ndim: int, conf: dict, kind,
     shapes = sm.level_shapes(*(n,) * ndim, len(res["specs"]))
     pts = {FivePt: 5, NinePt: 9, SevenPt: 7, TwentySevenPt: 27}[kind]
     return dist_comm.predict(
-        shapes, res["specs"], (2,) * ndim, itemsize,
+        shapes, res["specs"], mesh or (2,) * ndim, itemsize,
         st.get("cycle", {}).get("nrelax-pre", 2),
         st.get("cycle", {}).get("nrelax-post", 1),
         {5: 2, 7: 2, 9: 4, 27: 8}[pts], 4 if ndim == 2 else 8,
@@ -5300,8 +5544,13 @@ def _report_dist(name: str, res: list, key: str, ref, n: int, ndim: int,
           f"{f['cycle_counts']['line2']}, K1 {f['cycle_counts']['sweep2_dist']}"
           f", K6 {f['cycle_counts']['sweep3_dist']} launches", flush=True)
     print(f"    model (tools/dist_comm.py): {model}", flush=True)
+    rec = f["recorded"]
+    print(f"    counted at a capture: {rec['segments']} segments, "
+          f"{rec['calls']} calls (model "
+          f"{model['exchanges'] + model['gathers'] + model['reductions']})",
+          flush=True)
     if "ms" in f:
-        print(f"    ms a cycle ({DIST_CYCLES} eager cycles, ranks "
+        print(f"    eager ms a cycle ({DIST_CYCLES} cycles, ranks "
               f"together): " + ", ".join(f"rank {r} {w[key]['ms']:.2f}"
                                          for r, w in enumerate(res)),
               flush=True)
@@ -5653,10 +5902,11 @@ def dist_world3_planes(rank: int, mesh, out: dict) -> None:
         so = make(n, n, n, dtype, DEV)
         b = gallery.poisson3_rhs(n, n, n, dtype, DEV)
         s, x, r = _dist_run(rank, DistSolver3, cycle3, so, kind, conf, b,
-                            mesh, full, False)
+                            mesh, full, False, check=key == "f64_pxy",
+                            pairs=full)
         if full:
             bb, xb = s._block(b), s._block(x)
-            r["cycle_ms"] = _dist_ms(s, cycle3, bb, xb)
+            r["cycle_ms"] = r["ms"]
             r["sweep_ms"] = _plane_sweep_ms(s, bb, xb)
         if key != "f64_pxyz":
             r["setup_check"] = _plane_setup_check(s, so, kind, conf)
@@ -5731,8 +5981,8 @@ def phase_dist_planes_full(worlds: dict) -> dict:
                              f"{model['k10']}")
     print(f"  {key}: the counted cycle equals the model; K10 "
           f"{cc['line_xy2']} launches a cycle on rank 0 (serial cycle: "
-          f"120), K2 {cc['restrict2']}, K3 {cc['interp_add2']}; ms a "
-          f"cycle ({DIST_CYCLES} eager cycles) "
+          f"120), K2 {cc['restrict2']}, K3 {cc['interp_add2']}; eager ms "
+          f"a cycle (5l's median) "
           + ", ".join(f"rank {r} {w[key]['cycle_ms']:.2f}"
                       for r, w in enumerate(res))
           + f"; ms a level-0 xy sweep, rank 0: {f['sweep_ms']:.2f}",
@@ -5823,7 +6073,32 @@ def timed(phase, *args):
     return out
 
 
+def main_dist() -> None:
+    """``python3 chip_smoke.py --dist``: the distributed phases alone (4j,
+    4k, 4m, 4n, 5i-5l), without the kernel table."""
+    t0 = time.perf_counter()
+    phase_device()
+    timed(phase_build)
+    worlds = timed(phase_dist_gates)
+    timed(phase_dist_f64_gates, worlds)
+    timed(phase_dist_planes_gates, worlds)
+    timed(phase_dist_graph, worlds)
+    timed(phase_dist_full, worlds)
+    timed(phase_dist_lines_full, worlds)
+    timed(phase_dist_planes_full, worlds)
+    timed(phase_dist_graph_times, worlds)
+    print(f"  (distributed phases: {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> None:
+    if sys.argv[1:] == ["--dist"]:
+        return main_dist()
+    if sys.argv[1:]:
+        raise SystemExit(f"usage: {sys.argv[0]} [--dist]")
     t0 = time.perf_counter()
     phase_device()
     timed(phase_build)
@@ -5854,6 +6129,7 @@ def main() -> None:
     worlds = timed(phase_dist_gates)
     timed(phase_dist_f64_gates, worlds)
     timed(phase_dist_planes_gates, worlds)
+    timed(phase_dist_graph, worlds)
     timed(phase_backend_xla)
     launches = timed(phase_main_path)
     launches["sweep2_fused"] = timed(phase_main_variants)["sweep2_fused"]
@@ -5868,6 +6144,7 @@ def main() -> None:
     dist_full = timed(phase_dist_full, worlds)
     timed(phase_dist_lines_full, worlds)
     timed(phase_dist_planes_full, worlds)
+    timed(phase_dist_graph_times, worlds)
     launches["sweep2_dist"] = dist_full["sweep2_dist"]
     launches["sweep3_dist"] = dist_full["sweep3_dist"]
     # K5's and K9's periodic modes run in the periodic F-cycles (phases 4f
